@@ -1,0 +1,86 @@
+"""The PyTorch port stands alone: no JAX, no ``ml_recipe_tpu``, no CPU fallback.
+
+- an AST walk of every module of ``ml_recipe_tpu_torch/`` and of
+  ``chip_smoke.py`` finds no import of jax, flax, optax or the JAX package
+  (``ml_recipe_tpu`` itself or ``ml_recipe_tpu.*`` — not the bare prefix,
+  which the port's own name shares);
+- importing the serving entry point in a fresh interpreter loads no jax;
+- the entry points default to CUDA and raise without it.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+_REPO = Path(__file__).resolve().parents[1]
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_recipe_tpu")
+
+
+def _sources():
+    files = sorted((_REPO / "ml_recipe_tpu_torch").rglob("*.py"))
+    return files + [_REPO / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == name or module.startswith(name + ".")
+               for name in _FORBIDDEN)
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_forbidden_matches_the_package_not_the_prefix():
+    assert _forbidden("ml_recipe_tpu") and _forbidden("ml_recipe_tpu.serve")
+    assert _forbidden("jax.numpy") and _forbidden("flax")
+    assert not _forbidden("ml_recipe_tpu_torch.serve")
+    assert not _forbidden("jaxtyping")
+
+
+def test_no_port_module_imports_jax_or_the_jax_package():
+    files = _sources()
+    assert len(files) > 20 and files[-1].exists()
+    offenders = [f"{path.relative_to(_REPO)}: {mod}"
+                 for path in files for mod in _imports(path)
+                 if _forbidden(mod)]
+    assert not offenders, offenders
+
+
+def test_serving_entry_point_loads_no_jax():
+    code = ("import sys, ml_recipe_tpu_torch.cli.serve, "
+            "ml_recipe_tpu_torch.serve.engine, ml_recipe_tpu_torch.serve.server; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'optax', 'ml_recipe_tpu')); "
+            "assert not bad, bad")
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(_REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_default_device_without_cuda_raises(monkeypatch, tmp_path):
+    from ml_recipe_tpu_torch.compose import init_model
+    from ml_recipe_tpu_torch.config.parser import get_model_parser
+    from ml_recipe_tpu_torch.tokenizer import write_synthetic_bert_vocab
+    from ml_recipe_tpu_torch.utils.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device()
+    vocab = write_synthetic_bert_vocab(tmp_path / "vocab.txt", size=200)
+    params, _ = get_model_parser().parse_known_args(
+        ["--model", "bert-tiny", "--vocab_file", vocab])
+    assert params.device == "cuda"
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        init_model(params)
+    # asking for the CPU on purpose works
+    model, _ = init_model(params, device="cpu")
+    assert model.device.type == "cpu"
