@@ -11,20 +11,33 @@ Phases, each fatal on failure (exit code 1, and no result line):
    hand-written kernel from ``ml_recipe_tpu_torch/csrc`` (one ``nvcc`` per
    source, started together);
 2. every kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it (bert-base: 12 heads of 64, bf16), with
-   key masks, segments, dropout and the logsumexp output; then timings by
-   CUDA events (median of several runs) of the kernel, the plain version
-   and one PyTorch library call computing the same function, beside the
-   least time the card could take (``bound_ms``);
+   shapes the serving and training paths give it (bert-base: 12 heads of
+   64), bf16 and f32, with key masks, segments (all-masked pad rows
+   included), dropout and the logsumexp output; the autograd Function's
+   gradients against ``torch.autograd`` through the plain forward; then
+   timings by CUDA events (median of several runs) of each kernel, its
+   plain version and one PyTorch library call computing the same function,
+   beside the least time the card could take (``bound_ms``);
 3. the serving path at full width: ``config/serve.cfg`` through the
    parsers, ``compose.init_model`` (bert-base-uncased, 12 layers, bf16,
    seeded random weights, a synthetic vocab), ``QAEngine`` over the
    ``8x128,8x384,32x384`` grid, warmup and ``QAServer`` on port 0, then
    concurrent ``POST /v1/qa`` requests reaching both seq buckets and a full
    32-row batch. Launch counts are set to 0 just before this phase and read
-   just after: every kernel must have run, and attention exactly 12 times
-   per device batch. One full batch is scored again with the plain
-   attention and must agree.
+   just after: the forward kernel must have run exactly 12 times per device
+   batch, the backward never. One full batch is scored again with the plain
+   attention and must agree;
+4. the training path at full width: ``config/test_bert.cfg`` through the
+   trainer and model parsers, ``check_train_flags``, then the build and
+   train sequence of ``ml_recipe_tpu_torch.cli.train`` (bert-base-uncased,
+   bf16 compute, f32 master weights, 2 debug steps of 8 micro-batches of
+   32x512, an eval after each epoch). Launch counts are set to 0 just before
+   the training run and read just after: the backward kernel must have run
+   12 times per micro-batch and the forward 12 times per micro-batch and
+   per eval batch. Losses must be finite and the parameters must have moved.
+   Then one micro-batch's forward+backward is timed and split by kernel,
+   its gradients with kernel attention are held against plain attention,
+   and one checkpoint is written and read back.
 
 It then prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line. Without CUDA, or outside a checkout
@@ -34,6 +47,9 @@ of the repository, it exits non-zero before printing either.
 from __future__ import annotations
 
 import json
+import math
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -43,18 +59,47 @@ import urllib.error
 import urllib.request
 from pathlib import Path
 
+import numpy as np
+
 REPO = Path(__file__).resolve().parent
 OUT_DIR = REPO / "chip_smoke_out"     # the synthetic vocab (git-ignored)
 
 H, D = 12, 64                      # bert-base attention heads
 SHAPES = [(8, 128), (8, 384), (32, 384), (2, 200)]   # (B, L); 2x200 ragged
-SERVING_SHAPE = (32, 384)          # the shape the kernels line reports
+SERVING_SHAPE = (32, 384)          # the serving path's full batch
+TRAIN_SHAPE = (32, 512)            # the training micro-batch (test_bert.cfg)
+BWD_SHAPES = [(32, 512), (8, 128), (2, 200)]         # 2x200 ragged
+TRAIN_RATE = 0.1                   # attention_probs_dropout_prob
 # kernel vs plain, per output type. bf16: the kernel rounds each
 # probability to bf16 against its running row max, the plain version
 # against the final max (2**-9 relative each), and both round the output
 # to bf16 (2**-9 relative); |out| < 4 here, so a few bf16 ulps.
 ATOL = {"bf16": 3e-2, "f32": 1e-4}
 LSE_ATOL = 1e-3   # f32 logsumexp of O(10) scores, summed in other orders
+# backward kernel vs plain, on the same forward residuals. Unit-normal
+# q, k, v and g give dq, dk, dv of mean size 0.01-0.13 and largest size
+# 1-5 (each check prints both). f32: the same formula in another summation
+# order over up to 512 keys (~1e-6 relative), held to an atol. bf16: both
+# round p_drop and ds to bf16 at the same points and sum in f32, so a
+# result a hair from a bf16 rounding boundary rounds either way: one bf16
+# step (8 significant bits) at its size. Two limits: the largest error
+# within BWD_BF16_STEPS steps at max|ref| (2**-7 to 2**-6 of max|ref|; a
+# wrong scale, a dropped 1/(1-rate) or a wrong tile moves far more), and,
+# in both dtypes, the relative L2 error within BWD_REL_L2, which another
+# summation order meets by 10x (~5e-5) and a misplaced bf16 rounding point
+# misses by 5x (~2.6e-3; tests/test_torch_cuda.py pins both on the CPU)
+BWD_ATOL_F32 = 2e-4
+BWD_BF16_STEPS = 2
+BWD_REL_L2 = 5e-4
+# the Function's f32 gradients against torch.autograd through the plain
+# forward: two different algorithms (lse + delta identity vs the softmax
+# chain rule), f32 throughout
+GRAD_ATOL = 2e-4
+# one bert-base micro-batch's flat gradient, kernel vs plain attention, in
+# bf16 compute: attention outputs and their gradients differ by bf16
+# rounding (2**-9 relative) at different points, and 12 post-LN layers
+# forward and back carry that into every parameter's gradient
+TRAIN_GRAD_REL_TOL = 0.05
 # the full 12-layer model, kernel vs plain attention in bf16: attention
 # outputs differ by bf16 ulps and 12 post-LN layers carry that into O(1)
 # logits; span ids must match wherever the top-2 margin exceeds this
@@ -82,6 +127,28 @@ def card_peaks(name: str):
     fail(f"no peak rates known for card {name!r}")
 
 
+def ptxas_reports(build_log: str):
+    """``(kernel, report)`` per compiled kernel from nvcc's ``-Xptxas -v``
+    output: the kernel's name and template arguments (element type, head
+    dim), and its registers, stack and spills on one line."""
+    kernel, parts = None, []
+    for line in build_log.splitlines():
+        entry = re.search(r"Compiling entry function .*?(?<=\d)"
+                          r"(fused_attention_[a-z_]+?)I(f|13__nv_bfloat16)"
+                          r"Li(\d+)E", line)
+        if entry:
+            if kernel is not None:
+                yield kernel, "; ".join(parts)
+            name, dtype, d = entry.groups()
+            kernel = f"{name}<{'f32' if dtype == 'f' else 'bf16'}, D={d}>"
+            parts = []
+        elif kernel is not None and ("registers" in line or "spill" in line):
+            parts.append(line.split(":", 1)[-1].strip() if "ptxas" in line
+                         else line.strip())
+    if kernel is not None:
+        yield kernel, "; ".join(parts)
+
+
 def time_ms(torch, fn, reps: int = 15, warm: int = 3) -> float:
     """Median device time of one ``fn()`` call, by CUDA events."""
     for _ in range(warm):
@@ -99,41 +166,65 @@ def time_ms(torch, fn, reps: int = 15, warm: int = 3) -> float:
     return statistics.median(times)
 
 
-def phase_kernels(torch, fa, bw, flops):
-    """Kernel against plain version at the serving shapes, then timings."""
-    import numpy as np
+def _attention_inputs(torch, fa, rng, B, L, dtype):
+    """q, k, v, key mask, segment ids (three packed segments, then padding,
+    and in the last row every token padding) and row seeds, from ``rng``."""
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, L, H, D),
+                                                    dtype=np.float32))
+               .to("cuda", dtype) for _ in range(3))
+    mask = (rng.random((B, L)) > 0.2).astype(np.int32)
+    mask[:, 0] = 1
+    seg = np.zeros((B, L), np.int32)
+    for b in range(B - 1):
+        c1, c2, c3 = sorted(rng.choice(np.arange(1, L), 3, replace=False))
+        seg[b, :c1], seg[b, c1:c2], seg[b, c2:c3] = 1, 2, 3
+    seeds = fa.row_seeds(torch.from_numpy(
+        rng.integers(-2**31, 2**31 - 1, B).astype(np.int32)), B, H, "cuda")
+    return (q, k, v, torch.from_numpy(mask).cuda(),
+            torch.from_numpy(seg).cuda(), seeds)
 
+
+def bf16_step(x: float) -> float:
+    """The spacing of bf16 values (8 significant bits) at magnitude ``x``."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
+
+
+def _bound(n_bytes, n_ops, bw, flops):
+    """``(bound_ms, bound_by)``: the larger of the bytes and operations
+    terms at the card's published peaks."""
+    t_bytes, t_ops = n_bytes / bw, n_ops / flops
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+CASES = [
+    ("mask", dict()),
+    ("mask+dropout", dict(rate=TRAIN_RATE)),
+    ("segmented", dict(segmented=True)),
+    ("segmented+dropout", dict(segmented=True, rate=TRAIN_RATE)),
+]
+
+
+def phase_kernels(torch, fa, bw, flops):
+    """The forward kernel against its plain version at the serving and
+    training shapes, then timings (serving configuration at the serving
+    shapes, training configuration at 32x512)."""
     import torch.nn.functional as F
 
     rng = np.random.default_rng(0)
     results, max_err = {}, 0.0
-
-    def inputs(B, L, dtype):
-        q, k, v = (torch.from_numpy(rng.standard_normal((B, L, H, D),
-                                                        dtype=np.float32))
-                   .to("cuda", dtype) for _ in range(3))
-        mask = (rng.random((B, L)) > 0.2).astype(np.int32)
-        mask[:, 0] = 1
-        seg = np.zeros((B, L), np.int32)
-        for b in range(B):  # three packed segments, then padding
-            c1, c2, c3 = sorted(rng.choice(np.arange(1, L), 3, replace=False))
-            seg[b, :c1], seg[b, c1:c2], seg[b, c2:c3] = 1, 2, 3
-        seeds = fa.row_seeds(torch.from_numpy(
-            rng.integers(-2**31, 2**31 - 1, B).astype(np.int32)), B, H, "cuda")
-        return (q, k, v, torch.from_numpy(mask).cuda(),
-                torch.from_numpy(seg).cuda(), seeds)
-
     cases = [
         ("mask", dict()),
-        ("mask+dropout+lse", dict(rate=0.1, want_lse=True)),
+        ("mask+dropout+lse", dict(rate=TRAIN_RATE, want_lse=True)),
         ("segmented+lse", dict(segmented=True, want_lse=True)),
-        ("segmented+dropout", dict(segmented=True, rate=0.1)),
+        ("segmented+dropout", dict(segmented=True, rate=TRAIN_RATE)),
     ]
-    runs = [(B, L, torch.bfloat16, "bf16", cases) for B, L in SHAPES]
+    runs = [(B, L, torch.bfloat16, "bf16", cases)
+            for B, L in SHAPES + [TRAIN_SHAPE]]
     runs += [(2, 200, torch.float32, "f32", cases),
              (8, 128, torch.float32, "f32", cases[1:2])]
     for B, L, dtype, tname, run_cases in runs:
-        q, k, v, mask, seg, seeds = inputs(B, L, dtype)
+        q, k, v, mask, seg, seeds = _attention_inputs(torch, fa, rng, B, L,
+                                                      dtype)
         for case, kw in run_cases:
             m = seg if kw.get("segmented") else mask
             args = dict(seeds=seeds if kw.get("rate") else None, **kw)
@@ -159,25 +250,164 @@ def phase_kernels(torch, fa, bw, flops):
 
         if dtype != torch.bfloat16:
             continue
-        # timings of the serving configuration: key mask, rate 0, no lse
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         bool_mask = (mask > 0)[:, None, None, :]
-        kernel_ms = time_ms(torch, lambda: fa.fused_attention_cuda(q, k, v, mask))
-        plain_ms = time_ms(torch, lambda: fa.fused_attention_plain(q, k, v, mask))
-        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=bool_mask))
-        n_bytes = 4 * B * L * H * D * q.element_size() + mask.numel() * 4
         n_ops = 4 * B * H * L * L * D
-        bound_ms = max(n_bytes / bw, n_ops / flops) * 1e3
-        bound_by = "bytes" if n_bytes / bw >= n_ops / flops else "operations"
+        if (B, L) == TRAIN_SHAPE:
+            # the training configuration: dropout and the lse output
+            config = "rate 0.1, lse"
+            kernel_ms = time_ms(torch, lambda: fa.fused_attention_cuda(
+                q, k, v, mask, seeds, TRAIN_RATE, want_lse=True))
+            plain_ms = time_ms(torch, lambda: fa.fused_attention_plain(
+                q, k, v, mask, seeds, TRAIN_RATE, want_lse=True))
+            library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=bool_mask, dropout_p=TRAIN_RATE))
+            n_bytes = (4 * B * L * H * D * q.element_size() + mask.numel() * 4
+                       + B * 4 + B * H * L * 4)
+        else:
+            # the serving configuration: key mask, rate 0, no lse
+            config = "rate 0"
+            kernel_ms = time_ms(torch, lambda: fa.fused_attention_cuda(q, k, v, mask))
+            plain_ms = time_ms(torch, lambda: fa.fused_attention_plain(q, k, v, mask))
+            library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=bool_mask))
+            n_bytes = 4 * B * L * H * D * q.element_size() + mask.numel() * 4
+        bound_ms, bound_by = _bound(n_bytes, n_ops, bw, flops)
         results[(B, L)] = dict(ms=kernel_ms, plain_ms=plain_ms,
                                library_ms=library_ms, bound_ms=bound_ms,
                                bound_by=bound_by)
-        say(f"timing fused_attention_fwd {B}x{L}x{H}x{D} bf16: "
+        say(f"timing fused_attention_fwd {B}x{L}x{H}x{D} bf16 ({config}): "
             f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms(sdpa)={library_ms:.4f} bound_ms={bound_ms:.4f} "
             f"({bound_by}; {n_bytes} B, {n_ops} ops)")
     return results, max_err
+
+
+def phase_bwd_kernel(torch, fa, bw, flops):
+    """The backward kernel against its plain version on the same forward
+    residuals, the Function's gradients against autograd through the plain
+    forward, then timings at the training micro-batch."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(1)
+    max_err = 0.0
+    for B, L in BWD_SHAPES:
+        for dtype, tname in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            q, k, v, mask, seg, seeds = _attention_inputs(torch, fa, rng, B,
+                                                          L, dtype)
+            g = torch.from_numpy(rng.standard_normal(
+                (B, L, H, D), dtype=np.float32)).to("cuda", dtype)
+            for case, kw in CASES:
+                m = seg if kw.get("segmented") else mask
+                rate = kw.get("rate", 0.0)
+                sd = seeds if rate else None
+                segmented = kw.get("segmented", False)
+                out, lse = fa.fused_attention_plain(q, k, v, m, sd, rate,
+                                                    segmented, want_lse=True)
+                args = (q, k, v, g, out, lse, m, sd, rate, segmented)
+                got = fa.fused_attention_bwd_cuda(*args)
+                ref = fa.fused_attention_bwd_plain(*args)
+                torch.cuda.synchronize()
+                errs, tols, rels, refs, means = [], [], [], [], []
+                for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+                    a, b = a.float(), b.float()
+                    if not bool(torch.isfinite(a).all()):
+                        fail(f"backward {name} not finite at {B}x{L} {tname} "
+                             f"{case}")
+                    errs.append((a - b).abs().max().item())
+                    rels.append(((a - b).norm() / b.norm()).item())
+                    refs.append(b.abs().max().item())
+                    means.append(b.abs().mean().item())
+                    tols.append(BWD_BF16_STEPS * bf16_step(refs[-1])
+                                if tname == "bf16" else BWD_ATOL_F32)
+                ok = all(e <= t and r <= BWD_REL_L2
+                         for e, t, r in zip(errs, tols, rels))
+                say(f"kernel-vs-plain fused_attention_bwd B={B} L={L} H={H} "
+                    f"D={D} {tname} {case}: dq/dk/dv max_abs_err "
+                    f"{errs[0]:.3e} {errs[1]:.3e} {errs[2]:.3e} (tol "
+                    f"{tols[0]:.3e} {tols[1]:.3e} {tols[2]:.3e}), rel_l2 "
+                    f"{rels[0]:.2e} {rels[1]:.2e} {rels[2]:.2e} (tol "
+                    f"{BWD_REL_L2:g}); max|ref| {refs[0]:.3f} {refs[1]:.3f} "
+                    f"{refs[2]:.3f}, mean|ref| {means[0]:.3f} {means[1]:.3f} "
+                    f"{means[2]:.3f} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"backward kernel disagrees with plain at {B}x{L} "
+                         f"{tname} {case}")
+                max_err = max(max_err, *errs)
+            del q, k, v, g, out, lse, got, ref
+
+    # the kernel pair under autograd against autograd of the plain forward
+    # (f32; segmented pad rows get a zero cotangent, as downstream masking
+    # gives them: the TPU backward zeroes their contributions)
+    for B, L in ((8, 128), (2, 200)):
+        q, k, v, mask, seg, seeds = _attention_inputs(torch, fa, rng, B, L,
+                                                      torch.float32)
+        for segmented in (False, True):
+            m = seg if segmented else mask
+            g = torch.from_numpy(rng.standard_normal(
+                (B, L, H, D), dtype=np.float32)).cuda()
+            if segmented:
+                g = g * (m > 0)[:, :, None, None]
+            grads = []
+            for plain in (False, True):
+                x = [t.clone().requires_grad_() for t in (q, k, v)]
+                if plain:
+                    out = fa.fused_attention_plain(*x, m, seeds, TRAIN_RATE,
+                                                   segmented)
+                else:
+                    out = fa.fused_attention(*x, m, seed=seeds,
+                                             rate=TRAIN_RATE,
+                                             segmented=segmented)
+                    if out.grad_fn is None:
+                        fail("fused_attention on CUDA tensors that require "
+                             "grad returned no grad_fn")
+                grads.append(torch.autograd.grad(out, x, g))
+            err = max((a - b).abs().max().item() for a, b in zip(*grads))
+            say(f"FusedAttention grads vs autograd of the plain forward "
+                f"B={B} L={L} f32 {'segmented' if segmented else 'mask'}"
+                f"+dropout: max_abs_err={err:.3e} (tol {GRAD_ATOL:g}) "
+                f"{'ok' if err <= GRAD_ATOL else 'FAIL'}")
+            if not err <= GRAD_ATOL:
+                fail("the autograd Function's gradients disagree")
+
+    # timings: the training micro-batch, bf16, key mask, dropout 0.1
+    B, L = TRAIN_SHAPE
+    q, k, v, mask, _, seeds = _attention_inputs(torch, fa, rng, B, L,
+                                                torch.bfloat16)
+    g = torch.from_numpy(rng.standard_normal(
+        (B, L, H, D), dtype=np.float32)).to("cuda", torch.bfloat16)
+    out, lse = fa.fused_attention_cuda(q, k, v, mask, seeds, TRAIN_RATE,
+                                       want_lse=True)
+    args = (q, k, v, g, out, lse, mask, seeds, TRAIN_RATE, False)
+    kernel_ms = time_ms(torch, lambda: fa.fused_attention_bwd_cuda(*args))
+    plain_ms = time_ms(torch, lambda: fa.fused_attention_bwd_plain(*args),
+                       reps=5)
+    # yardstick: scaled_dot_product_attention's backward with the same
+    # boolean mask and dropout rate, timed as (forward + backward) minus
+    # forward
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    gt = g.transpose(1, 2)
+    bool_mask = (mask > 0)[:, None, None, :]
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bool_mask,
+                                              dropout_p=TRAIN_RATE)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), gt)
+
+    library_ms = time_ms(torch, sdpa_fwd_bwd) - time_ms(torch, sdpa_fwd)
+    n_bytes = (8 * B * L * H * D * q.element_size() + B * H * L * 4
+               + mask.numel() * 4 + B * 4)
+    n_ops = 5 * 2 * B * H * L * L * D
+    bound_ms, bound_by = _bound(n_bytes, n_ops, bw, flops)
+    say(f"timing fused_attention_bwd {B}x{L}x{H}x{D} bf16 (rate 0.1): "
+        f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms(sdpa backward, fwd+bwd minus fwd)={library_ms:.4f} "
+        f"bound_ms={bound_ms:.4f} ({bound_by}; {n_bytes} B, {n_ops} ops)")
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by), max_err
 
 
 def _post(url: str, payload: dict, timeout: float = 300.0):
@@ -195,8 +425,6 @@ def _post(url: str, payload: dict, timeout: float = 300.0):
 def phase_serving(torch, fa, kernel_ms):
     """The serving path at full width; returns the attention launch count.
     ``kernel_ms``: the kernel's time at 32x384, for the forward's breakdown."""
-    import numpy as np
-
     from ml_recipe_tpu_torch.compose import init_model
     from ml_recipe_tpu_torch.config.parser import (
         check_serve_flags, get_model_parser, get_params, get_serve_parser)
@@ -258,6 +486,7 @@ def phase_serving(torch, fa, kernel_ms):
     engine.batcher._run_fn = recording
 
     fa.KERNEL.launches = 0          # the main path starts here
+    fa.BWD_KERNEL.launches = 0
     warm = engine.warmup()
     server = QAServer(engine, host=params.host, port=params.port,
                       request_timeout_s=params.request_timeout_s,
@@ -280,6 +509,8 @@ def phase_serving(torch, fa, kernel_ms):
     wall = time.perf_counter() - t0
     torch.cuda.synchronize()
     launches = fa.KERNEL.launches   # the main path ends here
+    if fa.BWD_KERNEL.launches:
+        fail("the serving path launched the backward kernel")
     batches = int(engine.m_batches.value)
     server.stop()
     server.shutdown()
@@ -389,6 +620,161 @@ def phase_serving(torch, fa, kernel_ms):
     return launches
 
 
+def phase_training(torch, fa):
+    """The training path at full width; returns the forward and backward
+    launch counts of the training run."""
+    from ml_recipe_tpu_torch.cli import train as train_cli
+    from ml_recipe_tpu_torch.config.parser import (
+        check_train_flags, get_model_parser, get_params, get_trainer_parser)
+    from ml_recipe_tpu_torch.tokenizer import write_synthetic_bert_vocab
+    from ml_recipe_tpu_torch.train.checkpoint import read_state
+
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    vocab = write_synthetic_bert_vocab(OUT_DIR / "vocab.txt")
+    _, (params, model_params) = get_params(
+        (get_trainer_parser, get_model_parser),
+        ["-c", str(REPO / "config" / "test_bert.cfg"), "--vocab_file", vocab,
+         "--dump_dir", str(OUT_DIR / "results")])
+    params.n_jobs = max(1, min(params.n_jobs, (os.cpu_count() or 2) // 2))
+    check_train_flags(params, model_params)
+    t0 = time.perf_counter()
+    trainer = train_cli.build_trainer(params, model_params)
+    model = trainer.model
+    say(f"training: {model_params.model} {model.cfg.num_layers} layers hidden "
+        f"{model.cfg.hidden_size} compute {model.dtype} params "
+        f"{next(model.parameters()).dtype} on {model.device}, batch "
+        f"{params.train_batch_size} = {params.batch_split} x "
+        f"{params.train_batch_size // params.batch_split} x "
+        f"{params.max_seq_len}; built in {time.perf_counter() - t0:.1f}s "
+        f"(of it {trainer.plan_seconds:.2f}s planning "
+        f"{trainer.planned_steps_per_epoch} steps/epoch over the dummy items)")
+    if (model.cfg.num_layers != 12 or model.dtype != torch.bfloat16
+            or any(p.dtype != torch.float32 for p in model.parameters())):
+        fail("the training configuration is not bert-base with bf16 compute "
+             "and f32 master weights")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    fa.KERNEL.launches = 0          # the main path starts here
+    fa.BWD_KERNEL.launches = 0
+    t0 = time.perf_counter()
+    train_cli.train(trainer, params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = fa.KERNEL.launches, fa.BWD_KERNEL.launches  # ends here
+
+    layers = model.cfg.num_layers
+    micro = len(trainer.history) * params.batch_split
+    say(f"training: {len(trainer.history)} steps + {trainer.eval_batches} eval "
+        f"batches in {wall:.1f}s; step wall seconds "
+        f"{[round(h['seconds'], 3) for h in trainer.history]}; lr "
+        f"{[h['lr'] for h in trainer.history]}; loss "
+        f"{[round(h['loss'], 4) for h in trainer.history]}")
+    say(f"training: attention launches forward={fwd} (expected {layers} x "
+        f"({micro} micro-batches + {trainer.eval_batches} eval batches) = "
+        f"{layers * (micro + trainer.eval_batches)}), backward={bwd} "
+        f"(expected {layers} x {micro} = {layers * micro})")
+    if len(trainer.history) != 2 or micro != 16:
+        fail("the debug run did not take 2 steps of 8 micro-batches")
+    if bwd != layers * micro or fwd != layers * (micro + trainer.eval_batches):
+        fail("attention launch counts do not match the training path")
+    if not all(np.isfinite(v) for h in trainer.history for k, v in h.items()
+               if k not in ("step", "rows", "seconds")):
+        fail("a training loss is not finite")
+    if trainer.eval_batches != 22:
+        fail(f"expected 2 x 11 debug eval batches, ran {trainer.eval_batches}")
+    moved = sum(not torch.equal(p.detach(), before[n])
+                for n, p in model.named_parameters())
+    say(f"training: {moved} of {len(before)} parameter tensors changed")
+    if moved == 0:
+        fail("no parameter changed after two steps")
+    del before
+
+    # one 32x512 micro-batch: device time of forward+backward, split by kernel
+    items = [trainer.train_dataloader.dataset[i] for i in range(TRAIN_SHAPE[0])]
+    inputs, labels = trainer.collate_fun(items)[:2]
+    inputs = {k: torch.from_numpy(v).cuda() for k, v in inputs.items()}
+    labels = {k: torch.from_numpy(v).cuda() for k, v in labels.items()}
+    params_t = list(model.parameters())
+    attn = [m for m in model.modules() if hasattr(m, "attention_impl")]
+
+    def fwd_bwd(impl="auto", seed=0):
+        for m in attn:
+            m.attention_impl = impl
+        for p in params_t:
+            p.grad = None
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        preds = model(**trainer._model_inputs(inputs), generator=gen)
+        total, _ = trainer.loss(preds, labels)
+        total.backward()
+
+    model.train()
+    step_ms = time_ms(torch, fwd_bwd, reps=5, warm=2)
+    split = profile_fwd_bwd(torch, fwd_bwd)
+    rest = step_ms - split["attention forward"] - split["attention backward"]
+    say(f"training: one 32x512 micro-batch forward+backward device ms="
+        f"{step_ms:.3f}: attention forward {split['attention forward']:.3f}, "
+        f"attention backward {split['attention backward']:.3f}, rest "
+        f"{rest:.3f} (from a torch.profiler trace)")
+
+    # its gradients with kernel attention vs plain attention (same dropout)
+    flat = []
+    for impl in ("auto", "xla"):
+        fwd_bwd(impl, seed=7)
+        flat.append(torch.cat([p.grad.float().reshape(-1) for p in params_t]))
+    for m in attn:
+        m.attention_impl = "auto"
+    for p in params_t:
+        p.grad = None
+    rel = ((flat[0] - flat[1]).norm() / flat[1].norm()).item()
+    say(f"training: 32x512 micro-batch gradient, kernel vs plain attention: "
+        f"relative L2 error {rel:.3e} (tol {TRAIN_GRAD_REL_TOL:g})")
+    if not (np.isfinite(rel) and rel <= TRAIN_GRAD_REL_TOL):
+        fail("kernel and plain attention gradients disagree")
+    del flat
+
+    # one checkpoint with debug off, read back
+    trainer.debug = False
+    path = OUT_DIR / "results" / "smoke.ch"
+    t0 = time.perf_counter()
+    trainer.save_state_dict(path)
+    save_s = time.perf_counter() - t0
+    state = read_state(path)
+    ok = (state["global_step"] == 2 and state["optimizer"] is not None
+          and int(state["optimizer"]["0"]["0"]["count"]) == 2
+          and f"layer_{layers - 1}" in state["model"]["transformer"])
+    say(f"training: checkpoint {path.stat().st_size} bytes written in "
+        f"{save_s:.1f}s and read back: global_step {state['global_step']} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the checkpoint did not read back")
+    path.unlink()
+    return fwd, bwd
+
+
+def profile_fwd_bwd(torch, fn):
+    """Device ms of one ``fn()`` in the attention forward and backward
+    kernels, from a torch.profiler trace; fails when the trace holds no
+    device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = [(e.name, e.time_range.end - e.time_range.start)
+             for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not spans:
+        fail("the profiler trace of the training micro-batch holds no "
+             "device events")
+    return {
+        "attention forward": sum(
+            us for n, us in spans if "fused_attention_fwd" in n) / 1e3,
+        "attention backward": sum(
+            us for n, us in spans if "fused_attention_bwd" in n) / 1e3,
+    }
+
+
 def profile_forward(torch, forward, reps: int = 5) -> None:
     """Device time of ``forward`` by kernel family, and the device's idle
     share over ``reps`` back-to-back calls, from a ``torch.profiler`` trace.
@@ -458,31 +844,48 @@ def main() -> int:
         f"peaks used for bound_ms: {bw / 1e12:g} TB/s, {flops / 1e12:g} "
         f"TFLOP/s bf16")
 
-    libraries = [fa.KERNEL.library]
+    libraries = [fa.KERNEL.library, fa.BWD_KERNEL.library]
     t0 = time.perf_counter()
     built = cuda_build.build(*libraries)
     say(f"kernel build: {len(built)} of {len(libraries)} libraries built in "
         f"{time.perf_counter() - t0:.1f}s")
     for lib in built:
-        for line in lib.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"ptxas {lib.source.name}: {line.strip()}")
+        for kernel, report in ptxas_reports(lib.build_log):
+            say(f"ptxas {lib.source.name} {kernel}: {report}")
 
-    timings, max_err = phase_kernels(torch, fa, bw, flops)
-    t = timings[SERVING_SHAPE]
-    launches = phase_serving(torch, fa, t["ms"])
+    timings, fwd_err = phase_kernels(torch, fa, bw, flops)
+    bwd, bwd_err = phase_bwd_kernel(torch, fa, bw, flops)
+    serving_fwd = phase_serving(torch, fa, timings[SERVING_SHAPE]["ms"])
+    train_fwd, train_bwd = phase_training(torch, fa)
+    fwd = timings[TRAIN_SHAPE]
     say(json.dumps({"kernels": [{
         "name": "fused_attention_fwd",
         "route": "cuda",
         "source": "ml_recipe_tpu_torch/csrc/fused_attention_fwd.cu",
         "replaces": "ml_recipe_tpu/ops/flash_attention.py:129",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": t["ms"],
-        "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"],
-        "library_ms": t["library_ms"],
+        "launches": serving_fwd + train_fwd,
+        "launches_by_path": {"serving": serving_fwd, "training": train_fwd},
+        "max_abs_err": fwd_err,
+        "ms": fwd["ms"],
+        "plain_ms": fwd["plain_ms"],
+        "bound_ms": fwd["bound_ms"],
+        "bound_by": fwd["bound_by"],
+        "library_ms": fwd["library_ms"],
+        "shape": "32x512x12x64 bf16, dropout 0.1, lse (training)",
+    }, {
+        "name": "fused_attention_bwd",
+        "route": "cuda",
+        "source": "ml_recipe_tpu_torch/csrc/fused_attention_bwd.cu",
+        "replaces": "ml_recipe_tpu/ops/flash_attention.py:266",
+        "launches": train_bwd,
+        "launches_by_path": {"serving": 0, "training": train_bwd},
+        "max_abs_err": bwd_err,
+        "ms": bwd["ms"],
+        "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"],
+        "library_ms": bwd["library_ms"],
+        "shape": "32x512x12x64 bf16, dropout 0.1 (training)",
     }]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,5 +1,5 @@
-"""Composition root (the serving part of ``ml_recipe_tpu/compose.py``):
-tokenizer and model construction from the parsed model flags."""
+"""Composition root (the port of ``ml_recipe_tpu/compose.py``): tokenizer,
+model, loss, datasets and collate construction from the parsed flags."""
 
 from __future__ import annotations
 
@@ -9,8 +9,12 @@ from typing import Optional, Tuple
 
 import torch
 
+from .data.collate import make_collate_fun
+from .data.datasets import DummyDataset
 from .data.labels import labels2id
+from .losses import WeightedLoss, build_loss
 from .models import QAModel, init_weights, resolve_model_config
+from .models.encoder import Embedding, Linear
 from .tokenizer import Tokenizer
 from .utils.device import resolve_device
 
@@ -45,9 +49,15 @@ def init_model(
     checkpoint: Optional[str] = None,
     rng_seed: int = 0,
     device=None,
+    train: bool = False,
 ) -> Tuple[QAModel, object]:
-    """Build ``(model, tokenizer)``: random init from a seeded
-    ``torch.Generator``, then the optional single-file ``checkpoint``.
+    """Build ``(model, tokenizer)``: f32 params from a seeded
+    ``torch.Generator``, then the optional single-file ``checkpoint``; the
+    compute dtype is ``--compute_dtype``. When ``train``, the model is in
+    training mode (dropout on) and every param stays f32 (the optimizer's
+    master weights). Otherwise it is in eval mode and the Linear and
+    Embedding params are cast to the compute dtype once, so their cast at
+    each use is a no-op.
 
     ``device`` (else ``model_params.device``, else ``cuda``) must exist:
     without CUDA the default raises instead of running on the CPU."""
@@ -66,7 +76,43 @@ def init_model(
         from .train.checkpoint import load_state_dict
 
         load_state_dict(model, checkpoint)
-    model.eval()
+    model.train(train)
+    if not train:
+        for module in model.modules():
+            if isinstance(module, (Linear, Embedding)):
+                module.to(module.compute_dtype)
     logger.info("Model %s built on %s in %s (%d layers).", model_params.model,
                 dev, dtype, cfg.num_layers)
     return model, tokenizer
+
+
+def init_loss(params, train_weights=None) -> WeightedLoss:
+    """Loss zoo selection + per-head weights (init.py:18-40)."""
+    loss = build_loss(params, train_weights)
+    logger.info(f"Used loss function for classification: {params.loss}.")
+    return loss
+
+
+def init_datasets(params, *, tokenizer=None, rng=None):
+    """``(train_dataset, test_dataset, weights)``: the ``--dummy_dataset``
+    path (10000 train and 1024 test items, as the JAX package builds them).
+    The NQ corpus path raises until it is ported."""
+    if not getattr(params, "dummy_dataset", False):
+        raise NotImplementedError(
+            "the NQ corpus input path (RawPreprocessor, SplitDataset) is not "
+            "ported to ml_recipe_tpu_torch yet (ROADMAP.md queue 1, 'NQ "
+            "corpus input path'); pass --dummy_dataset")
+    logger.warning("Dummy dataset is used to train model.")
+    common = dict(data_dir=None, tokenizer=tokenizer, indexes=None,
+                  max_seq_len=params.max_seq_len,
+                  max_question_len=params.max_question_len, rng=rng)
+    weights = {"label_weights": None, "sampler_weights": None}
+    return (DummyDataset(**common), DummyDataset(dataset_len=1024, **common),
+            weights)
+
+
+def init_collate_fun(tokenizer, *, max_seq_len: Optional[int] = None,
+                     return_items: bool = False):
+    """Bind tokenizer + static shape (init.py:204-205)."""
+    return make_collate_fun(tokenizer, max_seq_len=max_seq_len,
+                            return_items=return_items)

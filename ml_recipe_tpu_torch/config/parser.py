@@ -3,22 +3,26 @@
 ``key = value`` config files are pre-parsed into defaults, and keys a parser
 does not know come back from ``parse_known_args`` so ``get_params`` can
 route one cfg file to several parsers and fail only on keys no parser
-knows. The model and serve parsers carry the JAX package's flags, so
-``config/serve.cfg`` parses unchanged, plus one flag of the port's own:
-``--device`` (``cuda`` by default; ``cpu`` only when asked for).
+knows. The model, trainer and serve parsers carry the JAX package's flags,
+so ``config/serve.cfg`` and ``config/test_bert.cfg`` parse unchanged, plus
+one flag of the port's own: ``--device`` (``cuda`` by default; ``cpu`` only
+when asked for).
 
-:func:`check_serve_flags` holds the serve entry point to what the port
-implements: a flag whose subsystem is not ported yet and which would change
-results at a non-default value raises ``NotImplementedError`` naming its
-ROADMAP.md item; flags with no port counterpart that change no result are
-accepted and logged once as not ported.
+:func:`check_serve_flags` and :func:`check_train_flags` hold the entry
+points to what the port implements: a flag whose subsystem is not ported
+yet and which would change results at a non-default value raises
+``NotImplementedError`` naming its ROADMAP.md item; flags with no port
+counterpart that change no result are accepted and logged once as not
+ported.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
+from pathlib import Path
 from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 
 from ..models.config import MODEL_PRESETS
@@ -33,6 +37,30 @@ def cast2(type_):
 
 def _str2bool(value: str) -> bool:
     return str(value).strip().lower() in ("1", "true", "yes", "on")
+
+
+def cast_prefetch(value):
+    """Device-prefetch depth domain: an int depth, or 'auto'."""
+    if str(value).strip().lower() == "auto":
+        return "auto"
+    return int(value)
+
+
+def cast_loss_scale(value: str):
+    """'None' -> None, 'dynamic' -> 'dynamic', anything else -> float
+    (apex's loss_scale flag domain)."""
+    if value == "None":
+        return None
+    if value == "dynamic":
+        return "dynamic"
+    return float(value)
+
+
+MESH_HELP = (
+    "Device mesh axes as 'name:size' pairs, e.g. 'data:8', "
+    "'data:4,model:2', 'data:2,seq:4', or 'data:2,pipe:2' (the port runs "
+    "one device: only None is accepted)."
+)
 
 
 def cast_bytes(value) -> int:
@@ -123,6 +151,9 @@ class ConfigArgumentParser(argparse.ArgumentParser):
             self.set_defaults(**{key: converted})
         return unknown
 
+    def serialize(self, config_items: dict) -> str:
+        return "".join(f"{key} = {value}\n" for key, value in config_items.items())
+
     def parse_known_args(self, args=None, namespace=None):  # type: ignore[override]
         if args is None:
             args = sys.argv[1:]
@@ -163,6 +194,19 @@ def get_params(
         raise SystemExit(f"Incorrect command line parameters: {sorted(unused)}.")
 
     return parsers, params
+
+
+def write_config_file(parser: ConfigArgumentParser, parsed_namespace,
+                      output_path) -> None:
+    """Serialize the effective config into the experiment dir."""
+    config_items = {
+        k: getattr(parsed_namespace, k)
+        for k in sorted(parsed_namespace.__dict__.keys())
+        if "config" not in k
+    }
+    with open(output_path, "w") as output_file:
+        output_file.write(parser.serialize(config_items))
+    logger.info(f"Config was saved to {output_path}.")
 
 
 # ---------------------------------------------------------------------------
@@ -232,6 +276,458 @@ def get_model_parser() -> ConfigArgumentParser:
                         help="Port only: torch device of the model. The "
                              "default needs CUDA and never falls back to the "
                              "CPU; pass 'cpu' to run there on purpose.")
+
+    return parser
+
+
+def init_base_arguments(parser: ConfigArgumentParser) -> None:
+    parser.add_argument("-c", "--config_file", required=False, is_config_file=True,
+                        help="Config file path.")
+
+    parser.add_argument("--data_path", type=str, default=None,
+                        help="Path to JSON with documents.")
+    parser.add_argument("--processed_data_path", type=str, default=None,
+                        help="Path where processed dataset will be saved.")
+
+    parser.add_argument("--gpu", action="store_true",
+                        help="Accepted for reference-config compatibility; the "
+                             "port's device is --device.")
+
+    parser.add_argument("--max_seq_len", type=int, default=384, help="Max input seq length.")
+    parser.add_argument("--max_question_len", type=int, default=64, help="Max question length.")
+    parser.add_argument("--doc_stride", type=int, default=128,
+                        help="Step size during doc splitting.")
+
+    parser.add_argument("--split_by_sentence", action="store_true",
+                        help="Split document by sentence instead.")
+    parser.add_argument("--truncate", action="store_true",
+                        help="Cut off long sentences during splitting by sentence.")
+
+    parser.add_argument("--n_jobs", type=int, default=16,
+                        help="Number of host-side data pipeline workers.")
+
+
+def get_trainer_parser() -> ConfigArgumentParser:
+    parser = ConfigArgumentParser(description="Trainer config parser.", add_help=False)
+    init_base_arguments(parser)
+
+    parser.add_argument("--trainer_config_file", required=False, is_config_file=True,
+                        help="Trainer config file path.")
+
+    parser.add_argument("--dump_dir", type=Path, default=Path("./results"), help="Dump path.")
+    parser.add_argument("--experiment_name", type=str, default="test", help="Experiment name.")
+
+    parser.add_argument("--last", type=cast2(str), default=None, help="Restored checkpoint.")
+
+    parser.add_argument("--seed", type=cast2(int), default=None, help="Seed for random state.")
+
+    parser.add_argument("--n_epochs", type=int, default=10, help="Number of epochs.")
+
+    parser.add_argument("--train_batch_size", type=int, default=128,
+                        help="Global number of items in an optimizer-step batch.")
+    parser.add_argument("--test_batch_size", type=int, default=16,
+                        help="Number of items in batch.")
+    parser.add_argument("--batch_split", type=int, default=1,
+                        help="Micro-batch count for gradient accumulation "
+                             "(lax.scan inside the jitted step).")
+
+    parser.add_argument("--lr", type=float, default=1e-5, help="Learning rate for optimizer.")
+    parser.add_argument("--weight_decay", type=float, default=0.01,
+                        help="Weight decay for optimizer.")
+
+    parser.add_argument("--clear_processed", action="store_true",
+                        help="Clear previous processed dataset.")
+
+    parser.add_argument("--w_start", type=float, default=1,
+                        help="Weight of start position classification.")
+    parser.add_argument("--w_end", type=float, default=1,
+                        help="Weight of end position classification.")
+    parser.add_argument("--w_start_reg", type=float, default=0,
+                        help="Weight of start position regression loss.")
+    parser.add_argument("--w_end_reg", type=float, default=0,
+                        help="Weight of end position regression loss.")
+    parser.add_argument("--w_cls", type=float, default=1,
+                        help="Weight of doc label classification.")
+
+    parser.add_argument("--loss", type=str, default="ce", choices=["ce", "focal", "smooth"],
+                        help="Type of doc label classification loss")
+
+    parser.add_argument("--smooth_alpha", type=float, default=0.01,
+                        help="Smooth CE loss parameter.")
+    parser.add_argument("--focal_alpha", type=float, default=1, help="Focal loss parameter.")
+    parser.add_argument("--focal_gamma", type=float, default=2, help="Focal loss parameter.")
+
+    parser.add_argument("--max_grad_norm", type=float, default=1,
+                        help="Max global norm of the gradients")
+    parser.add_argument("--optimizer_sharding", type=cast2(str), default=None,
+                        choices=[None, "off", "zero1"],
+                        help="Optimizer-state layout: 'zero1' shards every "
+                             "AdamW/AdaMod state leaf over the mesh data "
+                             "axis (padding-aware per-leaf specs; memory "
+                             "~1/N per chip) and runs the weight update on "
+                             "each replica's shard only — grads reduce-"
+                             "scatter, updated params all-gather back "
+                             "replicated. 'off' replicates the full state "
+                             "per chip (historical layout; 1-chip zero1 is "
+                             "bit-identical to off). Default defers to the "
+                             "legacy --shard_optimizer boolean.")
+    parser.add_argument("--shard_optimizer", action="store_true",
+                        help="Legacy alias of --optimizer_sharding zero1 "
+                             "(kept for existing configs): shard optimizer "
+                             "moments over the mesh data axis (memory 1/N; "
+                             "XLA all-gathers the sharded updates). The "
+                             "reference replicates optimizer state per "
+                             "process.")
+    parser.add_argument("--pipe_schedule", type=cast2(str), default="gpipe",
+                        choices=["gpipe", "1f1b"],
+                        help="Pipeline tick schedule when --mesh has a pipe "
+                             "axis > 1: 'gpipe' (default) keeps all "
+                             "batch_split micro-batch activations resident "
+                             "through the forward sweep; '1f1b' interleaves "
+                             "one-forward-one-backward so at most "
+                             "min(batch_split, 2K-1) stage inputs stay "
+                             "resident. Gradients accumulate exactly as the "
+                             "sequential scan (same trajectory within "
+                             "pipeline tolerance); inert without a pipe "
+                             "axis.")
+    parser.add_argument("--pipe_param_sharding", type=cast2(str),
+                        default="auto",
+                        choices=["auto", "stage", "replicated"],
+                        help="Pipeline parameter/optimizer storage: 'stage' "
+                             "keeps each pipe rank holding ONLY its own "
+                             "stage's trunk weights and moments (~1/K "
+                             "per-chip bytes; islands all-gather slices "
+                             "per tick), 'replicated' keeps the PR-15 "
+                             "every-rank-holds-everything layout, 'auto' "
+                             "(default) picks 'stage' whenever the pipe "
+                             "axis is > 1 on a multi-device mesh.")
+    parser.add_argument("--zero1_overlap", type=cast2(str), default="off",
+                        choices=["off", "bucketed"],
+                        help="ZeRO-1 collective overlap: 'bucketed' splits "
+                             "the flat gradient accumulation into "
+                             "size-targeted contiguous buckets so each "
+                             "bucket's reduce-scatter / all-gather is "
+                             "independently schedulable and hides under "
+                             "the remaining backward/update compute, "
+                             "instead of one fused tail exchange. Same "
+                             "arithmetic (trajectories agree to GSPMD "
+                             "reduction-order tolerance); 'off' (default) "
+                             "keeps the monolithic exchange verbatim. "
+                             "Inert without an active zero1 layout.")
+    parser.add_argument("--zero1_bucket_mb", type=float, default=4.0,
+                        help="Bucketed ZeRO-1 overlap: target f32 payload "
+                             "per gradient bucket in MB (a single larger "
+                             "leaf gets its own bucket; small leaves "
+                             "coalesce).")
+    parser.add_argument("--async_checkpoint", action="store_true",
+                        help="Async overlapped checkpointing: saves block "
+                             "only for the device-to-host snapshot; the "
+                             "serialize+write persist runs on a background "
+                             "thread with the same per-leaf crc32 and "
+                             "atomic-rename discipline, a completion "
+                             "barrier before the next save / restore / "
+                             "exit / SIGTERM resume, and the previous "
+                             "valid checkpoint staying newest if a crash "
+                             "lands mid-persist. Saved bytes are identical "
+                             "to a sync save of the same step.")
+    parser.add_argument("--sharded_checkpoint", action="store_true",
+                        help="Checkpoint saves write a per-process sharded "
+                             "directory (each host saves only the array "
+                             "shards it owns) instead of gathering the full "
+                             "state for one single-file write. Restore "
+                             "auto-detects either layout and works across "
+                             "topology changes (save at world N, restore at "
+                             "world M), but reassembles the full state on "
+                             "each host — the no-gather memory bound applies "
+                             "to saves only.")
+    parser.add_argument("--sync_bn", action="store_true",
+                        help="Cross-replica normalization statistics sync (reference "
+                             "SyncBN flag; BERT has LayerNorm so this is a no-op "
+                             "unless BatchNorm layers are present).")
+
+    parser.add_argument("--warmup_coef", type=float, default=0.05, help="Warmup coefficient.")
+
+    # Padding-free input pipeline (data/bucketing.py + data/device_prefetch.py).
+    parser.add_argument("--length_buckets", type=str, default="off",
+                        help="Length-bucketed token-budget batching: 'off' "
+                             "(pad every batch to max_seq_len — historical "
+                             "behavior), 'auto' (evenly spaced seq grid "
+                             "ending at max_seq_len, e.g. 128,256,384,512), "
+                             "or explicit comma-separated seq edges. Batches "
+                             "pad to their BUCKET and the per-bucket batch "
+                             "size scales inversely with seq (constant "
+                             "token budget per step); one compiled program "
+                             "per occupied bucket. Single-process only.")
+    parser.add_argument("--sequence_packing", type=str, default="off",
+                        help="Sequence packing (data/packing.py): "
+                             "concatenate short chunks into full "
+                             "max_seq_len rows with block-diagonal "
+                             "attention and per-segment heads — ~every "
+                             "token real, ONE compiled train program "
+                             "(vs one per bucket). 'off' (default) keeps "
+                             "the bucketed/padded path bit-exactly; 'on' "
+                             "enables it and supersedes --length_buckets. "
+                             "Single-process only.")
+    parser.add_argument("--pack_max_segments", type=int, default=8,
+                        help="Sequence packing: max chunks packed into one "
+                             "row (the static S of the per-segment label "
+                             "planes and head outputs).")
+    parser.add_argument("--pack_splitting", type=str, default="off",
+                        help="Hole-filling chunk splitting for the packer: "
+                             "'off' (default — the non-splitting packer, "
+                             "bit-identical to before) or 'fill' (a chunk "
+                             "that fits no open row is split at a "
+                             "label-safe token boundary — never through "
+                             "the gold answer span — and its head "
+                             "fragment fills the largest residual hole; "
+                             "the span-bearing fragment keeps the labels, "
+                             "siblings are ignore-indexed). Breaks the "
+                             "~1.6%% waste floor of quantized chunk mixes.")
+    parser.add_argument("--pack_min_fragment", type=int, default=32,
+                        help="Splitting packer: minimum fragment size in "
+                             "tokens (no head or tail fragment goes below "
+                             "this — avoids degenerate few-token "
+                             "segments).")
+    parser.add_argument("--device_prefetch", type=cast_prefetch, default=0,
+                        help="Double-buffered device prefetch depth: keep "
+                             "this many placed global batches in flight on "
+                             "a background thread so the host->device copy "
+                             "of step k+1 overlaps compute of step k. 0 = "
+                             "synchronous placement (historical behavior); "
+                             "2 is the intended on-chip setting; 'auto' "
+                             "times the first few steps of epoch 1 and "
+                             "picks depth 1 vs 2, logging the choice. The "
+                             "trajectory is bit-identical at any depth.")
+    parser.add_argument("--log_every", type=int, default=10,
+                        help="Steps between tqdm-postfix/TensorBoard writes "
+                             "in the train loop (meters still update every "
+                             "step; the epoch's final state is always "
+                             "written).")
+
+    # Kernel geometry autotuner + HBM pre-flight planner (measured
+    # configuration over analytic byte-counting).
+    parser.add_argument("--autotune", type=_str2bool, default=True,
+                        help="Compile-probe kernel geometry autotuner "
+                             "(ops/autotune.py): on TPU, attention block "
+                             "geometries are validated with real lowering "
+                             "probes, ranked by modeled step cost, and "
+                             "persisted in the on-disk tuning cache; off "
+                             "reverts to pure analytic VMEM arithmetic. "
+                             "CPU/interpret always uses the arithmetic.")
+    parser.add_argument("--autotune_cache", type=cast2(str), default=None,
+                        help="Directory of the tuning cache (default "
+                             "artifacts/tuning/, or $MLRT_AUTOTUNE_CACHE).")
+    parser.add_argument("--aot_cache", type=cast2(str), default=None,
+                        help="AOT compiled-program store (ops/aot.py): "
+                             "'off' disables it (every program compiles, "
+                             "exactly the pre-store behavior), a path "
+                             "overrides the store directory (default "
+                             "artifacts/aot/, or $MLRT_AOT_CACHE). A warm "
+                             "restart deserializes its train-step programs "
+                             "instead of recompiling them.")
+    parser.add_argument("--aot_cache_bytes", type=cast_bytes, default=0,
+                        help="Byte budget for the AOT program store "
+                             "(K/M/G suffixes); oldest artifacts are "
+                             "evicted past it. 0 = unbounded.")
+    parser.add_argument("--hbm_preflight", type=_str2bool, default=True,
+                        help="Before the first train step, compile once and "
+                             "read XLA's memory_analysis; if the step "
+                             "exceeds device HBM, raise batch_split "
+                             "(logged with before/after byte counts) "
+                             "instead of dying in XLA allocation.")
+
+    # Mixed precision: native policy + accepted Apex aliases.
+    parser.add_argument("--precision", type=cast2(str), default=None,
+                        choices=[None, "f32", "bf16"],
+                        help="Mixed-precision policy. None defers to apex_level mapping.")
+    parser.add_argument("--apex_level", type=cast2(str),
+                        choices=[None, "O0", "O1", "O2", "O3"], default=None,
+                        help="Reference-compat alias: O1/O2/O3 -> bf16, O0/None -> f32.")
+    parser.add_argument("--apex_verbosity", type=int, default=1,
+                        help="Accepted for config compatibility.")
+    parser.add_argument("--apex_loss_scale", type=cast_loss_scale, default=None,
+                        help="Loss scale: a number for static, 'dynamic' for "
+                             "apex-style dynamic scaling (halve on overflow, "
+                             "double after 2000 finite steps, update skipped "
+                             "on overflow). bf16 on TPU normally needs none.")
+
+    parser.add_argument("--drop_optimizer", action="store_true",
+                        help="Not restore optimizer and scheduler from checkpoint.")
+
+    parser.add_argument("--debug", action="store_true", help="Debug mode.")
+    parser.add_argument("--trace", action="store_true",
+                        help="Dump an xplane device trace of train steps 2-4 "
+                             "into <dump_dir>/board/<experiment>/trace "
+                             "(view with TensorBoard/XProf).")
+    parser.add_argument("--dummy_dataset", action="store_true",
+                        help="Use generated dataset instead real data.")
+
+    # Distributed: reference names preserved, XLA semantics underneath.
+    parser.add_argument("--local_rank", type=int, default=-1,
+                        help="Process index of this host (reference name kept; feeds "
+                             "jax.distributed.initialize process_id).")
+    parser.add_argument("--dist_backend", type=str, default="xla", choices=["xla", "nccl"],
+                        help="Accepted for compatibility; collectives always run "
+                             "through XLA over ICI/DCN.")
+    parser.add_argument("--dist_init_method", type=str, default="tcp://127.0.0.1:9080",
+                        help="Coordinator address (host:port); tcp:// prefix accepted "
+                             "for reference compatibility.")
+    parser.add_argument("--dist_world_size", type=int, default=1,
+                        help="Number of host processes.")
+    parser.add_argument("--mesh", type=cast2(str), default=None,
+                        help=MESH_HELP)
+
+    # Fault tolerance (resilience/): supervised restart + watchdog + drills.
+    parser.add_argument("--supervise", action="store_true",
+                        help="Wrap the run in the auto-resume supervisor: "
+                             "restart on preemption/hang/crash with "
+                             "exponential backoff, resume from the newest "
+                             "valid checkpoint, abort on a crash-loop.")
+    parser.add_argument("--max_restarts", type=int, default=5,
+                        help="Supervisor: restarts after the first attempt.")
+    parser.add_argument("--backoff_base", type=float, default=1.0,
+                        help="Supervisor: seconds before the first restart "
+                             "(doubles per restart, seeded +-10%% jitter).")
+    parser.add_argument("--backoff_max", type=float, default=30.0,
+                        help="Supervisor: backoff ceiling in seconds.")
+    parser.add_argument("--crash_loop_window", type=int, default=3,
+                        help="Supervisor: abort with a diagnosis after this "
+                             "many consecutive failed attempts with no "
+                             "global_step progress.")
+    parser.add_argument("--watchdog_timeout", type=cast2(float), default=None,
+                        help="Seconds a train/eval step or checkpoint "
+                             "barrier may take before the watchdog dumps "
+                             "all-thread stacks and aborts for restart. "
+                             "None disables. Must comfortably exceed the "
+                             "first (compiling) step.")
+    parser.add_argument("--fault_plan", type=cast2(str), default=None,
+                        help="Fault-injection drill spec, e.g. "
+                             "'ckpt.pre_manifest:kill@2!once;"
+                             "loader.read:raise@1x3' "
+                             "(see resilience/faults.py for the grammar, "
+                             "including %%hostN host scoping; "
+                             "also via $MLRT_FAULTS).")
+    parser.add_argument("--elastic", type=cast2(str), default="off",
+                        choices=["off", "on"],
+                        help="Elastic pod supervision (with --supervise): "
+                             "per-host supervisors coordinate through "
+                             "<exp_dir>/pod/ heartbeat files — a dead "
+                             "host's peers kill+restart their children "
+                             "immediately and resume on a re-derived "
+                             "smaller mesh (data axis shrinks; pipe/seq/"
+                             "model refuse). Default off: fixed-world "
+                             "supervision, byte-identical to before.")
+    parser.add_argument("--min_world", type=int, default=1,
+                        help="Elastic: abort (instead of shrinking further) "
+                             "when fewer live hosts remain — training "
+                             "degenerately narrow burns budget silently.")
+    parser.add_argument("--host_timeout", type=float, default=60.0,
+                        help="Elastic: seconds a peer host's heartbeat may "
+                             "age before it is declared lost and the pod "
+                             "restarts without it.")
+    parser.add_argument("--coord_poll", type=float, default=2.0,
+                        help="Elastic: seconds between coordination sweeps "
+                             "(heartbeat publish + peer reads) while the "
+                             "child runs.")
+
+    # Observability plane (metrics/ + train/telemetry.py): everything off
+    # by default — the off path is pinned bit-identical.
+    parser.add_argument("--metrics_port", type=cast2(int), default=None,
+                        help="Serve the training-plane Prometheus registry "
+                             "at http://0.0.0.0:<port>/metrics (+ /healthz) "
+                             "from a daemon thread: per-step wall-time "
+                             "breakdown (data wait / host / device), "
+                             "tokens/sec, padding waste, checkpoint "
+                             "durations, watchdog heartbeat age, supervisor "
+                             "restart counts. 0 binds an ephemeral port "
+                             "(logged); None (default) disables. Multi-host "
+                             "runs add the process index to the port so "
+                             "each host exports its own plane.")
+    parser.add_argument("--trace_spans", type=cast2(str), default=None,
+                        help="Write structured host trace spans (loader -> "
+                             "place/H2D -> step -> checkpoint) as Chrome "
+                             "trace-event JSON into this directory — load "
+                             "in Perfetto. Composes with --trace: the "
+                             "xplane window boundaries are marked in the "
+                             "span stream. None (default) disables.")
+    parser.add_argument("--anomaly_factor", type=float, default=3.0,
+                        help="Slow-step detector (active with "
+                             "--metrics_port): a step slower than this "
+                             "factor times the rolling median step time "
+                             "logs one structured WARNING with the "
+                             "breakdown attribution and increments "
+                             "train_slow_steps_total.")
+    parser.add_argument("--anomaly_window", type=int, default=64,
+                        help="Slow-step detector: rolling window size "
+                             "(steps) for the median+MAD baseline.")
+    parser.add_argument("--goodput_ledger", action="store_true",
+                        help="Keep the run-level goodput ledger "
+                             "(goodput.jsonl next to supervisor_state.json "
+                             "in the experiment dir): an append-only event "
+                             "log partitioning total run wall-clock into "
+                             "productive step time vs named badput "
+                             "(compile/warmup, data wait, checkpoint "
+                             "save/restore, eval, restart downtime, "
+                             "recomputed steps), summarized at run end and "
+                             "exported as train_goodput_ratio + "
+                             "train_badput_seconds_total{category=...}. "
+                             "Survives supervised restarts. Off by "
+                             "default.")
+    parser.add_argument("--flight_recorder", action="store_true",
+                        help="Arm the crash flight recorder: a bounded "
+                             "ring of the last N structured events (step "
+                             "breakdown, anomaly verdicts, checkpoint "
+                             "events, loss-scale adjustments) dumped "
+                             "atomically to a timestamped JSON in the "
+                             "experiment dir on crash, watchdog abort, "
+                             "SIGTERM and periodically — the supervisor's "
+                             "crash-loop diagnosis reads the newest dump "
+                             "back. Off by default.")
+    parser.add_argument("--flightrec_events", type=int, default=256,
+                        help="Flight recorder: ring capacity (events kept "
+                             "in the crash dump).")
+    parser.add_argument("--metrics_hosts", type=cast2(str), default=None,
+                        help="Comma-separated host:port list of every "
+                             "host's /metrics exporter. Process 0 then "
+                             "serves the pod-scope merged page (sum/min/"
+                             "max + per-host views, slowest-host and "
+                             "step-time-skew gauges) at /metrics/pod on "
+                             "its own exporter. Requires --metrics_port. "
+                             "None (default) disables.")
+
+    parser.add_argument("--best_metric", choices=["map"], type=str, default="map",
+                        help="Best metric name.")
+    parser.add_argument("--best_order", choices=[">", "<"], type=str, default=">",
+                        help="Best metric order.")
+
+    parser.add_argument("--finetune", action="store_true", help="Turn on finetune mode.")
+    parser.add_argument("--finetune_transformer", action="store_true",
+                        help="Finetune transformer module.")
+    parser.add_argument("--finetune_position", action="store_true",
+                        help="Finetune classification head.")
+    parser.add_argument("--finetune_position_reg", action="store_true",
+                        help="Finetune regression head.")
+    parser.add_argument("--finetune_class", action="store_true",
+                        help="Finetune doc label classification head.")
+
+    parser.add_argument("--bpe_dropout", type=cast2(float), default=None, help="Use BPE dropout.")
+
+    parser.add_argument("--optimizer", type=str, default="adam", choices=["adam", "adamod"],
+                        help="Optimizer name.")
+
+    parser.add_argument("--train_label_weights", action="store_true",
+                        help="Use label weights in CE loss.")
+    parser.add_argument("--train_sampler_weights", action="store_true",
+                        help="Use oversampling.")
+
+    parser.add_argument("--log_file", type=str, default=None,
+                        help="This parameter is ignored. After dump will consist "
+                             "path to log file.")
+
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="Port only: torch device of the run. The default "
+                             "needs CUDA and never falls back to the CPU; pass "
+                             "'cpu' to run there on purpose.")
 
     return parser
 
@@ -361,7 +857,7 @@ def check_serve_flags(params, model_params) -> None:
         (model_params.ln_impl not in (None, "xla"), "ln_impl",
          model_params.ln_impl, "queue 2, '_ln_fwd_kernel'"),
         (model_params.hf_checkpoint is not None, "hf_checkpoint",
-         model_params.hf_checkpoint, "queue 1, 'Training'"),
+         model_params.hf_checkpoint, "queue 1, 'Training: the parts still to port'"),
     ]
     for bad, flag, value, item in checks:
         if bad:
@@ -372,3 +868,92 @@ def check_serve_flags(params, model_params) -> None:
     logger.info("Accepted but not ported (no effect in ml_recipe_tpu_torch): "
                 "%s.", ", ".join(ignored))
 
+
+
+# trainer flags with no port counterpart that change no result at any
+# value: accepted and logged once
+_IGNORED_TRAIN_FLAGS = (
+    "gpu", "sync_bn", "autotune", "autotune_cache", "aot_cache",
+    "aot_cache_bytes", "hbm_preflight", "apex_level", "apex_verbosity",
+    "precision", "pipe_schedule", "pipe_param_sharding", "zero1_bucket_mb",
+    "dist_backend", "dist_init_method", "local_rank", "anomaly_factor",
+    "anomaly_window", "flightrec_events", "max_restarts", "backoff_base",
+    "backoff_max", "crash_loop_window", "min_world", "host_timeout",
+    "coord_poll", "pack_max_segments", "pack_min_fragment",
+)
+
+_TRAINING = "queue 1, 'Training: the parts still to port'"
+_DDP = "queue 1, 'Data-parallel training (DDP)'"
+_PARALLEL = "queue 1, 'Parallelism beyond data parallelism'"
+_OBSERVE = "queue 1, 'Runtime subsystems'"
+
+
+def _world_size_from_env() -> int:
+    try:
+        return int(os.environ.get("WORLD_SIZE", "1") or 1)
+    except ValueError:
+        return 1
+
+
+def check_train_flags(params, model_params) -> None:
+    """Refuse trainer flags whose subsystem the port lacks and which would
+    change results away from their defaults; log the ignored ones once."""
+    checks = [
+        (params.dist_world_size > 1, "dist_world_size", params.dist_world_size,
+         _DDP),
+        (_world_size_from_env() > 1, "WORLD_SIZE (environment)",
+         os.environ.get("WORLD_SIZE"), _DDP),
+        (params.mesh is not None, "mesh", params.mesh, _PARALLEL),
+        (params.optimizer_sharding not in (None, "off"), "optimizer_sharding",
+         params.optimizer_sharding, _PARALLEL),
+        (params.shard_optimizer, "shard_optimizer", True, _PARALLEL),
+        (params.zero1_overlap not in (None, "off"), "zero1_overlap",
+         params.zero1_overlap, _PARALLEL),
+        (params.async_checkpoint, "async_checkpoint", True, _TRAINING),
+        (params.sharded_checkpoint, "sharded_checkpoint", True, _TRAINING),
+        (params.apex_loss_scale is not None, "apex_loss_scale",
+         params.apex_loss_scale, _TRAINING),
+        (str(params.sequence_packing).strip().lower() not in
+         ("off", "none", "0", "false", ""), "sequence_packing",
+         params.sequence_packing, _TRAINING),
+        (str(params.pack_splitting).strip().lower() not in ("off", "none", ""),
+         "pack_splitting", params.pack_splitting, _TRAINING),
+        (params.optimizer != "adam", "optimizer", params.optimizer, _TRAINING),
+        (params.finetune, "finetune", True, _TRAINING),
+        (params.bpe_dropout is not None, "bpe_dropout", params.bpe_dropout,
+         _TRAINING),
+        (not params.dummy_dataset, "dummy_dataset", False,
+         "queue 1, 'NQ corpus input path'"),
+        (params.trace, "trace", True, _OBSERVE),
+        (params.trace_spans is not None, "trace_spans", params.trace_spans,
+         _OBSERVE),
+        (params.metrics_port is not None, "metrics_port", params.metrics_port,
+         _OBSERVE),
+        (params.metrics_hosts is not None, "metrics_hosts",
+         params.metrics_hosts, _OBSERVE),
+        (params.goodput_ledger, "goodput_ledger", True, _OBSERVE),
+        (params.flight_recorder, "flight_recorder", True, _OBSERVE),
+        (params.watchdog_timeout is not None, "watchdog_timeout",
+         params.watchdog_timeout, _OBSERVE),
+        (params.supervise, "supervise", True, _OBSERVE),
+        (params.elastic not in (None, "off"), "elastic", params.elastic,
+         _OBSERVE),
+        (params.fault_plan is not None, "fault_plan", params.fault_plan,
+         _OBSERVE),
+        (model_params.flash_attention == "ring", "flash_attention", "ring",
+         _PARALLEL),
+        (model_params.ln_impl not in (None, "xla"), "ln_impl",
+         model_params.ln_impl, "queue 2, '_ln_fwd_kernel'"),
+        (model_params.hf_checkpoint is not None, "hf_checkpoint",
+         model_params.hf_checkpoint, _TRAINING),
+        (model_params.param_dtype != "float32", "param_dtype",
+         model_params.param_dtype, _TRAINING),
+    ]
+    for bad, flag, value, item in checks:
+        if bad:
+            raise _not_ported(flag, value, item)
+    ignored = [f"--{f} {getattr(params, f)}" for f in _IGNORED_TRAIN_FLAGS]
+    if model_params.remat:
+        ignored.append("--remat")
+    logger.info("Accepted but not ported (no effect in ml_recipe_tpu_torch): "
+                "%s.", ", ".join(ignored))

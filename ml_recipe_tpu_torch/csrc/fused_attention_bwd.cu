@@ -1,0 +1,501 @@
+// Fused attention backward for Hopper (sm_90a), bound to PyTorch through a
+// plain C launch function loaded with ctypes
+// (ml_recipe_tpu_torch/ops/flash_attention.py).
+//
+// Replaces the TPU kernel ml_recipe_tpu/ops/flash_attention.py:266
+// `_fused_bwd_kernel` (math: `_attention_bwd_math`), the backward of every
+// attention layer in the L <= 512 regime that training runs. Per (batch,
+// head), with the forward's saved output `out` and per-row logsumexp `lse`:
+//
+//   p    = exp(s - lse),  s = q k^T / sqrt(D) (masked scores -1e30)
+//          segmented only: p = 0 where the grid forbids (all-masked pad rows
+//          have lse = -1e30 and exp(s - lse) would degenerate to 1); the
+//          key-mask mode keeps the TPU kernel's unzeroed values
+//   pd   = keep ? p / (1 - rate) : 0        (the forward's dropout mask)
+//   dv   = bf16(pd)^T g
+//   dp   = keep ? (g v^T) / (1 - rate) : 0
+//   row  = sum_d g * out                    (the delta identity, f32)
+//   ds   = p * (dp - row)
+//   dq   = (bf16(ds) k) * scale,  dk = (bf16(ds)^T q) * scale
+//
+// (bf16(...) rounds to the input type, as the TPU kernel's `astype` does;
+// the scale multiplies the f32 product, after it.)
+//
+// Bound on the H100: the work is 5 products of 2*B*H*L^2*D operations each
+// (s, dv, dp, dq, dk): 6.4e10 at 32x512x12x64, ~0.065 ms at 989 TFLOP/s.
+// The traffic is q, k, v, g, out read once and dq, dk, dv written once:
+// ~201 MB in bf16 at that shape, ~0.060 ms at 3.35 TB/s. So the card's
+// tensor-core rate and its memory rate bound it about equally.
+//
+// What this design does about it, for now: it is the simple deterministic
+// first design, far from that bound. Every output element has exactly one
+// writer, so there are no atomics and the result does not depend on the
+// order blocks run in:
+// - a pre-pass computes the row term `row` once per (b, h, query row);
+// - kernel A, one block per (64-key tile, head, batch): each key's dk and
+//   dv live in f32 registers and the block walks every query row, 32 rows
+//   at a time staged in shared memory (q, g, lse, row);
+// - kernel B, one block per (64-row query tile, head, batch): each row's dq
+//   lives in f32 registers and the block walks every key, 32 keys at a
+//   time staged in shared memory (k, v, mask).
+// A key or row is owned by D/32 lanes, 32 columns each, which sum their
+// partial dot products with warp shuffles: a thread holds 64 f32
+// accumulators at any D (with one lane per key, the 2*D = 128 of D = 64
+// went to local memory). Both kernels recompute s, p, the keep-bit, dp and
+// ds in f32 with scalar FMAs; the [L, L] matrices never reach device
+// memory. Tensor cores (mma.sync / wgmma), TMA and pipelining are later
+// work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "attention_common.cuh"
+
+namespace {
+
+using attn::kMaskedScore;
+using attn::round_to;
+using attn::store;
+using attn::to_float;
+
+constexpr int kKeysPerBlock = 64;   // kernel A: keys per block
+constexpr int kRowsPerStage = 32;   // kernel A: query rows staged per pass
+constexpr int kRowsPerBlock = 64;   // kernel B: query rows per block
+constexpr int kKeysPerStage = 32;   // kernel B: keys staged per pass
+
+// Each key (kernel A) or query row (kernel B) is owned by D/32 consecutive
+// lanes, each holding 32 of the D columns of its f32 accumulators, so a
+// thread keeps 2*32 accumulators at any D (one lane owning all 2*D of them
+// put them in local memory at D = 64). The lanes sum their partial dot
+// products with warp shuffles.
+constexpr int kChunk = 32;          // columns per lane
+constexpr int kChunkStride = 36;    // staged chunk: 32 floats + 4 pad, so
+                                    // the 8 lanes of a float4 phase that
+                                    // read 8 different chunks hit 8
+                                    // different bank quads
+
+template <int D>
+struct Lanes {
+  static constexpr int kPerRow = D / kChunk;            // lanes per row
+  static constexpr int kRowStride = kPerRow * kChunkStride;
+};
+
+// Column d of a staged row starts at chunk (d / 32), offset (d % 32).
+__device__ __forceinline__ int staged(int d) {
+  return (d / kChunk) * kChunkStride + (d % kChunk);
+}
+
+// Sum a lane's partial over the kPerRow lanes that share its row.
+template <int kPerRow>
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int off = 1; off < kPerRow; off <<= 1) {
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  }
+  return x;
+}
+
+// row[b, h, i] = sum_d g[b, i, h, d] * out[b, i, h, d] in f32; one warp per
+// (b, i, h) row of the [B, L, H, D] layout, written to [B, H, L].
+template <typename T, int D>
+__global__ void fused_attention_bwd_row_term(const T* __restrict__ g,
+                                             const T* __restrict__ out,
+                                             float* __restrict__ delta,
+                                             int L, int H, int64_t n_rows) {
+  const int64_t r = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x & 31;
+  if (r >= n_rows) return;
+  const int64_t base = r * D;
+  float acc = 0.0f;
+#pragma unroll
+  for (int d = lane; d < D; d += 32) {
+    acc = fmaf(to_float(g[base + d]), to_float(out[base + d]), acc);
+  }
+  acc = row_sum<32>(acc);
+  if (lane == 0) {
+    const int h = (int)(r % H);
+    const int64_t bi = r / H;  // b * L + i
+    const int i = (int)(bi % L);
+    const int64_t b = bi / L;
+    delta[(b * H + h) * L + i] = acc;
+  }
+}
+
+// Kernel A: dk and dv of one 64-key tile of one (batch, head).
+template <typename T, int D>
+__global__ void __launch_bounds__(kKeysPerBlock * Lanes<D>::kPerRow)
+    fused_attention_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, const T* __restrict__ g,
+                             const int32_t* __restrict__ mask,
+                             const int32_t* __restrict__ seeds,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             T* __restrict__ dk, T* __restrict__ dv, int L,
+                             int H, float scale, float rate, float keep_scale,
+                             int segmented) {
+  constexpr int P = Lanes<D>::kPerRow;
+  constexpr int RS = Lanes<D>::kRowStride;
+  constexpr int NT = kKeysPerBlock * P;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                          // [kKeysPerBlock][RS]
+  float* vs = ks + kKeysPerBlock * RS;       // [kKeysPerBlock][RS]
+  float* qs = vs + kKeysPerBlock * RS;       // [kRowsPerStage][RS]
+  float* gs = qs + kRowsPerStage * RS;       // [kRowsPerStage][RS]
+  float* lse_s = gs + kRowsPerStage * RS;    // [kRowsPerStage]
+  float* row_s = lse_s + kRowsPerStage;      // [kRowsPerStage]
+  int* qseg_s = reinterpret_cast<int*>(row_s + kRowsPerStage);
+
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int j = tid / P;                     // this lane's key in the tile
+  const int part = tid % P;                  // ... and its column chunk
+  const int col0 = blockIdx.x * kKeysPerBlock;
+  const int col = col0 + j;
+  const bool col_ok = col < L;
+  const int64_t row_stride = (int64_t)H * D;  // [B, L, H, D] contiguous
+  const int64_t head_base = (int64_t)b * L * row_stride + (int64_t)h * D;
+  const int32_t* mask_b = mask + (int64_t)b * L;
+  const float* lse_bh = lse + ((int64_t)b * H + h) * L;
+  const float* delta_bh = delta + ((int64_t)b * H + h) * L;
+
+  for (int idx = tid; idx < kKeysPerBlock * D; idx += NT) {
+    const int jj = idx / D;
+    const int d = idx - jj * D;
+    const int c = col0 + jj;
+    float kv = 0.0f, vv = 0.0f;
+    if (c < L) {
+      const int64_t off = head_base + c * row_stride + d;
+      kv = to_float(k[off]);
+      vv = to_float(v[off]);
+    }
+    ks[jj * RS + staged(d)] = kv;
+    vs[jj * RS + staged(d)] = vv;
+  }
+  // keys past the ragged edge compute on zeros (the shuffles need every
+  // lane) and store nothing; kseg 0 keeps their scores masked
+  const int kseg = col_ok ? mask_b[col] : 0;
+  const uint32_t key = rate > 0.0f ? attn::dropout_key(seeds, b, h) : 0u;
+
+  float dk_acc[kChunk];
+  float dv_acc[kChunk];
+#pragma unroll
+  for (int d = 0; d < kChunk; ++d) {
+    dk_acc[d] = 0.0f;
+    dv_acc[d] = 0.0f;
+  }
+  const float4* kr = reinterpret_cast<const float4*>(
+      &ks[j * RS + part * kChunkStride]);
+  const float4* vr = reinterpret_cast<const float4*>(
+      &vs[j * RS + part * kChunkStride]);
+
+  for (int m0 = 0; m0 < L; m0 += kRowsPerStage) {
+    __syncthreads();  // the K/V tile is in; the last stage's rows are read
+    for (int idx = tid; idx < kRowsPerStage * D; idx += NT) {
+      const int i = idx / D;
+      const int d = idx - i * D;
+      const int r = m0 + i;
+      float qv = 0.0f, gv = 0.0f;
+      if (r < L) {
+        const int64_t off = head_base + r * row_stride + d;
+        qv = to_float(q[off]);
+        gv = to_float(g[off]);
+      }
+      qs[i * RS + staged(d)] = qv;
+      gs[i * RS + staged(d)] = gv;
+    }
+    for (int i = tid; i < kRowsPerStage; i += NT) {
+      const int r = m0 + i;
+      lse_s[i] = r < L ? lse_bh[r] : 0.0f;
+      row_s[i] = r < L ? delta_bh[r] : 0.0f;
+      qseg_s[i] = (segmented && r < L) ? mask_b[r] : 0;
+    }
+    __syncthreads();
+
+    const int rows = min(kRowsPerStage, L - m0);
+    for (int i = 0; i < rows; ++i) {
+      const float4* qi = reinterpret_cast<const float4*>(
+          &qs[i * RS + part * kChunkStride]);
+      const float4* gi = reinterpret_cast<const float4*>(
+          &gs[i * RS + part * kChunkStride]);
+      float s_dot = 0.0f, dp_dot = 0.0f;
+#pragma unroll
+      for (int d4 = 0; d4 < kChunk / 4; ++d4) {
+        const float4 qq = qi[d4], kk = kr[d4], gg = gi[d4], vv = vr[d4];
+        s_dot = fmaf(qq.x, kk.x, s_dot);
+        s_dot = fmaf(qq.y, kk.y, s_dot);
+        s_dot = fmaf(qq.z, kk.z, s_dot);
+        s_dot = fmaf(qq.w, kk.w, s_dot);
+        dp_dot = fmaf(gg.x, vv.x, dp_dot);
+        dp_dot = fmaf(gg.y, vv.y, dp_dot);
+        dp_dot = fmaf(gg.z, vv.z, dp_dot);
+        dp_dot = fmaf(gg.w, vv.w, dp_dot);
+      }
+      s_dot = row_sum<P>(s_dot);
+      dp_dot = row_sum<P>(dp_dot);
+      const bool ok = attn::allowed(qseg_s[i], kseg, segmented);
+      const float s = ok ? s_dot * scale : kMaskedScore;
+      float p = expf(s - lse_s[i]);
+      if (segmented && !ok) p = 0.0f;
+      bool keep = true;
+      if (rate > 0.0f) keep = attn::keep_bit(m0 + i, col, L, key, rate);
+      const float pd = keep ? p * keep_scale : 0.0f;
+      const float dp = keep ? dp_dot * keep_scale : 0.0f;
+      const float ds = p * (dp - row_s[i]);
+      const float pr = round_to(pd, T(0.0f));
+      const float dsr = round_to(ds, T(0.0f));
+#pragma unroll
+      for (int d4 = 0; d4 < kChunk / 4; ++d4) {
+        const float4 qq = qi[d4], gg = gi[d4];
+        dv_acc[4 * d4 + 0] = fmaf(pr, gg.x, dv_acc[4 * d4 + 0]);
+        dv_acc[4 * d4 + 1] = fmaf(pr, gg.y, dv_acc[4 * d4 + 1]);
+        dv_acc[4 * d4 + 2] = fmaf(pr, gg.z, dv_acc[4 * d4 + 2]);
+        dv_acc[4 * d4 + 3] = fmaf(pr, gg.w, dv_acc[4 * d4 + 3]);
+        dk_acc[4 * d4 + 0] = fmaf(dsr, qq.x, dk_acc[4 * d4 + 0]);
+        dk_acc[4 * d4 + 1] = fmaf(dsr, qq.y, dk_acc[4 * d4 + 1]);
+        dk_acc[4 * d4 + 2] = fmaf(dsr, qq.z, dk_acc[4 * d4 + 2]);
+        dk_acc[4 * d4 + 3] = fmaf(dsr, qq.w, dk_acc[4 * d4 + 3]);
+      }
+    }
+  }
+
+  if (!col_ok) return;
+  const int64_t off = head_base + col * row_stride + part * kChunk;
+#pragma unroll
+  for (int d = 0; d < kChunk; ++d) {
+    store(dk + off + d, dk_acc[d] * scale);
+    store(dv + off + d, dv_acc[d]);
+  }
+}
+
+// Kernel B: dq of one 64-row query tile of one (batch, head).
+template <typename T, int D>
+__global__ void __launch_bounds__(kRowsPerBlock * Lanes<D>::kPerRow)
+    fused_attention_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const T* __restrict__ g,
+                           const int32_t* __restrict__ mask,
+                           const int32_t* __restrict__ seeds,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           T* __restrict__ dq, int L, int H, float scale,
+                           float rate, float keep_scale, int segmented) {
+  constexpr int P = Lanes<D>::kPerRow;
+  constexpr int RS = Lanes<D>::kRowStride;
+  constexpr int NT = kRowsPerBlock * P;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                          // [kKeysPerStage][RS]
+  float* vs = ks + kKeysPerStage * RS;       // [kKeysPerStage][RS]
+  float* gs = vs + kKeysPerStage * RS;       // [kRowsPerBlock][RS]
+  int* kmask = reinterpret_cast<int*>(gs + kRowsPerBlock * RS);
+
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int i = tid / P;                     // this lane's row in the tile
+  const int part = tid % P;                  // ... and its column chunk
+  const int row0 = blockIdx.x * kRowsPerBlock;
+  const int row = row0 + i;
+  const bool row_ok = row < L;
+  const int64_t row_stride = (int64_t)H * D;
+  const int64_t head_base = (int64_t)b * L * row_stride + (int64_t)h * D;
+  const int32_t* mask_b = mask + (int64_t)b * L;
+
+  for (int idx = tid; idx < kRowsPerBlock * D; idx += NT) {
+    const int ii = idx / D;
+    const int d = idx - ii * D;
+    const int r = row0 + ii;
+    gs[ii * RS + staged(d)] =
+        r < L ? to_float(g[head_base + r * row_stride + d]) : 0.0f;
+  }
+  // rows past the ragged edge compute on zeros (the shuffles need every
+  // lane) and store nothing
+  float qf[kChunk];
+  float acc[kChunk];
+  const int64_t qoff = head_base + row * row_stride + part * kChunk;
+#pragma unroll
+  for (int d = 0; d < kChunk; ++d) {
+    qf[d] = row_ok ? to_float(q[qoff + d]) : 0.0f;
+    acc[d] = 0.0f;
+  }
+  const int64_t bhr = ((int64_t)b * H + h) * L + row;
+  const float lse_r = row_ok ? lse[bhr] : 0.0f;
+  const float row_term = row_ok ? delta[bhr] : 0.0f;
+  const int qseg = (segmented && row_ok) ? mask_b[row] : 0;
+  const uint32_t key = rate > 0.0f ? attn::dropout_key(seeds, b, h) : 0u;
+  const float4* gr = reinterpret_cast<const float4*>(
+      &gs[i * RS + part * kChunkStride]);
+
+  for (int n0 = 0; n0 < L; n0 += kKeysPerStage) {
+    __syncthreads();  // g is staged; the last stage's keys are read
+    for (int idx = tid; idx < kKeysPerStage * D; idx += NT) {
+      const int jj = idx / D;
+      const int d = idx - jj * D;
+      const int c = n0 + jj;
+      float kv = 0.0f, vv = 0.0f;
+      if (c < L) {
+        const int64_t off = head_base + c * row_stride + d;
+        kv = to_float(k[off]);
+        vv = to_float(v[off]);
+      }
+      ks[jj * RS + staged(d)] = kv;
+      vs[jj * RS + staged(d)] = vv;
+    }
+    for (int jj = tid; jj < kKeysPerStage; jj += NT) {
+      kmask[jj] = (n0 + jj < L) ? mask_b[n0 + jj] : 0;
+    }
+    __syncthreads();
+
+    const int cols = min(kKeysPerStage, L - n0);
+    for (int jj = 0; jj < cols; ++jj) {
+      const float4* kj = reinterpret_cast<const float4*>(
+          &ks[jj * RS + part * kChunkStride]);
+      const float4* vj = reinterpret_cast<const float4*>(
+          &vs[jj * RS + part * kChunkStride]);
+      float s_dot = 0.0f, dp_dot = 0.0f;
+#pragma unroll
+      for (int d4 = 0; d4 < kChunk / 4; ++d4) {
+        const float4 kk = kj[d4], vv = vj[d4], gg = gr[d4];
+        s_dot = fmaf(qf[4 * d4 + 0], kk.x, s_dot);
+        s_dot = fmaf(qf[4 * d4 + 1], kk.y, s_dot);
+        s_dot = fmaf(qf[4 * d4 + 2], kk.z, s_dot);
+        s_dot = fmaf(qf[4 * d4 + 3], kk.w, s_dot);
+        dp_dot = fmaf(gg.x, vv.x, dp_dot);
+        dp_dot = fmaf(gg.y, vv.y, dp_dot);
+        dp_dot = fmaf(gg.z, vv.z, dp_dot);
+        dp_dot = fmaf(gg.w, vv.w, dp_dot);
+      }
+      s_dot = row_sum<P>(s_dot);
+      dp_dot = row_sum<P>(dp_dot);
+      const int col = n0 + jj;
+      const bool ok = attn::allowed(qseg, kmask[jj], segmented);
+      const float s = ok ? s_dot * scale : kMaskedScore;
+      float p = expf(s - lse_r);
+      if (segmented && !ok) p = 0.0f;
+      bool keep = true;
+      if (rate > 0.0f) keep = attn::keep_bit(row, col, L, key, rate);
+      const float dp = keep ? dp_dot * keep_scale : 0.0f;
+      const float dsr = round_to(p * (dp - row_term), T(0.0f));
+#pragma unroll
+      for (int d4 = 0; d4 < kChunk / 4; ++d4) {
+        const float4 kk = kj[d4];
+        acc[4 * d4 + 0] = fmaf(dsr, kk.x, acc[4 * d4 + 0]);
+        acc[4 * d4 + 1] = fmaf(dsr, kk.y, acc[4 * d4 + 1]);
+        acc[4 * d4 + 2] = fmaf(dsr, kk.z, acc[4 * d4 + 2]);
+        acc[4 * d4 + 3] = fmaf(dsr, kk.w, acc[4 * d4 + 3]);
+      }
+    }
+  }
+
+  if (!row_ok) return;
+  T* o = dq + qoff;
+#pragma unroll
+  for (int d = 0; d < kChunk; ++d) store(o + d, acc[d] * scale);
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
+                   const void* out, const void* lse, const void* mask,
+                   const void* seeds, void* dq, void* dk, void* dv,
+                   void* delta, int B, int L, int H, float scale, float rate,
+                   float keep_scale, int segmented, cudaStream_t stream) {
+  const T* q_ = static_cast<const T*>(q);
+  const T* k_ = static_cast<const T*>(k);
+  const T* v_ = static_cast<const T*>(v);
+  const T* g_ = static_cast<const T*>(g);
+  const int32_t* mask_ = static_cast<const int32_t*>(mask);
+  const int32_t* seeds_ = static_cast<const int32_t*>(seeds);
+  const float* lse_ = static_cast<const float*>(lse);
+  float* delta_ = static_cast<float*>(delta);
+
+  const int64_t n_rows = (int64_t)B * L * H;
+  const int threads = 256;  // 8 rows (warps) per block
+  const int64_t blocks = (n_rows * 32 + threads - 1) / threads;
+  fused_attention_bwd_row_term<T, D><<<(unsigned)blocks, threads, 0, stream>>>(
+      g_, static_cast<const T*>(out), delta_, L, H, n_rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  // shared memory above the 48 KB static limit needs the opt-in attribute
+  constexpr int RS = Lanes<D>::kRowStride;
+  constexpr int P = Lanes<D>::kPerRow;
+  const int smem_a = (2 * kKeysPerBlock * RS + 2 * kRowsPerStage * RS +
+                      3 * kRowsPerStage) * (int)sizeof(float);
+  err = cudaFuncSetAttribute(fused_attention_bwd_dkdv<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_a);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_a((L + kKeysPerBlock - 1) / kKeysPerBlock, H, B);
+  fused_attention_bwd_dkdv<T, D><<<grid_a, kKeysPerBlock * P, smem_a,
+                                   stream>>>(
+      q_, k_, v_, g_, mask_, seeds_, lse_, delta_, static_cast<T*>(dk),
+      static_cast<T*>(dv), L, H, scale, rate, keep_scale, segmented);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int smem_b = (2 * kKeysPerStage * RS + kRowsPerBlock * RS +
+                      kKeysPerStage) * (int)sizeof(float);
+  err = cudaFuncSetAttribute(fused_attention_bwd_dq<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_b);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_b((L + kRowsPerBlock - 1) / kRowsPerBlock, H, B);
+  fused_attention_bwd_dq<T, D><<<grid_b, kRowsPerBlock * P, smem_b,
+                                 stream>>>(
+      q_, k_, v_, g_, mask_, seeds_, lse_, delta_, static_cast<T*>(dq), L, H,
+      scale, rate, keep_scale, segmented);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
+                     const void* g, const void* out, const void* lse,
+                     const void* mask, const void* seeds, void* dq, void* dk,
+                     void* dv, void* delta, int B, int L, int H, float scale,
+                     float rate, float keep_scale, int segmented,
+                     cudaStream_t stream) {
+  switch (D) {
+    case 32:
+      return launch<T, 32>(q, k, v, g, out, lse, mask, seeds, dq, dk, dv,
+                           delta, B, L, H, scale, rate, keep_scale, segmented,
+                           stream);
+    case 64:
+      return launch<T, 64>(q, k, v, g, out, lse, mask, seeds, dq, dk, dv,
+                           delta, B, L, H, scale, rate, keep_scale, segmented,
+                           stream);
+    case 128:
+      return launch<T, 128>(q, k, v, g, out, lse, mask, seeds, dq, dk, dv,
+                            delta, B, L, H, scale, rate, keep_scale,
+                            segmented, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// q, k, v, g, out, dq, dk, dv: [B, L, H, D] contiguous, bf16 (is_bf16 = 1)
+// or f32. lse: [B, H, L] f32 (the forward's). mask: [B, L] int32 key mask,
+// or segment ids when segmented = 1. seeds: [B] int32 per-row dropout seeds
+// (read only when rate > 0). delta: [B, H, L] f32 scratch for the row term.
+// Returns the first failing launch's cudaError_t, or 0.
+extern "C" int fused_attention_bwd(const void* q, const void* k,
+                                   const void* v, const void* g,
+                                   const void* out, const void* lse,
+                                   const void* mask, const void* seeds,
+                                   void* dq, void* dk, void* dv, void* delta,
+                                   int B, int L, int H, int D, int is_bf16,
+                                   float scale, float rate, float keep_scale,
+                                   int segmented, void* stream) {
+  if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      is_bf16 ? launch_d<__nv_bfloat16>(D, q, k, v, g, out, lse, mask, seeds,
+                                        dq, dk, dv, delta, B, L, H, scale,
+                                        rate, keep_scale, segmented, s)
+              : launch_d<float>(D, q, k, v, g, out, lse, mask, seeds, dq, dk,
+                                dv, delta, B, L, H, scale, rate, keep_scale,
+                                segmented, s);
+  return (int)err;
+}

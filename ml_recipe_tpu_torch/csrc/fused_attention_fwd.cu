@@ -17,8 +17,8 @@
 //   the divide by l is folded into the output;
 // - the dropout keep-bit is `hash_uniform(x) >= rate` with
 //   x = (row*L + col) ^ (seed[b] + h*0x9E3779B9) and the 3-stage
-//   finalizer of `hash_uniform`, all in uint32 (wraparound is defined
-//   here, unlike signed overflow);
+//   finalizer of `hash_uniform`, all in uint32 (attention_common.cuh, shared
+//   with the backward so both regenerate one mask);
 // - optional per-row logsumexp m + log(l), [B, H, L] f32.
 //
 // Bound on the H100: at the serving shapes (L <= 512, D = 64) the work is
@@ -37,35 +37,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_common.cuh"
+
 namespace {
 
+using attn::kMaskedScore;
+using attn::round_to;
+using attn::store;
+using attn::to_float;
+
 constexpr int kBlockM = 64;  // query rows per block, one thread per row
-constexpr float kMaskedScore = -1e30f;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// Round a probability to the input type and back, as the TPU kernel's
-// `e.astype(v.dtype)` does before the PV product.
-__device__ __forceinline__ float round_to(float x, float) { return x; }
-__device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-// ml_recipe_tpu/ops/flash_attention.py `hash_uniform`, in uint32.
-__device__ __forceinline__ float hash_uniform(uint32_t x) {
-  x *= 0xCC9E2D51u;
-  x ^= x >> 16;
-  x *= 0x1B873593u;
-  return (float)((x >> 7) & 0x00FFFFFFu) * (1.0f / 16777216.0f);
-}
 
 template <typename T, int D, int BLOCK_N>
 __global__ void __launch_bounds__(kBlockM)
@@ -99,8 +80,7 @@ __global__ void __launch_bounds__(kBlockM)
     acc[d] = 0.0f;
   }
   const int qseg = (segmented && row_ok) ? mask_b[row] : 0;
-  const uint32_t seed_h =
-      rate > 0.0f ? (uint32_t)seeds[b] + (uint32_t)h * 0x9E3779B9u : 0u;
+  const uint32_t seed_h = rate > 0.0f ? attn::dropout_key(seeds, b, h) : 0u;
 
   float m = -INFINITY;  // running row max (finite after the first tile)
   float l = 0.0f;       // running pre-dropout denominator
@@ -142,8 +122,7 @@ __global__ void __launch_bounds__(kBlockM)
           dot = fmaf(qf[4 * d4 + 3], kk.w, dot);
         }
         const int kseg = kmask[j];
-        const bool allowed = segmented ? (kseg == qseg && kseg > 0) : kseg > 0;
-        s = allowed ? dot * scale : kMaskedScore;
+        s = attn::allowed(qseg, kseg, segmented) ? dot * scale : kMaskedScore;
       }
       ss[tid][j] = s;
       tile_max = fmaxf(tile_max, s);
@@ -163,8 +142,7 @@ __global__ void __launch_bounds__(kBlockM)
       float p = expf(ss[tid][j] - m);
       l += p;
       if (rate > 0.0f) {
-        const uint32_t x = (uint32_t)(row * L + col) ^ seed_h;
-        p = hash_uniform(x) >= rate ? p * keep_scale : 0.0f;
+        p = attn::keep_bit(row, col, L, seed_h, rate) ? p * keep_scale : 0.0f;
       }
       p = round_to(p, T(0.0f));
       const float4* vr = reinterpret_cast<const float4*>(&vs[j][0]);

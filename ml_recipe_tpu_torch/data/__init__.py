@@ -1,4 +1,7 @@
-"""Host-side input pipeline: the serving subset (chunking and the label table)."""
+"""Host-side input pipeline. The package exports the serving subset
+(chunking and the label table); the training modules (``datasets``,
+``collate``, ``loader``, ``bucketing``, ``device_prefetch``) are imported
+from their own modules."""
 
 from .chunking import (
     ChunkRecord,

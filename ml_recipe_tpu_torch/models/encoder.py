@@ -2,12 +2,21 @@
 
 Post-layer-norm BERT stack with the JAX module's numerics:
 
-- Linear and embedding weights live in the compute dtype (bf16 by default),
-  as flax casts its f32 params to ``dtype`` at every use; LayerNorm keeps
-  f32 params and computes in f32, then casts to the compute dtype;
+- every parameter lives in f32 (the optimizer's master weights, as flax
+  keeps its params); Linear and embedding weights are cast to the compute
+  dtype (bf16 by default) at each use, as ``nn.Dense(dtype=...)`` /
+  ``nn.Embed(dtype=...)`` do (a serving model from ``compose.init_model``
+  holds those params in the compute dtype, so the cast is a no-op there);
+  LayerNorm computes in f32, then casts to the compute dtype;
 - exact-erf GELU; LayerNorm eps from the config;
 - attention through ``ops.attention.dot_product_attention``, so on the card
-  every layer runs the hand-written fused attention kernel;
+  every layer runs the hand-written fused attention kernels (forward, and
+  the backward when training);
+- training mode (``model.train()``) applies hidden and attention dropout
+  with flax's semantics (kept values scaled by ``1/(1-rate)``). The masks
+  and the per-layer attention-dropout seeds are drawn from the one
+  ``torch.Generator`` the caller passes as ``generator``, on the model's
+  device: there is no global-RNG default;
 - module and parameter names follow the flax tree (``layer_0.attention.
   query``...), so ``models/convert.py`` maps one onto the other by name.
 """
@@ -24,9 +33,23 @@ from ..ops.attention import dot_product_attention, dropout_seed
 from .config import EncoderConfig
 
 
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability ``1 - rate`` and scale the
+    kept values by ``1/(1-rate)``; the mask is drawn from ``generator``."""
+    if not training or rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("training-mode dropout needs a torch.Generator "
+                         "(pass generator=... to the model's forward)")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
+
+
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm`` semantics: f32 statistics and affine, output in
-    the input's dtype. Params ``weight``/``bias`` stay f32."""
+    the input's dtype. Params ``weight``/``bias`` are f32."""
 
     def __init__(self, features: int, eps: float, *, device=None):
         super().__init__()
@@ -40,12 +63,27 @@ class LayerNorm(nn.Module):
         return y.to(x.dtype)
 
 
-def _linear(n_in: int, n_out: int, dtype, device) -> nn.Linear:
-    return nn.Linear(n_in, n_out, device=device, dtype=dtype)
+class Linear(nn.Linear):
+    """``nn.Dense(dtype=compute_dtype)``: f32 params, cast at each use."""
+
+    def __init__(self, n_in: int, n_out: int, dtype, device):
+        super().__init__(n_in, n_out, device=device, dtype=torch.float32)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        return F.linear(x.to(cd), self.weight.to(cd), self.bias.to(cd))
 
 
-def _embed(n: int, features: int, dtype, device) -> nn.Embedding:
-    return nn.Embedding(n, features, device=device, dtype=dtype)
+class Embedding(nn.Embedding):
+    """``nn.Embed(dtype=compute_dtype)``: an f32 table, rows cast at use."""
+
+    def __init__(self, n: int, features: int, dtype, device):
+        super().__init__(n, features, device=device, dtype=torch.float32)
+        self.compute_dtype = dtype
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return super().forward(ids).to(self.compute_dtype)
 
 
 class Embeddings(nn.Module):
@@ -53,17 +91,16 @@ class Embeddings(nn.Module):
         super().__init__()
         self.cfg = cfg
         H = cfg.hidden_size
-        self.word_embeddings = _embed(cfg.vocab_size, H, dtype, device)
-        self.position_embeddings = _embed(cfg.max_position_embeddings, H,
-                                          dtype, device)
+        self.word_embeddings = Embedding(cfg.vocab_size, H, dtype, device)
+        self.position_embeddings = Embedding(cfg.max_position_embeddings, H,
+                                             dtype, device)
         # RoBERTa has one token type; the table keeps its single row
-        self.token_type_embeddings = _embed(max(cfg.type_vocab_size, 1), H,
-                                            dtype, device)
+        self.token_type_embeddings = Embedding(max(cfg.type_vocab_size, 1), H,
+                                               dtype, device)
         self.layer_norm = LayerNorm(H, cfg.layer_norm_eps, device=device)
-        self.dropout = nn.Dropout(cfg.hidden_dropout_prob)
 
-    def forward(self, input_ids: torch.Tensor,
-                token_type_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, token_type_ids: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg = self.cfg
         L = input_ids.shape[-1]
         if L + cfg.position_offset > cfg.max_position_embeddings:
@@ -81,7 +118,8 @@ class Embeddings(nn.Module):
         x = (self.word_embeddings(input_ids)
              + self.position_embeddings(positions)[None]
              + self.token_type_embeddings(token_type_ids))
-        return self.dropout(self.layer_norm(x))
+        return dropout(self.layer_norm(x), cfg.hidden_dropout_prob,
+                       self.training, generator)
 
 
 class SelfAttention(nn.Module):
@@ -91,14 +129,14 @@ class SelfAttention(nn.Module):
         self.cfg = cfg
         self.attention_impl = attention_impl
         H = cfg.hidden_size
-        self.query = _linear(H, H, dtype, device)
-        self.key = _linear(H, H, dtype, device)
-        self.value = _linear(H, H, dtype, device)
-        self.output = _linear(H, H, dtype, device)
+        self.query = Linear(H, H, dtype, device)
+        self.key = Linear(H, H, dtype, device)
+        self.value = Linear(H, H, dtype, device)
+        self.output = Linear(H, H, dtype, device)
         self.layer_norm = LayerNorm(H, cfg.layer_norm_eps, device=device)
-        self.dropout = nn.Dropout(cfg.hidden_dropout_prob)
 
-    def forward(self, hidden: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, hidden: torch.Tensor, mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg = self.cfg
         B, L, H = hidden.shape
 
@@ -106,29 +144,37 @@ class SelfAttention(nn.Module):
             return proj(hidden).view(B, L, cfg.num_heads, cfg.head_dim)
 
         rate = cfg.attention_probs_dropout_prob if self.training else 0.0
+        seed = None
+        if rate > 0.0:
+            if generator is None:
+                raise ValueError("training-mode attention dropout needs a "
+                                 "torch.Generator (generator=...)")
+            seed = dropout_seed(generator)
         ctx = dot_product_attention(
             heads(self.query), heads(self.key), heads(self.value), mask,
-            dropout_rate=rate, seed=dropout_seed() if rate > 0.0 else None,
-            impl=self.attention_impl,
+            dropout_rate=rate, seed=seed, impl=self.attention_impl,
         )
-        out = self.dropout(self.output(ctx.reshape(B, L, H)))
+        out = dropout(self.output(ctx.reshape(B, L, H)),
+                      cfg.hidden_dropout_prob, self.training, generator)
         return self.layer_norm(hidden + out)
 
 
 class FeedForward(nn.Module):
     def __init__(self, cfg: EncoderConfig, *, dtype, device):
         super().__init__()
-        self.intermediate = _linear(cfg.hidden_size, cfg.intermediate_size,
-                                    dtype, device)
-        self.output = _linear(cfg.intermediate_size, cfg.hidden_size, dtype,
-                              device)
+        self.cfg = cfg
+        self.intermediate = Linear(cfg.hidden_size, cfg.intermediate_size,
+                                   dtype, device)
+        self.output = Linear(cfg.intermediate_size, cfg.hidden_size, dtype,
+                             device)
         self.layer_norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
                                     device=device)
-        self.dropout = nn.Dropout(cfg.hidden_dropout_prob)
 
-    def forward(self, hidden: torch.Tensor) -> torch.Tensor:
+    def forward(self, hidden: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         y = F.gelu(self.intermediate(hidden), approximate="none")
-        y = self.dropout(self.output(y))
+        y = dropout(self.output(y), self.cfg.hidden_dropout_prob,
+                    self.training, generator)
         return self.layer_norm(hidden + y)
 
 
@@ -140,8 +186,9 @@ class EncoderLayer(nn.Module):
                                        attention_impl=attention_impl)
         self.mlp = FeedForward(cfg, dtype=dtype, device=device)
 
-    def forward(self, hidden: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        return self.mlp(self.attention(hidden, mask))
+    def forward(self, hidden: torch.Tensor, mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.mlp(self.attention(hidden, mask, generator), generator)
 
 
 class TransformerEncoder(nn.Module):
@@ -155,21 +202,22 @@ class TransformerEncoder(nn.Module):
         for i in range(cfg.num_layers):  # flax names: layer_0, layer_1, ...
             self.add_module(f"layer_{i}", EncoderLayer(
                 cfg, dtype=dtype, device=device, attention_impl=attention_impl))
-        self.pooler = _linear(cfg.hidden_size, cfg.hidden_size, dtype, device)
+        self.pooler = Linear(cfg.hidden_size, cfg.hidden_size, dtype, device)
 
     def forward(
         self,
         input_ids: torch.Tensor,
         attention_mask: Optional[torch.Tensor] = None,
         token_type_ids: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         mask = attention_mask.to(torch.int32)
-        hidden = self.embeddings(input_ids, token_type_ids)
+        hidden = self.embeddings(input_ids, token_type_ids, generator)
         for i in range(self.cfg.num_layers):
-            hidden = getattr(self, f"layer_{i}")(hidden, mask)
+            hidden = getattr(self, f"layer_{i}")(hidden, mask, generator)
         pooled = torch.tanh(self.pooler(hidden[:, 0]))
         return hidden, pooled

@@ -5,6 +5,10 @@ span logits, ``classifier`` Dropout + Linear(H, num_labels) on the pooled
 output, and ``reg_start``/``reg_end`` Linear(H, 1) + sigmoid. Span logits at
 padding positions get the JAX model's ``-1e9`` penalty, added in f32, so
 argmax never lands on padding of a fixed-shape batch.
+
+Parameters are f32 master weights; ``dtype`` is the compute dtype. In
+training mode every dropout (hidden, attention, classifier) draws from the
+``generator`` given to :meth:`QAModel.forward` (see ``models/encoder.py``).
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ import torch
 from torch import nn
 
 from .config import EncoderConfig
-from .encoder import TransformerEncoder, _linear
+from .encoder import Linear, TransformerEncoder, dropout
 
 QA_OUTPUT_KEYS = ("start_class", "end_class", "start_reg", "end_reg", "cls")
 
@@ -31,11 +35,10 @@ class QAModel(nn.Module):
         self.transformer = TransformerEncoder(
             cfg, dtype=dtype, device=device, attention_impl=attention_impl)
         H = cfg.hidden_size
-        self.position_outputs = _linear(H, 2, dtype, device)
-        self.classifier = _linear(H, cfg.num_labels, dtype, device)
-        self.reg_start = _linear(H, 1, dtype, device)
-        self.reg_end = _linear(H, 1, dtype, device)
-        self.cls_dropout = nn.Dropout(cfg.hidden_dropout_prob)
+        self.position_outputs = Linear(H, 2, dtype, device)
+        self.classifier = Linear(H, cfg.num_labels, dtype, device)
+        self.reg_start = Linear(H, 1, dtype, device)
+        self.reg_end = Linear(H, 1, dtype, device)
 
     @property
     def device(self) -> torch.device:
@@ -46,19 +49,22 @@ class QAModel(nn.Module):
         input_ids: torch.Tensor,
         attention_mask: Optional[torch.Tensor] = None,
         token_type_ids: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
         sequence_output, pooled_output = self.transformer(
             input_ids, attention_mask=attention_mask,
-            token_type_ids=token_type_ids)
+            token_type_ids=token_type_ids, generator=generator)
 
         position_logits = self.position_outputs(sequence_output)
         pad_penalty = (1 - attention_mask).to(torch.float32) * _MASK_NEG
         start_logits = position_logits[..., 0].float() + pad_penalty
         end_logits = position_logits[..., 1].float() + pad_penalty
 
-        classifier_logits = self.classifier(self.cls_dropout(pooled_output))
+        cls_hidden = dropout(pooled_output, self.cfg.hidden_dropout_prob,
+                             self.training, generator)
+        classifier_logits = self.classifier(cls_hidden)
         reg_start = torch.sigmoid(self.reg_start(pooled_output))[..., 0]
         reg_end = torch.sigmoid(self.reg_end(pooled_output))[..., 0]
         return {

@@ -28,11 +28,17 @@ from .flash_attention import (
 IMPLS = ("auto", "pallas", "xla", "ring")
 
 
-def dropout_seed(generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """A (1,) int32 seed for the dropout hash, drawn from ``generator``
-    (the port's counterpart of ``_dropout_seed``'s ``jax.random.randint``)."""
+def dropout_seed(generator: torch.Generator) -> torch.Tensor:
+    """A (1,) int32 seed for the dropout hash, drawn from ``generator`` on
+    the generator's device (the port's counterpart of ``_dropout_seed``'s
+    ``jax.random.randint``). There is no global-RNG default: a training
+    step is reproducible from the generators it is given."""
+    if not isinstance(generator, torch.Generator):
+        raise TypeError(f"dropout_seed needs a torch.Generator; got "
+                        f"{type(generator).__name__}")
     return torch.randint(-(1 << 31), (1 << 31) - 1, (1,), dtype=torch.int64,
-                         generator=generator).to(torch.int32)
+                         generator=generator,
+                         device=generator.device).to(torch.int32)
 
 
 def dot_product_attention(
@@ -50,7 +56,10 @@ def dot_product_attention(
 
     ``segment_ids`` ([B, L], 0 = pad, 1..S = packed segment) switches to the
     block-diagonal mask of sequence packing and replaces ``mask``.
-    ``seed`` keys the dropout hash when ``dropout_rate > 0``."""
+    ``seed`` keys the dropout hash when ``dropout_rate > 0``: the caller
+    draws it (:func:`dropout_seed` from its generator). The fused regime is
+    differentiable through the kernel pair (``FusedAttention``), the plain
+    version through autograd."""
     if impl not in IMPLS:
         raise ValueError(f"attention impl must be one of {IMPLS}; got {impl!r}")
     if impl == "ring":
@@ -58,7 +67,8 @@ def dot_product_attention(
             "impl='ring' (sequence-parallel ring attention) is not ported "
             "yet: ROADMAP.md queue 1, 'Parallelism beyond data parallelism'")
     if dropout_rate > 0.0 and seed is None:
-        raise ValueError("dropout_rate > 0 needs a seed (dropout_seed())")
+        raise ValueError("dropout_rate > 0 needs a seed "
+                         "(dropout_seed(generator))")
     segmented = segment_ids is not None
     kernel_mask = segment_ids if segmented else mask
     L = q.shape[1]

@@ -3,8 +3,9 @@
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface, loaded with ``ctypes``. The library is
 built at first use into ``csrc/build/`` (git-ignored), under a name keyed
-by a hash of the source and the flags, so a checkout builds its own
-kernels and an edited source never loads a stale library. There is no
+by a hash of the source, the shared headers (``csrc/*.cuh``) and the flags,
+so a checkout builds its own kernels and an edited source or header never
+loads a stale library. There is no
 fallback: a missing ``nvcc`` or a failed build raises.
 
 ``build(*libraries)`` starts one ``nvcc`` per source at once and waits for
@@ -70,9 +71,11 @@ class CudaLibrary:
 
     @property
     def path(self) -> Path:
-        digest = hashlib.sha256(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC_DIR.glob("*.cuh")):
+            h.update(header.name.encode() + header.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        digest = h.hexdigest()[:16]
         return BUILD_DIR / f"{self.source.stem}-{digest}.so"
 
     def _start(self) -> Optional[subprocess.Popen]:

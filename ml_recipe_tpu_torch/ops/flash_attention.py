@@ -1,31 +1,38 @@
-"""Fused attention forward: the Hopper kernel's wrapper and its plain version.
+"""Fused attention: the Hopper kernels' wrappers and their plain versions.
 
-Replaces ``ml_recipe_tpu/ops/flash_attention.py`` ``_fused_fwd_kernel``, the
-TPU kernel that every serving bucket runs (L <= 512). The kernel is
-``csrc/fused_attention_fwd.cu``; its design note (what bounds it on the card
-and what the design does about it) heads that file. In short: at the serving
-shapes the function moves 4*B*L*H*D elements and does 4*B*H*L^2*D
-operations, so the memory rate bounds it; the kernel keeps the [L, L] scores
-on chip and streams K/V tiles through shared memory with an online softmax.
+Replaces two TPU kernels of ``ml_recipe_tpu/ops/flash_attention.py``, the
+L <= 512 regime that every serving bucket and every training layer runs:
 
-Semantics shared by the kernel and :func:`fused_attention_plain`, which are
-the TPU kernel's:
+- ``_fused_fwd_kernel`` (the forward) by ``csrc/fused_attention_fwd.cu``;
+- ``_fused_bwd_kernel`` (the backward, math ``_attention_bwd_math``) by
+  ``csrc/fused_attention_bwd.cu``.
+
+Each kernel's design note (what bounds it on the card and what the design
+does about it) heads its source; both keep the [L, L] scores on chip.
+
+Semantics shared by the kernels and their plain versions, which are the
+TPU kernels':
 
 - scores ``q k^T / sqrt(D)`` in f32; disallowed scores are ``-1e30`` (never
   ``-inf``, so all-masked rows stay finite);
 - the key mask (``mask > 0``) or, ``segmented``, the block-diagonal grid
   ``seg[row] == seg[col] != 0``;
 - the softmax denominator is summed BEFORE dropout; kept probabilities are
-  scaled by ``1/(1-rate)``, cast to v's dtype before the PV product, and the
-  divide by the denominator is folded into the output;
+  scaled by ``1/(1-rate)``, cast to v's dtype before the PV product, and
+  the divide by the denominator is folded into the output;
 - the dropout keep-bit ``hash_uniform((row*L + col) ^ (seed[b] +
   h*-1640531527)) >= rate`` with the per-row seeds of :func:`row_seeds`;
-- optional per-row logsumexp ``[B, H, L]`` f32.
+- the forward's optional per-row logsumexp ``[B, H, L]`` f32, from which
+  the backward recomputes the probabilities, with the row term of the
+  softmax backward from the delta identity ``sum(g * out)``.
 
-:func:`fused_attention` is the entry point: a CUDA tensor goes to the kernel
-(through :func:`fused_attention_cuda`, which raises on anything else), a CPU
-tensor to the plain version. The plain version is also what ``chip_smoke.py``
-holds the kernel against on the card.
+:func:`fused_attention` is the entry point. Without a gradient to track it
+runs the forward alone (one forward launch, no lse). When grad mode is on
+and q, k or v requires grad it goes through :class:`FusedAttention`, the
+``torch.autograd.Function`` around the kernel pair: a CUDA tensor launches
+the kernels (their wrappers raise on anything they do not take), a CPU
+tensor runs the plain versions. The plain versions are also what
+``chip_smoke.py`` holds the kernels against on the card.
 """
 
 from __future__ import annotations
@@ -128,13 +135,13 @@ def fused_attention_plain(
         u = uniform_grid(seeds.to(s.device), H, L)
         e = torch.where(u >= rate, e * (1.0 / (1.0 - rate)), 0.0)
     o = torch.einsum("bhqk,bkhd->bqhd", e.to(v.dtype).float(), v.float())
-    o = (o * (1.0 / l).permute(0, 2, 1, 3)).to(q.dtype)
+    o = (o * (1.0 / l).permute(0, 2, 1, 3)).to(q.dtype).contiguous()
     if want_lse:
         return o, (m + torch.log(l))[..., 0]
     return o
 
 
-def _declare(lib: ctypes.CDLL) -> None:
+def _declare_fwd(lib: ctypes.CDLL) -> None:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.fused_attention_fwd.argtypes = [
         vp, vp, vp, vp, vp, vp, vp,       # q k v mask seeds out lse
@@ -145,30 +152,37 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fused_attention_fwd.restype = ci
 
 
-class _Kernel:
-    """The built library and the count of launches of its kernel."""
+def _declare_bwd(lib: ctypes.CDLL) -> None:
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.fused_attention_bwd.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp, vp,   # q k v g out lse mask seeds
+        vp, vp, vp, vp,                   # dq dk dv delta
+        ci, ci, ci, ci, ci,               # B L H D is_bf16
+        cf, cf, cf, ci,                   # scale rate keep_scale segmented
+        vp,                               # stream
+    ]
+    lib.fused_attention_bwd.restype = ci
 
-    def __init__(self):
-        self.library = CudaLibrary("fused_attention_fwd.cu", _declare)
+
+class _Kernel:
+    """A built library and the count of launches of its kernel."""
+
+    def __init__(self, source: str, declare):
+        self.library = CudaLibrary(source, declare)
         self.launches = 0
 
 
-KERNEL = _Kernel()
+KERNEL = _Kernel("fused_attention_fwd.cu", _declare_fwd)
+BWD_KERNEL = _Kernel("fused_attention_bwd.cu", _declare_bwd)
 
 
-def fused_attention_cuda(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
-    seeds: Optional[torch.Tensor] = None, rate: float = 0.0,
-    segmented: bool = False, want_lse: bool = False,
-) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Launch ``csrc/fused_attention_fwd.cu`` on CUDA tensors; same
-    arguments and results as :func:`fused_attention_plain`. Raises on
-    anything the kernel does not take (CPU tensors included)."""
+def _check_operands(q, k, v, mask, seeds, rate, what: str, extra=()):
+    """Raise on anything the kernels do not take; ``extra`` are further
+    tensors that must match q's shape and dtype (g and out)."""
     if q.device.type != "cuda":
         raise ValueError(
-            f"fused_attention_cuda launches a CUDA kernel; got a tensor on "
-            f"{q.device} (use fused_attention, which routes CPU tensors to "
-            f"the plain version)")
+            f"{what} launches a CUDA kernel; got a tensor on {q.device} (use "
+            f"fused_attention, which routes CPU tensors to the plain version)")
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must share one [B, L, H, D] shape; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -177,12 +191,20 @@ def fused_attention_cuda(
             k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must all be bfloat16 or all float32; got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
+    for t in extra:
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"g and out must match q ({q.dtype} "
+                             f"{tuple(q.shape)}); got {t.dtype} "
+                             f"{tuple(t.shape)}")
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head dim {D} not in the kernel's {KERNEL_HEAD_DIMS}")
+    if L > FUSED_MAX_LEN:
+        raise ValueError(f"L={L} > {FUSED_MAX_LEN}: the fused kernels take the "
+                         f"L <= {FUSED_MAX_LEN} regime only")
     if mask.shape != (B, L) or mask.dtype != torch.int32:
         raise ValueError(f"mask must be int32 [B, L] = [{B}, {L}]; got "
                          f"{mask.dtype} {tuple(mask.shape)}")
-    tensors = [q, k, v, mask]
+    tensors = [q, k, v, mask, *extra]
     if rate > 0.0:
         if not 0.0 < rate < 1.0:
             raise ValueError(f"dropout rate must be in [0, 1); got {rate}")
@@ -196,6 +218,22 @@ def fused_attention_cuda(
         if not t.is_contiguous():
             raise ValueError("all operands must be contiguous")
 
+
+def _keep_scale(rate: float) -> float:
+    return 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
+
+
+def fused_attention_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+    seeds: Optional[torch.Tensor] = None, rate: float = 0.0,
+    segmented: bool = False, want_lse: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Launch ``csrc/fused_attention_fwd.cu`` on CUDA tensors; same
+    arguments and results as :func:`fused_attention_plain`. Raises on
+    anything the kernel does not take (CPU tensors included). The result
+    carries no autograd history: :class:`FusedAttention` adds it."""
+    _check_operands(q, k, v, mask, seeds, rate, "fused_attention_cuda")
+    B, L, H, D = q.shape
     lib = KERNEL.library.lib()
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, L), dtype=torch.float32, device=q.device)
@@ -207,8 +245,7 @@ def fused_attention_cuda(
             seeds.data_ptr() if rate > 0.0 else None, out.data_ptr(),
             lse.data_ptr() if want_lse else None,
             B, L, H, D, int(q.dtype == torch.bfloat16),
-            1.0 / D ** 0.5, float(rate),
-            1.0 / (1.0 - rate) if rate > 0.0 else 1.0,
+            1.0 / D ** 0.5, float(rate), _keep_scale(rate),
             int(bool(segmented)), stream,
         )
     if err != 0:
@@ -217,6 +254,117 @@ def fused_attention_cuda(
             f"(B={B}, L={L}, H={H}, D={D}, {q.dtype})")
     KERNEL.launches += 1
     return (out, lse) if want_lse else out
+
+
+def fused_attention_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+    out: torch.Tensor, lse: torch.Tensor, mask: torch.Tensor,
+    seeds: Optional[torch.Tensor] = None, rate: float = 0.0,
+    segmented: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel's function in plain PyTorch, on any device: the
+    TPU kernel's ``_attention_bwd_math`` with ``lse`` and ``out`` given,
+    step for step. ``g``, ``out``: [B, L, H, D] (g is cast to q's dtype);
+    ``lse``: [B, H, L] f32 from the forward. Returns ``(dq, dk, dv)`` in
+    q's dtype. Materialises [B, H, L, L] f32 grids: a reference, not a fast
+    path."""
+    B, L, H, D = q.shape
+    scale = 1.0 / D ** 0.5
+    g = g.to(q.dtype)
+    allowed = _allowed(mask, segmented)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    s = torch.where(allowed, s, NEG_INF)
+    p = torch.exp(s - lse[..., None])                   # pre-dropout
+    if segmented:
+        # all-masked pad rows: lse is -1e30 itself and exp(s - lse) would
+        # be 1 on the very keys the grid forbids
+        p = torch.where(allowed, p, 0.0)
+    keep = None
+    if rate > 0.0:
+        if seeds is None:
+            raise ValueError("rate > 0 needs the [B] row seeds")
+        keep = uniform_grid(seeds.to(s.device), H, L) >= rate
+        p_drop = torch.where(keep, p * _keep_scale(rate), 0.0)
+    else:
+        p_drop = p
+    dv = torch.einsum("bhqk,bqhd->bkhd", p_drop.to(g.dtype).float(), g.float())
+    dp = torch.einsum("bqhd,bkhd->bhqk", g.float(), v.float())
+    if keep is not None:
+        dp = torch.where(keep, dp * _keep_scale(rate), 0.0)
+    row = (g.float() * out.float()).sum(dim=-1)         # [B, L, H]
+    ds = p * (dp - row.permute(0, 2, 1)[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), k.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
+    return ((dq * scale).to(q.dtype), (dk * scale).to(q.dtype),
+            dv.to(q.dtype))
+
+
+def fused_attention_bwd_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+    out: torch.Tensor, lse: torch.Tensor, mask: torch.Tensor,
+    seeds: Optional[torch.Tensor] = None, rate: float = 0.0,
+    segmented: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/fused_attention_bwd.cu`` on CUDA tensors; same
+    arguments and results as :func:`fused_attention_bwd_plain` (g must
+    already be in q's dtype). Raises on anything the kernel does not take."""
+    _check_operands(q, k, v, mask, seeds, rate, "fused_attention_bwd_cuda",
+                    extra=(g, out))
+    B, L, H, D = q.shape
+    if lse.shape != (B, H, L) or lse.dtype != torch.float32 or \
+            lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous f32 [B, H, L] = [{B}, {H}, "
+                         f"{L}] on {q.device}; got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
+    lib = BWD_KERNEL.library.lib()
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    delta = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.fused_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), mask.data_ptr(),
+            seeds.data_ptr() if rate > 0.0 else None,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+            B, L, H, D, int(q.dtype == torch.bfloat16),
+            1.0 / D ** 0.5, float(rate), _keep_scale(rate),
+            int(bool(segmented)), stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"fused_attention_bwd launch failed: cudaError_t {err} "
+            f"(B={B}, L={L}, H={H}, D={D}, {q.dtype})")
+    BWD_KERNEL.launches += 1
+    return dq, dk, dv
+
+
+class FusedAttention(torch.autograd.Function):
+    """The kernel pair under autograd (the port's ``_flash_core`` custom
+    VJP): the forward keeps its output and logsumexp, the backward runs the
+    fused backward on them. CUDA tensors launch the kernels, CPU tensors
+    run the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, seeds, rate: float, segmented: bool):
+        if q.device.type == "cpu":
+            out, lse = fused_attention_plain(q, k, v, mask, seeds, rate,
+                                             segmented, want_lse=True)
+        else:
+            out, lse = fused_attention_cuda(q, k, v, mask, seeds, rate,
+                                            segmented, want_lse=True)
+        ctx.save_for_backward(q, k, v, mask, seeds, out, lse)
+        ctx.rate, ctx.segmented = rate, segmented
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask, seeds, out, lse = ctx.saved_tensors
+        g = g.to(q.dtype).contiguous()   # _bwd's g.astype(q.dtype)
+        bwd = (fused_attention_bwd_plain if q.device.type == "cpu"
+               else fused_attention_bwd_cuda)
+        dq, dk, dv = bwd(q, k, v, g, out, lse, mask, seeds, ctx.rate,
+                         ctx.segmented)
+        return dq, dk, dv, None, None, None, None
 
 
 def fused_attention(
@@ -228,13 +376,24 @@ def fused_attention(
     ids when ``segmented``): the port's ``flash_attention``.
 
     ``seed``: an int or a (1,) / [B] int32 tensor keying the dropout mask
-    (expanded by :func:`row_seeds`; ignored when ``rate == 0``). CUDA
-    tensors run the kernel, CPU tensors the plain version."""
+    (expanded by :func:`row_seeds`; ignored when ``rate == 0``). With grad
+    mode on and q, k or v requiring grad, the call goes through
+    :class:`FusedAttention` (``want_lse`` is then not offered); otherwise
+    CUDA tensors run the forward kernel alone and CPU tensors its plain
+    version."""
     B, L, H, _ = q.shape
     if mask is None:
         mask = torch.ones((B, L), dtype=torch.int32, device=q.device)
     mask = mask.to(torch.int32).contiguous()
     seeds = row_seeds(seed, B, H, q.device) if rate > 0.0 else None
+    if torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad):
+        if want_lse:
+            raise ValueError("want_lse is for calls without autograd; the "
+                             "differentiable path keeps the lse itself")
+        return FusedAttention.apply(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), mask, seeds, float(rate),
+                                    bool(segmented))
     if q.device.type == "cpu":
         return fused_attention_plain(q, k, v, mask, seeds, rate, segmented,
                                      want_lse)

@@ -1,24 +1,26 @@
-"""A small pure-Python msgpack decoder for the JAX package's checkpoints.
+"""A small pure-Python msgpack codec for the JAX package's checkpoints.
 
-The JAX package writes checkpoints with ``flax.serialization.msgpack_serialize``;
-the port reads them without ``msgpack`` or ``flax`` installed. Covered:
-nil, bool, int, float, str, bin, array, map, and flax's ext types — 1, a
-numpy array as msgpack ``(shape, dtype name, C-order bytes)``, and 3, a
-numpy scalar in the same encoding — plus flax's chunked-array dicts for
-arrays past its chunk size. A ``bfloat16`` array is returned as float32
-(numpy has no bf16; the widening is exact).
+The JAX package writes checkpoints with ``flax.serialization.msgpack_serialize``
+and reads them with ``msgpack_restore``; the port reads and writes the same
+bytes without ``msgpack`` or ``flax`` installed. Covered: nil, bool, int,
+float, str, bin, array, map, and flax's ext types — 1, a numpy array as
+msgpack ``(shape, dtype name, C-order bytes)``, and 3, a numpy scalar in the
+same encoding — plus flax's chunked-array dicts for arrays past its chunk
+size (:data:`MAX_CHUNK_SIZE` bytes). A ``bfloat16`` array is read as
+float32 (numpy has no bf16; the widening is exact).
 """
 
 from __future__ import annotations
 
 import struct
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
 _CHUNKED = "__msgpack_chunked_array__"
+MAX_CHUNK_SIZE = 2 ** 30   # flax.serialization.MAX_CHUNK_SIZE, in bytes
 
 
 class MsgpackError(ValueError):
@@ -145,3 +147,115 @@ def unpackb(data: bytes, *, unchunk: bool = True) -> Any:
         raise MsgpackError(
             f"{len(reader.buf) - reader.pos} trailing bytes after the object")
     return _unchunk(obj) if unchunk else obj
+
+
+def _pack_int(n: int, out: bytearray) -> None:
+    if 0 <= n <= 0x7F or -32 <= n < 0:
+        out += struct.pack(">b" if n < 0 else ">B", n)
+    elif n >= 0:
+        for limit, code, fmt in ((0xFF, 0xCC, ">B"), (0xFFFF, 0xCD, ">H"),
+                                 (0xFFFFFFFF, 0xCE, ">I"),
+                                 ((1 << 64) - 1, 0xCF, ">Q")):
+            if n <= limit:
+                out += bytes([code]) + struct.pack(fmt, n)
+                return
+        raise MsgpackError(f"int {n} does not fit msgpack's 64 bits")
+    else:
+        for limit, code, fmt in ((-(1 << 7), 0xD0, ">b"), (-(1 << 15), 0xD1, ">h"),
+                                 (-(1 << 31), 0xD2, ">i"), (-(1 << 63), 0xD3, ">q")):
+            if n >= limit:
+                out += bytes([code]) + struct.pack(fmt, n)
+                return
+        raise MsgpackError(f"int {n} does not fit msgpack's 64 bits")
+
+
+def _pack_len(n: int, fix_base: Optional[int], fix_max: int, codes, out) -> None:
+    """A container/str/bin header: the fix form when it exists and fits,
+    else the 8/16/32-bit length form (``codes``: None or the 8-bit code,
+    then the 16- and 32-bit codes)."""
+    if fix_base is not None and n <= fix_max:
+        out.append(fix_base | n)
+        return
+    c8, c16, c32 = codes
+    if c8 is not None and n <= 0xFF:
+        out += bytes([c8, n])
+    elif n <= 0xFFFF:
+        out += bytes([c16]) + struct.pack(">H", n)
+    else:
+        out += bytes([c32]) + struct.pack(">I", n)
+
+
+def _pack_ext(code: int, payload: bytes, out: bytearray) -> None:
+    n = len(payload)
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixed:
+        out += bytes([fixed[n]]) + struct.pack(">b", code)
+    elif n <= 0xFF:
+        out += bytes([0xC7, n]) + struct.pack(">b", code)
+    elif n <= 0xFFFF:
+        out += bytes([0xC8]) + struct.pack(">Hb", n, code)
+    else:
+        out += bytes([0xC9]) + struct.pack(">Ib", n, code)
+    out += payload
+
+
+def _ndarray_payload(arr: np.ndarray) -> bytes:
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise MsgpackError(f"cannot pack an array of dtype {arr.dtype}")
+    return packb([list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+
+
+def _chunk(arr: np.ndarray) -> dict:
+    """flax's chunked form of an array past :data:`MAX_CHUNK_SIZE`."""
+    size = max(1, MAX_CHUNK_SIZE // arr.dtype.itemsize)
+    flat = arr.reshape(-1)
+    chunks = [flat[i:i + size] for i in range(0, flat.size, size)]
+    return {_CHUNKED: True,
+            "shape": {str(i): int(s) for i, s in enumerate(arr.shape)},
+            "chunks": {str(i): c for i, c in enumerate(chunks)}}
+
+
+def _pack(obj: Any, out: bytearray) -> None:
+    if obj is None:
+        out.append(0xC0)
+    elif obj is True or obj is False:
+        out.append(0xC3 if obj else 0xC2)
+    elif isinstance(obj, np.ndarray):
+        if obj.size * obj.dtype.itemsize > MAX_CHUNK_SIZE:
+            _pack(_chunk(obj), out)
+        else:
+            _pack_ext(_EXT_NDARRAY, _ndarray_payload(obj), out)
+    elif isinstance(obj, np.generic):
+        _pack_ext(_EXT_NPSCALAR, _ndarray_payload(np.asarray(obj)), out)
+    elif isinstance(obj, int):
+        _pack_int(int(obj), out)
+    elif isinstance(obj, float):
+        out += b"\xcb" + struct.pack(">d", obj)
+    elif isinstance(obj, str):
+        data = obj.encode("utf-8")
+        _pack_len(len(data), 0xA0, 31, (0xD9, 0xDA, 0xDB), out)
+        out += data
+    elif isinstance(obj, (bytes, bytearray, memoryview)):
+        data = bytes(obj)
+        _pack_len(len(data), None, -1, (0xC4, 0xC5, 0xC6), out)
+        out += data
+    elif isinstance(obj, dict):
+        _pack_len(len(obj), 0x80, 15, (None, 0xDE, 0xDF), out)
+        for key, value in obj.items():
+            _pack(key, out)
+            _pack(value, out)
+    elif isinstance(obj, (list, tuple)):
+        _pack_len(len(obj), 0x90, 15, (None, 0xDC, 0xDD), out)
+        for value in obj:
+            _pack(value, out)
+    else:
+        raise MsgpackError(f"cannot pack {type(obj).__name__}")
+
+
+def packb(obj: Any) -> bytes:
+    """Encode ``obj`` as ``flax.serialization.msgpack_serialize`` would:
+    numpy arrays and scalars as flax's ext types, arrays past
+    :data:`MAX_CHUNK_SIZE` bytes in flax's chunked form."""
+    out = bytearray()
+    _pack(obj, out)
+    return bytes(out)

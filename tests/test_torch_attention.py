@@ -1,18 +1,21 @@
-"""Fused attention of the PyTorch port against the JAX package's TPU kernel.
+"""Fused attention of the PyTorch port against the JAX package's TPU kernels.
 
-The port's plain version (``ml_recipe_tpu_torch.ops.flash_attention``) is
+The port's plain versions (``ml_recipe_tpu_torch.ops.flash_attention``) are
 held against ``flash_attention`` / ``_flash_forward`` run in Pallas
 interpret mode (as tests/test_ops.py runs them on the CPU), on the same
 numpy inputs: f32, random key masks, segments, dropout with the same [B]
-seed vector, and the logsumexp output. The dropout hash is compared bit for
-bit. The CUDA kernel itself runs only on the card: tests/test_torch_cuda.py
-holds it against this plain version there.
+seed vector, and the logsumexp output. The backward (``_fused_bwd_kernel``
+through ``jax.vjp``) is held against both ``fused_attention_bwd_plain`` and
+the ``FusedAttention`` autograd Function. The dropout hash is compared bit
+for bit. The CUDA kernels themselves run only on the card:
+tests/test_torch_cuda.py holds them against these plain versions there.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from ml_recipe_tpu.ops.flash_attention import (
@@ -176,3 +179,115 @@ def test_kernel_source_names_its_tpu_kernel():
     src = (cuda_build.CSRC_DIR / "fused_attention_fwd.cu").read_text()
     assert "_fused_fwd_kernel" in src
     assert 'extern "C" int fused_attention_fwd' in src
+
+
+def _pad_rows(mask, segmented):
+    """Every row of the last batch row masked: all-masked pad rows in the
+    segmented mode (lse = -1e30), an all-masked key row in the key mode."""
+    mask = mask.copy()
+    if segmented:
+        mask[-1, -12:] = 0
+    return mask
+
+
+@pytest.mark.parametrize("L,D", [(64, 8), (64, 64), (128, 8), (128, 64)])
+@pytest.mark.parametrize("segmented", [False, True], ids=["mask", "seg"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_backward_matches_pallas_kernel(L, D, segmented, rate):
+    """dq, dk, dv of the plain backward and of the autograd Function
+    against ``jax.vjp`` through the interpret-mode ``_fused_bwd_kernel``
+    (f32, F32_ATOL: the same formula in another summation order)."""
+    q, k, v, mask = _inputs(L=L, D=D, segmented=segmented, seed=L + D)
+    mask = _pad_rows(mask, segmented)
+    g = np.random.default_rng(L * D).normal(size=q.shape).astype(np.float32)
+    seed = np.array([123456789, -987654321], np.int32)   # a [B] vector
+    _, vjp = jax.vjp(
+        lambda q_, k_, v_: flash_attention(
+            q_, k_, v_, jnp.asarray(mask), seed=jnp.asarray(seed),
+            dtype=jnp.float32, rate=rate, interpret=True,
+            segmented=segmented),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref = [np.asarray(x) for x in vjp(jnp.asarray(g))]
+
+    t = [torch.from_numpy(x) for x in (q, k, v, mask, g)]
+    seeds = port.row_seeds(torch.from_numpy(seed), 2, q.shape[2])
+    out, lse = port.fused_attention_plain(
+        *t[:4], seeds, rate, segmented, want_lse=True)
+    plain = port.fused_attention_bwd_plain(
+        *t[:3], t[4], out, lse, t[3], seeds, rate, segmented)
+
+    x = [a.clone().requires_grad_() for a in t[:3]]
+    y = port.fused_attention(*x, t[3], seed=torch.from_numpy(seed),
+                             rate=rate, segmented=segmented)
+    assert isinstance(y.grad_fn, port.FusedAttention._backward_cls)
+    func = torch.autograd.grad(y, x, t[4])
+    for name, r, a, b in zip(("dq", "dk", "dv"), ref, plain, func):
+        np.testing.assert_allclose(a.numpy(), r, atol=F32_ATOL, err_msg=name)
+        np.testing.assert_allclose(b.numpy(), r, atol=F32_ATOL, err_msg=name)
+
+
+def test_segmented_backward_zeroes_pad_rows():
+    """An all-masked pad row's lse is -1e30 and exp(s - lse) is 1 on every
+    key: the backward must zero it in the segmented mode, and keep the TPU
+    kernel's unzeroed values in the key-mask mode."""
+    q, k, v, mask = (torch.from_numpy(x) for x in _inputs(L=64, D=8,
+                                                          segmented=True))
+    mask[1] = 0                                   # batch row 1: all pad
+    g = torch.ones_like(q)
+    for segmented in (True, False):
+        out, lse = port.fused_attention_plain(q, k, v, mask, None, 0.0,
+                                              segmented, want_lse=True)
+        dq, dk, dv = port.fused_attention_bwd_plain(q, k, v, g, out, lse,
+                                                    mask, None, 0.0, segmented)
+        if segmented:
+            assert (lse[1] == port.NEG_INF).all()
+            assert not dq[1].any() and not dk[1].any() and not dv[1].any()
+        else:
+            assert dv[1].abs().sum() > 0
+
+
+def test_function_routes_by_grad_mode():
+    q, k, v, mask = (torch.from_numpy(x) for x in _inputs(L=64, D=8))
+    assert port.fused_attention(q, k, v, mask).grad_fn is None
+    x = q.clone().requires_grad_()
+    assert port.fused_attention(x, k, v, mask).grad_fn is not None
+    with torch.no_grad():
+        assert port.fused_attention(x, k, v, mask).grad_fn is None
+    with pytest.raises(ValueError, match="want_lse"):
+        port.fused_attention(x, k, v, mask, want_lse=True)
+
+
+def test_bwd_kernel_wrapper_raises_on_cpu_tensors():
+    q, k, v, mask = (torch.from_numpy(x) for x in _inputs(L=64, D=64))
+    out, lse = port.fused_attention_plain(q, k, v, mask, want_lse=True)
+    before = port.BWD_KERNEL.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        port.fused_attention_bwd_cuda(q, k, v, q, out, lse, mask)
+    assert port.BWD_KERNEL.launches == before
+
+
+def test_bwd_kernel_source_names_its_tpu_kernel():
+    src = (cuda_build.CSRC_DIR / "fused_attention_bwd.cu").read_text()
+    assert "flash_attention.py:266" in src and "_fused_bwd_kernel" in src
+    assert 'extern "C" int fused_attention_bwd' in src
+    # one copy of the dropout hash, shared with the forward
+    common = (cuda_build.CSRC_DIR / "attention_common.cuh").read_text()
+    assert "hash_uniform" in common
+    for name in ("fused_attention_fwd.cu", "fused_attention_bwd.cu"):
+        text = (cuda_build.CSRC_DIR / name).read_text()
+        assert '#include "attention_common.cuh"' in text
+        assert "0xCC9E2D51" not in text
+
+
+def test_library_key_covers_the_shared_header(monkeypatch, tmp_path):
+    """An edited header must never load a library built from the old one."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("fused_attention_fwd.cu", "attention_common.cuh"):
+        (csrc / name).write_text((cuda_build.CSRC_DIR / name).read_text())
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", csrc)
+    lib = cuda_build.CudaLibrary("fused_attention_fwd.cu", lambda lib: None)
+    before = lib.path
+    (csrc / "attention_common.cuh").write_text(
+        (csrc / "attention_common.cuh").read_text() + "\n// edited\n")
+    assert lib.path != before

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-Every test here carries the ``cuda`` marker and skips without a CUDA
-device: the kernels have no CPU mode. The file imports no JAX, so it also
+Every kernel test here carries the ``cuda`` marker and skips without a
+CUDA device: the kernels have no CPU mode. One CPU test checks that the
+backward's bf16 limits reject faulty arithmetic. The file imports no JAX,
+so it also
 runs on a machine with the card and no JAX (tests/conftest.py imports JAX,
 hence ``--noconftest``)::
 
@@ -10,6 +12,8 @@ hence ``--noconftest``)::
 The plain versions themselves are held against the JAX package's TPU
 kernels on the CPU (tests/test_torch_attention.py).
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -24,6 +28,32 @@ from ml_recipe_tpu_torch.ops.attention import dot_product_attention
 # to bf16; outputs are O(1)
 ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 LSE_ATOL = 1e-4  # f32 logsumexp of O(10) scores, summed in other orders
+# backward, kernel vs plain on the same forward residuals. Unit-normal
+# inputs give dq, dk, dv of mean size 0.01-0.13 and largest size 1-5. f32:
+# the same formula in another summation order over up to 512 keys (~1e-6
+# relative), held to an atol. bf16: both round p_drop and ds to bf16 at the
+# same points and sum in f32, so a result a hair from a bf16 rounding
+# boundary rounds either way: one bf16 step (8 significant bits) at its
+# size. Two limits: the largest error within BWD_BF16_STEPS steps at
+# max|ref| (2**-7 to 2**-6 of max|ref|), and the relative L2 error within
+# BWD_REL_L2, which another summation order meets by 10x (~5e-5) and a
+# misplaced bf16 rounding point misses by 5x (~2.6e-3; pinned on the CPU by
+# test_bwd_limits_catch_misplaced_rounding)
+BWD_ATOL_F32 = 2e-4
+BWD_BF16_STEPS = 2
+BWD_REL_L2 = 5e-4
+
+
+def _bwd_errors(got, ref):
+    """``(max_abs_err, limit, rel_l2)`` of one gradient against its
+    reference, the limit by the reference's dtype."""
+    a, b = got.float(), ref.float()
+    err = (a - b).abs().max().item()
+    rel = ((a - b).norm() / b.norm()).item()
+    if ref.dtype == torch.float32:
+        return err, BWD_ATOL_F32, rel
+    top = b.abs().max().item()
+    return err, BWD_BF16_STEPS * 2.0 ** (math.floor(math.log2(top)) - 7), rel
 
 
 @pytest.fixture
@@ -113,3 +143,148 @@ def test_kernel_wrapper_refuses_unsupported_inputs(cuda):
         fa.fused_attention_cuda(t, k, v, mask)
     with pytest.raises(ValueError, match="bfloat16 or all float32"):
         fa.fused_attention_cuda(q.half(), k.half(), v.half(), mask)
+
+
+def _bwd_case(B, L, H, D, dtype, seed, segmented, rate):
+    q, k, v, mask, seeds = _inputs(B, L, H, D, dtype, seed, segmented)
+    if segmented:
+        mask[-1] = 0   # one all-masked row (pad rows, lse = -1e30)
+    out, lse = fa.fused_attention_plain(
+        q, k, v, mask, seeds if rate else None, rate, segmented, want_lse=True)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(seed),
+                    dtype=torch.float32).cuda().to(dtype)
+    return q, k, v, g, out, lse, mask, (seeds if rate else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("L", [5, 64, 130, 200, 512])
+@pytest.mark.parametrize("segmented", [False, True], ids=["mask", "seg"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bwd_kernel_matches_plain(cuda, dtype, D, L, segmented, rate):
+    B, H = 2, 3
+    args = _bwd_case(B, L, H, D, dtype, L + D, segmented, rate)
+    before = fa.BWD_KERNEL.launches
+    got = fa.fused_attention_bwd_cuda(*args, rate=rate, segmented=segmented)
+    ref = fa.fused_attention_bwd_plain(*args, rate=rate, segmented=segmented)
+    torch.cuda.synchronize()
+    assert fa.BWD_KERNEL.launches == before + 1
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == dtype and a.shape == args[0].shape, name
+        assert torch.isfinite(a.float()).all(), name
+        err, limit, rel = _bwd_errors(a, b)
+        assert err <= limit and rel <= BWD_REL_L2, (name, err, rel)
+
+
+@pytest.mark.cuda
+def test_function_gives_grad_fn_and_launches_both_kernels(cuda):
+    q, k, v, mask, seeds = _inputs(2, 128, 12, 64, torch.bfloat16, 3, False)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    fwd0, bwd0 = fa.KERNEL.launches, fa.BWD_KERNEL.launches
+    out = fa.fused_attention(q, k, v, mask, seed=seeds, rate=0.1)
+    assert out.grad_fn is not None
+    assert fa.KERNEL.launches == fwd0 + 1
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert fa.BWD_KERNEL.launches == bwd0 + 1
+    assert all(x.grad is not None and torch.isfinite(x.grad.float()).all()
+               for x in (q, k, v))
+    with torch.no_grad():   # the serving path: one forward launch, no graph
+        assert fa.fused_attention(q, k, v, mask).grad_fn is None
+    assert fa.KERNEL.launches == fwd0 + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segmented", [False, True], ids=["mask", "seg"])
+def test_function_grads_match_autograd_of_plain_forward(cuda, segmented):
+    """f32: the kernel pair's gradients against torch.autograd through the
+    plain forward. Segmented pad rows get a zero cotangent, as downstream
+    masking gives them (the TPU backward zeroes their contributions, plain
+    autograd would not)."""
+    q, k, v, mask, seeds = _inputs(2, 200, 4, 64, torch.float32, 5, segmented)
+    g = torch.randn(q.shape, device="cuda")
+    if segmented:
+        g = g * (mask > 0)[:, :, None, None]
+    grads = []
+    for fn in (fa.fused_attention, None):
+        x = [t.clone().requires_grad_() for t in (q, k, v)]
+        if fn is None:
+            out = fa.fused_attention_plain(*x, mask, seeds, 0.1, segmented)
+        else:
+            out = fn(*x, mask, seed=seeds, rate=0.1, segmented=segmented)
+        grads.append(torch.autograd.grad(out, x, g))
+    for a, b in zip(*grads):
+        assert (a - b).abs().max().item() <= BWD_ATOL_F32
+
+
+def _bwd_variant(q, k, v, g, out, lse, mask, seeds, rate, segmented, *,
+                 acc=torch.float64, round_p=True, round_ds=True,
+                 dp_scale=True):
+    """``fused_attention_bwd_plain`` summed in ``acc``, or with one fault:
+    p_drop or ds left unrounded, or dp without its 1/(1-rate)."""
+    L, H, D = q.shape[1:]
+    scale = 1.0 / D ** 0.5
+    allowed = fa._allowed(mask, segmented)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) * scale
+    p = torch.exp(torch.where(allowed, s, fa.NEG_INF) - lse.to(acc)[..., None])
+    if segmented:
+        p = torch.where(allowed, p, 0.0)
+    keep = fa.uniform_grid(seeds, H, L) >= rate
+    p_drop = torch.where(keep, p * fa._keep_scale(rate), 0.0)
+    if round_p:
+        p_drop = p_drop.to(q.dtype).to(acc)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p_drop, g.to(acc))
+    dp = torch.einsum("bqhd,bkhd->bhqk", g.to(acc), v.to(acc))
+    dp = torch.where(keep, dp * (fa._keep_scale(rate) if dp_scale else 1.0),
+                     0.0)
+    row = (g.to(acc) * out.to(acc)).sum(-1).permute(0, 2, 1)[..., None]
+    ds = p * (dp - row)
+    if round_ds:
+        ds = ds.to(q.dtype).to(acc)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.to(acc)) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.to(acc)) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+@pytest.mark.parametrize("segmented", [False, True], ids=["mask", "seg"])
+def test_bwd_limits_catch_misplaced_rounding(segmented):
+    """CPU: the bf16 backward limits above pass a correct backward that sums
+    in another order (f64), and fail one that skips the bf16 rounding of
+    p_drop or of ds, or drops dp's 1/(1-rate). The largest-error limit alone
+    would pass the two rounding faults; the relative L2 limit does not."""
+    rng = np.random.default_rng(7)
+    B, L, H, D, rate = 4, 256, 4, 64, 0.1
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((B, L, H, D),
+                                                       dtype=np.float32))
+                  .to(torch.bfloat16) for _ in range(4))
+    if segmented:
+        mask = np.zeros((B, L), np.int32)
+        for b in range(B - 1):   # the last row stays all pad
+            c1, c2, c3 = sorted(rng.choice(np.arange(1, L), 3, replace=False))
+            mask[b, :c1], mask[b, c1:c2], mask[b, c2:c3] = 1, 2, 3
+    else:
+        mask = (rng.random((B, L)) > 0.2).astype(np.int32)
+        mask[:, 0] = 1
+    mask = torch.from_numpy(mask)
+    seeds = fa.row_seeds(torch.from_numpy(
+        rng.integers(-2 ** 31, 2 ** 31 - 1, B).astype(np.int32)), B, H, "cpu")
+    out, lse = fa.fused_attention_plain(q, k, v, mask, seeds, rate, segmented,
+                                        want_lse=True)
+    args = (q, k, v, g, out, lse, mask, seeds, rate, segmented)
+    ref = fa.fused_attention_bwd_plain(*args)
+
+    def passes(got):
+        return all(err <= limit and rel <= BWD_REL_L2
+                   for err, limit, rel in map(_bwd_errors, got, ref))
+
+    assert passes(_bwd_variant(*args))
+    for fault in (dict(round_p=False), dict(round_ds=False),
+                  dict(dp_scale=False)):
+        got = _bwd_variant(*args, acc=torch.float32, **fault)
+        assert not passes(got), fault
+    for fault in (dict(round_p=False), dict(round_ds=False)):
+        got = _bwd_variant(*args, acc=torch.float32, **fault)
+        assert all(err <= limit
+                   for err, limit, _ in map(_bwd_errors, got, ref)), fault

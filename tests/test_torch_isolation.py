@@ -4,7 +4,8 @@
   ``chip_smoke.py`` finds no import of jax, flax, optax or the JAX package
   (``ml_recipe_tpu`` itself or ``ml_recipe_tpu.*`` — not the bare prefix,
   which the port's own name shares);
-- importing the serving entry point in a fresh interpreter loads no jax;
+- importing the serving and training entry points in a fresh interpreter
+  loads no jax;
 - the entry points default to CUDA and raise without it.
 """
 
@@ -49,15 +50,26 @@ def test_forbidden_matches_the_package_not_the_prefix():
 def test_no_port_module_imports_jax_or_the_jax_package():
     files = _sources()
     assert len(files) > 20 and files[-1].exists()
+    # the walk covers the training slice's modules too
+    names = {str(f.relative_to(_REPO)) for f in files}
+    for module in ("cli/train.py", "train/trainer.py", "train/optim.py",
+                   "train/checkpoint.py", "train/callback.py",
+                   "train/writer.py", "losses/losses.py", "data/datasets.py",
+                   "data/collate.py", "data/loader.py", "data/bucketing.py",
+                   "data/device_prefetch.py", "metrics/meters.py",
+                   "utils/msgpack.py", "utils/seed.py",
+                   "ops/flash_attention.py"):
+        assert f"ml_recipe_tpu_torch/{module}" in names, module
     offenders = [f"{path.relative_to(_REPO)}: {mod}"
                  for path in files for mod in _imports(path)
                  if _forbidden(mod)]
     assert not offenders, offenders
 
 
-def test_serving_entry_point_loads_no_jax():
+def test_entry_points_load_no_jax():
     code = ("import sys, ml_recipe_tpu_torch.cli.serve, "
-            "ml_recipe_tpu_torch.serve.engine, ml_recipe_tpu_torch.serve.server; "
+            "ml_recipe_tpu_torch.serve.engine, ml_recipe_tpu_torch.serve.server, "
+            "ml_recipe_tpu_torch.cli.train, ml_recipe_tpu_torch.train.trainer; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'ml_recipe_tpu')); "
             "assert not bad, bad")

@@ -226,3 +226,133 @@ def test_msgpack_decoder_reassembles_chunked_arrays(monkeypatch):
     blob = serialization.msgpack_serialize({"w": arr})
     assert b"__msgpack_chunked_array__" in blob
     assert np.array_equal(unpackb(blob)["w"], arr)
+
+
+def test_params_are_f32_master_weights_cast_at_use():
+    """Flax keeps f32 params and casts them at each use: the port's params
+    are f32 in every compute dtype, and a bf16 model's activations are
+    bf16."""
+    model = QAModel(EncoderConfig(**TINY), dtype=torch.bfloat16, device="cpu")
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    init_weights(model, torch.Generator().manual_seed(0))
+    ids, mask, tt = _batch()
+    hidden, _ = model.eval().transformer(torch.from_numpy(ids).long(),
+                                         torch.from_numpy(mask),
+                                         torch.from_numpy(tt).long())
+    assert hidden.dtype == torch.bfloat16
+
+
+def test_serving_model_casts_linear_and_embedding_params_once(tmp_path):
+    """``init_model`` for serving holds Linear/Embedding params in the
+    compute dtype (the cast at use becomes a no-op) and LayerNorm params in
+    f32; for training every param stays f32. Both score a batch the same,
+    bit for bit, since casting once or at each use rounds the same way."""
+    from ml_recipe_tpu_torch.compose import init_model
+    from ml_recipe_tpu_torch.config.parser import get_model_parser
+    from ml_recipe_tpu_torch.models.encoder import Embedding, Linear
+    from ml_recipe_tpu_torch.tokenizer import write_synthetic_bert_vocab
+
+    vocab = write_synthetic_bert_vocab(tmp_path / "vocab.txt", size=200)
+    params, _ = get_model_parser().parse_known_args(
+        ["--model", "bert-tiny", "--vocab_file", vocab])
+    serve, _ = init_model(params, device="cpu")
+    train, _ = init_model(params, device="cpu", train=True)
+    assert not serve.training and train.training
+    for m in serve.modules():
+        if isinstance(m, (Linear, Embedding)):
+            assert all(p.dtype == torch.bfloat16 for p in m.parameters())
+    assert serve.transformer.layer_0.attention.layer_norm.weight.dtype == \
+        torch.float32
+    assert all(p.dtype == torch.float32 for p in train.parameters())
+    ids, mask, tt = (torch.from_numpy(x).long() for x in _batch())
+    with torch.inference_mode():
+        a, b = serve(ids, mask, tt), train.eval()(ids, mask, tt)
+    for key in QA_OUTPUT_KEYS:
+        assert torch.equal(a[key], b[key]), key
+
+
+def _train_model(rate):
+    cfg = dict(TINY, hidden_dropout_prob=rate, attention_probs_dropout_prob=rate)
+    model = QAModel(EncoderConfig(**cfg), device="cpu")
+    init_weights(model, torch.Generator().manual_seed(1))
+    return model.train()
+
+
+def test_training_dropout_comes_from_the_given_generator():
+    ids, mask, tt = (torch.from_numpy(x).long() for x in _batch())
+    model = _train_model(0.1)
+
+    def run(seed):
+        return model(ids, mask, tt, generator=torch.Generator().manual_seed(seed))
+
+    a, b, c = run(3), run(3), run(4)
+    for key in QA_OUTPUT_KEYS:
+        assert torch.equal(a[key], b[key]), key
+    assert not torch.equal(a["cls"], c["cls"])
+    with pytest.raises(ValueError, match="Generator"):
+        model(ids, mask, tt)
+    # eval mode: no dropout, no generator needed, and equal to rate 0
+    with torch.inference_mode():
+        ev = model.eval()(ids, mask, tt)
+        ref = _train_model(0.0).eval()(ids, mask, tt)
+    for key in QA_OUTPUT_KEYS:
+        assert torch.equal(ev[key], ref[key]), key
+
+
+def test_training_mode_gradients_flow_through_attention():
+    """Every projection gets a gradient through the attention kernel pair
+    (the autograd Function), with dropout on."""
+    ids, mask, tt = (torch.from_numpy(x).long() for x in _batch())
+    model = _train_model(0.1)
+    out = model(ids, mask, tt, generator=torch.Generator().manual_seed(0))
+    (out["start_class"][:, 0].sum() + out["cls"].sum()).backward()
+    for name in ("query", "key", "value"):
+        grad = model.transformer.layer_0.attention.__getattr__(name).weight.grad
+        assert grad is not None and grad.abs().sum() > 0, name
+
+
+def test_msgpack_encoder_round_trips_through_flax(monkeypatch):
+    """The port's writer (``packb``) against flax's reader, every width of
+    int, str, bin, map and array header, numpy arrays and scalars, and
+    flax's chunked form past the chunk size."""
+    from flax import serialization
+
+    from ml_recipe_tpu_torch.utils import msgpack as mp
+
+    tree = {
+        "f32": np.arange(12, dtype=np.float32).reshape(3, 4),
+        "i32": np.array([[-(2 ** 31), 2 ** 31 - 1]], np.int32),
+        "count": np.asarray(7, np.int32),
+        "scalar": np.float32(2.5),
+        "ints": [0, 127, 128, 255, 256, 65535, 65536, 2 ** 32, 2 ** 64 - 1,
+                 -1, -32, -33, -128, -129, -32768, -32769, -(2 ** 31) - 1,
+                 -(2 ** 63)],
+        "strs": ["", "x" * 31, "y" * 32, "z" * 300, "w" * 70000],
+        "bytes": [b"", b"\x00" * 300, b"\x01" * 70000],
+        "floats": [0.25, -1e300],
+        "flags": [True, False, None],
+        "big_map": {str(i): i for i in range(20)},
+        "long_list": list(range(20)),
+        "empty": {},
+    }
+    blob = mp.packb(tree)
+    ref = serialization.msgpack_restore(blob)
+    ours = unpackb(blob)
+    for out in (ref, ours):
+        assert np.array_equal(out["f32"], tree["f32"])
+        assert np.array_equal(out["i32"], tree["i32"])
+        assert int(out["count"]) == 7 and out["scalar"] == np.float32(2.5)
+        for key in ("ints", "strs", "bytes", "floats", "flags", "big_map",
+                    "long_list", "empty"):
+            assert list(out[key]) == list(tree[key]) if isinstance(
+                tree[key], list) else out[key] == tree[key], key
+
+    monkeypatch.setattr(mp, "MAX_CHUNK_SIZE", 64)
+    monkeypatch.setattr(serialization, "MAX_CHUNK_SIZE", 64)
+    arr = np.arange(300, dtype=np.float32).reshape(10, 30)
+    blob = mp.packb({"w": arr})
+    assert b"__msgpack_chunked_array__" in blob
+    assert np.array_equal(serialization.msgpack_restore(blob)["w"], arr)
+    assert np.array_equal(unpackb(blob)["w"], arr)
+    with pytest.raises(mp.MsgpackError):
+        mp.packb({"x": object()})
