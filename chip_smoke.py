@@ -37,7 +37,25 @@ Phases, each fatal on failure (exit code 1, and no result line):
    per eval batch. Losses must be finite and the parameters must have moved.
    Then one micro-batch's forward+backward is timed and split by kernel,
    its gradients with kernel attention are held against plain attention,
-   and one checkpoint is written and read back.
+   and one checkpoint is written and read back;
+5. both kernels past 512, where they stand for the TPU's blocked and
+   streaming kernels: against their plain versions at 32x768 and 32x1024
+   (blocked), 2x4096 (streaming) and 2x1024 with non-zero bases, ``L_hash``
+   and split q/k segment ids, bf16 and f32, key masks and segments,
+   dropout and the lse; then each shape's kernel, plain and library times
+   beside its bound, and the backward's time split by its three device
+   kernels;
+6. long-context training at full width: ``config/long_context.cfg`` as
+   written (2 debug steps of 4 micro-batches of 32x1024, dropout 0.1,
+   ``shard_optimizer``, ``sharded_checkpoint``) through the same build and
+   train sequence, with counts zeroed just before and read just after (12
+   forward launches per micro-batch and per eval batch, 12 backward per
+   micro-batch), one micro-batch split by kernel, one sharded checkpoint
+   written and read back; then the cfg's single-chip variant
+   (``--max_seq_len=4096 --max_position_embeddings=4096 --remat``, 2 x 2 x
+   4096 per step), where the recompute makes it 24 forward launches per
+   micro-batch, and one 2x4096 micro-batch's peak memory and gradients
+   with remat on and off.
 
 It then prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line. Without CUDA, or outside a checkout
@@ -104,6 +122,23 @@ TRAIN_GRAD_REL_TOL = 0.05
 # outputs differ by bf16 ulps and 12 post-LN layers carry that into O(1)
 # logits; span ids must match wherever the top-2 margin exceeds this
 SCORE_ATOL = 0.25
+
+# past 512: config/long_context.cfg's 768 and 1024 buckets (the TPU's
+# q-blocked regime) and its single-chip variant's 4096 (the streaming one)
+LONG_SHAPES = [(32, 768), (32, 1024), (2, 4096)]
+BLOCKED_SHAPE, STREAM_SHAPE = (32, 1024), (2, 4096)
+# a 1024-row block at rows 1024.., columns 3072.. of a 4096-long sequence,
+# with its own q-side and k-side segment ids (the ring's streaming call)
+OFFSETS = dict(base=(1024, 3072), L_hash=4096)
+LONG_CFG = "long_context.cfg"
+LONG_VARIANT = ["--max_seq_len=4096", "--max_position_embeddings=4096",
+                "--remat", "--train_batch_size", "4", "--batch_split", "2",
+                "--test_batch_size", "2"]
+# one 2x4096 micro-batch's flat gradient, remat on against off, same
+# generator: remat replays every dropout draw, so only the summation order
+# of reductions that use atomics may differ (f32, ~1e-7 relative); a
+# recompute that drew other masks is off by O(1)
+REMAT_GRAD_REL_TOL = 1e-5
 
 # published peaks per H100 part (NVIDIA data sheets; dense bf16 tensor-core
 # rate, device-memory rate); matched against the nvidia-smi name
@@ -620,28 +655,31 @@ def phase_serving(torch, fa, kernel_ms):
     return launches
 
 
-def phase_training(torch, fa):
-    """The training path at full width; returns the forward and backward
-    launch counts of the training run."""
+def _run_training(torch, fa, cfg: str, extra=()):
+    """``config/<cfg>`` with ``extra`` flags through the trainer and model
+    parsers, ``check_train_flags`` and the build and train sequence of
+    ``ml_recipe_tpu_torch.cli.train``. The launch counts are set to 0 just
+    before ``train`` and read just after. Returns the trainer, the trainer
+    flags, the forward and backward counts, the wall seconds and the number
+    of parameter tensors that moved."""
     from ml_recipe_tpu_torch.cli import train as train_cli
     from ml_recipe_tpu_torch.config.parser import (
         check_train_flags, get_model_parser, get_params, get_trainer_parser)
     from ml_recipe_tpu_torch.tokenizer import write_synthetic_bert_vocab
-    from ml_recipe_tpu_torch.train.checkpoint import read_state
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     vocab = write_synthetic_bert_vocab(OUT_DIR / "vocab.txt")
     _, (params, model_params) = get_params(
         (get_trainer_parser, get_model_parser),
-        ["-c", str(REPO / "config" / "test_bert.cfg"), "--vocab_file", vocab,
-         "--dump_dir", str(OUT_DIR / "results")])
+        ["-c", str(REPO / "config" / cfg), "--vocab_file", vocab,
+         "--dump_dir", str(OUT_DIR / "results"), *extra])
     params.n_jobs = max(1, min(params.n_jobs, (os.cpu_count() or 2) // 2))
     check_train_flags(params, model_params)
     t0 = time.perf_counter()
     trainer = train_cli.build_trainer(params, model_params)
     model = trainer.model
-    say(f"training: {model_params.model} {model.cfg.num_layers} layers hidden "
-        f"{model.cfg.hidden_size} compute {model.dtype} params "
+    say(f"training {cfg}: {model_params.model} {model.cfg.num_layers} layers "
+        f"hidden {model.cfg.hidden_size} compute {model.dtype} params "
         f"{next(model.parameters()).dtype} on {model.device}, batch "
         f"{params.train_batch_size} = {params.batch_split} x "
         f"{params.train_batch_size // params.batch_split} x "
@@ -650,8 +688,8 @@ def phase_training(torch, fa):
         f"{trainer.planned_steps_per_epoch} steps/epoch over the dummy items)")
     if (model.cfg.num_layers != 12 or model.dtype != torch.bfloat16
             or any(p.dtype != torch.float32 for p in model.parameters())):
-        fail("the training configuration is not bert-base with bf16 compute "
-             "and f32 master weights")
+        fail(f"the {cfg} training configuration is not bert-base with bf16 "
+             f"compute and f32 master weights")
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
 
     fa.KERNEL.launches = 0          # the main path starts here
@@ -661,7 +699,47 @@ def phase_training(torch, fa):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fwd, bwd = fa.KERNEL.launches, fa.BWD_KERNEL.launches  # ends here
+    moved = sum(not torch.equal(p.detach(), before[n])
+                for n, p in model.named_parameters())
+    say(f"training {cfg}: {moved} of {len(before)} parameter tensors changed")
+    if moved == 0:
+        fail("no parameter changed after two steps")
+    return trainer, params, fwd, bwd, wall
 
+
+def _micro_batch(torch, trainer, rows: int):
+    """``fwd_bwd(impl="auto", seed=0)``: one micro-batch of ``rows`` dummy
+    items through the model's forward, the loss and backward, dropout drawn
+    from a generator seeded with ``seed``, attention by ``impl``."""
+    model = trainer.model
+    items = [trainer.train_dataloader.dataset[i] for i in range(rows)]
+    inputs, labels = trainer.collate_fun(items)[:2]
+    inputs = {k: torch.from_numpy(v).cuda() for k, v in inputs.items()}
+    labels = {k: torch.from_numpy(v).cuda() for k, v in labels.items()}
+    params_t = list(model.parameters())
+    attn = [m for m in model.modules() if hasattr(m, "attention_impl")]
+
+    def fwd_bwd(impl="auto", seed=0):
+        for m in attn:
+            m.attention_impl = impl
+        for p in params_t:
+            p.grad = None
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        preds = model(**trainer._model_inputs(inputs), generator=gen)
+        total, _ = trainer.loss(preds, labels)
+        total.backward()
+
+    return fwd_bwd
+
+
+def phase_training(torch, fa):
+    """The training path at full width; returns the forward and backward
+    launch counts of the training run."""
+    from ml_recipe_tpu_torch.train.checkpoint import read_state
+
+    trainer, params, fwd, bwd, wall = _run_training(torch, fa,
+                                                    "test_bert.cfg")
+    model = trainer.model
     layers = model.cfg.num_layers
     micro = len(trainer.history) * params.batch_split
     say(f"training: {len(trainer.history)} steps + {trainer.eval_batches} eval "
@@ -682,31 +760,11 @@ def phase_training(torch, fa):
         fail("a training loss is not finite")
     if trainer.eval_batches != 22:
         fail(f"expected 2 x 11 debug eval batches, ran {trainer.eval_batches}")
-    moved = sum(not torch.equal(p.detach(), before[n])
-                for n, p in model.named_parameters())
-    say(f"training: {moved} of {len(before)} parameter tensors changed")
-    if moved == 0:
-        fail("no parameter changed after two steps")
-    del before
 
     # one 32x512 micro-batch: device time of forward+backward, split by kernel
-    items = [trainer.train_dataloader.dataset[i] for i in range(TRAIN_SHAPE[0])]
-    inputs, labels = trainer.collate_fun(items)[:2]
-    inputs = {k: torch.from_numpy(v).cuda() for k, v in inputs.items()}
-    labels = {k: torch.from_numpy(v).cuda() for k, v in labels.items()}
     params_t = list(model.parameters())
     attn = [m for m in model.modules() if hasattr(m, "attention_impl")]
-
-    def fwd_bwd(impl="auto", seed=0):
-        for m in attn:
-            m.attention_impl = impl
-        for p in params_t:
-            p.grad = None
-        gen = torch.Generator(device="cuda").manual_seed(seed)
-        preds = model(**trainer._model_inputs(inputs), generator=gen)
-        total, _ = trainer.loss(preds, labels)
-        total.backward()
-
+    fwd_bwd = _micro_batch(torch, trainer, TRAIN_SHAPE[0])
     model.train()
     step_ms = time_ms(torch, fwd_bwd, reps=5, warm=2)
     split = profile_fwd_bwd(torch, fwd_bwd)
@@ -749,6 +807,294 @@ def phase_training(torch, fa):
         fail("the checkpoint did not read back")
     path.unlink()
     return fwd, bwd
+
+
+def _split_ids(torch, rng, seg, B, L):
+    """``seg`` followed by another block's segment ids: the [B, 2L] plane
+    of a ``seg_split`` call."""
+    other = np.zeros((B, L), np.int32)
+    for b in range(B - 1):
+        c1, c2 = sorted(rng.choice(np.arange(1, L), 2, replace=False))
+        other[b, :c1], other[b, c1:c2] = 2, 3
+    return torch.cat([seg, torch.from_numpy(other).cuda()], dim=1).contiguous()
+
+
+def _bwd_check(torch, got, ref, tname):
+    """``(ok, errs, tols, rels)`` of dq, dk, dv against their plain values
+    (the limits of phase_bwd_kernel)."""
+    errs, tols, rels = [], [], []
+    for a, b in zip(got, ref):
+        a, b = a.float(), b.float()
+        if not bool(torch.isfinite(a).all()):
+            return False, [math.inf] * 3, [0.0] * 3, [math.inf] * 3
+        errs.append((a - b).abs().max().item())
+        rels.append(((a - b).norm() / b.norm()).item())
+        top = b.abs().max().item()
+        tols.append(BWD_BF16_STEPS * bf16_step(top) if tname == "bf16"
+                    else BWD_ATOL_F32)
+    ok = all(e <= t and r <= BWD_REL_L2 for e, t, r in zip(errs, tols, rels))
+    return ok, errs, tols, rels
+
+
+def phase_long_kernels(torch, fa, bw, flops):
+    """Both kernels against their plain versions past 512, then timings at
+    each regime's shape; returns ``(timings, fwd max err, bwd max err)``."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(3)
+    max_fwd = max_bwd = 0.0
+    runs = [(B, L, dt, tn, {}) for B, L in LONG_SHAPES
+            for dt, tn in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))]
+    runs += [(2, 1024, dt, tn, OFFSETS)
+             for dt, tn in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))]
+    for B, L, dtype, tname, coords in runs:
+        q, k, v, mask, seg, seeds = _attention_inputs(torch, fa, rng, B, L,
+                                                      dtype)
+        g = torch.from_numpy(rng.standard_normal(
+            (B, L, H, D), dtype=np.float32)).to("cuda", dtype)
+        cases = CASES
+        if coords:   # a block of a longer sequence: split q/k ids
+            seg = _split_ids(torch, rng, seg, B, L)
+            cases = [("mask+dropout", dict(rate=TRAIN_RATE)),
+                     ("seg_split+dropout", dict(segmented=True,
+                                                rate=TRAIN_RATE))]
+        for case, kw in cases:
+            segmented = kw.get("segmented", False)
+            m = seg if segmented else mask
+            kw = dict(rate=kw.get("rate", 0.0), segmented=segmented,
+                      seg_split=bool(coords) and segmented, **coords)
+            sd = seeds if kw["rate"] else None
+            out, lse = fa.fused_attention_cuda(q, k, v, m, sd, want_lse=True,
+                                               **kw)
+            ref, ref_lse = fa.fused_attention_plain(q, k, v, m, sd,
+                                                    want_lse=True, **kw)
+            got_g = fa.fused_attention_bwd_cuda(q, k, v, g, ref, ref_lse, m,
+                                                sd, **kw)
+            ref_g = fa.fused_attention_bwd_plain(q, k, v, g, ref, ref_lse, m,
+                                                 sd, **kw)
+            torch.cuda.synchronize()
+            finite = bool(torch.isfinite(out.float()).all())
+            err = (out.float() - ref.float()).abs().max().item()
+            lse_err = (lse - ref_lse).abs().max().item()
+            ok_f = finite and err <= ATOL[tname] and lse_err <= LSE_ATOL
+            ok_b, errs, tols, rels = _bwd_check(torch, got_g, ref_g, tname)
+            where = (f"B={B} L={L} H={H} D={D} {tname} {case}"
+                     + (f" base={coords['base']} L_hash={coords['L_hash']}"
+                        if coords else ""))
+            say(f"kernel-vs-plain long {where}: forward max_abs_err="
+                f"{err:.3e} (tol {ATOL[tname]:g}) lse_err={lse_err:.3e}; "
+                f"backward dq/dk/dv max_abs_err {errs[0]:.3e} {errs[1]:.3e} "
+                f"{errs[2]:.3e} (tol {tols[0]:.3e} {tols[1]:.3e} "
+                f"{tols[2]:.3e}), rel_l2 {rels[0]:.2e} {rels[1]:.2e} "
+                f"{rels[2]:.2e} (tol {BWD_REL_L2:g}) "
+                f"{'ok' if ok_f and ok_b else 'FAIL'}")
+            if not (ok_f and ok_b):
+                fail(f"a kernel disagrees with its plain version at {where}")
+            max_fwd, max_bwd = max(max_fwd, err), max(max_bwd, *errs)
+            del out, lse, ref, ref_lse, got_g, ref_g
+        del q, k, v, g, mask, seg, seeds
+        torch.cuda.empty_cache()
+
+    # timings: the training configuration (bf16, key mask, dropout 0.1)
+    timings = {}
+    for B, L in LONG_SHAPES:
+        q, k, v, mask, _, seeds = _attention_inputs(torch, fa, rng, B, L,
+                                                    torch.bfloat16)
+        g = torch.from_numpy(rng.standard_normal(
+            (B, L, H, D), dtype=np.float32)).to("cuda", torch.bfloat16)
+        elems = B * L * H * D * q.element_size()
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        gt = g.transpose(1, 2)
+        bool_mask = (mask > 0)[:, None, None, :]
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=bool_mask, dropout_p=TRAIN_RATE)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), gt)
+
+        with torch.no_grad():
+            sdpa_fwd_ms = time_ms(torch, sdpa_fwd)
+        fwd = dict(
+            ms=time_ms(torch, lambda: fa.fused_attention_cuda(
+                q, k, v, mask, seeds, TRAIN_RATE, want_lse=True)),
+            plain_ms=time_ms(torch, lambda: fa.fused_attention_plain(
+                q, k, v, mask, seeds, TRAIN_RATE, want_lse=True), reps=5),
+            library_ms=sdpa_fwd_ms)
+        n_bytes = 4 * elems + mask.numel() * 4 + B * 4 + B * H * L * 4
+        fwd["bound_ms"], fwd["bound_by"] = _bound(
+            n_bytes, 4 * B * H * L * L * D, bw, flops)
+        out, lse = fa.fused_attention_cuda(q, k, v, mask, seeds, TRAIN_RATE,
+                                           want_lse=True)
+        args = (q, k, v, g, out, lse, mask, seeds, TRAIN_RATE, False)
+        bwd = dict(
+            ms=time_ms(torch, lambda: fa.fused_attention_bwd_cuda(*args)),
+            plain_ms=time_ms(torch, lambda: fa.fused_attention_bwd_plain(
+                *args), reps=3),
+            library_ms=time_ms(torch, sdpa_fwd_bwd) - time_ms(torch, sdpa_fwd))
+        n_bytes = 8 * elems + B * H * L * 4 + mask.numel() * 4 + B * 4
+        bwd["bound_ms"], bwd["bound_by"] = _bound(
+            n_bytes, 10 * B * H * L * L * D, bw, flops)
+        bwd["split_ms"] = profile_kernels(
+            torch, lambda: fa.fused_attention_bwd_cuda(*args),
+            ("fused_attention_bwd_row_term", "fused_attention_bwd_dkdv",
+             "fused_attention_bwd_dq"))
+        for name, t in (("fused_attention_fwd", fwd),
+                        ("fused_attention_bwd", bwd)):
+            say(f"timing {name} {B}x{L}x{H}x{D} bf16 (rate 0.1"
+                f"{', lse' if name.endswith('fwd') else ''}): kernel_ms="
+                f"{t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+                f"library_ms(sdpa{' backward, fwd+bwd minus fwd' if name.endswith('bwd') else ''})"
+                f"={t['library_ms']:.4f} bound_ms={t['bound_ms']:.4f} "
+                f"({t['bound_by']})"
+                + (f"; device ms by kernel {t['split_ms']}"
+                   if "split_ms" in t else ""))
+        timings[(B, L)] = dict(fwd=fwd, bwd=bwd)
+        del q, k, v, g, out, lse, args, qt, kt, vt, gt
+        torch.cuda.empty_cache()
+    return timings, max_fwd, max_bwd
+
+
+def phase_long_training(torch, fa):
+    """config/long_context.cfg and its 4096 remat variant at full width;
+    returns the launch counts of each run."""
+    import gc
+    import shutil
+
+    from ml_recipe_tpu_torch.train.checkpoint import MANIFEST, read_state
+
+    out = {}
+    for label, extra in (("1024", ()), ("4096 remat", LONG_VARIANT)):
+        trainer, params, fwd, bwd, wall = _run_training(
+            torch, fa, LONG_CFG, ["--dummy_dataset", "--debug", *extra])
+        model = trainer.model
+        layers = model.cfg.num_layers
+        remat = label.endswith("remat")
+        micro = len(trainer.history) * params.batch_split
+        per_micro = 2 * layers if remat else layers   # the recompute
+        want_fwd = per_micro * micro + layers * trainer.eval_batches
+        say(f"training {LONG_CFG} {label}: {len(trainer.history)} steps of "
+            f"{params.batch_split} x {params.train_batch_size // params.batch_split}"
+            f" x {params.max_seq_len} + {trainer.eval_batches} eval batches of "
+            f"{params.test_batch_size} x {params.max_seq_len} in {wall:.1f}s; "
+            f"step wall seconds "
+            f"{[round(h['seconds'], 3) for h in trainer.history]}; loss "
+            f"{[round(h['loss'], 4) for h in trainer.history]}")
+        say(f"training {LONG_CFG} {label}: attention launches forward={fwd} "
+            f"(expected {per_micro} x {micro} micro-batches + {layers} x "
+            f"{trainer.eval_batches} eval batches = {want_fwd}), backward="
+            f"{bwd} (expected {layers} x {micro} = {layers * micro})")
+        want_seq = 4096 if remat else 1024
+        if (params.max_seq_len != want_seq
+                or model.cfg.max_position_embeddings != want_seq
+                or model.transformer.remat != remat
+                or not (params.shard_optimizer and trainer.sharded_checkpoint)
+                or params.train_batch_size != (4 if remat else 128)):
+            fail(f"{LONG_CFG} {label} did not build as configured")
+        if len(trainer.history) != 2 or trainer.eval_batches != 22 or \
+                micro != (4 if remat else 8):
+            fail(f"{LONG_CFG} {label}: the debug run did not take 2 steps "
+                 f"and 22 eval batches")
+        if fwd != want_fwd or bwd != layers * micro:
+            fail(f"attention launch counts do not match {LONG_CFG} {label}")
+        if not all(np.isfinite(v) for h in trainer.history
+                   for k, v in h.items() if k not in ("step", "rows",
+                                                      "seconds")):
+            fail(f"a {LONG_CFG} {label} training loss is not finite")
+        out[label] = dict(fwd=fwd, bwd=bwd)
+
+        rows = params.train_batch_size // params.batch_split
+        fwd_bwd = _micro_batch(torch, trainer, rows)
+        model.train()
+        if not remat:
+            # one 32x1024 micro-batch: device time, split by kernel
+            step_ms = time_ms(torch, fwd_bwd, reps=5, warm=2)
+            split = profile_fwd_bwd(torch, fwd_bwd)
+            rest = (step_ms - split["attention forward"]
+                    - split["attention backward"])
+            say(f"training {LONG_CFG} {label}: one {rows}x{want_seq} "
+                f"micro-batch forward+backward device ms={step_ms:.3f}: "
+                f"attention forward {split['attention forward']:.3f}, "
+                f"attention backward {split['attention backward']:.3f}, "
+                f"rest {rest:.3f} (from a torch.profiler trace)")
+            # one sharded checkpoint with debug off, read back
+            trainer.debug = False
+            path = OUT_DIR / "results" / "smoke_sharded.ch"
+            t0 = time.perf_counter()
+            trainer.save_state_dict(path)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            state = read_state(path)
+            read_s = time.perf_counter() - t0
+            size = sum(f.stat().st_size for f in path.iterdir())
+            ok = ((path / MANIFEST).exists() and state["global_step"] == 2
+                  and int(state["optimizer"]["0"]["0"]["count"]) == 2
+                  and f"layer_{layers - 1}" in state["model"]["transformer"])
+            say(f"training {LONG_CFG} {label}: sharded checkpoint "
+                f"{sorted(f.name for f in path.iterdir())} ({size} bytes) "
+                f"written in {save_s:.1f}s and read back in {read_s:.1f}s: "
+                f"global_step {state['global_step']} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail("the sharded checkpoint did not read back")
+            shutil.rmtree(path)
+            del state
+        else:
+            # one 2x4096 micro-batch, remat on and off: peak memory, time
+            # and the gradients for one generator
+            params_t = list(model.parameters())
+            peak, flat, ms = {}, {}, {}
+            for on in (True, False):
+                model.transformer.remat = on
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                fwd_bwd(seed=7)
+                torch.cuda.synchronize()
+                peak[on] = torch.cuda.max_memory_allocated()
+                flat[on] = torch.cat([p.grad.float().reshape(-1)
+                                      for p in params_t]).cpu()
+                ms[on] = time_ms(torch, fwd_bwd, reps=3, warm=1)
+            model.transformer.remat = True
+            for p in params_t:
+                p.grad = None
+            rel = ((flat[True] - flat[False]).norm()
+                   / flat[False].norm()).item()
+            same = bool(torch.equal(flat[True], flat[False]))
+            say(f"training {LONG_CFG} {label}: one {rows}x{want_seq} "
+                f"micro-batch, remat on / off: peak CUDA memory "
+                f"{peak[True]} / {peak[False]} bytes, forward+backward "
+                f"device ms {ms[True]:.3f} / {ms[False]:.3f}; gradients "
+                f"{'bit-identical' if same else 'differ'}, relative L2 "
+                f"{rel:.3e} (tol {REMAT_GRAD_REL_TOL:g})")
+            if not (np.isfinite(rel) and rel <= REMAT_GRAD_REL_TOL):
+                fail("remat changes the gradients")
+            out[label].update(peak_on=peak[True], peak_off=peak[False])
+            del flat
+        del trainer, model, fwd_bwd
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def profile_kernels(torch, fn, names) -> dict:
+    """Device ms of one ``fn()`` in each kernel whose name contains one of
+    ``names``, from a torch.profiler trace; fails without device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = [(e.name, e.time_range.end - e.time_range.start)
+             for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not spans:
+        fail("the profiler trace holds no device events")
+    return {n: round(sum(us for e, us in spans if n in e) / 1e3, 4)
+            for n in names}
 
 
 def profile_fwd_bwd(torch, fn):
@@ -855,9 +1201,47 @@ def main() -> int:
 
     timings, fwd_err = phase_kernels(torch, fa, bw, flops)
     bwd, bwd_err = phase_bwd_kernel(torch, fa, bw, flops)
+    long_t, long_fwd_err, long_bwd_err = phase_long_kernels(torch, fa, bw,
+                                                            flops)
     serving_fwd = phase_serving(torch, fa, timings[SERVING_SHAPE]["ms"])
     train_fwd, train_bwd = phase_training(torch, fa)
+    long = phase_long_training(torch, fa)
     fwd = timings[TRAIN_SHAPE]
+
+    def entry(kernel, replaces, launches, err, t, shape, **more):
+        return {"name": kernel, "route": "cuda",
+                "source": f"ml_recipe_tpu_torch/csrc/{kernel}.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"], "shape": shape, **more}
+
+    blocked, stream = long_t[BLOCKED_SHAPE], long_t[STREAM_SHAPE]
+    blocked_shape = "32x1024x12x64 bf16, dropout 0.1 (config/long_context.cfg)"
+    stream_shape = ("2x4096x12x64 bf16, dropout 0.1 (config/long_context.cfg "
+                    "--max_seq_len=4096 --remat)")
+    # rows 6 and 7: one backward launch runs the row-term pre-pass, the
+    # dk/dv kernel and the dq kernel; ms and the bound are the launch's
+    shared = dict(device_ms_by_kernel=stream["bwd"]["split_ms"],
+                  covers="one launch: dq and dk/dv (flash_streaming.py:339 "
+                         "and :374)")
+    long_kernels = [
+        entry("fused_attention_fwd", "ml_recipe_tpu/ops/flash_attention.py:364",
+              long["1024"]["fwd"], long_fwd_err, blocked["fwd"],
+              blocked_shape + ", lse"),
+        entry("fused_attention_bwd", "ml_recipe_tpu/ops/flash_attention.py:305",
+              long["1024"]["bwd"], long_bwd_err, blocked["bwd"],
+              blocked_shape, device_ms_by_kernel=blocked["bwd"]["split_ms"]),
+        entry("fused_attention_fwd", "ml_recipe_tpu/ops/flash_streaming.py:241",
+              long["4096 remat"]["fwd"], long_fwd_err, stream["fwd"],
+              stream_shape + ", lse"),
+        entry("fused_attention_bwd", "ml_recipe_tpu/ops/flash_streaming.py:339",
+              long["4096 remat"]["bwd"], long_bwd_err, stream["bwd"],
+              stream_shape, **shared),
+        entry("fused_attention_bwd", "ml_recipe_tpu/ops/flash_streaming.py:374",
+              long["4096 remat"]["bwd"], long_bwd_err, stream["bwd"],
+              stream_shape, **shared),
+    ]
     say(json.dumps({"kernels": [{
         "name": "fused_attention_fwd",
         "route": "cuda",
@@ -886,7 +1270,7 @@ def main() -> int:
         "bound_by": bwd["bound_by"],
         "library_ms": bwd["library_ms"],
         "shape": "32x512x12x64 bf16, dropout 0.1 (training)",
-    }]}))
+    }, *long_kernels]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -77,6 +77,7 @@ def build_trainer(params, model_params) -> Trainer:
         length_buckets=params.length_buckets,
         device_prefetch=params.device_prefetch,
         log_every=params.log_every,
+        sharded_checkpoint=params.sharded_checkpoint,
     )
     if params.last is not None:
         trainer.load_state_dict(params.last)

@@ -70,6 +70,7 @@ def init_model(
     model = QAModel(
         cfg, dtype=dtype, device=dev,
         attention_impl=getattr(model_params, "flash_attention", "auto") or "auto",
+        remat=bool(getattr(model_params, "remat", False)),
     )
     init_weights(model, torch.Generator().manual_seed(rng_seed))
     if checkpoint is not None:
@@ -81,8 +82,9 @@ def init_model(
         for module in model.modules():
             if isinstance(module, (Linear, Embedding)):
                 module.to(module.compute_dtype)
-    logger.info("Model %s built on %s in %s (%d layers).", model_params.model,
-                dev, dtype, cfg.num_layers)
+    logger.info("Model %s built on %s in %s (%d layers%s).",
+                model_params.model, dev, dtype, cfg.num_layers,
+                ", remat" if model.transformer.remat else "")
     return model, tokenizer
 
 

@@ -265,8 +265,9 @@ def get_model_parser() -> ConfigArgumentParser:
                              "version on the CPU), xla (the plain version), "
                              "or ring (sequence-parallel; not ported yet).")
     parser.add_argument("--remat", action="store_true",
-                        help="Rematerialize encoder layers (jax.checkpoint) to trade "
-                             "FLOPs for HBM.")
+                        help="Recompute each encoder layer in the backward "
+                             "(torch.utils.checkpoint, replaying its dropout "
+                             "draws) to trade FLOPs for device memory.")
     parser.add_argument("--ln_impl", type=cast2(str), default="xla",
                         choices=[None, "xla", "fused", "auto", "interpret"],
                         help="LayerNorm implementation: xla (default, plain "
@@ -904,13 +905,9 @@ def check_train_flags(params, model_params) -> None:
         (_world_size_from_env() > 1, "WORLD_SIZE (environment)",
          os.environ.get("WORLD_SIZE"), _DDP),
         (params.mesh is not None, "mesh", params.mesh, _PARALLEL),
-        (params.optimizer_sharding not in (None, "off"), "optimizer_sharding",
-         params.optimizer_sharding, _PARALLEL),
-        (params.shard_optimizer, "shard_optimizer", True, _PARALLEL),
         (params.zero1_overlap not in (None, "off"), "zero1_overlap",
          params.zero1_overlap, _PARALLEL),
         (params.async_checkpoint, "async_checkpoint", True, _TRAINING),
-        (params.sharded_checkpoint, "sharded_checkpoint", True, _TRAINING),
         (params.apex_loss_scale is not None, "apex_loss_scale",
          params.apex_loss_scale, _TRAINING),
         (str(params.sequence_packing).strip().lower() not in
@@ -952,8 +949,13 @@ def check_train_flags(params, model_params) -> None:
     for bad, flag, value, item in checks:
         if bad:
             raise _not_ported(flag, value, item)
+    if params.shard_optimizer or params.optimizer_sharding == "zero1":
+        # the JAX trainer on a one-chip mesh: the ZeRO-1 plan is None and
+        # checkpoints record opt_sharding 'off' (world size > 1 raised above)
+        logger.info("--optimizer_sharding zero1 (--shard_optimizer) is inert "
+                    "at world size 1: the optimizer state stays whole on the "
+                    "one device, as the JAX trainer keeps it on a one-chip "
+                    "mesh.")
     ignored = [f"--{f} {getattr(params, f)}" for f in _IGNORED_TRAIN_FLAGS]
-    if model_params.remat:
-        ignored.append("--remat")
     logger.info("Accepted but not ported (no effect in ml_recipe_tpu_torch): "
                 "%s.", ", ".join(ignored))

@@ -44,15 +44,39 @@ __device__ __forceinline__ uint32_t dropout_key(const int32_t* seeds, int b,
   return (uint32_t)seeds[b] + (uint32_t)h * 0x9E3779B9u;
 }
 
-// `_uniform_grid(seed, h, L)[row, col] >= rate`: whether the forward kept
-// the probability at (row, col) of this head.
-__device__ __forceinline__ bool keep_bit(int row, int col, int L,
-                                         uint32_t key, float rate) {
-  return hash_uniform((uint32_t)(row * L + col) ^ key) >= rate;
+// Whether the forward kept the probability at ABSOLUTE (row, col) of this
+// head: `_uniform_grid(seed, h, L_hash, row_offset, col_offset) >= rate`
+// (ml_recipe_tpu/ops/flash_streaming.py `_keep_tile`). The flat index
+// row * L_hash + col is computed in uint32, so it wraps as JAX's int32
+// arithmetic does at any length and offset. Single-chip calls pass the
+// tile's own row and column with L_hash = L; a call on one block of a
+// longer sequence passes its offsets folded in and the full length.
+__device__ __forceinline__ bool keep_bit(uint32_t row, uint32_t col,
+                                         uint32_t L_hash, uint32_t key,
+                                         float rate) {
+  return hash_uniform((row * L_hash + col) ^ key) >= rate;
 }
 
+// The ids and the dropout coordinates of one call, passed by value to both
+// kernels. `qids`/`kids` point at row 0 of the q-side and k-side ids, each
+// row `ids_stride` ints apart: the [B, L] key mask (or segment ids) gives
+// qids == kids and ids_stride = L; `seg_split` ids, one [B, 2L] plane with
+// the q ids first, give kids = qids + L and ids_stride = 2L. Row `row` and
+// column `col` of the call draw the keep-bit at absolute
+// (row_base + row, col_base + col) of an L_hash-long sequence.
+struct Coords {
+  const int32_t* qids;
+  const int32_t* kids;
+  int64_t ids_stride;
+  uint32_t row_base;
+  uint32_t col_base;
+  uint32_t L_hash;
+};
+
 // The allowed grid: the key mask (`kseg > 0`) or, segmented, the block
-// diagonal `qseg == kseg && kseg > 0`.
+// diagonal `qseg == kseg && kseg > 0`. The q-side and k-side ids come from
+// two rows of ids (the same row unless the caller splits them, as
+// `_stream_mask_tile`'s `seg_split` does).
 __device__ __forceinline__ bool allowed(int qseg, int kseg, int segmented) {
   return segmented ? (kseg == qseg && kseg > 0) : kseg > 0;
 }

@@ -2,16 +2,28 @@
 // plain C launch function loaded with ctypes
 // (ml_recipe_tpu_torch/ops/flash_attention.py).
 //
-// Replaces the TPU kernel ml_recipe_tpu/ops/flash_attention.py:266
-// `_fused_bwd_kernel` (math: `_attention_bwd_math`), the backward of every
-// attention layer in the L <= 512 regime that training runs. Per (batch,
-// head), with the forward's saved output `out` and per-row logsumexp `lse`:
+// Replaces the four backward kernels of the TPU package's attention
+// regimes, which compute one function:
+// - ml_recipe_tpu/ops/flash_attention.py:266 `_fused_bwd_kernel` (L <= 512,
+//   math `_attention_bwd_math`: every layer of config/test_bert.cfg);
+// - ml_recipe_tpu/ops/flash_attention.py:305 `_blocked_bwd_kernel` (dq per
+//   q-block, dk/dv accumulated over the q sweep: config/long_context.cfg's
+//   768 and 1024 rows);
+// - ml_recipe_tpu/ops/flash_streaming.py:374 `_stream_dkv_kernel` (dk/dv, q
+//   innermost) by kernel A below, and flash_streaming.py:339
+//   `_stream_dq_kernel` (dq, k innermost) by kernel B: the 3072 and 4096
+//   rows of the cfg's single-chip variant, with `base_ref` offsets,
+//   `L_hash` and `seg_split` ids.
+//
+// Per (batch, head), with the forward's saved output `out` and per-row
+// logsumexp `lse`:
 //
 //   p    = exp(s - lse),  s = q k^T / sqrt(D) (masked scores -1e30)
 //          segmented only: p = 0 where the grid forbids (all-masked pad rows
 //          have lse = -1e30 and exp(s - lse) would degenerate to 1); the
 //          key-mask mode keeps the TPU kernel's unzeroed values
-//   pd   = keep ? p / (1 - rate) : 0        (the forward's dropout mask)
+//   pd   = keep ? p / (1 - rate) : 0        (the forward's dropout mask, at
+//          the same absolute coordinates: attention_common.cuh `keep_bit`)
 //   dv   = bf16(pd)^T g
 //   dp   = keep ? (g v^T) / (1 - rate) : 0
 //   row  = sum_d g * out                    (the delta identity, f32)
@@ -22,15 +34,18 @@
 // the scale multiplies the f32 product, after it.)
 //
 // Bound on the H100: the work is 5 products of 2*B*H*L^2*D operations each
-// (s, dv, dp, dq, dk): 6.4e10 at 32x512x12x64, ~0.065 ms at 989 TFLOP/s.
-// The traffic is q, k, v, g, out read once and dq, dk, dv written once:
-// ~201 MB in bf16 at that shape, ~0.060 ms at 3.35 TB/s. So the card's
-// tensor-core rate and its memory rate bound it about equally.
+// (s, dv, dp, dq, dk): 6.4e10 at 32x512x12x64 (~0.065 ms at 989 TFLOP/s)
+// and 2.6e11 at 32x1024 and at 2x4096 (~0.26 ms). The traffic is q, k, v,
+// g, out read once and dq, dk, dv written once: ~201 MB in bf16 at 32x512
+// (~0.060 ms at 3.35 TB/s), ~403 MB at 32x1024, ~101 MB at 2x4096. So the
+// tensor-core rate bounds it at every training shape, the memory rate
+// nearly as much at 32x512.
 //
 // What this design does about it, for now: it is the simple deterministic
-// first design, far from that bound. Every output element has exactly one
-// writer, so there are no atomics and the result does not depend on the
-// order blocks run in:
+// first design, far from that bound, and the FlashAttention-2 split that
+// the streaming TPU kernels use; no shared memory size depends on L.
+// Every output element has exactly one writer, so there are no atomics and
+// the result does not depend on the order blocks run in:
 // - a pre-pass computes the row term `row` once per (b, h, query row);
 // - kernel A, one block per (64-key tile, head, batch): each key's dk and
 //   dv live in f32 registers and the block walks every query row, 32 rows
@@ -55,6 +70,7 @@
 
 namespace {
 
+using attn::Coords;
 using attn::kMaskedScore;
 using attn::round_to;
 using attn::store;
@@ -128,8 +144,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kKeysPerBlock * Lanes<D>::kPerRow)
     fused_attention_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
                              const T* __restrict__ v, const T* __restrict__ g,
-                             const int32_t* __restrict__ mask,
-                             const int32_t* __restrict__ seeds,
+                             Coords ids, const int32_t* __restrict__ seeds,
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
                              T* __restrict__ dk, T* __restrict__ dv, int L,
@@ -157,7 +172,8 @@ __global__ void __launch_bounds__(kKeysPerBlock * Lanes<D>::kPerRow)
   const bool col_ok = col < L;
   const int64_t row_stride = (int64_t)H * D;  // [B, L, H, D] contiguous
   const int64_t head_base = (int64_t)b * L * row_stride + (int64_t)h * D;
-  const int32_t* mask_b = mask + (int64_t)b * L;
+  const int32_t* qids_b = ids.qids + (int64_t)b * ids.ids_stride;
+  const int32_t* kids_b = ids.kids + (int64_t)b * ids.ids_stride;
   const float* lse_bh = lse + ((int64_t)b * H + h) * L;
   const float* delta_bh = delta + ((int64_t)b * H + h) * L;
 
@@ -176,7 +192,7 @@ __global__ void __launch_bounds__(kKeysPerBlock * Lanes<D>::kPerRow)
   }
   // keys past the ragged edge compute on zeros (the shuffles need every
   // lane) and store nothing; kseg 0 keeps their scores masked
-  const int kseg = col_ok ? mask_b[col] : 0;
+  const int kseg = col_ok ? kids_b[col] : 0;
   const uint32_t key = rate > 0.0f ? attn::dropout_key(seeds, b, h) : 0u;
 
   float dk_acc[kChunk];
@@ -210,7 +226,7 @@ __global__ void __launch_bounds__(kKeysPerBlock * Lanes<D>::kPerRow)
       const int r = m0 + i;
       lse_s[i] = r < L ? lse_bh[r] : 0.0f;
       row_s[i] = r < L ? delta_bh[r] : 0.0f;
-      qseg_s[i] = (segmented && r < L) ? mask_b[r] : 0;
+      qseg_s[i] = (segmented && r < L) ? qids_b[r] : 0;
     }
     __syncthreads();
 
@@ -240,7 +256,11 @@ __global__ void __launch_bounds__(kKeysPerBlock * Lanes<D>::kPerRow)
       float p = expf(s - lse_s[i]);
       if (segmented && !ok) p = 0.0f;
       bool keep = true;
-      if (rate > 0.0f) keep = attn::keep_bit(m0 + i, col, L, key, rate);
+      if (rate > 0.0f) {
+        keep = attn::keep_bit(ids.row_base + (uint32_t)(m0 + i),
+                              ids.col_base + (uint32_t)col, ids.L_hash, key,
+                              rate);
+      }
       const float pd = keep ? p * keep_scale : 0.0f;
       const float dp = keep ? dp_dot * keep_scale : 0.0f;
       const float ds = p * (dp - row_s[i]);
@@ -275,8 +295,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kRowsPerBlock * Lanes<D>::kPerRow)
     fused_attention_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, const T* __restrict__ g,
-                           const int32_t* __restrict__ mask,
-                           const int32_t* __restrict__ seeds,
+                           Coords ids, const int32_t* __restrict__ seeds,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
                            T* __restrict__ dq, int L, int H, float scale,
@@ -300,7 +319,8 @@ __global__ void __launch_bounds__(kRowsPerBlock * Lanes<D>::kPerRow)
   const bool row_ok = row < L;
   const int64_t row_stride = (int64_t)H * D;
   const int64_t head_base = (int64_t)b * L * row_stride + (int64_t)h * D;
-  const int32_t* mask_b = mask + (int64_t)b * L;
+  const int32_t* qids_b = ids.qids + (int64_t)b * ids.ids_stride;
+  const int32_t* kids_b = ids.kids + (int64_t)b * ids.ids_stride;
 
   for (int idx = tid; idx < kRowsPerBlock * D; idx += NT) {
     const int ii = idx / D;
@@ -322,7 +342,7 @@ __global__ void __launch_bounds__(kRowsPerBlock * Lanes<D>::kPerRow)
   const int64_t bhr = ((int64_t)b * H + h) * L + row;
   const float lse_r = row_ok ? lse[bhr] : 0.0f;
   const float row_term = row_ok ? delta[bhr] : 0.0f;
-  const int qseg = (segmented && row_ok) ? mask_b[row] : 0;
+  const int qseg = (segmented && row_ok) ? qids_b[row] : 0;
   const uint32_t key = rate > 0.0f ? attn::dropout_key(seeds, b, h) : 0u;
   const float4* gr = reinterpret_cast<const float4*>(
       &gs[i * RS + part * kChunkStride]);
@@ -343,7 +363,7 @@ __global__ void __launch_bounds__(kRowsPerBlock * Lanes<D>::kPerRow)
       vs[jj * RS + staged(d)] = vv;
     }
     for (int jj = tid; jj < kKeysPerStage; jj += NT) {
-      kmask[jj] = (n0 + jj < L) ? mask_b[n0 + jj] : 0;
+      kmask[jj] = (n0 + jj < L) ? kids_b[n0 + jj] : 0;
     }
     __syncthreads();
 
@@ -374,7 +394,11 @@ __global__ void __launch_bounds__(kRowsPerBlock * Lanes<D>::kPerRow)
       float p = expf(s - lse_r);
       if (segmented && !ok) p = 0.0f;
       bool keep = true;
-      if (rate > 0.0f) keep = attn::keep_bit(row, col, L, key, rate);
+      if (rate > 0.0f) {
+        keep = attn::keep_bit(ids.row_base + (uint32_t)row,
+                              ids.col_base + (uint32_t)col, ids.L_hash, key,
+                              rate);
+      }
       const float dp = keep ? dp_dot * keep_scale : 0.0f;
       const float dsr = round_to(p * (dp - row_term), T(0.0f));
 #pragma unroll
@@ -396,7 +420,7 @@ __global__ void __launch_bounds__(kRowsPerBlock * Lanes<D>::kPerRow)
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
-                   const void* out, const void* lse, const void* mask,
+                   const void* out, const void* lse, const Coords& ids,
                    const void* seeds, void* dq, void* dk, void* dv,
                    void* delta, int B, int L, int H, float scale, float rate,
                    float keep_scale, int segmented, cudaStream_t stream) {
@@ -404,7 +428,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
   const T* k_ = static_cast<const T*>(k);
   const T* v_ = static_cast<const T*>(v);
   const T* g_ = static_cast<const T*>(g);
-  const int32_t* mask_ = static_cast<const int32_t*>(mask);
   const int32_t* seeds_ = static_cast<const int32_t*>(seeds);
   const float* lse_ = static_cast<const float*>(lse);
   float* delta_ = static_cast<float*>(delta);
@@ -429,7 +452,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
   const dim3 grid_a((L + kKeysPerBlock - 1) / kKeysPerBlock, H, B);
   fused_attention_bwd_dkdv<T, D><<<grid_a, kKeysPerBlock * P, smem_a,
                                    stream>>>(
-      q_, k_, v_, g_, mask_, seeds_, lse_, delta_, static_cast<T*>(dk),
+      q_, k_, v_, g_, ids, seeds_, lse_, delta_, static_cast<T*>(dk),
       static_cast<T*>(dv), L, H, scale, rate, keep_scale, segmented);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -443,7 +466,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
   const dim3 grid_b((L + kRowsPerBlock - 1) / kRowsPerBlock, H, B);
   fused_attention_bwd_dq<T, D><<<grid_b, kRowsPerBlock * P, smem_b,
                                  stream>>>(
-      q_, k_, v_, g_, mask_, seeds_, lse_, delta_, static_cast<T*>(dq), L, H,
+      q_, k_, v_, g_, ids, seeds_, lse_, delta_, static_cast<T*>(dq), L, H,
       scale, rate, keep_scale, segmented);
   return cudaGetLastError();
 }
@@ -451,21 +474,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
 template <typename T>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
                      const void* g, const void* out, const void* lse,
-                     const void* mask, const void* seeds, void* dq, void* dk,
+                     const Coords& ids, const void* seeds, void* dq, void* dk,
                      void* dv, void* delta, int B, int L, int H, float scale,
                      float rate, float keep_scale, int segmented,
                      cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, g, out, lse, mask, seeds, dq, dk, dv,
+      return launch<T, 32>(q, k, v, g, out, lse, ids, seeds, dq, dk, dv,
                            delta, B, L, H, scale, rate, keep_scale, segmented,
                            stream);
     case 64:
-      return launch<T, 64>(q, k, v, g, out, lse, mask, seeds, dq, dk, dv,
+      return launch<T, 64>(q, k, v, g, out, lse, ids, seeds, dq, dk, dv,
                            delta, B, L, H, scale, rate, keep_scale, segmented,
                            stream);
     case 128:
-      return launch<T, 128>(q, k, v, g, out, lse, mask, seeds, dq, dk, dv,
+      return launch<T, 128>(q, k, v, g, out, lse, ids, seeds, dq, dk, dv,
                             delta, B, L, H, scale, rate, keep_scale,
                             segmented, stream);
     default:
@@ -476,25 +499,34 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, k, v, g, out, dq, dk, dv: [B, L, H, D] contiguous, bf16 (is_bf16 = 1)
-// or f32. lse: [B, H, L] f32 (the forward's). mask: [B, L] int32 key mask,
-// or segment ids when segmented = 1. seeds: [B] int32 per-row dropout seeds
-// (read only when rate > 0). delta: [B, H, L] f32 scratch for the row term.
-// Returns the first failing launch's cudaError_t, or 0.
+// or f32. lse: [B, H, L] f32 (the forward's). qids, kids, ids_stride,
+// row_base, col_base, L_hash: as fused_attention_fwd takes them (the
+// forward's own, so the backward regenerates its dropout mask). seeds: [B]
+// int32 per-row dropout seeds (read only when rate > 0). delta: [B, H, L]
+// f32 scratch for the row term. Returns the first failing launch's
+// cudaError_t, or 0.
 extern "C" int fused_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* g,
                                    const void* out, const void* lse,
-                                   const void* mask, const void* seeds,
+                                   const void* qids, const void* kids,
+                                   long long ids_stride, const void* seeds,
                                    void* dq, void* dk, void* dv, void* delta,
                                    int B, int L, int H, int D, int is_bf16,
+                                   int row_base, int col_base, int L_hash,
                                    float scale, float rate, float keep_scale,
                                    int segmented, void* stream) {
-  if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || L <= 0 || H <= 0 || L_hash <= 0 || ids_stride < L) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Coords ids{static_cast<const int32_t*>(qids),
+                   static_cast<const int32_t*>(kids), (int64_t)ids_stride,
+                   (uint32_t)row_base, (uint32_t)col_base, (uint32_t)L_hash};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      is_bf16 ? launch_d<__nv_bfloat16>(D, q, k, v, g, out, lse, mask, seeds,
+      is_bf16 ? launch_d<__nv_bfloat16>(D, q, k, v, g, out, lse, ids, seeds,
                                         dq, dk, dv, delta, B, L, H, scale,
                                         rate, keep_scale, segmented, s)
-              : launch_d<float>(D, q, k, v, g, out, lse, mask, seeds, dq, dk,
+              : launch_d<float>(D, q, k, v, g, out, lse, ids, seeds, dq, dk,
                                 dv, delta, B, L, H, scale, rate, keep_scale,
                                 segmented, s);
   return (int)err;

@@ -2,35 +2,51 @@
 // plain C launch function loaded with ctypes
 // (ml_recipe_tpu_torch/ops/flash_attention.py).
 //
-// Replaces the TPU kernel ml_recipe_tpu/ops/flash_attention.py
-// `_fused_fwd_kernel` (the L <= 512 regime that every serving bucket runs):
+// Replaces the three forward kernels of the TPU package's attention
+// regimes, which compute one function and differ only in how they tile it
+// for VMEM:
+// - ml_recipe_tpu/ops/flash_attention.py:129 `_fused_fwd_kernel` (L <= 512:
+//   every serving bucket, every layer of config/test_bert.cfg);
+// - ml_recipe_tpu/ops/flash_attention.py:364 `_blocked_fwd_kernel`
+//   (q-blocked, K/V resident: config/long_context.cfg's 768 and 1024 rows);
+// - ml_recipe_tpu/ops/flash_streaming.py:241 `_stream_fwd_kernel` (K/V
+//   streamed with an online softmax: the 3072 and 4096 rows of the cfg's
+//   single-chip variant), with its `base_ref` offsets, `L_hash` and
+//   `seg_split` ids.
 //
 //   out = softmax(q k^T / sqrt(D)) v      per (batch, head), [B, L, H, D]
 //
-// with the TPU kernel's exact semantics where they change results:
+// with the TPU kernels' exact semantics where they change results:
 // - disallowed scores are -1e30, never -inf, so an all-masked row averages
 //   v instead of producing NaN (and pad-row garbage stays finite);
-// - the allowed grid is the key mask (`mask[b, col] > 0`) or, segmented,
-//   the block diagonal `seg[row] == seg[col] && seg[col] > 0`;
+// - the allowed grid is the key mask (`kids[col] > 0`) or, segmented, the
+//   block diagonal `qids[row] == kids[col] && kids[col] > 0`;
 // - the softmax denominator l is summed BEFORE dropout; a kept probability
 //   is scaled by 1/(1-rate), cast to v's dtype before the PV product, and
 //   the divide by l is folded into the output;
 // - the dropout keep-bit is `hash_uniform(x) >= rate` with
-//   x = (row*L + col) ^ (seed[b] + h*0x9E3779B9) and the 3-stage
-//   finalizer of `hash_uniform`, all in uint32 (attention_common.cuh, shared
-//   with the backward so both regenerate one mask);
+//   x = ((row_base+row)*L_hash + (col_base+col)) ^ (seed[b] + h*0x9E3779B9)
+//   and the 3-stage finalizer of `hash_uniform`, all in uint32
+//   (attention_common.cuh, shared with the backward so both regenerate one
+//   mask); single-chip calls pass bases (0, 0) and L_hash = L;
 // - optional per-row logsumexp m + log(l), [B, H, L] f32.
 //
-// Bound on the H100: at the serving shapes (L <= 512, D = 64) the work is
-// 4*B*H*L^2*D operations against 4*B*L*H*D*2 bytes of q, k, v and out, so
-// the card's memory rate bounds it (PERF.md has the numbers). What this
-// design does about it: the [L, L] score matrix never leaves the chip —
-// one block per (64-row q tile, head, batch) streams 32- or 64-column K/V
-// tiles through shared memory with an online softmax in f32 registers, so device
-// memory sees each q row and o row once and each K/V tile once per q tile.
-// The products are plain f32 FMAs reading broadcast K/V values from shared
-// memory; tensor cores (mma.sync / wgmma), TMA and pipelining are later
-// work, and until then the kernel is far from its bound.
+// Bound on the H100: the work is 4*B*H*L^2*D operations against
+// 4*B*L*H*D bytes per element of q, k, v and out. At the serving shapes
+// (32x384) the memory rate bounds it; at the training shapes (32x512,
+// 32x1024, 2x4096 with D = 64) the tensor-core rate does: 1.03e11
+// operations at 32x1024 and at 2x4096, ~0.10 ms at 989 TFLOP/s, against
+// 201 MB (0.06 ms) and 50 MB (0.015 ms) of bf16 traffic. PERF.md has the
+// measured times. What this design does about it: the [L, L] score matrix
+// never leaves the chip, at any L. One block per (64-row q tile, head,
+// batch) streams 32- or 64-column K/V tiles through shared memory with an
+// online softmax in f32 registers (the streaming kernel's scheme, which
+// the fused and blocked regimes reduce to), so device memory sees each q
+// row and o row once and each K/V tile once per q tile, and no shared
+// memory size depends on L. The products are plain f32 FMAs reading
+// broadcast K/V values from shared memory; tensor cores (mma.sync /
+// wgmma), TMA and pipelining are later work, and until then the kernel is
+// far from its bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,6 +57,7 @@
 
 namespace {
 
+using attn::Coords;
 using attn::kMaskedScore;
 using attn::round_to;
 using attn::store;
@@ -53,7 +70,7 @@ __global__ void __launch_bounds__(kBlockM)
     fused_attention_fwd_kernel(const T* __restrict__ q,
                                const T* __restrict__ k,
                                const T* __restrict__ v,
-                               const int32_t* __restrict__ mask,
+                               Coords ids,
                                const int32_t* __restrict__ seeds,
                                T* __restrict__ out, float* __restrict__ lse,
                                int L, int H, float scale, float rate,
@@ -70,7 +87,8 @@ __global__ void __launch_bounds__(kBlockM)
   const bool row_ok = row < L;
   const int64_t row_stride = (int64_t)H * D;  // [B, L, H, D] contiguous
   const int64_t head_base = (int64_t)b * L * row_stride + (int64_t)h * D;
-  const int32_t* mask_b = mask + (int64_t)b * L;
+  const int32_t* qids_b = ids.qids + (int64_t)b * ids.ids_stride;
+  const int32_t* kids_b = ids.kids + (int64_t)b * ids.ids_stride;
 
   float qf[D];
   float acc[D];
@@ -79,7 +97,7 @@ __global__ void __launch_bounds__(kBlockM)
     qf[d] = row_ok ? to_float(q[head_base + row * row_stride + d]) : 0.0f;
     acc[d] = 0.0f;
   }
-  const int qseg = (segmented && row_ok) ? mask_b[row] : 0;
+  const int qseg = (segmented && row_ok) ? qids_b[row] : 0;
   const uint32_t seed_h = rate > 0.0f ? attn::dropout_key(seeds, b, h) : 0u;
 
   float m = -INFINITY;  // running row max (finite after the first tile)
@@ -101,7 +119,7 @@ __global__ void __launch_bounds__(kBlockM)
       vs[j][d] = vv;
     }
     for (int j = tid; j < BLOCK_N; j += kBlockM) {
-      kmask[j] = (n0 + j < L) ? mask_b[n0 + j] : 0;
+      kmask[j] = (n0 + j < L) ? kids_b[n0 + j] : 0;
     }
     __syncthreads();
 
@@ -142,7 +160,11 @@ __global__ void __launch_bounds__(kBlockM)
       float p = expf(ss[tid][j] - m);
       l += p;
       if (rate > 0.0f) {
-        p = attn::keep_bit(row, col, L, seed_h, rate) ? p * keep_scale : 0.0f;
+        p = attn::keep_bit(ids.row_base + (uint32_t)row,
+                           ids.col_base + (uint32_t)col, ids.L_hash, seed_h,
+                           rate)
+                ? p * keep_scale
+                : 0.0f;
       }
       p = round_to(p, T(0.0f));
       const float4* vr = reinterpret_cast<const float4*>(&vs[j][0]);
@@ -170,7 +192,7 @@ __global__ void __launch_bounds__(kBlockM)
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* mask, const void* seeds, void* out, void* lse,
+                   const Coords& ids, const void* seeds, void* out, void* lse,
                    int B, int L, int H, float scale, float rate,
                    float keep_scale, int segmented, cudaStream_t stream) {
   // K/V tiles of 64 columns at D = 32 and 32 columns above, so that K, V
@@ -180,7 +202,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const dim3 grid((L + kBlockM - 1) / kBlockM, H, B);
   fused_attention_fwd_kernel<T, D, kBlockN><<<grid, kBlockM, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int32_t*>(mask),
+      static_cast<const T*>(v), ids,
       static_cast<const int32_t*>(seeds), static_cast<T*>(out),
       static_cast<float*>(lse), L, H, scale, rate, keep_scale, segmented);
   return cudaGetLastError();
@@ -188,18 +210,18 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 template <typename T>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
-                     const void* mask, const void* seeds, void* out,
+                     const Coords& ids, const void* seeds, void* out,
                      void* lse, int B, int L, int H, float scale, float rate,
                      float keep_scale, int segmented, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, mask, seeds, out, lse, B, L, H, scale,
+      return launch<T, 32>(q, k, v, ids, seeds, out, lse, B, L, H, scale,
                            rate, keep_scale, segmented, stream);
     case 64:
-      return launch<T, 64>(q, k, v, mask, seeds, out, lse, B, L, H, scale,
+      return launch<T, 64>(q, k, v, ids, seeds, out, lse, B, L, H, scale,
                            rate, keep_scale, segmented, stream);
     case 128:
-      return launch<T, 128>(q, k, v, mask, seeds, out, lse, B, L, H, scale,
+      return launch<T, 128>(q, k, v, ids, seeds, out, lse, B, L, H, scale,
                             rate, keep_scale, segmented, stream);
     default:
       return cudaErrorInvalidValue;
@@ -209,22 +231,32 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, k, v, out: [B, L, H, D] contiguous, bf16 (is_bf16 = 1) or f32.
-// mask: [B, L] int32 key mask, or segment ids when segmented = 1.
-// seeds: [B] int32 per-row dropout seeds (read only when rate > 0).
+// qids, kids: int32 ids, row b at b * ids_stride: the key mask (kids > 0)
+// or, when segmented = 1, the q-side and k-side segment ids (qids == kids
+// unless the caller splits them). seeds: [B] int32 per-row dropout seeds
+// (read only when rate > 0); the keep-bit of (row, col) is drawn at
+// (row_base + row, col_base + col) of an L_hash-long sequence.
 // lse: [B, H, L] f32, or null. Returns the launch's cudaError_t.
 extern "C" int fused_attention_fwd(const void* q, const void* k,
-                                   const void* v, const void* mask,
+                                   const void* v, const void* qids,
+                                   const void* kids, long long ids_stride,
                                    const void* seeds, void* out, void* lse,
                                    int B, int L, int H, int D, int is_bf16,
+                                   int row_base, int col_base, int L_hash,
                                    float scale, float rate, float keep_scale,
                                    int segmented, void* stream) {
-  if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || L <= 0 || H <= 0 || L_hash <= 0 || ids_stride < L) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Coords ids{static_cast<const int32_t*>(qids),
+                   static_cast<const int32_t*>(kids), (int64_t)ids_stride,
+                   (uint32_t)row_base, (uint32_t)col_base, (uint32_t)L_hash};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      is_bf16 ? launch_d<__nv_bfloat16>(D, q, k, v, mask, seeds, out, lse, B,
+      is_bf16 ? launch_d<__nv_bfloat16>(D, q, k, v, ids, seeds, out, lse, B,
                                         L, H, scale, rate, keep_scale,
                                         segmented, s)
-              : launch_d<float>(D, q, k, v, mask, seeds, out, lse, B, L, H,
+              : launch_d<float>(D, q, k, v, ids, seeds, out, lse, B, L, H,
                                 scale, rate, keep_scale, segmented, s);
   return (int)err;
 }

@@ -18,7 +18,12 @@ Post-layer-norm BERT stack with the JAX module's numerics:
   ``torch.Generator`` the caller passes as ``generator``, on the model's
   device: there is no global-RNG default;
 - module and parameter names follow the flax tree (``layer_0.attention.
-  query``...), so ``models/convert.py`` maps one onto the other by name.
+  query``...), so ``models/convert.py`` maps one onto the other by name;
+- ``remat`` (``--remat``, flax ``nn.remat`` around each ``EncoderLayer``)
+  keeps only each layer's input for the backward and recomputes the layer
+  there (``torch.utils.checkpoint``). The recompute replays the layer's
+  draws from the caller's generator (:func:`remat_layer`), so remat on and
+  off give the same gradients.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dot_product_attention, dropout_seed
 from .config import EncoderConfig
@@ -191,13 +197,49 @@ class EncoderLayer(nn.Module):
         return self.mlp(self.attention(hidden, mask, generator), generator)
 
 
+def remat_layer(layer: nn.Module, hidden: torch.Tensor, mask: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``layer(hidden, mask, generator)`` under ``torch.utils.checkpoint``:
+    the layer's activations are dropped after the forward and recomputed in
+    the backward. ``checkpoint``'s ``preserve_rng_state`` restores only the
+    global RNGs, not ``generator``, whose state by the backward has moved on
+    past every later layer's draws: the recompute would draw other dropout
+    masks and another attention seed, and the backward would run on
+    activations the forward never produced. So the generator's state is
+    taken before the layer runs, and the recompute runs from it and puts
+    the generator back where it found it."""
+    if generator is None:
+        return checkpoint(layer, hidden, mask, None, use_reentrant=False,
+                          preserve_rng_state=False)
+    state = generator.get_state()
+    recompute = False
+
+    def run(h: torch.Tensor) -> torch.Tensor:
+        nonlocal recompute
+        if not recompute:                # the forward: draw as usual
+            recompute = True
+            return layer(h, mask, generator)
+        after = generator.get_state()    # the recompute: replay the draws
+        generator.set_state(state)
+        try:
+            return layer(h, mask, generator)
+        finally:
+            generator.set_state(after)
+
+    return checkpoint(run, hidden, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 class TransformerEncoder(nn.Module):
-    """BERT/RoBERTa trunk: returns (sequence_output, pooled_output)."""
+    """BERT/RoBERTa trunk: returns (sequence_output, pooled_output).
+    ``remat``: recompute each layer in the backward (:func:`remat_layer`)."""
 
     def __init__(self, cfg: EncoderConfig, *, dtype=torch.float32,
-                 device=None, attention_impl: str = "auto"):
+                 device=None, attention_impl: str = "auto",
+                 remat: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.remat = remat
         self.embeddings = Embeddings(cfg, dtype=dtype, device=device)
         for i in range(cfg.num_layers):  # flax names: layer_0, layer_1, ...
             self.add_module(f"layer_{i}", EncoderLayer(
@@ -217,7 +259,10 @@ class TransformerEncoder(nn.Module):
             token_type_ids = torch.zeros_like(input_ids)
         mask = attention_mask.to(torch.int32)
         hidden = self.embeddings(input_ids, token_type_ids, generator)
+        remat = self.remat and torch.is_grad_enabled()
         for i in range(self.cfg.num_layers):
-            hidden = getattr(self, f"layer_{i}")(hidden, mask, generator)
+            layer = getattr(self, f"layer_{i}")
+            hidden = (remat_layer(layer, hidden, mask, generator) if remat
+                      else layer(hidden, mask, generator))
         pooled = torch.tanh(self.pooler(hidden[:, 0]))
         return hidden, pooled

@@ -28,12 +28,14 @@ _MASK_NEG = -1e9
 
 class QAModel(nn.Module):
     def __init__(self, cfg: EncoderConfig, *, dtype=torch.float32,
-                 device=None, attention_impl: str = "auto"):
+                 device=None, attention_impl: str = "auto",
+                 remat: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
         self.transformer = TransformerEncoder(
-            cfg, dtype=dtype, device=device, attention_impl=attention_impl)
+            cfg, dtype=dtype, device=device, attention_impl=attention_impl,
+            remat=remat)
         H = cfg.hidden_size
         self.position_outputs = Linear(H, 2, dtype, device)
         self.classifier = Linear(H, cfg.num_labels, dtype, device)

@@ -3,10 +3,27 @@
 Layout at the public function is the JAX package's: q, k, v are
 ``[B, L, H, D]`` and the key mask ``[B, L]``.
 
-- ``auto`` / ``pallas``: the fused regime (L <= 512). A CUDA tensor runs the
-  Hopper kernel, a CPU tensor its plain version, as the JAX package picks
-  XLA off the TPU. Longer rows need the blocked and streaming kernels,
-  which are not ported yet.
+- ``auto`` / ``pallas``: the Hopper kernel pair at every length. A CUDA
+  tensor runs the kernels, a CPU tensor their plain versions, as the JAX
+  package picks XLA off the TPU. On a TPU the JAX package picks one of
+  three kernel regimes by a VMEM budget that says nothing about the H100;
+  the port's one tiled pair computes the same function in all of them. At
+  bert-base widths (12 heads of 64, bf16) the length ranges stand for:
+
+  ========================  =============================================
+  L <= 512                  ``_fused_fwd_kernel`` / ``_fused_bwd_kernel``
+  512 < L <= 2048           ``_blocked_fwd_kernel`` / ``_blocked_bwd_kernel``
+                            (config/long_context.cfg: 768, 1024)
+  L > 2048                  ``_stream_fwd_kernel`` / ``_stream_dq_kernel``
+                            / ``_stream_dkv_kernel`` (its 4096 variant)
+  ========================  =============================================
+
+  One divergence no port can close: past 512, a length that is not a
+  multiple of 128 has no TPU kernel geometry (``_pick_q_block``,
+  ``_pick_stream_block``), so the JAX package runs XLA attention there,
+  whose dropout comes from ``jax.random.bernoulli``. The port runs its
+  kernel with the hash dropout: the same function, another dropout stream
+  (ROADMAP.md queue 3).
 - ``xla``: the plain version at any length, on any device.
 - ``ring``: sequence-parallel ring attention, not ported yet.
 """
@@ -18,7 +35,6 @@ from typing import Optional
 import torch
 
 from .flash_attention import (
-    FUSED_MAX_LEN,
     SeedLike,
     fused_attention,
     fused_attention_plain,
@@ -57,9 +73,9 @@ def dot_product_attention(
     ``segment_ids`` ([B, L], 0 = pad, 1..S = packed segment) switches to the
     block-diagonal mask of sequence packing and replaces ``mask``.
     ``seed`` keys the dropout hash when ``dropout_rate > 0``: the caller
-    draws it (:func:`dropout_seed` from its generator). The fused regime is
-    differentiable through the kernel pair (``FusedAttention``), the plain
-    version through autograd."""
+    draws it (:func:`dropout_seed` from its generator). ``auto`` and
+    ``pallas`` are differentiable through the kernel pair
+    (``FusedAttention``), ``xla`` through autograd of the plain version."""
     if impl not in IMPLS:
         raise ValueError(f"attention impl must be one of {IMPLS}; got {impl!r}")
     if impl == "ring":
@@ -71,20 +87,13 @@ def dot_product_attention(
                          "(dropout_seed(generator))")
     segmented = segment_ids is not None
     kernel_mask = segment_ids if segmented else mask
-    L = q.shape[1]
     if impl == "xla":
-        B, _, H, _ = q.shape
+        B, L, H, _ = q.shape
         if kernel_mask is None:
             kernel_mask = torch.ones((B, L), dtype=torch.int32, device=q.device)
         seeds = (row_seeds(seed, B, H, q.device) if dropout_rate > 0.0
                  else None)
         return fused_attention_plain(q, k, v, kernel_mask.to(torch.int32),
                                      seeds, dropout_rate, segmented)
-    if L > FUSED_MAX_LEN:
-        raise NotImplementedError(
-            f"attention at L={L} > {FUSED_MAX_LEN} needs the blocked and "
-            f"streaming attention kernels, not ported yet: ROADMAP.md "
-            f"queue 2 (_blocked_fwd_kernel, _stream_fwd_kernel); "
-            f"impl='xla' runs the plain version at any length")
     return fused_attention(q, k, v, kernel_mask, seed=seed,
                            rate=dropout_rate, segmented=segmented)

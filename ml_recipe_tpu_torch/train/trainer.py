@@ -23,10 +23,13 @@ The loaders are the JAX package's (bucketed when ``length_buckets``), and
 (``data/device_prefetch.py``). ``test`` runs the eval loop under
 ``torch.inference_mode`` with the callbacks; ``debug`` takes one step per
 epoch over two epochs and 11 eval batches, and skips checkpoint writes, as
-in the JAX trainer. Left out (their flags are refused by
-``config.parser.check_train_flags``): ZeRO, pipeline, tensor and sequence
-parallelism, the AOT store, telemetry, the watchdog, async or sharded
-checkpoints, loss scaling, packing and the HBM pre-flight.
+in the JAX trainer. ``sharded_checkpoint`` writes the JAX package's
+sharded-directory layout instead of one file; a resume reads either
+(``train/checkpoint.py``). Left out (their flags are refused by
+``config.parser.check_train_flags``): data, pipeline, tensor and sequence
+parallelism (ZeRO-1 is accepted at world size 1, where it is inert), the
+AOT store, telemetry, the watchdog, async checkpoints, loss scaling,
+packing and the HBM pre-flight.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from ..metrics.meters import AverageMeter
 from .callback import TestCallback
 from .checkpoint import load_training_state
 from .checkpoint import save_state_dict as _save_ckpt
+from .checkpoint import save_state_dict_sharded as _save_ckpt_sharded
 from .optim import build_optimizer, clip_by_global_norm_
 from .writer import init_writer
 
@@ -110,6 +114,7 @@ class Trainer:
         device_prefetch=0,
         log_every: int = 10,
         on_train_metrics: Optional[Callable] = None,
+        sharded_checkpoint: bool = False,
     ):
         self.model = model
         self.device = model.device
@@ -121,6 +126,7 @@ class Trainer:
         self.drop_optimizer = drop_optimizer
         self.debug = debug
         self.seed = seed
+        self.sharded_checkpoint = sharded_checkpoint
         self.device_prefetch = resolve_depth(device_prefetch)
         self.log_every = max(1, int(log_every))
         self.on_train_metrics = on_train_metrics
@@ -427,8 +433,9 @@ class Trainer:
         if self.debug:
             logger.info(f"Model was not saved to {path} because of debug mode.")
             return
-        _save_ckpt(path, model=self.model, optimizer=self.optimizer,
-                   global_step=self.global_step, extra=CHECKPOINT_EXTRA)
+        save = _save_ckpt_sharded if self.sharded_checkpoint else _save_ckpt
+        save(path, model=self.model, optimizer=self.optimizer,
+             global_step=self.global_step, extra=CHECKPOINT_EXTRA)
 
     def load_state_dict(self, path) -> None:
         step = load_training_state(path, model=self.model,

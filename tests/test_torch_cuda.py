@@ -21,6 +21,7 @@ import torch
 
 from ml_recipe_tpu_torch.ops import flash_attention as fa
 from ml_recipe_tpu_torch.ops.attention import dot_product_attention
+from ml_recipe_tpu_torch.ops.flash_streaming import streaming_attention
 
 # f32: same arithmetic in another summation order. bf16: the kernel rounds
 # each probability to bf16 against its running row max, the plain version
@@ -288,3 +289,78 @@ def test_bwd_limits_catch_misplaced_rounding(segmented):
         got = _bwd_variant(*args, acc=torch.float32, **fault)
         assert all(err <= limit
                    for err, limit, _ in map(_bwd_errors, got, ref)), fault
+
+
+# -- past 512: the TPU's blocked and streaming regimes ---------------------------
+
+def _check_pair(args, kw, dtype):
+    """Both kernels against their plain versions on ``args`` = (q, k, v, g,
+    mask, seeds): the forward's out and lse, then the backward on the plain
+    forward's residuals."""
+    q, k, v, g, mask, seeds = args
+    fwd0, bwd0 = fa.KERNEL.launches, fa.BWD_KERNEL.launches
+    out, lse = fa.fused_attention_cuda(q, k, v, mask, seeds, want_lse=True,
+                                       **kw)
+    ref, ref_lse = fa.fused_attention_plain(q, k, v, mask, seeds,
+                                            want_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL[dtype]
+    assert (lse - ref_lse).abs().max().item() <= LSE_ATOL
+    got = fa.fused_attention_bwd_cuda(q, k, v, g, ref, ref_lse, mask, seeds,
+                                      **kw)
+    want = fa.fused_attention_bwd_plain(q, k, v, g, ref, ref_lse, mask, seeds,
+                                        **kw)
+    torch.cuda.synchronize()
+    assert fa.KERNEL.launches == fwd0 + 1 and fa.BWD_KERNEL.launches == bwd0 + 1
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a.float()).all(), name
+        err, limit, rel = _bwd_errors(a, b)
+        assert err <= limit and rel <= BWD_REL_L2, (name, err, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,L,H", [(2, 768, 4), (2, 1024, 4), (1, 4096, 2)])
+@pytest.mark.parametrize("segmented", [False, True], ids=["mask", "seg"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_long_kernels_match_plain(cuda, dtype, B, L, H, segmented, rate):
+    """L = 768 and 1024 (config/long_context.cfg, the TPU's blocked
+    regime) and 4096 (its single-chip variant, the streaming regime)."""
+    q, k, v, mask, seeds = _inputs(B, L, H, 64, dtype, L, segmented)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(L),
+                    dtype=torch.float32).cuda().to(dtype)
+    _check_pair((q, k, v, g, mask, seeds if rate else None),
+                dict(rate=rate, segmented=segmented), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("seg_split", [False, True], ids=["mask", "seg_split"])
+@pytest.mark.parametrize("base,L_hash", [((1536, 2560), 8192),
+                                         ((70000, 5), 65536)],
+                         ids=["offsets", "wrapping"])
+def test_streaming_contract_matches_plain(cuda, dtype, seg_split, base,
+                                          L_hash):
+    """Non-zero bases, L_hash past L and split q/k segment ids, dropout
+    0.1; at (70000 + row) * 65536 the hash index wraps 32 bits."""
+    B, L, H = 2, 512, 4
+    q, k, v, mask, seeds = _inputs(B, L, H, 64, dtype, 9, seg_split)
+    if seg_split:   # the k-side ids of another block
+        _, _, _, kids, _ = _inputs(B, L, H, 64, dtype, 10, True)
+        mask = torch.cat([mask, kids], dim=1).contiguous()
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(1),
+                    dtype=torch.float32).cuda().to(dtype)
+    kw = dict(rate=0.1, segmented=seg_split, base=base, L_hash=L_hash,
+              seg_split=seg_split)
+    _check_pair((q, k, v, g, mask, seeds), kw, dtype)
+    # the autograd path: one launch of each kernel
+    x = [t.clone().requires_grad_() for t in (q, k, v)]
+    fwd0, bwd0 = fa.KERNEL.launches, fa.BWD_KERNEL.launches
+    out = streaming_attention(*x, mask, seed=seeds, **kw)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert fa.KERNEL.launches == fwd0 + 1 and fa.BWD_KERNEL.launches == bwd0 + 1
+    assert all(torch.isfinite(t.grad.float()).all() for t in x)

@@ -187,9 +187,13 @@ def test_checkpoint_reader_matches_jax_reader(tmp_path):
 
 
 def test_checkpoint_reader_refuses_sharded_dirs_and_skips_missing(tmp_path):
-    with pytest.raises(NotImplementedError, match="sharded"):
+    """A directory without a manifest is no complete sharded checkpoint:
+    reading it raises, and loading it is skipped with a warning, as is a
+    missing file (the JAX reader's warn-and-continue)."""
+    with pytest.raises(FileNotFoundError, match="sharded"):
         read_state(tmp_path)
     model = QAModel(EncoderConfig(**TINY), device="cpu")
+    assert load_state_dict(model, tmp_path) is None
     assert load_state_dict(model, tmp_path / "missing.ch") is None
 
 

@@ -463,7 +463,7 @@ def test_cli_trains_two_debug_steps_on_the_cpu(tmp_path):
 @pytest.mark.parametrize("flag", [
     ["--mesh", "data:2"], ["--dist_world_size", "2"], ["--async_checkpoint"],
     ["--apex_loss_scale", "dynamic"], ["--sequence_packing", "on"],
-    ["--optimizer", "adamod"], ["--finetune"], ["--sharded_checkpoint"],
+    ["--optimizer", "adamod"], ["--finetune"], ["--goodput_ledger"],
     ["--ln_impl", "fused"],
 ])
 def test_unported_train_flags_raise(tmp_path, flag):
