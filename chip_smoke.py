@@ -55,7 +55,26 @@ Phases, each fatal on failure (exit code 1, and no result line):
    (``--max_seq_len=4096 --max_position_embeddings=4096 --remat``, 2 x 2 x
    4096 per step), where the recompute makes it 24 forward launches per
    micro-batch, and one 2x4096 micro-batch's peak memory and gradients
-   with remat on and off.
+   with remat on and off;
+7. the LayerNorm pair and the int8 matmul against their plain versions at
+   the shapes the paths give them (LayerNorm: 12288 and 16384 rows of 768,
+   bf16, the forward within a bf16 step, the backward within the stated
+   limits and bit-stable across launches; int8: every bert-base projection
+   at 32x384, the pooler and the heads, ``torch.equal``), then their times
+   beside their bounds, their plain versions and one PyTorch call each
+   (``F.layer_norm`` and its backward; ``torch._int_mm`` with the rescale,
+   and the bf16 ``F.linear`` the float path runs);
+8. int8 serving: phase 3's 10-request burst with ``--quantize int8
+   --ln_impl fused`` (counts zeroed just before warmup: 77 int8 matmul, 25
+   LayerNorm and 12 attention launches per device batch), latency, one
+   32x384 scoring forward beside phase 3's, and the share of windows where
+   int8 and bf16 pick the same span (``quant.span_parity``, recorded, not a
+   gate);
+9. fused-LayerNorm training: ``config/test_bert.cfg --ln_impl fused``
+   (counts zeroed just before: 25 LayerNorm forward launches per
+   micro-batch and eval batch, 25 backward per micro-batch, attention as in
+   phase 4), one 32x512 micro-batch split by kernel beside phase 4's, and
+   its gradients with the LayerNorm kernels against their plain version.
 
 It then prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line. Without CUDA, or outside a checkout
@@ -140,10 +159,47 @@ LONG_VARIANT = ["--max_seq_len=4096", "--max_position_embeddings=4096",
 # recompute that drew other masks is off by O(1)
 REMAT_GRAD_REL_TOL = 1e-5
 
-# published peaks per H100 part (NVIDIA data sheets; dense bf16 tensor-core
-# rate, device-memory rate); matched against the nvidia-smi name
-PEAKS = [("PCIe", 2.0e12, 756e12), ("NVL", 3.9e12, 835e12),
-         ("H100", 3.35e12, 989e12)]
+# the LayerNorm rows of the serving (32x384) and training (32x512) paths
+LN_SHAPES = [(12288, 768), (16384, 768)]
+LN_EPS = 1e-12                     # bert-base layer_norm_eps
+# LayerNorm kernel vs plain: within the limits ops/layer_norm.py states
+# beside the plain versions (ln.fwd_limit, ln.dh_limit, ln.dparam_close)
+# LayerNorm launches per model forward: the embeddings' and two per layer
+LN_PER_FORWARD = 25
+# int8 matmul shapes at 32x384 (M = 12288 tokens): the four attention
+# projections (768, 768), FFN in (768, 3072) and out (3072, 768); the
+# pooler over the 32 [CLS] rows, the span head over every token, the
+# classifier and regressors over the pooled rows
+Q8_PROJ = [(12288, 768, 768), (12288, 768, 3072), (12288, 3072, 768)]
+Q8_SHAPES = Q8_PROJ + [(32, 768, 768), (12288, 768, 2), (32, 768, 5),
+                       (32, 768, 1)]
+Q8_PER_FORWARD = 77                # 6 x 12 layers + pooler + 4 heads
+# the fused-LayerNorm micro-batch's gradient, LayerNorm kernels vs their
+# plain version, both with kernel attention in bf16: LayerNorm outputs and
+# dh differ by bf16 rounding at a few elements, which 12 post-LN layers
+# carry into every gradient, as TRAIN_GRAD_REL_TOL says for attention
+LN_GRAD_REL_TOL = TRAIN_GRAD_REL_TOL
+
+# published peaks per H100 part (NVIDIA data sheets, dense): device-memory
+# rate, bf16 tensor-core rate, int8 tensor-core rate, f32 outside the
+# tensor cores; matched against the nvidia-smi name
+PEAKS = [("PCIe", dict(bw=2.0e12, bf16=756e12, int8=1513e12, f32=51e12)),
+         ("NVL", dict(bw=3.9e12, bf16=835e12, int8=1670e12, f32=60e12)),
+         ("H100", dict(bw=3.35e12, bf16=989e12, int8=1979e12, f32=67e12))]
+
+# the port's kernels by name, each with its launch count (filled in main)
+KERNELS = {}
+
+
+def zero_counts() -> None:
+    """Set every kernel's launch count to 0: a path starts here."""
+    for kernel in KERNELS.values():
+        kernel.launches = 0
+
+
+def counts() -> dict:
+    """Every kernel's launch count: a path ends here."""
+    return {name: kernel.launches for name, kernel in KERNELS.items()}
 
 
 def fail(msg: str) -> None:
@@ -155,27 +211,33 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_peaks(name: str):
-    for key, bw, flops in PEAKS:
+def card_peaks(name: str) -> dict:
+    for key, peaks in PEAKS:
         if key in name:
-            return bw, flops
+            return peaks
     fail(f"no peak rates known for card {name!r}")
 
 
 def ptxas_reports(build_log: str):
     """``(kernel, report)`` per compiled kernel from nvcc's ``-Xptxas -v``
-    output: the kernel's name and template arguments (element type, head
+    output: the kernel's name and template arguments (element types, head
     dim), and its registers, stack and spills on one line."""
     kernel, parts = None, []
     for line in build_log.splitlines():
-        entry = re.search(r"Compiling entry function .*?(?<=\d)"
-                          r"(fused_attention_[a-z_]+?)I(f|13__nv_bfloat16)"
-                          r"Li(\d+)E", line)
+        entry = re.search(r"Compiling entry function '_ZN\w*?\d+"
+                          r"((?:fused_attention|layer_norm|q8_matmul)_[a-z_]+)"
+                          r"(?:I(\w+?)E)?E", line)
         if entry:
             if kernel is not None:
                 yield kernel, "; ".join(parts)
-            name, dtype, d = entry.groups()
-            kernel = f"{name}<{'f32' if dtype == 'f' else 'bf16'}, D={d}>"
+            name, targs = entry.groups()
+            # template arguments: element types (f, __nv_bfloat16 or its
+            # back-reference S1_), then the head dim and tile width of the
+            # attention kernels (Li64E)
+            names = {"f": "f32", "13__nv_bfloat16": "bf16", "S1_": "bf16"}
+            targs = [names.get(t, t.strip("LiE")) for t in re.findall(
+                r"13__nv_bfloat16|S1_|Li\d+E?|f", targs or "")]
+            kernel = f"{name}<{' '.join(targs)}>" if targs else name
             parts = []
         elif kernel is not None and ("registers" in line or "spill" in line):
             parts.append(line.split(":", 1)[-1].strip() if "ptxas" in line
@@ -226,7 +288,8 @@ def bf16_step(x: float) -> float:
 
 def _bound(n_bytes, n_ops, bw, flops):
     """``(bound_ms, bound_by)``: the larger of the bytes and operations
-    terms at the card's published peaks."""
+    terms at the card's published peaks (``flops``: the rate for the
+    operations' type)."""
     t_bytes, t_ops = n_bytes / bw, n_ops / flops
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
@@ -445,6 +508,184 @@ def phase_bwd_kernel(torch, fa, bw, flops):
                 bound_ms=bound_ms, bound_by=bound_by), max_err
 
 
+def phase_ln_kernels(torch, ln, peaks):
+    """The LayerNorm pair against its plain version at the paths' shapes
+    (and f32 at one more), the backward's bit stability, then timings.
+    Returns ``(timings, fwd max err, bwd max err)``."""
+    import torch.nn.functional as F
+
+    max_fwd = max_bwd = 0.0
+    runs = [(N, C, torch.bfloat16, "bf16") for N, C in LN_SHAPES]
+    runs += [(1000, 768, torch.float32, "f32"), (333, 1024, torch.float32,
+                                                  "f32")]
+    for N, C, dtype, tname in runs:
+        h, gamma, beta, g = ln.seeded_inputs(N, C, dtype, N + C)
+        y = ln.layer_norm_fwd_cuda(h, gamma, beta, LN_EPS, dtype)
+        ref = ln.layer_norm_plain(h, gamma, beta, LN_EPS, dtype)
+        got = ln.layer_norm_bwd_cuda(h, gamma, g, LN_EPS)
+        want = ln.layer_norm_bwd_plain(h, gamma, g, LN_EPS)
+        again = ln.layer_norm_bwd_cuda(h, gamma, g, LN_EPS)
+        torch.cuda.synchronize()
+        r = ref.float()
+        tol = ln.fwd_limit(ref)
+        err = (y.float() - r).abs()
+        ratio = (err / tol).max().item()
+        ok_f = bool(torch.isfinite(y.float()).all()) and ratio <= 1.0
+        dh, dh_ref = got[0].float(), want[0].float()
+        errs = [(dh - dh_ref).abs().max().item()]
+        ok_b = bool(torch.isfinite(dh).all()) and \
+            bool(((dh - dh_ref).abs() <= ln.dh_limit(want[0])).all())
+        for a, b in zip(got[1:], want[1:]):
+            errs.append((a - b).abs().max().item())
+            ok_b = ok_b and ln.dparam_close(a, b)
+        stable = all(torch.equal(a, b) for a, b in zip(got, again))
+        say(f"kernel-vs-plain layer_norm N={N} C={C} {tname}: forward "
+            f"max_abs_err={err.max().item():.3e} (within {ln.FWD_REL} of "
+            f"max(|ref|, 1){' plus one bf16 step' if tname == 'bf16' else ''};"
+            f" worst "
+            f"err/tol {ratio:.3f}) "
+            f"{'ok' if ok_f else 'FAIL'}; backward dh/dgamma/dbeta "
+            f"max_abs_err {errs[0]:.3e} {errs[1]:.3e} {errs[2]:.3e} (max|ref| "
+            f"{dh_ref.abs().max().item():.3f} {want[1].abs().max().item():.3f}"
+            f" {want[2].abs().max().item():.3f}) {'ok' if ok_b else 'FAIL'}; "
+            f"two backward launches {'bit-identical' if stable else 'DIFFER'}")
+        if not (ok_f and ok_b and stable):
+            fail(f"a LayerNorm kernel disagrees with its plain version or is "
+                 f"not bit-stable at N={N} C={C} {tname}")
+        max_fwd, max_bwd = max(max_fwd, err.max().item()), max(max_bwd, *errs)
+
+    timings = {}
+    for N, C in LN_SHAPES:
+        h, gamma, beta, g = ln.seeded_inputs(N, C, torch.bfloat16, 7)
+        gb, bb = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
+        fwd = dict(
+            ms=time_ms(torch, lambda: ln.layer_norm_fwd_cuda(
+                h, gamma, beta, LN_EPS, torch.bfloat16)),
+            plain_ms=time_ms(torch, lambda: ln.layer_norm_plain(
+                h, gamma, beta, LN_EPS, torch.bfloat16)),
+            library_ms=time_ms(torch, lambda: F.layer_norm(
+                h, (C,), gb, bb, LN_EPS)))
+        # h in, y out (bf16); gamma, beta in (f32); ~8 f32 operations an
+        # element (mean, centre, square, variance, scale, affine)
+        fwd["bound_ms"], fwd["bound_by"] = _bound(
+            2 * N * C * 2 + 2 * C * 4, 8 * N * C, peaks["bw"], peaks["f32"])
+        # a launch this short can take less device time than the wrapper
+        # takes on the host, which the events then measure: the profiler's
+        # device time beside them
+        fwd["device_ms"] = profile_kernels(
+            torch, lambda: ln.layer_norm_fwd_cuda(h, gamma, beta, LN_EPS,
+                                                  torch.bfloat16),
+            ("layer_norm_fwd_kernel",))["layer_norm_fwd_kernel"]
+        timings[(N, C, "fwd")] = fwd
+        say(f"timing layer_norm_fwd {N}x{C} bf16: kernel_ms={fwd['ms']:.4f} "
+            f"(device ms {fwd['device_ms']:.4f}) plain_ms="
+            f"{fwd['plain_ms']:.4f} library_ms(F.layer_norm)="
+            f"{fwd['library_ms']:.4f} bound_ms={fwd['bound_ms']:.4f} "
+            f"({fwd['bound_by']})")
+        if (N, C) != LN_SHAPES[-1]:
+            continue
+        hr, gr, br = (t.detach().requires_grad_() for t in (h, gb, bb))
+
+        def lib_fwd():
+            return F.layer_norm(hr, (C,), gr, br, LN_EPS)
+
+        def lib_fwd_bwd():
+            torch.autograd.grad(lib_fwd(), (hr, gr, br), g)
+
+        bwd = dict(
+            ms=time_ms(torch, lambda: ln.layer_norm_bwd_cuda(
+                h, gamma, g, LN_EPS)),
+            plain_ms=time_ms(torch, lambda: ln.layer_norm_bwd_plain(
+                h, gamma, g, LN_EPS)),
+            library_ms=time_ms(torch, lib_fwd_bwd) - time_ms(torch, lib_fwd))
+        # h, g in and dh out (bf16); gamma in, dgamma and dbeta out (f32);
+        # ~16 f32 operations an element (statistics again, the two means,
+        # dh, the dgamma/dbeta sums)
+        bwd["bound_ms"], bwd["bound_by"] = _bound(
+            3 * N * C * 2 + 3 * C * 4, 16 * N * C, peaks["bw"], peaks["f32"])
+        bwd["split_ms"] = profile_kernels(
+            torch, lambda: ln.layer_norm_bwd_cuda(h, gamma, g, LN_EPS),
+            ("layer_norm_bwd_kernel", "layer_norm_bwd_reduce_kernel"))
+        bwd["device_ms"] = round(sum(bwd["split_ms"].values()), 4)
+        timings[(N, C, "bwd")] = bwd
+        say(f"timing layer_norm_bwd {N}x{C} bf16: kernel_ms={bwd['ms']:.4f} "
+            f"plain_ms={bwd['plain_ms']:.4f} library_ms(F.layer_norm "
+            f"backward, fwd+bwd minus fwd)={bwd['library_ms']:.4f} bound_ms="
+            f"{bwd['bound_ms']:.4f} ({bwd['bound_by']}); device ms by kernel "
+            f"{bwd['split_ms']}")
+    return timings, max_fwd, max_bwd
+
+
+def _q8_inputs(torch, q8, M, K, N, seed):
+    """bf16 activations quantized per row, and f32 weights quantized per
+    output channel by ``quant.quantize_kernel`` in the port's [N, K]
+    layout; also the bf16 pair the float path would multiply."""
+    from ml_recipe_tpu_torch.quant import quantize_kernel
+
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.randn((M, K), generator=gen) * 3).to("cuda", torch.bfloat16)
+    w = torch.randn((N, K), generator=gen) * 0.05
+    wq, ws = quantize_kernel(w.t().numpy())
+    xq, xs = q8.quantize_rowwise(x)
+    return (xq, xs, torch.from_numpy(wq.T.copy()).cuda(),
+            torch.from_numpy(ws).cuda(), x, w.to("cuda", torch.bfloat16))
+
+
+def phase_q8_kernel(torch, q8, peaks):
+    """The int8 matmul against its plain version (``torch.equal``) at every
+    shape of the int8 serving path, then timings at the projections.
+    Returns the timings by shape and the largest |kernel - plain|."""
+    import torch.nn.functional as F
+
+    max_err = 0.0
+    for M, K, N in Q8_SHAPES:
+        xq, xs, wq, ws, _, _ = _q8_inputs(torch, q8, M, K, N, M + K + N)
+        got = q8.int8_matmul_cuda(xq, xs, wq, ws)
+        ref = q8.int8_matmul_plain(xq, xs, wq, ws)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, ref))
+        err = (got - ref).abs().max().item()
+        max_err = max(max_err, err)
+        say(f"kernel-vs-plain q8_matmul M={M} K={K} N={N}: "
+            f"{'bit-identical' if same else 'DIFFER'} (max_abs_err "
+            f"{err:.3e}, max|ref| "
+            f"{ref.abs().max().item():.3f})")
+        if not same:
+            fail(f"the int8 matmul kernel differs from its plain version at "
+                 f"M={M} K={K} N={N}")
+
+    timings = {}
+    for M, K, N in Q8_PROJ:
+        xq, xs, wq, ws, x, wb = _q8_inputs(torch, q8, M, K, N, 1)
+        t = dict(
+            ms=time_ms(torch, lambda: q8.int8_matmul_cuda(xq, xs, wq, ws)),
+            plain_ms=time_ms(torch, lambda: q8.int8_matmul_plain(
+                xq, xs, wq, ws), reps=5),
+            linear_bf16_ms=time_ms(torch, lambda: F.linear(x, wb)))
+        wt, xs2, ws2 = wq.t(), xs.reshape(M, 1), ws.reshape(1, N)
+        try:
+            t["library_ms"] = time_ms(torch, lambda: torch._int_mm(
+                xq, wt).float() * xs2 * ws2)
+        except RuntimeError as exc:   # a yardstick only: report, go on
+            t["library_ms"] = None
+            say(f"timing q8_matmul {M}x{K}x{N}: torch._int_mm refused the "
+                f"shape ({exc}); library_ms null")
+        # x, w in (int8), their scales in and the output out (f32)
+        t["bound_ms"], t["bound_by"] = _bound(
+            M * K + N * K + 4 * (M + N) + 4 * M * N, 2 * M * N * K,
+            peaks["bw"], peaks["int8"])
+        t["device_ms"] = profile_kernels(
+            torch, lambda: q8.int8_matmul_cuda(xq, xs, wq, ws),
+            ("q8_matmul_kernel",))["q8_matmul_kernel"]
+        timings[(M, K, N)] = t
+        lib = "null" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
+        say(f"timing q8_matmul M={M} K={K} N={N}: kernel_ms={t['ms']:.4f} "
+            f"(device ms {t['device_ms']:.4f}) plain_ms={t['plain_ms']:.4f} library_ms(torch._int_mm + "
+            f"rescale)={lib} bf16 F.linear ms={t['linear_bf16_ms']:.4f} "
+            f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']})")
+    return timings, max_err
+
+
 def _post(url: str, payload: dict, timeout: float = 300.0):
     req = urllib.request.Request(
         f"{url}/v1/qa", data=json.dumps(payload).encode("utf-8"),
@@ -457,32 +698,38 @@ def _post(url: str, payload: dict, timeout: float = 300.0):
         return e.code, {"error": e.read().decode()}, time.perf_counter() - t0
 
 
-def phase_serving(torch, fa, kernel_ms):
-    """The serving path at full width; returns the attention launch count.
-    ``kernel_ms``: the kernel's time at 32x384, for the forward's breakdown."""
+def _serve_burst(torch, extra=()):
+    """``config/serve.cfg`` with ``extra`` flags through the parsers,
+    ``check_serve_flags``, ``compose.init_model`` and ``QAEngine``, then the
+    10-request burst over HTTP. Launch counts are set to 0 just before the
+    warmup and read just after the burst. Returns a namespace of what the
+    checks read."""
+    from types import SimpleNamespace
+
     from ml_recipe_tpu_torch.compose import init_model
     from ml_recipe_tpu_torch.config.parser import (
         check_serve_flags, get_model_parser, get_params, get_serve_parser)
-    from ml_recipe_tpu_torch.data import (
-        assemble_input_ids, encode_document, labels2id, window_chunks)
-    from ml_recipe_tpu_torch.infer.score import OUT_KEYS
+    from ml_recipe_tpu_torch.data import labels2id
     from ml_recipe_tpu_torch.serve.bucketing import BucketGrid
     from ml_recipe_tpu_torch.serve.engine import QAEngine
     from ml_recipe_tpu_torch.serve.server import QAServer
     from ml_recipe_tpu_torch.tokenizer import write_synthetic_bert_vocab
 
+    label = " ".join(extra) or "bf16"
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     vocab = write_synthetic_bert_vocab(OUT_DIR / "vocab.txt")
     _, (params, model_params) = get_params(
         (get_serve_parser, get_model_parser),
         ["-c", str(REPO / "config" / "serve.cfg"), "--vocab_file", vocab,
-         "--port", "0"])
+         "--port", "0", *extra])
     check_serve_flags(params, model_params)
     t0 = time.perf_counter()
-    model, tokenizer = init_model(model_params, checkpoint=params.checkpoint)
-    say(f"serving: {model_params.model} {model.cfg.num_layers} layers "
-        f"hidden {model.cfg.hidden_size} {model.dtype} on {model.device}, "
-        f"built in {time.perf_counter() - t0:.1f}s")
+    model, tokenizer = init_model(model_params, checkpoint=params.checkpoint,
+                                  quantize=params.quantize)
+    say(f"serving ({label}): {model_params.model} {model.cfg.num_layers} "
+        f"layers hidden {model.cfg.hidden_size} {model.dtype} on "
+        f"{model.device}, LayerNorm {model.ln_impl}, quantize "
+        f"{model.quantize}, built in {time.perf_counter() - t0:.1f}s")
     if model.cfg.num_layers != 12 or model.dtype != torch.bfloat16:
         fail("the serving configuration is not bert-base in bf16")
     engine = QAEngine(
@@ -520,8 +767,7 @@ def phase_serving(torch, fa, kernel_ms):
 
     engine.batcher._run_fn = recording
 
-    fa.KERNEL.launches = 0          # the main path starts here
-    fa.BWD_KERNEL.launches = 0
+    zero_counts()                   # the main path starts here
     warm = engine.warmup()
     server = QAServer(engine, host=params.host, port=params.port,
                       request_timeout_s=params.request_timeout_s,
@@ -543,10 +789,9 @@ def phase_serving(torch, fa, kernel_ms):
         t.join(timeout=600)
     wall = time.perf_counter() - t0
     torch.cuda.synchronize()
-    launches = fa.KERNEL.launches   # the main path ends here
-    if fa.BWD_KERNEL.launches:
-        fail("the serving path launched the backward kernel")
+    launched = counts()             # the main path ends here
     batches = int(engine.m_batches.value)
+    metrics = engine.render_metrics()
     server.stop()
     server.shutdown()
 
@@ -559,35 +804,60 @@ def phase_serving(torch, fa, kernel_ms):
         lat.append(seconds * 1e3)
     n_chunks = sum(r[1]["n_chunks"] for r in results)
     device_batches = len(warm["buckets"]) + batches
-    say(f"serving: {len(results)} requests ({n_chunks} chunks) answered 200 "
-        f"in {wall:.2f}s; {batches} traffic batches (seq, rows) {seen} "
-        f"taking {batch_ms} ms + "
-        f"{len(warm['buckets'])} warmup batches; warmup seconds "
-        f"{warm['bucket_seconds']}")
-    say(f"serving: request latency ms p50={statistics.median(lat):.1f} "
-        f"p95={np.percentile(lat, 95):.1f} max={max(lat):.1f}")
-    layers = model.cfg.num_layers
-    say(f"serving: attention launches={launches}, expected {layers} x "
-        f"{device_batches} device batches = {layers * device_batches}")
-    if launches != layers * device_batches:
-        fail(f"attention launch count is not {layers} per device batch")
+    say(f"serving ({label}): {len(results)} requests ({n_chunks} chunks) "
+        f"answered 200 in {wall:.2f}s; {batches} traffic batches (seq, rows) "
+        f"{seen} taking {batch_ms} ms + {len(warm['buckets'])} warmup "
+        f"batches; warmup seconds {warm['bucket_seconds']}")
+    say(f"serving ({label}): request latency ms p50="
+        f"{statistics.median(lat):.1f} p95={np.percentile(lat, 95):.1f} "
+        f"max={max(lat):.1f}")
     if len(seen) != batches or (384, 32) not in seen or \
             {seq for seq, _ in seen} != {128, 384}:
         fail("traffic did not reach both seq buckets and a full 32-row batch")
+    return SimpleNamespace(model=model, tokenizer=tokenizer, engine=engine,
+                           params=params, requests=requests, counts=launched,
+                           device_batches=device_batches, warm=warm,
+                           metrics=metrics)
+
+
+def _full_batch_ids(tokenizer, requests, params):
+    """One full 32x384 batch: the first 32 windows of the long request."""
+    from ml_recipe_tpu_torch.quant import make_parity_batches
+
+    question, document = requests[-1]
+    ids = make_parity_batches(
+        tokenizer, [{"question_text": question, "document_text": document}],
+        max_seq_len=384, max_question_len=params.max_question_len,
+        doc_stride=params.doc_stride, batch_size=32, limit=32)[0]["input_ids"]
+    # a document of fewer windows fills the batch by repeating its last
+    if (ids[-1] == ids[-2]).all():
+        fail("the long document windows into fewer than 32 chunks")
+    return ids
+
+
+def phase_serving(torch, fa, kernel_ms):
+    """The serving path at full width. ``kernel_ms``: the kernel's time at
+    32x384, for the forward's breakdown. Returns the attention launch
+    count, the burst's namespace, the 32x384 batch and its forward ms."""
+    from ml_recipe_tpu_torch.infer.score import OUT_KEYS
+
+    burst = _serve_burst(torch)
+    model, tokenizer, engine = burst.model, burst.tokenizer, burst.engine
+    launched = burst.counts
+    launches = launched["fused_attention_fwd"]
+    device_batches = burst.device_batches
+    layers = model.cfg.num_layers
+    say(f"serving: attention launches={launches}, expected {layers} x "
+        f"{device_batches} device batches = {layers * device_batches}; "
+        f"launch counts {launched}")
+    if launches != layers * device_batches:
+        fail(f"attention launch count is not {layers} per device batch")
+    if any(n for k, n in launched.items() if k != "fused_attention_fwd"):
+        fail("the bf16 serving path launched a kernel other than the "
+             "attention forward")
 
     # one full 32x384 batch, kernel attention vs plain attention
-    tokens, _, _ = encode_document(tokenizer, requests[-1][1])
-    enc_q = tokenizer.encode(requests[-1][0])[:params.max_question_len]
-    records = window_chunks(tokens, ("unknown", -1, -1),
-                            question_len=len(enc_q), max_seq_len=384,
-                            doc_stride=params.doc_stride)
-    if len(records) < 32:
-        fail(f"the long document windows into {len(records)} < 32 chunks")
-    ids = np.full((32, 384), tokenizer.pad_token_id, np.int32)
-    for i, rec in enumerate(records[:32]):
-        row = assemble_input_ids(tokenizer.cls_token_id,
-                                 tokenizer.sep_token_id, enc_q, rec)
-        ids[i, :len(row)] = row
+    ids = _full_batch_ids(tokenizer, burst.requests, burst.params)
     seps = (ids == tokenizer.sep_token_id).astype(np.int32)
     tt = np.clip(np.cumsum(seps, axis=-1) - seps, 0, 1)
     attn = [m for m in model.modules() if hasattr(m, "attention_impl")]
@@ -651,17 +921,70 @@ def phase_serving(torch, fa, kernel_ms):
         f"kernel ({layers * kernel_ms:.3f} ms of it in {layers} attention "
         f"launches, {layers * kernel_ms / forward_ms['auto']:.1%}); "
         f"{forward_ms['xla']:.3f} with the plain attention")
-    profile_forward(torch, lambda: engine._score(wire))
-    return launches
+    profile_forward(torch, lambda: engine._score(wire), "serving")
+    return launches, burst, ids, forward_ms["auto"]
 
 
-def _run_training(torch, fa, cfg: str, extra=()):
+def phase_int8_serving(torch, bf16, ids, bf16_forward_ms):
+    """int8 serving with the fused LayerNorm: phase_serving's burst with
+    ``--quantize int8 --ln_impl fused``; ``bf16`` is phase_serving's burst
+    (the same seeded weights unquantized), ``ids`` its 32x384 batch and
+    ``bf16_forward_ms`` that batch's scoring forward. Returns the launch
+    counts of the path."""
+    from ml_recipe_tpu_torch.quant import make_parity_batches, span_parity
+
+    burst = _serve_burst(torch, ("--quantize", "int8", "--ln_impl", "fused"))
+    model, engine, launched = burst.model, burst.engine, burst.counts
+    db, layers = burst.device_batches, model.cfg.num_layers
+    want = {"fused_attention_fwd": layers * db,
+            "q8_matmul": Q8_PER_FORWARD * db,
+            "layer_norm_fwd": LN_PER_FORWARD * db,
+            "fused_attention_bwd": 0, "layer_norm_bwd": 0}
+    say(f"serving (int8): launch counts {launched}, expected {want} ({db} "
+        f"device batches x {layers} attention, {Q8_PER_FORWARD} int8 matmul,"
+        f" {LN_PER_FORWARD} LayerNorm)")
+    if launched != want:
+        fail("int8 serving launch counts do not match the path")
+    if (model.quantize, model.ln_impl) != ("int8", "fused") or \
+            burst.warm["quantize"] != "int8":
+        fail("the int8 serving model is not quantized with the fused LN")
+    line = [m for m in burst.metrics.splitlines()
+            if m.startswith("qa_weight_bytes ")]
+    say(f"serving (int8): {line[0] if line else 'no qa_weight_bytes'}, "
+        f"warmup quant_mem_bytes {burst.warm['quant_mem_bytes']} against "
+        f"{bf16.warm['quant_mem_bytes']} in bf16")
+    if 'precision="int8"' not in burst.metrics or \
+            burst.warm["quant_mem_bytes"] >= bf16.warm["quant_mem_bytes"]:
+        fail("/metrics does not report the int8 precision and its weights")
+
+    wire = engine._wire_pack({"input_ids": ids})
+    with torch.inference_mode():
+        packed = engine._score(wire).float().cpu().numpy()
+        forward_ms = time_ms(torch, lambda: engine._score(wire), reps=10)
+    if not np.isfinite(packed).all():
+        fail("int8 packed output not finite")
+    say(f"serving (int8): 32x384 scoring forward ms={forward_ms:.3f} against "
+        f"{bf16_forward_ms:.3f} in bf16 (x{forward_ms / bf16_forward_ms:.2f})")
+    profile_forward(torch, lambda: engine._score(wire), "serving (int8)")
+
+    lines = [{"question_text": q, "document_text": d}
+             for q, d in burst.requests]
+    batches = make_parity_batches(
+        burst.tokenizer, lines, max_seq_len=384,
+        max_question_len=burst.params.max_question_len,
+        doc_stride=burst.params.doc_stride, batch_size=32, limit=96)
+    parity = span_parity(bf16.model, model, batches)
+    say(f"serving (int8): span parity with bf16 (recorded, not a gate): "
+        f"{json.dumps(parity)}")
+    return launched
+
+
+def _run_training(torch, cfg: str, extra=()):
     """``config/<cfg>`` with ``extra`` flags through the trainer and model
     parsers, ``check_train_flags`` and the build and train sequence of
     ``ml_recipe_tpu_torch.cli.train``. The launch counts are set to 0 just
     before ``train`` and read just after. Returns the trainer, the trainer
-    flags, the forward and backward counts, the wall seconds and the number
-    of parameter tensors that moved."""
+    flags, every kernel's launch count and the wall seconds."""
     from ml_recipe_tpu_torch.cli import train as train_cli
     from ml_recipe_tpu_torch.config.parser import (
         check_train_flags, get_model_parser, get_params, get_trainer_parser)
@@ -692,19 +1015,19 @@ def _run_training(torch, fa, cfg: str, extra=()):
              f"compute and f32 master weights")
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
 
-    fa.KERNEL.launches = 0          # the main path starts here
-    fa.BWD_KERNEL.launches = 0
+    zero_counts()                   # the main path starts here
     t0 = time.perf_counter()
     train_cli.train(trainer, params)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    fwd, bwd = fa.KERNEL.launches, fa.BWD_KERNEL.launches  # ends here
+    launched = counts()             # the main path ends here
     moved = sum(not torch.equal(p.detach(), before[n])
                 for n, p in model.named_parameters())
-    say(f"training {cfg}: {moved} of {len(before)} parameter tensors changed")
+    say(f"training {cfg} {' '.join(extra)}: {moved} of {len(before)} "
+        f"parameter tensors changed; launch counts {launched}")
     if moved == 0:
         fail("no parameter changed after two steps")
-    return trainer, params, fwd, bwd, wall
+    return trainer, params, launched, wall
 
 
 def _micro_batch(torch, trainer, rows: int):
@@ -737,8 +1060,9 @@ def phase_training(torch, fa):
     launch counts of the training run."""
     from ml_recipe_tpu_torch.train.checkpoint import read_state
 
-    trainer, params, fwd, bwd, wall = _run_training(torch, fa,
-                                                    "test_bert.cfg")
+    trainer, params, launched, wall = _run_training(torch, "test_bert.cfg")
+    fwd = launched["fused_attention_fwd"]
+    bwd = launched["fused_attention_bwd"]
     model = trainer.model
     layers = model.cfg.num_layers
     micro = len(trainer.history) * params.batch_split
@@ -755,6 +1079,10 @@ def phase_training(torch, fa):
         fail("the debug run did not take 2 steps of 8 micro-batches")
     if bwd != layers * micro or fwd != layers * (micro + trainer.eval_batches):
         fail("attention launch counts do not match the training path")
+    if any(launched[k] for k in ("layer_norm_fwd", "layer_norm_bwd",
+                                 "q8_matmul")):
+        fail("the ln_impl=xla training path launched a LayerNorm or int8 "
+             "kernel")
     if not all(np.isfinite(v) for h in trainer.history for k, v in h.items()
                if k not in ("step", "rows", "seconds")):
         fail("a training loss is not finite")
@@ -768,11 +1096,10 @@ def phase_training(torch, fa):
     model.train()
     step_ms = time_ms(torch, fwd_bwd, reps=5, warm=2)
     split = profile_fwd_bwd(torch, fwd_bwd)
-    rest = step_ms - split["attention forward"] - split["attention backward"]
     say(f"training: one 32x512 micro-batch forward+backward device ms="
-        f"{step_ms:.3f}: attention forward {split['attention forward']:.3f}, "
-        f"attention backward {split['attention backward']:.3f}, rest "
-        f"{rest:.3f} (from a torch.profiler trace)")
+        f"{step_ms:.3f}: {_split_text(step_ms, split)} (from a torch.profiler "
+        f"trace; layer_norm: PyTorch's LayerNorm kernels of ln_impl=xla, "
+        f"without the f32 casts around them)")
 
     # its gradients with kernel attention vs plain attention (same dropout)
     flat = []
@@ -806,7 +1133,74 @@ def phase_training(torch, fa):
     if not ok:
         fail("the checkpoint did not read back")
     path.unlink()
-    return fwd, bwd
+    return fwd, bwd, step_ms, split
+
+
+def phase_ln_training(torch, xla_ms, xla_split):
+    """``config/test_bert.cfg --ln_impl fused`` at full width: the counts of
+    the LayerNorm pair and the attention pair, one 32x512 micro-batch split
+    by kernel beside the ``ln_impl=xla`` one (``xla_ms``, ``xla_split``) and
+    its gradients with the LayerNorm kernels against their plain version.
+    Returns the launch counts of the path."""
+    from ml_recipe_tpu_torch.models.encoder import FusedLayerNorm
+
+    trainer, params, launched, wall = _run_training(
+        torch, "test_bert.cfg", ["--ln_impl", "fused"])
+    model = trainer.model
+    layers = model.cfg.num_layers
+    micro = len(trainer.history) * params.batch_split
+    evals = trainer.eval_batches
+    want = {"fused_attention_fwd": layers * (micro + evals),
+            "fused_attention_bwd": layers * micro,
+            "layer_norm_fwd": LN_PER_FORWARD * (micro + evals),
+            "layer_norm_bwd": LN_PER_FORWARD * micro, "q8_matmul": 0}
+    say(f"training --ln_impl fused: {len(trainer.history)} steps + {evals} "
+        f"eval batches in {wall:.1f}s; step wall seconds "
+        f"{[round(h['seconds'], 3) for h in trainer.history]}; loss "
+        f"{[round(h['loss'], 4) for h in trainer.history]}; launch counts "
+        f"{launched}, expected {want} ({LN_PER_FORWARD} LayerNorm per forward "
+        f"x ({micro} micro-batches + {evals} eval batches), backward x "
+        f"{micro})")
+    lns = [m for m in model.modules() if isinstance(m, FusedLayerNorm)]
+    if len(lns) != LN_PER_FORWARD or micro != 16 or evals != 22:
+        fail("the fused-LayerNorm run is not test_bert.cfg's 2 debug steps "
+             "with 25 fused LayerNorms")
+    if launched != want:
+        fail("launch counts do not match the fused-LayerNorm training path")
+    if not all(np.isfinite(v) for h in trainer.history for k, v in h.items()
+               if k not in ("step", "rows", "seconds")):
+        fail("a fused-LayerNorm training loss is not finite")
+
+    params_t = list(model.parameters())
+    fwd_bwd = _micro_batch(torch, trainer, TRAIN_SHAPE[0])
+    model.train()
+    step_ms = time_ms(torch, fwd_bwd, reps=5, warm=2)
+    split = profile_fwd_bwd(torch, fwd_bwd)
+    say(f"training --ln_impl fused: one 32x512 micro-batch forward+backward "
+        f"device ms={step_ms:.3f}: {_split_text(step_ms, split)}; with "
+        f"ln_impl=xla {xla_ms:.3f}: {_split_text(xla_ms, xla_split)} (from "
+        f"torch.profiler traces)")
+
+    # its gradients, LayerNorm kernels vs their plain version (same dropout)
+    flat = []
+    for impl in ("fused", "xla"):
+        for m in lns:
+            m.impl = impl
+        fwd_bwd(seed=7)
+        flat.append(torch.cat([p.grad.float().reshape(-1) for p in params_t]))
+    for m in lns:
+        m.impl = "fused"
+    for p in params_t:
+        p.grad = None
+    rel = ((flat[0] - flat[1]).norm() / flat[1].norm()).item()
+    say(f"training --ln_impl fused: 32x512 micro-batch gradient, LayerNorm "
+        f"kernels vs plain: relative L2 error {rel:.3e} (tol "
+        f"{LN_GRAD_REL_TOL:g})")
+    if not (np.isfinite(rel) and rel <= LN_GRAD_REL_TOL):
+        fail("LayerNorm kernel and plain gradients disagree")
+    del flat, trainer, model, fwd_bwd
+    torch.cuda.empty_cache()
+    return launched
 
 
 def _split_ids(torch, rng, seg, B, L):
@@ -957,7 +1351,7 @@ def phase_long_kernels(torch, fa, bw, flops):
     return timings, max_fwd, max_bwd
 
 
-def phase_long_training(torch, fa):
+def phase_long_training(torch):
     """config/long_context.cfg and its 4096 remat variant at full width;
     returns the launch counts of each run."""
     import gc
@@ -967,8 +1361,10 @@ def phase_long_training(torch, fa):
 
     out = {}
     for label, extra in (("1024", ()), ("4096 remat", LONG_VARIANT)):
-        trainer, params, fwd, bwd, wall = _run_training(
-            torch, fa, LONG_CFG, ["--dummy_dataset", "--debug", *extra])
+        trainer, params, launched, wall = _run_training(
+            torch, LONG_CFG, ["--dummy_dataset", "--debug", *extra])
+        fwd = launched["fused_attention_fwd"]
+        bwd = launched["fused_attention_bwd"]
         model = trainer.model
         layers = model.cfg.num_layers
         remat = label.endswith("remat")
@@ -1012,13 +1408,10 @@ def phase_long_training(torch, fa):
             # one 32x1024 micro-batch: device time, split by kernel
             step_ms = time_ms(torch, fwd_bwd, reps=5, warm=2)
             split = profile_fwd_bwd(torch, fwd_bwd)
-            rest = (step_ms - split["attention forward"]
-                    - split["attention backward"])
             say(f"training {LONG_CFG} {label}: one {rows}x{want_seq} "
                 f"micro-batch forward+backward device ms={step_ms:.3f}: "
-                f"attention forward {split['attention forward']:.3f}, "
-                f"attention backward {split['attention backward']:.3f}, "
-                f"rest {rest:.3f} (from a torch.profiler trace)")
+                f"{_split_text(step_ms, split)} (from a torch.profiler "
+                f"trace)")
             # one sharded checkpoint with debug off, read back
             trainer.debug = False
             path = OUT_DIR / "results" / "smoke_sharded.ch"
@@ -1097,10 +1490,29 @@ def profile_kernels(torch, fn, names) -> dict:
             for n in names}
 
 
+def _ln_family(name: str):
+    """'forward' or 'backward' for a LayerNorm kernel: the port's
+    (``layer_norm_fwd``/``layer_norm_bwd``) or PyTorch's own
+    (``vectorized_layer_norm_kernel``; ``layer_norm_grad_input_kernel`` and
+    the ``GammaBeta`` column sums), else None."""
+    if "layer_norm_bwd" in name or "layer_norm_grad" in name \
+            or "GammaBeta" in name:
+        return "backward"
+    if "layer_norm" in name:
+        return "forward"
+    return None
+
+
+def _split_text(step_ms: float, split: dict) -> str:
+    rest = step_ms - sum(split.values())
+    return ", ".join([f"{k} {v:.3f}" for k, v in split.items()]
+                     + [f"rest {rest:.3f}"])
+
+
 def profile_fwd_bwd(torch, fn):
-    """Device ms of one ``fn()`` in the attention forward and backward
-    kernels, from a torch.profiler trace; fails when the trace holds no
-    device events."""
+    """Device ms of one ``fn()`` in the attention and LayerNorm forward and
+    backward kernels, from a torch.profiler trace; fails when the trace
+    holds no device events."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1118,10 +1530,14 @@ def profile_fwd_bwd(torch, fn):
             us for n, us in spans if "fused_attention_fwd" in n) / 1e3,
         "attention backward": sum(
             us for n, us in spans if "fused_attention_bwd" in n) / 1e3,
+        "layer_norm forward": sum(
+            us for n, us in spans if _ln_family(n) == "forward") / 1e3,
+        "layer_norm backward": sum(
+            us for n, us in spans if _ln_family(n) == "backward") / 1e3,
     }
 
 
-def profile_forward(torch, forward, reps: int = 5) -> None:
+def profile_forward(torch, forward, label: str, reps: int = 5) -> None:
     """Device time of ``forward`` by kernel family, and the device's idle
     share over ``reps`` back-to-back calls, from a ``torch.profiler`` trace.
     Informative only: a trace without device events prints 'not measured'."""
@@ -1136,13 +1552,18 @@ def profile_forward(torch, forward, reps: int = 5) -> None:
              for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     if not spans:
-        say("serving: profile of the 32x384 forward: not measured (the "
-            "trace holds no device events)")
+        say(f"{label}: profile of the 32x384 forward: not measured (the "
+            f"trace holds no device events)")
         return
-    family_us = {"attention": 0.0, "matmul": 0.0, "other": 0.0}
+    family_us = {"attention": 0.0, "matmul": 0.0, "int8 matmul": 0.0,
+                 "layer_norm": 0.0, "other": 0.0}
     for name, start, end in spans:
         if "fused_attention_fwd" in name:
             family = "attention"
+        elif "q8_matmul" in name:
+            family = "int8 matmul"
+        elif _ln_family(name):
+            family = "layer_norm"
         elif any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma")):
             family = "matmul"
         else:
@@ -1159,7 +1580,7 @@ def profile_forward(torch, forward, reps: int = 5) -> None:
     window = max(e for _, _, e in spans) - min(s for _, s, _ in spans)
     per_call = ", ".join(f"{k} {v / reps / 1e3:.3f}"
                          for k, v in family_us.items())
-    say(f"serving: profile of the 32x384 forward, device ms per call: "
+    say(f"{label}: profile of the 32x384 forward, device ms per call: "
         f"{per_call}; device idle {1 - busy / window:.1%} of "
         f"{window / 1e3:.3f} ms over {reps} back-to-back calls")
 
@@ -1174,6 +1595,8 @@ def main() -> int:
     try:
         from ml_recipe_tpu_torch.ops import cuda_build
         from ml_recipe_tpu_torch.ops import flash_attention as fa
+        from ml_recipe_tpu_torch.ops import layer_norm as ln
+        from ml_recipe_tpu_torch.ops import quant_matmul as q8
     except ImportError as exc:
         fail(f"run from a checkout of the repository ({exc})")
 
@@ -1185,12 +1608,20 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     say(card)
     name = torch.cuda.get_device_name(0)
-    bw, flops = card_peaks(name)
+    peaks = card_peaks(name)
+    bw, flops = peaks["bw"], peaks["bf16"]
     say(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}; "
         f"peaks used for bound_ms: {bw / 1e12:g} TB/s, {flops / 1e12:g} "
-        f"TFLOP/s bf16")
+        f"TFLOP/s bf16, {peaks['int8'] / 1e12:g} TOP/s int8, "
+        f"{peaks['f32'] / 1e12:g} TFLOP/s f32 (no tensor cores)")
+    KERNELS.update({"fused_attention_fwd": fa.KERNEL,
+                    "fused_attention_bwd": fa.BWD_KERNEL,
+                    "layer_norm_fwd": ln.FWD_KERNEL,
+                    "layer_norm_bwd": ln.BWD_KERNEL,
+                    "q8_matmul": q8.KERNEL})
 
-    libraries = [fa.KERNEL.library, fa.BWD_KERNEL.library]
+    libraries = [fa.KERNEL.library, fa.BWD_KERNEL.library, ln.LIBRARY,
+                 q8.KERNEL.library]
     t0 = time.perf_counter()
     built = cuda_build.build(*libraries)
     say(f"kernel build: {len(built)} of {len(libraries)} libraries built in "
@@ -1201,16 +1632,24 @@ def main() -> int:
 
     timings, fwd_err = phase_kernels(torch, fa, bw, flops)
     bwd, bwd_err = phase_bwd_kernel(torch, fa, bw, flops)
+    ln_t, ln_fwd_err, ln_bwd_err = phase_ln_kernels(torch, ln, peaks)
+    q8_t, q8_err = phase_q8_kernel(torch, q8, peaks)
     long_t, long_fwd_err, long_bwd_err = phase_long_kernels(torch, fa, bw,
                                                             flops)
-    serving_fwd = phase_serving(torch, fa, timings[SERVING_SHAPE]["ms"])
-    train_fwd, train_bwd = phase_training(torch, fa)
-    long = phase_long_training(torch, fa)
+    serving_fwd, bf16_burst, ids, bf16_ms = phase_serving(
+        torch, fa, timings[SERVING_SHAPE]["ms"])
+    int8 = phase_int8_serving(torch, bf16_burst, ids, bf16_ms)
+    del bf16_burst
+    torch.cuda.empty_cache()
+    train_fwd, train_bwd, xla_ms, xla_split = phase_training(torch, fa)
+    ln_train = phase_ln_training(torch, xla_ms, xla_split)
+    long = phase_long_training(torch)
     fwd = timings[TRAIN_SHAPE]
 
-    def entry(kernel, replaces, launches, err, t, shape, **more):
+    def entry(kernel, replaces, launches, err, t, shape, source=None,
+              **more):
         return {"name": kernel, "route": "cuda",
-                "source": f"ml_recipe_tpu_torch/csrc/{kernel}.cu",
+                "source": f"ml_recipe_tpu_torch/csrc/{source or kernel}.cu",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -1242,13 +1681,37 @@ def main() -> int:
               long["4096 remat"]["bwd"], long_bwd_err, stream["bwd"],
               stream_shape, **shared),
     ]
+    ln_fwd, ln_bwd = ln_t[(16384, 768, "fwd")], ln_t[(16384, 768, "bwd")]
+    ln_serve = ln_t[(12288, 768, "fwd")]
+    q8_ffn = q8_t[(12288, 768, 3072)]
+    new_kernels = [
+        entry("layer_norm_fwd", "ml_recipe_tpu/ops/layer_norm.py:84",
+              int8["layer_norm_fwd"] + ln_train["layer_norm_fwd"],
+              ln_fwd_err, ln_fwd, "16384x768 bf16 (32x512, training)",
+              source="layer_norm",
+              launches_by_path={"serving int8": int8["layer_norm_fwd"],
+                                "training fused": ln_train["layer_norm_fwd"]},
+              at_32x384={k: ln_serve[k] for k in (
+                  "ms", "plain_ms", "library_ms", "bound_ms")}),
+        entry("layer_norm_bwd", "ml_recipe_tpu/ops/layer_norm.py:96",
+              ln_train["layer_norm_bwd"], ln_bwd_err, ln_bwd,
+              "16384x768 bf16 (32x512, training)", source="layer_norm",
+              device_ms_by_kernel=ln_bwd["split_ms"]),
+        entry("q8_matmul", "ml_recipe_tpu/ops/quant_matmul.py:85",
+              int8["q8_matmul"], q8_err, q8_ffn,
+              "M=12288 K=768 N=3072 (32x384 FFN in, int8 serving)",
+              by_shape={f"{M}x{K}x{N}": t for (M, K, N), t in q8_t.items()}),
+    ]
     say(json.dumps({"kernels": [{
         "name": "fused_attention_fwd",
         "route": "cuda",
         "source": "ml_recipe_tpu_torch/csrc/fused_attention_fwd.cu",
         "replaces": "ml_recipe_tpu/ops/flash_attention.py:129",
-        "launches": serving_fwd + train_fwd,
-        "launches_by_path": {"serving": serving_fwd, "training": train_fwd},
+        "launches": (serving_fwd + train_fwd + int8["fused_attention_fwd"]
+                     + ln_train["fused_attention_fwd"]),
+        "launches_by_path": {"serving": serving_fwd, "training": train_fwd,
+                             "serving int8": int8["fused_attention_fwd"],
+                             "training fused": ln_train["fused_attention_fwd"]},
         "max_abs_err": fwd_err,
         "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"],
@@ -1261,8 +1724,9 @@ def main() -> int:
         "route": "cuda",
         "source": "ml_recipe_tpu_torch/csrc/fused_attention_bwd.cu",
         "replaces": "ml_recipe_tpu/ops/flash_attention.py:266",
-        "launches": train_bwd,
-        "launches_by_path": {"serving": 0, "training": train_bwd},
+        "launches": train_bwd + ln_train["fused_attention_bwd"],
+        "launches_by_path": {"serving": 0, "training": train_bwd,
+                             "training fused": ln_train["fused_attention_bwd"]},
         "max_abs_err": bwd_err,
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],
@@ -1270,7 +1734,7 @@ def main() -> int:
         "bound_by": bwd["bound_by"],
         "library_ms": bwd["library_ms"],
         "shape": "32x512x12x64 bf16, dropout 0.1 (training)",
-    }, *long_kernels]}))
+    }, *long_kernels, *new_kernels]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -8,7 +8,10 @@ until SIGTERM drains it::
 
 The model runs on ``--device`` (``cuda`` by default; without CUDA that
 raises). Every attention call on the card goes through the hand-written
-fused attention kernel (``csrc/fused_attention_fwd.cu``).
+fused attention kernel (``csrc/fused_attention_fwd.cu``); with
+``--quantize int8`` every matmul projection through the int8 matmul kernel
+(``csrc/q8_matmul.cu``, weights converted at start-up), and with
+``--ln_impl fused|auto`` every LayerNorm through ``csrc/layer_norm.cu``.
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ def main(params, model_params) -> int:
     from ..serve.server import QAServer
 
     check_serve_flags(params, model_params)
-    model, tokenizer = init_model(model_params, checkpoint=params.checkpoint)
+    model, tokenizer = init_model(model_params, checkpoint=params.checkpoint,
+                                  quantize=params.quantize)
     engine = QAEngine(
         model,
         tokenizer,

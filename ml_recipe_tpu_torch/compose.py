@@ -50,14 +50,21 @@ def init_model(
     rng_seed: int = 0,
     device=None,
     train: bool = False,
+    quantize: str = "off",
 ) -> Tuple[QAModel, object]:
     """Build ``(model, tokenizer)``: f32 params from a seeded
     ``torch.Generator``, then the optional single-file ``checkpoint``; the
-    compute dtype is ``--compute_dtype``. When ``train``, the model is in
-    training mode (dropout on) and every param stays f32 (the optimizer's
-    master weights). Otherwise it is in eval mode and the Linear and
-    Embedding params are cast to the compute dtype once, so their cast at
-    each use is a no-op.
+    compute dtype is ``--compute_dtype``, the LayerNorm ``--ln_impl``. When
+    ``train``, the model is in training mode (dropout on) and every param
+    stays f32 (the optimizer's master weights). Otherwise it is in eval
+    mode and the Linear and Embedding params are cast to the compute dtype
+    once, so their cast at each use is a no-op.
+
+    ``quantize='int8'`` (serving only): after the checkpoint is restored and
+    before that cast, the f32 weights are converted by
+    ``quant.quantize_model`` (per-channel int8 for every matmul, the JAX
+    package's conversion) and the per-layer error summary is logged. The
+    checkpoint format never changes.
 
     ``device`` (else ``model_params.device``, else ``cuda``) must exist:
     without CUDA the default raises instead of running on the CPU."""
@@ -71,19 +78,35 @@ def init_model(
         cfg, dtype=dtype, device=dev,
         attention_impl=getattr(model_params, "flash_attention", "auto") or "auto",
         remat=bool(getattr(model_params, "remat", False)),
+        ln_impl=getattr(model_params, "ln_impl", "xla") or "xla",
     )
     init_weights(model, torch.Generator().manual_seed(rng_seed))
     if checkpoint is not None:
         from .train.checkpoint import load_state_dict
 
         load_state_dict(model, checkpoint)
+    if quantize not in (None, "off"):
+        if train:
+            raise ValueError("quantize='int8' is for serving; training keeps "
+                             "the float model")
+        from .quant import quantize_model
+
+        model, report = quantize_model(model, quantize)
+        logger.info(
+            "Post-training quantization (%s): %d kernels converted, params "
+            "%.1f -> %.1f MB (kernels %.1f -> %.1f MB), worst per-layer "
+            "relative RMS error %.4f.",
+            quantize, report["n_quantized"], report["orig_bytes"] / 1e6,
+            report["quant_bytes"] / 1e6, report["orig_kernel_bytes"] / 1e6,
+            report["quant_kernel_bytes"] / 1e6, report["max_rel_rms_err"])
     model.train(train)
     if not train:
         for module in model.modules():
             if isinstance(module, (Linear, Embedding)):
                 module.to(module.compute_dtype)
-    logger.info("Model %s built on %s in %s (%d layers%s).",
-                model_params.model, dev, dtype, cfg.num_layers,
+    logger.info("Model %s built on %s in %s (%d layers, LayerNorm %s%s%s).",
+                model_params.model, dev, dtype, cfg.num_layers, model.ln_impl,
+                ", int8" if model.quantize == "int8" else "",
                 ", remat" if model.transformer.remat else "")
     return model, tokenizer
 

@@ -270,9 +270,12 @@ def get_model_parser() -> ConfigArgumentParser:
                              "draws) to trade FLOPs for device memory.")
     parser.add_argument("--ln_impl", type=cast2(str), default="xla",
                         choices=[None, "xla", "fused", "auto", "interpret"],
-                        help="LayerNorm implementation: xla (default, plain "
-                             "PyTorch LayerNorm); the fused kernels are not "
-                             "ported yet.")
+                        help="LayerNorm implementation: xla (default, flax "
+                             "nn.LayerNorm numerics), fused (the LayerNorm "
+                             "kernels on CUDA, their plain version on the "
+                             "CPU), auto (the kernels where they take the "
+                             "call). interpret has no counterpart in the "
+                             "port and is refused.")
     parser.add_argument("--device", type=str, default="cuda",
                         help="Port only: torch device of the model. The "
                              "default needs CUDA and never falls back to the "
@@ -813,7 +816,9 @@ def get_serve_parser() -> ConfigArgumentParser:
     parser.add_argument("--quantize", type=str, default="off",
                         choices=["off", "int8"],
                         help="Serving precision: 'off' serves the compute "
-                             "dtype; 'int8' is not ported yet.")
+                             "dtype; 'int8' converts the float weights to "
+                             "per-channel int8 at start-up and runs every "
+                             "matmul projection through the int8 kernel.")
 
     parser.add_argument("--ready_file", type=cast2(str), default=None,
                         help="Write {host, port, pid} JSON here once the "
@@ -839,12 +844,21 @@ def _not_ported(flag: str, value, item: str) -> NotImplementedError:
         f"(ROADMAP.md {item})")
 
 
+def _check_ln_impl(model_params) -> None:
+    """``--ln_impl interpret`` runs the JAX package's Pallas kernel in
+    interpret mode, a test vehicle with no counterpart in the port."""
+    if model_params.ln_impl == "interpret":
+        raise ValueError(
+            "--ln_impl interpret (Pallas interpret mode) has no counterpart "
+            "in ml_recipe_tpu_torch: use fused, which runs the kernels' "
+            "plain versions on the CPU")
+
+
 def check_serve_flags(params, model_params) -> None:
     """Refuse flags whose subsystem the port lacks and which would change
     results away from their defaults; log the ignored ones once."""
+    _check_ln_impl(model_params)
     checks = [
-        (params.quantize != "off", "quantize", params.quantize,
-         "queue 2, '_q8_matmul_kernel' and queue 1, 'Serving'"),
         (params.mesh is not None, "mesh", params.mesh,
          "queue 1, 'Parallelism beyond data parallelism'"),
         (params.serve_cache_bytes > 0, "serve_cache_bytes",
@@ -855,8 +869,6 @@ def check_serve_flags(params, model_params) -> None:
          "queue 1, 'Serving'"),
         (model_params.flash_attention == "ring", "flash_attention", "ring",
          "queue 1, 'Parallelism beyond data parallelism'"),
-        (model_params.ln_impl not in (None, "xla"), "ln_impl",
-         model_params.ln_impl, "queue 2, '_ln_fwd_kernel'"),
         (model_params.hf_checkpoint is not None, "hf_checkpoint",
          model_params.hf_checkpoint, "queue 1, 'Training: the parts still to port'"),
     ]
@@ -899,6 +911,7 @@ def _world_size_from_env() -> int:
 def check_train_flags(params, model_params) -> None:
     """Refuse trainer flags whose subsystem the port lacks and which would
     change results away from their defaults; log the ignored ones once."""
+    _check_ln_impl(model_params)
     checks = [
         (params.dist_world_size > 1, "dist_world_size", params.dist_world_size,
          _DDP),
@@ -939,8 +952,6 @@ def check_train_flags(params, model_params) -> None:
          _OBSERVE),
         (model_params.flash_attention == "ring", "flash_attention", "ring",
          _PARALLEL),
-        (model_params.ln_impl not in (None, "xla"), "ln_impl",
-         model_params.ln_impl, "queue 2, '_ln_fwd_kernel'"),
         (model_params.hf_checkpoint is not None, "hf_checkpoint",
          model_params.hf_checkpoint, _TRAINING),
         (model_params.param_dtype != "float32", "param_dtype",

@@ -9,6 +9,14 @@ Post-layer-norm BERT stack with the JAX module's numerics:
   holds those params in the compute dtype, so the cast is a no-op there);
   LayerNorm computes in f32, then casts to the compute dtype;
 - exact-erf GELU; LayerNorm eps from the config;
+- ``ln_impl`` picks the LayerNorm (:func:`_ln`): 'xla' is flax's
+  ``nn.LayerNorm`` (:class:`LayerNorm`); 'fused'/'auto' is
+  :class:`FusedLayerNorm` over ``ops.layer_norm``, the hand-written kernel
+  pair on the card. Both hold the same f32 ``weight``/``bias``, so a
+  checkpoint loads under either;
+- ``quantize='int8'`` (serving only) makes every matmul ``Linear`` a
+  ``quant.layers.QuantLinear`` under the same name (:func:`_dense`), which
+  runs the hand-written int8 matmul kernel on the card;
 - attention through ``ops.attention.dot_product_attention``, so on the card
   every layer runs the hand-written fused attention kernels (forward, and
   the backward when training);
@@ -36,6 +44,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dot_product_attention, dropout_seed
+from ..ops.layer_norm import layer_norm
+from ..quant.layers import QuantLinear
 from .config import EncoderConfig
 
 
@@ -69,6 +79,46 @@ class LayerNorm(nn.Module):
         return y.to(x.dtype)
 
 
+class FusedLayerNorm(nn.Module):
+    """``ops.layer_norm.layer_norm`` as a module (the JAX package's
+    ``FusedLayerNorm``): f32 ``weight``/``bias`` as :class:`LayerNorm` holds
+    them, the result in the compute dtype ``dtype``; ``impl`` is 'fused' or
+    'auto'."""
+
+    def __init__(self, features: int, eps: float, dtype, impl: str, *,
+                 device=None):
+        super().__init__()
+        self.eps, self.dtype, self.impl = eps, dtype, impl
+        self.weight = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, eps=self.eps,
+                          dtype=self.dtype, impl=self.impl)
+
+
+def _ln(cfg: EncoderConfig, dtype, ln_impl: str, device) -> nn.Module:
+    """LayerNorm factory: 'xla' keeps :class:`LayerNorm`, 'fused' and
+    'auto' give :class:`FusedLayerNorm`."""
+    if ln_impl == "xla":
+        return LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, device=device)
+    if ln_impl not in ("fused", "auto"):
+        raise ValueError(f"ln_impl must be 'xla', 'fused' or 'auto'; got "
+                         f"{ln_impl!r}")
+    return FusedLayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype, ln_impl,
+                          device=device)
+
+
+def _dense(quantize: str, n_in: int, n_out: int, dtype, device) -> nn.Module:
+    """Linear factory for the matmul projections: 'off' keeps
+    :class:`Linear`, 'int8' gives ``QuantLinear``."""
+    if quantize == "int8":
+        return QuantLinear(n_in, n_out, dtype, device)
+    if quantize not in (None, "off"):
+        raise ValueError(f"quantize must be 'off' or 'int8', got {quantize!r}")
+    return Linear(n_in, n_out, dtype, device)
+
+
 class Linear(nn.Linear):
     """``nn.Dense(dtype=compute_dtype)``: f32 params, cast at each use."""
 
@@ -93,7 +143,8 @@ class Embedding(nn.Embedding):
 
 
 class Embeddings(nn.Module):
-    def __init__(self, cfg: EncoderConfig, *, dtype, device):
+    def __init__(self, cfg: EncoderConfig, *, dtype, device,
+                 ln_impl: str = "xla"):
         super().__init__()
         self.cfg = cfg
         H = cfg.hidden_size
@@ -103,7 +154,7 @@ class Embeddings(nn.Module):
         # RoBERTa has one token type; the table keeps its single row
         self.token_type_embeddings = Embedding(max(cfg.type_vocab_size, 1), H,
                                                dtype, device)
-        self.layer_norm = LayerNorm(H, cfg.layer_norm_eps, device=device)
+        self.layer_norm = _ln(cfg, dtype, ln_impl, device)
 
     def forward(self, input_ids: torch.Tensor, token_type_ids: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -130,23 +181,24 @@ class Embeddings(nn.Module):
 
 class SelfAttention(nn.Module):
     def __init__(self, cfg: EncoderConfig, *, dtype, device,
-                 attention_impl: str = "auto"):
+                 attention_impl: str = "auto", ln_impl: str = "xla",
+                 quantize: str = "off"):
         super().__init__()
         self.cfg = cfg
         self.attention_impl = attention_impl
         H = cfg.hidden_size
-        self.query = Linear(H, H, dtype, device)
-        self.key = Linear(H, H, dtype, device)
-        self.value = Linear(H, H, dtype, device)
-        self.output = Linear(H, H, dtype, device)
-        self.layer_norm = LayerNorm(H, cfg.layer_norm_eps, device=device)
+        self.query = _dense(quantize, H, H, dtype, device)
+        self.key = _dense(quantize, H, H, dtype, device)
+        self.value = _dense(quantize, H, H, dtype, device)
+        self.output = _dense(quantize, H, H, dtype, device)
+        self.layer_norm = _ln(cfg, dtype, ln_impl, device)
 
     def forward(self, hidden: torch.Tensor, mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg = self.cfg
         B, L, H = hidden.shape
 
-        def heads(proj: nn.Linear) -> torch.Tensor:
+        def heads(proj: nn.Module) -> torch.Tensor:
             return proj(hidden).view(B, L, cfg.num_heads, cfg.head_dim)
 
         rate = cfg.attention_probs_dropout_prob if self.training else 0.0
@@ -166,15 +218,15 @@ class SelfAttention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    def __init__(self, cfg: EncoderConfig, *, dtype, device):
+    def __init__(self, cfg: EncoderConfig, *, dtype, device,
+                 ln_impl: str = "xla", quantize: str = "off"):
         super().__init__()
         self.cfg = cfg
-        self.intermediate = Linear(cfg.hidden_size, cfg.intermediate_size,
-                                   dtype, device)
-        self.output = Linear(cfg.intermediate_size, cfg.hidden_size, dtype,
-                             device)
-        self.layer_norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
-                                    device=device)
+        self.intermediate = _dense(quantize, cfg.hidden_size,
+                                   cfg.intermediate_size, dtype, device)
+        self.output = _dense(quantize, cfg.intermediate_size, cfg.hidden_size,
+                             dtype, device)
+        self.layer_norm = _ln(cfg, dtype, ln_impl, device)
 
     def forward(self, hidden: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -186,11 +238,14 @@ class FeedForward(nn.Module):
 
 class EncoderLayer(nn.Module):
     def __init__(self, cfg: EncoderConfig, *, dtype, device,
-                 attention_impl: str = "auto"):
+                 attention_impl: str = "auto", ln_impl: str = "xla",
+                 quantize: str = "off"):
         super().__init__()
         self.attention = SelfAttention(cfg, dtype=dtype, device=device,
-                                       attention_impl=attention_impl)
-        self.mlp = FeedForward(cfg, dtype=dtype, device=device)
+                                       attention_impl=attention_impl,
+                                       ln_impl=ln_impl, quantize=quantize)
+        self.mlp = FeedForward(cfg, dtype=dtype, device=device,
+                               ln_impl=ln_impl, quantize=quantize)
 
     def forward(self, hidden: torch.Tensor, mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -232,19 +287,24 @@ def remat_layer(layer: nn.Module, hidden: torch.Tensor, mask: torch.Tensor,
 
 class TransformerEncoder(nn.Module):
     """BERT/RoBERTa trunk: returns (sequence_output, pooled_output).
-    ``remat``: recompute each layer in the backward (:func:`remat_layer`)."""
+    ``remat``: recompute each layer in the backward (:func:`remat_layer`);
+    ``ln_impl``: :func:`_ln`; ``quantize``: :func:`_dense`."""
 
     def __init__(self, cfg: EncoderConfig, *, dtype=torch.float32,
                  device=None, attention_impl: str = "auto",
-                 remat: bool = False):
+                 remat: bool = False, ln_impl: str = "xla",
+                 quantize: str = "off"):
         super().__init__()
         self.cfg = cfg
         self.remat = remat
-        self.embeddings = Embeddings(cfg, dtype=dtype, device=device)
+        self.embeddings = Embeddings(cfg, dtype=dtype, device=device,
+                                     ln_impl=ln_impl)
         for i in range(cfg.num_layers):  # flax names: layer_0, layer_1, ...
             self.add_module(f"layer_{i}", EncoderLayer(
-                cfg, dtype=dtype, device=device, attention_impl=attention_impl))
-        self.pooler = Linear(cfg.hidden_size, cfg.hidden_size, dtype, device)
+                cfg, dtype=dtype, device=device, attention_impl=attention_impl,
+                ln_impl=ln_impl, quantize=quantize))
+        self.pooler = _dense(quantize, cfg.hidden_size, cfg.hidden_size, dtype,
+                             device)
 
     def forward(
         self,

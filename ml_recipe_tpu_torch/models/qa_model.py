@@ -6,7 +6,9 @@ output, and ``reg_start``/``reg_end`` Linear(H, 1) + sigmoid. Span logits at
 padding positions get the JAX model's ``-1e9`` penalty, added in f32, so
 argmax never lands on padding of a fixed-shape batch.
 
-Parameters are f32 master weights; ``dtype`` is the compute dtype. In
+Parameters are f32 master weights; ``dtype`` is the compute dtype.
+``ln_impl`` and ``quantize`` (serving only: the heads go through the same
+``_dense`` factory as the encoder's projections) are the encoder's. In
 training mode every dropout (hidden, attention, classifier) draws from the
 ``generator`` given to :meth:`QAModel.forward` (see ``models/encoder.py``).
 """
@@ -19,7 +21,7 @@ import torch
 from torch import nn
 
 from .config import EncoderConfig
-from .encoder import Linear, TransformerEncoder, dropout
+from .encoder import TransformerEncoder, _dense, dropout
 
 QA_OUTPUT_KEYS = ("start_class", "end_class", "start_reg", "end_reg", "cls")
 
@@ -29,22 +31,25 @@ _MASK_NEG = -1e9
 class QAModel(nn.Module):
     def __init__(self, cfg: EncoderConfig, *, dtype=torch.float32,
                  device=None, attention_impl: str = "auto",
-                 remat: bool = False):
+                 remat: bool = False, ln_impl: str = "xla",
+                 quantize: str = "off"):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
+        self.attention_impl, self.ln_impl = attention_impl, ln_impl
+        self.quantize = quantize or "off"
         self.transformer = TransformerEncoder(
             cfg, dtype=dtype, device=device, attention_impl=attention_impl,
-            remat=remat)
+            remat=remat, ln_impl=ln_impl, quantize=quantize)
         H = cfg.hidden_size
-        self.position_outputs = Linear(H, 2, dtype, device)
-        self.classifier = Linear(H, cfg.num_labels, dtype, device)
-        self.reg_start = Linear(H, 1, dtype, device)
-        self.reg_end = Linear(H, 1, dtype, device)
+        self.position_outputs = _dense(quantize, H, 2, dtype, device)
+        self.classifier = _dense(quantize, H, cfg.num_labels, dtype, device)
+        self.reg_start = _dense(quantize, H, 1, dtype, device)
+        self.reg_end = _dense(quantize, H, 1, dtype, device)
 
     @property
     def device(self) -> torch.device:
-        return self.position_outputs.weight.device
+        return self.position_outputs.bias.device
 
     def forward(
         self,

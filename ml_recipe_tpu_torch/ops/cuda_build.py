@@ -111,6 +111,15 @@ class CudaLibrary:
             return self._lib
 
 
+class Kernel:
+    """A kernel of a built library and the count of its launches: its
+    wrapper adds one where it launches the kernel, and nowhere else."""
+
+    def __init__(self, library: CudaLibrary):
+        self.library = library
+        self.launches = 0
+
+
 def build(*libraries: CudaLibrary) -> List[CudaLibrary]:
     """Build every library that is not built yet, one ``nvcc`` each, all
     started together. Returns the libraries that were built now."""

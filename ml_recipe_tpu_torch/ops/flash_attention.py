@@ -50,7 +50,7 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
-from .cuda_build import CudaLibrary
+from .cuda_build import CudaLibrary, Kernel
 
 NEG_INF = -1e30          # the TPU kernel's masked score (_NEG_INF)
 KERNEL_HEAD_DIMS = (32, 64, 128)
@@ -219,16 +219,8 @@ def _declare_bwd(lib: ctypes.CDLL) -> None:
     lib.fused_attention_bwd.restype = ci
 
 
-class _Kernel:
-    """A built library and the count of launches of its kernel."""
-
-    def __init__(self, source: str, declare):
-        self.library = CudaLibrary(source, declare)
-        self.launches = 0
-
-
-KERNEL = _Kernel("fused_attention_fwd.cu", _declare_fwd)
-BWD_KERNEL = _Kernel("fused_attention_bwd.cu", _declare_bwd)
+KERNEL = Kernel(CudaLibrary("fused_attention_fwd.cu", _declare_fwd))
+BWD_KERNEL = Kernel(CudaLibrary("fused_attention_bwd.cu", _declare_bwd))
 
 
 def _check_operands(q, k, v, mask, seeds, rate, what: str, extra=(),

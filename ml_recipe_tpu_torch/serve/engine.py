@@ -16,6 +16,10 @@ The port of ``ml_recipe_tpu/serve/engine.py``:
   question, best-score-wins, ties to the later chunk), and the winning span
   is decoded back to text.
 
+A model from ``quant.quantize_model`` serves int8 (``quantize``, read from
+the model): ``/metrics`` then reports ``qa_active_precision`` int8 and the
+int8 weights' bytes.
+
 Not ported yet (ROADMAP.md queue 1, 'Serving'): the two serving caches, the
 AOT program store, autotuned flush ranking, the memory pre-flight and the
 trace spans.
@@ -36,6 +40,7 @@ import torch
 from ..data.chunking import assemble_input_ids, encode_document, window_chunks
 from ..data.labels import id2labels
 from ..infer.score import OUT_KEYS, build_score_fn
+from ..quant.quantize import param_bytes
 from .batcher import ChunkWork, DrainingError, MicroBatcher, QueueFullError
 from .bucketing import Bucket, BucketGrid, pad_trailing_batch
 from .metrics import Registry
@@ -159,6 +164,9 @@ class QAEngine:
     ):
         self.model = model.eval()
         self.device = next(model.parameters()).device
+        # the active serving precision: 'int8' for a quant.quantize_model
+        # twin, on /metrics and in the warmup report
+        self.quantize = getattr(model, "quantize", "off")
         self.tokenizer = tokenizer
         self.grid = grid
         self.max_question_len = int(max_question_len)
@@ -230,15 +238,18 @@ class QAEngine:
             "qa_request_latency_p99_seconds",
             "p99 request latency over recent requests.")
         dtype = getattr(model, "dtype", torch.float32)
+        precision = ("int8" if self.quantize == "int8"
+                     else "bf16" if dtype == torch.bfloat16 else "f32")
         self.m_precision = m.info(
             "qa_active_precision",
-            "Numeric precision of the serving forward.",
-            {"precision": "bf16" if dtype == torch.bfloat16 else "f32",
-             "device": str(self.device)})
+            "Numeric precision of the serving forward (int8 = the "
+            "post-training quantized path, quant/).",
+            {"precision": precision, "device": str(self.device)})
         self.m_weight_bytes = m.gauge(
-            "qa_weight_bytes", "Resident model parameter bytes.")
-        self.m_weight_bytes.set(sum(
-            p.numel() * p.element_size() for p in model.parameters()))
+            "qa_weight_bytes",
+            "Resident model weight bytes (int8 quantization roughly "
+            "quarters the f32 kernels).")
+        self.m_weight_bytes.set(param_bytes(model.state_dict()))
         self.m_longdoc_requests = m.counter(
             "qa_longdoc_requests_total",
             "Requests served through the long-request scatter path "
@@ -311,7 +322,8 @@ class QAEngine:
         t0 = time.perf_counter()
         report = {"buckets": [], "bucket_seconds": {},
                   "wire": "ids" if self._wire_ids_only else "3plane",
-                  "device": str(self.device)}
+                  "device": str(self.device), "quantize": self.quantize,
+                  "quant_mem_bytes": param_bytes(self.model.state_dict())}
         for bucket in list(self.grid):
             tb = time.perf_counter()
             self.run_packed(self._dummy_inputs(bucket))

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card:
+the fused attention pair, the LayerNorm pair and the int8 matmul.
 
 Every kernel test here carries the ``cuda`` marker and skips without a
 CUDA device: the kernels have no CPU mode. One CPU test checks that the
@@ -20,8 +21,11 @@ import pytest
 import torch
 
 from ml_recipe_tpu_torch.ops import flash_attention as fa
+from ml_recipe_tpu_torch.ops import layer_norm as ln
+from ml_recipe_tpu_torch.ops import quant_matmul as q8
 from ml_recipe_tpu_torch.ops.attention import dot_product_attention
 from ml_recipe_tpu_torch.ops.flash_streaming import streaming_attention
+from ml_recipe_tpu_torch.quant import quantize_kernel
 
 # f32: same arithmetic in another summation order. bf16: the kernel rounds
 # each probability to bf16 against its running row max, the plain version
@@ -364,3 +368,134 @@ def test_streaming_contract_matches_plain(cuda, dtype, seg_split, base,
     torch.cuda.synchronize()
     assert fa.KERNEL.launches == fwd0 + 1 and fa.BWD_KERNEL.launches == bwd0 + 1
     assert all(torch.isfinite(t.grad.float()).all() for t in x)
+
+
+# -- LayerNorm -----------------------------------------------------------------
+# kernel vs plain within the limits that ops/layer_norm.py states beside
+# the plain versions (ln.fwd_limit, ln.dh_limit, ln.dparam_close)
+
+# the smoke's 32x384 and 32x512 rows at bert-base width, and C in {32, 768,
+# 1024} (tiny, base, large) with ragged row counts
+LN_SHAPES = [(12288, 768), (16384, 768), (77, 32), (1000, 768), (333, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("N,C", LN_SHAPES)
+def test_layer_norm_kernels_match_plain(cuda, dtype, N, C):
+    h, gamma, beta, g = ln.seeded_inputs(N, C, dtype, N + C)
+    f0, b0 = ln.FWD_KERNEL.launches, ln.BWD_KERNEL.launches
+    y = ln.layer_norm_fwd_cuda(h, gamma, beta, 1e-12, dtype)
+    ref = ln.layer_norm_plain(h, gamma, beta, 1e-12, dtype)
+    got = ln.layer_norm_bwd_cuda(h, gamma, g, 1e-12)
+    want = ln.layer_norm_bwd_plain(h, gamma, g, 1e-12)
+    torch.cuda.synchronize()
+    assert (ln.FWD_KERNEL.launches, ln.BWD_KERNEL.launches) == (f0 + 1, b0 + 1)
+    assert y.dtype == dtype and got[0].dtype == dtype
+    r = ref.float()
+    tol = ln.fwd_limit(ref)
+    err = (y.float() - r).abs()
+    worst = int((err - tol).argmax())
+    assert bool((err <= tol).all()), (err.max().item(), r.flatten()[worst])
+    dh, dh_ref = got[0].float(), want[0].float()
+    assert bool(((dh - dh_ref).abs() <= ln.dh_limit(want[0])).all())
+    for a, b in zip(got[1:], want[1:]):
+        assert a.dtype == torch.float32 and a.shape == (C,)
+        assert ln.dparam_close(a, b)
+
+
+@pytest.mark.cuda
+def test_layer_norm_backward_is_bit_stable(cuda):
+    """dgamma/dbeta are summed over row tiles in a fixed order, never with
+    atomics: two launches on the same inputs give the same bits."""
+    h, gamma, _, g = ln.seeded_inputs(16384, 768, torch.bfloat16, 5)
+    a = ln.layer_norm_bwd_cuda(h, gamma, g, 1e-12)
+    b = ln.layer_norm_bwd_cuda(h, gamma, g, 1e-12)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_layer_norm_dispatch_and_function_launch_the_kernels(cuda):
+    h, gamma, beta, g = ln.seeded_inputs(6 * 64, 768, torch.bfloat16, 6)
+    h3 = h.reshape(6, 64, 768)
+    f0, b0 = ln.FWD_KERNEL.launches, ln.BWD_KERNEL.launches
+    for impl in ("fused", "auto"):
+        y = ln.layer_norm(h3, gamma, beta, eps=1e-12, dtype=torch.bfloat16,
+                          impl=impl)
+        assert y.shape == h3.shape
+    ln.layer_norm(h3, gamma, beta, eps=1e-12, dtype=torch.bfloat16,
+                  impl="xla")
+    assert ln.FWD_KERNEL.launches == f0 + 2
+    x = [h3.clone().requires_grad_(), gamma.clone().requires_grad_(),
+         beta.clone().requires_grad_()]
+    y = ln.layer_norm(*x, eps=1e-12, dtype=torch.bfloat16, impl="fused")
+    y.backward(g.reshape(h3.shape))
+    torch.cuda.synchronize()
+    assert (ln.FWD_KERNEL.launches, ln.BWD_KERNEL.launches) == (f0 + 3, b0 + 1)
+    assert x[0].grad.dtype == torch.bfloat16
+    assert x[1].grad.dtype == x[2].grad.dtype == torch.float32
+    with pytest.raises(ValueError, match="limit"):
+        ln.layer_norm_fwd_cuda(torch.zeros((2, 4100), device="cuda"),
+                               torch.ones(4100, device="cuda"),
+                               torch.zeros(4100, device="cuda"), 1e-12,
+                               torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ln.layer_norm_bwd_cuda(h, gamma, g.t().contiguous().t(), 1e-12)
+
+
+# -- int8 matmul ---------------------------------------------------------------
+# bert-base at 32x384 (M = 12288): the six projections, then the pooler's 8
+# rows and the heads (N = 2 over every token, 5 and 1 over the pooled rows);
+# and ragged M, N, K
+Q8_SHAPES = [(12288, 768, 768), (12288, 768, 3072), (12288, 3072, 768),
+             (32, 768, 768), (12288, 768, 2), (32, 768, 5), (8, 768, 1),
+             (333, 36, 130), (5, 4, 3)]
+
+
+def _q8_inputs(M, K, N, seed):
+    """bf16 activations quantized per row, and a weight quantized per
+    output channel by the port's conversion, in its [N, K] layout."""
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.randn((M, K), generator=gen) * 3).cuda().to(torch.bfloat16)
+    w = torch.randn((N, K), generator=gen) * 0.05
+    wq, ws = quantize_kernel(w.t().numpy())
+    xq, xs = q8.quantize_rowwise(x)
+    return (xq, xs, torch.from_numpy(wq.T.copy()).cuda(),
+            torch.from_numpy(ws).cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", Q8_SHAPES)
+def test_q8_kernel_equals_plain(cuda, M, K, N):
+    """Exact int32 accumulation, then the same two f32 roundings: the
+    kernel and the plain version agree bit for bit."""
+    xq, xs, wq, ws = _q8_inputs(M, K, N, M + K + N)
+    before = q8.KERNEL.launches
+    got = q8.int8_matmul_cuda(xq, xs, wq, ws)
+    ref = q8.int8_matmul_plain(xq, xs, wq, ws)
+    torch.cuda.synchronize()
+    assert q8.KERNEL.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_quant_linear_launches_the_kernel_at_every_shape(cuda):
+    from ml_recipe_tpu_torch.quant import QuantLinear
+
+    before = q8.KERNEL.launches
+    for n_in, n_out, rows in ((768, 2, 384), (768, 5, 8), (64, 1, 3)):
+        layer = QuantLinear(n_in, n_out, torch.bfloat16, device="cuda")
+        xq, _, wq, ws = _q8_inputs(rows, n_in, n_out, n_out)
+        layer.kernel_q.copy_(wq)
+        layer.kernel_scale.copy_(ws)
+        x = xq.to(torch.bfloat16).reshape(1, rows, n_in)
+        y = layer(x)
+        assert y.dtype == torch.bfloat16 and y.shape == (1, rows, n_out)
+    torch.cuda.synchronize()
+    assert q8.KERNEL.launches == before + 3
+    with pytest.raises(ValueError, match="multiple of 4"):
+        xq, xs, wq, ws = _q8_inputs(8, 6, 3, 0)
+        q8.int8_matmul_cuda(xq, xs, wq, ws)

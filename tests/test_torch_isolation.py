@@ -58,7 +58,10 @@ def test_no_port_module_imports_jax_or_the_jax_package():
                    "data/collate.py", "data/loader.py", "data/bucketing.py",
                    "data/device_prefetch.py", "metrics/meters.py",
                    "utils/msgpack.py", "utils/seed.py",
-                   "ops/flash_attention.py"):
+                   "ops/flash_attention.py", "ops/layer_norm.py",
+                   "ops/quant_matmul.py", "quant/__init__.py",
+                   "quant/quantize.py", "quant/layers.py",
+                   "quant/calibrate.py"):
         assert f"ml_recipe_tpu_torch/{module}" in names, module
     offenders = [f"{path.relative_to(_REPO)}: {mod}"
                  for path in files for mod in _imports(path)
@@ -69,7 +72,8 @@ def test_no_port_module_imports_jax_or_the_jax_package():
 def test_entry_points_load_no_jax():
     code = ("import sys, ml_recipe_tpu_torch.cli.serve, "
             "ml_recipe_tpu_torch.serve.engine, ml_recipe_tpu_torch.serve.server, "
-            "ml_recipe_tpu_torch.cli.train, ml_recipe_tpu_torch.train.trainer; "
+            "ml_recipe_tpu_torch.cli.train, ml_recipe_tpu_torch.train.trainer, "
+            "ml_recipe_tpu_torch.quant; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'ml_recipe_tpu')); "
             "assert not bad, bad")

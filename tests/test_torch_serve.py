@@ -4,8 +4,10 @@ A tiny JAX QAModel (tests/test_serve.py's geometry) is initialised from a
 seed; its params cross the bridge into the port's QAModel (f32, CPU). Both
 engines answer the same fixed requests, one of them a multi-chunk document,
 and must agree on the answer, label, span and chunk count, with the score
-within an f32 tolerance. Then the port's HTTP front end, its config parsing
-and the serve CLI as a subprocess.
+within an f32 tolerance. The same holds for the int8 engines of both
+packages, each converted by its own ``quant.quantize_model``. Then the
+port's HTTP front end, its config parsing and the serve CLI as a
+subprocess.
 """
 
 import json
@@ -92,7 +94,30 @@ def engines(tmp_path_factory):
     engine = QAEngine(model, tok, grid=BucketGrid.from_spec("4x64,8x64"),
                       **common)
     report = engine.warmup()
-    yield SimpleNamespace(jax=jengine, port=engine, tok=tok, report=report)
+    yield SimpleNamespace(jax=jengine, port=engine, tok=tok, report=report,
+                          jtok=jtok, jmodel=jmodel, params=params, common=common)
+    jengine.close()
+    engine.close()
+
+
+@pytest.fixture(scope="module")
+def int8_engines(engines):
+    """Both packages' int8 engines over the fixture's weights."""
+    from ml_recipe_tpu.quant import quantize_model as jax_quantize_model
+    from ml_recipe_tpu.serve.engine import QAEngine as JaxQAEngine
+    from ml_recipe_tpu_torch.quant import quantize_model
+    from ml_recipe_tpu_torch.serve.engine import QAEngine
+
+    jq, jqparams, _ = jax_quantize_model(engines.jmodel, engines.params)
+    jengine = JaxQAEngine(jq, jqparams, engines.jtok,
+                          grid=JaxBucketGrid.from_spec("4x64,8x64"),
+                          mesh=build_mesh(), quantize="int8", **engines.common)
+    jengine.warmup(hbm_preflight=False)
+    qmodel, _ = quantize_model(engines.port.model)
+    engine = QAEngine(qmodel, engines.tok,
+                      grid=BucketGrid.from_spec("4x64,8x64"), **engines.common)
+    report = engine.warmup()
+    yield SimpleNamespace(jax=jengine, port=engine, report=report)
     jengine.close()
     engine.close()
 
@@ -113,6 +138,35 @@ def test_answers_match_jax_engine(engines):
         assert abs(got.score - ref.score) <= SCORE_ATOL
         n_multi += ref.n_chunks > 1
     assert n_multi >= 1
+
+
+def test_int8_answers_match_jax_int8_engine(int8_engines):
+    for question, document in _REQUESTS:
+        ref = int8_engines.jax.submit(question, document).result(timeout=60)
+        got = int8_engines.port.submit(question, document).result(timeout=60)
+        assert (got.answer, got.label, got.start, got.end, got.n_chunks) == (
+            ref.answer, ref.label, ref.start, ref.end, ref.n_chunks)
+        assert abs(got.score - ref.score) <= SCORE_ATOL
+
+
+def _gauge(metrics: str, name: str) -> float:
+    return float(next(line.split()[-1] for line in metrics.splitlines()
+                      if line.startswith(name + " ")))
+
+
+def test_int8_engine_reports_its_precision_and_smaller_weights(
+        engines, int8_engines):
+    port = int8_engines.port
+    assert port.quantize == "int8" and engines.port.quantize == "off"
+    report = int8_engines.report
+    assert report["quantize"] == "int8"
+    assert report["quant_mem_bytes"] < engines.report["quant_mem_bytes"]
+    metrics = port.render_metrics()
+    assert 'qa_active_precision{device="cpu",precision="int8"} 1' in metrics
+    int8_bytes = _gauge(metrics, "qa_weight_bytes")
+    assert int8_bytes == report["quant_mem_bytes"]
+    assert int8_bytes < _gauge(engines.port.render_metrics(),
+                               "qa_weight_bytes")
 
 
 def test_packed_output_matches_jax(engines):
@@ -213,10 +267,10 @@ def test_serve_cfg_parses_with_the_port_flag():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--quantize", "int8"], ["--mesh", "data:1"],
+    ["--mesh", "data:1"],
     ["--serve_cache_bytes", "1M"], ["--doc_cache_bytes", "64K"],
     ["--trace_spans", "spans"], ["--flash_attention", "ring"],
-    ["--ln_impl", "fused"], ["--hf_checkpoint", "bert-base-uncased"],
+    ["--hf_checkpoint", "bert-base-uncased"],
 ])
 def test_unported_flags_raise(flag):
     _, (params, model_params) = get_params(
@@ -226,7 +280,36 @@ def test_unported_flags_raise(flag):
         check_serve_flags(params, model_params)
 
 
-def test_serve_cli_on_cpu_answers_and_drains(tmp_path):
+@pytest.mark.parametrize("flag", [
+    ["--quantize", "int8"], ["--ln_impl", "fused"], ["--ln_impl", "auto"],
+    ["--quantize", "int8", "--ln_impl", "fused"],
+])
+def test_int8_and_fused_layer_norm_flags_are_accepted(flag):
+    _, (params, model_params) = get_params(
+        (get_serve_parser, get_model_parser),
+        ["-c", str(_REPO / "config" / "serve.cfg"), *flag])
+    check_serve_flags(params, model_params)
+
+
+@pytest.mark.parametrize("flag", [["--ln_impl", "bogus"],
+                                  ["--quantize", "fp4"]])
+def test_unknown_quantize_and_ln_impl_values_raise(flag):
+    with pytest.raises(SystemExit):
+        get_params((get_serve_parser, get_model_parser),
+                   ["-c", str(_REPO / "config" / "serve.cfg"), *flag])
+
+
+def test_ln_impl_interpret_has_no_port_counterpart():
+    _, (params, model_params) = get_params(
+        (get_serve_parser, get_model_parser),
+        ["-c", str(_REPO / "config" / "serve.cfg"), "--ln_impl", "interpret"])
+    with pytest.raises(ValueError, match="interpret"):
+        check_serve_flags(params, model_params)
+
+
+def _drive_serve_cli(tmp_path, *extra) -> str:
+    """The serve CLI on the CPU: ready file, one answered request, SIGTERM
+    drain to exit 0; returns its log."""
     vocab = write_vocab(tmp_path)
     ready = tmp_path / "ready.json"
     env = dict(os.environ, PYTHONPATH=str(_REPO))
@@ -235,7 +318,7 @@ def test_serve_cli_on_cpu_answers_and_drains(tmp_path):
          "-c", str(_REPO / "config" / "serve.cfg"), "--model", "bert-tiny",
          "--vocab_file", str(vocab), "--device", "cpu", "--port", "0",
          "--buckets", "2x64", "--max_question_len", "16",
-         "--doc_stride", "24", "--ready_file", str(ready)],
+         "--doc_stride", "24", "--ready_file", str(ready), *extra],
         cwd=str(tmp_path), env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
     try:
@@ -253,7 +336,19 @@ def test_serve_cli_on_cpu_answers_and_drains(tmp_path):
         out, _ = proc.communicate(timeout=60)
         assert proc.returncode == 0, out
         assert "Accepted but not ported" in out
+        return out
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.communicate()
+
+
+def test_serve_cli_on_cpu_answers_and_drains(tmp_path):
+    _drive_serve_cli(tmp_path)
+
+
+def test_serve_cli_int8_with_fused_layer_norm_on_cpu(tmp_path):
+    out = _drive_serve_cli(tmp_path, "--quantize", "int8", "--ln_impl",
+                           "fused")
+    assert "Post-training quantization (int8): 17 kernels converted" in out
+    assert "LayerNorm fused, int8" in out

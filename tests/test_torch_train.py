@@ -12,10 +12,14 @@ Every input comes from a numpy seed and goes through both packages:
   flax's PRNG cannot be reproduced, ``batch_split=2``, clip active, warmup)
   and the port's ``Trainer`` start from the same params and take the same 4
   steps on the same batches: same per-step losses and lr, same end params;
+  with ``ln_impl='xla'`` (flax ``nn.LayerNorm``) and ``'fused'`` on both
+  sides (the JAX ``_xla_layer_norm`` off the TPU; the port's
+  ``FusedLayerNormFn`` over the kernels' plain versions on the CPU);
 - checkpoints: port -> JAX and JAX -> port keep params, optimizer state and
   step; ``drop_optimizer`` restores weights only;
 - the CLI: ``python -m ml_recipe_tpu_torch.cli.train`` on the CPU takes its
-  2 debug steps and exits 0; unported flags raise; an interrupt saves
+  2 debug steps and exits 0; unported flags raise, ``--ln_impl fused|auto``
+  is accepted; an interrupt saves
   ``interrupt.ch``.
 
 Tolerances are f32: both sides compute in float32, in other summation
@@ -302,9 +306,9 @@ def _tiny_cfg(kind, vocab_size):
                 hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
 
 
-def _port_trainer(ttok, tds, params_np, **kw):
+def _port_trainer(ttok, tds, params_np, ln_impl="xla", **kw):
     model = QAModel(_tiny_cfg(EncoderConfig, len(ttok)), dtype=torch.float32,
-                    device="cpu")
+                    device="cpu", ln_impl=ln_impl)
     model.load_state_dict(from_jax_params(params_np), strict=True)
     return Trainer(model, build_loss(_tp()),
                    make_collate_fun(ttok, max_seq_len=MAX_SEQ_LEN),
@@ -314,9 +318,11 @@ def _port_trainer(ttok, tds, params_np, **kw):
 
 
 @pytest.fixture(scope="module")
-def trained(tmp_path_factory):
+def trained(request, tmp_path_factory):
     """A tiny JAX Trainer and the port's Trainer, 2 epochs x 2 steps each
-    from the same params on the same batches."""
+    from the same params on the same batches; both with the LayerNorm of
+    ``request.param`` ('xla' unless parametrised)."""
+    ln_impl = getattr(request, "param", "xla")
     tmp = tmp_path_factory.mktemp("traj")
     jtok, ttok = _tokenizers(tmp)
     jds, tds = _datasets(jtok, ttok, 16)
@@ -328,7 +334,8 @@ def trained(tmp_path_factory):
 
     j_running, t_running = [], []
     jt = JaxTrainer(
-        model=JaxQAModel(jcfg, attention_impl="xla", mesh=mesh), params=init,
+        model=JaxQAModel(jcfg, attention_impl="xla", mesh=mesh,
+                         ln_impl=ln_impl), params=init,
         loss=jax_build_loss(_tp()),
         collate_fun=jax_make_collate(jtok, max_seq_len=MAX_SEQ_LEN),
         trainer_params=_tp(), train_dataset=jds, mesh=mesh, n_epochs=2,
@@ -337,7 +344,7 @@ def trained(tmp_path_factory):
         on_train_metrics=lambda m, step: j_running.append(
             (step, m["loss"](), float(m["lr"]))))
     jt.train()
-    tt = _port_trainer(ttok, tds, init_np,
+    tt = _port_trainer(ttok, tds, init_np, ln_impl=ln_impl,
                        on_train_metrics=lambda m, step: t_running.append(
                            (step, m["loss"](), float(m["lr"]))))
     tt.train()
@@ -351,6 +358,7 @@ def trained(tmp_path_factory):
         t_state=tt.optimizer.flax_state(), init=init_np)
 
 
+@pytest.mark.parametrize("trained", ["xla", "fused"], indirect=True)
 def test_trajectory_matches_jax_trainer(trained):
     j, t = trained.j_running, trained.t_running
     assert len(j) == len(t) == 4 == len(trained.tt.history)
@@ -464,12 +472,34 @@ def test_cli_trains_two_debug_steps_on_the_cpu(tmp_path):
     ["--mesh", "data:2"], ["--dist_world_size", "2"], ["--async_checkpoint"],
     ["--apex_loss_scale", "dynamic"], ["--sequence_packing", "on"],
     ["--optimizer", "adamod"], ["--finetune"], ["--goodput_ledger"],
-    ["--ln_impl", "fused"],
 ])
 def test_unported_train_flags_raise(tmp_path, flag):
     _, (params, model_params) = get_params(
         (get_trainer_parser, get_model_parser), _cli_args(tmp_path, *flag))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        check_train_flags(params, model_params)
+
+
+@pytest.mark.parametrize("ln_impl", ["fused", "auto"])
+def test_fused_layer_norm_flag_is_accepted(tmp_path, ln_impl):
+    _, (params, model_params) = get_params(
+        (get_trainer_parser, get_model_parser),
+        # '=': the args hold another 'auto' (--length_buckets), and
+        # get_params would read a shared value token as an unknown argument
+        _cli_args(tmp_path, f"--ln_impl={ln_impl}"))
+    check_train_flags(params, model_params)
+    trainer = train_cli.build_trainer(params, model_params)
+    assert trainer.model.ln_impl == ln_impl
+
+
+def test_unknown_ln_impl_values_raise(tmp_path):
+    with pytest.raises(SystemExit):
+        get_params((get_trainer_parser, get_model_parser),
+                   _cli_args(tmp_path, "--ln_impl", "bogus"))
+    _, (params, model_params) = get_params(
+        (get_trainer_parser, get_model_parser),
+        _cli_args(tmp_path, "--ln_impl", "interpret"))
+    with pytest.raises(ValueError, match="interpret"):
         check_train_flags(params, model_params)
 
 
