@@ -9,7 +9,10 @@ Phases, each fatal on failure (exit code 1, and no result line):
 
 1. the card's name and power limit (``nvidia-smi``), and the build of every
    hand-written kernel from ``ml_recipe_tpu_torch/csrc`` (one ``nvcc`` per
-   source, started together);
+   source, started together); then the registers, shared memory and spill
+   bytes of each bf16 tensor-core attention kernel at D = 32, 64 and 128
+   (ptxas and ``cudaFuncGetAttributes``), fatal on any spill or local
+   memory;
 2. every kernel against its plain PyTorch version on the card, at the
    shapes the serving and training paths give it (bert-base: 12 heads of
    64), bf16 and f32, with key masks, segments (all-masked pad rows
@@ -76,7 +79,10 @@ Phases, each fatal on failure (exit code 1, and no result line):
    phase 4), one 32x512 micro-batch split by kernel beside phase 4's, and
    its gradients with the LayerNorm kernels against their plain version.
 
-It then prints one ``{"kernels": [...]}`` line and, last, the
+It then prints one ``{"kernels": [...]}`` line (the attention kernels'
+lines carry the tensor-core kernels' resources and every timed shape's
+``ms`` and ratio to ``scaled_dot_product_attention`` under ``by_shape``)
+and, last, the
 ``{"ok": true, "device": {...}}`` line. Without CUDA, or outside a checkout
 of the repository, it exits non-zero before printing either.
 """
@@ -246,6 +252,39 @@ def ptxas_reports(build_log: str):
         yield kernel, "; ".join(parts)
 
 
+def _spill_bytes(report: str):
+    """Spill stores and loads together, in bytes, of one ptxas report
+    line; None when the line has no spill figures."""
+    spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", report)
+    return sum(int(x) for x in spills) if spills else None
+
+
+def check_tc_kernels(fa, reports: dict) -> dict:
+    """Registers, shared memory and spill bytes of every bf16 tensor-core
+    attention kernel at D = 32, 64 and 128: from ``cudaFuncGetAttributes``
+    and, where this run built the library, ptxas's report. Fails on any
+    spill and on any local memory (a spilled or stack-resident array)."""
+    found = {}
+    for D in fa.KERNEL_HEAD_DIMS:
+        for name, a in fa.tc_kernel_attributes(D).items():
+            report = reports.get(f"{name}<bf16 {D}>")
+            spill = _spill_bytes(report) if report else None
+            entry = dict(registers=a["registers"],
+                         smem_bytes=a["static_smem_bytes"]
+                         + a["dynamic_smem_bytes"],
+                         local_bytes=a["local_bytes"],
+                         spill_bytes=spill)
+            found[f"{name}<{D}>"] = entry
+            say(f"tensor-core kernel {name}<bf16, D={D}>: {entry['registers']}"
+                f" registers, {entry['smem_bytes']} B shared memory, "
+                f"{entry['local_bytes']} B local, spill bytes "
+                f"{'not in this run (library cached)' if spill is None else spill}")
+            if spill or entry["local_bytes"]:
+                fail(f"{name}<bf16, D={D}> spills or uses local memory: "
+                     f"{entry}")
+    return found
+
+
 def time_ms(torch, fn, reps: int = 15, warm: int = 3) -> float:
     """Median device time of one ``fn()`` call, by CUDA events."""
     for _ in range(warm):
@@ -373,7 +412,7 @@ def phase_kernels(torch, fa, bw, flops):
         bound_ms, bound_by = _bound(n_bytes, n_ops, bw, flops)
         results[(B, L)] = dict(ms=kernel_ms, plain_ms=plain_ms,
                                library_ms=library_ms, bound_ms=bound_ms,
-                               bound_by=bound_by)
+                               bound_by=bound_by, config=config)
         say(f"timing fused_attention_fwd {B}x{L}x{H}x{D} bf16 ({config}): "
             f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms(sdpa)={library_ms:.4f} bound_ms={bound_ms:.4f} "
@@ -1626,9 +1665,14 @@ def main() -> int:
     built = cuda_build.build(*libraries)
     say(f"kernel build: {len(built)} of {len(libraries)} libraries built in "
         f"{time.perf_counter() - t0:.1f}s")
+    reports = {}
     for lib in built:
         for kernel, report in ptxas_reports(lib.build_log):
             say(f"ptxas {lib.source.name} {kernel}: {report}")
+            reports[kernel] = report
+    tc_kernels = check_tc_kernels(fa, reports)
+    tc_fwd = {k: v for k, v in tc_kernels.items() if "_fwd_" in k}
+    tc_bwd = {k: v for k, v in tc_kernels.items() if "_bwd_" in k}
 
     timings, fwd_err = phase_kernels(torch, fa, bw, flops)
     bwd, bwd_err = phase_bwd_kernel(torch, fa, bw, flops)
@@ -1655,6 +1699,24 @@ def main() -> int:
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"], "shape": shape, **more}
 
+    def by_shape(t, config):
+        return dict(ms=t["ms"], library_ms=t["library_ms"],
+                    x_library=t["ms"] / t["library_ms"],
+                    bound_ms=t["bound_ms"], config=config)
+
+    # every timed bf16 shape of each attention kernel, and its ratio to
+    # scaled_dot_product_attention (forward, or backward as fwd+bwd - fwd)
+    fwd_shapes = {f"{B}x{L}": by_shape(t, t["config"])
+                  for (B, L), t in timings.items()}
+    fwd_shapes.update({f"{B}x{L}": by_shape(t["fwd"], "rate 0.1, lse")
+                       for (B, L), t in long_t.items()})
+    bwd_shapes = {f"{TRAIN_SHAPE[0]}x{TRAIN_SHAPE[1]}": by_shape(bwd,
+                                                                 "rate 0.1")}
+    bwd_shapes.update({f"{B}x{L}": by_shape(t["bwd"], "rate 0.1")
+                       for (B, L), t in long_t.items()})
+    fwd_more = dict(tc_kernels=tc_fwd, by_shape=fwd_shapes)
+    bwd_more = dict(tc_kernels=tc_bwd, by_shape=bwd_shapes)
+
     blocked, stream = long_t[BLOCKED_SHAPE], long_t[STREAM_SHAPE]
     blocked_shape = "32x1024x12x64 bf16, dropout 0.1 (config/long_context.cfg)"
     stream_shape = ("2x4096x12x64 bf16, dropout 0.1 (config/long_context.cfg "
@@ -1663,17 +1725,18 @@ def main() -> int:
     # dk/dv kernel and the dq kernel; ms and the bound are the launch's
     shared = dict(device_ms_by_kernel=stream["bwd"]["split_ms"],
                   covers="one launch: dq and dk/dv (flash_streaming.py:339 "
-                         "and :374)")
+                         "and :374)", **bwd_more)
     long_kernels = [
         entry("fused_attention_fwd", "ml_recipe_tpu/ops/flash_attention.py:364",
               long["1024"]["fwd"], long_fwd_err, blocked["fwd"],
-              blocked_shape + ", lse"),
+              blocked_shape + ", lse", **fwd_more),
         entry("fused_attention_bwd", "ml_recipe_tpu/ops/flash_attention.py:305",
               long["1024"]["bwd"], long_bwd_err, blocked["bwd"],
-              blocked_shape, device_ms_by_kernel=blocked["bwd"]["split_ms"]),
+              blocked_shape, device_ms_by_kernel=blocked["bwd"]["split_ms"],
+              **bwd_more),
         entry("fused_attention_fwd", "ml_recipe_tpu/ops/flash_streaming.py:241",
               long["4096 remat"]["fwd"], long_fwd_err, stream["fwd"],
-              stream_shape + ", lse"),
+              stream_shape + ", lse", **fwd_more),
         entry("fused_attention_bwd", "ml_recipe_tpu/ops/flash_streaming.py:339",
               long["4096 remat"]["bwd"], long_bwd_err, stream["bwd"],
               stream_shape, **shared),
@@ -1719,6 +1782,7 @@ def main() -> int:
         "bound_by": fwd["bound_by"],
         "library_ms": fwd["library_ms"],
         "shape": "32x512x12x64 bf16, dropout 0.1, lse (training)",
+        **fwd_more,
     }, {
         "name": "fused_attention_bwd",
         "route": "cuda",
@@ -1734,6 +1798,7 @@ def main() -> int:
         "bound_by": bwd["bound_by"],
         "library_ms": bwd["library_ms"],
         "shape": "32x512x12x64 bf16, dropout 0.1 (training)",
+        **bwd_more,
     }, *long_kernels, *new_kernels]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -41,30 +41,48 @@
 // tensor-core rate bounds it at every training shape, the memory rate
 // nearly as much at 32x512.
 //
-// What this design does about it, for now: it is the simple deterministic
-// first design, far from that bound, and the FlashAttention-2 split that
-// the streaming TPU kernels use; no shared memory size depends on L.
-// Every output element has exactly one writer, so there are no atomics and
-// the result does not depend on the order blocks run in:
+// What this design does about it: the FlashAttention-2 split that the
+// streaming TPU kernels use, deterministic, and no shared memory size
+// depends on L. Every output element has exactly one writer, so there are
+// no atomics and two launches on the same inputs give the same bits:
 // - a pre-pass computes the row term `row` once per (b, h, query row);
-// - kernel A, one block per (64-key tile, head, batch): each key's dk and
-//   dv live in f32 registers and the block walks every query row, 32 rows
-//   at a time staged in shared memory (q, g, lse, row);
-// - kernel B, one block per (64-row query tile, head, batch): each row's dq
-//   lives in f32 registers and the block walks every key, 32 keys at a
-//   time staged in shared memory (k, v, mask).
-// A key or row is owned by D/32 lanes, 32 columns each, which sum their
-// partial dot products with warp shuffles: a thread holds 64 f32
-// accumulators at any D (with one lane per key, the 2*D = 128 of D = 64
-// went to local memory). Both kernels recompute s, p, the keep-bit, dp and
-// ds in f32 with scalar FMAs; the [L, L] matrices never reach device
-// memory. Tensor cores (mma.sync / wgmma), TMA and pipelining are later
-// work.
+// - kernel A (dk/dv), one block per (64-key tile, head, batch), walks every
+//   query row;
+// - kernel B (dq), one block per (64-row query tile, head, batch), walks
+//   every key.
+// That recomputes s and dp in both kernels: 7 products instead of 5
+// (~9.0e10 operations at 32x512, ~0.09 ms at 989 TFLOP/s), the price of
+// no atomics.
+//
+// bf16 (`fused_attention_bwd_dkdv_tc`, `fused_attention_bwd_dq_tc`): 4
+// warps a block, each owning 16 keys (A) or 16 query rows (B). A block
+// keeps its own 64 rows of k and v (A) or q and g (B) in shared memory and
+// streams the other side through a 2-stage ring of dynamic shared memory
+// with cp.async, the next stage in flight while the current one computes:
+// A streams q, g, lse, the row term and the q-side ids; B streams k, v and
+// the k-side ids. All seven products are mma.sync.m16n8k16 (bf16 in, f32
+// accumulate; fused_attention_fwd.cu says why not wgmma): kernel A computes
+// s^T = k q^T and dp^T = v g^T, so that bf16(p_drop)^T and bf16(ds)^T come
+// out of the accumulators already as the A operands of dv += p_drop^T g
+// and dk += ds^T q, and kernel B computes s, dp and dq += bf16(ds) k the
+// same way; no probability goes through shared memory. dk, dv and dq stay
+// in f32 registers; the scale multiplies them at the store. Kernel A
+// streams 32 query rows a stage (16 at D = 128) and kernel B 64 keys (32
+// at D = 128), so that each thread's accumulators stay in registers (a
+// spilling backward ran 17x slower) and, at D <= 64, 3 blocks of A fit an
+// SM.
+//
+// The f32 instantiations keep the first design: a key or row owned by D/32
+// lanes, 32 columns each, partial dot products summed with warp shuffles,
+// scalar f32 FMAs against tiles staged in shared memory (tensor cores would
+// need TF32, which would change the function).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "attention_common.cuh"
 
@@ -418,6 +436,362 @@ __global__ void __launch_bounds__(kRowsPerBlock * Lanes<D>::kPerRow)
   for (int d = 0; d < kChunk; ++d) store(o + d, acc[d] * scale);
 }
 
+namespace tc = attn::tc;
+using tc::bf16;
+
+constexpr int kWarps = 4;   // bf16: 16 keys (A) or query rows (B) a warp
+constexpr int kTile = 64;   // bf16: keys (A) or query rows (B) a block
+
+template <int D>
+struct BwdTc {
+  static constexpr int kPitch = D + 8;
+  // query rows per streamed stage of kernel A, keys per stage of kernel B,
+  // sized with kernel A's register budget (kMinBlocksA): at D <= 64, 32
+  // rows fit 3 blocks an SM in 168 registers without spilling (64 rows
+  // need 2 blocks' worth, and the fewer warps hide less latency); at
+  // D = 128, dk and dv alone take 128 f32 registers a thread and 32 rows
+  // spilled
+  static constexpr int kRowsA = D > 64 ? 16 : 32;
+  static constexpr int kMinBlocksA = D > 64 ? 1 : 3;
+  static constexpr int kKeysB = D > 64 ? 32 : 64;
+  // A: k, v [kTile][P]; q, g [2][kRowsA][P]; lse, row term, q ids
+  // [2][kRowsA]. B: q, g [kTile][P]; k, v [2][kKeysB][P]; k ids
+  // [2][kKeysB].
+  static constexpr int kSmemA =
+      (2 * kTile + 4 * kRowsA) * kPitch * (int)sizeof(bf16) + 6 * kRowsA * 4;
+  static constexpr int kSmemB =
+      (2 * kTile + 4 * kKeysB) * kPitch * (int)sizeof(bf16) + 2 * kKeysB * 4;
+};
+
+// Kernel A, bf16: dk and dv of one 64-key tile of one (batch, head).
+template <typename T, int D>
+__global__ void __launch_bounds__(kWarps * 32, BwdTc<D>::kMinBlocksA)
+    fused_attention_bwd_dkdv_tc(const T* __restrict__ q,
+                                const T* __restrict__ k,
+                                const T* __restrict__ v,
+                                const T* __restrict__ g, Coords ids,
+                                const int32_t* __restrict__ seeds,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                T* __restrict__ dk, T* __restrict__ dv, int L,
+                                int H, float scale, float rate,
+                                float keep_scale, int segmented) {
+  static_assert(std::is_same<T, bf16>::value, "the tensor-core path is bf16");
+  constexpr int P = BwdTc<D>::kPitch;
+  constexpr int BM = BwdTc<D>::kRowsA;
+  constexpr int NT = kWarps * 32;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_tc);      // [kTile][P]
+  bf16* vs = ks + kTile * P;                        // [kTile][P]
+  bf16* qs = vs + kTile * P;                        // [2][BM][P]
+  bf16* gs = qs + 2 * BM * P;                       // [2][BM][P]
+  float* lse_s = reinterpret_cast<float*>(gs + 2 * BM * P);  // [2][BM]
+  float* row_s = lse_s + 2 * BM;                    // [2][BM]
+  int32_t* qid_s = reinterpret_cast<int32_t*>(row_s + 2 * BM);  // [2][BM]
+
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int col0 = blockIdx.x * kTile;
+  const int64_t row_stride = (int64_t)H * D;  // [B, L, H, D] contiguous
+  const int64_t head_base = (int64_t)b * L * row_stride + (int64_t)h * D;
+  const int32_t* qids_b = ids.qids + (int64_t)b * ids.ids_stride;
+  const int32_t* kids_b = ids.kids + (int64_t)b * ids.ids_stride;
+  const float* lse_bh = lse + ((int64_t)b * H + h) * L;
+  const float* delta_bh = delta + ((int64_t)b * H + h) * L;
+  const bf16* qg = q + head_base;
+  const bf16* gg = g + head_base;
+
+  tc::load_rows<kTile, D, NT>(ks, k + head_base, row_stride, col0, L, tid);
+  tc::load_rows<kTile, D, NT>(vs, v + head_base, row_stride, col0, L, tid);
+  auto load_stage = [&](int stage, int m0) {
+    tc::load_rows<BM, D, NT>(qs + stage * BM * P, qg, row_stride, m0, L, tid);
+    tc::load_rows<BM, D, NT>(gs + stage * BM * P, gg, row_stride, m0, L, tid);
+    tc::load_vec<BM, NT>(lse_s + stage * BM, lse_bh, m0, L, tid);
+    tc::load_vec<BM, NT>(row_s + stage * BM, delta_bh, m0, L, tid);
+    tc::load_vec<BM, NT>(qid_s + stage * BM, qids_b, m0, L, tid);
+    tc::cp_async_commit();
+  };
+  load_stage(0, 0);  // one group with the k and v tiles
+
+  // this thread's two keys (accumulator rows g and g + 8 of s^T); keys past
+  // the ragged edge compute on zeros and store nothing
+  int keys[2], kseg[2];
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    keys[ri] = col0 + warp * 16 + tc::frag_row(lane, 2 * ri);
+    kseg[ri] = keys[ri] < L ? kids_b[keys[ri]] : 0;
+  }
+  const uint32_t seed_h = rate > 0.0f ? attn::dropout_key(seeds, b, h) : 0u;
+  const uint32_t keep_thr = attn::keep_threshold(rate);
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.0f;
+  }
+
+  const int n_stages = (L + BM - 1) / BM;
+  for (int it = 0; it < n_stages; ++it) {
+    const int stage = it & 1;
+    const int m0 = it * BM;
+    tc::cp_async_wait_all();  // this stage (the one group in flight) is in
+    __syncthreads();          // ... for all; the other stage is free
+    if (it + 1 < n_stages) load_stage(stage ^ 1, m0 + BM);
+    const bf16* qt = qs + stage * BM * P;
+    const bf16* gt = gs + stage * BM * P;
+    const float* lse_t = lse_s + stage * BM;
+    const float* row_t = row_s + stage * BM;
+    const int32_t* qid_t = qid_s + stage * BM;
+
+    // s^T = k q^T and dp^T = v g^T: [16 keys x BM rows] each
+    float p[BM / 8][4], ds[BM / 8][4];
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[j][e] = ds[j][e] = 0.0f;
+    }
+    tc::mma_rows<D, BM>(p, ks + warp * 16 * P, qt, lane);
+    tc::mma_rows<D, BM>(ds, vs + warp * 16 * P, gt, lane);
+    // p, ds = p (dp - row), then p_drop in p's place
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j) {
+      const int c0 = tc::frag_col(lane, j, 0);   // even: a pair of rows
+      const float2 lse2 = *reinterpret_cast<const float2*>(lse_t + c0);
+      const float2 row2 = *reinterpret_cast<const float2*>(row_t + c0);
+      const int2 qid2 = *reinterpret_cast<const int2*>(qid_t + c0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = c0 + (e & 1);               // query row in the stage
+        const int ri = e >> 1;
+        const bool ok = attn::allowed((e & 1) ? qid2.y : qid2.x, kseg[ri],
+                                      segmented);
+        const float sv = ok ? p[j][e] * scale : kMaskedScore;
+        float pv = tc::exp2_ftz((sv - ((e & 1) ? lse2.y : lse2.x)) *
+                                tc::kLog2e);
+        // segmented: p = 0 where the grid forbids; no row past the edge
+        if ((segmented && !ok) || m0 + c >= L) pv = 0.0f;
+        bool keep = true;
+        if (rate > 0.0f) {
+          keep = attn::keep_u24(ids.row_base + (uint32_t)(m0 + c),
+                                ids.col_base + (uint32_t)keys[ri],
+                                ids.L_hash, seed_h, keep_thr);
+        }
+        const float dpv = keep ? ds[j][e] * keep_scale : 0.0f;
+        ds[j][e] = pv * (dpv - ((e & 1) ? row2.y : row2.x));
+        p[j][e] = keep ? pv * keep_scale : 0.0f;
+      }
+    }
+    uint32_t pa[BM / 16][4], da[BM / 16][4];
+    tc::to_a<BM>(pa, p);    // bf16(p_drop)^T
+    tc::to_a<BM>(da, ds);   // bf16(ds)^T
+    tc::mma_frag<BM, D>(dv_acc, pa, gt, lane);   // dv += p_drop^T g
+    tc::mma_frag<BM, D>(dk_acc, da, qt, lane);   // dk += ds^T q
+  }
+
+  const float mul_dk[2] = {scale, scale};
+  const float mul_dv[2] = {1.0f, 1.0f};
+  tc::store_frag<D>(dk + head_base, row_stride, keys[0], L, dk_acc, mul_dk,
+                    lane);
+  tc::store_frag<D>(dv + head_base, row_stride, keys[0], L, dv_acc, mul_dv,
+                    lane);
+}
+
+// Kernel B, bf16: dq of one 64-row query tile of one (batch, head).
+template <typename T, int D>
+__global__ void __launch_bounds__(kWarps * 32)
+    fused_attention_bwd_dq_tc(const T* __restrict__ q,
+                              const T* __restrict__ k,
+                              const T* __restrict__ v,
+                              const T* __restrict__ g, Coords ids,
+                              const int32_t* __restrict__ seeds,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              T* __restrict__ dq, int L, int H, float scale,
+                              float rate, float keep_scale, int segmented) {
+  static_assert(std::is_same<T, bf16>::value, "the tensor-core path is bf16");
+  constexpr int P = BwdTc<D>::kPitch;
+  constexpr int BN = BwdTc<D>::kKeysB;
+  constexpr int NT = kWarps * 32;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_tc);      // [kTile][P]
+  bf16* gs = qs + kTile * P;                        // [kTile][P]
+  bf16* ks = gs + kTile * P;                        // [2][BN][P]
+  bf16* vs = ks + 2 * BN * P;                       // [2][BN][P]
+  int32_t* kid_s = reinterpret_cast<int32_t*>(vs + 2 * BN * P);  // [2][BN]
+
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int row0 = blockIdx.x * kTile;
+  const int64_t row_stride = (int64_t)H * D;
+  const int64_t head_base = (int64_t)b * L * row_stride + (int64_t)h * D;
+  const int32_t* qids_b = ids.qids + (int64_t)b * ids.ids_stride;
+  const int32_t* kids_b = ids.kids + (int64_t)b * ids.ids_stride;
+  const bf16* kg = k + head_base;
+  const bf16* vg = v + head_base;
+
+  tc::load_rows<kTile, D, NT>(qs, q + head_base, row_stride, row0, L, tid);
+  tc::load_rows<kTile, D, NT>(gs, g + head_base, row_stride, row0, L, tid);
+  auto load_stage = [&](int stage, int n0) {
+    tc::load_rows<BN, D, NT>(ks + stage * BN * P, kg, row_stride, n0, L, tid);
+    tc::load_rows<BN, D, NT>(vs + stage * BN * P, vg, row_stride, n0, L, tid);
+    tc::load_vec<BN, NT>(kid_s + stage * BN, kids_b, n0, L, tid);
+    tc::cp_async_commit();
+  };
+  load_stage(0, 0);  // one group with the q and g tiles
+
+  // this thread's two query rows; rows past the ragged edge compute on
+  // zeros and store nothing
+  int rows[2], qseg[2];
+  float lse_r[2], row_term[2];
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    rows[ri] = row0 + warp * 16 + tc::frag_row(lane, 2 * ri);
+    const bool ok = rows[ri] < L;
+    const int64_t bhr = ((int64_t)b * H + h) * L + rows[ri];
+    qseg[ri] = (segmented && ok) ? qids_b[rows[ri]] : 0;
+    lse_r[ri] = ok ? lse[bhr] : 0.0f;
+    row_term[ri] = ok ? delta[bhr] : 0.0f;
+  }
+  const uint32_t seed_h = rate > 0.0f ? attn::dropout_key(seeds, b, h) : 0u;
+  const uint32_t keep_thr = attn::keep_threshold(rate);
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  }
+
+  const int n_stages = (L + BN - 1) / BN;
+  for (int it = 0; it < n_stages; ++it) {
+    const int stage = it & 1;
+    const int n0 = it * BN;
+    tc::cp_async_wait_all();
+    __syncthreads();
+    if (it + 1 < n_stages) load_stage(stage ^ 1, n0 + BN);
+    const bf16* kt = ks + stage * BN * P;
+    const bf16* vt = vs + stage * BN * P;
+    const int32_t* kid_t = kid_s + stage * BN;
+
+    float s[BN / 8][4], dp[BN / 8][4];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+    }
+    tc::mma_rows<D, BN>(s, qs + warp * 16 * P, kt, lane);   // s = q k^T
+    tc::mma_rows<D, BN>(dp, gs + warp * 16 * P, vt, lane);  // dp = g v^T
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int2 kid2 = *reinterpret_cast<const int2*>(
+          kid_t + tc::frag_col(lane, j, 0));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = tc::frag_col(lane, j, e);   // key in the stage
+        const int ri = e >> 1;
+        const bool ok = attn::allowed(qseg[ri], (e & 1) ? kid2.y : kid2.x,
+                                      segmented);
+        const float sv = ok ? s[j][e] * scale : kMaskedScore;
+        float pv = tc::exp2_ftz((sv - lse_r[ri]) * tc::kLog2e);
+        // segmented: p = 0 where the grid forbids; no key past the edge
+        if ((segmented && !ok) || n0 + c >= L) pv = 0.0f;
+        float dpv = dp[j][e];
+        if (rate > 0.0f) {
+          dpv = attn::keep_u24(ids.row_base + (uint32_t)rows[ri],
+                               ids.col_base + (uint32_t)(n0 + c), ids.L_hash,
+                               seed_h, keep_thr)
+                    ? dpv * keep_scale
+                    : 0.0f;
+        }
+        s[j][e] = pv * (dpv - row_term[ri]);   // ds
+      }
+    }
+    uint32_t da[BN / 16][4];
+    tc::to_a<BN>(da, s);
+    tc::mma_frag<BN, D>(acc, da, kt, lane);    // dq += bf16(ds) k
+  }
+
+  const float mul[2] = {scale, scale};
+  tc::store_frag<D>(dq + head_base, row_stride, rows[0], L, acc, mul, lane);
+}
+
+template <int D>
+cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v,
+                      const bf16* g, const float* lse, const float* delta,
+                      const Coords& ids, const int32_t* seeds, bf16* dq,
+                      bf16* dk, bf16* dv, int B, int L, int H, float scale,
+                      float rate, float keep_scale, int segmented,
+                      cudaStream_t stream) {
+  const dim3 grid((L + kTile - 1) / kTile, H, B);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_attention_bwd_dkdv_tc<bf16, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, BwdTc<D>::kSmemA);
+  if (err != cudaSuccess) return err;
+  fused_attention_bwd_dkdv_tc<bf16, D>
+      <<<grid, kWarps * 32, BwdTc<D>::kSmemA, stream>>>(
+          q, k, v, g, ids, seeds, lse, delta, dk, dv, L, H, scale, rate,
+          keep_scale, segmented);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(fused_attention_bwd_dq_tc<bf16, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             BwdTc<D>::kSmemB);
+  if (err != cudaSuccess) return err;
+  fused_attention_bwd_dq_tc<bf16, D>
+      <<<grid, kWarps * 32, BwdTc<D>::kSmemB, stream>>>(
+          q, k, v, g, ids, seeds, lse, delta, dq, L, H, scale, rate,
+          keep_scale, segmented);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_f32(const float* q_, const float* k_, const float* v_,
+                       const float* g_, const float* lse_,
+                       const float* delta_,
+                       const Coords& ids, const int32_t* seeds_, float* dq,
+                       float* dk, float* dv, int B, int L, int H, float scale,
+                       float rate, float keep_scale, int segmented,
+                       cudaStream_t stream) {
+  using T = float;
+  // shared memory above the 48 KB static limit needs the opt-in attribute
+  cudaError_t err;
+  constexpr int RS = Lanes<D>::kRowStride;
+  constexpr int P = Lanes<D>::kPerRow;
+  const int smem_a = (2 * kKeysPerBlock * RS + 2 * kRowsPerStage * RS +
+                      3 * kRowsPerStage) * (int)sizeof(float);
+  err = cudaFuncSetAttribute(fused_attention_bwd_dkdv<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_a);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_a((L + kKeysPerBlock - 1) / kKeysPerBlock, H, B);
+  fused_attention_bwd_dkdv<T, D><<<grid_a, kKeysPerBlock * P, smem_a,
+                                   stream>>>(
+      q_, k_, v_, g_, ids, seeds_, lse_, delta_, dk, dv, L, H, scale, rate,
+      keep_scale, segmented);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int smem_b = (2 * kKeysPerStage * RS + kRowsPerBlock * RS +
+                      kKeysPerStage) * (int)sizeof(float);
+  err = cudaFuncSetAttribute(fused_attention_bwd_dq<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_b);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_b((L + kRowsPerBlock - 1) / kRowsPerBlock, H, B);
+  fused_attention_bwd_dq<T, D><<<grid_b, kRowsPerBlock * P, smem_b,
+                                 stream>>>(
+      q_, k_, v_, g_, ids, seeds_, lse_, delta_, dq, L, H, scale, rate,
+      keep_scale, segmented);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
                    const void* out, const void* lse, const Coords& ids,
@@ -440,35 +814,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  // shared memory above the 48 KB static limit needs the opt-in attribute
-  constexpr int RS = Lanes<D>::kRowStride;
-  constexpr int P = Lanes<D>::kPerRow;
-  const int smem_a = (2 * kKeysPerBlock * RS + 2 * kRowsPerStage * RS +
-                      3 * kRowsPerStage) * (int)sizeof(float);
-  err = cudaFuncSetAttribute(fused_attention_bwd_dkdv<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_a);
-  if (err != cudaSuccess) return err;
-  const dim3 grid_a((L + kKeysPerBlock - 1) / kKeysPerBlock, H, B);
-  fused_attention_bwd_dkdv<T, D><<<grid_a, kKeysPerBlock * P, smem_a,
-                                   stream>>>(
-      q_, k_, v_, g_, ids, seeds_, lse_, delta_, static_cast<T*>(dk),
-      static_cast<T*>(dv), L, H, scale, rate, keep_scale, segmented);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const int smem_b = (2 * kKeysPerStage * RS + kRowsPerBlock * RS +
-                      kKeysPerStage) * (int)sizeof(float);
-  err = cudaFuncSetAttribute(fused_attention_bwd_dq<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_b);
-  if (err != cudaSuccess) return err;
-  const dim3 grid_b((L + kRowsPerBlock - 1) / kRowsPerBlock, H, B);
-  fused_attention_bwd_dq<T, D><<<grid_b, kRowsPerBlock * P, smem_b,
-                                 stream>>>(
-      q_, k_, v_, g_, ids, seeds_, lse_, delta_, static_cast<T*>(dq), L, H,
-      scale, rate, keep_scale, segmented);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, bf16>::value) {
+    return launch_tc<D>(q_, k_, v_, g_, lse_, delta_, ids, seeds_,
+                        static_cast<T*>(dq), static_cast<T*>(dk),
+                        static_cast<T*>(dv), B, L, H, scale, rate, keep_scale,
+                        segmented, stream);
+  } else {
+    return launch_f32<D>(q_, k_, v_, g_, lse_, delta_, ids, seeds_,
+                         static_cast<T*>(dq), static_cast<T*>(dk),
+                         static_cast<T*>(dv), B, L, H, scale, rate,
+                         keep_scale, segmented, stream);
+  }
 }
 
 template <typename T>
@@ -530,4 +886,32 @@ extern "C" int fused_attention_bwd(const void* q, const void* k,
                                 dv, delta, B, L, H, scale, rate, keep_scale,
                                 segmented, s);
   return (int)err;
+}
+
+// attrs[0..3]: registers, static shared memory, dynamic shared memory and
+// local memory bytes of bf16 kernel A (which = 0) or B (which = 1) at head
+// dim D. Returns a cudaError_t.
+extern "C" int fused_attention_bwd_attrs(int D, int which, int* attrs) {
+  const void* kernel = nullptr;
+  int smem = 0;
+  switch (D) {
+    case 32:
+      kernel = which ? (const void*)fused_attention_bwd_dq_tc<bf16, 32>
+                     : (const void*)fused_attention_bwd_dkdv_tc<bf16, 32>;
+      smem = which ? BwdTc<32>::kSmemB : BwdTc<32>::kSmemA;
+      break;
+    case 64:
+      kernel = which ? (const void*)fused_attention_bwd_dq_tc<bf16, 64>
+                     : (const void*)fused_attention_bwd_dkdv_tc<bf16, 64>;
+      smem = which ? BwdTc<64>::kSmemB : BwdTc<64>::kSmemA;
+      break;
+    case 128:
+      kernel = which ? (const void*)fused_attention_bwd_dq_tc<bf16, 128>
+                     : (const void*)fused_attention_bwd_dkdv_tc<bf16, 128>;
+      smem = which ? BwdTc<128>::kSmemB : BwdTc<128>::kSmemA;
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return attn::kernel_attrs(kernel, smem, attrs);
 }

@@ -202,6 +202,8 @@ def _declare_fwd(lib: ctypes.CDLL) -> None:
         vp,                               # stream
     ]
     lib.fused_attention_fwd.restype = ci
+    lib.fused_attention_fwd_attrs.argtypes = [ci, ctypes.POINTER(ci)]
+    lib.fused_attention_fwd_attrs.restype = ci
 
 
 def _declare_bwd(lib: ctypes.CDLL) -> None:
@@ -217,10 +219,38 @@ def _declare_bwd(lib: ctypes.CDLL) -> None:
         vp,                               # stream
     ]
     lib.fused_attention_bwd.restype = ci
+    lib.fused_attention_bwd_attrs.argtypes = [ci, ci, ctypes.POINTER(ci)]
+    lib.fused_attention_bwd_attrs.restype = ci
 
 
 KERNEL = Kernel(CudaLibrary("fused_attention_fwd.cu", _declare_fwd))
 BWD_KERNEL = Kernel(CudaLibrary("fused_attention_bwd.cu", _declare_bwd))
+
+# the bf16 tensor-core kernels, by the name the profiler shows
+TC_KERNELS = ("fused_attention_fwd_tc", "fused_attention_bwd_dkdv_tc",
+              "fused_attention_bwd_dq_tc")
+
+
+def tc_kernel_attributes(D: int) -> dict:
+    """Registers, static and dynamic shared memory and local-memory bytes
+    (stack and spills) of each bf16 tensor-core kernel at head dim ``D``,
+    from ``cudaFuncGetAttributes`` on the built libraries (needs the card)."""
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in the kernel's {KERNEL_HEAD_DIMS}")
+    result = {}
+    for name in TC_KERNELS:
+        attrs = (ctypes.c_int * 4)()
+        if name.startswith("fused_attention_fwd"):
+            err = KERNEL.library.lib().fused_attention_fwd_attrs(D, attrs)
+        else:
+            err = BWD_KERNEL.library.lib().fused_attention_bwd_attrs(
+                D, int(name.endswith("dq_tc")), attrs)
+        if err != 0:
+            raise RuntimeError(f"cudaFuncGetAttributes({name}<{D}>) failed: "
+                               f"cudaError_t {err}")
+        result[name] = dict(zip(("registers", "static_smem_bytes",
+                                 "dynamic_smem_bytes", "local_bytes"), attrs))
+    return result
 
 
 def _check_operands(q, k, v, mask, seeds, rate, what: str, extra=(),
@@ -260,6 +290,11 @@ def _check_operands(q, k, v, mask, seeds, rate, what: str, extra=(),
                              f"{t.device}")
         if not t.is_contiguous():
             raise ValueError("all operands must be contiguous")
+    # the bf16 kernels copy rows of q, k, v (and g) 16 bytes at a time
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 for t in (q, k, v, *extra)):
+        raise ValueError("bfloat16 q, k, v, g and out must start on a "
+                         "16-byte boundary")
 
 
 def _check_mask(mask, B: int, L: int, segmented: bool, seg_split: bool):

@@ -2,10 +2,11 @@
 the fused attention pair, the LayerNorm pair and the int8 matmul.
 
 Every kernel test here carries the ``cuda`` marker and skips without a
-CUDA device: the kernels have no CPU mode. One CPU test checks that the
-backward's bf16 limits reject faulty arithmetic. The file imports no JAX,
-so it also
-runs on a machine with the card and no JAX (tests/conftest.py imports JAX,
+CUDA device: the kernels have no CPU mode. The CPU tests check that the
+backward's bf16 limits reject faulty arithmetic, that the bf16 kernels'
+integer dropout threshold draws the same keep-bit as the float compare,
+and that the resource query refuses other head dims. The file imports no
+JAX, so it also runs on a machine with the card and no JAX (tests/conftest.py imports JAX,
 hence ``--noconftest``)::
 
     python -m pytest -q -p no:cacheprovider --noconftest tests/test_torch_cuda.py
@@ -148,6 +149,10 @@ def test_kernel_wrapper_refuses_unsupported_inputs(cuda):
         fa.fused_attention_cuda(t, k, v, mask)
     with pytest.raises(ValueError, match="bfloat16 or all float32"):
         fa.fused_attention_cuda(q.half(), k.half(), v.half(), mask)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        buf = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+        x = buf[1:].view(q.shape)   # contiguous, 2 bytes off
+        fa.fused_attention_cuda(x, x, x, mask)
 
 
 def _bwd_case(B, L, H, D, dtype, seed, segmented, rate):
@@ -368,6 +373,90 @@ def test_streaming_contract_matches_plain(cuda, dtype, seg_split, base,
     torch.cuda.synchronize()
     assert fa.KERNEL.launches == fwd0 + 1 and fa.BWD_KERNEL.launches == bwd0 + 1
     assert all(torch.isfinite(t.grad.float()).all() for t in x)
+
+
+# -- the bf16 tensor-core design: tile edges, head dims, determinism -------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("L", [200, 1000])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_ragged_all_masked_row_matches_plain(cuda, dtype, L, rate):
+    """A row whose key mask is all zero at a length that leaves the last
+    K/V tile ragged: its valid columns score -1e30 and average v, the
+    zero-filled columns past L score -inf and add nothing, in the forward's
+    denominator and in both backward kernels. A tile that scored the
+    padding -1e30 would average it in."""
+    q, k, v, mask, seeds = _inputs(2, L, 4, 64, dtype, L + 1, False)
+    mask[1] = 0
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(L),
+                    dtype=torch.float32).cuda().to(dtype)
+    _check_pair((q, k, v, g, mask, seeds if rate else None),
+                dict(rate=rate, segmented=False), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 128])
+@pytest.mark.parametrize("L", [333, 1000])
+@pytest.mark.parametrize("segmented", [False, True], ids=["mask", "seg"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bf16_head_dims_across_tiles_match_plain(cuda, D, L, segmented,
+                                                 rate):
+    """bf16 at the head dims beside bert's 64, over lengths that span
+    several K/V tiles (and, at D = 128, the backward's 32-row stages) with
+    a ragged last one."""
+    q, k, v, mask, seeds = _inputs(2, L, 3, D, torch.bfloat16, L + D,
+                                   segmented)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(D),
+                    dtype=torch.float32).cuda().to(torch.bfloat16)
+    _check_pair((q, k, v, g, mask, seeds if rate else None),
+                dict(rate=rate, segmented=segmented), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_bwd_kernel_is_bit_stable(cuda, dtype):
+    """Every dq, dk, dv element has one writer and is summed in a fixed
+    order, never with atomics: two launches on the same inputs give the
+    same bits."""
+    args = _bwd_case(4, 1000, 12, 64, dtype, 11, True, 0.1)
+    a = fa.fused_attention_bwd_cuda(*args, rate=0.1, segmented=True)
+    b = fa.fused_attention_bwd_cuda(*args, rate=0.1, segmented=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_tc_kernels_keep_their_accumulators_in_registers(cuda, D):
+    """No bf16 tensor-core kernel uses local memory (a spill or a stack
+    array), and each asks for the dynamic shared memory it was built for."""
+    attrs = fa.tc_kernel_attributes(D)
+    assert set(attrs) == set(fa.TC_KERNELS)
+    for name, a in attrs.items():
+        assert a["local_bytes"] == 0, (name, a)
+        assert 0 < a["dynamic_smem_bytes"] <= 227 * 1024, (name, a)
+        assert a["registers"] <= 255, (name, a)
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.25, 0.5, 1e-7, 0.3333333, 0.9999999])
+def test_integer_keep_threshold_equals_the_float_compare(rate):
+    """CPU: the bf16 kernels draw the keep-bit as ``n >= ceil(rate *
+    2**24)`` on the hash's 24-bit integer n (attention_common.cuh
+    ``keep_u24``), the f32 kernels and the plain version as ``n / 2**24 >=
+    rate`` in f32. Both give the same bit for every n."""
+    n = np.arange(1 << 24, dtype=np.int64)
+    r = np.float32(rate)
+    by_float = n.astype(np.float32) * np.float32(1.0 / (1 << 24)) >= r
+    threshold = int(np.ceil(r * np.float32(1 << 24)))
+    assert np.array_equal(by_float, n >= threshold)
+
+
+def test_tc_kernel_attributes_refuse_other_head_dims():
+    with pytest.raises(ValueError, match="head dim"):
+        fa.tc_kernel_attributes(48)
 
 
 # -- LayerNorm -----------------------------------------------------------------
