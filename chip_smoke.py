@@ -12,7 +12,10 @@ Phases, each fatal on failure (exit code 1, and no result line):
    source, started together); then the registers, shared memory and spill
    bytes of each bf16 tensor-core attention kernel at D = 32, 64 and 128
    (ptxas and ``cudaFuncGetAttributes``), fatal on any spill or local
-   memory;
+   memory; the spill bytes of every int8 and LayerNorm kernel (ptxas, fatal
+   on any), and the tensor-core and asynchronous-copy instructions of the
+   int8 library (``cuobjdump -sass``: fatal without IMMA or IGMMA, or
+   without LDGSTS or UTMALDG);
 2. every kernel against its plain PyTorch version on the card, at the
    shapes the serving and training paths give it (bert-base: 12 heads of
    64), bf16 and f32, with key masks, segments (all-masked pad rows
@@ -59,20 +62,26 @@ Phases, each fatal on failure (exit code 1, and no result line):
    4096 per step), where the recompute makes it 24 forward launches per
    micro-batch, and one 2x4096 micro-batch's peak memory and gradients
    with remat on and off;
-7. the LayerNorm pair and the int8 matmul against their plain versions at
-   the shapes the paths give them (LayerNorm: 12288 and 16384 rows of 768,
-   bf16, the forward within a bf16 step, the backward within the stated
-   limits and bit-stable across launches; int8: every bert-base projection
-   at 32x384, the pooler and the heads, ``torch.equal``), then their times
-   beside their bounds, their plain versions and one PyTorch call each
-   (``F.layer_norm`` and its backward; ``torch._int_mm`` with the rescale,
-   and the bf16 ``F.linear`` the float path runs);
+7. the LayerNorm pair, the int8 product and the row quantize against
+   their plain versions at the shapes the paths give them, each launched
+   twice and bit-stable (LayerNorm: 12288 and 16384 rows of 768, bf16, the
+   forward within a bf16 step, the backward within the stated limits; the
+   forward's quantize epilogue: its codes and scales ``torch.equal`` to
+   ``quantize_rowwise`` of its own output; int8: every bert-base projection
+   at 32x384, the pooler and the heads, both epilogues (f32, and bias plus
+   the bf16 or f32 cast) and the quantize of each activation,
+   ``torch.equal``), then their times beside their bounds, their plain
+   versions and one PyTorch call each (``F.layer_norm`` and its backward;
+   ``torch._int_mm`` with the rescale, and with the bias and cast, and the
+   bf16 ``F.linear`` the float path runs), and each wrapper's host time
+   per launch (events minus the profiler's device time);
 8. int8 serving: phase 3's 10-request burst with ``--quantize int8
    --ln_impl fused`` (counts zeroed just before warmup: 77 int8 matmul, 25
-   LayerNorm and 12 attention launches per device batch), latency, one
-   32x384 scoring forward beside phase 3's, and the share of windows where
-   int8 and bf16 pick the same span (``quant.span_parity``, recorded, not a
-   gate);
+   LayerNorm with their codes, 25 row quantize and 12 attention launches
+   per device batch), latency, one 32x384 scoring forward beside phase 3's
+   split by kernel family ("int8 quantize" apart from "other"), and the
+   share of windows where int8 and bf16 pick the same span
+   (``quant.span_parity``, recorded, not a gate);
 9. fused-LayerNorm training: ``config/test_bert.cfg --ln_impl fused``
    (counts zeroed just before: 25 LayerNorm forward launches per
    micro-batch and eval batch, 25 backward per micro-batch, attention as in
@@ -180,6 +189,13 @@ Q8_PROJ = [(12288, 768, 768), (12288, 768, 3072), (12288, 3072, 768)]
 Q8_SHAPES = Q8_PROJ + [(32, 768, 768), (12288, 768, 2), (32, 768, 5),
                        (32, 768, 1)]
 Q8_PER_FORWARD = 77                # 6 x 12 layers + pooler + 4 heads
+# row quantize launches per int8 forward with the fused LayerNorm, whose
+# launches write the codes of their own outputs: the attention context and
+# the GELU output of each layer, and the pooled output
+QUANT_PER_FORWARD = 25
+# the activations the int8 path quantizes at 32x384: hidden and context
+# rows (K = 768), GELU rows (3072), the pooled rows
+QUANT_SHAPES = [(12288, 768), (12288, 3072), (32, 768)]
 # the fused-LayerNorm micro-batch's gradient, LayerNorm kernels vs their
 # plain version, both with kernel attention in bf16: LayerNorm outputs and
 # dh differ by bf16 rounding at a few elements, which 12 post-LN layers
@@ -231,18 +247,19 @@ def ptxas_reports(build_log: str):
     kernel, parts = None, []
     for line in build_log.splitlines():
         entry = re.search(r"Compiling entry function '_ZN\w*?\d+"
-                          r"((?:fused_attention|layer_norm|q8_matmul)_[a-z_]+)"
+                          r"((?:fused_attention|layer_norm|q8)_[a-z_]+)"
                           r"(?:I(\w+?)E)?E", line)
         if entry:
             if kernel is not None:
                 yield kernel, "; ".join(parts)
             name, targs = entry.groups()
             # template arguments: element types (f, __nv_bfloat16 or its
-            # back-reference S1_), then the head dim and tile width of the
-            # attention kernels (Li64E)
+            # back-reference S1_), then integers (the attention kernels'
+            # head dim and tile width, Li64E; vector widths) and flags
+            # (Lb1E: b1)
             names = {"f": "f32", "13__nv_bfloat16": "bf16", "S1_": "bf16"}
             targs = [names.get(t, t.strip("LiE")) for t in re.findall(
-                r"13__nv_bfloat16|S1_|Li\d+E?|f", targs or "")]
+                r"13__nv_bfloat16|S1_|Li\d+E?|Lb\dE?|f", targs or "")]
             kernel = f"{name}<{' '.join(targs)}>" if targs else name
             parts = []
         elif kernel is not None and ("registers" in line or "spill" in line):
@@ -283,6 +300,50 @@ def check_tc_kernels(fa, reports: dict) -> dict:
                 fail(f"{name}<bf16, D={D}> spills or uses local memory: "
                      f"{entry}")
     return found
+
+
+# the instructions the int8 product must compile to: a tensor-core int8
+# product (mma.sync: IMMA; wgmma: IGMMA) and an asynchronous copy into
+# shared memory (cp.async: LDGSTS; TMA: UTMALDG)
+Q8_SASS = (("IMMA", "IGMMA"), ("LDGSTS", "UTMALDG"))
+
+
+def check_row_kernels(cuda_build, q8, ln, built) -> dict:
+    """Spill bytes of every kernel of the int8 and LayerNorm libraries
+    (ptxas, where this run built them; fatal on any, and on a built library
+    without a report; said when a library was cached), and the counts of
+    the int8 library's tensor-core, copy and ldmatrix instructions
+    (``cuobjdump -sass``; fatal without Q8_SASS)."""
+    for lib in (q8.LIBRARY, ln.LIBRARY):
+        if lib not in built:
+            say(f"spill bytes of {lib.path.name}'s kernels: not checked "
+                f"(library cached, no ptxas report in this run)")
+            continue
+        found = [(k, r) for k, r in ptxas_reports(lib.build_log)
+                 if k.startswith(("q8_", "layer_norm_"))]
+        if not found:
+            fail(f"no ptxas report of a kernel in {lib.source.name}'s build")
+        for kernel, report in found:
+            spill = _spill_bytes(report)
+            if spill is None:
+                fail(f"{kernel}: no spill figures in ptxas's report {report}")
+            if spill:
+                fail(f"{kernel} spills {spill} bytes: {report}")
+        say(f"spill bytes of {lib.source.name}'s {len(found)} kernels: 0")
+    cuobjdump = Path(cuda_build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(q8.LIBRARY.path)],
+                          capture_output=True, text=True, timeout=300)
+    if sass.returncode != 0:
+        fail(f"cuobjdump failed on the int8 library: {sass.stderr}")
+    ops = {}
+    for op in re.findall(r"\b(IMMA|IGMMA|HMMA|LDGSTS|UTMALDG|LDSM)\S*",
+                         sass.stdout):
+        ops[op] = ops.get(op, 0) + 1
+    say(f"SASS of {q8.LIBRARY.path.name}: instruction counts {ops}")
+    for group in Q8_SASS:
+        if not any(ops.get(op) for op in group):
+            fail(f"the int8 library has none of {group} in its SASS")
+    return ops
 
 
 def time_ms(torch, fn, reps: int = 15, warm: int = 3) -> float:
@@ -539,18 +600,23 @@ def phase_bwd_kernel(torch, fa, bw, flops):
                + mask.numel() * 4 + B * 4)
     n_ops = 5 * 2 * B * H * L * L * D
     bound_ms, bound_by = _bound(n_bytes, n_ops, bw, flops)
+    split = _bwd_split(torch, fa, args)
     say(f"timing fused_attention_bwd {B}x{L}x{H}x{D} bf16 (rate 0.1): "
         f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms(sdpa backward, fwd+bwd minus fwd)={library_ms:.4f} "
-        f"bound_ms={bound_ms:.4f} ({bound_by}; {n_bytes} B, {n_ops} ops)")
+        f"bound_ms={bound_ms:.4f} ({bound_by}; {n_bytes} B, {n_ops} ops); "
+        f"{_split_line(split)}")
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by), max_err
+                bound_ms=bound_ms, bound_by=bound_by,
+                device_ms_by_kernel=split["split_ms"]), max_err
 
 
-def phase_ln_kernels(torch, ln, peaks):
+def phase_ln_kernels(torch, ln, q8, peaks):
     """The LayerNorm pair against its plain version at the paths' shapes
-    (and f32 at one more), the backward's bit stability, then timings.
-    Returns ``(timings, fwd max err, bwd max err)``."""
+    (and f32 at one more), the forward's quantize epilogue against
+    ``quantize_rowwise`` of its own output, every kernel launched twice and
+    bit-stable, then timings. Returns ``(timings, fwd max err, bwd max
+    err)``."""
     import torch.nn.functional as F
 
     max_fwd = max_bwd = 0.0
@@ -560,10 +626,14 @@ def phase_ln_kernels(torch, ln, peaks):
     for N, C, dtype, tname in runs:
         h, gamma, beta, g = ln.seeded_inputs(N, C, dtype, N + C)
         y = ln.layer_norm_fwd_cuda(h, gamma, beta, LN_EPS, dtype)
+        y_again = ln.layer_norm_fwd_cuda(h, gamma, beta, LN_EPS, dtype)
         ref = ln.layer_norm_plain(h, gamma, beta, LN_EPS, dtype)
         got = ln.layer_norm_bwd_cuda(h, gamma, g, LN_EPS)
         want = ln.layer_norm_bwd_plain(h, gamma, g, LN_EPS)
         again = ln.layer_norm_bwd_cuda(h, gamma, g, LN_EPS)
+        yq, q, scale = ln.layer_norm_q8_cuda(h, gamma, beta, LN_EPS, dtype)
+        yq2, q2, scale2 = ln.layer_norm_q8_cuda(h, gamma, beta, LN_EPS, dtype)
+        want_q, want_s = q8.quantize_rowwise(yq)
         torch.cuda.synchronize()
         r = ref.float()
         tol = ln.fwd_limit(ref)
@@ -577,7 +647,13 @@ def phase_ln_kernels(torch, ln, peaks):
         for a, b in zip(got[1:], want[1:]):
             errs.append((a - b).abs().max().item())
             ok_b = ok_b and ln.dparam_close(a, b)
-        stable = all(torch.equal(a, b) for a, b in zip(got, again))
+        stable = (all(torch.equal(a, b) for a, b in zip(got, again))
+                  and torch.equal(y, y_again))
+        # the epilogue's y is the forward's, and its codes are the grid of
+        # that y, bit for bit
+        ok_c = (torch.equal(yq, y) and torch.equal(q, want_q)
+                and torch.equal(scale, want_s) and torch.equal(yq2, yq)
+                and torch.equal(q2, q) and torch.equal(scale2, scale))
         say(f"kernel-vs-plain layer_norm N={N} C={C} {tname}: forward "
             f"max_abs_err={err.max().item():.3e} (within {ln.FWD_REL} of "
             f"max(|ref|, 1){' plus one bf16 step' if tname == 'bf16' else ''};"
@@ -587,8 +663,11 @@ def phase_ln_kernels(torch, ln, peaks):
             f"max_abs_err {errs[0]:.3e} {errs[1]:.3e} {errs[2]:.3e} (max|ref| "
             f"{dh_ref.abs().max().item():.3f} {want[1].abs().max().item():.3f}"
             f" {want[2].abs().max().item():.3f}) {'ok' if ok_b else 'FAIL'}; "
-            f"two backward launches {'bit-identical' if stable else 'DIFFER'}")
-        if not (ok_f and ok_b and stable):
+            f"two launches of each {'bit-identical' if stable else 'DIFFER'};"
+            f" quantize epilogue: y {'=' if torch.equal(yq, y) else '!='} the "
+            f"forward's, codes and scales "
+            f"{'equal' if ok_c else 'NOT equal'} to quantize_rowwise(y)")
+        if not (ok_f and ok_b and stable and ok_c):
             fail(f"a LayerNorm kernel disagrees with its plain version or is "
                  f"not bit-stable at N={N} C={C} {tname}")
         max_fwd, max_bwd = max(max_fwd, err.max().item()), max(max_bwd, *errs)
@@ -597,9 +676,17 @@ def phase_ln_kernels(torch, ln, peaks):
     for N, C in LN_SHAPES:
         h, gamma, beta, g = ln.seeded_inputs(N, C, torch.bfloat16, 7)
         gb, bb = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
+
+        def fwd_launch():
+            return ln.layer_norm_fwd_cuda(h, gamma, beta, LN_EPS,
+                                          torch.bfloat16)
+
+        def q8_launch():
+            return ln.layer_norm_q8_cuda(h, gamma, beta, LN_EPS,
+                                         torch.bfloat16)
+
         fwd = dict(
-            ms=time_ms(torch, lambda: ln.layer_norm_fwd_cuda(
-                h, gamma, beta, LN_EPS, torch.bfloat16)),
+            ms=time_ms(torch, fwd_launch),
             plain_ms=time_ms(torch, lambda: ln.layer_norm_plain(
                 h, gamma, beta, LN_EPS, torch.bfloat16)),
             library_ms=time_ms(torch, lambda: F.layer_norm(
@@ -610,17 +697,32 @@ def phase_ln_kernels(torch, ln, peaks):
             2 * N * C * 2 + 2 * C * 4, 8 * N * C, peaks["bw"], peaks["f32"])
         # a launch this short can take less device time than the wrapper
         # takes on the host, which the events then measure: the profiler's
-        # device time beside them
+        # device time beside them, and the difference as the host's
         fwd["device_ms"] = profile_kernels(
-            torch, lambda: ln.layer_norm_fwd_cuda(h, gamma, beta, LN_EPS,
-                                                  torch.bfloat16),
-            ("layer_norm_fwd_kernel",))["layer_norm_fwd_kernel"]
+            torch, fwd_launch, ("layer_norm_fwd",))["layer_norm_fwd"]
+        fwd["host_ms"] = fwd["ms"] - fwd["device_ms"]
+        # the quantize epilogue: the codes (1 byte) and a scale a row more,
+        # ~4 more operations an element (abs, max, divide, round)
+        codes = dict(ms=time_ms(torch, q8_launch),
+                     plain_ms=time_ms(torch, lambda: ln.layer_norm_q8_plain(
+                         h, gamma, beta, LN_EPS, torch.bfloat16)))
+        codes["bound_ms"], codes["bound_by"] = _bound(
+            2 * N * C * 2 + N * C + 4 * N + 2 * C * 4, 12 * N * C,
+            peaks["bw"], peaks["f32"])
+        codes["device_ms"] = profile_kernels(
+            torch, q8_launch, ("layer_norm_fwd",))["layer_norm_fwd"]
+        codes["host_ms"] = codes["ms"] - codes["device_ms"]
+        fwd["with_codes"] = codes
         timings[(N, C, "fwd")] = fwd
         say(f"timing layer_norm_fwd {N}x{C} bf16: kernel_ms={fwd['ms']:.4f} "
-            f"(device ms {fwd['device_ms']:.4f}) plain_ms="
-            f"{fwd['plain_ms']:.4f} library_ms(F.layer_norm)="
-            f"{fwd['library_ms']:.4f} bound_ms={fwd['bound_ms']:.4f} "
-            f"({fwd['bound_by']})")
+            f"(device ms {fwd['device_ms']:.4f}, host ms per launch "
+            f"{fwd['host_ms']:.4f}) plain_ms={fwd['plain_ms']:.4f} "
+            f"library_ms(F.layer_norm)={fwd['library_ms']:.4f} bound_ms="
+            f"{fwd['bound_ms']:.4f} ({fwd['bound_by']}); with the quantize "
+            f"epilogue kernel_ms={codes['ms']:.4f} (device ms "
+            f"{codes['device_ms']:.4f}, host {codes['host_ms']:.4f}) "
+            f"plain_ms={codes['plain_ms']:.4f} bound_ms="
+            f"{codes['bound_ms']:.4f} ({codes['bound_by']})")
         if (N, C) != LN_SHAPES[-1]:
             continue
         hr, gr, br = (t.detach().requires_grad_() for t in (h, gb, bb))
@@ -656,73 +758,178 @@ def phase_ln_kernels(torch, ln, peaks):
 
 
 def _q8_inputs(torch, q8, M, K, N, seed):
-    """bf16 activations quantized per row, and f32 weights quantized per
-    output channel by ``quant.quantize_kernel`` in the port's [N, K]
-    layout; also the bf16 pair the float path would multiply."""
+    """bf16 activations quantized per row (the plain version), f32 weights
+    quantized per output channel by ``quant.quantize_kernel`` in the port's
+    [N, K] layout and an f32 bias; also the bf16 activations and the bf16
+    weight and bias the float path would multiply."""
     from ml_recipe_tpu_torch.quant import quantize_kernel
 
     gen = torch.Generator().manual_seed(seed)
     x = (torch.randn((M, K), generator=gen) * 3).to("cuda", torch.bfloat16)
     w = torch.randn((N, K), generator=gen) * 0.05
+    bias = (torch.randn(N, generator=gen) * 0.1).cuda()
     wq, ws = quantize_kernel(w.t().numpy())
     xq, xs = q8.quantize_rowwise(x)
     return (xq, xs, torch.from_numpy(wq.T.copy()).cuda(),
-            torch.from_numpy(ws).cuda(), x, w.to("cuda", torch.bfloat16))
+            torch.from_numpy(ws).cuda(), bias, x,
+            w.to("cuda", torch.bfloat16), bias.to(torch.bfloat16))
 
 
 def phase_q8_kernel(torch, q8, peaks):
-    """The int8 matmul against its plain version (``torch.equal``) at every
-    shape of the int8 serving path, then timings at the projections.
-    Returns the timings by shape and the largest |kernel - plain|."""
+    """The int8 product in both epilogues and the row quantize against
+    their plain versions (``torch.equal``, and a second launch bit for
+    bit) at every shape of the int8 serving path, then timings at the
+    projections and at the quantized activations. Returns ``(product
+    timings by shape, quantize timings by shape, the product's largest
+    |kernel - plain|, the quantize's largest |kernel - plain| over codes
+    and scales)``."""
     import torch.nn.functional as F
 
-    max_err = 0.0
-    for M, K, N in Q8_SHAPES:
-        xq, xs, wq, ws, _, _ = _q8_inputs(torch, q8, M, K, N, M + K + N)
-        got = q8.int8_matmul_cuda(xq, xs, wq, ws)
-        ref = q8.int8_matmul_plain(xq, xs, wq, ws)
+    bf16, f32 = torch.bfloat16, torch.float32
+    max_err = quant_err = 0.0
+
+    def check_quantize(x, label):
+        """The row quantize of ``x`` against ``quantize_rowwise``: codes
+        and scales equal, a second launch bit for bit. Returns the verdict
+        and the largest |kernel - plain| of the codes (as integers) and of
+        the scales."""
+        (qa, sa), (qb, sb) = (q8.quantize_rowwise_cuda(x),
+                              q8.quantize_rowwise_cuda(x))
+        want_q, want_s = q8.quantize_rowwise(x)
         torch.cuda.synchronize()
-        same = bool(torch.equal(got, ref))
-        err = (got - ref).abs().max().item()
-        max_err = max(max_err, err)
-        say(f"kernel-vs-plain q8_matmul M={M} K={K} N={N}: "
-            f"{'bit-identical' if same else 'DIFFER'} (max_abs_err "
-            f"{err:.3e}, max|ref| "
-            f"{ref.abs().max().item():.3f})")
-        if not same:
-            fail(f"the int8 matmul kernel differs from its plain version at "
-                 f"M={M} K={K} N={N}")
+        same = torch.equal(qa, want_q) and torch.equal(sa, want_s)
+        stable = torch.equal(qa, qb) and torch.equal(sa, sb)
+        err = max((qa.int() - want_q.int()).abs().max().item(),
+                  (sa - want_s).abs().max().item())
+        say(f"kernel-vs-plain q8_quantize_rows {label} bf16: codes and "
+            f"scales {'bit-identical' if same else 'DIFFER'} (max_abs_err "
+            f"{err:.3e}), two launches "
+            f"{'bit-identical' if stable else 'DIFFER'}")
+        return same and stable, err
+
+    for M, K, N in Q8_SHAPES:
+        xq, xs, wq, ws, bias, x, _, _ = _q8_inputs(torch, q8, M, K, N,
+                                                   M + K + N)
+        runs = {
+            "f32": lambda: q8.int8_matmul_cuda(xq, xs, wq, ws),
+            "bf16+bias": lambda: q8.int8_linear_cuda(xq, xs, wq, ws, bias,
+                                                     bf16),
+            "f32+bias": lambda: q8.int8_linear_cuda(xq, xs, wq, ws, bias,
+                                                    f32)}
+        plain = {
+            "f32": q8.int8_matmul_plain(xq, xs, wq, ws),
+            "bf16+bias": q8.int8_linear_plain(xq, xs, wq, ws, bias, bf16),
+            "f32+bias": q8.int8_linear_plain(xq, xs, wq, ws, bias, f32)}
+        got = {k: (fn(), fn()) for k, fn in runs.items()}
+        torch.cuda.synchronize()
+        verdicts = []
+        for k, (a, b) in got.items():
+            same = bool(torch.equal(a, plain[k]))
+            stable = bool(torch.equal(a, b))
+            err = (a.float() - plain[k].float()).abs().max().item()
+            max_err = max(max_err, err)
+            verdicts.append(same and stable)
+            say(f"kernel-vs-plain q8_matmul M={M} K={K} N={N} {k}: "
+                f"{'bit-identical' if same else 'DIFFER'} (max_abs_err "
+                f"{err:.3e}, max|ref| {plain[k].float().abs().max().item():.3f}"
+                f"), two launches {'bit-identical' if stable else 'DIFFER'}")
+        ok, err = check_quantize(x, f"M={M} K={K}")
+        quant_err = max(quant_err, err)
+        verdicts.append(ok)
+        if not all(verdicts):
+            fail(f"an int8 kernel differs from its plain version or is not "
+                 f"bit-stable at M={M} K={K} N={N}")
 
     timings = {}
     for M, K, N in Q8_PROJ:
-        xq, xs, wq, ws, x, wb = _q8_inputs(torch, q8, M, K, N, 1)
-        t = dict(
-            ms=time_ms(torch, lambda: q8.int8_matmul_cuda(xq, xs, wq, ws)),
-            plain_ms=time_ms(torch, lambda: q8.int8_matmul_plain(
-                xq, xs, wq, ws), reps=5),
-            linear_bf16_ms=time_ms(torch, lambda: F.linear(x, wb)))
+        xq, xs, wq, ws, bias, x, wb, bb = _q8_inputs(torch, q8, M, K, N, 1)
         wt, xs2, ws2 = wq.t(), xs.reshape(M, 1), ws.reshape(1, N)
-        try:
-            t["library_ms"] = time_ms(torch, lambda: torch._int_mm(
-                xq, wt).float() * xs2 * ws2)
-        except RuntimeError as exc:   # a yardstick only: report, go on
-            t["library_ms"] = None
-            say(f"timing q8_matmul {M}x{K}x{N}: torch._int_mm refused the "
-                f"shape ({exc}); library_ms null")
-        # x, w in (int8), their scales in and the output out (f32)
-        t["bound_ms"], t["bound_by"] = _bound(
-            M * K + N * K + 4 * (M + N) + 4 * M * N, 2 * M * N * K,
-            peaks["bw"], peaks["int8"])
-        t["device_ms"] = profile_kernels(
-            torch, lambda: q8.int8_matmul_cuda(xq, xs, wq, ws),
-            ("q8_matmul_kernel",))["q8_matmul_kernel"]
+        modes = {}
+        for mode, dt in (("bf16+bias", bf16), ("f32", f32)):
+            if dt is f32:
+                def launch():
+                    return q8.int8_matmul_cuda(xq, xs, wq, ws)
+
+                def plain_fn():
+                    return q8.int8_matmul_plain(xq, xs, wq, ws)
+
+                def lib_fn():
+                    return torch._int_mm(xq, wt).float() * xs2 * ws2
+                out_bytes = 4 * M * N
+            else:
+                def launch():
+                    return q8.int8_linear_cuda(xq, xs, wq, ws, bias, bf16)
+
+                def plain_fn():
+                    return q8.int8_linear_plain(xq, xs, wq, ws, bias, bf16)
+
+                def lib_fn():
+                    return ((torch._int_mm(xq, wt).float() * xs2 * ws2 + bias)
+                            .to(bf16))
+                out_bytes = 2 * M * N + 4 * N
+            t = dict(ms=time_ms(torch, launch),
+                     plain_ms=time_ms(torch, plain_fn, reps=5))
+            try:
+                t["library_ms"] = time_ms(torch, lib_fn)
+            except RuntimeError as exc:   # a yardstick only: report, go on
+                t["library_ms"] = None
+                say(f"timing q8_matmul {M}x{K}x{N}: torch._int_mm refused "
+                    f"the shape ({exc}); library_ms null")
+            # x, w in (int8), their scales in (f32), the output out
+            t["bound_ms"], t["bound_by"] = _bound(
+                M * K + N * K + 4 * (M + N) + out_bytes, 2 * M * N * K,
+                peaks["bw"], peaks["int8"])
+            t["device_ms"] = profile_kernels(
+                torch, launch, ("q8_matmul",))["q8_matmul"]
+            t["host_ms"] = t["ms"] - t["device_ms"]
+            modes[mode] = t
+        t = modes["bf16+bias"]
+        t["linear_bf16_ms"] = time_ms(torch, lambda: F.linear(x, wb, bb))
+        t["f32_mode"] = modes["f32"]
         timings[(M, K, N)] = t
-        lib = "null" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
-        say(f"timing q8_matmul M={M} K={K} N={N}: kernel_ms={t['ms']:.4f} "
-            f"(device ms {t['device_ms']:.4f}) plain_ms={t['plain_ms']:.4f} library_ms(torch._int_mm + "
-            f"rescale)={lib} bf16 F.linear ms={t['linear_bf16_ms']:.4f} "
-            f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']})")
-    return timings, max_err
+        for mode, m in modes.items():
+            lib = ("null" if m["library_ms"] is None
+                   else f"{m['library_ms']:.4f}")
+            say(f"timing q8_matmul M={M} K={K} N={N} {mode}: kernel_ms="
+                f"{m['ms']:.4f} (device ms {m['device_ms']:.4f}, host ms per "
+                f"launch {m['host_ms']:.4f}) plain_ms={m['plain_ms']:.4f} "
+                f"library_ms(torch._int_mm + rescale"
+                f"{' + bias + cast' if mode != 'f32' else ''})={lib} "
+                f"bound_ms={m['bound_ms']:.4f} ({m['bound_by']})"
+                + (f" bf16 F.linear ms={t['linear_bf16_ms']:.4f}"
+                   if mode != "f32" else ""))
+
+    quant = {}
+    for M, K in QUANT_SHAPES:
+        gen = torch.Generator().manual_seed(M + K)
+        x = (torch.randn((M, K), generator=gen) * 3).to("cuda", bf16)
+        ok, err = check_quantize(x, f"M={M} K={K}")
+        quant_err = max(quant_err, err)
+        if not ok:
+            fail(f"the row quantize differs from quantize_rowwise or is not "
+                 f"bit-stable at M={M} K={K}")
+
+        def launch():
+            return q8.quantize_rowwise_cuda(x)
+
+        t = dict(ms=time_ms(torch, launch),
+                 plain_ms=time_ms(torch, lambda: q8.quantize_rowwise(x)),
+                 library_ms=None)
+        # x in (bf16), codes and a scale a row out; ~5 f32 operations an
+        # element (abs, max, divide, round, clamp)
+        t["bound_ms"], t["bound_by"] = _bound(
+            2 * M * K + M * K + 4 * M, 5 * M * K, peaks["bw"], peaks["f32"])
+        t["device_ms"] = profile_kernels(
+            torch, launch,
+            ("q8_quantize_rows_kernel",))["q8_quantize_rows_kernel"]
+        t["host_ms"] = t["ms"] - t["device_ms"]
+        quant[(M, K)] = t
+        say(f"timing q8_quantize_rows M={M} K={K} bf16: kernel_ms="
+            f"{t['ms']:.4f} (device ms {t['device_ms']:.4f}, host ms per "
+            f"launch {t['host_ms']:.4f}) plain_ms={t['plain_ms']:.4f} "
+            f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}); no library "
+            f"call computes it")
+    return timings, quant, max_err, quant_err
 
 
 def _post(url: str, payload: dict, timeout: float = 300.0):
@@ -970,18 +1177,44 @@ def phase_int8_serving(torch, bf16, ids, bf16_forward_ms):
     (the same seeded weights unquantized), ``ids`` its 32x384 batch and
     ``bf16_forward_ms`` that batch's scoring forward. Returns the launch
     counts of the path."""
+    from ml_recipe_tpu_torch.ops import quant_matmul as q8
     from ml_recipe_tpu_torch.quant import make_parity_batches, span_parity
 
-    burst = _serve_burst(torch, ("--quantize", "int8", "--ln_impl", "fused"))
+    # count the plain quantize, product, bias and cast passes the burst
+    # runs: on the card, none
+    plain_calls = dict.fromkeys(("quantize_rowwise", "int8_matmul_plain",
+                                 "int8_linear_plain"), 0)
+    originals = {n: getattr(q8, n) for n in plain_calls}
+
+    def counting(name):
+        def call(*args, **kw):
+            plain_calls[name] += 1
+            return originals[name](*args, **kw)
+        return call
+
+    for name in plain_calls:
+        setattr(q8, name, counting(name))
+    try:
+        burst = _serve_burst(torch, ("--quantize", "int8", "--ln_impl",
+                                     "fused"))
+    finally:
+        for name, fn in originals.items():
+            setattr(q8, name, fn)
+    say(f"serving (int8): plain passes on the card during the burst "
+        f"{plain_calls}")
+    if any(plain_calls.values()):
+        fail("int8 serving ran a plain quantize, product or epilogue pass")
     model, engine, launched = burst.model, burst.engine, burst.counts
     db, layers = burst.device_batches, model.cfg.num_layers
     want = {"fused_attention_fwd": layers * db,
             "q8_matmul": Q8_PER_FORWARD * db,
             "layer_norm_fwd": LN_PER_FORWARD * db,
+            "q8_quantize": QUANT_PER_FORWARD * db,
             "fused_attention_bwd": 0, "layer_norm_bwd": 0}
     say(f"serving (int8): launch counts {launched}, expected {want} ({db} "
         f"device batches x {layers} attention, {Q8_PER_FORWARD} int8 matmul,"
-        f" {LN_PER_FORWARD} LayerNorm)")
+        f" {LN_PER_FORWARD} LayerNorm with their codes, {QUANT_PER_FORWARD} "
+        f"row quantize)")
     if launched != want:
         fail("int8 serving launch counts do not match the path")
     if (model.quantize, model.ln_impl) != ("int8", "fused") or \
@@ -1119,7 +1352,7 @@ def phase_training(torch, fa):
     if bwd != layers * micro or fwd != layers * (micro + trainer.eval_batches):
         fail("attention launch counts do not match the training path")
     if any(launched[k] for k in ("layer_norm_fwd", "layer_norm_bwd",
-                                 "q8_matmul")):
+                                 "q8_matmul", "q8_quantize")):
         fail("the ln_impl=xla training path launched a LayerNorm or int8 "
              "kernel")
     if not all(np.isfinite(v) for h in trainer.history for k, v in h.items()
@@ -1192,7 +1425,8 @@ def phase_ln_training(torch, xla_ms, xla_split):
     want = {"fused_attention_fwd": layers * (micro + evals),
             "fused_attention_bwd": layers * micro,
             "layer_norm_fwd": LN_PER_FORWARD * (micro + evals),
-            "layer_norm_bwd": LN_PER_FORWARD * micro, "q8_matmul": 0}
+            "layer_norm_bwd": LN_PER_FORWARD * micro, "q8_matmul": 0,
+            "q8_quantize": 0}
     say(f"training --ln_impl fused: {len(trainer.history)} steps + {evals} "
         f"eval batches in {wall:.1f}s; step wall seconds "
         f"{[round(h['seconds'], 3) for h in trainer.history]}; loss "
@@ -1267,6 +1501,25 @@ def _bwd_check(torch, got, ref, tname):
                     else BWD_ATOL_F32)
     ok = all(e <= t and r <= BWD_REL_L2 for e, t, r in zip(errs, tols, rels))
     return ok, errs, tols, rels
+
+
+BWD_KERNELS = ("fused_attention_bwd_row_term", "fused_attention_bwd_dkdv",
+               "fused_attention_bwd_dq")
+
+
+def _bwd_split(torch, fa, args) -> dict:
+    """The backward launch's device time by its three kernels, their sum
+    against the launch's device span (``split_of_span``)."""
+    split, span = profile_split(
+        torch, lambda: fa.fused_attention_bwd_cuda(*args), BWD_KERNELS)
+    return dict(split_ms=split, device_ms=span,
+                split_of_span=sum(split.values()) / span)
+
+
+def _split_line(t: dict) -> str:
+    return (f"device ms by kernel {t['split_ms']}, together "
+            f"{t['split_of_span']:.1%} of the launch's device span "
+            f"{t['device_ms']:.4f} ms")
 
 
 def phase_long_kernels(torch, fa, bw, flops):
@@ -1370,10 +1623,7 @@ def phase_long_kernels(torch, fa, bw, flops):
         n_bytes = 8 * elems + B * H * L * 4 + mask.numel() * 4 + B * 4
         bwd["bound_ms"], bwd["bound_by"] = _bound(
             n_bytes, 10 * B * H * L * L * D, bw, flops)
-        bwd["split_ms"] = profile_kernels(
-            torch, lambda: fa.fused_attention_bwd_cuda(*args),
-            ("fused_attention_bwd_row_term", "fused_attention_bwd_dkdv",
-             "fused_attention_bwd_dq"))
+        bwd.update(_bwd_split(torch, fa, args))
         for name, t in (("fused_attention_fwd", fwd),
                         ("fused_attention_bwd", bwd)):
             say(f"timing {name} {B}x{L}x{H}x{D} bf16 (rate 0.1"
@@ -1382,8 +1632,7 @@ def phase_long_kernels(torch, fa, bw, flops):
                 f"library_ms(sdpa{' backward, fwd+bwd minus fwd' if name.endswith('bwd') else ''})"
                 f"={t['library_ms']:.4f} bound_ms={t['bound_ms']:.4f} "
                 f"({t['bound_by']})"
-                + (f"; device ms by kernel {t['split_ms']}"
-                   if "split_ms" in t else ""))
+                + (f"; {_split_line(t)}" if "split_ms" in t else ""))
         timings[(B, L)] = dict(fwd=fwd, bwd=bwd)
         del q, k, v, g, out, lse, args, qt, kt, vt, gt
         torch.cuda.empty_cache()
@@ -1509,24 +1758,82 @@ def phase_long_training(torch):
     return out
 
 
-def profile_kernels(torch, fn, names) -> dict:
-    """Device ms of one ``fn()`` in each kernel whose name contains one of
-    ``names``, from a torch.profiler trace; fails without device events."""
+def profile_kernels(torch, fn, names, calls: int = 3) -> dict:
+    """Device ms of one ``fn()`` in the kernels whose names contain each of
+    ``names`` (:func:`profile_split`)."""
+    return profile_split(torch, fn, names, calls)[0]
+
+
+# a spin kernel (torch.cuda._sleep) of this many cycles before each call
+# of a profiled function: it marks where one call's kernels start
+SPIN_CYCLES = 20000
+TRACE_TRIES = 3
+
+
+def device_trace(torch, run):
+    """``(name, start, end)`` of every device event in a torch.profiler
+    trace of ``run()``. A trace that holds no device events at all is taken
+    again (such traces have come back from the card), up to TRACE_TRIES
+    times; fails after that."""
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(TRACE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        events = [(e.name, e.time_range.start, e.time_range.end)
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return events
+        say("profile: the trace holds no device events; tracing again")
+    fail(f"{TRACE_TRIES} profiler traces held no device events")
+
+
+def profile_split(torch, fn, names, calls: int = 3):
+    """``(split, span_ms)`` of one ``fn()`` from a torch.profiler trace of
+    ``calls`` calls, each after a spin kernel that marks where its kernels
+    start. ``split``: device ms in the kernels whose names contain each of
+    ``names``, the mean launch of a name times its launches per call, so a
+    launch the trace dropped (single-call traces lost one kernel of a
+    multi-kernel call) does not count as 0 ms. ``span_ms``: the median over
+    calls of a call's first kernel start to its last kernel end, the gaps
+    between its kernels included. Fails without device events
+    (:func:`device_trace`), and when a named kernel is missing from every
+    call (the names seen are printed)."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    spans = [(e.name, e.time_range.end - e.time_range.start)
-             for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not spans:
-        fail("the profiler trace holds no device events")
-    return {n: round(sum(us for e, us in spans if n in e) / 1e3, 4)
-            for n in names}
+
+    def marked_calls():
+        for _ in range(calls):
+            torch.cuda._sleep(SPIN_CYCLES)
+            fn()
+
+    events = sorted(device_trace(torch, marked_calls), key=lambda e: e[1])
+    runs, run = [], []          # each call's kernels, split at the markers
+    for name, start, end in events:
+        if "spin_kernel" in name:
+            runs.append(run)
+            run = []
+        else:
+            run.append((name, start, end))
+    runs = [r for r in runs + [run] if r]
+    spans = [e for r in runs for e in r]
+    out = {}
+    for n in names:
+        us = [end - start for e, start, end in spans if n in e]
+        if not us:
+            fail(f"no launch of {n} in a trace of {calls} calls; device "
+                 f"kernels seen: {sorted({e[:80] for e, _, _ in spans})}")
+        if len(us) % calls:
+            say(f"profile: {len(us)} launches of {n} in a trace of {calls} "
+                f"calls")
+        per_call = max(1, round(len(us) / calls))
+        out[n] = round(sum(us) / len(us) * per_call / 1e3, 4)
+    span = statistics.median(max(e for _, _, e in r) - min(s for _, s, _ in r)
+                             for r in runs)
+    return out, round(span / 1e3, 4)
 
 
 def _ln_family(name: str):
@@ -1550,20 +1857,9 @@ def _split_text(step_ms: float, split: dict) -> str:
 
 def profile_fwd_bwd(torch, fn):
     """Device ms of one ``fn()`` in the attention and LayerNorm forward and
-    backward kernels, from a torch.profiler trace; fails when the trace
-    holds no device events."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    spans = [(e.name, e.time_range.end - e.time_range.start)
-             for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not spans:
-        fail("the profiler trace of the training micro-batch holds no "
-             "device events")
+    backward kernels, from a torch.profiler trace (:func:`device_trace`)."""
+    spans = [(name, end - start)
+             for name, start, end in device_trace(torch, fn)]
     return {
         "attention forward": sum(
             us for n, us in spans if "fused_attention_fwd" in n) / 1e3,
@@ -1595,12 +1891,14 @@ def profile_forward(torch, forward, label: str, reps: int = 5) -> None:
             f"trace holds no device events)")
         return
     family_us = {"attention": 0.0, "matmul": 0.0, "int8 matmul": 0.0,
-                 "layer_norm": 0.0, "other": 0.0}
+                 "int8 quantize": 0.0, "layer_norm": 0.0, "other": 0.0}
     for name, start, end in spans:
         if "fused_attention_fwd" in name:
             family = "attention"
         elif "q8_matmul" in name:
             family = "int8 matmul"
+        elif "q8_quantize" in name:
+            family = "int8 quantize"
         elif _ln_family(name):
             family = "layer_norm"
         elif any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma")):
@@ -1657,7 +1955,8 @@ def main() -> int:
                     "fused_attention_bwd": fa.BWD_KERNEL,
                     "layer_norm_fwd": ln.FWD_KERNEL,
                     "layer_norm_bwd": ln.BWD_KERNEL,
-                    "q8_matmul": q8.KERNEL})
+                    "q8_matmul": q8.KERNEL,
+                    "q8_quantize": q8.QUANT_KERNEL})
 
     libraries = [fa.KERNEL.library, fa.BWD_KERNEL.library, ln.LIBRARY,
                  q8.KERNEL.library]
@@ -1671,13 +1970,14 @@ def main() -> int:
             say(f"ptxas {lib.source.name} {kernel}: {report}")
             reports[kernel] = report
     tc_kernels = check_tc_kernels(fa, reports)
+    q8_sass = check_row_kernels(cuda_build, q8, ln, built)
     tc_fwd = {k: v for k, v in tc_kernels.items() if "_fwd_" in k}
     tc_bwd = {k: v for k, v in tc_kernels.items() if "_bwd_" in k}
 
     timings, fwd_err = phase_kernels(torch, fa, bw, flops)
     bwd, bwd_err = phase_bwd_kernel(torch, fa, bw, flops)
-    ln_t, ln_fwd_err, ln_bwd_err = phase_ln_kernels(torch, ln, peaks)
-    q8_t, q8_err = phase_q8_kernel(torch, q8, peaks)
+    ln_t, ln_fwd_err, ln_bwd_err = phase_ln_kernels(torch, ln, q8, peaks)
+    q8_t, quant_t, q8_err, quant_err = phase_q8_kernel(torch, q8, peaks)
     long_t, long_fwd_err, long_bwd_err = phase_long_kernels(torch, fa, bw,
                                                             flops)
     serving_fwd, bf16_burst, ids, bf16_ms = phase_serving(
@@ -1754,16 +2054,26 @@ def main() -> int:
               source="layer_norm",
               launches_by_path={"serving int8": int8["layer_norm_fwd"],
                                 "training fused": ln_train["layer_norm_fwd"]},
+              device_ms=ln_fwd["device_ms"], host_ms=ln_fwd["host_ms"],
               at_32x384={k: ln_serve[k] for k in (
-                  "ms", "plain_ms", "library_ms", "bound_ms")}),
+                  "ms", "device_ms", "host_ms", "plain_ms", "library_ms",
+                  "bound_ms", "with_codes")}),
         entry("layer_norm_bwd", "ml_recipe_tpu/ops/layer_norm.py:96",
               ln_train["layer_norm_bwd"], ln_bwd_err, ln_bwd,
               "16384x768 bf16 (32x512, training)", source="layer_norm",
               device_ms_by_kernel=ln_bwd["split_ms"]),
         entry("q8_matmul", "ml_recipe_tpu/ops/quant_matmul.py:85",
               int8["q8_matmul"], q8_err, q8_ffn,
-              "M=12288 K=768 N=3072 (32x384 FFN in, int8 serving)",
+              "M=12288 K=768 N=3072, + bias, bf16 out (32x384 FFN in, int8 "
+              "serving)", sass=q8_sass,
               by_shape={f"{M}x{K}x{N}": t for (M, K, N), t in q8_t.items()}),
+        entry("q8_quantize_rows",
+              "none: port-only; the JAX package's quantize_rowwise "
+              "(ml_recipe_tpu/ops/quant_matmul.py:62) is XLA, no pallas_call",
+              int8["q8_quantize"], quant_err, quant_t[(12288, 768)],
+              "12288x768 bf16 (32x384 attention context, int8 serving)",
+              source="q8_matmul",
+              by_shape={f"{M}x{K}": t for (M, K), t in quant_t.items()}),
     ]
     say(json.dumps({"kernels": [{
         "name": "fused_attention_fwd",
@@ -1798,6 +2108,7 @@ def main() -> int:
         "bound_by": bwd["bound_by"],
         "library_ms": bwd["library_ms"],
         "shape": "32x512x12x64 bf16, dropout 0.1 (training)",
+        "device_ms_by_kernel": bwd["device_ms_by_kernel"],
         **bwd_more,
     }, *long_kernels, *new_kernels]}))
     say(json.dumps({"ok": True, "device": {

@@ -18,16 +18,27 @@
 // h in, y out) or 3C (backward: h and g in, dh out) elements for about 10
 // and 20 f32 operations per element: at bf16 that is 2.5-3.3 operations per
 // byte against the ~20 the card's 67 TFLOP/s f32 rate needs per byte of
-// 3.35 TB/s. What the design does about it: every element is read from
-// device memory once and written once. A block owns whole rows and each of
-// its threads holds kPerThread columns of the row in registers, at a stride
-// of the block size so a warp's loads are coalesced; the statistics are
-// block reductions (warp shuffles, then one shared-memory slot per warp,
-// summed by every thread in the same fixed order). The block size is C /
-// kPerThread rounded up to a warp, so C <= kMaxC = 4096 (1024 threads);
-// every C of the repo's configs (32 to 1024) fits, and the launch refuses a
-// larger one.
+// 3.35 TB/s. At 32x384 (12288 x 768 bf16) the forward's bound is 0.0113
+// ms, and 0.0141 ms with the quantize epilogue (one more byte an element).
 //
+// The forward for C <= 1024 (every hidden size of the repo's models) with
+// rows of whole 16-byte vectors: one warp per row, 8 rows a block. Each
+// lane holds its columns in registers, loaded as 16-byte vectors (24
+// values from three loads at C = 768 in bf16); the mean and the centred
+// variance are warp shuffles alone, with no shared memory and no
+// __syncthreads, summed in the same order on every run; rsqrtf; the
+// affine with __fmul_rn/__fadd_rn (no FMA contraction); one rounding. On
+// request (q != null) the same launch also writes the
+// int8 codes and f32 scale of ITS OWN ROUNDED OUTPUT y on the grid of
+// ops/quant_matmul.py `quantize_rowwise` (rowwise.cuh): amax by shuffles,
+// then the codes, so the int8 model's projections that read a LayerNorm
+// output take its codes from here, bit for bit what quantize_rowwise(y)
+// gives. For 1024 < C <= kMaxC = 4096, or rows of no whole vectors, a
+// block owns a row (kPerThread columns a thread, at a stride of the block
+// size; block reductions of warp shuffles and one shared slot per warp),
+// and a second kernel of the same launch writes the codes of its y.
+//
+// The backward: a block owns whole rows, as the forward's block kernel.
 // The dgamma/dbeta sum crosses rows. The TPU kernel adds each grid step's
 // partial into one [1, C] block that stays resident across its SEQUENTIAL
 // grid (:113-128); blocks of a GPU run concurrently, so neither that nor
@@ -42,6 +53,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rowwise.cuh"
+
 namespace {
 
 constexpr int kPerThread = 4;                 // columns a thread holds
@@ -49,6 +62,8 @@ constexpr int kMaxThreads = 1024;
 constexpr int kMaxC = kPerThread * kMaxThreads;
 constexpr int kRowsPerTile = 16;              // backward rows per block
 constexpr int kReduceSlices = 8;              // tile slices per column sum
+constexpr int kWarpMaxC = 1024;               // warp kernel: 32 values a lane
+constexpr int kWarpRows = 8;                  // warp kernel: rows a block
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -111,7 +126,96 @@ __device__ __forceinline__ float centre_row(const T* __restrict__ row,
   return rsqrtf(q[0] / (float)C + eps);
 }
 
-// One block per row.
+// One warp per row (C <= kWarpMaxC), kWarpRows rows a block. V: elements a
+// lane loads at once (16 bytes of h, or 1 where the row is not aligned for
+// that). kCodes: also write q (int8 [N, C]) and qscale (f32 [N]), the
+// quantize_rowwise grid of the rounded y.
+template <typename T, typename TO, int V, bool kCodes>
+__global__ void __launch_bounds__(kWarpRows * 32)
+    layer_norm_fwd_warp_kernel(const T* __restrict__ h,
+                               const float* __restrict__ gamma,
+                               const float* __restrict__ beta,
+                               TO* __restrict__ y, int8_t* __restrict__ q,
+                               float* __restrict__ qscale, int N, int C,
+                               float eps) {
+  constexpr int NV = kWarpMaxC / 32 / V;      // vectors a lane holds at most
+  const int row = blockIdx.x * kWarpRows + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= N) return;
+  const int64_t off = (int64_t)row * C;
+  float x[NV][V];
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int c = (lane + 32 * j) * V;
+    if (c < C) {
+      rowwise::load(h + off + c, x[j]);
+#pragma unroll
+      for (int e = 0; e < V; ++e) s += x[j][e];
+    }
+  }
+  const float mean = rowwise::warp_sum(s) / (float)C;
+  float ss = 0.f;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    if ((lane + 32 * j) * V < C) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        x[j][e] -= mean;
+        ss += x[j][e] * x[j][e];
+      }
+    }
+  }
+  const float rstd = rsqrtf(rowwise::warp_sum(ss) / (float)C + eps);
+  float amax = 0.f;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int c = (lane + 32 * j) * V;
+    if (c < C) {
+      float g[V], b[V];
+      rowwise::load(gamma + c, g);
+      rowwise::load(beta + c, b);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        // xhat * gamma + beta, rounded as the TPU kernel's separate ops
+        x[j][e] = __fadd_rn(__fmul_rn(__fmul_rn(x[j][e], rstd), g[e]), b[e]);
+      }
+      rowwise::store(y + off + c, x[j]);
+      if constexpr (kCodes) {
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          x[j][e] = rowwise::round_to<TO>(x[j][e]);   // what y holds
+          amax = fmaxf(amax, fabsf(x[j][e]));
+        }
+      }
+    }
+  }
+  if constexpr (kCodes) {
+    const float sc = rowwise::quant_scale(rowwise::warp_max(amax));
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int c = (lane + 32 * j) * V;
+      if (c < C) rowwise::store_codes(q + off + c, x[j], sc);
+    }
+    if (lane == 0) qscale[row] = sc;
+  }
+}
+
+// The codes of a written y (the block kernel's rows, or rows not aligned
+// for the warp kernel's vectors): one warp per row, rowwise::quantize_row.
+template <typename TO>
+__global__ void __launch_bounds__(kWarpRows * 32)
+    layer_norm_fwd_codes_kernel(const TO* __restrict__ y,
+                                int8_t* __restrict__ q,
+                                float* __restrict__ qscale, int N, int C) {
+  const int row = blockIdx.x * kWarpRows + (threadIdx.x >> 5);
+  if (row >= N) return;
+  rowwise::quantize_row<TO, 1>(y + (int64_t)row * C, q + (int64_t)row * C,
+                               qscale + row, C, threadIdx.x & 31);
+}
+
+// One block per row (C > kWarpMaxC, or rows not aligned for 16-byte
+// vectors).
 template <typename T, typename TO>
 __global__ void __launch_bounds__(kMaxThreads)
     layer_norm_fwd_kernel(const T* __restrict__ h,
@@ -231,12 +335,46 @@ int block_threads(int C) {
   return (t + 31) / 32 * 32;
 }
 
+template <typename T, typename TO, int V, bool kCodes>
+cudaError_t launch_fwd_warp(const void* h, const void* gamma,
+                            const void* beta, void* y, void* q, void* qscale,
+                            int N, int C, float eps, cudaStream_t s) {
+  const int blocks = (N + kWarpRows - 1) / kWarpRows;
+  layer_norm_fwd_warp_kernel<T, TO, V, kCodes><<<blocks, kWarpRows * 32, 0,
+                                                  s>>>(
+      static_cast<const T*>(h), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<TO*>(y),
+      static_cast<int8_t*>(q), static_cast<float*>(qscale), N, C, eps);
+  return cudaGetLastError();
+}
+
 template <typename T, typename TO>
 cudaError_t launch_fwd(const void* h, const void* gamma, const void* beta,
-                       void* y, int N, int C, float eps, cudaStream_t s) {
+                       void* y, void* q, void* qscale, int N, int C,
+                       float eps, cudaStream_t s) {
+  // the warp kernel where a lane holds its columns and every row and
+  // operand allows 16-byte vectors of h
+  constexpr int V = 16 / sizeof(T);
+  using rowwise::aligned;
+  const bool warp = C <= kWarpMaxC && C % V == 0 && aligned(h, 16) &&
+                    aligned(gamma, 16) && aligned(beta, 16) &&
+                    aligned(y, 16) && (q == nullptr || aligned(q, 16));
+  if (warp) {
+    return q != nullptr
+               ? launch_fwd_warp<T, TO, V, true>(h, gamma, beta, y, q, qscale,
+                                                 N, C, eps, s)
+               : launch_fwd_warp<T, TO, V, false>(h, gamma, beta, y, q,
+                                                  qscale, N, C, eps, s);
+  }
   layer_norm_fwd_kernel<T, TO><<<N, block_threads(C), 0, s>>>(
       static_cast<const T*>(h), static_cast<const float*>(gamma),
       static_cast<const float*>(beta), static_cast<TO*>(y), C, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || q == nullptr) return err;
+  layer_norm_fwd_codes_kernel<TO>
+      <<<(N + kWarpRows - 1) / kWarpRows, kWarpRows * 32, 0, s>>>(
+          static_cast<const TO*>(y), static_cast<int8_t*>(q),
+          static_cast<float*>(qscale), N, C);
   return cudaGetLastError();
 }
 
@@ -266,21 +404,31 @@ extern "C" int layer_norm_rows_per_tile() { return kRowsPerTile; }
 
 // h: [N, C] contiguous, bf16 (h_bf16 = 1) or f32, C <= 4096 (kMaxC, the
 // wrapper's MAX_C); gamma, beta: f32 [C]; y: [N, C] contiguous, bf16
-// (y_bf16 = 1) or f32. Returns the launch's cudaError_t.
+// (y_bf16 = 1) or f32. q: null, or int8 [N, C] for the codes of y and
+// qscale f32 [N] for their row scales, at any C <= kMaxC: the warp kernel
+// writes them itself (C <= 1024, rows and operands 16-byte aligned);
+// otherwise layer_norm_fwd_codes_kernel writes them after the block
+// kernel, in the same launch. Returns the launch's cudaError_t.
 extern "C" int layer_norm_fwd(const void* h, const void* gamma,
-                              const void* beta, void* y, int N, int C,
-                              int h_bf16, int y_bf16, float eps,
-                              void* stream) {
-  if (N <= 0 || C <= 0 || C > kMaxC) return (int)cudaErrorInvalidValue;
+                              const void* beta, void* y, void* q,
+                              void* qscale, int N, int C, int h_bf16,
+                              int y_bf16, float eps, void* stream) {
+  if (N <= 0 || C <= 0 || C > kMaxC || (q != nullptr && qscale == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf = __nv_bfloat16;
   cudaError_t err;
   if (h_bf16) {
-    err = y_bf16 ? launch_fwd<bf, bf>(h, gamma, beta, y, N, C, eps, s)
-                 : launch_fwd<bf, float>(h, gamma, beta, y, N, C, eps, s);
+    err = y_bf16 ? launch_fwd<bf, bf>(h, gamma, beta, y, q, qscale, N, C,
+                                      eps, s)
+                 : launch_fwd<bf, float>(h, gamma, beta, y, q, qscale, N, C,
+                                         eps, s);
   } else {
-    err = y_bf16 ? launch_fwd<float, bf>(h, gamma, beta, y, N, C, eps, s)
-                 : launch_fwd<float, float>(h, gamma, beta, y, N, C, eps, s);
+    err = y_bf16 ? launch_fwd<float, bf>(h, gamma, beta, y, q, qscale, N, C,
+                                         eps, s)
+                 : launch_fwd<float, float>(h, gamma, beta, y, q, qscale, N,
+                                            C, eps, s);
   }
   return (int)err;
 }

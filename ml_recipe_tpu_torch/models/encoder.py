@@ -16,7 +16,11 @@ Post-layer-norm BERT stack with the JAX module's numerics:
   checkpoint loads under either;
 - ``quantize='int8'`` (serving only) makes every matmul ``Linear`` a
   ``quant.layers.QuantLinear`` under the same name (:func:`_dense`), which
-  runs the hand-written int8 matmul kernel on the card;
+  runs the hand-written int8 matmul kernel on the card. A fused LayerNorm
+  of such a model also writes the int8 row codes of its output in the same
+  launch, and every projection that reads that output takes them from
+  there (``quant.layers.row_codes``): the Q/K/V, intermediate, span-head
+  and pooler inputs are quantized by no launch of their own;
 - attention through ``ops.attention.dot_product_attention``, so on the card
   every layer runs the hand-written fused attention kernels (forward, and
   the backward when training);
@@ -44,8 +48,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dot_product_attention, dropout_seed
-from ..ops.layer_norm import layer_norm
-from ..quant.layers import QuantLinear
+from ..ops.layer_norm import layer_norm, layer_norm_q8
+from ..quant.layers import QuantLinear, first_token, with_row_codes
 from .config import EncoderConfig
 
 
@@ -83,30 +87,36 @@ class FusedLayerNorm(nn.Module):
     """``ops.layer_norm.layer_norm`` as a module (the JAX package's
     ``FusedLayerNorm``): f32 ``weight``/``bias`` as :class:`LayerNorm` holds
     them, the result in the compute dtype ``dtype``; ``impl`` is 'fused' or
-    'auto'."""
+    'auto'. ``codes`` (int8 models): the result also carries its int8 row
+    codes (``ops.layer_norm.layer_norm_q8``, written by the same launch)."""
 
     def __init__(self, features: int, eps: float, dtype, impl: str, *,
-                 device=None):
+                 device=None, codes: bool = False):
         super().__init__()
-        self.eps, self.dtype, self.impl = eps, dtype, impl
+        self.eps, self.dtype, self.impl, self.codes = eps, dtype, impl, codes
         self.weight = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.codes:
+            return with_row_codes(*layer_norm_q8(
+                x, self.weight, self.bias, eps=self.eps, dtype=self.dtype))
         return layer_norm(x, self.weight, self.bias, eps=self.eps,
                           dtype=self.dtype, impl=self.impl)
 
 
-def _ln(cfg: EncoderConfig, dtype, ln_impl: str, device) -> nn.Module:
+def _ln(cfg: EncoderConfig, dtype, ln_impl: str, device,
+        quantize: str = "off") -> nn.Module:
     """LayerNorm factory: 'xla' keeps :class:`LayerNorm`, 'fused' and
-    'auto' give :class:`FusedLayerNorm`."""
+    'auto' give :class:`FusedLayerNorm`, which writes row codes in an int8
+    model."""
     if ln_impl == "xla":
         return LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, device=device)
     if ln_impl not in ("fused", "auto"):
         raise ValueError(f"ln_impl must be 'xla', 'fused' or 'auto'; got "
                          f"{ln_impl!r}")
     return FusedLayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype, ln_impl,
-                          device=device)
+                          device=device, codes=quantize == "int8")
 
 
 def _dense(quantize: str, n_in: int, n_out: int, dtype, device) -> nn.Module:
@@ -144,7 +154,7 @@ class Embedding(nn.Embedding):
 
 class Embeddings(nn.Module):
     def __init__(self, cfg: EncoderConfig, *, dtype, device,
-                 ln_impl: str = "xla"):
+                 ln_impl: str = "xla", quantize: str = "off"):
         super().__init__()
         self.cfg = cfg
         H = cfg.hidden_size
@@ -154,7 +164,7 @@ class Embeddings(nn.Module):
         # RoBERTa has one token type; the table keeps its single row
         self.token_type_embeddings = Embedding(max(cfg.type_vocab_size, 1), H,
                                                dtype, device)
-        self.layer_norm = _ln(cfg, dtype, ln_impl, device)
+        self.layer_norm = _ln(cfg, dtype, ln_impl, device, quantize)
 
     def forward(self, input_ids: torch.Tensor, token_type_ids: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -191,7 +201,7 @@ class SelfAttention(nn.Module):
         self.key = _dense(quantize, H, H, dtype, device)
         self.value = _dense(quantize, H, H, dtype, device)
         self.output = _dense(quantize, H, H, dtype, device)
-        self.layer_norm = _ln(cfg, dtype, ln_impl, device)
+        self.layer_norm = _ln(cfg, dtype, ln_impl, device, quantize)
 
     def forward(self, hidden: torch.Tensor, mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -226,7 +236,7 @@ class FeedForward(nn.Module):
                                    cfg.intermediate_size, dtype, device)
         self.output = _dense(quantize, cfg.intermediate_size, cfg.hidden_size,
                              dtype, device)
-        self.layer_norm = _ln(cfg, dtype, ln_impl, device)
+        self.layer_norm = _ln(cfg, dtype, ln_impl, device, quantize)
 
     def forward(self, hidden: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -298,7 +308,7 @@ class TransformerEncoder(nn.Module):
         self.cfg = cfg
         self.remat = remat
         self.embeddings = Embeddings(cfg, dtype=dtype, device=device,
-                                     ln_impl=ln_impl)
+                                     ln_impl=ln_impl, quantize=quantize)
         for i in range(cfg.num_layers):  # flax names: layer_0, layer_1, ...
             self.add_module(f"layer_{i}", EncoderLayer(
                 cfg, dtype=dtype, device=device, attention_impl=attention_impl,
@@ -324,5 +334,5 @@ class TransformerEncoder(nn.Module):
             layer = getattr(self, f"layer_{i}")
             hidden = (remat_layer(layer, hidden, mask, generator) if remat
                       else layer(hidden, mask, generator))
-        pooled = torch.tanh(self.pooler(hidden[:, 0]))
+        pooled = torch.tanh(self.pooler(first_token(hidden)))
         return hidden, pooled

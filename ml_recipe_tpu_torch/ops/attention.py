@@ -18,12 +18,14 @@ Layout at the public function is the JAX package's: q, k, v are
                             / ``_stream_dkv_kernel`` (its 4096 variant)
   ========================  =============================================
 
-  One divergence no port can close: past 512, a length that is not a
-  multiple of 128 has no TPU kernel geometry (``_pick_q_block``,
-  ``_pick_stream_block``), so the JAX package runs XLA attention there,
-  whose dropout comes from ``jax.random.bernoulli``. The port runs its
-  kernel with the hash dropout: the same function, another dropout stream
-  (ROADMAP.md queue 3).
+  One divergence no port can close: at any length that is not a multiple
+  of 128, at L <= 512 as well as past it, the TPU has no kernel geometry
+  (``supports_fused_bwd`` gates the fused regime on ``L % 128 == 0`` on
+  hardware; ``_pick_q_block`` and ``_pick_stream_block`` find no block for,
+  say, L = 200 or 1000), so the JAX package runs XLA attention there, whose
+  dropout comes from ``jax.random.bernoulli``. The port runs its kernel
+  with the hash dropout: the same function, another dropout stream. At
+  rate 0 the two are equal.
 - ``xla``: the plain version at any length, on any device.
 - ``ring``: sequence-parallel ring attention, not ported yet.
 """

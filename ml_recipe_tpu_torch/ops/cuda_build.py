@@ -10,11 +10,13 @@ fallback: a missing ``nvcc`` or a failed build raises.
 
 ``build(*libraries)`` starts one ``nvcc`` per source at once and waits for
 all of them, so a caller that needs every kernel pays for the slowest build
-only.
+only. ``launch_scope`` and ``stream_of`` are the wrappers' per-launch host
+work: no device switch when the tensor is on the current device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -23,6 +25,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Callable, List, Optional
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC_DIR / "build"
@@ -55,6 +59,30 @@ def find_nvcc() -> str:
         "/usr/local/cuda/bin): the port's CUDA kernels are built from "
         f"{CSRC_DIR} at first use and need the CUDA toolkit"
     )
+
+
+_NO_SCOPE = contextlib.nullcontext()
+
+
+def launch_scope(device: torch.device):
+    """The context a launch on ``device`` runs in: nothing to enter when
+    ``device`` is the current device (the serving and training paths), else
+    ``torch.cuda.device(device)``."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return _NO_SCOPE
+    return torch.cuda.device(device)
+
+
+# the current stream's raw handle without building a Stream object
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream_of(device: torch.device) -> int:
+    """The raw handle of ``device``'s current stream, as the launch
+    functions take it."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 class CudaLibrary:

@@ -19,6 +19,9 @@ computes (``models/encoder.py`` ``LayerNorm``, ``ln_impl='xla'``).
 With a gradient to track it goes through :class:`FusedLayerNormFn`; a CUDA
 tensor launches the kernels, a CPU tensor runs the plain versions, which
 are also what ``chip_smoke.py`` holds the kernels against on the card.
+:func:`layer_norm_q8` is the int8 model's: the same forward, and in the
+same launch the int8 codes and row scales of its own output, as
+``ops.quant_matmul.quantize_rowwise`` would give them.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ from typing import Tuple
 
 import torch
 
-from .cuda_build import CudaLibrary, Kernel
+from . import quant_matmul
+from .cuda_build import CudaLibrary, Kernel, launch_scope, stream_of
 
 IMPLS = ("xla", "fused", "auto")
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -127,7 +131,7 @@ def seeded_inputs(N: int, C: int, dtype: torch.dtype, seed: int,
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.layer_norm_fwd.argtypes = [
-        vp, vp, vp, vp,                   # h gamma beta y
+        vp, vp, vp, vp, vp, vp,           # h gamma beta y q qscale
         ci, ci, ci, ci, cf,               # N C h_bf16 y_bf16 eps
         vp,                               # stream
     ]
@@ -151,7 +155,8 @@ BWD_KERNEL = Kernel(LIBRARY)
 
 def _check(what: str, h: torch.Tensor, params, others=()):
     """Raise on anything the kernels do not take: ``params`` are the f32
-    [C] tensors (gamma, beta), ``others`` further [N, C] tensors (g)."""
+    [C] tensors (gamma, beta), ``others`` further [N, C] tensors (g).
+    Allocates nothing."""
     if h.device.type != "cuda":
         raise ValueError(
             f"{what} launches a CUDA kernel; got a tensor on {h.device} (use "
@@ -172,7 +177,7 @@ def _check(what: str, h: torch.Tensor, params, others=()):
             raise ValueError(f"{what}: g must match h {tuple(h.shape)}; got "
                              f"{tuple(t.shape)}")
     for t in params:
-        if t.shape != (C,) or t.dtype != torch.float32:
+        if t.shape != (C,) or t.dtype is not torch.float32:
             raise ValueError(f"{what}: gamma and beta must be f32 [{C}]; got "
                              f"{t.dtype} {tuple(t.shape)}")
     for t in (h, *params, *others):
@@ -183,8 +188,34 @@ def _check(what: str, h: torch.Tensor, params, others=()):
             raise ValueError("all operands must be contiguous")
 
 
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def _fwd_cuda(what: str, h, gamma, beta, eps, dtype, codes: bool):
+    """One forward launch: y, and with ``codes`` the int8 codes of y and
+    their f32 row scales [N, 1]."""
+    _check(what, h, (gamma, beta))
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{what} writes bfloat16 or float32; got {dtype}")
+    N, C = h.shape
+    dev = h.device
+    y = torch.empty((N, C), dtype=dtype, device=dev)
+    q = torch.empty((N, C), dtype=torch.int8, device=dev) if codes else None
+    scale = (torch.empty((N, 1), dtype=torch.float32, device=dev) if codes
+             else None)
+    if N == 0:
+        return (y, q, scale) if codes else y
+    lib = LIBRARY.lib()
+    with launch_scope(dev):
+        err = lib.layer_norm_fwd(
+            h.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+            q.data_ptr() if codes else None,
+            scale.data_ptr() if codes else None, N, C,
+            int(h.dtype is torch.bfloat16), int(dtype is torch.bfloat16),
+            float(eps), stream_of(dev))
+    if err != 0:
+        raise RuntimeError(f"layer_norm_fwd launch failed: cudaError_t {err} "
+                           f"(N={N}, C={C}, {h.dtype} -> {dtype}, codes "
+                           f"{codes})")
+    FWD_KERNEL.launches += 1
+    return (y, q, scale) if codes else y
 
 
 def layer_norm_fwd_cuda(h: torch.Tensor, gamma: torch.Tensor,
@@ -194,25 +225,24 @@ def layer_norm_fwd_cuda(h: torch.Tensor, gamma: torch.Tensor,
     ``h`` [N, C], ``gamma``/``beta`` f32 [C] -> y [N, C] in ``dtype``. Same
     result as :func:`layer_norm_plain`; raises on anything the kernel does
     not take. The result carries no autograd history."""
-    _check("layer_norm_fwd_cuda", h, (gamma, beta))
-    if dtype not in KERNEL_DTYPES:
-        raise ValueError(f"layer_norm_fwd_cuda writes bfloat16 or float32; "
-                         f"got {dtype}")
-    N, C = h.shape
-    y = torch.empty((N, C), dtype=dtype, device=h.device)
-    if N == 0:
-        return y
-    lib = LIBRARY.lib()
-    with torch.cuda.device(h.device):
-        err = lib.layer_norm_fwd(
-            h.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
-            N, C, int(h.dtype == torch.bfloat16),
-            int(dtype == torch.bfloat16), float(eps), _stream(h.device))
-    if err != 0:
-        raise RuntimeError(f"layer_norm_fwd launch failed: cudaError_t {err} "
-                           f"(N={N}, C={C}, {h.dtype} -> {dtype})")
-    FWD_KERNEL.launches += 1
-    return y
+    return _fwd_cuda("layer_norm_fwd_cuda", h, gamma, beta, eps, dtype, False)
+
+
+def layer_norm_q8_plain(h: torch.Tensor, gamma: torch.Tensor,
+                        beta: torch.Tensor, eps: float, dtype: torch.dtype):
+    """``(y, q, scale)``: :func:`layer_norm_plain`, then
+    ``quantize_rowwise`` of that y."""
+    y = layer_norm_plain(h, gamma, beta, eps, dtype)
+    return (y, *quant_matmul.quantize_rowwise(y))
+
+
+def layer_norm_q8_cuda(h: torch.Tensor, gamma: torch.Tensor,
+                       beta: torch.Tensor, eps: float, dtype: torch.dtype):
+    """Launch the forward with its quantize epilogue on CUDA tensors ``h``
+    [N, C]: ``(y, q, scale)``, y as :func:`layer_norm_fwd_cuda` gives it
+    and ``(q, scale)`` equal to ``quantize_rowwise(y)`` of that y, bit for
+    bit."""
+    return _fwd_cuda("layer_norm_q8_cuda", h, gamma, beta, eps, dtype, True)
 
 
 def layer_norm_bwd_cuda(h: torch.Tensor, gamma: torch.Tensor,
@@ -232,12 +262,12 @@ def layer_norm_bwd_cuda(h: torch.Tensor, gamma: torch.Tensor,
     rows = lib.layer_norm_rows_per_tile()
     partial = torch.empty(((N + rows - 1) // rows, 2, C), dtype=torch.float32,
                           device=h.device)
-    with torch.cuda.device(h.device):
+    with launch_scope(h.device):
         err = lib.layer_norm_bwd(
             h.data_ptr(), gamma.data_ptr(), g.data_ptr(), dh.data_ptr(),
             partial.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
-            N, C, int(h.dtype == torch.bfloat16),
-            int(g.dtype == torch.bfloat16), float(eps), _stream(h.device))
+            N, C, int(h.dtype is torch.bfloat16),
+            int(g.dtype is torch.bfloat16), float(eps), stream_of(h.device))
     if err != 0:
         raise RuntimeError(f"layer_norm_bwd launch failed: cudaError_t {err} "
                            f"(N={N}, C={C}, h {h.dtype}, g {g.dtype})")
@@ -289,7 +319,7 @@ def layer_norm(h: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
         return layer_norm_plain(h, gamma, beta, eps, dtype)
     C = h.shape[-1]
     h2 = h.reshape(-1, C).contiguous()
-    gamma, beta = gamma.float().contiguous(), beta.float().contiguous()
+    gamma, beta = _f32(gamma), _f32(beta)
     if torch.is_grad_enabled() and (h.requires_grad or gamma.requires_grad
                                     or beta.requires_grad):
         y = FusedLayerNormFn.apply(h2, gamma, beta, float(eps), dtype)
@@ -298,3 +328,32 @@ def layer_norm(h: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
                else layer_norm_fwd_cuda)
         y = fwd(h2, gamma, beta, float(eps), dtype)
     return y.reshape(h.shape)
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernels take a parameter: f32 and contiguous (no copy
+    when it already is)."""
+    if t.dtype is torch.float32 and t.is_contiguous():
+        return t
+    return t.float().contiguous()
+
+
+def layer_norm_q8(h: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                  *, eps: float = 1e-12, dtype: torch.dtype = torch.float32):
+    """``(y, q, scale)``: :func:`layer_norm` ('fused') of ``h`` [..., C] and
+    the int8 codes and f32 row scales [..., 1] of that y, equal to
+    ``quantize_rowwise(y)``. On a CUDA tensor one launch writes all three;
+    on a CPU tensor the plain versions. With a gradient to track, y comes
+    from :func:`layer_norm` and the codes, which carry none, from its
+    values."""
+    C = h.shape[-1]
+    if torch.is_grad_enabled() and (h.requires_grad or gamma.requires_grad
+                                    or beta.requires_grad):
+        y = layer_norm(h, gamma, beta, eps=eps, dtype=dtype, impl="fused")
+        return (y, *quant_matmul.quantize_rows(y.detach()))
+    h2 = h.reshape(-1, C).contiguous()
+    gamma, beta = _f32(gamma), _f32(beta)
+    fwd = layer_norm_q8_plain if h.device.type == "cpu" else layer_norm_q8_cuda
+    y, q, scale = fwd(h2, gamma, beta, float(eps), dtype)
+    lead = h.shape[:-1]
+    return y.reshape(h.shape), q.reshape(h.shape), scale.reshape(*lead, 1)

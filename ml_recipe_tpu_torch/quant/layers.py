@@ -7,17 +7,61 @@ transposed by ``models/convert.py``), ``kernel_scale`` f32 ``[N]`` and
 ``bias`` f32 ``[N]``. They are zeros until a converted tree is loaded
 (``quant.quantize_model``).
 
-Forward: per-row activation quantization (``quantize_rowwise``), the int8
-matmul (``int8_matmul``: the hand-written kernel on a CUDA tensor), the bias
-added in f32, one cast to the compute dtype.
+Forward: the per-row activation codes of its input (:func:`row_codes`),
+then ``ops.quant_matmul.int8_linear``: the int8 product, the bias added in
+f32 and one cast to the compute dtype, which on a CUDA tensor is one launch
+of the hand-written kernel.
+
+Row codes are a function of the tensor alone (``quantize_rowwise``), so a
+tensor that several projections read is quantized once: the codes are
+kept on the tensor object (:func:`with_row_codes`), by the LayerNorm that
+wrote it (whose kernel writes them in the same launch) or by the first
+projection that reads it, and every later reader takes them from there.
+A new tensor (a view, a dropout's output, a residual sum) carries none.
+The model never writes into a tensor after its codes are taken.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 from torch import nn
 
-from ..ops.quant_matmul import int8_matmul, quantize_rowwise
+from ..ops.quant_matmul import int8_linear, quantize_rows
+
+_CODES = "_q8_row_codes"
+
+
+def with_row_codes(x: torch.Tensor, q: torch.Tensor,
+                   scale: torch.Tensor) -> torch.Tensor:
+    """Keep ``(q, scale)``, the row codes of ``x`` (``quantize_rowwise(x)``,
+    however computed), on ``x``; returns ``x``."""
+    setattr(x, _CODES, (q, scale))
+    return x
+
+
+def row_codes(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``quantize_rowwise(x)``: the codes kept on ``x``, or computed now
+    (``ops.quant_matmul.quantize_rows``: one kernel launch on a CUDA
+    tensor) and kept on it."""
+    codes = getattr(x, _CODES, None)
+    if codes is None:
+        codes = quantize_rows(x)
+        setattr(x, _CODES, codes)
+    return codes
+
+
+def first_token(hidden: torch.Tensor) -> torch.Tensor:
+    """``hidden[:, 0]``, keeping the row codes of those rows when
+    ``hidden`` has them: per-row codes of a slice of rows are the slice of
+    the codes."""
+    cls = hidden[:, 0]
+    codes = getattr(hidden, _CODES, None)
+    if codes is not None:
+        with_row_codes(cls, codes[0][:, 0].contiguous(),
+                       codes[1][:, 0].contiguous())
+    return cls
 
 
 class QuantLinear(nn.Module):
@@ -34,6 +78,6 @@ class QuantLinear(nn.Module):
             n_out, dtype=torch.float32, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x_q, x_scale = quantize_rowwise(x)
-        y = int8_matmul(x_q, x_scale, self.kernel_q, self.kernel_scale)
-        return (y + self.bias).to(self.compute_dtype)
+        x_q, x_scale = row_codes(x)
+        return int8_linear(x_q, x_scale, self.kernel_q, self.kernel_scale,
+                           self.bias, self.compute_dtype)

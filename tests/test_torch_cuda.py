@@ -588,3 +588,187 @@ def test_quant_linear_launches_the_kernel_at_every_shape(cuda):
     with pytest.raises(ValueError, match="multiple of 4"):
         xq, xs, wq, ws = _q8_inputs(8, 6, 3, 0)
         q8.int8_matmul_cuda(xq, xs, wq, ws)
+
+
+# -- the int8 serving epilogues ------------------------------------------------
+# q8_matmul's QuantLinear epilogue (int8_linear: + bias and the cast in the
+# same launch), the row quantize kernel and the LayerNorm forward's quantize
+# epilogue: bit for bit with their plain versions, and bit-stable
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("M,K,N", Q8_SHAPES)
+def test_int8_linear_kernel_equals_plain(cuda, M, K, N, dtype):
+    xq, xs, wq, ws = _q8_inputs(M, K, N, M + K + N)
+    gen = torch.Generator().manual_seed(N)
+    bias = (torch.randn(N, generator=gen) * 0.1).cuda()
+    before = q8.KERNEL.launches
+    got = q8.int8_linear_cuda(xq, xs, wq, ws, bias, dtype)
+    again = q8.int8_linear_cuda(xq, xs, wq, ws, bias, dtype)
+    ref = q8.int8_linear_plain(xq, xs, wq, ws, bias, dtype)
+    torch.cuda.synchronize()
+    assert q8.KERNEL.launches == before + 2
+    assert got.dtype == dtype and got.shape == (M, N)
+    assert torch.equal(got, ref) and torch.equal(got, again)
+
+
+def _quantize_rows_input(M, K, dtype, seed):
+    """Rows of size ~3 with an all-zero row and, where K allows, rows of
+    exact ties: amax 127 (scale 1) with values k + 0.5, and amax 254 (scale
+    2) with odd values, so x / scale lands on k + 0.5."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((M, K), generator=gen) * 3
+    x[0] = 0.0
+    if M > 2 and K >= 4:
+        x[1] = 0.5
+        x[1, 0] = 127.0
+        x[1, 1:4] = torch.tensor([2.5, -2.5, 1.5])
+        x[2] = 1.0
+        x[2, 0] = -254.0
+        x[2, 1:4] = torch.tensor([5.0, -3.0, 7.0])
+    return x.cuda().to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("M,K", [(12288, 768), (12288, 3072), (32, 768),
+                                 (333, 36), (5, 4), (7, 1000), (3, 5)])
+def test_quantize_kernel_equals_plain(cuda, M, K, dtype):
+    x = _quantize_rows_input(M, K, dtype, M + K)
+    before = q8.QUANT_KERNEL.launches
+    q, s = q8.quantize_rowwise_cuda(x)
+    q2, s2 = q8.quantize_rowwise_cuda(x)
+    ref_q, ref_s = q8.quantize_rowwise(x)
+    cpu_q, cpu_s = q8.quantize_rowwise(x.cpu())
+    torch.cuda.synchronize()
+    assert q8.QUANT_KERNEL.launches == before + 2
+    assert q.dtype == torch.int8 and s.shape == (M, 1)
+    assert torch.equal(q, ref_q) and torch.equal(s, ref_s)
+    assert torch.equal(q, q2) and torch.equal(s, s2)
+    assert torch.equal(q.cpu(), cpu_q) and torch.equal(s.cpu(), cpu_s)
+    assert not q[0].any()
+    if M > 2 and K >= 4:   # half to even, not half away from zero
+        assert q[1, :5].tolist() == [127, 2, -2, 2, 0][:K]
+        assert q[2, :4].tolist() == [-127, 2, -2, 4]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("N,C", [(12288, 768), (77, 32), (1000, 768),
+                                 (333, 1024), (9, 36), (5, 2048)])
+def test_layer_norm_codes_are_quantize_rowwise_of_the_kernels_output(
+        cuda, N, C, dtype):
+    """The epilogue quantizes the rounded y the launch writes: its codes
+    are quantize_rowwise of that y exactly, and y is the forward kernel's
+    (within the plain version's limits). C = 36 (no whole 16-byte vectors
+    of bf16) and C = 2048 take the block kernel, then the codes kernel, in
+    the same launch."""
+    h, gamma, beta, _ = ln.seeded_inputs(N, C, dtype, N * C)
+    h[1] = 0.25                           # a constant row: y = beta
+    f0, q0 = ln.FWD_KERNEL.launches, q8.QUANT_KERNEL.launches
+    y, q, s = ln.layer_norm_q8(h, gamma, beta, eps=1e-12, dtype=dtype)
+    y2, q2, s2 = ln.layer_norm_q8(h, gamma, beta, eps=1e-12, dtype=dtype)
+    alone = ln.layer_norm_fwd_cuda(h, gamma, beta, 1e-12, dtype)
+    ref = ln.layer_norm_plain(h, gamma, beta, 1e-12, dtype)
+    want_q, want_s = q8.quantize_rowwise(y)
+    torch.cuda.synchronize()
+    assert ln.FWD_KERNEL.launches == f0 + 3
+    assert q8.QUANT_KERNEL.launches == q0
+    assert torch.equal(q, want_q) and torch.equal(s, want_s)
+    assert torch.equal(y, alone)
+    assert torch.equal(y, y2) and torch.equal(q, q2) and torch.equal(s, s2)
+    err = (y.float() - ref.float()).abs()
+    assert bool((err <= ln.fwd_limit(ref)).all()), err.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ln_impl", ["fused", "xla"])
+def test_int8_forward_runs_only_kernels(cuda, ln_impl, monkeypatch):
+    """A quantized model's forward on the card: every projection one
+    int8_linear launch, every quantize a kernel launch, each distinct input
+    quantized once, and no plain quantize, product, bias or cast pass."""
+    from ml_recipe_tpu_torch.models import EncoderConfig, QAModel
+    from ml_recipe_tpu_torch.quant import quantize_model
+
+    cfg = EncoderConfig(vocab_size=100, hidden_size=64, num_layers=2,
+                        num_heads=2, intermediate_size=128,
+                        max_position_embeddings=64, hidden_dropout_prob=0.0,
+                        attention_probs_dropout_prob=0.0)
+    torch.manual_seed(0)
+    fmodel = QAModel(cfg, dtype=torch.bfloat16, device="cuda",
+                     ln_impl=ln_impl)
+    qmodel, _ = quantize_model(fmodel.eval())
+
+    def refuse(*args, **kw):
+        raise AssertionError("a plain pass ran on a CUDA tensor")
+
+    for name in ("quantize_rowwise", "int8_matmul_plain",
+                 "int8_linear_plain"):
+        monkeypatch.setattr(q8, name, refuse)
+    ids = torch.randint(5, 100, (3, 48), device="cuda")
+    before = {k: k.launches for k in (q8.KERNEL, q8.QUANT_KERNEL,
+                                      ln.FWD_KERNEL)}
+    with torch.inference_mode():
+        out = qmodel(ids)
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    fused = ln_impl == "fused"
+    assert q8.KERNEL.launches - before[q8.KERNEL] == 6 * L + 5
+    assert ln.FWD_KERNEL.launches - before[ln.FWD_KERNEL] == \
+        (2 * L + 1 if fused else 0)
+    # context, GELU output and pooled output; the LayerNorm outputs and the
+    # pooler's [CLS] rows too when no fused LayerNorm wrote their codes
+    assert q8.QUANT_KERNEL.launches - before[q8.QUANT_KERNEL] == \
+        2 * L + 1 + (0 if fused else 2 * L + 2)
+    assert all(bool(torch.isfinite(v).all()) for v in out.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ln_impl", ["fused", "xla"])
+def test_int8_forward_equals_its_composition_of_plain_passes(cuda, ln_impl,
+                                                             monkeypatch):
+    """The int8 model's wiring on the card, held exactly: the same model
+    with every quantize, product, bias and cast a plain pass on the CUDA
+    tensors, each input quantized by ``quantize_rowwise`` where it is read,
+    and every LayerNorm the forward kernel without its codes. The kernels
+    are bit for bit with those plain passes, the epilogue's codes are
+    ``quantize_rowwise`` of the kernel's own y, and attention is the same
+    deterministic kernel in both runs: so every output is equal. A wrong
+    tensor's codes (a view's, a stale one's, the [CLS] rows', the 3-D
+    reshape of the LayerNorm's codes) shows here."""
+    from ml_recipe_tpu_torch.models import EncoderConfig, QAModel
+    from ml_recipe_tpu_torch.models.encoder import FusedLayerNorm
+    from ml_recipe_tpu_torch.quant import layers as qlayers
+    from ml_recipe_tpu_torch.quant import quantize_model
+
+    cfg = EncoderConfig(vocab_size=100, hidden_size=64, num_layers=2,
+                        num_heads=2, intermediate_size=128,
+                        max_position_embeddings=64, hidden_dropout_prob=0.0,
+                        attention_probs_dropout_prob=0.0)
+    torch.manual_seed(0)
+    fmodel = QAModel(cfg, dtype=torch.bfloat16, device="cuda",
+                     ln_impl=ln_impl)
+    qmodel, _ = quantize_model(fmodel.eval())
+    ids = torch.randint(5, 100, (3, 48), device="cuda")
+    mask = torch.ones_like(ids)
+    mask[1, 40:] = 0                      # a padded row
+    with torch.inference_mode():
+        got = qmodel(ids, mask)
+    before = {k: k.launches for k in (q8.KERNEL, q8.QUANT_KERNEL)}
+    monkeypatch.setattr(qlayers, "int8_linear", q8.int8_linear_plain)
+    monkeypatch.setattr(qlayers, "quantize_rows", q8.quantize_rowwise)
+    lns = [m for m in qmodel.modules() if isinstance(m, FusedLayerNorm)]
+    assert len(lns) == (2 * cfg.num_layers + 1 if ln_impl == "fused" else 0)
+    for m in lns:
+        monkeypatch.setattr(m, "codes", False)
+    with torch.inference_mode():
+        want = qmodel(ids, mask)
+    torch.cuda.synchronize()
+    assert all(k.launches == n for k, n in before.items())
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k

@@ -272,12 +272,12 @@ def test_uniform_grid_offsets_wrap_as_int32():
 
 @pytest.mark.parametrize("segmented", [False, True], ids=["mask", "seg"])
 def test_dispatcher_runs_every_length_on_cpu(segmented):
-    """``auto`` at L = 768 (the TPU's blocked regime) and 1000 (no TPU
-    kernel geometry: the JAX package falls back to XLA attention there) run
-    the kernel pair's plain version on the CPU, dropout included, and
-    launch nothing."""
+    """``auto`` at L = 768 (the TPU's blocked regime), and at 200 and 1000
+    (no TPU kernel geometry, below and past 512: the JAX package falls back
+    to XLA attention there) run the kernel pair's plain version on the CPU,
+    dropout included, and launch nothing."""
     rng = np.random.default_rng(11)
-    for L in (768, 1000):
+    for L in (200, 768, 1000):
         q, k, v, _ = (torch.from_numpy(x) for x in _qkvg(rng, 1, L, 2, 32))
         ids = torch.from_numpy(_segments(rng, 1, L, pad=10))
         kw = (dict(segment_ids=ids) if segmented
