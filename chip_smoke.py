@@ -41,9 +41,12 @@ Phases, each fatal on failure (exit code 1, and no result line):
    the training run and read just after: the backward kernel must have run
    12 times per micro-batch and the forward 12 times per micro-batch and
    per eval batch. Losses must be finite and the parameters must have moved.
-   Then one micro-batch's forward+backward is timed and split by kernel,
-   its gradients with kernel attention are held against plain attention,
-   and one checkpoint is written and read back;
+   Then one micro-batch's forward+backward is timed and split by kernel
+   family (the port's kernels, cuBLAS products, dropout RNG, GELU, the
+   optimizer's multi-tensor kernels, casts and copies, other elementwise,
+   and "other" with its ten largest kernels named), its gradients with
+   kernel attention are held against plain attention, and one checkpoint
+   is written and read back;
 5. both kernels past 512, where they stand for the TPU's blocked and
    streaming kernels: against their plain versions at 32x768 and 32x1024
    (blocked), 2x4096 (streaming) and 2x1024 with non-zero bases, ``L_hash``
@@ -56,16 +59,17 @@ Phases, each fatal on failure (exit code 1, and no result line):
    ``shard_optimizer``, ``sharded_checkpoint``) through the same build and
    train sequence, with counts zeroed just before and read just after (12
    forward launches per micro-batch and per eval batch, 12 backward per
-   micro-batch), one micro-batch split by kernel, one sharded checkpoint
-   written and read back; then the cfg's single-chip variant
+   micro-batch), one micro-batch split by kernel family, one sharded
+   checkpoint written and read back; then the cfg's single-chip variant
    (``--max_seq_len=4096 --max_position_embeddings=4096 --remat``, 2 x 2 x
    4096 per step), where the recompute makes it 24 forward launches per
    micro-batch, and one 2x4096 micro-batch's peak memory and gradients
    with remat on and off;
 7. the LayerNorm pair, the int8 product and the row quantize against
    their plain versions at the shapes the paths give them, each launched
-   twice and bit-stable (LayerNorm: 12288 and 16384 rows of 768, bf16, the
-   forward within a bf16 step, the backward within the stated limits; the
+   twice and bit-stable (LayerNorm: 12288 and 16384 rows of 768, bf16, and
+   the backward's ragged grids of 1, 40, 65, 2113 and 8512 rows, the forward
+   within a bf16 step, the backward within the stated limits; the
    forward's quantize epilogue: its codes and scales ``torch.equal`` to
    ``quantize_rowwise`` of its own output; int8: every bert-base projection
    at 32x384, the pooler and the heads, both epilogues (f32, and bias plus
@@ -73,8 +77,9 @@ Phases, each fatal on failure (exit code 1, and no result line):
    ``torch.equal``), then their times beside their bounds, their plain
    versions and one PyTorch call each (``F.layer_norm`` and its backward;
    ``torch._int_mm`` with the rescale, and with the bias and cast, and the
-   bf16 ``F.linear`` the float path runs), and each wrapper's host time
-   per launch (events minus the profiler's device time);
+   bf16 ``F.linear`` the float path runs), each wrapper's host time per
+   launch (events minus the profiler's device time), and the LayerNorm
+   backward's device time split between its row and column-sum kernels;
 8. int8 serving: phase 3's 10-request burst with ``--quantize int8
    --ln_impl fused`` (counts zeroed just before warmup: 77 int8 matmul, 25
    LayerNorm with their codes, 25 row quantize and 12 attention launches
@@ -85,8 +90,9 @@ Phases, each fatal on failure (exit code 1, and no result line):
 9. fused-LayerNorm training: ``config/test_bert.cfg --ln_impl fused``
    (counts zeroed just before: 25 LayerNorm forward launches per
    micro-batch and eval batch, 25 backward per micro-batch, attention as in
-   phase 4), one 32x512 micro-batch split by kernel beside phase 4's, and
-   its gradients with the LayerNorm kernels against their plain version.
+   phase 4), one 32x512 micro-batch split by kernel family beside phase
+   4's, and its gradients with the LayerNorm kernels against their plain
+   version.
 
 It then prints one ``{"kernels": [...]}`` line (the attention kernels'
 lines carry the tensor-core kernels' resources and every timed shape's
@@ -176,6 +182,11 @@ REMAT_GRAD_REL_TOL = 1e-5
 
 # the LayerNorm rows of the serving (32x384) and training (32x512) paths
 LN_SHAPES = [(12288, 768), (16384, 768)]
+# row counts of the backward's grid (csrc/layer_norm.cu: 8 warps a block,
+# a warp a row, at most 264 blocks, so 2112 rows a pass): one row, part of
+# a block, a block and a row (9 blocks, an odd count), a pass and a row,
+# and four passes and 64 rows (warps with 4 rows and warps with 5)
+LN_RAGGED = [(1, 768), (40, 768), (65, 768), (2113, 768), (8512, 768)]
 LN_EPS = 1e-12                     # bert-base layer_norm_eps
 # LayerNorm kernel vs plain: within the limits ops/layer_norm.py states
 # beside the plain versions (ln.fwd_limit, ln.dh_limit, ln.dparam_close)
@@ -620,7 +631,7 @@ def phase_ln_kernels(torch, ln, q8, peaks):
     import torch.nn.functional as F
 
     max_fwd = max_bwd = 0.0
-    runs = [(N, C, torch.bfloat16, "bf16") for N, C in LN_SHAPES]
+    runs = [(N, C, torch.bfloat16, "bf16") for N, C in LN_SHAPES + LN_RAGGED]
     runs += [(1000, 768, torch.float32, "f32"), (333, 1024, torch.float32,
                                                   "f32")]
     for N, C, dtype, tname in runs:
@@ -723,8 +734,6 @@ def phase_ln_kernels(torch, ln, q8, peaks):
             f"{codes['device_ms']:.4f}, host {codes['host_ms']:.4f}) "
             f"plain_ms={codes['plain_ms']:.4f} bound_ms="
             f"{codes['bound_ms']:.4f} ({codes['bound_by']})")
-        if (N, C) != LN_SHAPES[-1]:
-            continue
         hr, gr, br = (t.detach().requires_grad_() for t in (h, gb, bb))
 
         def lib_fwd():
@@ -746,12 +755,15 @@ def phase_ln_kernels(torch, ln, q8, peaks):
             3 * N * C * 2 + 3 * C * 4, 16 * N * C, peaks["bw"], peaks["f32"])
         bwd["split_ms"] = profile_kernels(
             torch, lambda: ln.layer_norm_bwd_cuda(h, gamma, g, LN_EPS),
-            ("layer_norm_bwd_kernel", "layer_norm_bwd_reduce_kernel"))
+            ("layer_norm_bwd_warp_kernel", "layer_norm_bwd_sum_kernel"))
         bwd["device_ms"] = round(sum(bwd["split_ms"].values()), 4)
+        bwd["host_ms"] = bwd["ms"] - bwd["device_ms"]
         timings[(N, C, "bwd")] = bwd
         say(f"timing layer_norm_bwd {N}x{C} bf16: kernel_ms={bwd['ms']:.4f} "
-            f"plain_ms={bwd['plain_ms']:.4f} library_ms(F.layer_norm "
-            f"backward, fwd+bwd minus fwd)={bwd['library_ms']:.4f} bound_ms="
+            f"(device ms {bwd['device_ms']:.4f}, host ms per launch "
+            f"{bwd['host_ms']:.4f}) plain_ms={bwd['plain_ms']:.4f} "
+            f"library_ms(F.layer_norm backward, fwd+bwd minus fwd)="
+            f"{bwd['library_ms']:.4f} bound_ms="
             f"{bwd['bound_ms']:.4f} ({bwd['bound_by']}); device ms by kernel "
             f"{bwd['split_ms']}")
     return timings, max_fwd, max_bwd
@@ -1367,11 +1379,12 @@ def phase_training(torch, fa):
     fwd_bwd = _micro_batch(torch, trainer, TRAIN_SHAPE[0])
     model.train()
     step_ms = time_ms(torch, fwd_bwd, reps=5, warm=2)
-    split = profile_fwd_bwd(torch, fwd_bwd)
+    split = profile_fwd_bwd(torch, fwd_bwd, "training")
     say(f"training: one 32x512 micro-batch forward+backward device ms="
         f"{step_ms:.3f}: {_split_text(step_ms, split)} (from a torch.profiler "
         f"trace; layer_norm: PyTorch's LayerNorm kernels of ln_impl=xla, "
-        f"without the f32 casts around them)")
+        f"without the f32 casts around them; rest: the device idle between "
+        f"kernels)")
 
     # its gradients with kernel attention vs plain attention (same dropout)
     flat = []
@@ -1448,7 +1461,7 @@ def phase_ln_training(torch, xla_ms, xla_split):
     fwd_bwd = _micro_batch(torch, trainer, TRAIN_SHAPE[0])
     model.train()
     step_ms = time_ms(torch, fwd_bwd, reps=5, warm=2)
-    split = profile_fwd_bwd(torch, fwd_bwd)
+    split = profile_fwd_bwd(torch, fwd_bwd, "training --ln_impl fused")
     say(f"training --ln_impl fused: one 32x512 micro-batch forward+backward "
         f"device ms={step_ms:.3f}: {_split_text(step_ms, split)}; with "
         f"ln_impl=xla {xla_ms:.3f}: {_split_text(xla_ms, xla_split)} (from "
@@ -1695,7 +1708,8 @@ def phase_long_training(torch):
         if not remat:
             # one 32x1024 micro-batch: device time, split by kernel
             step_ms = time_ms(torch, fwd_bwd, reps=5, warm=2)
-            split = profile_fwd_bwd(torch, fwd_bwd)
+            split = profile_fwd_bwd(torch, fwd_bwd,
+                                    f"training {LONG_CFG} {label}")
             say(f"training {LONG_CFG} {label}: one {rows}x{want_seq} "
                 f"micro-batch forward+backward device ms={step_ms:.3f}: "
                 f"{_split_text(step_ms, split)} (from a torch.profiler "
@@ -1855,21 +1869,57 @@ def _split_text(step_ms: float, split: dict) -> str:
                      + [f"rest {rest:.3f}"])
 
 
-def profile_fwd_bwd(torch, fn):
-    """Device ms of one ``fn()`` in the attention and LayerNorm forward and
-    backward kernels, from a torch.profiler trace (:func:`device_trace`)."""
-    spans = [(name, end - start)
-             for name, start, end in device_trace(torch, fn)]
-    return {
-        "attention forward": sum(
-            us for n, us in spans if "fused_attention_fwd" in n) / 1e3,
-        "attention backward": sum(
-            us for n, us in spans if "fused_attention_bwd" in n) / 1e3,
-        "layer_norm forward": sum(
-            us for n, us in spans if _ln_family(n) == "forward") / 1e3,
-        "layer_norm backward": sum(
-            us for n, us in spans if _ln_family(n) == "backward") / 1e3,
-    }
+# the training micro-batch's kernel families past the port's attention
+# and LayerNorm kernels, by words in PyTorch's kernel names (lower case),
+# first match first: cuBLAS products, the dropout masks' uniforms, GELU and
+# its gradient, the optimizer's multi-tensor kernels, casts and copies,
+# then the remaining elementwise kernels; anything else is "other"
+TRAIN_FAMILIES = (
+    ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
+    ("dropout rng", ("distribution", "uniform", "bernoulli", "philox",
+                     "dropout")),
+    ("gelu", ("gelu",)),
+    ("optimizer", ("foreach", "multi_tensor")),
+    ("casts and copies", ("copy", "memcpy", "memset", "cast")),
+    ("other elementwise", ("elementwise",)),
+)
+TOP_OTHER = 10
+
+
+def _train_family(name: str) -> str:
+    if "fused_attention_fwd" in name:
+        return "attention forward"
+    if "fused_attention_bwd" in name:
+        return "attention backward"
+    ln = _ln_family(name)
+    if ln:
+        return f"layer_norm {ln}"
+    low = name.lower()
+    for family, words in TRAIN_FAMILIES:
+        if any(w in low for w in words):
+            return family
+    return "other"
+
+
+def profile_fwd_bwd(torch, fn, label: str) -> dict:
+    """Device ms of one ``fn()`` by kernel family (the attention and
+    LayerNorm kernels' forward and backward, then TRAIN_FAMILIES and
+    "other"), from a torch.profiler trace (:func:`device_trace`); says the
+    TOP_OTHER largest kernels of "other" by name under ``label``."""
+    split = {f: 0.0 for f in ("attention forward", "attention backward",
+                              "layer_norm forward", "layer_norm backward")}
+    split.update({f: 0.0 for f, _ in TRAIN_FAMILIES})
+    split["other"] = 0.0
+    others = {}
+    for name, start, end in device_trace(torch, fn):
+        family = _train_family(name)
+        split[family] += (end - start) / 1e3
+        if family == "other":
+            others[name] = others.get(name, 0.0) + (end - start) / 1e3
+    top = sorted(others.items(), key=lambda kv: -kv[1])[:TOP_OTHER]
+    say(f"{label}: the {len(top)} largest kernels of 'other', device ms: "
+        + "; ".join(f"{n[:100]} {ms:.3f}" for n, ms in top))
+    return split
 
 
 def profile_forward(torch, forward, label: str, reps: int = 5) -> None:
@@ -2061,7 +2111,12 @@ def main() -> int:
         entry("layer_norm_bwd", "ml_recipe_tpu/ops/layer_norm.py:96",
               ln_train["layer_norm_bwd"], ln_bwd_err, ln_bwd,
               "16384x768 bf16 (32x512, training)", source="layer_norm",
-              device_ms_by_kernel=ln_bwd["split_ms"]),
+              device_ms=ln_bwd["device_ms"], host_ms=ln_bwd["host_ms"],
+              device_ms_by_kernel=ln_bwd["split_ms"],
+              by_shape={f"{N}x{C}": {k: t[k] for k in (
+                  "ms", "device_ms", "host_ms", "split_ms", "plain_ms",
+                  "library_ms", "bound_ms")}
+                  for (N, C, kind), t in ln_t.items() if kind == "bwd"}),
         entry("q8_matmul", "ml_recipe_tpu/ops/quant_matmul.py:85",
               int8["q8_matmul"], q8_err, q8_ffn,
               "M=12288 K=768 N=3072, + bias, bf16 out (32x384 FFN in, int8 "

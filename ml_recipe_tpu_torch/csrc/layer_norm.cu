@@ -38,16 +38,47 @@
 // size; block reductions of warp shuffles and one shared slot per warp),
 // and a second kernel of the same launch writes the codes of its y.
 //
-// The backward: a block owns whole rows, as the forward's block kernel.
+// The backward (bound by memory: 3C elements a row for ~16 f32 operations
+// an element; at 32x512 = 16384 x 768 bf16 it must move 75.5 MB, 0.0225 ms
+// at 3.35 TB/s) for C <= 1024 with rows of whole 16-byte vectors: one warp
+// per row, kBwdWarps warps a block, and at most kBwdBlocks blocks (two an
+// SM), which walk the rows in a fixed interleave: warp w of block b takes
+// rows b * kBwdWarps + w, then every G * kBwdWarps rows on (G blocks). A
+// lane owns the columns (lane + 32j) * 8 .. + 8 of every row it visits.
+// Each warp double-buffers its rows in shared memory: it starts the 16-byte
+// cp.async copies of its next row's h and g, then reads back its current
+// row (each lane only the words it copied itself, so no barrier), converts
+// it to f32 once and keeps it in registers through four passes. The mean,
+// the centred variance and the two means of dh are warp shuffles alone (no
+// __syncthreads per row); xhat and g*gamma are formed once, with
+// __fsub_rn/__fmul_rn, so the rounding is the TPU kernel's separate ops and
+// never a contraction; dh leaves as 16-byte vectors. (On the H100 a third
+// or fourth buffered row, a third block an SM, streaming stores and fixed
+// 64-row tiles measured no faster; scripts/ln_bwd_ab.py times such builds
+// side by side.)
+//
 // The dgamma/dbeta sum crosses rows. The TPU kernel adds each grid step's
 // partial into one [1, C] block that stays resident across its SEQUENTIAL
 // grid (:113-128); blocks of a GPU run concurrently, so neither that nor
-// atomics (whose order changes from run to run) carries over. Here each
-// backward block owns a tile of kRowsPerTile rows, keeps its columns'
-// partial sums in registers while it walks the tile's rows in order, and
-// writes them to an f32 [n_tiles, 2, C] scratch; a second kernel sums the
-// scratch over tiles in a fixed order. The result is deterministic: two
-// launches on the same inputs give the same bits.
+// atomics (whose order changes from run to run) carries over. A lane keeps
+// the partial sums of its columns in registers while its warp walks its
+// rows in order; at the end each warp parks them in its own buffers, and
+// the block's threads add them over the warps in warp order into ONE
+// partial row per block of an f32 [G, 2, C] scratch (264 rows, 1.6 MB, at C
+// = 768). A second kernel, layer_norm_bwd_sum_kernel, sums the scratch
+// over its rows in a fixed order with 32 x 32 threads a block, one block
+// per 32 of its 2C columns (48 blocks at C = 768), each thread a slice of
+// the rows. It is a second kernel and not a last-arriving block of the
+// first because one block would read the whole scratch through one SM (~10
+// us at that SM's share of L2 bandwidth), where 48 blocks read it in about
+// two microseconds, with no arrival counter to fence and reset. The result
+// is deterministic: two launches on the same inputs give the same bits (on
+// one kind of card: the interleave is fixed by kBwdBlocks, not by the SM
+// count).
+//
+// For 1024 < C <= kMaxC, or rows of no whole vectors, block b of G =
+// min(N, kBwdBlocks) walks rows b, b + G, ... one after another (block
+// reductions, kPerThread columns a thread), writing the same scratch row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,10 +91,14 @@ namespace {
 constexpr int kPerThread = 4;                 // columns a thread holds
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxC = kPerThread * kMaxThreads;
-constexpr int kRowsPerTile = 16;              // backward rows per block
-constexpr int kReduceSlices = 8;              // tile slices per column sum
+constexpr int kBwdBlocks = 264;               // backward blocks at most: two
+                                              // for each of an H100's 132 SMs
+constexpr int kSumSlices = 32;                // row slices per column sum
 constexpr int kWarpMaxC = 1024;               // warp kernel: 32 values a lane
 constexpr int kWarpRows = 8;                  // warp kernel: rows a block
+constexpr int kBwdVec = 8;                    // backward warp kernel: elements
+                                              // a lane moves at once
+constexpr int kBwdWarps = 8;                  // ... and warps a block
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -238,8 +273,8 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-// One block per tile of kRowsPerTile rows; writes dh and the tile's
-// dgamma/dbeta partials to partial[tile, 0, :] and partial[tile, 1, :].
+// Block b of G walks rows b, b + G, ...; writes dh and the block's
+// dgamma/dbeta partials to partial[b, 0, :] and partial[b, 1, :].
 template <typename T, typename G>
 __global__ void __launch_bounds__(kMaxThreads)
     layer_norm_bwd_kernel(const T* __restrict__ h,
@@ -256,10 +291,8 @@ __global__ void __launch_bounds__(kMaxThreads)
     pg[i] = 0.f;
     pb[i] = 0.f;
   }
-  const int row0 = blockIdx.x * kRowsPerTile;
-  const int rows = min(kRowsPerTile, N - row0);
-  for (int r = 0; r < rows; ++r) {
-    const int64_t off = (int64_t)(row0 + r) * C;
+  for (int r = blockIdx.x; r < N; r += gridDim.x) {
+    const int64_t off = (int64_t)r * C;
     float x[kPerThread], gg[kPerThread];
     const float rstd = centre_row(h + off, x, C, eps, red);
     float m[2] = {0.f, 0.f};
@@ -296,37 +329,262 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-// dgamma[c] = sum over tiles of partial[t, 0, c], dbeta from partial[t, 1,
-// c]. Block (32 columns, kReduceSlices slices): slice s sums tiles s, s+8,
-// ... in order, then slice 0 adds the slices in order. A fixed order, so the
-// sums are the same from run to run.
-__global__ void __launch_bounds__(32 * kReduceSlices)
-    layer_norm_bwd_reduce_kernel(const float* __restrict__ partial,
-                                 float* __restrict__ dgamma,
-                                 float* __restrict__ dbeta, int n_tiles,
-                                 int C) {
-  __shared__ float acc[kReduceSlices][2][32];
-  const int c = blockIdx.x * 32 + threadIdx.x;
-  const int slice = threadIdx.y;
-  float sg = 0.f, sb = 0.f;
-  if (c < C) {
-    for (int t = slice; t < n_tiles; t += kReduceSlices) {
-      const float* p = partial + (int64_t)t * 2 * C;
-      sg += p[c];
-      sb += p[C + c];
+// The raw bits of kBwdVec elements of T: one uint4 of bf16, two of f32.
+template <typename T>
+struct Raw {
+  static constexpr int kWords = sizeof(T) / 2;
+  uint4 w[kWords];
+};
+
+__device__ __forceinline__ void to_f32(const Raw<rowwise::bf16>& r,
+                                       float (&v)[kBwdVec]) {
+  rowwise::unpack(r.w[0], v);
+}
+__device__ __forceinline__ void to_f32(const Raw<float>& r,
+                                       float (&v)[kBwdVec]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    v[4 * i] = __uint_as_float(r.w[i].x);
+    v[4 * i + 1] = __uint_as_float(r.w[i].y);
+    v[4 * i + 2] = __uint_as_float(r.w[i].z);
+    v[4 * i + 3] = __uint_as_float(r.w[i].w);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The warp kernel's shared memory, in 16-byte words: two row buffers of h
+// and g per warp (the next row in flight while the current one computes),
+// each lane's vectors at [j][word][lane], so a lane reads back its own
+// words, conflict-free. After the rows, each warp's buffers hold its
+// dgamma/dbeta partials. 48 KB a block at C = 768 in bf16.
+template <typename T, typename G, int NV>
+struct BwdRing {
+  static constexpr int kH = NV * Raw<T>::kWords * 32;   // words of h a row
+  static constexpr int kRow = kH + NV * Raw<G>::kWords * 32;
+  static constexpr int kWarp = 2 * kRow;
+  static constexpr int kBytes = kBwdWarps * kWarp * 16;
+  static_assert(kWarp >= 2 * NV * 2 * 32, "the partials fit a warp's ring");
+  // two blocks an SM where a lane's row (h and g as f32) and partials take
+  // at most 96 registers, else one
+  static constexpr int kMinBlocks = NV * 4 * kBwdVec <= 96 ? 2 : 1;
+};
+
+// One warp per row: warp w of block b of G walks rows b * kBwdWarps + w +
+// i * G * kBwdWarps in order of i; NV: vectors of kBwdVec a lane holds (C
+// <= 32 * kBwdVec * NV). Writes dh and the block's dgamma/dbeta partials to
+// partial[b, 0, :] and partial[b, 1, :].
+template <typename T, typename G, int NV>
+__global__ void __launch_bounds__(kBwdWarps * 32,
+                                  (BwdRing<T, G, NV>::kMinBlocks))
+    layer_norm_bwd_warp_kernel(const T* __restrict__ h,
+                               const float* __restrict__ gamma,
+                               const G* __restrict__ g, T* __restrict__ dh,
+                               float* __restrict__ partial, int N, int C,
+                               float eps) {
+  using Ring = BwdRing<T, G, NV>;
+  constexpr int V = kBwdVec;
+  constexpr int KT = Raw<T>::kWords, KG = Raw<G>::kWords;
+  extern __shared__ uint4 ring_all[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  uint4* ring = ring_all + warp * Ring::kWarp;
+  const int first = blockIdx.x * kBwdWarps + warp;
+  const int stride = gridDim.x * kBwdWarps;
+  const int mine = first < N ? (N - first + stride - 1) / stride
+                             : 0;           // rows this warp walks
+  // the copies of the warp's k-th row into buffer k % 2
+  auto fetch = [&](int k) {
+    if (k < mine) {
+      const int64_t off = (int64_t)(first + k * stride) * C;
+      uint4* st = ring + (k & 1) * Ring::kRow;
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const int c = (lane + 32 * j) * V;
+        if (c < C) {
+#pragma unroll
+          for (int w = 0; w < KT; ++w) {
+            cp_async16(st + (j * KT + w) * 32 + lane,
+                       reinterpret_cast<const uint4*>(h + off + c) + w);
+          }
+#pragma unroll
+          for (int w = 0; w < KG; ++w) {
+            cp_async16(st + Ring::kH + (j * KG + w) * 32 + lane,
+                       reinterpret_cast<const uint4*>(g + off + c) + w);
+          }
+        }
+      }
+    }
+    cp_async_commit();   // an empty group past the warp's rows
+  };
+  float pg[NV][V], pb[NV][V];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) pg[j][e] = pb[j][e] = 0.f;
+  }
+  fetch(0);
+  for (int k = 0; k < mine; ++k) {
+    // row k + 1 into the buffer that row k - 1 left, then wait for row k:
+    // every lane reads back only the words it copied itself
+    fetch(k + 1);
+    cp_async_wait<1>();
+    const int64_t off = (int64_t)(first + k * stride) * C;
+    const uint4* st = ring + (k & 1) * Ring::kRow;
+    // the row as f32, once: x = h, then h - mean, then xhat; gv = g, then
+    // g * gamma
+    float x[NV][V], gv[NV][V];
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      if ((lane + 32 * j) * V < C) {
+        Raw<T> hr;
+        Raw<G> gr;
+#pragma unroll
+        for (int w = 0; w < KT; ++w) hr.w[w] = st[(j * KT + w) * 32 + lane];
+#pragma unroll
+        for (int w = 0; w < KG; ++w) {
+          gr.w[w] = st[Ring::kH + (j * KG + w) * 32 + lane];
+        }
+        to_f32(hr, x[j]);
+        to_f32(gr, gv[j]);
+      }
+    }
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      if ((lane + 32 * j) * V < C) {
+#pragma unroll
+        for (int e = 0; e < V; ++e) s += x[j][e];
+      }
+    }
+    const float mean = rowwise::warp_sum(s) / (float)C;
+    float q = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      if ((lane + 32 * j) * V < C) {
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          x[j][e] = __fsub_rn(x[j][e], mean);
+          q += x[j][e] * x[j][e];
+        }
+      }
+    }
+    const float rstd = rsqrtf(rowwise::warp_sum(q) / (float)C + eps);
+    float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int c = (lane + 32 * j) * V;
+      if (c < C) {
+        float gam[V];
+        rowwise::load(gamma + c, gam);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const float xhat = __fmul_rn(x[j][e], rstd);
+          const float gg = __fmul_rn(gv[j][e], gam[e]);
+          m1 += gg;
+          m2 += __fmul_rn(gg, xhat);
+          pg[j][e] += __fmul_rn(gv[j][e], xhat);
+          pb[j][e] += gv[j][e];
+          x[j][e] = xhat;
+          gv[j][e] = gg;
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      m1 += __shfl_xor_sync(0xffffffffu, m1, o);
+      m2 += __shfl_xor_sync(0xffffffffu, m2, o);
+    }
+    m1 /= (float)C;
+    m2 /= (float)C;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int c = (lane + 32 * j) * V;
+      if (c < C) {
+        float d[V];
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          d[e] = __fmul_rn(
+              __fsub_rn(__fsub_rn(gv[j][e], m1), __fmul_rn(x[j][e], m2)),
+              rstd);
+        }
+        rowwise::store(dh + off + c, d);
+      }
     }
   }
-  acc[slice][0][threadIdx.x] = sg;
-  acc[slice][1][threadIdx.x] = sb;
-  __syncthreads();
-  if (slice == 0 && c < C) {
-    float a = 0.f, b = 0.f;
-    for (int s = 0; s < kReduceSlices; ++s) {
-      a += acc[s][0][threadIdx.x];
-      b += acc[s][1][threadIdx.x];
+  cp_async_wait<0>();
+  // each warp's partials into its own ring as [p][j][half][lane] float4s;
+  // then every thread sums some of those words over the warps, in warp
+  // order, into the block's row of the scratch
+  float4* part = reinterpret_cast<float4*>(ring);
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int e = 4 * half;
+      part[(j * 2 + half) * 32 + lane] =
+          make_float4(pg[j][e], pg[j][e + 1], pg[j][e + 2], pg[j][e + 3]);
+      part[((NV + j) * 2 + half) * 32 + lane] =
+          make_float4(pb[j][e], pb[j][e + 1], pb[j][e + 2], pb[j][e + 3]);
     }
-    dgamma[c] = a;
-    dbeta[c] = b;
+  }
+  __syncthreads();
+  float* out = partial + (int64_t)blockIdx.x * 2 * C;
+  const float4* all = reinterpret_cast<const float4*>(ring_all);
+  for (int i = threadIdx.x; i < 2 * NV * 2 * 32; i += kBwdWarps * 32) {
+    const int l = i & 31, half = (i >> 5) & 1, pj = i >> 6;
+    const int which = pj / NV, c = (l + 32 * (pj % NV)) * V + 4 * half;
+    if (c < C) {
+      float4 t = all[i];
+      for (int w = 1; w < kBwdWarps; ++w) {
+        const float4 u = all[w * Ring::kWarp + i];
+        t = make_float4(t.x + u.x, t.y + u.y, t.z + u.z, t.w + u.w);
+      }
+      *reinterpret_cast<float4*>(out + which * C + c) = t;
+    }
+  }
+}
+
+// dgamma[c] = sum over scratch rows of partial[t, 0, c], dbeta from
+// partial[t, 1, c]: a block sums 32 of the 2C columns of a scratch row with
+// kSumSlices slices of threads; slice s sums rows s, s + kSumSlices, ... in
+// order, then one thread per column adds the slices in order. A fixed
+// order, so the sums are the same from run to run.
+__global__ void __launch_bounds__(32 * kSumSlices)
+    layer_norm_bwd_sum_kernel(const float* __restrict__ partial,
+                              float* __restrict__ dgamma,
+                              float* __restrict__ dbeta, int rows, int C) {
+  __shared__ float acc[kSumSlices][32];
+  const int col = blockIdx.x * 32 + threadIdx.x;   // of a row's 2C
+  float s = 0.f;
+  if (col < 2 * C) {
+#pragma unroll 4
+    for (int t = threadIdx.y; t < rows; t += kSumSlices) {
+      s += partial[(int64_t)t * 2 * C + col];
+    }
+  }
+  acc[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && col < 2 * C) {
+    float a = 0.f;
+#pragma unroll
+    for (int k = 0; k < kSumSlices; ++k) a += acc[k][threadIdx.x];
+    if (col < C) {
+      dgamma[col] = a;
+    } else {
+      dbeta[col - C] = a;
+    }
   }
 }
 
@@ -378,29 +636,76 @@ cudaError_t launch_fwd(const void* h, const void* gamma, const void* beta,
   return cudaGetLastError();
 }
 
+template <typename T, typename G, int NV>
+cudaError_t launch_bwd_warp(const void* h, const void* gamma, const void* g,
+                            void* dh, void* partial, int blocks, int N,
+                            int C, float eps, cudaStream_t s) {
+  constexpr int smem = BwdRing<T, G, NV>::kBytes;
+  if constexpr (smem > 48 * 1024) {      // past the default limit
+    const cudaError_t err = cudaFuncSetAttribute(
+        layer_norm_bwd_warp_kernel<T, G, NV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  layer_norm_bwd_warp_kernel<T, G, NV><<<blocks, kBwdWarps * 32, smem, s>>>(
+      static_cast<const T*>(h), static_cast<const float*>(gamma),
+      static_cast<const G*>(g), static_cast<T*>(dh),
+      static_cast<float*>(partial), N, C, eps);
+  return cudaGetLastError();
+}
+
 template <typename T, typename G>
 cudaError_t launch_bwd(const void* h, const void* gamma, const void* g,
                        void* dh, void* partial, void* dgamma, void* dbeta,
                        int N, int C, float eps, cudaStream_t s) {
-  const int n_tiles = (N + kRowsPerTile - 1) / kRowsPerTile;
-  layer_norm_bwd_kernel<T, G><<<n_tiles, block_threads(C), 0, s>>>(
-      static_cast<const T*>(h), static_cast<const float*>(gamma),
-      static_cast<const G*>(g), static_cast<T*>(dh),
-      static_cast<float*>(partial), N, C, eps);
-  cudaError_t err = cudaGetLastError();
+  // the warp kernel where a lane holds its columns and every row and
+  // operand allows 16-byte vectors
+  using rowwise::aligned;
+  const bool warp = C <= kWarpMaxC && C % kBwdVec == 0 && aligned(h, 16) &&
+                    aligned(gamma, 16) && aligned(g, 16) &&
+                    aligned(dh, 16) && aligned(partial, 16);
+  // the blocks, each one row of the partial scratch
+  const int blocks = warp ? min((N + kBwdWarps - 1) / kBwdWarps, kBwdBlocks)
+                          : min(N, kBwdBlocks);
+  cudaError_t err;
+  switch (warp ? (C + 32 * kBwdVec - 1) / (32 * kBwdVec) : 0) {
+    case 1:
+      err = launch_bwd_warp<T, G, 1>(h, gamma, g, dh, partial, blocks, N, C,
+                                     eps, s);
+      break;
+    case 2:
+      err = launch_bwd_warp<T, G, 2>(h, gamma, g, dh, partial, blocks, N, C,
+                                     eps, s);
+      break;
+    case 3:
+      err = launch_bwd_warp<T, G, 3>(h, gamma, g, dh, partial, blocks, N, C,
+                                     eps, s);
+      break;
+    case 4:
+      err = launch_bwd_warp<T, G, 4>(h, gamma, g, dh, partial, blocks, N, C,
+                                     eps, s);
+      break;
+    default:
+      layer_norm_bwd_kernel<T, G><<<blocks, block_threads(C), 0, s>>>(
+          static_cast<const T*>(h), static_cast<const float*>(gamma),
+          static_cast<const G*>(g), static_cast<T*>(dh),
+          static_cast<float*>(partial), N, C, eps);
+      err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return err;
-  layer_norm_bwd_reduce_kernel<<<(C + 31) / 32, dim3(32, kReduceSlices), 0,
-                                 s>>>(
-      static_cast<const float*>(partial), static_cast<float*>(dgamma),
-      static_cast<float*>(dbeta), n_tiles, C);
+  layer_norm_bwd_sum_kernel<<<(2 * C + 31) / 32, dim3(32, kSumSlices), 0,
+                              s>>>(static_cast<const float*>(partial),
+                                   static_cast<float*>(dgamma),
+                                   static_cast<float*>(dbeta), blocks, C);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// The rows of one backward tile: the wrapper sizes the [n_tiles, 2, C] f32
-// partial scratch with it.
-extern "C" int layer_norm_rows_per_tile() { return kRowsPerTile; }
+// The backward's blocks at most, each one row of its f32 partial scratch:
+// the wrapper reads it once, when the library loads, and gives a launch a
+// [min(N, layer_norm_bwd_scratch_rows()), 2, C] scratch.
+extern "C" int layer_norm_bwd_scratch_rows() { return kBwdBlocks; }
 
 // h: [N, C] contiguous, bf16 (h_bf16 = 1) or f32, C <= 4096 (kMaxC, the
 // wrapper's MAX_C); gamma, beta: f32 [C]; y: [N, C] contiguous, bf16
@@ -435,7 +740,10 @@ extern "C" int layer_norm_fwd(const void* h, const void* gamma,
 
 // h, dh: [N, C] contiguous in h's type (h_bf16); g: [N, C] contiguous,
 // bf16 (g_bf16 = 1) or f32; gamma: f32 [C]; partial: f32 scratch of
-// ceil(N / layer_norm_rows_per_tile()) * 2 * C; dgamma, dbeta: f32 [C].
+// min(N, layer_norm_bwd_scratch_rows()) * 2 * C; dgamma, dbeta: f32 [C]. The
+// warp kernel takes C <= 1024 with C % 8 == 0 and every pointer 16-byte
+// aligned, the block kernel the rest; then the column sum. Returns the
+// first failed launch's cudaError_t, or cudaSuccess.
 extern "C" int layer_norm_bwd(const void* h, const void* gamma, const void* g,
                               void* dh, void* partial, void* dgamma,
                               void* dbeta, int N, int C, int h_bf16,

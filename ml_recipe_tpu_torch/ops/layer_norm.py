@@ -142,8 +142,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp,                               # stream
     ]
     lib.layer_norm_bwd.restype = ci
-    lib.layer_norm_rows_per_tile.argtypes = []
-    lib.layer_norm_rows_per_tile.restype = ci
+    lib.layer_norm_bwd_scratch_rows.argtypes = []
+    lib.layer_norm_bwd_scratch_rows.restype = ci
+    # the most rows of the backward's partial-sum scratch: read here, once,
+    # and not on every launch
+    lib.scratch_rows = lib.layer_norm_bwd_scratch_rows()
 
 
 # one library, two kernels, one count each (the backward's launch runs its
@@ -249,8 +252,10 @@ def layer_norm_bwd_cuda(h: torch.Tensor, gamma: torch.Tensor,
                         g: torch.Tensor, eps: float
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward of ``csrc/layer_norm.cu`` on CUDA tensors: same
-    arguments and results as :func:`layer_norm_bwd_plain`. Deterministic:
-    dgamma/dbeta are summed over row tiles in a fixed order."""
+    arguments and results as :func:`layer_norm_bwd_plain`. One warp a row
+    for C <= 1024 with 16-byte aligned rows, a block a row otherwise; then
+    the column sum. Deterministic: dgamma/dbeta are summed over the blocks'
+    rows in a fixed order."""
     _check("layer_norm_bwd_cuda", h, (gamma,), (g,))
     N, C = h.shape
     dh = torch.empty_like(h)
@@ -259,9 +264,8 @@ def layer_norm_bwd_cuda(h: torch.Tensor, gamma: torch.Tensor,
     if N == 0:
         return dh, dgamma.zero_(), dbeta.zero_()
     lib = LIBRARY.lib()
-    rows = lib.layer_norm_rows_per_tile()
-    partial = torch.empty(((N + rows - 1) // rows, 2, C), dtype=torch.float32,
-                          device=h.device)
+    partial = torch.empty((min(N, lib.scratch_rows), 2, C),
+                          dtype=torch.float32, device=h.device)
     with launch_scope(h.device):
         err = lib.layer_norm_bwd(
             h.data_ptr(), gamma.data_ptr(), g.data_ptr(), dh.data_ptr(),

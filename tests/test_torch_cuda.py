@@ -464,8 +464,12 @@ def test_tc_kernel_attributes_refuse_other_head_dims():
 # the plain versions (ln.fwd_limit, ln.dh_limit, ln.dparam_close)
 
 # the smoke's 32x384 and 32x512 rows at bert-base width, and C in {32, 768,
-# 1024} (tiny, base, large) with ragged row counts
-LN_SHAPES = [(12288, 768), (16384, 768), (77, 32), (1000, 768), (333, 1024)]
+# 1024} (tiny, base, large) with ragged row counts; then the backward's
+# grid (8 warps a block, a warp a row, at most 264 blocks: 2112 rows a
+# pass): one row, part of a block, 9 blocks (an odd count), a pass and a
+# row, four passes and 64 rows
+LN_SHAPES = [(12288, 768), (16384, 768), (77, 32), (1000, 768), (333, 1024),
+             (1, 768), (40, 768), (65, 768), (2113, 768), (8512, 768)]
 
 
 @pytest.mark.cuda
@@ -496,13 +500,58 @@ def test_layer_norm_kernels_match_plain(cuda, dtype, N, C):
 
 @pytest.mark.cuda
 def test_layer_norm_backward_is_bit_stable(cuda):
-    """dgamma/dbeta are summed over row tiles in a fixed order, never with
-    atomics: two launches on the same inputs give the same bits."""
+    """dgamma/dbeta are summed over the blocks' rows in a fixed order, never
+    with atomics: two launches on the same inputs give the same bits, also
+    with a launch at another N between them."""
     h, gamma, _, g = ln.seeded_inputs(16384, 768, torch.bfloat16, 5)
     a = ln.layer_norm_bwd_cuda(h, gamma, g, 1e-12)
+    ln.layer_norm_bwd_cuda(h[:8512], gamma, g[:8512], 1e-12)
     b = ln.layer_norm_bwd_cuda(h, gamma, g, 1e-12)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _device_kernel_names(run):
+    """Names of the device kernels in a torch.profiler trace of ``run()``,
+    traced again (up to three times) when a trace holds none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        if names:
+            return names
+    pytest.fail("three profiler traces held no device events")
+
+
+@pytest.mark.cuda
+def test_layer_norm_backward_unaligned_g_takes_the_block_kernel(cuda):
+    """g as a contiguous view 2 bytes past a 16-byte boundary: no 16-byte
+    vectors, so the block kernel runs, and matches the plain version; the
+    same g aligned runs the warp kernel."""
+    N, C = 333, 768
+    h, gamma, _, g = ln.seeded_inputs(N, C, torch.bfloat16, 11)
+    buf = torch.empty(N * C + 1, dtype=g.dtype, device=g.device)
+    g_off = buf[1:].view(N, C)
+    g_off.copy_(g)
+    assert g_off.is_contiguous() and g_off.data_ptr() % 16 == 2
+    for grad, kernel in ((g_off, "layer_norm_bwd_kernel"),
+                         (g, "layer_norm_bwd_warp_kernel")):
+        got = []
+        names = _device_kernel_names(
+            lambda: got.append(ln.layer_norm_bwd_cuda(h, gamma, grad, 1e-12)))
+        assert any(kernel in n for n in names), names
+        assert any("layer_norm_bwd_sum_kernel" in n for n in names), names
+        assert len([n for n in names if "layer_norm_bwd" in n]) == 2, names
+        want = ln.layer_norm_bwd_plain(h, gamma, g, 1e-12)
+        dh, dh_ref = got[0][0].float(), want[0].float()
+        assert bool(((dh - dh_ref).abs() <= ln.dh_limit(want[0])).all())
+        for a, b in zip(got[0][1:], want[1:]):
+            assert ln.dparam_close(a, b)
 
 
 @pytest.mark.cuda

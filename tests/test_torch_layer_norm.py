@@ -49,6 +49,11 @@ F32_RTOL = 1e-6
 BWD_ATOL_REL = 1e-5
 # (N, C): one block at C = 32 and 768, and N = 1040 = 2 blocks of 520 rows
 SHAPES = [(16, 32), (24, 768), (1040, 32)]
+# the row counts of chip_smoke.py's LN_RAGGED (the CUDA backward's ragged
+# grids) that interpret mode takes, N a multiple of 8: part of a block of
+# the CUDA kernel's grid, and four passes of it and 64 rows (28 interpret
+# blocks of 304 rows)
+BWD_TILING_SHAPES = [(40, 768), (8512, 768)]
 TINY = dict(vocab_size=100, hidden_size=32, num_layers=2, num_heads=4,
             intermediate_size=64, max_position_embeddings=64,
             hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
@@ -106,7 +111,7 @@ def _jax_vjp(h, gamma, beta, g, jdt):
             for x in vjp(jnp.asarray(g).astype(jdt))]
 
 
-@pytest.mark.parametrize("N,C", SHAPES)
+@pytest.mark.parametrize("N,C", SHAPES + BWD_TILING_SHAPES)
 def test_backward_matches_pallas_interpret_vjp(N, C):
     h, gamma, beta, g = _inputs(N, C, seed=7 * N + C)
     ref = _jax_vjp(h, gamma, beta, g, jnp.float32)
