@@ -92,7 +92,28 @@ Phases, each fatal on failure (exit code 1, and no result line):
    micro-batch and eval batch, 25 backward per micro-batch, attention as in
    phase 4), one 32x512 micro-batch split by kernel family beside phase
    4's, and its gradients with the LayerNorm kernels against their plain
-   version.
+   version;
+10. the NQ corpus recipe: a seeded NQ-schema corpus of NQ_DOCS documents
+    (log-uniform NQ_WORDS words in ``<P>`` paragraphs, five balanced
+    classes, over the synthetic vocab) written and preprocessed, with the
+    chunk lengths of its test split by bucket; ``config/test_bert.cfg``
+    copied with ``dummy_dataset=False`` and the corpus paths, trained
+    through phase 4's sequence (counts zeroed just before and read just
+    after: 12 forward launches per micro-batch and eval batch, 12 backward
+    per micro-batch), and ``last.ch`` saved; ``cli.validate`` with
+    ``config/validate.cfg`` (16x512, ``--limit`` NQ_LIMIT) in bf16 (12
+    forward launches per batch, no backward; each document's candidate is
+    the best valid chunk of the per-chunk outputs; in one full batch each
+    layer's attention call, kernel against plain on the batch's own inputs
+    within ATOL, and the whole batch's scores under plain attention and
+    under a planted fault recorded; the same documents scored again read
+    in advance) and with ``--quantize int8 --ln_impl fused`` (phase 8's
+    per-batch counts, no plain int8 pass; one full batch ``torch.equal``
+    to its composition of plain int8 passes; the share of documents
+    keeping bf16's candidate recorded); then ``cli.train_metrics`` on
+    ``last.ch``,
+    whose test-split "Test metrics" line must equal the train run's last
+    one digit for digit.
 
 It then prints one ``{"kernels": [...]}`` line (the attention kernels'
 lines carry the tensor-core kernels' resources and every timed shape's
@@ -105,6 +126,7 @@ of the repository, it exits non-zero before printing either.
 from __future__ import annotations
 
 import json
+import logging
 import math
 import os
 import re
@@ -115,7 +137,9 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from contextlib import contextmanager
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -123,7 +147,9 @@ REPO = Path(__file__).resolve().parent
 OUT_DIR = REPO / "chip_smoke_out"     # the synthetic vocab (git-ignored)
 
 H, D = 12, 64                      # bert-base attention heads
-SHAPES = [(8, 128), (8, 384), (32, 384), (2, 200)]   # (B, L); 2x200 ragged
+# (B, L): serving buckets, the 32x384 serving batch, the 16x512 validate
+# batch (config/validate.cfg), and 2x200 ragged
+SHAPES = [(8, 128), (8, 384), (32, 384), (16, 512), (2, 200)]
 SERVING_SHAPE = (32, 384)          # the serving path's full batch
 TRAIN_SHAPE = (32, 512)            # the training micro-batch (test_bert.cfg)
 BWD_SHAPES = [(32, 512), (8, 128), (2, 200)]         # 2x200 ragged
@@ -180,8 +206,9 @@ LONG_VARIANT = ["--max_seq_len=4096", "--max_position_embeddings=4096",
 # recompute that drew other masks is off by O(1)
 REMAT_GRAD_REL_TOL = 1e-5
 
-# the LayerNorm rows of the serving (32x384) and training (32x512) paths
-LN_SHAPES = [(12288, 768), (16384, 768)]
+# the LayerNorm rows of the serving (32x384), training (32x512) and
+# validate (16x512) paths
+LN_SHAPES = [(12288, 768), (16384, 768), (8192, 768)]
 # row counts of the backward's grid (csrc/layer_norm.cu: 8 warps a block,
 # a warp a row, at most 264 blocks, so 2112 rows a pass): one row, part of
 # a block, a block and a row (9 blocks, an odd count), a pass and a row,
@@ -192,11 +219,13 @@ LN_EPS = 1e-12                     # bert-base layer_norm_eps
 # beside the plain versions (ln.fwd_limit, ln.dh_limit, ln.dparam_close)
 # LayerNorm launches per model forward: the embeddings' and two per layer
 LN_PER_FORWARD = 25
-# int8 matmul shapes at 32x384 (M = 12288 tokens): the four attention
-# projections (768, 768), FFN in (768, 3072) and out (3072, 768); the
-# pooler over the 32 [CLS] rows, the span head over every token, the
-# classifier and regressors over the pooled rows
-Q8_PROJ = [(12288, 768, 768), (12288, 768, 3072), (12288, 3072, 768)]
+# int8 matmul shapes at 32x384 (M = 12288 tokens) and at validate's 16x512
+# (M = 8192): the four attention projections (768, 768), FFN in (768, 3072)
+# and out (3072, 768); at 32x384 the pooler over the 32 [CLS] rows, the
+# span head over every token, the classifier and regressors over the
+# pooled rows
+Q8_PROJ = [(12288, 768, 768), (12288, 768, 3072), (12288, 3072, 768),
+           (8192, 768, 768), (8192, 768, 3072), (8192, 3072, 768)]
 Q8_SHAPES = Q8_PROJ + [(32, 768, 768), (12288, 768, 2), (32, 768, 5),
                        (32, 768, 1)]
 Q8_PER_FORWARD = 77                # 6 x 12 layers + pooler + 4 heads
@@ -204,9 +233,10 @@ Q8_PER_FORWARD = 77                # 6 x 12 layers + pooler + 4 heads
 # launches write the codes of their own outputs: the attention context and
 # the GELU output of each layer, and the pooled output
 QUANT_PER_FORWARD = 25
-# the activations the int8 path quantizes at 32x384: hidden and context
-# rows (K = 768), GELU rows (3072), the pooled rows
-QUANT_SHAPES = [(12288, 768), (12288, 3072), (32, 768)]
+# the activations the int8 path quantizes at 32x384 and at 16x512: hidden
+# and context rows (K = 768), GELU rows (3072), the pooled rows
+QUANT_SHAPES = [(12288, 768), (12288, 3072), (32, 768), (8192, 768),
+                (8192, 3072)]
 # the fused-LayerNorm micro-batch's gradient, LayerNorm kernels vs their
 # plain version, both with kernel attention in bf16: LayerNorm outputs and
 # dh differ by bf16 rounding at a few elements, which 12 post-LN layers
@@ -962,8 +992,6 @@ def _serve_burst(torch, extra=()):
     10-request burst over HTTP. Launch counts are set to 0 just before the
     warmup and read just after the burst. Returns a namespace of what the
     checks read."""
-    from types import SimpleNamespace
-
     from ml_recipe_tpu_torch.compose import init_model
     from ml_recipe_tpu_torch.config.parser import (
         check_serve_flags, get_model_parser, get_params, get_serve_parser)
@@ -1183,35 +1211,44 @@ def phase_serving(torch, fa, kernel_ms):
     return launches, burst, ids, forward_ms["auto"]
 
 
+@contextmanager
+def _plain_q8_passes():
+    """Counts of the plain int8 quantize, product and epilogue passes run
+    inside the block (by name); the int8 path runs none on the card."""
+    from ml_recipe_tpu_torch.ops import quant_matmul as q8
+
+    calls = dict.fromkeys(("quantize_rowwise", "int8_matmul_plain",
+                           "int8_linear_plain"), 0)
+    originals = {n: getattr(q8, n) for n in calls}
+
+    def counting(name):
+        def call(*args, **kw):
+            calls[name] += 1
+            return originals[name](*args, **kw)
+        return call
+
+    for name in calls:
+        setattr(q8, name, counting(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in originals.items():
+            setattr(q8, name, fn)
+
+
 def phase_int8_serving(torch, bf16, ids, bf16_forward_ms):
     """int8 serving with the fused LayerNorm: phase_serving's burst with
     ``--quantize int8 --ln_impl fused``; ``bf16`` is phase_serving's burst
     (the same seeded weights unquantized), ``ids`` its 32x384 batch and
     ``bf16_forward_ms`` that batch's scoring forward. Returns the launch
     counts of the path."""
-    from ml_recipe_tpu_torch.ops import quant_matmul as q8
     from ml_recipe_tpu_torch.quant import make_parity_batches, span_parity
 
     # count the plain quantize, product, bias and cast passes the burst
     # runs: on the card, none
-    plain_calls = dict.fromkeys(("quantize_rowwise", "int8_matmul_plain",
-                                 "int8_linear_plain"), 0)
-    originals = {n: getattr(q8, n) for n in plain_calls}
-
-    def counting(name):
-        def call(*args, **kw):
-            plain_calls[name] += 1
-            return originals[name](*args, **kw)
-        return call
-
-    for name in plain_calls:
-        setattr(q8, name, counting(name))
-    try:
+    with _plain_q8_passes() as plain_calls:
         burst = _serve_burst(torch, ("--quantize", "int8", "--ln_impl",
                                      "fused"))
-    finally:
-        for name, fn in originals.items():
-            setattr(q8, name, fn)
     say(f"serving (int8): plain passes on the card during the burst "
         f"{plain_calls}")
     if any(plain_calls.values()):
@@ -1264,8 +1301,8 @@ def phase_int8_serving(torch, bf16, ids, bf16_forward_ms):
 
 
 def _run_training(torch, cfg: str, extra=()):
-    """``config/<cfg>`` with ``extra`` flags through the trainer and model
-    parsers, ``check_train_flags`` and the build and train sequence of
+    """``config/<cfg>`` (or the cfg file at the path ``cfg``) with ``extra``
+    flags through the trainer and model parsers, ``check_train_flags`` and the build and train sequence of
     ``ml_recipe_tpu_torch.cli.train``. The launch counts are set to 0 just
     before ``train`` and read just after. Returns the trainer, the trainer
     flags, every kernel's launch count and the wall seconds."""
@@ -1276,9 +1313,11 @@ def _run_training(torch, cfg: str, extra=()):
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     vocab = write_synthetic_bert_vocab(OUT_DIR / "vocab.txt")
+    cfg_path = cfg if isinstance(cfg, Path) else REPO / "config" / cfg
+    cfg = cfg_path.name
     _, (params, model_params) = get_params(
         (get_trainer_parser, get_model_parser),
-        ["-c", str(REPO / "config" / cfg), "--vocab_file", vocab,
+        ["-c", str(cfg_path), "--vocab_file", vocab,
          "--dump_dir", str(OUT_DIR / "results"), *extra])
     params.n_jobs = max(1, min(params.n_jobs, (os.cpu_count() or 2) // 2))
     check_train_flags(params, model_params)
@@ -1292,7 +1331,8 @@ def _run_training(torch, cfg: str, extra=()):
         f"{params.train_batch_size // params.batch_split} x "
         f"{params.max_seq_len}; built in {time.perf_counter() - t0:.1f}s "
         f"(of it {trainer.plan_seconds:.2f}s planning "
-        f"{trainer.planned_steps_per_epoch} steps/epoch over the dummy items)")
+        f"{trainer.planned_steps_per_epoch} steps/epoch over the training "
+        f"items)")
     if (model.cfg.num_layers != 12 or model.dtype != torch.bfloat16
             or any(p.dtype != torch.float32 for p in model.parameters())):
         fail(f"the {cfg} training configuration is not bert-base with bf16 "
@@ -1772,6 +1812,466 @@ def phase_long_training(torch):
     return out
 
 
+# -- phase 10: the NQ corpus recipe ------------------------------------------
+
+NQ_DOCS = 4096                     # documents of the synthetic NQ corpus
+NQ_WORDS = (50, 6000)              # log-uniform document length, in words
+NQ_GRID = (128, 256, 384, 512)     # test_bert.cfg's length_buckets=auto
+NQ_LIMIT = 20                      # validate --limit: batches 0..20
+
+
+def _bucket_hist(lengths) -> dict:
+    """Counts of ``lengths`` by the smallest NQ_GRID bucket that holds them."""
+    hist = dict.fromkeys(NQ_GRID, 0)
+    for n in lengths:
+        hist[next((g for g in NQ_GRID if n <= g), NQ_GRID[-1])] += 1
+    return hist
+
+
+@contextmanager
+def _log_lines(logger_name: str, needle: str):
+    """The messages of one logger that contain ``needle``, logged inside the
+    block (the logger at INFO for its duration)."""
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            msg = record.getMessage()
+            if needle in msg:
+                lines.append(msg)
+
+    log, handler = logging.getLogger(logger_name), Keep(logging.INFO)
+    level = log.level
+    log.setLevel(logging.INFO)
+    log.addHandler(handler)
+    try:
+        yield lines
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(level)
+
+
+def phase_nq_corpus(torch):
+    """Phase 10, step 1: a seeded NQ-schema corpus over the synthetic vocab,
+    preprocessed into the train/test split; the chunk lengths of the test
+    split (sentence chunks at 512, as training cuts them) by bucket."""
+    import shutil
+
+    from ml_recipe_tpu_torch.data.datasets import ChunkDataset
+    from ml_recipe_tpu_torch.data.preprocessor import RawPreprocessor
+    from ml_recipe_tpu_torch.data.synthetic import write_nq_corpus
+    from ml_recipe_tpu_torch.tokenizer import (
+        Tokenizer, write_synthetic_bert_vocab)
+
+    nq = OUT_DIR / "nq"
+    shutil.rmtree(nq, ignore_errors=True)
+    nq.mkdir(parents=True)
+    vocab = write_synthetic_bert_vocab(OUT_DIR / "vocab.txt")
+    t0 = time.perf_counter()
+    corpus = write_nq_corpus(nq / "corpus.jsonl", vocab, n_docs=NQ_DOCS,
+                             seed=0, min_words=NQ_WORDS[0],
+                             max_words=NQ_WORDS[1])
+    write_s = time.perf_counter() - t0
+    with open(corpus) as fh:
+        words = [len(json.loads(line)["document_text"].split()) for line in fh]
+    t0 = time.perf_counter()
+    counter, _, (train_idx, _, test_idx, _) = RawPreprocessor(
+        corpus, nq / "processed", clear=True)()
+    pre_s = time.perf_counter() - t0
+    say(f"nq corpus: {len(words)} documents, {corpus.stat().st_size} bytes, "
+        f"words per document p0/p50/p90/p100 "
+        f"{np.percentile(words, [0, 50, 90, 100]).astype(int).tolist()} "
+        f"(tags included), written in {write_s:.1f}s; preprocessed in "
+        f"{pre_s:.2f}s into {len(train_idx)} train / {len(test_idx)} test "
+        f"documents; label counts {dict(sorted(counter.items()))}")
+    if (len(words) != NQ_DOCS or len(train_idx) + len(test_idx) != NQ_DOCS
+            or sorted(counter) != list(range(5))
+            or max(counter.values()) - min(counter.values()) > 1):
+        fail("the NQ corpus is not the 5 balanced classes asked for")
+
+    tokenizer = Tokenizer("bert", vocab, lowercase=True)
+    t0 = time.perf_counter()
+    chunks = ChunkDataset(nq / "processed", tokenizer, test_idx,
+                          max_seq_len=NQ_GRID[-1], max_question_len=64,
+                          split_by_sentence=True, truncate=True, cache_size=0)
+    lengths = [len(c.input_ids) for i in range(len(chunks)) for c in chunks[i]]
+    hist = _bucket_hist(lengths)
+    say(f"nq corpus: the test split's {len(lengths)} sentence chunks at "
+        f"{NQ_GRID[-1]} by bucket {hist} ({len(lengths) / len(test_idx):.1f} "
+        f"a document, the largest document {max(words)} words; "
+        f"{time.perf_counter() - t0:.1f}s)")
+    if not all(hist.values()) or max(lengths) > NQ_GRID[-1]:
+        fail("the NQ chunks do not reach every length bucket")
+    return SimpleNamespace(dir=nq, corpus=corpus, proc=nq / "processed",
+                           vocab=vocab, test_docs=len(test_idx))
+
+
+def _nq_cfg(nq) -> Path:
+    """A copy of config/test_bert.cfg with ``dummy_dataset=False`` and the
+    corpus paths: a ``store_true`` set in a cfg cannot be unset on the
+    command line."""
+    keys = {"dummy_dataset": "False", "data_path": str(nq.corpus),
+            "processed_data_path": str(nq.proc)}
+    out = []
+    for line in (REPO / "config" / "test_bert.cfg").read_text().splitlines():
+        key = line.split("=", 1)[0].strip()
+        out.append(f"{key}={keys.pop(key)}" if key in keys else line)
+    if keys:
+        fail(f"config/test_bert.cfg has no {sorted(keys)}")
+    path = nq.dir / "test_bert_nq.cfg"
+    path.write_text("\n".join(out) + "\n")
+    return path
+
+
+def phase_nq_training(torch, nq):
+    """Phase 10, step 2: the copied test_bert.cfg on the corpus through the
+    training sequence of phase 4, then ``last.ch`` saved (a debug run writes
+    none). Returns the run's launch counts, final "Test metrics" and paths."""
+    import gc
+
+    cfg = _nq_cfg(nq)
+    with _log_lines("ml_recipe_tpu_torch.train.trainer",
+                    "Test metrics after epoch") as lines:
+        trainer, params, launched, wall = _run_training(
+            torch, cfg, ["--seed", "0", "--experiment_name", "nq"])
+    model, loader = trainer.model, trainer.train_dataloader
+    layers = model.cfg.num_layers
+    micro = len(trainer.history) * params.batch_split
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(fused_attention_fwd=layers * (micro + trainer.eval_batches),
+                fused_attention_bwd=layers * micro)
+    seq_of = {rows: seq for seq, rows in loader.batch_sizes.items()}
+    steps = [(seq_of.get(h["rows"]), h["rows"]) for h in trainer.history]
+    items = _bucket_hist(loader._len_cache.values())
+    say(f"nq training: {len(trainer.history)} steps + {trainer.eval_batches} "
+        f"eval batches in {wall:.1f}s; step wall seconds "
+        f"{[round(h['seconds'], 3) for h in trainer.history]}; (seq, rows) "
+        f"of each step {steps}; planned {trainer.planned_steps_per_epoch} "
+        f"steps/epoch in {trainer.plan_seconds:.1f}s over {len(loader._len_cache)} "
+        f"sampled items, by bucket {items}; per-bucket batches "
+        f"{loader.batch_sizes}; loss {[round(h['loss'], 4) for h in trainer.history]}")
+    say(f"nq training: launch counts {launched}, expected {want} ({layers} x "
+        f"({micro} micro-batches + {trainer.eval_batches} eval batches) "
+        f"forward, {layers} x {micro} backward)")
+    if len(trainer.history) != 2 or None in [s for s, _ in steps]:
+        fail("the NQ debug run did not take 2 bucketed steps")
+    if launched != want:
+        fail("NQ training launch counts do not match the path")
+    if not all(np.isfinite(v) for h in trainer.history for k, v in h.items()
+               if k not in ("step", "rows", "seconds")):
+        fail("an NQ training loss is not finite")
+    if len(lines) != 2:
+        fail(f"expected 2 'Test metrics' lines, got {len(lines)}")
+    trainer.debug = False
+    ckpt = params.dump_dir / params.experiment_name / "last.ch"
+    trainer.save_state_dict(ckpt)
+    out = SimpleNamespace(cfg=cfg, ckpt=ckpt, final=lines[-1].split(" - ", 1)[1],
+                          launched=launched, eval_batches=trainer.eval_batches,
+                          test_batch_size=params.test_batch_size)
+    say(f"nq training: final {lines[-1]}; {ckpt.name} saved "
+        f"({ckpt.stat().st_size} bytes)")
+    del trainer, model, loader
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _nq_best(dump) -> dict:
+    """Per document, the candidate the predictor's rules keep from its
+    per-chunk outputs (a valid span, a score not below the best so far)."""
+    best = {}
+    for scores, starts, ends, labels, items in dump:
+        for r, item in enumerate(items):
+            start, end = int(starts[r]), int(ends[r])
+            if start > end or start < item.question_len + 2:
+                continue
+            if float(scores[r]) >= best.get(item.item_id, (0.0,))[0]:
+                best[item.item_id] = (float(scores[r]), start, end,
+                                      int(labels[r]))
+    return best
+
+
+def _nq_kernel_vs_plain(torch, predictor):
+    """One full 16x512 validation batch. The gate: each layer's attention,
+    on the q, k, v and key mask this batch gives it, kernel against the
+    plain version at ATOL (the kernel at the path's own tiles and padding).
+    Recorded beside it, not a gate: the whole batch scored with the plain
+    attention, and with a planted fault (keys 64..127 dropped in every
+    layer's kernel call), each against the kernel's scores: 12 post-LN
+    layers carry attention's bf16 rounding into the scores, so the two
+    readings say how far an end-to-end limit could separate a fault.
+    Returns the batch's scoring forward ms, timed alone."""
+    from ml_recipe_tpu_torch.infer.score import OUT_KEYS
+    from ml_recipe_tpu_torch.models import encoder
+    from ml_recipe_tpu_torch.ops import flash_attention as fa
+
+    items = next(d[-1] for d in predictor.dump
+                 if len(d[-1]) == predictor.batch_size)
+    inputs = predictor.collate_fun(items)[0]
+    wire = predictor._wire(inputs).cuda()
+    model = predictor.model
+    attn = [m for m in model.modules() if hasattr(m, "attention_impl")]
+    dpa = encoder.dot_product_attention
+    seen = []
+
+    def run(impl, drop_keys=False, keep=False):
+        def attention(q, k, v, mask, **kw):
+            if keep:
+                seen.append((q.clone(), k.clone(), v.clone(), mask.clone()))
+            if drop_keys:
+                mask = mask.clone()
+                mask[:, 64:128] = 0
+            return dpa(q, k, v, mask, **kw)
+
+        encoder.dot_product_attention = attention
+        for m in attn:
+            m.attention_impl = impl
+        try:
+            with torch.inference_mode():
+                return predictor._score(wire).float().cpu().numpy()
+        finally:
+            encoder.dot_product_attention = dpa
+            for m in attn:
+                m.attention_impl = "auto"
+
+    out_k = run("auto", keep=True)
+    layers = list(seen)
+    seen.clear()
+    errs, top = [], 0.0
+    with torch.inference_mode():
+        for q, k, v, mask in layers:
+            got = fa.fused_attention_cuda(q, k, v, mask)
+            ref = fa.fused_attention_plain(q, k, v, mask)
+            errs.append((got.float() - ref.float()).abs().max().item())
+            top = max(top, ref.float().abs().max().item())
+    torch.cuda.synchronize()
+    del layers
+    out_p = run("xla")
+    out_f = run("auto", drop_keys=True)
+    rows = {k: i for i, k in enumerate(OUT_KEYS)}
+    ids = [rows[k] for k in ("start_ids", "end_ids", "labels")]
+
+    def gap(other):
+        return (float(np.abs(out_k[rows["scores"]]
+                             - other[rows["scores"]]).max()),
+                int((out_k[ids] == other[ids]).sum()))
+
+    (sound, same_p), (fault, same_f) = gap(out_p), gap(out_f)
+    n_ids = len(ids) * len(items)
+    with torch.inference_mode():
+        forward_ms = time_ms(torch, lambda: predictor._score(wire), reps=10)
+    shape = f"{len(items)}x{inputs['input_ids'].shape[1]}"
+    say(f"validate: one {shape} batch, each of its {len(errs)} attention "
+        f"calls kernel vs plain on the batch's own inputs: max_abs_err "
+        f"{max(errs):.3e} (tol {ATOL['bf16']:g}; max|ref| {top:.3f}), by "
+        f"layer {[float(f'{e:.3e}') for e in errs]}")
+    say(f"validate: the same batch end to end (recorded, not a gate): plain "
+        f"attention moves the scores by at most {sound:.4f} and leaves "
+        f"{same_p} of {n_ids} span/label ids equal; keys 64..127 dropped in "
+        f"the kernel moves them by {fault:.4f}, {same_f} of {n_ids} equal; "
+        f"the scoring forward alone {forward_ms:.3f} ms (CUDA events, no "
+        f"loader running)")
+    if len(errs) != model.cfg.num_layers or max(errs) > ATOL["bf16"]:
+        fail("validate: the attention kernel disagrees with plain on the "
+             "batch's own inputs")
+    if not all(np.isfinite(o).all() for o in (out_k, out_p, out_f)):
+        fail("validate: a 16x512 batch's scores are not finite")
+    return forward_ms
+
+
+def _nq_int8_vs_composition(torch, predictor) -> None:
+    """One full 16x512 batch of the int8 validate run scored again with
+    every quantize, product, bias and cast a plain pass on the card tensors
+    and every LayerNorm the forward kernel without its codes (as
+    tests/test_torch_cuda.py's composition test does): the kernels are bit
+    for bit with those passes and attention is the same deterministic
+    kernel, so the packed outputs must be ``torch.equal``. Holds the int8
+    kernels at the path's M = 8192 rows and its ragged padding."""
+    from ml_recipe_tpu_torch.models.encoder import FusedLayerNorm
+    from ml_recipe_tpu_torch.ops import quant_matmul as q8
+    from ml_recipe_tpu_torch.quant import layers as qlayers
+
+    items = next(d[-1] for d in predictor.dump
+                 if len(d[-1]) == predictor.batch_size)
+    wire = predictor._wire(predictor.collate_fun(items)[0]).cuda()
+    with torch.inference_mode():
+        got = predictor._score(wire)
+    torch.cuda.synchronize()
+    before = {k: k.launches for k in (q8.KERNEL, q8.QUANT_KERNEL)}
+    saved = (qlayers.int8_linear, qlayers.quantize_rows)
+    lns = [m for m in predictor.model.modules()
+           if isinstance(m, FusedLayerNorm)]
+    codes = [m.codes for m in lns]
+    qlayers.int8_linear = q8.int8_linear_plain
+    qlayers.quantize_rows = q8.quantize_rowwise
+    for m in lns:
+        m.codes = False
+    try:
+        with torch.inference_mode():
+            want = predictor._score(wire)
+        torch.cuda.synchronize()
+    finally:
+        qlayers.int8_linear, qlayers.quantize_rows = saved
+        for m, c in zip(lns, codes):
+            m.codes = c
+    plain = all(k.launches == n for k, n in before.items())
+    equal = bool(torch.equal(got, want))
+    say(f"validate int8: one {tuple(wire.shape)} batch, kernels vs their "
+        f"composition of plain passes ({len(lns)} LayerNorms without codes, "
+        f"no int8 kernel launched: {plain}): packed outputs "
+        f"{'equal' if equal else 'DIFFER'} (max_abs_err "
+        f"{(got - want).abs().max().item():.3e})")
+    if not (plain and equal and len(lns) == LN_PER_FORWARD):
+        fail("validate int8: the batch differs from its composition of "
+             "plain int8 passes")
+
+
+def _nq_preread_rate(predictor, params) -> dict:
+    """The validate run's model and collate in a new ``Predictor`` over the
+    documents the run scored, read in advance (a list of their chunk
+    lists): no tokenizer thread runs beside the scoring loop. Returns its
+    stats."""
+    from ml_recipe_tpu_torch.compose import init_validation_dataset
+    from ml_recipe_tpu_torch.infer.predictor import Predictor
+
+    tokenizer = predictor.collate_fun.keywords["tokenizer"]
+    dataset = init_validation_dataset(params, tokenizer=tokenizer)
+    order = np.arange(len(dataset))
+    np.random.default_rng(0).shuffle(order)   # the ListDataloader's order
+    docs, n = [], 0
+    for i in order:
+        if n >= predictor.stats["chunks"]:
+            break
+        docs.append(dataset[int(i)])
+        n += len(docs[-1])
+    # every chunk of those documents, no --limit
+    again = Predictor(predictor.model, collate_fun=predictor.collate_fun,
+                      batch_size=predictor.batch_size, n_jobs=predictor.n_jobs)
+    s = again(docs).stats
+    say(f"validate, the same {len(docs)} documents read in advance: "
+        f"{s['chunks']} chunks in {s['batches']} batches, "
+        f"{s['chunks'] / s['seconds']:.1f} chunks/s ({s['seconds']:.2f}s), "
+        f"host {s['host_ms_per_batch']:.2f} ms per batch: the same scoring "
+        f"loop with no tokenizer thread beside it")
+    return s
+
+
+def phase_nq_validate(torch, nq, ckpt, bf16=None):
+    """Phase 10, steps 3 and 4: ``cli.validate`` with config/validate.cfg on
+    ``ckpt`` (``--limit`` NQ_LIMIT), in bf16, or with ``--quantize int8
+    --ln_impl fused`` when ``bf16`` (the bf16 run's candidates) is given.
+    Counts are zeroed just before and read just after. Returns the launch
+    counts, the candidates and the run's figures."""
+    import gc
+
+    from ml_recipe_tpu_torch.cli import validate
+
+    int8 = bf16 is not None
+    label = "validate int8" if int8 else "validate"
+    params, model_params = validate.parse(
+        ["-c", str(REPO / "config" / "validate.cfg"), "--checkpoint",
+         str(ckpt), "--vocab_file", nq.vocab, "--lowercase", "--data_path",
+         str(nq.corpus), "--processed_data_path", str(nq.proc), "--limit",
+         str(NQ_LIMIT), *(("--quantize", "int8", "--ln_impl", "fused")
+                          if int8 else ())])
+    with _plain_q8_passes() as plain:
+        zero_counts()               # the main path starts here
+        t0 = time.perf_counter()
+        predictor = validate.main(params, model_params, save_dump=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()         # the main path ends here
+    model, stats = predictor.model, predictor.stats
+    n, layers = stats["batches"], predictor.model.cfg.num_layers
+    want = dict.fromkeys(KERNELS, 0)
+    want["fused_attention_fwd"] = layers * n
+    if int8:
+        want.update(q8_matmul=Q8_PER_FORWARD * n, q8_quantize=QUANT_PER_FORWARD * n,
+                    layer_norm_fwd=LN_PER_FORWARD * n)
+    best = _nq_best(predictor.dump)
+    got = {d: (predictor.scores[d], c.start_id, c.end_id, c.label)
+           for d, c in predictor.candidates.items()}
+    shape = (predictor.batch_size, params.max_seq_len)
+    first = stats["first_batch_seconds"]
+    say(f"{label}: {stats['documents']} documents, {stats['chunks']} chunks "
+        f"in {n} batches of {shape[0]}x{shape[1]}, {stats['candidates']} "
+        f"candidates; {stats['chunks'] / stats['seconds']:.1f} chunks/s over "
+        f"the predictor's {stats['seconds']:.2f}s, "
+        f"{(stats['chunks'] - shape[0]) / (stats['seconds'] - first):.1f} "
+        f"after the first batch (staged at {first:.2f}s; the call "
+        f"{wall:.1f}s, model build included), host "
+        f"{stats['host_ms_per_batch']:.2f} ms per batch "
+        f"(transfer thread, loader waits included); launch counts {launched}, "
+        f"expected {want}; plain int8 passes {plain}")
+    if n != NQ_LIMIT + 1 or shape != (16, 512):
+        fail(f"{label} did not score {NQ_LIMIT + 1} batches of 16x512")
+    if launched != want:
+        fail(f"{label} launch counts do not match the path")
+    if any(plain.values()):
+        fail(f"{label} ran a plain int8 pass on the card")
+    if got != best:
+        fail(f"{label}: the candidates are not the best valid chunk of each "
+             f"document")
+    if int8 != (model.quantize == "int8"):
+        fail(f"{label}: the model is not quantized as asked")
+    forward_ms = preread = None
+    if not int8:
+        forward_ms = _nq_kernel_vs_plain(torch, predictor)
+        preread = _nq_preread_rate(predictor, params)
+    else:
+        _nq_int8_vs_composition(torch, predictor)
+        docs = {it.item_id for d in predictor.dump for it in d[-1]}
+        same = sum(bf16.get(d, (None,))[1:] == got.get(d, (None,))[1:]
+                   for d in docs)
+        say(f"{label}: {same} of {len(docs)} documents keep bf16's candidate "
+            f"({same / len(docs):.1%}; recorded, not a gate: random weights)")
+    out = SimpleNamespace(launched=launched, candidates=got, stats=stats,
+                          forward_ms=forward_ms, preread=preread)
+    del predictor, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_nq_train_metrics(torch, nq, train):
+    """Phase 10, step 5: ``cli.train_metrics`` on the saved ``last.ch``, with
+    the copied cfg and the train run's eval batches: its test split's "Test
+    metrics" line must equal the train run's last one digit for digit."""
+    from ml_recipe_tpu_torch.cli import train_metrics
+
+    params, model_params = train_metrics.parse(
+        ["-c", str(train.cfg), "--checkpoint", str(train.ckpt),
+         "--vocab_file", nq.vocab, "--dump_dir", str(OUT_DIR / "results"),
+         "--batch_size", str(train.test_batch_size), "--seed", "0"])
+    with _log_lines("ml_recipe_tpu_torch.train.trainer",
+                    "Test metrics after epoch") as lines:
+        zero_counts()               # the main path starts here
+        t0 = time.perf_counter()
+        train_metrics.main(params, model_params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()         # the main path ends here
+    layers = 12
+    # debug: 11 eval batches of the train split, and of the test split as
+    # many as each epoch of the train run
+    want = dict.fromkeys(KERNELS, 0)
+    want["fused_attention_fwd"] = layers * (11 + train.eval_batches // 2)
+    say(f"train_metrics: {wall:.1f}s; launch counts {launched}, expected "
+        f"{want}; train split {lines[0] if lines else None}")
+    if launched != want:
+        fail("train_metrics launch counts do not match the path")
+    if len(lines) != 2:
+        fail(f"expected 2 'Test metrics' lines, got {len(lines)}")
+    test_line = lines[1].split(" - ", 1)[1]
+    say(f"train_metrics: test split {test_line}\n"
+        f"train run, last epoch:  {train.final}\n"
+        f"digit for digit: {test_line == train.final}")
+    if test_line != train.final:
+        fail("train_metrics on last.ch does not reproduce the train run's "
+             "final Test metrics line")
+    return launched
+
+
 def profile_kernels(torch, fn, names, calls: int = 3) -> dict:
     """Device ms of one ``fn()`` in the kernels whose names contain each of
     ``names`` (:func:`profile_split`)."""
@@ -2038,6 +2538,22 @@ def main() -> int:
     train_fwd, train_bwd, xla_ms, xla_split = phase_training(torch, fa)
     ln_train = phase_ln_training(torch, xla_ms, xla_split)
     long = phase_long_training(torch)
+    torch.cuda.empty_cache()
+    nq = phase_nq_corpus(torch)
+    nq_train = phase_nq_training(torch, nq)
+    nq_val = phase_nq_validate(torch, nq, nq_train.ckpt)
+    nq_val8 = phase_nq_validate(torch, nq, nq_train.ckpt,
+                                bf16=nq_val.candidates)
+    nq_metrics = phase_nq_train_metrics(torch, nq, nq_train)
+    nq_fwd = {"nq training": nq_train.launched["fused_attention_fwd"],
+              "validate": nq_val.launched["fused_attention_fwd"],
+              "validate int8": nq_val8.launched["fused_attention_fwd"],
+              "train_metrics": nq_metrics["fused_attention_fwd"]}
+
+    def int8_paths(kernel):
+        return {"serving int8": int8[kernel],
+                "validate int8": nq_val8.launched[kernel]}
+
     fwd = timings[TRAIN_SHAPE]
 
     def entry(kernel, replaces, launches, err, t, shape, source=None,
@@ -2099,10 +2615,11 @@ def main() -> int:
     q8_ffn = q8_t[(12288, 768, 3072)]
     new_kernels = [
         entry("layer_norm_fwd", "ml_recipe_tpu/ops/layer_norm.py:84",
-              int8["layer_norm_fwd"] + ln_train["layer_norm_fwd"],
+              int8["layer_norm_fwd"] + ln_train["layer_norm_fwd"]
+              + nq_val8.launched["layer_norm_fwd"],
               ln_fwd_err, ln_fwd, "16384x768 bf16 (32x512, training)",
               source="layer_norm",
-              launches_by_path={"serving int8": int8["layer_norm_fwd"],
+              launches_by_path={**int8_paths("layer_norm_fwd"),
                                 "training fused": ln_train["layer_norm_fwd"]},
               device_ms=ln_fwd["device_ms"], host_ms=ln_fwd["host_ms"],
               at_32x384={k: ln_serve[k] for k in (
@@ -2118,16 +2635,18 @@ def main() -> int:
                   "library_ms", "bound_ms")}
                   for (N, C, kind), t in ln_t.items() if kind == "bwd"}),
         entry("q8_matmul", "ml_recipe_tpu/ops/quant_matmul.py:85",
-              int8["q8_matmul"], q8_err, q8_ffn,
-              "M=12288 K=768 N=3072, + bias, bf16 out (32x384 FFN in, int8 "
-              "serving)", sass=q8_sass,
+              int8["q8_matmul"] + nq_val8.launched["q8_matmul"], q8_err,
+              q8_ffn, "M=12288 K=768 N=3072, + bias, bf16 out (32x384 FFN in, "
+              "int8 serving)", sass=q8_sass,
+              launches_by_path=int8_paths("q8_matmul"),
               by_shape={f"{M}x{K}x{N}": t for (M, K, N), t in q8_t.items()}),
         entry("q8_quantize_rows",
               "none: port-only; the JAX package's quantize_rowwise "
               "(ml_recipe_tpu/ops/quant_matmul.py:62) is XLA, no pallas_call",
-              int8["q8_quantize"], quant_err, quant_t[(12288, 768)],
+              int8["q8_quantize"] + nq_val8.launched["q8_quantize"],
+              quant_err, quant_t[(12288, 768)],
               "12288x768 bf16 (32x384 attention context, int8 serving)",
-              source="q8_matmul",
+              source="q8_matmul", launches_by_path=int8_paths("q8_quantize"),
               by_shape={f"{M}x{K}": t for (M, K), t in quant_t.items()}),
     ]
     say(json.dumps({"kernels": [{
@@ -2136,10 +2655,11 @@ def main() -> int:
         "source": "ml_recipe_tpu_torch/csrc/fused_attention_fwd.cu",
         "replaces": "ml_recipe_tpu/ops/flash_attention.py:129",
         "launches": (serving_fwd + train_fwd + int8["fused_attention_fwd"]
-                     + ln_train["fused_attention_fwd"]),
+                     + ln_train["fused_attention_fwd"] + sum(nq_fwd.values())),
         "launches_by_path": {"serving": serving_fwd, "training": train_fwd,
                              "serving int8": int8["fused_attention_fwd"],
-                             "training fused": ln_train["fused_attention_fwd"]},
+                             "training fused": ln_train["fused_attention_fwd"],
+                             **nq_fwd},
         "max_abs_err": fwd_err,
         "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"],
@@ -2153,9 +2673,12 @@ def main() -> int:
         "route": "cuda",
         "source": "ml_recipe_tpu_torch/csrc/fused_attention_bwd.cu",
         "replaces": "ml_recipe_tpu/ops/flash_attention.py:266",
-        "launches": train_bwd + ln_train["fused_attention_bwd"],
+        "launches": (train_bwd + ln_train["fused_attention_bwd"]
+                     + nq_train.launched["fused_attention_bwd"]),
         "launches_by_path": {"serving": 0, "training": train_bwd,
-                             "training fused": ln_train["fused_attention_bwd"]},
+                             "training fused": ln_train["fused_attention_bwd"],
+                             "nq training":
+                                 nq_train.launched["fused_attention_bwd"]},
         "max_abs_err": bwd_err,
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],

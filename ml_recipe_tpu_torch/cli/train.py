@@ -10,6 +10,9 @@ plus ``--device``), refuses the flags of subsystems the port lacks
 (``check_train_flags``), writes ``trainer.cfg``/``model.cfg`` into the
 experiment directory, builds model, datasets, loss and ``Trainer``, and runs
 ``trainer.train(after_epoch_funcs=[save_last, save_each, test_fun])``.
+Without ``--dummy_dataset`` the datasets come from the NQ corpus at
+``--data_path``, preprocessed into ``--processed_data_path`` (cleared
+first with ``--clear_processed``).
 ``KeyboardInterrupt`` or ``SIGTERM`` saves ``interrupt.ch``. One process on
 one device: ``--dist_world_size`` > 1, or ``WORLD_SIZE`` > 1 in the
 environment, raises (DDP is ROADMAP.md queue 1).
@@ -54,7 +57,8 @@ def build_trainer(params, model_params) -> Trainer:
     model, tokenizer = init_model(model_params, rng_seed=seed, device=device,
                                   train=True)
     train_dataset, test_dataset, train_weights = init_datasets(
-        params, tokenizer=tokenizer, rng=data_rng)
+        params, tokenizer=tokenizer, clear=params.clear_processed,
+        rng=data_rng)
     trainer = Trainer(
         model=model,
         loss=init_loss(params, train_weights),

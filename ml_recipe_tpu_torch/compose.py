@@ -7,11 +7,13 @@ import logging
 import os
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from .data.collate import make_collate_fun
-from .data.datasets import DummyDataset
-from .data.labels import labels2id
+from .data.datasets import ChunkDataset, DummyDataset, SplitDataset
+from .data.labels import id2labels, labels2id
+from .data.preprocessor import RawPreprocessor
 from .losses import WeightedLoss, build_loss
 from .models import QAModel, init_weights, resolve_model_config
 from .models.encoder import Embedding, Linear
@@ -118,22 +120,76 @@ def init_loss(params, train_weights=None) -> WeightedLoss:
     return loss
 
 
-def init_datasets(params, *, tokenizer=None, rng=None):
-    """``(train_dataset, test_dataset, weights)``: the ``--dummy_dataset``
-    path (10000 train and 1024 test items, as the JAX package builds them).
-    The NQ corpus path raises until it is ported."""
-    if not getattr(params, "dummy_dataset", False):
-        raise NotImplementedError(
-            "the NQ corpus input path (RawPreprocessor, SplitDataset) is not "
-            "ported to ml_recipe_tpu_torch yet (ROADMAP.md queue 1, 'NQ "
-            "corpus input path'); pass --dummy_dataset")
-    logger.warning("Dummy dataset is used to train model.")
-    common = dict(data_dir=None, tokenizer=tokenizer, indexes=None,
-                  max_seq_len=params.max_seq_len,
-                  max_question_len=params.max_question_len, rng=rng)
+def init_datasets(params, *, tokenizer=None, clear: bool = False, rng=None):
+    """``(train_dataset, test_dataset, weights)`` (init.py:148-201).
+
+    ``--dummy_dataset``: 10000 train and 1024 test ``DummyDataset`` items.
+    Otherwise the NQ corpus: ``RawPreprocessor`` turns ``--data_path`` into
+    one json per example under ``--processed_data_path`` (kept unless
+    ``clear``) with the stratified split, and each split becomes a
+    ``SplitDataset`` (the test one in test mode). ``--train_label_weights``
+    gives the classifier loss the normalised ``1/count`` of each label,
+    ``--train_sampler_weights`` each train item the normalised ``1/count``
+    of its label (weighted sampling with replacement)."""
     weights = {"label_weights": None, "sampler_weights": None}
-    return (DummyDataset(**common), DummyDataset(dataset_len=1024, **common),
-            weights)
+
+    if getattr(params, "dummy_dataset", False):
+        logger.warning("Dummy dataset is used to train model.")
+        common = dict(data_dir=None, tokenizer=tokenizer, indexes=None,
+                      max_seq_len=params.max_seq_len,
+                      max_question_len=params.max_question_len, rng=rng)
+        return (DummyDataset(**common), DummyDataset(dataset_len=1024, **common),
+                weights)
+
+    preprocessor = RawPreprocessor(
+        raw_json=params.data_path, out_dir=params.processed_data_path,
+        clear=clear)
+    labels_counter, labels, (train_indexes, train_labels, test_indexes,
+                             test_labels) = preprocessor()
+
+    if getattr(params, "train_label_weights", False):
+        label_weights = np.asarray(
+            [1 / labels_counter[k] for k in sorted(labels_counter.keys())])
+        label_weights = label_weights / np.sum(label_weights)
+        logger.info("Label weights: " + ", ".join(
+            f"{id2labels[k]} ({k}) - {v:.4f}"
+            for k, v in enumerate(label_weights)) + ".")
+        weights["label_weights"] = label_weights
+
+    if getattr(params, "train_sampler_weights", False):
+        sampler_weights = np.asarray(
+            [1 / labels_counter[label] for label in train_labels])
+        weights["sampler_weights"] = sampler_weights / np.sum(sampler_weights)
+
+    common = dict(
+        tokenizer=tokenizer,
+        max_seq_len=params.max_seq_len,
+        max_question_len=params.max_question_len,
+        doc_stride=params.doc_stride,
+        split_by_sentence=params.split_by_sentence,
+        truncate=params.truncate,
+        rng=rng,
+    )
+    train_dataset = SplitDataset(params.processed_data_path,
+                                 indexes=train_indexes, **common)
+    test_dataset = SplitDataset(params.processed_data_path,
+                                indexes=test_indexes, test=True, **common)
+    return train_dataset, test_dataset, weights
+
+
+def init_validation_dataset(params, *, tokenizer=None, clear: bool = False,
+                            rng=None):
+    """The held-out split as a ``ChunkDataset`` (reference
+    validate.py:15-26), built as the JAX package builds it: sentence chunks,
+    truncated, at the dataset's own ``max_seq_len`` 384, question 64 and
+    stride 128 (the flags' values reach the collate, not the chunker)."""
+    preprocessor = RawPreprocessor(
+        raw_json=params.data_path, out_dir=params.processed_data_path,
+        clear=clear)
+    _, _, (_, _, val_indexes, _) = preprocessor()
+    return ChunkDataset(params.processed_data_path, tokenizer, val_indexes,
+                        test=False, split_by_sentence=True, truncate=True,
+                        rng=rng)
 
 
 def init_collate_fun(tokenizer, *, max_seq_len: Optional[int] = None,

@@ -3,13 +3,15 @@
 ``key = value`` config files are pre-parsed into defaults, and keys a parser
 does not know come back from ``parse_known_args`` so ``get_params`` can
 route one cfg file to several parsers and fail only on keys no parser
-knows. The model, trainer and serve parsers carry the JAX package's flags,
-so ``config/serve.cfg`` and ``config/test_bert.cfg`` parse unchanged, plus
-one flag of the port's own: ``--device`` (``cuda`` by default; ``cpu`` only
-when asked for).
+knows. The model, trainer, predictor and serve parsers carry the JAX
+package's flags, so ``config/serve.cfg``, ``config/test_bert.cfg`` and
+``config/validate.cfg`` parse unchanged, plus flags of the port's own:
+``--device`` (``cuda`` by default; ``cpu`` only when asked for) and the
+predictor's ``--mesh``.
 
-:func:`check_serve_flags` and :func:`check_train_flags` hold the entry
-points to what the port implements: a flag whose subsystem is not ported
+:func:`check_predict_flags`, :func:`check_serve_flags` and
+:func:`check_train_flags` hold the entry points to what the port
+implements: a flag whose subsystem is not ported
 yet and which would change results at a non-default value raises
 ``NotImplementedError`` naming its ROADMAP.md item; flags with no port
 counterpart that change no result are accepted and logged once as not
@@ -736,6 +738,111 @@ def get_trainer_parser() -> ConfigArgumentParser:
     return parser
 
 
+def get_predictor_parser() -> ConfigArgumentParser:
+    """Offline-eval config (``cli.validate``, ``cli.train_metrics``): the JAX
+    package's flags and defaults, plus ``--mesh`` (held by
+    :func:`check_predict_flags`)."""
+    parser = ConfigArgumentParser(description="Validation config parser.", add_help=False)
+    init_base_arguments(parser)
+
+    parser.add_argument("--predictor_config_file", required=False, is_config_file=True,
+                        help="Predictor config file path.")
+
+    parser.add_argument("--checkpoint", type=cast2(str), default=None,
+                        help="Restored checkpoint path.")
+
+    parser.add_argument("--batch_size", type=int, default=16, help="Batch size.")
+    parser.add_argument("--buffer_size", type=int, default=4096, help="Buffer queue size.")
+
+    parser.add_argument("--limit", type=cast2(int), default=None,
+                        help="Stop after batch number LIMIT, counted from 0 "
+                             "(LIMIT + 1 batches, as the JAX predictor "
+                             "counts); None scores every chunk.")
+
+    parser.add_argument("--fetch_every", type=int, default=1,
+                        help="Accepted for reference-config compatibility; "
+                             "no effect: the port copies each batch's "
+                             "output to the host on its own.")
+
+    parser.add_argument("--gpu_compat", action="store_true",
+                        help="Accepted for reference-config compatibility.")
+
+    parser.add_argument("--length_buckets", type=str, default="off",
+                        help="Length-bucketed chunk batching for offline "
+                             "eval: 'off', 'auto', or comma-separated seq "
+                             "edges (see the trainer flag). Chunks pad to "
+                             "their bucket instead of max_seq_len; the "
+                             "per-bucket batch size holds the token budget "
+                             "batch_size * max_seq_len constant.")
+    parser.add_argument("--sequence_packing", type=str, default="off",
+                        help="Sequence packing for offline eval (not ported: "
+                             "only 'off' is accepted).")
+    parser.add_argument("--pack_max_segments", type=int, default=8,
+                        help="Sequence packing: max chunks per packed row "
+                             "(not ported; ignored).")
+    parser.add_argument("--pack_splitting", type=str, default="off",
+                        help="Hole-filling chunk splitting for packed "
+                             "offline eval (not ported: only 'off').")
+    parser.add_argument("--pack_min_fragment", type=int, default=32,
+                        help="Splitting packer: minimum fragment size in "
+                             "tokens (not ported; ignored).")
+
+    parser.add_argument("--quantize", type=str, default="off",
+                        choices=["off", "int8"],
+                        help="Post-training quantization for offline eval "
+                             "(cli.validate only): 'int8' converts the "
+                             "restored float checkpoint to per-channel int8 "
+                             "and scores through the int8 matmul kernel, the "
+                             "serving engine's conversion.")
+    parser.add_argument("--mesh", type=cast2(str), default=None,
+                        help="Device mesh axes (not ported: one device; a "
+                             "mesh of one device is accepted).")
+
+    return parser
+
+
+def _mesh_devices(spec) -> int:
+    """Device count of a ``name:size,...`` mesh spec (1 for None)."""
+    if spec is None:
+        return 1
+    count = 1
+    for part in str(spec).split(","):
+        if part.strip():
+            count *= int(part.split(":")[-1])
+    return count
+
+
+def _packing_on(value) -> bool:
+    return str(value).strip().lower() not in ("off", "none", "0", "false", "")
+
+
+def check_predict_flags(params, model_params) -> None:
+    """Refuse predictor flags whose subsystem the port lacks: sequence
+    packing (``--sequence_packing``/``--pack_splitting`` other than off) and
+    a ``--mesh`` of more than one device. ``--fetch_every`` is accepted
+    and logged: the port copies each batch's output on its own."""
+    _check_ln_impl(model_params)
+    if params.fetch_every != 1:
+        logger.info("Accepted but not ported (no effect in "
+                    "ml_recipe_tpu_torch): --fetch_every %s.",
+                    params.fetch_every)
+    checks = [
+        (_packing_on(params.sequence_packing), "sequence_packing",
+         params.sequence_packing, "queue 1, 'Sequence packing'"),
+        (_packing_on(params.pack_splitting), "pack_splitting",
+         params.pack_splitting, "queue 1, 'Sequence packing'"),
+        (_mesh_devices(params.mesh) > 1, "mesh", params.mesh,
+         "queue 1, 'Parallelism beyond data parallelism'"),
+        (model_params.flash_attention == "ring", "flash_attention", "ring",
+         "queue 1, 'Parallelism beyond data parallelism'"),
+        (model_params.hf_checkpoint is not None, "hf_checkpoint",
+         model_params.hf_checkpoint, "queue 1, 'Training: the parts still to port'"),
+    ]
+    for bad, flag, value, item in checks:
+        if bad:
+            raise _not_ported(flag, value, item)
+
+
 def get_serve_parser() -> ConfigArgumentParser:
     """Online-serving config ([serve] surface): bucket grid, micro-batch
     deadline, bounded-queue backpressure, HTTP bind, drain budget. No
@@ -923,17 +1030,14 @@ def check_train_flags(params, model_params) -> None:
         (params.async_checkpoint, "async_checkpoint", True, _TRAINING),
         (params.apex_loss_scale is not None, "apex_loss_scale",
          params.apex_loss_scale, _TRAINING),
-        (str(params.sequence_packing).strip().lower() not in
-         ("off", "none", "0", "false", ""), "sequence_packing",
+        (_packing_on(params.sequence_packing), "sequence_packing",
          params.sequence_packing, _TRAINING),
-        (str(params.pack_splitting).strip().lower() not in ("off", "none", ""),
-         "pack_splitting", params.pack_splitting, _TRAINING),
+        (_packing_on(params.pack_splitting), "pack_splitting",
+         params.pack_splitting, _TRAINING),
         (params.optimizer != "adam", "optimizer", params.optimizer, _TRAINING),
         (params.finetune, "finetune", True, _TRAINING),
         (params.bpe_dropout is not None, "bpe_dropout", params.bpe_dropout,
          _TRAINING),
-        (not params.dummy_dataset, "dummy_dataset", False,
-         "queue 1, 'NQ corpus input path'"),
         (params.trace, "trace", True, _OBSERVE),
         (params.trace_spans is not None, "trace_spans", params.trace_spans,
          _OBSERVE),

@@ -1,7 +1,8 @@
 """Host-side input pipeline. The package exports the serving subset
-(chunking and the label table); the training modules (``datasets``,
-``collate``, ``loader``, ``bucketing``, ``device_prefetch``) are imported
-from their own modules."""
+(chunking and the label table); the corpus and training modules
+(``sentence``, ``preprocessor``, ``datasets``, ``synthetic``, ``collate``,
+``loader``, ``bucketing``, ``device_prefetch``) are imported from their own
+modules."""
 
 from .chunking import (
     ChunkRecord,

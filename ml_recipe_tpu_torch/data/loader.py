@@ -7,13 +7,20 @@ single-process parts).
   one process, so it yields whole global batches; the orderings match the
   JAX loader's element for element.
 - :class:`DataLoader`: a thread-pool prefetching loader producing collated
-  fixed-shape numpy batches, in sampler order.
+  fixed-shape numpy batches, in sampler order;
+- :class:`ListDataloader`: the predictor's loader over a dataset whose items
+  are LISTS of chunks, re-batched to a fixed size across documents.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
+import queue
+import threading
 import time
+import traceback
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, Optional, Sequence
 
@@ -151,3 +158,113 @@ class DataLoader:
                     futures.append(pool.submit(self._load_batch, next(it)))
                     pending -= 1
                 yield fut.result()
+
+
+class ListDataloader:
+    """Async loader for datasets whose ``__getitem__`` returns a LIST of chunks
+    (the JAX package's ``ListDataloader``; reference utils/list_dataloader.py).
+
+    A thread pool expands each document into its chunk list, in index
+    order (shuffled from ``seed`` when ``shuffle``), the chunks stream
+    through a bounded queue, and the consumer re-batches them to
+    ``batch_size`` across document boundaries; the last batch may be
+    short. A worker's error reaches the consumer as
+    :class:`DataLoaderWorkerError` carrying the worker's traceback.
+
+    The JAX loader submits every document to ``pool.map`` at once; here at
+    most ``2 * n_jobs`` documents are read ahead of the one the queue takes
+    next, in the same order. The batches are
+    the same; a consumer that stops early (the predictor's ``--limit``)
+    leaves the rest unread, and closing the iterator stops the producer."""
+
+    _SENTINEL = object()
+
+    def __init__(self, dataset, batch_size: int, *, n_jobs: int = 4,
+                 collate_fun: Optional[Callable] = None,
+                 buffer_size: int = 1024, shuffle: bool = False,
+                 seed: int = 0, read_retries: int = 3):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.collate_fun = collate_fun
+        self.n_jobs = max(1, n_jobs)
+        self.buffer_size = buffer_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.read_retries = max(0, read_retries)
+
+    def process_batch(self, batch):
+        return self.collate_fun(batch) if self.collate_fun is not None else batch
+
+    def __iter__(self):
+        idxs = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng(self.seed).shuffle(idxs)
+
+        q: queue.Queue = queue.Queue(maxsize=self.buffer_size)
+        errors: list = []
+        stop = threading.Event()
+
+        def read(i: int):
+            if stop.is_set():
+                return []
+            return read_with_retry(self.dataset, i, retries=self.read_retries)
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                with ThreadPoolExecutor(max_workers=self.n_jobs) as pool:
+                    order = iter(idxs.tolist())
+                    reads = deque(pool.submit(read, i) for i in
+                                  itertools.islice(order, 2 * self.n_jobs))
+                    try:
+                        while reads:
+                            chunks = reads.popleft().result()
+                            nxt = next(order, None)
+                            if nxt is not None:
+                                reads.append(pool.submit(read, nxt))
+                            for chunk in chunks:
+                                if not put(chunk):
+                                    return
+                    finally:
+                        for fut in reads:
+                            fut.cancel()
+            except Exception as e:  # surface worker errors to the consumer
+                # the traceback is taken here: the consumer's re-raise has
+                # another stack
+                tb = traceback.format_exc()
+                logger.error(f"ListDataloader worker failed:\n{tb}")
+                errors.append((e, tb))
+            finally:
+                put(self._SENTINEL)
+
+        thread = threading.Thread(target=producer, name="list-dataloader",
+                                  daemon=True)
+        thread.start()
+        try:
+            batch = []
+            while True:
+                chunk = q.get()
+                if chunk is self._SENTINEL:
+                    break
+                batch.append(chunk)
+                if len(batch) == self.batch_size:
+                    yield self.process_batch(batch)
+                    batch = []
+            if errors:
+                e, tb = errors[0]
+                raise DataLoaderWorkerError(
+                    f"async loader worker failed: {e!r}\n"
+                    f"--- worker traceback ---\n{tb}") from e
+            if batch:
+                yield self.process_batch(batch)
+        finally:
+            stop.set()
+            thread.join()

@@ -1,12 +1,15 @@
-"""The QA scoring forward shared by online serving (and, later, the batch
-predictor): the port of ``ml_recipe_tpu/infer/score.py`` ``build_score_fn``.
+"""The QA scoring forward shared by online serving and the batch predictor
+(``infer/predictor.py``): the port of ``ml_recipe_tpu/infer/score.py``
+``build_score_fn``.
 
 Model forward + the arXiv 1901.08634 answerability score (``s = max(start)
 + max(end) - (start[0] + end[0])``) + per-row argmax/softmax reductions on
 the device, so ONE packed ``[6, B]`` f32 tensor crosses to the host per
 batch, in ``OUT_KEYS`` row order.
 
-Two wire formats, selected by the caller:
+Two wire formats; :func:`score_wire` picks one from the tokenizer, for the
+serving engine and the predictor alike, and :func:`pack_wire` packs a host
+batch in it:
 
 - ids-only (``wire_ids_only=True``): one ``[B, L]`` plane of 16-bit ids
   (sent as int16 bit patterns: torch's uint16 support is partial); the
@@ -22,8 +25,9 @@ Two wire formats, selected by the caller:
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 OUT_KEYS = ("scores", "start_ids", "end_ids", "start_regs", "end_regs",
@@ -77,3 +81,35 @@ def build_score_fn(
         return torch.stack([fields[k].to(torch.float32) for k in OUT_KEYS])
 
     return score_fn
+
+
+def score_wire(model, tokenizer: Optional[object]
+               ) -> Tuple[bool, Callable[[torch.Tensor], torch.Tensor]]:
+    """``(ids_only, score_fn)``: the ids-only wire when ``tokenizer`` is
+    given and its vocab fits 16 bits (the device derives the mask from its
+    pad id and BERT token types from its [SEP] id), else the 3-plane wire;
+    and the scoring forward that reads it."""
+    vocab = None
+    if tokenizer is not None:
+        try:
+            vocab = len(tokenizer)
+        except TypeError:
+            vocab = getattr(tokenizer, "vocab_size", None)
+    if vocab is None or vocab >= 2 ** 16:
+        return False, build_score_fn(model, wire_ids_only=False)
+    return True, build_score_fn(
+        model, wire_ids_only=True, pad_id=int(tokenizer.pad_token_id),
+        sep_id=int(tokenizer.sep_token_id),
+        is_bert=getattr(tokenizer, "model_name", "bert") == "bert")
+
+
+def pack_wire(inputs: dict, ids_only: bool) -> torch.Tensor:
+    """A collate-shaped host batch as a CPU tensor in the wire format: the
+    ``[B, L]`` int16 id patterns (only ``input_ids`` is read), or the
+    ``[3, B, L]`` int32 planes."""
+    if ids_only:
+        ids = np.asarray(inputs["input_ids"]).astype(np.uint16)
+        return torch.from_numpy(np.ascontiguousarray(ids.view(np.int16)))
+    return torch.from_numpy(np.stack([
+        np.asarray(inputs[k], np.int32)
+        for k in ("input_ids", "attention_mask", "token_type_ids")]))

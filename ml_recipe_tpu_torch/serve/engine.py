@@ -39,7 +39,7 @@ import torch
 
 from ..data.chunking import assemble_input_ids, encode_document, window_chunks
 from ..data.labels import id2labels
-from ..infer.score import OUT_KEYS, build_score_fn
+from ..infer.score import OUT_KEYS, pack_wire, score_wire
 from ..quant.quantize import param_bytes
 from .batcher import ChunkWork, DrainingError, MicroBatcher, QueueFullError
 from .bucketing import Bucket, BucketGrid, pad_trailing_batch
@@ -177,19 +177,11 @@ class QAEngine:
         self.long_scatter_chunks = int(long_scatter_chunks or 0)
         self._closed = False
 
-        try:
-            vocab = len(tokenizer)
-        except TypeError:
-            vocab = getattr(tokenizer, "vocab_size", 1 << 20)
         self._pad_id = int(tokenizer.pad_token_id)
         self._sep_id = int(tokenizer.sep_token_id)
         self._cls_id = int(tokenizer.cls_token_id)
         self._is_bert = getattr(tokenizer, "model_name", "bert") == "bert"
-        self._wire_ids_only = vocab is not None and vocab < 2 ** 16
-        self._score = build_score_fn(
-            self.model, wire_ids_only=self._wire_ids_only,
-            pad_id=self._pad_id, sep_id=self._sep_id, is_bert=self._is_bert,
-        )
+        self._wire_ids_only, self._score = score_wire(self.model, tokenizer)
 
         # -- metrics plane ---------------------------------------------------
         self.metrics = registry if registry is not None else Registry()
@@ -297,16 +289,7 @@ class QAEngine:
 
     def _wire_pack(self, inputs: dict) -> torch.Tensor:
         """Host dict -> device tensor in the engine's wire format."""
-        if self._wire_ids_only:
-            ids16 = np.asarray(inputs["input_ids"], np.uint16).view(np.int16)
-            packed = torch.from_numpy(np.ascontiguousarray(ids16))
-        else:
-            packed = torch.from_numpy(np.stack([
-                np.asarray(inputs["input_ids"], np.int32),
-                np.asarray(inputs["attention_mask"], np.int32),
-                np.asarray(inputs["token_type_ids"], np.int32),
-            ]))
-        return packed.to(self.device)
+        return pack_wire(inputs, self._wire_ids_only).to(self.device)
 
     def run_packed(self, inputs: dict) -> np.ndarray:
         """The scoring forward on one host batch: the ``[6, B]`` f32 array

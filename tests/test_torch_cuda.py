@@ -92,7 +92,7 @@ def _inputs(B, L, H, D, dtype, seed, segmented):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("B,L,H,D", [(2, 200, 12, 64), (3, 64, 4, 32),
                                      (2, 130, 2, 128), (1, 512, 12, 64),
-                                     (2, 5, 3, 64)])
+                                     (2, 5, 3, 64), (16, 512, 12, 64)])
 @pytest.mark.parametrize("segmented", [False, True], ids=["mask", "seg"])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_kernel_matches_plain(cuda, dtype, B, L, H, D, segmented, rate):
@@ -467,9 +467,10 @@ def test_tc_kernel_attributes_refuse_other_head_dims():
 # 1024} (tiny, base, large) with ragged row counts; then the backward's
 # grid (8 warps a block, a warp a row, at most 264 blocks: 2112 rows a
 # pass): one row, part of a block, 9 blocks (an odd count), a pass and a
-# row, four passes and 64 rows
+# row, four passes and 64 rows; then validate's 16x512 rows
 LN_SHAPES = [(12288, 768), (16384, 768), (77, 32), (1000, 768), (333, 1024),
-             (1, 768), (40, 768), (65, 768), (2113, 768), (8512, 768)]
+             (1, 768), (40, 768), (65, 768), (2113, 768), (8512, 768),
+             (8192, 768)]
 
 
 @pytest.mark.cuda
@@ -586,10 +587,11 @@ def test_layer_norm_dispatch_and_function_launch_the_kernels(cuda):
 # -- int8 matmul ---------------------------------------------------------------
 # bert-base at 32x384 (M = 12288): the six projections, then the pooler's 8
 # rows and the heads (N = 2 over every token, 5 and 1 over the pooled rows);
-# and ragged M, N, K
+# and ragged M, N, K; then the projections at validate's 16x512 (M = 8192)
 Q8_SHAPES = [(12288, 768, 768), (12288, 768, 3072), (12288, 3072, 768),
              (32, 768, 768), (12288, 768, 2), (32, 768, 5), (8, 768, 1),
-             (333, 36, 130), (5, 4, 3)]
+             (333, 36, 130), (5, 4, 3), (8192, 768, 768), (8192, 768, 3072),
+             (8192, 3072, 768)]
 
 
 def _q8_inputs(M, K, N, seed):
@@ -684,7 +686,8 @@ def _quantize_rows_input(M, K, dtype, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("M,K", [(12288, 768), (12288, 3072), (32, 768),
-                                 (333, 36), (5, 4), (7, 1000), (3, 5)])
+                                 (333, 36), (5, 4), (7, 1000), (3, 5),
+                                 (8192, 768), (8192, 3072)])
 def test_quantize_kernel_equals_plain(cuda, M, K, dtype):
     x = _quantize_rows_input(M, K, dtype, M + K)
     before = q8.QUANT_KERNEL.launches
@@ -708,7 +711,8 @@ def test_quantize_kernel_equals_plain(cuda, M, K, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("N,C", [(12288, 768), (77, 32), (1000, 768),
-                                 (333, 1024), (9, 36), (5, 2048)])
+                                 (333, 1024), (9, 36), (5, 2048),
+                                 (8192, 768)])
 def test_layer_norm_codes_are_quantize_rowwise_of_the_kernels_output(
         cuda, N, C, dtype):
     """The epilogue quantizes the rounded y the launch writes: its codes
@@ -821,3 +825,139 @@ def test_int8_forward_equals_its_composition_of_plain_passes(cuda, ln_impl,
     assert set(got) == set(want)
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+def _predictor_setup(tmp_path, *, dtype, attention_impl="auto", ln_impl="xla",
+                     quantize="off", seed=0):
+    """A small QA model on the card (heads of 64), seeded weights, and a
+    ``Predictor`` over a tokenizer-bound collate (the ids-only wire)."""
+    from ml_recipe_tpu_torch.compose import init_collate_fun
+    from ml_recipe_tpu_torch.infer.predictor import Predictor
+    from ml_recipe_tpu_torch.models import EncoderConfig, QAModel, init_weights
+    from ml_recipe_tpu_torch.quant import quantize_model
+    from ml_recipe_tpu_torch.tokenizer import (
+        Tokenizer,
+        write_synthetic_bert_vocab,
+    )
+
+    vocab = write_synthetic_bert_vocab(tmp_path / "vocab.txt", size=300)
+    tok = Tokenizer("bert", vocab, lowercase=True)
+    cfg = EncoderConfig(vocab_size=len(tok), hidden_size=128, num_layers=2,
+                        num_heads=2, intermediate_size=256,
+                        max_position_embeddings=130, hidden_dropout_prob=0.0,
+                        attention_probs_dropout_prob=0.0)
+    model = QAModel(cfg, dtype=dtype, device="cuda",
+                    attention_impl=attention_impl, ln_impl=ln_impl)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    model.eval()
+    if quantize == "int8":
+        model, _ = quantize_model(model)
+    collate = init_collate_fun(tok, max_seq_len=128, return_items=True)
+    return model, tok, lambda m, **kw: Predictor(m, collate_fun=collate,
+                                                 batch_size=4, n_jobs=2, **kw)
+
+
+class _ChunkDocs:
+    """``n`` documents of 1-3 chunks of 20-128 tokens each."""
+
+    def __init__(self, tok, n=7, seed=1):
+        from ml_recipe_tpu_torch.data.datasets import ChunkItem
+
+        rng = np.random.default_rng(seed)
+        self.docs = []
+        for d in range(n):
+            q = rng.integers(110, 300, 6).tolist()
+            chunks = []
+            for c in range(int(rng.integers(1, 4))):
+                body = rng.integers(110, 300,
+                                    int(rng.integers(11, 120))).tolist()
+                ids = [tok.cls_token_id, *q, tok.sep_token_id, *body,
+                       tok.sep_token_id]
+                chunks.append(ChunkItem(
+                    item_id=str(d), input_ids=ids, start_id=-1, end_id=-1,
+                    label_id=4, true_text="", true_question="", true_label=4,
+                    true_start=-1, true_end=-1, question_len=len(q), t2o=[],
+                    chunk_start=c, chunk_end=c + 1, start_position=0.0,
+                    end_position=0.0))
+            self.docs.append(chunks)
+
+    def __len__(self):
+        return len(self.docs)
+
+    def __getitem__(self, i):
+        return self.docs[i]
+
+
+def _per_chunk(predictor):
+    out = {}
+    for scores, starts, ends, labels, items in predictor.dump:
+        for r, item in enumerate(items):
+            out[(item.item_id, item.chunk_start)] = (
+                float(scores[r]), int(starts[r]), int(ends[r]), int(labels[r]))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length_buckets", [None, [64, 128]],
+                         ids=["padmax", "buckets"])
+def test_predictor_runs_the_attention_kernel_and_agrees_with_plain(
+        cuda, tmp_path, length_buckets, monkeypatch):
+    """The predictor on the card: every scored batch is one forward kernel
+    launch per layer and no backward, with no plain attention pass; its
+    per-chunk spans and labels equal those of the same weights with the
+    plain attention, and its scores lie within ``SCORE_ATOL``."""
+    model, tok, make = _predictor_setup(tmp_path, dtype=torch.float32)
+    plain_model, _, _ = _predictor_setup(tmp_path, dtype=torch.float32,
+                                         attention_impl="xla")
+    docs = _ChunkDocs(tok)
+    want = _per_chunk(make(plain_model, length_buckets=length_buckets)(
+        docs, save_dump=True))
+
+    def refuse(*args, **kw):
+        raise AssertionError("plain attention ran on the kernel path")
+
+    monkeypatch.setattr(fa, "fused_attention_plain", refuse)
+    fwd0, bwd0 = fa.KERNEL.launches, fa.BWD_KERNEL.launches
+    predictor = make(model, length_buckets=length_buckets)(docs, save_dump=True)
+    torch.cuda.synchronize()
+    batches = predictor.stats["batches"]
+    assert batches == len(predictor.dump) >= 2
+    assert fa.KERNEL.launches - fwd0 == 2 * batches
+    assert fa.BWD_KERNEL.launches == bwd0
+    got = _per_chunk(predictor)
+    assert set(got) == set(want) and len(got) == predictor.stats["chunks"]
+    for key, (score, start, end, label) in want.items():
+        assert got[key][1:] == (start, end, label), key
+        assert abs(got[key][0] - score) <= SCORE_ATOL, key
+
+
+# f32 scores: the same forward with the kernel's attention summed in another
+# order, on O(1) logits
+SCORE_ATOL = 1e-3
+
+
+@pytest.mark.cuda
+def test_int8_predictor_runs_only_kernels(cuda, tmp_path, monkeypatch):
+    """``--quantize int8 --ln_impl fused`` through the predictor: every
+    projection, quantize and LayerNorm of every scored batch is a kernel
+    launch (77/25/25 per forward at 12 layers; 6L + 5, 2L + 1 and 2L + 1
+    here) and no plain pass runs."""
+    model, tok, make = _predictor_setup(tmp_path, dtype=torch.bfloat16,
+                                        ln_impl="fused", quantize="int8")
+
+    def refuse(*args, **kw):
+        raise AssertionError("a plain pass ran on a CUDA tensor")
+
+    for name in ("quantize_rowwise", "int8_matmul_plain", "int8_linear_plain"):
+        monkeypatch.setattr(q8, name, refuse)
+    monkeypatch.setattr(fa, "fused_attention_plain", refuse)
+    kernels = (q8.KERNEL, q8.QUANT_KERNEL, ln.FWD_KERNEL, fa.KERNEL)
+    before = {k: k.launches for k in kernels}
+    predictor = make(model)(_ChunkDocs(tok), save_dump=True)
+    torch.cuda.synchronize()
+    n = predictor.stats["batches"]
+    L = 2
+    assert {k: k.launches - before[k] for k in kernels} == {
+        q8.KERNEL: (6 * L + 5) * n, q8.QUANT_KERNEL: (2 * L + 1) * n,
+        ln.FWD_KERNEL: (2 * L + 1) * n, fa.KERNEL: L * n}
+    assert predictor.stats["chunks"] == sum(map(len, _ChunkDocs(tok).docs))

@@ -4,8 +4,8 @@
   ``chip_smoke.py`` finds no import of jax, flax, optax or the JAX package
   (``ml_recipe_tpu`` itself or ``ml_recipe_tpu.*`` — not the bare prefix,
   which the port's own name shares);
-- importing the serving and training entry points in a fresh interpreter
-  loads no jax;
+- importing the serving, training, validation and train-metrics entry
+  points in a fresh interpreter loads no jax;
 - the entry points default to CUDA and raise without it.
 """
 
@@ -61,7 +61,10 @@ def test_no_port_module_imports_jax_or_the_jax_package():
                    "ops/flash_attention.py", "ops/layer_norm.py",
                    "ops/quant_matmul.py", "quant/__init__.py",
                    "quant/quantize.py", "quant/layers.py",
-                   "quant/calibrate.py"):
+                   "quant/calibrate.py", "cli/validate.py",
+                   "cli/train_metrics.py", "infer/predictor.py",
+                   "data/preprocessor.py", "data/sentence.py",
+                   "data/synthetic.py", "utils/pipeline.py"):
         assert f"ml_recipe_tpu_torch/{module}" in names, module
     offenders = [f"{path.relative_to(_REPO)}: {mod}"
                  for path in files for mod in _imports(path)
@@ -73,7 +76,9 @@ def test_entry_points_load_no_jax():
     code = ("import sys, ml_recipe_tpu_torch.cli.serve, "
             "ml_recipe_tpu_torch.serve.engine, ml_recipe_tpu_torch.serve.server, "
             "ml_recipe_tpu_torch.cli.train, ml_recipe_tpu_torch.train.trainer, "
-            "ml_recipe_tpu_torch.quant; "
+            "ml_recipe_tpu_torch.quant, ml_recipe_tpu_torch.cli.validate, "
+            "ml_recipe_tpu_torch.cli.train_metrics, "
+            "ml_recipe_tpu_torch.infer.predictor; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'ml_recipe_tpu')); "
             "assert not bad, bad")
@@ -100,3 +105,14 @@ def test_default_device_without_cuda_raises(monkeypatch, tmp_path):
     # asking for the CPU on purpose works
     model, _ = init_model(params, device="cpu")
     assert model.device.type == "cpu"
+    # the predictor's entry points default to CUDA too
+    from ml_recipe_tpu_torch.cli import train_metrics, validate
+    from ml_recipe_tpu_torch.config.parser import get_params, get_predictor_parser
+
+    for cli in (validate, train_metrics):
+        _, (pparams, mparams) = get_params(
+            (get_predictor_parser, get_model_parser),
+            ["--model", "bert-tiny", "--vocab_file", vocab])
+        assert mparams.device == "cuda"
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            cli.main(pparams, mparams)
