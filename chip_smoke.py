@@ -113,7 +113,25 @@ Phases, each fatal on failure (exit code 1, and no result line):
     keeping bf16's candidate recorded); then ``cli.train_metrics`` on
     ``last.ch``,
     whose test-split "Test metrics" line must equal the train run's last
-    one digit for digit.
+    one digit for digit;
+11. data parallelism: the script starts itself again as two ranks of
+    ``cli.train``'s ``main`` (``config/test_bert.cfg --ln_impl fused
+    --dist_world_size 2``, bert-base, 128 of every 256 rows per rank in 8
+    micro-batches of 16x512) sharing the card over gloo (NCCL refuses two
+    ranks on one device), with each rank's counts zeroed just before and
+    read just after (12 attention and 25 LayerNorm launches per micro-batch
+    and eval batch, backward per micro-batch); the replicas' parameters
+    must end bit-identical and the ranks' step losses equal; an oracle
+    process (``cli.train.build_trainer`` in one process) takes the first
+    global batch regrouped in rank order: the first step's gradient as it
+    reaches the clip (all-reduced and scaled, its magnitude intact) must be
+    within DP_GRAD_REL_TOL of the oracle's and the first step's logged loss
+    within DP_LOSS_REL_TOL of its loss; a run with a planted fault (rank 1
+    skips the all-reduce) must miss the gradient by at least
+    DP_FAULT_FACTOR times its tolerance and break the replicas; a one-rank NCCL
+    group's bucketed all-reduce and broadcast over bert-base's parameters
+    must give back their inputs bit for bit; the step walls, all-reduce
+    times and the global-shape dropout draw's extra cost are printed.
 
 It then prints one ``{"kernels": [...]}`` line (the attention kernels'
 lines carry the tensor-core kernels' resources and every timed shape's
@@ -741,7 +759,7 @@ def phase_ln_kernels(torch, ln, q8, peaks):
         # device time beside them, and the difference as the host's
         fwd["device_ms"] = profile_kernels(
             torch, fwd_launch, ("layer_norm_fwd",))["layer_norm_fwd"]
-        fwd["host_ms"] = fwd["ms"] - fwd["device_ms"]
+        fwd["host_ms"] = less(fwd["ms"], fwd["device_ms"])
         # the quantize epilogue: the codes (1 byte) and a scale a row more,
         # ~4 more operations an element (abs, max, divide, round)
         codes = dict(ms=time_ms(torch, q8_launch),
@@ -752,16 +770,18 @@ def phase_ln_kernels(torch, ln, q8, peaks):
             peaks["bw"], peaks["f32"])
         codes["device_ms"] = profile_kernels(
             torch, q8_launch, ("layer_norm_fwd",))["layer_norm_fwd"]
-        codes["host_ms"] = codes["ms"] - codes["device_ms"]
+        codes["host_ms"] = less(codes["ms"], codes["device_ms"])
         fwd["with_codes"] = codes
         timings[(N, C, "fwd")] = fwd
         say(f"timing layer_norm_fwd {N}x{C} bf16: kernel_ms={fwd['ms']:.4f} "
-            f"(device ms {fwd['device_ms']:.4f}, host ms per launch "
-            f"{fwd['host_ms']:.4f}) plain_ms={fwd['plain_ms']:.4f} "
+            f"(device ms {not_measured(fwd['device_ms'])}, host ms per "
+            f"launch {not_measured(fwd['host_ms'])}) plain_ms="
+            f"{fwd['plain_ms']:.4f} "
             f"library_ms(F.layer_norm)={fwd['library_ms']:.4f} bound_ms="
             f"{fwd['bound_ms']:.4f} ({fwd['bound_by']}); with the quantize "
             f"epilogue kernel_ms={codes['ms']:.4f} (device ms "
-            f"{codes['device_ms']:.4f}, host {codes['host_ms']:.4f}) "
+            f"{not_measured(codes['device_ms'])}, host "
+            f"{not_measured(codes['host_ms'])}) "
             f"plain_ms={codes['plain_ms']:.4f} bound_ms="
             f"{codes['bound_ms']:.4f} ({codes['bound_by']})")
         hr, gr, br = (t.detach().requires_grad_() for t in (h, gb, bb))
@@ -786,12 +806,14 @@ def phase_ln_kernels(torch, ln, q8, peaks):
         bwd["split_ms"] = profile_kernels(
             torch, lambda: ln.layer_norm_bwd_cuda(h, gamma, g, LN_EPS),
             ("layer_norm_bwd_warp_kernel", "layer_norm_bwd_sum_kernel"))
-        bwd["device_ms"] = round(sum(bwd["split_ms"].values()), 4)
-        bwd["host_ms"] = bwd["ms"] - bwd["device_ms"]
+        bwd["device_ms"] = (None if None in bwd["split_ms"].values()
+                            else round(sum(bwd["split_ms"].values()), 4))
+        bwd["host_ms"] = less(bwd["ms"], bwd["device_ms"])
         timings[(N, C, "bwd")] = bwd
         say(f"timing layer_norm_bwd {N}x{C} bf16: kernel_ms={bwd['ms']:.4f} "
-            f"(device ms {bwd['device_ms']:.4f}, host ms per launch "
-            f"{bwd['host_ms']:.4f}) plain_ms={bwd['plain_ms']:.4f} "
+            f"(device ms {not_measured(bwd['device_ms'])}, host ms per "
+            f"launch {not_measured(bwd['host_ms'])}) plain_ms="
+            f"{bwd['plain_ms']:.4f} "
             f"library_ms(F.layer_norm backward, fwd+bwd minus fwd)="
             f"{bwd['library_ms']:.4f} bound_ms="
             f"{bwd['bound_ms']:.4f} ({bwd['bound_by']}); device ms by kernel "
@@ -923,7 +945,7 @@ def phase_q8_kernel(torch, q8, peaks):
                 peaks["bw"], peaks["int8"])
             t["device_ms"] = profile_kernels(
                 torch, launch, ("q8_matmul",))["q8_matmul"]
-            t["host_ms"] = t["ms"] - t["device_ms"]
+            t["host_ms"] = less(t["ms"], t["device_ms"])
             modes[mode] = t
         t = modes["bf16+bias"]
         t["linear_bf16_ms"] = time_ms(torch, lambda: F.linear(x, wb, bb))
@@ -933,8 +955,9 @@ def phase_q8_kernel(torch, q8, peaks):
             lib = ("null" if m["library_ms"] is None
                    else f"{m['library_ms']:.4f}")
             say(f"timing q8_matmul M={M} K={K} N={N} {mode}: kernel_ms="
-                f"{m['ms']:.4f} (device ms {m['device_ms']:.4f}, host ms per "
-                f"launch {m['host_ms']:.4f}) plain_ms={m['plain_ms']:.4f} "
+                f"{m['ms']:.4f} (device ms {not_measured(m['device_ms'])}, "
+                f"host ms per launch {not_measured(m['host_ms'])}) "
+                f"plain_ms={m['plain_ms']:.4f} "
                 f"library_ms(torch._int_mm + rescale"
                 f"{' + bias + cast' if mode != 'f32' else ''})={lib} "
                 f"bound_ms={m['bound_ms']:.4f} ({m['bound_by']})"
@@ -964,11 +987,12 @@ def phase_q8_kernel(torch, q8, peaks):
         t["device_ms"] = profile_kernels(
             torch, launch,
             ("q8_quantize_rows_kernel",))["q8_quantize_rows_kernel"]
-        t["host_ms"] = t["ms"] - t["device_ms"]
+        t["host_ms"] = less(t["ms"], t["device_ms"])
         quant[(M, K)] = t
         say(f"timing q8_quantize_rows M={M} K={K} bf16: kernel_ms="
-            f"{t['ms']:.4f} (device ms {t['device_ms']:.4f}, host ms per "
-            f"launch {t['host_ms']:.4f}) plain_ms={t['plain_ms']:.4f} "
+            f"{t['ms']:.4f} (device ms {not_measured(t['device_ms'])}, host "
+            f"ms per launch {not_measured(t['host_ms'])}) plain_ms="
+            f"{t['plain_ms']:.4f} "
             f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}); no library "
             f"call computes it")
     return timings, quant, max_err, quant_err
@@ -1565,11 +1589,15 @@ def _bwd_split(torch, fa, args) -> dict:
     against the launch's device span (``split_of_span``)."""
     split, span = profile_split(
         torch, lambda: fa.fused_attention_bwd_cuda(*args), BWD_KERNELS)
+    if split is None:
+        return dict(split_ms=None, device_ms=None, split_of_span=None)
     return dict(split_ms=split, device_ms=span,
                 split_of_span=sum(split.values()) / span)
 
 
 def _split_line(t: dict) -> str:
+    if t["split_ms"] is None:
+        return "device ms by kernel not measured"
     return (f"device ms by kernel {t['split_ms']}, together "
             f"{t['split_of_span']:.1%} of the launch's device span "
             f"{t['device_ms']:.4f} ms")
@@ -1942,7 +1970,7 @@ def phase_nq_training(torch, nq):
                 fused_attention_bwd=layers * micro)
     seq_of = {rows: seq for seq, rows in loader.batch_sizes.items()}
     steps = [(seq_of.get(h["rows"]), h["rows"]) for h in trainer.history]
-    items = _bucket_hist(loader._len_cache.values())
+    items = _bucket_hist(m[0] for m in loader._len_cache.values())
     say(f"nq training: {len(trainer.history)} steps + {trainer.eval_batches} "
         f"eval batches in {wall:.1f}s; step wall seconds "
         f"{[round(h['seconds'], 3) for h in trainer.history]}; (seq, rows) "
@@ -2274,21 +2302,36 @@ def phase_nq_train_metrics(torch, nq, train):
 
 def profile_kernels(torch, fn, names, calls: int = 3) -> dict:
     """Device ms of one ``fn()`` in the kernels whose names contain each of
-    ``names`` (:func:`profile_split`)."""
-    return profile_split(torch, fn, names, calls)[0]
+    ``names`` (:func:`profile_split`); None for each where the trace held
+    no device events."""
+    return profile_split(torch, fn, names, calls)[0] or dict.fromkeys(names)
 
 
 # a spin kernel (torch.cuda._sleep) of this many cycles before each call
 # of a profiled function: it marks where one call's kernels start
 SPIN_CYCLES = 20000
-TRACE_TRIES = 3
+TRACE_TRIES = 5
+
+
+def not_measured(x, digits: int = 4) -> str:
+    """``x`` with ``digits`` decimals, or "not measured" for None (a number
+    that only a torch.profiler trace gives, from a trace that held no
+    device events)."""
+    return "not measured" if x is None else f"{x:.{digits}f}"
+
+
+def less(a, b):
+    """``a - b``, or None where either is None (:func:`not_measured`)."""
+    return None if a is None or b is None else a - b
 
 
 def device_trace(torch, run):
     """``(name, start, end)`` of every device event in a torch.profiler
     trace of ``run()``. A trace that holds no device events at all is taken
-    again (such traces have come back from the card), up to TRACE_TRIES
-    times; fails after that."""
+    again (such traces have come back from the card, several in a row),
+    up to TRACE_TRIES times; after that the breakdown is not measured and
+    None comes back. Only breakdowns come from these traces: every time
+    that a gate or the kernels line needs is taken with CUDA events."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(TRACE_TRIES):
@@ -2302,7 +2345,9 @@ def device_trace(torch, run):
         if events:
             return events
         say("profile: the trace holds no device events; tracing again")
-    fail(f"{TRACE_TRIES} profiler traces held no device events")
+    say(f"profile: {TRACE_TRIES} traces held no device events; this "
+        f"breakdown is not measured")
+    return None
 
 
 def profile_split(torch, fn, names, calls: int = 3):
@@ -2313,9 +2358,9 @@ def profile_split(torch, fn, names, calls: int = 3):
     launch the trace dropped (single-call traces lost one kernel of a
     multi-kernel call) does not count as 0 ms. ``span_ms``: the median over
     calls of a call's first kernel start to its last kernel end, the gaps
-    between its kernels included. Fails without device events
-    (:func:`device_trace`), and when a named kernel is missing from every
-    call (the names seen are printed)."""
+    between its kernels included. ``(None, None)`` without device events
+    (:func:`device_trace`); fails when a named kernel is missing from every
+    call of a trace that holds events (the names seen are printed)."""
     fn()
     torch.cuda.synchronize()
 
@@ -2324,7 +2369,10 @@ def profile_split(torch, fn, names, calls: int = 3):
             torch.cuda._sleep(SPIN_CYCLES)
             fn()
 
-    events = sorted(device_trace(torch, marked_calls), key=lambda e: e[1])
+    events = device_trace(torch, marked_calls)
+    if events is None:
+        return None, None
+    events = sorted(events, key=lambda e: e[1])
     runs, run = [], []          # each call's kernels, split at the markers
     for name, start, end in events:
         if "spin_kernel" in name:
@@ -2363,7 +2411,9 @@ def _ln_family(name: str):
     return None
 
 
-def _split_text(step_ms: float, split: dict) -> str:
+def _split_text(step_ms: float, split) -> str:
+    if split is None:
+        return "split by kernel family not measured"
     rest = step_ms - sum(split.values())
     return ", ".join([f"{k} {v:.3f}" for k, v in split.items()]
                      + [f"rest {rest:.3f}"])
@@ -2405,13 +2455,17 @@ def profile_fwd_bwd(torch, fn, label: str) -> dict:
     """Device ms of one ``fn()`` by kernel family (the attention and
     LayerNorm kernels' forward and backward, then TRAIN_FAMILIES and
     "other"), from a torch.profiler trace (:func:`device_trace`); says the
-    TOP_OTHER largest kernels of "other" by name under ``label``."""
+    TOP_OTHER largest kernels of "other" by name under ``label``. None
+    where the trace held no device events."""
     split = {f: 0.0 for f in ("attention forward", "attention backward",
                               "layer_norm forward", "layer_norm backward")}
     split.update({f: 0.0 for f, _ in TRAIN_FAMILIES})
     split["other"] = 0.0
     others = {}
-    for name, start, end in device_trace(torch, fn):
+    events = device_trace(torch, fn)
+    if events is None:
+        return None
+    for name, start, end in events:
         family = _train_family(name)
         split[family] += (end - start) / 1e3
         if family == "other":
@@ -2425,18 +2479,15 @@ def profile_fwd_bwd(torch, fn, label: str) -> dict:
 def profile_forward(torch, forward, label: str, reps: int = 5) -> None:
     """Device time of ``forward`` by kernel family, and the device's idle
     share over ``reps`` back-to-back calls, from a ``torch.profiler`` trace.
-    Informative only: a trace without device events prints 'not measured'."""
-    from torch.profiler import ProfilerActivity, profile
+    Informative only: a trace without device events (:func:`device_trace`)
+    prints 'not measured'."""
+    def calls():
+        with torch.inference_mode():
+            for _ in range(reps):
+                forward()
 
-    with torch.inference_mode(), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            forward()
-        torch.cuda.synchronize()
-    spans = [(e.name, e.time_range.start, e.time_range.end)
-             for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not spans:
+    spans = device_trace(torch, calls)
+    if spans is None:
         say(f"{label}: profile of the 32x384 forward: not measured (the "
             f"trace holds no device events)")
         return
@@ -2470,6 +2521,437 @@ def profile_forward(torch, forward, label: str, reps: int = 5) -> None:
     say(f"{label}: profile of the 32x384 forward, device ms per call: "
         f"{per_call}; device idle {1 - busy / window:.1%} of "
         f"{window / 1e3:.3f} ms over {reps} back-to-back calls")
+
+
+# -- phase 11: data parallelism --------------------------------------------------
+
+DP_CFG = ["-c", str(REPO / "config" / "test_bert.cfg"), "--ln_impl", "fused"]
+DP_DIR = OUT_DIR / "dp"
+DP_DEADLINE_S = 300
+DP_WORLD = 2
+# relative L2 of the all-reduced first-step gradient against the one-process
+# step on the regrouped global batch. The grouping's own noise: bf16
+# products over 16x512 rows per rank against 32x512 in one process, and the
+# gradient sum split at the all-reduce; the gradient at the clip read
+# 1.015e-3 on an NVIDIA H100 80GB HBM3 at 700 W (two ranks on the card),
+# where a missing all-reduce read 0.495 to 0.508
+DP_GRAD_REL_TOL = 5e-3
+# the first step's loss, logged by the ranks against the oracle's: the same
+# bf16 noise in one scalar averaged over the batch's rows; it read 2.87e-6
+# on that card
+DP_LOSS_REL_TOL = 1e-4
+DP_FAULT_FACTOR = 10            # the planted fault must miss by this much
+DP_HIDDEN_DRAWS = 25            # hidden-dropout masks per bert-base forward
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _register_kernels():
+    from ml_recipe_tpu_torch.ops import flash_attention as fa
+    from ml_recipe_tpu_torch.ops import layer_norm as ln
+    from ml_recipe_tpu_torch.ops import quant_matmul as q8
+
+    KERNELS.update({"fused_attention_fwd": fa.KERNEL,
+                    "fused_attention_bwd": fa.BWD_KERNEL,
+                    "layer_norm_fwd": ln.FWD_KERNEL,
+                    "layer_norm_bwd": ln.BWD_KERNEL,
+                    "q8_matmul": q8.KERNEL,
+                    "q8_quantize": q8.QUANT_KERNEL})
+    return fa, ln, q8
+
+
+def _capture_pre_clip_grads(torch, store: dict) -> None:
+    """Have the trainer's first clip store the gradients it is handed,
+    flattened in the optimizer's parameter order (one order in every
+    process) on the CPU: all-reduced and scaled by ``1/batch_split``, their
+    magnitude intact, where the clipped gradient keeps only its direction
+    (test_bert.cfg's clip of 1 bites at every step)."""
+    from ml_recipe_tpu_torch.train import trainer as trainer_module
+
+    clip = trainer_module.clip_by_global_norm_
+
+    def capture(tensors, max_norm):
+        if "grads" not in store:
+            store["grads"] = torch.cat(
+                [g.detach().float().reshape(-1) for g in tensors]).cpu()
+        return clip(tensors, max_norm)
+
+    trainer_module.clip_by_global_norm_ = capture
+
+
+def _param_digest(model) -> str:
+    import hashlib
+
+    digest = hashlib.sha256()
+    for name, p in sorted(model.named_parameters(), key=lambda x: x[0]):
+        digest.update(name.encode())
+        digest.update(p.detach().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def _wait_for(paths, deadline: float) -> None:
+    while not all(p.exists() for p in paths):
+        if time.monotonic() > deadline:
+            fail(f"gave up waiting for {[str(p) for p in paths]}")
+        time.sleep(0.5)
+
+
+def dp_worker(kind: str, rank: int, port: int) -> int:
+    """One rank of phase 11's run: ``cli.train``'s ``main`` with
+    ``--dist_world_size 2``, the launch counts set to 0 just before and
+    read just after. The ranks share card 0, so the worker joins a gloo
+    world there first (NCCL refuses two ranks on one device) and the CLI
+    keeps it. Records the first local batch, the first step's all-reduced
+    gradient as it reaches the clip, each all-reduce's time, the step walls
+    and losses and a digest of the final parameters. With ``kind='fault'``
+    rank 1 skips the gradient all-reduce: it adds zeros to the others' sum
+    and keeps its own gradients."""
+    import torch
+
+    from ml_recipe_tpu_torch.cli import train as train_cli
+    from ml_recipe_tpu_torch.parallel import collectives
+    from ml_recipe_tpu_torch.parallel import dist as pdist
+    from ml_recipe_tpu_torch.train.trainer import Trainer
+
+    _register_kernels()
+    out = DP_DIR / kind
+    out.mkdir(parents=True, exist_ok=True)
+    torch.cuda.set_device(0)
+    pdist.initialize_distributed(
+        init_method=f"tcp://127.0.0.1:{port}", world_size=DP_WORLD,
+        rank=rank, backend="gloo", device=torch.device("cuda", 0))
+    reduce = collectives.all_reduce_gradients
+    reduce_ms = []
+
+    def timed_reduce(named, *args, **kwargs):
+        named = list(named)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "fault" and rank == 1:
+            own = [p.grad for _, p in named]
+            for _, p in named:
+                p.grad = torch.zeros_like(p)
+            buckets = reduce(named, *args, **kwargs)
+            for (_, p), grad in zip(named, own):
+                p.grad = grad
+        else:
+            buckets = reduce(named, *args, **kwargs)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+        return buckets
+
+    collectives.all_reduce_gradients = timed_reduce
+    step = Trainer.train_step
+    first = {}
+    _capture_pre_clip_grads(torch, first)
+
+    def train_step(self, inputs, labels):
+        if "batch" not in first:
+            first["batch"] = ({k: v.cpu() for k, v in inputs.items()},
+                              {k: v.cpu() for k, v in labels.items()})
+        return step(self, inputs, labels)
+
+    Trainer.train_step = train_step
+    argv = [*DP_CFG, "--vocab_file", str(OUT_DIR / "vocab.txt"),
+            "--dump_dir", str(out / "results"), "--dist_world_size",
+            str(DP_WORLD), "--local_rank", str(rank), "--dist_init_method",
+            f"tcp://127.0.0.1:{port}"]
+    zero_counts()                   # the main path starts here
+    t0 = time.perf_counter()
+    trainer = train_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()             # the main path ends here
+    torch.save(first["batch"], out / f"batch{rank}.pt")
+    if rank == 0 or kind == "fault":
+        torch.save(first["grads"], out / f"grads{rank}.pt")
+    record = {
+        "launched": launched, "wall": wall, "reduce_ms": reduce_ms,
+        "steps": [{k: h[k] for k in ("loss", "lr", "seconds", "rows")}
+                  for h in trainer.history],
+        "eval_batches": trainer.eval_batches,
+        "batch_split": trainer.batch_split,
+        "local_rows": int(first["batch"][0]["input_ids"].shape[0]),
+        "layers": trainer.model.cfg.num_layers,
+        "digest": _param_digest(trainer.model),
+        "world": trainer.process_count,
+        "device": str(trainer.device),
+    }
+    (out / f"rank{rank}.json").write_text(json.dumps(record))
+    return 0
+
+
+def dp_oracle() -> int:
+    """Phase 11's oracle: the same ``Trainer`` through
+    ``cli.train.build_trainer`` in one process, fed each run's first global
+    batch regrouped in rank order; its loss, and the relative L2 distance
+    of its gradient at the clip to the run's, in full and in direction
+    alone (each side scaled to norm 1, as a clip that bites leaves it)."""
+    import torch
+
+    from ml_recipe_tpu_torch.cli import train as train_cli
+    from ml_recipe_tpu_torch.config.parser import (
+        get_model_parser, get_params, get_trainer_parser)
+    from ml_recipe_tpu_torch.parallel import regroup_for_world
+
+    torch.cuda.set_device(0)
+    deadline = time.monotonic() + DP_DEADLINE_S
+    _, (params, model_params) = get_params(
+        (get_trainer_parser, get_model_parser),
+        [*DP_CFG, "--vocab_file", str(OUT_DIR / "vocab.txt"), "--dump_dir",
+         str(DP_DIR / "oracle")])
+    params.n_jobs = max(1, min(params.n_jobs, (os.cpu_count() or 2) // 2))
+    trainer = train_cli.build_trainer(params, model_params)
+    init = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+    result, captured = {}, {}
+    _capture_pre_clip_grads(torch, captured)
+    for kind in ("clean", "fault"):
+        captured.clear()
+        out = DP_DIR / kind
+        _wait_for([out / f"rank{r}.json" for r in range(DP_WORLD)], deadline)
+        # each run's own first global batch (test_bert.cfg's seed=None draws
+        # each process's dummy items anew), from the same parameters
+        batches = [torch.load(out / f"batch{r}.pt") for r in range(DP_WORLD)]
+        inputs, labels = (
+            {k: v.cuda() for k, v in regroup_for_world(
+                {k: torch.cat([b[i][k] for b in batches]) for k in
+                 batches[0][i]}, DP_WORLD, trainer.batch_split).items()}
+            for i in range(2))
+        with torch.no_grad():
+            for n, p in trainer.model.named_parameters():
+                p.copy_(init[n])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        values = trainer.train_step(inputs, labels)
+        torch.cuda.synchronize()
+        result[f"{kind}_step_seconds"] = time.perf_counter() - t0
+        result[f"{kind}_loss"] = values["loss"]
+        result["micro_rows"] = (int(inputs["input_ids"].shape[0])
+                                // trainer.batch_split)
+        grads = captured["grads"]
+        result[f"{kind}_grad_norm"] = float(grads.norm())
+        for r in range(DP_WORLD):
+            path = out / f"grads{r}.pt"
+            if path.exists():
+                got = torch.load(path)
+                result[f"{kind}{r}"] = float((got - grads).norm()
+                                             / grads.norm())
+                result[f"{kind}{r}_direction"] = float(
+                    (got / got.norm() - grads / grads.norm()).norm())
+                result[f"{kind}{r}_grad_norm"] = float(got.norm())
+        if kind == "fault":
+            # each rank's own gradient (rank 0 reduced only zeros from rank
+            # 1): how parallel the two halves of the sum are
+            g0, g1 = (torch.load(out / f"grads{r}.pt") for r in range(2))
+            result["fault_cosine"] = float(g0 @ g1 / (g0.norm() * g1.norm()))
+    (DP_DIR / "oracle.json").write_text(json.dumps(result))
+    return 0
+
+
+def dp_nccl() -> int:
+    """Phase 11 (b): a one-rank NCCL group runs the bucketed gradient
+    all-reduce and the parameter broadcast over bert-base's parameter set;
+    each must give back its input bit for bit. It joins and builds at once
+    and times when the rest of the phase is done, alone on the card."""
+    import torch
+
+    from ml_recipe_tpu_torch.models import EncoderConfig, QAModel
+    from ml_recipe_tpu_torch.parallel import collectives
+    from ml_recipe_tpu_torch.parallel import dist as pdist
+
+    dev = torch.device("cuda", 0)
+    pdist.initialize_distributed(
+        init_method=f"tcp://127.0.0.1:{_free_port()}", world_size=1, rank=0,
+        backend="nccl", device=dev)
+    try:
+        model = QAModel(EncoderConfig(), dtype=torch.bfloat16, device=dev)
+        named = list(model.named_parameters())
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for _, p in named:
+            p.grad = torch.randn(p.shape, device=dev, generator=gen)
+        want = [p.grad.clone() for _, p in named]
+        params = [p.detach().clone() for _, p in named]
+        result = {"backend": pdist.backend(), "params": sum(
+            p.numel() for _, p in named), "reduce_ms": [], "broadcast_ms": []}
+        _wait_for([DP_DIR / "oracle.json"],
+                  time.monotonic() + DP_DEADLINE_S)
+        equal = True
+        for _ in range(4):
+            for key, fn in (("reduce_ms", collectives.all_reduce_gradients),
+                            ("broadcast_ms", collectives.broadcast_parameters)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                result["buckets"] = fn(named)
+                torch.cuda.synchronize()
+                result[key].append((time.perf_counter() - t0) * 1e3)
+            equal &= all(torch.equal(p.grad, g) for (_, p), g in
+                         zip(named, want))
+            equal &= all(torch.equal(p.detach(), q) for (_, p), q in
+                         zip(named, params))
+        result["equal"] = bool(equal)
+    finally:
+        pdist.shutdown()
+    (DP_DIR / "nccl.json").write_text(json.dumps(result))
+    return 0
+
+
+def _spawn(args, log: Path):
+    with open(log, "w") as fh:
+        return subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), *map(str, args)],
+            cwd=str(REPO), stdout=fh, stderr=subprocess.STDOUT)
+
+
+def _join(procs, deadline: float) -> None:
+    for name, (proc, log) in procs.items():
+        try:
+            rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            fail(f"data parallel: {name} outlived its deadline; its log ends "
+                 f"{log.read_text()[-3000:]}")
+        if rc != 0:
+            fail(f"data parallel: {name} exited {rc}; its log ends "
+                 f"{log.read_text()[-3000:]}")
+
+
+def _dp_pair(kind: str) -> dict:
+    port = _free_port()
+    return {f"{kind} rank {r}": (
+        _spawn(["--dp-worker", kind, r, port], DP_DIR / f"{kind}{r}.log"),
+        DP_DIR / f"{kind}{r}.log") for r in range(DP_WORLD)}
+
+
+def phase_data_parallel(torch):
+    """Phase 11: ``cli.train`` as two ranks sharing the one card over gloo,
+    its oracle and a planted fault, and a one-rank NCCL group. Returns the
+    ranks' launch counts, summed."""
+    import shutil
+
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    DP_DIR.mkdir(parents=True)
+    deadline = time.monotonic() + DP_DEADLINE_S
+    t0 = time.perf_counter()
+    procs = {}
+    try:
+        clean = _dp_pair("clean")
+        procs.update(clean)
+        procs["oracle"] = (_spawn(["--dp-oracle"], DP_DIR / "oracle.log"),
+                           DP_DIR / "oracle.log")
+        procs["nccl"] = (_spawn(["--dp-nccl"], DP_DIR / "nccl.log"),
+                         DP_DIR / "nccl.log")
+        _join(clean, deadline)
+        procs.update(_dp_pair("fault"))
+        _join(procs, deadline)
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+
+    runs = {kind: [json.loads((DP_DIR / kind / f"rank{r}.json").read_text())
+                   for r in range(DP_WORLD)] for kind in ("clean", "fault")}
+    oracle = json.loads((DP_DIR / "oracle.json").read_text())
+    ranks = runs["clean"]
+    r0 = ranks[0]
+    layers, split = r0["layers"], r0["batch_split"]
+    micro = len(r0["steps"]) * split
+    evals = r0["eval_batches"]
+    want = {"fused_attention_fwd": layers * (micro + evals),
+            "fused_attention_bwd": layers * micro,
+            "layer_norm_fwd": LN_PER_FORWARD * (micro + evals),
+            "layer_norm_bwd": LN_PER_FORWARD * micro, "q8_matmul": 0,
+            "q8_quantize": 0}
+    for r, rec in enumerate(ranks):
+        say(f"data parallel: rank {r} of {rec['world']} (gloo, CUDA tensors, "
+            f"sharing the card, "
+            f"{rec['device']}): {len(rec['steps'])} steps of {split} "
+            f"micro-batches of {rec['local_rows'] // split}x512 "
+            f"({rec['local_rows']} of {rec['steps'][0]['rows']} rows) + "
+            f"{rec['eval_batches']} eval batches in {rec['wall']:.1f}s; step "
+            f"wall seconds {[round(s['seconds'], 3) for s in rec['steps']]}; "
+            f"gradient all-reduce ms {[round(x, 1) for x in rec['reduce_ms']]}"
+            f" (~110M f32 over gloo: a host path, no measure of NCCL); loss {[round(s['loss'], 4) for s in rec['steps']]}; launch "
+            f"counts {rec['launched']}, expected {want}")
+    per_micro = {k: v / (micro + evals) if k.endswith("fwd") else v / micro
+                 for k, v in r0["launched"].items() if want[k]}
+    say(f"data parallel: launches per micro-batch and rank {per_micro} "
+        f"(forward per micro-batch and eval batch); phase wall {wall:.1f}s")
+    rows = 256
+    if micro != 16 or evals != 22 or r0["local_rows"] != rows // DP_WORLD \
+            or r0["steps"][0]["rows"] != rows or r0["world"] != DP_WORLD:
+        fail(f"the data-parallel run is not test_bert.cfg's 2 debug steps of "
+             f"{rows // DP_WORLD} rows per rank in 8 micro-batches")
+    if any(rec["launched"] != want for rec in ranks):
+        fail("launch counts do not match the data-parallel training path")
+    if any([(s["loss"], s["lr"]) for s in rec["steps"]] !=
+           [(s["loss"], s["lr"]) for s in r0["steps"]] for rec in ranks):
+        fail("the ranks logged other step losses")
+    if not all(np.isfinite(s["loss"]) for s in r0["steps"]):
+        fail("a data-parallel training loss is not finite")
+    same = len({rec["digest"] for rec in ranks}) == 1
+    fault_same = len({rec["digest"] for rec in runs["fault"]}) == 1
+    rel = oracle["clean0"]
+    faults = [oracle[f"fault{r}"] for r in range(DP_WORLD)]
+    loss, want_loss = r0["steps"][0]["loss"], oracle["clean_loss"]
+    loss_rel = abs(loss - want_loss) / abs(want_loss)
+    fault_norms = [round(oracle[f"fault{r}_grad_norm"], 4)
+                   for r in range(DP_WORLD)]
+    fault_dirs = [f"{oracle[f'fault{r}_direction']:.3e}"
+                  for r in range(DP_WORLD)]
+    say(f"data parallel: replicas after the run bit-identical: {same}; "
+        f"first step against the one-process step on the regrouped global "
+        f"batch ({oracle['micro_rows']}x512 micro-batches, "
+        f"{oracle['clean_step_seconds']:.2f}s): loss {loss!r} against "
+        f"{want_loss!r}, relative {loss_rel:.3e} (tol {DP_LOSS_REL_TOL:g}); "
+        f"gradient at the clip (norm {oracle['clean0_grad_norm']:.4g} against "
+        f"{oracle['clean_grad_norm']:.4g}) relative L2 {rel:.3e} (tol "
+        f"{DP_GRAD_REL_TOL:g}), in direction alone "
+        f"{oracle['clean0_direction']:.3e}; planted fault (rank 1 skips the "
+        f"all-reduce): ranks {[f'{x:.3e}' for x in faults]} "
+        f"({min(faults) / DP_GRAD_REL_TOL:.0f}x the tolerance; norms "
+        f"{fault_norms} against {oracle['fault_grad_norm']:.4g}; in "
+        f"direction alone {fault_dirs}; the ranks' own gradients' cosine "
+        f"{oracle['fault_cosine']:.4f}), replicas equal: {fault_same}")
+    if not same:
+        fail("the data-parallel replicas differ")
+    if not (np.isfinite(loss_rel) and loss_rel <= DP_LOSS_REL_TOL):
+        fail("the first step's loss disagrees with the one-process step")
+    if not (np.isfinite(rel) and rel <= DP_GRAD_REL_TOL):
+        fail("the all-reduced gradient disagrees with the one-process step")
+    if not min(faults) >= DP_FAULT_FACTOR * DP_GRAD_REL_TOL or fault_same:
+        fail("the planted fault was not caught")
+    nccl = json.loads((DP_DIR / "nccl.json").read_text())
+    say(f"data parallel (b): one-rank {nccl['backend']} group, bucketed "
+        f"all-reduce of {nccl['params']} f32 gradients in {nccl['buckets']} "
+        f"buckets ms {[round(x, 2) for x in nccl['reduce_ms']]}, broadcast "
+        f"ms {[round(x, 2) for x in nccl['broadcast_ms']]}; equal to its "
+        f"input: {nccl['equal']} (one card: says nothing of several)")
+    if nccl["backend"] != "nccl" or not nccl["equal"]:
+        fail("the one-rank NCCL round trip is not exact")
+
+    # the extra hidden-dropout RNG of a rank: each of a micro-batch's masks
+    # is drawn at the global micro-batch's shape (2 x 16 rows) instead of
+    # its own 16 rows
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    m = r0["local_rows"] // split
+    rng_ms = {rows: time_ms(torch, lambda rows=rows: [torch.rand(
+        (rows, 512, 768), generator=gen, device="cuda")
+        for _ in range(DP_HIDDEN_DRAWS)], reps=9, warm=2)
+        for rows in (m, DP_WORLD * m)}
+    say(f"data parallel: a micro-batch's {DP_HIDDEN_DRAWS} hidden-dropout "
+        f"masks' uniforms {rng_ms[m]:.4f} ms at {m}x512x768, "
+        f"{rng_ms[DP_WORLD * m]:.4f} ms at the global {DP_WORLD * m}x512x768: "
+        f"{rng_ms[DP_WORLD * m] - rng_ms[m]:.4f} ms more per rank and "
+        f"micro-batch (CUDA events)")
+    return {k: sum(rec["launched"][k] for rec in ranks)
+            for k in r0["launched"]}
 
 
 def main() -> int:
@@ -2545,6 +3027,8 @@ def main() -> int:
     nq_val8 = phase_nq_validate(torch, nq, nq_train.ckpt,
                                 bf16=nq_val.candidates)
     nq_metrics = phase_nq_train_metrics(torch, nq, nq_train)
+    torch.cuda.empty_cache()
+    dp = phase_data_parallel(torch)
     nq_fwd = {"nq training": nq_train.launched["fused_attention_fwd"],
               "validate": nq_val.launched["fused_attention_fwd"],
               "validate int8": nq_val8.launched["fused_attention_fwd"],
@@ -2616,18 +3100,21 @@ def main() -> int:
     new_kernels = [
         entry("layer_norm_fwd", "ml_recipe_tpu/ops/layer_norm.py:84",
               int8["layer_norm_fwd"] + ln_train["layer_norm_fwd"]
-              + nq_val8.launched["layer_norm_fwd"],
+              + nq_val8.launched["layer_norm_fwd"] + dp["layer_norm_fwd"],
               ln_fwd_err, ln_fwd, "16384x768 bf16 (32x512, training)",
               source="layer_norm",
               launches_by_path={**int8_paths("layer_norm_fwd"),
-                                "training fused": ln_train["layer_norm_fwd"]},
+                                "training fused": ln_train["layer_norm_fwd"],
+                                "data parallel": dp["layer_norm_fwd"]},
               device_ms=ln_fwd["device_ms"], host_ms=ln_fwd["host_ms"],
               at_32x384={k: ln_serve[k] for k in (
                   "ms", "device_ms", "host_ms", "plain_ms", "library_ms",
                   "bound_ms", "with_codes")}),
         entry("layer_norm_bwd", "ml_recipe_tpu/ops/layer_norm.py:96",
-              ln_train["layer_norm_bwd"], ln_bwd_err, ln_bwd,
-              "16384x768 bf16 (32x512, training)", source="layer_norm",
+              ln_train["layer_norm_bwd"] + dp["layer_norm_bwd"], ln_bwd_err,
+              ln_bwd, "16384x768 bf16 (32x512, training)", source="layer_norm",
+              launches_by_path={"training fused": ln_train["layer_norm_bwd"],
+                                "data parallel": dp["layer_norm_bwd"]},
               device_ms=ln_bwd["device_ms"], host_ms=ln_bwd["host_ms"],
               device_ms_by_kernel=ln_bwd["split_ms"],
               by_shape={f"{N}x{C}": {k: t[k] for k in (
@@ -2655,11 +3142,13 @@ def main() -> int:
         "source": "ml_recipe_tpu_torch/csrc/fused_attention_fwd.cu",
         "replaces": "ml_recipe_tpu/ops/flash_attention.py:129",
         "launches": (serving_fwd + train_fwd + int8["fused_attention_fwd"]
-                     + ln_train["fused_attention_fwd"] + sum(nq_fwd.values())),
+                     + ln_train["fused_attention_fwd"] + sum(nq_fwd.values())
+                     + dp["fused_attention_fwd"]),
         "launches_by_path": {"serving": serving_fwd, "training": train_fwd,
                              "serving int8": int8["fused_attention_fwd"],
                              "training fused": ln_train["fused_attention_fwd"],
-                             **nq_fwd},
+                             **nq_fwd,
+                             "data parallel": dp["fused_attention_fwd"]},
         "max_abs_err": fwd_err,
         "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"],
@@ -2674,11 +3163,13 @@ def main() -> int:
         "source": "ml_recipe_tpu_torch/csrc/fused_attention_bwd.cu",
         "replaces": "ml_recipe_tpu/ops/flash_attention.py:266",
         "launches": (train_bwd + ln_train["fused_attention_bwd"]
-                     + nq_train.launched["fused_attention_bwd"]),
+                     + nq_train.launched["fused_attention_bwd"]
+                     + dp["fused_attention_bwd"]),
         "launches_by_path": {"serving": 0, "training": train_bwd,
                              "training fused": ln_train["fused_attention_bwd"],
                              "nq training":
-                                 nq_train.launched["fused_attention_bwd"]},
+                                 nq_train.launched["fused_attention_bwd"],
+                             "data parallel": dp["fused_attention_bwd"]},
         "max_abs_err": bwd_err,
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],
@@ -2696,4 +3187,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    # phase 11 starts this script again as its worker processes
+    if sys.argv[1:2] == ["--dp-worker"]:
+        kind, rank, port = sys.argv[2:]
+        sys.exit(dp_worker(kind, int(rank), int(port)))
+    if sys.argv[1:] == ["--dp-oracle"]:
+        sys.exit(dp_oracle())
+    if sys.argv[1:] == ["--dp-nccl"]:
+        sys.exit(dp_nccl())
     sys.exit(main())

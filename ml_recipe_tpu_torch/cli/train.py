@@ -5,6 +5,13 @@ Usage::
     python -m ml_recipe_tpu_torch.cli.train -c config/test_bert.cfg \\
         --vocab_file V --dump_dir D [--device cpu --model bert-tiny ...]
 
+Data parallelism over W processes, one command per rank r (the JAX
+package's contract, which ``scripts/worker.sh`` maps from the launcher's
+environment)::
+
+    python -m ml_recipe_tpu_torch.cli.train -c config/test_bert.cfg ... \\
+        --dist_world_size W --local_rank r --dist_init_method tcp://HOST:PORT
+
 Parses the trainer and model flags (the JAX package's names and defaults,
 plus ``--device``), refuses the flags of subsystems the port lacks
 (``check_train_flags``), writes ``trainer.cfg``/``model.cfg`` into the
@@ -13,9 +20,14 @@ experiment directory, builds model, datasets, loss and ``Trainer``, and runs
 Without ``--dummy_dataset`` the datasets come from the NQ corpus at
 ``--data_path``, preprocessed into ``--processed_data_path`` (cleared
 first with ``--clear_processed``).
-``KeyboardInterrupt`` or ``SIGTERM`` saves ``interrupt.ch``. One process on
-one device: ``--dist_world_size`` > 1, or ``WORLD_SIZE`` > 1 in the
-environment, raises (DDP is ROADMAP.md queue 1).
+``KeyboardInterrupt`` or ``SIGTERM`` saves ``interrupt.ch``.
+
+With ``--dist_world_size`` W > 1 each process joins the world before any
+CUDA use (NCCL on CUDA, gloo with ``--device cpu``; ``parallel/dist.py``)
+and runs on ``cuda:(r % device count)``; rank 0 alone writes the log file,
+``trainer.cfg``/``model.cfg``, the TensorBoard events and the single-file
+checkpoints, and prepares the dataset while the others wait. The step and
+its semantics are the trainer's (``train/trainer.py``).
 """
 
 from __future__ import annotations
@@ -28,7 +40,12 @@ import sys
 import threading
 from datetime import datetime
 
-from ..compose import init_collate_fun, init_datasets, init_loss, init_model
+from ..compose import (
+    init_collate_fun,
+    init_loss,
+    init_model,
+    init_shared_datasets,
+)
 from ..config.parser import (
     check_train_flags,
     get_model_parser,
@@ -37,6 +54,7 @@ from ..config.parser import (
     write_config_file,
 )
 from ..data.labels import labels2id
+from ..parallel import dist as pdist
 from ..train.callback import AccuracyCallback, MAPCallback, SaveBestCallback
 from ..train.trainer import Trainer
 from ..utils.device import resolve_device
@@ -47,16 +65,19 @@ logger = logging.getLogger(__name__)
 
 def build_trainer(params, model_params) -> Trainer:
     """Model, datasets, loss and ``Trainer`` from the parsed flags, resumed
-    from ``--last`` when given."""
+    from ``--last`` when given; in a data-parallel world, on this rank's
+    device."""
     check_train_flags(params, model_params)
-    device = resolve_device(params.device)
+    device = resolve_device(
+        pdist.rank_device(params.device, pdist.process_index())
+        if pdist.process_count() > 1 else params.device)
     rng_pool = set_seed(params.seed)
     data_rng = rng_pool.host_rng("chunk_sampling") if rng_pool else None
     seed = params.seed if params.seed is not None else 0
 
     model, tokenizer = init_model(model_params, rng_seed=seed, device=device,
                                   train=True)
-    train_dataset, test_dataset, train_weights = init_datasets(
+    train_dataset, test_dataset, train_weights = init_shared_datasets(
         params, tokenizer=tokenizer, clear=params.clear_processed,
         rng=data_rng)
     trainer = Trainer(
@@ -131,22 +152,36 @@ def run_worker(params, model_params) -> Trainer:
     return train(build_trainer(params, model_params), params)
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> Trainer:
+    """Parse, set up logging and the cfg files (rank 0), join the world
+    (``--dist_world_size`` > 1), build and train; leaves the world at the
+    end and returns the trainer."""
     (parser, model_parser), (params, model_params) = get_params(
         (get_trainer_parser, get_model_parser), argv)
     exp_dir = params.dump_dir / params.experiment_name
     os.makedirs(exp_dir, exist_ok=True)
-    params.log_file = exp_dir / f'{datetime.now().strftime("%d-%m-%Y_%H-%M-%S")}.log'
+    # the reference's local_rank in [-1, 0] gate
+    primary = params.dist_world_size <= 1 or params.local_rank in (-1, 0)
+    params.log_file = (
+        exp_dir / f'{datetime.now().strftime("%d-%m-%Y_%H-%M-%S")}.log'
+        if primary else None)
     params.n_jobs = max(1, min(params.n_jobs, (os.cpu_count() or 2) // 2))
+    handlers = [logging.StreamHandler(sys.stderr)]
+    if primary:
+        handlers.append(logging.FileHandler(params.log_file, mode="w"))
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
-        handlers=[logging.StreamHandler(sys.stderr),
-                  logging.FileHandler(params.log_file, mode="w")],
-    )
-    write_config_file(parser, params, exp_dir / "trainer.cfg")
-    write_config_file(model_parser, model_params, exp_dir / "model.cfg")
-    run_worker(params, model_params)
+        handlers=handlers)
+    if primary:
+        write_config_file(parser, params, exp_dir / "trainer.cfg")
+        write_config_file(model_parser, model_params, exp_dir / "model.cfg")
+    try:
+        # join before any CUDA use: NCCL binds the rank's device
+        pdist.initialize_from_params(params)
+        return run_worker(params, model_params)
+    finally:
+        pdist.shutdown()
 
 
 if __name__ == "__main__":

@@ -17,6 +17,7 @@ from .data.preprocessor import RawPreprocessor
 from .losses import WeightedLoss, build_loss
 from .models import QAModel, init_weights, resolve_model_config
 from .models.encoder import Embedding, Linear
+from .parallel.dist import barrier, is_primary
 from .tokenizer import Tokenizer
 from .utils.device import resolve_device
 
@@ -175,6 +176,21 @@ def init_datasets(params, *, tokenizer=None, clear: bool = False, rng=None):
     test_dataset = SplitDataset(params.processed_data_path,
                                 indexes=test_indexes, test=True, **common)
     return train_dataset, test_dataset, weights
+
+
+def init_shared_datasets(params, *, tokenizer=None, clear: bool = False,
+                         rng=None):
+    """:func:`init_datasets` as every process of a data-parallel world runs
+    it (the JAX ``cli/train.py``'s dataset preparation): rank 0 prepares
+    the processed split (clearing it first when ``clear``), the others wait
+    at a barrier and then load what it wrote. Alone, :func:`init_datasets`
+    itself."""
+    if is_primary():
+        out = init_datasets(params, tokenizer=tokenizer, clear=clear, rng=rng)
+    barrier("dataset_prep")
+    if not is_primary():
+        out = init_datasets(params, tokenizer=tokenizer, clear=False, rng=rng)
+    return out
 
 
 def init_validation_dataset(params, *, tokenizer=None, clear: bool = False,

@@ -568,18 +568,22 @@ def get_trainer_parser() -> ConfigArgumentParser:
     parser.add_argument("--dummy_dataset", action="store_true",
                         help="Use generated dataset instead real data.")
 
-    # Distributed: reference names preserved, XLA semantics underneath.
+    # Distributed: the reference's names, torch.distributed underneath
+    # (parallel/dist.py).
     parser.add_argument("--local_rank", type=int, default=-1,
-                        help="Process index of this host (reference name kept; feeds "
-                             "jax.distributed.initialize process_id).")
+                        help="Rank of this process (0 .. dist_world_size-1); "
+                             "it runs on cuda:(rank %% device count) unless "
+                             "--device names an index.")
     parser.add_argument("--dist_backend", type=str, default="xla", choices=["xla", "nccl"],
-                        help="Accepted for compatibility; collectives always run "
-                             "through XLA over ICI/DCN.")
+                        help="Process-group backend: 'xla' (the JAX package's "
+                             "default) is NCCL on CUDA and gloo on the CPU; "
+                             "'nccl' is NCCL.")
     parser.add_argument("--dist_init_method", type=str, default="tcp://127.0.0.1:9080",
-                        help="Coordinator address (host:port); tcp:// prefix accepted "
-                             "for reference compatibility.")
+                        help="Rendezvous address, tcp://HOST:PORT (rank 0 "
+                             "listens there).")
     parser.add_argument("--dist_world_size", type=int, default=1,
-                        help="Number of host processes.")
+                        help="Number of data-parallel processes, one per GPU "
+                             "(or on the CPU with --device cpu).")
     parser.add_argument("--mesh", type=cast2(str), default=None,
                         help=MESH_HELP)
 
@@ -996,14 +1000,12 @@ _IGNORED_TRAIN_FLAGS = (
     "gpu", "sync_bn", "autotune", "autotune_cache", "aot_cache",
     "aot_cache_bytes", "hbm_preflight", "apex_level", "apex_verbosity",
     "precision", "pipe_schedule", "pipe_param_sharding", "zero1_bucket_mb",
-    "dist_backend", "dist_init_method", "local_rank", "anomaly_factor",
-    "anomaly_window", "flightrec_events", "max_restarts", "backoff_base",
-    "backoff_max", "crash_loop_window", "min_world", "host_timeout",
-    "coord_poll", "pack_max_segments", "pack_min_fragment",
+    "anomaly_factor", "anomaly_window", "flightrec_events", "max_restarts",
+    "backoff_base", "backoff_max", "crash_loop_window", "min_world",
+    "host_timeout", "coord_poll", "pack_max_segments", "pack_min_fragment",
 )
 
 _TRAINING = "queue 1, 'Training: the parts still to port'"
-_DDP = "queue 1, 'Data-parallel training (DDP)'"
 _PARALLEL = "queue 1, 'Parallelism beyond data parallelism'"
 _OBSERVE = "queue 1, 'Runtime subsystems'"
 
@@ -1017,13 +1019,32 @@ def _world_size_from_env() -> int:
 
 def check_train_flags(params, model_params) -> None:
     """Refuse trainer flags whose subsystem the port lacks and which would
-    change results away from their defaults; log the ignored ones once."""
+    change results away from their defaults; log the ignored ones once.
+
+    The world comes from the flags (``--dist_world_size``, ``--local_rank``,
+    ``--dist_init_method``), as in the JAX CLI; a launcher's ``WORLD_SIZE``
+    > 1 that the flags do not repeat raises (``scripts/worker.sh`` maps the
+    environment onto the flags), and so does the elastic supervisor's
+    world override."""
     _check_ln_impl(model_params)
+    world = int(params.dist_world_size)
+    if world < 1 or (world > 1 and not 0 <= params.local_rank < world):
+        raise ValueError(f"--dist_world_size {world} needs --local_rank in "
+                         f"0..{world - 1}; got {params.local_rank}")
+    env_world = _world_size_from_env()
+    if env_world > 1 and env_world != world:
+        raise ValueError(
+            f"WORLD_SIZE={env_world} in the environment, but "
+            f"--dist_world_size {world}: launch each rank with "
+            f"--dist_world_size/--local_rank/--dist_init_method "
+            f"(scripts/worker.sh maps the environment onto them)")
+    from ..parallel.dist import refuse_elastic_world
+
+    refuse_elastic_world()
+    zero1 = params.shard_optimizer or params.optimizer_sharding == "zero1"
     checks = [
-        (params.dist_world_size > 1, "dist_world_size", params.dist_world_size,
-         _DDP),
-        (_world_size_from_env() > 1, "WORLD_SIZE (environment)",
-         os.environ.get("WORLD_SIZE"), _DDP),
+        (world > 1 and zero1, "optimizer_sharding",
+         "zero1 at dist_world_size > 1", _PARALLEL),
         (params.mesh is not None, "mesh", params.mesh, _PARALLEL),
         (params.zero1_overlap not in (None, "off"), "zero1_overlap",
          params.zero1_overlap, _PARALLEL),
@@ -1064,7 +1085,7 @@ def check_train_flags(params, model_params) -> None:
     for bad, flag, value, item in checks:
         if bad:
             raise _not_ported(flag, value, item)
-    if params.shard_optimizer or params.optimizer_sharding == "zero1":
+    if zero1:
         # the JAX trainer on a one-chip mesh: the ZeRO-1 plan is None and
         # checkpoints record opt_sharding 'off' (world size > 1 raised above)
         logger.info("--optimizer_sharding zero1 (--shard_optimizer) is inert "

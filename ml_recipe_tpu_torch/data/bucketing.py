@@ -1,6 +1,5 @@
-"""Length-bucketed token-budget batching (a copy of the single-process parts
-of ``ml_recipe_tpu/data/bucketing.py`` and of the step planner in
-``ml_recipe_tpu/data/packing.py``).
+"""Length-bucketed token-budget batching (a copy of
+``ml_recipe_tpu/data/bucketing.py``).
 
 Items go to the smallest bucket seq that fits them and are padded to that
 bucket; the per-bucket batch size scales inversely with the seq so every
@@ -8,8 +7,9 @@ step carries about the same number of tokens (the token budget). The loader
 walks the sampler's deterministic epoch ordering, so the batches match the
 JAX loader's element for element. :meth:`BucketedDataLoader.
 planned_epoch_steps` is the length-only simulation the LR schedule is sized
-from. Multi-host planning (the shared length oracle) waits for DDP
-(ROADMAP.md queue 1).
+from (``data/packing.py`` ``plan_scaled_count``). With more than one
+process every process plans the same global batches from the shared length
+oracle (``data/packing.py``) and collates its row slice of each.
 """
 
 from __future__ import annotations
@@ -19,19 +19,18 @@ from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
-import numpy as np
-
 from .collate import rebind_collate_seq
 from .loader import read_with_retry
+from .packing import (
+    _oracle_epoch_key,
+    oracle_epoch_lengths,
+    oracle_read,
+    plan_scaled_count,
+)
 
 logger = logging.getLogger(__name__)
 
 DEFAULT_NUM_BUCKETS = 4
-
-# LR-schedule planning reads item LENGTHS, which means materializing items;
-# past this many items the planner simulates on the epoch ordering's prefix
-# and scales the step count (packing.py's PLAN_SAMPLE_ITEMS)
-PLAN_SAMPLE_ITEMS = 4096
 
 
 def auto_seq_grid(max_seq_len: int, n_buckets: int = DEFAULT_NUM_BUCKETS) -> List[int]:
@@ -146,30 +145,6 @@ class TokenBudgetBucketer:
                 yield seq, pending
 
 
-def _epoch_item_lengths(dataset, indices: List[int], *, cache: Dict[int, int],
-                        n_jobs: int, read_retries: int) -> List[int]:
-    """Item lengths in epoch order, each unique index read once (``cache``
-    persists across epochs). A dataset's chunk-sampling ``rng``, when it has
-    one, is swapped for a throwaway during the reads so planning never
-    perturbs the training draw stream."""
-    missing = sorted({i for i in indices if i not in cache})
-    if missing:
-        saved_rng = getattr(dataset, "rng", None)
-        if saved_rng is not None:
-            dataset.rng = np.random.default_rng(0)
-        try:
-            with ThreadPoolExecutor(max_workers=max(1, n_jobs)) as pool:
-                items = pool.map(
-                    lambda i: read_with_retry(dataset, i, retries=read_retries),
-                    missing)
-                for idx, item in zip(missing, items):
-                    cache[idx] = len(item.input_ids)
-        finally:
-            if saved_rng is not None:
-                dataset.rng = saved_rng
-    return [cache[i] for i in indices]
-
-
 class BucketedDataLoader:
     """Prefetching loader producing bucket-homogeneous collated batches.
 
@@ -177,13 +152,20 @@ class BucketedDataLoader:
     thread pool in submission order, and groups them by length bucket under
     the token budget. Train mode (``pad_last=False``) drops the partial
     bucket tails at epoch end; eval mode pads them by repeating the last
-    real item and reports ``real_rows``."""
+    real item and reports ``real_rows``.
+
+    More than one process (``sampler.process_count > 1``): every process
+    plans the same epoch from the shared length oracle and collates its
+    contiguous row slice of each planned global batch (:meth:`_iter_oracle`);
+    ``rows`` and ``real_rows`` of the batches stay global counts."""
 
     def __init__(self, dataset, sampler, collate_fun, *,
                  seq_grid: Sequence[int], token_budget: Optional[int] = None,
                  batch_multiple: int = 1, n_jobs: int = 4,
                  read_window: Optional[int] = None, read_retries: int = 3,
                  pad_last: bool = False):
+        self.process_index = int(getattr(sampler, "process_index", 0))
+        self.process_count = int(getattr(sampler, "process_count", 1))
         self.dataset = dataset
         self.sampler = sampler
         self.collate_fun = collate_fun
@@ -199,10 +181,24 @@ class BucketedDataLoader:
         self._epoch = 0
         self._collates: Dict[int, object] = {}
         self._last_stats: Optional[dict] = None
-        self._len_cache: Dict[int, int] = {}
+        # planning metas (length, start_id, end_id), keyed by index or, under
+        # the oracle, by (epoch key, index)
+        self._len_cache: dict = {}
+        self.rescale(batch_multiple)
+
+    def rescale(self, batch_multiple: int) -> Dict[int, int]:
+        """(Re)derive the per-bucket batch sizes for a divisibility
+        multiple (``batch_split``, times the process count when there is
+        more than one), before iteration starts."""
         self.batch_multiple = max(1, int(batch_multiple))
+        if self.process_count > 1 and self.batch_multiple % self.process_count:
+            raise ValueError(
+                f"batch_multiple {self.batch_multiple} must divide over "
+                f"{self.process_count} processes (each collates its "
+                f"contiguous row slice of every planned global bucket batch)")
         self.batch_sizes = bucket_batch_sizes(
             self.seq_grid, self.token_budget, multiple=self.batch_multiple)
+        return self.batch_sizes
 
     def set_epoch(self, epoch: int) -> None:
         self._epoch = epoch
@@ -214,19 +210,23 @@ class BucketedDataLoader:
     def planned_epoch_steps(self, epoch: int) -> int:
         """Planned batch count of one epoch: the bucketer simulated over the
         epoch's item lengths (prefix-bounded by ``PLAN_SAMPLE_ITEMS`` and
-        scaled back), plus the eval tails when ``pad_last``."""
-        order = [int(i) for i in self.sampler.epoch_indices(epoch)]
-        prefix = order[:PLAN_SAMPLE_ITEMS]
-        lengths = _epoch_item_lengths(
-            self.dataset, prefix, cache=self._len_cache, n_jobs=self.n_jobs,
-            read_retries=self.read_retries)
-        bucketer = TokenBudgetBucketer(self.seq_grid, self.batch_sizes)
-        count = sum(1 for length in lengths
-                    if bucketer.add(length, None) is not None)
-        tail = sum(1 for _ in bucketer.flush()) if self.pad_last else 0
-        if lengths and len(order) > len(lengths):
-            count = int(round(count * len(order) / len(lengths)))
-        return count + tail
+        scaled back), plus the eval tails when ``pad_last``. With more than
+        one process the lengths come from the oracle, so every process
+        plans the same count."""
+        tail = [0]
+
+        def simulate(lengths):
+            bucketer = TokenBudgetBucketer(self.seq_grid, self.batch_sizes)
+            count = sum(1 for length in lengths
+                        if bucketer.add(length, None) is not None)
+            if self.pad_last:
+                tail[0] = sum(1 for _ in bucketer.flush())
+            return count
+
+        return plan_scaled_count(
+            self.dataset, self.sampler, epoch, cache=self._len_cache,
+            n_jobs=self.n_jobs, read_retries=self.read_retries,
+            simulate=simulate, oracle=self.process_count > 1) + tail[0]
 
     def _collate_for(self, seq: int):
         collate = self._collates.get(seq)
@@ -247,7 +247,70 @@ class BucketedDataLoader:
         return BucketedBatch(inputs=inputs, labels=labels, seq=seq,
                              real_rows=real, rows=rows)
 
+    def _iter_oracle(self):
+        """A multi-process epoch: the plan (which items form which ``(seq,
+        rows)`` batch, in which order) from the oracle lengths, the same on
+        every process; then each batch's local row slice read and
+        collated."""
+        indices = [int(i) for i in self.sampler.epoch_indices(self._epoch)]
+        self._last_stats = stats = {
+            "real_tokens": 0, "bucket_tokens": 0, "padmax_tokens": 0,
+            "batches": 0, "items": 0, "dropped_items": 0,
+        }
+        lengths = oracle_epoch_lengths(
+            self.dataset, indices, cache=self._len_cache, n_jobs=self.n_jobs,
+            read_retries=self.read_retries, epoch=self._epoch)
+        ek = _oracle_epoch_key(self.dataset, self._epoch)
+        bucketer = TokenBudgetBucketer(self.seq_grid, self.batch_sizes)
+        plan = []   # (seq, [(index, length)], real)
+        for idx, length in zip(indices, lengths):
+            emitted = bucketer.add(length, (idx, length))
+            if emitted is not None:
+                plan.append((emitted[0], emitted[1], len(emitted[1])))
+        for seq, tail_items in bucketer.flush():
+            if self.pad_last:
+                real = len(tail_items)
+                pad = self.batch_sizes[seq] - real
+                plan.append((seq, tail_items + [tail_items[-1]] * pad, real))
+            else:
+                stats["dropped_items"] += len(tail_items)
+
+        def submit(pool, entries):
+            local_rows = len(entries) // self.process_count
+            lo = self.process_index * local_rows
+            return [pool.submit(oracle_read, self.dataset, idx,
+                                retries=self.read_retries, epoch=ek)
+                    for idx, _ in entries[lo:lo + local_rows]]
+
+        # one pool for the epoch, reads submitted a batch ahead: the next
+        # batch's reads overlap this batch's collate and step
+        with ThreadPoolExecutor(max_workers=self.n_jobs) as pool:
+            pending: deque = deque()
+            for i in range(min(2, len(plan))):
+                pending.append(submit(pool, plan[i][1]))
+            for i, (seq, entries, real) in enumerate(plan):
+                futures = pending.popleft()
+                if i + 2 < len(plan):
+                    pending.append(submit(pool, plan[i + 2][1]))
+                items = [f.result() for f in futures]
+                inputs, labels = self._collate_for(seq)(items)[:2]
+                rows = len(entries)
+                stats["real_tokens"] += sum(n for _, n in entries[:real])
+                stats["bucket_tokens"] += rows * seq
+                stats["padmax_tokens"] += real * self.seq_grid[-1]
+                stats["batches"] += 1
+                stats["items"] += real
+                yield BucketedBatch(inputs=inputs, labels=labels, seq=seq,
+                                    real_rows=real, rows=rows)
+        if stats["dropped_items"]:
+            logger.info("Bucketed epoch dropped %d partial-bucket tail items "
+                        "(drop_last parity; they re-enter next epoch's "
+                        "shuffle).", stats["dropped_items"])
+
     def __iter__(self):
+        if self.process_count > 1:
+            yield from self._iter_oracle()
+            return
         indices = [int(i) for i in self.sampler.epoch_indices(self._epoch)]
         self._last_stats = stats = {
             "real_tokens": 0, "bucket_tokens": 0, "padmax_tokens": 0,

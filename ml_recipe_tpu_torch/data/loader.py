@@ -3,9 +3,10 @@ single-process parts).
 
 - :class:`ShardedBatchSampler`: one deterministic global index ordering per
   epoch, from ``np.random.SeedSequence([seed, epoch])`` (shuffled, or
-  weighted-with-replacement), chopped into global batches. The port runs
-  one process, so it yields whole global batches; the orderings match the
-  JAX loader's element for element.
+  weighted-with-replacement), chopped into global batches, of which it
+  yields this process's contiguous row slice (the whole batch in a
+  one-process run); the orderings and slices match the JAX loader's
+  element for element.
 - :class:`DataLoader`: a thread-pool prefetching loader producing collated
   fixed-shape numpy batches, in sampler order;
 - :class:`ListDataloader`: the predictor's loader over a dataset whose items
@@ -52,27 +53,37 @@ def read_with_retry(dataset, index: int, *, retries: int = 3,
 
 
 class ShardedBatchSampler:
-    """Deterministic batch index sampler (single process).
+    """Deterministic per-process batch index sampler.
 
     Each epoch: one global ordering (shuffled, or weighted-with-replacement
     when ``weights`` is given), chopped into batches of
-    ``global_batch_size``. ``drop_last`` mirrors the reference's train
-    loader; ``pad_last`` keeps the final partial batch at full shape by
-    repeating its last index (consumers trim with :meth:`valid_count`)."""
+    ``global_batch_size``, of which process ``process_index`` of
+    ``process_count`` gets rows ``[i*B/W, (i+1)*B/W)``. ``drop_last``
+    mirrors the reference's train loader; ``pad_last`` keeps the final
+    partial batch at full shape by repeating its last index (consumers trim
+    with :meth:`valid_count`, a count of the global batch)."""
 
     def __init__(
         self,
         dataset_len: int,
         global_batch_size: int,
         *,
+        process_index: int = 0,
+        process_count: int = 1,
         shuffle: bool = True,
         weights: Optional[Sequence[float]] = None,
         drop_last: bool = True,
         pad_last: bool = False,
         seed: int = 0,
     ):
+        if global_batch_size % process_count:
+            raise ValueError(f"global batch {global_batch_size} must divide "
+                             f"over {process_count} processes")
         self.dataset_len = dataset_len
         self.global_batch_size = global_batch_size
+        self.local_batch_size = global_batch_size // process_count
+        self.process_index = process_index
+        self.process_count = process_count
         self.shuffle = shuffle
         self.weights = None if weights is None else np.asarray(weights, dtype=np.float64)
         self.drop_last = drop_last
@@ -94,7 +105,7 @@ class ShardedBatchSampler:
         return np.arange(self.dataset_len)
 
     def valid_count(self, batch_index: int) -> int:
-        """Number of real (non-padding) rows in the given batch."""
+        """Number of real (non-padding) rows in the given global batch."""
         remaining = self.dataset_len - batch_index * self.global_batch_size
         return int(min(self.global_batch_size, max(remaining, 0)))
 
@@ -110,7 +121,8 @@ class ShardedBatchSampler:
                                   batch[-1] if len(batch) else 0,
                                   dtype=indices.dtype)
                     batch = np.concatenate([batch, pad])
-            yield batch
+            lo = self.process_index * self.local_batch_size
+            yield batch[lo:lo + self.local_batch_size]
 
 
 class DataLoader:

@@ -7,11 +7,12 @@ from .losses import (
     cross_entropy_with_ignore,
     focal_loss,
     label_smoothing_loss,
+    loss_denominator,
     mse_loss,
 )
 
 __all__ = [
     "WeightedLoss", "binary_focal_loss", "build_loss",
     "cross_entropy_with_ignore", "focal_loss", "label_smoothing_loss",
-    "mse_loss",
+    "loss_denominator", "mse_loss",
 ]

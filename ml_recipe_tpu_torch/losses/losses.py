@@ -17,6 +17,15 @@ The same functions, on torch tensors, with the JAX package's arithmetic:
   smooth``).
 
 All losses take f32 logits (the model promotes) and integer/float targets.
+
+Global denominators (data parallelism): each loss divides a sum over its
+rows by a denominator (valid rows, class-weight sums or rows), which
+:func:`loss_denominator` computes unclamped from the targets alone. A
+process holding some of a global micro-batch's rows passes the
+denominator summed over every process as ``denominator``; the loss clamps
+it and divides its own rows' sum by it, so the processes' losses (and
+gradients) sum to the loss over the whole micro-batch. Without
+``denominator`` every loss computes what it computed before, bit for bit.
 ``PackedWeightedLoss`` waits for sequence packing (ROADMAP.md queue 1).
 """
 
@@ -37,26 +46,43 @@ def _pick(x: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, -1, targets.long()[..., None])[..., 0]
 
 
+def _ce_row_weights(targets: torch.Tensor, ignore_index: int,
+                    class_weights: Optional[torch.Tensor]):
+    """``(safe targets, per-row weight)``: the weight is the target's class
+    weight (or 1), 0 where the target is ``ignore_index``."""
+    valid = targets != ignore_index
+    safe_targets = torch.where(valid, targets, torch.zeros_like(targets))
+    if class_weights is not None:
+        w = class_weights.to(targets.device)[safe_targets.long()] * valid
+        return safe_targets, w
+    return safe_targets, valid.float()
+
+
+def _ce_denominator(targets: torch.Tensor, *, ignore_index: int = -1,
+                    class_weights: Optional[torch.Tensor] = None,
+                    **_) -> torch.Tensor:
+    return torch.sum(_ce_row_weights(targets, ignore_index, class_weights)[1])
+
+
 def cross_entropy_with_ignore(
     logits: torch.Tensor,
     targets: torch.Tensor,
     *,
     ignore_index: int = -1,
     class_weights: Optional[torch.Tensor] = None,
+    denominator: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Mean NLL over rows whose target != ignore_index.
 
     With ``class_weights`` the mean is weighted by the target's class
-    weight (torch ``CrossEntropyLoss(weight=...)`` denominator semantics)."""
+    weight (torch ``CrossEntropyLoss(weight=...)`` denominator semantics).
+    ``denominator``: the global unclamped denominator (module docstring)."""
     log_probs = _log_softmax(logits)
-    valid = targets != ignore_index
-    safe_targets = torch.where(valid, targets, torch.zeros_like(targets))
+    safe_targets, w = _ce_row_weights(targets, ignore_index, class_weights)
     nll = -_pick(log_probs, safe_targets)
-    if class_weights is not None:
-        w = class_weights.to(nll.device)[safe_targets.long()] * valid
-        return torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1e-12)
-    valid_f = valid.float()
-    return torch.sum(nll * valid_f) / torch.clamp(torch.sum(valid_f), min=1.0)
+    den = torch.sum(w) if denominator is None else denominator
+    return torch.sum(nll * w) / torch.clamp(
+        den, min=1e-12 if class_weights is not None else 1.0)
 
 
 def label_smoothing_loss(
@@ -66,12 +92,14 @@ def label_smoothing_loss(
     n_classes: int,
     smoothing: float = 0.0,
     ignore_index: int = -100,
+    denominator: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     assert 0 <= smoothing <= 1
     log_probs = _log_softmax(logits)
     if smoothing <= 0:
         return cross_entropy_with_ignore(logits, targets,
-                                         ignore_index=ignore_index)
+                                         ignore_index=ignore_index,
+                                         denominator=denominator)
 
     num_ignore = 1 + (0 <= ignore_index < n_classes)
     fill_value = smoothing / (n_classes - num_ignore)
@@ -95,7 +123,23 @@ def label_smoothing_loss(
                           target_dist * torch.log(target_dist),
                           torch.zeros_like(target_dist))
     kl = torch.sum(t_log_t - target_dist * log_probs, dim=-1)
-    return torch.mean(kl)
+    return _mean(kl, denominator)
+
+
+def _mean(x: torch.Tensor, denominator: Optional[torch.Tensor]) -> torch.Tensor:
+    """``torch.mean(x)``, or ``x``'s sum over a global element count."""
+    return torch.mean(x) if denominator is None else torch.sum(x) / denominator
+
+
+def _numel_denominator(targets: torch.Tensor, **_) -> torch.Tensor:
+    return torch.tensor(float(targets.numel()), device=targets.device)
+
+
+def _smoothing_denominator(targets: torch.Tensor, *, smoothing: float = 0.0,
+                           ignore_index: int = -100, **_) -> torch.Tensor:
+    if smoothing <= 0:
+        return _ce_denominator(targets, ignore_index=ignore_index)
+    return _numel_denominator(targets)
 
 
 def binary_focal_loss(logits: torch.Tensor, targets: torch.Tensor, *,
@@ -111,19 +155,39 @@ def binary_focal_loss(logits: torch.Tensor, targets: torch.Tensor, *,
 
 def focal_loss(logits: torch.Tensor, targets: torch.Tensor, *,
                alpha: float = 1.0, gamma: float = 2.0,
-               ignore_index: int = -1) -> torch.Tensor:
+               ignore_index: int = -1,
+               denominator: Optional[torch.Tensor] = None) -> torch.Tensor:
     log_probs = _log_softmax(logits)
     probs = torch.exp(log_probs)
     weighted = alpha * (1 - probs) ** gamma * log_probs
-    valid = targets != ignore_index
-    safe_targets = torch.where(valid, targets, torch.zeros_like(targets))
+    safe_targets, valid_f = _ce_row_weights(targets, ignore_index, None)
     picked = -_pick(weighted, safe_targets)
-    valid_f = valid.float()
-    return torch.sum(picked * valid_f) / torch.clamp(torch.sum(valid_f), min=1.0)
+    den = torch.sum(valid_f) if denominator is None else denominator
+    return torch.sum(picked * valid_f) / torch.clamp(den, min=1.0)
 
 
-def mse_loss(preds: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    return torch.mean((preds.float() - targets.float()) ** 2)
+def mse_loss(preds: torch.Tensor, targets: torch.Tensor, *,
+             denominator: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return _mean((preds.float() - targets.float()) ** 2, denominator)
+
+
+_DENOMINATORS = {
+    cross_entropy_with_ignore: _ce_denominator,
+    label_smoothing_loss: _smoothing_denominator,
+    focal_loss: _ce_denominator,
+    mse_loss: _numel_denominator,
+}
+
+
+def loss_denominator(loss_f: Callable, targets: torch.Tensor) -> torch.Tensor:
+    """The unclamped f32 denominator ``loss_f`` (a loss of this module, or a
+    ``functools.partial`` of one) divides its sum by over ``targets``'s
+    rows."""
+    func, kw = ((loss_f.func, loss_f.keywords)
+                if isinstance(loss_f, functools.partial) else (loss_f, {}))
+    if func not in _DENOMINATORS:
+        raise TypeError(f"no denominator is known for loss {func!r}")
+    return _DENOMINATORS[func](targets, **kw).float()
 
 
 class WeightedLoss:
@@ -140,13 +204,28 @@ class WeightedLoss:
     def keys(self):
         return self._losses.keys()
 
-    def __call__(self, preds: dict, targets: dict) -> Tuple[torch.Tensor, dict]:
+    def denominators(self, targets: dict) -> torch.Tensor:
+        """The heads' unclamped denominators over ``targets``, a ``[heads]``
+        f32 tensor in :attr:`keys` order (:func:`loss_denominator`)."""
+        return torch.stack([loss_denominator(loss_f, targets[key])
+                            for key, (loss_f, _) in self._losses.items()])
+
+    def __call__(self, preds: dict, targets: dict,
+                 denominators: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, dict]:
+        """``denominators``: the global ``[heads]`` denominators (summed
+        :meth:`denominators` of every process's rows), or None for the
+        rows given."""
         assert set(preds.keys()) >= set(self._losses.keys())
         assert set(targets.keys()) >= set(self._losses.keys())
         values = {}
         full_loss = 0.0
-        for key, (loss_f, weight) in self._losses.items():
-            loss = loss_f(preds[key], targets[key])
+        for i, (key, (loss_f, weight)) in enumerate(self._losses.items()):
+            if denominators is None:
+                loss = loss_f(preds[key], targets[key])
+            else:
+                loss = loss_f(preds[key], targets[key],
+                              denominator=denominators[i])
             values[key] = loss
             full_loss = full_loss + weight * loss
         values["loss"] = full_loss

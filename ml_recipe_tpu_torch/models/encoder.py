@@ -28,7 +28,14 @@ Post-layer-norm BERT stack with the JAX module's numerics:
   with flax's semantics (kept values scaled by ``1/(1-rate)``). The masks
   and the per-layer attention-dropout seeds are drawn from the one
   ``torch.Generator`` the caller passes as ``generator``, on the model's
-  device: there is no global-RNG default;
+  device: there is no global-RNG default. ``global_rows=(first, total)``
+  (data parallelism) says the batch is rows ``first .. first + B`` of a
+  global micro-batch of ``total`` rows: each hidden-dropout mask is drawn
+  at the global shape and these rows kept, and the attention row seeds are
+  those of these rows' places (``ops.attention.global_row_seeds``), so a
+  process draws exactly what a one-process forward of the global
+  micro-batch draws for its rows, and every process's generator stays in
+  step;
 - module and parameter names follow the flax tree (``layer_0.attention.
   query``...), so ``models/convert.py`` maps one onto the other by name;
 - ``remat`` (``--remat``, flax ``nn.remat`` around each ``EncoderLayer``)
@@ -47,22 +54,39 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import dot_product_attention, dropout_seed
+from ..ops.attention import (
+    dot_product_attention,
+    dropout_seed,
+    global_row_seeds,
+)
 from ..ops.layer_norm import layer_norm, layer_norm_q8
 from ..quant.layers import QuantLinear, first_token, with_row_codes
 from .config import EncoderConfig
 
+# (first, total): the batch's rows are rows first .. first + B of a global
+# micro-batch of `total` rows (data parallelism); None: the batch is whole
+GlobalRows = Optional[Tuple[int, int]]
+
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            global_rows: GlobalRows = None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability ``1 - rate`` and scale the
-    kept values by ``1/(1-rate)``; the mask is drawn from ``generator``."""
+    kept values by ``1/(1-rate)``; the mask is drawn from ``generator``, at
+    the global micro-batch's shape when ``global_rows`` is given (of which
+    ``x``'s rows are kept)."""
     if not training or rate <= 0.0:
         return x
     if generator is None:
         raise ValueError("training-mode dropout needs a torch.Generator "
                          "(pass generator=... to the model's forward)")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    if global_rows is None:
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        first, total = global_rows
+        u = torch.rand((total, *x.shape[1:]), generator=generator,
+                       device=x.device)[first:first + x.shape[0]]
+    keep = u >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                            device=x.device))
 
@@ -167,7 +191,8 @@ class Embeddings(nn.Module):
         self.layer_norm = _ln(cfg, dtype, ln_impl, device, quantize)
 
     def forward(self, input_ids: torch.Tensor, token_type_ids: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                global_rows: GlobalRows = None) -> torch.Tensor:
         cfg = self.cfg
         L = input_ids.shape[-1]
         if L + cfg.position_offset > cfg.max_position_embeddings:
@@ -186,7 +211,7 @@ class Embeddings(nn.Module):
              + self.position_embeddings(positions)[None]
              + self.token_type_embeddings(token_type_ids))
         return dropout(self.layer_norm(x), cfg.hidden_dropout_prob,
-                       self.training, generator)
+                       self.training, generator, global_rows)
 
 
 class SelfAttention(nn.Module):
@@ -204,7 +229,8 @@ class SelfAttention(nn.Module):
         self.layer_norm = _ln(cfg, dtype, ln_impl, device, quantize)
 
     def forward(self, hidden: torch.Tensor, mask: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                global_rows: GlobalRows = None) -> torch.Tensor:
         cfg = self.cfg
         B, L, H = hidden.shape
 
@@ -218,12 +244,16 @@ class SelfAttention(nn.Module):
                 raise ValueError("training-mode attention dropout needs a "
                                  "torch.Generator (generator=...)")
             seed = dropout_seed(generator)
+            if global_rows is not None:
+                seed = global_row_seeds(seed, global_rows[0], B,
+                                        global_rows[1], cfg.num_heads)
         ctx = dot_product_attention(
             heads(self.query), heads(self.key), heads(self.value), mask,
             dropout_rate=rate, seed=seed, impl=self.attention_impl,
         )
         out = dropout(self.output(ctx.reshape(B, L, H)),
-                      cfg.hidden_dropout_prob, self.training, generator)
+                      cfg.hidden_dropout_prob, self.training, generator,
+                      global_rows)
         return self.layer_norm(hidden + out)
 
 
@@ -239,10 +269,11 @@ class FeedForward(nn.Module):
         self.layer_norm = _ln(cfg, dtype, ln_impl, device, quantize)
 
     def forward(self, hidden: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                global_rows: GlobalRows = None) -> torch.Tensor:
         y = F.gelu(self.intermediate(hidden), approximate="none")
         y = dropout(self.output(y), self.cfg.hidden_dropout_prob,
-                    self.training, generator)
+                    self.training, generator, global_rows)
         return self.layer_norm(hidden + y)
 
 
@@ -258,13 +289,17 @@ class EncoderLayer(nn.Module):
                                ln_impl=ln_impl, quantize=quantize)
 
     def forward(self, hidden: torch.Tensor, mask: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return self.mlp(self.attention(hidden, mask, generator), generator)
+                generator: Optional[torch.Generator] = None,
+                global_rows: GlobalRows = None) -> torch.Tensor:
+        return self.mlp(self.attention(hidden, mask, generator, global_rows),
+                        generator, global_rows)
 
 
 def remat_layer(layer: nn.Module, hidden: torch.Tensor, mask: torch.Tensor,
-                generator: Optional[torch.Generator]) -> torch.Tensor:
-    """``layer(hidden, mask, generator)`` under ``torch.utils.checkpoint``:
+                generator: Optional[torch.Generator],
+                global_rows: GlobalRows = None) -> torch.Tensor:
+    """``layer(hidden, mask, generator, global_rows)`` under
+    ``torch.utils.checkpoint``:
     the layer's activations are dropped after the forward and recomputed in
     the backward. ``checkpoint``'s ``preserve_rng_state`` restores only the
     global RNGs, not ``generator``, whose state by the backward has moved on
@@ -274,8 +309,8 @@ def remat_layer(layer: nn.Module, hidden: torch.Tensor, mask: torch.Tensor,
     taken before the layer runs, and the recompute runs from it and puts
     the generator back where it found it."""
     if generator is None:
-        return checkpoint(layer, hidden, mask, None, use_reentrant=False,
-                          preserve_rng_state=False)
+        return checkpoint(layer, hidden, mask, None, global_rows,
+                          use_reentrant=False, preserve_rng_state=False)
     state = generator.get_state()
     recompute = False
 
@@ -283,11 +318,11 @@ def remat_layer(layer: nn.Module, hidden: torch.Tensor, mask: torch.Tensor,
         nonlocal recompute
         if not recompute:                # the forward: draw as usual
             recompute = True
-            return layer(h, mask, generator)
+            return layer(h, mask, generator, global_rows)
         after = generator.get_state()    # the recompute: replay the draws
         generator.set_state(state)
         try:
-            return layer(h, mask, generator)
+            return layer(h, mask, generator, global_rows)
         finally:
             generator.set_state(after)
 
@@ -322,17 +357,19 @@ class TransformerEncoder(nn.Module):
         attention_mask: Optional[torch.Tensor] = None,
         token_type_ids: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        global_rows: GlobalRows = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         mask = attention_mask.to(torch.int32)
-        hidden = self.embeddings(input_ids, token_type_ids, generator)
+        hidden = self.embeddings(input_ids, token_type_ids, generator,
+                                 global_rows)
         remat = self.remat and torch.is_grad_enabled()
         for i in range(self.cfg.num_layers):
             layer = getattr(self, f"layer_{i}")
-            hidden = (remat_layer(layer, hidden, mask, generator) if remat
-                      else layer(hidden, mask, generator))
+            hidden = (remat_layer(layer, hidden, mask, generator, global_rows)
+                      if remat else layer(hidden, mask, generator, global_rows))
         pooled = torch.tanh(self.pooler(first_token(hidden)))
         return hidden, pooled

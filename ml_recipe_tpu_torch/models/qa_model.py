@@ -10,7 +10,8 @@ Parameters are f32 master weights; ``dtype`` is the compute dtype.
 ``ln_impl`` and ``quantize`` (serving only: the heads go through the same
 ``_dense`` factory as the encoder's projections) are the encoder's. In
 training mode every dropout (hidden, attention, classifier) draws from the
-``generator`` given to :meth:`QAModel.forward` (see ``models/encoder.py``).
+``generator`` given to :meth:`QAModel.forward`, at the global micro-batch's
+shape when ``global_rows`` is given (see ``models/encoder.py``).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 from torch import nn
 
 from .config import EncoderConfig
-from .encoder import TransformerEncoder, _dense, dropout
+from .encoder import GlobalRows, TransformerEncoder, _dense, dropout
 
 QA_OUTPUT_KEYS = ("start_class", "end_class", "start_reg", "end_reg", "cls")
 
@@ -57,12 +58,14 @@ class QAModel(nn.Module):
         attention_mask: Optional[torch.Tensor] = None,
         token_type_ids: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        global_rows: GlobalRows = None,
     ) -> Dict[str, torch.Tensor]:
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
         sequence_output, pooled_output = self.transformer(
             input_ids, attention_mask=attention_mask,
-            token_type_ids=token_type_ids, generator=generator)
+            token_type_ids=token_type_ids, generator=generator,
+            global_rows=global_rows)
 
         position_logits = self.position_outputs(sequence_output)
         pad_penalty = (1 - attention_mask).to(torch.float32) * _MASK_NEG
@@ -70,7 +73,7 @@ class QAModel(nn.Module):
         end_logits = position_logits[..., 1].float() + pad_penalty
 
         cls_hidden = dropout(pooled_output, self.cfg.hidden_dropout_prob,
-                             self.training, generator)
+                             self.training, generator, global_rows)
         classifier_logits = self.classifier(cls_hidden)
         reg_start = torch.sigmoid(self.reg_start(pooled_output))[..., 0]
         reg_end = torch.sigmoid(self.reg_end(pooled_output))[..., 0]

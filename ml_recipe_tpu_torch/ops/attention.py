@@ -59,6 +59,16 @@ def dropout_seed(generator: torch.Generator) -> torch.Tensor:
                          device=generator.device).to(torch.int32)
 
 
+def global_row_seeds(seed: torch.Tensor, first: int, rows: int, total: int,
+                     heads: int) -> torch.Tensor:
+    """The ``[rows]`` int32 dropout row seeds of rows ``first .. first +
+    rows`` of a ``total``-row call keyed by ``seed``: a process holding
+    those rows of a global micro-batch (data parallelism) passes them and
+    draws the attention dropout the one-process call would
+    (``row_seeds(seed, total, heads)[first:first + rows]``)."""
+    return row_seeds(seed, total, heads, seed.device)[first:first + rows]
+
+
 def dot_product_attention(
     q: torch.Tensor,
     k: torch.Tensor,

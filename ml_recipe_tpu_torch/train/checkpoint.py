@@ -15,14 +15,18 @@ layout holds:
   ``extra`` topology record.
 
 The single file holds them as one dict, written atomically (a temporary
-file, then a rename). The sharded directory is the JAX layout as one
-process writes it::
+file, then a rename); with several processes rank 0 writes it. The sharded
+directory is the JAX layout::
 
     path/
-      manifest.msgpack     # format tag, step, groups: per-leaf shape,
-                           # dtype, shard count and folded crc32
+      manifest.msgpack     # format tag, step, process_count, groups:
+                           # per-leaf shape, dtype, shard count and
+                           # folded crc32
       shard-00000.msgpack  # {"global_step", "shards": {group: {leaf:
                            #   [{"bounds", "data", "crc32"}]}}}
+      shard-00001.msgpack  # one per process; every leaf is replicated
+      ...                  # and owned by process 0, so the others hold
+                           # {"global_step", "shards": {}}
 
 Leaves are keyed ``a/b/c``; an empty subtree (optax's ``EmptyState``) is an
 ``{"empty": True}`` leaf. The shard file is written first into
@@ -51,6 +55,7 @@ import numpy as np
 from torch import nn
 
 from ..models.convert import from_jax_params, to_jax_params
+from ..parallel.dist import barrier
 from ..utils.msgpack import packb, unpackb
 
 logger = logging.getLogger(__name__)
@@ -259,10 +264,19 @@ def _remove(path: str) -> None:
 
 def save_state_dict_sharded(path, *, model: nn.Module, optimizer=None,
                             global_step: int = 0,
-                            extra: Optional[dict] = None) -> None:
-    """Write the sharded-directory layout (see the module docstring) as one
-    process of a one-device run: every leaf is one piece, and the manifest
-    records ``shards`` 1 for it."""
+                            extra: Optional[dict] = None,
+                            process_index: int = 0,
+                            process_count: int = 1) -> None:
+    """Write the sharded-directory layout (see the module docstring) as
+    process ``process_index`` of ``process_count`` (every process calls
+    it): every leaf is one piece owned by process 0, and the manifest
+    records ``shards`` 1 for it. Barriers go around the staging, the shard
+    writes and the swap, as in the JAX writer."""
+    def sync(tag: str) -> None:
+        if process_count > 1:
+            barrier(tag)
+
+    primary = process_index == 0
     path = os.fspath(path)
     if os.path.isdir(path) and os.listdir(path) and \
             not os.path.exists(os.path.join(path, MANIFEST)):
@@ -271,12 +285,14 @@ def save_state_dict_sharded(path, *, model: nn.Module, optimizer=None,
             f"sharded checkpoint; refusing to write into it")
     step = int(global_step)
     manifest = {"format": SHARDED_FORMAT, "global_step": step,
-                "scheduler": {"last_step": step}, "process_count": 1,
-                "groups": {}}
+                "scheduler": {"last_step": step},
+                "process_count": int(process_count), "groups": {}}
     if extra:
         manifest["extra"] = dict(extra)
     owned: dict = {}
-    for gname, tree in _training_groups(model, optimizer).items():
+    # every leaf is replicated: process 0 owns it, the others write no piece
+    groups = _training_groups(model, optimizer) if primary else {}
+    for gname, tree in groups.items():
         leaves = manifest["groups"][gname] = {}
         for key, leaf in _flatten(tree).items():
             if leaf is _EMPTY:
@@ -293,19 +309,27 @@ def save_state_dict_sharded(path, *, model: nn.Module, optimizer=None,
     manifest["shards"] = 1
 
     staging, old = path + ".saving", path + ".old"
-    _recover_interrupted_swap(path, staging, old)
-    for leftover in (staging, old):   # debris of an interrupted save
-        _remove(leftover)
-    os.makedirs(staging)
-    _atomic_write(_shard_file(staging, 0),
+    if primary:
+        _recover_interrupted_swap(path, staging, old)
+        for leftover in (staging, old):   # debris of an interrupted save
+            _remove(leftover)
+    sync("sharded_ckpt_stage_clear")
+    os.makedirs(staging, exist_ok=True)
+    _atomic_write(_shard_file(staging, process_index),
                   packb({"global_step": step, "shards": owned}))
-    # the manifest last: its presence marks the directory complete
-    _atomic_write(os.path.join(staging, MANIFEST), packb(manifest))
-    if os.path.exists(path):   # a single file or a directory
-        os.rename(path, old)
-    os.rename(staging, path)
-    _remove(old)
-    logger.info("Sharded state dict was saved to %s.", path)
+    # every shard file lands before the manifest exists
+    sync("sharded_ckpt_shards_written")
+    if primary:
+        # the manifest last: its presence marks the directory complete
+        _atomic_write(os.path.join(staging, MANIFEST), packb(manifest))
+        if os.path.exists(path):   # a single file or a directory
+            os.rename(path, old)
+        os.rename(staging, path)
+        _remove(old)
+    # the peers may act on the checkpoint once the swap has landed
+    sync("sharded_ckpt_swapped")
+    logger.info("Sharded state dict was saved to %s (process %d of %d).",
+                path, process_index, process_count)
 
 
 def _read_sharded(path: str) -> dict:

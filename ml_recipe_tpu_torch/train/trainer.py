@@ -1,10 +1,10 @@
-"""Training runtime (the port of ``ml_recipe_tpu/train/trainer.py``): one
-device, the sequential accumulation step.
+"""Training runtime (the port of ``ml_recipe_tpu/train/trainer.py``): the
+sequential accumulation step, on one device or as one of W data-parallel
+processes (``parallel/``).
 
 Per optimizer step, as the JAX ``_build_train_step`` computes it:
 
-1. the global batch splits into ``batch_split`` micro-batches of
-   consecutive rows;
+1. the batch splits into ``batch_split`` micro-batches of consecutive rows;
 2. each micro-batch runs forward with dropout, the ``WeightedLoss`` and
    ``loss.backward()``, which accumulates into the f32 ``.grad`` of the f32
    master weights (the JAX step's f32 accumulation carry);
@@ -18,6 +18,31 @@ generator from them (numpy ``SeedSequence``), and draws from it one seed per
 micro-batch for a generator on the model's device, which the model's every
 dropout and attention-dropout seed come from.
 
+With W processes (the JAX package's multi-process semantics): each process
+holds its row slice ``[r*B/W, (r+1)*B/W)`` of every global batch (the
+samplers and loaders slice it) and splits it into ``batch_split``
+micro-batches of m rows. Global micro-batch g is the rank-order
+concatenation of every process's micro-batch g, and the step is that of
+one process on those global micro-batches
+(``parallel.regroup_for_world``):
+
+- each loss divides by its global denominator: the ``[batch_split, heads]``
+  denominators are computed from the labels before the first forward and
+  summed over the world in one all-reduce, so the processes' losses sum to
+  the global micro-batch's loss;
+- dropout is drawn at the global micro-batch's shape from the same
+  generator on every process, each keeping its rows
+  (``global_rows=(r*m, W*m)``, ``models/encoder.py``);
+- after the accumulation the gradients are summed over the world in buckets
+  (``parallel.all_reduce_gradients``), then scaled and clipped, so every
+  replica takes the same update; the parameters are broadcast from rank 0
+  when the trainer is built and after a checkpoint is loaded;
+- the logged losses are summed over the world; eval gathers every
+  process's predictions and labels in rank order before the loss, the
+  meters and the callbacks; the writer, the logged metrics and the
+  single-file checkpoints are rank 0's, and a sharded checkpoint is written
+  by every process.
+
 The loaders are the JAX package's (bucketed when ``length_buckets``), and
 ``device_prefetch`` stages batches onto the device on a background thread
 (``data/device_prefetch.py``). ``test`` runs the eval loop under
@@ -27,9 +52,9 @@ in the JAX trainer. ``sharded_checkpoint`` writes the JAX package's
 sharded-directory layout instead of one file; a resume reads either
 (``train/checkpoint.py``). Left out (their flags are refused by
 ``config.parser.check_train_flags``): data, pipeline, tensor and sequence
-parallelism (ZeRO-1 is accepted at world size 1, where it is inert), the
-AOT store, telemetry, the watchdog, async checkpoints, loss scaling,
-packing and the HBM pre-flight.
+parallelism beyond data parallelism (ZeRO-1 is accepted at world size 1,
+where it is inert), the AOT store, telemetry, the watchdog, async
+checkpoints, loss scaling, packing and the HBM pre-flight.
 """
 
 from __future__ import annotations
@@ -46,6 +71,8 @@ from ..data.bucketing import BucketedBatch, BucketedDataLoader, parse_length_buc
 from ..data.device_prefetch import BatchPlacer, DevicePrefetcher, resolve_depth
 from ..data.loader import DataLoader, ShardedBatchSampler
 from ..metrics.meters import AverageMeter
+from ..parallel import collectives
+from ..parallel import dist as pdist
 from .callback import TestCallback
 from .checkpoint import load_training_state
 from .checkpoint import save_state_dict as _save_ckpt
@@ -55,10 +82,13 @@ from .writer import init_writer
 
 logger = logging.getLogger(__name__)
 
-# what every checkpoint's topology record says of a one-device run (the JAX
-# trainer's _checkpoint_extra on a data:1 mesh)
-CHECKPOINT_EXTRA = {"opt_sharding": "off", "mesh_axes": {"data": 1},
-                    "pipe_schedule": None, "pipe_param_layout": None}
+
+def checkpoint_extra(world: int = 1) -> dict:
+    """Every checkpoint's topology record (the JAX trainer's
+    ``_checkpoint_extra`` on a ``data:W`` mesh of one device per
+    process)."""
+    return {"opt_sharding": "off", "mesh_axes": {"data": int(world)},
+            "pipe_schedule": None, "pipe_param_layout": None}
 
 
 def _console_str(meters: dict) -> str:
@@ -135,6 +165,21 @@ class Trainer:
         self.history: List[dict] = []
         self.eval_batches = 0   # eval batches run, over every test() call
 
+        self.process_index = pdist.process_index()
+        self.process_count = world = pdist.process_count()
+        self.is_primary = self.process_index == 0
+        if train_dataset is not None and (
+                train_batch_size % world
+                or (train_batch_size // world) % batch_split):
+            raise ValueError(
+                f"train_batch_size {train_batch_size} must split over {world} "
+                f"processes into batch_split={batch_split} equal "
+                f"micro-batches each")
+        if test_dataset is not None and test_batch_size % world:
+            raise ValueError(f"test_batch_size {test_batch_size} must divide "
+                             f"over {world} processes")
+        shard = dict(process_index=self.process_index, process_count=world)
+
         max_len = getattr(collate_fun, "keywords", {}).get("max_seq_len")
         self._seq_grid = (parse_length_buckets(length_buckets, max_len)
                           if length_buckets else None)
@@ -150,13 +195,13 @@ class Trainer:
                 logger.info("Used train sampler: shuffled.")
             sampler = ShardedBatchSampler(
                 len(train_dataset), train_batch_size, shuffle=True,
-                weights=sampler_weights, drop_last=True, seed=seed)
+                weights=sampler_weights, drop_last=True, seed=seed, **shard)
             if self._seq_grid is not None:
                 self.train_dataloader = BucketedDataLoader(
                     train_dataset, sampler, collate_fun,
                     seq_grid=self._seq_grid,
                     token_budget=train_batch_size * self._seq_grid[-1],
-                    batch_multiple=batch_split, n_jobs=n_jobs)
+                    batch_multiple=batch_split * world, n_jobs=n_jobs)
                 logger.info("Length-bucketed batching: grid %s, token budget "
                             "%d, per-bucket batches %s.", self._seq_grid,
                             self.train_dataloader.token_budget,
@@ -171,13 +216,13 @@ class Trainer:
         if test_dataset is not None:
             self._test_sampler = ShardedBatchSampler(
                 len(test_dataset), test_batch_size, shuffle=False,
-                drop_last=False, pad_last=True, seed=seed)
+                drop_last=False, pad_last=True, seed=seed, **shard)
             if self._seq_grid is not None:
                 self.test_dataloader = BucketedDataLoader(
                     test_dataset, self._test_sampler, collate_fun,
                     seq_grid=self._seq_grid,
                     token_budget=test_batch_size * self._seq_grid[-1],
-                    batch_multiple=1, n_jobs=n_jobs, pad_last=True)
+                    batch_multiple=world, n_jobs=n_jobs, pad_last=True)
             else:
                 self.test_dataloader = DataLoader(
                     test_dataset, self._test_sampler, collate_fun,
@@ -189,10 +234,6 @@ class Trainer:
         self.planned_steps_per_epoch = None
         self.plan_seconds = 0.0
         if self.train_dataloader is not None and trainer_params is not None:
-            if train_batch_size % batch_split:
-                raise ValueError(
-                    f"train_batch_size {train_batch_size} must split into "
-                    f"batch_split={batch_split} equal micro-batches")
             # the LR schedule is sized from the loader's PLANNED step count
             # (bucket batches carry more rows than the global batch)
             t0 = time.perf_counter()
@@ -211,7 +252,14 @@ class Trainer:
                 num_training_steps=num_training_steps, warmup_coef=warmup_coef)
 
         self.global_step = 0
-        self.writer = init_writer(True, writer_dir)
+        self.writer = init_writer(self.is_primary, writer_dir)
+        if world > 1:
+            # the replicas start equal (the reference's DDP wrapper)
+            collectives.broadcast_parameters(model.named_parameters())
+            logger.info("Data parallel: process %d of %d, %d rows of every "
+                        "global batch of %d, in %d micro-batches.",
+                        self.process_index, world, train_batch_size // world,
+                        train_batch_size, batch_split)
 
     def _plan_schedule_steps(self) -> Optional[int]:
         loader = self.train_dataloader
@@ -263,32 +311,49 @@ class Trainer:
 
     def train_step(self, inputs: Dict[str, torch.Tensor],
                    labels: Dict[str, torch.Tensor]) -> dict:
-        """One optimizer step on a placed global batch; returns the step's
-        values (per-head losses and ``loss`` averaged over the micro-batches,
-        and the applied ``lr``) as host floats."""
+        """One optimizer step on this process's placed rows of a global
+        batch (the whole batch alone); returns the step's values (per-head
+        losses and ``loss`` averaged over the micro-batches, of the global
+        batch, and the applied ``lr``) as host floats."""
         rows = inputs["input_ids"].shape[0]
         if rows % self.batch_split:
             raise ValueError(f"batch of {rows} rows does not split into "
                              f"{self.batch_split} micro-batches")
         micro = rows // self.batch_split
+        world = self.process_count
         model, params = self.model, self.optimizer.params
         model.train()
         for p in params.values():
             p.grad = None
         gens = step_generators(self.seed, self.global_step, self.batch_split,
                                self.device)
+        labels_of = [{k: v[i * micro:(i + 1) * micro] for k, v in labels.items()}
+                     for i in range(self.batch_split)]
+        global_rows = denominators = None
+        if world > 1:
+            global_rows = (self.process_index * micro, world * micro)
+            denominators = collectives.all_reduce_sum_(torch.stack(
+                [self.loss.denominators(t) for t in labels_of]))
         summed: Dict[str, torch.Tensor] = {}
         for i, gen in enumerate(gens):
             rows_i = slice(i * micro, (i + 1) * micro)
             preds = model(**self._model_inputs(
-                {k: v[rows_i] for k, v in inputs.items()}), generator=gen)
+                {k: v[rows_i] for k, v in inputs.items()}), generator=gen,
+                global_rows=global_rows)
             total, values = self.loss(
-                preds, {k: v[rows_i] for k, v in labels.items()})
+                preds, labels_of[i],
+                None if denominators is None else denominators[i])
             total.backward()
             for k, v in values.items():
                 v = v.detach().float()
                 summed[k] = summed[k] + v if k in summed else v
 
+        if world > 1:
+            collectives.all_reduce_gradients(params.items())
+            keys = list(summed)
+            reduced = collectives.all_reduce_sum_(
+                torch.stack([summed[k] for k in keys]))
+            summed = dict(zip(keys, reduced))
         inv = 1.0 / self.batch_split
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for n, p in params.items()}
@@ -322,7 +387,8 @@ class Trainer:
             for placed in batches:
                 t0 = time.perf_counter()
                 tensors = placed.ready()
-                rows = int(tensors["inputs"]["input_ids"].shape[0])
+                rows = (int(tensors["inputs"]["input_ids"].shape[0])
+                        * self.process_count)   # the global batch's
                 values = self.train_step(tensors["inputs"], tensors["labels"])
                 seconds = time.perf_counter() - t0
                 self.history.append(dict(values, step=self.global_step,
@@ -335,7 +401,7 @@ class Trainer:
                 if self.on_train_metrics is not None:
                     self.on_train_metrics(avg_meters, step=self.global_step)
                 last_step = self.global_step
-                if (last_step + 1) % self.log_every == 0:
+                if self.is_primary and (last_step + 1) % self.log_every == 0:
                     self._update_writer(avg_meters, prefix="train",
                                         step=last_step)
                     logger.info("Train epoch %d step %d: %s", epoch_i,
@@ -348,11 +414,12 @@ class Trainer:
         finally:
             if prefetcher is not None:
                 prefetcher.close()
-            if last_step is not None and (last_step + 1) % self.log_every:
+            if (self.is_primary and last_step is not None
+                    and (last_step + 1) % self.log_every):
                 self._update_writer(avg_meters, prefix="train", step=last_step)
                 logger.info("Train epoch %d step %d: %s", epoch_i, last_step,
                             _console_str(avg_meters))
-            if weighted and loader.epoch_stats:
+            if self.is_primary and weighted and loader.epoch_stats:
                 stats = loader.epoch_stats
                 logger.info("Bucketed epoch %d: %d batches, padding waste "
                             "%.2f%% (pad-to-max would be %.2f%%).", epoch_i,
@@ -386,6 +453,12 @@ class Trainer:
                 tensors = placed.ready()
                 inputs, labels = tensors["inputs"], tensors["labels"]
                 preds = self.model(**self._model_inputs(inputs))
+                if self.process_count > 1:
+                    # every process's rows, in rank order: the global batch
+                    preds, labels = (
+                        {k: v.to(self.device) for k, v in
+                         collectives.gather_to_host(tree).items()}
+                        for tree in (preds, labels))
                 meta = placed.meta
                 if meta is not None:
                     n_valid, batch_rows = meta.real_rows, meta.rows
@@ -423,19 +496,27 @@ class Trainer:
             self.writer.flush()
         metrics = {k: v() if isinstance(v, AverageMeter) else v
                    for k, v in avg_meters.items()}
-        logger.info(f"Test metrics after epoch {epoch_i} - "
-                    f"{_console_str(metrics)}")
+        if self.is_primary:
+            logger.info(f"Test metrics after epoch {epoch_i} - "
+                        f"{_console_str(metrics)}")
         return metrics
 
     # -- checkpointing ---------------------------------------------------------
 
     def save_state_dict(self, path) -> None:
+        """A checkpoint at ``path``: the single file by rank 0, or the
+        sharded directory by every process."""
         if self.debug:
             logger.info(f"Model was not saved to {path} because of debug mode.")
             return
-        save = _save_ckpt_sharded if self.sharded_checkpoint else _save_ckpt
-        save(path, model=self.model, optimizer=self.optimizer,
-             global_step=self.global_step, extra=CHECKPOINT_EXTRA)
+        kw = dict(model=self.model, optimizer=self.optimizer,
+                  global_step=self.global_step,
+                  extra=checkpoint_extra(self.process_count))
+        if self.sharded_checkpoint:
+            _save_ckpt_sharded(path, process_index=self.process_index,
+                               process_count=self.process_count, **kw)
+        elif self.is_primary:
+            _save_ckpt(path, **kw)
 
     def load_state_dict(self, path) -> None:
         step = load_training_state(path, model=self.model,
@@ -443,6 +524,8 @@ class Trainer:
                                    drop_optimizer=self.drop_optimizer)
         if step is not None:
             self.global_step = step
+        if self.process_count > 1:
+            collectives.broadcast_parameters(self.model.named_parameters())
 
     def close(self) -> None:
         if self.writer is not None:

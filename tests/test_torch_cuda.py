@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-the fused attention pair, the LayerNorm pair and the int8 matmul.
+the fused attention pair, the LayerNorm pair and the int8 matmul; and data
+parallelism there (a one-rank NCCL round trip of the bucketed collectives,
+two ranks over gloo sharing the card against the one-process step).
 
 Every kernel test here carries the ``cuda`` marker and skips without a
 CUDA device: the kernels have no CPU mode. The CPU tests check that the
@@ -961,3 +963,72 @@ def test_int8_predictor_runs_only_kernels(cuda, tmp_path, monkeypatch):
         q8.KERNEL: (6 * L + 5) * n, q8.QUANT_KERNEL: (2 * L + 1) * n,
         ln.FWD_KERNEL: (2 * L + 1) * n, fa.KERNEL: L * n}
     assert predictor.stats["chunks"] == sum(map(len, _ChunkDocs(tok).docs))
+
+
+# -- data parallelism ------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_nccl_one_rank_bucketed_all_reduce_round_trip(cuda):
+    """A one-rank NCCL group: the bucketed gradient all-reduce (a missing
+    gradient summed as zeros) and the parameter broadcast give back their
+    inputs bit for bit. This shows the backend runs the bucketed path; it
+    says nothing of several cards."""
+    from ml_recipe_tpu_torch.parallel import collectives
+    from ml_recipe_tpu_torch.parallel import dist as pdist
+    from torch_ddp_worker import free_port
+
+    pdist.initialize_distributed(
+        init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0,
+        backend="nccl", device=torch.device("cuda", 0))
+    try:
+        assert pdist.backend() == "nccl" and pdist.process_count() == 1
+        g = torch.Generator(device=cuda).manual_seed(0)
+        params = [(f"p{i}", torch.nn.Parameter(
+            torch.randn(n, device=cuda, generator=g)))
+            for i, n in enumerate([5, 1 << 20, 7, 3 << 20, 1, 333])]
+        for name, p in params[:-1]:
+            p.grad = torch.randn(p.shape, device=cuda, generator=g)
+        want = {n: (p.grad.clone() if p.grad is not None
+                    else torch.zeros_like(p)) for n, p in params}
+        assert collectives.all_reduce_gradients(params,
+                                                bucket_numel=1 << 21) == 3
+        for name, p in params:
+            assert torch.equal(p.grad, want[name]), name
+        before = {n: p.detach().clone() for n, p in params}
+        assert collectives.broadcast_parameters(params,
+                                                bucket_numel=1 << 21) == 3
+        for name, p in params:
+            assert torch.equal(p.detach(), before[name]), name
+    finally:
+        pdist.shutdown()
+
+
+# f32 gradients of the same global micro-batches through cuBLAS products
+# and the attention kernels at 2 rows per rank against 4 in one process,
+# and the gradient sum split at the all-reduce; a missing all-reduce is
+# ~0.5 (tests/test_torch_ddp.py)
+DP_GRAD_REL_L2 = 1e-4
+
+
+@pytest.mark.cuda
+def test_two_ranks_over_gloo_on_the_card_equal_the_one_process_step(
+        cuda, tmp_path):
+    """Two ranks share the card and reduce CUDA tensors over gloo, through
+    the tiny trainer of ``tests/torch_ddp_worker.py`` (kernel attention and
+    LayerNorm): the replicas end bit-identical, and the first step's summed
+    gradient is the one-process step's on the regrouped global batch."""
+    import torch_ddp_worker as worker
+
+    for rc, err in worker.worker_pairs("trainer", out=tmp_path,
+                                       device="cuda")[0]:
+        assert rc == 0, err[-3000:]
+    record = [torch.load(tmp_path / "trainer" / f"rank{r}.pt")
+              for r in range(2)]
+    for name in record[0]["params"]:
+        assert torch.equal(record[0]["params"][name],
+                           record[1]["params"][name]), name
+    ref = worker.oracle(tmp_path, record, "cuda")
+    rel = worker.rel_l2(record[0]["grads"], ref.grads)
+    assert rel <= DP_GRAD_REL_L2, rel
+    for got, want in zip(record[0]["values"], ref.values):
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-4)

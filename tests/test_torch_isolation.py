@@ -50,7 +50,7 @@ def test_forbidden_matches_the_package_not_the_prefix():
 def test_no_port_module_imports_jax_or_the_jax_package():
     files = _sources()
     assert len(files) > 20 and files[-1].exists()
-    # the walk covers the training slice's modules too
+    # the walk covers the training and data-parallel slices' modules too
     names = {str(f.relative_to(_REPO)) for f in files}
     for module in ("cli/train.py", "train/trainer.py", "train/optim.py",
                    "train/checkpoint.py", "train/callback.py",
@@ -64,7 +64,9 @@ def test_no_port_module_imports_jax_or_the_jax_package():
                    "quant/calibrate.py", "cli/validate.py",
                    "cli/train_metrics.py", "infer/predictor.py",
                    "data/preprocessor.py", "data/sentence.py",
-                   "data/synthetic.py", "utils/pipeline.py"):
+                   "data/synthetic.py", "utils/pipeline.py",
+                   "data/packing.py", "parallel/__init__.py",
+                   "parallel/dist.py", "parallel/collectives.py"):
         assert f"ml_recipe_tpu_torch/{module}" in names, module
     offenders = [f"{path.relative_to(_REPO)}: {mod}"
                  for path in files for mod in _imports(path)
@@ -78,7 +80,8 @@ def test_entry_points_load_no_jax():
             "ml_recipe_tpu_torch.cli.train, ml_recipe_tpu_torch.train.trainer, "
             "ml_recipe_tpu_torch.quant, ml_recipe_tpu_torch.cli.validate, "
             "ml_recipe_tpu_torch.cli.train_metrics, "
-            "ml_recipe_tpu_torch.infer.predictor; "
+            "ml_recipe_tpu_torch.infer.predictor, "
+            "ml_recipe_tpu_torch.parallel; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'ml_recipe_tpu')); "
             "assert not bad, bad")

@@ -345,8 +345,9 @@ def test_remat_gradients_equal_plain_under_dropout(monkeypatch):
 
     from torch.utils.checkpoint import checkpoint
 
-    monkeypatch.setattr(port_encoder, "remat_layer", lambda layer, h, m, g:
-                        checkpoint(layer, h, m, g, use_reentrant=False))
+    monkeypatch.setattr(port_encoder, "remat_layer",
+                        lambda layer, h, m, g, rows=None:
+                        checkpoint(layer, h, m, g, rows, use_reentrant=False))
     naive, _, _ = run(True)
     worst = max((naive[n] - ref[n]).abs().max().item() for n in ref)
     assert worst > 1e-3

@@ -469,7 +469,11 @@ def test_cli_trains_two_debug_steps_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mesh", "data:2"], ["--dist_world_size", "2"], ["--async_checkpoint"],
+    ["--mesh", "data:2"],
+    # data parallelism is ported; ZeRO-1 across its processes is not
+    ["--dist_world_size", "2", "--local_rank", "0", "--optimizer_sharding",
+     "zero1"],
+    ["--async_checkpoint"],
     ["--apex_loss_scale", "dynamic"], ["--sequence_packing", "on"],
     ["--optimizer", "adamod"], ["--finetune"], ["--goodput_ledger"],
 ])
@@ -507,8 +511,10 @@ def test_world_size_from_the_environment_raises(tmp_path, monkeypatch):
     _, (params, model_params) = get_params(
         (get_trainer_parser, get_model_parser), _cli_args(tmp_path))
     check_train_flags(params, model_params)   # the defaults are accepted
+    # the world comes from the flags: a launcher's WORLD_SIZE they do not
+    # repeat is refused, not run as one process
     monkeypatch.setenv("WORLD_SIZE", "4")
-    with pytest.raises(NotImplementedError, match="DDP"):
+    with pytest.raises(ValueError, match="WORLD_SIZE=4"):
         check_train_flags(params, model_params)
 
 
