@@ -131,7 +131,28 @@ Phases, each fatal on failure (exit code 1, and no result line):
     DP_FAULT_FACTOR times its tolerance and break the replicas; a one-rank NCCL
     group's bucketed all-reduce and broadcast over bert-base's parameters
     must give back their inputs bit for bit; the step walls, all-reduce
-    times and the global-shape dropout draw's extra cost are printed.
+    times and the global-shape dropout draw's extra cost are printed;
+12. the fine-tune's training options at full width: a seeded random
+    bert-base HF checkpoint (f32, ``bert.`` prefix) written as
+    ``pytorch_model.bin`` and as ``model.safetensors``, each loaded through
+    ``compose.init_model`` (every encoder leaf ``torch.equal`` to its
+    source, the heads their seeded init); ``config/test_bert.cfg
+    --ln_impl fused --hf_checkpoint DIR --optimizer adamod
+    --apex_loss_scale dynamic --async_checkpoint`` trained through phase
+    4's sequence (counts zeroed just before and read just after: phase 9's
+    counts), losses finite and the scale 2^15 after both steps; the
+    optimizer step alone, AdaMod against adam; one 32x512 micro-batch's
+    gradient at scale 2^15, unscaled, against scale 1 within
+    LS_GRAD_REL_TOL; a planted overflow (the dynamic state at 2^127 and an
+    infinite gradient in the classifier bias) leaving the parameters,
+    AdaMod's three moments and the counts ``torch.equal`` and the scale at
+    2^126; an async checkpoint byte-equal to a sync save of the same state,
+    with the snapshot's, the persist's and the sync save's seconds; one
+    fine-tune step (``--finetune --finetune_position --finetune_class``,
+    counts zeroed just before and read just after: the forward launches
+    of 8 micro-batches, no backward launch), the encoder equal to the warm
+    start and both heads moved, and the micro-batch's device time with the
+    encoder frozen and trained.
 
 It then prints one ``{"kernels": [...]}`` line (the attention kernels'
 lines carry the tensor-core kernels' resources and every timed shape's
@@ -1324,6 +1345,23 @@ def phase_int8_serving(torch, bf16, ids, bf16_forward_ms):
     return launched
 
 
+def _train_flags(cfg_path: Path, extra=()):
+    """The trainer and model flags of the cfg file at ``cfg_path`` with
+    ``extra``, the synthetic vocab and the smoke's dump directory."""
+    from ml_recipe_tpu_torch.config.parser import (
+        get_model_parser, get_params, get_trainer_parser)
+    from ml_recipe_tpu_torch.tokenizer import write_synthetic_bert_vocab
+
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    vocab = write_synthetic_bert_vocab(OUT_DIR / "vocab.txt")
+    _, (params, model_params) = get_params(
+        (get_trainer_parser, get_model_parser),
+        ["-c", str(cfg_path), "--vocab_file", vocab,
+         "--dump_dir", str(OUT_DIR / "results"), *extra])
+    params.n_jobs = max(1, min(params.n_jobs, (os.cpu_count() or 2) // 2))
+    return params, model_params
+
+
 def _run_training(torch, cfg: str, extra=()):
     """``config/<cfg>`` (or the cfg file at the path ``cfg``) with ``extra``
     flags through the trainer and model parsers, ``check_train_flags`` and the build and train sequence of
@@ -1331,19 +1369,11 @@ def _run_training(torch, cfg: str, extra=()):
     before ``train`` and read just after. Returns the trainer, the trainer
     flags, every kernel's launch count and the wall seconds."""
     from ml_recipe_tpu_torch.cli import train as train_cli
-    from ml_recipe_tpu_torch.config.parser import (
-        check_train_flags, get_model_parser, get_params, get_trainer_parser)
-    from ml_recipe_tpu_torch.tokenizer import write_synthetic_bert_vocab
+    from ml_recipe_tpu_torch.config.parser import check_train_flags
 
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
-    vocab = write_synthetic_bert_vocab(OUT_DIR / "vocab.txt")
     cfg_path = cfg if isinstance(cfg, Path) else REPO / "config" / cfg
     cfg = cfg_path.name
-    _, (params, model_params) = get_params(
-        (get_trainer_parser, get_model_parser),
-        ["-c", str(cfg_path), "--vocab_file", vocab,
-         "--dump_dir", str(OUT_DIR / "results"), *extra])
-    params.n_jobs = max(1, min(params.n_jobs, (os.cpu_count() or 2) // 2))
+    params, model_params = _train_flags(cfg_path, extra)
     check_train_flags(params, model_params)
     t0 = time.perf_counter()
     trainer = train_cli.build_trainer(params, model_params)
@@ -1378,15 +1408,21 @@ def _run_training(torch, cfg: str, extra=()):
     return trainer, params, launched, wall
 
 
+def _batch(torch, trainer, rows: int):
+    """The first ``rows`` training items, collated, on the card:
+    ``(inputs, labels)``."""
+    items = [trainer.train_dataloader.dataset[i] for i in range(rows)]
+    inputs, labels = trainer.collate_fun(items)[:2]
+    return ({k: torch.from_numpy(v).cuda() for k, v in inputs.items()},
+            {k: torch.from_numpy(v).cuda() for k, v in labels.items()})
+
+
 def _micro_batch(torch, trainer, rows: int):
     """``fwd_bwd(impl="auto", seed=0)``: one micro-batch of ``rows`` dummy
     items through the model's forward, the loss and backward, dropout drawn
     from a generator seeded with ``seed``, attention by ``impl``."""
     model = trainer.model
-    items = [trainer.train_dataloader.dataset[i] for i in range(rows)]
-    inputs, labels = trainer.collate_fun(items)[:2]
-    inputs = {k: torch.from_numpy(v).cuda() for k, v in inputs.items()}
-    labels = {k: torch.from_numpy(v).cuda() for k, v in labels.items()}
+    inputs, labels = _batch(torch, trainer, rows)
     params_t = list(model.parameters())
     attn = [m for m in model.modules() if hasattr(m, "attention_impl")]
 
@@ -2954,6 +2990,284 @@ def phase_data_parallel(torch):
             for k in r0["launched"]}
 
 
+# -- phase 12: the fine-tune's training options ------------------------------------
+
+OPT_DIR = OUT_DIR / "options"
+HF_SEED = 12
+# the tentpole command's flags (the HF directory comes with them)
+OPT_FLAGS = ["--ln_impl", "fused", "--optimizer", "adamod",
+             "--apex_loss_scale", "dynamic", "--async_checkpoint"]
+# the fine-tune step: without warmup, so that its one step has lr > 0
+FINETUNE_FLAGS = ["--finetune", "--finetune_position", "--finetune_class",
+                  "--warmup_coef", "0"]
+# a micro-batch's unscaled gradient at scale 2^15 against the same
+# micro-batch at scale 1, same generator: a power of two scales every bf16
+# and f32 value exactly, so only reductions whose order follows the
+# scheduling of atomics may differ: the order of phase 6's remat gate; a
+# scale applied twice, or never undone, misses by 2^15
+LS_GRAD_REL_TOL = REMAT_GRAD_REL_TOL
+PLANTED_SCALE = 2.0 ** 127
+
+
+def phase_train_options(torch):
+    """Phase 12: ``config/test_bert.cfg`` with this slice's options at
+    full width: an HF warm start from both file formats, the training run
+    with AdaMod and dynamic loss scaling, the scale's exactness, a planted
+    overflow, a fine-tune step with the encoder frozen and an async
+    checkpoint against a sync one. Returns the launch counts of the
+    training run and of the fine-tune step."""
+    import filecmp
+    import shutil
+
+    from ml_recipe_tpu_torch.cli import train as train_cli
+    from ml_recipe_tpu_torch.compose import init_model
+    from ml_recipe_tpu_torch.models.config import MODEL_PRESETS
+    from ml_recipe_tpu_torch.models.hf_convert import (
+        hf_to_encoder_params, synthetic_hf_state_dict, write_safetensors)
+    from ml_recipe_tpu_torch.train import loss_scale as ls_lib
+    from ml_recipe_tpu_torch.train.optim import AdaMod, AdamW
+
+    shutil.rmtree(OPT_DIR, ignore_errors=True)
+    OPT_DIR.mkdir(parents=True)
+    t_phase = time.perf_counter()
+
+    # 1. the warm start: a seeded random bert-base HF checkpoint in both
+    # formats, each loaded through compose.init_model
+    cfg = MODEL_PRESETS["bert-base-uncased"]
+    sd = synthetic_hf_state_dict(cfg, seed=HF_SEED)
+    dirs = {"pytorch_model.bin": OPT_DIR / "hf_bin",
+            "model.safetensors": OPT_DIR / "hf_safetensors"}
+    write_s = {}
+    for name, d in dirs.items():
+        d.mkdir()
+        t0 = time.perf_counter()
+        if name.endswith(".bin"):
+            torch.save(sd, d / name)
+        else:
+            write_safetensors(d / name, sd)
+        write_s[name] = time.perf_counter() - t0
+    expect = hf_to_encoder_params(sd, cfg.num_layers)
+    mb = sum(t.numel() * t.element_size() for t in sd.values()) / 1e6
+    test_bert = REPO / "config" / "test_bert.cfg"
+    params, model_params = _train_flags(test_bert)
+    random, _ = init_model(model_params, rng_seed=0, device="cuda", train=True)
+    heads = {n: p.detach().clone() for n, p in random.named_parameters()
+             if not n.startswith("transformer.")}
+    del random
+    for name, d in dirs.items():
+        model_params.hf_checkpoint = str(d)
+        t0 = time.perf_counter()
+        model, _ = init_model(model_params, rng_seed=0, device="cuda",
+                              train=True)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        enc = model.transformer.state_dict()
+        same = sum(torch.equal(enc[n].cpu(), t) for n, t in expect.items())
+        head_same = all(torch.equal(p.detach(), heads[n])
+                        for n, p in model.named_parameters()
+                        if not n.startswith("transformer."))
+        say(f"training options: warm start from {name} ({mb:.0f} MB f32, "
+            f"written in {write_s[name]:.1f}s): built in {load_s:.1f}s; "
+            f"{same} of {len(expect)} encoder leaves equal their source "
+            f"({len(enc)} in the encoder); heads equal to the seeded init: "
+            f"{head_same}")
+        if same != len(expect) or len(enc) != len(expect) or not head_same:
+            fail(f"the warm start from {name} is not the checkpoint's encoder "
+                 f"under the seeded heads")
+        del model, enc
+    del sd
+    torch.cuda.empty_cache()
+
+    # 2. the training run: test_bert.cfg's 2 debug steps of 8 x 32x512
+    hf = str(dirs["model.safetensors"])
+    trainer, params, launched, wall = _run_training(
+        torch, "test_bert.cfg", [*OPT_FLAGS, "--hf_checkpoint", hf])
+    model = trainer.model
+    layers = model.cfg.num_layers
+    micro = len(trainer.history) * params.batch_split
+    evals = trainer.eval_batches
+    want = {"fused_attention_fwd": layers * (micro + evals),
+            "fused_attention_bwd": layers * micro,
+            "layer_norm_fwd": LN_PER_FORWARD * (micro + evals),
+            "layer_norm_bwd": LN_PER_FORWARD * micro, "q8_matmul": 0,
+            "q8_quantize": 0}
+    hist = trainer.history
+    say(f"training options ({' '.join(OPT_FLAGS)} --hf_checkpoint): "
+        f"{len(hist)} steps + {evals} eval batches in {wall:.1f}s; step wall "
+        f"seconds {[round(h['seconds'], 3) for h in hist]}; loss "
+        f"{[round(h['loss'], 4) for h in hist]}; lr {[h['lr'] for h in hist]};"
+        f" loss_scale {[h['loss_scale'] for h in hist]}; grads_finite "
+        f"{[h['grads_finite'] for h in hist]}; launch counts {launched}, "
+        f"expected {want}")
+    if not isinstance(trainer.optimizer, AdaMod) or micro != 16 or evals != 22:
+        fail("the options run is not test_bert.cfg's 2 debug steps with AdaMod")
+    if launched != want:
+        fail("launch counts do not match the options training path")
+    if not all(np.isfinite(h["loss"]) for h in hist):
+        fail("a training loss under loss scaling is not finite")
+    if trainer.loss_scale.scale != 2.0 ** 15 or any(
+            h["grads_finite"] != 1.0 or h["loss_scale"] != 2.0 ** 15
+            for h in hist):
+        fail("the dynamic scale did not stay at 2^15 over two finite steps")
+
+    # the optimizer step alone, AdaMod against the adam chain, on copies of
+    # bert-base's parameters and one gradient
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    grads = {n: torch.randn(p.shape, generator=gen, device="cuda") * 1e-3
+             for n, p in trainer.optimizer.params.items()}
+    opt_ms = {}
+    for cls in (AdamW, AdaMod):
+        copies = {n: torch.nn.Parameter(p.detach().clone())
+                  for n, p in trainer.optimizer.params.items()}
+        opt = cls(copies, schedule=lambda step: 1e-5, weight_decay=1e-4)
+        opt_ms[cls.__name__] = time_ms(torch, lambda: opt.step(grads), reps=5,
+                                       warm=2)
+        del opt, copies
+    say(f"training options: one optimizer step over bert-base's "
+        f"{len(grads)} f32 tensors, device ms (CUDA events): adam "
+        f"{opt_ms['AdamW']:.3f}, adamod {opt_ms['AdaMod']:.3f}")
+    del grads
+    torch.cuda.empty_cache()
+
+    # 3. the scale's exactness on one 32x512 micro-batch
+    inputs, labels = _batch(torch, trainer, TRAIN_SHAPE[0])
+    params_t = list(model.parameters())
+    model.train()
+
+    def unscaled_grads(state):
+        for p in params_t:
+            p.grad = None
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        preds = model(**trainer._model_inputs(inputs), generator=gen)
+        total, _ = trainer.loss(preds, labels)
+        ls_lib.scale_loss(total, state).backward()
+        g = [p.grad for p in params_t]
+        ls_lib.unscale_(g, state)
+        return torch.cat([x.float().reshape(-1) for x in g])
+
+    scaled = unscaled_grads(ls_lib.init_state("dynamic"))
+    plain = unscaled_grads(ls_lib.init_state(1.0))
+    rel = ((scaled - plain).norm() / plain.norm()).item()
+    top = plain.abs().max().item()
+    say(f"training options: 32x512 micro-batch gradient at scale 2^15, "
+        f"unscaled, against scale 1: relative L2 {rel:.3e} (tol "
+        f"{LS_GRAD_REL_TOL:g}); equal elements "
+        f"{(scaled == plain).float().mean().item():.6f}; largest |gradient| "
+        f"{top:.4g}, so x 2^127 = {top * PLANTED_SCALE:.4g} "
+        f"({'overflows' if top * PLANTED_SCALE >= 2.0 ** 128 else 'stays finite in'} f32)")
+    if not (np.isfinite(rel) and rel <= LS_GRAD_REL_TOL):
+        fail("the unscaled gradient at 2^15 is not the gradient at scale 1")
+    del scaled, plain
+    for p in params_t:
+        p.grad = None
+
+    # 4. a planted overflow: the dynamic state at 2^127 and, so that the
+    # step overflows whatever its gradients' size, an infinite gradient
+    # planted in the classifier bias's backward
+    opt = trainer.optimizer
+    inputs, labels = _batch(torch, trainer, params.train_batch_size)
+
+    def state_of():
+        return ({n: p.detach().clone() for n, p in opt.params.items()},
+                {k: {n: t.clone() for n, t in getattr(opt, k).items()}
+                 for k in ("exp_avg", "exp_avg_sq", "exp_avg_lr")},
+                opt.count, trainer.global_step)
+
+    before = state_of()
+    trainer.loss_scale = ls_lib.LossScaleState(PLANTED_SCALE, 0, True)
+    hook = model.classifier.bias.register_hook(
+        lambda g: torch.full_like(g, float("inf")))
+    try:
+        values = trainer.train_step(inputs, labels)
+    finally:
+        hook.remove()
+    after = state_of()
+    unchanged = (all(torch.equal(a, before[0][n]) for n, a in after[0].items())
+                 and all(torch.equal(t, before[1][k][n])
+                         for k, ts in after[1].items() for n, t in ts.items())
+                 and after[2:] == before[2:])
+    say(f"training options: planted overflow at scale 2^127: grads_finite "
+        f"{values['grads_finite']}, scale after {trainer.loss_scale.scale!r} "
+        f"(2^{math.log2(trainer.loss_scale.scale):g}); parameters, the three "
+        f"AdaMod moments and the counts torch.equal to before: {unchanged}; "
+        f"lr logged {values['lr']!r}, loss {values['loss']:.4f}")
+    if values["grads_finite"] != 0.0 or not unchanged or \
+            trainer.loss_scale.scale != PLANTED_SCALE / 2:
+        fail("the overflow step changed the state or did not back off")
+    del before, after
+
+    # the micro-batch's device time with the encoder trained, then frozen
+    fwd_bwd = _micro_batch(torch, trainer, TRAIN_SHAPE[0])
+    train_ms = time_ms(torch, fwd_bwd, reps=5, warm=2)
+
+    # 6. the async checkpoint against a sync one of the same state
+    trainer.debug = False
+    paths = {"async": OPT_DIR / "async.ch", "sync": OPT_DIR / "sync.ch"}
+    trainer.save_state_dict(paths["async"])
+    snapshot_s = trainer.checkpoint_seconds["snapshot"]
+    t0 = time.perf_counter()
+    trainer.finish_pending_checkpoint()
+    barrier_s = time.perf_counter() - t0
+    persist_s = trainer.checkpoint_seconds["persist"]
+    saver, trainer._async_ckpt = trainer._async_ckpt, None
+    try:
+        trainer.save_state_dict(paths["sync"])
+    finally:
+        trainer._async_ckpt = saver
+    sync_s = trainer.checkpoint_seconds["save"]
+    size = paths["sync"].stat().st_size
+    same = filecmp.cmp(paths["async"], paths["sync"], shallow=False)
+    say(f"training options: async checkpoint of {size / 1e9:.3f} GB "
+        f"(parameters and three AdaMod moments, f32): the step blocked "
+        f"{snapshot_s:.3f}s for the snapshot, the persist took {persist_s:.3f}s "
+        f"on its thread (the barrier waited {barrier_s:.3f}s more); a sync "
+        f"save {sync_s:.3f}s; byte-equal to the sync save: {same}")
+    if not same:
+        fail("the async checkpoint differs from a sync save of the state")
+    for path in paths.values():
+        path.unlink()
+    del trainer, model, params_t, fwd_bwd, saver, opt
+    torch.cuda.empty_cache()
+
+    # 5. one fine-tune step, the encoder frozen
+    params, model_params = _train_flags(
+        test_bert, [*OPT_FLAGS, "--hf_checkpoint", hf, *FINETUNE_FLAGS])
+    trainer = train_cli.build_trainer(params, model_params)
+    model = trainer.model
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    inputs, labels = _batch(torch, trainer, params.train_batch_size)
+    zero_counts()                   # the fine-tune step starts here
+    values = trainer.train_step(inputs, labels)
+    torch.cuda.synchronize()
+    tuned = counts()                # and ends here
+    steps = params.batch_split
+    want_ft = {"fused_attention_fwd": layers * steps,
+               "fused_attention_bwd": 0,
+               "layer_norm_fwd": LN_PER_FORWARD * steps, "layer_norm_bwd": 0,
+               "q8_matmul": 0, "q8_quantize": 0}
+    enc = model.transformer.state_dict()
+    frozen = all(torch.equal(enc[n].cpu(), t) for n, t in expect.items())
+    moved = sorted({n.split(".")[0] for n, p in model.named_parameters()
+                    if not torch.equal(p.detach(), start[n])})
+    fwd_bwd = _micro_batch(torch, trainer, TRAIN_SHAPE[0])
+    frozen_ms = time_ms(torch, fwd_bwd, reps=5, warm=2)
+    say(f"training options: one fine-tune step ({' '.join(FINETUNE_FLAGS)}): "
+        f"loss {values['loss']:.4f}; launch counts {tuned}, expected "
+        f"{want_ft}; the encoder equal to the warm start: {frozen}; modules "
+        f"moved {moved}; one 32x512 micro-batch forward+backward device ms "
+        f"{frozen_ms:.3f} with the encoder frozen, {train_ms:.3f} trained "
+        f"(CUDA events)")
+    if tuned != want_ft:
+        fail("launch counts do not match the fine-tune step")
+    if not frozen or moved != ["classifier", "position_outputs"]:
+        fail("the fine-tune step moved a frozen module or left a head")
+    del trainer, model, start, fwd_bwd, enc, expect
+    shutil.rmtree(OPT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    say(f"training options: phase wall {time.perf_counter() - t_phase:.1f}s")
+    return launched, tuned
+
+
 def main() -> int:
     try:
         import torch
@@ -3029,10 +3343,16 @@ def main() -> int:
     nq_metrics = phase_nq_train_metrics(torch, nq, nq_train)
     torch.cuda.empty_cache()
     dp = phase_data_parallel(torch)
+    torch.cuda.empty_cache()
+    opt_run, opt_tune = phase_train_options(torch)
     nq_fwd = {"nq training": nq_train.launched["fused_attention_fwd"],
               "validate": nq_val.launched["fused_attention_fwd"],
               "validate int8": nq_val8.launched["fused_attention_fwd"],
               "train_metrics": nq_metrics["fused_attention_fwd"]}
+
+    def option_paths(kernel):
+        return {"training options": opt_run[kernel],
+                "fine-tune step": opt_tune[kernel]}
 
     def int8_paths(kernel):
         return {"serving int8": int8[kernel],
@@ -3100,21 +3420,26 @@ def main() -> int:
     new_kernels = [
         entry("layer_norm_fwd", "ml_recipe_tpu/ops/layer_norm.py:84",
               int8["layer_norm_fwd"] + ln_train["layer_norm_fwd"]
-              + nq_val8.launched["layer_norm_fwd"] + dp["layer_norm_fwd"],
+              + nq_val8.launched["layer_norm_fwd"] + dp["layer_norm_fwd"]
+              + opt_run["layer_norm_fwd"] + opt_tune["layer_norm_fwd"],
               ln_fwd_err, ln_fwd, "16384x768 bf16 (32x512, training)",
               source="layer_norm",
               launches_by_path={**int8_paths("layer_norm_fwd"),
                                 "training fused": ln_train["layer_norm_fwd"],
-                                "data parallel": dp["layer_norm_fwd"]},
+                                "data parallel": dp["layer_norm_fwd"],
+                                **option_paths("layer_norm_fwd")},
               device_ms=ln_fwd["device_ms"], host_ms=ln_fwd["host_ms"],
               at_32x384={k: ln_serve[k] for k in (
                   "ms", "device_ms", "host_ms", "plain_ms", "library_ms",
                   "bound_ms", "with_codes")}),
         entry("layer_norm_bwd", "ml_recipe_tpu/ops/layer_norm.py:96",
-              ln_train["layer_norm_bwd"] + dp["layer_norm_bwd"], ln_bwd_err,
+              ln_train["layer_norm_bwd"] + dp["layer_norm_bwd"]
+              + opt_run["layer_norm_bwd"] + opt_tune["layer_norm_bwd"],
+              ln_bwd_err,
               ln_bwd, "16384x768 bf16 (32x512, training)", source="layer_norm",
               launches_by_path={"training fused": ln_train["layer_norm_bwd"],
-                                "data parallel": dp["layer_norm_bwd"]},
+                                "data parallel": dp["layer_norm_bwd"],
+                                **option_paths("layer_norm_bwd")},
               device_ms=ln_bwd["device_ms"], host_ms=ln_bwd["host_ms"],
               device_ms_by_kernel=ln_bwd["split_ms"],
               by_shape={f"{N}x{C}": {k: t[k] for k in (
@@ -3143,12 +3468,14 @@ def main() -> int:
         "replaces": "ml_recipe_tpu/ops/flash_attention.py:129",
         "launches": (serving_fwd + train_fwd + int8["fused_attention_fwd"]
                      + ln_train["fused_attention_fwd"] + sum(nq_fwd.values())
-                     + dp["fused_attention_fwd"]),
+                     + dp["fused_attention_fwd"]
+                     + sum(option_paths("fused_attention_fwd").values())),
         "launches_by_path": {"serving": serving_fwd, "training": train_fwd,
                              "serving int8": int8["fused_attention_fwd"],
                              "training fused": ln_train["fused_attention_fwd"],
                              **nq_fwd,
-                             "data parallel": dp["fused_attention_fwd"]},
+                             "data parallel": dp["fused_attention_fwd"],
+                             **option_paths("fused_attention_fwd")},
         "max_abs_err": fwd_err,
         "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"],
@@ -3164,12 +3491,14 @@ def main() -> int:
         "replaces": "ml_recipe_tpu/ops/flash_attention.py:266",
         "launches": (train_bwd + ln_train["fused_attention_bwd"]
                      + nq_train.launched["fused_attention_bwd"]
-                     + dp["fused_attention_bwd"]),
+                     + dp["fused_attention_bwd"]
+                     + sum(option_paths("fused_attention_bwd").values())),
         "launches_by_path": {"serving": 0, "training": train_bwd,
                              "training fused": ln_train["fused_attention_bwd"],
                              "nq training":
                                  nq_train.launched["fused_attention_bwd"],
-                             "data parallel": dp["fused_attention_bwd"]},
+                             "data parallel": dp["fused_attention_bwd"],
+                             **option_paths("fused_attention_bwd")},
         "max_abs_err": bwd_err,
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],

@@ -20,7 +20,11 @@ experiment directory, builds model, datasets, loss and ``Trainer``, and runs
 Without ``--dummy_dataset`` the datasets come from the NQ corpus at
 ``--data_path``, preprocessed into ``--processed_data_path`` (cleared
 first with ``--clear_processed``).
-``KeyboardInterrupt`` or ``SIGTERM`` saves ``interrupt.ch``.
+``KeyboardInterrupt`` or ``SIGTERM`` saves ``interrupt.ch``. With
+``--async_checkpoint`` the run waits for the last background write before
+it returns (and, after an interrupt, for ``interrupt.ch``'s), so a
+checkpoint is on disk when the process ends; ``--hf_checkpoint DIR`` warm
+starts the encoder from a local HF directory (``compose.init_model``).
 
 With ``--dist_world_size`` W > 1 each process joins the world before any
 CUDA use (NCCL on CUDA, gloo with ``--device cpu``; ``parallel/dist.py``)
@@ -75,8 +79,8 @@ def build_trainer(params, model_params) -> Trainer:
     data_rng = rng_pool.host_rng("chunk_sampling") if rng_pool else None
     seed = params.seed if params.seed is not None else 0
 
-    model, tokenizer = init_model(model_params, rng_seed=seed, device=device,
-                                  train=True)
+    model, tokenizer = init_model(model_params, bpe_dropout=params.bpe_dropout,
+                                  rng_seed=seed, device=device, train=True)
     train_dataset, test_dataset, train_weights = init_shared_datasets(
         params, tokenizer=tokenizer, clear=params.clear_processed,
         rng=data_rng)
@@ -103,6 +107,7 @@ def build_trainer(params, model_params) -> Trainer:
         device_prefetch=params.device_prefetch,
         log_every=params.log_every,
         sharded_checkpoint=params.sharded_checkpoint,
+        async_checkpoint=params.async_checkpoint,
     )
     if params.last is not None:
         trainer.load_state_dict(params.last)
@@ -111,7 +116,8 @@ def build_trainer(params, model_params) -> Trainer:
 
 def train(trainer: Trainer, params) -> Trainer:
     """``trainer.train`` with the after-epoch hooks (save_last, save_each,
-    test); ``KeyboardInterrupt`` or ``SIGTERM`` saves ``interrupt.ch``."""
+    test); ``KeyboardInterrupt`` or ``SIGTERM`` saves ``interrupt.ch``.
+    Every way out passes the completion barrier of the async saves."""
     exp_dir = params.dump_dir / params.experiment_name
 
     def save_last(*args, **kwargs):
@@ -139,7 +145,19 @@ def train(trainer: Trainer, params) -> Trainer:
         if on_main_thread:
             signal.signal(signal.SIGTERM, signal.SIG_IGN)
         logger.error("Training process was interrupted.")
+        # an earlier write's failure (already logged) must not abort the
+        # emergency checkpoint
+        trainer.finish_pending_checkpoint(raise_errors=False)
         trainer.save_state_dict(exp_dir / "interrupt.ch")
+        # durable before the process ends and a resume reads it
+        trainer.finish_pending_checkpoint()
+    except Exception:
+        # let an in-flight write land, without masking the error
+        trainer.finish_pending_checkpoint(raise_errors=False)
+        raise
+    else:
+        # a clean run must not end while its last checkpoint is written
+        trainer.finish_pending_checkpoint()
     finally:
         if on_main_thread:
             signal.signal(signal.SIGTERM, prev_handler)

@@ -24,9 +24,12 @@ from .utils.device import resolve_device
 logger = logging.getLogger(__name__)
 
 
-def init_tokenizer(model_params):
+def init_tokenizer(model_params, *, bpe_dropout: Optional[float] = None):
     """First-party tokenizer over ``--vocab_file`` (the HF tokenizer
-    fallback of the JAX package needs a vocab download and is not ported)."""
+    fallback of the JAX package needs a vocab download and is not ported);
+    ``bpe_dropout`` (``--bpe_dropout``) drops BPE merges at that rate on
+    every encode (roberta vocabularies; the WordPiece tokenizer warns and
+    ignores it)."""
     model_name = model_params.model.split("-")[0]
     if model_params.vocab_file is None:
         raise ValueError(
@@ -43,6 +46,7 @@ def init_tokenizer(model_params):
         merges_file=model_params.merges_file,
         lowercase=model_params.lowercase,
         handle_chinese_chars=model_params.handle_chinese_chars,
+        dropout=bpe_dropout,
     )
 
 
@@ -50,13 +54,17 @@ def init_model(
     model_params,
     *,
     checkpoint: Optional[str] = None,
+    bpe_dropout: Optional[float] = None,
     rng_seed: int = 0,
     device=None,
     train: bool = False,
     quantize: str = "off",
 ) -> Tuple[QAModel, object]:
-    """Build ``(model, tokenizer)``: f32 params from a seeded
-    ``torch.Generator``, then the optional single-file ``checkpoint``; the
+    """Build ``(model, tokenizer)``. Weight priority, as in the JAX package:
+    the optional ``checkpoint`` (either layout) > ``--hf_checkpoint`` (a
+    local HF directory or file, converted onto the encoder by
+    ``models.hf_convert``; the heads keep their init) > f32 params from a
+    seeded ``torch.Generator``. The tokenizer gets ``bpe_dropout``. The
     compute dtype is ``--compute_dtype``, the LayerNorm ``--ln_impl``. When
     ``train``, the model is in training mode (dropout on) and every param
     stays f32 (the optimizer's master weights). Otherwise it is in eval
@@ -72,7 +80,7 @@ def init_model(
     ``device`` (else ``model_params.device``, else ``cuda``) must exist:
     without CUDA the default raises instead of running on the CPU."""
     dev = resolve_device(device or getattr(model_params, "device", None))
-    tokenizer = init_tokenizer(model_params)
+    tokenizer = init_tokenizer(model_params, bpe_dropout=bpe_dropout)
     cfg = resolve_model_config(model_params, num_labels=len(labels2id))
     dtype = (torch.bfloat16
              if getattr(model_params, "compute_dtype", "bfloat16") == "bfloat16"
@@ -84,6 +92,11 @@ def init_model(
         ln_impl=getattr(model_params, "ln_impl", "xla") or "xla",
     )
     init_weights(model, torch.Generator().manual_seed(rng_seed))
+    hf_checkpoint = getattr(model_params, "hf_checkpoint", None)
+    if hf_checkpoint:
+        from .models.hf_convert import load_pretrained_into
+
+        load_pretrained_into(model, hf_checkpoint)
     if checkpoint is not None:
         from .train.checkpoint import load_state_dict
 

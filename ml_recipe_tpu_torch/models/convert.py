@@ -63,25 +63,36 @@ def from_jax_params(tree_of_numpy: dict) -> Dict[str, torch.Tensor]:
     return out
 
 
-def to_jax_params(state_dict: Dict[str, torch.Tensor]) -> dict:
+def jax_path(key: str) -> tuple:
+    """The flax tree path of the port's parameter ``key``."""
+    *module, name = key.split(".")
+    if name == "weight":
+        if module[-1] in _LN_NAMES:
+            name = "scale"
+        elif module[-1].endswith("embeddings"):
+            name = "embedding"
+        else:
+            name = "kernel"
+    return (*module, name)
+
+
+def to_jax_params(state_dict: Dict[str, torch.Tensor], *,
+                  copy: bool = False) -> dict:
     """The inverse of :func:`from_jax_params`: a nested dict of numpy, f32
-    but for the int8 ``kernel_q``."""
+    but for the int8 ``kernel_q``. A leaf of a CPU tensor may share the
+    tensor's memory; ``copy`` makes every leaf a buffer of its own."""
     tree: dict = {}
     for key, tensor in state_dict.items():
-        *module, name = key.split(".")
-        if name == "kernel_q":
-            arr = tensor.detach().cpu().numpy().T
-        else:
-            arr = tensor.detach().to("cpu", torch.float32).numpy()
-        if name == "weight":
-            if module[-1] in _LN_NAMES:
-                name = "scale"
-            elif module[-1].endswith("embeddings"):
-                name = "embedding"
-            else:
-                name, arr = "kernel", arr.T
+        path = jax_path(key)
+        arr = (tensor.detach().cpu().numpy() if path[-1] == "kernel_q"
+               else tensor.detach().to("cpu", torch.float32).numpy())
+        if path[-1] in ("kernel", "kernel_q"):
+            arr = arr.T
         node = tree
-        for part in module:
+        for part in path[:-1]:
             node = node.setdefault(part, {})
-        node[name] = np.ascontiguousarray(arr)
+        # a leaf read from the card is a fresh host buffer already
+        own = copy and tensor.device.type == "cpu"
+        node[path[-1]] = (np.array(arr, order="C", copy=True) if own
+                          else np.ascontiguousarray(arr))
     return tree

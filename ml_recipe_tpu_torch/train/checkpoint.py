@@ -9,10 +9,21 @@ layout holds:
 - ``model``: the flax params tree (``models/convert.py`` maps it onto the
   modules name for name);
 - ``optimizer``: the optax chain's state-dict layout (``train/optim.py``
-  ``AdamW.flax_state``), so the JAX ``Trainer.load_state_dict`` restores a
+  ``flax_state``), so the JAX ``Trainer.load_state_dict`` restores a
   port checkpoint and the port resumes a JAX one;
+- ``loss_scale``, under ``--apex_loss_scale`` only: the scaling state as
+  its own group (``train/loss_scale.py``), so a checkpoint stays loadable
+  when the flag changes between save and resume;
 - ``global_step``, ``scheduler`` ``{"last_step": step}`` and the trainer's
   ``extra`` topology record.
+
+Each save is a snapshot, then a persist. The snapshot
+(:func:`snapshot_state`, :func:`snapshot_state_sharded`) copies every
+leaf to host buffers of its own: the optimizer updates the parameters and
+moments in place, so a persist running later on a background thread
+(``resilience/checkpoint_async.py``) must not read the live tensors. The
+persist (:func:`persist_state`, :func:`persist_state_sharded`) serializes
+and writes; the synchronous saves are the two run back to back.
 
 The single file holds them as one dict, written atomically (a temporary
 file, then a rename); with several processes rank 0 writes it. The sharded
@@ -49,7 +60,7 @@ import logging
 import os
 import shutil
 import zlib
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 from torch import nn
@@ -141,42 +152,78 @@ def _atomic_write(path: str, blob: bytes) -> None:
     os.replace(tmp, path)   # no torn checkpoint on interrupt
 
 
-def _training_groups(model: nn.Module, optimizer) -> dict:
-    groups = {"model": to_jax_params(model.state_dict())}
+def _training_groups(model: nn.Module, optimizer, loss_scale=None, *,
+                     copy: bool = False) -> dict:
+    groups = {"model": to_jax_params(model.state_dict(), copy=copy)}
     if optimizer is not None:
-        groups["optimizer"] = optimizer.flax_state()
+        groups["optimizer"] = optimizer.flax_state(copy=copy)
+    if loss_scale is not None:
+        groups["loss_scale"] = loss_scale.state_dict()
     return groups
 
 
-def save_state_dict(path, *, model: nn.Module, optimizer=None,
-                    global_step: int = 0, extra: Optional[dict] = None) -> None:
-    """Write one checkpoint file in the JAX single-file layout (see the
-    module docstring); ``optimizer`` is a ``train.optim.AdamW`` or None."""
-    path = os.fspath(path)
-    if os.path.isdir(path):
-        raise IsADirectoryError(
-            f"{path} is a directory (a sharded checkpoint?); write it with "
-            f"save_state_dict_sharded or pick another path")
-    groups = _training_groups(model, optimizer)
+def snapshot_state(*, model: nn.Module, optimizer=None, loss_scale=None,
+                   global_step: int = 0, extra: Optional[dict] = None,
+                   copy: bool = False) -> dict:
+    """The single-file layout's dict (see the module docstring) on the
+    host; ``copy``: no leaf shares memory with a live tensor (a persist
+    deferred past the next step needs it)."""
+    groups = _training_groups(model, optimizer, loss_scale, copy=copy)
     state = {
         "model": groups["model"],
         "optimizer": groups.get("optimizer"),
         "scheduler": {"last_step": int(global_step)},
         "global_step": int(global_step),
     }
+    if "loss_scale" in groups:
+        state["loss_scale"] = groups["loss_scale"]
     if extra:
         state.update(extra)
+    return state
+
+
+def _refuse_directory(path: str) -> None:
+    if os.path.isdir(path):
+        raise IsADirectoryError(
+            f"{path} is a directory (a sharded checkpoint?); write it with "
+            f"save_state_dict_sharded or pick another path")
+
+
+def persist_state(path, state: dict) -> None:
+    """Serialize a :func:`snapshot_state` dict and write it atomically (a
+    temporary file, then a rename); touches no tensor."""
+    path = os.fspath(path)
+    _refuse_directory(path)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     _atomic_write(path, packb(state))
     logger.info("State dict was saved to %s.", path)
 
 
+def save_state_dict(path, *, model: nn.Module, optimizer=None,
+                    loss_scale=None, global_step: int = 0,
+                    extra: Optional[dict] = None) -> None:
+    """Write one checkpoint file in the JAX single-file layout (see the
+    module docstring): snapshot, then persist. ``optimizer`` is one of
+    ``train.optim``'s chains or None, ``loss_scale`` a
+    ``train.loss_scale.LossScaleState`` or None."""
+    _refuse_directory(os.fspath(path))
+    persist_state(path, snapshot_state(
+        model=model, optimizer=optimizer, loss_scale=loss_scale,
+        global_step=global_step, extra=extra))
+
+
+class Restored(NamedTuple):
+    global_step: int
+    loss_scale: Optional[dict]   # the checkpoint's loss_scale group, if read
+
+
 def load_training_state(path, *, model: nn.Module, optimizer=None,
-                        drop_optimizer: bool = False) -> Optional[int]:
+                        drop_optimizer: bool = False) -> Optional[Restored]:
     """Restore weights and, unless ``drop_optimizer``, the optimizer state
     (moments and counts) from a checkpoint of either package and either
-    layout; returns its global step, or None (logged) when there is no
-    checkpoint to load."""
+    layout; returns its global step and, unless ``drop_optimizer``, its
+    ``loss_scale`` group (None when it has none), or None (logged) when
+    there is no checkpoint to load."""
     state = _read_resumable(os.fspath(path))
     if state is None:
         return None
@@ -187,7 +234,8 @@ def load_training_state(path, *, model: nn.Module, optimizer=None,
         optimizer.load_flax_state(state["optimizer"])
         logger.info("Optimizer and scheduler also were restored from %s "
                     "checkpoint.", path)
-    return int(state.get("global_step") or 0)
+    return Restored(int(state.get("global_step") or 0),
+                    None if drop_optimizer else state.get("loss_scale"))
 
 
 # -- the sharded-directory layout ---------------------------------------------
@@ -262,27 +310,15 @@ def _remove(path: str) -> None:
         os.remove(path)
 
 
-def save_state_dict_sharded(path, *, model: nn.Module, optimizer=None,
-                            global_step: int = 0,
-                            extra: Optional[dict] = None,
-                            process_index: int = 0,
-                            process_count: int = 1) -> None:
-    """Write the sharded-directory layout (see the module docstring) as
-    process ``process_index`` of ``process_count`` (every process calls
-    it): every leaf is one piece owned by process 0, and the manifest
-    records ``shards`` 1 for it. Barriers go around the staging, the shard
-    writes and the swap, as in the JAX writer."""
-    def sync(tag: str) -> None:
-        if process_count > 1:
-            barrier(tag)
-
-    primary = process_index == 0
-    path = os.fspath(path)
-    if os.path.isdir(path) and os.listdir(path) and \
-            not os.path.exists(os.path.join(path, MANIFEST)):
-        raise IsADirectoryError(
-            f"checkpoint path {path} is a non-empty directory that is not a "
-            f"sharded checkpoint; refusing to write into it")
+def snapshot_state_sharded(*, model: nn.Module, optimizer=None,
+                           loss_scale=None, global_step: int = 0,
+                           extra: Optional[dict] = None,
+                           process_index: int = 0, process_count: int = 1,
+                           copy: bool = False) -> dict:
+    """This process's part of a sharded save on the host: the manifest
+    and the pieces it owns (every leaf is replicated and owned by process
+    0, recorded with ``shards`` 1; the others own none). ``copy`` as in
+    :func:`snapshot_state`."""
     step = int(global_step)
     manifest = {"format": SHARDED_FORMAT, "global_step": step,
                 "scheduler": {"last_step": step},
@@ -290,8 +326,8 @@ def save_state_dict_sharded(path, *, model: nn.Module, optimizer=None,
     if extra:
         manifest["extra"] = dict(extra)
     owned: dict = {}
-    # every leaf is replicated: process 0 owns it, the others write no piece
-    groups = _training_groups(model, optimizer) if primary else {}
+    groups = (_training_groups(model, optimizer, loss_scale, copy=copy)
+              if process_index == 0 else {})
     for gname, tree in groups.items():
         leaves = manifest["groups"][gname] = {}
         for key, leaf in _flatten(tree).items():
@@ -307,7 +343,29 @@ def save_state_dict_sharded(path, *, model: nn.Module, optimizer=None,
                            "shards": 1,
                            "crc32": _fold_piece_crcs([(bounds, crc)])}
     manifest["shards"] = 1
+    return {"manifest": manifest, "owned": owned, "global_step": step,
+            "process_index": int(process_index),
+            "process_count": int(process_count)}
 
+
+def persist_state_sharded(path, snap: dict) -> None:
+    """Write a :func:`snapshot_state_sharded` part as its process (every
+    process calls it): the shard file into ``path.saving``, the manifest
+    last, then the swap. Barriers go around the staging, the shard writes
+    and the swap, as in the JAX writer."""
+    process_index, process_count = snap["process_index"], snap["process_count"]
+
+    def sync(tag: str) -> None:
+        if process_count > 1:
+            barrier(tag)
+
+    primary = process_index == 0
+    path = os.fspath(path)
+    if os.path.isdir(path) and os.listdir(path) and \
+            not os.path.exists(os.path.join(path, MANIFEST)):
+        raise IsADirectoryError(
+            f"checkpoint path {path} is a non-empty directory that is not a "
+            f"sharded checkpoint; refusing to write into it")
     staging, old = path + ".saving", path + ".old"
     if primary:
         _recover_interrupted_swap(path, staging, old)
@@ -316,12 +374,13 @@ def save_state_dict_sharded(path, *, model: nn.Module, optimizer=None,
     sync("sharded_ckpt_stage_clear")
     os.makedirs(staging, exist_ok=True)
     _atomic_write(_shard_file(staging, process_index),
-                  packb({"global_step": step, "shards": owned}))
+                  packb({"global_step": snap["global_step"],
+                         "shards": snap["owned"]}))
     # every shard file lands before the manifest exists
     sync("sharded_ckpt_shards_written")
     if primary:
         # the manifest last: its presence marks the directory complete
-        _atomic_write(os.path.join(staging, MANIFEST), packb(manifest))
+        _atomic_write(os.path.join(staging, MANIFEST), packb(snap["manifest"]))
         if os.path.exists(path):   # a single file or a directory
             os.rename(path, old)
         os.rename(staging, path)
@@ -330,6 +389,20 @@ def save_state_dict_sharded(path, *, model: nn.Module, optimizer=None,
     sync("sharded_ckpt_swapped")
     logger.info("Sharded state dict was saved to %s (process %d of %d).",
                 path, process_index, process_count)
+
+
+def save_state_dict_sharded(path, *, model: nn.Module, optimizer=None,
+                            loss_scale=None, global_step: int = 0,
+                            extra: Optional[dict] = None,
+                            process_index: int = 0,
+                            process_count: int = 1) -> None:
+    """Write the sharded-directory layout (see the module docstring) as
+    process ``process_index`` of ``process_count``: snapshot, then
+    persist."""
+    persist_state_sharded(path, snapshot_state_sharded(
+        model=model, optimizer=optimizer, loss_scale=loss_scale,
+        global_step=global_step, extra=extra, process_index=process_index,
+        process_count=process_count))
 
 
 def _read_sharded(path: str) -> dict:
@@ -402,6 +475,7 @@ def _read_sharded(path: str) -> dict:
             flat[key] = assembled[gname][key]
         state[gname] = _unflatten(flat)
     state.setdefault("optimizer", None)
+    state.setdefault("loss_scale", None)
     state["scheduler"] = manifest.get("scheduler", {"last_step": step})
     state["global_step"] = step
     state.update(manifest.get("extra") or {})

@@ -1,35 +1,53 @@
-"""Optimizer, LR schedule and gradient clipping (the port of ``ml_recipe_tpu/train/optim.py``).
+"""Optimizers, LR schedule and gradient clipping (the port of
+``ml_recipe_tpu/train/optim.py``).
 
-The JAX package builds one optax chain (``build_optimizer``, ``--optimizer
-adam``): HF ``AdamW(correct_bias=False)`` moments with ``eps=1e-6``, then
-``add_decayed_weights`` under ``no_decay_mask``, then
-``scale_by_learning_rate(linear_warmup_schedule)``. :class:`AdamW` is that
-chain over a dict of f32 parameters, updated in place with
-``torch._foreach_*`` ops in the chain's order and rounding:
+The JAX package builds one optax chain per ``--optimizer``
+(``build_optimizer``); each class here is that chain over a dict of f32
+parameters, updated in place with ``torch._foreach_*`` ops in the chain's
+order and rounding, with ``lr = schedule(count)`` read BEFORE the count
+advances (step 0 trains at ``schedule(0)``, 0 under warmup):
 
-    mu = b1*mu + (1-b1)*g;  nu = b2*nu + ((1-b2)*g)*g;  u = mu/(sqrt(nu)+eps)
-    u = u + wd*p   (decaying leaves only);  p = p + u*(-lr)
+- :class:`AdamW` (``adam``): HF ``AdamW(correct_bias=False)`` moments with
+  ``eps=1e-6``, ``add_decayed_weights`` under ``no_decay_mask``, then
+  ``scale_by_learning_rate``::
 
-with ``lr = schedule(count)`` read BEFORE the count advances, so step 0
-trains at ``schedule(0)`` (0 under warmup). ``torch.optim.AdamW`` is not a
-substitute: it always bias-corrects and decays as ``p *= 1 - lr*wd``.
+      mu = b1*mu + (1-b1)*g;  nu = b2*nu + ((1-b2)*g)*g;  u = mu/(sqrt(nu)+eps)
+      u = u + wd*p   (decaying leaves only);  p = p + u*(-lr)
+
+  ``torch.optim.AdamW`` is not a substitute: it always bias-corrects and
+  decays as ``p *= 1 - lr*wd``;
+- :class:`AdaMod` (``adamod``): Adam moments with a bias-corrected step
+  size bounded by its own beta3 EMA, and decoupled decay::
+
+      s = lr*sqrt(1-b2^t)/(1-b1^t) / (sqrt(nu)+1e-8)
+      ema = b3*ema + (1-b3)*s;  p = p + (-min(s, ema)*mu - wd*lr*p)
+
+With ``--finetune``, ``trainable_mask`` names the modules that train
+(``--finetune_transformer|position|position_reg|class``); the others get
+``requires_grad_(False)``, so autograd computes no gradient for them and
+the optimizer holds no state for them and never touches them. The JAX
+package reaches the same result by zeroing their gradients and wrapping
+the chain in ``masked(tx, trainable)`` + ``masked(set_to_zero, frozen)``.
 
 :func:`clip_by_global_norm_` is the train step's clip, ``g * c / max(norm,
 c)`` (``torch.nn.utils.clip_grad_norm_`` divides by ``norm + 1e-6``).
 
-:meth:`AdamW.flax_state` / :meth:`AdamW.load_flax_state` read and write the
-optax chain's state-dict layout, so checkpoints cross between the packages.
-``--optimizer adamod`` and fine-tune masks (``--finetune``) are not ported.
+``flax_state`` / ``load_flax_state`` read and write each chain's optax
+state-dict layout (the masked wrapper included, a frozen leaf's moments as
+``{}``), so checkpoints cross between the packages.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List
+import logging
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..models.convert import from_jax_params, to_jax_params
+from ..models.convert import from_jax_params, jax_path, to_jax_params
+
+logger = logging.getLogger(__name__)
 
 
 def linear_warmup_schedule(lr: float, num_warmup_steps: int,
@@ -56,15 +74,41 @@ def constant_schedule(lr: float) -> Callable[[int], float]:
     return lambda step: value
 
 
+def param_path_mask(names: Iterable[str],
+                    predicate: Callable[[Sequence[str]], bool]
+                    ) -> Dict[str, bool]:
+    """The shared walk of every per-parameter boolean mask:
+    ``predicate(path)`` over each parameter's flax path names
+    (``models.convert.jax_path``)."""
+    return {name: bool(predicate(jax_path(name))) for name in names}
+
+
 def no_decay_mask(names: Iterable[str]) -> Dict[str, bool]:
     """True where weight decay applies: everything except biases and any
     parameter under a ``layer_norm`` module (reference init.py:125-129)."""
-    mask = {}
-    for name in names:
-        parts = name.split(".")
-        mask[name] = not (parts[-1] == "bias"
-                          or any("layer_norm" in p for p in parts))
-    return mask
+    return param_path_mask(names, lambda path: not (
+        path[-1] == "bias" or any("layer_norm" in p for p in path)))
+
+
+def trainable_mask(names: Iterable[str],
+                   trainer_params) -> Optional[Dict[str, bool]]:
+    """Fine-tune module selection (reference init.py:85-123): None unless
+    ``finetune``; then True for the parameters under the flagged roots.
+    Raises ``AttributeError`` when no module is named."""
+    if not getattr(trainer_params, "finetune", False):
+        return None
+    roots = set()
+    if getattr(trainer_params, "finetune_transformer", False):
+        roots.add("transformer")
+    if getattr(trainer_params, "finetune_position", False):
+        roots.add("position_outputs")
+    if getattr(trainer_params, "finetune_position_reg", False):
+        roots.update(("reg_start", "reg_end"))
+    if getattr(trainer_params, "finetune_class", False):
+        roots.add("classifier")
+    if not roots:
+        raise AttributeError("Specify at least one module for fine-tuning.")
+    return param_path_mask(names, lambda path: path[0] in roots)
 
 
 @torch.no_grad()
@@ -80,12 +124,26 @@ def clip_by_global_norm_(grads: List[torch.Tensor],
     return norm
 
 
-class AdamW:
-    """``build_optimizer``'s ``adam`` chain over named f32 parameters."""
+def _update_moments(mus: List[torch.Tensor], nus: List[torch.Tensor],
+                    gs: List[torch.Tensor], b1: float, b2: float) -> None:
+    """Both chains' moments, in place, in their rounding:
+    ``mu = b1*mu + (1-b1)*g``, ``nu = b2*nu + ((1-b2)*g)*g``."""
+    torch._foreach_mul_(mus, b1)
+    torch._foreach_add_(mus, torch._foreach_mul(gs, 1.0 - b1))
+    sq = torch._foreach_mul(gs, 1.0 - b2)
+    torch._foreach_mul_(sq, gs)
+    torch._foreach_mul_(nus, b2)
+    torch._foreach_add_(nus, sq)
+
+
+class _Chain:
+    """What both chains share: the trainable f32 parameters by name, the
+    schedule, the decay mask, and the optax layout around the core state
+    (``frozen`` is None without ``--finetune``, else the frozen names)."""
 
     def __init__(self, params: Dict[str, torch.nn.Parameter], *,
                  schedule: Callable[[int], float], weight_decay: float,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6):
+                 frozen: Optional[Sequence[str]] = None):
         self.params = dict(params)
         for name, p in self.params.items():
             if p.dtype != torch.float32:
@@ -93,16 +151,85 @@ class AdamW:
                                  f"weights; got {p.dtype}")
         self.schedule = schedule
         self.weight_decay = weight_decay
-        self.b1, self.b2, self.eps = b1, b2, eps
+        self.frozen = None if frozen is None else tuple(frozen)
         self.decay = no_decay_mask(self.params)
-        self.mu = {n: torch.zeros_like(p) for n, p in self.params.items()}
-        self.nu = {n: torch.zeros_like(p) for n, p in self.params.items()}
-        self.count = 0           # ScaleByAdamState.count
-        self.schedule_count = 0  # ScaleByScheduleState.count
+
+    def _zeros(self) -> Dict[str, torch.Tensor]:
+        return {n: torch.zeros_like(p) for n, p in self.params.items()}
 
     def lr(self) -> float:
-        """The learning rate the next :meth:`step` applies."""
+        """The learning rate the next ``step`` applies."""
         return self.schedule(self.schedule_count)
+
+    def _decaying(self, names) -> List[int]:
+        return [i for i, n in enumerate(names) if self.decay[n]]
+
+    # -- the optax state-dict layout ------------------------------------------
+
+    def _tree(self, moments: Dict[str, torch.Tensor], copy: bool) -> dict:
+        """A moment dict as the flax tree of the whole model: a frozen
+        leaf is ``{}`` (optax ``MaskedNode``)."""
+        tree = to_jax_params(moments, copy=copy)
+        for name in self.frozen or ():
+            *parents, leaf = jax_path(name)
+            node = tree
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = {}
+        return tree
+
+    def _read_tree(self, tree: dict) -> Dict[str, torch.Tensor]:
+        moments = from_jax_params(tree)   # a {} leaf holds nothing
+        if set(moments) != set(self.params):
+            raise ValueError("checkpoint optimizer moments do not match the "
+                             "model's trainable parameters")
+        for name, p in self.params.items():
+            if moments[name].shape != p.shape:
+                raise ValueError(f"{name}: moment shape "
+                                 f"{tuple(moments[name].shape)} != parameter "
+                                 f"shape {tuple(p.shape)}")
+        return moments
+
+    def flax_state(self, *, copy: bool = False) -> dict:
+        """``flax.serialization.to_state_dict`` of the JAX optimizer state:
+        the core chain in the outer one-element chain, and under
+        ``--finetune`` that in ``chain(masked(tx), masked(set_to_zero))``.
+        ``copy``: no leaf shares memory with a live moment."""
+        core = {"0": self._core_state(copy)}
+        if self.frozen is None:
+            return core
+        return {"0": {"inner_state": core}, "1": {"inner_state": {}}}
+
+    @torch.no_grad()
+    def load_flax_state(self, state: dict) -> None:
+        """Restore from :meth:`flax_state`'s layout (a JAX checkpoint's
+        ``optimizer`` entry); raises on another chain or fine-tune set."""
+        try:
+            if self.frozen is not None:
+                state = state["0"]["inner_state"]
+            self._load_core(state["0"])
+        except (KeyError, TypeError) as exc:
+            raise ValueError(
+                f"checkpoint optimizer state is not the layout of "
+                f"{type(self).__name__}"
+                f"{' under --finetune' if self.frozen is not None else ''} "
+                f"({exc!r})") from exc
+
+
+class AdamW(_Chain):
+    """``build_optimizer``'s ``adam`` chain over named f32 parameters."""
+
+    def __init__(self, params: Dict[str, torch.nn.Parameter], *,
+                 schedule: Callable[[int], float], weight_decay: float,
+                 frozen: Optional[Sequence[str]] = None,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6):
+        super().__init__(params, schedule=schedule, weight_decay=weight_decay,
+                         frozen=frozen)
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.mu = self._zeros()
+        self.nu = self._zeros()
+        self.count = 0           # ScaleByAdamState.count
+        self.schedule_count = 0  # ScaleByScheduleState.count
 
     @torch.no_grad()
     def step(self, grads: Dict[str, torch.Tensor]) -> float:
@@ -115,17 +242,12 @@ class AdamW:
         mus = [self.mu[n] for n in names]
         nus = [self.nu[n] for n in names]
 
-        torch._foreach_mul_(mus, self.b1)
-        torch._foreach_add_(mus, torch._foreach_mul(gs, 1.0 - self.b1))
-        sq = torch._foreach_mul(gs, 1.0 - self.b2)
-        torch._foreach_mul_(sq, gs)
-        torch._foreach_mul_(nus, self.b2)
-        torch._foreach_add_(nus, sq)
+        _update_moments(mus, nus, gs, self.b1, self.b2)
         den = torch._foreach_sqrt(nus)
         torch._foreach_add_(den, self.eps)
         updates = torch._foreach_div(mus, den)
 
-        decaying = [i for i, n in enumerate(names) if self.decay[n]]
+        decaying = self._decaying(names)
         if self.weight_decay and decaying:
             torch._foreach_add_(
                 [updates[i] for i in decaying],
@@ -137,57 +259,117 @@ class AdamW:
         self.schedule_count += 1
         return lr
 
-    # -- the optax chain's state-dict layout ---------------------------------
+    def _core_state(self, copy: bool) -> dict:
+        """``chain(scale_by_adam, masked(add_decayed_weights),
+        scale_by_schedule)``."""
+        return {"0": {"count": np.asarray(self.count, np.int32),
+                      "mu": self._tree(self.mu, copy),
+                      "nu": self._tree(self.nu, copy)},
+                "1": {"inner_state": {}},
+                "2": {"count": np.asarray(self.schedule_count, np.int32)}}
 
-    def flax_state(self) -> dict:
-        """``flax.serialization.to_state_dict`` of the JAX optimizer state:
-        ``chain(scale_by_adam, masked(add_decayed_weights),
-        scale_by_schedule)`` wrapped in the outer one-element chain."""
-        return {"0": {
-            "0": {"count": np.asarray(self.count, np.int32),
-                  "mu": to_jax_params(self.mu),
-                  "nu": to_jax_params(self.nu)},
-            "1": {"inner_state": {}},
-            "2": {"count": np.asarray(self.schedule_count, np.int32)},
-        }}
-
-    @torch.no_grad()
-    def load_flax_state(self, state: dict) -> None:
-        """Restore from :meth:`flax_state`'s layout (a JAX checkpoint's
-        ``optimizer`` entry); raises on a different chain."""
-        try:
-            core = state["0"]
-            adam, sched = core["0"], core["2"]
-            mu, nu = from_jax_params(adam["mu"]), from_jax_params(adam["nu"])
-        except (KeyError, TypeError) as exc:
-            raise ValueError(
-                f"checkpoint optimizer state is not the adam chain's layout "
-                f"({exc!r}); adamod and fine-tune chains are not ported") from exc
-        if set(mu) != set(self.params) or set(nu) != set(self.params):
-            raise ValueError("checkpoint optimizer moments do not match the "
-                             "model's parameters")
-        for name, p in self.params.items():
-            if mu[name].shape != p.shape or nu[name].shape != p.shape:
-                raise ValueError(f"{name}: moment shape {tuple(mu[name].shape)}"
-                                 f" != parameter shape {tuple(p.shape)}")
+    def _load_core(self, core: dict) -> None:
+        adam, sched = core["0"], core["2"]
+        mu, nu = self._read_tree(adam["mu"]), self._read_tree(adam["nu"])
+        for name in self.params:
             self.mu[name].copy_(mu[name])
             self.nu[name].copy_(nu[name])
         self.count = int(np.asarray(adam["count"]))
         self.schedule_count = int(np.asarray(sched["count"]))
 
 
+class AdaMod(_Chain):
+    """``build_optimizer``'s ``adamod`` chain (the JAX ``adamod``, from the
+    reference's vendored AdaMod) over named f32 parameters."""
+
+    def __init__(self, params: Dict[str, torch.nn.Parameter], *,
+                 schedule: Callable[[int], float], weight_decay: float,
+                 frozen: Optional[Sequence[str]] = None,
+                 b1: float = 0.9, b2: float = 0.999, beta3: float = 0.999,
+                 eps: float = 1e-8):
+        super().__init__(params, schedule=schedule, weight_decay=weight_decay,
+                         frozen=frozen)
+        self.b1, self.b2, self.beta3, self.eps = b1, b2, beta3, eps
+        self.exp_avg = self._zeros()
+        self.exp_avg_sq = self._zeros()
+        self.exp_avg_lr = self._zeros()
+        self.count = 0           # AdaModState.count, also the schedule's
+
+    @property
+    def schedule_count(self) -> int:
+        return self.count
+
+    @torch.no_grad()
+    def step(self, grads: Dict[str, torch.Tensor]) -> float:
+        """Apply one update from ``grads`` (f32, by name); returns the lr
+        it applied."""
+        lr = self.lr()
+        f32 = np.float32
+        t = f32(self.count + 1)
+        # the bias-corrected step size, an f32 scalar as the chain computes it
+        bias1 = f32(1) - f32(self.b1) ** t
+        bias2 = f32(1) - f32(self.b2) ** t
+        step_scale = float(f32(lr) * np.sqrt(bias2) / bias1)
+        names = list(self.params)
+        ps = [self.params[n] for n in names]
+        gs = [grads[n] for n in names]
+        ms = [self.exp_avg[n] for n in names]
+        vs = [self.exp_avg_sq[n] for n in names]
+        es = [self.exp_avg_lr[n] for n in names]
+
+        _update_moments(ms, vs, gs, self.b1, self.b2)
+        den = torch._foreach_sqrt(vs)
+        torch._foreach_add_(den, self.eps)
+        # step_scale / den, divided (not a reciprocal times step_scale)
+        size = torch._foreach_mul(den, 0.0)
+        torch._foreach_add_(size, step_scale)
+        torch._foreach_div_(size, den)
+        del den
+        torch._foreach_mul_(es, self.beta3)
+        torch._foreach_add_(es, torch._foreach_mul(size, 1.0 - self.beta3))
+        torch._foreach_minimum_(size, es)
+        torch._foreach_mul_(size, ms)
+        torch._foreach_neg_(size)                       # the update
+        decaying = self._decaying(names)
+        if self.weight_decay != 0 and decaying:
+            torch._foreach_sub_(
+                [size[i] for i in decaying],
+                torch._foreach_mul([ps[i] for i in decaying],
+                                   float(f32(self.weight_decay) * f32(lr))))
+        torch._foreach_add_(ps, size)
+        self.count += 1
+        return lr
+
+    def _core_state(self, copy: bool) -> dict:
+        """``AdaModState(count, exp_avg, exp_avg_sq, exp_avg_lr)``."""
+        return {"count": np.asarray(self.count, np.int32),
+                "exp_avg": self._tree(self.exp_avg, copy),
+                "exp_avg_sq": self._tree(self.exp_avg_sq, copy),
+                "exp_avg_lr": self._tree(self.exp_avg_lr, copy)}
+
+    def _load_core(self, core: dict) -> None:
+        moments = {key: self._read_tree(core[key])
+                   for key in ("exp_avg", "exp_avg_sq", "exp_avg_lr")}
+        for key, values in moments.items():
+            mine = getattr(self, key)
+            for name in self.params:
+                mine[name].copy_(values[name])
+        self.count = int(np.asarray(core["count"]))
+
+
+OPTIMIZERS = {"adam": AdamW, "adamod": AdaMod}
+
+
 def build_optimizer(trainer_params, params: Dict[str, torch.nn.Parameter], *,
-                    num_training_steps: int, warmup_coef=None) -> AdamW:
+                    num_training_steps: int, warmup_coef=None) -> _Chain:
     """Optimizer + schedule (reference init.py:134-145, trainer.py:116-126).
-    ``warmup_coef``, when given, overrides ``trainer_params.warmup_coef``."""
-    if getattr(trainer_params, "optimizer", "adam") != "adam":
-        raise NotImplementedError(
-            f"--optimizer {trainer_params.optimizer} is not ported to "
-            f"ml_recipe_tpu_torch yet (ROADMAP.md queue 1, 'Training: the parts still to port')")
-    if getattr(trainer_params, "finetune", False):
-        raise NotImplementedError(
-            "--finetune (trainable masks) is not ported to ml_recipe_tpu_torch "
-            "yet (ROADMAP.md queue 1, 'Training: the parts still to port')")
+    ``warmup_coef``, when given, overrides ``trainer_params.warmup_coef``.
+    Under ``--finetune`` the parameters outside :func:`trainable_mask` get
+    ``requires_grad_(False)`` here and stay out of the optimizer."""
+    name = getattr(trainer_params, "optimizer", "adam")
+    if name not in OPTIMIZERS:
+        raise ValueError(f"--optimizer {name!r}: choose from "
+                         f"{'|'.join(OPTIMIZERS)}")
     if warmup_coef is None:
         warmup_coef = getattr(trainer_params, "warmup_coef", 0.0)
     lr = trainer_params.lr
@@ -196,5 +378,16 @@ def build_optimizer(trainer_params, params: Dict[str, torch.nn.Parameter], *,
             lr, int(num_training_steps * warmup_coef), num_training_steps)
     else:
         schedule = constant_schedule(lr)
-    return AdamW(params, schedule=schedule,
-                 weight_decay=trainer_params.weight_decay)
+    tmask = trainable_mask(params, trainer_params)
+    frozen = None
+    if tmask is not None:
+        frozen = [n for n, trains in tmask.items() if not trains]
+        for n in frozen:
+            params[n].requires_grad_(False)
+        logger.info("Fine-tune: %d of %d parameter tensors train, %d frozen.",
+                    len(params) - len(frozen), len(params), len(frozen))
+    trainable = {n: p for n, p in params.items()
+                 if tmask is None or tmask[n]}
+    return OPTIMIZERS[name](trainable, schedule=schedule,
+                            weight_decay=trainer_params.weight_decay,
+                            frozen=frozen)

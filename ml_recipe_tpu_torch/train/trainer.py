@@ -10,8 +10,19 @@ Per optimizer step, as the JAX ``_build_train_step`` computes it:
    master weights (the JAX step's f32 accumulation carry);
 3. the gradients are scaled by ``1/batch_split``, clipped to
    ``c / max(norm, c)`` with ``c = max_grad_norm``, and the optimizer
-   (``train/optim.py``) updates the parameters in place at
-   ``schedule(count)``.
+   (``train/optim.py``: ``adam`` or ``adamod``) updates the parameters in
+   place at ``schedule(count)``.
+
+Under ``--apex_loss_scale`` (``train/loss_scale.py``) each micro-batch
+loss is multiplied by the scale before ``backward()``; after the mean over
+the micro-batches the gradients are unscaled and checked, in JAX's order:
+a step with a non-finite gradient skips the clip and the optimizer, so
+the parameters, the moments and the counts stay bit for bit as they were,
+and the scale backs off. Under ``--finetune`` the frozen modules have no
+gradient at all (``requires_grad_(False)``, ``build_optimizer``). The
+logged ``lr`` is ``schedule(global_step)``, or with loss scaling the
+schedule at the optimizer's own count, which overflow steps do not
+advance; ``loss_scale`` and ``grads_finite`` are logged beside the losses.
 
 Dropout is reproducible from ``(seed, step)``: each step seeds one CPU
 generator from them (numpy ``SeedSequence``), and draws from it one seed per
@@ -50,16 +61,22 @@ The loaders are the JAX package's (bucketed when ``length_buckets``), and
 epoch over two epochs and 11 eval batches, and skips checkpoint writes, as
 in the JAX trainer. ``sharded_checkpoint`` writes the JAX package's
 sharded-directory layout instead of one file; a resume reads either
-(``train/checkpoint.py``). Left out (their flags are refused by
-``config.parser.check_train_flags``): data, pipeline, tensor and sequence
-parallelism beyond data parallelism (ZeRO-1 is accepted at world size 1,
-where it is inert), the AOT store, telemetry, the watchdog, async
-checkpoints, loss scaling, packing and the HBM pre-flight.
+(``train/checkpoint.py``). With ``async_checkpoint`` a save blocks only for
+the host snapshot, and the write runs on a background thread
+(``resilience/checkpoint_async.py``) that ``finish_pending_checkpoint``
+waits for; a sharded save in a world of several processes stays
+synchronous (its barriers must not run beside the step's collectives). Left out (their flags are refused by
+``config.parser.check_train_flags``, or accepted and ignored where they
+change no result): pipeline, tensor and sequence parallelism beyond data
+parallelism (ZeRO-1 is accepted at world size 1, where it is inert), the
+AOT store, telemetry, the watchdog, packing and the HBM pre-flight.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
+import os
 import time
 from collections import defaultdict
 from typing import Callable, Dict, List, Optional
@@ -73,10 +90,10 @@ from ..data.loader import DataLoader, ShardedBatchSampler
 from ..metrics.meters import AverageMeter
 from ..parallel import collectives
 from ..parallel import dist as pdist
+from ..resilience.checkpoint_async import AsyncCheckpointer
+from . import checkpoint as ckpt
+from . import loss_scale as ls_lib
 from .callback import TestCallback
-from .checkpoint import load_training_state
-from .checkpoint import save_state_dict as _save_ckpt
-from .checkpoint import save_state_dict_sharded as _save_ckpt_sharded
 from .optim import build_optimizer, clip_by_global_norm_
 from .writer import init_writer
 
@@ -145,6 +162,7 @@ class Trainer:
         log_every: int = 10,
         on_train_metrics: Optional[Callable] = None,
         sharded_checkpoint: bool = False,
+        async_checkpoint: bool = False,
     ):
         self.model = model
         self.device = model.device
@@ -157,6 +175,11 @@ class Trainer:
         self.debug = debug
         self.seed = seed
         self.sharded_checkpoint = sharded_checkpoint
+        self._async_ckpt = AsyncCheckpointer() if async_checkpoint else None
+        self._async_fallback_logged = False
+        # the last save's seconds: "save" (a synchronous one), or
+        # "snapshot" (blocking) and "persist" (on the background thread)
+        self.checkpoint_seconds: Dict[str, float] = {}
         self.device_prefetch = resolve_depth(device_prefetch)
         self.log_every = max(1, int(log_every))
         self.on_train_metrics = on_train_metrics
@@ -231,6 +254,7 @@ class Trainer:
                         f"#JOBS: {n_jobs}.")
 
         self.optimizer = None
+        self.loss_scale: Optional[ls_lib.LossScaleState] = None
         self.planned_steps_per_epoch = None
         self.plan_seconds = 0.0
         if self.train_dataloader is not None and trainer_params is not None:
@@ -250,6 +274,11 @@ class Trainer:
             self.optimizer = build_optimizer(
                 trainer_params, dict(model.named_parameters()),
                 num_training_steps=num_training_steps, warmup_coef=warmup_coef)
+            flag = getattr(trainer_params, "apex_loss_scale", None)
+            if flag not in (None, "None"):
+                self.loss_scale = ls_lib.init_state(flag)
+                logger.info("Loss scaling enabled: %s.", "dynamic"
+                            if self.loss_scale.dynamic else self.loss_scale.scale)
 
         self.global_step = 0
         self.writer = init_writer(self.is_primary, writer_dir)
@@ -334,6 +363,7 @@ class Trainer:
             global_rows = (self.process_index * micro, world * micro)
             denominators = collectives.all_reduce_sum_(torch.stack(
                 [self.loss.denominators(t) for t in labels_of]))
+        scale = self.loss_scale
         summed: Dict[str, torch.Tensor] = {}
         for i, gen in enumerate(gens):
             rows_i = slice(i * micro, (i + 1) * micro)
@@ -343,6 +373,8 @@ class Trainer:
             total, values = self.loss(
                 preds, labels_of[i],
                 None if denominators is None else denominators[i])
+            if scale is not None:
+                total = ls_lib.scale_loss(total, scale)
             total.backward()
             for k, v in values.items():
                 v = v.detach().float()
@@ -358,11 +390,24 @@ class Trainer:
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for n, p in params.items()}
         torch._foreach_mul_(list(grads.values()), inv)
-        if self.max_grad_norm is not None and self.max_grad_norm > 0:
-            clip_by_global_norm_(list(grads.values()), self.max_grad_norm)
-        lr = self.optimizer.step(grads)
+        finite = True
+        if scale is not None:
+            # after the all-reduce: every process sees the same flag
+            ls_lib.unscale_(list(grads.values()), scale)
+            finite = ls_lib.all_finite(list(grads.values()))
+            lr = self.optimizer.lr()
+        else:
+            lr = self.optimizer.schedule(self.global_step)
+        if finite:
+            if self.max_grad_norm is not None and self.max_grad_norm > 0:
+                clip_by_global_norm_(list(grads.values()), self.max_grad_norm)
+            self.optimizer.step(grads)
         out = {k: float(v * inv) for k, v in summed.items()}
         out["lr"] = lr
+        if scale is not None:
+            self.loss_scale = ls_lib.update_state(scale, finite)
+            out["loss_scale"] = self.loss_scale.scale
+            out["grads_finite"] = float(finite)
         return out
 
     # -- train loop ------------------------------------------------------------
@@ -503,27 +548,114 @@ class Trainer:
 
     # -- checkpointing ---------------------------------------------------------
 
+    def _save_kwargs(self) -> dict:
+        return dict(model=self.model, optimizer=self.optimizer,
+                    loss_scale=self.loss_scale, global_step=self.global_step,
+                    extra=checkpoint_extra(self.process_count))
+
     def save_state_dict(self, path) -> None:
         """A checkpoint at ``path``: the single file by rank 0, or the
-        sharded directory by every process."""
+        sharded directory by every process; with ``async_checkpoint``, its
+        write on the background thread where :meth:`_async_supported`."""
         if self.debug:
             logger.info(f"Model was not saved to {path} because of debug mode.")
             return
-        kw = dict(model=self.model, optimizer=self.optimizer,
-                  global_step=self.global_step,
-                  extra=checkpoint_extra(self.process_count))
+        if self._async_ckpt is not None and self._async_supported():
+            return self._save_state_dict_async(path)
+        # the sync save keeps the single-flight order: an earlier
+        # background write lands first
+        self.finish_pending_checkpoint()
+        t0 = time.perf_counter()
         if self.sharded_checkpoint:
-            _save_ckpt_sharded(path, process_index=self.process_index,
-                               process_count=self.process_count, **kw)
+            ckpt.save_state_dict_sharded(
+                path, process_index=self.process_index,
+                process_count=self.process_count, **self._save_kwargs())
         elif self.is_primary:
-            _save_ckpt(path, **kw)
+            ckpt.save_state_dict(path, **self._save_kwargs())
+        self.checkpoint_seconds = {"save": time.perf_counter() - t0}
+
+    def _async_supported(self) -> bool:
+        """A sharded save of several processes crosses process barriers,
+        which must not run on a background thread beside the step's
+        collectives: it stays synchronous (logged once)."""
+        if not (self.sharded_checkpoint and self.process_count > 1):
+            return True
+        if not self._async_fallback_logged:
+            self._async_fallback_logged = True
+            logger.warning(
+                "--async_checkpoint with --sharded_checkpoint on a "
+                "multi-process world: the sharded persist crosses process "
+                "barriers, which must not run on a background thread "
+                "concurrently with training collectives — saving "
+                "synchronously instead.")
+        return False
+
+    def _save_state_dict_async(self, path) -> None:
+        """Block for the earlier write and the host snapshot (owned copies:
+        the next step updates the parameters and moments in place), then
+        write on the background thread."""
+        t0 = time.perf_counter()
+        self._async_ckpt.wait()
+        copy = self.device.type == "cpu"
+        if self.sharded_checkpoint:
+            snap = ckpt.snapshot_state_sharded(
+                process_index=self.process_index,
+                process_count=self.process_count, copy=copy,
+                **self._save_kwargs())
+            persist = functools.partial(ckpt.persist_state_sharded,
+                                        os.fspath(path), snap)
+        elif self.is_primary:
+            state = ckpt.snapshot_state(copy=copy, **self._save_kwargs())
+            persist = functools.partial(ckpt.persist_state, os.fspath(path),
+                                        state)
+        else:
+            persist = None
+        blocking = time.perf_counter() - t0
+        self.checkpoint_seconds = {"snapshot": blocking}
+        if persist is None:
+            return
+
+        def on_done(persist_s: float, stalled_s: float) -> None:
+            self.checkpoint_seconds["persist"] = persist_s
+
+        self._async_ckpt.submit(path, persist, on_done=on_done)
+        logger.info("Async checkpoint: step %d snapshot blocked %.3fs; "
+                    "persist to %s running in the background.",
+                    self.global_step, blocking, path)
+
+    def finish_pending_checkpoint(self, *, raise_errors: bool = True) -> None:
+        """The completion barrier of ``async_checkpoint``: block until the
+        background write lands (a no-op without one) and re-raise its
+        failure as ``AsyncCheckpointError``; with ``raise_errors=False``
+        the failure is logged and consumed instead (a path that already
+        handles an error, or an emergency save)."""
+        if self._async_ckpt is not None:
+            self._async_ckpt.wait(raise_errors=raise_errors)
 
     def load_state_dict(self, path) -> None:
-        step = load_training_state(path, model=self.model,
-                                   optimizer=self.optimizer,
-                                   drop_optimizer=self.drop_optimizer)
-        if step is not None:
-            self.global_step = step
+        """Restore a checkpoint of either layout and either package: the
+        weights, and unless ``drop_optimizer`` the optimizer state and the
+        loss-scale state. A loss-scale mode (or static value) that differs
+        from ``--apex_loss_scale`` keeps the flag's state, with a
+        warning."""
+        # the last save must be on disk before anything is read
+        self.finish_pending_checkpoint()
+        restored = ckpt.load_training_state(
+            path, model=self.model, optimizer=self.optimizer,
+            drop_optimizer=self.drop_optimizer)
+        if restored is None:
+            return
+        self.global_step = restored.global_step
+        live = self.loss_scale
+        if live is not None and restored.loss_scale is not None:
+            saved = ls_lib.LossScaleState.from_state_dict(restored.loss_scale)
+            if saved.dynamic != live.dynamic or (
+                    not live.dynamic and saved.scale != live.scale):
+                logger.warning("Checkpoint loss-scale state differs from "
+                               "--apex_loss_scale; keeping the configured "
+                               "scaling state.")
+            else:
+                self.loss_scale = saved
         if self.process_count > 1:
             collectives.broadcast_parameters(self.model.named_parameters())
 

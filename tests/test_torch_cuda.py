@@ -1032,3 +1032,131 @@ def test_two_ranks_over_gloo_on_the_card_equal_the_one_process_step(
     assert rel <= DP_GRAD_REL_L2, rel
     for got, want in zip(record[0]["values"], ref.values):
         np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-4)
+
+
+# -- the training options: loss scaling and AdaMod on the card -----------------
+
+# a micro-batch's unscaled gradient at scale 2^15 against scale 1: a power
+# of two scales every bf16 and f32 value exactly, so only reductions whose
+# order follows the scheduling of atomics may differ (chip_smoke.py's remat
+# gate); a scale never undone misses by 2^15
+LS_GRAD_REL_L2 = 1e-5
+
+
+def _bf16_micro_batch(tmp_path, cuda):
+    """A bf16 tiny model (f32 master weights, the kernels' head dim 32,
+    the fused LayerNorm), its loss, and 4 rows of the workers' items."""
+    import torch_ddp_worker as worker
+    from ml_recipe_tpu_torch.data.collate import make_collate_fun
+    from ml_recipe_tpu_torch.losses import build_loss
+    from ml_recipe_tpu_torch.models import EncoderConfig, QAModel, init_weights
+    from ml_recipe_tpu_torch.tokenizer import Tokenizer
+    from helpers import write_vocab
+
+    tok = Tokenizer("bert", str(write_vocab(tmp_path)), lowercase=True)
+    cfg = EncoderConfig(vocab_size=len(tok), **worker.TINY_MODEL)
+    model = QAModel(cfg, dtype=torch.bfloat16, device=cuda, ln_impl="fused")
+    init_weights(model, torch.Generator().manual_seed(0))
+    data = worker.VariedDataset(tok, 4, seed=1)
+    inputs, labels = make_collate_fun(tok, max_seq_len=worker.MAX_SEQ_LEN)(
+        [data[i] for i in range(4)])[:2]
+    return (model, build_loss(worker.trainer_params()),
+            {k: torch.from_numpy(v).to(cuda) for k, v in inputs.items()},
+            {k: torch.from_numpy(v).to(cuda) for k, v in labels.items()})
+
+
+@pytest.mark.cuda
+def test_loss_scale_unscaled_gradients_are_exact_on_the_card(cuda, tmp_path):
+    from ml_recipe_tpu_torch.train import loss_scale as ls
+
+    model, loss, inputs, labels = _bf16_micro_batch(tmp_path, cuda)
+    flat = []
+    for state in (ls.init_state("dynamic"), ls.init_state(1.0)):
+        model.zero_grad(set_to_none=True)
+        before = (fa.BWD_KERNEL.launches, ln.BWD_KERNEL.launches)
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        preds = model(input_ids=inputs["input_ids"].long(),
+                      attention_mask=inputs["attention_mask"],
+                      token_type_ids=inputs["token_type_ids"].long(),
+                      generator=gen)
+        total, _ = loss(preds, labels)
+        ls.scale_loss(total, state).backward()
+        # the scaled gradient went through both backward kernels
+        assert fa.BWD_KERNEL.launches - before[0] == 2
+        assert ln.BWD_KERNEL.launches - before[1] == 5
+        grads = [p.grad for p in model.parameters()]
+        ls.unscale_(grads, state)
+        assert ls.all_finite(grads)
+        flat.append(torch.cat([g.float().reshape(-1) for g in grads]))
+    rel = ((flat[0] - flat[1]).norm() / flat[1].norm()).item()
+    assert rel <= LS_GRAD_REL_L2, rel
+
+
+@pytest.mark.cuda
+def test_planted_overflow_leaves_the_step_bit_identical_on_the_card(
+        cuda, tmp_path):
+    """The dynamic state at 2^127 and an infinite gradient planted in the
+    classifier bias: the step changes no parameter, moment or count, and
+    the scale backs off to 2^126."""
+    import torch_ddp_worker as worker
+    from ml_recipe_tpu_torch.train import loss_scale as ls
+
+    trainer = worker.tiny_trainer(tmp_path, "cuda", options=worker.OPTIONS)
+    batch = trainer.collate_fun([trainer.train_dataloader.dataset[i]
+                                 for i in range(worker.TRAIN_BATCH)])
+    inputs, labels = ({k: torch.from_numpy(v).to(cuda) for k, v in t.items()}
+                      for t in batch[:2])
+    trainer.train_step(inputs, labels)      # moments that are not zero
+    opt = trainer.optimizer
+
+    def state():
+        return ([p.detach().clone() for p in opt.params.values()]
+                + [t.clone() for k in ("exp_avg", "exp_avg_sq", "exp_avg_lr")
+                   for t in getattr(opt, k).values()], opt.count)
+
+    before = state()
+    trainer.loss_scale = ls.LossScaleState(2.0 ** 127, 5, True)
+    hook = trainer.model.classifier.bias.register_hook(
+        lambda g: torch.full_like(g, float("inf")))
+    try:
+        values = trainer.train_step(inputs, labels)
+    finally:
+        hook.remove()
+    after = state()
+    assert values["grads_finite"] == 0.0
+    assert trainer.loss_scale == ls.LossScaleState(2.0 ** 126, 0, True)
+    assert after[1] == before[1] == 1
+    assert all(torch.equal(a, b) for a, b in zip(after[0], before[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer", ["adamod", "adam"])
+def test_optimizer_step_on_the_card_matches_the_cpu(cuda, optimizer):
+    """Five steps of the chain on CUDA tensors against the same steps on
+    the CPU: the same f32 elementwise arithmetic, so equal but for the
+    last bit of a square root or a division."""
+    from types import SimpleNamespace
+
+    from ml_recipe_tpu_torch.train.optim import build_optimizer
+
+    tp = SimpleNamespace(optimizer=optimizer, lr=1e-2, weight_decay=0.1,
+                         warmup_coef=0.3, finetune=False)
+    rng = np.random.default_rng(0)
+    shapes = {"transformer.layer_0.attention.query.weight": (64, 64),
+              "transformer.layer_0.attention.query.bias": (64,),
+              "transformer.embeddings.layer_norm.weight": (64,),
+              "classifier.weight": (5, 64)}
+    init = {n: rng.normal(size=s).astype(np.float32) for n, s in shapes.items()}
+    sides = {}
+    for device in ("cpu", "cuda"):
+        params = {n: torch.nn.Parameter(torch.from_numpy(v.copy()).to(device))
+                  for n, v in init.items()}
+        opt = build_optimizer(tp, params, num_training_steps=10)
+        grads_rng = np.random.default_rng(1)
+        for _ in range(5):
+            opt.step({n: torch.from_numpy(grads_rng.normal(size=s).astype(
+                np.float32)).to(device) for n, s in shapes.items()})
+        sides[device] = {n: p.detach().cpu() for n, p in params.items()}
+    for name in shapes:
+        torch.testing.assert_close(sides["cuda"][name], sides["cpu"][name],
+                                   rtol=1e-6, atol=1e-7)

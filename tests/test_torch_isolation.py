@@ -18,7 +18,10 @@ import pytest
 import torch
 
 _REPO = Path(__file__).resolve().parents[1]
-_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_recipe_tpu")
+# safetensors and transformers: the card has neither (the port reads HF
+# checkpoints itself, models/hf_convert.py)
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_recipe_tpu",
+              "safetensors", "transformers")
 
 
 def _sources():
@@ -66,7 +69,10 @@ def test_no_port_module_imports_jax_or_the_jax_package():
                    "data/preprocessor.py", "data/sentence.py",
                    "data/synthetic.py", "utils/pipeline.py",
                    "data/packing.py", "parallel/__init__.py",
-                   "parallel/dist.py", "parallel/collectives.py"):
+                   "parallel/dist.py", "parallel/collectives.py",
+                   "models/hf_convert.py", "train/loss_scale.py",
+                   "resilience/__init__.py",
+                   "resilience/checkpoint_async.py"):
         assert f"ml_recipe_tpu_torch/{module}" in names, module
     offenders = [f"{path.relative_to(_REPO)}: {mod}"
                  for path in files for mod in _imports(path)
@@ -81,9 +87,12 @@ def test_entry_points_load_no_jax():
             "ml_recipe_tpu_torch.quant, ml_recipe_tpu_torch.cli.validate, "
             "ml_recipe_tpu_torch.cli.train_metrics, "
             "ml_recipe_tpu_torch.infer.predictor, "
-            "ml_recipe_tpu_torch.parallel; "
+            "ml_recipe_tpu_torch.parallel, "
+            "ml_recipe_tpu_torch.models.hf_convert, "
+            "ml_recipe_tpu_torch.resilience.checkpoint_async; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'optax', 'ml_recipe_tpu')); "
+            "('jax', 'flax', 'optax', 'ml_recipe_tpu', 'safetensors', "
+            "'transformers')); "
             "assert not bad, bad")
     res = subprocess.run([sys.executable, "-c", code], cwd=str(_REPO),
                          capture_output=True, text=True, timeout=120)

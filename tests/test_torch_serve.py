@@ -270,7 +270,9 @@ def test_serve_cfg_parses_with_the_port_flag():
     ["--mesh", "data:1"],
     ["--serve_cache_bytes", "1M"], ["--doc_cache_bytes", "64K"],
     ["--trace_spans", "spans"], ["--flash_attention", "ring"],
-    ["--hf_checkpoint", "bert-base-uncased"],
+    # --hf_checkpoint is ported (test_torch_hf_convert.py): a mesh of
+    # more than one device takes its place
+    ["--mesh", "data:2"],
 ])
 def test_unported_flags_raise(flag):
     _, (params, model_params) = get_params(

@@ -16,6 +16,14 @@
   whose dropout streams the port cannot reproduce;
 - ``trainer_fault``: the same with a planted fault, rank 1 skipping the
   gradient all-reduce (:func:`skip_gradient_all_reduce`);
+- ``trainer_options``: the same with ``--optimizer adamod
+  --apex_loss_scale dynamic`` (:data:`OPTIONS`);
+- ``trainer_overflow``: ``trainer_options`` with a planted overflow, an
+  inf in rank 1's first gradient before the all-reduce
+  (:func:`plant_inf_once`): both ranks must skip that step;
+- ``async_sharded``: ``trainer_options`` with ``async_checkpoint`` and
+  ``sharded_checkpoint``, which then saves ``OUT/ckpt`` synchronously
+  and records the warnings it logged;
 - ``dead_peer``: rank 1 leaves right after joining, rank 0 then reduces a
   tensor, which must fail (the run ends with an error, not a hang).
 
@@ -112,11 +120,16 @@ class VariedDataset:
             end_position=float(rng.random()))
 
 
-def trainer_params():
-    return SimpleNamespace(
+# the trainer flags of the options modes
+OPTIONS = dict(optimizer="adamod", apex_loss_scale="dynamic")
+
+
+def trainer_params(**options):
+    return SimpleNamespace(**{**dict(
         loss="ce", smooth_alpha=0.01, focal_alpha=1.0, focal_gamma=2.0,
         w_start=1, w_end=1, w_start_reg=0.5, w_end_reg=0.5, w_cls=1, lr=1e-3,
-        weight_decay=0.01, warmup_coef=0.3, optimizer="adam", finetune=False)
+        weight_decay=0.01, warmup_coef=0.3, optimizer="adam", finetune=False,
+        apex_loss_scale=None), **options})
 
 
 def train_weights() -> dict:
@@ -136,15 +149,16 @@ def tiny_model(vocab_size: int, device: str = "cpu",
     return model
 
 
-def tiny_trainer(tmp: Path, device: str = "cpu",
-                 dropout: float = 0.1) -> Trainer:
+def tiny_trainer(tmp: Path, device: str = "cpu", dropout: float = 0.1,
+                 options: dict = None, **trainer_kw) -> Trainer:
     """The same tiny trainer in every process; the world (if any) is the
-    one joined."""
+    one joined. ``options``: trainer flags over :func:`trainer_params`'s;
+    ``trainer_kw``: more ``Trainer`` arguments."""
     tok = Tokenizer("bert", str(write_vocab(tmp)), lowercase=True)
     model = tiny_model(len(tok), device, dropout)
     train = VariedDataset(tok, N_TRAIN, seed=1)
     weights = train_weights()
-    tp = trainer_params()
+    tp = trainer_params(**(options or {}))
     return Trainer(model, build_loss(tp, weights),
                    make_collate_fun(tok, max_seq_len=MAX_SEQ_LEN),
                    trainer_params=tp, train_dataset=train,
@@ -153,7 +167,7 @@ def tiny_trainer(tmp: Path, device: str = "cpu",
                    batch_split=BATCH_SPLIT, n_jobs=1, warmup_coef=0.0,
                    max_grad_norm=MAX_GRAD_NORM, train_weights=weights,
                    debug=True,
-                   seed=0)
+                   seed=0, **trainer_kw)
 
 
 def callbacks():
@@ -182,11 +196,11 @@ def first_step_gradients(trainer: Trainer):
         trainer_module.clip_by_global_norm_ = clip
 
 
-def run_trainer(out: Path, rank: int, device: str,
-                dropout: float = 0.1) -> None:
+def run_trainer(out: Path, rank: int, device: str, dropout: float = 0.1,
+                options: dict = None, **trainer_kw) -> Trainer:
     vocab_dir = out / f"vocab{rank}"
     vocab_dir.mkdir(parents=True, exist_ok=True)
-    trainer = tiny_trainer(vocab_dir, device, dropout)
+    trainer = tiny_trainer(vocab_dir, device, dropout, options, **trainer_kw)
     record = {"batches": [], "values": [], "metrics": []}
     step = trainer.train_step
 
@@ -206,7 +220,47 @@ def run_trainer(out: Path, rank: int, device: str,
     record["grads"] = grads
     record["params"] = {n: p.detach().cpu().clone()
                         for n, p in trainer.model.named_parameters()}
+    record["optimizer_count"] = trainer.optimizer.count
     torch.save(record, out / f"rank{rank}.pt")
+    return trainer
+
+
+def plant_inf_once(named_params, *args, **kwargs) -> int:
+    """A planted overflow: the first call puts an inf into this rank's
+    first gradient before it is summed over the world."""
+    named_params = list(named_params)
+    if not PLANTED:
+        PLANTED.append(True)
+        named_params[0][1].grad.view(-1)[0] = float("inf")
+    return ALL_REDUCE_GRADIENTS(named_params, *args, **kwargs)
+
+
+PLANTED = []
+
+
+def run_async_sharded(out: Path, rank: int, device: str) -> None:
+    """``trainer_options`` with an async sharded save at world size 2:
+    synchronous, with one warning, and the checkpoint complete at once."""
+    import logging
+
+    warnings = []
+
+    class Collect(logging.Handler):
+        def emit(self, record):
+            if record.levelno >= logging.WARNING:
+                warnings.append(record.getMessage())
+
+    logging.getLogger("ml_recipe_tpu_torch").addHandler(Collect())
+    trainer = run_trainer(out, rank, device, options=OPTIONS,
+                          async_checkpoint=True, sharded_checkpoint=True)
+    trainer.debug = False
+    for _ in range(2):
+        trainer.save_state_dict(out / "ckpt")
+        # synchronous: nothing in flight, the directory complete on return
+        assert not trainer._async_ckpt.pending()
+    torch.save({"warnings": warnings,
+                "complete": (out / "ckpt" / "manifest.msgpack").exists()},
+               out / f"async{rank}.pt")
 
 
 def skip_gradient_all_reduce(named_params, *args, **kwargs) -> int:
@@ -301,12 +355,13 @@ def worker_pairs(*modes, out: Path, device: str = "cpu"):
     return run_pairs(*map(argv_of, modes))
 
 
-def oracle(tmp: Path, record, device: str = "cpu"):
-    """The one-process trainer on the regrouped global batches of
-    ``record`` (rank 0's and rank 1's local batches): its step values,
-    first-step gradients, eval metrics and parameters."""
+def oracle(tmp: Path, record, device: str = "cpu", options: dict = None):
+    """The one-process trainer (with the trainer flags ``options``) on the
+    regrouped global batches of ``record`` (rank 0's and rank 1's local
+    batches): its step values, first-step gradients, eval metrics and
+    parameters."""
     (tmp / "oracle").mkdir(parents=True, exist_ok=True)
-    trainer = tiny_trainer(tmp / "oracle", device)
+    trainer = tiny_trainer(tmp / "oracle", device, options=options)
     values, metrics = [], []
     with first_step_gradients(trainer) as grads:
         for step, (b0, b1) in enumerate(zip(record[0]["batches"],
@@ -348,6 +403,14 @@ def main(argv) -> None:
             if rank == 1:
                 collectives.all_reduce_gradients = skip_gradient_all_reduce
             run_trainer(Path(out), rank, device)
+        elif mode == "trainer_options":
+            run_trainer(Path(out), rank, device, options=OPTIONS)
+        elif mode == "trainer_overflow":
+            if rank == 1:
+                collectives.all_reduce_gradients = plant_inf_once
+            run_trainer(Path(out), rank, device, options=OPTIONS)
+        elif mode == "async_sharded":
+            run_async_sharded(Path(out), rank, device)
         elif mode == "dead_peer":
             run_dead_peer(rank)
         else:
