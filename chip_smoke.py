@@ -152,7 +152,30 @@ Phases, each fatal on failure (exit code 1, and no result line):
     counts zeroed just before and read just after: the forward launches
     of 8 micro-batches, no backward launch), the encoder equal to the warm
     start and both heads moved, and the micro-batch's device time with the
-    encoder frozen and trained.
+    encoder frozen and trained;
+13. serving's caches, trace spans and the fleet: a seeded random bert-base
+    checkpoint, then ``python -m ml_recipe_tpu_torch.cli.fleet -c
+    config/fleet.cfg`` (two engines on the card behind the hash router,
+    both caches at 64M, trace spans on) as a child process. FLEET_DOCS
+    documents of 2-6 windows at 384, each asked two questions, go through
+    the router one at a time, cold, then hot: every hot response equals
+    its cold one, every request for a document reaches one engine, the hot
+    pass launches no device batch and hits both caches for every request
+    and window, and the cold pass's doc-cache hits equal the document
+    count (the two questions of a document have one length). Then SIGHUP
+    asks for a rolling restart while a client keeps sending the set: 0
+    failed requests, clean drains, and every replacement reports 0 kernel
+    builds and at least one library loaded; answers after it equal the
+    cold ones. Each engine loads at least one built library, logs the
+    fused attention route at both starts and writes a trace file holding
+    the six serving spans for a router-forwarded request id; SIGTERM ends
+    the fleet with 0. The engines' attention launches are read from their
+    /metrics (each process starts at 0). 13b: one ``cli.serve`` engine
+    (``build_engine``) with ``--quantize int8 --ln_impl fused`` and both
+    caches, the documents' first questions twice (counts zeroed just
+    before its warmup: phase 8's launches per device batch, none on the
+    hot pass, hot equal to cold). Latency percentiles, hit rates,
+    requests per engine and the restart's seconds are printed.
 
 It then prints one ``{"kernels": [...]}`` line (the attention kernels'
 lines carry the tensor-core kernels' resources and every timed shape's
@@ -3268,6 +3291,389 @@ def phase_train_options(torch):
     return launched, tuned
 
 
+FLEET_DIR = OUT_DIR / "fleet"
+FLEET_DOCS = 16                     # documents, each asked 2 questions
+FLEET_WINDOWS = (2, 6)              # windows at 384 per document
+FLEET_Q_WORDS = 8                   # both questions of a document: 8 words
+FLEET_SEED = 13                     # the random bert-base checkpoint
+FLEET_DEADLINE_S = 300
+SIX_SPANS = {"admission", "queue", "flush", "device", "span_reduce",
+             "respond"}
+HOT_SPANS = {"admission", "span_reduce", "respond"}
+RESULT_FIELDS = ("answer", "label", "start", "end", "score", "n_chunks")
+
+
+def _fleet_requests(params):
+    """FLEET_DOCS documents of FLEET_WINDOWS windows at 384 (whole words of
+    the synthetic vocab, one token each: ``window_chunks`` starts a window
+    every ``doc_stride`` tokens), each asked two questions of FLEET_Q_WORDS
+    words: the first questions of every document, then the second ones.
+    Returns ``[(question, document, doc_index, windows)]``."""
+    rng = np.random.default_rng(FLEET_SEED)
+
+    def words(n):
+        return " ".join(f"tok{4 * int(i) + 1}"
+                        for i in rng.integers(1, 7000, n))
+
+    lo, hi = FLEET_WINDOWS
+    docs = []
+    for d in range(FLEET_DOCS):
+        windows = lo + d % (hi - lo + 1)
+        docs.append((words(windows * params.doc_stride - 40), windows))
+    questions = [[words(FLEET_Q_WORDS) for _ in range(2)] for _ in docs]
+    return [(questions[d][k], docs[d][0], d, docs[d][1])
+            for k in range(2) for d in range(len(docs))]
+
+
+def _fleet_post(url: str, payload: dict):
+    req = urllib.request.Request(
+        url, data=json.dumps(payload).encode("utf-8"),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return (resp.status, json.loads(resp.read()), dict(resp.headers),
+                    (time.perf_counter() - t0) * 1e3)
+    except urllib.error.HTTPError as e:
+        return e.code, {"error": e.read().decode()}, dict(e.headers), 0.0
+    except OSError as e:
+        return 0, {"error": repr(e)}, {}, 0.0
+
+
+def _scrape(port: int) -> dict:
+    """One engine's /metrics as {sample name with labels: value}."""
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=30) as resp:
+        page = resp.read().decode("utf-8")
+    out = {}
+    for line in page.splitlines():
+        if line and not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            out[name] = float(value)
+    return out
+
+
+def _engine_numbers(port: int) -> dict:
+    m = _scrape(port)
+    keys = {"batches": "qa_batches_total",
+            "doc_hits": "qa_doc_cache_hits_total",
+            "doc_misses": "qa_doc_cache_misses_total",
+            "chunk_hits": "qa_chunk_cache_hits_total",
+            "chunk_misses": "qa_chunk_cache_misses_total",
+            "build_hits": "qa_kernel_build_hits_total",
+            "build_misses": "qa_kernel_build_misses_total",
+            "attention": 'qa_kernel_launches_total{kernel="fused_attention_fwd"}'}
+    missing = [v for v in keys.values() if v not in m]
+    if missing:
+        fail(f"engine on port {port} exports no {missing}")
+    return {k: int(m[v]) for k, v in keys.items()}
+
+
+def _span_names(trace_doc) -> dict:
+    """Span names per request id (``request_id``, or a batch's
+    ``request_ids``)."""
+    out = {}
+    for event in trace_doc["traceEvents"]:
+        args = event.get("args", {})
+        for rid in args.get("request_ids") or [args.get("request_id")]:
+            if rid is not None:
+                out.setdefault(str(rid), set()).add(event["name"])
+    return out
+
+
+def _pcts(ms) -> str:
+    return (f"p50 {statistics.median(ms):.2f} ms, p95 "
+            f"{np.percentile(ms, 95):.2f} ms")
+
+
+def phase_fleet(torch):
+    """Phase 13a: ``python -m ml_recipe_tpu_torch.cli.fleet -c
+    config/fleet.cfg`` on the card: two cached bert-base engines behind the
+    hash router, a cold and a hot pass, a SIGHUP rolling restart under
+    load. The engines are child processes, so their kernel counts start at
+    0 with each process; each logs its final device batches and launches
+    when its drain ends, and those lines are summed over all four engine
+    processes. Returns the fleet's attention launches."""
+    import shutil
+    import signal
+
+    from ml_recipe_tpu_torch.compose import init_model
+    from ml_recipe_tpu_torch.config.parser import (
+        get_fleet_parser, get_model_parser, get_params, get_serve_parser)
+    from ml_recipe_tpu_torch.train.checkpoint import save_state_dict
+
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    FLEET_DIR.mkdir(parents=True)
+    vocab = OUT_DIR / "vocab.txt"
+    ckpt = FLEET_DIR / "bert_base_seeded.ch"
+    args = ["-c", str(REPO / "config" / "fleet.cfg"), "--vocab_file",
+            str(vocab), "--checkpoint", str(ckpt), "--port", "0",
+            "--fleet_run_dir", str(FLEET_DIR / "run"), "--ready_file",
+            str(FLEET_DIR / "ready.json"), "--trace_spans",
+            str(FLEET_DIR / "spans")]
+    fleet_params, params, model_params = get_params(
+        (get_fleet_parser, get_serve_parser, get_model_parser), args)[1]
+    if (fleet_params.engines, params.buckets, model_params.model) != (
+            2, "8x128,8x384,32x384", "bert-base-uncased"):
+        fail("config/fleet.cfg is not two bert-base engines on the serving "
+             "grid")
+    t0 = time.perf_counter()
+    model, _ = init_model(model_params, rng_seed=FLEET_SEED, device="cuda",
+                          train=True)
+    save_state_dict(ckpt, model=model)
+    del model
+    torch.cuda.empty_cache()
+    say(f"fleet: seeded bert-base checkpoint ({ckpt.stat().st_size:,} B) "
+        f"written in {time.perf_counter() - t0:.1f}s")
+    requests = _fleet_requests(params)
+
+    log = open(FLEET_DIR / "fleet.log", "wb")
+    t_start = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ml_recipe_tpu_torch.cli.fleet", *args],
+        cwd=str(REPO), stdout=log, stderr=subprocess.STDOUT,
+        start_new_session=True)
+    deadline = time.monotonic() + FLEET_DEADLINE_S
+
+    def wait_for(path, what):
+        while not path.exists():
+            if proc.poll() is not None:
+                fail(f"the fleet exited rc={proc.returncode} before {what}: "
+                     f"{(FLEET_DIR / 'fleet.log').read_text()[-3000:]}")
+            if time.monotonic() > deadline:
+                fail(f"the fleet gave no {what} within {FLEET_DEADLINE_S}s")
+            time.sleep(0.2)
+
+    try:
+        wait_for(FLEET_DIR / "ready.json", "ready file")
+        ready_s = time.perf_counter() - t_start
+        info = json.loads((FLEET_DIR / "ready.json").read_text())
+        url = f"http://{info['host']}:{info['port']}/v1/qa"
+        ports = {e["node"]: e["port"] for e in info["engines"]}
+        say(f"fleet: router and {len(ports)} engines ready in {ready_s:.1f}s "
+            f"({ports})")
+
+        def run_pass(label):
+            out = []
+            for question, document, d, windows in requests:
+                status, body, headers, ms = _fleet_post(
+                    url, {"question": question, "document": document})
+                if status != 200:
+                    fail(f"fleet {label} request answered {status}: {body}")
+                if body["n_chunks"] != windows:
+                    fail(f"document {d} windows into {body['n_chunks']}, "
+                         f"not {windows}")
+                out.append(dict(fields={k: body[k] for k in RESULT_FIELDS},
+                                engine=headers["X-Fleet-Engine"],
+                                rid=headers["X-Request-Id"], doc=d, ms=ms))
+            return out
+
+        n0 = {n: _engine_numbers(p) for n, p in ports.items()}
+        if any(v["build_misses"] for v in n0.values()) or \
+                any(v["build_hits"] < 1 for v in n0.values()):
+            fail(f"an engine built a kernel or loaded none: {n0}")
+        cold = run_pass("cold")
+        n1 = {n: _engine_numbers(p) for n, p in ports.items()}
+        hot = run_pass("hot")
+        n2 = {n: _engine_numbers(p) for n, p in ports.items()}
+
+        for c, h in zip(cold, hot):
+            if c["fields"] != h["fields"]:
+                fail(f"a hot response differs from its cold one: {c} {h}")
+        owners = {}
+        for r in cold + hot:
+            owners.setdefault(r["doc"], set()).add(r["engine"])
+        if any(len(e) != 1 for e in owners.values()):
+            fail(f"a document reached more than one engine: {owners}")
+        windows = sum(r["fields"]["n_chunks"] for r in cold)
+
+        def total(snap, key):
+            return sum(v[key] for v in snap.values())
+
+        if any(n2[n]["batches"] != n1[n]["batches"] for n in ports):
+            fail(f"the hot pass launched device batches: {n1} -> {n2}")
+        if total(n1, "doc_hits") - total(n0, "doc_hits") != FLEET_DOCS:
+            fail(f"cold doc-cache hits are not {FLEET_DOCS}: {n0} -> {n1}")
+        if total(n2, "doc_hits") - total(n1, "doc_hits") != len(requests) or \
+                total(n2, "chunk_hits") - total(n1, "chunk_hits") != windows:
+            fail(f"the hot pass was not all hits: {n1} -> {n2}")
+        doc_rate = (total(n2, "doc_hits") / (total(n2, "doc_hits")
+                                             + total(n2, "doc_misses")))
+        chunk_rate = (total(n2, "chunk_hits") / (total(n2, "chunk_hits")
+                                                 + total(n2, "chunk_misses")))
+        per_engine = {n: sum(r["engine"] == n for r in cold + hot)
+                      for n in ports}
+        say(f"fleet: cold {_pcts([r['ms'] for r in cold])}; hot "
+            f"{_pcts([r['ms'] for r in hot])} ({len(requests)} requests each, "
+            f"{windows} windows of 384, sequential)")
+        say(f"fleet: hit rates over both passes: doc cache {doc_rate:.4f}, "
+            f"chunk cache {chunk_rate:.4f}; requests per engine {per_engine}; "
+            f"device batches cold {total(n1, 'batches') - total(n0, 'batches')},"
+            f" hot {total(n2, 'batches') - total(n1, 'batches')}")
+        old_attention = total(n2, "attention")
+
+        stop, results = threading.Event(), []
+
+        def load():
+            i = 0
+            while not stop.is_set():
+                question, document, _, _ = requests[i % len(requests)]
+                status, body, _, _ = _fleet_post(
+                    url, {"question": question, "document": document})
+                results.append(status)
+                i += 1
+
+        loader = threading.Thread(target=load)
+        loader.start()
+        t_restart = time.perf_counter()
+        try:
+            os.kill(proc.pid, signal.SIGHUP)
+            wait_for(FLEET_DIR / "run" / "rolling_restart.json",
+                     "rolling restart report")
+        finally:
+            stop.set()
+            loader.join(timeout=120)
+        restart_s = time.perf_counter() - t_restart
+        report = json.loads(
+            (FLEET_DIR / "run" / "rolling_restart.json").read_text())
+        failed = [s for s in results if s != 200]
+        say(f"fleet: rolling restart in {restart_s:.1f}s under "
+            f"{len(results)} requests ({len(failed)} failed): "
+            f"{report['reports']}")
+        if not results or failed:
+            fail(f"the rolling restart failed requests: {failed[:10]}")
+        for leg in report["reports"]:
+            if leg["drain_exit"] != "clean" or leg["build_misses"] != 0:
+                fail(f"a rolling restart leg was not clean and build-free: "
+                     f"{leg}")
+        new_ports = {leg["node"]: leg["new_port"] for leg in report["reports"]}
+        after = run_pass("after the restart")
+        for c, a in zip(cold, after):
+            if c["fields"] != a["fields"]:
+                fail(f"an answer changed across the restart: {c} {a}")
+        n3 = {n: _engine_numbers(p) for n, p in new_ports.items()}
+        if any(v["build_hits"] < 1 or v["build_misses"] for v in n3.values()):
+            fail(f"a replacement engine built a kernel: {n3}")
+        new_attention = total(n3, "attention")
+
+        os.kill(proc.pid, signal.SIGTERM)
+        rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        if rc != 0:
+            fail(f"the fleet exited rc={rc} on SIGTERM")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        log.close()
+
+    logs = sorted((FLEET_DIR / "run").glob("engine*.log"))
+    if len(logs) != 2:
+        fail(f"expected 2 engine logs, found {len(logs)}")
+    closes = []                     # (device batches, launches) per process
+    for path in logs:
+        text = path.read_text()
+        routes = re.findall(r"attention route (\w+)", text)
+        if routes != ["fused", "fused"]:
+            fail(f"{path.name} logged attention routes {routes}, not the "
+                 f"fused kernel at both starts")
+        found = [(int(b), json.loads(k)) for b, k in re.findall(
+            r"serving closed after (\d+) device batches \(\d+ warmup\); "
+            r"kernel launches (\{.*\})", text)]
+        if len(found) != 2:
+            fail(f"{path.name} logged {len(found)} final kernel counts, not "
+                 f"one for each of its two processes")
+        for batches, launched in found:
+            if launched["fused_attention_fwd"] != 12 * batches:
+                fail(f"{path.name}: fused_attention_fwd launched "
+                     f"{launched['fused_attention_fwd']}, not 12 x {batches} "
+                     f"device batches")
+        closes.extend(found)
+    old_final = sum(closes[i][1]["fused_attention_fwd"] for i in (0, 2))
+    new_final = sum(closes[i][1]["fused_attention_fwd"] for i in (1, 3))
+    if old_final < old_attention or new_final < new_attention:
+        fail(f"final attention launches {old_final} + {new_final} fall "
+             f"below the scraped {old_attention} + {new_attention}")
+    launches = old_final + new_final
+    device_batches = sum(b for b, _ in closes)
+    traces = sorted((FLEET_DIR / "spans").glob("serve_trace_*.json"))
+    prefix = f"r{proc.pid}-"
+    for path in traces:
+        names = _span_names(json.loads(path.read_text()))
+        forwarded = {r: n for r, n in names.items() if r.startswith(prefix)}
+        if not any(n == SIX_SPANS for n in forwarded.values()):
+            fail(f"{path.name} holds no router-forwarded request with the "
+                 f"six spans")
+    hot_ids = {r["rid"] for r in hot}
+    hot_seen = {r: n for path in traces
+                for r, n in _span_names(json.loads(path.read_text())).items()
+                if r in hot_ids}
+    if len(traces) != 4 or len(logs) != 2 or \
+            any(n != HOT_SPANS for n in hot_seen.values()) or \
+            len(hot_seen) != len(hot_ids):
+        fail(f"expected 4 trace files and 2 engine logs, and hot requests "
+             f"without queue or device spans: {len(traces)}, {len(logs)}")
+    say(f"fleet: attention route fused in every engine start; {len(traces)} "
+        f"trace files with the six spans; attention launches {launches} "
+        f"over {device_batches} device batches in four engine processes "
+        f"({old_final} in the two restarted ones, {old_attention} of them "
+        f"before the restart); whole phase "
+        f"{time.perf_counter() - t_start:.1f}s")
+    return launches
+
+
+def phase_fleet_int8(torch):
+    """Phase 13b: one ``cli.serve`` engine (``build_engine``) with
+    ``--quantize int8 --ln_impl fused`` and both caches on; the first
+    question of every fleet document twice. Counts are set to 0 just
+    before its warmup and read just after the second pass."""
+    from ml_recipe_tpu_torch.cli.serve import build_engine
+    from ml_recipe_tpu_torch.config.parser import (
+        get_model_parser, get_params, get_serve_parser)
+
+    _, (params, model_params) = get_params(
+        (get_serve_parser, get_model_parser),
+        ["-c", str(REPO / "config" / "serve.cfg"), "--vocab_file",
+         str(OUT_DIR / "vocab.txt"), "--quantize", "int8", "--ln_impl",
+         "fused", "--serve_cache_bytes", "64M", "--doc_cache_bytes", "64M"])
+    engine = build_engine(params, model_params)
+    requests = _fleet_requests(params)[:FLEET_DOCS]
+    zero_counts()                   # the path starts here
+    warm = engine.warmup()
+    try:
+        passes = []
+        for _ in range(2):
+            batches, out = engine.m_batches.value, []
+            t0 = time.perf_counter()
+            for question, document, _, _ in requests:
+                r = engine.submit(question, document).result(timeout=120)
+                out.append(r.to_json() | {"latency_ms": 0})
+            passes.append((out, engine.m_batches.value - batches,
+                           time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        launched = counts()         # the path ends here
+        stats = engine.cache_stats()
+    finally:
+        engine.close()
+    (cold, cold_batches, cold_s), (hot, hot_batches, hot_s) = passes
+    if cold != hot:
+        fail("int8 cached engine: a hot response differs from its cold one")
+    if hot_batches != 0 or stats["chunk"]["hits"] != sum(
+            r["n_chunks"] for r in cold):
+        fail(f"int8 cached engine: the hot pass reached the device "
+             f"({hot_batches} batches, {stats})")
+    device_batches = len(warm["buckets"]) + cold_batches
+    want = {"fused_attention_fwd": 12, "q8_matmul": 77, "layer_norm_fwd": 25,
+            "q8_quantize": 25}
+    for kernel, per in want.items():
+        if launched[kernel] != per * device_batches:
+            fail(f"int8 cached engine: {kernel} launched {launched[kernel]}, "
+                 f"not {per} x {device_batches} device batches")
+    say(f"fleet int8 (--quantize int8 --ln_impl fused, both caches): "
+        f"{len(requests)} requests cold in {cold_s:.2f}s ({int(cold_batches)} "
+        f"batches), hot in {hot_s:.3f}s (0 batches); launches {launched}")
+    return launched
+
+
 def main() -> int:
     try:
         import torch
@@ -3345,6 +3751,9 @@ def main() -> int:
     dp = phase_data_parallel(torch)
     torch.cuda.empty_cache()
     opt_run, opt_tune = phase_train_options(torch)
+    torch.cuda.empty_cache()
+    fleet_fwd = phase_fleet(torch)
+    fleet8 = phase_fleet_int8(torch)
     nq_fwd = {"nq training": nq_train.launched["fused_attention_fwd"],
               "validate": nq_val.launched["fused_attention_fwd"],
               "validate int8": nq_val8.launched["fused_attention_fwd"],
@@ -3356,7 +3765,8 @@ def main() -> int:
 
     def int8_paths(kernel):
         return {"serving int8": int8[kernel],
-                "validate int8": nq_val8.launched[kernel]}
+                "validate int8": nq_val8.launched[kernel],
+                "serving int8 cached": fleet8[kernel]}
 
     fwd = timings[TRAIN_SHAPE]
 
@@ -3419,8 +3829,8 @@ def main() -> int:
     q8_ffn = q8_t[(12288, 768, 3072)]
     new_kernels = [
         entry("layer_norm_fwd", "ml_recipe_tpu/ops/layer_norm.py:84",
-              int8["layer_norm_fwd"] + ln_train["layer_norm_fwd"]
-              + nq_val8.launched["layer_norm_fwd"] + dp["layer_norm_fwd"]
+              sum(int8_paths("layer_norm_fwd").values())
+              + ln_train["layer_norm_fwd"] + dp["layer_norm_fwd"]
               + opt_run["layer_norm_fwd"] + opt_tune["layer_norm_fwd"],
               ln_fwd_err, ln_fwd, "16384x768 bf16 (32x512, training)",
               source="layer_norm",
@@ -3447,7 +3857,7 @@ def main() -> int:
                   "library_ms", "bound_ms")}
                   for (N, C, kind), t in ln_t.items() if kind == "bwd"}),
         entry("q8_matmul", "ml_recipe_tpu/ops/quant_matmul.py:85",
-              int8["q8_matmul"] + nq_val8.launched["q8_matmul"], q8_err,
+              sum(int8_paths("q8_matmul").values()), q8_err,
               q8_ffn, "M=12288 K=768 N=3072, + bias, bf16 out (32x384 FFN in, "
               "int8 serving)", sass=q8_sass,
               launches_by_path=int8_paths("q8_matmul"),
@@ -3455,7 +3865,7 @@ def main() -> int:
         entry("q8_quantize_rows",
               "none: port-only; the JAX package's quantize_rowwise "
               "(ml_recipe_tpu/ops/quant_matmul.py:62) is XLA, no pallas_call",
-              int8["q8_quantize"] + nq_val8.launched["q8_quantize"],
+              sum(int8_paths("q8_quantize").values()),
               quant_err, quant_t[(12288, 768)],
               "12288x768 bf16 (32x384 attention context, int8 serving)",
               source="q8_matmul", launches_by_path=int8_paths("q8_quantize"),
@@ -3469,13 +3879,17 @@ def main() -> int:
         "launches": (serving_fwd + train_fwd + int8["fused_attention_fwd"]
                      + ln_train["fused_attention_fwd"] + sum(nq_fwd.values())
                      + dp["fused_attention_fwd"]
-                     + sum(option_paths("fused_attention_fwd").values())),
+                     + sum(option_paths("fused_attention_fwd").values())
+                     + fleet_fwd + fleet8["fused_attention_fwd"]),
         "launches_by_path": {"serving": serving_fwd, "training": train_fwd,
                              "serving int8": int8["fused_attention_fwd"],
                              "training fused": ln_train["fused_attention_fwd"],
                              **nq_fwd,
                              "data parallel": dp["fused_attention_fwd"],
-                             **option_paths("fused_attention_fwd")},
+                             **option_paths("fused_attention_fwd"),
+                             "fleet": fleet_fwd,
+                             "serving int8 cached":
+                                 fleet8["fused_attention_fwd"]},
         "max_abs_err": fwd_err,
         "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"],

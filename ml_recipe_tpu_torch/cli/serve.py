@@ -12,6 +12,9 @@ fused attention kernel (``csrc/fused_attention_fwd.cu``); with
 ``--quantize int8`` every matmul projection through the int8 matmul kernel
 (``csrc/q8_matmul.cu``, weights converted at start-up), and with
 ``--ln_impl fused|auto`` every LayerNorm through ``csrc/layer_norm.cu``.
+``--doc_cache_bytes`` / ``--serve_cache_bytes`` turn on the two serving
+caches (``serve/cache.py``), and ``--trace_spans DIR`` writes each
+request's spans to ``DIR/serve_trace_<pid>.json`` when the drain ends.
 """
 
 from __future__ import annotations
@@ -29,19 +32,20 @@ from ..config.parser import (
     get_params,
     get_serve_parser,
 )
+from ..utils.logging import show_params
 
 logger = logging.getLogger("serve")
 
 
-def main(params, model_params) -> int:
+def build_engine(params, model_params):
+    """The checked flags' model and ``QAEngine`` (not warmed up yet)."""
     from ..serve.bucketing import BucketGrid
     from ..serve.engine import QAEngine
-    from ..serve.server import QAServer
 
     check_serve_flags(params, model_params)
     model, tokenizer = init_model(model_params, checkpoint=params.checkpoint,
                                   quantize=params.quantize)
-    engine = QAEngine(
+    return QAEngine(
         model,
         tokenizer,
         grid=BucketGrid.from_spec(params.buckets),
@@ -50,7 +54,28 @@ def main(params, model_params) -> int:
         max_question_len=params.max_question_len,
         doc_stride=params.doc_stride,
         long_scatter_chunks=params.long_scatter_chunks,
+        serve_cache_bytes=params.serve_cache_bytes,
+        doc_cache_bytes=params.doc_cache_bytes,
     )
+
+
+def main(params, model_params) -> int:
+    from ..metrics import trace as trace_mod
+    from ..serve.server import QAServer
+
+    show_params(model_params, "model")
+    show_params(params, "serve")
+
+    # --trace_spans: request-lifecycle spans as Chrome trace-event JSON,
+    # written out when the drain completes
+    tracer = None
+    if params.trace_spans:
+        tracer = trace_mod.install(trace_mod.TraceWriter(
+            str(Path(params.trace_spans) / f"serve_trace_{os.getpid()}.json"),
+            process_name="serve",
+        ))
+
+    engine = build_engine(params, model_params)
     engine.warmup()
 
     server = QAServer(
@@ -77,6 +102,9 @@ def main(params, model_params) -> int:
         server.wait()
     finally:
         server.shutdown()
+        if tracer is not None:
+            trace_mod.install(None)
+            tracer.close()
     return 0
 
 

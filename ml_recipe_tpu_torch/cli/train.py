@@ -62,6 +62,7 @@ from ..parallel import dist as pdist
 from ..train.callback import AccuracyCallback, MAPCallback, SaveBestCallback
 from ..train.trainer import Trainer
 from ..utils.device import resolve_device
+from ..utils.logging import show_params
 from ..utils.seed import set_seed
 
 logger = logging.getLogger(__name__)
@@ -191,6 +192,8 @@ def main(argv=None) -> Trainer:
         level=logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
         handlers=handlers)
+    show_params(model_params, "model")
+    show_params(params, "trainer")
     if primary:
         write_config_file(parser, params, exp_dir / "trainer.cfg")
         write_config_file(model_parser, model_params, exp_dir / "model.cfg")

@@ -34,6 +34,7 @@ from ..config.parser import (
 from ..data.labels import labels2id
 from ..train.callback import AccuracyCallback, MAPCallback
 from ..train.trainer import Trainer
+from ..utils.logging import show_params
 
 logger = logging.getLogger(__name__)
 
@@ -59,6 +60,8 @@ def run_test(model, loss, collate_fun, dataset, params) -> dict:
 
 def main(params, model_params) -> dict:
     """The test split's and the train split's metrics of ``--checkpoint``."""
+    show_params(model_params, "model")
+    show_params(params, "test")
     check_predict_flags(params, model_params)
     if params.quantize != "off":
         raise ValueError(

@@ -29,6 +29,7 @@ from ..config.parser import (
     get_predictor_parser,
 )
 from ..infer.predictor import Predictor
+from ..utils.logging import show_params
 
 logger = logging.getLogger(__name__)
 
@@ -37,6 +38,8 @@ def main(params, model_params, *, save_dump: bool = False) -> Predictor:
     """Model, held-out ``ChunkDataset`` and ``Predictor`` from the parsed
     flags; runs the predictor (keeping its per-chunk outputs in
     ``predictor.dump`` when ``save_dump``) and returns it."""
+    show_params(model_params, "model")
+    show_params(params, "predictor")
     check_predict_flags(params, model_params)
     model, tokenizer = init_model(model_params, checkpoint=params.checkpoint,
                                   quantize=params.quantize)

@@ -917,11 +917,16 @@ def get_serve_parser() -> ConfigArgumentParser:
                         help="Per-bucket device-memory pre-flight at warmup "
                              "(not ported; accepted and ignored).")
     parser.add_argument("--serve_cache_bytes", type=cast_bytes, default=0,
-                        help="Tier-2 chunk-result cache byte budget (not "
-                             "ported: only 0 is accepted).")
+                        help="Tier-2 chunk-result cache byte budget (K/M/G "
+                             "suffixes): per-window output rows keyed by "
+                             "the exact device input row, the weights "
+                             "fingerprint and the precision, with "
+                             "single-flight dedup; a fully-hot request "
+                             "never reaches the device. 0 disables it.")
     parser.add_argument("--doc_cache_bytes", type=cast_bytes, default=0,
                         help="Tier-1 document-preprocessing cache byte "
-                             "budget (not ported: only 0 is accepted).")
+                             "budget (K/M/G suffixes): document tokens and "
+                             "windows by content hash. 0 disables it.")
     parser.add_argument("--quantize", type=str, default="off",
                         choices=["off", "int8"],
                         help="Serving precision: 'off' serves the compute "
@@ -935,8 +940,86 @@ def get_serve_parser() -> ConfigArgumentParser:
                              "orchestration hook).")
 
     parser.add_argument("--trace_spans", type=cast2(str), default=None,
-                        help="Serving trace spans directory (not ported: "
-                             "only None is accepted).")
+                        help="Write structured request-lifecycle spans "
+                             "(admission -> queue -> flush -> device -> "
+                             "span_reduce -> respond, keyed by request id) "
+                             "as Chrome trace-event JSON into this "
+                             "directory, one serve_trace_<pid>.json per "
+                             "process, flushed on drain. None (default) "
+                             "disables.")
+
+    return parser
+
+
+def get_fleet_parser() -> ConfigArgumentParser:
+    """Serving-fleet config ([fleet] surface): router tier size, ring
+    geometry, health-driven shedding thresholds, rolling restarts. The
+    fleet CLI composes this with the serve + model parsers — serve flags
+    (buckets, caches, drain budget, --host/--port for the ROUTER bind)
+    are forwarded to every engine child."""
+    parser = ConfigArgumentParser(description="Fleet config parser.", add_help=False)
+
+    parser.add_argument("-c", "--config_file", required=False, is_config_file=True,
+                        help="Config file path.")
+    parser.add_argument("--fleet_config_file", required=False, is_config_file=True,
+                        help="Fleet config file path.")
+
+    parser.add_argument("--engines", type=int, default=2,
+                        help="Engine processes behind the router. Each is "
+                             "one ml_recipe_tpu_torch.cli.serve child on an "
+                             "ephemeral port, loading the kernels the "
+                             "checkout has built (csrc/build/).")
+    parser.add_argument("--engine_checkpoints", type=cast2(str), default=None,
+                        help="Comma list of checkpoint paths assigned "
+                             "per-engine (1 entry = every engine, N "
+                             "entries = one each — multi-checkpoint A/B "
+                             "routing in one tier; the checkpoint-"
+                             "fingerprint cache keys isolate results). "
+                             "None = every engine uses --checkpoint.")
+    parser.add_argument("--ring_replicas", type=int, default=64,
+                        help="Virtual nodes per engine on the consistent-"
+                             "hash ring (bounded; health weighting scales "
+                             "a node's share of them).")
+    parser.add_argument("--health_poll_s", type=float, default=1.0,
+                        help="Router health-poll interval: every engine's "
+                             "/healthz (status + queue depth) is polled "
+                             "this often; ejection latency for a dead "
+                             "engine is bounded by eject_after polls.")
+    parser.add_argument("--eject_after", type=int, default=2,
+                        help="Consecutive health failures before an engine "
+                             "is ejected from the ring (the first failure "
+                             "weight-reduces it to --degrade_weight).")
+    parser.add_argument("--degrade_weight", type=float, default=0.25,
+                        help="Ring weight of a degraded engine (failing "
+                             "polls, 429/503 answers, or queue pressure "
+                             "past --queue_pressure).")
+    parser.add_argument("--queue_pressure", type=float, default=0.75,
+                        help="Queue-depth fraction of an engine's bounded "
+                             "queue past which the router weight-reduces "
+                             "it (healthy-but-saturated: load is moved, "
+                             "no ejection counter advances).")
+    parser.add_argument("--spill_retries", type=int, default=1,
+                        help="Ring successors to try after the owning "
+                             "engine refuses a request (connection error, "
+                             "429, 503). Only when every candidate "
+                             "refuses does the router shed with 503 + "
+                             "Retry-After.")
+    parser.add_argument("--routing", type=str, default="hash",
+                        choices=["hash", "random"],
+                        help="Request routing policy: 'hash' pins each "
+                             "document's traffic to one engine via the "
+                             "consistent-hash ring (cache affinity), "
+                             "'random' scatters uniformly (the bench "
+                             "baseline).")
+    parser.add_argument("--rolling_restart", type=_str2bool, default=False,
+                        help="After the tier is ready, perform one rolling "
+                             "restart pass (drain -> relaunch with zero "
+                             "kernel builds asserted -> re-admit, one "
+                             "engine at a time), then keep serving. "
+                             "SIGHUP asks for another pass at any time.")
+    parser.add_argument("--fleet_run_dir", type=cast2(str), default=None,
+                        help="Directory for engine ready files + logs "
+                             "(None = a fresh temp dir).")
 
     return parser
 
@@ -970,12 +1053,6 @@ def check_serve_flags(params, model_params) -> None:
     checks = [
         (params.mesh is not None, "mesh", params.mesh,
          "queue 1, 'Parallelism beyond data parallelism'"),
-        (params.serve_cache_bytes > 0, "serve_cache_bytes",
-         params.serve_cache_bytes, "queue 1, 'Serving'"),
-        (params.doc_cache_bytes > 0, "doc_cache_bytes",
-         params.doc_cache_bytes, "queue 1, 'Serving'"),
-        (params.trace_spans is not None, "trace_spans", params.trace_spans,
-         "queue 1, 'Serving'"),
         (model_params.flash_attention == "ring", "flash_attention", "ring",
          "queue 1, 'Parallelism beyond data parallelism'"),
     ]
@@ -1022,9 +1099,9 @@ def check_train_flags(params, model_params) -> None:
 
     The world comes from the flags (``--dist_world_size``, ``--local_rank``,
     ``--dist_init_method``), as in the JAX CLI; a launcher's ``WORLD_SIZE``
-    > 1 that the flags do not repeat raises (``scripts/worker.sh`` maps the
-    environment onto the flags), and so does the elastic supervisor's
-    world override."""
+    > 1 that the flags do not repeat raises (``scripts/worker_torch.sh``
+    maps the environment onto the flags), and so does the elastic
+    supervisor's world override."""
     _check_ln_impl(model_params)
     world = int(params.dist_world_size)
     if world < 1 or (world > 1 and not 0 <= params.local_rank < world):
@@ -1036,7 +1113,7 @@ def check_train_flags(params, model_params) -> None:
             f"WORLD_SIZE={env_world} in the environment, but "
             f"--dist_world_size {world}: launch each rank with "
             f"--dist_world_size/--local_rank/--dist_init_method "
-            f"(scripts/worker.sh maps the environment onto them)")
+            f"(scripts/worker_torch.sh maps the environment onto them)")
     from ..parallel.dist import refuse_elastic_world
 
     refuse_elastic_world()

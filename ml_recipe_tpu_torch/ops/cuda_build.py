@@ -10,7 +10,10 @@ fallback: a missing ``nvcc`` or a failed build raises.
 
 ``build(*libraries)`` starts one ``nvcc`` per source at once and waits for
 all of them, so a caller that needs every kernel pays for the slowest build
-only. ``launch_scope`` and ``stream_of`` are the wrappers' per-launch host
+only. ``build_counts()`` says what this process paid: every ``nvcc`` run is
+a miss, every library loaded as it was found in ``csrc/build/`` a hit (a
+serving engine exports both, and a fleet's rolling restart asserts that a
+replacement built nothing). ``launch_scope`` and ``stream_of`` are the wrappers' per-launch host
 work: no device switch when the tensor is on the current device.
 """
 
@@ -24,7 +27,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -59,6 +62,22 @@ def find_nvcc() -> str:
         "/usr/local/cuda/bin): the port's CUDA kernels are built from "
         f"{CSRC_DIR} at first use and need the CUDA toolkit"
     )
+
+
+_COUNTS_LOCK = threading.Lock()
+_COUNTS = {"hits": 0, "misses": 0}
+
+
+def _count(kind: str) -> None:
+    with _COUNTS_LOCK:
+        _COUNTS[kind] += 1
+
+
+def build_counts() -> Dict[str, int]:
+    """This process's kernel builds: ``misses``, the ``nvcc`` runs;
+    ``hits``, the libraries loaded from ``csrc/build/`` without one."""
+    with _COUNTS_LOCK:
+        return dict(_COUNTS)
 
 
 _NO_SCOPE = contextlib.nullcontext()
@@ -96,6 +115,8 @@ class CudaLibrary:
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
         self.build_log = ""
+        # nvcc built this library in this process (its load is no hit)
+        self.built = False
 
     @property
     def path(self) -> Path:
@@ -114,8 +135,10 @@ class CudaLibrary:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = self.path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
-        return subprocess.Popen(
+        proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        _count("misses")
+        return proc
 
     def _finish(self, proc: subprocess.Popen) -> None:
         out, _ = proc.communicate()
@@ -126,6 +149,7 @@ class CudaLibrary:
             raise RuntimeError(
                 f"nvcc failed on {self.source} (exit {proc.returncode}):\n{out}")
         os.replace(tmp, self.path)  # atomic: no half-written library
+        self.built = True
 
     def lib(self) -> ctypes.CDLL:
         """The loaded library, built first if needed."""
@@ -136,6 +160,8 @@ class CudaLibrary:
                 lib = ctypes.CDLL(str(self.path))
                 self._declare(lib)
                 self._lib = lib
+                if not self.built:
+                    _count("hits")
             return self._lib
 
 

@@ -14,20 +14,34 @@ The port of ``ml_recipe_tpu/serve/engine.py``:
 - when a request's last chunk lands, chunks are reduced IN CHUNK ORDER with
   the predictor's validity rules (span order, answer not inside the
   question, best-score-wins, ties to the later chunk), and the winning span
-  is decoded back to text.
+  is decoded back to text;
+- two optional byte-budgeted caches short-circuit the hot path
+  (``serve/cache.py``, off by default): document preprocessing by content
+  hash, and per-chunk result rows by exact-device-row hash + weights
+  fingerprint + precision with single-flight dedup. Cache-hit chunks bypass
+  the micro-batcher (a fully-hot request touches neither the queue nor the
+  device), and responses are bit-identical cached or not: a cached row is
+  the host row of Python floats a miss computed;
+- with a tracer installed (``metrics/trace.py``, ``--trace_spans``) each
+  request leaves ``admission`` → ``queue`` → ``flush`` → ``device`` →
+  ``span_reduce`` spans keyed by its request id (``respond`` comes from
+  ``serve/server.py``).
 
 A model from ``quant.quantize_model`` serves int8 (``quantize``, read from
 the model): ``/metrics`` then reports ``qa_active_precision`` int8 and the
-int8 weights' bytes.
+int8 weights' bytes. ``/metrics`` also carries this process's kernel builds
+(``qa_kernel_build_{hits,misses}_total``, ``ops/cuda_build.py``) and each
+hand-written kernel's launches (``qa_kernel_launches_total``).
 
-Not ported yet (ROADMAP.md queue 1, 'Serving'): the two serving caches, the
-AOT program store, autotuned flush ranking, the memory pre-flight and the
-trace spans.
+Not ported yet (ROADMAP.md queue 1, 'Serving'): CUDA graphs per bucket (the
+AOT program store's counterpart), autotuned flush ranking, the memory
+pre-flight and the fault-injection sites.
 """
 
 from __future__ import annotations
 
 import itertools
+import json
 import logging
 import threading
 import time
@@ -40,9 +54,20 @@ import torch
 from ..data.chunking import assemble_input_ids, encode_document, window_chunks
 from ..data.labels import id2labels
 from ..infer.score import OUT_KEYS, pack_wire, score_wire
+from ..metrics import trace as trace_mod
+from ..ops import cuda_build
 from ..quant.quantize import param_bytes
 from .batcher import ChunkWork, DrainingError, MicroBatcher, QueueFullError
 from .bucketing import Bucket, BucketGrid, pad_trailing_batch
+from .cache import (
+    ENTRY_OVERHEAD,
+    TOKEN_BYTES,
+    ByteBudgetLRU,
+    ChunkResultCache,
+    content_key,
+    params_fingerprint,
+    row_key,
+)
 from .metrics import Registry
 
 logger = logging.getLogger(__name__)
@@ -84,14 +109,36 @@ class QAResult:
 
 @dataclass
 class _ChunkRef:
-    """Batcher payload: which request, which chunk."""
+    """Batcher payload: which request, which chunk.
+
+    ``key`` is the chunk's tier-2 cache key when the chunk-result cache is
+    on and this chunk LEADS a single-flight entry (the row computed for it
+    is published through ``ChunkResultCache.complete`` / ``fail_flight``);
+    None otherwise."""
 
     ticket: "RequestTicket"
     idx: int
     input_ids: List[int]
+    key: Optional[str] = None
 
 
+# request ids key the serving trace spans; monotonic per process
 _REQUEST_IDS = itertools.count(1)
+
+
+def kernel_launches() -> Dict[str, int]:
+    """Each hand-written kernel's launches in this process, by the name the
+    chip smoke gives it (the wrappers' counts)."""
+    from ..ops import flash_attention as fa
+    from ..ops import layer_norm as ln
+    from ..ops import quant_matmul as q8
+
+    return {"fused_attention_fwd": fa.KERNEL.launches,
+            "fused_attention_bwd": fa.BWD_KERNEL.launches,
+            "layer_norm_fwd": ln.FWD_KERNEL.launches,
+            "layer_norm_bwd": ln.BWD_KERNEL.launches,
+            "q8_matmul": q8.KERNEL.launches,
+            "q8_quantize": q8.QUANT_KERNEL.launches}
 
 
 class RequestTicket:
@@ -161,6 +208,8 @@ class QAEngine:
         doc_stride: int = 128,
         registry: Optional[Registry] = None,
         long_scatter_chunks: int = 0,
+        serve_cache_bytes: int = 0,
+        doc_cache_bytes: int = 0,
     ):
         self.model = model.eval()
         self.device = next(model.parameters()).device
@@ -176,6 +225,24 @@ class QAEngine:
         # dedicated batches (BucketGrid.scatter_plan); 0 disables it
         self.long_scatter_chunks = int(long_scatter_chunks or 0)
         self._closed = False
+        self._close_logged = False
+
+        # -- serving hot-path caches (serve/cache.py; both off by default) ----
+        # tier 1: document preprocessing (encode_document tokens + the
+        # window_chunks layout), keyed by document content hash
+        self._doc_cache = (
+            ByteBudgetLRU(doc_cache_bytes) if doc_cache_bytes > 0 else None)
+        # tier 2: per-chunk packed output rows keyed by the exact device
+        # input row + weights fingerprint + active precision, with
+        # single-flight dedup of identical in-flight chunks
+        self._chunk_cache = (
+            ChunkResultCache(serve_cache_bytes)
+            if serve_cache_bytes > 0 else None)
+        # the fingerprint's device->host copy is paid only when tier 2 can
+        # use it
+        self._fingerprint = (
+            params_fingerprint(self.model)
+            if self._chunk_cache is not None else None)
 
         self._pad_id = int(tokenizer.pad_token_id)
         self._sep_id = int(tokenizer.sep_token_id)
@@ -249,6 +316,49 @@ class QAEngine:
         self.m_longdoc_batches = m.counter(
             "qa_longdoc_scatter_batches_total",
             "Dedicated scatter batches launched for long requests.")
+        # cache series are registered at any budget (0 included): the
+        # /metrics surface does not change shape with configuration
+        self._cache_metrics = {
+            name: {
+                "hits": m.counter(
+                    f"qa_{name}_cache_hits_total", f"{what} cache hits."),
+                "misses": m.counter(
+                    f"qa_{name}_cache_misses_total", f"{what} cache misses."),
+                "evictions": m.counter(
+                    f"qa_{name}_cache_evictions_total",
+                    f"{what} cache LRU evictions (byte budget)."),
+                "bytes": m.gauge(
+                    f"qa_{name}_cache_bytes",
+                    f"{what} cache resident bytes (exact accounting)."),
+                "entries": m.gauge(
+                    f"qa_{name}_cache_entries", f"{what} cache entries."),
+            }
+            for name, what in (
+                ("doc", "Tier-1 document-preprocessing"),
+                ("chunk", "Tier-2 chunk-result"),
+            )
+        }
+        self.m_flight_joins = m.counter(
+            "qa_chunk_flight_joins_total",
+            "Chunks that piggybacked on an identical in-flight chunk "
+            "(single-flight dedup wins).")
+        # the counterpart of the JAX engine's AOT program-store series: a
+        # replacement engine of a rolling restart must build no kernel
+        self.m_build_hits = m.counter(
+            "qa_kernel_build_hits_total",
+            "Kernel libraries this process loaded from csrc/build/ without "
+            "running nvcc (ops/cuda_build.py).")
+        self.m_build_misses = m.counter(
+            "qa_kernel_build_misses_total",
+            "nvcc runs of this process (kernel libraries built).")
+        self.m_kernel_launches = m.labeled_gauge(
+            "qa_kernel_launches_total",
+            "Launches of each hand-written kernel in this process.", "kernel")
+        # last-synced source values of the mirrored counters, under a lock:
+        # /metrics renders on concurrent HTTP handler threads, and racing
+        # scrapes computing the same delta would double-count
+        self._sync_lock = threading.Lock()
+        self._synced: Dict[str, float] = {}
 
         self.batcher = MicroBatcher(
             grid,
@@ -303,6 +413,7 @@ class QAEngine:
         built and loaded, the allocator holds each bucket's blocks, and the
         launch path is hot. Starts the batcher."""
         t0 = time.perf_counter()
+        before = kernel_launches()
         report = {"buckets": [], "bucket_seconds": {},
                   "wire": "ids" if self._wire_ids_only else "3plane",
                   "device": str(self.device), "quantize": self.quantize,
@@ -314,33 +425,90 @@ class QAEngine:
                 time.perf_counter() - tb, 4)
             report["buckets"].append(str(bucket))
         report["warmup_seconds"] = round(time.perf_counter() - t0, 3)
+        # which attention ran: the hand-written kernel ('fused', counted by
+        # its wrapper) or its plain version ('plain', a CPU model)
+        launched = {k: n - before[k] for k, n in kernel_launches().items()}
+        report["kernel_launches"] = launched
+        report["attention_route"] = (
+            "fused" if launched["fused_attention_fwd"] else "plain")
         self.warmup_report = report
         self.batcher.start()
-        logger.info("serving warmup: %d buckets on %s in %.1fs.",
+        logger.info("serving warmup: %d buckets on %s in %.1fs; attention "
+                    "route %s (%d kernel launches).",
                     len(report["buckets"]), self.device,
-                    report["warmup_seconds"])
+                    report["warmup_seconds"], report["attention_route"],
+                    launched["fused_attention_fwd"])
         return report
 
     # -- request admission -----------------------------------------------------
 
     def _chunk_document(self, document: str, question_len: int) -> List:
-        tokens, _, _ = encode_document(self.tokenizer, document)
-        # spanless target: serving has no gold answer; the chunker only
-        # needs geometry
-        return window_chunks(
-            tokens, ("unknown", -1, -1),
-            question_len=question_len, max_seq_len=self.grid.max_seq,
-            doc_stride=self.doc_stride,
+        """``encode_document`` + ``window_chunks`` for one request, through
+        the tier-1 cache when it is on.
+
+        Two entry kinds share the byte budget: the token stream keyed by
+        document content hash alone (the same document asked many questions
+        tokenizes once), and the window layout keyed additionally by the
+        question LENGTH and the grid geometry (the only question-dependence
+        ``window_chunks`` has: ``document_len = max_seq - question_len -
+        3``)."""
+        max_seq = self.grid.max_seq
+
+        def chunk(tokens):
+            # spanless target: serving has no gold answer; the chunker only
+            # needs geometry
+            return window_chunks(
+                tokens, ("unknown", -1, -1),
+                question_len=question_len, max_seq_len=max_seq,
+                doc_stride=self.doc_stride,
+            )
+
+        if self._doc_cache is None:
+            tokens, _, _ = encode_document(self.tokenizer, document)
+            return chunk(tokens)
+
+        doc_hash = content_key(document)
+        win_key = (f"win|{doc_hash}|q{question_len}|s{max_seq}"
+                   f"|d{self.doc_stride}")
+        records = self._doc_cache.get(win_key)
+        if records is not None:
+            return records
+        tok_key = f"tok|{doc_hash}"
+        tokens = self._doc_cache.get(tok_key)
+        if tokens is None:
+            tokens, _, _ = encode_document(self.tokenizer, document)
+            self._doc_cache.put(
+                tok_key, tokens,
+                ENTRY_OVERHEAD + len(tok_key) + len(tokens) * TOKEN_BYTES,
+            )
+        records = chunk(tokens)
+        cost = ENTRY_OVERHEAD + len(win_key) + sum(
+            (len(r.token_ids) + 4) * TOKEN_BYTES for r in records
         )
+        self._doc_cache.put(win_key, records, cost)
+        return records
 
     def submit(self, question: str, document: str,
                request_id: Optional[str] = None) -> RequestTicket:
         """Chunk + admit one request; returns a completion ticket.
 
+        ``request_id`` overrides the engine-local id (a router forwards its
+        own, so the trace spans of one request join across the hop).
+
         Raises :class:`RequestRejected` (client error),
         :class:`QueueFullError` (backpressure) or :class:`DrainingError`
         (shutting down)."""
-        return self._submit(question, document, request_id)
+        tracer = trace_mod.current()
+        if tracer is None:
+            return self._submit(question, document, request_id)
+        t0 = tracer.now()
+        ticket = self._submit(question, document, request_id)
+        tracer.complete(
+            "admission", t0, tracer.now(), cat="serve",
+            args={"request_id": ticket.request_id,
+                  "n_chunks": ticket.n_chunks},
+        )
+        return ticket
 
     def _submit(self, question: str, document: str,
                 request_id: Optional[str] = None) -> RequestTicket:
@@ -352,9 +520,12 @@ class QAEngine:
             raise RequestRejected("question and document must be non-empty")
 
         # fast-fail under overload, before paying host-side tokenization;
-        # submit_many below stays the authoritative all-or-nothing check
+        # submit_many below stays the authoritative all-or-nothing check.
+        # With the chunk-result cache on only the draining arm applies: a
+        # fully-hot request needs no queue slot, so refusing on depth would
+        # 429 the traffic the cache exists to serve
         try:
-            self.batcher.precheck()
+            self.batcher.precheck(check_full=self._chunk_cache is None)
         except QueueFullError:
             self.m_rejected_full.inc()
             raise
@@ -371,9 +542,12 @@ class QAEngine:
                 f"serving bucket ({max_seq}) leaves no room for a document"
             )
         records = self._chunk_document(document, len(enc_q))
-        if len(records) > self.batcher.queue_size:
+        if self._chunk_cache is None and \
+                len(records) > self.batcher.queue_size:
             # more chunks than the queue can EVER hold: a 429 would loop
-            # forever, so fail it as a client error up front
+            # forever, so fail it as a client error up front (with the chunk
+            # cache on, the bound applies to the misses after
+            # classification)
             self.m_rejected_invalid.inc()
             raise RequestRejected(
                 f"document chunks into {len(records)} windows, beyond the "
@@ -384,7 +558,7 @@ class QAEngine:
         ticket = RequestTicket(
             n_chunks=len(records), question_len=len(enc_q),
             request_id=request_id)
-        works = []
+        rows: List[Tuple[int, int, List[int]]] = []
         for idx, rec in enumerate(records):
             input_ids = assemble_input_ids(
                 self._cls_id, self._sep_id, enc_q, rec)
@@ -396,17 +570,95 @@ class QAEngine:
                     f"serving bucket (max {max_seq})"
                 )
             ticket.chunks.append(input_ids)
-            works.append(ChunkWork(seq=seq,
-                                   payload=_ChunkRef(ticket, idx, input_ids)))
-        try:
-            self._admit_works(ticket, works)
-        except QueueFullError:
-            self.m_rejected_full.inc()
-            raise
-        except DrainingError:
-            self.m_rejected_draining.inc()
-            raise
+            rows.append((idx, seq, input_ids))
+
+        cache = self._chunk_cache
+        if cache is None:
+            works = [
+                ChunkWork(seq=seq, payload=_ChunkRef(ticket, idx, input_ids))
+                for idx, seq, input_ids in rows
+            ]
+            try:
+                self._admit_works(ticket, works)
+            except QueueFullError:
+                self.m_rejected_full.inc()
+                raise
+            except DrainingError:
+                self.m_rejected_draining.inc()
+                raise
+            self.m_requests.inc()
+            return ticket
+
+        # tier-2 classify-and-admit, atomic under the cache lock: each chunk
+        # is a HIT (row served from the LRU, bypassing the batcher), a
+        # WAITER (an identical row is in flight: piggyback) or a LEADER (a
+        # leased flight, which reaches the queue or is aborted under this
+        # same lock hold, so no thread joins a flight that never launches)
+        hits: List[Tuple[int, Dict[str, float]]] = []
+        works = []
+        leased: List[str] = []
+        # hashing reads only immutable inputs: done outside the lock so a
+        # many-window document does not serialize other admissions and the
+        # batcher's publication
+        keyed = [
+            (idx, seq, input_ids,
+             row_key(self._fingerprint, self.quantize, input_ids))
+            for idx, seq, input_ids in rows
+        ]
+        with cache.lock:
+            for idx, seq, input_ids, key in keyed:
+                row = cache.get(key)
+                if row is not None:
+                    hits.append((idx, row))
+                    continue
+                if cache.join_flight(key, (ticket, idx)):
+                    continue
+                leased.append(key)
+                works.append(ChunkWork(
+                    seq=seq,
+                    payload=_ChunkRef(ticket, idx, input_ids, key=key)))
+
+            def rollback():
+                # drop our waiter registrations first (from other leaders'
+                # flights and our own), so every undone join lands in
+                # flight_join_rollbacks; then forget the leased flights (no
+                # foreign waiter can have joined them: we hold the lock)
+                cache.remove_waiters(ticket)
+                for key in leased:
+                    cache.abort_flight(key)
+
+            if len(works) > self.batcher.queue_size:
+                # only misses need queue slots; more of them than the queue
+                # can EVER hold is a permanent client error
+                rollback()
+                self.m_rejected_invalid.inc()
+                raise RequestRejected(
+                    f"document needs {len(works)} uncached windows, beyond "
+                    f"the work queue's total capacity "
+                    f"({self.batcher.queue_size}); split the document or "
+                    f"raise queue_size"
+                )
+            if works:
+                try:
+                    self._admit_works(ticket, works)
+                except (QueueFullError, DrainingError) as exc:
+                    rollback()
+                    if isinstance(exc, QueueFullError):
+                        self.m_rejected_full.inc()
+                    else:
+                        self.m_rejected_draining.inc()
+                    raise
         self.m_requests.inc()
+        # hit rows reach the ticket only once admission succeeded (a refused
+        # request leaves no partial state); a fully-hot request finalizes
+        # here on the handler thread and never touches the batcher, the
+        # queue or the device
+        done = False
+        for idx, row in hits:
+            if ticket._offer(idx, row):
+                done = True
+        if done:
+            self._finalize(ticket)
         return ticket
 
     def _admit_works(self, ticket: RequestTicket, works: List) -> None:
@@ -438,6 +690,21 @@ class QAEngine:
     def _run_batch(self, seq: int, works: Sequence[ChunkWork]) -> None:
         n = len(works)
         batch = self.grid.batch_for(seq, n)
+
+        tracer = trace_mod.current()
+        t_flush0 = time.perf_counter()
+        if tracer is not None:
+            # per-chunk queue-wait spans: enqueued_at is a monotonic stamp,
+            # so the WAIT is mapped onto the tracer's clock ending now
+            waited_now = time.monotonic()
+            for w in works:
+                if w.enqueued_at:
+                    wait = max(0.0, waited_now - w.enqueued_at)
+                    tracer.complete(
+                        "queue", t_flush0 - wait, t_flush0, cat="serve",
+                        args={"request_id": w.payload.ticket.request_id},
+                    )
+
         ids = np.full((n, seq), self._pad_id, np.int32)
         lengths = np.empty((n,), np.int32)
         for i, w in enumerate(works):
@@ -450,7 +717,19 @@ class QAEngine:
         else:
             inputs = self._host_arrays(ids, lengths)
         inputs = pad_trailing_batch(inputs, batch)
+        t_dev0 = time.perf_counter()
+        # the device span ends when the rows are on the host (run_packed
+        # returns the fetched numpy array), not at the launch
         out = self.run_packed(inputs)[:, :n]
+        if tracer is not None:
+            # the batch's requests (beyond the JAX package's args): joins
+            # the flush and device spans to the other four's request ids
+            rids = sorted({str(w.payload.ticket.request_id) for w in works})
+            tracer.complete(
+                "device", t_dev0, time.perf_counter(), cat="serve",
+                args={"seq": seq, "rows": n, "batch": batch,
+                      "request_ids": rids},
+            )
 
         self.m_batches.inc()
         self.m_last_batch_rows.set(n)
@@ -459,20 +738,48 @@ class QAEngine:
             1.0 - float(lengths.sum()) / float(batch * seq))
 
         decoded = {k: out[i] for i, k in enumerate(OUT_KEYS)}
+        cache = self._chunk_cache
         for i, w in enumerate(works):
             ref: _ChunkRef = w.payload
+            # a host row of Python floats: a cache entry must never be a
+            # view of a device buffer that the next batch overwrites
             row = {k: float(decoded[k][i]) for k in OUT_KEYS}
-            if ref.ticket._offer(ref.idx, row):
-                self._finalize(ref.ticket)
+            offers = [(ref.ticket, ref.idx)]
+            if cache is not None and ref.key is not None:
+                # publish the leader's row: cache it and release every
+                # single-flight waiter with the SAME object, so cached and
+                # computed responses are bit-identical by construction
+                waiters, _ = cache.complete(
+                    ref.key, row,
+                    ENTRY_OVERHEAD + len(ref.key) + 8 * len(OUT_KEYS),
+                )
+                offers.extend(waiters)
+            for ticket, idx in offers:
+                if ticket._offer(idx, row):
+                    self._finalize(ticket)
+        if tracer is not None:
+            tracer.complete(
+                "flush", t_flush0, time.perf_counter(), cat="serve",
+                args={"seq": seq, "rows": n, "request_ids": rids},
+            )
 
     def _fail_batch(self, works: Sequence[ChunkWork],
                     exc: BaseException) -> None:
+        cache = self._chunk_cache
         failed = set()
-        for w in works:
-            ticket = w.payload.ticket
+
+        def fail(ticket: RequestTicket) -> None:
             if id(ticket) not in failed:
                 failed.add(id(ticket))
                 ticket._fail(exc)
+
+        for w in works:
+            fail(w.payload.ticket)
+            if cache is not None and w.payload.key is not None:
+                # single-flight waiters were promised this leader's row;
+                # nothing is cached and their tickets fail with it
+                for ticket, _ in cache.fail_flight(w.payload.key):
+                    fail(ticket)
         self.m_failed.inc(len(failed))
 
     # -- reduction (predictor parity) ------------------------------------------
@@ -481,7 +788,10 @@ class QAEngine:
         """Reduce chunk outputs to the per-request best span, applying the
         predictor's validity rules in chunk order (ties resolve to the
         later chunk, exactly as the predictor's sequential stream does)."""
-        self._finalize_inner(ticket)
+        with trace_mod.span("span_reduce", cat="serve",
+                            args={"request_id": ticket.request_id,
+                                  "n_chunks": ticket.n_chunks}):
+            self._finalize_inner(ticket)
 
     def _finalize_inner(self, ticket: RequestTicket) -> None:
         best_score = 0.0   # predictor: defaultdict(int) floor of 0
@@ -530,6 +840,51 @@ class QAEngine:
 
     # -- metrics / shutdown ----------------------------------------------------
 
+    def cache_stats(self) -> dict:
+        """Both tiers' live stats (None for a tier that is off)."""
+        out = {"doc": None, "chunk": None}
+        if self._doc_cache is not None:
+            out["doc"] = self._doc_cache.stats()
+        if self._chunk_cache is not None:
+            out["chunk"] = self._chunk_cache.stats()
+            out["chunk"]["flight_joins"] = self._chunk_cache.flight_joins
+            out["chunk"]["flight_join_rollbacks"] = (
+                self._chunk_cache.flight_join_rollbacks)
+            out["chunk"]["inflight"] = self._chunk_cache.inflight()
+        return out
+
+    def _mirror(self, counter, key: str, value: float) -> None:
+        """Raise ``counter`` to the monotonic source ``value``. Caller holds
+        ``_sync_lock``; rollback corners may briefly move a source stat
+        backwards, hence the max."""
+        last = self._synced.setdefault(key, 0.0)
+        counter.inc(max(0.0, value - last))
+        self._synced[key] = max(last, float(value))
+
+    def _sync_metrics(self) -> None:
+        """Mirror the caches' own stats, the kernel build counts and the
+        kernels' launches into the Prometheus series, under one lock with a
+        last-synced snapshot."""
+        stats = self.cache_stats()
+        builds = cuda_build.build_counts()
+        with self._sync_lock:
+            for name, s in stats.items():
+                if s is None:
+                    continue
+                mm = self._cache_metrics[name]
+                for k in ("hits", "misses", "evictions"):
+                    self._mirror(mm[k], f"{name}.{k}", s[k])
+                mm["bytes"].set(s["bytes"])
+                mm["entries"].set(s["entries"])
+            if stats["chunk"] is not None:
+                self._mirror(self.m_flight_joins, "flight_joins",
+                             stats["chunk"]["flight_joins"])
+            self._mirror(self.m_build_hits, "build.hits", builds["hits"])
+            self._mirror(self.m_build_misses, "build.misses",
+                         builds["misses"])
+            for kernel, n in kernel_launches().items():
+                self.m_kernel_launches.set(kernel, n)
+
     def render_metrics(self) -> str:
         for gauge, q in ((self.m_latency_p50, 0.5),
                          (self.m_latency_p95, 0.95),
@@ -537,6 +892,7 @@ class QAEngine:
             v = self.m_latency.quantile(q)
             if v is not None:
                 gauge.set(v)
+        self._sync_metrics()
         return self.metrics.render()
 
     def drain(self, timeout: Optional[float] = None) -> bool:
@@ -547,3 +903,11 @@ class QAEngine:
     def close(self, timeout: float = 30.0) -> None:
         self._closed = True
         self.batcher.close(timeout=timeout)
+        if not self._close_logged:
+            # the process's final counts, read after its last batch: what a
+            # supervisor that drains this engine learns of its kernel path
+            self._close_logged = True
+            warm = len((self.warmup_report or {}).get("buckets", ()))
+            logger.info("serving closed after %d device batches (%d warmup); "
+                        "kernel launches %s", warm + int(self.m_batches.value),
+                        warm, json.dumps(kernel_launches(), sort_keys=True))

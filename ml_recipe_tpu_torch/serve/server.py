@@ -32,6 +32,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from ..metrics import trace as trace_mod
 from .batcher import DrainingError, QueueFullError
 from .engine import QAEngine, RequestRejected
 
@@ -126,7 +127,8 @@ class _QAHandler(BaseHTTPRequestHandler):
             )
             return
 
-        # a router hop forwards its own request id
+        # a router hop forwards its own request id; threading it through
+        # the ticket keeps the trace spans joinable across the hop
         request_id = self.headers.get("X-Request-Id") or None
 
         # the 200 send happens INSIDE the in-flight window: the drain path
@@ -136,10 +138,16 @@ class _QAHandler(BaseHTTPRequestHandler):
         try:
             ticket = self.server.engine.submit(
                 question, document, request_id=request_id)
-            result = ticket.result(timeout=self.server.request_timeout_s)
-            payload = result.to_json()
-            payload["request_id"] = ticket.request_id
-            self._send_json(200, payload)
+            # 'respond' span: admission done -> response bytes written (the
+            # handler-side wait the client experiences)
+            with trace_mod.span(
+                "respond", cat="serve",
+                args={"request_id": ticket.request_id},
+            ):
+                result = ticket.result(timeout=self.server.request_timeout_s)
+                payload = result.to_json()
+                payload["request_id"] = ticket.request_id
+                self._send_json(200, payload)
         except QueueFullError as e:
             self._send_json(
                 429, {"error": f"queue full: {e}"},

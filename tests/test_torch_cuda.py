@@ -1160,3 +1160,70 @@ def test_optimizer_step_on_the_card_matches_the_cpu(cuda, optimizer):
     for name in shapes:
         torch.testing.assert_close(sides["cuda"][name], sides["cpu"][name],
                                    rtol=1e-6, atol=1e-7)
+
+
+# -- the serving caches and the kernel build counters (fleet slice) ------------
+
+
+@pytest.mark.cuda
+def test_kernel_build_counts_an_nvcc_run_as_a_miss_and_a_load_as_a_hit(
+        cuda, tmp_path, monkeypatch):
+    from ml_recipe_tpu_torch.ops import cuda_build
+
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    before = cuda_build.build_counts()
+    first = cuda_build.CudaLibrary("layer_norm.cu", ln._declare)
+    first.lib()  # nothing in the empty build dir: nvcc runs
+    mid = cuda_build.build_counts()
+    assert (mid["misses"] - before["misses"], mid["hits"] - before["hits"]) \
+        == (1, 0)
+    assert first.built and first.path.parent == tmp_path / "build"
+    again = cuda_build.CudaLibrary("layer_norm.cu", ln._declare)
+    again.lib()  # the library is there now: loaded, not built
+    after = cuda_build.build_counts()
+    assert (after["misses"] - mid["misses"], after["hits"] - mid["hits"]) \
+        == (0, 1)
+    assert not again.built
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ln_impl,quantize", [("xla", "off"),
+                                              ("fused", "int8")])
+def test_cached_engine_hot_equals_cold_on_the_card(cuda, tmp_path, ln_impl,
+                                                   quantize):
+    from ml_recipe_tpu_torch.serve.bucketing import BucketGrid
+    from ml_recipe_tpu_torch.serve.cache import params_fingerprint
+    from ml_recipe_tpu_torch.serve.engine import QAEngine
+
+    model, tok, _ = _predictor_setup(tmp_path, dtype=torch.bfloat16,
+                                     ln_impl=ln_impl, quantize=quantize)
+    rng = np.random.default_rng(5)
+    words = [f"tok{4 * int(i) + 1}" for i in rng.integers(1, 48, 400)]
+    document = " ".join(words)
+    engine = QAEngine(model, tok, grid=BucketGrid.from_spec("4x128,8x128"),
+                      max_batch_delay_ms=2, max_question_len=16,
+                      doc_stride=64, serve_cache_bytes=1 << 20,
+                      doc_cache_bytes=1 << 20)
+    try:
+        report = engine.warmup()
+        assert report["attention_route"] == "fused"
+        # the fingerprint sliced the card's tensors: same weights, same value
+        assert params_fingerprint(model) == engine._fingerprint
+        before = fa.KERNEL.launches
+        cold = engine.submit("tok3 tok5 tok7 ?", document).result(timeout=60)
+        launched = fa.KERNEL.launches - before
+        batches = engine.m_batches.value
+        hot = engine.submit("tok3 tok5 tok7 ?", document).result(timeout=60)
+        assert cold.n_chunks >= 3 and launched > 0
+        assert hot.to_json() | {"latency_ms": 0} == \
+            cold.to_json() | {"latency_ms": 0}
+        assert engine.m_batches.value == batches
+        assert fa.KERNEL.launches - before == launched  # no device work
+        stats = engine.cache_stats()
+        assert stats["chunk"]["hits"] == cold.n_chunks
+        assert stats["doc"]["hits"] == 1
+        page = engine.render_metrics()
+        assert "qa_kernel_build_misses_total" in page
+        assert 'qa_kernel_launches_total{kernel="fused_attention_fwd"}' in page
+    finally:
+        engine.close()

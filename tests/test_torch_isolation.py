@@ -3,13 +3,15 @@
 - an AST walk of every module of ``ml_recipe_tpu_torch/`` and of
   ``chip_smoke.py`` finds no import of jax, flax, optax or the JAX package
   (``ml_recipe_tpu`` itself or ``ml_recipe_tpu.*`` — not the bare prefix,
-  which the port's own name shares);
+  which the port's own name shares), and the port's launcher
+  ``scripts/worker_torch.sh`` names no module of them;
 - importing the serving, training, validation and train-metrics entry
   points in a fresh interpreter loads no jax;
 - the entry points default to CUDA and raise without it.
 """
 
 import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -72,12 +74,25 @@ def test_no_port_module_imports_jax_or_the_jax_package():
                    "parallel/dist.py", "parallel/collectives.py",
                    "models/hf_convert.py", "train/loss_scale.py",
                    "resilience/__init__.py",
-                   "resilience/checkpoint_async.py"):
+                   "resilience/checkpoint_async.py",
+                   "resilience/supervisor.py", "serve/cache.py",
+                   "metrics/artifacts.py", "metrics/trace.py",
+                   "metrics/aggregator.py", "fleet/__init__.py",
+                   "fleet/ring.py", "fleet/router.py", "fleet/manager.py",
+                   "cli/fleet.py", "utils/logging.py"):
         assert f"ml_recipe_tpu_torch/{module}" in names, module
     offenders = [f"{path.relative_to(_REPO)}: {mod}"
                  for path in files for mod in _imports(path)
                  if _forbidden(mod)]
     assert not offenders, offenders
+
+
+def test_launcher_script_names_no_jax_module():
+    text = (_REPO / "scripts" / "worker_torch.sh").read_text()
+    named = set(re.findall(r"python[0-9.]* -m ([\w.]+)", text))
+    assert named == {"ml_recipe_tpu_torch.cli.train"}
+    words = set(re.findall(r"[A-Za-z_][\w.]*", text))
+    assert not [w for w in words if _forbidden(w.rstrip("."))]
 
 
 def test_entry_points_load_no_jax():
@@ -89,7 +104,11 @@ def test_entry_points_load_no_jax():
             "ml_recipe_tpu_torch.infer.predictor, "
             "ml_recipe_tpu_torch.parallel, "
             "ml_recipe_tpu_torch.models.hf_convert, "
-            "ml_recipe_tpu_torch.resilience.checkpoint_async; "
+            "ml_recipe_tpu_torch.resilience.checkpoint_async, "
+            "ml_recipe_tpu_torch.cli.fleet, ml_recipe_tpu_torch.fleet, "
+            "ml_recipe_tpu_torch.serve.cache, "
+            "ml_recipe_tpu_torch.metrics.trace, "
+            "ml_recipe_tpu_torch.resilience.supervisor; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'ml_recipe_tpu', 'safetensors', "
             "'transformers')); "

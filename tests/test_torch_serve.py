@@ -140,6 +140,40 @@ def test_answers_match_jax_engine(engines):
     assert n_multi >= 1
 
 
+def test_long_scatter_path_matches_jax_engine(engines):
+    """``--long_scatter_chunks 3``: a request of at least three windows
+    launches its chunks as dedicated batches (``BucketGrid.scatter_plan``)
+    in both packages, with the same answers and the same batch count (two
+    passes over the requests: two of them scatter, one batch each)."""
+    from ml_recipe_tpu.serve.engine import QAEngine as JaxQAEngine
+    from ml_recipe_tpu_torch.serve.engine import QAEngine
+
+    jengine = JaxQAEngine(engines.jmodel, engines.params, engines.jtok,
+                          grid=JaxBucketGrid.from_spec("4x64,8x64"),
+                          mesh=build_mesh(), long_scatter_chunks=3,
+                          **engines.common)
+    jengine.warmup(hbm_preflight=False)
+    engine = QAEngine(engines.port.model, engines.tok,
+                      grid=BucketGrid.from_spec("4x64,8x64"),
+                      long_scatter_chunks=3, **engines.common)
+    engine.warmup()
+    try:
+        for question, document in _REQUESTS * 2:
+            ref = jengine.submit(question, document).result(timeout=60)
+            got = engine.submit(question, document).result(timeout=60)
+            assert (got.answer, got.label, got.start, got.end,
+                    got.n_chunks) == (ref.answer, ref.label, ref.start,
+                                      ref.end, ref.n_chunks)
+            assert abs(got.score - ref.score) <= 1e-6
+        assert engine.m_longdoc_batches.value == \
+            jengine.m_longdoc_batches.value == 4
+        assert engine.m_longdoc_requests.value == \
+            jengine.m_longdoc_requests.value > 0
+    finally:
+        jengine.close()
+        engine.close()
+
+
 def test_int8_answers_match_jax_int8_engine(int8_engines):
     for question, document in _REQUESTS:
         ref = int8_engines.jax.submit(question, document).result(timeout=60)
@@ -267,9 +301,7 @@ def test_serve_cfg_parses_with_the_port_flag():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mesh", "data:1"],
-    ["--serve_cache_bytes", "1M"], ["--doc_cache_bytes", "64K"],
-    ["--trace_spans", "spans"], ["--flash_attention", "ring"],
+    ["--mesh", "data:1"], ["--flash_attention", "ring"],
     # --hf_checkpoint is ported (test_torch_hf_convert.py): a mesh of
     # more than one device takes its place
     ["--mesh", "data:2"],
@@ -280,6 +312,19 @@ def test_unported_flags_raise(flag):
         ["-c", str(_REPO / "config" / "serve.cfg"), *flag])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_serve_flags(params, model_params)
+
+
+@pytest.mark.parametrize("flag", [
+    ["--serve_cache_bytes", "1M"], ["--doc_cache_bytes", "64K"],
+    ["--trace_spans", "spans"],
+])
+def test_cache_and_trace_flags_are_accepted(flag):
+    """The serving caches and trace spans are ported
+    (tests/test_torch_serve_cache.py)."""
+    _, (params, model_params) = get_params(
+        (get_serve_parser, get_model_parser),
+        ["-c", str(_REPO / "config" / "serve.cfg"), *flag])
+    check_serve_flags(params, model_params)
 
 
 @pytest.mark.parametrize("flag", [
