@@ -175,7 +175,26 @@ Phases, each fatal on failure (exit code 1, and no result line):
     caches, the documents' first questions twice (counts zeroed just
     before its warmup: phase 8's launches per device batch, none on the
     hot pass, hot equal to cold). Latency percentiles, hit rates,
-    requests per engine and the restart's seconds are printed.
+    requests per engine and the restart's seconds are printed;
+14. sequence packing on phase 10's corpus: the copied test_bert.cfg with
+    ``--sequence_packing on --pack_splitting fill --ln_impl fused``
+    (bert-base, 32 packed rows of 512 per micro-batch, up to 8 segments a
+    row) through phase 4's sequence, counts zeroed just before and read
+    just after (12 segmented attention and 25 LayerNorm launches per
+    micro-batch and packed eval batch forward, per micro-batch backward),
+    ``last.ch`` saved; each step's rows, segments, fragments and pad
+    tokens, the packing efficiency beside phase 10's bucketed padding, and
+    the step walls and data waits of both phases (the Python WordPiece on
+    both). The 12 attention calls of the run's first packed micro-batch,
+    each on its own q, k, v, segment ids and seeds, kernel against plain
+    forward (out, lse) and backward at phase 2's limits, the pad positions
+    finite with zero gradients; the segmented pair timed there beside
+    ``scaled_dot_product_attention`` with the block-diagonal boolean mask.
+    Then ``cli.validate`` (config/validate.cfg) on that ``last.ch`` over
+    PACK_VAL_DOCS test documents, with ``--sequence_packing on
+    --pack_splitting fill`` and without (counts zeroed just before each:
+    12 launches per batch): both score the same chunks, every packed score
+    finite; the largest per-chunk score gap is printed, not gated.
 
 It then prints one ``{"kernels": [...]}`` line (the attention kernels'
 lines carry the tensor-core kernels' resources and every timed shape's
@@ -1385,12 +1404,40 @@ def _train_flags(cfg_path: Path, extra=()):
     return params, model_params
 
 
-def _run_training(torch, cfg: str, extra=()):
+def _time_data_waits(trainer) -> list:
+    """The seconds the training loop waits for each placed batch (its
+    ``next`` on the loader's staged batches), appended to the list
+    returned."""
+    waits, batches = [], trainer._batches
+
+    def timed(loader, name):
+        it, prefetcher = batches(loader, name)
+        if loader is not trainer.train_dataloader:
+            return it, prefetcher
+
+        def waited():
+            while True:
+                t0 = time.perf_counter()
+                placed = next(it, None)
+                if placed is None:
+                    return
+                waits.append(time.perf_counter() - t0)
+                yield placed
+
+        return waited(), prefetcher
+
+    trainer._batches = timed
+    return waits
+
+
+def _run_training(torch, cfg: str, extra=(), setup=None):
     """``config/<cfg>`` (or the cfg file at the path ``cfg``) with ``extra``
     flags through the trainer and model parsers, ``check_train_flags`` and the build and train sequence of
     ``ml_recipe_tpu_torch.cli.train``. The launch counts are set to 0 just
-    before ``train`` and read just after. Returns the trainer, the trainer
-    flags, every kernel's launch count and the wall seconds."""
+    before ``train`` and read just after; ``setup(trainer)`` runs before
+    that, and the data waits of the run's training steps are kept in
+    ``trainer.data_waits``. Returns the trainer, the trainer flags, every
+    kernel's launch count and the wall seconds."""
     from ml_recipe_tpu_torch.cli import train as train_cli
     from ml_recipe_tpu_torch.config.parser import check_train_flags
 
@@ -1415,6 +1462,9 @@ def _run_training(torch, cfg: str, extra=()):
         fail(f"the {cfg} training configuration is not bert-base with bf16 "
              f"compute and f32 master weights")
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    trainer.data_waits = _time_data_waits(trainer)
+    if setup is not None:
+        setup(trainer)
 
     zero_counts()                   # the main path starts here
     t0 = time.perf_counter()
@@ -2037,6 +2087,11 @@ def phase_nq_training(torch, nq):
         f"steps/epoch in {trainer.plan_seconds:.1f}s over {len(loader._len_cache)} "
         f"sampled items, by bucket {items}; per-bucket batches "
         f"{loader.batch_sizes}; loss {[round(h['loss'], 4) for h in trainer.history]}")
+    pad_share = (loader.epoch_stats or {}).get("padding_waste_pct")
+    say(f"nq training: data wait seconds before each step "
+        f"{[round(w, 3) for w in trainer.data_waits]}; the last epoch's "
+        f"bucketed batches {pad_share}% padding (Python WordPiece: the "
+        f"native tokenizer is not built on this machine)")
     say(f"nq training: launch counts {launched}, expected {want} ({layers} x "
         f"({micro} micro-batches + {trainer.eval_batches} eval batches) "
         f"forward, {layers} x {micro} backward)")
@@ -2054,7 +2109,9 @@ def phase_nq_training(torch, nq):
     trainer.save_state_dict(ckpt)
     out = SimpleNamespace(cfg=cfg, ckpt=ckpt, final=lines[-1].split(" - ", 1)[1],
                           launched=launched, eval_batches=trainer.eval_batches,
-                          test_batch_size=params.test_batch_size)
+                          test_batch_size=params.test_batch_size,
+                          pad_share=pad_share, data_waits=trainer.data_waits,
+                          step_walls=[h["seconds"] for h in trainer.history])
     say(f"nq training: final {lines[-1]}; {ckpt.name} saved "
         f"({ckpt.stat().st_size} bytes)")
     del trainer, model, loader
@@ -2357,6 +2414,354 @@ def phase_nq_train_metrics(torch, nq, train):
         fail("train_metrics on last.ch does not reproduce the train run's "
              "final Test metrics line")
     return launched
+
+
+# phase 14: sequence packing on phase 10's corpus
+PACK_FLAGS = ["--sequence_packing", "on", "--pack_splitting", "fill",
+              "--ln_impl", "fused"]
+PACK_VAL_DOCS = 24                 # test documents of the validate pair
+PACK_VAL_WORDS = 1500              # ... each of at most this many words
+
+
+@contextmanager
+def _capture_attention(torch, n: int, last: bool = False):
+    """The first (or with ``last`` the last) ``n`` calls of the encoder's
+    attention inside the block, each's q, k, v, key mask, segment ids, row
+    seeds and rate, cloned; the calls themselves run as before."""
+    from collections import deque
+
+    from ml_recipe_tpu_torch.models import encoder
+    from ml_recipe_tpu_torch.ops import flash_attention as fa
+
+    calls, dpa = deque(maxlen=n if last else None), encoder.dot_product_attention
+
+    def attention(q, k, v, mask, **kw):
+        if last or len(calls) < n:
+            seed, seg = kw.get("seed"), kw.get("segment_ids")
+            B, _, H, _ = q.shape
+            calls.append(SimpleNamespace(
+                q=q.detach().clone(), k=k.detach().clone(),
+                v=v.detach().clone(), mask=mask.clone(),
+                seg=None if seg is None else seg.to(torch.int32).contiguous(),
+                seeds=(None if seed is None
+                       else fa.row_seeds(seed, B, H, q.device)),
+                rate=kw.get("dropout_rate", 0.0)))
+        return dpa(q, k, v, mask, **kw)
+
+    encoder.dot_product_attention = attention
+    try:
+        yield calls
+    finally:
+        encoder.dot_product_attention = dpa
+
+
+def _record_packed_batches(trainer) -> list:
+    """Each packed training batch the loader emits, as ``(epoch, rows,
+    segments, fragments, pad tokens)`` (debug steps take the first of each
+    epoch; the prefetcher reads ahead)."""
+    loader, seen = trainer.train_dataloader, []
+    emit = loader._emit
+
+    def recorded(rows, stats, **kw):
+        b = emit(rows, stats, **kw)
+        frags = (int((b.provenance["chunk_id"] >= 0).sum())
+                 if b.provenance is not None else 0)
+        seen.append((loader._epoch, b.rows, b.segments, frags,
+                     int((b.inputs["segment_ids"] == 0).sum())))
+        return b
+
+    loader._emit = recorded
+    return seen
+
+
+def _hold_segmented_calls(torch, calls, what: str):
+    """Each captured segmented attention call, on its own q, k, v, segment
+    ids, seeds and rate, kernel against plain: forward (out, lse) at phase
+    10's limits, and backward with a seeded random cotangent at phase 2's;
+    the pad positions (id 0) keep a finite output and lse and take exactly
+    zero dq, dk and dv. Fails on any miss; returns the largest forward
+    and backward errors."""
+    from ml_recipe_tpu_torch.ops import flash_attention as fa
+
+    fwd_errs, lse_errs, bwd_errs, bwd_ok, pad_ok = [], [], [], True, True
+    g_gen = torch.Generator(device="cuda").manual_seed(14)
+    for c in calls:
+        args = (c.q, c.k, c.v, c.seg, c.seeds, c.rate, True, True)
+        out, lse = fa.fused_attention_cuda(*args)
+        ref, ref_lse = fa.fused_attention_plain(*args)
+        g = torch.randn(c.q.shape, generator=g_gen, device="cuda",
+                        dtype=torch.float32).to(c.q.dtype)
+        bargs = (c.q, c.k, c.v, g, ref, ref_lse, c.seg, c.seeds, c.rate, True)
+        got = fa.fused_attention_bwd_cuda(*bargs)
+        want = fa.fused_attention_bwd_plain(*bargs)
+        torch.cuda.synchronize()
+        pad = c.seg == 0
+        fwd_errs.append((out.float() - ref.float()).abs().max().item())
+        lse_errs.append((lse - ref_lse).abs().max().item())
+        ok, errs, _, _ = _bwd_check(torch, got, want, "bf16")
+        bwd_ok &= ok
+        bwd_errs.append(max(errs))
+        pad_ok &= bool(torch.isfinite(out.float()).all()
+                       and torch.isfinite(lse).all()
+                       and all(bool((x[pad] == 0).all()) for x in got))
+    c = calls[-1]
+    B, L = c.q.shape[:2]
+    say(f"{what} {B}x{L}: {int((c.seg == 0).sum())} pad positions, "
+        f"{int((c.seg.amax(1) == 0).sum())} rows all pad, segment ids up to "
+        f"{int(c.seg.max())}, rate {c.rate:g}; each of its {len(calls)} "
+        f"attention calls kernel vs plain: forward max_abs_err "
+        f"{max(fwd_errs):.3e} (tol {ATOL['bf16']:g}), lse "
+        f"{max(lse_errs):.3e} (tol {LSE_ATOL:g}); backward max_abs_err "
+        f"{max(bwd_errs):.3e} (phase 2's bf16 limits: "
+        f"{'ok' if bwd_ok else 'FAIL'}); outputs and lse finite, pad "
+        f"positions with zero dq/dk/dv: {pad_ok}")
+    if (max(fwd_errs) > ATOL["bf16"] or max(lse_errs) > LSE_ATOL
+            or not bwd_ok or not pad_ok):
+        fail(f"a segmented attention kernel disagrees with plain on the "
+             f"{what}")
+    return max(fwd_errs), max(bwd_errs)
+
+
+def phase_packed_training(torch, nq, nq_train=None):
+    """Phase 14a and b: the copied test_bert.cfg with ``--sequence_packing
+    on --pack_splitting fill --ln_impl fused`` on phase 10's corpus through
+    phase 4's sequence (counts zeroed just before and read just after),
+    ``last.ch`` saved; then the 12 attention calls of its first packed
+    micro-batch, each on its own q, k, v, segment ids and seeds, kernel
+    against plain forward (out, lse) and backward (dq, dk, dv), and the
+    segmented kernels timed at that micro-batch."""
+    import gc
+
+    import torch.nn.functional as F
+
+    from ml_recipe_tpu_torch.data.packing import PackedDataLoader
+    from ml_recipe_tpu_torch.losses import PackedWeightedLoss
+    from ml_recipe_tpu_torch.ops import flash_attention as fa
+
+    cfg = _nq_cfg(nq)
+    emitted = []
+    with _log_lines("ml_recipe_tpu_torch.train.trainer",
+                    "Packed epoch") as epochs, \
+            _capture_attention(torch, 12) as calls:
+        trainer, params, launched, wall = _run_training(
+            torch, cfg, ["--seed", "0", "--experiment_name", "packed",
+                         *PACK_FLAGS],
+            setup=lambda t: emitted.extend([_record_packed_batches(t)]))
+    emitted = emitted[0]
+    model, loader = trainer.model, trainer.train_dataloader
+    if not (isinstance(loader, PackedDataLoader)
+            and isinstance(trainer.test_dataloader, PackedDataLoader)
+            and isinstance(trainer.loss, PackedWeightedLoss)):
+        fail("packed training did not build the packed loaders and loss")
+    layers = model.cfg.num_layers
+    micro = len(trainer.history) * params.batch_split
+    evals = trainer.eval_batches
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(fused_attention_fwd=layers * (micro + evals),
+                fused_attention_bwd=layers * micro,
+                layer_norm_fwd=LN_PER_FORWARD * (micro + evals),
+                layer_norm_bwd=LN_PER_FORWARD * micro)
+    stats = loader.epoch_stats
+    steps = [next(e for e in emitted if e[0] == epoch)
+             for epoch in sorted({e[0] for e in emitted})]
+    waits = trainer.data_waits
+    say(f"packed training: {len(trainer.history)} steps + {evals} eval "
+        f"batches in {wall:.1f}s; step wall seconds "
+        f"{[round(h['seconds'], 3) for h in trainer.history]}; data wait "
+        f"seconds before each step {[round(w, 3) for w in waits]} (phase "
+        f"10: walls {None if nq_train is None else [round(x, 3) for x in nq_train.step_walls]}, "
+        f"waits {None if nq_train is None else [round(w, 3) for w in nq_train.data_waits]}; "
+        f"Python WordPiece on both); loss "
+        f"{[round(h['loss'], 4) for h in trainer.history]}; planned "
+        f"{trainer.planned_steps_per_epoch} steps/epoch in "
+        f"{trainer.plan_seconds:.1f}s")
+    say(f"packed training: each step's (rows, segments, fragments, pad "
+        f"tokens) {[e[1:] for e in steps]}; segments per step (meter "
+        f"weights) {[h['rows'] for h in trainer.history]}; the last epoch's "
+        f"packing efficiency {stats['packing_efficiency']:.4f} (supervised "
+        f"tokens / rows x 512), padding {stats['padding_waste_pct']}% against "
+        f"phase 10's bucketed {None if nq_train is None else nq_train.pad_share}%"
+        f" and {stats['padmax_waste_pct']}% padded to 512; {stats['split_count']}"
+        f" splits in {stats['fragment_rows']} fragment rows over "
+        f"{stats['batches']} batches read; {epochs}")
+    say(f"packed training: launch counts {launched}, expected {want} "
+        f"({layers} segmented attention launches forward and backward per "
+        f"micro-batch, {LN_PER_FORWARD} LayerNorm)")
+    if len(trainer.history) != 2 or micro != 16 or len(epochs) != 2:
+        fail("the packed debug run did not take 2 steps of 8 micro-batches")
+    if launched != want:
+        fail("packed training launch counts do not match the path")
+    if not all(np.isfinite(v) for h in trainer.history for k, v in h.items()
+               if k not in ("step", "rows", "seconds")):
+        fail("a packed training loss is not finite")
+    if not (stats["items"] > stats["rows"] and stats["split_count"] > 0):
+        fail("the packed loader did not pack several chunks a row and split")
+
+    # b: the first micro-batch's 12 attention calls, kernel vs plain
+    if len(calls) != layers or any(c.seg is None or c.rate <= 0
+                                   for c in calls):
+        fail("the packed micro-batch's attention calls were not segmented "
+             "with dropout")
+    fwd_err, bwd_err = _hold_segmented_calls(torch, calls,
+                                             "packed micro-batch")
+
+    # the segmented kernels timed at that micro-batch, beside sdpa with the
+    # block-diagonal boolean mask
+    c = calls[0]
+    B, L, Hc, Dc = c.q.shape
+    g_gen = torch.Generator(device="cuda").manual_seed(15)
+    args = (c.q, c.k, c.v, c.seg, c.seeds, c.rate, True, True)
+    out, lse = fa.fused_attention_cuda(*args)
+    g = torch.randn(c.q.shape, generator=g_gen, device="cuda",
+                    dtype=torch.float32).to(c.q.dtype)
+    bargs = (c.q, c.k, c.v, g, out, lse, c.seg, c.seeds, c.rate, True)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (c.q, c.k, c.v))
+    allowed = fa._allowed(c.seg, True)
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed,
+                                              dropout_p=c.rate)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), g.transpose(1, 2))
+
+    peaks = card_peaks(torch.cuda.get_device_name(0))
+    bw, flops, elt = peaks["bw"], peaks["bf16"], c.q.element_size()
+    fwd_t = dict(ms=time_ms(torch, lambda: fa.fused_attention_cuda(*args)),
+                 plain_ms=time_ms(torch,
+                                  lambda: fa.fused_attention_plain(*args),
+                                  reps=5),
+                 library_ms=time_ms(torch, sdpa_fwd))
+    fwd_t["bound_ms"], fwd_t["bound_by"] = _bound(
+        4 * B * L * Hc * Dc * elt + B * L * 4 + B * 4 + B * Hc * L * 4,
+        4 * B * Hc * L * L * Dc, bw, flops)
+    bwd_t = dict(ms=time_ms(torch, lambda: fa.fused_attention_bwd_cuda(*bargs)),
+                 plain_ms=time_ms(torch,
+                                  lambda: fa.fused_attention_bwd_plain(*bargs),
+                                  reps=5),
+                 library_ms=time_ms(torch, sdpa_fwd_bwd) - time_ms(torch,
+                                                                   sdpa_fwd))
+    bwd_t["bound_ms"], bwd_t["bound_by"] = _bound(
+        8 * B * L * Hc * Dc * elt + B * Hc * L * 4 + B * L * 4 + B * 4,
+        10 * B * Hc * L * L * Dc, bw, flops)
+    for name, t in (("fused_attention_fwd", fwd_t),
+                    ("fused_attention_bwd", bwd_t)):
+        say(f"timing {name} {B}x{L}x{Hc}x{Dc} bf16 segmented (rate "
+            f"{c.rate:g}{', lse' if name.endswith('fwd') else ''}; the packed "
+            f"micro-batch's own ids): kernel_ms={t['ms']:.4f} plain_ms="
+            f"{t['plain_ms']:.4f} library_ms(sdpa, block-diagonal boolean "
+            f"mask)={t['library_ms']:.4f} bound_ms={t['bound_ms']:.4f} "
+            f"({t['bound_by']})")
+    del calls, out, lse, g, qt, kt, vt, allowed
+
+    trainer.debug = False
+    ckpt = params.dump_dir / params.experiment_name / "last.ch"
+    trainer.save_state_dict(ckpt)
+    say(f"packed training: {ckpt.name} saved ({ckpt.stat().st_size} bytes)")
+    out = SimpleNamespace(launched=launched, ckpt=ckpt, fwd=fwd_t, bwd=bwd_t,
+                          fwd_err=fwd_err, bwd_err=bwd_err)
+    del trainer, model, loader
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _val_subset(nq) -> Path:
+    """A processed directory holding PACK_VAL_DOCS of phase 10's test
+    documents (in split order, each of at most PACK_VAL_WORDS words),
+    linked to phase 10's files, as its whole test split."""
+    import pickle
+    import shutil
+
+    dst = nq.dir / "val_subset"
+    shutil.rmtree(dst, ignore_errors=True)
+    dst.mkdir()
+    with open(nq.proc / "split.info", "rb") as fh:
+        train_idx, train_lab, test_idx, test_lab = pickle.load(fh)
+    keep = []
+    for i, idx in enumerate(test_idx):
+        with open(nq.proc / f"{idx}.json") as fh:
+            if len(json.load(fh)["document_text"].split()) <= PACK_VAL_WORDS:
+                keep.append(i)
+        if len(keep) == PACK_VAL_DOCS:
+            break
+    for i in keep:
+        (dst / f"{test_idx[i]}.json").symlink_to(nq.proc / f"{test_idx[i]}.json")
+    (dst / "label.info").symlink_to(nq.proc / "label.info")
+    with open(dst / "split.info", "wb") as fh:
+        pickle.dump((train_idx, train_lab, test_idx[keep], test_lab[keep]), fh)
+    return dst
+
+
+def phase_packed_validate(torch, nq, ckpt):
+    """Phase 14c: ``cli.validate`` with config/validate.cfg on the packed
+    run's ``last.ch`` over PACK_VAL_DOCS test documents, with
+    ``--sequence_packing on --pack_splitting fill`` and without (counts
+    zeroed just before each and read just after: 12 attention launches per
+    batch). Both must score the same chunks, and every packed score must
+    be finite; the largest per-chunk score gap is printed."""
+    import gc
+
+    from ml_recipe_tpu_torch.cli import validate
+
+    subset = _val_subset(nq)
+    runs = {}
+    for label, extra in (("packed", ["--sequence_packing", "on",
+                                     "--pack_splitting", "fill"]),
+                         ("unpacked", [])):
+        params, model_params = validate.parse(
+            ["-c", str(REPO / "config" / "validate.cfg"), "--checkpoint",
+             str(ckpt), "--vocab_file", nq.vocab, "--lowercase",
+             "--data_path", str(nq.corpus), "--processed_data_path",
+             str(subset), "--limit", "100000", *extra])
+        with _capture_attention(torch, 12, last=True) as calls:
+            zero_counts()           # the main path starts here
+            t0 = time.perf_counter()
+            predictor = validate.main(params, model_params, save_dump=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = counts()     # the main path ends here
+        stats = predictor.stats
+        want = dict.fromkeys(KERNELS, 0)
+        want["fused_attention_fwd"] = 12 * stats["batches"]
+        scores = {(item.item_id, item.chunk_start): float(sc)
+                  for d in predictor.dump
+                  for sc, item in zip(d[0], d[-1])}
+        say(f"validate {label}: {stats['documents']} documents, "
+            f"{stats['chunks']} chunks ({stats.get('segments', 0)} segments, "
+            f"{predictor.pack_split_count} split) in {stats['batches']} "
+            f"batches of {params.batch_size}x{params.max_seq_len}, "
+            f"{stats['candidates']} candidates; "
+            f"{stats['chunks'] / stats['seconds']:.1f} chunks/s "
+            f"({stats['seconds']:.2f}s, the call {wall:.1f}s); launch counts "
+            f"{launched}, expected {want}")
+        if launched != want:
+            fail(f"validate {label} launch counts do not match the path")
+        err = None
+        if label == "packed":
+            # the last packed batch: the packer's flushed rows, pad tails
+            err = _hold_segmented_calls(torch, list(calls),
+                                        "last packed validate batch")[0]
+        runs[label] = SimpleNamespace(launched=launched, scores=scores,
+                                      stats=stats, fwd_err=err)
+        del calls
+        del predictor
+        gc.collect()
+        torch.cuda.empty_cache()
+    packed, plain = runs["packed"], runs["unpacked"]
+    gap = max(abs(packed.scores[k] - v) for k, v in plain.scores.items()
+              if k in packed.scores) if plain.scores else math.inf
+    say(f"validate: packed against unpacked on the same {len(plain.scores)} "
+        f"chunks: largest per-chunk |score| difference {gap:.4f} (recorded, "
+        f"not a gate: random weights, and a split chunk's fragments attend "
+        f"only within themselves)")
+    if not (packed.stats["chunks"] == plain.stats["chunks"] > 0
+            and set(packed.scores) == set(plain.scores)):
+        fail("packed and unpacked validate did not score the same chunks")
+    if not all(np.isfinite(v) for v in packed.scores.values()):
+        fail("a packed validate score is not finite")
+    return runs
 
 
 def profile_kernels(torch, fn, names, calls: int = 3) -> dict:
@@ -3754,10 +4159,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     fleet_fwd = phase_fleet(torch)
     fleet8 = phase_fleet_int8(torch)
+    torch.cuda.empty_cache()
+    packed = phase_packed_training(torch, nq, nq_train)
+    packed_val = phase_packed_validate(torch, nq, packed.ckpt)
     nq_fwd = {"nq training": nq_train.launched["fused_attention_fwd"],
               "validate": nq_val.launched["fused_attention_fwd"],
               "validate int8": nq_val8.launched["fused_attention_fwd"],
               "train_metrics": nq_metrics["fused_attention_fwd"]}
+
+    def packed_paths(kernel):
+        return {"packed training": packed.launched[kernel],
+                "packed validate": packed_val["packed"].launched[kernel],
+                "validate, phase 14 unpacked":
+                    packed_val["unpacked"].launched[kernel]}
 
     def option_paths(kernel):
         return {"training options": opt_run[kernel],
@@ -3790,8 +4204,13 @@ def main() -> int:
                   for (B, L), t in timings.items()}
     fwd_shapes.update({f"{B}x{L}": by_shape(t["fwd"], "rate 0.1, lse")
                        for (B, L), t in long_t.items()})
+    fwd_shapes["32x512 segmented"] = by_shape(
+        packed.fwd, "segmented, rate 0.1, lse (the packed micro-batch's ids)")
     bwd_shapes = {f"{TRAIN_SHAPE[0]}x{TRAIN_SHAPE[1]}": by_shape(bwd,
-                                                                 "rate 0.1")}
+                                                                 "rate 0.1"),
+                  "32x512 segmented": by_shape(
+                      packed.bwd, "segmented, rate 0.1 (the packed "
+                                  "micro-batch's ids)")}
     bwd_shapes.update({f"{B}x{L}": by_shape(t["bwd"], "rate 0.1")
                        for (B, L), t in long_t.items()})
     fwd_more = dict(tc_kernels=tc_fwd, by_shape=fwd_shapes)
@@ -3831,25 +4250,31 @@ def main() -> int:
         entry("layer_norm_fwd", "ml_recipe_tpu/ops/layer_norm.py:84",
               sum(int8_paths("layer_norm_fwd").values())
               + ln_train["layer_norm_fwd"] + dp["layer_norm_fwd"]
-              + opt_run["layer_norm_fwd"] + opt_tune["layer_norm_fwd"],
+              + opt_run["layer_norm_fwd"] + opt_tune["layer_norm_fwd"]
+              + packed.launched["layer_norm_fwd"],
               ln_fwd_err, ln_fwd, "16384x768 bf16 (32x512, training)",
               source="layer_norm",
               launches_by_path={**int8_paths("layer_norm_fwd"),
                                 "training fused": ln_train["layer_norm_fwd"],
                                 "data parallel": dp["layer_norm_fwd"],
-                                **option_paths("layer_norm_fwd")},
+                                **option_paths("layer_norm_fwd"),
+                                "packed training":
+                                    packed.launched["layer_norm_fwd"]},
               device_ms=ln_fwd["device_ms"], host_ms=ln_fwd["host_ms"],
               at_32x384={k: ln_serve[k] for k in (
                   "ms", "device_ms", "host_ms", "plain_ms", "library_ms",
                   "bound_ms", "with_codes")}),
         entry("layer_norm_bwd", "ml_recipe_tpu/ops/layer_norm.py:96",
               ln_train["layer_norm_bwd"] + dp["layer_norm_bwd"]
-              + opt_run["layer_norm_bwd"] + opt_tune["layer_norm_bwd"],
+              + opt_run["layer_norm_bwd"] + opt_tune["layer_norm_bwd"]
+              + packed.launched["layer_norm_bwd"],
               ln_bwd_err,
               ln_bwd, "16384x768 bf16 (32x512, training)", source="layer_norm",
               launches_by_path={"training fused": ln_train["layer_norm_bwd"],
                                 "data parallel": dp["layer_norm_bwd"],
-                                **option_paths("layer_norm_bwd")},
+                                **option_paths("layer_norm_bwd"),
+                                "packed training":
+                                    packed.launched["layer_norm_bwd"]},
               device_ms=ln_bwd["device_ms"], host_ms=ln_bwd["host_ms"],
               device_ms_by_kernel=ln_bwd["split_ms"],
               by_shape={f"{N}x{C}": {k: t[k] for k in (
@@ -3880,7 +4305,8 @@ def main() -> int:
                      + ln_train["fused_attention_fwd"] + sum(nq_fwd.values())
                      + dp["fused_attention_fwd"]
                      + sum(option_paths("fused_attention_fwd").values())
-                     + fleet_fwd + fleet8["fused_attention_fwd"]),
+                     + fleet_fwd + fleet8["fused_attention_fwd"]
+                     + sum(packed_paths("fused_attention_fwd").values())),
         "launches_by_path": {"serving": serving_fwd, "training": train_fwd,
                              "serving int8": int8["fused_attention_fwd"],
                              "training fused": ln_train["fused_attention_fwd"],
@@ -3889,8 +4315,9 @@ def main() -> int:
                              **option_paths("fused_attention_fwd"),
                              "fleet": fleet_fwd,
                              "serving int8 cached":
-                                 fleet8["fused_attention_fwd"]},
-        "max_abs_err": fwd_err,
+                                 fleet8["fused_attention_fwd"],
+                             **packed_paths("fused_attention_fwd")},
+        "max_abs_err": max(fwd_err, packed.fwd_err),
         "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"],
@@ -3906,14 +4333,17 @@ def main() -> int:
         "launches": (train_bwd + ln_train["fused_attention_bwd"]
                      + nq_train.launched["fused_attention_bwd"]
                      + dp["fused_attention_bwd"]
-                     + sum(option_paths("fused_attention_bwd").values())),
+                     + sum(option_paths("fused_attention_bwd").values())
+                     + packed.launched["fused_attention_bwd"]),
         "launches_by_path": {"serving": 0, "training": train_bwd,
                              "training fused": ln_train["fused_attention_bwd"],
                              "nq training":
                                  nq_train.launched["fused_attention_bwd"],
                              "data parallel": dp["fused_attention_bwd"],
-                             **option_paths("fused_attention_bwd")},
-        "max_abs_err": bwd_err,
+                             **option_paths("fused_attention_bwd"),
+                             "packed training":
+                                 packed.launched["fused_attention_bwd"]},
+        "max_abs_err": max(bwd_err, packed.bwd_err),
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"],

@@ -25,6 +25,8 @@ first with ``--clear_processed``).
 it returns (and, after an interrupt, for ``interrupt.ch``'s), so a
 checkpoint is on disk when the process ends; ``--hf_checkpoint DIR`` warm
 starts the encoder from a local HF directory (``compose.init_model``).
+``--sequence_packing on`` trains on packed rows (``data/packing.py``;
+``--pack_max_segments``, ``--pack_splitting fill``, ``--pack_min_fragment``).
 
 With ``--dist_world_size`` W > 1 each process joins the world before any
 CUDA use (NCCL on CUDA, gloo with ``--device cpu``; ``parallel/dist.py``)
@@ -109,6 +111,10 @@ def build_trainer(params, model_params) -> Trainer:
         log_every=params.log_every,
         sharded_checkpoint=params.sharded_checkpoint,
         async_checkpoint=params.async_checkpoint,
+        sequence_packing=params.sequence_packing,
+        pack_max_segments=params.pack_max_segments,
+        pack_splitting=params.pack_splitting,
+        pack_min_fragment=params.pack_min_fragment,
     )
     if params.last is not None:
         trainer.load_state_dict(params.last)

@@ -11,8 +11,10 @@ restored float weights to per-channel int8, the serving engine's
 conversion), a ``ChunkDataset`` over the held-out split of the preprocessed
 corpus (``compose.init_validation_dataset``), and runs the ``Predictor``
 over every chunk (``--limit`` stops early), then logs the documents, chunks
-and candidates it scored and its chunks per second. Sequence packing and a
-mesh of more than one device are refused (``check_predict_flags``).
+and candidates it scored and its chunks per second. ``--sequence_packing
+on`` scores packed rows (``--pack_max_segments``, ``--pack_splitting
+fill``, ``--pack_min_fragment``; ``infer/predictor.py``). A mesh of more
+than one device is refused (``check_predict_flags``).
 """
 
 from __future__ import annotations
@@ -55,6 +57,10 @@ def main(params, model_params, *, save_dump: bool = False) -> Predictor:
         buffer_size=params.buffer_size,
         limit=params.limit,
         length_buckets=params.length_buckets,
+        sequence_packing=params.sequence_packing,
+        pack_max_segments=params.pack_max_segments,
+        pack_splitting=params.pack_splitting,
+        pack_min_fragment=params.pack_min_fragment,
     )
     predictor(val_dataset, save_dump=save_dump)
     s = predictor.stats
@@ -64,6 +70,10 @@ def main(params, model_params, *, save_dump: bool = False) -> Predictor:
         s["documents"], len(val_dataset), s["chunks"], s["batches"],
         s["candidates"], s["chunks"] / max(s["seconds"], 1e-9), s["seconds"],
         s["host_ms_per_batch"])
+    if predictor._packing:
+        logger.info("Sequence packing: %d segments in %d batches of %d rows, "
+                    "%d split chunk(s).", s["segments"], s["batches"],
+                    params.batch_size, predictor.pack_split_count)
     return predictor
 
 

@@ -473,7 +473,8 @@ def get_trainer_parser() -> ConfigArgumentParser:
                              "(vs one per bucket). 'off' (default) keeps "
                              "the bucketed/padded path bit-exactly; 'on' "
                              "enables it and supersedes --length_buckets. "
-                             "Single-process only.")
+                             "Multi-process runs derive every process's "
+                             "pack plan from the shared length oracle.")
     parser.add_argument("--pack_max_segments", type=int, default=8,
                         help="Sequence packing: max chunks packed into one "
                              "row (the static S of the per-segment label "
@@ -779,17 +780,21 @@ def get_predictor_parser() -> ConfigArgumentParser:
                              "per-bucket batch size holds the token budget "
                              "batch_size * max_seq_len constant.")
     parser.add_argument("--sequence_packing", type=str, default="off",
-                        help="Sequence packing for offline eval (not ported: "
-                             "only 'off' is accepted).")
+                        help="Sequence packing for offline eval: 'on' "
+                             "first-fits chunks into full max_seq_len rows "
+                             "with block-diagonal attention and scores each "
+                             "chunk per segment; supersedes "
+                             "--length_buckets.")
     parser.add_argument("--pack_max_segments", type=int, default=8,
                         help="Sequence packing: max chunks per packed row "
-                             "(not ported; ignored).")
+                             "(the static S of the per-segment outputs).")
     parser.add_argument("--pack_splitting", type=str, default="off",
                         help="Hole-filling chunk splitting for packed "
-                             "offline eval (not ported: only 'off').")
+                             "offline eval: 'off' or 'fill' (fragments "
+                             "re-merged into per-chunk outputs).")
     parser.add_argument("--pack_min_fragment", type=int, default=32,
                         help="Splitting packer: minimum fragment size in "
-                             "tokens (not ported; ignored).")
+                             "tokens.")
 
     parser.add_argument("--quantize", type=str, default="off",
                         choices=["off", "int8"],
@@ -816,25 +821,16 @@ def _mesh_devices(spec) -> int:
     return count
 
 
-def _packing_on(value) -> bool:
-    return str(value).strip().lower() not in ("off", "none", "0", "false", "")
-
-
 def check_predict_flags(params, model_params) -> None:
-    """Refuse predictor flags whose subsystem the port lacks: sequence
-    packing (``--sequence_packing``/``--pack_splitting`` other than off) and
-    a ``--mesh`` of more than one device. ``--fetch_every`` is accepted
-    and logged: the port copies each batch's output on its own."""
+    """Refuse predictor flags whose subsystem the port lacks: a ``--mesh``
+    of more than one device and ring attention. ``--fetch_every`` is
+    accepted and logged: the port copies each batch's output on its own."""
     _check_ln_impl(model_params)
     if params.fetch_every != 1:
         logger.info("Accepted but not ported (no effect in "
                     "ml_recipe_tpu_torch): --fetch_every %s.",
                     params.fetch_every)
     checks = [
-        (_packing_on(params.sequence_packing), "sequence_packing",
-         params.sequence_packing, "queue 1, 'Sequence packing'"),
-        (_packing_on(params.pack_splitting), "pack_splitting",
-         params.pack_splitting, "queue 1, 'Sequence packing'"),
         (_mesh_devices(params.mesh) > 1, "mesh", params.mesh,
          "queue 1, 'Parallelism beyond data parallelism'"),
         (model_params.flash_attention == "ring", "flash_attention", "ring",
@@ -1075,13 +1071,12 @@ _IGNORED_TRAIN_FLAGS = (
     "precision", "pipe_schedule", "pipe_param_sharding", "zero1_bucket_mb",
     "anomaly_factor", "anomaly_window", "flightrec_events", "max_restarts",
     "backoff_base", "backoff_max", "crash_loop_window", "min_world",
-    "host_timeout", "coord_poll", "pack_max_segments", "pack_min_fragment",
+    "host_timeout", "coord_poll",
 )
 # model flags of the same kind: --param_dtype bfloat16 reaches no parameter
 # in the JAX package either (flax keeps them f32), so it trains as float32
 _IGNORED_MODEL_TRAIN_FLAGS = ("param_dtype",)
 
-_PACKING = "queue 1, 'Sequence packing'"
 _PARALLEL = "queue 1, 'Parallelism beyond data parallelism'"
 _OBSERVE = "queue 1, 'Runtime subsystems'"
 
@@ -1124,10 +1119,6 @@ def check_train_flags(params, model_params) -> None:
         (params.mesh is not None, "mesh", params.mesh, _PARALLEL),
         (params.zero1_overlap not in (None, "off"), "zero1_overlap",
          params.zero1_overlap, _PARALLEL),
-        (_packing_on(params.sequence_packing), "sequence_packing",
-         params.sequence_packing, _PACKING),
-        (_packing_on(params.pack_splitting), "pack_splitting",
-         params.pack_splitting, _PACKING),
         (params.trace, "trace", True, _OBSERVE),
         (params.trace_spans is not None, "trace_spans", params.trace_spans,
          _OBSERVE),

@@ -1,5 +1,5 @@
 """Offline inference predictor (the port of ``ml_recipe_tpu/infer/predictor.py``
-without sequence packing and without a mesh).
+without a mesh).
 
 Streams chunk batches from the async :class:`~..data.loader.ListDataloader`,
 scores each chunk with the answerability score of arXiv 1901.08634
@@ -11,8 +11,9 @@ score so far; reference predictor.py:63-75).
 
 The loop, on one device:
 
-- a transfer thread builds host batches (pad-to-max, or length buckets
-  under a token budget with per-bucket tails), pads the trailing partial
+- a transfer thread builds host batches (pad-to-max, length buckets
+  under a token budget with per-bucket tails, or packed rows), pads the
+  trailing partial
   batch by repeating its last row (``serve.bucketing.pad_trailing_batch``),
   packs them in the wire ``infer.score.score_wire`` chose (one int16
   ``[B, L]`` id plane when the tokenizer's vocab fits 16 bits, else
@@ -26,6 +27,18 @@ The loop, on one device:
   the host updates candidates. The reference's ``fetch_every`` (fetches
   grouped to save round trips of a tunnelled device) is not ported: a
   local card has no such round trip.
+
+Sequence packing (``sequence_packing``): chunks first-fit into full
+``max_seq_len`` rows (``data/packing.SequencePacker``; it supersedes
+``length_buckets``); a batch crosses as ``[4, R, L]`` int32 planes and
+``[R, S]`` segment starts, ``infer.score.build_packed_score_fn`` scores
+every chunk per segment, and the ``[8, R, S]`` output is read out per chunk
+through the host's segment mask (row-major segment order). With
+``pack_splitting='fill'`` a chunk that fits no open row is split into
+fragments, whose outputs ``infer.score.FragmentMerger`` re-merges into the
+chunk's before candidate tracking, so everything after it sees whole
+chunks. Fragments attend only within themselves, so a split chunk's logits
+approximate the unsplit chunk's.
 
 Every copy and launch goes on the device's current stream, so a forward is
 ordered after its input's copy. A fresh pinned buffer per batch is never
@@ -56,9 +69,25 @@ from ..data.bucketing import (
 from ..data.collate import rebind_collate_seq
 from ..data.labels import id2labels
 from ..data.loader import ListDataloader
+from ..data.packing import (
+    DEFAULT_MAX_SEGMENTS,
+    DEFAULT_MIN_FRAGMENT,
+    ChunkFragment,
+    SequencePacker,
+    collate_packed,
+    parse_pack_splitting,
+    parse_sequence_packing,
+)
 from ..serve.bucketing import pad_trailing_batch
 from ..utils.pipeline import LaggedConsumer
-from .score import OUT_KEYS, pack_wire, score_wire
+from .score import (
+    OUT_KEYS,
+    PACKED_OUT_KEYS,
+    FragmentMerger,
+    build_packed_score_fn,
+    pack_wire,
+    score_wire,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -126,6 +155,10 @@ class Predictor:
         buffer_size: int = 4096,
         limit: Optional[int] = None,
         length_buckets: Optional[list] = None,
+        sequence_packing=False,
+        pack_max_segments: int = DEFAULT_MAX_SEGMENTS,
+        pack_splitting="off",
+        pack_min_fragment: int = DEFAULT_MIN_FRAGMENT,
     ):
         self.model = model
         self.device = model.device
@@ -148,6 +181,29 @@ class Predictor:
         tok = getattr(self.collate_fun, "keywords", {}).get("tokenizer")
         self._wire_ids_only, self._score = score_wire(model, tok)
         self._pad_id = int(tok.pad_token_id) if self._wire_ids_only else None
+
+        # sequence packing (module docstring); the cuts of the last run's
+        # splitting packer in pack_split_count
+        self._packing = parse_sequence_packing(sequence_packing)
+        self._pack_max_segments = max(1, int(pack_max_segments))
+        self._pack_splitting = parse_pack_splitting(pack_splitting)
+        self._pack_min_fragment = max(1, int(pack_min_fragment))
+        self.pack_split_count = 0
+        if self._packing:
+            kw = getattr(self.collate_fun, "keywords", {}) or {}
+            if kw.get("tokenizer") is None:
+                raise ValueError("sequence_packing needs a tokenizer-bound "
+                                 "collate_fun (init_collate_fun)")
+            if kw.get("max_seq_len") is None:
+                raise ValueError("sequence_packing needs the collate's static "
+                                 "max_seq_len (init_collate_fun(..., "
+                                 "max_seq_len=...))")
+            self._score_packed = build_packed_score_fn(model)
+            if parse_length_buckets(length_buckets, kw["max_seq_len"]):
+                logger.info("sequence_packing supersedes length_buckets for "
+                            "offline eval (packed rows are already nearly "
+                            "pad-free).")
+                length_buckets = None
 
         # length-bucketed chunk batching (a --length_buckets spec or grid):
         # chunks pad to the smallest bucket seq that fits them; per-bucket
@@ -181,15 +237,15 @@ class Predictor:
                 "non-pad id); construct the Predictor without a tokenizer-"
                 "bound collate_fun to use the 3-plane wire")
 
+    def _pinned(self, t: torch.Tensor) -> torch.Tensor:
+        return t.pin_memory() if self.device.type == "cuda" else t
+
     def _wire(self, inputs: dict) -> torch.Tensor:
         """Host batch -> a CPU tensor in the wire format (pinned on CUDA)."""
         if self._wire_ids_only:
             self._check_ids_wire(np.asarray(inputs["input_ids"]),
                                  inputs["attention_mask"], self._pad_id)
-        packed = pack_wire(inputs, self._wire_ids_only)
-        if self.device.type == "cuda":
-            packed = packed.pin_memory()
-        return packed
+        return self._pinned(pack_wire(inputs, self._wire_ids_only))
 
     # -- candidate tracking (predictor.py:63-87) -------------------------------
 
@@ -229,20 +285,24 @@ class Predictor:
     def __call__(self, dataset, *, save_dump: bool = False):
         """Score every chunk of ``dataset`` (a ``ChunkDataset``) and keep one
         candidate per document. ``self.stats`` then holds the run's
-        ``batches``, ``chunks`` and ``documents`` scored, ``candidates``,
+        ``batches``, ``chunks`` and ``documents`` scored (packed: also its
+        ``segments``, fragments included), ``candidates``,
         ``seconds``, ``first_batch_seconds`` (until the first batch was
         staged: the loader's first documents) and the transfer thread's
         median host milliseconds per batch (``host_ms_per_batch``:
         building, padding, packing and staging one batch, the loader's
         waits included)."""
         bucketed = self._seq_grid is not None
+        packing = self._packing
         pin = self.device.type == "cuda"
+        self.pack_split_count = 0
+        packer = None
         async_dataset = ListDataloader(
             dataset,
             batch_size=self.batch_size,
             n_jobs=self.n_jobs,
-            # bucketed: stream raw chunk lists and collate per bucket below
-            collate_fun=None if bucketed else self.collate_fun,
+            # bucketed, packed: stream raw chunk lists and collate below
+            collate_fun=None if (bucketed or packing) else self.collate_fun,
             buffer_size=self.buffer_size,
             shuffle=True,
         )
@@ -250,14 +310,39 @@ class Predictor:
             self.dump = []
 
         seen: set = set()
+        merger = (FragmentMerger() if packing and self._pack_splitting != "off"
+                  else None)
 
         def process(host_out, n_valid, items) -> None:
-            out = {k: host_out[i, :n_valid] for i, k in enumerate(OUT_KEYS)}
+            if packing:
+                out, items = unpack(host_out, n_valid, items)
+            else:
+                out = {k: host_out[i, :n_valid] for i, k in enumerate(OUT_KEYS)}
             seen.update(item.item_id for item in items)
             self._update_candidates(out, items)
             if save_dump:
                 self.dump.append((out["scores"], out["start_ids"],
                                   out["end_ids"], out["labels"], items))
+
+        def unpack(host_out, seg_mask, entries):
+            """``[8, R, S]`` per-segment outputs -> per-chunk vectors through
+            the packing map (row-major segment order over the mask), split
+            chunks re-merged once all their fragments are in."""
+            m = np.asarray(seg_mask).reshape(-1) > 0
+            out = {k: host_out[i].reshape(-1)[m]
+                   for i, k in enumerate(PACKED_OUT_KEYS)}
+            assert len(entries) == int(m.sum()), (len(entries), int(m.sum()))
+            if merger is None:
+                return out, entries
+            done_items, done = [], {k: [] for k in OUT_KEYS}
+            for j, entry in enumerate(entries):
+                fields = {k: out[k][j] for k in PACKED_OUT_KEYS}
+                for item, merged in merger.add(entry, fields):
+                    done_items.append(item)
+                    for k in OUT_KEYS:
+                        done[k].append(merged[k])
+            return ({k: np.asarray(v, dtype=np.float32)
+                     for k, v in done.items()}, done_items)
 
         lag = LaggedConsumer(
             lambda copy, n_valid, items: process(_read_host_copy(*copy),
@@ -270,9 +355,50 @@ class Predictor:
 
         def host_batches():
             """Collated, padded host batches as ``(inputs, n_valid, items)``:
-            pad-to-max (the loader collated at the global max), or length
+            pad-to-max (the loader collated at the global max), length
             buckets (each bucket collates at its seq when its token-budget
-            batch fills; the per-bucket tails flush padded)."""
+            batch fills; the per-bucket tails flush padded), or packed rows
+            (``inputs`` the ``(planes, segment_starts)`` pair, ``n_valid``
+            the ``[R, S]`` segment mask, ``items`` the rows' entries in
+            row-major segment order)."""
+            nonlocal packer
+            if packing:
+                tok = self.collate_fun.keywords["tokenizer"]
+                max_len = int(self.collate_fun.keywords["max_seq_len"])
+                packer = SequencePacker(
+                    max_len, max_segments=self._pack_max_segments,
+                    splitting=self._pack_splitting,
+                    min_fragment=self._pack_min_fragment)
+                pending: list = []
+
+                def packed_batch(rows):
+                    real = len(rows)
+                    rows = rows + [rows[-1]] * (self.batch_size - real)
+                    inputs, seg_mask = collate_packed(
+                        rows, tok, max_seq_len=max_len,
+                        max_segments=self._pack_max_segments,
+                        with_labels=False)
+                    seg_mask[real:] = 0   # pad rows: no phantom chunks
+                    planes = np.stack([inputs[k] for k in (
+                        "input_ids", "token_type_ids", "segment_ids",
+                        "position_ids")])
+                    entries = [e for row in rows[:real] for e in row]
+                    return ((planes, inputs["segment_starts"]), seg_mask,
+                            entries)
+
+                for group in async_dataset:   # raw chunk lists
+                    for chunk in group:
+                        pending.extend(packer.add(
+                            chunk, len(chunk.input_ids),
+                            (chunk.start_id, chunk.end_id)))
+                        while len(pending) >= self.batch_size:
+                            yield packed_batch(pending[:self.batch_size])
+                            del pending[:self.batch_size]
+                pending.extend(packer.flush())
+                while pending:
+                    yield packed_batch(pending[:self.batch_size])
+                    del pending[:self.batch_size]
+                return
             if not bucketed:
                 for inputs, _labels, items in async_dataset:
                     n_valid = len(items)
@@ -310,8 +436,14 @@ class Predictor:
                     if got is None:
                         break
                     inputs, n_valid, items = got
-                    dev_inputs = self._wire(inputs).to(self.device,
-                                                       non_blocking=pin)
+                    if packing:
+                        dev_inputs = tuple(
+                            self._pinned(torch.from_numpy(x)).to(
+                                self.device, non_blocking=pin)
+                            for x in inputs)
+                    else:
+                        dev_inputs = self._wire(inputs).to(self.device,
+                                                           non_blocking=pin)
                     host_ms.append(1e3 * (time.perf_counter() - t0))
                     payload = (dev_inputs, n_valid, items)
                     while not stop.is_set():
@@ -336,7 +468,7 @@ class Predictor:
                                   name="predictor-transfer", daemon=True)
         t_start = time.perf_counter()
         t_first = None
-        n_batches = n_chunks = 0
+        n_batches = n_chunks = n_segments = 0
         worker.start()
         try:
             with torch.inference_mode():
@@ -349,9 +481,16 @@ class Predictor:
                     dev_inputs, n_valid, items = got
                     if t_first is None:
                         t_first = time.perf_counter() - t_start
-                    out = self._score(dev_inputs)
                     n_batches += 1
-                    n_chunks += n_valid
+                    if packing:
+                        out = self._score_packed(*dev_inputs)
+                        n_segments += len(items)
+                        # a chunk counts once: whole, or by its head fragment
+                        n_chunks += sum(not isinstance(e, ChunkFragment)
+                                        or e.index == 0 for e in items)
+                    else:
+                        out = self._score(dev_inputs)
+                        n_chunks += n_valid
                     lag.feed(_start_host_copy(out, pin), n_valid, items)
                 lag.flush()
         finally:
@@ -363,7 +502,20 @@ class Predictor:
                     break
             _ensure_worker_stopped(worker, timeout=10)
 
+        if packer is not None:
+            self.pack_split_count = packer.split_count
+            if self.pack_split_count:
+                logger.info("Sequence packing split %d chunk(s) into "
+                            "hole-filling fragments (re-merged to per-chunk "
+                            "outputs).", self.pack_split_count)
+        if merger is not None and merger.pending:
+            # every fragment is scored (eval pads, never drops) unless
+            # --limit stopped the stream: a leftover chunk is dropped
+            logger.warning("Fragment re-merge finished with %d incomplete "
+                           "chunk(s); their candidates were dropped.",
+                           merger.pending)
         self.stats = dict(
+            segments=n_segments,
             batches=n_batches, chunks=n_chunks,
             documents=len(seen),
             candidates=len(self.candidates),

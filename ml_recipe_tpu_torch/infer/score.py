@@ -19,6 +19,11 @@ batch in it:
 - 3-plane (``wire_ids_only=False``): ``[3, B, L]`` int32 (input_ids /
   attention_mask / token_type_ids).
 
+Sequence packing (:func:`build_packed_score_fn`): one forward scores every
+chunk packed into a batch's rows, per segment, and ``[8, R, S]`` crosses to
+the host in ``PACKED_OUT_KEYS`` order; :class:`FragmentMerger` re-merges
+the segments of a split chunk on the host.
+
 ``torch.argmax`` returns the first maximal index, the tie rule of
 ``jnp.argmax``.
 """
@@ -32,6 +37,12 @@ import torch
 
 OUT_KEYS = ("scores", "start_ids", "end_ids", "start_regs", "end_regs",
             "labels")
+
+# row order of the packed [8, R, S] output: OUT_KEYS and each segment's
+# span-logit maxima, which the fragment re-merge combines (a split chunk's
+# argmax is that of its fragments' (max, argmax) pairs, and the score's
+# [CLS] anchor is the head fragment's start_max + end_max - score)
+PACKED_OUT_KEYS = OUT_KEYS + ("start_max", "end_max")
 
 
 def build_score_fn(
@@ -81,6 +92,121 @@ def build_score_fn(
         return torch.stack([fields[k].to(torch.float32) for k in OUT_KEYS])
 
     return score_fn
+
+
+def build_packed_score_fn(model) -> Callable[[torch.Tensor, torch.Tensor],
+                                              torch.Tensor]:
+    """The packed twin of :func:`build_score_fn`: ``f(planes,
+    segment_starts) -> [8, R, S]`` f32, ``planes`` ``[4, R, L]`` int32
+    (input_ids / token_type_ids / segment_ids / position_ids; the attention
+    mask is ``segment_ids > 0``), ``segment_starts`` ``[R, S]``. Per
+    segment:
+
+    - span ids are segment-relative (the row argmax minus the segment's
+      start): chunk-relative for whole chunks, so the validity rules apply
+      unchanged; a fragment's are rebased by :class:`FragmentMerger`;
+    - the answerability score's [CLS] anchor is the segment's own first row
+      (for one full-length segment, the unpacked ``start[:, 0]``);
+    - ``start_max``/``end_max``: the segment's span-logit maxima.
+
+    Absent segments give entries the caller drops through the host-side
+    ``segment_mask``. Call it under ``torch.inference_mode()``."""
+
+    def score_fn(planes: torch.Tensor,
+                 segment_starts: torch.Tensor) -> torch.Tensor:
+        ids, tt, seg, pos = (planes[i].to(torch.int64) for i in range(4))
+        starts = segment_starts.to(torch.int64)
+        preds = model(input_ids=ids, attention_mask=(seg > 0).to(torch.int32),
+                      token_type_ids=tt, position_ids=pos, segment_ids=seg,
+                      segment_starts=starts)
+        start = preds["start_class"]   # [R, S, L], off-segment tokens -1e9
+        end = preds["end_class"]
+        start_logits, end_logits = start.max(dim=-1).values, end.max(dim=-1).values
+        cls_ids = torch.softmax(preds["cls"], dim=-1).argmax(dim=-1)
+        cls_start = torch.gather(start, -1, starts[..., None])[..., 0]
+        cls_end = torch.gather(end, -1, starts[..., None])[..., 0]
+        fields = {
+            "scores": start_logits + end_logits - (cls_start + cls_end),
+            "start_ids": start.argmax(dim=-1) - starts,
+            "end_ids": end.argmax(dim=-1) - starts,
+            "start_regs": preds["start_reg"],
+            "end_regs": preds["end_reg"],
+            "labels": cls_ids,
+            "start_max": start_logits,
+            "end_max": end_logits,
+        }
+        return torch.stack([fields[k].to(torch.float32)
+                            for k in PACKED_OUT_KEYS])
+
+    return score_fn
+
+
+class FragmentMerger:
+    """The host-side re-merge of split chunks' outputs (``--pack_splitting
+    fill``).
+
+    Takes ``(entry, fields)`` pairs in any order: ``entry`` a whole item
+    (passed through) or a ``data.packing.ChunkFragment``, ``fields`` its
+    segment's ``PACKED_OUT_KEYS`` values. Fragments wait per ``chunk_id``
+    until the whole chunk has reported (its fragments often land in other
+    batches), then merge into one chunk's fields:
+
+    - span ids: the argmax over the joined fragments, that is the winning
+      fragment's (the larger span-logit max) shifted by its offset;
+    - score: the best ``start_max`` + the best ``end_max`` minus the [CLS]
+      anchor of the head fragment (``head.start_max + head.end_max -
+      head.score``: the head starts at the chunk's position 0);
+    - ``start_regs``/``end_regs``/``labels``: the head's (its pooled row is
+      the chunk's [CLS])."""
+
+    def __init__(self):
+        self._pending: dict = {}   # chunk_id -> {fragment index: (frag, fields)}
+
+    def add(self, entry, fields: dict) -> list:
+        """One segment's outputs; returns the ``(chunk item, fields)``
+        pairs this completes (possibly none)."""
+        from ..data.packing import ChunkFragment
+
+        if not isinstance(entry, ChunkFragment):
+            return [(entry, fields)]
+        parts = self._pending.setdefault(entry.chunk_id, {})
+        parts[entry.index] = (entry, fields)
+        count = entry.count
+        if count and len(parts) == count:
+            del self._pending[entry.chunk_id]
+            return [self._merge([parts[i] for i in range(count)])]
+        return []
+
+    @property
+    def pending(self) -> int:
+        """Chunks still waiting for fragments (0 after a whole stream)."""
+        return len(self._pending)
+
+    @staticmethod
+    def _merge(parts):
+        head, head_fields = parts[0]
+        assert head.index == 0 and head.offset == 0, (
+            "head fragment missing from re-merge")
+
+        def best(key_max, key_id):
+            frag, fields = max(parts, key=lambda p: p[1][key_max])
+            return fields[key_max], frag.offset + int(fields[key_id])
+
+        start_max, start_id = best("start_max", "start_ids")
+        end_max, end_id = best("end_max", "end_ids")
+        anchor = (head_fields["start_max"] + head_fields["end_max"]
+                  - head_fields["scores"])
+        merged = {
+            "scores": start_max + end_max - anchor,
+            "start_ids": start_id,
+            "end_ids": end_id,
+            "start_regs": head_fields["start_regs"],
+            "end_regs": head_fields["end_regs"],
+            "labels": head_fields["labels"],
+            "start_max": start_max,
+            "end_max": end_max,
+        }
+        return head.item, merged
 
 
 def score_wire(model, tokenizer: Optional[object]

@@ -13,6 +13,11 @@ The same functions, on torch tensors, with the JAX package's arithmetic:
   pick, with ignore-index masking) and ``mse_loss``;
 - ``WeightedLoss``: the per-head aggregator returning ``(total, values)``
   with the unweighted per-head losses and ``values["loss"]``;
+- ``PackedWeightedLoss``: its adapter for sequence-packed batches, whose
+  heads give one row per segment and whose targets carry a
+  ``segment_mask``: every head's mean runs over the real segments only
+  (``masked_mse_loss``, and ``label_smoothing_loss(valid=...)``, since
+  KLDiv ``batchmean`` has no ignore index);
 - ``build_loss``: the head table of ``init_loss`` (``--loss ce | focal |
   smooth``).
 
@@ -26,7 +31,6 @@ denominator summed over every process as ``denominator``; the loss clamps
 it and divides its own rows' sum by it, so the processes' losses (and
 gradients) sum to the loss over the whole micro-batch. Without
 ``denominator`` every loss computes what it computed before, bit for bit.
-``PackedWeightedLoss`` waits for sequence packing (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -92,14 +96,21 @@ def label_smoothing_loss(
     n_classes: int,
     smoothing: float = 0.0,
     ignore_index: int = -100,
+    valid: Optional[torch.Tensor] = None,
     denominator: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
+    """``valid`` (a bool ``[N]``, packed segments) restricts the mean to
+    those rows; None keeps the whole-batch arithmetic."""
     assert 0 <= smoothing <= 1
     log_probs = _log_softmax(logits)
     if smoothing <= 0:
+        if valid is not None:
+            targets = torch.where(valid, targets, ignore_index)
         return cross_entropy_with_ignore(logits, targets,
                                          ignore_index=ignore_index,
                                          denominator=denominator)
+    if valid is not None:
+        targets = torch.where(valid, targets, 0)
 
     num_ignore = 1 + (0 <= ignore_index < n_classes)
     fill_value = smoothing / (n_classes - num_ignore)
@@ -123,7 +134,11 @@ def label_smoothing_loss(
                           target_dist * torch.log(target_dist),
                           torch.zeros_like(target_dist))
     kl = torch.sum(t_log_t - target_dist * log_probs, dim=-1)
-    return _mean(kl, denominator)
+    if valid is None:
+        return _mean(kl, denominator)
+    v = valid.float()
+    den = torch.sum(v) if denominator is None else denominator
+    return torch.sum(kl * v) / torch.clamp(den, min=1.0)
 
 
 def _mean(x: torch.Tensor, denominator: Optional[torch.Tensor]) -> torch.Tensor:
@@ -136,9 +151,15 @@ def _numel_denominator(targets: torch.Tensor, **_) -> torch.Tensor:
 
 
 def _smoothing_denominator(targets: torch.Tensor, *, smoothing: float = 0.0,
-                           ignore_index: int = -100, **_) -> torch.Tensor:
+                           ignore_index: int = -100,
+                           valid: Optional[torch.Tensor] = None,
+                           **_) -> torch.Tensor:
     if smoothing <= 0:
+        if valid is not None:
+            targets = torch.where(valid, targets, ignore_index)
         return _ce_denominator(targets, ignore_index=ignore_index)
+    if valid is not None:
+        return torch.sum(valid.float())
     return _numel_denominator(targets)
 
 
@@ -171,23 +192,45 @@ def mse_loss(preds: torch.Tensor, targets: torch.Tensor, *,
     return _mean((preds.float() - targets.float()) ** 2, denominator)
 
 
+def masked_mse_loss(preds: torch.Tensor, targets: torch.Tensor,
+                    valid: torch.Tensor, *,
+                    denominator: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``mse_loss`` over the rows where ``valid`` (packed segments: absent
+    ones carry zeros that must not dilute the mean)."""
+    v = valid.float()
+    sq = (preds.float() - targets.float()) ** 2
+    den = torch.sum(v) if denominator is None else denominator
+    return torch.sum(sq * v) / torch.clamp(den, min=1.0)
+
+
+def _valid_denominator(targets: torch.Tensor, valid: torch.Tensor,
+                       **_) -> torch.Tensor:
+    return torch.sum(valid.float())
+
+
 _DENOMINATORS = {
     cross_entropy_with_ignore: _ce_denominator,
     label_smoothing_loss: _smoothing_denominator,
     focal_loss: _ce_denominator,
     mse_loss: _numel_denominator,
+    masked_mse_loss: _valid_denominator,
 }
 
 
-def loss_denominator(loss_f: Callable, targets: torch.Tensor) -> torch.Tensor:
+def _unpartial(loss_f: Callable):
+    return ((loss_f.func, dict(loss_f.keywords))
+            if isinstance(loss_f, functools.partial) else (loss_f, {}))
+
+
+def loss_denominator(loss_f: Callable, targets: torch.Tensor,
+                     **kw) -> torch.Tensor:
     """The unclamped f32 denominator ``loss_f`` (a loss of this module, or a
     ``functools.partial`` of one) divides its sum by over ``targets``'s
-    rows."""
-    func, kw = ((loss_f.func, loss_f.keywords)
-                if isinstance(loss_f, functools.partial) else (loss_f, {}))
+    rows; ``kw``: the call's other keywords (``valid``)."""
+    func, bound = _unpartial(loss_f)
     if func not in _DENOMINATORS:
         raise TypeError(f"no denominator is known for loss {func!r}")
-    return _DENOMINATORS[func](targets, **kw).float()
+    return _DENOMINATORS[func](targets, **bound, **kw).float()
 
 
 class WeightedLoss:
@@ -226,6 +269,87 @@ class WeightedLoss:
             else:
                 loss = loss_f(preds[key], targets[key],
                               denominator=denominators[i])
+            values[key] = loss
+            full_loss = full_loss + weight * loss
+        values["loss"] = full_loss
+        return full_loss, values
+
+
+_SPAN_HEADS = ("start_class", "end_class")
+_REG_HEADS = ("start_reg", "end_reg")
+
+
+class PackedWeightedLoss:
+    """``WeightedLoss`` for sequence-packed batches (the JAX package's
+    ``PackedWeightedLoss``).
+
+    Predictions are per segment (``[R, S, ...]``) and the targets carry a
+    ``segment_mask`` (``data/packing.collate_packed``). Every head runs
+    over the flattened ``R*S`` segments with the absent ones left out: the
+    span and class heads call their base loss with the absent segments'
+    targets set to the head's ignore index (span CE -1, class CE -100,
+    focal -1; pad rows repeat real labels, so the mask is applied again),
+    mse and smoothing > 0, which have no ignore index, their masked
+    variants. The values are means over real segments (examples), so the
+    epoch meters stay per example when weighted by a batch's segment
+    count. ``denominators``/``denominators=`` as in ``WeightedLoss``."""
+
+    def __init__(self, base: WeightedLoss):
+        self.base = base
+        self._losses = base._losses
+        self._cls_fns = {}
+        for key, (fn, _weight) in base._losses.items():
+            if key in _SPAN_HEADS + _REG_HEADS:
+                continue
+            func, kw = _unpartial(fn)
+            if func is label_smoothing_loss:
+                self._cls_fns[key] = ("smooth", kw)
+            elif func in (cross_entropy_with_ignore, focal_loss):
+                self._cls_fns[key] = ("ignore", kw.get("ignore_index", -1))
+            else:
+                raise NotImplementedError(
+                    f"PackedWeightedLoss cannot adapt head {key!r} "
+                    f"({func}): no ignore/mask semantics known")
+
+    @property
+    def keys(self):
+        return self.base.keys
+
+    def _heads(self, targets: dict):
+        """Per head ``(key, weight, loss_f, flat targets, keywords)``: the
+        call that computes it over the real segments."""
+        valid = targets["segment_mask"].reshape(-1) > 0
+        for key, (loss_f, weight) in self._losses.items():
+            t = targets[key].reshape(-1)
+            if key in _SPAN_HEADS:
+                yield key, weight, loss_f, torch.where(valid, t, -1), {}
+            elif key in _REG_HEADS:
+                yield key, weight, masked_mse_loss, t, {"valid": valid}
+            else:
+                kind, arg = self._cls_fns[key]
+                if kind == "smooth":
+                    yield (key, weight, functools.partial(
+                        label_smoothing_loss, **arg), t, {"valid": valid})
+                else:
+                    yield key, weight, loss_f, torch.where(valid, t, arg), {}
+
+    def denominators(self, targets: dict) -> torch.Tensor:
+        """The heads' unclamped ``[heads]`` denominators over ``targets``'s
+        real segments."""
+        return torch.stack([loss_denominator(fn, t, **kw) for _, _, fn, t, kw
+                            in self._heads(targets)])
+
+    def __call__(self, preds: dict, targets: dict,
+                 denominators: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, dict]:
+        values = {}
+        full_loss = 0.0
+        for i, (key, weight, fn, t, kw) in enumerate(self._heads(targets)):
+            p = preds[key]
+            p = p.reshape((-1,) + tuple(p.shape[2:]))
+            if denominators is not None:
+                kw = dict(kw, denominator=denominators[i])
+            loss = fn(p, t, **kw)
             values[key] = loss
             full_loss = full_loss + weight * loss
         values["loss"] = full_loss

@@ -38,6 +38,13 @@ Post-layer-norm BERT stack with the JAX module's numerics:
   step;
 - module and parameter names follow the flax tree (``layer_0.attention.
   query``...), so ``models/convert.py`` maps one onto the other by name;
+- sequence packing (``data/packing.collate_packed``): ``position_ids``
+  ``[B, L]`` replace the ``arange`` positions (each segment's restart at 0,
+  a fragment's continue at its offset), ``segment_ids`` reach every
+  layer's attention, which then runs the kernels' block-diagonal mode, and
+  with ``segment_starts`` ``[B, S]`` the pooler reads each segment's own
+  first row, giving ``[B, S, H]`` (absent segments read row 0 and are
+  masked downstream);
 - ``remat`` (``--remat``, flax ``nn.remat`` around each ``EncoderLayer``)
   keeps only each layer's input for the backward and recomputes the layer
   there (``torch.utils.checkpoint``). The recompute replays the layer's
@@ -47,6 +54,7 @@ Post-layer-norm BERT stack with the JAX module's numerics:
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -192,23 +200,29 @@ class Embeddings(nn.Module):
 
     def forward(self, input_ids: torch.Tensor, token_type_ids: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                global_rows: GlobalRows = None) -> torch.Tensor:
+                global_rows: GlobalRows = None,
+                position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         L = input_ids.shape[-1]
         if L + cfg.position_offset > cfg.max_position_embeddings:
             # the JAX module's trace-time guard: never a silent clamp of
-            # positions past the table
+            # positions past the table. Packed positions are per segment
+            # (below each segment's length, itself at most L), so the
+            # bound on L covers them
             raise ValueError(
                 f"sequence length {L} (+offset {cfg.position_offset}) "
                 f"exceeds max_position_embeddings="
                 f"{cfg.max_position_embeddings}; widen the position table "
                 f"(--max_position_embeddings) for long-context runs"
             )
-        positions = torch.arange(L, device=input_ids.device) + cfg.position_offset
+        if position_ids is None:
+            positions = torch.arange(L, device=input_ids.device)[None]
+        else:
+            positions = position_ids.long()
         if cfg.type_vocab_size <= 1:
             token_type_ids = torch.zeros_like(token_type_ids)
         x = (self.word_embeddings(input_ids)
-             + self.position_embeddings(positions)[None]
+             + self.position_embeddings(positions + cfg.position_offset)
              + self.token_type_embeddings(token_type_ids))
         return dropout(self.layer_norm(x), cfg.hidden_dropout_prob,
                        self.training, generator, global_rows)
@@ -230,7 +244,8 @@ class SelfAttention(nn.Module):
 
     def forward(self, hidden: torch.Tensor, mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                global_rows: GlobalRows = None) -> torch.Tensor:
+                global_rows: GlobalRows = None,
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         B, L, H = hidden.shape
 
@@ -250,6 +265,7 @@ class SelfAttention(nn.Module):
         ctx = dot_product_attention(
             heads(self.query), heads(self.key), heads(self.value), mask,
             dropout_rate=rate, seed=seed, impl=self.attention_impl,
+            segment_ids=segment_ids,
         )
         out = dropout(self.output(ctx.reshape(B, L, H)),
                       cfg.hidden_dropout_prob, self.training, generator,
@@ -290,8 +306,10 @@ class EncoderLayer(nn.Module):
 
     def forward(self, hidden: torch.Tensor, mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                global_rows: GlobalRows = None) -> torch.Tensor:
-        return self.mlp(self.attention(hidden, mask, generator, global_rows),
+                global_rows: GlobalRows = None,
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.mlp(self.attention(hidden, mask, generator, global_rows,
+                                       segment_ids),
                         generator, global_rows)
 
 
@@ -358,6 +376,9 @@ class TransformerEncoder(nn.Module):
         token_type_ids: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         global_rows: GlobalRows = None,
+        position_ids: Optional[torch.Tensor] = None,
+        segment_ids: Optional[torch.Tensor] = None,
+        segment_starts: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
@@ -365,11 +386,13 @@ class TransformerEncoder(nn.Module):
             token_type_ids = torch.zeros_like(input_ids)
         mask = attention_mask.to(torch.int32)
         hidden = self.embeddings(input_ids, token_type_ids, generator,
-                                 global_rows)
+                                 global_rows, position_ids)
         remat = self.remat and torch.is_grad_enabled()
         for i in range(self.cfg.num_layers):
             layer = getattr(self, f"layer_{i}")
+            if segment_ids is not None:
+                layer = functools.partial(layer, segment_ids=segment_ids)
             hidden = (remat_layer(layer, hidden, mask, generator, global_rows)
                       if remat else layer(hidden, mask, generator, global_rows))
-        pooled = torch.tanh(self.pooler(first_token(hidden)))
+        pooled = torch.tanh(self.pooler(first_token(hidden, segment_starts)))
         return hidden, pooled

@@ -12,6 +12,14 @@ Parameters are f32 master weights; ``dtype`` is the compute dtype.
 training mode every dropout (hidden, attention, classifier) draws from the
 ``generator`` given to :meth:`QAModel.forward`, at the global micro-batch's
 shape when ``global_rows`` is given (see ``models/encoder.py``).
+
+Sequence packing (``segment_starts`` given, with ``segment_ids`` and
+``position_ids`` from ``data/packing.collate_packed``): the trunk runs
+block-diagonal attention and per-segment positions, and every head is per
+segment: span logits ``[B, S, L]`` (segment s's logits keep its own tokens
+and get ``-1e9`` elsewhere), cls and the regressors from each segment's own
+first row, ``[B, S, ...]``. The parameters are the unpacked model's, so a
+checkpoint serves both.
 """
 
 from __future__ import annotations
@@ -59,18 +67,40 @@ class QAModel(nn.Module):
         token_type_ids: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         global_rows: GlobalRows = None,
+        position_ids: Optional[torch.Tensor] = None,
+        segment_ids: Optional[torch.Tensor] = None,
+        segment_starts: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
+        packed = segment_starts is not None
+        if packed and (segment_ids is None or position_ids is None):
+            raise ValueError(
+                "packed inputs need segment_ids AND position_ids alongside "
+                "segment_starts (data/packing.collate_packed emits all "
+                "three)")
         sequence_output, pooled_output = self.transformer(
             input_ids, attention_mask=attention_mask,
             token_type_ids=token_type_ids, generator=generator,
-            global_rows=global_rows)
+            global_rows=global_rows, position_ids=position_ids,
+            segment_ids=segment_ids, segment_starts=segment_starts)
 
         position_logits = self.position_outputs(sequence_output)
         pad_penalty = (1 - attention_mask).to(torch.float32) * _MASK_NEG
         start_logits = position_logits[..., 0].float() + pad_penalty
         end_logits = position_logits[..., 1].float() + pad_penalty
+        if packed:
+            # [B, S, L]: segment s's logits confined to its own tokens; the
+            # pooled output is already [B, S, H] (the encoder's gather)
+            S = segment_starts.shape[1]
+            seg_eq = (segment_ids[:, None, :] == torch.arange(
+                1, S + 1, dtype=segment_ids.dtype,
+                device=segment_ids.device)[None, :, None])
+            seg_penalty = torch.where(
+                seg_eq, torch.zeros((), device=seg_eq.device),
+                torch.full((), _MASK_NEG, device=seg_eq.device))
+            start_logits = start_logits[:, None, :] + seg_penalty
+            end_logits = end_logits[:, None, :] + seg_penalty
 
         cls_hidden = dropout(pooled_output, self.cfg.hidden_dropout_prob,
                              self.training, generator, global_rows)

@@ -23,7 +23,7 @@ The model never writes into a tensor after its codes are taken.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -52,16 +52,32 @@ def row_codes(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return codes
 
 
-def first_token(hidden: torch.Tensor) -> torch.Tensor:
-    """``hidden[:, 0]``, keeping the row codes of those rows when
-    ``hidden`` has them: per-row codes of a slice of rows are the slice of
-    the codes."""
-    cls = hidden[:, 0]
+def _take_rows(t: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``t[b, index[b, s]]`` for a ``[B, L, ...]`` tensor and a ``[B, S]``
+    index: ``[B, S, ...]``."""
+    B, S = index.shape
+    idx = index.long().view(B, S, *([1] * (t.dim() - 2)))
+    return torch.gather(t, 1, idx.expand(B, S, *t.shape[2:]))
+
+
+def first_token(hidden: torch.Tensor,
+                index: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``hidden[:, 0]``, or with a ``[B, S]`` ``index`` (sequence packing:
+    each segment's first row) ``hidden``'s rows at it, ``[B, S, H]``;
+    keeping the row codes of those rows when ``hidden`` has them: per-row
+    codes of a selection of rows are the selection of the codes."""
     codes = getattr(hidden, _CODES, None)
+    if index is None:
+        cls = hidden[:, 0]
+        if codes is not None:
+            with_row_codes(cls, codes[0][:, 0].contiguous(),
+                           codes[1][:, 0].contiguous())
+        return cls
+    rows = _take_rows(hidden, index)
     if codes is not None:
-        with_row_codes(cls, codes[0][:, 0].contiguous(),
-                       codes[1][:, 0].contiguous())
-    return cls
+        with_row_codes(rows, _take_rows(codes[0], index),
+                       _take_rows(codes[1], index))
+    return rows
 
 
 class QuantLinear(nn.Module):

@@ -54,7 +54,10 @@ one process on those global micro-batches
   single-file checkpoints are rank 0's, and a sharded checkpoint is written
   by every process.
 
-The loaders are the JAX package's (bucketed when ``length_buckets``), and
+The loaders are the JAX package's (bucketed when ``length_buckets``;
+packed when ``sequence_packing``, which supersedes the buckets: the loss
+becomes ``PackedWeightedLoss``, each micro-batch's heads are per segment,
+and the epoch meters weigh each step by its real segments), and
 ``device_prefetch`` stages batches onto the device on a background thread
 (``data/device_prefetch.py``). ``test`` runs the eval loop under
 ``torch.inference_mode`` with the callbacks; ``debug`` takes one step per
@@ -69,7 +72,7 @@ synchronous (its barriers must not run beside the step's collectives). Left out 
 ``config.parser.check_train_flags``, or accepted and ignored where they
 change no result): pipeline, tensor and sequence parallelism beyond data
 parallelism (ZeRO-1 is accepted at world size 1, where it is inert), the
-AOT store, telemetry, the watchdog, packing and the HBM pre-flight.
+AOT store, telemetry, the watchdog and the HBM pre-flight.
 """
 
 from __future__ import annotations
@@ -87,6 +90,15 @@ import torch
 from ..data.bucketing import BucketedBatch, BucketedDataLoader, parse_length_buckets
 from ..data.device_prefetch import BatchPlacer, DevicePrefetcher, resolve_depth
 from ..data.loader import DataLoader, ShardedBatchSampler
+from ..data.packing import (
+    DEFAULT_MAX_SEGMENTS,
+    DEFAULT_MIN_FRAGMENT,
+    PackedBatch,
+    PackedDataLoader,
+    parse_pack_splitting,
+    parse_sequence_packing,
+)
+from ..losses import PackedWeightedLoss
 from ..metrics.meters import AverageMeter
 from ..parallel import collectives
 from ..parallel import dist as pdist
@@ -128,8 +140,9 @@ def step_generators(seed: int, step: int, n: int,
 
 def _normalize_batch(batch):
     """Loader item -> ``(inputs, labels, meta)``; ``meta`` is the
-    BucketedBatch on the bucketed path, None on the pad-to-max path."""
-    if isinstance(batch, BucketedBatch):
+    BucketedBatch or PackedBatch on the bucketed or packed path, None on
+    the pad-to-max path."""
+    if isinstance(batch, (BucketedBatch, PackedBatch)):
         return batch.inputs, batch.labels, batch
     inputs, labels = batch[:2]
     return inputs, labels, None
@@ -163,6 +176,10 @@ class Trainer:
         on_train_metrics: Optional[Callable] = None,
         sharded_checkpoint: bool = False,
         async_checkpoint: bool = False,
+        sequence_packing=False,
+        pack_max_segments: int = DEFAULT_MAX_SEGMENTS,
+        pack_splitting="off",
+        pack_min_fragment: int = DEFAULT_MIN_FRAGMENT,
     ):
         self.model = model
         self.device = model.device
@@ -204,8 +221,17 @@ class Trainer:
         shard = dict(process_index=self.process_index, process_count=world)
 
         max_len = getattr(collate_fun, "keywords", {}).get("max_seq_len")
+        self._packing = self._resolve_packing(
+            sequence_packing, pack_splitting, length_buckets)
         self._seq_grid = (parse_length_buckets(length_buckets, max_len)
-                          if length_buckets else None)
+                          if length_buckets and not self._packing else None)
+        if self._packing:
+            # per-segment labels: every head's mean over real segments
+            self.loss = PackedWeightedLoss(loss)
+        pack_kw = dict(max_seq_len=max_len, max_segments=pack_max_segments,
+                       splitting=pack_splitting,
+                       min_fragment=pack_min_fragment, n_jobs=n_jobs)
+        tokenizer = getattr(collate_fun, "keywords", {}).get("tokenizer")
 
         self.train_dataloader = None
         if train_dataset is not None:
@@ -219,7 +245,15 @@ class Trainer:
             sampler = ShardedBatchSampler(
                 len(train_dataset), train_batch_size, shuffle=True,
                 weights=sampler_weights, drop_last=True, seed=seed, **shard)
-            if self._seq_grid is not None:
+            if self._packing:
+                self.train_dataloader = PackedDataLoader(
+                    train_dataset, sampler, tokenizer,
+                    rows_per_batch=train_batch_size, **pack_kw)
+                logger.info("Sequence packing: %d rows x %d tokens per step, "
+                            "max %d segments per row, splitting %s.",
+                            train_batch_size, max_len, pack_max_segments,
+                            self.train_dataloader.splitting)
+            elif self._seq_grid is not None:
                 self.train_dataloader = BucketedDataLoader(
                     train_dataset, sampler, collate_fun,
                     seq_grid=self._seq_grid,
@@ -240,7 +274,11 @@ class Trainer:
             self._test_sampler = ShardedBatchSampler(
                 len(test_dataset), test_batch_size, shuffle=False,
                 drop_last=False, pad_last=True, seed=seed, **shard)
-            if self._seq_grid is not None:
+            if self._packing:
+                self.test_dataloader = PackedDataLoader(
+                    test_dataset, self._test_sampler, tokenizer,
+                    rows_per_batch=test_batch_size, pad_last=True, **pack_kw)
+            elif self._seq_grid is not None:
                 self.test_dataloader = BucketedDataLoader(
                     test_dataset, self._test_sampler, collate_fun,
                     seq_grid=self._seq_grid,
@@ -290,9 +328,38 @@ class Trainer:
                         self.process_index, world, train_batch_size // world,
                         train_batch_size, batch_split)
 
+    def _resolve_packing(self, sequence_packing, pack_splitting,
+                         length_buckets) -> bool:
+        """``sequence_packing`` normalised (the splitting spec checked even
+        when packing is off); packing needs the collate's tokenizer (without
+        one: pad-to-max, with a warning, as in the JAX trainer) and static
+        ``max_seq_len``, and supersedes ``length_buckets``."""
+        parse_pack_splitting(pack_splitting)
+        if not parse_sequence_packing(sequence_packing):
+            return False
+        kw = getattr(self.collate_fun, "keywords", {})
+        if kw.get("tokenizer") is None:
+            logger.warning("sequence_packing needs a tokenizer-bound "
+                           "collate_fun (make_collate_fun); falling back to "
+                           "pad-to-max batching.")
+            return False
+        if kw.get("max_seq_len") is None:
+            raise ValueError("sequence_packing needs the collate's static "
+                             "max_seq_len (make_collate_fun(..., "
+                             "max_seq_len=...))")
+        if self.process_count > 1:
+            logger.info("sequence_packing: multi-process run, the per-epoch "
+                        "pack plan derives from the shared length oracle, "
+                        "each process collates its row slice.")
+        if parse_length_buckets(length_buckets, kw["max_seq_len"]):
+            logger.info("sequence_packing supersedes length_buckets: packed "
+                        "rows are already nearly pad-free, and one shape "
+                        "serves every step.")
+        return True
+
     def _plan_schedule_steps(self) -> Optional[int]:
         loader = self.train_dataloader
-        if not isinstance(loader, BucketedDataLoader):
+        if not isinstance(loader, (BucketedDataLoader, PackedDataLoader)):
             return None
         planned = max(int(loader.planned_epoch_steps(1)), 1)
         upper = len(loader)
@@ -332,9 +399,14 @@ class Trainer:
         return (place(b) for b in loader), None
 
     def _model_inputs(self, inputs: Dict[str, torch.Tensor]) -> dict:
-        return dict(input_ids=inputs["input_ids"].long(),
-                    attention_mask=inputs["attention_mask"],
-                    token_type_ids=inputs["token_type_ids"].long())
+        out = dict(input_ids=inputs["input_ids"].long(),
+                   attention_mask=inputs["attention_mask"],
+                   token_type_ids=inputs["token_type_ids"].long())
+        # a packed batch's planes (data/packing.collate_packed)
+        for key in ("position_ids", "segment_ids", "segment_starts"):
+            if key in inputs:
+                out[key] = inputs[key]
+        return out
 
     # -- the train step --------------------------------------------------------
 
@@ -425,14 +497,18 @@ class Trainer:
         loader = self.train_dataloader
         loader.set_epoch(epoch_i)
         avg_meters: dict = defaultdict(AverageMeter)
-        weighted = isinstance(loader, BucketedDataLoader)
+        packed = isinstance(loader, PackedDataLoader)
+        # steps of varying example counts: each step's mean weighs by its
+        # rows (bucketed) or real segments (packed)
+        weighted = packed or isinstance(loader, BucketedDataLoader)
         batches, prefetcher = self._batches(loader, "device-prefetch")
         last_step = None
         try:
             for placed in batches:
                 t0 = time.perf_counter()
                 tensors = placed.ready()
-                rows = (int(tensors["inputs"]["input_ids"].shape[0])
+                rows = (placed.meta.segments if packed
+                        else int(tensors["inputs"]["input_ids"].shape[0])
                         * self.process_count)   # the global batch's
                 values = self.train_step(tensors["inputs"], tensors["labels"])
                 seconds = time.perf_counter() - t0
@@ -464,8 +540,18 @@ class Trainer:
                 self._update_writer(avg_meters, prefix="train", step=last_step)
                 logger.info("Train epoch %d step %d: %s", epoch_i, last_step,
                             _console_str(avg_meters))
-            if self.is_primary and weighted and loader.epoch_stats:
-                stats = loader.epoch_stats
+            stats = loader.epoch_stats if weighted else None
+            if self.is_primary and stats and packed:
+                logger.info("Packed epoch %d: %d batches, packing efficiency "
+                            "%.2f%% (padding waste %.2f%%; pad-to-max would "
+                            "waste %.2f%%; %d splits in %d fragment rows).",
+                            epoch_i, stats["batches"],
+                            100.0 * stats.get("packing_efficiency", 0.0),
+                            stats.get("padding_waste_pct", 0.0),
+                            stats.get("padmax_waste_pct", 0.0),
+                            stats.get("split_count", 0),
+                            stats.get("fragment_rows", 0))
+            elif self.is_primary and stats:
                 logger.info("Bucketed epoch %d: %d batches, padding waste "
                             "%.2f%% (pad-to-max would be %.2f%%).", epoch_i,
                             stats["batches"],
@@ -505,6 +591,14 @@ class Trainer:
                          collectives.gather_to_host(tree).items()}
                         for tree in (preds, labels))
                 meta = placed.meta
+                if isinstance(meta, PackedBatch):
+                    self._test_packed_batch(preds, labels, meta, avg_meters,
+                                            callbacks)
+                    if self.debug and i >= 10:
+                        logger.info("Test was interrupted because of debug "
+                                    "mode.")
+                        break
+                    continue
                 if meta is not None:
                     n_valid, batch_rows = meta.real_rows, meta.rows
                 else:
@@ -545,6 +639,27 @@ class Trainer:
             logger.info(f"Test metrics after epoch {epoch_i} - "
                         f"{_console_str(metrics)}")
         return metrics
+
+    def _test_packed_batch(self, preds, labels, meta: PackedBatch,
+                           avg_meters: dict, callbacks) -> None:
+        """One packed eval batch: the loss is already a mean over real
+        segments (pad rows carry mask 0), weighted by their count; the
+        callbacks get per-chunk arrays, the ``[rows, S]`` segment planes
+        read out in row-major order through ``segment_mask``."""
+        _, values = self.loss(preds, labels)
+        for k, v in values.items():
+            avg_meters[k].update(float(v), meta.segments)
+        self.eval_batches += 1
+        if callbacks is None:
+            return
+        m = labels["segment_mask"].reshape(-1).cpu().numpy() > 0
+        host_preds = {k: v.float().cpu().numpy() for k, v in preds.items()}
+        host_preds = {k: v.reshape((-1,) + v.shape[2:])[m]
+                      for k, v in host_preds.items()}
+        host_labels = {k: v.cpu().numpy().reshape(-1)[m]
+                       for k, v in labels.items() if k != "segment_mask"}
+        for callback in callbacks:
+            callback.at_iteration_end(host_preds, host_labels, avg_meters)
 
     # -- checkpointing ---------------------------------------------------------
 

@@ -190,6 +190,64 @@ def test_bwd_kernel_matches_plain(cuda, dtype, D, L, segmented, rate):
         assert err <= limit and rel <= BWD_REL_L2, (name, err, rel)
 
 
+def _packed_segment_ids(B, L, seed):
+    """The ``segment_ids`` plane of a ``collate_packed`` batch: items of 30
+    to 400 tokens first-fit into B rows of L, each row's tail padding (id
+    0), and its last row empty: a pad row with no key to attend."""
+    from types import SimpleNamespace
+
+    from ml_recipe_tpu_torch.data.packing import SequencePacker, collate_packed
+
+    rng = np.random.default_rng(seed)
+    packer = SequencePacker(L)
+    rows = []
+    while len(rows) < B - 1:
+        n = int(rng.integers(30, 401))
+        item = SimpleNamespace(input_ids=[2] + [7] * (n - 2) + [3],
+                               start_id=-1, end_id=-1, label_id=0,
+                               start_position=0.0, end_position=0.0)
+        rows += packer.add(item, n)
+    tok = SimpleNamespace(pad_token_id=0, sep_token_id=3, model_name="bert")
+    inputs, _ = collate_packed(rows[:B - 1] + [[]], tok, max_seq_len=L)
+    return torch.from_numpy(inputs["segment_ids"]).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_segmented_kernels_on_a_packed_batch(cuda, dtype, rate):
+    """The segmented pair on a packed batch's own segment ids (the training
+    micro-batch's 512 at 12 heads of 64): forward (out, lse) and backward
+    against the plain versions; the pad positions, tail and empty row, keep
+    a finite output and lse and take exactly zero dq, dk and dv, whatever
+    cotangent reaches them."""
+    B, L, H, D = 8, 512, 12, 64
+    seg = _packed_segment_ids(B, L, seed=7)
+    pad = seg == 0
+    assert pad[:-1].any() and pad[-1].all() and (seg.amax(1)[:-1] > 1).any()
+    q, k, v, _, seeds = _inputs(B, L, H, D, dtype, 11, False)
+    sd = seeds if rate else None
+    kw = dict(rate=rate, segmented=True, want_lse=True)
+    out, lse = fa.fused_attention_cuda(q, k, v, seg, sd, **kw)
+    ref, ref_lse = fa.fused_attention_plain(q, k, v, seg, sd, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL[dtype]
+    assert (lse - ref_lse).abs().max().item() <= LSE_ATOL
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(3),
+                    dtype=torch.float32).cuda().to(dtype)
+    args = (q, k, v, g, ref, ref_lse, seg, sd)
+    got = fa.fused_attention_bwd_cuda(*args, rate=rate, segmented=True)
+    want = fa.fused_attention_bwd_plain(*args, rate=rate, segmented=True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a.float()).all(), name
+        err, limit, rel = _bwd_errors(a, b)
+        assert err <= limit and rel <= BWD_REL_L2, (name, err, rel)
+        assert (a[pad] == 0).all() and (b[pad] == 0).all(), name
+
+
 @pytest.mark.cuda
 def test_function_gives_grad_fn_and_launches_both_kernels(cuda):
     q, k, v, mask, seeds = _inputs(2, 128, 12, 64, torch.bfloat16, 3, False)

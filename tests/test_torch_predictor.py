@@ -418,13 +418,47 @@ def test_train_metrics_refuses_quantize():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--sequence_packing", "on"], ["--pack_splitting", "fill"],
     ["--mesh", "data:2"], ["--mesh", "data:2,model:2"]])
 def test_unported_predict_flags_raise(flag):
     _, (params, model_params) = get_params(
         (get_predictor_parser, get_model_parser), flag)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_predict_flags(params, model_params)
+
+
+@pytest.mark.parametrize("flag,splitting,segments,min_fragment", [
+    (["--sequence_packing", "on"], "off", 8, 32),
+    (["--sequence_packing", "on", "--pack_splitting", "fill",
+      "--pack_max_segments", "3", "--pack_min_fragment", "4"], "fill", 3, 4),
+], ids=["packing", "splitting"])
+def test_packing_predict_flags_are_accepted_and_act(tmp_path, flag, splitting,
+                                                    segments, min_fragment):
+    """Sequence packing is ported: the flags pass the check and reach the
+    Predictor, which packs (its split planner takes the values given)."""
+    _, (params, model_params) = get_params(
+        (get_predictor_parser, get_model_parser),
+        [*flag, "--length_buckets", "auto"])
+    check_predict_flags(params, model_params)
+    vocab = tmp_path / "vocab.txt"
+    vocab.write_text("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]",
+                                "[MASK]", "a", "b"]) + "\n")
+    from ml_recipe_tpu_torch.tokenizer import Tokenizer
+
+    model = QAModel(EncoderConfig(vocab_size=7, hidden_size=8, num_layers=1,
+                                  num_heads=2, intermediate_size=16,
+                                  max_position_embeddings=64), device="cpu")
+    predictor = Predictor(
+        model, collate_fun=init_collate_fun(Tokenizer("bert", str(vocab)),
+                                            max_seq_len=64),
+        length_buckets=params.length_buckets,
+        sequence_packing=params.sequence_packing,
+        pack_max_segments=params.pack_max_segments,
+        pack_splitting=params.pack_splitting,
+        pack_min_fragment=params.pack_min_fragment)
+    assert predictor._packing and predictor._seq_grid is None
+    assert (predictor._pack_splitting, predictor._pack_max_segments,
+            predictor._pack_min_fragment) == (splitting, segments,
+                                              min_fragment)
 
 
 def test_predictor_parser_accepts_the_jax_flags():

@@ -19,7 +19,7 @@ Every input comes from a numpy seed and goes through both packages:
   step; ``drop_optimizer`` restores weights only;
 - the CLI: ``python -m ml_recipe_tpu_torch.cli.train`` on the CPU takes its
   2 debug steps and exits 0; unported flags raise, ``--ln_impl fused|auto``
-  is accepted; an interrupt saves
+  and the packing flags are accepted; an interrupt saves
   ``interrupt.ch``.
 
 Tolerances are f32: both sides compute in float32, in other summation
@@ -67,7 +67,8 @@ from ml_recipe_tpu_torch.data.device_prefetch import (
     resolve_depth,
 )
 from ml_recipe_tpu_torch.data.loader import DataLoaderWorkerError, ShardedBatchSampler
-from ml_recipe_tpu_torch.losses import build_loss
+from ml_recipe_tpu_torch.data.packing import PackedDataLoader
+from ml_recipe_tpu_torch.losses import PackedWeightedLoss, build_loss
 from ml_recipe_tpu_torch.models import (
     EncoderConfig,
     QAModel,
@@ -479,14 +480,39 @@ def test_cli_trains_two_debug_steps_on_the_cpu(tmp_path):
     # async checkpoints, loss scaling, adamod and fine-tune are ported
     # (test_torch_train_options.py): their places hold flags still refused
     ["--trace"],
-    ["--metrics_port", "9100"], ["--sequence_packing", "on"],
-    ["--pack_splitting", "fill"], ["--supervise"], ["--goodput_ledger"],
+    ["--metrics_port", "9100"], ["--supervise"], ["--goodput_ledger"],
 ])
 def test_unported_train_flags_raise(tmp_path, flag):
     _, (params, model_params) = get_params(
         (get_trainer_parser, get_model_parser), _cli_args(tmp_path, *flag))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_train_flags(params, model_params)
+
+
+@pytest.mark.parametrize("flag,splitting,segments,min_fragment", [
+    (["--sequence_packing", "on"], "off", 8, 32),
+    (["--sequence_packing", "on", "--pack_splitting", "fill",
+      "--pack_max_segments", "3", "--pack_min_fragment", "4"], "fill", 3, 4),
+], ids=["packing", "splitting"])
+def test_packing_train_flags_are_accepted_and_act(tmp_path, flag, splitting,
+                                                  segments, min_fragment):
+    """Sequence packing is ported: the flags pass the check and build packed
+    train and test loaders (superseding --length_buckets auto) with the
+    values given, and the packed loss."""
+    _, (params, model_params) = get_params(
+        (get_trainer_parser, get_model_parser), _cli_args(tmp_path, *flag))
+    check_train_flags(params, model_params)
+    trainer = train_cli.build_trainer(params, model_params)
+    train, test = trainer.train_dataloader, trainer.test_dataloader
+    for loader in (train, test):
+        assert isinstance(loader, PackedDataLoader)
+        assert (loader.splitting, loader.max_segments, loader.min_fragment,
+                loader.max_seq_len) == (splitting, segments, min_fragment, 32)
+    assert not train.pad_last and test.pad_last
+    assert isinstance(trainer.loss, PackedWeightedLoss)
+    batch = next(iter(train))
+    assert batch.inputs["segment_starts"].shape == (8, segments)
+    assert batch.labels["segment_mask"].shape == (8, segments)
 
 
 @pytest.mark.parametrize("ln_impl", ["fused", "auto"])

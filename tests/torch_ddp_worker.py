@@ -14,6 +14,9 @@
 - ``trainer_nodrop``: the same with dropout 0, for the comparison with the
   JAX package's two-process ``Trainer`` (``tests/jax_ddp_worker.py``),
   whose dropout streams the port cannot reproduce;
+- ``trainer_packed``: the same with sequence packing (:data:`PACKING`:
+  ``--sequence_packing on --pack_splitting fill``), each rank collating its
+  row slice of every planned global batch of packed rows;
 - ``trainer_fault``: the same with a planted fault, rank 1 skipping the
   gradient all-reduce (:func:`skip_gradient_all_reduce`);
 - ``trainer_options``: the same with ``--optimizer adamod
@@ -122,6 +125,10 @@ class VariedDataset:
 
 # the trainer flags of the options modes
 OPTIONS = dict(optimizer="adamod", apex_loss_scale="dynamic")
+# the Trainer arguments of the packed mode: rows of MAX_SEQ_LEN holding up
+# to 4 items, chunks split to fill holes of 4 tokens and more
+PACKING = dict(sequence_packing="on", pack_splitting="fill",
+               pack_max_segments=4, pack_min_fragment=4)
 
 
 def trainer_params(**options):
@@ -355,13 +362,15 @@ def worker_pairs(*modes, out: Path, device: str = "cpu"):
     return run_pairs(*map(argv_of, modes))
 
 
-def oracle(tmp: Path, record, device: str = "cpu", options: dict = None):
-    """The one-process trainer (with the trainer flags ``options``) on the
-    regrouped global batches of ``record`` (rank 0's and rank 1's local
-    batches): its step values, first-step gradients, eval metrics and
-    parameters."""
+def oracle(tmp: Path, record, device: str = "cpu", options: dict = None,
+           **trainer_kw):
+    """The one-process trainer (with the trainer flags ``options`` and the
+    ``Trainer`` arguments ``trainer_kw``) on the regrouped global batches of
+    ``record`` (rank 0's and rank 1's local batches): its step values,
+    first-step gradients, eval metrics and parameters."""
     (tmp / "oracle").mkdir(parents=True, exist_ok=True)
-    trainer = tiny_trainer(tmp / "oracle", device, options=options)
+    trainer = tiny_trainer(tmp / "oracle", device, options=options,
+                           **trainer_kw)
     values, metrics = [], []
     with first_step_gradients(trainer) as grads:
         for step, (b0, b1) in enumerate(zip(record[0]["batches"],
@@ -399,6 +408,8 @@ def main(argv) -> None:
             run_trainer(Path(out), rank, device)
         elif mode == "trainer_nodrop":
             run_trainer(Path(out), rank, device, dropout=0.0)
+        elif mode == "trainer_packed":
+            run_trainer(Path(out), rank, device, **PACKING)
         elif mode == "trainer_fault":
             if rank == 1:
                 collectives.all_reduce_gradients = skip_gradient_all_reduce
