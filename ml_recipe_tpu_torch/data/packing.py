@@ -196,6 +196,9 @@ DEFAULT_OPEN_ROWS = 32
 # the splitting packer's least fragment, head or tail, in tokens
 DEFAULT_MIN_FRAGMENT = 32
 
+# the packed loader's retries of a failing item read
+READ_RETRIES = 3
+
 
 def parse_sequence_packing(spec) -> bool:
     """``--sequence_packing``: truthy strings and bools -> on; ``off``,
@@ -579,11 +582,9 @@ class PackedDataLoader:
     def __init__(self, dataset, sampler, tokenizer, *, max_seq_len: int,
                  rows_per_batch: int,
                  max_segments: int = DEFAULT_MAX_SEGMENTS,
-                 open_rows: int = DEFAULT_OPEN_ROWS,
                  splitting: str = "off",
                  min_fragment: int = DEFAULT_MIN_FRAGMENT,
-                 n_jobs: int = 4, read_window: Optional[int] = None,
-                 read_retries: int = 3, pad_last: bool = False):
+                 n_jobs: int = 4, pad_last: bool = False):
         self.process_index = int(getattr(sampler, "process_index", 0))
         self.process_count = int(getattr(sampler, "process_count", 1))
         if self.process_count > 1 and rows_per_batch % self.process_count:
@@ -597,13 +598,9 @@ class PackedDataLoader:
         self.max_seq_len = int(max_seq_len)
         self.rows_per_batch = max(1, int(rows_per_batch))
         self.max_segments = max(1, int(max_segments))
-        self.open_rows = max(1, int(open_rows))
         self.splitting = parse_pack_splitting(splitting)
         self.min_fragment = max(1, int(min_fragment))
         self.n_jobs = max(1, n_jobs)
-        self.read_window = (int(read_window) if read_window is not None
-                            else self.n_jobs * 8)
-        self.read_retries = max(0, read_retries)
         self.pad_last = pad_last
         self._epoch = 0
         self._last_stats: Optional[dict] = None
@@ -624,7 +621,7 @@ class PackedDataLoader:
         plan and the step simulation replay one plan."""
         return SequencePacker(
             self.max_seq_len, max_segments=self.max_segments,
-            open_rows=self.open_rows, splitting=self.splitting,
+            splitting=self.splitting,
             min_fragment=self.min_fragment)
 
     def planned_epoch_steps(self, epoch: int) -> int:
@@ -643,7 +640,7 @@ class PackedDataLoader:
 
         rows = plan_scaled_count(
             self.dataset, self.sampler, epoch, cache=self._len_cache,
-            n_jobs=self.n_jobs, read_retries=self.read_retries,
+            n_jobs=self.n_jobs, read_retries=READ_RETRIES,
             simulate=simulate, oracle=self.process_count > 1, meta=True)
         if self.pad_last:
             return -(-rows // self.rows_per_batch)
@@ -717,7 +714,7 @@ class PackedDataLoader:
         self._last_stats = stats = self._new_stats()
         metas = oracle_epoch_meta(
             self.dataset, indices, cache=self._len_cache, n_jobs=self.n_jobs,
-            read_retries=self.read_retries, epoch=self._epoch)
+            read_retries=READ_RETRIES, epoch=self._epoch)
         packer = self._make_packer()
         # rows of (index, length) pairs and fragments whose item is a pair
         rows: List[list] = []
@@ -761,7 +758,7 @@ class PackedDataLoader:
                 if idx not in futures:
                     futures[idx] = pool.submit(
                         oracle_read, self.dataset, idx,
-                        retries=self.read_retries, epoch=ek)
+                        retries=READ_RETRIES, epoch=ek)
                 return futures[idx]
 
             return [[read(e) for e in row] for row in local_slice(batch_rows)]
@@ -813,11 +810,12 @@ class PackedDataLoader:
             with ThreadPoolExecutor(max_workers=self.n_jobs) as pool:
                 def read(i):
                     return read_with_retry(self.dataset, i,
-                                           retries=self.read_retries)
+                                           retries=READ_RETRIES)
 
+                window = self.n_jobs * 8
                 futures: deque = deque(pool.submit(read, idx)
-                                       for idx in indices[:self.read_window])
-                rest = iter(indices[self.read_window:])
+                                       for idx in indices[:window])
+                rest = iter(indices[window:])
                 while futures:
                     # submission order: row assignment follows the epoch's
                     item = futures.popleft().result()
