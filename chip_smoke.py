@@ -199,7 +199,33 @@ Phases, each fatal on failure (exit code 1, and no result line):
     kernel against plain as validate ran them, and again with dropout 0.1,
     kernel and plain both against the plain version in f32 (TRUTH_RATIO).
     The packed run's LR plan replays phase 10's item metas (the same
-    corpus, sampler and seed) instead of tokenizing the items again.
+    corpus, sampler and seed) instead of tokenizing the items again;
+15. sequence parallelism and ZeRO-1: the script starts itself again as
+    two ranks of ``cli.train`` (``--sp-worker``, gloo on the card):
+    ``config/longdoc.cfg --dummy_dataset --debug --seed 7`` (bert-base,
+    ``mesh=data:1,seq:2``, 8192 tokens, ``--remat``, dropout 0.1: each
+    rank holds 2x4096 of every 2x8192 micro-batch, every attention a ring
+    over the two ranks whose hops stage through pinned host buffers).
+    Counts zeroed just before and read just after: 2 forward launches a
+    ring call (twice a layer and micro-batch under remat, once a layer
+    and eval batch), 2 backward a layer and micro-batch, and the hops
+    counted (1 a forward ring call, 2 a backward); the ranks' losses and
+    weights equal. The same run in this process at ``--mesh data:1`` (one
+    2x8192 call a layer): the step-1 loss within SP_LOSS_REL_TOL and the
+    gradient at the clip within SP_GRAD_REL_TOL of the ring's. Every hop
+    of the ring calls captured at the first and the last layer of both
+    ranks (rows and columns at bases 0 or 4096, ``L_hash`` 8192), kernel
+    and plain against the f32 plain version (TRUTH_RATIO), forward and
+    backward on the merged output and lse; the hops merged equal the
+    ring's training output bit for bit, and within ATOL of one kernel
+    call over all 8192; one hop timed beside its bound, plain and sdpa.
+    Then ``config/long_context.cfg --dummy_dataset --debug --seed 0
+    --dist_world_size 2`` as two ranks with its ZeRO-1 and as two with
+    ``--optimizer_sharding off``, all four at once (cuBLAS's
+    deterministic workspace): launch counts, the optimizer bytes each
+    rank holds (zero1: at most half of the whole), the parameters after
+    both runs bit-identical, and the zero1 run's sharded checkpoint
+    reloaded in this process (weights and every moment equal).
 
 It then prints one ``{"kernels": [...]}`` line (the attention kernels'
 lines carry the tensor-core kernels' resources and every timed shape's
@@ -3420,15 +3446,15 @@ def _spawn(args, log: Path):
             cwd=str(REPO), stdout=fh, stderr=subprocess.STDOUT)
 
 
-def _join(procs, deadline: float) -> None:
+def _join(procs, deadline: float, what: str = "data parallel") -> None:
     for name, (proc, log) in procs.items():
         try:
             rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
         except subprocess.TimeoutExpired:
-            fail(f"data parallel: {name} outlived its deadline; its log ends "
+            fail(f"{what}: {name} outlived its deadline; its log ends "
                  f"{log.read_text()[-3000:]}")
         if rc != 0:
-            fail(f"data parallel: {name} exited {rc}; its log ends "
+            fail(f"{what}: {name} exited {rc}; its log ends "
                  f"{log.read_text()[-3000:]}")
 
 
@@ -4227,6 +4253,501 @@ def phase_fleet_int8(torch):
     return launched
 
 
+# -- phase 15: sequence parallelism and ZeRO-1 -----------------------------------
+
+SP_DIR = OUT_DIR / "sp"
+SP_DEADLINE_S = 900
+SP_WORLD = 2
+LONGDOC = ["-c", str(REPO / "config" / "longdoc.cfg"), "--dummy_dataset",
+           "--debug", "--seed", "7"]
+ZERO1 = ["-c", str(REPO / "config" / "long_context.cfg"), "--dummy_dataset",
+         "--debug", "--seed", "0"]
+# the runs of phase 15's worker processes: longdoc.cfg as written (its
+# mesh data:1,seq:2), and long_context.cfg at W = 2 with its zero1 and off.
+# The seeds make the two ranks and the runs compared draw the same items
+SP_RUNS = {"longdoc": LONGDOC, "zero1": ZERO1,
+           "off": [*ZERO1, "--optimizer_sharding", "off"]}
+# seq:2 against seq:1 (the same items, seeds and weights): the first step's
+# loss and its gradient where it reaches the clip, relative. Both runs
+# compute in bf16, and the ring rounds each hop's attention output and
+# gradients to bf16 before it merges them in f32 where one call rounds
+# once: attention outputs that differ by bf16 rounding at different
+# points, which 12 post-LN layers carry into every gradient, as phase 4's
+# kernel-vs-plain gradient (TRAIN_GRAD_REL_TOL). The port's bert-tiny run
+# on the CPU in bf16 (2 layers, 2x256) read 4.7e-4 for the loss and
+# 6.1e-3 for the gradient; a loss counted once per seq rank doubles the
+# gradient (1.0), and a missed hop or another dropout mask moves both by
+# O(1)
+SP_LOSS_REL_TOL = 5e-3
+SP_GRAD_REL_TOL = TRAIN_GRAD_REL_TOL
+
+
+def sp_worker(kind: str, rank: int, port: int) -> int:
+    """One rank of phase 15's runs (``SP_RUNS[kind]``) through
+    ``cli.train``'s parse, ``build_trainer`` and ``train``, on card 0 over
+    gloo (NCCL refuses two ranks on one device), the launch counts and the
+    ring's transport counters set to 0 just before ``train`` and read just
+    after. ``longdoc`` also keeps the ring calls of the first micro-batch's
+    forward at the first and the last layer, and rank 0's first gradient
+    at the clip; ``zero1`` writes a sharded
+    checkpoint after the run. The long_context runs compare bit for bit:
+    they run with cuBLAS's deterministic workspace and
+    ``use_deterministic_algorithms`` (warn only)."""
+    if kind != "longdoc":
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+
+    from ml_recipe_tpu_torch.cli import train as train_cli
+    from ml_recipe_tpu_torch.config.parser import (
+        get_model_parser, get_params, get_trainer_parser)
+    from ml_recipe_tpu_torch.ops import ring_attention as ra
+    from ml_recipe_tpu_torch.parallel import dist as pdist
+    from ml_recipe_tpu_torch.parallel.sharding import opt_state_bytes_per_chip
+
+    if kind != "longdoc":
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr)
+    _register_kernels()
+    out = SP_DIR / kind
+    out.mkdir(parents=True, exist_ok=True)
+    torch.cuda.set_device(0)
+    pdist.initialize_distributed(
+        init_method=f"tcp://127.0.0.1:{port}", world_size=SP_WORLD,
+        rank=rank, backend="gloo", device=torch.device("cuda", 0))
+    first, captured = {}, []
+    _capture_pre_clip_grads(torch, first)
+    ring = ra.ring_attention
+    calls, capture = [0], set()   # capture: the layers, once built
+
+    def capturing(q, k, v, mask=None, **kw):
+        got = ring(q, k, v, mask, **kw)
+        if calls[0] in capture:
+            captured.append(dict(
+                layer=calls[0], q=q.detach().clone(), k=k.detach().clone(),
+                v=v.detach().clone(), mask=mask.detach().clone(),
+                seed=kw["seed"].detach().clone(), rate=kw["rate"],
+                out=got.detach().clone()))
+        calls[0] += 1
+        return got
+
+    ra.ring_attention = capturing
+    try:
+        _, (params, model_params) = get_params(
+            (get_trainer_parser, get_model_parser),
+            [*SP_RUNS[kind], "--vocab_file", str(OUT_DIR / "vocab.txt"),
+             "--dump_dir", str(out / "results"), "--dist_world_size",
+             str(SP_WORLD), "--local_rank", str(rank), "--dist_init_method",
+             f"tcp://127.0.0.1:{port}"])
+        params.n_jobs = max(1, min(params.n_jobs, (os.cpu_count() or 2) // 4))
+        trainer = train_cli.build_trainer(params, model_params)
+        capture.update((0, trainer.model.cfg.num_layers - 1))
+        ring_stats = {}
+        if trainer.mesh.ring is not None:
+            trainer.mesh.ring.reset()
+            ring_stats = trainer.mesh.ring.stats
+        zero_counts()               # the main path starts here
+        t0 = time.perf_counter()
+        train_cli.train(trainer, params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()         # the main path ends here
+        record = {
+            "launched": launched, "wall": wall, "ring": ring_stats,
+            "steps": [{k: h[k] for k in ("loss", "lr", "seconds", "rows")}
+                      for h in trainer.history],
+            "eval_batches": trainer.eval_batches,
+            "batch_split": trainer.batch_split,
+            "layers": trainer.model.cfg.num_layers,
+            "attention_impl": trainer.model.attention_impl,
+            "mesh": trainer.plan.describe(),
+            "opt_sharding": trainer.effective_opt_sharding,
+            "opt_bytes": opt_state_bytes_per_chip(trainer.optimizer),
+            "grad_norm": float(first["grads"].norm()),
+            "micro_shape": [params.train_batch_size // trainer.plan.data_size
+                            // trainer.batch_split,
+                            params.max_seq_len // trainer.plan.seq_size],
+        }
+        if kind == "zero1":
+            trainer.debug = False
+            t0 = time.perf_counter()
+            trainer.save_state_dict(out / "ckpt")
+            record["save_seconds"] = time.perf_counter() - t0
+        record["digest"] = _param_digest(trainer.model)
+        if kind == "longdoc":
+            torch.save(captured, out / f"capture{rank}.pt")
+            if rank == 0:
+                torch.save(first["grads"], out / "grads.pt")
+        (out / f"rank{rank}.json").write_text(json.dumps(record))
+    finally:
+        ra.ring_attention = ring
+        pdist.shutdown()
+    return 0
+
+
+def _sp_pair(kind: str) -> dict:
+    port = _free_port()
+    return {f"{kind} rank {r}": (
+        _spawn(["--sp-worker", kind, r, port], SP_DIR / f"{kind}{r}.log"),
+        SP_DIR / f"{kind}{r}.log") for r in range(SP_WORLD)}
+
+
+@contextmanager
+def _pre_clip_grads(torch, store: dict):
+    """:func:`_capture_pre_clip_grads` in this process, undone on exit."""
+    from ml_recipe_tpu_torch.train import trainer as trainer_module
+
+    clip = trainer_module.clip_by_global_norm_
+    _capture_pre_clip_grads(torch, store)
+    try:
+        yield store
+    finally:
+        trainer_module.clip_by_global_norm_ = clip
+
+
+def _hold_ring_hops(torch, fa, bw, flops):
+    """Phase 15b: every hop of the captured ring calls (both ranks, the
+    first and the last layer), kernel and plain in bf16 against the plain version in f32
+    (TRUTH_RATIO), forward (out, and the lse within LSE_ATOL) at its
+    ``base`` and ``L_hash``, and backward on the merged output and lse
+    with a seeded random cotangent; the hops merged as the ring merges
+    them equal the output the ring returned in training bit for bit, and
+    the merged output is held against one whole-sequence kernel call.
+    Then one hop's forward and backward timed at 2x4096 with bases.
+    Returns the largest errors and the timings."""
+    from ml_recipe_tpu_torch.ops.ring_attention import (
+        _merge_hop, _stream_row_seeds)
+
+    caps = [torch.load(SP_DIR / "longdoc" / f"capture{r}.pt",
+                       map_location="cuda") for r in range(SP_WORLD)]
+    S = SP_WORLD
+
+    def rel(a, t):
+        return ((a.float() - t).norm() / t.norm()).item()
+
+    ratio, lse_errs, fwd_errs, bwd_errs, merged_errs = 0.0, [], [], [], []
+    exact, hops = True, 0
+    g_gen = torch.Generator(device="cuda").manual_seed(15)
+    for i in range(len(caps[0])):
+        calls = [c[i] for c in caps]
+        B, L_loc, Hh, _ = calls[0]["q"].shape
+        L_hash, rate = S * L_loc, calls[0]["rate"]
+        seeds = _stream_row_seeds(calls[0]["seed"], B=B, H=Hh,
+                                  data_index=0).cuda()
+        per_rank = []
+        for r in range(S):
+            q, q32 = calls[r]["q"], calls[r]["q"].float()
+            # the ring's own accumulators: zeros and -1e30 before hop 0
+            merged = {key: (torch.zeros(q.shape, dtype=torch.float32,
+                                        device="cuda"),
+                            torch.full((B, Hh, L_loc), fa.NEG_INF,
+                                       device="cuda"))
+                      for key in ("kernel", "truth")}
+            hop_args = []
+            for step in range(S):
+                src = (r - step) % S
+                k, v, m = (calls[src][n] for n in ("k", "v", "mask"))
+                kw = dict(base=(r * L_loc, src * L_loc), L_hash=L_hash)
+                m = m.to(torch.int32).contiguous()
+                rest = (m, seeds, rate, False, True)
+                out, lse = fa.fused_attention_cuda(q, k, v, *rest, **kw)
+                ref, ref_lse = fa.fused_attention_plain(q, k, v, *rest, **kw)
+                t, t_lse = fa.fused_attention_plain(q32, k.float(), v.float(),
+                                                    *rest, **kw)
+                ratio = max(ratio, rel(out, t) / max(rel(ref, t), 1e-12))
+                lse_errs.append((lse - ref_lse).abs().max().item())
+                fwd_errs.append((out.float() - ref.float()).abs().max().item())
+                for key, o, l in (("kernel", out, lse), ("truth", t, t_lse)):
+                    merged[key] = _merge_hop(*merged[key], o, l)
+                hop_args.append((k, v, m, kw))
+                hops += 1
+            m_out = merged["kernel"][0].to(q.dtype)
+            exact &= bool(torch.equal(m_out, calls[r]["out"]))
+            t_out, t_lse = merged["truth"]
+            g = torch.randn(q.shape, generator=g_gen, device="cuda",
+                            dtype=torch.float32).to(q.dtype)
+            for k, v, m, kw in hop_args:
+                bargs = (g, m_out, merged["kernel"][1], m, seeds, rate, False)
+                got = fa.fused_attention_bwd_cuda(q, k, v, *bargs, **kw)
+                want = fa.fused_attention_bwd_plain(q, k, v, *bargs, **kw)
+                truth = fa.fused_attention_bwd_plain(
+                    q32, k.float(), v.float(), g.float(), t_out, t_lse, m,
+                    seeds, rate, False, **kw)
+                for a, b, x in zip(got, want, truth):
+                    ratio = max(ratio, rel(a, x) / max(rel(b, x), 1e-12))
+                bwd_errs.append(max((a.float() - b.float()).abs().max().item()
+                                    for a, b in zip(got, want)))
+                del got, want, truth
+            per_rank.append(m_out)
+            del t_out, t_lse, merged
+            torch.cuda.empty_cache()
+        # the merged ring output against one kernel call over all 8192
+        whole = [torch.cat([c[n] for c in calls], dim=1).contiguous()
+                 for n in ("q", "k", "v", "mask")]
+        one = fa.fused_attention_cuda(
+            *whole[:3], whole[3].to(torch.int32).contiguous(), seeds, rate)
+        merged_errs.append((torch.cat(per_rank, dim=1).float()
+                            - one.float()).abs().max().item())
+        del whole, one, per_rank
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    say(f"ring hops: {hops} hops of the captured calls (layers "
+        f"{[c['layer'] for c in caps[0]]} of both ranks, {B}x{L_loc}x{Hh}x64 bf16, rate "
+        f"{rate:g}, bases (row, col) in {{0, {L_loc}}}, L_hash {L_hash}), "
+        f"kernel and plain in bf16 against plain in f32: the kernel's "
+        f"relative L2 error at most {ratio:.4f}x the plain version's over "
+        f"out, dq, dk, dv (limit {TRUTH_RATIO:g}); lse {max(lse_errs):.3e} "
+        f"(tol {LSE_ATOL:g}); kernel vs plain max_abs_err forward "
+        f"{max(fwd_errs):.3e}, backward {max(bwd_errs):.3e} (recorded); the "
+        f"hops merged equal the ring's training output bit for bit: {exact}; "
+        f"merged against one whole-sequence kernel call at {L_hash}: "
+        f"max_abs_err {[f'{e:.3e}' for e in merged_errs]} (tol "
+        f"{ATOL['bf16']:g})")
+    if ratio > TRUTH_RATIO or max(lse_errs) > LSE_ATOL:
+        fail("a ring hop's kernel strays from the f32 function further than "
+             "plain")
+    if not exact:
+        fail("the captured hops merged do not reproduce the ring's output")
+    if max(merged_errs) > ATOL["bf16"]:
+        fail("the merged ring output disagrees with one whole-sequence call")
+
+    # one hop timed at its training shape: rank 1's rows against rank 0's
+    # block (base (4096, 0)), key mask and dropout
+    import torch.nn.functional as F
+
+    c0, c1 = caps[0][0], caps[1][0]
+    q, k, v = c1["q"], c0["k"], c0["v"]
+    m = c0["mask"].to(torch.int32).contiguous()
+    kw = dict(base=(L_loc, 0), L_hash=L_hash)
+    elems = q.numel() * q.element_size()
+    g = torch.randn(q.shape, generator=g_gen, device="cuda",
+                    dtype=torch.float32).to(q.dtype)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    bool_mask = (m > 0)[:, None, None, :]
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bool_mask,
+                                              dropout_p=rate)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), g.transpose(1, 2))
+
+    with torch.no_grad():
+        sdpa_fwd_ms = time_ms(torch, sdpa_fwd)
+    fwd = dict(
+        ms=time_ms(torch, lambda: fa.fused_attention_cuda(
+            q, k, v, m, seeds, rate, False, True, **kw)),
+        plain_ms=time_ms(torch, lambda: fa.fused_attention_plain(
+            q, k, v, m, seeds, rate, False, True, **kw), reps=3),
+        library_ms=sdpa_fwd_ms)
+    fwd["bound_ms"], fwd["bound_by"] = _bound(
+        4 * elems + m.numel() * 4 + B * 4 + B * Hh * L_loc * 4,
+        4 * B * Hh * L_loc * L_loc * q.shape[3], bw, flops)
+    out, lse = fa.fused_attention_cuda(q, k, v, m, seeds, rate, False, True,
+                                       **kw)
+    args = (q, k, v, g, out, lse, m, seeds, rate, False)
+    bwd = dict(
+        ms=time_ms(torch, lambda: fa.fused_attention_bwd_cuda(*args, **kw)),
+        plain_ms=time_ms(torch, lambda: fa.fused_attention_bwd_plain(
+            *args, **kw), reps=3),
+        library_ms=time_ms(torch, sdpa_fwd_bwd) - sdpa_fwd_ms)
+    bwd["bound_ms"], bwd["bound_by"] = _bound(
+        8 * elems + B * Hh * L_loc * 4 + m.numel() * 4 + B * 4,
+        10 * B * Hh * L_loc * L_loc * q.shape[3], bw, flops)
+    for name, t in (("fused_attention_fwd", fwd), ("fused_attention_bwd", bwd)):
+        say(f"timing {name} ring hop {B}x{L_loc}x{Hh}x64 bf16 (rate "
+            f"{rate:g}, base {kw['base']}, L_hash {L_hash}): kernel_ms="
+            f"{t['ms']:.4f} plain_ms={t['plain_ms']:.4f} library_ms(sdpa"
+            f"{' backward, fwd+bwd minus fwd' if name.endswith('bwd') else ''}"
+            f", its own dropout stream)={t['library_ms']:.4f} bound_ms="
+            f"{t['bound_ms']:.4f} ({t['bound_by']})")
+    del caps, q, k, v, g, out, lse, args, qt, kt, vt
+    torch.cuda.empty_cache()
+    return dict(fwd_err=max(fwd_errs), bwd_err=max(bwd_errs),
+                merged_err=max(merged_errs), fwd=fwd, bwd=bwd,
+                shape=f"{B}x{L_loc}x{Hh}x64")
+
+
+def _sp_records(kind: str) -> list:
+    return [json.loads((SP_DIR / kind / f"rank{r}.json").read_text())
+            for r in range(SP_WORLD)]
+
+
+def _reload_zero1_at_one_process(torch, digest: str):
+    """Phase 15c: the zero1 run's sharded checkpoint into a one-process
+    trainer of the same cfg (``data:1``, the optimizer kept): the weights
+    are the run's (digest), and every moment is the checkpoint's."""
+    from ml_recipe_tpu_torch.cli import train as train_cli
+    from ml_recipe_tpu_torch.models.convert import from_jax_params
+    from ml_recipe_tpu_torch.train.checkpoint import read_state
+
+    path = SP_DIR / "zero1" / "ckpt"
+    params, model_params = _train_flags(REPO / "config" / "long_context.cfg",
+                                        ZERO1[2:])
+    trainer = train_cli.build_trainer(params, model_params)
+    trainer.drop_optimizer = False
+    t0 = time.perf_counter()
+    trainer.load_state_dict(path)
+    seconds = time.perf_counter() - t0
+    state = read_state(path)
+    manifest = json.dumps(state.get("mesh_axes")), state.get("opt_sharding")
+    same = _param_digest(trainer.model) == digest
+    saved = trainer.optimizer.flax_state()
+    moments_equal = True
+    for key in ("mu", "nu"):
+        want = from_jax_params(state["optimizer"]["0"]["0"][key])
+        got = from_jax_params(saved["0"]["0"][key])
+        moments_equal &= all(torch.equal(got[n], want[n]) for n in want)
+    say(f"ZeRO-1: the zero1 run's sharded checkpoint ({manifest[1]}, "
+        f"mesh_axes {manifest[0]}) reloaded in one process in "
+        f"{seconds:.1f}s: weights equal the run's: {same}; every adam moment "
+        f"equal to the checkpoint's: {moments_equal}; global step "
+        f"{trainer.global_step}")
+    if manifest[1] != "zero1" or not same or not moments_equal:
+        fail("the zero1 sharded checkpoint did not reload at W = 1")
+    del trainer, saved, state
+    torch.cuda.empty_cache()
+
+
+def phase_sequence_parallel(torch, fa, bw, flops):
+    """Phase 15: config/longdoc.cfg as two ranks on the card (ring
+    attention over ``seq:2``) against one process at ``data:1``, every
+    captured hop against plain, and config/long_context.cfg at W = 2 with
+    ZeRO-1 against the same with the optimizer whole. Returns the launch
+    counts by path and the hop's timings."""
+    import shutil
+
+    shutil.rmtree(SP_DIR, ignore_errors=True)
+    SP_DIR.mkdir(parents=True)
+    deadline = time.monotonic() + SP_DEADLINE_S
+    t_phase = time.perf_counter()
+    procs = {}
+    try:
+        procs = _sp_pair("longdoc")
+        _join(procs, deadline, "sequence parallel")
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    ranks = _sp_records("longdoc")
+    r0 = ranks[0]
+    S, layers, split = SP_WORLD, r0["layers"], r0["batch_split"]
+    micro, evals = len(r0["steps"]) * split, r0["eval_batches"]
+    # per ring call S hop launches; remat runs each layer's forward twice
+    want = {"fused_attention_fwd": layers * S * (2 * micro + evals),
+            "fused_attention_bwd": layers * S * micro,
+            "layer_norm_fwd": 0, "layer_norm_bwd": 0, "q8_matmul": 0,
+            "q8_quantize": 0}
+    for r, rec in enumerate(ranks):
+        ring = rec["ring"]
+        say(f"longdoc seq:2 rank {r} ({rec['mesh']}, attention "
+            f"{rec['attention_impl']}, gloo on the card): {len(rec['steps'])} "
+            f"steps of {split} micro-batches of {rec['micro_shape'][0]}x"
+            f"{rec['micro_shape'][1]} per rank + {evals} eval batches in "
+            f"{rec['wall']:.1f}s; step walls "
+            f"{[round(s['seconds'], 2) for s in rec['steps']]} s; losses "
+            f"{[round(s['loss'], 5) for s in rec['steps']]}; ring: "
+            f"{ring['hops']} hops, {ring['bytes'] / 1e9:.2f} GB sent, "
+            f"{ring['staged_bytes'] / 1e9:.2f} GB staged through pinned host "
+            f"buffers, {ring['seconds']:.2f} s in hops; launch counts "
+            f"{rec['launched']}, expected {want}")
+    if r0["mesh"] != {"data": 1, "seq": 2} or r0["attention_impl"] != "ring":
+        fail("the longdoc run is not ring attention over data:1,seq:2")
+    if any(rec["launched"] != want for rec in ranks):
+        fail("launch counts do not match the ring's training path")
+    hops = layers * (4 * micro + evals)
+    if any(rec["ring"]["hops"] != hops or rec["ring"]["staged_bytes"] <= 0
+           for rec in ranks):
+        fail(f"the ring did not take its {hops} staged hops per rank")
+    if any([s["loss"] for s in rec["steps"]] != [s["loss"] for s in
+                                                 r0["steps"]]
+           or rec["digest"] != r0["digest"] for rec in ranks):
+        fail("the ranks of the seq group logged other losses or ended "
+             "with other weights")
+    if not all(np.isfinite(s["loss"]) for s in r0["steps"]):
+        fail("a longdoc loss is not finite")
+
+    # the same run in one process: data:1, the streaming kernels at 8192
+    store = {}
+    with _pre_clip_grads(torch, store):
+        trainer, _, one, one_wall = _run_training(
+            torch, "longdoc.cfg", [*LONGDOC[2:], "--mesh", "data:1"])
+    one_steps = [(h["loss"], h["seconds"]) for h in trainer.history]
+    want1 = {k: v // S for k, v in want.items()}
+    del trainer
+    torch.cuda.empty_cache()
+    grads = torch.load(SP_DIR / "longdoc" / "grads.pt")
+    rel = float((grads - store["grads"]).norm() / store["grads"].norm())
+    loss, loss1 = r0["steps"][0]["loss"], one_steps[0][0]
+    loss_rel = abs(loss - loss1) / abs(loss1)
+    norm1 = float(store["grads"].norm())
+    say(f"longdoc seq:1 (one process, data:1, {r0['micro_shape'][0]}x"
+        f"{S * r0['micro_shape'][1]} micro-batches): "
+        f"{one_wall:.1f}s, step walls {[round(s, 2) for _, s in one_steps]} "
+        f"s, losses {[round(l, 5) for l, _ in one_steps]}; launch counts "
+        f"{one}, expected {want1}; step 1 seq:2 against seq:1: loss {loss!r} "
+        f"against {loss1!r}, relative {loss_rel:.3e} (tol "
+        f"{SP_LOSS_REL_TOL:g}); gradient at the clip global norm "
+        f"{r0['grad_norm']:.6g} against {norm1:.6g}, relative L2 {rel:.3e} "
+        f"(tol {SP_GRAD_REL_TOL:g})")
+    if one != want1:
+        fail("launch counts do not match the one-process longdoc path")
+    if not (np.isfinite(loss_rel) and loss_rel <= SP_LOSS_REL_TOL):
+        fail("the seq:2 step-1 loss disagrees with seq:1")
+    if not (np.isfinite(rel) and rel <= SP_GRAD_REL_TOL):
+        fail("the seq:2 step-1 gradient disagrees with seq:1")
+    del grads, store
+    hop = _hold_ring_hops(torch, fa, bw, flops)
+
+    # ZeRO-1: long_context.cfg at W = 2, zero1 (the cfg's) and off together
+    procs = {}
+    try:
+        procs = {**_sp_pair("zero1"), **_sp_pair("off")}
+        _join(procs, deadline, "ZeRO-1")
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    zero, off = _sp_records("zero1"), _sp_records("off")
+    whole = off[0]["opt_bytes"]      # off keeps every moment whole
+    zmicro = len(zero[0]["steps"]) * zero[0]["batch_split"]
+    zwant = {"fused_attention_fwd": layers * (zmicro + zero[0]["eval_batches"]),
+             "fused_attention_bwd": layers * zmicro, "layer_norm_fwd": 0,
+             "layer_norm_bwd": 0, "q8_matmul": 0, "q8_quantize": 0}
+    for kind, recs in (("zero1", zero), ("off", off)):
+        for r, rec in enumerate(recs):
+            say(f"long_context W=2 {kind} rank {r} ({rec['opt_sharding']}, "
+                f"{rec['mesh']}): {rec['wall']:.1f}s, step walls "
+                f"{[round(s['seconds'], 2) for s in rec['steps']]} s, losses "
+                f"{[round(s['loss'], 5) for s in rec['steps']]}; optimizer "
+                f"state {rec['opt_bytes'] / 1e6:.1f} MB on this rank (whole: "
+                f"{whole / 1e6:.1f} MB); launch counts "
+                f"{rec['launched']}, expected {zwant}")
+    same = len({rec["digest"] for rec in zero + off}) == 1
+    say(f"ZeRO-1: parameters after the zero1 and off runs bit-identical: "
+        f"{same}; losses equal: "
+        f"{[s['loss'] for s in zero[0]['steps']] == [s['loss'] for s in off[0]['steps']]}; "
+        f"sharded save {zero[0]['save_seconds']:.1f}s")
+    if any(rec["launched"] != zwant for rec in zero + off):
+        fail("launch counts do not match the long_context W = 2 path")
+    if [r["opt_sharding"] for r in zero + off] != ["zero1"] * 2 + ["off"] * 2:
+        fail("the zero1 run did not shard its optimizer state, or off did")
+    if not all(2 * rec["opt_bytes"] <= whole * 1.01 for rec in zero):
+        fail("a zero1 rank holds more than half the optimizer state")
+    if not same:
+        fail("zero1 and off ended with other parameters")
+    _reload_zero1_at_one_process(torch, zero[0]["digest"])
+    say(f"phase 15 wall {time.perf_counter() - t_phase:.1f}s")
+    return dict(longdoc={k: sum(rec["launched"][k] for rec in ranks)
+                         for k in r0["launched"]},
+                one=one, zero1={k: sum(rec["launched"][k]
+                                       for rec in zero + off)
+                                for k in zero[0]["launched"]},
+                hop=hop)
+
+
 def main() -> int:
     try:
         import torch
@@ -4310,6 +4831,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     packed = phase_packed_training(torch, nq, nq_train)
     packed_val = phase_packed_validate(torch, nq, packed.ckpt)
+    torch.cuda.empty_cache()
+    sp = phase_sequence_parallel(torch, fa, bw, flops)
     nq_fwd = {"nq training": nq_train.launched["fused_attention_fwd"],
               "validate": nq_val.launched["fused_attention_fwd"],
               "validate int8": nq_val8.launched["fused_attention_fwd"],
@@ -4354,6 +4877,10 @@ def main() -> int:
                        for (B, L), t in long_t.items()})
     fwd_shapes["32x512 segmented"] = by_shape(
         packed.fwd, "segmented, rate 0.1, lse (the packed micro-batch's ids)")
+    hop_config = ("ring hop: base (4096, 0), L_hash 8192, rate 0.1, lse "
+                  "(config/longdoc.cfg, seq:2)")
+    fwd_shapes[f"{sp['hop']['shape']} ring hop"] = by_shape(
+        sp["hop"]["fwd"], hop_config)
     bwd_shapes = {f"{TRAIN_SHAPE[0]}x{TRAIN_SHAPE[1]}": by_shape(bwd,
                                                                  "rate 0.1"),
                   "32x512 segmented": by_shape(
@@ -4361,6 +4888,8 @@ def main() -> int:
                                   "micro-batch's ids)")}
     bwd_shapes.update({f"{B}x{L}": by_shape(t["bwd"], "rate 0.1")
                        for (B, L), t in long_t.items()})
+    bwd_shapes[f"{sp['hop']['shape']} ring hop"] = by_shape(
+        sp["hop"]["bwd"], hop_config.replace(", lse", ""))
     fwd_more = dict(tc_kernels=tc_fwd, by_shape=fwd_shapes)
     bwd_more = dict(tc_kernels=tc_bwd, by_shape=bwd_shapes)
 
@@ -4373,23 +4902,47 @@ def main() -> int:
     shared = dict(device_ms_by_kernel=stream["bwd"]["split_ms"],
                   covers="one launch: dq and dk/dv (flash_streaming.py:339 "
                          "and :374)", **bwd_more)
+    # phase 15: long_context.cfg at W = 2 (zero1 and off) in the blocked
+    # rows; longdoc.cfg's ring hops at 2x4096 with bases (seq:2) and its
+    # one-process 2x8192 run in the streaming rows
+    def blocked_paths(kernel):
+        side = kernel.rsplit("_", 1)[1]     # long's runs count fwd / bwd
+        return {"long_context": long["1024"][side],
+                "long_context W=2, zero1 and off": sp["zero1"][kernel]}
+
+    def stream_paths(kernel):
+        side = kernel.rsplit("_", 1)[1]
+        return {"long_context 4096 remat": long["4096 remat"][side],
+                "longdoc seq:2 ring hops": sp["longdoc"][kernel],
+                "longdoc data:1": sp["one"][kernel]}
+
+    ring_err = dict(fwd=max(long_fwd_err, sp["hop"]["fwd_err"]),
+                    bwd=max(long_bwd_err, sp["hop"]["bwd_err"]))
     long_kernels = [
         entry("fused_attention_fwd", "ml_recipe_tpu/ops/flash_attention.py:364",
-              long["1024"]["fwd"], long_fwd_err, blocked["fwd"],
-              blocked_shape + ", lse", **fwd_more),
+              sum(blocked_paths("fused_attention_fwd").values()),
+              long_fwd_err, blocked["fwd"], blocked_shape + ", lse",
+              launches_by_path=blocked_paths("fused_attention_fwd"),
+              **fwd_more),
         entry("fused_attention_bwd", "ml_recipe_tpu/ops/flash_attention.py:305",
-              long["1024"]["bwd"], long_bwd_err, blocked["bwd"],
-              blocked_shape, device_ms_by_kernel=blocked["bwd"]["split_ms"],
+              sum(blocked_paths("fused_attention_bwd").values()),
+              long_bwd_err, blocked["bwd"], blocked_shape,
+              device_ms_by_kernel=blocked["bwd"]["split_ms"],
+              launches_by_path=blocked_paths("fused_attention_bwd"),
               **bwd_more),
         entry("fused_attention_fwd", "ml_recipe_tpu/ops/flash_streaming.py:241",
-              long["4096 remat"]["fwd"], long_fwd_err, stream["fwd"],
-              stream_shape + ", lse", **fwd_more),
+              sum(stream_paths("fused_attention_fwd").values()),
+              ring_err["fwd"], stream["fwd"], stream_shape + ", lse",
+              launches_by_path=stream_paths("fused_attention_fwd"),
+              **fwd_more),
         entry("fused_attention_bwd", "ml_recipe_tpu/ops/flash_streaming.py:339",
-              long["4096 remat"]["bwd"], long_bwd_err, stream["bwd"],
-              stream_shape, **shared),
+              sum(stream_paths("fused_attention_bwd").values()),
+              ring_err["bwd"], stream["bwd"], stream_shape,
+              launches_by_path=stream_paths("fused_attention_bwd"), **shared),
         entry("fused_attention_bwd", "ml_recipe_tpu/ops/flash_streaming.py:374",
-              long["4096 remat"]["bwd"], long_bwd_err, stream["bwd"],
-              stream_shape, **shared),
+              sum(stream_paths("fused_attention_bwd").values()),
+              ring_err["bwd"], stream["bwd"], stream_shape,
+              launches_by_path=stream_paths("fused_attention_bwd"), **shared),
     ]
     ln_fwd, ln_bwd = ln_t[(16384, 768, "fwd")], ln_t[(16384, 768, "bwd")]
     ln_serve = ln_t[(12288, 768, "fwd")]
@@ -4518,4 +5071,7 @@ if __name__ == "__main__":
         sys.exit(dp_oracle())
     if sys.argv[1:] == ["--dp-nccl"]:
         sys.exit(dp_nccl())
+    if sys.argv[1:2] == ["--sp-worker"]:
+        kind, rank, port = sys.argv[2:]
+        sys.exit(sp_worker(kind, int(rank), int(port)))
     sys.exit(main())

@@ -34,6 +34,16 @@ and runs on ``cuda:(r % device count)``; rank 0 alone writes the log file,
 ``trainer.cfg``/``model.cfg``, the TensorBoard events and the single-file
 checkpoints, and prepares the dataset while the others wait. The step and
 its semantics are the trainer's (``train/trainer.py``).
+
+``--mesh data:D,seq:S`` lays the ``D*S`` ranks out on the JAX package's
+axes (``parallel/mesh.py``; the default is ``data:W``): with S > 1 the
+model runs ring attention over each ``seq`` group (``--flash_attention
+auto`` resolves to ``ring``). ``--optimizer_sharding zero1`` (or
+``--shard_optimizer``) shards the optimizer state over ``data`` when D >
+1. ``config/longdoc.cfg`` (``mesh=data:1,seq:2``) runs as two ranks::
+
+    python -m ml_recipe_tpu_torch.cli.train -c config/longdoc.cfg ... \
+        --dist_world_size 2 --local_rank r --dist_init_method tcp://HOST:PORT
 """
 
 from __future__ import annotations
@@ -45,6 +55,10 @@ import signal
 import sys
 import threading
 from datetime import datetime
+
+import numpy as np
+import torch
+import torch.distributed
 
 from ..compose import (
     init_collate_fun,
@@ -61,6 +75,7 @@ from ..config.parser import (
 )
 from ..data.labels import labels2id
 from ..parallel import dist as pdist
+from ..parallel.mesh import build_mesh
 from ..train.callback import AccuracyCallback, MAPCallback, SaveBestCallback
 from ..train.trainer import Trainer
 from ..utils.device import resolve_device
@@ -68,6 +83,22 @@ from ..utils.logging import show_params
 from ..utils.seed import set_seed
 
 logger = logging.getLogger(__name__)
+
+
+def optimizer_sharding(params) -> str:
+    """``--optimizer_sharding`` when given, else ``zero1`` under the legacy
+    ``--shard_optimizer`` (the JAX package's ``parse_optimizer_sharding``)."""
+    if params.optimizer_sharding is not None:
+        return params.optimizer_sharding
+    return "zero1" if params.shard_optimizer else "off"
+
+
+def shared_random_seed() -> int:
+    """A fresh random seed drawn by rank 0 and broadcast to every rank."""
+    seed = torch.randint(0, 1 << 62, (1,), dtype=torch.int64)
+    if pdist.process_count() > 1:
+        torch.distributed.broadcast(seed, src=0)
+    return int(seed)
 
 
 def build_trainer(params, model_params) -> Trainer:
@@ -78,12 +109,18 @@ def build_trainer(params, model_params) -> Trainer:
     device = resolve_device(
         pdist.rank_device(params.device, pdist.process_index())
         if pdist.process_count() > 1 else params.device)
+    mesh = build_mesh(params.mesh)
     rng_pool = set_seed(params.seed)
     data_rng = rng_pool.host_rng("chunk_sampling") if rng_pool else None
+    if data_rng is None and mesh.seq_size > 1:
+        # the ranks of a seq group hold blocks of the same rows: without a
+        # seed their datasets still draw from one shared one
+        data_rng = np.random.default_rng(shared_random_seed())
     seed = params.seed if params.seed is not None else 0
 
     model, tokenizer = init_model(model_params, bpe_dropout=params.bpe_dropout,
-                                  rng_seed=seed, device=device, train=True)
+                                  rng_seed=seed, device=device, train=True,
+                                  mesh=mesh)
     train_dataset, test_dataset, train_weights = init_shared_datasets(
         params, tokenizer=tokenizer, clear=params.clear_processed,
         rng=data_rng)
@@ -115,6 +152,8 @@ def build_trainer(params, model_params) -> Trainer:
         pack_max_segments=params.pack_max_segments,
         pack_splitting=params.pack_splitting,
         pack_min_fragment=params.pack_min_fragment,
+        mesh=mesh,
+        optimizer_sharding=optimizer_sharding(params),
     )
     if params.last is not None:
         trainer.load_state_dict(params.last)

@@ -59,6 +59,7 @@ def init_model(
     device=None,
     train: bool = False,
     quantize: str = "off",
+    mesh=None,
 ) -> Tuple[QAModel, object]:
     """Build ``(model, tokenizer)``. Weight priority, as in the JAX package:
     the optional ``checkpoint`` (either layout) > ``--hf_checkpoint`` (a
@@ -77,6 +78,10 @@ def init_model(
     package's conversion) and the per-layer error summary is logged. The
     checkpoint format never changes.
 
+    ``mesh`` (``parallel.mesh.Mesh``): with a ``seq`` axis > 1,
+    ``--flash_attention auto`` resolves to ``ring`` (logged), and the model
+    runs sequence-parallel over the mesh's ``seq`` ring.
+
     ``device`` (else ``model_params.device``, else ``cuda``) must exist:
     without CUDA the default raises instead of running on the CPU."""
     dev = resolve_device(device or getattr(model_params, "device", None))
@@ -85,11 +90,16 @@ def init_model(
     dtype = (torch.bfloat16
              if getattr(model_params, "compute_dtype", "bfloat16") == "bfloat16"
              else torch.float32)
+    attention_impl = getattr(model_params, "flash_attention", "auto") or "auto"
+    if attention_impl == "auto" and mesh is not None and mesh.seq_size > 1:
+        # a seq axis in the mesh is the long-context request
+        attention_impl = "ring"
+        logger.info("Mesh has seq:%d — attention_impl auto-selected 'ring' "
+                    "(streaming kernels on every hop).", mesh.seq_size)
     model = QAModel(
-        cfg, dtype=dtype, device=dev,
-        attention_impl=getattr(model_params, "flash_attention", "auto") or "auto",
+        cfg, dtype=dtype, device=dev, attention_impl=attention_impl,
         remat=bool(getattr(model_params, "remat", False)),
-        ln_impl=getattr(model_params, "ln_impl", "xla") or "xla",
+        ln_impl=getattr(model_params, "ln_impl", "xla") or "xla", mesh=mesh,
     )
     init_weights(model, torch.Generator().manual_seed(rng_seed))
     hf_checkpoint = getattr(model_params, "hf_checkpoint", None)

@@ -60,8 +60,9 @@ def cast_loss_scale(value: str):
 
 MESH_HELP = (
     "Device mesh axes as 'name:size' pairs, e.g. 'data:8', "
-    "'data:4,model:2', 'data:2,seq:4', or 'data:2,pipe:2' (the port runs "
-    "one device: only None is accepted)."
+    "'data:4,model:2', 'data:2,seq:4', or 'data:2,pipe:2' (the port's "
+    "trainer runs 'data' and 'seq' axes, one process per device; its "
+    "serving and validation run one device)."
 )
 
 
@@ -265,7 +266,8 @@ def get_model_parser() -> ConfigArgumentParser:
                         help="Attention implementation: auto / pallas (the "
                              "fused attention kernel on CUDA, its plain "
                              "version on the CPU), xla (the plain version), "
-                             "or ring (sequence-parallel; not ported yet).")
+                             "or ring (sequence-parallel over the mesh's "
+                             "seq axis; auto resolves to it there).")
     parser.add_argument("--remat", action="store_true",
                         help="Recompute each encoder layer in the backward "
                              "(torch.utils.checkpoint, replaying its dropout "
@@ -1096,7 +1098,10 @@ def check_train_flags(params, model_params) -> None:
     ``--dist_init_method``), as in the JAX CLI; a launcher's ``WORLD_SIZE``
     > 1 that the flags do not repeat raises (``scripts/worker_torch.sh``
     maps the environment onto the flags), and so does the elastic
-    supervisor's world override."""
+    supervisor's world override. ``--mesh`` takes ``data`` and ``seq``
+    axes whose sizes multiply to the world (``pipe``/``model`` raise);
+    ``--flash_attention ring`` needs a ``seq`` axis > 1; ZeRO-1 runs at any
+    world and is inert at data size 1."""
     _check_ln_impl(model_params)
     world = int(params.dist_world_size)
     if world < 1 or (world > 1 and not 0 <= params.local_rank < world):
@@ -1112,11 +1117,19 @@ def check_train_flags(params, model_params) -> None:
     from ..parallel.dist import refuse_elastic_world
 
     refuse_elastic_world()
-    zero1 = params.shard_optimizer or params.optimizer_sharding == "zero1"
+    from ..parallel.mesh import MeshSpec, refuse_unported_axes
+
+    axes = MeshSpec.from_string(params.mesh, n_devices=world).ordered()
+    refuse_unported_axes(axes)
+    if MeshSpec(axes).size != world:
+        raise ValueError(f"--mesh {params.mesh} needs {MeshSpec(axes).size} "
+                         f"processes; --dist_world_size is {world}")
+    if model_params.flash_attention == "ring" and axes.get("seq", 1) < 2:
+        raise ValueError("--flash_attention ring needs a 'seq' mesh axis > 1 "
+                         "(--mesh 'data:N,seq:M')")
+    zero1 = (params.optimizer_sharding == "zero1"
+             or (params.optimizer_sharding is None and params.shard_optimizer))
     checks = [
-        (world > 1 and zero1, "optimizer_sharding",
-         "zero1 at dist_world_size > 1", _PARALLEL),
-        (params.mesh is not None, "mesh", params.mesh, _PARALLEL),
         (params.zero1_overlap not in (None, "off"), "zero1_overlap",
          params.zero1_overlap, _PARALLEL),
         (params.trace, "trace", True, _OBSERVE),
@@ -1135,19 +1148,16 @@ def check_train_flags(params, model_params) -> None:
          _OBSERVE),
         (params.fault_plan is not None, "fault_plan", params.fault_plan,
          _OBSERVE),
-        (model_params.flash_attention == "ring", "flash_attention", "ring",
-         _PARALLEL),
     ]
     for bad, flag, value, item in checks:
         if bad:
             raise _not_ported(flag, value, item)
-    if zero1:
-        # the JAX trainer on a one-chip mesh: the ZeRO-1 plan is None and
-        # checkpoints record opt_sharding 'off' (world size > 1 raised above)
+    if zero1 and axes.get("data", 1) < 2:
+        # the JAX trainer on a mesh without a data axis to shard over: the
+        # ZeRO-1 plan is None and checkpoints record opt_sharding 'off'
         logger.info("--optimizer_sharding zero1 (--shard_optimizer) is inert "
-                    "at world size 1: the optimizer state stays whole on the "
-                    "one device, as the JAX trainer keeps it on a one-chip "
-                    "mesh.")
+                    "at data axis size 1: the optimizer state stays whole, "
+                    "as the JAX trainer keeps it on such a mesh.")
     ignored = [f"--{f} {getattr(params, f)}" for f in _IGNORED_TRAIN_FLAGS]
     ignored += [f"--{f} {getattr(model_params, f)}"
                 for f in _IGNORED_MODEL_TRAIN_FLAGS]

@@ -49,7 +49,17 @@ Post-layer-norm BERT stack with the JAX module's numerics:
   keeps only each layer's input for the backward and recomputes the layer
   there (``torch.utils.checkpoint``). The recompute replays the layer's
   draws from the caller's generator (:func:`remat_layer`), so remat on and
-  off give the same gradients.
+  off give the same gradients;
+- sequence parallelism (``attention_impl='ring'`` with a ``mesh`` whose
+  ``seq`` axis is S > 1): the trunk takes the whole ``[B, L]`` inputs and
+  runs on this rank's block of ``L / S`` tokens (``seq_index``), embedded
+  at their global positions; every attention is the ring over the ``seq``
+  group (``ops/ring_attention.py``); each hidden-dropout mask is drawn at
+  the whole ``[B, L, H]`` shape and this block kept (``seq=(index, S)``),
+  so the draws do not depend on S; after the last layer the blocks are
+  gathered (``parallel.collectives.seq_gather``, whose backward sums the
+  group's gradients), and the pooler and everything after it see the whole
+  sequence on every rank of the group.
 """
 
 from __future__ import annotations
@@ -68,32 +78,45 @@ from ..ops.attention import (
     global_row_seeds,
 )
 from ..ops.layer_norm import layer_norm, layer_norm_q8
+from ..parallel.collectives import seq_gather
+from ..parallel.sharding import seq_split
 from ..quant.layers import QuantLinear, first_token, with_row_codes
 from .config import EncoderConfig
 
 # (first, total): the batch's rows are rows first .. first + B of a global
 # micro-batch of `total` rows (data parallelism); None: the batch is whole
 GlobalRows = Optional[Tuple[int, int]]
+# (index, size): the batch's tokens are block `index` of `size` equal
+# blocks of the sequence (sequence parallelism); None: the sequence is whole
+SeqBlock = Optional[Tuple[int, int]]
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
             generator: Optional[torch.Generator],
-            global_rows: GlobalRows = None) -> torch.Tensor:
+            global_rows: GlobalRows = None,
+            seq: SeqBlock = None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability ``1 - rate`` and scale the
     kept values by ``1/(1-rate)``; the mask is drawn from ``generator``, at
     the global micro-batch's shape when ``global_rows`` is given (of which
-    ``x``'s rows are kept)."""
+    ``x``'s rows are kept), and at the whole sequence's length when ``seq``
+    is given (of which ``x``'s block of dim 1 is kept)."""
     if not training or rate <= 0.0:
         return x
     if generator is None:
         raise ValueError("training-mode dropout needs a torch.Generator "
                          "(pass generator=... to the model's forward)")
-    if global_rows is None:
-        u = torch.rand(x.shape, generator=generator, device=x.device)
-    else:
+    shape = list(x.shape)
+    rows = slice(None)
+    if global_rows is not None:
         first, total = global_rows
-        u = torch.rand((total, *x.shape[1:]), generator=generator,
-                       device=x.device)[first:first + x.shape[0]]
+        shape[0], rows = total, slice(first, first + x.shape[0])
+    cols = slice(None)
+    if seq is not None and seq[1] > 1:
+        L = x.shape[1]
+        shape[1], cols = L * seq[1], slice(seq[0] * L, (seq[0] + 1) * L)
+    u = torch.rand(shape, generator=generator, device=x.device)
+    if global_rows is not None or seq is not None:
+        u = u[rows, cols] if x.dim() > 1 else u[rows]
     keep = u >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                            device=x.device))
@@ -201,9 +224,12 @@ class Embeddings(nn.Module):
     def forward(self, input_ids: torch.Tensor, token_type_ids: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 global_rows: GlobalRows = None,
-                position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                position_ids: Optional[torch.Tensor] = None,
+                seq: SeqBlock = None) -> torch.Tensor:
         cfg = self.cfg
-        L = input_ids.shape[-1]
+        L_loc = input_ids.shape[-1]
+        first = seq[0] * L_loc if seq is not None else 0
+        L = L_loc * (seq[1] if seq is not None else 1)
         if L + cfg.position_offset > cfg.max_position_embeddings:
             # the JAX module's trace-time guard: never a silent clamp of
             # positions past the table. Packed positions are per segment
@@ -215,8 +241,9 @@ class Embeddings(nn.Module):
                 f"{cfg.max_position_embeddings}; widen the position table "
                 f"(--max_position_embeddings) for long-context runs"
             )
-        if position_ids is None:
-            positions = torch.arange(L, device=input_ids.device)[None]
+        if position_ids is None:   # this block's global positions
+            positions = torch.arange(first, first + L_loc,
+                                     device=input_ids.device)[None]
         else:
             positions = position_ids.long()
         if cfg.type_vocab_size <= 1:
@@ -225,16 +252,17 @@ class Embeddings(nn.Module):
              + self.position_embeddings(positions + cfg.position_offset)
              + self.token_type_embeddings(token_type_ids))
         return dropout(self.layer_norm(x), cfg.hidden_dropout_prob,
-                       self.training, generator, global_rows)
+                       self.training, generator, global_rows, seq)
 
 
 class SelfAttention(nn.Module):
     def __init__(self, cfg: EncoderConfig, *, dtype, device,
                  attention_impl: str = "auto", ln_impl: str = "xla",
-                 quantize: str = "off"):
+                 quantize: str = "off", mesh=None):
         super().__init__()
         self.cfg = cfg
         self.attention_impl = attention_impl
+        self.mesh = mesh
         H = cfg.hidden_size
         self.query = _dense(quantize, H, H, dtype, device)
         self.key = _dense(quantize, H, H, dtype, device)
@@ -245,9 +273,11 @@ class SelfAttention(nn.Module):
     def forward(self, hidden: torch.Tensor, mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 global_rows: GlobalRows = None,
-                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                segment_ids: Optional[torch.Tensor] = None,
+                seq: SeqBlock = None) -> torch.Tensor:
         cfg = self.cfg
         B, L, H = hidden.shape
+        ring = self.attention_impl == "ring"
 
         def heads(proj: nn.Module) -> torch.Tensor:
             return proj(hidden).view(B, L, cfg.num_heads, cfg.head_dim)
@@ -259,17 +289,18 @@ class SelfAttention(nn.Module):
                 raise ValueError("training-mode attention dropout needs a "
                                  "torch.Generator (generator=...)")
             seed = dropout_seed(generator)
-            if global_rows is not None:
+            # the ring folds the data index into its own row seeds
+            if global_rows is not None and not ring:
                 seed = global_row_seeds(seed, global_rows[0], B,
                                         global_rows[1], cfg.num_heads)
         ctx = dot_product_attention(
             heads(self.query), heads(self.key), heads(self.value), mask,
             dropout_rate=rate, seed=seed, impl=self.attention_impl,
-            segment_ids=segment_ids,
+            segment_ids=segment_ids, mesh=self.mesh if ring else None,
         )
         out = dropout(self.output(ctx.reshape(B, L, H)),
                       cfg.hidden_dropout_prob, self.training, generator,
-                      global_rows)
+                      global_rows, seq)
         return self.layer_norm(hidden + out)
 
 
@@ -286,31 +317,34 @@ class FeedForward(nn.Module):
 
     def forward(self, hidden: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                global_rows: GlobalRows = None) -> torch.Tensor:
+                global_rows: GlobalRows = None,
+                seq: SeqBlock = None) -> torch.Tensor:
         y = F.gelu(self.intermediate(hidden), approximate="none")
         y = dropout(self.output(y), self.cfg.hidden_dropout_prob,
-                    self.training, generator, global_rows)
+                    self.training, generator, global_rows, seq)
         return self.layer_norm(hidden + y)
 
 
 class EncoderLayer(nn.Module):
     def __init__(self, cfg: EncoderConfig, *, dtype, device,
                  attention_impl: str = "auto", ln_impl: str = "xla",
-                 quantize: str = "off"):
+                 quantize: str = "off", mesh=None):
         super().__init__()
         self.attention = SelfAttention(cfg, dtype=dtype, device=device,
                                        attention_impl=attention_impl,
-                                       ln_impl=ln_impl, quantize=quantize)
+                                       ln_impl=ln_impl, quantize=quantize,
+                                       mesh=mesh)
         self.mlp = FeedForward(cfg, dtype=dtype, device=device,
                                ln_impl=ln_impl, quantize=quantize)
 
     def forward(self, hidden: torch.Tensor, mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 global_rows: GlobalRows = None,
-                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                segment_ids: Optional[torch.Tensor] = None,
+                seq: SeqBlock = None) -> torch.Tensor:
         return self.mlp(self.attention(hidden, mask, generator, global_rows,
-                                       segment_ids),
-                        generator, global_rows)
+                                       segment_ids, seq),
+                        generator, global_rows, seq)
 
 
 def remat_layer(layer: nn.Module, hidden: torch.Tensor, mask: torch.Tensor,
@@ -351,21 +385,26 @@ def remat_layer(layer: nn.Module, hidden: torch.Tensor, mask: torch.Tensor,
 class TransformerEncoder(nn.Module):
     """BERT/RoBERTa trunk: returns (sequence_output, pooled_output).
     ``remat``: recompute each layer in the backward (:func:`remat_layer`);
-    ``ln_impl``: :func:`_ln`; ``quantize``: :func:`_dense`."""
+    ``ln_impl``: :func:`_ln`; ``quantize``: :func:`_dense`; ``mesh``: the
+    process mesh whose ``seq`` ring ``attention_impl='ring'`` runs over."""
 
     def __init__(self, cfg: EncoderConfig, *, dtype=torch.float32,
                  device=None, attention_impl: str = "auto",
                  remat: bool = False, ln_impl: str = "xla",
-                 quantize: str = "off"):
+                 quantize: str = "off", mesh=None):
         super().__init__()
+        if attention_impl == "ring" and (mesh is None or mesh.seq_size < 2):
+            raise ValueError("attention_impl='ring' needs a mesh with a "
+                             "'seq' axis > 1 (--mesh 'data:N,seq:M')")
         self.cfg = cfg
         self.remat = remat
+        self.mesh = mesh if attention_impl == "ring" else None
         self.embeddings = Embeddings(cfg, dtype=dtype, device=device,
                                      ln_impl=ln_impl, quantize=quantize)
         for i in range(cfg.num_layers):  # flax names: layer_0, layer_1, ...
             self.add_module(f"layer_{i}", EncoderLayer(
                 cfg, dtype=dtype, device=device, attention_impl=attention_impl,
-                ln_impl=ln_impl, quantize=quantize))
+                ln_impl=ln_impl, quantize=quantize, mesh=self.mesh))
         self.pooler = _dense(quantize, cfg.hidden_size, cfg.hidden_size, dtype,
                              device)
 
@@ -385,14 +424,25 @@ class TransformerEncoder(nn.Module):
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         mask = attention_mask.to(torch.int32)
+        seq = None
+        if self.mesh is not None:   # this rank's block of every [B, L] input
+            mesh = self.mesh
+            seq = (mesh.seq_index, mesh.seq_size)
+            input_ids, mask, token_type_ids, position_ids, segment_ids = (
+                None if x is None else seq_split(x, *seq)
+                for x in (input_ids, mask, token_type_ids, position_ids,
+                          segment_ids))
         hidden = self.embeddings(input_ids, token_type_ids, generator,
-                                 global_rows, position_ids)
+                                 global_rows, position_ids, seq)
         remat = self.remat and torch.is_grad_enabled()
         for i in range(self.cfg.num_layers):
             layer = getattr(self, f"layer_{i}")
-            if segment_ids is not None:
-                layer = functools.partial(layer, segment_ids=segment_ids)
+            if segment_ids is not None or seq is not None:
+                layer = functools.partial(layer, segment_ids=segment_ids,
+                                          seq=seq)
             hidden = (remat_layer(layer, hidden, mask, generator, global_rows)
                       if remat else layer(hidden, mask, generator, global_rows))
+        if seq is not None:
+            hidden = seq_gather(hidden, self.mesh.seq_group, *seq)
         pooled = torch.tanh(self.pooler(first_token(hidden, segment_starts)))
         return hidden, pooled

@@ -20,6 +20,13 @@ segment: span logits ``[B, S, L]`` (segment s's logits keep its own tokens
 and get ``-1e9`` elsewhere), cls and the regressors from each segment's own
 first row, ``[B, S, ...]``. The parameters are the unpacked model's, so a
 checkpoint serves both.
+
+Sequence parallelism (``attention_impl='ring'`` and a ``mesh`` with a
+``seq`` axis): the inputs are the whole ``[B, L]`` rows on every rank of a
+``seq`` group; the trunk runs on each rank's block and gathers the hidden
+states (``models/encoder.py``), so the heads, the pad penalty and the
+loss see the whole sequence, identically on every rank of the group (the
+CLS row, token 0, comes from ``seq_index`` 0's block).
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ class QAModel(nn.Module):
     def __init__(self, cfg: EncoderConfig, *, dtype=torch.float32,
                  device=None, attention_impl: str = "auto",
                  remat: bool = False, ln_impl: str = "xla",
-                 quantize: str = "off"):
+                 quantize: str = "off", mesh=None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
@@ -49,7 +56,7 @@ class QAModel(nn.Module):
         self.quantize = quantize or "off"
         self.transformer = TransformerEncoder(
             cfg, dtype=dtype, device=device, attention_impl=attention_impl,
-            remat=remat, ln_impl=ln_impl, quantize=quantize)
+            remat=remat, ln_impl=ln_impl, quantize=quantize, mesh=mesh)
         H = cfg.hidden_size
         self.position_outputs = _dense(quantize, H, 2, dtype, device)
         self.classifier = _dense(quantize, H, cfg.num_labels, dtype, device)

@@ -27,7 +27,11 @@ Layout at the public function is the JAX package's: q, k, v are
   with the hash dropout: the same function, another dropout stream. At
   rate 0 the two are equal.
 - ``xla``: the plain version at any length, on any device.
-- ``ring``: sequence-parallel ring attention, not ported yet.
+- ``ring``: sequence-parallel ring attention over the ``seq`` axis of
+  ``mesh`` (``ops/ring_attention.py``): q, k, v, the mask and the segment
+  ids are this rank's blocks of the sequence, and every hop runs the
+  kernel pair (or, on the CPU, its plain versions) with the streaming
+  contract.
 """
 
 from __future__ import annotations
@@ -79,6 +83,7 @@ def dot_product_attention(
     seed: SeedLike = None,
     impl: str = "auto",
     segment_ids: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Multi-head attention over [B, L, H, D] with a [B, L] key mask.
 
@@ -87,16 +92,19 @@ def dot_product_attention(
     ``seed`` keys the dropout hash when ``dropout_rate > 0``: the caller
     draws it (:func:`dropout_seed` from its generator). ``auto`` and
     ``pallas`` are differentiable through the kernel pair
-    (``FusedAttention``), ``xla`` through autograd of the plain version."""
+    (``FusedAttention``), ``xla`` through autograd of the plain version,
+    ``ring`` through ``RingAttention`` over ``mesh``'s ``seq`` ring (the
+    arrays are this rank's sequence blocks)."""
     if impl not in IMPLS:
         raise ValueError(f"attention impl must be one of {IMPLS}; got {impl!r}")
-    if impl == "ring":
-        raise NotImplementedError(
-            "impl='ring' (sequence-parallel ring attention) is not ported "
-            "yet: ROADMAP.md queue 1, 'Parallelism beyond data parallelism'")
     if dropout_rate > 0.0 and seed is None:
         raise ValueError("dropout_rate > 0 needs a seed "
                          "(dropout_seed(generator))")
+    if impl == "ring":
+        from .ring_attention import ring_attention
+
+        return ring_attention(q, k, v, mask, mesh=mesh, rate=dropout_rate,
+                              seed=seed, segment_ids=segment_ids)
     segmented = segment_ids is not None
     kernel_mask = segment_ids if segmented else mask
     if impl == "xla":

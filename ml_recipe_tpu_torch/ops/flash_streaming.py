@@ -20,8 +20,8 @@ computes this regime too: :func:`streaming_attention` is
 gradient is :class:`~.flash_attention.FusedAttention`'s. The plain versions
 are the same generalised functions. The dispatcher (``ops/attention.py``)
 calls the kernel pair with the single-chip defaults at every length; this
-entry point is for callers that pass the contract (ring attention, not
-ported yet).
+entry point is for callers that pass the contract: ring attention
+(``ops/ring_attention.py``), whose every hop is one call.
 """
 
 from __future__ import annotations
@@ -38,12 +38,15 @@ def streaming_attention(
     mask: Optional[torch.Tensor] = None, seed: SeedLike = None,
     rate: float = 0.0, segmented: bool = False, base: BaseLike = None,
     L_hash: Optional[int] = None, seg_split: bool = False,
-) -> torch.Tensor:
+    want_lse: bool = False,
+):
     """Streaming-KV attention over [B, L, H, D] with a [B, L] key mask, or
     segment ids when ``segmented`` ([B, 2L] q-side then k-side ids when
     ``seg_split``). ``seed``, ``rate``: as ``fused_attention`` takes them;
     ``base``, ``L_hash``: the block's place for the dropout hash (see the
-    module docstring). Differentiable when q, k or v requires grad."""
+    module docstring); ``want_lse``: also the ``[B, H, L]`` f32 logsumexp
+    (calls without autograd). Differentiable when q, k or v requires
+    grad."""
     return fused_attention(q, k, v, mask, seed=seed, rate=rate,
                            segmented=segmented, base=base, L_hash=L_hash,
-                           seg_split=seg_split)
+                           seg_split=seg_split, want_lse=want_lse)

@@ -1,9 +1,11 @@
-"""Data parallelism over ``torch.distributed`` (the port of
-``ml_recipe_tpu/parallel/``'s multi-process parts): joining the world
-(``dist.py``) and the collectives of the data-parallel step
-(``collectives.py``). Meshes, ZeRO-1, tensor, pipeline and ring parallelism
-are not ported (ROADMAP.md queue 1, 'Parallelism beyond data
-parallelism')."""
+"""Parallelism over ``torch.distributed`` (the port of
+``ml_recipe_tpu/parallel/``): joining the world (``dist.py``), the process
+mesh of ``data`` and ``seq`` axes (``mesh.py``) and its plan
+(``plan.py``), the ZeRO-1 layout and the sequence split (``sharding.py``),
+and the collectives of the step, the ring attention's hop included
+(``collectives.py``). Tensor and pipeline parallelism and the bucketed
+ZeRO-1 overlap are not ported (ROADMAP.md queue 1, 'Parallelism beyond
+data parallelism')."""
 
 from .collectives import (
     all_reduce_gradients,

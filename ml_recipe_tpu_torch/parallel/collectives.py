@@ -20,13 +20,33 @@ imply (the port of ``ml_recipe_tpu/parallel/collectives.py`` ``pmean`` /
 - :func:`regroup_for_world`: the one-process batch whose consecutive
   micro-batches are the W-rank step's global micro-batches.
 
+The mesh's collectives (``parallel/mesh.py``), each over one group of it:
+
+- :func:`all_gather_cat`: one tensor from each rank of a group,
+  concatenated along a dimension (the ZeRO-1 parameter all-gather over
+  ``data``, the ``seq`` gather of the hidden states);
+- :class:`SeqGather`: that gather over ``seq`` under autograd; its
+  backward is the sum over the group of each rank's gradient of the whole,
+  sliced to this rank's block (a reduce-scatter, run as an all-reduce and
+  a slice: gloo has no reduce-scatter);
+- :class:`RingTransport`: one hop of ring attention, each rank sending
+  tensors to the next rank of its ``seq`` ring and receiving the previous
+  rank's. Under NCCL a hop is ``batch_isend_irecv`` of the device tensors;
+  gloo's point-to-point takes CPU tensors only, so there a hop of device
+  tensors stages them through pinned host buffers (compute stays on the
+  card). Each transport logs its kind once and counts its hops, the bytes
+  it sent, the bytes it staged through the host and its seconds
+  (``RingTransport.stats``).
+
 Every function here runs its collective whenever a process group exists,
 also a group of one; the trainer calls them only at world size > 1.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Sequence, Tuple
+import logging
+import time
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,13 +54,22 @@ import torch.distributed as dist
 
 from . import dist as pdist
 
+logger = logging.getLogger(__name__)
+
 # f32 elements per all-reduce bucket (16 MiB)
 BUCKET_NUMEL = 1 << 22
 
 
-def all_reduce_sum_(tensor: torch.Tensor) -> torch.Tensor:
-    """Sum ``tensor`` over the world in place; returns it."""
-    dist.all_reduce(tensor, op=dist.ReduceOp.SUM)
+def all_reduce_sum_(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum ``tensor`` over the world (or ``group``) in place; returns it."""
+    dist.all_reduce(tensor, op=dist.ReduceOp.SUM, group=group)
+    return tensor
+
+
+def broadcast_(tensor: torch.Tensor, src: int, group=None) -> torch.Tensor:
+    """``tensor`` overwritten in place by global rank ``src``'s, over the
+    world or ``group``; returns it."""
+    dist.broadcast(tensor, src=src, group=group)
     return tensor
 
 
@@ -102,21 +131,123 @@ def broadcast_parameters(named_params: Iterable[Tuple[str, torch.Tensor]],
     return len(buckets)
 
 
-def gather_to_host(tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def gather_to_host(tree: Dict[str, torch.Tensor],
+                   group=None) -> Dict[str, torch.Tensor]:
     """Each rank's ``[rows, ...]`` tensors, concatenated in rank order on
-    the CPU (every rank calls it with the same keys and shapes, and gets
-    the whole)."""
-    world = pdist.process_count()
-    via_host = pdist.backend() != "nccl"
+    the CPU (every rank of the world, or of ``group``, calls it with the
+    same keys and shapes, and gets the whole)."""
     out = {}
     for key in sorted(tree):
-        x = tree[key].detach().contiguous()
-        if via_host:
-            x = x.cpu()
-        parts = [torch.empty_like(x) for _ in range(world)]
-        dist.all_gather(parts, x)
-        out[key] = torch.cat(parts).cpu()
+        out[key] = all_gather_cat(tree[key].detach(), group).cpu()
     return {key: out[key] for key in tree}
+
+
+def all_gather_cat(x: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` (one shape on all) of the world or ``group``,
+    concatenated along ``dim`` in group order, on ``x``'s device. Over gloo
+    the pieces cross through the CPU (gloo gathers no CUDA tensors)."""
+    size = dist.get_world_size(group)
+    src = x.contiguous()
+    if pdist.backend() != "nccl":
+        src = src.cpu()
+    parts = [torch.empty_like(src) for _ in range(size)]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts, dim=dim).to(x.device)
+
+
+class SeqGather(torch.autograd.Function):
+    """``[B, L_loc, ...]`` blocks of a ``seq`` group gathered into the whole
+    ``[B, L, ...]`` along dim 1, differentiably: the backward sums the
+    group's gradients of the whole and keeps this rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, group, index: int, size: int):
+        ctx.group, ctx.index, ctx.size = group, index, size
+        return all_gather_cat(x, group, dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        all_reduce_sum_(g, ctx.group)
+        block = g.shape[1] // ctx.size
+        return g.narrow(1, ctx.index * block, block), None, None, None
+
+
+def seq_gather(x: torch.Tensor, group, index: int, size: int) -> torch.Tensor:
+    """:class:`SeqGather` (``x`` itself at ``size`` 1)."""
+    if size <= 1:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return SeqGather.apply(x, group, index, size)
+    return all_gather_cat(x, group, dim=1)
+
+
+class RingTransport:
+    """One rank's hops around its ``seq`` ring (the JAX package's
+    ``ppermute`` to ``(i + 1) % n``): :meth:`hop` sends tensors to the
+    next rank and returns the previous rank's, of the same shapes and
+    dtypes. See the module docstring for the two transports; ``stats``
+    counts hops, bytes sent, bytes staged through host memory and the
+    seconds inside hops."""
+
+    def __init__(self, ring: Sequence[int], rank: int):
+        self.ring = tuple(int(r) for r in ring)
+        i = self.ring.index(int(rank))
+        self.next = self.ring[(i + 1) % len(self.ring)]
+        self.prev = self.ring[(i - 1) % len(self.ring)]
+        self.nccl = pdist.backend() == "nccl"
+        self._pinned: Dict[tuple, torch.Tensor] = {}
+        self.reset()
+        logger.info("Ring attention transport: ring of %d ranks %s, %s.",
+                    len(self.ring), list(self.ring),
+                    "batch_isend_irecv of device tensors (nccl)" if self.nccl
+                    else "gloo isend/irecv, CUDA tensors staged through "
+                         "pinned host buffers (attention stays on the card)")
+
+    def reset(self) -> None:
+        self.stats = {"hops": 0, "bytes": 0, "staged_bytes": 0,
+                      "seconds": 0.0}
+
+    def _host(self, t: torch.Tensor, slot: int) -> torch.Tensor:
+        key = (slot, tuple(t.shape), t.dtype)
+        buf = self._pinned.get(key)
+        if buf is None:
+            buf = self._pinned[key] = torch.empty(
+                t.shape, dtype=t.dtype, pin_memory=True)
+        return buf
+
+    def hop(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        t0 = time.perf_counter()
+        tensors = [t.contiguous() for t in tensors]
+        device = tensors[0].device
+        sent = sum(t.numel() * t.element_size() for t in tensors)
+        if self.nccl:
+            recv = [torch.empty_like(t) for t in tensors]
+            ops = [dist.P2POp(dist.isend, t, self.next) for t in tensors]
+            ops += [dist.P2POp(dist.irecv, r, self.prev) for r in recv]
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        else:
+            staged = device.type != "cpu"
+            if staged:
+                send = [self._host(t, 2 * i).copy_(t)
+                        for i, t in enumerate(tensors)]
+                recv = [self._host(t, 2 * i + 1)
+                        for i, t in enumerate(tensors)]
+                self.stats["staged_bytes"] += 2 * sent
+            else:
+                send = tensors
+                recv = [torch.empty_like(t) for t in tensors]
+            reqs = [dist.isend(t, self.next) for t in send]
+            reqs += [dist.irecv(r, self.prev) for r in recv]
+            for req in reqs:
+                req.wait()
+            if staged:
+                recv = [r.to(device, copy=True) for r in recv]
+        self.stats["hops"] += 1
+        self.stats["bytes"] += sent
+        self.stats["seconds"] += time.perf_counter() - t0
+        return recv
 
 
 def regroup_for_world(batch: dict, world: int, batch_split: int) -> dict:

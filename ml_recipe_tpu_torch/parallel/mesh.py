@@ -1,0 +1,192 @@
+"""The process mesh (the port of ``ml_recipe_tpu/parallel/mesh.py``).
+
+The JAX package builds one named ``jax.sharding.Mesh`` over every device;
+the port runs one process per device, so its mesh is the world of
+``torch.distributed`` ranks laid out on named axes, with a process group
+for every row of each axis the step reduces or rotates over:
+
+- ``data``: data parallelism (batch rows; gradients reduce over it, ZeRO-1
+  shards the optimizer state over it);
+- ``seq``: sequence parallelism (each rank of a ``seq`` group holds one
+  contiguous block of every row's tokens; ring attention rotates K/V blocks
+  around the group).
+
+Axis sizes come from ``--mesh`` (``data:2,seq:2``), by default one ``data``
+axis over the whole world. Ranks follow the JAX package's axis order
+:data:`AXIS_ORDER` (its device array is reshaped in that order), so with
+``data:D,seq:S`` rank ``r`` sits at ``data_index, seq_index = divmod(r,
+S)``: the data coordinate, which picks a rank's rows of every global batch
+and folds into its dropout seeds, is the one the JAX package gives the same
+device. ``pipe`` and ``model`` (pipeline and tensor parallelism) raise.
+Where the JAX package warns about devices a mesh leaves idle, the port
+requires the mesh to cover the world exactly.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import math
+from typing import Dict, List, Optional, Tuple
+
+import torch.distributed as dist
+
+from . import dist as pdist
+from .collectives import RingTransport
+
+logger = logging.getLogger(__name__)
+
+# pipe outermost, then data, seq, model innermost (the JAX package's order)
+AXIS_ORDER = ("pipe", "data", "seq", "model")
+DATA_AXIS, SEQ_AXIS = "data", "seq"
+PORTED_AXES = (DATA_AXIS, SEQ_AXIS)
+_PARALLEL = "queue 1, 'Parallelism beyond data parallelism'"
+
+
+def parse_mesh_spec(spec: Optional[str]) -> Dict[str, int]:
+    """``"data:2,seq:2"`` (or ``data=2,seq=2``) as an ordered dict; raises
+    on a malformed entry, a duplicate axis or a size below 1, naming the
+    spec (the JAX package's ``parse_mesh_spec``)."""
+    if not spec:
+        return {}
+    axes: Dict[str, int] = {}
+    for part in str(spec).replace("=", ":").split(","):
+        part = part.strip()
+        if not part:
+            continue
+        name, sep, size_s = part.partition(":")
+        name = name.strip()
+        if not name or not sep or not size_s.strip():
+            raise ValueError(f"mesh spec {spec!r}: malformed entry {part!r} "
+                             f"(expected 'axis:size')")
+        try:
+            size = int(size_s)
+        except ValueError:
+            raise ValueError(f"mesh spec {spec!r}: axis {name!r} has "
+                             f"non-integer size {size_s.strip()!r}") from None
+        if name in axes:
+            raise ValueError(f"mesh spec {spec!r}: duplicate axis {name!r}")
+        if size < 1:
+            raise ValueError(f"mesh spec {spec!r}: axis {name!r} size must "
+                             f"be >= 1, got {size}")
+        axes[name] = size
+    return axes
+
+
+def refuse_unported_axes(axes: Dict[str, int]) -> None:
+    """Raise on an axis other than ``data`` and ``seq`` (``pipe`` and
+    ``model`` at any size included), naming the ROADMAP item."""
+    bad = [name for name in axes if name not in PORTED_AXES]
+    if bad:
+        raise NotImplementedError(
+            f"mesh axes {bad} are not ported yet (the port runs 'data' and "
+            f"'seq'): ROADMAP.md {_PARALLEL}")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    axes: Dict[str, int]
+
+    @classmethod
+    def from_string(cls, spec: Optional[str],
+                    n_devices: Optional[int] = None) -> "MeshSpec":
+        axes = parse_mesh_spec(spec)
+        if not axes:
+            axes = {DATA_AXIS: int(n_devices if n_devices is not None
+                                   else pdist.process_count())}
+        return cls(axes=axes)
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.axes.values())
+
+    def ordered(self) -> Dict[str, int]:
+        """The axes in :data:`AXIS_ORDER` (any other name after them)."""
+        out = {n: self.axes[n] for n in AXIS_ORDER if n in self.axes}
+        out.update((n, s) for n, s in self.axes.items() if n not in out)
+        return out
+
+
+@dataclasses.dataclass
+class Mesh:
+    """This process's place on the mesh, and the groups it talks over.
+
+    ``axes``: ordered ``{name: size}``; ``rank``/``world``: the process's
+    rank and the world size. ``data_group`` holds the ranks of this
+    process's ``data`` row (same seq index), ``seq_group`` those of its
+    ``seq`` ring (same data index), in coordinate order; each is None (the
+    whole world, or a group of one) when the other axis has size 1.
+    ``seq_ranks`` are the global ranks of the ring, ``ring`` its transport
+    (``parallel.collectives.RingTransport``) when ``seq`` is > 1."""
+
+    axes: Dict[str, int]
+    rank: int = 0
+    world: int = 1
+    data_group: object = None
+    seq_group: object = None
+    seq_ranks: Tuple[int, ...] = (0,)
+    ring: object = None
+
+    def axis_size(self, name: str) -> int:
+        return int(self.axes.get(name, 1))
+
+    @property
+    def data_size(self) -> int:
+        return self.axis_size(DATA_AXIS)
+
+    @property
+    def seq_size(self) -> int:
+        return self.axis_size(SEQ_AXIS)
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.seq_size
+
+    @property
+    def seq_index(self) -> int:
+        return self.rank % self.seq_size
+
+    def describe(self) -> Dict[str, int]:
+        return {str(n): int(s) for n, s in self.axes.items()}
+
+
+def _groups(ranks_of: List[List[int]], rank: int):
+    """``dist.new_group`` for every list in ``ranks_of`` (every process
+    creates every group, in one order); returns this rank's group."""
+    mine = None
+    for ranks in ranks_of:
+        group = dist.new_group(ranks)
+        if rank in ranks:
+            mine = group
+    return mine
+
+
+def build_mesh(spec: Optional[str] = None, *,
+               axes: Optional[Dict[str, int]] = None) -> Mesh:
+    """The mesh of ``spec`` (``--mesh``) or ``axes`` over the joined world
+    (one process alone outside one); with neither, ``data:W``. Raises when
+    the axes do not multiply to the world size or name an unported axis.
+    In a world of several processes every process must call it, in the
+    same order as its peers, since it creates the process groups."""
+    mesh_spec = (MeshSpec(dict(axes)) if axes is not None
+                 else MeshSpec.from_string(spec))
+    ordered = mesh_spec.ordered()
+    refuse_unported_axes(ordered)
+    world, rank = pdist.process_count(), pdist.process_index()
+    if mesh_spec.size != world:
+        raise ValueError(
+            f"mesh {ordered} needs {mesh_spec.size} processes (one per "
+            f"device); the world has {world} (--dist_world_size)")
+    D, S = ordered.get(DATA_AXIS, 1), ordered.get(SEQ_AXIS, 1)
+    mesh = Mesh(axes=ordered, rank=rank, world=world,
+                seq_ranks=tuple(range(rank - rank % S, rank - rank % S + S)))
+    if D > 1 and S > 1:   # with one axis of size 1, the other's is WORLD
+        mesh.data_group = _groups(
+            [list(range(s, world, S)) for s in range(S)], rank)
+        mesh.seq_group = _groups(
+            [list(range(d * S, d * S + S)) for d in range(D)], rank)
+    if S > 1:
+        mesh.ring = RingTransport(mesh.seq_ranks, rank)
+    logger.info("Built process mesh %s: rank %d at data %d, seq %d.",
+                ordered, rank, mesh.data_index, mesh.seq_index)
+    return mesh

@@ -1,0 +1,281 @@
+"""ZeRO-1 layout and the sequence split of a batch (the port of the parts of
+``ml_recipe_tpu/parallel/sharding.py`` that the optimizer, the checkpoints
+and the trainer share).
+
+The JAX package plans every optimizer-state leaf once
+(:func:`_zero_leaf_plan`): the ``data`` axis lands on the largest dimension
+that the axis size divides, or, when none does, on the largest dimension
+zero-padded up to the next multiple; leaves below ``min_size`` elements
+(and scalars) stay whole on every device. The stored state has the padded
+shape, so a checkpoint written at ``data:N`` holds padded moments, and a
+restore crops or zero-fills them onto the live layout. The pad region is
+zeros by construction (padded gradients are zero there, so the moments
+never leave zero) and never feeds a real element's update.
+
+The plan reads flax shapes (``Dense.kernel`` is ``[in, out]``); the port's
+``Linear.weight`` is ``[out, in]``, so :func:`zero1_param_plan` plans each
+parameter on its flax shape and maps the axis onto the tensor.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .mesh import DATA_AXIS
+
+MIN_SIZE = 16384
+
+
+class ZeroLeafPlan(NamedTuple):
+    """One leaf's ZeRO-1 placement: ``spec`` names the axis of every
+    dimension (None or ``"data"``), ``axis``/``padded`` the dimension
+    carrying ``data`` and its padded extent (``axis is None``: whole on
+    every rank; ``padded == shape[axis]``: no padding)."""
+
+    spec: Tuple[Optional[str], ...]
+    axis: Optional[int]
+    padded: Optional[int]
+
+
+def _zero_leaf_plan(path, shape, *, data_size: int,
+                    min_size: int = MIN_SIZE) -> ZeroLeafPlan:
+    """The one dimension chooser (the JAX package's ``_zero_leaf_plan``
+    without tensor or pipeline axes, which the port refuses): the largest
+    dimension ``data_size`` divides, else the largest dimension (of at least
+    2) padded to the next multiple; replicated below ``min_size`` elements
+    or at ``data_size`` 1. ``path`` is accepted for the JAX signature's
+    sake; without tensor-parallel rules no decision reads it."""
+    del path
+    shape = tuple(int(d) for d in shape)
+    axes = [None] * len(shape)
+    if data_size <= 1 or int(np.prod(shape or (0,))) < min_size:
+        return ZeroLeafPlan(tuple(axes), None, None)
+    free = [(dim, i) for i, dim in enumerate(shape)]
+    divisible = [(dim, i) for dim, i in free if dim % data_size == 0]
+    if divisible:
+        dim, i = max(divisible)
+        padded = dim
+    elif free and max(free)[0] >= 2:
+        dim, i = max(free)
+        padded = -(-dim // data_size) * data_size
+    else:
+        return ZeroLeafPlan(tuple(axes), None, None)
+    axes[i] = DATA_AXIS
+    return ZeroLeafPlan(tuple(axes), i, padded)
+
+
+def _walk(tree: dict, prefix=()):
+    for key, value in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(value, dict):
+            yield from _walk(value, path)
+        else:
+            yield path, value
+
+
+def _map(fn, tree: dict, *others):
+    return {key: (_map(fn, value, *(o[key] for o in others))
+                  if isinstance(value, dict)
+                  else fn(value, *(o[key] for o in others)))
+            for key, value in tree.items()}
+
+
+def zero1_plan(tree: dict, *, data_size: int,
+               min_size: int = MIN_SIZE) -> dict:
+    """One :class:`ZeroLeafPlan` per leaf of a nested dict of arrays (only
+    ``.shape`` is read), in the tree's structure."""
+    return _map(lambda leaf: _zero_leaf_plan(
+        None, np.shape(leaf), data_size=data_size, min_size=min_size), tree)
+
+
+def _pad_leaf(x, z: ZeroLeafPlan):
+    if z.axis is None or z.padded == x.shape[z.axis]:
+        return x
+    widths = [(0, 0)] * x.ndim
+    widths[z.axis] = (0, z.padded - x.shape[z.axis])
+    return np.pad(np.asarray(x), widths)
+
+
+def zero_pad_tree(tree: dict, plan: dict) -> dict:
+    """Zero-pad each leaf along its plan axis to the padded extent."""
+    return _map(_pad_leaf, tree, plan)
+
+
+def zero_unpad_tree(tree: dict, plan: dict, logical: dict) -> dict:
+    """Slice padded leaves back to the shapes of ``logical``."""
+    def unpad(x, z, ref):
+        shape = tuple(np.shape(ref))
+        if z.axis is None or tuple(x.shape) == shape:
+            return x
+        return x[tuple(slice(0, s) for s in shape)]
+    return _map(unpad, tree, plan, logical)
+
+
+def zero1_state_bytes(state_shapes: dict, *, data_size: int,
+                      min_size: int = MIN_SIZE) -> dict:
+    """Modeled optimizer-state bytes per rank at ``data_size``: every leaf
+    whole (``replicated_bytes``), each planned leaf's padded slice and the
+    rest whole (``zero1_bytes``), and the whole bytes of the planned leaves
+    (``sharded_bytes``)."""
+    data_size = max(1, int(data_size))
+    full = zero1 = sharded = 0
+    for _, leaf in _walk(state_shapes):
+        shape = tuple(np.shape(leaf))
+        size = np.dtype(getattr(leaf, "dtype", np.float32)).itemsize
+        n = int(np.prod(shape or (1,), dtype=np.int64)) * size
+        z = _zero_leaf_plan(None, shape, data_size=data_size,
+                            min_size=min_size)
+        full += n
+        if z.axis is None:
+            zero1 += n
+            continue
+        slice_shape = list(shape)
+        slice_shape[z.axis] = z.padded // data_size
+        zero1 += int(np.prod(slice_shape, dtype=np.int64)) * size
+        sharded += n
+    return {"data_size": data_size, "replicated_bytes": full,
+            "zero1_bytes": zero1, "sharded_bytes": sharded}
+
+
+def opt_state_bytes_per_chip(optimizer) -> int:
+    """Measured bytes of the optimizer state this rank holds: every moment
+    tensor it keeps (under ZeRO-1 a planned leaf's slice)."""
+    return int(sum(t.numel() * t.element_size()
+                   for t in optimizer.state_tensors()))
+
+
+class ParamSlice(NamedTuple):
+    """A parameter's ZeRO-1 placement on the port's tensor: ``axis`` (None:
+    whole) and ``padded`` are in the tensor's own orientation; ``plan`` is
+    the JAX package's on the flax shape."""
+
+    axis: Optional[int]
+    padded: Optional[int]
+    plan: ZeroLeafPlan
+
+
+def flax_shape(name: str, shape: Sequence[int]) -> Tuple[int, ...]:
+    """The flax shape of the port's parameter ``name`` (a kernel is the
+    transpose of ``Linear.weight``)."""
+    shape = tuple(int(d) for d in shape)
+    return shape[::-1] if _is_kernel(name) else shape
+
+
+def _is_kernel(name: str) -> bool:
+    from ..models.convert import jax_path   # models import this module
+
+    return jax_path(name)[-1] == "kernel"
+
+
+def zero1_param_plan(named_shapes: Iterable[Tuple[str, Sequence[int]]], *,
+                     data_size: int, min_size: int = MIN_SIZE
+                     ) -> Dict[str, ParamSlice]:
+    """:func:`_zero_leaf_plan` of each parameter on its flax shape, mapped
+    onto the port's tensor (a kernel's flax axis ``i`` is the weight's
+    ``ndim - 1 - i``)."""
+    out = {}
+    for name, shape in named_shapes:
+        fshape = flax_shape(name, shape)
+        z = _zero_leaf_plan(None, fshape, data_size=data_size,
+                            min_size=min_size)
+        axis = z.axis
+        if axis is not None and _is_kernel(name):
+            axis = len(fshape) - 1 - axis
+        out[name] = ParamSlice(axis, z.padded, z)
+    return out
+
+
+def pad_to(t: torch.Tensor, axis: int, padded: int) -> torch.Tensor:
+    """``t`` zero-padded along ``axis`` to ``padded`` (``t`` itself when it
+    is that long already)."""
+    extra = padded - t.shape[axis]
+    if extra == 0:
+        return t
+    shape = list(t.shape)
+    shape[axis] = extra
+    return torch.cat([t, t.new_zeros(shape)], dim=axis)
+
+
+def local_slice(t: torch.Tensor, z: ParamSlice, index: int,
+                size: int) -> torch.Tensor:
+    """Rank ``index``'s contiguous copy of ``t``'s padded slice (``t``
+    itself for a whole leaf)."""
+    if z.axis is None:
+        return t
+    chunk = z.padded // size
+    return pad_to(t, z.axis, z.padded).narrow(
+        z.axis, index * chunk, chunk).contiguous()
+
+
+def seq_split(x: torch.Tensor, index: int, size: int,
+              dim: int = 1) -> torch.Tensor:
+    """Block ``index`` of ``size`` equal blocks of ``x`` along ``dim`` (the
+    ``seq`` placement of a ``[B, L, ...]`` batch leaf, the JAX package's
+    ``batch_pspec(shard_seq=True)``)."""
+    if size <= 1:
+        return x
+    L = x.shape[dim]
+    if L % size:
+        raise ValueError(f"sequence length {L} does not split over a seq "
+                         f"axis of {size}")
+    return x.narrow(dim, index * (L // size), L // size)
+
+
+class LocalPiece(NamedTuple):
+    """This rank's piece of a ZeRO-1 leaf for a sharded checkpoint, in the
+    flax orientation: the padded leaf's ``shape``, the piece's ``bounds``
+    (``[start, stop]`` per dimension) and ``data``, the leaf's ``shards``
+    count, and whether this rank writes it (``owner``: the first rank of
+    its ``seq`` group; the others hold a replica)."""
+
+    shape: Tuple[int, ...]
+    bounds: Tuple[Tuple[int, int], ...]
+    data: np.ndarray
+    shards: int
+    owner: bool
+
+
+class Zero1:
+    """The ZeRO-1 layout of one optimizer: each parameter's placement
+    (:func:`zero1_param_plan`), this rank's ``index`` on the ``data`` axis
+    of ``size`` ranks, the ``group`` the slices are gathered over, and
+    whether this rank writes its pieces into sharded checkpoints
+    (``owner``)."""
+
+    def __init__(self, plan: Dict[str, ParamSlice], *, index: int, size: int,
+                 group=None, owner: bool = True):
+        self.plan, self.index, self.size = dict(plan), int(index), int(size)
+        self.group, self.owner = group, bool(owner)
+
+    def local(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of ``t`` (``t`` itself for a whole leaf)."""
+        return local_slice(t, self.plan[name], self.index, self.size)
+
+    def sharded(self, name: str) -> bool:
+        return self.plan[name].axis is not None
+
+    def gather(self, name: str, piece: torch.Tensor) -> torch.Tensor:
+        """Every rank's slice of a planned leaf, as the padded whole."""
+        from .collectives import all_gather_cat
+
+        return all_gather_cat(piece, self.group, dim=self.plan[name].axis)
+
+    def unpad(self, name: str, padded: torch.Tensor,
+              shape: Sequence[int]) -> torch.Tensor:
+        z = self.plan[name]
+        return padded.narrow(z.axis, 0, int(shape[z.axis]))
+
+    def piece(self, name: str, data: np.ndarray) -> LocalPiece:
+        """:class:`LocalPiece` of this rank's slice ``data`` (flax
+        orientation) of the planned leaf ``name``."""
+        z = self.plan[name].plan
+        chunk = z.padded // self.size
+        shape = list(data.shape)
+        shape[z.axis] = z.padded
+        bounds = tuple((self.index * chunk, (self.index + 1) * chunk)
+                       if i == z.axis else (0, int(d))
+                       for i, d in enumerate(shape))
+        return LocalPiece(tuple(shape), bounds, data, self.size, self.owner)

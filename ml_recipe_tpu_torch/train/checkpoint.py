@@ -35,9 +35,18 @@ directory is the JAX layout::
                            # folded crc32
       shard-00000.msgpack  # {"global_step", "shards": {group: {leaf:
                            #   [{"bounds", "data", "crc32"}]}}}
-      shard-00001.msgpack  # one per process; every leaf is replicated
-      ...                  # and owned by process 0, so the others hold
-                           # {"global_step", "shards": {}}
+      shard-00001.msgpack  # one per process; a replicated leaf is owned
+      ...                  # by process 0 (the others hold
+                           # {"global_step", "shards": {}})
+
+Under ZeRO-1 (``train/optim.py``) the optimizer's planned leaves are
+stored at their padded shape, as the JAX package stores them at the same
+mesh: the single file holds the gathered whole, and in the directory every
+``seq_index`` 0 process writes its own slice of each as one piece (the
+leaf's ``shards`` is the data-axis size, the manifest's ``shards`` the
+widest optimizer leaf's, and only leaves that process 0 writes whole carry
+a folded crc32 in the manifest, as in the JAX writer). A restore crops or
+zero-fills every moment onto the live layout.
 
 Leaves are keyed ``a/b/c``; an empty subtree (optax's ``EmptyState``) is an
 ``{"empty": True}`` leaf. The shard file is written first into
@@ -67,6 +76,7 @@ from torch import nn
 
 from ..models.convert import from_jax_params, to_jax_params
 from ..parallel.dist import barrier
+from ..parallel.sharding import LocalPiece
 from ..utils.msgpack import packb, unpackb
 
 logger = logging.getLogger(__name__)
@@ -153,10 +163,10 @@ def _atomic_write(path: str, blob: bytes) -> None:
 
 
 def _training_groups(model: nn.Module, optimizer, loss_scale=None, *,
-                     copy: bool = False) -> dict:
+                     copy: bool = False, local: bool = False) -> dict:
     groups = {"model": to_jax_params(model.state_dict(), copy=copy)}
     if optimizer is not None:
-        groups["optimizer"] = optimizer.flax_state(copy=copy)
+        groups["optimizer"] = optimizer.flax_state(copy=copy, local=local)
     if loss_scale is not None:
         groups["loss_scale"] = loss_scale.state_dict()
     return groups
@@ -316,8 +326,9 @@ def snapshot_state_sharded(*, model: nn.Module, optimizer=None,
                            process_index: int = 0, process_count: int = 1,
                            copy: bool = False) -> dict:
     """This process's part of a sharded save on the host: the manifest
-    and the pieces it owns (every leaf is replicated and owned by process
-    0, recorded with ``shards`` 1; the others own none). ``copy`` as in
+    and the pieces it owns (a replicated leaf is owned by process 0,
+    recorded with ``shards`` 1; a ZeRO-1 leaf's pieces by the processes
+    holding them, see the module docstring). ``copy`` as in
     :func:`snapshot_state`."""
     step = int(global_step)
     manifest = {"format": SHARDED_FORMAT, "global_step": step,
@@ -326,13 +337,31 @@ def snapshot_state_sharded(*, model: nn.Module, optimizer=None,
     if extra:
         manifest["extra"] = dict(extra)
     owned: dict = {}
-    groups = (_training_groups(model, optimizer, loss_scale, copy=copy)
-              if process_index == 0 else {})
+    zero = getattr(optimizer, "zero", None) is not None
+    if process_index == 0:
+        groups = _training_groups(model, optimizer, loss_scale, copy=copy,
+                                  local=zero)
+    elif zero:
+        groups = {"optimizer": optimizer.flax_state(copy=copy, local=True)}
+    else:
+        groups = {}
     for gname, tree in groups.items():
         leaves = manifest["groups"][gname] = {}
         for key, leaf in _flatten(tree).items():
             if leaf is _EMPTY:
                 leaves[key] = {"empty": True}
+                continue
+            if isinstance(leaf, LocalPiece):
+                leaves[key] = {"shape": list(leaf.shape),
+                               "dtype": str(leaf.data.dtype),
+                               "shards": int(leaf.shards)}
+                if leaf.owner:
+                    data = np.ascontiguousarray(leaf.data)
+                    owned.setdefault(gname, {})[key] = [
+                        {"bounds": [list(b) for b in leaf.bounds],
+                         "data": data, "crc32": _crc32_of(data)}]
+                continue
+            if process_index != 0:
                 continue
             arr = np.asarray(leaf)
             bounds = [[0, int(d)] for d in arr.shape]
@@ -342,7 +371,9 @@ def snapshot_state_sharded(*, model: nn.Module, optimizer=None,
             leaves[key] = {"shape": list(arr.shape), "dtype": str(arr.dtype),
                            "shards": 1,
                            "crc32": _fold_piece_crcs([(bounds, crc)])}
-    manifest["shards"] = 1
+    manifest["shards"] = max([int(m.get("shards", 1)) for m in
+                              manifest["groups"].get("optimizer", {}).values()
+                              if not m.get("empty")] or [1])
     return {"manifest": manifest, "owned": owned, "global_step": step,
             "process_index": int(process_index),
             "process_count": int(process_count)}

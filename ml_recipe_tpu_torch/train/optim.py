@@ -35,6 +35,19 @@ c)`` (``torch.nn.utils.clip_grad_norm_`` divides by ``norm + 1e-6``).
 ``flax_state`` / ``load_flax_state`` read and write each chain's optax
 state-dict layout (the masked wrapper included, a frozen leaf's moments as
 ``{}``), so checkpoints cross between the packages.
+
+ZeRO-1 (``zero``, a ``parallel.sharding.Zero1``; the JAX trainer's
+``--optimizer_sharding zero1`` step at ``trainer.py:1598-1624``): a rank
+keeps the moments of its padded slice of each planned parameter only
+(small parameters stay whole). The step runs the same elementwise chain on
+the slices of the (all-reduced, clipped) gradient and of the parameter,
+then all-gathers the updated slices over the ``data`` group into the
+whole parameter on every rank, so the result is the unsharded step's bit
+for bit. ``flax_state`` gathers the padded moments (the layout the JAX
+package stores at the same mesh; ``local=True`` gives each rank's pieces
+for a sharded checkpoint instead), and ``load_flax_state`` crops or
+zero-fills any saved layout, padded at any data size or whole, onto this
+one.
 """
 
 from __future__ import annotations
@@ -46,6 +59,7 @@ import numpy as np
 import torch
 
 from ..models.convert import from_jax_params, jax_path, to_jax_params
+from ..parallel.sharding import Zero1
 
 logger = logging.getLogger(__name__)
 
@@ -143,8 +157,10 @@ class _Chain:
 
     def __init__(self, params: Dict[str, torch.nn.Parameter], *,
                  schedule: Callable[[int], float], weight_decay: float,
-                 frozen: Optional[Sequence[str]] = None):
+                 frozen: Optional[Sequence[str]] = None,
+                 zero: Optional[Zero1] = None):
         self.params = dict(params)
+        self.zero = zero
         for name, p in self.params.items():
             if p.dtype != torch.float32:
                 raise ValueError(f"{name}: the optimizer updates f32 master "
@@ -155,7 +171,35 @@ class _Chain:
         self.decay = no_decay_mask(self.params)
 
     def _zeros(self) -> Dict[str, torch.Tensor]:
-        return {n: torch.zeros_like(p) for n, p in self.params.items()}
+        return {n: torch.zeros_like(self._local(n, p.detach()))
+                for n, p in self.params.items()}
+
+    def _local(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's part of a whole tensor of parameter ``name``."""
+        return t if self.zero is None else self.zero.local(name, t)
+
+    def _views(self, grads: Dict[str, torch.Tensor]):
+        """``(names, params, grads)`` the chain updates: the parameters
+        themselves, or under ZeRO-1 copies of this rank's slices."""
+        names = list(self.params)
+        return (names, [self._local(n, self.params[n].detach()) for n in names],
+                [self._local(n, grads[n]) for n in names])
+
+    def _publish(self, names, ps) -> None:
+        """Under ZeRO-1, every rank's updated slices into the whole
+        parameters (the step's all-gather over ``data``)."""
+        if self.zero is None:
+            return
+        for name, piece in zip(names, ps):
+            if self.zero.sharded(name):
+                p = self.params[name]
+                p.copy_(self.zero.unpad(name, self.zero.gather(name, piece),
+                                        p.shape))
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        """Every moment tensor this rank holds."""
+        return [t for moments in self._moments().values()
+                for t in moments.values()]
 
     def lr(self) -> float:
         """The learning rate the next ``step`` applies."""
@@ -166,10 +210,24 @@ class _Chain:
 
     # -- the optax state-dict layout ------------------------------------------
 
-    def _tree(self, moments: Dict[str, torch.Tensor], copy: bool) -> dict:
+    def _tree(self, moments: Dict[str, torch.Tensor], copy: bool,
+              local: bool = False) -> dict:
         """A moment dict as the flax tree of the whole model: a frozen
-        leaf is ``{}`` (optax ``MaskedNode``)."""
+        leaf is ``{}`` (optax ``MaskedNode``). Under ZeRO-1 a planned
+        leaf is the gathered padded whole, or with ``local`` this rank's
+        ``LocalPiece``."""
+        if self.zero is not None and not local:
+            moments = {n: self.zero.gather(n, m) if self.zero.sharded(n)
+                       else m for n, m in moments.items()}
         tree = to_jax_params(moments, copy=copy)
+        if self.zero is not None and local:
+            for name in moments:
+                if self.zero.sharded(name):
+                    *parents, leaf = jax_path(name)
+                    node = tree
+                    for part in parents:
+                        node = node[part]
+                    node[leaf] = self.zero.piece(name, node[leaf])
         for name in self.frozen or ():
             *parents, leaf = jax_path(name)
             node = tree
@@ -179,23 +237,38 @@ class _Chain:
         return tree
 
     def _read_tree(self, tree: dict) -> Dict[str, torch.Tensor]:
+        """The saved moments on this rank's layout: each leaf, padded by a
+        ZeRO-1 save at any data size or whole, corner-cropped and
+        zero-filled to its parameter's shape (the JAX trainer's
+        ``reconcile_state_shapes``; the pad region holds zeros), then
+        sliced for this rank."""
         moments = from_jax_params(tree)   # a {} leaf holds nothing
         if set(moments) != set(self.params):
             raise ValueError("checkpoint optimizer moments do not match the "
                              "model's trainable parameters")
         for name, p in self.params.items():
-            if moments[name].shape != p.shape:
-                raise ValueError(f"{name}: moment shape "
-                                 f"{tuple(moments[name].shape)} != parameter "
-                                 f"shape {tuple(p.shape)}")
+            m = moments[name]
+            if m.dim() != p.dim():
+                raise ValueError(f"{name}: moment shape {tuple(m.shape)} "
+                                 f"does not fit parameter shape "
+                                 f"{tuple(p.shape)}")
+            if m.shape != p.shape:
+                m = m[tuple(slice(0, min(a, b))
+                            for a, b in zip(m.shape, p.shape))]
+                fill = torch.zeros(p.shape, dtype=m.dtype)
+                fill[tuple(slice(0, d) for d in m.shape)] = m
+                m = fill
+            moments[name] = self._local(name, m)
         return moments
 
-    def flax_state(self, *, copy: bool = False) -> dict:
+    def flax_state(self, *, copy: bool = False, local: bool = False) -> dict:
         """``flax.serialization.to_state_dict`` of the JAX optimizer state:
         the core chain in the outer one-element chain, and under
         ``--finetune`` that in ``chain(masked(tx), masked(set_to_zero))``.
-        ``copy``: no leaf shares memory with a live moment."""
-        core = {"0": self._core_state(copy)}
+        ``copy``: no leaf shares memory with a live moment. Under ZeRO-1
+        every rank of the ``data`` group must call it (it gathers), unless
+        ``local``, which leaves each planned leaf as this rank's piece."""
+        core = {"0": self._core_state(copy, local)}
         if self.frozen is None:
             return core
         return {"0": {"inner_state": core}, "1": {"inner_state": {}}}
@@ -222,9 +295,10 @@ class AdamW(_Chain):
     def __init__(self, params: Dict[str, torch.nn.Parameter], *,
                  schedule: Callable[[int], float], weight_decay: float,
                  frozen: Optional[Sequence[str]] = None,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
+                 zero: Optional[Zero1] = None):
         super().__init__(params, schedule=schedule, weight_decay=weight_decay,
-                         frozen=frozen)
+                         frozen=frozen, zero=zero)
         self.b1, self.b2, self.eps = b1, b2, eps
         self.mu = self._zeros()
         self.nu = self._zeros()
@@ -236,9 +310,7 @@ class AdamW(_Chain):
         """Apply one update from ``grads`` (f32, by name); returns the lr
         it applied."""
         lr = self.lr()
-        names = list(self.params)
-        ps = [self.params[n] for n in names]
-        gs = [grads[n] for n in names]
+        names, ps, gs = self._views(grads)
         mus = [self.mu[n] for n in names]
         nus = [self.nu[n] for n in names]
 
@@ -255,16 +327,20 @@ class AdamW(_Chain):
                                    self.weight_decay))
         torch._foreach_mul_(updates, -lr)
         torch._foreach_add_(ps, updates)
+        self._publish(names, ps)
         self.count += 1
         self.schedule_count += 1
         return lr
 
-    def _core_state(self, copy: bool) -> dict:
+    def _moments(self) -> dict:
+        return {"mu": self.mu, "nu": self.nu}
+
+    def _core_state(self, copy: bool, local: bool = False) -> dict:
         """``chain(scale_by_adam, masked(add_decayed_weights),
         scale_by_schedule)``."""
         return {"0": {"count": np.asarray(self.count, np.int32),
-                      "mu": self._tree(self.mu, copy),
-                      "nu": self._tree(self.nu, copy)},
+                      "mu": self._tree(self.mu, copy, local),
+                      "nu": self._tree(self.nu, copy, local)},
                 "1": {"inner_state": {}},
                 "2": {"count": np.asarray(self.schedule_count, np.int32)}}
 
@@ -286,9 +362,9 @@ class AdaMod(_Chain):
                  schedule: Callable[[int], float], weight_decay: float,
                  frozen: Optional[Sequence[str]] = None,
                  b1: float = 0.9, b2: float = 0.999, beta3: float = 0.999,
-                 eps: float = 1e-8):
+                 eps: float = 1e-8, zero: Optional[Zero1] = None):
         super().__init__(params, schedule=schedule, weight_decay=weight_decay,
-                         frozen=frozen)
+                         frozen=frozen, zero=zero)
         self.b1, self.b2, self.beta3, self.eps = b1, b2, beta3, eps
         self.exp_avg = self._zeros()
         self.exp_avg_sq = self._zeros()
@@ -310,9 +386,7 @@ class AdaMod(_Chain):
         bias1 = f32(1) - f32(self.b1) ** t
         bias2 = f32(1) - f32(self.b2) ** t
         step_scale = float(f32(lr) * np.sqrt(bias2) / bias1)
-        names = list(self.params)
-        ps = [self.params[n] for n in names]
-        gs = [grads[n] for n in names]
+        names, ps, gs = self._views(grads)
         ms = [self.exp_avg[n] for n in names]
         vs = [self.exp_avg_sq[n] for n in names]
         es = [self.exp_avg_lr[n] for n in names]
@@ -337,15 +411,19 @@ class AdaMod(_Chain):
                 torch._foreach_mul([ps[i] for i in decaying],
                                    float(f32(self.weight_decay) * f32(lr))))
         torch._foreach_add_(ps, size)
+        self._publish(names, ps)
         self.count += 1
         return lr
 
-    def _core_state(self, copy: bool) -> dict:
+    def _moments(self) -> dict:
+        return {"exp_avg": self.exp_avg, "exp_avg_sq": self.exp_avg_sq,
+                "exp_avg_lr": self.exp_avg_lr}
+
+    def _core_state(self, copy: bool, local: bool = False) -> dict:
         """``AdaModState(count, exp_avg, exp_avg_sq, exp_avg_lr)``."""
         return {"count": np.asarray(self.count, np.int32),
-                "exp_avg": self._tree(self.exp_avg, copy),
-                "exp_avg_sq": self._tree(self.exp_avg_sq, copy),
-                "exp_avg_lr": self._tree(self.exp_avg_lr, copy)}
+                **{key: self._tree(value, copy, local)
+                   for key, value in self._moments().items()}}
 
     def _load_core(self, core: dict) -> None:
         moments = {key: self._read_tree(core[key])
@@ -361,11 +439,13 @@ OPTIMIZERS = {"adam": AdamW, "adamod": AdaMod}
 
 
 def build_optimizer(trainer_params, params: Dict[str, torch.nn.Parameter], *,
-                    num_training_steps: int, warmup_coef=None) -> _Chain:
+                    num_training_steps: int, warmup_coef=None,
+                    zero: Optional[Zero1] = None) -> _Chain:
     """Optimizer + schedule (reference init.py:134-145, trainer.py:116-126).
     ``warmup_coef``, when given, overrides ``trainer_params.warmup_coef``.
     Under ``--finetune`` the parameters outside :func:`trainable_mask` get
-    ``requires_grad_(False)`` here and stay out of the optimizer."""
+    ``requires_grad_(False)`` here and stay out of the optimizer. ``zero``:
+    the ZeRO-1 layout (None: every moment whole)."""
     name = getattr(trainer_params, "optimizer", "adam")
     if name not in OPTIMIZERS:
         raise ValueError(f"--optimizer {name!r}: choose from "
@@ -390,4 +470,4 @@ def build_optimizer(trainer_params, params: Dict[str, torch.nn.Parameter], *,
                  if tmask is None or tmask[n]}
     return OPTIMIZERS[name](trainable, schedule=schedule,
                             weight_decay=trainer_params.weight_decay,
-                            frozen=frozen)
+                            frozen=frozen, zero=zero)

@@ -68,11 +68,37 @@ sharded-directory layout instead of one file; a resume reads either
 the host snapshot, and the write runs on a background thread
 (``resilience/checkpoint_async.py``) that ``finish_pending_checkpoint``
 waits for; a sharded save in a world of several processes stays
-synchronous (its barriers must not run beside the step's collectives). Left out (their flags are refused by
-``config.parser.check_train_flags``, or accepted and ignored where they
-change no result): pipeline, tensor and sequence parallelism beyond data
-parallelism (ZeRO-1 is accepted at world size 1, where it is inert), the
-AOT store, telemetry, the watchdog and the HBM pre-flight.
+synchronous (its barriers must not run beside the step's collectives).
+
+The mesh (``parallel/mesh.py``, ``--mesh data:D,seq:S``, by default
+``data:W``): the W = D*S processes sit at ``(data_index, seq_index)``.
+Everything above that speaks of processes' rows speaks of the data
+coordinate: the samplers and loaders slice the global batch by
+``data_index`` of D (the S ranks of a ``seq`` group receive the same
+rows), the dropout rows and the loss denominators are the data group's.
+With S > 1 the model runs sequence-parallel (``attention_impl='ring'``,
+``models/encoder.py``): each rank of a ``seq`` group computes the whole
+loss of its data group's rows, so each loss is scaled by ``1/S`` before
+``backward()`` and the world's gradient sum is the gradient of the global
+loss (``sum`` over ``seq``, the data group's partial losses summed over
+``data``, one all-reduce over the world). Eval runs the same ring and
+gathers the predictions over the ``data`` group.
+
+ZeRO-1 (``optimizer_sharding='zero1'``, active when D > 1, as the JAX
+trainer's ``zero_enabled``): the optimizer keeps the moments of this
+rank's padded slice of each planned parameter (``train/optim.py``), after
+the same all-reduce and clip, and all-gathers the updated slices over
+``data``. Checkpoints record ``opt_sharding`` ``'zero1'`` (only then) and
+the mesh's axes as ``mesh_axes``, and hold the padded moments the JAX
+trainer writes at the same mesh: the single file gathers them (every
+process takes part, rank 0 writes), the sharded directory has each
+``seq_index`` 0 process write its pieces. A resume crops or zero-fills
+any saved layout onto the live one.
+
+Left out (their flags are refused by ``config.parser.check_train_flags``,
+or accepted and ignored where they change no result): pipeline and tensor
+parallelism, ``--zero1_overlap bucketed``, the AOT store, telemetry, the
+watchdog and the HBM pre-flight.
 """
 
 from __future__ import annotations
@@ -102,6 +128,9 @@ from ..losses import PackedWeightedLoss
 from ..metrics.meters import AverageMeter
 from ..parallel import collectives
 from ..parallel import dist as pdist
+from ..parallel.mesh import build_mesh
+from ..parallel.plan import ParallelPlan
+from ..parallel.sharding import MIN_SIZE, Zero1, opt_state_bytes_per_chip
 from ..resilience.checkpoint_async import AsyncCheckpointer
 from . import checkpoint as ckpt
 from . import loss_scale as ls_lib
@@ -112,11 +141,12 @@ from .writer import init_writer
 logger = logging.getLogger(__name__)
 
 
-def checkpoint_extra(world: int = 1) -> dict:
+def checkpoint_extra(mesh_axes=None, zero1: bool = False) -> dict:
     """Every checkpoint's topology record (the JAX trainer's
-    ``_checkpoint_extra`` on a ``data:W`` mesh of one device per
-    process)."""
-    return {"opt_sharding": "off", "mesh_axes": {"data": int(world)},
+    ``_checkpoint_extra``): the optimizer layout that is live (``zero1``
+    only when it shards) and the mesh's axes (default ``data:1``)."""
+    return {"opt_sharding": "zero1" if zero1 else "off",
+            "mesh_axes": dict(mesh_axes or {"data": 1}),
             "pipe_schedule": None, "pipe_param_layout": None}
 
 
@@ -180,6 +210,9 @@ class Trainer:
         pack_max_segments: int = DEFAULT_MAX_SEGMENTS,
         pack_splitting="off",
         pack_min_fragment: int = DEFAULT_MIN_FRAGMENT,
+        mesh=None,
+        optimizer_sharding: str = "off",
+        zero_min_size: int = MIN_SIZE,
     ):
         self.model = model
         self.device = model.device
@@ -206,19 +239,29 @@ class Trainer:
         self.eval_batches = 0   # eval batches run, over every test() call
 
         self.process_index = pdist.process_index()
-        self.process_count = world = pdist.process_count()
+        self.process_count = pdist.process_count()
         self.is_primary = self.process_index == 0
+        self.mesh = mesh if mesh is not None else build_mesh()
+        self.plan = ParallelPlan.from_mesh(self.mesh)
+        # rows follow the data coordinate: a seq group shares its rows
+        world = self.plan.data_size
+        self.seq_size = self.plan.seq_size
+        if optimizer_sharding not in ("off", "zero1"):
+            raise ValueError(f"optimizer_sharding must be 'off' or 'zero1'; "
+                             f"got {optimizer_sharding!r}")
+        self.opt_sharding_mode = optimizer_sharding
+        self.zero_min_size = int(zero_min_size)
         if train_dataset is not None and (
                 train_batch_size % world
                 or (train_batch_size // world) % batch_split):
             raise ValueError(
                 f"train_batch_size {train_batch_size} must split over {world} "
-                f"processes into batch_split={batch_split} equal "
+                f"data-parallel ranks into batch_split={batch_split} equal "
                 f"micro-batches each")
         if test_dataset is not None and test_batch_size % world:
             raise ValueError(f"test_batch_size {test_batch_size} must divide "
-                             f"over {world} processes")
-        shard = dict(process_index=self.process_index, process_count=world)
+                             f"over {world} data-parallel ranks")
+        shard = dict(process_index=self.mesh.data_index, process_count=world)
 
         max_len = getattr(collate_fun, "keywords", {}).get("max_seq_len")
         self._packing = self._resolve_packing(
@@ -311,7 +354,12 @@ class Trainer:
                             f"{int(num_training_steps * warmup_coef)}.")
             self.optimizer = build_optimizer(
                 trainer_params, dict(model.named_parameters()),
-                num_training_steps=num_training_steps, warmup_coef=warmup_coef)
+                num_training_steps=num_training_steps, warmup_coef=warmup_coef,
+                zero=self._zero_layout(model))
+            if self.optimizer.zero is not None:
+                logger.info("ZeRO-1: optimizer state sharded over the %d-way "
+                            "data axis (%.1f MB on this rank).", world,
+                            opt_state_bytes_per_chip(self.optimizer) / 1e6)
             flag = getattr(trainer_params, "apex_loss_scale", None)
             if flag not in (None, "None"):
                 self.loss_scale = ls_lib.init_state(flag)
@@ -320,13 +368,39 @@ class Trainer:
 
         self.global_step = 0
         self.writer = init_writer(self.is_primary, writer_dir)
-        if world > 1:
+        if self.process_count > 1:
             # the replicas start equal (the reference's DDP wrapper)
             collectives.broadcast_parameters(model.named_parameters())
             logger.info("Data parallel: process %d of %d, %d rows of every "
                         "global batch of %d, in %d micro-batches.",
-                        self.process_index, world, train_batch_size // world,
-                        train_batch_size, batch_split)
+                        self.process_index, self.process_count,
+                        train_batch_size // world, train_batch_size,
+                        batch_split)
+            if self.seq_size > 1:
+                logger.info("Mesh %s: process %d at data %d, seq %d of a "
+                            "ring of %d over each row's tokens.",
+                            self.plan.describe(), self.process_index,
+                            self.mesh.data_index, self.mesh.seq_index,
+                            self.seq_size)
+
+    def zero_enabled(self) -> bool:
+        """``zero1`` requested and a data axis > 1 to shard over (at data
+        size 1 it is inert, as in the JAX trainer)."""
+        return self.opt_sharding_mode == "zero1" and self.plan.data_size > 1
+
+    @property
+    def effective_opt_sharding(self) -> str:
+        return "zero1" if self.zero_enabled() else "off"
+
+    def _zero_layout(self, model) -> Optional[Zero1]:
+        if not self.zero_enabled():
+            return None
+        plan = self.plan.zero1(
+            ((n, p.shape) for n, p in model.named_parameters()),
+            min_size=self.zero_min_size)
+        return Zero1(plan, index=self.mesh.data_index,
+                     size=self.plan.data_size, group=self.mesh.data_group,
+                     owner=self.mesh.seq_index == 0)
 
     def _resolve_packing(self, sequence_packing, pack_splitting,
                          length_buckets) -> bool:
@@ -398,6 +472,30 @@ class Trainer:
             return iter(prefetcher), prefetcher
         return (place(b) for b in loader), None
 
+    def _seq_consistent(self, tensors: dict) -> dict:
+        """With a ``seq`` axis, the first rank's batch on every rank of its
+        ``seq`` group (broadcast): the group computes blocks of one set of
+        rows, whatever a rank's own dataset drew (a chunk sampler without a
+        seed draws per process). Raises when the ranks' shapes differ."""
+        if self.seq_size < 2:
+            return tensors
+        flat = [(part, key) for part in ("inputs", "labels")
+                for key in sorted(tensors[part])]
+        shapes = torch.tensor([d for part, key in flat
+                               for d in (len(tensors[part][key].shape),
+                                         *tensors[part][key].shape)])
+        mine = shapes.clone()
+        collectives.broadcast_(shapes, self.mesh.seq_ranks[0],
+                               self.mesh.seq_group)
+        if not torch.equal(shapes, mine):
+            raise RuntimeError(
+                f"the ranks of seq group {self.mesh.seq_ranks} drew batches "
+                f"of different shapes; they must hold one set of rows")
+        for part, key in flat:
+            collectives.broadcast_(tensors[part][key], self.mesh.seq_ranks[0],
+                                   self.mesh.seq_group)
+        return tensors
+
     def _model_inputs(self, inputs: Dict[str, torch.Tensor]) -> dict:
         out = dict(input_ids=inputs["input_ids"].long(),
                    attention_mask=inputs["attention_mask"],
@@ -421,7 +519,7 @@ class Trainer:
             raise ValueError(f"batch of {rows} rows does not split into "
                              f"{self.batch_split} micro-batches")
         micro = rows // self.batch_split
-        world = self.process_count
+        world, S = self.plan.data_size, self.seq_size
         model, params = self.model, self.optimizer.params
         model.train()
         for p in params.values():
@@ -432,9 +530,10 @@ class Trainer:
                      for i in range(self.batch_split)]
         global_rows = denominators = None
         if world > 1:
-            global_rows = (self.process_index * micro, world * micro)
+            global_rows = (self.mesh.data_index * micro, world * micro)
             denominators = collectives.all_reduce_sum_(torch.stack(
-                [self.loss.denominators(t) for t in labels_of]))
+                [self.loss.denominators(t) for t in labels_of]),
+                self.mesh.data_group)
         scale = self.loss_scale
         summed: Dict[str, torch.Tensor] = {}
         for i, gen in enumerate(gens):
@@ -445,14 +544,17 @@ class Trainer:
             total, values = self.loss(
                 preds, labels_of[i],
                 None if denominators is None else denominators[i])
+            if S > 1:
+                # every rank of the seq group computed this same loss
+                total = total / S
             if scale is not None:
                 total = ls_lib.scale_loss(total, scale)
             total.backward()
             for k, v in values.items():
-                v = v.detach().float()
+                v = v.detach().float() / S
                 summed[k] = summed[k] + v if k in summed else v
 
-        if world > 1:
+        if self.process_count > 1:
             collectives.all_reduce_gradients(params.items())
             keys = list(summed)
             reduced = collectives.all_reduce_sum_(
@@ -506,10 +608,10 @@ class Trainer:
         try:
             for placed in batches:
                 t0 = time.perf_counter()
-                tensors = placed.ready()
+                tensors = self._seq_consistent(placed.ready())
                 rows = (placed.meta.segments if packed
                         else int(tensors["inputs"]["input_ids"].shape[0])
-                        * self.process_count)   # the global batch's
+                        * self.plan.data_size)   # the global batch's
                 values = self.train_step(tensors["inputs"], tensors["labels"])
                 seconds = time.perf_counter() - t0
                 self.history.append(dict(values, step=self.global_step,
@@ -581,14 +683,15 @@ class Trainer:
                                             "device-prefetch-eval")
         try:
             for i, placed in enumerate(batches):
-                tensors = placed.ready()
+                tensors = self._seq_consistent(placed.ready())
                 inputs, labels = tensors["inputs"], tensors["labels"]
                 preds = self.model(**self._model_inputs(inputs))
-                if self.process_count > 1:
-                    # every process's rows, in rank order: the global batch
+                if self.plan.data_size > 1:
+                    # every data rank's rows, in order: the global batch
                     preds, labels = (
                         {k: v.to(self.device) for k, v in
-                         collectives.gather_to_host(tree).items()}
+                         collectives.gather_to_host(
+                             tree, self.mesh.data_group).items()}
                         for tree in (preds, labels))
                 meta = placed.meta
                 if isinstance(meta, PackedBatch):
@@ -666,7 +769,8 @@ class Trainer:
     def _save_kwargs(self) -> dict:
         return dict(model=self.model, optimizer=self.optimizer,
                     loss_scale=self.loss_scale, global_step=self.global_step,
-                    extra=checkpoint_extra(self.process_count))
+                    extra=checkpoint_extra(self.plan.describe(),
+                                           self.zero_enabled()))
 
     def save_state_dict(self, path) -> None:
         """A checkpoint at ``path``: the single file by rank 0, or the
@@ -685,6 +789,11 @@ class Trainer:
             ckpt.save_state_dict_sharded(
                 path, process_index=self.process_index,
                 process_count=self.process_count, **self._save_kwargs())
+        elif self.zero_enabled():
+            # the padded moments are gathered by every process
+            state = ckpt.snapshot_state(**self._save_kwargs())
+            if self.is_primary:
+                ckpt.persist_state(path, state)
         elif self.is_primary:
             ckpt.save_state_dict(path, **self._save_kwargs())
         self.checkpoint_seconds = {"save": time.perf_counter() - t0}
@@ -719,10 +828,12 @@ class Trainer:
                 **self._save_kwargs())
             persist = functools.partial(ckpt.persist_state_sharded,
                                         os.fspath(path), snap)
-        elif self.is_primary:
+        elif self.is_primary or self.zero_enabled():
+            # under ZeRO-1 every process takes part in the gather
             state = ckpt.snapshot_state(copy=copy, **self._save_kwargs())
-            persist = functools.partial(ckpt.persist_state, os.fspath(path),
-                                        state)
+            persist = (functools.partial(ckpt.persist_state,
+                                         os.fspath(path), state)
+                       if self.is_primary else None)
         else:
             persist = None
         blocking = time.perf_counter() - t0

@@ -11,6 +11,10 @@
 # the CPU with --device cpu). Before that, the native qacoord helper runs a
 # readiness handshake on MASTER_PORT + 1 so workers block until the
 # coordinator is reachable instead of failing on a TCP connect.
+#
+# With --mesh data:D,seq:S in the arguments (or a cfg's mesh=, such as
+# config/longdoc.cfg's data:1,seq:2) WORLD_SIZE is D*S: the flag passes
+# through to the CLI, which lays the ranks out on the mesh.
 set -euo pipefail
 
 LOCAL_RANK="${LOCAL_RANK:-0}"

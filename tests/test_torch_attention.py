@@ -147,7 +147,8 @@ def test_dispatcher_runs_plain_version_for_cpu_tensors():
 
 @pytest.mark.parametrize("impl", ["auto", "pallas"])
 def test_dispatcher_refuses_unported_regimes(impl):
-    """Ring attention is not ported; every length past 512 (the TPU's
+    """Ring attention needs a mesh with a seq axis (its own tests are in
+    tests/test_torch_ring_attention.py); every length past 512 (the TPU's
     blocked and streaming regimes) now runs the kernel pair, here its plain
     version."""
     x = torch.from_numpy(np.random.default_rng(0).normal(
@@ -156,7 +157,7 @@ def test_dispatcher_refuses_unported_regimes(impl):
     assert torch.equal(dot_product_attention(x, x, x, impl=impl),
                        dot_product_attention(x, x, x, impl="xla"))
     assert port.KERNEL.launches == before
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="'seq' axis"):
         dot_product_attention(x[:, :64], x[:, :64], x[:, :64], impl="ring")
 
 

@@ -435,6 +435,53 @@ def test_streaming_contract_matches_plain(cuda, dtype, seg_split, base,
     assert all(torch.isfinite(t.grad.float()).all() for t in x)
 
 
+class _PairTransport:
+    """Two ring ranks simulated in one process, for the forward: a rank's
+    one hop receives the other rank's original blocks."""
+
+    def __init__(self, other):
+        self.other = other
+
+    def hop(self, tensors):
+        return list(self.other)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segmented", [False, True], ids=["mask", "segments"])
+def test_ring_forward_on_the_card_matches_one_call(cuda, segmented):
+    """The ring's forward (ops/ring_attention.py) at seq:2 with both ranks'
+    hops on the card: two hop launches a rank, at bases (row, col) in {0,
+    L/2} and L_hash L, merged in f32; the merged output equals one kernel
+    call over the whole sequence within the bf16 limit (one bf16 rounding
+    per hop more), and each hop against its plain version."""
+    from ml_recipe_tpu_torch.ops.ring_attention import (
+        _stream_fwd_local, _stream_row_seeds)
+
+    B, L, H, S = 2, 1024, 4, 2
+    L_loc = L // S
+    q, k, v, mask, _ = _inputs(B, L, H, 64, torch.bfloat16, 11, segmented)
+    seeds = _stream_row_seeds(torch.tensor([1234]), B=B, H=H,
+                              data_index=0).cuda()
+    blocks = [[t[:, r * L_loc:(r + 1) * L_loc].contiguous()
+               for t in (k, v, mask)] for r in range(S)]
+    before = fa.KERNEL.launches
+    outs = []
+    for r in range(S):
+        out, lse = _stream_fwd_local(
+            q[:, r * L_loc:(r + 1) * L_loc].contiguous(), *blocks[r], seeds,
+            transport=_PairTransport(blocks[1 - r]), seq_index=r,
+            seq_size=S, rate=0.1, seg=segmented)
+        assert torch.isfinite(lse).all()
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert fa.KERNEL.launches == before + S * S
+    ring = torch.cat(outs, dim=1)
+    one = fa.fused_attention_cuda(q, k, v, mask, seeds, 0.1, segmented)
+    valid = (mask > 0)[:, :, None, None]
+    err = ((ring.float() - one.float()) * valid).abs().max().item()
+    assert err <= ATOL[torch.bfloat16], err
+
+
 # -- the bf16 tensor-core design: tile edges, head dims, determinism -------------
 
 @pytest.mark.cuda

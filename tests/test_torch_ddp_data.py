@@ -418,9 +418,13 @@ def _world_args(tmp_path, *extra):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--optimizer_sharding", "zero1"], ["--shard_optimizer"],
-    ["--mesh", "data:2"], ["--zero1_overlap", "bucketed"],
-    ["--flash_attention", "ring"], []], ids=[
+    # ZeRO-1, the data and seq axes and the ring are ported
+    # (tests/test_torch_zero1.py, tests/test_torch_sp_train.py): each case
+    # holds what is still refused beside them
+    ["--optimizer_sharding", "zero1", "--zero1_overlap", "bucketed"],
+    ["--shard_optimizer", "--zero1_overlap", "bucketed"],
+    ["--mesh", "data:1,pipe:2"], ["--zero1_overlap", "bucketed"],
+    ["--flash_attention", "ring", "--mesh", "seq:1,model:2"], []], ids=[
     "zero1", "shard_optimizer", "mesh", "zero1_overlap", "ring", "elastic"])
 def test_data_parallel_refusals_name_their_roadmap_item(tmp_path, monkeypatch,
                                                         extra):

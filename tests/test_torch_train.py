@@ -473,10 +473,13 @@ def test_cli_trains_two_debug_steps_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mesh", "data:2"],
-    # data parallelism is ported; ZeRO-1 across its processes is not
+    # the data and seq axes are ported (tests/test_torch_sp_train.py);
+    # tensor parallelism is not
+    ["--mesh", "data:1,model:2"],
+    # ZeRO-1 across processes is ported (tests/test_torch_zero1.py); its
+    # bucketed overlap is not
     ["--dist_world_size", "2", "--local_rank", "0", "--optimizer_sharding",
-     "zero1"],
+     "zero1", "--zero1_overlap", "bucketed"],
     # async checkpoints, loss scaling, adamod and fine-tune are ported
     # (test_torch_train_options.py): their places hold flags still refused
     ["--trace"],

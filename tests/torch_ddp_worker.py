@@ -28,7 +28,20 @@
   ``sharded_checkpoint``, which then saves ``OUT/ckpt`` synchronously
   and records the warnings it logged;
 - ``dead_peer``: rank 1 leaves right after joining, rank 0 then reduces a
-  tensor, which must fail (the run ends with an error, not a hang).
+  tensor, which must fail (the run ends with an error, not a hang);
+- ``ring``: a world of WORLD ranks on the mesh ``seq:WORLD`` runs
+  ``ops.ring_attention.ring_attention`` on its blocks of the inputs in
+  ``OUT/inputs.pt`` (:func:`run_ring`) and writes ``OUT/ring<RANK>.pt``;
+- ``sp`` / ``sp_drop``: the tiny trainer on the mesh ``data:1,seq:2``
+  (ring attention, the loss on the gathered sequence), dropout 0 / 0.1;
+  ``sp_packed``: ``sp_drop`` with :data:`PACKING` (segment ids crossing
+  the two ranks' blocks);
+- ``zero1`` / ``zero1_off``: the tiny trainer on ``data:2`` at
+  ``batch_split`` 1 with ``optimizer_sharding`` zero1 (every leaf planned:
+  ``zero_min_size`` 0) / off, dropout 0; then (:func:`run_zero1`) its
+  checkpoints, single-file and sharded, and its optimizer state after
+  loading each of the JAX package's in ``OUT/jax.ch`` and ``OUT/jax_dir``
+  when they are there.
 
 The tests start the pairs (:func:`run_pairs`) and build the one-process
 oracle (:func:`oracle`) with the same :func:`tiny_trainer`; this module
@@ -147,22 +160,27 @@ def train_weights() -> dict:
 
 
 def tiny_model(vocab_size: int, device: str = "cpu",
-               dropout: float = 0.1) -> QAModel:
-    """The tiny encoder, its weights drawn from seed 0."""
+               dropout: float = 0.1, mesh=None) -> QAModel:
+    """The tiny encoder, its weights drawn from seed 0; sequence-parallel
+    (ring attention) when ``mesh`` has a ``seq`` axis."""
     cfg = EncoderConfig(vocab_size=vocab_size, hidden_dropout_prob=dropout,
                         attention_probs_dropout_prob=dropout, **TINY_MODEL)
-    model = QAModel(cfg, dtype=torch.float32, device=device, ln_impl="fused")
+    ring = mesh is not None and mesh.seq_size > 1
+    model = QAModel(cfg, dtype=torch.float32, device=device, ln_impl="fused",
+                    attention_impl="ring" if ring else "auto", mesh=mesh)
     init_weights(model, torch.Generator().manual_seed(0))
     return model
 
 
 def tiny_trainer(tmp: Path, device: str = "cpu", dropout: float = 0.1,
-                 options: dict = None, **trainer_kw) -> Trainer:
+                 options: dict = None, batch_split: int = BATCH_SPLIT,
+                 **trainer_kw) -> Trainer:
     """The same tiny trainer in every process; the world (if any) is the
     one joined. ``options``: trainer flags over :func:`trainer_params`'s;
-    ``trainer_kw``: more ``Trainer`` arguments."""
+    ``trainer_kw``: more ``Trainer`` arguments (a ``mesh`` also reaches the
+    model)."""
     tok = Tokenizer("bert", str(write_vocab(tmp)), lowercase=True)
-    model = tiny_model(len(tok), device, dropout)
+    model = tiny_model(len(tok), device, dropout, trainer_kw.get("mesh"))
     train = VariedDataset(tok, N_TRAIN, seed=1)
     weights = train_weights()
     tp = trainer_params(**(options or {}))
@@ -171,7 +189,7 @@ def tiny_trainer(tmp: Path, device: str = "cpu", dropout: float = 0.1,
                    trainer_params=tp, train_dataset=train,
                    test_dataset=VariedDataset(tok, N_TEST, seed=2),
                    train_batch_size=TRAIN_BATCH, test_batch_size=TEST_BATCH,
-                   batch_split=BATCH_SPLIT, n_jobs=1, warmup_coef=0.0,
+                   batch_split=batch_split, n_jobs=1, warmup_coef=0.0,
                    max_grad_norm=MAX_GRAD_NORM, train_weights=weights,
                    debug=True,
                    seed=0, **trainer_kw)
@@ -286,6 +304,54 @@ def skip_gradient_all_reduce(named_params, *args, **kwargs) -> int:
 ALL_REDUCE_GRADIENTS = collectives.all_reduce_gradients
 
 
+def run_ring(out: Path, rank: int, world: int) -> None:
+    """Every case of ``OUT/inputs.pt`` (a list of dicts: ``q, k, v, g``
+    ``[B, L, H, D]``, a ``mask`` and ``seg`` ids (or None) ``[B, L]``, the
+    ``seed`` and the ``rate``) through ring attention on this rank's
+    blocks: the output and the gradients of ``sum(out * g)``."""
+    from ml_recipe_tpu_torch.ops.ring_attention import ring_attention
+    from ml_recipe_tpu_torch.parallel.mesh import build_mesh
+
+    mesh = build_mesh(f"seq:{world}")
+    results = []
+    for case in torch.load(out.parent / "inputs.pt"):
+        L = case["q"].shape[1]
+        block = slice(rank * L // world, (rank + 1) * L // world)
+        q, k, v = (case[n][:, block].clone().requires_grad_()
+                   for n in ("q", "k", "v"))
+        seg = case["seg"]
+        got = ring_attention(q, k, v, case["mask"][:, block], mesh=mesh,
+                             rate=case["rate"], seed=case["seed"],
+                             segment_ids=None if seg is None else seg[:, block])
+        (got * case["g"][:, block]).sum().backward()
+        results.append({"out": got.detach(), "dq": q.grad, "dk": k.grad,
+                        "dv": v.grad})
+    torch.save({"results": results, "hops": mesh.ring.stats["hops"]},
+               out / f"ring{rank}.pt")
+
+
+def run_zero1(out: Path, rank: int, device: str, mode: str) -> None:
+    """``zero1`` / ``zero1_off`` (see the module docstring)."""
+    from ml_recipe_tpu_torch.train.checkpoint import read_state
+
+    trainer = run_trainer(out, rank, device, dropout=0.0, batch_split=1,
+                          optimizer_sharding=mode, zero_min_size=0)
+    record = {"opt_bytes": sum(t.numel() * t.element_size() for t in
+                               trainer.optimizer.state_tensors()),
+              "state": trainer.optimizer.flax_state(copy=True)}
+    trainer.debug = False
+    trainer.save_state_dict(out / "port.ch")
+    trainer.sharded_checkpoint = True
+    trainer.save_state_dict(out / "port_dir")
+    for name in ("jax.ch", "jax_dir"):
+        if (out.parent / name).exists():
+            trainer.load_state_dict(out.parent / name)
+            record[name] = trainer.optimizer.flax_state(copy=True)
+    if rank == 0:
+        record["saved"] = read_state(out / "port.ch")["optimizer"]
+    torch.save(record, out / f"zero{rank}.pt")
+
+
 def run_dead_peer(rank: int) -> None:
     if rank == 1:
         os._exit(0)
@@ -305,9 +371,10 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_pairs(*argv_ofs, deadline=PAIR_DEADLINE_S, drop_env=()):
+def run_pairs(*argv_ofs, deadline=PAIR_DEADLINE_S, drop_env=(), ranks=2):
     """Start, for each ``argv_of``, ``argv_of(rank, port)`` for ranks 0 and
-    1 on a free port of its own, all at once, and wait for every process,
+    1 (``0 .. ranks - 1``) on a free port of its own, all at once, and wait
+    for every process,
     killing them past ``deadline``; one retry of the lot when a rendezvous
     port was taken meanwhile. The processes get this one's environment
     without the variables in ``drop_env``. Returns ``[(rc, stderr)]`` per
@@ -327,7 +394,7 @@ def run_pairs(*argv_ofs, deadline=PAIR_DEADLINE_S, drop_env=()):
             procs += [subprocess.Popen(
                 argv_of(rank, port), cwd=str(REPO), env=env,
                 stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
-                for rank in range(2)]
+                for rank in range(ranks)]
         end = time.monotonic() + deadline
         out = []
         try:
@@ -347,19 +414,19 @@ def run_pairs(*argv_ofs, deadline=PAIR_DEADLINE_S, drop_env=()):
                                 for _, err in out):
             continue
         break
-    return [out[i:i + 2] for i in range(0, len(out), 2)]
+    return [out[i:i + ranks] for i in range(0, len(out), ranks)]
 
 
-def worker_pairs(*modes, out: Path, device: str = "cpu"):
+def worker_pairs(*modes, out: Path, device: str = "cpu", ranks: int = 2):
     """:func:`run_pairs` of this script's ``modes``, each writing into
     ``out / mode``."""
     def argv_of(mode):
         (out / mode).mkdir(parents=True, exist_ok=True)
         return lambda rank, port: [
             sys.executable, str(Path(__file__).resolve()), mode, str(rank),
-            "2", str(port), str(out / mode), device]
+            str(ranks), str(port), str(out / mode), device]
 
-    return run_pairs(*map(argv_of, modes))
+    return run_pairs(*map(argv_of, modes), ranks=ranks)
 
 
 def oracle(tmp: Path, record, device: str = "cpu", options: dict = None,
@@ -386,6 +453,24 @@ def oracle(tmp: Path, record, device: str = "cpu", options: dict = None,
     params = {n: p.detach().cpu() for n, p in trainer.model.named_parameters()}
     return SimpleNamespace(values=values, grads=grads, metrics=metrics,
                            params=params)
+
+
+def oracle_whole(tmp: Path, record, device: str = "cpu",
+                 dropout: float = 0.1, **trainer_kw):
+    """The one-process trainer on ``record``'s batches as they are (a rank
+    of ``data:1``, whose batches are the whole global batches): its step
+    values, first-step gradients and parameters."""
+    tmp.mkdir(parents=True, exist_ok=True)
+    trainer = tiny_trainer(tmp, device, dropout, **trainer_kw)
+    values = []
+    with first_step_gradients(trainer) as grads:
+        for step, (inputs, labels) in enumerate(record["batches"]):
+            trainer.global_step = step
+            values.append(trainer.train_step(
+                {k: v.to(device) for k, v in inputs.items()},
+                {k: v.to(device) for k, v in labels.items()}))
+    params = {n: p.detach().cpu() for n, p in trainer.model.named_parameters()}
+    return SimpleNamespace(values=values, grads=grads, params=params)
 
 
 def rel_l2(got: dict, want: dict) -> float:
@@ -424,6 +509,18 @@ def main(argv) -> None:
             run_async_sharded(Path(out), rank, device)
         elif mode == "dead_peer":
             run_dead_peer(rank)
+        elif mode == "ring":
+            run_ring(Path(out), rank, world)
+        elif mode in ("sp", "sp_drop", "sp_packed"):
+            from ml_recipe_tpu_torch.parallel.mesh import build_mesh
+
+            run_trainer(Path(out), rank, device,
+                        dropout=0.0 if mode == "sp" else 0.1,
+                        mesh=build_mesh("data:1,seq:2"),
+                        **(PACKING if mode == "sp_packed" else {}))
+        elif mode in ("zero1", "zero1_off"):
+            run_zero1(Path(out), rank, device,
+                      "zero1" if mode == "zero1" else "off")
         else:
             raise ValueError(f"unknown mode {mode!r}")
     finally:
