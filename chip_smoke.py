@@ -226,6 +226,35 @@ Phases, each fatal on failure (exit code 1, and no result line):
     rank holds (zero1: at most half of the whole), the parameters after
     both runs bit-identical, and the zero1 run's sharded checkpoint
     reloaded in this process (weights and every moment equal).
+16. the runtime subsystems (``phase_runtime``): ``config/test_bert.cfg
+    --dummy_dataset --debug --seed 0 --ln_impl fused`` through ``python -m
+    ml_recipe_tpu_torch.cli.train`` as a child process with ``--trace
+    --trace_spans --metrics_port --goodput_ledger --flight_recorder
+    --watchdog_timeout 600``: ``/metrics`` and ``/healthz`` scraped after
+    its first step (the step, the watchdog's heartbeat, the kernel
+    libraries loaded and none built, the ledger's ratio); the profiler
+    window's Chrome trace holding one step's launches (12 attention and 25
+    LayerNorm kernels per micro-batch, forward and backward), its device
+    ms by kernel family printed; the span file's training spans; the
+    child's own launch counts (phase 9's); the run's exit code gates the
+    phase (a capture without CUDA activity moves the window to the next
+    step; the run fails when every capture came back empty). Then the
+    resume drill, on test_bert.cfg copied with ``debug`` and
+    ``drop_optimizer`` off, its dummy datasets cut to RT_DUMMY_LEN items
+    (2 epochs of 2 steps, each ending in its checkpoints): a plain
+    uninterrupted run; the same resumed by hand from its ``epoch_1.ch``
+    with every runtime flag but ``--trace`` (untraced); and every runtime
+    flag under ``--supervise --fault_plan 'trainer.step:kill@3!once'``,
+    which must end rc 0 after a crash and a clean attempt, its attempt 2
+    resuming step RT_RESUME_STEP (the ledger, the ``checkpoint_restore``
+    span), what its restore carried and its parameter update within
+    RT_UPDATE_REL_TOL relative L2 and its last-step loss within
+    RT_LOSS_REL_TOL of untraced's; step 1's wall of each run beside
+    plain's, the ledger's goodput summary and the restart gap are
+    printed. An observer the phase puts on the children's PYTHONPATH
+    (``sitecustomize``, RT_OBSERVER) records each run's steps, launch
+    counts, restored state and parameter update, and cuts the drill's
+    dummy datasets.
 
 It then prints one ``{"kernels": [...]}`` line (the attention kernels'
 lines carry the tensor-core kernels' resources and every timed shape's
@@ -1441,8 +1470,8 @@ def _time_data_waits(trainer) -> list:
     returned."""
     waits, batches = [], trainer._batches
 
-    def timed(loader, name):
-        it, prefetcher = batches(loader, name)
+    def timed(loader, name, *host_stats):
+        it, prefetcher = batches(loader, name, *host_stats)
         if loader is not trainer.train_dataloader:
             return it, prefetcher
 
@@ -4748,6 +4777,485 @@ def phase_sequence_parallel(torch, fa, bw, flops):
                 hop=hop)
 
 
+RT_DIR = OUT_DIR / "runtime"
+RT_CMD = ["-m", "ml_recipe_tpu_torch.cli.train", "-c",
+          str(REPO / "config" / "test_bert.cfg"), "--dummy_dataset",
+          "--debug", "--seed", "0", "--ln_impl", "fused"]
+RT_DEADLINE_S = 420
+RT_LOSS_REL_TOL = 1e-3
+RT_UPDATE_REL_TOL = 1e-2
+# the resume drill's dummy train and test sets: 2 steps of 256 an epoch
+# and 32 eval batches of 16, so each epoch ends in its checkpoints
+RT_DUMMY_LEN = 512
+RT_RESUME_STEP = 2              # the step of epoch 1's checkpoints
+# the profiler window's kernels, by the words in their names: one kernel
+# of each per wrapper launch (a backward attention launch runs its row
+# term, dk/dv and dq kernels: dq counts it; a LayerNorm backward launch its
+# row kernel and the column sum)
+RT_TRACE_KERNELS = {"fused_attention_fwd": ("fused_attention_fwd", None),
+                    "fused_attention_bwd": ("fused_attention_bwd_dq", None),
+                    "layer_norm_fwd": ("layer_norm_fwd", None),
+                    "layer_norm_bwd": ("layer_norm_bwd", "_sum")}
+
+# Phase 16's observer in the CLI processes it starts (found on PYTHONPATH
+# as sitecustomize): each Trainer notes its parameters when built and,
+# after a restore, writes what the checkpoint carried (restored minus
+# built); when it closes, it writes its step records, its process's kernel
+# launch counts and its parameter update (final minus built) under
+# $SMOKE_RUNTIME_OUT. With $SMOKE_DUMMY_LEN it cuts the dummy datasets to
+# that many items. It then imports the next sitecustomize on the path, if
+# there is one.
+RT_OBSERVER = """
+import os
+import sys
+
+_OUT = os.environ.get("SMOKE_RUNTIME_OUT")
+if _OUT:
+    import json
+
+    import torch
+
+    from ml_recipe_tpu_torch.data import datasets as _datasets
+    from ml_recipe_tpu_torch.ops import flash_attention as _fa
+    from ml_recipe_tpu_torch.ops import layer_norm as _ln
+    from ml_recipe_tpu_torch.train import trainer as _trainer
+
+    def _flat(model):
+        return torch.cat([p.detach().float().reshape(-1).cpu()
+                          for p in model.parameters()])
+
+    _init, _close = _trainer.Trainer.__init__, _trainer.Trainer.close
+    _load = _trainer.Trainer.load_state_dict
+
+    def _observed_init(self, *args, **kwargs):
+        _init(self, *args, **kwargs)
+        self._smoke_start = _flat(self.model)
+
+    def _observed_load(self, path):
+        _load(self, path)
+        torch.save(_flat(self.model) - self._smoke_start,
+                   os.path.join(_OUT, f"restored_{os.getpid()}.pt"))
+
+    def _observed_close(self):
+        _close(self)
+        pid = os.getpid()
+        torch.save(_flat(self.model) - self._smoke_start,
+                   os.path.join(_OUT, f"update_{pid}.pt"))
+        with open(os.path.join(_OUT, f"run_{pid}.json"), "w") as fh:
+            json.dump({"history": self.history,
+                       "global_step": self.global_step,
+                       "eval_batches": self.eval_batches,
+                       "launches": {
+                           "fused_attention_fwd": _fa.KERNEL.launches,
+                           "fused_attention_bwd": _fa.BWD_KERNEL.launches,
+                           "layer_norm_fwd": _ln.FWD_KERNEL.launches,
+                           "layer_norm_bwd": _ln.BWD_KERNEL.launches}}, fh)
+
+    _trainer.Trainer.__init__ = _observed_init
+    _trainer.Trainer.load_state_dict = _observed_load
+    _trainer.Trainer.close = _observed_close
+
+    _cap = int(os.environ.get("SMOKE_DUMMY_LEN") or 0)
+    if _cap:
+        _dummy_init = _datasets.DummyDataset.__init__
+
+        def _capped_init(self, *args, **kwargs):
+            _dummy_init(self, *args, **kwargs)
+            self.dataset_len = min(self.dataset_len, _cap)
+
+        _datasets.DummyDataset.__init__ = _capped_init
+
+_here = os.path.dirname(os.path.abspath(__file__))
+_me = sys.modules.pop("sitecustomize", None)
+_path = list(sys.path)
+sys.path[:] = [p for p in sys.path if os.path.abspath(p or ".") != _here]
+try:
+    import sitecustomize  # noqa: F401  (the next one on the path)
+except ImportError:
+    pass
+finally:
+    sys.path[:] = _path
+    sys.modules["sitecustomize"] = _me
+"""
+
+
+def _rt_env(run: Path, dummy_len: int = 0) -> dict:
+    """A fresh ``run`` directory (an earlier run's checkpoints or fault
+    markers would change what this one does) and the environment of its
+    CLI: the observer's site directory and the repo on PYTHONPATH, its
+    records going to ``run/observed``, the dummy datasets cut to
+    ``dummy_len`` items when it is set."""
+    import shutil
+
+    site = RT_DIR / "site"
+    site.mkdir(parents=True, exist_ok=True)
+    (site / "sitecustomize.py").write_text(RT_OBSERVER)
+    shutil.rmtree(run, ignore_errors=True)
+    out = run / "observed"
+    out.mkdir(parents=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(site), str(REPO)] + ([env["PYTHONPATH"]]
+                                  if env.get("PYTHONPATH") else []))
+    env["SMOKE_RUNTIME_OUT"] = str(out)
+    if dummy_len:
+        env["SMOKE_DUMMY_LEN"] = str(dummy_len)
+    return env
+
+
+def _rt_records(out: Path):
+    """The observer's records of the runs under ``out``, in the order the
+    runs ended: each its record, its update and what its restore carried
+    (None without a restore)."""
+    import torch
+
+    recs = []
+    for path in sorted(out.glob("run_*.json"),
+                       key=lambda p: p.stat().st_mtime):
+        pid = path.stem.split("_", 1)[1]
+        restored = out / f"restored_{pid}.pt"
+        recs.append(SimpleNamespace(
+            record=json.loads(path.read_text()),
+            update=torch.load(out / f"update_{pid}.pt"),
+            restored=torch.load(restored) if restored.exists() else None))
+    return recs
+
+
+def _rt_launch(cmd, extra, env, log: Path):
+    with open(log, "w") as fh:
+        return subprocess.Popen(
+            [sys.executable, *cmd, *map(str, extra)], cwd=str(REPO),
+            env=env, stdout=fh, stderr=subprocess.STDOUT)
+
+
+def _rt_wait(proc, log: Path, what: str) -> int:
+    try:
+        return proc.wait(timeout=RT_DEADLINE_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"runtime phase: the {what} run outlived {RT_DEADLINE_S}s; its "
+             f"log ends {log.read_text()[-3000:]}")
+
+
+def _rt_run(cmd, extra, env, log: Path, what: str):
+    """One CLI run to its end; fails unless it exits 0. Returns its
+    observed run (the one Trainer it built)."""
+    rc = _rt_wait(_rt_launch(cmd, extra, env, log), log, what)
+    if rc != 0:
+        fail(f"runtime phase: the {what} run exited {rc}; its log ends "
+             f"{log.read_text()[-3000:]}")
+    (rec,) = _rt_records(Path(env["SMOKE_RUNTIME_OUT"]))
+    return rec
+
+
+def _rt_scrape(port: int, proc, log: Path) -> tuple:
+    """``/metrics`` (as {sample: value}) and ``/healthz`` of the running
+    CLI once it has taken its first step."""
+    deadline = time.monotonic() + RT_DEADLINE_S
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            fail(f"runtime phase: the run exited {proc.returncode} before "
+                 f"its /metrics showed a step; its log ends "
+                 f"{log.read_text()[-3000:]}")
+        try:
+            metrics = _scrape(port)
+        except OSError:
+            metrics = {}
+        if metrics.get("train_steps_total", 0) >= 1:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                        timeout=30) as resp:
+                return metrics, json.loads(resp.read().decode())
+        time.sleep(0.1)
+    fail("runtime phase: /metrics showed no step before the deadline")
+
+
+def _rt_trace(path: Path, micro: int, layers: int) -> dict:
+    """The profiler window's launches of the four kernels and its device
+    ms by kernel family; fails unless the window holds one step's launches
+    (``layers`` attention and LN_PER_FORWARD LayerNorm launches per
+    micro-batch, forward and backward)."""
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    launches = {k: sum(key in e["name"] and not (skip and skip in e["name"])
+                       for e in kernels)
+                for k, (key, skip) in RT_TRACE_KERNELS.items()}
+    want = {"fused_attention_fwd": layers * micro,
+            "fused_attention_bwd": layers * micro,
+            "layer_norm_fwd": LN_PER_FORWARD * micro,
+            "layer_norm_bwd": LN_PER_FORWARD * micro}
+    by_family = {}
+    for e in kernels:
+        family = _train_family(e["name"])
+        by_family[family] = by_family.get(family, 0.0) + e["dur"] / 1e3
+    say(f"runtime: --trace window {path.name}: {len(kernels)} device "
+        f"kernels, {len(events)} events; launches {launches}, expected "
+        f"{want}; device ms by family "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+            by_family.items(), key=lambda kv: -kv[1])))
+    if launches != want:
+        fail("the --trace window does not hold one step's launches of the "
+             "attention and LayerNorm kernels")
+    return {"launches": launches, "device_ms": by_family}
+
+
+def _rt_resume_cfg() -> Path:
+    """A copy of config/test_bert.cfg for the resume drill: ``debug`` off,
+    so each epoch ends in its checkpoints, and ``drop_optimizer`` off, so a
+    resume restores the whole training state (a ``store_true`` set in a
+    cfg cannot be unset on the command line)."""
+    keys = {"debug": "False", "drop_optimizer": "False"}
+    out = []
+    for line in (REPO / "config" / "test_bert.cfg").read_text().splitlines():
+        key = line.split("=", 1)[0].strip()
+        out.append(f"{key}={keys.pop(key)}" if key in keys else line)
+    if keys:
+        fail(f"config/test_bert.cfg has no {sorted(keys)}")
+    path = RT_DIR / "test_bert_resume.cfg"
+    path.write_text("\n".join(out) + "\n")
+    return path
+
+
+def _rel(a, b) -> float:
+    """Relative L2 distance of ``a`` from the reference ``b``."""
+    return ((a - b).norm() / b.norm()).item()
+
+
+def _rt_resume_drill(torch, cmd, instruments) -> dict:
+    """Phase 16, step 2: the resume drill of ``cmd`` (a train CLI command
+    on :func:`_rt_resume_cfg`'s copy), its dummy datasets cut to
+    RT_DUMMY_LEN items; see :func:`phase_runtime`. Returns the observed
+    plain, untraced and supervised (attempt 2) runs."""
+    import shutil
+
+    from ml_recipe_tpu_torch.metrics.goodput import (
+        read_ledger, summarize_events)
+
+    plain_dir, untraced_dir = RT_DIR / "plain", RT_DIR / "untraced"
+    plain = _rt_run(cmd, ["--dump_dir", plain_dir / "results"],
+                    _rt_env(plain_dir, RT_DUMMY_LEN), plain_dir / "cli.log",
+                    "plain")
+    # only epoch_1.ch is read again: the disk holds one run's checkpoints
+    for ckpt in (plain_dir / "results" / "test").glob("*.ch"):
+        if ckpt.name != "epoch_1.ch":
+            ckpt.unlink()
+    untraced = _rt_run(cmd, [
+        "--dump_dir", untraced_dir / "results", "--last",
+        plain_dir / "results" / "test" / "epoch_1.ch", "--trace_spans",
+        untraced_dir / "spans", "--metrics_port", _free_port(),
+        *instruments], _rt_env(untraced_dir, RT_DUMMY_LEN),
+        untraced_dir / "cli.log", "untraced")
+    shutil.rmtree(plain_dir / "results", ignore_errors=True)
+    shutil.rmtree(untraced_dir / "results", ignore_errors=True)
+    steps = 2 * RT_DUMMY_LEN // 256     # test_bert.cfg's train_batch_size
+    if (len(plain.record["history"]), plain.record["global_step"],
+            untraced.record["global_step"]) != (
+                steps, steps, RT_RESUME_STEP + steps):
+        fail("runtime phase: the resume drill's runs did not take 2 epochs "
+             "of 2 steps")
+
+    sup = RT_DIR / "supervised"
+    env = _rt_env(sup, RT_DUMMY_LEN)
+    env["MLRT_FAULT_STATE"] = str(sup / "faults")
+    log = sup / "cli.log"
+    t0 = time.perf_counter()
+    proc = _rt_launch(cmd, [
+        "--dump_dir", sup / "results", "--trace", "--trace_spans",
+        sup / "spans", "--metrics_port", _free_port(), *instruments,
+        "--supervise", "--backoff_base", "0.5", "--fault_plan",
+        f"trainer.step:kill@{RT_RESUME_STEP + 1}!once"], env, log)
+    rc = _rt_wait(proc, log, "supervised")
+    sup_wall = time.perf_counter() - t0
+    exp = sup / "results" / "test"
+    sidecar = json.loads((exp / "supervisor_state.json").read_text())
+    say(f"runtime: supervised run rc {rc} in {sup_wall:.1f}s; sidecar "
+        f"outcomes {sidecar['outcomes']}, return codes "
+        f"{sidecar['last_returncode']}, status {sidecar['status']}")
+    if rc != 0 or sidecar["outcomes"] != ["crash", "clean"]:
+        fail(f"runtime phase: the supervised drill did not recover in two "
+             f"attempts; its log ends {log.read_text()[-3000:]}")
+    events = read_ledger(exp / "goodput.jsonl")
+    shutil.rmtree(sup / "results", ignore_errors=True)
+    ends = [e for e in events if e["ev"] == "attempt_end"]
+    starts = [e for e in events if e["ev"] == "attempt_start"]
+    resumed_from = [e["resume_step"] for e in starts]
+    restores = [e for e in json.loads((sup / "spans" / "train_trace_p0.json")
+                                      .read_text())["traceEvents"]
+                if e["name"] == "checkpoint_restore"]
+    say(f"runtime: attempts resumed from steps {resumed_from}; "
+        f"checkpoint_restore spans "
+        f"{[(e['args']['path'], round(e['dur'] / 1e6, 3)) for e in restores]}"
+        f" (path, s)")
+    if resumed_from != [None, RT_RESUME_STEP] or len(restores) != 1:
+        fail(f"runtime phase: attempt 2 did not resume epoch 1's "
+             f"checkpoint of step {RT_RESUME_STEP}")
+    (resumed,) = _rt_records(sup / "observed")
+    last = lambda r: r.record["history"][-1]["loss"]
+    carried_rel = _rel(resumed.restored, untraced.restored)
+    update_rel = _rel(resumed.update, untraced.update)
+    loss_rel = abs(last(resumed) - last(untraced)) / abs(last(untraced))
+    summary = summarize_events(events)
+    gap = starts[1]["t"] - ends[0]["t"]
+    say(f"runtime: supervised attempt 2 against untraced (the same restore "
+        f"by hand): restored state relative L2 {carried_rel:.2e} (bit for "
+        f"bit: {torch.equal(resumed.restored, untraced.restored)}), "
+        f"parameter update relative L2 {update_rel:.2e} (bit for bit: "
+        f"{torch.equal(resumed.update, untraced.update)}; tol "
+        f"{RT_UPDATE_REL_TOL:g}); last-step loss {last(resumed):.6f} vs "
+        f"untraced {last(untraced):.6f} (relative {loss_rel:.2e}, tol "
+        f"{RT_LOSS_REL_TOL:g}; plain's, 2 steps fewer from the same "
+        f"checkpoint: {last(plain):.6f}); attempt exits "
+        f"{[(e['returncode'], e['outcome'], e['step']) for e in ends]}; "
+        f"restart gap {gap:.3f}s (backoff base 0.5 s, seeded jitter); "
+        f"goodput ratio {summary['goodput_ratio']:.4f} over "
+        f"{summary['total_wall_s']:.1f}s, badput "
+        + ", ".join(f"{k} {v:.2f}s" for k, v in summary["badput_s"].items())
+        + f"; kernel library hits {summary['aot_hits']} misses "
+        f"{summary['aot_misses']}")
+    if not (carried_rel <= RT_UPDATE_REL_TOL
+            and update_rel <= RT_UPDATE_REL_TOL
+            and loss_rel <= RT_LOSS_REL_TOL):
+        fail("runtime phase: the supervised resume does not reproduce the "
+             "same resume by hand")
+    if [e["returncode"] for e in ends] != [89, 0]:
+        fail("runtime phase: the ledger's attempt exits are not the drill's")
+    return {"plain": plain, "untraced": untraced, "resumed": resumed}
+
+
+def phase_runtime(torch):
+    """Phase 16: the runtime subsystems through the CLI on the card.
+
+    1. ``test_bert.cfg --dummy_dataset --debug --seed 0 --ln_impl fused``
+       (bert-base, 2 steps of 8 micro-batches of 32x512) as a child
+       process with ``--trace --trace_spans --metrics_port --goodput_ledger
+       --flight_recorder --watchdog_timeout 600``, gated on its exit code;
+       ``/metrics`` and ``/healthz`` scraped after its first step; the
+       profiler window's Chrome trace parsed (one step: 12 attention and 25
+       LayerNorm launches per micro-batch, forward and backward), its
+       device ms by kernel family printed; the child's own launch counts
+       (phase 9's);
+    2. the resume drill, on a copy of test_bert.cfg with ``debug`` and
+       ``drop_optimizer`` off and the dummy datasets cut to RT_DUMMY_LEN
+       items (2 epochs of 2 steps, each ending in ``last.ch``,
+       ``epoch_<n>.ch`` and ``best.ch``), three ways:
+
+       - plain: uninterrupted, without the runtime flags;
+       - untraced: every runtime flag but ``--trace``, resumed by hand
+         from plain's ``epoch_1.ch`` (``--last``);
+       - supervised: every runtime flag, ``--supervise --fault_plan
+         'trainer.step:kill@3!once'``: the kill ends attempt 1 at epoch
+         2's first step, after ``last.ch`` of step RT_RESUME_STEP.
+
+       A resume replays every epoch from the checkpoint's step (as in the
+       JAX package), so it takes 2 steps more than plain: the supervised
+       run is held against untraced, the same resume by hand from the
+       uninterrupted run's checkpoint. Gates: rc 0 after two attempts (a
+       crash, then clean), the ledger's attempt 2 resuming step
+       RT_RESUME_STEP and the span file holding its
+       ``checkpoint_restore``; what the supervised restore carried
+       (restored minus built) and its parameter update (final minus built)
+       within RT_UPDATE_REL_TOL relative L2 of untraced's, its last-step
+       loss within RT_LOSS_REL_TOL relative. Step walls: step 1 of each
+       run beside plain's (the per-step sync and the telemetry; the
+       profiler window). The ledger's goodput summary and the restart gap
+       are printed.
+
+    Returns the runs' launch counts by path.
+    """
+    from ml_recipe_tpu_torch.tokenizer import write_synthetic_bert_vocab
+
+    t_phase = time.perf_counter()
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    vocab = write_synthetic_bert_vocab(OUT_DIR / "vocab.txt")
+    instruments = ["--goodput_ledger", "--flight_recorder",
+                   "--watchdog_timeout", "600"]
+    layers, micro = 12, 8
+
+    # 1. every instrument on
+    run = RT_DIR / "instrumented"
+    port = _free_port()
+    log = run / "cli.log"
+    env = _rt_env(run)
+    proc = _rt_launch(RT_CMD, [
+        "--vocab_file", vocab, "--dump_dir", run / "results", "--trace",
+        "--trace_spans", run / "spans", "--metrics_port", port,
+        *instruments], env, log)
+    metrics, health = _rt_scrape(port, proc, log)
+    rc = _rt_wait(proc, log, "instrumented")
+    if rc != 0:
+        fail(f"runtime phase: the instrumented run exited {rc}; its log "
+             f"ends {log.read_text()[-3000:]}")
+    say(f"runtime: /metrics after step 1: "
+        + ", ".join(f"{k} {metrics.get(k)}" for k in (
+            "train_steps_total", "train_step_device_seconds_count",
+            "train_step_seconds_sum", "train_watchdog_heartbeat_age_seconds",
+            "train_aot_cache_hits_total", "train_aot_cache_misses_total",
+            "train_goodput_ratio")) + f"; /healthz {health}")
+    if not (metrics.get("train_steps_total", 0) >= 1
+            and metrics.get("train_step_device_seconds_count", 0) >= 1
+            and metrics.get("train_watchdog_heartbeat_age_seconds", -1) >= 0
+            and metrics.get("train_aot_cache_hits_total", 0) >= 1
+            and metrics.get("train_aot_cache_misses_total") == 0
+            and health.get("status") == "ok"
+            and health.get("global_step", 0) >= 1
+            and health.get("watchdog_heartbeat_age_s") is not None
+            and health.get("goodput_ratio") is not None
+            and health.get("last_event_age_s") is not None):
+        fail("runtime phase: /metrics or /healthz does not show the running "
+             "step, the watchdog, the kernel libraries' loads and the ledger")
+    # one window of one step: step 0, or step 1 after a capture of step 0
+    # without CUDA activity (the window moves on; the log says so)
+    traces = sorted((run / "results" / "board" / "test" / "trace").glob(
+        "profile_p0_*.json"))
+    empty = log.read_text().count("held no CUDA activity")
+    say(f"runtime: --trace wrote {[p.name for p in traces]} after {empty} "
+        f"capture(s) without CUDA activity")
+    if [p.name for p in traces] != [f"profile_p0_steps{empty}-{empty}.json"]:
+        fail(f"runtime phase: --trace wrote {traces}, not one window of "
+             f"one step")
+    window = _rt_trace(traces[0], micro, layers)
+    spans = json.loads((run / "spans" / "train_trace_p0.json").read_text())
+    names = {e["name"] for e in spans["traceEvents"]}
+    want_spans = {"data_wait", "place", "step", "prefetch_stage", "_train",
+                  "_test", "profiler_capture_start", "profiler_capture_stop"}
+    if not want_spans <= names:
+        fail(f"runtime phase: the span file lacks {want_spans - names}")
+    (inst,) = _rt_records(run / "observed")
+    evals = inst.record["eval_batches"]
+    want = {"fused_attention_fwd": layers * (2 * micro + evals),
+            "fused_attention_bwd": layers * 2 * micro,
+            "layer_norm_fwd": LN_PER_FORWARD * (2 * micro + evals),
+            "layer_norm_bwd": LN_PER_FORWARD * 2 * micro}
+    say(f"runtime: instrumented run's launch counts "
+        f"{inst.record['launches']}, expected {want}")
+    if inst.record["launches"] != want or evals != 22:
+        fail("runtime phase: the instrumented run's launch counts do not "
+             "match test_bert.cfg's 2 debug steps")
+
+    # 2. the resume drill
+    drill = _rt_resume_drill(torch, [
+        "-m", "ml_recipe_tpu_torch.cli.train", "-c", _rt_resume_cfg(),
+        "--dummy_dataset", "--seed", "0", "--ln_impl", "fused",
+        "--vocab_file", vocab], instruments)
+    plain, untraced = drill["plain"], drill["untraced"]
+    walls = {k: [round(h["seconds"], 4) for h in r.record["history"]]
+             for k, r in (("instrumented", inst), ("plain", plain),
+                          ("untraced", untraced))}
+    say(f"runtime: step walls, s (step 0 carries the kernel libraries' "
+        f"loads; step 1 is steady; instrumented is the debug run of 1): "
+        + ", ".join(f"{k} {v}" for k, v in walls.items())
+        + "; step 1 minus plain: "
+        + ", ".join(f"{k} {1e3 * (v[1] - walls['plain'][1]):.1f} ms"
+                    for k, v in walls.items() if k != "plain"))
+    say(f"runtime phase: {time.perf_counter() - t_phase:.1f}s")
+    return {"runtime instrumented": inst.record["launches"],
+            "runtime plain": plain.record["launches"],
+            "runtime untraced": untraced.record["launches"],
+            "runtime supervised, attempt 2":
+                drill["resumed"].record["launches"],
+            "window": window}
+
+
 def main() -> int:
     try:
         import torch
@@ -4833,6 +5341,13 @@ def main() -> int:
     packed_val = phase_packed_validate(torch, nq, packed.ckpt)
     torch.cuda.empty_cache()
     sp = phase_sequence_parallel(torch, fa, bw, flops)
+    torch.cuda.empty_cache()
+    rt = phase_runtime(torch)
+
+    def runtime_paths(kernel):
+        return {path: rt[path][kernel] for path in (
+            "runtime instrumented", "runtime plain", "runtime untraced",
+            "runtime supervised, attempt 2")}
     nq_fwd = {"nq training": nq_train.launched["fused_attention_fwd"],
               "validate": nq_val.launched["fused_attention_fwd"],
               "validate int8": nq_val8.launched["fused_attention_fwd"],
@@ -4952,7 +5467,8 @@ def main() -> int:
               sum(int8_paths("layer_norm_fwd").values())
               + ln_train["layer_norm_fwd"] + dp["layer_norm_fwd"]
               + opt_run["layer_norm_fwd"] + opt_tune["layer_norm_fwd"]
-              + packed.launched["layer_norm_fwd"],
+              + packed.launched["layer_norm_fwd"]
+              + sum(runtime_paths("layer_norm_fwd").values()),
               ln_fwd_err, ln_fwd, "16384x768 bf16 (32x512, training)",
               source="layer_norm",
               launches_by_path={**int8_paths("layer_norm_fwd"),
@@ -4960,7 +5476,8 @@ def main() -> int:
                                 "data parallel": dp["layer_norm_fwd"],
                                 **option_paths("layer_norm_fwd"),
                                 "packed training":
-                                    packed.launched["layer_norm_fwd"]},
+                                    packed.launched["layer_norm_fwd"],
+                                **runtime_paths("layer_norm_fwd")},
               device_ms=ln_fwd["device_ms"], host_ms=ln_fwd["host_ms"],
               at_32x384={k: ln_serve[k] for k in (
                   "ms", "device_ms", "host_ms", "plain_ms", "library_ms",
@@ -4968,14 +5485,16 @@ def main() -> int:
         entry("layer_norm_bwd", "ml_recipe_tpu/ops/layer_norm.py:96",
               ln_train["layer_norm_bwd"] + dp["layer_norm_bwd"]
               + opt_run["layer_norm_bwd"] + opt_tune["layer_norm_bwd"]
-              + packed.launched["layer_norm_bwd"],
+              + packed.launched["layer_norm_bwd"]
+              + sum(runtime_paths("layer_norm_bwd").values()),
               ln_bwd_err,
               ln_bwd, "16384x768 bf16 (32x512, training)", source="layer_norm",
               launches_by_path={"training fused": ln_train["layer_norm_bwd"],
                                 "data parallel": dp["layer_norm_bwd"],
                                 **option_paths("layer_norm_bwd"),
                                 "packed training":
-                                    packed.launched["layer_norm_bwd"]},
+                                    packed.launched["layer_norm_bwd"],
+                                **runtime_paths("layer_norm_bwd")},
               device_ms=ln_bwd["device_ms"], host_ms=ln_bwd["host_ms"],
               device_ms_by_kernel=ln_bwd["split_ms"],
               by_shape={f"{N}x{C}": {k: t[k] for k in (
@@ -5007,7 +5526,8 @@ def main() -> int:
                      + dp["fused_attention_fwd"]
                      + sum(option_paths("fused_attention_fwd").values())
                      + fleet_fwd + fleet8["fused_attention_fwd"]
-                     + sum(packed_paths("fused_attention_fwd").values())),
+                     + sum(packed_paths("fused_attention_fwd").values())
+                     + sum(runtime_paths("fused_attention_fwd").values())),
         "launches_by_path": {"serving": serving_fwd, "training": train_fwd,
                              "serving int8": int8["fused_attention_fwd"],
                              "training fused": ln_train["fused_attention_fwd"],
@@ -5017,7 +5537,8 @@ def main() -> int:
                              "fleet": fleet_fwd,
                              "serving int8 cached":
                                  fleet8["fused_attention_fwd"],
-                             **packed_paths("fused_attention_fwd")},
+                             **packed_paths("fused_attention_fwd"),
+                             **runtime_paths("fused_attention_fwd")},
         "max_abs_err": max(fwd_err, packed.fwd_err,
                            packed_val["packed"].errs[0]),
         "ms": fwd["ms"],
@@ -5036,7 +5557,8 @@ def main() -> int:
                      + nq_train.launched["fused_attention_bwd"]
                      + dp["fused_attention_bwd"]
                      + sum(option_paths("fused_attention_bwd").values())
-                     + packed.launched["fused_attention_bwd"]),
+                     + packed.launched["fused_attention_bwd"]
+                     + sum(runtime_paths("fused_attention_bwd").values())),
         "launches_by_path": {"serving": 0, "training": train_bwd,
                              "training fused": ln_train["fused_attention_bwd"],
                              "nq training":
@@ -5044,7 +5566,8 @@ def main() -> int:
                              "data parallel": dp["fused_attention_bwd"],
                              **option_paths("fused_attention_bwd"),
                              "packed training":
-                                 packed.launched["fused_attention_bwd"]},
+                                 packed.launched["fused_attention_bwd"],
+                             **runtime_paths("fused_attention_bwd")},
         "max_abs_err": max(bwd_err, packed.bwd_err,
                            packed_val["packed"].errs[1]),
         "ms": bwd["ms"],

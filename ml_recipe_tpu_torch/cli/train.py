@@ -44,6 +44,32 @@ auto`` resolves to ``ring``). ``--optimizer_sharding zero1`` (or
 
     python -m ml_recipe_tpu_torch.cli.train -c config/longdoc.cfg ... \
         --dist_world_size 2 --local_rank r --dist_init_method tcp://HOST:PORT
+
+The runtime subsystems, all off by default (the JAX CLI's flags):
+
+- ``--watchdog_timeout S`` arms the step watchdog before the world is
+  joined (a hung rendezvous is caught too): a missed deadline dumps every
+  thread's stack and exits 87;
+- ``--trace_spans DIR`` writes the host spans to
+  ``DIR/train_trace_p<rank>.json``; ``--trace`` captures steps 2-4 of
+  epoch 1 (from step 0 in debug runs) with ``torch.profiler`` into
+  ``<dump_dir>/board/<experiment>/trace``; on CUDA a capture without CUDA
+  activity is taken again over the next steps, and the run fails when
+  every capture came back empty;
+- ``--metrics_port P`` serves the training telemetry at ``/metrics`` and
+  ``/healthz`` on ``P + rank`` (0: an ephemeral port), and with
+  ``--metrics_hosts h:p,...`` rank 0 serves the merged pod page at
+  ``/metrics/pod``;
+- ``--goodput_ledger`` keeps ``goodput.jsonl`` and ``--flight_recorder``
+  the ``flightrec_*.json`` dumps in the experiment directory;
+- ``--fault_plan SPEC`` (or ``$MLRT_FAULTS``) arms the drills of
+  ``resilience/faults.py``;
+- ``--supervise`` makes this process the supervisor
+  (``resilience/supervisor.py``): each attempt is a child running this CLI
+  without the flag, with ``MLRT_SUPERVISED=1``, resumed from the newest of
+  ``interrupt.ch`` / ``last.ch``. A supervised child that catches SIGTERM
+  dumps the recorder, flushes the ledger, saves ``interrupt.ch`` and exits
+  75 (a preemption, to resume). ``--elastic`` is refused.
 """
 
 from __future__ import annotations
@@ -74,8 +100,13 @@ from ..config.parser import (
     write_config_file,
 )
 from ..data.labels import labels2id
+from ..metrics import trace as trace_mod
+from ..ops import cuda_build
 from ..parallel import dist as pdist
 from ..parallel.mesh import build_mesh
+from ..resilience import faults
+from ..resilience import watchdog as watchdog_mod
+from ..resilience.supervisor import PREEMPT_EXIT_CODE, SUPERVISED_ENV
 from ..train.callback import AccuracyCallback, MAPCallback, SaveBestCallback
 from ..train.trainer import Trainer
 from ..utils.device import resolve_device
@@ -101,10 +132,13 @@ def shared_random_seed() -> int:
     return int(seed)
 
 
-def build_trainer(params, model_params) -> Trainer:
+def build_trainer(params, model_params, *, watchdog=None,
+                  telemetry=None) -> Trainer:
     """Model, datasets, loss and ``Trainer`` from the parsed flags, resumed
     from ``--last`` when given; in a data-parallel world, on this rank's
-    device."""
+    device. ``watchdog`` and ``telemetry`` are the runtime subsystems the
+    trainer feeds (:func:`run_worker` builds them); ``--trace`` gives it
+    its profiler window's directory."""
     check_train_flags(params, model_params)
     device = resolve_device(
         pdist.rank_device(params.device, pdist.process_index())
@@ -154,16 +188,33 @@ def build_trainer(params, model_params) -> Trainer:
         pack_min_fragment=params.pack_min_fragment,
         mesh=mesh,
         optimizer_sharding=optimizer_sharding(params),
+        watchdog=watchdog,
+        telemetry=telemetry,
+        trace_dir=(params.dump_dir / f"board/{params.experiment_name}/trace"
+                   if params.trace else None),
     )
     if params.last is not None:
         trainer.load_state_dict(params.last)
     return trainer
 
 
-def train(trainer: Trainer, params) -> Trainer:
+def _note_kernel_builds(goodput) -> None:
+    """This attempt's kernel-library tally into the ledger (its ``aot``
+    event: hits, misses and the hits' load seconds)."""
+    counts = cuda_build.build_counts()
+    goodput.note_aot(counts["hits"], counts["misses"],
+                     sum(t for kind, t in cuda_build.load_events()
+                         if kind == "hit"))
+
+
+def train(trainer: Trainer, params, *, goodput=None,
+          flightrec=None) -> Trainer:
     """``trainer.train`` with the after-epoch hooks (save_last, save_each,
-    test); ``KeyboardInterrupt`` or ``SIGTERM`` saves ``interrupt.ch``.
-    Every way out passes the completion barrier of the async saves."""
+    test); ``KeyboardInterrupt`` or ``SIGTERM`` saves ``interrupt.ch``
+    (the recorder dumped and the ledger flushed first) and, under a
+    supervisor, exits ``PREEMPT_EXIT_CODE``. Every way out passes the
+    completion barrier of the async saves; a clean end closes the ledger
+    and dumps the recorder."""
     exp_dir = params.dump_dir / params.experiment_name
 
     def save_last(*args, **kwargs):
@@ -181,6 +232,12 @@ def train(trainer: Trainer, params) -> Trainer:
     def _sigterm_to_interrupt(signum, frame):
         raise KeyboardInterrupt(f"signal {signum}")
 
+    def close_ledger():
+        if goodput is not None:
+            _note_kernel_builds(goodput)
+            goodput.note_run_end(trainer.global_step)
+            logger.warning(goodput.summary_message())
+
     on_main_thread = threading.current_thread() is threading.main_thread()
     if on_main_thread:
         prev_handler = signal.signal(signal.SIGTERM, _sigterm_to_interrupt)
@@ -191,19 +248,38 @@ def train(trainer: Trainer, params) -> Trainer:
         if on_main_thread:
             signal.signal(signal.SIGTERM, signal.SIG_IGN)
         logger.error("Training process was interrupted.")
+        # before the (fallible) emergency save: the timeline into the
+        # preemption and the open step window's accounting must survive
+        if flightrec is not None:
+            flightrec.dump("sigterm", step=trainer.global_step)
+        if goodput is not None:
+            goodput.flush()
         # an earlier write's failure (already logged) must not abort the
         # emergency checkpoint
         trainer.finish_pending_checkpoint(raise_errors=False)
         trainer.save_state_dict(exp_dir / "interrupt.ch")
         # durable before the process ends and a resume reads it
         trainer.finish_pending_checkpoint()
-    except Exception:
+        close_ledger()
+        # under a supervisor a caught preemption is a reason to resume:
+        # the tempfail code it classifies as 'preempted'
+        if os.environ.get(SUPERVISED_ENV):
+            raise SystemExit(PREEMPT_EXIT_CODE)
+    except Exception as e:
+        if flightrec is not None:
+            flightrec.dump("exception", error=f"{type(e).__name__}: {e}")
+        if goodput is not None:
+            goodput.flush()   # keep the open step window's accounting
         # let an in-flight write land, without masking the error
         trainer.finish_pending_checkpoint(raise_errors=False)
         raise
     else:
         # a clean run must not end while its last checkpoint is written
         trainer.finish_pending_checkpoint()
+        close_ledger()
+        if flightrec is not None:
+            flightrec.record("run_end", step=trainer.global_step)
+            flightrec.dump("clean")
     finally:
         if on_main_thread:
             signal.signal(signal.SIGTERM, prev_handler)
@@ -211,19 +287,154 @@ def train(trainer: Trainer, params) -> Trainer:
     return trainer
 
 
+def _arm_watchdog(params):
+    """Install the process-global step watchdog from ``--watchdog_timeout``
+    (or clear it when unset: a stale instance of an earlier in-process run
+    must not govern the barriers). Runs before the world is joined: a
+    rendezvous that never completes is the canonical startup hang."""
+    timeout = params.watchdog_timeout
+    return watchdog_mod.install(
+        watchdog_mod.Watchdog(timeout) if timeout else None)
+
+
 def run_worker(params, model_params) -> Trainer:
-    """Build, then train; returns the trainer."""
-    return train(build_trainer(params, model_params), params)
+    """Build, then train; returns the trainer. The watchdog :func:`main`
+    armed is used; a direct caller with ``--watchdog_timeout`` gets one
+    armed (and torn down) here."""
+    watchdog = watchdog_mod.current()
+    locally_armed = False
+    if watchdog is None and params.watchdog_timeout:
+        watchdog = _arm_watchdog(params)
+        locally_armed = True
+    try:
+        return _run_worker(params, model_params, watchdog)
+    finally:
+        if locally_armed:
+            watchdog.stop()
+            watchdog_mod.install(None)
+
+
+def _run_worker(params, model_params, watchdog) -> Trainer:
+    """The observability plane around build and train: the span tracer
+    (``--trace_spans``), the goodput ledger, the flight recorder, the
+    telemetry and its exporter. The tracer's install and the teardown of
+    tracer and exporter bracket everything, so a failed start neither
+    leaks the instrumented path into a later in-process run nor keeps the
+    port open."""
+    rank = pdist.process_index()
+    tracer = None
+    if params.trace_spans:
+        tracer = trace_mod.install(trace_mod.TraceWriter(
+            os.path.join(str(params.trace_spans), f"train_trace_p{rank}.json"),
+            process_name="train"))
+    exporter = None
+    try:
+        exp_dir = params.dump_dir / params.experiment_name
+        goodput = flightrec = telemetry = None
+        if params.goodput_ledger:
+            from ..metrics.goodput import GOODPUT_FILENAME, GoodputLedger
+
+            # next to supervisor_state.json; it reads earlier attempts'
+            # events. Rank 0 alone writes the file (every rank sees the
+            # same global steps: N writers would count them N times)
+            goodput = GoodputLedger(
+                os.path.join(str(exp_dir), GOODPUT_FILENAME)
+                if rank == 0 else None, process_index=rank)
+        if params.flight_recorder:
+            from ..metrics.flightrec import FlightRecorder
+
+            flightrec = FlightRecorder.open_in(
+                str(exp_dir), process_index=rank,
+                capacity=params.flightrec_events)
+            if watchdog is not None:
+                # a hang abort dumps the timeline before the exit 87
+                watchdog.add_on_timeout(
+                    lambda label: flightrec.dump("watchdog", label=label))
+        if (params.metrics_port is not None or goodput is not None
+                or flightrec is not None):
+            from ..resilience.supervisor import STATE_FILENAME
+            from ..train.telemetry import TrainTelemetry
+
+            # the telemetry is also how the ledger and the recorder get
+            # their per-step feeds; the exporter needs --metrics_port
+            telemetry = TrainTelemetry(
+                process_index=rank, process_count=pdist.process_count(),
+                anomaly_factor=params.anomaly_factor,
+                anomaly_window=params.anomaly_window, watchdog=watchdog,
+                # the supervisor (the parent process) keeps it current
+                supervisor_state_path=os.path.join(str(exp_dir),
+                                                   STATE_FILENAME),
+                goodput=goodput, flightrec=flightrec)
+
+        trainer = build_trainer(params, model_params, watchdog=watchdog,
+                                telemetry=telemetry)
+        if goodput is not None:
+            # the first step this attempt runs: the ledger reclassifies
+            # earlier work on steps >= it as recompute
+            goodput.note_run_start(trainer.global_step)
+        if flightrec is not None:
+            flightrec.record("run_start", step=trainer.global_step)
+        if telemetry is not None and params.metrics_port is not None:
+            exporter = _start_exporter(params, telemetry, trainer, rank)
+        return train(trainer, params, goodput=goodput, flightrec=flightrec)
+    finally:
+        if exporter is not None:
+            exporter.close()
+        if tracer is not None:
+            trace_mod.install(None)
+            tracer.close()   # the span file, whatever the exit
+
+
+def _start_exporter(params, telemetry, trainer, rank: int):
+    """``/metrics`` and ``/healthz`` on ``--metrics_port`` + rank (0 stays
+    ephemeral), and on rank 0 with ``--metrics_hosts`` the pod page."""
+    from ..metrics.exporter import MetricsExporter
+
+    base = int(params.metrics_port)
+    exporter = MetricsExporter(
+        telemetry.registry, port=base + rank if base else 0,
+        health_fn=lambda: telemetry.health_document(
+            global_step=trainer.global_step, process_index=rank)).start()
+    exporter.add_pre_render(telemetry.refresh)
+    if params.metrics_hosts and rank == 0:
+        from ..metrics.aggregator import PodAggregator
+
+        aggregator = PodAggregator(str(params.metrics_hosts).split(","))
+        exporter.add_route("/metrics/pod", aggregator.render)
+        logger.info("Pod-scope aggregation over %d host exporter(s) at "
+                    "/metrics/pod.", len(aggregator.targets))
+    logger.info("Training metrics at http://%s:%d/metrics.", exporter.host,
+                exporter.port)
+    return exporter
+
+
+_LOG_FORMAT = "%(asctime)s %(levelname)s %(name)s: %(message)s"
 
 
 def main(argv=None) -> Trainer:
-    """Parse, set up logging and the cfg files (rank 0), join the world
-    (``--dist_world_size`` > 1), build and train; leaves the world at the
-    end and returns the trainer."""
+    """Parse, arm ``--fault_plan``; under ``--supervise`` become the
+    supervisor and exit with its code; else set up logging and the cfg
+    files (rank 0), arm the watchdog, join the world (``--dist_world_size``
+    > 1), build and train; leaves the world at the end and returns the
+    trainer."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     (parser, model_parser), (params, model_params) = get_params(
         (get_trainer_parser, get_model_parser), argv)
     exp_dir = params.dump_dir / params.experiment_name
     os.makedirs(exp_dir, exist_ok=True)
+    # the drills armed in this process (a supervisor's children arm their
+    # own from the same argv)
+    if params.fault_plan:
+        faults.install_plan(params.fault_plan)
+    if params.supervise and not os.environ.get(SUPERVISED_ENV):
+        # each attempt is a child of this CLI without --supervise;
+        # MLRT_SUPERVISED breaks the recursion when a cfg sets the flag
+        from ..resilience.supervisor import supervise_cli
+
+        logging.basicConfig(level=logging.INFO, format=_LOG_FORMAT,
+                            handlers=[logging.StreamHandler(sys.stderr)])
+        check_train_flags(params, model_params)
+        raise SystemExit(supervise_cli(params, argv))
     # the reference's local_rank in [-1, 0] gate
     primary = params.dist_world_size <= 1 or params.local_rank in (-1, 0)
     params.log_file = (
@@ -233,21 +444,27 @@ def main(argv=None) -> Trainer:
     handlers = [logging.StreamHandler(sys.stderr)]
     if primary:
         handlers.append(logging.FileHandler(params.log_file, mode="w"))
-    logging.basicConfig(
-        level=logging.INFO,
-        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
-        handlers=handlers)
+    logging.basicConfig(level=logging.INFO, format=_LOG_FORMAT,
+                        handlers=handlers)
     show_params(model_params, "model")
     show_params(params, "trainer")
     if primary:
         write_config_file(parser, params, exp_dir / "trainer.cfg")
         write_config_file(model_parser, model_params, exp_dir / "model.cfg")
+    # armed before the world is joined: the rendezvous is the first thing
+    # that can hang, and its frame exists only with the watchdog installed
+    watchdog = _arm_watchdog(params)
     try:
         # join before any CUDA use: NCCL binds the rank's device
         pdist.initialize_from_params(params)
         return run_worker(params, model_params)
     finally:
         pdist.shutdown()
+        # stop the monitor and clear the slot: a later in-process run must
+        # not inherit it
+        if watchdog is not None:
+            watchdog.stop()
+        watchdog_mod.install(None)
 
 
 if __name__ == "__main__":

@@ -565,9 +565,11 @@ def get_trainer_parser() -> ConfigArgumentParser:
 
     parser.add_argument("--debug", action="store_true", help="Debug mode.")
     parser.add_argument("--trace", action="store_true",
-                        help="Dump an xplane device trace of train steps 2-4 "
-                             "into <dump_dir>/board/<experiment>/trace "
-                             "(view with TensorBoard/XProf).")
+                        help="Capture train steps 2-4 of epoch 1 (from step "
+                             "0 in debug runs) with torch.profiler, CPU and "
+                             "CUDA activity, as a Chrome trace into "
+                             "<dump_dir>/board/<experiment>/trace (view in "
+                             "Perfetto).")
     parser.add_argument("--dummy_dataset", action="store_true",
                         help="Use generated dataset instead real data.")
 
@@ -661,8 +663,8 @@ def get_trainer_parser() -> ConfigArgumentParser:
                              "place/H2D -> step -> checkpoint) as Chrome "
                              "trace-event JSON into this directory — load "
                              "in Perfetto. Composes with --trace: the "
-                             "xplane window boundaries are marked in the "
-                             "span stream. None (default) disables.")
+                             "profiler window's boundaries are marked in "
+                             "the span stream. None (default) disables.")
     parser.add_argument("--anomaly_factor", type=float, default=3.0,
                         help="Slow-step detector (active with "
                              "--metrics_port): a step slower than this "
@@ -1066,18 +1068,25 @@ def check_serve_flags(params, model_params) -> None:
 
 
 # trainer flags with no port counterpart that change no result at any
-# value: accepted and logged once
+# value: accepted and logged once (min_world, host_timeout and coord_poll
+# tune the elastic supervisor, which is not ported: --elastic is refused)
 _IGNORED_TRAIN_FLAGS = (
     "gpu", "sync_bn", "autotune", "autotune_cache", "aot_cache",
     "aot_cache_bytes", "hbm_preflight", "apex_level", "apex_verbosity",
     "precision", "pipe_schedule", "pipe_param_sharding", "zero1_bucket_mb",
-    "anomaly_factor", "anomaly_window", "flightrec_events", "max_restarts",
-    "backoff_base", "backoff_max", "crash_loop_window", "min_world",
-    "host_timeout", "coord_poll",
+    "min_world", "host_timeout", "coord_poll",
 )
 # model flags of the same kind: --param_dtype bfloat16 reaches no parameter
 # in the JAX package either (flax keeps them f32), so it trains as float32
 _IGNORED_MODEL_TRAIN_FLAGS = ("param_dtype",)
+
+# the runtime subsystems' flags and knobs (cli/train.py): live, logged once
+_RUNTIME_TRAIN_FLAGS = (
+    "trace", "trace_spans", "metrics_port", "metrics_hosts",
+    "goodput_ledger", "flight_recorder", "watchdog_timeout", "supervise",
+    "fault_plan", "anomaly_factor", "anomaly_window", "flightrec_events",
+    "max_restarts", "backoff_base", "backoff_max", "crash_loop_window",
+)
 
 _PARALLEL = "queue 1, 'Parallelism beyond data parallelism'"
 _OBSERVE = "queue 1, 'Runtime subsystems'"
@@ -1101,7 +1110,17 @@ def check_train_flags(params, model_params) -> None:
     supervisor's world override. ``--mesh`` takes ``data`` and ``seq``
     axes whose sizes multiply to the world (``pipe``/``model`` raise);
     ``--flash_attention ring`` needs a ``seq`` axis > 1; ZeRO-1 runs at any
-    world and is inert at data size 1."""
+    world and is inert at data size 1.
+
+    The runtime subsystems are live: ``--trace``, ``--trace_spans``,
+    ``--metrics_port``, ``--metrics_hosts``, ``--goodput_ledger``,
+    ``--flight_recorder``, ``--watchdog_timeout``, ``--supervise`` and
+    ``--fault_plan``, with their knobs ``--anomaly_factor``,
+    ``--anomaly_window``, ``--flightrec_events``, ``--max_restarts``,
+    ``--backoff_base``, ``--backoff_max`` and ``--crash_loop_window``
+    (``cli/train.py``). ``--elastic`` is refused (ROADMAP.md queue 1,
+    'Runtime subsystems'); its knobs ``--min_world``, ``--host_timeout``
+    and ``--coord_poll`` are accepted and ignored, and logged so."""
     _check_ln_impl(model_params)
     world = int(params.dist_world_size)
     if world < 1 or (world > 1 and not 0 <= params.local_rank < world):
@@ -1132,21 +1151,7 @@ def check_train_flags(params, model_params) -> None:
     checks = [
         (params.zero1_overlap not in (None, "off"), "zero1_overlap",
          params.zero1_overlap, _PARALLEL),
-        (params.trace, "trace", True, _OBSERVE),
-        (params.trace_spans is not None, "trace_spans", params.trace_spans,
-         _OBSERVE),
-        (params.metrics_port is not None, "metrics_port", params.metrics_port,
-         _OBSERVE),
-        (params.metrics_hosts is not None, "metrics_hosts",
-         params.metrics_hosts, _OBSERVE),
-        (params.goodput_ledger, "goodput_ledger", True, _OBSERVE),
-        (params.flight_recorder, "flight_recorder", True, _OBSERVE),
-        (params.watchdog_timeout is not None, "watchdog_timeout",
-         params.watchdog_timeout, _OBSERVE),
-        (params.supervise, "supervise", True, _OBSERVE),
         (params.elastic not in (None, "off"), "elastic", params.elastic,
-         _OBSERVE),
-        (params.fault_plan is not None, "fault_plan", params.fault_plan,
          _OBSERVE),
     ]
     for bad, flag, value, item in checks:
@@ -1163,3 +1168,5 @@ def check_train_flags(params, model_params) -> None:
                 for f in _IGNORED_MODEL_TRAIN_FLAGS]
     logger.info("Accepted but not ported (no effect in ml_recipe_tpu_torch): "
                 "%s.", ", ".join(ignored))
+    logger.info("Runtime subsystems (live): %s.", ", ".join(
+        f"--{f} {getattr(params, f)}" for f in _RUNTIME_TRAIN_FLAGS))

@@ -32,6 +32,8 @@ from typing import Any, Callable, Dict, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from ..metrics import trace as trace_mod
+from ..resilience.faults import fire as _fault
 from .loader import DataLoaderWorkerError
 
 logger = logging.getLogger(__name__)
@@ -137,13 +139,18 @@ class DevicePrefetcher:
             for item in self._source:
                 if self._stop.is_set():
                     return
-                payload = (self._place(item),)
-                while not self._stop.is_set():
-                    try:
-                        self._queue.put(payload, timeout=0.1)
-                        break
-                    except queue.Full:
-                        continue
+                _fault("loader.prefetch")
+                # the span covers placement AND the park on a full queue, so
+                # the prefetch track shows backpressure (device ahead of
+                # host) that the consumer-side spans cannot
+                with trace_mod.span("prefetch_stage", cat="train"):
+                    payload = (self._place(item),)
+                    while not self._stop.is_set():
+                        try:
+                            self._queue.put(payload, timeout=0.1)
+                            break
+                        except queue.Full:
+                            continue
                 if self._stop.is_set():
                     return
         except BaseException as exc:  # noqa: BLE001 - re-raised on consumer

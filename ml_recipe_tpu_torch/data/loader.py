@@ -19,13 +19,15 @@ import itertools
 import logging
 import queue
 import threading
-import time
 import traceback
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
+
+from ..resilience.faults import fire as _fault
+from ..resilience.faults import retry_transient
 
 logger = logging.getLogger(__name__)
 
@@ -37,19 +39,17 @@ class DataLoaderWorkerError(RuntimeError):
 def read_with_retry(dataset, index: int, *, retries: int = 3,
                     base_delay: float = 0.05):
     """One dataset item read, retried with exponential backoff on a
-    transient ``OSError``; other errors propagate at once."""
-    delay = base_delay
-    for attempt in range(retries + 1):
-        try:
-            return dataset[index]
-        except OSError as e:
-            if attempt == retries:
-                raise
-            logger.warning(f"Transient failure in dataset read [{index}] "
-                           f"(attempt {attempt + 1}/{retries + 1}): {e!r}; "
-                           f"retrying in {delay:.2f}s.")
-            time.sleep(delay)
-            delay *= 2.0
+    transient ``OSError`` (``resilience.faults.retry_transient``; the
+    ``loader.read`` fault site fires before every read); other errors
+    propagate at once."""
+
+    def read():
+        _fault("loader.read")
+        return dataset[index]
+
+    return retry_transient(read, retries=retries, base_delay=base_delay,
+                           exceptions=(OSError,),
+                           what=f"dataset read [{index}]")
 
 
 class ShardedBatchSampler:

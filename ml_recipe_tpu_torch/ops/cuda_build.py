@@ -13,7 +13,8 @@ all of them, so a caller that needs every kernel pays for the slowest build
 only. ``build_counts()`` says what this process paid: every ``nvcc`` run is
 a miss, every library loaded as it was found in ``csrc/build/`` a hit (a
 serving engine exports both, and a fleet's rolling restart asserts that a
-replacement built nothing). ``launch_scope`` and ``stream_of`` are the wrappers' per-launch host
+replacement built nothing); ``load_events()`` lists each load with its
+seconds (the training telemetry and goodput ledger record them). ``launch_scope`` and ``stream_of`` are the wrappers' per-launch host
 work: no device switch when the tensor is on the current device.
 """
 
@@ -26,6 +27,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
@@ -66,6 +68,9 @@ def find_nvcc() -> str:
 
 _COUNTS_LOCK = threading.Lock()
 _COUNTS = {"hits": 0, "misses": 0}
+# (outcome, seconds) of every library load in this process: "hit" when it
+# was found built, "miss" when this process built it
+_LOADS: List[tuple] = []
 
 
 def _count(kind: str) -> None:
@@ -78,6 +83,16 @@ def build_counts() -> Dict[str, int]:
     ``hits``, the libraries loaded from ``csrc/build/`` without one."""
     with _COUNTS_LOCK:
         return dict(_COUNTS)
+
+
+def load_events() -> List[tuple]:
+    """``(outcome, seconds)`` of every library load in this process, in
+    order: ``"hit"`` for a library found built, ``"miss"`` for one this
+    process built; ``seconds`` from the first use to the loaded library
+    (the ``nvcc`` run included when the first use started it). The
+    training telemetry's ``train_aot_*`` series read them."""
+    with _COUNTS_LOCK:
+        return list(_LOADS)
 
 
 _NO_SCOPE = contextlib.nullcontext()
@@ -155,6 +170,7 @@ class CudaLibrary:
         """The loaded library, built first if needed."""
         with self._lock:
             if self._lib is None:
+                t0 = time.perf_counter()
                 if not self.path.exists():
                     build(self)
                 lib = ctypes.CDLL(str(self.path))
@@ -162,6 +178,9 @@ class CudaLibrary:
                 self._lib = lib
                 if not self.built:
                     _count("hits")
+                with _COUNTS_LOCK:
+                    _LOADS.append(("miss" if self.built else "hit",
+                                   time.perf_counter() - t0))
             return self._lib
 
 

@@ -24,9 +24,13 @@ onto them).
 At world size 1 :func:`initialize_from_params` does nothing, and
 :func:`process_index`, :func:`process_count` and :func:`barrier` answer
 for one process. The launcher's environment is read by
-``scripts/worker.sh``, not here (no entry point joins from it). The
-watchdog, the fault sites, the elastic world override and the coordinator
-helper belong to the runtime subsystems, which are not ported.
+``scripts/worker.sh``, not here (no entry point joins from it).
+
+The rendezvous and :func:`barrier` run inside watchdog frames
+(``resilience/watchdog.py``), with the ``dist.rendezvous`` and
+``dist.barrier`` fault sites inside them. The elastic supervisor's world
+override and the coordinator helper are not ported
+(:func:`refuse_elastic_world`).
 """
 
 from __future__ import annotations
@@ -38,6 +42,9 @@ from typing import Optional, Union
 
 import torch
 import torch.distributed as dist
+
+from ..resilience import watchdog as watchdog_mod
+from ..resilience.faults import fire as _fault
 
 logger = logging.getLogger(__name__)
 
@@ -131,9 +138,18 @@ def initialize_distributed(*, init_method: str,
     logger.info("Joining a world of %d processes as rank %d over %s at %s "
                 "(collectives time out after %gs).", world_size, rank,
                 backend, init_method, timeout_s)
-    dist.init_process_group(
-        backend=backend, init_method=init_method, world_size=world_size,
-        rank=rank, timeout=datetime.timedelta(seconds=timeout_s), **kwargs)
+    # a rendezvous that never completes (one rank missing) is the canonical
+    # startup hang: the drill site fires inside the watchdog frame, which
+    # gets 8x the step-scale timeout (a cold start waits for the slowest
+    # rank legitimately)
+    wd = watchdog_mod.current()
+    with watchdog_mod.watched(f"distributed rendezvous {init_method}",
+                              wd.timeout * 8 if wd is not None else None):
+        _fault("dist.rendezvous")
+        dist.init_process_group(
+            backend=backend, init_method=init_method, world_size=world_size,
+            rank=rank, timeout=datetime.timedelta(seconds=timeout_s),
+            **kwargs)
     logger.info("Joined: rank %d of %d over %s.", rank, world_size, backend)
 
 
@@ -183,11 +199,16 @@ def backend() -> Optional[str]:
 
 
 def barrier(name: str = "barrier") -> None:
-    """Block until every process reaches this point (no-op alone)."""
-    if process_count() == 1:
-        return
-    logger.debug("barrier %s", name)
-    dist.barrier()
+    """Block until every process reaches this point (no-op alone). The
+    ``dist.barrier`` fault site fires first, alone too, inside a watchdog
+    frame: a peer that never arrives takes the watchdog's path (stack dump,
+    exit 87, supervised restart) instead of wedging the world."""
+    with watchdog_mod.watched(f"barrier:{name}"):
+        _fault("dist.barrier")
+        if process_count() == 1:
+            return
+        logger.debug("barrier %s", name)
+        dist.barrier()
 
 
 def shutdown() -> None:

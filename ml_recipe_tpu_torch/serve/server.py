@@ -33,6 +33,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 from ..metrics import trace as trace_mod
+from ..resilience.faults import fire as _fault
 from .batcher import DrainingError, QueueFullError
 from .engine import QAEngine, RequestRejected
 
@@ -126,6 +127,12 @@ class _QAHandler(BaseHTTPRequestHandler):
                 400, {"error": 'body must be {"question": ..., "document": ...}'}
             )
             return
+
+        # fleet chaos site: 'fleet.engine:kill@N' (resilience/faults.py)
+        # kills this engine process on its Nth admitted request, the drill
+        # that proves the router ejects a dead engine mid-load (%hostN
+        # scopes it: the fleet manager stamps MLRT_HOST with the index)
+        _fault("fleet.engine")
 
         # a router hop forwards its own request id; threading it through
         # the ticket keeps the trace spans joinable across the hop

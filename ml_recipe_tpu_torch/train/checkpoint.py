@@ -57,7 +57,13 @@ reader rolls the swap forward or back. A read checks every piece's crc32,
 the folded crc32 of every leaf and the shard file's step against the
 manifest.
 
-:func:`read_state` detects the layout, so ``--last`` resumes from either.
+:func:`read_state` detects the layout, so ``--last`` resumes from either;
+:func:`peek_global_step` reads only the step of either (the supervisor's
+progress probe). The fault sites of ``resilience/faults.py`` sit where the
+JAX writer has them: ``checkpoint.persist`` at the start of every persist
+(on the background thread under ``--async_checkpoint``), ``ckpt.pre_write``
+before the single file's write, ``ckpt.pre_shard_write``,
+``ckpt.pre_manifest`` and ``ckpt.mid_swap`` in the sharded persist.
 Serving needs ``state["model"]`` only (:func:`load_state_dict`); training
 restores the optimizer too unless ``drop_optimizer``
 (:func:`load_training_state`).
@@ -77,6 +83,7 @@ from torch import nn
 from ..models.convert import from_jax_params, to_jax_params
 from ..parallel.dist import barrier
 from ..parallel.sharding import LocalPiece
+from ..resilience.faults import fire as _fault
 from ..utils.msgpack import packb, unpackb
 
 logger = logging.getLogger(__name__)
@@ -202,9 +209,12 @@ def _refuse_directory(path: str) -> None:
 def persist_state(path, state: dict) -> None:
     """Serialize a :func:`snapshot_state` dict and write it atomically (a
     temporary file, then a rename); touches no tensor."""
+    _fault("checkpoint.persist")
     path = os.fspath(path)
     _refuse_directory(path)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    # atomic: a kill here leaves the previous checkpoint at path intact
+    _fault("ckpt.pre_write")
     _atomic_write(path, packb(state))
     logger.info("State dict was saved to %s.", path)
 
@@ -384,6 +394,7 @@ def persist_state_sharded(path, snap: dict) -> None:
     process calls it): the shard file into ``path.saving``, the manifest
     last, then the swap. Barriers go around the staging, the shard writes
     and the swap, as in the JAX writer."""
+    _fault("checkpoint.persist")
     process_index, process_count = snap["process_index"], snap["process_count"]
 
     def sync(tag: str) -> None:
@@ -404,16 +415,21 @@ def persist_state_sharded(path, snap: dict) -> None:
             _remove(leftover)
     sync("sharded_ckpt_stage_clear")
     os.makedirs(staging, exist_ok=True)
+    _fault("ckpt.pre_shard_write")
     _atomic_write(_shard_file(staging, process_index),
                   packb({"global_step": snap["global_step"],
                          "shards": snap["owned"]}))
     # every shard file lands before the manifest exists
     sync("sharded_ckpt_shards_written")
     if primary:
+        # the drills' kill window: shards durable, manifest (the
+        # completeness marker) not yet — the previous checkpoint survives
+        _fault("ckpt.pre_manifest")
         # the manifest last: its presence marks the directory complete
         _atomic_write(os.path.join(staging, MANIFEST), packb(snap["manifest"]))
         if os.path.exists(path):   # a single file or a directory
             os.rename(path, old)
+        _fault("ckpt.mid_swap")
         os.rename(staging, path)
         _remove(old)
     # the peers may act on the checkpoint once the swap has landed
@@ -434,6 +450,32 @@ def save_state_dict_sharded(path, *, model: nn.Module, optimizer=None,
         model=model, optimizer=optimizer, loss_scale=loss_scale,
         global_step=global_step, extra=extra, process_index=process_index,
         process_count=process_count))
+
+
+def peek_global_step(path) -> Optional[int]:
+    """``global_step`` of the checkpoint at ``path`` (either layout) without
+    restoring any state, or None when there is no readable checkpoint
+    there. The supervisor's progress probe: it rolls an interrupted swap
+    forward or back first (as a load would) and treats any unreadable or
+    torn checkpoint as absent rather than raising."""
+    path = os.fspath(path)
+    if not os.path.exists(path):
+        _recover_interrupted_swap(path, path + ".saving", path + ".old")
+    if not os.path.exists(path):
+        return None
+    try:
+        if os.path.isdir(path):
+            manifest_path = os.path.join(path, MANIFEST)
+            if not os.path.exists(manifest_path):
+                return None
+            with open(manifest_path, "rb") as fh:
+                return int(unpackb(fh.read())["global_step"])
+        with open(path, "rb") as fh:
+            state = unpackb(fh.read())
+        return int(state.get("global_step") or 0)
+    except Exception as e:  # noqa: BLE001 - torn/corrupt == not resumable
+        logger.warning(f"Could not peek global_step from {path}: {e!r}")
+        return None
 
 
 def _read_sharded(path: str) -> dict:

@@ -95,10 +95,34 @@ process takes part, rank 0 writes), the sharded directory has each
 ``seq_index`` 0 process write its pieces. A resume crops or zero-fills
 any saved layout onto the live one.
 
+The runtime subsystems (``cli/train.py`` builds them from the flags), all
+off by default and none of them changing the arithmetic:
+
+- ``watchdog`` (``resilience/watchdog.py``): one frame per train epoch and
+  eval pass, ticked per step, and a frame of 8x the timeout around each
+  checkpoint save and persist wait; ``note_progress`` after each step;
+- the trace spans (``metrics/trace.py``, the process-global tracer):
+  ``data_wait``, ``place``, ``step``, ``prefetch_stage``,
+  ``checkpoint_save``, ``ckpt_snapshot``, ``checkpoint_restore`` and the
+  ``_train``/``_test`` units;
+- ``telemetry`` (``train/telemetry.py``): each step's ``data_wait`` /
+  ``host`` / ``device`` breakdown, its scalars, the checkpoint, eval and
+  ZeRO-1 observers, and the first step's kernel-library loads;
+- ``trace_dir``: a ``torch.profiler`` capture of steps 2-4 of epoch 1
+  (from step 0 in debug runs and epochs shorter than 5 steps; the next
+  steps after a capture without CUDA activity,
+  ``metrics.trace.ProfilerWindow``);
+- the fault sites ``trainer.step`` and ``trainer.eval_step``, before each
+  step and eval batch (``resilience/faults.py``).
+
+With telemetry or a tracer installed the step synchronizes CUDA before it
+reads the clock, so ``device`` is execution, not launches (the JAX rule);
+without them the step keeps its launches and syncs.
+
 Left out (their flags are refused by ``config.parser.check_train_flags``,
 or accepted and ignored where they change no result): pipeline and tensor
-parallelism, ``--zero1_overlap bucketed``, the AOT store, telemetry, the
-watchdog and the HBM pre-flight.
+parallelism, ``--zero1_overlap bucketed``, the AOT store, the elastic
+supervisor and the HBM pre-flight.
 """
 
 from __future__ import annotations
@@ -107,7 +131,8 @@ import functools
 import logging
 import os
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
+from contextlib import nullcontext
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -125,13 +150,17 @@ from ..data.packing import (
     parse_sequence_packing,
 )
 from ..losses import PackedWeightedLoss
+from ..metrics import trace as trace_mod
 from ..metrics.meters import AverageMeter
+from ..metrics.trace import ProfilerWindow, time_profiler
+from ..ops import cuda_build
 from ..parallel import collectives
 from ..parallel import dist as pdist
 from ..parallel.mesh import build_mesh
 from ..parallel.plan import ParallelPlan
 from ..parallel.sharding import MIN_SIZE, Zero1, opt_state_bytes_per_chip
 from ..resilience.checkpoint_async import AsyncCheckpointer
+from ..resilience.faults import fire as _fault
 from . import checkpoint as ckpt
 from . import loss_scale as ls_lib
 from .callback import TestCallback
@@ -213,6 +242,9 @@ class Trainer:
         mesh=None,
         optimizer_sharding: str = "off",
         zero_min_size: int = MIN_SIZE,
+        watchdog=None,
+        telemetry=None,
+        trace_dir=None,
     ):
         self.model = model
         self.device = model.device
@@ -237,6 +269,10 @@ class Trainer:
         # seconds (the step ends in a host read of its loss)
         self.history: List[dict] = []
         self.eval_batches = 0   # eval batches run, over every test() call
+        self.watchdog = watchdog
+        self.telemetry = telemetry
+        self.trace_dir = trace_dir
+        self.profiler_window: Optional[ProfilerWindow] = None
 
         self.process_index = pdist.process_index()
         self.process_count = pdist.process_count()
@@ -366,6 +402,11 @@ class Trainer:
                 logger.info("Loss scaling enabled: %s.", "dynamic"
                             if self.loss_scale.dynamic else self.loss_scale.scale)
 
+        if self.telemetry is not None:
+            # no bucketed ZeRO-1 overlap plan: --zero1_overlap bucketed is
+            # refused, so the exchange is monolithic (0 buckets)
+            self.telemetry.observe_zero1_buckets([])
+
         self.global_step = 0
         self.writer = init_writer(self.is_primary, writer_dir)
         if self.process_count > 1:
@@ -452,20 +493,48 @@ class Trainer:
                 f"{prefix}/{k}", v() if isinstance(v, AverageMeter) else v,
                 global_step=self.global_step if step is None else step)
 
-    def _placer(self):
+    def _watched(self, label: str, *, scale: float = 1.0):
+        """Watchdog frame around a unit of host-side work, yielding a
+        per-step ``tick``; ``scale`` multiplies the timeout for units that
+        are legitimately slower than a step. No-op without a watchdog."""
+        if self.watchdog is None:
+            return nullcontext(lambda *_: None)
+        timeout = self.watchdog.timeout * scale if scale != 1.0 else None
+        return self.watchdog.watch(label, timeout)
+
+    def _sync(self) -> None:
+        """Wait for the device's queued work (CUDA only): the instrumented
+        step reads its clock after it, so ``device`` is execution."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _placer(self, host_stats: Optional[deque] = None):
+        """The placement of one loader batch. With ``host_stats`` (the
+        instrumented train loop) each call appends ``(seconds, real tokens,
+        total tokens)`` and emits a ``place`` span from the thread it ran
+        on (the prefetch thread's track when prefetching)."""
         placer = BatchPlacer(self.device)
 
         def place(batch):
+            t0 = time.perf_counter() if host_stats is not None else 0.0
             inputs, labels, meta = _normalize_batch(batch)
-            return placer({"inputs": inputs, "labels": labels}, meta)
+            placed = placer({"inputs": inputs, "labels": labels}, meta)
+            if host_stats is not None:
+                mask = inputs.get("attention_mask")
+                real = int(np.asarray(mask).sum()) if mask is not None else 0
+                total = int(np.asarray(mask).size) if mask is not None else 0
+                t1 = time.perf_counter()
+                host_stats.append((t1 - t0, real, total))
+                trace_mod.complete("place", t0, t1, cat="train")
+            return placed
 
         return place
 
-    def _batches(self, loader, name: str):
+    def _batches(self, loader, name: str, host_stats: Optional[deque] = None):
         """Placed batches of ``loader``: staged ``device_prefetch`` ahead on
         a background thread, or placed inline at depth 0. Returns
         ``(iterator, prefetcher or None)``."""
-        place = self._placer()
+        place = self._placer(host_stats)
         if self.device_prefetch > 0:
             prefetcher = DevicePrefetcher(iter(loader), place,
                                           depth=self.device_prefetch, name=name)
@@ -594,7 +663,10 @@ class Trainer:
             self._train(epoch_i)
             for func in after_epoch_funcs or []:
                 func(epoch_i)
+        if self.profiler_window is not None:
+            self.profiler_window.finish()
 
+    @time_profiler
     def _train(self, epoch_i: int) -> None:
         loader = self.train_dataloader
         loader.set_epoch(epoch_i)
@@ -603,64 +675,147 @@ class Trainer:
         # steps of varying example counts: each step's mean weighs by its
         # rows (bucketed) or real segments (packed)
         weighted = packed or isinstance(loader, BucketedDataLoader)
-        batches, prefetcher = self._batches(loader, "device-prefetch")
+        tele = self.telemetry
+        tracer = trace_mod.current()
+        # either observability plane times the step honestly: the step
+        # synchronizes CUDA before the clock is read (off path untouched)
+        instrument = tele is not None or tracer is not None
+        # steady-state steps 2-4 when the first epoch has them; short or
+        # debug epochs trace from step 0 instead of capturing nothing. A
+        # capture without CUDA activity moves on to the next steps, into
+        # the next epochs too
+        window = self.profiler_window
+        if self.trace_dir is not None and window is None:
+            trace_from = 0 if self.debug or len(loader) < 5 else 2
+            window = self.profiler_window = ProfilerWindow(
+                self.trace_dir, start=trace_from, steps=3, device=self.device,
+                process_index=self.process_index)
+        if window is not None and window.done:
+            window = None
+        # FIFO-matched to batch order (one placement thread at most): place
+        # appends, the step pops the stats of the batch it runs
+        host_stats = deque() if instrument else None
+        host_inline = self.device_prefetch == 0
+        batches, prefetcher = self._batches(loader, "device-prefetch",
+                                            host_stats)
+        batches = iter(batches)
         last_step = None
-        try:
-            for placed in batches:
-                t0 = time.perf_counter()
-                tensors = self._seq_consistent(placed.ready())
-                rows = (placed.meta.segments if packed
-                        else int(tensors["inputs"]["input_ids"].shape[0])
-                        * self.plan.data_size)   # the global batch's
-                values = self.train_step(tensors["inputs"], tensors["labels"])
-                seconds = time.perf_counter() - t0
-                self.history.append(dict(values, step=self.global_step,
-                                         rows=rows, seconds=seconds))
-                for k, v in values.items():
-                    if k == "lr":
-                        avg_meters["lr"] = v
-                    else:
-                        avg_meters[k].update(v, rows if weighted else 1)
-                if self.on_train_metrics is not None:
-                    self.on_train_metrics(avg_meters, step=self.global_step)
-                last_step = self.global_step
-                if self.is_primary and (last_step + 1) % self.log_every == 0:
+        # one watchdog frame per epoch, ticked per step: its deadline covers
+        # the loader wait, the placement and the step
+        with self._watched(f"train epoch {epoch_i}") as tick:
+            try:
+                while True:
+                    t_fetch = time.perf_counter() if instrument else 0.0
+                    placed = next(batches, None)
+                    if placed is None:
+                        break
+                    if instrument:
+                        t_got = time.perf_counter()
+                        trace_mod.complete("data_wait", t_fetch, t_got,
+                                           cat="train")
+                    _fault("trainer.step")
+                    tick(f"train step {self.global_step} (epoch {epoch_i})")
+                    if window is not None:
+                        window.on_step_start()
+                    loads = len(cuda_build.load_events()) if tele else 0
+                    t0 = time.perf_counter()
+                    tensors = self._seq_consistent(placed.ready())
+                    rows = (placed.meta.segments if packed
+                            else int(tensors["inputs"]["input_ids"].shape[0])
+                            * self.plan.data_size)   # the global batch's
+                    values = self.train_step(tensors["inputs"],
+                                             tensors["labels"])
+                    if instrument:
+                        self._sync()
+                    seconds = time.perf_counter() - t0
+                    if instrument:
+                        self._observe_step(
+                            tele, t0, seconds, t_got - t_fetch, host_stats,
+                            host_inline, rows, values, loads)
+                    self.history.append(dict(values, step=self.global_step,
+                                             rows=rows, seconds=seconds))
+                    for k, v in values.items():
+                        if k == "lr":
+                            avg_meters["lr"] = v
+                        else:
+                            avg_meters[k].update(v, rows if weighted else 1)
+                    if self.on_train_metrics is not None:
+                        self.on_train_metrics(avg_meters,
+                                              step=self.global_step)
+                    last_step = self.global_step
+                    if (self.is_primary
+                            and (last_step + 1) % self.log_every == 0):
+                        self._update_writer(avg_meters, prefix="train",
+                                            step=last_step)
+                        logger.info("Train epoch %d step %d: %s", epoch_i,
+                                    last_step, _console_str(avg_meters))
+                    if window is not None:
+                        window.on_step_end()
+                    self.global_step += 1
+                    if self.watchdog is not None:
+                        self.watchdog.note_progress(self.global_step)
+                    if self.debug:
+                        logger.info("Training was interrupted because of "
+                                    "debug mode.")
+                        break
+            finally:
+                if prefetcher is not None:
+                    prefetcher.close()
+                if window is not None:   # close a window still open
+                    window.abort()
+                if (self.is_primary and last_step is not None
+                        and (last_step + 1) % self.log_every):
                     self._update_writer(avg_meters, prefix="train",
                                         step=last_step)
                     logger.info("Train epoch %d step %d: %s", epoch_i,
                                 last_step, _console_str(avg_meters))
-                self.global_step += 1
-                if self.debug:
-                    logger.info("Training was interrupted because of debug "
-                                "mode.")
-                    break
-        finally:
-            if prefetcher is not None:
-                prefetcher.close()
-            if (self.is_primary and last_step is not None
-                    and (last_step + 1) % self.log_every):
-                self._update_writer(avg_meters, prefix="train", step=last_step)
-                logger.info("Train epoch %d step %d: %s", epoch_i, last_step,
-                            _console_str(avg_meters))
-            stats = loader.epoch_stats if weighted else None
-            if self.is_primary and stats and packed:
-                logger.info("Packed epoch %d: %d batches, packing efficiency "
-                            "%.2f%% (padding waste %.2f%%; pad-to-max would "
-                            "waste %.2f%%; %d splits in %d fragment rows).",
-                            epoch_i, stats["batches"],
-                            100.0 * stats.get("packing_efficiency", 0.0),
-                            stats.get("padding_waste_pct", 0.0),
-                            stats.get("padmax_waste_pct", 0.0),
-                            stats.get("split_count", 0),
-                            stats.get("fragment_rows", 0))
-            elif self.is_primary and stats:
-                logger.info("Bucketed epoch %d: %d batches, padding waste "
-                            "%.2f%% (pad-to-max would be %.2f%%).", epoch_i,
-                            stats["batches"],
-                            stats.get("padding_waste_pct", 0.0),
-                            stats.get("padmax_waste_pct", 0.0))
-            if self.writer is not None:
-                self.writer.flush()
+                stats = loader.epoch_stats if weighted else None
+                if self.is_primary and stats and packed:
+                    logger.info("Packed epoch %d: %d batches, packing "
+                                "efficiency %.2f%% (padding waste %.2f%%; "
+                                "pad-to-max would waste %.2f%%; %d splits in "
+                                "%d fragment rows).",
+                                epoch_i, stats["batches"],
+                                100.0 * stats.get("packing_efficiency", 0.0),
+                                stats.get("padding_waste_pct", 0.0),
+                                stats.get("padmax_waste_pct", 0.0),
+                                stats.get("split_count", 0),
+                                stats.get("fragment_rows", 0))
+                elif self.is_primary and stats:
+                    logger.info("Bucketed epoch %d: %d batches, padding "
+                                "waste %.2f%% (pad-to-max would be %.2f%%).",
+                                epoch_i,
+                                stats["batches"],
+                                stats.get("padding_waste_pct", 0.0),
+                                stats.get("padmax_waste_pct", 0.0))
+                if self.writer is not None:
+                    self.writer.flush()
+
+    def _observe_step(self, tele, t0: float, device_s: float, fetch_s: float,
+                      host_stats: deque, host_inline: bool, rows: int,
+                      values: dict, loads: int) -> None:
+        """The instrumented step's accounting: the ``step`` span, and with
+        telemetry the kernel libraries the step loaded, its ``data_wait`` /
+        ``host`` / ``device`` breakdown and its scalars. Inline placement
+        runs inside the fetch wait, so it is subtracted: the three
+        components partition the step wall."""
+        host_s, real_tokens, total_tokens = (
+            host_stats.popleft() if host_stats else (0.0, 0, 0))
+        data_wait_s = max(0.0, fetch_s - host_s) if host_inline else fetch_s
+        trace_mod.complete("step", t0, t0 + device_s, cat="train",
+                           args={"step": self.global_step, "rows": rows})
+        if tele is None:
+            return
+        for outcome, seconds in cuda_build.load_events()[loads:]:
+            tele.observe_aot(outcome, seconds)
+        tele.observe_step(
+            self.global_step, data_wait_s=data_wait_s, host_s=host_s,
+            device_s=device_s, examples=rows, real_tokens=real_tokens,
+            total_tokens=total_tokens,
+            # placement on the prefetch thread overlaps the previous
+            # step's device time: it is not on the step wall
+            host_overlapped=not host_inline)
+        tele.observe_scalars(values)
 
     # -- test loop -------------------------------------------------------------
 
@@ -674,61 +829,74 @@ class Trainer:
                 isinstance(c, TestCallback) for c in callbacks):
             raise TypeError("callbacks must be TestCallback instances")
         self.model.eval()
-        with torch.inference_mode():
-            return self._test(epoch_i, callbacks)
+        # eval wall time is badput under the goodput discipline (devices
+        # busy, no training progress): the ledger gets it via telemetry
+        t0 = time.perf_counter()
+        try:
+            with torch.inference_mode():
+                return self._test(epoch_i, callbacks)
+        finally:
+            if self.telemetry is not None:
+                self.telemetry.observe_eval(time.perf_counter() - t0)
 
+    @time_profiler
     def _test(self, epoch_i: int, callbacks) -> dict:
         avg_meters: dict = defaultdict(AverageMeter)
         batches, prefetcher = self._batches(self.test_dataloader,
                                             "device-prefetch-eval")
-        try:
-            for i, placed in enumerate(batches):
-                tensors = self._seq_consistent(placed.ready())
-                inputs, labels = tensors["inputs"], tensors["labels"]
-                preds = self.model(**self._model_inputs(inputs))
-                if self.plan.data_size > 1:
-                    # every data rank's rows, in order: the global batch
-                    preds, labels = (
-                        {k: v.to(self.device) for k, v in
-                         collectives.gather_to_host(
-                             tree, self.mesh.data_group).items()}
-                        for tree in (preds, labels))
-                meta = placed.meta
-                if isinstance(meta, PackedBatch):
-                    self._test_packed_batch(preds, labels, meta, avg_meters,
-                                            callbacks)
+        with self._watched(f"test epoch {epoch_i}") as tick:
+            try:
+                for i, placed in enumerate(batches):
+                    _fault("trainer.eval_step")
+                    tick(f"eval step {i} (epoch {epoch_i})")
+                    tensors = self._seq_consistent(placed.ready())
+                    inputs, labels = tensors["inputs"], tensors["labels"]
+                    preds = self.model(**self._model_inputs(inputs))
+                    if self.plan.data_size > 1:
+                        # every data rank's rows, in order: the global batch
+                        preds, labels = (
+                            {k: v.to(self.device) for k, v in
+                             collectives.gather_to_host(
+                                 tree, self.mesh.data_group).items()}
+                            for tree in (preds, labels))
+                    meta = placed.meta
+                    if isinstance(meta, PackedBatch):
+                        self._test_packed_batch(preds, labels, meta,
+                                                avg_meters, callbacks)
+                        if self.debug and i >= 10:
+                            logger.info("Test was interrupted because of debug "
+                                        "mode.")
+                            break
+                        continue
+                    if meta is not None:
+                        n_valid, batch_rows = meta.real_rows, meta.rows
+                    else:
+                        n_valid = self.test_dataloader.real_rows(i)
+                        batch_rows = self._test_sampler.global_batch_size
+                    if n_valid < batch_rows:
+                        # the pad_last tail repeats its last row: meters and
+                        # callbacks see the real rows only
+                        preds = {k: v[:n_valid] for k, v in preds.items()}
+                        labels = {k: v[:n_valid] for k, v in labels.items()}
+                    _, values = self.loss(preds, labels)
+                    for k, v in values.items():
+                        avg_meters[k].update(float(v), n_valid)
+                    self.eval_batches += 1
+                    if callbacks is not None:
+                        host_preds = {k: v.float().cpu().numpy()
+                                      for k, v in preds.items()}
+                        host_labels = {k: v.cpu().numpy()
+                                       for k, v in labels.items()}
+                        for callback in callbacks:
+                            callback.at_iteration_end(host_preds, host_labels,
+                                                      avg_meters)
                     if self.debug and i >= 10:
                         logger.info("Test was interrupted because of debug "
                                     "mode.")
                         break
-                    continue
-                if meta is not None:
-                    n_valid, batch_rows = meta.real_rows, meta.rows
-                else:
-                    n_valid = self.test_dataloader.real_rows(i)
-                    batch_rows = self._test_sampler.global_batch_size
-                if n_valid < batch_rows:
-                    # the pad_last tail repeats its last row: meters and
-                    # callbacks see the real rows only
-                    preds = {k: v[:n_valid] for k, v in preds.items()}
-                    labels = {k: v[:n_valid] for k, v in labels.items()}
-                _, values = self.loss(preds, labels)
-                for k, v in values.items():
-                    avg_meters[k].update(float(v), n_valid)
-                self.eval_batches += 1
-                if callbacks is not None:
-                    host_preds = {k: v.float().cpu().numpy()
-                                  for k, v in preds.items()}
-                    host_labels = {k: v.cpu().numpy() for k, v in labels.items()}
-                    for callback in callbacks:
-                        callback.at_iteration_end(host_preds, host_labels,
-                                                  avg_meters)
-                if self.debug and i >= 10:
-                    logger.info("Test was interrupted because of debug mode.")
-                    break
-        finally:
-            if prefetcher is not None:
-                prefetcher.close()
+            finally:
+                if prefetcher is not None:
+                    prefetcher.close()
 
         if callbacks is not None:
             for callback in callbacks:
@@ -785,18 +953,28 @@ class Trainer:
         # background write lands first
         self.finish_pending_checkpoint()
         t0 = time.perf_counter()
-        if self.sharded_checkpoint:
-            ckpt.save_state_dict_sharded(
-                path, process_index=self.process_index,
-                process_count=self.process_count, **self._save_kwargs())
-        elif self.zero_enabled():
-            # the padded moments are gathered by every process
-            state = ckpt.snapshot_state(**self._save_kwargs())
-            if self.is_primary:
-                ckpt.persist_state(path, state)
-        elif self.is_primary:
-            ckpt.save_state_dict(path, **self._save_kwargs())
-        self.checkpoint_seconds = {"save": time.perf_counter() - t0}
+        # its own watchdog frame of 8x the step timeout: a save writes the
+        # whole state (and the sharded one crosses barriers, which nest
+        # their frames in this budget); a slow save is not a hang
+        with self._watched(f"checkpoint save {path}", scale=8.0), \
+                trace_mod.span("checkpoint_save", cat="train",
+                               args={"path": str(path),
+                                     "step": self.global_step}):
+            if self.sharded_checkpoint:
+                ckpt.save_state_dict_sharded(
+                    path, process_index=self.process_index,
+                    process_count=self.process_count, **self._save_kwargs())
+            elif self.zero_enabled():
+                # the padded moments are gathered by every process
+                state = ckpt.snapshot_state(**self._save_kwargs())
+                if self.is_primary:
+                    ckpt.persist_state(path, state)
+            elif self.is_primary:
+                ckpt.save_state_dict(path, **self._save_kwargs())
+        seconds = time.perf_counter() - t0
+        self.checkpoint_seconds = {"save": seconds}
+        if self.telemetry is not None:
+            self.telemetry.observe_checkpoint_save(seconds)
 
     def _async_supported(self) -> bool:
         """A sharded save of several processes crosses process barriers,
@@ -811,7 +989,9 @@ class Trainer:
                 "multi-process world: the sharded persist crosses process "
                 "barriers, which must not run on a background thread "
                 "concurrently with training collectives — saving "
-                "synchronously instead.")
+                "synchronously instead (async sharded saves across "
+                "processes are not ported yet: ROADMAP.md queue 1, "
+                "'Runtime subsystems').")
         return False
 
     def _save_state_dict_async(self, path) -> None:
@@ -819,30 +999,43 @@ class Trainer:
         the next step updates the parameters and moments in place), then
         write on the background thread."""
         t0 = time.perf_counter()
-        self._async_ckpt.wait()
         copy = self.device.type == "cpu"
-        if self.sharded_checkpoint:
-            snap = ckpt.snapshot_state_sharded(
-                process_index=self.process_index,
-                process_count=self.process_count, copy=copy,
-                **self._save_kwargs())
-            persist = functools.partial(ckpt.persist_state_sharded,
-                                        os.fspath(path), snap)
-        elif self.is_primary or self.zero_enabled():
-            # under ZeRO-1 every process takes part in the gather
-            state = ckpt.snapshot_state(copy=copy, **self._save_kwargs())
-            persist = (functools.partial(ckpt.persist_state,
-                                         os.fspath(path), state)
-                       if self.is_primary else None)
-        else:
-            persist = None
+        with self._watched(f"checkpoint save {path}", scale=8.0), \
+                trace_mod.span("checkpoint_save", cat="train",
+                               args={"path": str(path),
+                                     "step": self.global_step,
+                                     "async": True}):
+            self._async_ckpt.wait()
+            with trace_mod.span("ckpt_snapshot", cat="train",
+                                args={"step": self.global_step}):
+                if self.sharded_checkpoint:
+                    snap = ckpt.snapshot_state_sharded(
+                        process_index=self.process_index,
+                        process_count=self.process_count, copy=copy,
+                        **self._save_kwargs())
+                    persist = functools.partial(ckpt.persist_state_sharded,
+                                                os.fspath(path), snap)
+                elif self.is_primary or self.zero_enabled():
+                    # under ZeRO-1 every process takes part in the gather
+                    state = ckpt.snapshot_state(copy=copy,
+                                                **self._save_kwargs())
+                    persist = (functools.partial(ckpt.persist_state,
+                                                 os.fspath(path), state)
+                               if self.is_primary else None)
+                else:
+                    persist = None
         blocking = time.perf_counter() - t0
         self.checkpoint_seconds = {"snapshot": blocking}
+        if self.telemetry is not None:
+            self.telemetry.observe_checkpoint_snapshot(blocking)
         if persist is None:
             return
+        telemetry = self.telemetry
 
         def on_done(persist_s: float, stalled_s: float) -> None:
             self.checkpoint_seconds["persist"] = persist_s
+            if telemetry is not None:
+                telemetry.observe_checkpoint_persist(persist_s, stalled_s)
 
         self._async_ckpt.submit(path, persist, on_done=on_done)
         logger.info("Async checkpoint: step %d snapshot blocked %.3fs; "
@@ -856,7 +1049,8 @@ class Trainer:
         the failure is logged and consumed instead (a path that already
         handles an error, or an emergency save)."""
         if self._async_ckpt is not None:
-            self._async_ckpt.wait(raise_errors=raise_errors)
+            with self._watched("checkpoint persist wait", scale=8.0):
+                self._async_ckpt.wait(raise_errors=raise_errors)
 
     def load_state_dict(self, path) -> None:
         """Restore a checkpoint of either layout and either package: the
@@ -866,9 +1060,14 @@ class Trainer:
         warning."""
         # the last save must be on disk before anything is read
         self.finish_pending_checkpoint()
-        restored = ckpt.load_training_state(
-            path, model=self.model, optimizer=self.optimizer,
-            drop_optimizer=self.drop_optimizer)
+        t0 = time.perf_counter()
+        with trace_mod.span("checkpoint_restore", cat="train",
+                            args={"path": str(path)}):
+            restored = ckpt.load_training_state(
+                path, model=self.model, optimizer=self.optimizer,
+                drop_optimizer=self.drop_optimizer)
+        if self.telemetry is not None:
+            self.telemetry.observe_checkpoint_restore(time.perf_counter() - t0)
         if restored is None:
             return
         self.global_step = restored.global_step

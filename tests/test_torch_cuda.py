@@ -1332,3 +1332,43 @@ def test_cached_engine_hot_equals_cold_on_the_card(cuda, tmp_path, ln_impl,
         assert 'qa_kernel_launches_total{kernel="fused_attention_fwd"}' in page
     finally:
         engine.close()
+
+
+@pytest.mark.cuda
+def test_profiler_window_captures_the_hand_written_kernels(cuda, tmp_path):
+    """``--trace``'s capture (``metrics.trace.ProfilerWindow``) over one
+    bf16 micro-batch forward+backward with the fused LayerNorm: the Chrome
+    trace holds the attention pair's and the LayerNorm pair's kernels by
+    name, once per launch of their wrappers."""
+    import json
+
+    from ml_recipe_tpu_torch.metrics.trace import ProfilerWindow
+
+    model, loss, inputs, labels = _bf16_micro_batch(tmp_path, cuda)
+    window = ProfilerWindow(tmp_path / "trace", start=0, steps=1,
+                            device=cuda)
+    before = (fa.KERNEL.launches, fa.BWD_KERNEL.launches,
+              ln.FWD_KERNEL.launches, ln.BWD_KERNEL.launches)
+    # a capture without CUDA activity moves on to the next step
+    while not window.done:
+        window.on_step_start()
+        preds = model(input_ids=inputs["input_ids"].long(),
+                      attention_mask=inputs["attention_mask"],
+                      token_type_ids=inputs["token_type_ids"].long(),
+                      generator=torch.Generator(device=cuda).manual_seed(3))
+        loss(preds, labels)[0].backward()
+        window.on_step_end()
+    launched = [now - was for now, was in zip(
+        (fa.KERNEL.launches, fa.BWD_KERNEL.launches,
+         ln.FWD_KERNEL.launches, ln.BWD_KERNEL.launches), before)]
+    steps = window.empty_captures + 1
+    assert launched == [2 * steps, 2 * steps, 5 * steps, 5 * steps]
+    assert window.device_events > 0
+    events = json.loads(open(window.path).read())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    count = lambda key, skip=None: sum(
+        key in n and not (skip and skip in n) for n in kernels)
+    assert count("fused_attention_fwd") == 2
+    assert count("fused_attention_bwd_dq") == 2    # one per backward launch
+    assert count("layer_norm_fwd") == 5
+    assert count("layer_norm_bwd", skip="_sum") == 5

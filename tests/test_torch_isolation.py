@@ -79,7 +79,11 @@ def test_no_port_module_imports_jax_or_the_jax_package():
                    "metrics/artifacts.py", "metrics/trace.py",
                    "metrics/aggregator.py", "fleet/__init__.py",
                    "fleet/ring.py", "fleet/router.py", "fleet/manager.py",
-                   "cli/fleet.py", "utils/logging.py"):
+                   "cli/fleet.py", "utils/logging.py",
+                   "resilience/faults.py", "resilience/watchdog.py",
+                   "metrics/anomaly.py", "metrics/exporter.py",
+                   "metrics/flightrec.py", "metrics/goodput.py",
+                   "train/telemetry.py", "utils/profiler.py"):
         assert f"ml_recipe_tpu_torch/{module}" in names, module
     offenders = [f"{path.relative_to(_REPO)}: {mod}"
                  for path in files for mod in _imports(path)
@@ -108,7 +112,14 @@ def test_entry_points_load_no_jax():
             "ml_recipe_tpu_torch.cli.fleet, ml_recipe_tpu_torch.fleet, "
             "ml_recipe_tpu_torch.serve.cache, "
             "ml_recipe_tpu_torch.metrics.trace, "
-            "ml_recipe_tpu_torch.resilience.supervisor; "
+            "ml_recipe_tpu_torch.resilience.supervisor, "
+            "ml_recipe_tpu_torch.resilience.faults, "
+            "ml_recipe_tpu_torch.resilience.watchdog, "
+            "ml_recipe_tpu_torch.metrics.goodput, "
+            "ml_recipe_tpu_torch.metrics.flightrec, "
+            "ml_recipe_tpu_torch.metrics.exporter, "
+            "ml_recipe_tpu_torch.train.telemetry, "
+            "ml_recipe_tpu_torch.utils.profiler; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'ml_recipe_tpu', 'safetensors', "
             "'transformers')); "

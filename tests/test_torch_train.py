@@ -481,9 +481,12 @@ def test_cli_trains_two_debug_steps_on_the_cpu(tmp_path):
     ["--dist_world_size", "2", "--local_rank", "0", "--optimizer_sharding",
      "zero1", "--zero1_overlap", "bucketed"],
     # async checkpoints, loss scaling, adamod and fine-tune are ported
-    # (test_torch_train_options.py): their places hold flags still refused
-    ["--trace"],
-    ["--metrics_port", "9100"], ["--supervise"], ["--goodput_ledger"],
+    # (test_torch_train_options.py), and so are the runtime subsystems
+    # (test_torch_observability.py, test_torch_resilience.py): their places
+    # hold flags still refused, the elastic supervisor among them
+    ["--elastic", "on"],
+    ["--elastic", "on", "--supervise", "--goodput_ledger"],
+    ["--mesh", "pipe:1"], ["--zero1_overlap", "bucketed"],
 ])
 def test_unported_train_flags_raise(tmp_path, flag):
     _, (params, model_params) = get_params(
