@@ -24,15 +24,19 @@ Phases, each fatal on failure (exit code 1, and no result line):
    timings by CUDA events (median of several runs) of each kernel, its
    plain version and one PyTorch library call computing the same function,
    beside the least time the card could take (``bound_ms``);
-3. the serving path at full width: ``config/serve.cfg`` through the
-   parsers, ``compose.init_model`` (bert-base-uncased, 12 layers, bf16,
-   seeded random weights, a synthetic vocab), ``QAEngine`` over the
-   ``8x128,8x384,32x384`` grid, warmup and ``QAServer`` on port 0, then
-   concurrent ``POST /v1/qa`` requests reaching both seq buckets and a full
-   32-row batch. Launch counts are set to 0 just before this phase and read
-   just after: the forward kernel must have run exactly 12 times per device
-   batch, the backward never. One full batch is scored again with the plain
-   attention and must agree;
+3. the serving path at full width: ``config/serve.cfg --aot_cache off``
+   (eager dispatch: every batch launched by the wrappers; phase 17 runs the
+   same with the buckets' CUDA graphs) through the parsers, the warm-up
+   plane's configuration, ``compose.init_model`` (bert-base-uncased, 12
+   layers, bf16, seeded random weights, a synthetic vocab), ``QAEngine``
+   over the ``8x128,8x384,32x384`` grid, warmup (the memory pre-flight's
+   measured forward, one run and the measured cost's timed runs per
+   bucket) and ``QAServer`` on port 0, then concurrent ``POST /v1/qa``
+   requests reaching both seq buckets and a full 32-row batch. Launch
+   counts are set to 0 just before this phase and read just after: the
+   forward kernel must have run exactly 12 times per device batch (warmup's
+   forwards included), the backward never. One full batch is scored again
+   with the plain attention and must agree;
 4. the training path at full width: ``config/test_bert.cfg`` through the
    trainer and model parsers, ``check_train_flags``, then the build and
    train sequence of ``ml_recipe_tpu_torch.cli.train`` (bert-base-uncased,
@@ -40,7 +44,10 @@ Phases, each fatal on failure (exit code 1, and no result line):
    32x512, an eval after each epoch). Launch counts are set to 0 just before
    the training run and read just after: the backward kernel must have run
    12 times per micro-batch and the forward 12 times per micro-batch and
-   per eval batch. Losses must be finite and the parameters must have moved.
+   per eval batch. The memory pre-flight's probes (one micro-batch forward
+   and backward each, no update, before the first step) are counted apart
+   in every training phase, and must have launched the backward 12 times
+   each. Losses must be finite and the parameters must have moved.
    Then one micro-batch's forward+backward is timed and split by kernel
    family (the port's kernels, cuBLAS products, dropout RNG, GELU, the
    optimizer's multi-tensor kernels, casts and copies, other elementwise,
@@ -80,7 +87,7 @@ Phases, each fatal on failure (exit code 1, and no result line):
    bf16 ``F.linear`` the float path runs), each wrapper's host time per
    launch (events minus the profiler's device time), and the LayerNorm
    backward's device time split between its row and column-sum kernels;
-8. int8 serving: phase 3's 10-request burst with ``--quantize int8
+8. int8 serving: phase 3's eager 10-request burst with ``--quantize int8
    --ln_impl fused`` (counts zeroed just before warmup: 77 int8 matmul, 25
    LayerNorm with their codes, 25 row quantize and 12 attention launches
    per device batch), latency, one 32x384 scoring forward beside phase 3's
@@ -165,8 +172,9 @@ Phases, each fatal on failure (exit code 1, and no result line):
     count (the two questions of a document have one length). Then SIGHUP
     asks for a rolling restart while a client keeps sending the set: 0
     failed requests, clean drains, and every replacement reports 0 kernel
-    builds and at least one library loaded; answers after it equal the
-    cold ones. Each engine loads at least one built library, logs the
+    builds, 0 ``qa_aot_cache_misses_total`` and at least one library
+    loaded from the store the engines share (``artifacts/aot``, which the
+    first engines warmed); answers after it equal the cold ones. Each engine loads at least one built library, logs the
     fused attention route at both starts and writes a trace file holding
     the six serving spans for a router-forwarded request id; SIGTERM ends
     the fleet with 0. The engines' attention launches are read from their
@@ -255,6 +263,27 @@ Phases, each fatal on failure (exit code 1, and no result line):
     (``sitecustomize``, RT_OBSERVER) records each run's steps, launch
     counts, restored state and parameter update, and cuts the drill's
     dummy datasets.
+17. the warm-up plane (``phase_warmup_plane``), on a fresh temporary
+    library store and tuning cache: the script starts itself as a cold
+    engine process (``--warm-engines``: ``config/serve.cfg`` in bf16, then
+    ``--quantize int8 --ln_impl fused``, through ``cli.serve``'s
+    ``build_engine`` and warmup), whose store misses must be the libraries
+    it built, then as a warm one on the same store, which must build
+    nothing, miss nothing and load every library from it;
+    ``python -m ml_recipe_tpu_torch.ops.aot --verify`` must exit 0.
+    Meanwhile: ``config/test_bert.cfg --dummy_dataset --debug`` with the
+    card's memory stood in by a limit below the need phase 4 measured at
+    ``batch_split`` 8 (phase 4, at the card's own limit, must have changed
+    nothing), which must raise the split and run its steps; and phase 3's
+    burst with graphs under a limit between the measured needs of
+    ``8x384`` and ``32x384``, which must drop ``32x384`` alone and still
+    answer at 384. Then phase 3's and phase 8's bursts with every bucket's
+    CUDA graph (12, and 77 / 25 / 25 / 12, launches per device batch);
+    each kept bucket's replay on a real batch ``np.array_equal`` to the
+    eager forward with one forward's launches; and, beside the eager
+    figures, on a 32x384 batch the host ms to issue it, its device ms, the
+    host ms of a whole batch, the device idle share of each, and the
+    bursts' p50.
 
 It then prints one ``{"kernels": [...]}`` line (the attention kernels'
 lines carry the tensor-core kernels' resources and every timed shape's
@@ -498,8 +527,9 @@ def check_row_kernels(cuda_build, q8, ln, built) -> dict:
     (``cuobjdump -sass``; fatal without Q8_SASS)."""
     for lib in (q8.LIBRARY, ln.LIBRARY):
         if lib not in built:
-            say(f"spill bytes of {lib.path.name}'s kernels: not checked "
-                f"(library cached, no ptxas report in this run)")
+            say(f"spill bytes of {lib.source.name}'s kernels: not checked "
+                f"(library loaded from the store, no ptxas report in this "
+                f"run)")
             continue
         found = [(k, r) for k, r in ptxas_reports(lib.build_log)
                  if k.startswith(("q8_", "layer_norm_"))]
@@ -513,7 +543,11 @@ def check_row_kernels(cuda_build, q8, ln, built) -> dict:
                 fail(f"{kernel} spills {spill} bytes: {report}")
         say(f"spill bytes of {lib.source.name}'s {len(found)} kernels: 0")
     cuobjdump = Path(cuda_build.find_nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(q8.LIBRARY.path)],
+    q8.LIBRARY.lib()              # its bytes, from the build or the store
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    so = OUT_DIR / f"{q8.LIBRARY.name}.so"
+    so.write_bytes(q8.LIBRARY.blob)
+    sass = subprocess.run([str(cuobjdump), "-sass", str(so)],
                           capture_output=True, text=True, timeout=300)
     if sass.returncode != 0:
         fail(f"cuobjdump failed on the int8 library: {sass.stderr}")
@@ -521,7 +555,8 @@ def check_row_kernels(cuda_build, q8, ln, built) -> dict:
     for op in re.findall(r"\b(IMMA|IGMMA|HMMA|LDGSTS|UTMALDG|LDSM)\S*",
                          sass.stdout):
         ops[op] = ops.get(op, 0) + 1
-    say(f"SASS of {q8.LIBRARY.path.name}: instruction counts {ops}")
+    say(f"SASS of {q8.LIBRARY.source.name}'s library: instruction counts "
+        f"{ops}")
     for group in Q8_SASS:
         if not any(ops.get(op) for op in group):
             fail(f"the int8 library has none of {group} in its SASS")
@@ -1133,29 +1168,65 @@ def _post(url: str, payload: dict, timeout: float = 300.0):
         return e.code, {"error": e.read().decode()}, time.perf_counter() - t0
 
 
-def _serve_burst(torch, extra=()):
+def _serve_burst(torch, extra=(), *, dispatch="eager", planes=(),
+                 limit_bytes=None, tag="", rounds=()):
     """``config/serve.cfg`` with ``extra`` flags through the parsers,
-    ``check_serve_flags``, ``compose.init_model`` and ``QAEngine``, then the
-    10-request burst over HTTP. Launch counts are set to 0 just before the
-    warmup and read just after the burst. Returns a namespace of what the
-    checks read."""
-    from ml_recipe_tpu_torch.compose import init_model
+    ``check_serve_flags``, the warm-up plane's configuration
+    (``cli.serve.configure_planes``), ``compose.init_model`` and
+    ``QAEngine``, then the 10-request burst over HTTP. ``dispatch``
+    ``eager`` adds ``--aot_cache off`` (every batch launched by the
+    wrappers), ``graph`` keeps the store on (every batch a replay of its
+    bucket's CUDA graph); ``planes`` are more warm-up flags, ``limit_bytes``
+    the pre-flight's stand-in for the card's memory, ``tag`` a suffix of the
+    label. Launch counts are set to 0 just before the warmup and read just
+    after the burst. ``rounds`` are more bursts on the same engine and
+    server after that, each ``graph`` or ``eager`` (the engine's graphs set
+    aside for that burst: the smoke's own hook, no user option): back to
+    back from one process state. Returns a namespace of what the checks
+    read."""
+    from ml_recipe_tpu_torch.cli.serve import configure_planes
     from ml_recipe_tpu_torch.config.parser import (
         check_serve_flags, get_model_parser, get_params, get_serve_parser)
-    from ml_recipe_tpu_torch.data import labels2id
-    from ml_recipe_tpu_torch.serve.bucketing import BucketGrid
-    from ml_recipe_tpu_torch.serve.engine import QAEngine
-    from ml_recipe_tpu_torch.serve.server import QAServer
+    from ml_recipe_tpu_torch.ops import aot, autotune
     from ml_recipe_tpu_torch.tokenizer import write_synthetic_bert_vocab
 
     label = " ".join(extra) or "bf16"
+    if dispatch == "graph":
+        label += ", graphs"
+    if tag:
+        label += f", {tag}"
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     vocab = write_synthetic_bert_vocab(OUT_DIR / "vocab.txt")
     _, (params, model_params) = get_params(
         (get_serve_parser, get_model_parser),
         ["-c", str(REPO / "config" / "serve.cfg"), "--vocab_file", vocab,
-         "--port", "0", *extra])
+         "--port", "0", *extra, *planes,
+         *(("--aot_cache", "off") if dispatch == "eager" else ())])
     check_serve_flags(params, model_params)
+    configure_planes(params)
+    try:
+        return _burst(torch, params, model_params, label, dispatch,
+                      limit_bytes, rounds)
+    finally:
+        # the process-wide planes back to their defaults for later phases
+        aot.reset()
+        autotune.reset()
+
+
+# every burst's figures by label, and every _run_training's pre-flight
+# report, for phase 17
+BURSTS = {}
+PREFLIGHT_REPORTS = []
+
+
+def _burst(torch, params, model_params, label, dispatch, limit_bytes,
+           rounds=()):
+    from ml_recipe_tpu_torch.compose import init_model
+    from ml_recipe_tpu_torch.data import labels2id
+    from ml_recipe_tpu_torch.serve.bucketing import BucketGrid
+    from ml_recipe_tpu_torch.serve.engine import QAEngine
+    from ml_recipe_tpu_torch.serve.server import QAServer
+
     t0 = time.perf_counter()
     model, tokenizer = init_model(model_params, checkpoint=params.checkpoint,
                                   quantize=params.quantize)
@@ -1201,56 +1272,92 @@ def _serve_burst(torch, extra=()):
     engine.batcher._run_fn = recording
 
     zero_counts()                   # the main path starts here
-    warm = engine.warmup()
+    warm = engine.warmup(hbm_preflight=params.hbm_preflight,
+                         limit_bytes=limit_bytes)
+    if warm["dispatch"] != dispatch:
+        fail(f"serving ({label}) dispatched {warm['dispatch']}, not "
+             f"{dispatch}")
     server = QAServer(engine, host=params.host, port=params.port,
                       request_timeout_s=params.request_timeout_s,
                       drain_timeout_s=params.drain_timeout_s)
     server.start()
     url = f"http://{server.host}:{server.port}"
-    results = [None] * len(requests)
 
-    def worker(i):
-        q, d = requests[i]
-        results[i] = _post(url, {"question": q, "document": d})
+    def send():
+        """The burst: every request at once; its latencies in ms."""
+        results = [None] * len(requests)
 
-    threads = [threading.Thread(target=worker, args=(i,))
-               for i in range(len(requests))]
+        def worker(i):
+            q, d = requests[i]
+            results[i] = _post(url, {"question": q, "document": d})
+
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(len(requests))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if any(t.is_alive() for t in threads):
+            fail("a request thread did not finish")
+        deadline = time.monotonic() + 10   # the last batch's time is kept
+        while len(batch_ms) < len(seen) and time.monotonic() < deadline:
+            time.sleep(0.001)
+        for i, (status, body, _) in enumerate(results):
+            if status != 200 or body.get("label") not in labels2id:
+                fail(f"request {i} answered {status}: {body}")
+        return results, [seconds * 1e3 for _, _, seconds in results]
+
     t0 = time.perf_counter()
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=600)
+    results, lat = send()
     wall = time.perf_counter() - t0
     torch.cuda.synchronize()
     launched = counts()             # the main path ends here
     batches = int(engine.m_batches.value)
     metrics = engine.render_metrics()
+    n_main = len(seen)
+    by_mode = {}
+    for mode in rounds:
+        graphs = engine._graphs
+        if mode == "eager":
+            engine._graphs = {}
+        start = len(batch_ms)
+        try:
+            _, round_lat = send()
+        finally:
+            engine._graphs = graphs
+        got = by_mode.setdefault(mode, {"latency_ms": [], "batch_ms": []})
+        got["latency_ms"] += round_lat
+        got["batch_ms"] += batch_ms[start:]
+    del seen[n_main:], batch_ms[n_main:]    # the checks read the main burst
     server.stop()
     server.shutdown()
-
-    if any(t.is_alive() for t in threads):
-        fail("a request thread did not finish")
-    lat = []
-    for i, (status, body, seconds) in enumerate(results):
-        if status != 200 or body.get("label") not in labels2id:
-            fail(f"request {i} answered {status}: {body}")
-        lat.append(seconds * 1e3)
     n_chunks = sum(r[1]["n_chunks"] for r in results)
-    device_batches = len(warm["buckets"]) + batches
+    # warmup's device forwards: the pre-flight's measured one, the graph's
+    # side-stream run (or the eager run) and the cost's timed runs
+    device_batches = warm["device_batches"] + batches
     say(f"serving ({label}): {len(results)} requests ({n_chunks} chunks) "
         f"answered 200 in {wall:.2f}s; {batches} traffic batches (seq, rows) "
-        f"{seen} taking {batch_ms} ms + {len(warm['buckets'])} warmup "
-        f"batches; warmup seconds {warm['bucket_seconds']}")
+        f"{seen} taking {batch_ms} ms + {warm['device_batches']} warmup "
+        f"forwards over {len(warm['buckets'])} buckets ({warm['dispatch']} "
+        f"dispatch); warmup seconds {warm['bucket_seconds']}; pre-flight "
+        f"{warm['preflight']}, dropped {warm['dropped']}; measured costs "
+        f"{warm['program_costs']}")
     say(f"serving ({label}): request latency ms p50="
         f"{statistics.median(lat):.1f} p95={np.percentile(lat, 95):.1f} "
         f"max={max(lat):.1f}")
-    if len(seen) != batches or (384, 32) not in seen or \
+    full = engine.grid.max_batch_for(384)
+    if len(seen) != batches or (384, full) not in seen or \
             {seq for seq, _ in seen} != {128, 384}:
-        fail("traffic did not reach both seq buckets and a full 32-row batch")
+        fail(f"traffic did not reach both seq buckets and a full {full}-row "
+             f"batch")
+    BURSTS[label] = SimpleNamespace(p50=statistics.median(lat),
+                                    batch_ms=list(batch_ms), warm=warm,
+                                    seen=list(seen))
     return SimpleNamespace(model=model, tokenizer=tokenizer, engine=engine,
                            params=params, requests=requests, counts=launched,
                            device_batches=device_batches, warm=warm,
-                           metrics=metrics)
+                           metrics=metrics, batch_ms=batch_ms, latency_ms=lat,
+                           seen=seen, by_mode=by_mode)
 
 
 def _full_batch_ids(tokenizer, requests, params):
@@ -1497,7 +1604,8 @@ def _run_training(torch, cfg: str, extra=(), setup=None):
     before ``train`` and read just after; ``setup(trainer)`` runs before
     that, and the data waits of the run's training steps are kept in
     ``trainer.data_waits``. Returns the trainer, the trainer flags, every
-    kernel's launch count and the wall seconds."""
+    kernel's launch count less the memory pre-flight's probes (checked and
+    printed apart, :func:`_without_probes`) and the wall seconds."""
     from ml_recipe_tpu_torch.cli import train as train_cli
     from ml_recipe_tpu_torch.config.parser import check_train_flags
 
@@ -1526,6 +1634,7 @@ def _run_training(torch, cfg: str, extra=(), setup=None):
     if setup is not None:
         setup(trainer)
 
+    probe = _count_probes(trainer)
     zero_counts()                   # the main path starts here
     t0 = time.perf_counter()
     train_cli.train(trainer, params)
@@ -1538,7 +1647,47 @@ def _run_training(torch, cfg: str, extra=(), setup=None):
         f"parameter tensors changed; launch counts {launched}")
     if moved == 0:
         fail("no parameter changed after two steps")
+    launched = _without_probes(trainer, launched, probe)
+    PREFLIGHT_REPORTS.append((cfg, tuple(extra), trainer.preflight_report))
     return trainer, params, launched, wall
+
+
+def _count_probes(trainer) -> dict:
+    """Count the launches of the memory pre-flight's probes (each one
+    training micro-batch's forward and backward, no update) apart: wraps
+    ``trainer._probe_step``. Returns the running tally."""
+    tally = dict.fromkeys(KERNELS, 0)
+    probe = trainer._probe_step
+
+    def counted(*args, **kw):
+        before = counts()
+        try:
+            return probe(*args, **kw)
+        finally:
+            for k, n in counts().items():
+                tally[k] += n - before[k]
+
+    trainer._probe_step = counted
+    return tally
+
+
+def _without_probes(trainer, launched: dict, tally: dict) -> dict:
+    """``launched`` less the pre-flight probes' launches (the phases' count
+    formulas are of the training steps and eval batches), after checking
+    that the probes ran on the card, each with one micro-batch's attention
+    backward (``layers`` launches, or one a ring hop)."""
+    probes = trainer.preflight_probes
+    layers = trainer.model.cfg.num_layers
+    report = trainer.preflight_report or {}
+    say(f"memory pre-flight: {probes} probe(s), split "
+        f"{report.get('batch_split_before')} -> {report.get('batch_split')}, "
+        f"need {report.get('bytes') or report.get('buckets')} B of "
+        f"{report.get('limit_bytes')} B; probe launches {tally}")
+    bwd = tally["fused_attention_bwd"]
+    if trainer.hbm_preflight and (probes < 1 or not bwd
+                                  or bwd % (layers * probes)):
+        fail("the memory pre-flight did not run its probes on the card")
+    return {k: n - tally[k] for k, n in launched.items()}
 
 
 def _batch(torch, trainer, rows: int):
@@ -3143,11 +3292,11 @@ def profile_fwd_bwd(torch, fn, label: str) -> dict:
     return split
 
 
-def profile_forward(torch, forward, label: str, reps: int = 5) -> None:
+def profile_forward(torch, forward, label: str, reps: int = 5):
     """Device time of ``forward`` by kernel family, and the device's idle
-    share over ``reps`` back-to-back calls, from a ``torch.profiler`` trace.
-    Informative only: a trace without device events (:func:`device_trace`)
-    prints 'not measured'."""
+    share over ``reps`` back-to-back calls, from a ``torch.profiler`` trace;
+    returns the idle share. Informative only: a trace without device events
+    (:func:`device_trace`) prints 'not measured' and returns None."""
     def calls():
         with torch.inference_mode():
             for _ in range(reps):
@@ -3157,7 +3306,7 @@ def profile_forward(torch, forward, label: str, reps: int = 5) -> None:
     if spans is None:
         say(f"{label}: profile of the 32x384 forward: not measured (the "
             f"trace holds no device events)")
-        return
+        return None
     family_us = {"attention": 0.0, "matmul": 0.0, "int8 matmul": 0.0,
                  "int8 quantize": 0.0, "layer_norm": 0.0, "other": 0.0}
     for name, start, end in spans:
@@ -3188,6 +3337,7 @@ def profile_forward(torch, forward, label: str, reps: int = 5) -> None:
     say(f"{label}: profile of the 32x384 forward, device ms per call: "
         f"{per_call}; device idle {1 - busy / window:.1%} of "
         f"{window / 1e3:.3f} ms over {reps} back-to-back calls")
+    return 1 - busy / window
 
 
 # -- phase 11: data parallelism --------------------------------------------------
@@ -3325,6 +3475,17 @@ def dp_worker(kind: str, rank: int, port: int) -> int:
         return step(self, inputs, labels)
 
     Trainer.train_step = train_step
+    probe_step, probe = Trainer._probe_step, dict.fromkeys(KERNELS, 0)
+
+    def counted_probe(self, *args, **kw):
+        before = counts()
+        try:
+            return probe_step(self, *args, **kw)
+        finally:
+            for k, n in counts().items():
+                probe[k] += n - before[k]
+
+    Trainer._probe_step = counted_probe
     argv = [*DP_CFG, "--vocab_file", str(OUT_DIR / "vocab.txt"),
             "--dump_dir", str(out / "results"), "--dist_world_size",
             str(DP_WORLD), "--local_rank", str(rank), "--dist_init_method",
@@ -3335,6 +3496,7 @@ def dp_worker(kind: str, rank: int, port: int) -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched = counts()             # the main path ends here
+    launched = _without_probes(trainer, launched, probe)
     torch.save(first["batch"], out / f"batch{rank}.pt")
     if rank == 0 or kind == "fault":
         torch.save(first["grads"], out / f"grads{rank}.pt")
@@ -3900,6 +4062,9 @@ def phase_train_options(torch):
 
 
 FLEET_DIR = OUT_DIR / "fleet"
+# the shared library store config/fleet.cfg names (relative to the
+# fleet's working directory, the repository root)
+FLEET_AOT = REPO / "artifacts" / "aot"
 FLEET_DOCS = 16                     # documents, each asked 2 questions
 FLEET_WINDOWS = (2, 6)              # windows at 384 per document
 FLEET_Q_WORDS = 8                   # both questions of a document: 8 words
@@ -3970,6 +4135,8 @@ def _engine_numbers(port: int) -> dict:
             "chunk_misses": "qa_chunk_cache_misses_total",
             "build_hits": "qa_kernel_build_hits_total",
             "build_misses": "qa_kernel_build_misses_total",
+            "aot_hits": "qa_aot_cache_hits_total",
+            "aot_misses": "qa_aot_cache_misses_total",
             "attention": 'qa_kernel_launches_total{kernel="fused_attention_fwd"}'}
     missing = [v for v in keys.values() if v not in m]
     if missing:
@@ -4021,10 +4188,11 @@ def phase_fleet(torch):
             str(FLEET_DIR / "spans")]
     fleet_params, params, model_params = get_params(
         (get_fleet_parser, get_serve_parser, get_model_parser), args)[1]
-    if (fleet_params.engines, params.buckets, model_params.model) != (
-            2, "8x128,8x384,32x384", "bert-base-uncased"):
+    if (fleet_params.engines, params.buckets, model_params.model,
+            params.aot_cache) != (2, "8x128,8x384,32x384",
+                                  "bert-base-uncased", "artifacts/aot"):
         fail("config/fleet.cfg is not two bert-base engines on the serving "
-             "grid")
+             "grid sharing the store artifacts/aot")
     t0 = time.perf_counter()
     model, _ = init_model(model_params, rng_seed=FLEET_SEED, device="cuda",
                           train=True)
@@ -4076,10 +4244,17 @@ def phase_fleet(torch):
                                 rid=headers["X-Request-Id"], doc=d, ms=ms))
             return out
 
+        # the first engines warm the shared store (config/fleet.cfg's
+        # aot_cache): each loads its library from it or builds it there
         n0 = {n: _engine_numbers(p) for n, p in ports.items()}
-        if any(v["build_misses"] for v in n0.values()) or \
-                any(v["build_hits"] < 1 for v in n0.values()):
-            fail(f"an engine built a kernel or loaded none: {n0}")
+        if any(v["build_hits"] + v["build_misses"] < 1
+               or v["aot_misses"] != v["build_misses"]
+               or v["aot_hits"] != v["build_hits"] for v in n0.values()):
+            fail(f"an engine loaded no library, or built one outside the "
+                 f"shared store: {n0}")
+        say(f"fleet: first engines' library store outcomes "
+            f"{ {n: (v['aot_hits'], v['aot_misses']) for n, v in n0.items()} } "
+            f"(hits, misses) in {FLEET_AOT}")
         cold = run_pass("cold")
         n1 = {n: _engine_numbers(p) for n, p in ports.items()}
         hot = run_pass("hot")
@@ -4151,7 +4326,8 @@ def phase_fleet(torch):
         if not results or failed:
             fail(f"the rolling restart failed requests: {failed[:10]}")
         for leg in report["reports"]:
-            if leg["drain_exit"] != "clean" or leg["build_misses"] != 0:
+            if leg["drain_exit"] != "clean" or leg["build_misses"] != 0 \
+                    or leg["aot_misses"] != 0 or leg["aot_hits"] < 1:
                 fail(f"a rolling restart leg was not clean and build-free: "
                      f"{leg}")
         new_ports = {leg["node"]: leg["new_port"] for leg in report["reports"]}
@@ -4160,7 +4336,8 @@ def phase_fleet(torch):
             if c["fields"] != a["fields"]:
                 fail(f"an answer changed across the restart: {c} {a}")
         n3 = {n: _engine_numbers(p) for n, p in new_ports.items()}
-        if any(v["build_hits"] < 1 or v["build_misses"] for v in n3.values()):
+        if any(v["build_hits"] < 1 or v["build_misses"] or v["aot_misses"]
+               or v["aot_hits"] < 1 for v in n3.values()):
             fail(f"a replacement engine built a kernel: {n3}")
         new_attention = total(n3, "attention")
 
@@ -4246,7 +4423,7 @@ def phase_fleet_int8(torch):
     engine = build_engine(params, model_params)
     requests = _fleet_requests(params)[:FLEET_DOCS]
     zero_counts()                   # the path starts here
-    warm = engine.warmup()
+    warm = engine.warmup(hbm_preflight=params.hbm_preflight)
     try:
         passes = []
         for _ in range(2):
@@ -4269,16 +4446,17 @@ def phase_fleet_int8(torch):
             r["n_chunks"] for r in cold):
         fail(f"int8 cached engine: the hot pass reached the device "
              f"({hot_batches} batches, {stats})")
-    device_batches = len(warm["buckets"]) + cold_batches
+    device_batches = warm["device_batches"] + cold_batches
     want = {"fused_attention_fwd": 12, "q8_matmul": 77, "layer_norm_fwd": 25,
             "q8_quantize": 25}
     for kernel, per in want.items():
         if launched[kernel] != per * device_batches:
             fail(f"int8 cached engine: {kernel} launched {launched[kernel]}, "
                  f"not {per} x {device_batches} device batches")
-    say(f"fleet int8 (--quantize int8 --ln_impl fused, both caches): "
-        f"{len(requests)} requests cold in {cold_s:.2f}s ({int(cold_batches)} "
-        f"batches), hot in {hot_s:.3f}s (0 batches); launches {launched}")
+    say(f"fleet int8 (--quantize int8 --ln_impl fused, both caches, "
+        f"{warm['dispatch']} dispatch): {len(requests)} requests cold in "
+        f"{cold_s:.2f}s ({int(cold_batches)} batches), hot in {hot_s:.3f}s "
+        f"(0 batches); launches {launched}")
     return launched
 
 
@@ -4374,17 +4552,20 @@ def sp_worker(kind: str, rank: int, port: int) -> int:
         if trainer.mesh.ring is not None:
             trainer.mesh.ring.reset()
             ring_stats = trainer.mesh.ring.stats
+        probe = _count_probes(trainer)
         zero_counts()               # the main path starts here
         t0 = time.perf_counter()
         train_cli.train(trainer, params)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launched = counts()         # the main path ends here
+        launched = _without_probes(trainer, launched, probe)
         record = {
             "launched": launched, "wall": wall, "ring": ring_stats,
             "steps": [{k: h[k] for k in ("loss", "lr", "seconds", "rows")}
                       for h in trainer.history],
             "eval_batches": trainer.eval_batches,
+            "preflight_probes": trainer.preflight_probes,
             "batch_split": trainer.batch_split,
             "layers": trainer.model.cfg.num_layers,
             "attention_impl": trainer.model.attention_impl,
@@ -4685,7 +4866,8 @@ def phase_sequence_parallel(torch, fa, bw, flops):
         fail("the longdoc run is not ring attention over data:1,seq:2")
     if any(rec["launched"] != want for rec in ranks):
         fail("launch counts do not match the ring's training path")
-    hops = layers * (4 * micro + evals)
+    # the memory pre-flight's probe is one more micro-batch of ring calls
+    hops = layers * (4 * (micro + r0["preflight_probes"]) + evals)
     if any(rec["ring"]["hops"] != hops or rec["ring"]["staged_bytes"] <= 0
            for rec in ranks):
         fail(f"the ring did not take its {hops} staged hops per rank")
@@ -4845,6 +5027,7 @@ if _OUT:
             json.dump({"history": self.history,
                        "global_step": self.global_step,
                        "eval_batches": self.eval_batches,
+                       "preflight_probes": self.preflight_probes,
                        "launches": {
                            "fused_attention_fwd": _fa.KERNEL.launches,
                            "fused_attention_bwd": _fa.BWD_KERNEL.launches,
@@ -5222,12 +5405,19 @@ def phase_runtime(torch):
         fail(f"runtime phase: the span file lacks {want_spans - names}")
     (inst,) = _rt_records(run / "observed")
     evals = inst.record["eval_batches"]
-    want = {"fused_attention_fwd": layers * (2 * micro + evals),
-            "fused_attention_bwd": layers * 2 * micro,
-            "layer_norm_fwd": LN_PER_FORWARD * (2 * micro + evals),
-            "layer_norm_bwd": LN_PER_FORWARD * 2 * micro}
+    # the memory pre-flight's probes: one micro-batch forward and backward
+    # a length bucket
+    probes = inst.record["preflight_probes"]
+    want = {"fused_attention_fwd": layers * (2 * micro + probes + evals),
+            "fused_attention_bwd": layers * (2 * micro + probes),
+            "layer_norm_fwd": LN_PER_FORWARD * (2 * micro + probes + evals),
+            "layer_norm_bwd": LN_PER_FORWARD * (2 * micro + probes)}
     say(f"runtime: instrumented run's launch counts "
-        f"{inst.record['launches']}, expected {want}")
+        f"{inst.record['launches']}, expected {want} ({probes} pre-flight "
+        f"probes, one a length bucket)")
+    if probes < 1:
+        fail("runtime phase: the instrumented run ran no memory pre-flight "
+             "probe")
     if inst.record["launches"] != want or evals != 22:
         fail("runtime phase: the instrumented run's launch counts do not "
              "match test_bert.cfg's 2 debug steps")
@@ -5254,6 +5444,411 @@ def phase_runtime(torch):
             "runtime supervised, attempt 2":
                 drill["resumed"].record["launches"],
             "window": window}
+
+
+# -- phase 17: the warm-up plane ---------------------------------------------------
+
+WARM_DIR = OUT_DIR / "warmup"
+WARM_DEADLINE_S = 240
+INT8_FLAGS = ("--quantize", "int8", "--ln_impl", "fused")
+# the engines of the cold and the warm process, one after the other
+WARM_RUNS = ((), INT8_FLAGS)
+# the store series of an engine's /metrics
+STORE_SERIES = ("qa_aot_cache_hits_total", "qa_aot_cache_misses_total",
+                "qa_kernel_build_hits_total", "qa_kernel_build_misses_total")
+# launches per device batch of the bf16 and the int8 serving forward
+# the rounds after phase 17's counted graph burst, on the same engine: the
+# eager and the graph p50 and traffic batch times come from these
+BACK_TO_BACK = ("eager", "graph", "graph", "eager")
+PER_BATCH = {"bf16": {"fused_attention_fwd": 12},
+             "int8": {"fused_attention_fwd": 12, "q8_matmul": Q8_PER_FORWARD,
+                      "layer_norm_fwd": LN_PER_FORWARD,
+                      "q8_quantize": QUANT_PER_FORWARD}}
+
+
+def warm_engines(store: str, tuning: str, out: str) -> int:
+    """Phase 17's engine process: ``config/serve.cfg`` in bf16, then with
+    ``--quantize int8 --ln_impl fused``, each through ``cli.serve``'s
+    ``build_engine`` and warmup on the library store ``store``; writes the
+    store's session, the build counts and each engine's store series from
+    its ``/metrics`` to ``out``."""
+    import torch
+
+    from ml_recipe_tpu_torch.cli.serve import build_engine
+    from ml_recipe_tpu_torch.config.parser import (
+        get_model_parser, get_params, get_serve_parser)
+    from ml_recipe_tpu_torch.ops import aot, cuda_build
+
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr)
+    fa, ln, q8 = _register_kernels()
+    t0 = time.perf_counter()
+    engines = []
+    for extra in WARM_RUNS:
+        _, (params, model_params) = get_params(
+            (get_serve_parser, get_model_parser),
+            ["-c", str(REPO / "config" / "serve.cfg"), "--vocab_file",
+             str(OUT_DIR / "vocab.txt"), "--aot_cache", store,
+             "--autotune_cache", tuning, *extra])
+        engine = build_engine(params, model_params)
+        warm = engine.warmup(hbm_preflight=params.hbm_preflight)
+        page = {}
+        for line in engine.render_metrics().splitlines():
+            if line and not line.startswith("#"):
+                name, value = line.rsplit(" ", 1)
+                page[name] = float(value)
+        engines.append({"flags": " ".join(extra) or "bf16",
+                        "dispatch": warm["dispatch"],
+                        "graphs": warm["graphs"],
+                        "warmup_seconds": warm["warmup_seconds"],
+                        "store": {k: page[k] for k in STORE_SERIES}})
+        engine.close()
+        del engine
+        torch.cuda.empty_cache()
+    record = {"aot": aot.get().session_summary(),
+              "builds": cuda_build.build_counts(),
+              "libraries": {lib.name: lib.outcome for lib in (
+                  fa.KERNEL.library, fa.BWD_KERNEL.library, ln.LIBRARY,
+                  q8.KERNEL.library)},
+              "engines": engines, "seconds": time.perf_counter() - t0}
+    Path(out).write_text(json.dumps(record))
+    return 0
+
+
+def _real_batch(burst, batch: int, seq: int) -> np.ndarray:
+    """``batch`` windows of the burst's requests at ``seq``: a traffic
+    batch's ids."""
+    from ml_recipe_tpu_torch.quant import make_parity_batches
+
+    lines = [{"question_text": q, "document_text": d}
+             for q, d in burst.requests]
+    return make_parity_batches(
+        burst.tokenizer, lines, max_seq_len=seq,
+        max_question_len=burst.params.max_question_len,
+        doc_stride=burst.params.doc_stride, batch_size=batch,
+        limit=batch)[0]["input_ids"]
+
+
+def _host_ms(torch, fn, reps: int = 20) -> float:
+    """Median host milliseconds of one ``fn()`` call, the device idle
+    before each (the launches' issue time when ``fn`` does not wait)."""
+    samples = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(samples)
+
+
+# the device functions each wrapper's launch starts, by the kernel's count
+# name (one of them per launch at the serving shapes)
+DEVICE_FUNCTIONS = {
+    "fused_attention_fwd": ("fused_attention_fwd_kernel",
+                            "fused_attention_fwd_tc"),
+    "fused_attention_bwd": ("fused_attention_bwd_dq",),
+    "layer_norm_fwd": ("layer_norm_fwd_warp_kernel", "layer_norm_fwd_kernel"),
+    "layer_norm_bwd": ("layer_norm_bwd_warp_kernel", "layer_norm_bwd_kernel"),
+    "q8_matmul": ("q8_matmul_kernel", "q8_matmul_wgmma_kernel"),
+    "q8_quantize": ("q8_quantize_rows_kernel",),
+}
+REPLAYS_TRACED = 3
+# traces of a bucket's replays taken until one shows its launches (a
+# trace's edge has dropped a kernel event before, and a spin kernel on each
+# side guards it); a replay that launches too few kernels shows in each
+REPLAY_TRACES = 3
+
+
+def _traced_replay_launches(torch, graph):
+    """Each hand-written kernel's launches per replay of ``graph``, counted
+    from the device events of a torch.profiler trace of REPLAYS_TRACED
+    replays between two spin kernels (:func:`device_trace`); None when the
+    trace held none."""
+    torch.cuda.synchronize()
+
+    def replays():
+        torch.cuda._sleep(SPIN_CYCLES)
+        for _ in range(REPLAYS_TRACED):
+            graph.replay()
+        torch.cuda._sleep(SPIN_CYCLES)
+
+    events = device_trace(torch, replays)
+    if events is None:
+        return None
+    seen = {k: 0 for k in KERNELS}
+    for name, _, _ in events:
+        for k, functions in DEVICE_FUNCTIONS.items():
+            if any(f in name for f in functions):
+                seen[k] += 1
+    return {k: n / REPLAYS_TRACED for k, n in seen.items()}
+
+
+def _graphs_against_eager(torch, key: str, burst) -> dict:
+    """Every kept bucket's replay on a real batch against the eager forward
+    (``np.array_equal``), with one forward's launches per replay both in
+    the counts the replay adds and in the device events of a traced replay
+    (measured: equal to the capture's tally and to PER_BATCH); then, on
+    the 32x384 batch, the host ms to issue one batch (eager launches
+    against one replay), its device ms, the host ms of a whole batch (copy
+    in, run, rows out), and the device's idle share from a profiled run of
+    each."""
+    engine = burst.engine
+    want = {k: PER_BATCH[key].get(k, 0) for k in KERNELS}
+    traced = {}
+    for bucket in engine.grid:
+        ids = _real_batch(burst, bucket.batch, bucket.seq)
+        c0 = counts()
+        eager = engine.run_packed({"input_ids": ids})
+        c1 = counts()
+        graph = engine._dispatch(bucket.batch, bucket.seq, {"input_ids": ids})
+        c2 = counts()
+        per_eager = {k: c1[k] - c0[k] for k in c0}
+        per_replay = {k: c2[k] - c1[k] for k in c0}
+        if not np.array_equal(graph, eager):
+            fail(f"warm-up plane ({key}): bucket {bucket}'s graph replay "
+                 f"differs from the eager forward by up to "
+                 f"{np.abs(graph - eager).max()}")
+        if per_replay != want or per_eager != want:
+            fail(f"warm-up plane ({key}): bucket {bucket} launched "
+                 f"{per_replay} per replay and {per_eager} eager, not {want}")
+        g = engine._graphs[(bucket.batch, bucket.seq)]
+        tally = {k: g.tally.get(k, 0) for k in KERNELS}
+        for _ in range(REPLAY_TRACES):
+            on_device = _traced_replay_launches(torch, g.graph)
+            if on_device is None:
+                fail(f"warm-up plane ({key}): no trace of bucket {bucket}'s "
+                     f"replays held device events; its launches are not "
+                     f"measured")
+            if on_device == tally == want:
+                break
+            say(f"warm-up plane ({key}): a trace of bucket {bucket}'s "
+                f"replays showed {on_device} per replay")
+        if on_device != tally or on_device != want:
+            fail(f"warm-up plane ({key}): bucket {bucket}'s traced replay "
+                 f"launched {on_device} on the device; its capture's tally "
+                 f"is {tally}, a forward launches {want}")
+        traced[str(bucket)] = {k: n for k, n in on_device.items() if n}
+    say(f"warm-up plane ({key}): {len(engine.grid)} buckets' graph replays "
+        f"equal to the eager forward on real batches (np.array_equal), "
+        f"{want} launched per replay as per eager batch; device events per "
+        f"replay in a trace of {REPLAYS_TRACED} replays each: {traced}")
+    ids = _full_batch_ids(burst.tokenizer, burst.requests, burst.params)
+    wire = engine._wire_pack({"input_ids": ids})
+    g = engine._graphs[(32, 384)]
+    with torch.inference_mode():
+        out = dict(
+            eager_issue_ms=_host_ms(torch, lambda: engine._score(wire)),
+            graph_issue_ms=_host_ms(torch, g.graph.replay),
+            eager_device_ms=time_ms(torch, lambda: engine._score(wire)),
+            graph_device_ms=time_ms(torch, g.graph.replay),
+            eager_batch_ms=_host_ms(
+                torch, lambda: engine.run_packed({"input_ids": ids}), 10),
+            graph_batch_ms=_host_ms(
+                torch, lambda: engine._dispatch(32, 384, {"input_ids": ids}),
+                10))
+    out["eager_idle"] = profile_forward(torch, lambda: engine._score(wire),
+                                        f"warm-up plane ({key} eager)")
+    out["graph_idle"] = profile_forward(torch, g.graph.replay,
+                                        f"warm-up plane ({key} graph replay)")
+    say(f"warm-up plane ({key}), one 32x384 batch: host ms to issue it "
+        f"eager {out['eager_issue_ms']:.3f}, graph replay "
+        f"{out['graph_issue_ms']:.3f}; device ms eager "
+        f"{out['eager_device_ms']:.3f}, graph {out['graph_device_ms']:.3f}; "
+        f"host ms per whole batch (copy in, run, rows out) eager "
+        f"{out['eager_batch_ms']:.3f}, graph {out['graph_batch_ms']:.3f}; "
+        f"device idle eager {not_measured(out['eager_idle'])}, graph "
+        f"{not_measured(out['graph_idle'])}")
+    return out
+
+
+def _warm_records(name: str, proc, log: Path, deadline: float) -> dict:
+    _join({name: (proc, log)}, deadline, "warm-up plane")
+    rec = json.loads((WARM_DIR / f"{name}.json").read_text())
+    say(f"warm-up plane: {name} engine process ({rec['seconds']:.1f}s): "
+        f"store {rec['aot']['cache']} hits {rec['aot']['hits']} misses "
+        f"{rec['aot']['misses']}, nvcc runs {rec['builds']['misses']}, "
+        f"libraries {rec['libraries']}; engines "
+        + "; ".join(f"{e['flags']}: {e['dispatch']} dispatch, warmup "
+                    f"{e['warmup_seconds']}s, {e['store']}"
+                    for e in rec["engines"]))
+    if any(e["dispatch"] != "graph" for e in rec["engines"]):
+        fail(f"warm-up plane: a {name} engine did not dispatch through its "
+             f"buckets' graphs")
+    return rec
+
+
+def _warmup_training(torch) -> dict:
+    """``config/test_bert.cfg --dummy_dataset --debug`` with the card's
+    memory stood in by a limit of 3/4 of the need phase 4 measured at
+    batch_split 8 (its largest bucket): the split is raised and the steps
+    run. Returns the run's launch counts."""
+    from ml_recipe_tpu_torch.utils import hbm
+
+    cfg, _, base = next(r for r in PREFLIGHT_REPORTS
+                        if r[0] == "test_bert.cfg" and r[1] == ())
+    say(f"warm-up plane: phase 4's pre-flight at the card's own limit "
+        f"({base['limit_bytes']} B): batch_split {base['batch_split_before']}"
+        f" -> {base['batch_split']}, applied {base['applied']}; need by "
+        f"bucket {base['buckets']}")
+    if base["applied"] or base["batch_split"] != 8 or not base["buckets"]:
+        fail("warm-up plane: at the card's own limit the pre-flight changed "
+             "test_bert.cfg's plan")
+    # a quarter below: the need moves by a few MB from run to run
+    need = max(b["bytes"] for b in base["buckets"])
+    limit = need * 3 // 4
+    real = hbm.device_hbm_bytes
+    hbm.device_hbm_bytes = lambda device=None: limit
+    try:
+        trainer, params, launched, wall = _run_training(
+            torch, "test_bert.cfg", ["--dummy_dataset", "--debug"])
+    finally:
+        hbm.device_hbm_bytes = real
+    report = trainer.preflight_report
+    layers = trainer.model.cfg.num_layers
+    micro = len(trainer.history) * trainer.batch_split
+    evals = trainer.eval_batches
+    want = {"fused_attention_fwd": layers * (micro + evals),
+            "fused_attention_bwd": layers * micro}
+    say(f"warm-up plane: training under a limit of {limit} B (3/4 of "
+        f"phase 4's need): batch_split {report['batch_split_before']} -> "
+        f"{report['batch_split']} (applied {report['applied']}), need by "
+        f"bucket {report['buckets']}; {len(trainer.history)} steps of "
+        f"{trainer.batch_split} micro-batches in {wall:.1f}s, losses "
+        f"{[round(h['loss'], 4) for h in trainer.history]}; launch counts "
+        f"{launched}, expected {want}")
+    if not report["applied"] or trainer.batch_split <= 8 or \
+            report["batch_split"] != trainer.batch_split:
+        fail("warm-up plane: the reduced limit did not raise batch_split")
+    if len(trainer.history) != 2 or any(
+            launched[k] != n for k, n in want.items()) or not all(
+            np.isfinite(h["loss"]) for h in trainer.history):
+        fail("warm-up plane: the raised split's steps did not run as "
+             "configured")
+    del trainer
+    torch.cuda.empty_cache()
+    return launched
+
+
+def phase_warmup_plane(torch) -> dict:
+    """Phase 17, the warm-up plane, on a fresh temporary library store and
+    tuning cache. Returns each of its paths' launch counts."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(WARM_DIR, ignore_errors=True)
+    WARM_DIR.mkdir(parents=True)
+    store, tuning = WARM_DIR / "aot", WARM_DIR / "tuning"
+    planes = ("--autotune_cache", str(tuning))
+    deadline = time.monotonic() + WARM_DEADLINE_S
+    paths = {}
+
+    # 1. a cold engine process builds into the empty store; the training
+    # pre-flight runs meanwhile
+    spawn = ["--warm-engines", store, tuning]
+    procs = []
+    try:
+        return _warmup_plane(torch, spawn, procs, store, planes, deadline,
+                             paths, t_phase)
+    finally:
+        for proc in procs:         # none outlives the phase, failed or not
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _warmup_plane(torch, spawn, procs, store, planes, deadline, paths,
+                  t_phase) -> dict:
+    cold = _spawn([*spawn, WARM_DIR / "cold.json"], WARM_DIR / "cold.log")
+    procs.append(cold)
+    paths["training pre-flight"] = _warmup_training(torch)
+    cold_rec = _warm_records("cold", cold, WARM_DIR / "cold.log", deadline)
+    built = cold_rec["builds"]["misses"]
+    if not built or cold_rec["aot"]["misses"] != built or \
+            cold_rec["aot"]["hits"] or cold_rec["builds"]["hits"]:
+        fail("warm-up plane: the cold engines' store misses are not the "
+             "libraries they built")
+
+    # 2. a warm engine process on the same store builds nothing; the grid
+    # pre-flight runs meanwhile
+    warm = _spawn([*spawn, WARM_DIR / "warm.json"], WARM_DIR / "warm.log")
+    procs.append(warm)
+    needs = {b: v["bytes"] for b, v in BURSTS["bf16"].warm["preflight"].items()}
+    limit = (needs["8x384"] + needs["32x384"]) // 2
+    grid = _serve_burst(torch, dispatch="graph", planes=planes,
+                        limit_bytes=limit, tag="reduced limit")
+    say(f"warm-up plane: grid pre-flight needs {needs} B (phase 3, measured "
+        f"at the card's limit); at a limit of {limit} B the grid drops "
+        f"{grid.warm['dropped']} and keeps {grid.warm['buckets']}; 384-token "
+        f"batches {[r for s, r in grid.seen if s == 384]}")
+    if grid.warm["dropped"] != ["32x384"] or \
+            grid.warm["buckets"] != ["8x128", "8x384"]:
+        fail("warm-up plane: the reduced limit did not drop 32x384 alone")
+    paths["grid pre-flight"] = grid.counts
+    del grid
+    torch.cuda.empty_cache()
+    warm_rec = _warm_records("warm", warm, WARM_DIR / "warm.log", deadline)
+    n_libs = len([o for o in cold_rec["libraries"].values() if o])
+    if warm_rec["aot"]["misses"] or warm_rec["builds"]["misses"] or \
+            warm_rec["aot"]["hits"] != n_libs or any(
+            e["store"]["qa_aot_cache_misses_total"] for e in warm_rec["engines"]):
+        fail(f"warm-up plane: the warm engines missed the store or built a "
+             f"library (hits {warm_rec['aot']['hits']} of {n_libs})")
+    tool = [sys.executable, "-m", "ml_recipe_tpu_torch.ops.aot",
+            "--cache_dir", str(store)]
+    listing = subprocess.run([*tool, "--list"], capture_output=True,
+                             text=True, timeout=60, cwd=str(REPO))
+    verify = subprocess.run([*tool, "--verify"], capture_output=True,
+                            text=True, timeout=60, cwd=str(REPO))
+    say("warm-up plane: python -m ml_recipe_tpu_torch.ops.aot --list: "
+        + " | ".join(listing.stdout.strip().splitlines()))
+    say(f"warm-up plane: --verify exit {verify.returncode}: "
+        + " | ".join(verify.stdout.strip().splitlines()[-1:]))
+    if verify.returncode != 0 or listing.returncode != 0:
+        fail("warm-up plane: the store's tool failed on the warm store")
+
+    # 3. phase 3's and phase 8's bursts with graphs, then eager and graph
+    # bursts back to back on the same engine, and every bucket's replay
+    # against the eager forward
+    figures = {}
+    for key, extra, eager_label in (
+            ("bf16", (), "bf16"),
+            ("int8", INT8_FLAGS, " ".join(INT8_FLAGS))):
+        burst = _serve_burst(torch, extra, dispatch="graph", planes=planes,
+                             rounds=BACK_TO_BACK)
+        db = burst.device_batches
+        want = {k: PER_BATCH[key].get(k, 0) * db for k in KERNELS}
+        if burst.counts != want:
+            fail(f"warm-up plane ({key}): the graph burst launched "
+                 f"{burst.counts}, not {want} ({db} device batches)")
+        if burst.warm["dispatch"] != "graph" or set(burst.warm["graphs"]) != {
+                "8x128", "8x384", "32x384"}:
+            fail(f"warm-up plane ({key}): not every bucket has its graph")
+        paths[f"serving {key}, graphs"] = burst.counts
+        figures[key] = _graphs_against_eager(torch, key, burst)
+        rounds = burst.by_mode
+        figures[key].update(
+            eager_p50_ms=statistics.median(rounds["eager"]["latency_ms"]),
+            graph_p50_ms=statistics.median(rounds["graph"]["latency_ms"]),
+            eager_traffic_batch_ms=statistics.median(
+                rounds["eager"]["batch_ms"]),
+            graph_traffic_batch_ms=statistics.median(
+                rounds["graph"]["batch_ms"]))
+        say(f"warm-up plane ({key}): bursts back to back on one engine "
+            f"({', '.join(BACK_TO_BACK)}, {len(burst.requests)} requests "
+            f"each): request latency p50 eager "
+            f"{figures[key]['eager_p50_ms']:.1f} ms, graphs "
+            f"{figures[key]['graph_p50_ms']:.1f} ms; traffic batches' host ms "
+            f"eager {rounds['eager']['batch_ms']}, graphs "
+            f"{rounds['graph']['batch_ms']}; the first burst (graphs, the "
+            f"counted main path) p50 {statistics.median(burst.latency_ms):.1f}"
+            f" ms, phase {3 if key == 'bf16' else 8}'s eager burst p50 "
+            f"{BURSTS[eager_label].p50:.1f} ms (a fresh engine's first burst:"
+            f" not comparable)")
+        del burst
+        torch.cuda.empty_cache()
+    say(f"warm-up plane: {json.dumps(figures)}")
+    say(f"warm-up plane phase: {time.perf_counter() - t_phase:.1f}s")
+    return paths
 
 
 def main() -> int:
@@ -5343,6 +5938,12 @@ def main() -> int:
     sp = phase_sequence_parallel(torch, fa, bw, flops)
     torch.cuda.empty_cache()
     rt = phase_runtime(torch)
+    torch.cuda.empty_cache()
+    warm = phase_warmup_plane(torch)
+
+    def warm_paths(kernel):
+        return {f"warm-up plane, {path}": n[kernel]
+                for path, n in warm.items() if n[kernel]}
 
     def runtime_paths(kernel):
         return {path: rt[path][kernel] for path in (
@@ -5366,7 +5967,9 @@ def main() -> int:
     def int8_paths(kernel):
         return {"serving int8": int8[kernel],
                 "validate int8": nq_val8.launched[kernel],
-                "serving int8 cached": fleet8[kernel]}
+                "serving int8 cached": fleet8[kernel],
+                "warm-up plane, serving int8, graphs":
+                    warm["serving int8, graphs"][kernel]}
 
     fwd = timings[TRAIN_SHAPE]
 
@@ -5527,7 +6130,8 @@ def main() -> int:
                      + sum(option_paths("fused_attention_fwd").values())
                      + fleet_fwd + fleet8["fused_attention_fwd"]
                      + sum(packed_paths("fused_attention_fwd").values())
-                     + sum(runtime_paths("fused_attention_fwd").values())),
+                     + sum(runtime_paths("fused_attention_fwd").values())
+                     + sum(warm_paths("fused_attention_fwd").values())),
         "launches_by_path": {"serving": serving_fwd, "training": train_fwd,
                              "serving int8": int8["fused_attention_fwd"],
                              "training fused": ln_train["fused_attention_fwd"],
@@ -5538,7 +6142,8 @@ def main() -> int:
                              "serving int8 cached":
                                  fleet8["fused_attention_fwd"],
                              **packed_paths("fused_attention_fwd"),
-                             **runtime_paths("fused_attention_fwd")},
+                             **runtime_paths("fused_attention_fwd"),
+                             **warm_paths("fused_attention_fwd")},
         "max_abs_err": max(fwd_err, packed.fwd_err,
                            packed_val["packed"].errs[0]),
         "ms": fwd["ms"],
@@ -5558,7 +6163,8 @@ def main() -> int:
                      + dp["fused_attention_bwd"]
                      + sum(option_paths("fused_attention_bwd").values())
                      + packed.launched["fused_attention_bwd"]
-                     + sum(runtime_paths("fused_attention_bwd").values())),
+                     + sum(runtime_paths("fused_attention_bwd").values())
+                     + sum(warm_paths("fused_attention_bwd").values())),
         "launches_by_path": {"serving": 0, "training": train_bwd,
                              "training fused": ln_train["fused_attention_bwd"],
                              "nq training":
@@ -5567,7 +6173,8 @@ def main() -> int:
                              **option_paths("fused_attention_bwd"),
                              "packed training":
                                  packed.launched["fused_attention_bwd"],
-                             **runtime_paths("fused_attention_bwd")},
+                             **runtime_paths("fused_attention_bwd"),
+                             **warm_paths("fused_attention_bwd")},
         "max_abs_err": max(bwd_err, packed.bwd_err,
                            packed_val["packed"].errs[1]),
         "ms": bwd["ms"],
@@ -5597,4 +6204,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--sp-worker"]:
         kind, rank, port = sys.argv[2:]
         sys.exit(sp_worker(kind, int(rank), int(port)))
+    # phase 17 starts it as its cold and warm engine processes
+    if sys.argv[1:2] == ["--warm-engines"]:
+        sys.exit(warm_engines(*sys.argv[2:]))
     sys.exit(main())

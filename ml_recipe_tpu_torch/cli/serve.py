@@ -15,6 +15,13 @@ fused attention kernel (``csrc/fused_attention_fwd.cu``); with
 ``--doc_cache_bytes`` / ``--serve_cache_bytes`` turn on the two serving
 caches (``serve/cache.py``), and ``--trace_spans DIR`` writes each
 request's spans to ``DIR/serve_trace_<pid>.json`` when the drain ends.
+
+The warm-up plane, as in the JAX CLI: ``--autotune`` / ``--autotune_cache``
+configure the tuning cache of measured bucket costs (``ops/autotune.py``),
+``--aot_cache`` / ``--aot_cache_bytes`` the store of built kernel libraries
+(``ops/aot.py``; ``off`` also dispatches every batch eagerly instead of
+through the buckets' CUDA graphs), and ``--hbm_preflight`` the memory
+pre-flight that drops a bucket the card cannot hold.
 """
 
 from __future__ import annotations
@@ -37,12 +44,24 @@ from ..utils.logging import show_params
 logger = logging.getLogger("serve")
 
 
+def configure_planes(params) -> None:
+    """The tuning cache and the library store from the flags (the JAX
+    CLI's wiring)."""
+    from ..ops import aot, autotune
+
+    autotune.configure(enabled=params.autotune,
+                       cache_dir=params.autotune_cache)
+    aot.configure_from_flags(params)
+
+
 def build_engine(params, model_params):
-    """The checked flags' model and ``QAEngine`` (not warmed up yet)."""
+    """The checked flags' model and ``QAEngine`` (not warmed up yet), with
+    the tuning cache and the library store configured first."""
     from ..serve.bucketing import BucketGrid
     from ..serve.engine import QAEngine
 
     check_serve_flags(params, model_params)
+    configure_planes(params)
     model, tokenizer = init_model(model_params, checkpoint=params.checkpoint,
                                   quantize=params.quantize)
     return QAEngine(
@@ -76,7 +95,7 @@ def main(params, model_params) -> int:
         ))
 
     engine = build_engine(params, model_params)
-    engine.warmup()
+    engine.warmup(hbm_preflight=params.hbm_preflight)
 
     server = QAServer(
         engine,

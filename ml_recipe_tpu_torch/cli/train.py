@@ -27,6 +27,12 @@ checkpoint is on disk when the process ends; ``--hf_checkpoint DIR`` warm
 starts the encoder from a local HF directory (``compose.init_model``).
 ``--sequence_packing on`` trains on packed rows (``data/packing.py``;
 ``--pack_max_segments``, ``--pack_splitting fill``, ``--pack_min_fragment``).
+``--aot_cache`` / ``--aot_cache_bytes`` place and bound the store of built
+kernel libraries (``ops/aot.py``; a restart loads them instead of running
+``nvcc``), ``--autotune`` / ``--autotune_cache`` configure the tuning cache,
+and ``--hbm_preflight`` (on by default) measures the first step's device
+memory and raises ``batch_split`` when it would not fit
+(``Trainer.preflight_train_step``).
 
 With ``--dist_world_size`` W > 1 each process joins the world before any
 CUDA use (NCCL on CUDA, gloo with ``--device cpu``; ``parallel/dist.py``)
@@ -140,6 +146,13 @@ def build_trainer(params, model_params, *, watchdog=None,
     trainer feeds (:func:`run_worker` builds them); ``--trace`` gives it
     its profiler window's directory."""
     check_train_flags(params, model_params)
+    # the warm-up plane, as the JAX CLI wires it: the tuning cache and the
+    # store every kernel library is built into and loaded from
+    from ..ops import aot, autotune
+
+    autotune.configure(enabled=params.autotune,
+                       cache_dir=params.autotune_cache)
+    aot.configure_from_flags(params)
     device = resolve_device(
         pdist.rank_device(params.device, pdist.process_index())
         if pdist.process_count() > 1 else params.device)
@@ -192,6 +205,7 @@ def build_trainer(params, model_params, *, watchdog=None,
         telemetry=telemetry,
         trace_dir=(params.dump_dir / f"board/{params.experiment_name}/trace"
                    if params.trace else None),
+        hbm_preflight=params.hbm_preflight,
     )
     if params.last is not None:
         trainer.load_state_dict(params.last)

@@ -513,37 +513,34 @@ def get_trainer_parser() -> ConfigArgumentParser:
                              "step; the epoch's final state is always "
                              "written).")
 
-    # Kernel geometry autotuner + HBM pre-flight planner (measured
-    # configuration over analytic byte-counting).
+    # The warm-up plane (cli/train.py): the tuning cache, the store of
+    # built kernel libraries and the measured memory pre-flight.
     parser.add_argument("--autotune", type=_str2bool, default=True,
-                        help="Compile-probe kernel geometry autotuner "
-                             "(ops/autotune.py): on TPU, attention block "
-                             "geometries are validated with real lowering "
-                             "probes, ranked by modeled step cost, and "
-                             "persisted in the on-disk tuning cache; off "
-                             "reverts to pure analytic VMEM arithmetic. "
-                             "CPU/interpret always uses the arithmetic.")
+                        help="Tuning cache (ops/autotune.py): configured "
+                             "from this flag; every kernel of the port has "
+                             "one compiled geometry, so training records "
+                             "nothing in it.")
     parser.add_argument("--autotune_cache", type=cast2(str), default=None,
                         help="Directory of the tuning cache (default "
                              "artifacts/tuning/, or $MLRT_AUTOTUNE_CACHE).")
     parser.add_argument("--aot_cache", type=cast2(str), default=None,
-                        help="AOT compiled-program store (ops/aot.py): "
-                             "'off' disables it (every program compiles, "
-                             "exactly the pre-store behavior), a path "
-                             "overrides the store directory (default "
-                             "artifacts/aot/, or $MLRT_AOT_CACHE). A warm "
-                             "restart deserializes its train-step programs "
-                             "instead of recompiling them.")
+                        help="Store of built kernel libraries (ops/aot.py): "
+                             "'off' builds every library in this process, "
+                             "a path overrides the store directory "
+                             "(default ml_recipe_tpu_torch/csrc/build/, or "
+                             "$MLRT_AOT_CACHE). A warm restart loads its "
+                             "libraries instead of building them.")
     parser.add_argument("--aot_cache_bytes", type=cast_bytes, default=0,
-                        help="Byte budget for the AOT program store "
-                             "(K/M/G suffixes); oldest artifacts are "
-                             "evicted past it. 0 = unbounded.")
+                        help="Byte budget for the library store (K/M/G "
+                             "suffixes); oldest artifacts are evicted past "
+                             "it. 0 = unbounded.")
     parser.add_argument("--hbm_preflight", type=_str2bool, default=True,
-                        help="Before the first train step, compile once and "
-                             "read XLA's memory_analysis; if the step "
-                             "exceeds device HBM, raise batch_split "
+                        help="Before the first train step, run one forward "
+                             "and backward at the micro-batch shape and "
+                             "measure its device memory; if the step "
+                             "exceeds the card's memory, raise batch_split "
                              "(logged with before/after byte counts) "
-                             "instead of dying in XLA allocation.")
+                             "instead of running out of memory.")
 
     # Mixed precision: native policy + accepted Apex aliases.
     parser.add_argument("--precision", type=cast2(str), default=None,
@@ -904,18 +901,34 @@ def get_serve_parser() -> ConfigArgumentParser:
     parser.add_argument("--mesh", type=cast2(str), default=None,
                         help="Device mesh axes (not ported: one device).")
     parser.add_argument("--autotune", type=_str2bool, default=True,
-                        help="Kernel-geometry autotuner (not ported; "
-                             "accepted and ignored).")
+                        help="Tuning cache of measured bucket costs "
+                             "(ops/autotune.py): warmup times each bucket's "
+                             "program once per cache and deadline flushes "
+                             "rank by it, cheapest first; a warm restart "
+                             "measures nothing. false keeps oldest-first.")
     parser.add_argument("--autotune_cache", type=cast2(str), default=None,
-                        help="Tuning-cache directory (not ported; ignored).")
+                        help="Tuning-cache directory (default "
+                             "artifacts/tuning/, or $MLRT_AUTOTUNE_CACHE).")
     parser.add_argument("--aot_cache", type=cast2(str), default=None,
-                        help="AOT compiled-program store (not ported; "
-                             "ignored).")
+                        help="Store of built kernel libraries (ops/aot.py): "
+                             "a path overrides its directory (default "
+                             "ml_recipe_tpu_torch/csrc/build/, or "
+                             "$MLRT_AOT_CACHE); a rolling-restart "
+                             "replacement engine loads every library "
+                             "instead of building it. 'off' builds every "
+                             "library in this process and dispatches every "
+                             "batch eagerly instead of through the "
+                             "buckets' CUDA graphs.")
     parser.add_argument("--aot_cache_bytes", type=cast_bytes, default=0,
-                        help="AOT store byte budget (not ported; ignored).")
+                        help="Byte budget for the library store (K/M/G "
+                             "suffixes); oldest artifacts are evicted past "
+                             "it. 0 = unbounded.")
     parser.add_argument("--hbm_preflight", type=_str2bool, default=True,
-                        help="Per-bucket device-memory pre-flight at warmup "
-                             "(not ported; accepted and ignored).")
+                        help="Per-bucket device-memory pre-flight at "
+                             "warmup: one measured forward at each bucket's "
+                             "shape, and a bucket that exceeds the card's "
+                             "memory is DROPPED instead of running out of "
+                             "memory mid-traffic.")
     parser.add_argument("--serve_cache_bytes", type=cast_bytes, default=0,
                         help="Tier-2 chunk-result cache byte budget (K/M/G "
                              "suffixes): per-window output rows keyed by "
@@ -1024,10 +1037,9 @@ def get_fleet_parser() -> ConfigArgumentParser:
     return parser
 
 
-# serve-side flags with no port counterpart that change no result: accepted
-# at any value and logged once
-_IGNORED_SERVE_FLAGS = ("autotune", "autotune_cache", "aot_cache",
-                        "aot_cache_bytes", "hbm_preflight")
+# the serve-side warm-up plane's flags (cli/serve.py): live, logged once
+_WARMUP_FLAGS = ("autotune", "autotune_cache", "aot_cache", "aot_cache_bytes",
+                 "hbm_preflight")
 
 
 def _not_ported(flag: str, value, item: str) -> NotImplementedError:
@@ -1059,11 +1071,11 @@ def check_serve_flags(params, model_params) -> None:
     for bad, flag, value, item in checks:
         if bad:
             raise _not_ported(flag, value, item)
-    ignored = [f"--{f} {getattr(params, f)}" for f in _IGNORED_SERVE_FLAGS]
     if model_params.remat:
-        ignored.append("--remat")
-    logger.info("Accepted but not ported (no effect in ml_recipe_tpu_torch): "
-                "%s.", ", ".join(ignored))
+        logger.info("Accepted but not ported (no effect in "
+                    "ml_recipe_tpu_torch): --remat.")
+    logger.info("Warm-up plane (live): %s.", ", ".join(
+        f"--{f} {getattr(params, f)}" for f in _WARMUP_FLAGS))
 
 
 
@@ -1071,8 +1083,7 @@ def check_serve_flags(params, model_params) -> None:
 # value: accepted and logged once (min_world, host_timeout and coord_poll
 # tune the elastic supervisor, which is not ported: --elastic is refused)
 _IGNORED_TRAIN_FLAGS = (
-    "gpu", "sync_bn", "autotune", "autotune_cache", "aot_cache",
-    "aot_cache_bytes", "hbm_preflight", "apex_level", "apex_verbosity",
+    "gpu", "sync_bn", "apex_level", "apex_verbosity",
     "precision", "pipe_schedule", "pipe_param_sharding", "zero1_bucket_mb",
     "min_world", "host_timeout", "coord_poll",
 )
@@ -1086,6 +1097,8 @@ _RUNTIME_TRAIN_FLAGS = (
     "goodput_ledger", "flight_recorder", "watchdog_timeout", "supervise",
     "fault_plan", "anomaly_factor", "anomaly_window", "flightrec_events",
     "max_restarts", "backoff_base", "backoff_max", "crash_loop_window",
+    "autotune", "autotune_cache", "aot_cache", "aot_cache_bytes",
+    "hbm_preflight",
 )
 
 _PARALLEL = "queue 1, 'Parallelism beyond data parallelism'"
@@ -1118,7 +1131,9 @@ def check_train_flags(params, model_params) -> None:
     ``--fault_plan``, with their knobs ``--anomaly_factor``,
     ``--anomaly_window``, ``--flightrec_events``, ``--max_restarts``,
     ``--backoff_base``, ``--backoff_max`` and ``--crash_loop_window``
-    (``cli/train.py``). ``--elastic`` is refused (ROADMAP.md queue 1,
+    (``cli/train.py``), and so is the warm-up plane: ``--autotune``,
+    ``--autotune_cache``, ``--aot_cache``, ``--aot_cache_bytes`` and
+    ``--hbm_preflight``. ``--elastic`` is refused (ROADMAP.md queue 1,
     'Runtime subsystems'); its knobs ``--min_world``, ``--host_timeout``
     and ``--coord_poll`` are accepted and ignored, and logged so."""
     _check_ln_impl(model_params)

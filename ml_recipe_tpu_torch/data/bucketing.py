@@ -19,6 +19,8 @@ from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
+import numpy as np
+
 from .collate import rebind_collate_seq
 from .loader import read_with_retry
 from .packing import (
@@ -366,3 +368,22 @@ class BucketedDataLoader:
             out["padmax_waste_pct"] = round(
                 100.0 * (1.0 - s["real_tokens"] / s["padmax_tokens"]), 2)
         return out
+
+
+def synthetic_qa_batch(batch: int, seq: int):
+    """Shape-only host ``(inputs, labels)`` in the QA collate schema: the
+    per-bucket memory pre-flight measures each bucket's train step on these
+    before the first real batch exists."""
+    inputs = {
+        "input_ids": np.ones((batch, seq), dtype=np.int32),
+        "attention_mask": np.ones((batch, seq), dtype=np.int32),
+        "token_type_ids": np.zeros((batch, seq), dtype=np.int32),
+    }
+    labels = {
+        "start_class": np.zeros((batch,), dtype=np.int32),
+        "end_class": np.zeros((batch,), dtype=np.int32),
+        "start_reg": np.zeros((batch,), dtype=np.float32),
+        "end_reg": np.zeros((batch,), dtype=np.float32),
+        "cls": np.zeros((batch,), dtype=np.int32),
+    }
+    return inputs, labels

@@ -17,10 +17,13 @@ engine each, ephemeral ports, ready-file handshake) and applies the
 cordoned on the router (no new traffic; its ring keys spill to the
 successor), drained via SIGTERM (in-flight work answers normally),
 relaunched, asserted to have started with ZERO kernel builds
-(``qa_kernel_build_misses_total == 0`` on the replacement: every library
-came from ``csrc/build/``, ``ops/cuda_build.py``), then re-admitted to the
-ring before the next engine is touched. The tier never loses more than
-one engine of capacity and never pays a build.
+(``qa_aot_cache_misses_total == 0`` and ``qa_kernel_build_misses_total ==
+0`` on the replacement: every library came from the store the engines
+share, ``ops/aot.py``; ``config/fleet.cfg`` names it with ``aot_cache``),
+then re-admitted to the ring before the next engine is touched. The tier
+never loses more than one engine of capacity and never pays a build. A
+replacement captures its buckets' CUDA graphs again: a capture is not a
+compile, and graphs do not outlive their process.
 
 Multi-checkpoint routing: ``checkpoints`` assigns one checkpoint per
 engine (A/B serving in one tier). The weights-fingerprint cache keys
@@ -221,7 +224,8 @@ class FleetManager:
         Per engine: cordon on the router (keys spill to the ring
         successor, nothing new is routed here) -> SIGTERM drain (admitted
         requests flush to 200s, exit 0 asserted) -> relaunch -> assert the
-        replacement started with zero kernel builds -> re-admit to the
+        replacement started with zero kernel builds and zero store misses
+        -> re-admit to the
         ring. Returns one report dict per engine.
         """
         reports = []
@@ -242,11 +246,13 @@ class FleetManager:
                 self._wait_ready(handle)
                 ready_s = time.monotonic() - t0
                 builds = self._build_counters(handle)
-                if require_zero_builds and builds["misses"] != 0:
+                if require_zero_builds and (builds["misses"] != 0
+                                            or builds["aot_misses"] != 0):
                     raise FleetError(
                         f"rolling restart: {handle.node_id} built "
-                        f"{builds['misses']} kernel library(ies); the "
-                        f"libraries in csrc/build/ should have made it zero")
+                        f"{builds['misses']} kernel library(ies) "
+                        f"({builds['aot_misses']} store misses); the shared "
+                        f"library store should have made it zero")
                 if self.router is not None:
                     self.router.replace_engine(
                         handle.node_id, handle.host, handle.port)
@@ -259,13 +265,16 @@ class FleetManager:
                     "ready_seconds": round(ready_s, 3),
                     "build_hits": builds["hits"],
                     "build_misses": builds["misses"],
+                    "aot_hits": builds["aot_hits"],
+                    "aot_misses": builds["aot_misses"],
                 })
                 logger.info("rolling restart: %s done (%s)",
                             handle.node_id, reports[-1])
         return reports
 
     def _build_counters(self, handle: EngineHandle) -> Dict[str, int]:
-        """Scrape qa_kernel_build_{hits,misses}_total off one engine."""
+        """Scrape qa_kernel_build_{hits,misses}_total and
+        qa_aot_cache_{hits,misses}_total off one engine."""
         url = f"http://{handle.host}:{handle.port}/metrics"
         try:
             with urllib.request.urlopen(url, timeout=5.0) as resp:
@@ -276,12 +285,16 @@ class FleetManager:
             ) from e
         _, samples = parse_prometheus_text(text)
         counters = {name: value for name, _, value in samples}
-        if "qa_kernel_build_misses_total" not in counters:
-            raise FleetError(
-                f"{handle.node_id}'s /metrics has no kernel build counters")
+        for name in ("qa_kernel_build_misses_total",
+                     "qa_aot_cache_misses_total"):
+            if name not in counters:
+                raise FleetError(
+                    f"{handle.node_id}'s /metrics has no {name}")
         return {
             "hits": int(counters.get("qa_kernel_build_hits_total", 0)),
             "misses": int(counters["qa_kernel_build_misses_total"]),
+            "aot_hits": int(counters.get("qa_aot_cache_hits_total", 0)),
+            "aot_misses": int(counters["qa_aot_cache_misses_total"]),
         }
 
     # -- crash supervision -----------------------------------------------------

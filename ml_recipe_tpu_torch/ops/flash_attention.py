@@ -353,7 +353,7 @@ def fused_attention_cuda(
         raise RuntimeError(
             f"fused_attention_fwd launch failed: cudaError_t {err} "
             f"(B={B}, L={L}, H={H}, D={D}, {q.dtype})")
-    KERNEL.launches += 1
+    KERNEL.count()
     return (out, lse) if want_lse else out
 
 
@@ -443,7 +443,7 @@ def fused_attention_bwd_cuda(
         raise RuntimeError(
             f"fused_attention_bwd launch failed: cudaError_t {err} "
             f"(B={B}, L={L}, H={H}, D={D}, {q.dtype})")
-    BWD_KERNEL.launches += 1
+    BWD_KERNEL.count()
     return dq, dk, dv
 
 

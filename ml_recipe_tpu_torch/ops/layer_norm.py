@@ -217,7 +217,7 @@ def _fwd_cuda(what: str, h, gamma, beta, eps, dtype, codes: bool):
         raise RuntimeError(f"layer_norm_fwd launch failed: cudaError_t {err} "
                            f"(N={N}, C={C}, {h.dtype} -> {dtype}, codes "
                            f"{codes})")
-    FWD_KERNEL.launches += 1
+    FWD_KERNEL.count()
     return (y, q, scale) if codes else y
 
 
@@ -275,7 +275,7 @@ def layer_norm_bwd_cuda(h: torch.Tensor, gamma: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"layer_norm_bwd launch failed: cudaError_t {err} "
                            f"(N={N}, C={C}, h {h.dtype}, g {g.dtype})")
-    BWD_KERNEL.launches += 1
+    BWD_KERNEL.count()
     return dh, dgamma, dbeta
 
 

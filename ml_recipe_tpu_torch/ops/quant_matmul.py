@@ -163,7 +163,7 @@ def _launch_product(what: str, x_q, x_scale, w_q, w_scale, bias, dtype,
     if err != 0:
         raise RuntimeError(f"q8_matmul launch failed: cudaError_t {err} "
                            f"(M={M}, N={N}, K={K}, out_kind {out_kind})")
-    KERNEL.launches += 1
+    KERNEL.count()
     return out
 
 
@@ -240,7 +240,7 @@ def quantize_rowwise_cuda(x: torch.Tensor):
     if err != 0:
         raise RuntimeError(f"q8_quantize_rows launch failed: cudaError_t "
                            f"{err} (M={M}, K={K}, {x.dtype})")
-    QUANT_KERNEL.launches += 1
+    QUANT_KERNEL.count()
     return q, scale
 
 

@@ -71,13 +71,30 @@ class MicroBatcher:
         queue_size: int = 256,
         fail_fn: Optional[Callable[[Sequence[ChunkWork], BaseException], None]] = None,
         on_depth: Optional[Callable[[int], None]] = None,
+        flush_cost_fn: Optional[Callable[[int, int], Optional[float]]] = None,
     ):
         self.grid = grid
         self._run_fn = run_fn
         self._fail_fn = fail_fn
         self._on_depth = on_depth
+        # measured flush ranking: when several seqs are deadline-expired at
+        # once, ``flush_cost_fn(seq, n_items)`` returns the measured step
+        # cost of the program that would launch (the engine backs it with
+        # the tuning cache, ops/autotune.py) and the CHEAPEST flushes first,
+        # so small fast programs stop queueing behind expensive ones. None
+        # (or no hook) -> the historical order (see ``_rank_flush``). Under
+        # sustained cheap-bucket saturation the cheap queue re-expires every
+        # loop iteration, so cost ranking alone would starve an expensive
+        # bucket: once any eligible seq's oldest item has waited
+        # ``_starve_after_s``, fairness overrides cost and the oldest
+        # flushes next.
+        self._flush_cost_fn = flush_cost_fn
         self.max_batch_delay_s = max(0.0, float(max_batch_delay_ms)) / 1e3
         self.queue_size = int(queue_size)
+        # starvation bound for cost-ranked flushing: several deadlines of
+        # grace for the ranking to earn its occupancy, floored so a 0 ms
+        # deadline does not degenerate to pure oldest-first
+        self._starve_after_s = max(8.0 * self.max_batch_delay_s, 0.05)
 
         self._pending: Dict[int, deque] = {}
         # long-request scatter groups: pre-sliced batches that
@@ -206,6 +223,36 @@ class MicroBatcher:
             if q and now - q[0].enqueued_at >= self.max_batch_delay_s
         ]
 
+    def _rank_flush(self, eligible: list) -> int:
+        """Which deadline-expired seq flushes first.
+
+        With a ``flush_cost_fn``: cheapest measured step cost first, seqs
+        without a cost after the measured ones in ascending-seq order (the
+        documented fallback), UNLESS some eligible item has already waited
+        past the starvation bound, in which case the oldest flushes (cost
+        ranking trades latency ORDER, never bounded service). Without the
+        hook, or when NO eligible seq has a cost (nothing measured must not
+        reorder flushes): the historical oldest-item-first order.
+        """
+        oldest = min(eligible, key=lambda s: self._pending[s][0].enqueued_at)
+        if self._flush_cost_fn is None:
+            return oldest
+        waited = time.monotonic() - self._pending[oldest][0].enqueued_at
+        if waited >= self._starve_after_s:
+            return oldest
+
+        def key(s: int):
+            n = min(len(self._pending[s]), self.grid.max_batch_for(s))
+            est = self._flush_cost_fn(s, n)
+            if est is None:
+                return (1, float(s), s)
+            return (0, float(est), s)
+
+        keys = {s: key(s) for s in eligible}
+        if all(k[0] == 1 for k in keys.values()):
+            return oldest
+        return min(eligible, key=keys.__getitem__)
+
     def _take_locked(self) -> Optional[tuple]:
         """Pop the next batch to launch, or None to keep waiting."""
         if self._groups:
@@ -220,9 +267,7 @@ class MicroBatcher:
             eligible = self._eligible_seqs()
             if not eligible:
                 return None  # deadline not reached, nothing full
-            # the seq whose oldest item has waited longest flushes first
-            seq = min(eligible,
-                      key=lambda s: self._pending[s][0].enqueued_at)
+            seq = self._rank_flush(eligible)
         q = self._pending[seq]
         take = min(len(q), self.grid.max_batch_for(seq))
         works = [q.popleft() for _ in range(take)]

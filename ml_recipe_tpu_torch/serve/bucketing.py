@@ -131,6 +131,21 @@ class BucketGrid:
             plan.append(self.batch_for(seq, rest))
         return plan
 
+    def drop(self, bucket: Bucket) -> bool:
+        """Remove one bucket (the memory pre-flight shrinking an
+        over-committed grid at warm-up instead of running out of memory
+        mid-traffic). Returns False when it was the last bucket at any seq
+        AND the last seq: the grid never shrinks to nothing."""
+        batches = self._by_seq.get(bucket.seq)
+        if not batches or bucket.batch not in batches:
+            return False
+        if len(self._by_seq) == 1 and len(batches) == 1:
+            return False
+        batches.remove(bucket.batch)
+        if not batches:
+            del self._by_seq[bucket.seq]
+        return True
+
 
 def pad_trailing_batch(inputs: dict, batch_size: int) -> dict:
     """Pad a dict of ``[n, ...]`` host arrays up to ``batch_size`` rows by
@@ -150,3 +165,4 @@ def pad_trailing_batch(inputs: dict, batch_size: int) -> dict:
         k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
         for k, v in inputs.items()
     }
+

@@ -30,12 +30,32 @@ The port of ``ml_recipe_tpu/serve/engine.py``:
 A model from ``quant.quantize_model`` serves int8 (``quantize``, read from
 the model): ``/metrics`` then reports ``qa_active_precision`` int8 and the
 int8 weights' bytes. ``/metrics`` also carries this process's kernel builds
-(``qa_kernel_build_{hits,misses}_total``, ``ops/cuda_build.py``) and each
-hand-written kernel's launches (``qa_kernel_launches_total``).
+(``qa_kernel_build_{hits,misses}_total``, ``ops/cuda_build.py``), the
+library store's outcomes (``qa_aot_cache_{hits,misses}_total`` and
+``qa_aot_load_seconds``, ``ops/aot.py``) and each hand-written kernel's
+launches (``qa_kernel_launches_total``).
 
-Not ported yet (ROADMAP.md queue 1, 'Serving'): CUDA graphs per bucket (the
-AOT program store's counterpart), autotuned flush ranking, the memory
-pre-flight and the fault-injection sites.
+The warm-up plane (:meth:`QAEngine.warmup`), per bucket of the grid:
+
+- the memory pre-flight (``hbm_preflight``): one forward at the bucket's
+  shape, measured by the CUDA allocator (``utils/hbm.py``); a bucket whose
+  need exceeds the card's memory is dropped from the grid, the last one
+  kept;
+- a CUDA graph of the scoring forward (the counterpart of the JAX engine's
+  one compiled program per bucket, which comes from the AOT store): static
+  wire-format input and ``[6, B]`` output buffers, a warm-up run on a side
+  stream first (the kernels' one-time host calls and the allocator's
+  blocks), one graph memory pool for every bucket (the batcher runs one
+  batch at a time and each batch's rows are copied out before the next
+  replay). ``_run_batch`` copies the host batch into the bucket's static
+  input, replays, and copies the rows out through a pinned buffer. Each
+  replay adds the graph's captured launches to the kernels' counts. A
+  failed capture or replay raises; dispatch is eager only with the store
+  off (``--aot_cache off``) or on the CPU;
+- its measured cost (``ops/autotune.py``): the median of a few replays
+  timed by CUDA events (eager forwards by ``perf_counter`` on the CPU),
+  recorded once per tuning cache; with ``--autotune`` the batcher flushes
+  the cheapest measured program first (``serve/batcher.py``).
 """
 
 from __future__ import annotations
@@ -43,6 +63,7 @@ from __future__ import annotations
 import itertools
 import json
 import logging
+import statistics
 import threading
 import time
 from dataclasses import dataclass
@@ -55,8 +76,9 @@ from ..data.chunking import assemble_input_ids, encode_document, window_chunks
 from ..data.labels import id2labels
 from ..infer.score import OUT_KEYS, pack_wire, score_wire
 from ..metrics import trace as trace_mod
-from ..ops import cuda_build
+from ..ops import aot, autotune, cuda_build
 from ..quant.quantize import param_bytes
+from ..utils import hbm
 from .batcher import ChunkWork, DrainingError, MicroBatcher, QueueFullError
 from .bucketing import Bucket, BucketGrid, pad_trailing_batch
 from .cache import (
@@ -126,19 +148,61 @@ class _ChunkRef:
 _REQUEST_IDS = itertools.count(1)
 
 
-def kernel_launches() -> Dict[str, int]:
-    """Each hand-written kernel's launches in this process, by the name the
-    chip smoke gives it (the wrappers' counts)."""
+def kernels() -> Dict[str, "cuda_build.Kernel"]:
+    """Each hand-written kernel, by the name the chip smoke gives it."""
     from ..ops import flash_attention as fa
     from ..ops import layer_norm as ln
     from ..ops import quant_matmul as q8
 
-    return {"fused_attention_fwd": fa.KERNEL.launches,
-            "fused_attention_bwd": fa.BWD_KERNEL.launches,
-            "layer_norm_fwd": ln.FWD_KERNEL.launches,
-            "layer_norm_bwd": ln.BWD_KERNEL.launches,
-            "q8_matmul": q8.KERNEL.launches,
-            "q8_quantize": q8.QUANT_KERNEL.launches}
+    return {"fused_attention_fwd": fa.KERNEL,
+            "fused_attention_bwd": fa.BWD_KERNEL,
+            "layer_norm_fwd": ln.FWD_KERNEL,
+            "layer_norm_bwd": ln.BWD_KERNEL,
+            "q8_matmul": q8.KERNEL,
+            "q8_quantize": q8.QUANT_KERNEL}
+
+
+def kernel_launches() -> Dict[str, int]:
+    """Each hand-written kernel's launches in this process (the wrappers'
+    counts, and the replayed graphs' captured launches)."""
+    return {name: k.launches for name, k in kernels().items()}
+
+
+# replays (or eager forwards on the CPU) timed per bucket for its measured
+# cost; one untimed replay before them
+COST_REPEATS = 3
+
+
+class BucketGraph:
+    """One kept bucket's CUDA graph of the scoring forward: its static
+    input (wire format) and ``[6, B]`` output, the pinned host copy of the
+    output, and the kernels' launches the capture recorded (added to their
+    counts on every replay)."""
+
+    def __init__(self, graph, static_in: torch.Tensor,
+                 static_out: torch.Tensor, tally: Dict[str, int]):
+        self.graph = graph
+        self.static_in = static_in
+        self.static_out = static_out
+        self.host_out = torch.empty(static_out.shape, dtype=static_out.dtype,
+                                    pin_memory=True)
+        self.tally = {k: n for k, n in tally.items() if n}
+
+    def run(self, packed: torch.Tensor) -> np.ndarray:
+        """Copy ``packed`` (host, wire format) in, replay, copy the rows out
+        (an owned host array: the next replay overwrites the static
+        output)."""
+        self.static_in.copy_(packed)
+        self.graph.replay()
+        self.host_out.copy_(self.static_out)
+        self.count(1)
+        return self.host_out.numpy().copy()
+
+    def count(self, replays: int) -> None:
+        """Add ``replays`` replays' launches to the kernels' counts."""
+        launched = kernels()
+        for name, n in self.tally.items():
+            launched[name].launches += n * replays
 
 
 class RequestTicket:
@@ -244,6 +308,18 @@ class QAEngine:
             params_fingerprint(self.model)
             if self._chunk_cache is not None else None)
 
+        # measured flush ranking: per-(batch, seq) costs are static once
+        # warmup records them, so the batcher-thread hook memoizes lookups
+        self._flush_cost_memo: Dict[Tuple[int, int], Optional[float]] = {}
+        # per-(batch, seq) CUDA graphs, captured at warmup (before the
+        # batcher thread starts) and read lock-free by _run_batch; empty
+        # with the store off or on the CPU (eager dispatch)
+        self._graphs: Dict[Tuple[int, int], BucketGraph] = {}
+        self._graph_pool = None
+        # device forwards (eager runs and replays) this engine ran
+        self.device_forwards = 0
+        self._weight_bytes = param_bytes(self.model.state_dict())
+
         self._pad_id = int(tokenizer.pad_token_id)
         self._sep_id = int(tokenizer.sep_token_id)
         self._cls_id = int(tokenizer.cls_token_id)
@@ -308,7 +384,7 @@ class QAEngine:
             "qa_weight_bytes",
             "Resident model weight bytes (int8 quantization roughly "
             "quarters the f32 kernels).")
-        self.m_weight_bytes.set(param_bytes(model.state_dict()))
+        self.m_weight_bytes.set(self._weight_bytes)
         self.m_longdoc_requests = m.counter(
             "qa_longdoc_requests_total",
             "Requests served through the long-request scatter path "
@@ -351,6 +427,19 @@ class QAEngine:
         self.m_build_misses = m.counter(
             "qa_kernel_build_misses_total",
             "nvcc runs of this process (kernel libraries built).")
+        # the library store's outcomes (ops/aot.py), the JAX engine's AOT
+        # program-store series: registered at any configuration
+        self.m_aot_hits = m.counter(
+            "qa_aot_cache_hits_total",
+            "Kernel libraries this process loaded from the store without "
+            "building them (ops/aot.py).")
+        self.m_aot_misses = m.counter(
+            "qa_aot_cache_misses_total",
+            "Kernel libraries this process built and wrote to the store "
+            "for the next restart.")
+        self.m_aot_load = m.histogram(
+            "qa_aot_load_seconds",
+            "Kernel-library load times on store hits.")
         self.m_kernel_launches = m.labeled_gauge(
             "qa_kernel_launches_total",
             "Launches of each hand-written kernel in this process.", "kernel")
@@ -367,6 +456,11 @@ class QAEngine:
             queue_size=queue_size,
             fail_fn=self._fail_batch,
             on_depth=self.m_queue_depth.set,
+            # measured flush ranking needs a cost source: with the tuning
+            # cache off every lookup would return None, so the historical
+            # oldest-first order stays
+            flush_cost_fn=(
+                self._flush_cost if autotune.get().enabled else None),
         )
         self.warmup_report: Optional[dict] = None
 
@@ -402,29 +496,157 @@ class QAEngine:
         return pack_wire(inputs, self._wire_ids_only).to(self.device)
 
     def run_packed(self, inputs: dict) -> np.ndarray:
-        """The scoring forward on one host batch: the ``[6, B]`` f32 array
-        in ``OUT_KEYS`` row order."""
+        """The scoring forward on one host batch, eager: the ``[6, B]`` f32
+        array in ``OUT_KEYS`` row order."""
         with torch.inference_mode():
             out = self._score(self._wire_pack(inputs))
+            self.device_forwards += 1
             return out.cpu().numpy()
 
-    def warmup(self) -> dict:
-        """Run every bucket once before traffic: the attention kernel is
-        built and loaded, the allocator holds each bucket's blocks, and the
-        launch path is hot. Starts the batcher."""
+    def _dispatch(self, batch: int, seq: int, inputs: dict) -> np.ndarray:
+        """One batch at a kept bucket's shape: its graph's replay when
+        warmup captured one, else the eager forward."""
+        graph = self._graphs.get((batch, seq))
+        if graph is None:
+            return self.run_packed(inputs)
+        with torch.inference_mode(), cuda_build.launch_scope(self.device):
+            out = graph.run(pack_wire(inputs, self._wire_ids_only))
+        self.device_forwards += 1
+        return out
+
+    # -- warmup + the memory pre-flight ------------------------------------------
+
+    def _graphs_enabled(self) -> bool:
+        """Graph dispatch: on CUDA with the store on (``--aot_cache off``
+        and the CPU dispatch eagerly)."""
+        return self.device.type == "cuda" and aot.get().enabled
+
+    def preflight_predict_step(self, bucket: Bucket, *, limit_bytes=None,
+                               compile_fn=None) -> Optional[dict]:
+        """One bucket's device-memory need against the card's memory:
+        ``{"bytes": need, "limit": limit, "fits": bool}``, or None when no
+        limit or no analysis is available (the planner stands down rather
+        than guess). The need is measured (``utils/hbm.measure``) from one
+        forward at the bucket's shape: the weights and the input, the
+        output, and the allocator's peak above them. A forward that runs
+        out of memory does not fit (``"out_of_memory": True``, ``bytes`` the
+        lower bound it reached). ``compile_fn(bucket)`` / ``limit_bytes``
+        are the JAX signature's injection points: an object whose
+        ``memory_analysis()`` stands in for the measurement, and the
+        limit."""
+        limit = (limit_bytes if limit_bytes is not None
+                 else hbm.device_hbm_bytes(self.device))
+        if limit is None:
+            return None
+        try:
+            if compile_fn is not None:
+                analysis = compile_fn(bucket).memory_analysis()
+            else:
+                analysis = self._measure_bucket(bucket)
+        except Exception as e:  # noqa: BLE001 - analysis is best-effort
+            logger.info("predict pre-flight: memory analysis unavailable "
+                        "(%s); skipping.", e)
+            return None
+        need = hbm.preflight_bytes(analysis)
+        if need is None:
+            return None
+        verdict = {"bytes": int(need), "limit": int(limit),
+                   "fits": not hbm.exceeds(analysis, need, limit)}
+        if getattr(analysis, "out_of_memory", False):
+            verdict["out_of_memory"] = True
+        return verdict
+
+    def _measure_bucket(self, bucket: Bucket) -> hbm.MemoryAnalysis:
+        """The measured forward of the pre-flight at ``bucket``'s shape."""
+        dev = self._wire_pack(self._dummy_inputs(bucket))
+        with torch.inference_mode():
+            _, analysis = hbm.measure(
+                lambda: self._score(dev), self.device,
+                argument_bytes=self._weight_bytes + hbm.tensor_bytes([dev]))
+        self.device_forwards += 1
+        return analysis
+
+    def _capture(self, bucket: Bucket) -> BucketGraph:
+        """The bucket's CUDA graph: a warm-up run on a side stream (the
+        kernels' one-time host calls, the allocator's blocks), then the
+        capture into the pool all buckets share. Raises when it fails."""
+        static_in = self._wire_pack(self._dummy_inputs(bucket))
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.inference_mode(), torch.cuda.stream(side):
+            self._score(static_in)
+        current.wait_stream(side)
+        torch.cuda.synchronize(self.device)
+        self.device_forwards += 1
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        before = {name: k.captured for name, k in kernels().items()}
+        with torch.inference_mode(), \
+                torch.cuda.graph(graph, pool=self._graph_pool):
+            static_out = self._score(static_in)
+        tally = {name: k.captured - before[name]
+                 for name, k in kernels().items()}
+        return BucketGraph(graph, static_in, static_out, tally)
+
+    def warmup(self, *, hbm_preflight: bool = True, limit_bytes=None,
+               compile_fn=None) -> dict:
+        """Before traffic, for every bucket: the memory pre-flight (drop a
+        bucket that does not fit, never the last one), the CUDA graph (or
+        one eager forward), and its measured cost when the tuning cache has
+        none. Starts the batcher and returns the report (the JAX keys, and
+        ``dispatch``, ``graphs`` with each graph's launches per replay,
+        ``device_batches``, the device forwards warmup ran, and
+        ``kernel_launches``)."""
         t0 = time.perf_counter()
         before = kernel_launches()
-        report = {"buckets": [], "bucket_seconds": {},
+        forwards0 = self.device_forwards
+        graphs = self._graphs_enabled()
+        report = {"buckets": [], "dropped": [], "preflight": {},
+                  "bucket_seconds": {}, "program_costs": {}, "graphs": {},
+                  "dispatch": "graph" if graphs else "eager",
                   "wire": "ids" if self._wire_ids_only else "3plane",
                   "device": str(self.device), "quantize": self.quantize,
-                  "quant_mem_bytes": param_bytes(self.model.state_dict())}
+                  "quant_mem_bytes": self._weight_bytes,
+                  "mesh_axes": {"data": 1}, "mesh_unused_devices": 0}
         for bucket in list(self.grid):
             tb = time.perf_counter()
-            self.run_packed(self._dummy_inputs(bucket))
+            if hbm_preflight:
+                verdict = self.preflight_predict_step(
+                    bucket, limit_bytes=limit_bytes, compile_fn=compile_fn)
+                if verdict is not None:
+                    report["preflight"][str(bucket)] = verdict
+                    if not verdict["fits"]:
+                        if self.grid.drop(bucket):
+                            logger.warning(
+                                "predict pre-flight: bucket %s needs %s%.2f GB "
+                                "vs %.2f GB device memory; dropping it from "
+                                "the serving grid.", bucket,
+                                "over " if verdict.get("out_of_memory") else "",
+                                verdict["bytes"] / 1e9, verdict["limit"] / 1e9)
+                            report["dropped"].append(str(bucket))
+                            continue
+                        logger.warning(
+                            "predict pre-flight: bucket %s exceeds device "
+                            "memory but is the last bucket; keeping it.",
+                            bucket)
+            if graphs:
+                graph = self._capture(bucket)
+                self._graphs[(bucket.batch, bucket.seq)] = graph
+                report["graphs"][str(bucket)] = dict(graph.tally)
+            else:
+                self.run_packed(self._dummy_inputs(bucket))
+            est = self._record_program_cost(bucket)
+            report["program_costs"][str(bucket)] = (
+                est.get("est_seconds") if est else None)
             report["bucket_seconds"][str(bucket)] = round(
                 time.perf_counter() - tb, 4)
             report["buckets"].append(str(bucket))
+        report["autotune"] = autotune.get().session_summary()
+        report["aot"] = aot.get().session_summary()
         report["warmup_seconds"] = round(time.perf_counter() - t0, 3)
+        report["device_batches"] = self.device_forwards - forwards0
         # which attention ran: the hand-written kernel ('fused', counted by
         # its wrapper) or its plain version ('plain', a CPU model)
         launched = {k: n - before[k] for k, n in kernel_launches().items()}
@@ -433,12 +655,99 @@ class QAEngine:
             "fused" if launched["fused_attention_fwd"] else "plain")
         self.warmup_report = report
         self.batcher.start()
-        logger.info("serving warmup: %d buckets on %s in %.1fs; attention "
-                    "route %s (%d kernel launches).",
-                    len(report["buckets"]), self.device,
+        logger.info("serving warmup: %d buckets on %s (%s dropped by the "
+                    "pre-flight, %s dispatch) in %.1fs; attention route %s "
+                    "(%d kernel launches); cost measurements this session: "
+                    "%d.", len(report["buckets"]), self.device,
+                    len(report["dropped"]) or "none", report["dispatch"],
                     report["warmup_seconds"], report["attention_route"],
-                    launched["fused_attention_fwd"])
+                    launched["fused_attention_fwd"],
+                    report["autotune"]["probes"])
         return report
+
+    # -- measured flush ranking ------------------------------------------------
+
+    def _program_signature(self) -> str:
+        """Shape-independent identity of the serving program: the model's
+        geometry, the wire format and the active precision (the JAX
+        engine's string for the same model, wire and precision)."""
+        cfg = getattr(self.model, "cfg", None)
+        sig = (f"h{cfg.hidden_size}l{cfg.num_layers}n{cfg.num_heads}"
+               f"v{cfg.vocab_size}" if cfg is not None else "anon")
+        wire = "ids" if self._wire_ids_only else "3p"
+        suffix = "-q8" if self.quantize == "int8" else ""
+        return f"{sig}-{wire}{suffix}"
+
+    def _program_cost_key(self, batch: int, seq: int) -> str:
+        """Tuning-cache key of one bucket's whole serving program (the JAX
+        engine's string). On the card with the store off the program is
+        launched eagerly, not replayed, and its cost keeps a key of its own
+        (``-eager``): neither dispatch ranks flushes by the other's cost."""
+        key = f"serve-step-{batch}x{seq}-{self._program_signature()}"
+        if self.device.type == "cuda" and not self._graphs_enabled():
+            key += "-eager"
+        return key
+
+    def _time_bucket(self, bucket: Bucket) -> float:
+        """Median seconds of one bucket's dispatch: graph replays timed by
+        CUDA events, or eager forwards (the store off, the CPU) by
+        ``perf_counter`` to the synchronized end (one untimed run first)."""
+        graph = self._graphs.get((bucket.batch, bucket.seq))
+        samples = []
+        if graph is not None:
+            with torch.inference_mode(), cuda_build.launch_scope(self.device):
+                graph.graph.replay()
+                for _ in range(COST_REPEATS):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    graph.graph.replay()
+                    end.record()
+                    end.synchronize()
+                    samples.append(start.elapsed_time(end) / 1e3)
+            graph.count(COST_REPEATS + 1)
+            self.device_forwards += COST_REPEATS + 1
+        else:
+            dev = self._wire_pack(self._dummy_inputs(bucket))
+            with torch.inference_mode():
+                for i in range(COST_REPEATS + 1):
+                    t0 = time.perf_counter()
+                    self._score(dev)
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    if i:
+                        samples.append(time.perf_counter() - t0)
+            self.device_forwards += COST_REPEATS + 1
+        return statistics.median(samples)
+
+    def _record_program_cost(self, bucket: Bucket) -> Optional[dict]:
+        """The bucket's measured cost from the tuning cache, measured and
+        recorded when the cache has none; None with the cache off."""
+        tuner = autotune.get()
+        if not tuner.enabled:
+            return None
+        key = self._program_cost_key(bucket.batch, bucket.seq)
+        cached = tuner.lookup_cost(key)
+        if cached is not None and cached.get("est_seconds") is not None:
+            return cached
+        est = {"est_seconds": self._time_bucket(bucket), "source": "measured"}
+        tuner.record_cost(key, est)
+        return est
+
+    def _flush_cost(self, seq: int, n: int) -> Optional[float]:
+        """Measured step cost of the program a deadline flush of ``n``
+        items at ``seq`` would launch, from the tuning cache (None -> the
+        batcher falls back to seq order). Memoized: the hook runs under the
+        batcher lock and the costs are static after warmup."""
+        batch = self.grid.batch_for(seq, n)
+        memo_key = (batch, seq)
+        if memo_key not in self._flush_cost_memo:
+            est = autotune.get().lookup_cost(
+                self._program_cost_key(batch, seq))
+            self._flush_cost_memo[memo_key] = (
+                float(est["est_seconds"])
+                if est and est.get("est_seconds") is not None else None)
+        return self._flush_cost_memo[memo_key]
 
     # -- request admission -----------------------------------------------------
 
@@ -718,9 +1027,9 @@ class QAEngine:
             inputs = self._host_arrays(ids, lengths)
         inputs = pad_trailing_batch(inputs, batch)
         t_dev0 = time.perf_counter()
-        # the device span ends when the rows are on the host (run_packed
-        # returns the fetched numpy array), not at the launch
-        out = self.run_packed(inputs)[:, :n]
+        # the device span ends when the rows are on the host (an owned
+        # numpy array), not at the launch
+        out = self._dispatch(batch, seq, inputs)[:, :n]
         if tracer is not None:
             # the batch's requests (beyond the JAX package's args): joins
             # the flush and device spans to the other four's request ids
@@ -867,6 +1176,7 @@ class QAEngine:
         last-synced snapshot."""
         stats = self.cache_stats()
         builds = cuda_build.build_counts()
+        store = aot.get()
         with self._sync_lock:
             for name, s in stats.items():
                 if s is None:
@@ -882,6 +1192,12 @@ class QAEngine:
             self._mirror(self.m_build_hits, "build.hits", builds["hits"])
             self._mirror(self.m_build_misses, "build.misses",
                          builds["misses"])
+            self._mirror(self.m_aot_hits, "aot.hits", store.hits)
+            self._mirror(self.m_aot_misses, "aot.misses", store.misses)
+            loads = list(store.load_times_s)
+            for seconds in loads[int(self._synced.get("aot.loads", 0)):]:
+                self.m_aot_load.observe(seconds)
+            self._synced["aot.loads"] = float(len(loads))
             for kernel, n in kernel_launches().items():
                 self.m_kernel_launches.set(kernel, n)
 
@@ -907,7 +1223,7 @@ class QAEngine:
             # the process's final counts, read after its last batch: what a
             # supervisor that drains this engine learns of its kernel path
             self._close_logged = True
-            warm = len((self.warmup_report or {}).get("buckets", ()))
+            warm = int((self.warmup_report or {}).get("device_batches", 0))
             logger.info("serving closed after %d device batches (%d warmup); "
                         "kernel launches %s", warm + int(self.m_batches.value),
                         warm, json.dumps(kernel_launches(), sort_keys=True))

@@ -119,10 +119,22 @@ With telemetry or a tracer installed the step synchronizes CUDA before it
 reads the clock, so ``device`` is execution, not launches (the JAX rule);
 without them the step keeps its launches and syncs.
 
+The memory pre-flight (``hbm_preflight``, the JAX trainer's HBM
+pre-flight): before the first step of a run, one forward and backward at
+the micro-batch shape, with no optimizer update, measured by the CUDA
+allocator (``utils/hbm.py``); a need above the card's memory raises
+``batch_split`` to the next legal split (``next_batch_split``) and measures
+again. On the bucketed path every bucket is measured before the first batch
+is drawn, largest seq first, and a raised split re-derives the loader's
+bucket batches. The probe restores every generator it touches and leaves
+the loader where it was, so a run whose plan fits trains bit for bit as
+without it. With several processes the ranks all-reduce the largest need
+and so take one decision. ``preflight_probes`` counts the probes (each
+launches the kernels of one training micro-batch).
+
 Left out (their flags are refused by ``config.parser.check_train_flags``,
 or accepted and ignored where they change no result): pipeline and tensor
-parallelism, ``--zero1_overlap bucketed``, the AOT store, the elastic
-supervisor and the HBM pre-flight.
+parallelism, ``--zero1_overlap bucketed`` and the elastic supervisor.
 """
 
 from __future__ import annotations
@@ -133,12 +145,17 @@ import os
 import time
 from collections import defaultdict, deque
 from contextlib import nullcontext
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..data.bucketing import BucketedBatch, BucketedDataLoader, parse_length_buckets
+from ..data.bucketing import (
+    BucketedBatch,
+    BucketedDataLoader,
+    parse_length_buckets,
+    synthetic_qa_batch,
+)
 from ..data.device_prefetch import BatchPlacer, DevicePrefetcher, resolve_depth
 from ..data.loader import DataLoader, ShardedBatchSampler
 from ..data.packing import (
@@ -161,6 +178,7 @@ from ..parallel.plan import ParallelPlan
 from ..parallel.sharding import MIN_SIZE, Zero1, opt_state_bytes_per_chip
 from ..resilience.checkpoint_async import AsyncCheckpointer
 from ..resilience.faults import fire as _fault
+from ..utils import hbm
 from . import checkpoint as ckpt
 from . import loss_scale as ls_lib
 from .callback import TestCallback
@@ -195,6 +213,24 @@ def step_generators(seed: int, step: int, n: int,
     step_gen = torch.Generator().manual_seed(int(state) & ((1 << 63) - 1))
     seeds = torch.randint(0, 1 << 62, (n,), generator=step_gen).tolist()
     return [torch.Generator(device=device).manual_seed(s) for s in seeds]
+
+
+def next_batch_split(train_batch_size: int, batch_split: int,
+                     process_count: int, data_size: int) -> Optional[int]:
+    """Smallest batch_split above ``batch_split`` (doubling) that divides
+    the global batch AND each process's local batch (``train_batch_size //
+    process_count``), and keeps the micro-batch divisible over the data
+    axis: the JAX trainer's ``_next_batch_split``. ``None`` when no such
+    split exists."""
+    data_size = max(int(data_size), 1)
+    local_batch = train_batch_size // max(int(process_count), 1)
+    split = batch_split * 2
+    while split <= local_batch:
+        if (train_batch_size % split == 0 and local_batch % split == 0
+                and (train_batch_size // split) % data_size == 0):
+            return split
+        split *= 2
+    return None
 
 
 def _normalize_batch(batch):
@@ -245,6 +281,7 @@ class Trainer:
         watchdog=None,
         telemetry=None,
         trace_dir=None,
+        hbm_preflight: bool = True,
     ):
         self.model = model
         self.device = model.device
@@ -273,6 +310,14 @@ class Trainer:
         self.telemetry = telemetry
         self.trace_dir = trace_dir
         self.profiler_window: Optional[ProfilerWindow] = None
+        self.train_batch_size = int(train_batch_size)
+        self.hbm_preflight = bool(hbm_preflight)
+        self._preflight_done = not self.hbm_preflight
+        self.preflight_report: Optional[dict] = None
+        self.preflight_probes = 0
+        # library loads the telemetry has observed (the probe's and the
+        # steps' loads land on the next observed step)
+        self._loads_observed = len(cuda_build.load_events())
 
         self.process_index = pdist.process_index()
         self.process_count = pdist.process_count()
@@ -575,6 +620,258 @@ class Trainer:
                 out[key] = inputs[key]
         return out
 
+    # -- the memory pre-flight -------------------------------------------------
+
+    def _next_batch_split(self) -> Optional[int]:
+        """The next legal ``batch_split`` (:func:`next_batch_split`): each
+        data rank holds ``1/D`` of the rows, and its micro-batches must
+        divide them."""
+        data = self.plan.data_size
+        return next_batch_split(self.train_batch_size, self.batch_split,
+                                process_count=data, data_size=data)
+
+    def _preflight_fields(self, limit: int) -> dict:
+        """The fields both pre-flight reports share (the JAX trainer's,
+        pipeline fields None: the port has no pipeline axis)."""
+        return {
+            "limit_bytes": int(limit),
+            "batch_split_before": self.batch_split,
+            "batch_split": self.batch_split,
+            "applied": False,
+            "mesh_axes": self.plan.describe(),
+            "mesh_unused_devices": 0,
+            "opt_sharding": self.effective_opt_sharding,
+            "opt_state_bytes_per_chip": (
+                opt_state_bytes_per_chip(self.optimizer)
+                if self.optimizer is not None else None),
+            "param_bytes": hbm.tensor_bytes(self.model.parameters()),
+            "pipe_schedule": None,
+            "pipe_param_layout": None,
+            "pipe_stage_layers": None,
+            "pipe_stage_param_bytes": None,
+        }
+
+    def _probe_step(self, inputs: Dict[str, torch.Tensor],
+                    labels: Dict[str, torch.Tensor]) -> hbm.MemoryAnalysis:
+        """One forward and backward of the first micro-batch of ``inputs``
+        at the current ``batch_split``, measured (``utils/hbm.measure``):
+        the arguments are the parameters, the optimizer state and the
+        batch; the output the gradients the backward leaves. No optimizer
+        update; the gradients are dropped, and the generators it draws
+        from (the step's own, derived from ``(seed, step)``, and the global
+        ones) are restored, so the run goes on as if it had not run."""
+        rows = int(inputs["input_ids"].shape[0])
+        micro = rows // self.batch_split
+        world = self.plan.data_size
+        model, params = self.model, list(self.model.parameters())
+        cpu_rng = torch.random.get_rng_state()
+        cuda_rng = (torch.cuda.get_rng_state(self.device)
+                    if self.device.type == "cuda" else None)
+        was_training = model.training
+        arguments = (hbm.tensor_bytes(params)
+                     + (opt_state_bytes_per_chip(self.optimizer)
+                        if self.optimizer is not None else 0)
+                     + hbm.tensor_bytes(list(inputs.values())
+                                        + list(labels.values())))
+
+        def fwd_bwd():
+            gen = step_generators(self.seed, self.global_step, 1,
+                                  self.device)[0]
+            preds = model(**self._model_inputs(
+                {k: v[:micro] for k, v in inputs.items()}), generator=gen,
+                global_rows=((self.mesh.data_index * micro, world * micro)
+                             if world > 1 else None))
+            total, _ = self.loss(preds, {k: v[:micro]
+                                         for k, v in labels.items()})
+            total.backward()
+
+        for p in params:
+            p.grad = None
+        model.train()
+        try:
+            _, analysis = hbm.measure(fwd_bwd, self.device,
+                                      argument_bytes=arguments)
+        finally:
+            for p in params:
+                p.grad = None
+            model.train(was_training)
+            torch.random.set_rng_state(cpu_rng)
+            if cuda_rng is not None:
+                torch.cuda.set_rng_state(cuda_rng, self.device)
+        self.preflight_probes += 1
+        return analysis
+
+    def _agree(self, need: Optional[int],
+               out_of_memory: bool) -> Tuple[Optional[int], bool]:
+        """One decision for every process: the largest need of the world
+        and whether any process ran out of memory, or None (stand down)
+        when any process has no need."""
+        if self.process_count < 2:
+            return need, out_of_memory
+        t = torch.tensor([need if need is not None else 0,
+                          int(need is None), int(out_of_memory)],
+                         dtype=torch.int64, device=self.device)
+        torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
+        return (None if int(t[1]) else int(t[0])), bool(t[2])
+
+    def _measured_need(self, analysis_fn, limit: int) -> Tuple[
+            Optional[int], bool]:
+        """``(need, over)``: ``preflight_bytes`` of ``analysis_fn()``'s
+        analysis agreed over the world (None when it is unavailable), and
+        whether it exceeds ``limit`` on any process (a probe that ran out
+        of memory does, whatever its lower bound)."""
+        try:
+            analysis = analysis_fn()
+        except Exception as e:  # noqa: BLE001 - analysis is best-effort
+            logger.info("Memory pre-flight: analysis unavailable (%s); "
+                        "skipping.", e)
+            analysis = None
+        need, out_of_memory = self._agree(
+            hbm.preflight_bytes(analysis),
+            bool(getattr(analysis, "out_of_memory", False)))
+        return need, need is not None and (need > limit or out_of_memory)
+
+    def _placed(self, host: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        return {k: (v if isinstance(v, torch.Tensor)
+                    else torch.from_numpy(np.asarray(v))).to(self.device)
+                for k, v in host.items()}
+
+    def preflight_train_step(self, host_inputs, host_labels, *,
+                             compile_fn=None, limit_bytes=None):
+        """The memory pre-flight at the current ``batch_split``: measure
+        the step (:meth:`_probe_step`), and while its need exceeds the
+        card's memory raise ``batch_split`` and measure again, so an
+        over-committed configuration degrades to a running plan with a
+        logged decision instead of running out of memory.
+
+        ``host_inputs`` / ``host_labels``: this process's UNSPLIT batch
+        (arrays or placed tensors). ``compile_fn(trainer)`` / ``limit_bytes``
+        are the JAX signature's injection points (an object whose
+        ``memory_analysis()`` stands in for the measurement, and the
+        limit). Returns the decision report (also ``preflight_report``), or
+        None when disabled or without a limit (the CPU)."""
+        self._preflight_done = True
+        if not self.hbm_preflight:
+            return None
+        limit = (limit_bytes if limit_bytes is not None
+                 else hbm.device_hbm_bytes(self.device))
+        if limit is None:
+            logger.info("Memory pre-flight: device reports no memory limit; "
+                        "skipping.")
+            return None
+        report = {**self._preflight_fields(limit), "bytes_before": None,
+                  "bytes": None}
+        if compile_fn is None:
+            inputs, labels = self._placed(host_inputs), self._placed(host_labels)
+        while True:
+            need, over = self._measured_need(
+                (lambda: compile_fn(self).memory_analysis())
+                if compile_fn is not None
+                else (lambda: self._probe_step(inputs, labels)), limit)
+            if need is None:
+                logger.info("Memory pre-flight: memory analysis unavailable; "
+                            "skipping.")
+                break
+            report["bytes"] = int(need)
+            if report["bytes_before"] is None:
+                report["bytes_before"] = int(need)
+            if not over:
+                if report["applied"]:
+                    logger.warning(
+                        "Memory pre-flight: raised batch_split %d -> %d "
+                        "(measured %.2f GB -> %.2f GB vs %.2f GB device "
+                        "memory); proceeding with the raised split.",
+                        report["batch_split_before"], self.batch_split,
+                        report["bytes_before"] / 1e9, need / 1e9, limit / 1e9)
+                break
+            new_split = self._next_batch_split()
+            if new_split is None:
+                logger.warning(
+                    "Memory pre-flight: step needs %.2f GB vs %.2f GB device "
+                    "memory and batch_split %d cannot be raised further "
+                    "(train_batch_size %d); proceeding.", need / 1e9,
+                    limit / 1e9, self.batch_split, self.train_batch_size)
+                break
+            logger.warning(
+                "Memory pre-flight: step at batch_split %d needs %.2f GB vs "
+                "%.2f GB device memory; raising batch_split to %d.",
+                self.batch_split, need / 1e9, limit / 1e9, new_split)
+            self.batch_split = new_split
+            report["batch_split"] = new_split
+            report["applied"] = True
+        self.preflight_report = report
+        return report
+
+    def preflight_bucket_steps(self, *, compile_fn=None, limit_bytes=None):
+        """The per-bucket memory pre-flight: before the first bucketed step,
+        measure ONE train step per bucket shape (largest seq first: the
+        heaviest), and if any bucket exceeds the card's memory, raise
+        ``batch_split`` and re-derive every bucket's batch
+        (``BucketedDataLoader.rescale``) before measuring again.
+
+        ``compile_fn(trainer, seq, batch)`` / ``limit_bytes`` are the test
+        injection points. Returns the report (also ``preflight_report``);
+        None when disabled, not bucketed, or without a limit (the CPU)."""
+        self._preflight_done = True
+        loader = self.train_dataloader
+        if not self.hbm_preflight or not isinstance(loader, BucketedDataLoader):
+            return None
+        limit = (limit_bytes if limit_bytes is not None
+                 else hbm.device_hbm_bytes(self.device))
+        if limit is None:
+            logger.info("Memory pre-flight: device reports no memory limit; "
+                        "skipping.")
+            return None
+        data = self.plan.data_size
+        report = {**self._preflight_fields(limit), "buckets": []}
+        while True:
+            over_bytes = None
+            checked = []
+            stand_down = False
+            for seq in sorted(loader.batch_sizes, reverse=True):
+                b = loader.batch_sizes[seq]
+                if compile_fn is not None:
+                    fn = (lambda seq=seq, b=b:
+                          compile_fn(self, seq, b).memory_analysis())
+                else:
+                    # this process's rows of the bucket's global batch
+                    inputs, labels = synthetic_qa_batch(b // data, seq)
+                    fn = (lambda inputs=inputs, labels=labels:
+                          self._probe_step(self._placed(inputs),
+                                           self._placed(labels)))
+                need, over = self._measured_need(fn, limit)
+                if need is None:
+                    logger.info("Memory pre-flight: memory analysis "
+                                "unavailable; skipping.")
+                    stand_down = True
+                    break
+                checked.append({"bucket": f"{b}x{seq}", "bytes": int(need)})
+                if over:
+                    over_bytes = int(need)
+                    break
+            report["buckets"] = checked
+            if stand_down or over_bytes is None:
+                break
+            new_split = self._next_batch_split()
+            if new_split is None:
+                logger.warning(
+                    "Memory pre-flight: bucket %s needs %.2f GB vs %.2f GB "
+                    "device memory and batch_split %d cannot be raised "
+                    "further; proceeding.", checked[-1]["bucket"],
+                    over_bytes / 1e9, limit / 1e9, self.batch_split)
+                break
+            logger.warning(
+                "Memory pre-flight: bucket %s at batch_split %d needs %.2f GB "
+                "vs %.2f GB device memory; raising batch_split to %d and "
+                "re-deriving bucket batches.", checked[-1]["bucket"],
+                self.batch_split, over_bytes / 1e9, limit / 1e9, new_split)
+            self.batch_split = new_split
+            report["batch_split"] = new_split
+            report["applied"] = True
+            loader.rescale(new_split * max(data, 1))
+        self.preflight_report = report
+        return report
+
     # -- the train step --------------------------------------------------------
 
     def train_step(self, inputs: Dict[str, torch.Tensor],
@@ -670,6 +967,10 @@ class Trainer:
     def _train(self, epoch_i: int) -> None:
         loader = self.train_dataloader
         loader.set_epoch(epoch_i)
+        if isinstance(loader, BucketedDataLoader) and not self._preflight_done:
+            # per-bucket plan BEFORE any batch is drawn: may raise
+            # batch_split and re-derive the loader's bucket batch sizes
+            self.preflight_bucket_steps()
         avg_meters: dict = defaultdict(AverageMeter)
         packed = isinstance(loader, PackedDataLoader)
         # steps of varying example counts: each step's mean weighs by its
@@ -715,11 +1016,19 @@ class Trainer:
                                            cat="train")
                     _fault("trainer.step")
                     tick(f"train step {self.global_step} (epoch {epoch_i})")
+                    tensors = None
+                    if not self._preflight_done:
+                        # the run's first batch: plan before its step (may
+                        # raise batch_split), outside the step's clock and
+                        # the profiler window
+                        tensors = self._seq_consistent(placed.ready())
+                        self.preflight_train_step(tensors["inputs"],
+                                                  tensors["labels"])
                     if window is not None:
                         window.on_step_start()
-                    loads = len(cuda_build.load_events()) if tele else 0
                     t0 = time.perf_counter()
-                    tensors = self._seq_consistent(placed.ready())
+                    if tensors is None:
+                        tensors = self._seq_consistent(placed.ready())
                     rows = (placed.meta.segments if packed
                             else int(tensors["inputs"]["input_ids"].shape[0])
                             * self.plan.data_size)   # the global batch's
@@ -731,7 +1040,7 @@ class Trainer:
                     if instrument:
                         self._observe_step(
                             tele, t0, seconds, t_got - t_fetch, host_stats,
-                            host_inline, rows, values, loads)
+                            host_inline, rows, values)
                     self.history.append(dict(values, step=self.global_step,
                                              rows=rows, seconds=seconds))
                     for k, v in values.items():
@@ -793,9 +1102,10 @@ class Trainer:
 
     def _observe_step(self, tele, t0: float, device_s: float, fetch_s: float,
                       host_stats: deque, host_inline: bool, rows: int,
-                      values: dict, loads: int) -> None:
+                      values: dict) -> None:
         """The instrumented step's accounting: the ``step`` span, and with
-        telemetry the kernel libraries the step loaded, its ``data_wait`` /
+        telemetry the kernel libraries loaded since the last observed step
+        (the pre-flight's loads land on the first), its ``data_wait`` /
         ``host`` / ``device`` breakdown and its scalars. Inline placement
         runs inside the fetch wait, so it is subtracted: the three
         components partition the step wall."""
@@ -806,8 +1116,10 @@ class Trainer:
                            args={"step": self.global_step, "rows": rows})
         if tele is None:
             return
-        for outcome, seconds in cuda_build.load_events()[loads:]:
+        events = cuda_build.load_events()
+        for outcome, seconds in events[self._loads_observed:]:
             tele.observe_aot(outcome, seconds)
+        self._loads_observed = len(events)
         tele.observe_step(
             self.global_step, data_wait_s=data_wait_s, host_s=host_s,
             device_s=device_s, examples=rows, real_tokens=real_tokens,

@@ -25,7 +25,7 @@ from ml_recipe_tpu.ops.flash_attention import (
     flash_attention,
     hash_uniform,
 )
-from ml_recipe_tpu_torch.ops import cuda_build
+from ml_recipe_tpu_torch.ops import aot, cuda_build
 from ml_recipe_tpu_torch.ops import flash_attention as port
 from ml_recipe_tpu_torch.ops.attention import dot_product_attention
 
@@ -174,7 +174,9 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.delenv("CUDA_PATH", raising=False)
     monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(cuda_build.os.path, "isfile", lambda path: False)
-    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    # an empty store of its own (ops/aot.py), restored after the test
+    monkeypatch.setattr(aot, "_instance", aot.ProgramCache(
+        cache_dir=tmp_path / "build", enabled=True))
     lib = cuda_build.CudaLibrary("fused_attention_fwd.cu", lambda lib: None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         lib.lib()
@@ -292,7 +294,8 @@ def test_library_key_covers_the_shared_header(monkeypatch, tmp_path):
         (csrc / name).write_text((cuda_build.CSRC_DIR / name).read_text())
     monkeypatch.setattr(cuda_build, "CSRC_DIR", csrc)
     lib = cuda_build.CudaLibrary("fused_attention_fwd.cu", lambda lib: None)
-    before = lib.path
+    # the store validates a library by this hash (its "code" component)
+    before = lib.code()
     (csrc / "attention_common.cuh").write_text(
         (csrc / "attention_common.cuh").read_text() + "\n// edited\n")
-    assert lib.path != before
+    assert lib.code() != before

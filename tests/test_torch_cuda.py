@@ -1273,22 +1273,27 @@ def test_optimizer_step_on_the_card_matches_the_cpu(cuda, optimizer):
 @pytest.mark.cuda
 def test_kernel_build_counts_an_nvcc_run_as_a_miss_and_a_load_as_a_hit(
         cuda, tmp_path, monkeypatch):
-    from ml_recipe_tpu_torch.ops import cuda_build
+    from ml_recipe_tpu_torch.ops import aot, cuda_build
 
-    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    # an empty store of its own (ops/aot.py), restored after the test
+    monkeypatch.setattr(aot, "_instance", aot.ProgramCache(
+        cache_dir=tmp_path / "build", enabled=True))
     before = cuda_build.build_counts()
     first = cuda_build.CudaLibrary("layer_norm.cu", ln._declare)
-    first.lib()  # nothing in the empty build dir: nvcc runs
+    first.lib()  # nothing in the empty store: nvcc runs
     mid = cuda_build.build_counts()
     assert (mid["misses"] - before["misses"], mid["hits"] - before["hits"]) \
         == (1, 0)
-    assert first.built and first.path.parent == tmp_path / "build"
+    assert first.built and first.outcome == "miss"
+    assert [p.name for p in (tmp_path / "build").rglob("*.ptaot")] == [
+        "layer_norm.ptaot"]
     again = cuda_build.CudaLibrary("layer_norm.cu", ln._declare)
     again.lib()  # the library is there now: loaded, not built
     after = cuda_build.build_counts()
     assert (after["misses"] - mid["misses"], after["hits"] - mid["hits"]) \
         == (0, 1)
-    assert not again.built
+    assert not again.built and again.outcome == "hit"
+    assert aot.main(["--cache_dir", str(tmp_path / "build"), "--verify"]) == 0
 
 
 @pytest.mark.cuda
@@ -1372,3 +1377,317 @@ def test_profiler_window_captures_the_hand_written_kernels(cuda, tmp_path):
     assert count("fused_attention_bwd_dq") == 2    # one per backward launch
     assert count("layer_norm_fwd") == 5
     assert count("layer_norm_bwd", skip="_sum") == 5
+
+
+# -- the warm-up plane: bucket graphs, the memory pre-flight ------------------
+
+
+def _graph_engine(tmp_path, ln_impl, quantize, monkeypatch):
+    from ml_recipe_tpu_torch.ops import aot
+    from ml_recipe_tpu_torch.serve.bucketing import BucketGrid
+    from ml_recipe_tpu_torch.serve.engine import QAEngine
+
+    monkeypatch.setattr(aot, "_instance", aot.ProgramCache(enabled=True))
+    model, tok, _ = _predictor_setup(tmp_path, dtype=torch.bfloat16,
+                                     ln_impl=ln_impl, quantize=quantize)
+    engine = QAEngine(model, tok, grid=BucketGrid.from_spec("4x64,4x128,8x128"),
+                      max_batch_delay_ms=2, max_question_len=16, doc_stride=64)
+    return engine, tok
+
+
+def _real_batch(tok, batch, seq, seed):
+    """Ragged [CLS] question [SEP] body [SEP] rows, padded: a traffic
+    batch's ids."""
+    rng = np.random.default_rng(seed)
+    ids = np.full((batch, seq), tok.pad_token_id, np.int32)
+    for r in range(batch):
+        n = int(rng.integers(12, seq + 1))
+        row = rng.integers(110, 300, n)
+        row[0], row[7], row[n - 1] = (tok.cls_token_id, tok.sep_token_id,
+                                      tok.sep_token_id)
+        ids[r, :n] = row
+    return {"input_ids": ids}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ln_impl,quantize", [("xla", "off"),
+                                              ("fused", "int8")])
+def test_bucket_graph_replay_equals_eager(cuda, tmp_path, monkeypatch,
+                                          ln_impl, quantize):
+    """Each kept bucket's CUDA graph, replayed on a real batch, gives the
+    eager forward's ``[6, B]`` bit for bit, and each replay adds to the
+    kernels' counts what one eager forward launches."""
+    from ml_recipe_tpu_torch.serve.engine import kernel_launches
+
+    engine, tok = _graph_engine(tmp_path, ln_impl, quantize, monkeypatch)
+    try:
+        report = engine.warmup(hbm_preflight=False)
+        assert report["dispatch"] == "graph"
+        assert set(report["graphs"]) == {"4x64", "4x128", "8x128"}
+        for i, bucket in enumerate(engine.grid):
+            inputs = _real_batch(tok, bucket.batch, bucket.seq, seed=i)
+            c0 = kernel_launches()
+            eager = engine.run_packed(inputs)
+            c1 = kernel_launches()
+            graph = engine._dispatch(bucket.batch, bucket.seq, inputs)
+            c2 = kernel_launches()
+            again = engine._dispatch(bucket.batch, bucket.seq,
+                                     _real_batch(tok, bucket.batch,
+                                                 bucket.seq, seed=i))
+            assert np.array_equal(graph, eager), bucket
+            assert np.array_equal(again, eager), bucket
+            per_eager = {k: c1[k] - c0[k] for k in c0}
+            per_replay = {k: c2[k] - c1[k] for k in c0}
+            assert per_replay == per_eager, bucket
+            assert {k: n for k, n in per_eager.items() if n} == \
+                report["graphs"][str(bucket)]
+            assert per_eager["fused_attention_fwd"] == 2   # 2 layers
+            if quantize == "int8":
+                assert per_eager["q8_matmul"] > 0 and \
+                    per_eager["q8_quantize"] > 0
+        # traffic through the batcher runs the graphs
+        before = engine.device_forwards
+        result = engine.submit("tok3 tok5 ?", " ".join(
+            f"tok{4 * i + 1}" for i in range(60))).result(timeout=60)
+        assert result.n_chunks >= 1
+        assert engine.device_forwards > before
+    finally:
+        engine.close()
+
+
+@pytest.mark.cuda
+def test_store_off_dispatches_eagerly_on_the_card(cuda, tmp_path,
+                                                  monkeypatch):
+    from ml_recipe_tpu_torch.ops import aot
+
+    engine, tok = _graph_engine(tmp_path, "xla", "off", monkeypatch)
+    monkeypatch.setattr(aot, "_instance", aot.ProgramCache(enabled=False))
+    try:
+        report = engine.warmup(hbm_preflight=False)
+        assert report["dispatch"] == "eager" and engine._graphs == {}
+    finally:
+        engine.close()
+
+
+_FAILED_CAPTURE = """
+import sys, torch
+from pathlib import Path
+sys.path.insert(0, "tests")
+from test_torch_cuda import _graph_engine
+
+class _Patch:
+    def setattr(self, obj, name, value):
+        setattr(obj, name, value)
+
+engine, tok = _graph_engine(Path(sys.argv[1]), "xla", "off", _Patch())
+score = engine._score
+
+def syncing(packed):
+    out = score(packed)
+    out[0, 0].item()          # a host sync: illegal under capture
+    return out
+
+engine._score = syncing
+try:
+    engine.warmup(hbm_preflight=False)
+except RuntimeError as e:   # torch's AcceleratorError is one
+    print("RAISED", type(e).__name__, repr(str(e)[:200]), len(engine._graphs))
+    sys.exit(0)
+print("NOT RAISED", engine.warmup_report)
+sys.exit(1)
+"""
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises(cuda, tmp_path):
+    """A forward that cannot be captured (a host read of a device value)
+    fails the warm-up: no quiet fall back to eager launches. In a process of
+    its own: a failed capture leaves the CUDA generator of that process
+    mid-capture."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, "-c", _FAILED_CAPTURE,
+                           str(tmp_path)], cwd=str(repo), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    assert proc.stdout.startswith("RAISED ") and proc.stdout.strip(
+        ).endswith(" 0"), proc.stdout
+
+
+@pytest.mark.cuda
+def test_serve_preflight_measures_and_drops_on_the_card(cuda, tmp_path,
+                                                        monkeypatch):
+    engine, tok = _graph_engine(tmp_path, "xla", "off", monkeypatch)
+    try:
+        needs = {str(b): engine.preflight_predict_step(b)["bytes"]
+                 for b in engine.grid}
+        assert needs["4x64"] < needs["4x128"] < needs["8x128"]
+        limit = (needs["4x128"] + needs["8x128"]) // 2
+        report = engine.warmup(limit_bytes=limit)
+        assert report["dropped"] == ["8x128"]
+        assert report["buckets"] == ["4x64", "4x128"]
+        assert all(v["limit"] == limit for v in report["preflight"].values())
+        result = engine.submit("tok3 tok5 ?", " ".join(
+            f"tok{4 * i + 1}" for i in range(300))).result(timeout=60)
+        assert result.n_chunks >= 2
+    finally:
+        engine.close()
+
+
+@pytest.mark.cuda
+def test_train_preflight_that_fits_is_bit_identical_on_the_card(cuda,
+                                                                tmp_path):
+    """Dropout 0.1, bf16 on the card: a run with the measured pre-flight
+    (its probe fits the card) equals the same run without it bit for bit."""
+    from helpers import write_vocab
+    from ml_recipe_tpu_torch.data.collate import make_collate_fun
+    from ml_recipe_tpu_torch.data.datasets import DummyDataset
+    from ml_recipe_tpu_torch.losses import build_loss
+    from ml_recipe_tpu_torch.models import EncoderConfig, QAModel, init_weights
+    from ml_recipe_tpu_torch.tokenizer import Tokenizer
+    from ml_recipe_tpu_torch.train.trainer import Trainer
+    import torch_ddp_worker as worker
+
+    tok = Tokenizer("bert", str(write_vocab(tmp_path)), lowercase=True)
+    runs = []
+    for preflight in (False, True):
+        cfg = EncoderConfig(vocab_size=len(tok), **{
+            **worker.TINY_MODEL, "hidden_dropout_prob": 0.1,
+            "attention_probs_dropout_prob": 0.1})
+        model = QAModel(cfg, dtype=torch.bfloat16, device=cuda,
+                        ln_impl="fused")
+        init_weights(model, torch.Generator().manual_seed(0))
+        data = DummyDataset(tokenizer=tok, max_seq_len=worker.MAX_SEQ_LEN,
+                            max_question_len=worker.MAX_Q_LEN, dataset_len=16,
+                            rng=np.random.default_rng(0))
+        trainer = Trainer(model, build_loss(worker.trainer_params()),
+                          make_collate_fun(tok, max_seq_len=worker.MAX_SEQ_LEN),
+                          trainer_params=worker.trainer_params(),
+                          train_dataset=data, n_epochs=1, train_batch_size=8,
+                          batch_split=2, n_jobs=2, seed=0,
+                          hbm_preflight=preflight)
+        trainer.train()
+        runs.append(trainer)
+    off, on = runs
+    assert on.preflight_probes == 1 and off.preflight_probes == 0
+    report = on.preflight_report
+    assert report["applied"] is False and 0 < report["bytes"] < \
+        report["limit_bytes"]
+    assert [h["loss"] for h in on.history] == [h["loss"] for h in off.history]
+    for (name, a), (_, b) in zip(off.model.state_dict().items(),
+                                 on.model.state_dict().items()):
+        assert torch.equal(a, b), name
+
+
+_LOWERED_CAP = """
+import gc, json, sys, torch
+import numpy as np
+from pathlib import Path
+sys.path.insert(0, "tests")
+from ml_recipe_tpu_torch.data.collate import make_collate_fun
+from ml_recipe_tpu_torch.data.datasets import DummyDataset
+from ml_recipe_tpu_torch.losses import build_loss
+from ml_recipe_tpu_torch.models import EncoderConfig, QAModel, init_weights
+from ml_recipe_tpu_torch.serve.bucketing import BucketGrid
+from ml_recipe_tpu_torch.serve.engine import QAEngine
+from ml_recipe_tpu_torch.tokenizer import Tokenizer, write_synthetic_bert_vocab
+from ml_recipe_tpu_torch.train.trainer import Trainer
+import torch_ddp_worker as worker
+
+tmp = Path(sys.argv[1])
+tok = Tokenizer("bert", write_synthetic_bert_vocab(tmp / "vocab.txt", size=300),
+                lowercase=True)
+total = torch.cuda.get_device_properties(0).total_memory
+
+
+def cfg(dropout):
+    return EncoderConfig(vocab_size=len(tok), hidden_size=768, num_layers=2,
+                         num_heads=12, intermediate_size=3072,
+                         max_position_embeddings=512, hidden_dropout_prob=dropout,
+                         attention_probs_dropout_prob=dropout)
+
+
+def cap(extra):
+    # the process may hold what it holds now and ``extra`` bytes more
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(
+        (torch.cuda.memory_reserved() + extra) / total)
+
+
+# serving: the 128-row bucket's forward cannot run under the cap
+model = QAModel(cfg(0.0), dtype=torch.bfloat16, device="cuda")
+init_weights(model, torch.Generator().manual_seed(0))
+engine = QAEngine(model.eval(), tok, grid=BucketGrid.from_spec("8x512,128x512"),
+                  max_batch_delay_ms=2, max_question_len=16, doc_stride=128)
+needs = {str(b): engine.preflight_predict_step(b) for b in engine.grid}
+assert all(v["fits"] for v in needs.values()), needs
+extra = {k: v["bytes"] - engine._weight_bytes for k, v in needs.items()}
+assert extra["128x512"] > 8 * extra["8x512"], extra
+cap(extra["128x512"] // 2)
+report = engine.warmup()
+serve = {"needs": extra, "dropped": report["dropped"],
+         "buckets": report["buckets"], "preflight": report["preflight"]}
+assert report["dropped"] == ["128x512"] and report["buckets"] == ["8x512"], serve
+assert report["preflight"]["128x512"]["fits"] is False
+assert report["preflight"]["128x512"]["out_of_memory"] is True
+result = engine.submit("tok3 tok5 ?", " ".join(
+    f"tok{4 * i + 1}" for i in range(900))).result(timeout=120)
+assert result.n_chunks >= 2
+engine.close()
+torch.cuda.set_per_process_memory_fraction(1.0)
+del engine, model
+gc.collect()
+torch.cuda.empty_cache()
+
+# training: the whole batch's step cannot run under the cap
+model = QAModel(cfg(0.1), dtype=torch.bfloat16, device="cuda", ln_impl="fused")
+init_weights(model, torch.Generator().manual_seed(0))
+data = DummyDataset(tokenizer=tok, max_seq_len=384, max_question_len=16,
+                    dataset_len=64, rng=np.random.default_rng(0))
+collate = make_collate_fun(tok, max_seq_len=384)
+trainer = Trainer(model, build_loss(worker.trainer_params()), collate,
+                  trainer_params=worker.trainer_params(), train_dataset=data,
+                  n_epochs=1, train_batch_size=64, batch_split=1, n_jobs=2,
+                  seed=0, hbm_preflight=True)
+inputs, labels = collate([data[i] for i in range(64)])[:2]
+probe = trainer._probe_step(trainer._placed(inputs), trainer._placed(labels))
+whole = probe.output_size_in_bytes + probe.temp_size_in_bytes
+params = sum(p.numel() * p.element_size() for p in model.parameters())
+cap(int(0.3 * whole) + 3 * params)
+trainer.train()
+rep = trainer.preflight_report
+train = {"whole_step_bytes": whole, "batch_split_before": rep["batch_split_before"],
+         "batch_split": rep["batch_split"], "applied": rep["applied"],
+         "loss": [h["loss"] for h in trainer.history]}
+assert rep["applied"] is True and rep["batch_split_before"] == 1, train
+assert rep["batch_split"] > 1 and trainer.batch_split == rep["batch_split"], train
+assert train["loss"] and all(np.isfinite(train["loss"])), train
+print("CAPPED", json.dumps({"serve": serve, "train": train}, default=str))
+"""
+
+
+@pytest.mark.cuda
+def test_preflight_under_a_lowered_process_cap_drops_and_raises_the_split(
+        cuda, tmp_path):
+    """No injected limit: the process's own cap is lowered
+    (``torch.cuda.set_per_process_memory_fraction``) under the need of the
+    largest serving bucket and of the whole training batch. The measured
+    forward and step run out of memory, and that is the verdict: the bucket
+    is dropped and ``batch_split`` is raised, then the engine answers and
+    the raised split trains. In a process of its own: the cap and the
+    out-of-memory errors stay there."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, "-c", _LOWERED_CAP, str(tmp_path)],
+                          cwd=str(repo), capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert "CAPPED " in proc.stdout, proc.stdout[-3000:]
+    print(proc.stdout.strip().splitlines()[-1])    # the needs and decisions

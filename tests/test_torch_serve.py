@@ -382,7 +382,7 @@ def _drive_serve_cli(tmp_path, *extra) -> str:
         proc.send_signal(signal.SIGTERM)
         out, _ = proc.communicate(timeout=60)
         assert proc.returncode == 0, out
-        assert "Accepted but not ported" in out
+        assert "Warm-up plane (live)" in out
         return out
     finally:
         if proc.poll() is None:

@@ -438,3 +438,196 @@ def test_span_names_per_request_equal_jax(engines, tmp_path):
     by_rid = span_names_by_request(got)
     assert by_rid["r-0"] == by_rid["r-1"] == six  # cold
     assert by_rid["r-2"] == {"admission", "span_reduce", "respond"}  # hot
+
+
+# -- measured flush ranking ---------------------------------------------------------
+
+
+def _rank_case(module, grid_spec, pending, costs, starve):
+    """A batcher of ``module`` with ``pending`` ({seq: [age seconds, ...]})
+    queued and ``costs`` ({seq: cost or None}, or None for no hook); the
+    oldest item pushed past the starvation bound when ``starve``. Returns
+    the seq ``_rank_flush`` picks among every pending seq."""
+    import time
+
+    grid_cls = module.bucketing.BucketGrid
+    hook = None if costs is None else (lambda seq, n: costs[seq])
+    b = module.batcher.MicroBatcher(
+        grid_cls.from_spec(grid_spec), lambda s, w: None,
+        max_batch_delay_ms=0, queue_size=64, flush_cost_fn=hook)
+    now = time.monotonic()
+    for seq, ages in pending.items():
+        b.submit_many([module.batcher.ChunkWork(seq=seq, payload=None)
+                       for _ in ages])
+        for w, age in zip(b._pending[seq], ages):
+            w.enqueued_at = now - age
+    if starve:
+        oldest = min(pending, key=lambda s: -max(pending[s]))
+        b._pending[oldest][0].enqueued_at = now - b._starve_after_s - 1.0
+    with b._cv:
+        return b._rank_flush(sorted(pending))
+
+
+def test_rank_flush_picks_the_same_seq_as_jax():
+    """Seeded random queues and costs through both batchers' ranking: the
+    cheapest measured first, the unmeasured after them in ascending seq,
+    oldest-first with no hook or no estimate at all, and the starvation
+    guard."""
+    import types
+
+    from ml_recipe_tpu.serve import batcher as jbatcher
+    from ml_recipe_tpu.serve import bucketing as jbucketing
+    from ml_recipe_tpu_torch.serve import batcher as tbatcher
+    from ml_recipe_tpu_torch.serve import bucketing as tbucketing
+
+    jmod = types.SimpleNamespace(batcher=jbatcher, bucketing=jbucketing)
+    tmod = types.SimpleNamespace(batcher=tbatcher, bucketing=tbucketing)
+    rng = np.random.default_rng(7)
+    spec = "2x64,4x64,2x128,8x128,2x256,4x384"
+    seqs = [64, 128, 256, 384]
+    picked = set()
+    kinds = set()
+    for _ in range(200):
+        chosen = sorted(rng.choice(seqs, size=rng.integers(1, 5),
+                                   replace=False).tolist())
+        pending = {s: sorted(rng.uniform(0.0, 0.02, rng.integers(1, 4)),
+                             reverse=True) for s in chosen}
+        mode = rng.integers(0, 4)
+        if mode == 0:
+            costs = None                           # no hook
+        elif mode == 1:
+            costs = {s: None for s in seqs}        # nothing measured
+        else:
+            costs = {s: (None if rng.random() < 0.3
+                         else float(rng.uniform(0.001, 0.01))) for s in seqs}
+        starve = bool(rng.random() < 0.2)
+        ref = _rank_case(jmod, spec, pending, costs, starve)
+        got = _rank_case(tmod, spec, pending, costs, starve)
+        assert got == ref, (pending, costs, starve)
+        picked.add(got)
+        kinds.add((int(mode), starve))
+    assert picked == set(seqs) and len(kinds) == 8
+
+
+def test_flush_order_of_take_matches_jax():
+    """The JAX tests' three queues, drained by ``_take_locked`` in both
+    packages: the cheapest measured program first, then oldest-first."""
+    import time
+
+    from ml_recipe_tpu.serve import batcher as jbatcher
+    from ml_recipe_tpu.serve import bucketing as jbucketing
+    from ml_recipe_tpu_torch.serve import batcher as tbatcher
+
+    orders = []
+    for batcher, grid_cls in ((jbatcher, jbucketing.BucketGrid),
+                              (tbatcher, BucketGrid)):
+        costs = {64: None, 128: 0.1, 256: None}
+        b = batcher.MicroBatcher(grid_cls.from_spec("2x64,2x128,2x256"),
+                                 lambda s, w: None, max_batch_delay_ms=0,
+                                 queue_size=16,
+                                 flush_cost_fn=lambda seq, n: costs[seq])
+        for seq in (256, 64, 128):
+            b.submit_many([batcher.ChunkWork(seq=seq, payload=None)])
+            time.sleep(0.002)
+        with b._cv:
+            orders.append([b._take_locked()[0] for _ in range(3)])
+    assert orders[0] == orders[1] == [128, 256, 64]
+
+
+def test_program_signature_and_cost_key_equal_jax(engines):
+    jeng, teng = engines.jax, engines.port
+    saved = [(e.quantize, e._wire_ids_only) for e in (jeng, teng)]
+    try:
+        for quantize in ("off", "int8"):
+            for ids_only in (True, False):
+                for e in (jeng, teng):
+                    e.quantize, e._wire_ids_only = quantize, ids_only
+                assert teng._program_signature() == jeng._program_signature()
+                for batch, seq in ((4, 64), (8, 64), (32, 384)):
+                    assert teng._program_cost_key(batch, seq) == \
+                        jeng._program_cost_key(batch, seq)
+        assert teng._program_signature().startswith("h32l2n2v")
+    finally:
+        for e, (q, w) in zip((jeng, teng), saved):
+            e.quantize, e._wire_ids_only = q, w
+
+
+def test_eager_dispatch_on_the_card_keeps_a_cost_key_of_its_own(
+        engines, monkeypatch):
+    """With the store on, the card replays graphs and the key is the JAX
+    string; with it off (``--aot_cache off``) the card launches eagerly and
+    the cost is kept under a key of its own, so neither dispatch ranks
+    flushes by the other's measurement. The CPU keeps the JAX string."""
+    from ml_recipe_tpu_torch.ops import aot
+
+    teng = engines.port
+    want = engines.jax._program_cost_key(8, 64)
+    for enabled in (True, False):
+        monkeypatch.setattr(aot, "_instance", aot.ProgramCache(enabled=enabled))
+        assert teng._program_cost_key(8, 64) == want
+        monkeypatch.setattr(teng, "device", torch.device("cuda", 0))
+        got = teng._program_cost_key(8, 64)
+        assert got == (want if enabled else want + "-eager")
+        monkeypatch.setattr(teng, "device", torch.device("cpu"))
+
+
+def test_flush_hook_is_wired_only_with_autotune(engines, tmp_path):
+    from ml_recipe_tpu.ops import autotune as jautotune
+    from ml_recipe_tpu.serve.engine import QAEngine as JaxQAEngine
+    from ml_recipe_tpu_torch.ops import autotune
+
+    try:
+        for enabled in (False, True):
+            autotune.configure(enabled=enabled, cache_dir=tmp_path)
+            jautotune.configure(enabled=enabled, cache_dir=tmp_path)
+            engine = engines.make()
+            jengine = JaxQAEngine(
+                engines.jax.model, engines.jax.params, engines.jax.tokenizer,
+                grid=JaxBucketGrid.from_spec("4x64,8x64"), mesh=build_mesh(),
+                max_question_len=16, doc_stride=24)
+            wired = engine.batcher._flush_cost_fn is not None
+            assert wired == (jengine.batcher._flush_cost_fn is not None)
+            assert wired == enabled
+            engine.close()
+            jengine.close()
+    finally:
+        autotune.reset()
+        jautotune.reset()
+
+
+def test_warmup_records_costs_and_a_warm_restart_measures_nothing(
+        engines, tmp_path):
+    """Warm-up measures each bucket's program once per tuning cache (eager
+    forwards on the CPU) and persists it; a second engine on the same cache
+    (a restarted process) measures nothing and ranks by the same costs."""
+    from ml_recipe_tpu_torch.ops import autotune
+
+    reports = []
+    try:
+        for _ in range(2):
+            autotune.reset()
+            autotune.configure(enabled=True, cache_dir=tmp_path)
+            engine = engines.make()
+            reports.append(engine.warmup())
+            flush = {seq: engine._flush_cost(seq, 1) for seq in (64,)}
+            engine.close()
+    finally:
+        autotune.reset()
+    cold, warm = reports
+    assert set(cold["program_costs"]) == {"4x64", "8x64"}
+    assert all(isinstance(v, float) and v > 0
+               for v in cold["program_costs"].values())
+    assert cold["autotune"]["probes"] == 2 and cold["autotune"]["cache"] == "miss"
+    assert warm["autotune"]["probes"] == 0 and warm["autotune"]["cache"] == "hit"
+    assert warm["program_costs"] == cold["program_costs"]
+    assert flush[64] == cold["program_costs"]["4x64"]
+    # the cold warmup ran each bucket once and timed it COST_REPEATS + 1
+    # times; the warm one ran each bucket once
+    from ml_recipe_tpu_torch.serve.engine import COST_REPEATS
+
+    assert cold["device_batches"] == 2 * (2 + COST_REPEATS)
+    assert warm["device_batches"] == 2
+    entry = json.loads(next(tmp_path.glob("*.torch.json")).read_text())
+    key = f"serve-step-4x64-{engines.port._program_signature()}"
+    assert entry["entries"][key]["cost_estimates"]["program"]["source"] == \
+        "measured"
