@@ -75,7 +75,21 @@ The runtime subsystems, all off by default (the JAX CLI's flags):
   without the flag, with ``MLRT_SUPERVISED=1``, resumed from the newest of
   ``interrupt.ch`` / ``last.ch``. A supervised child that catches SIGTERM
   dumps the recorder, flushes the ledger, saves ``interrupt.ch`` and exits
-  75 (a preemption, to resume). ``--elastic`` is refused.
+  75 (a preemption, to resume). A SIGTERM inside a step takes effect when
+  the step ends, so ``interrupt.ch`` never holds half a step;
+- ``--supervise --elastic on`` runs one supervisor per host (``--local_rank``
+  is the host, ``--dist_world_size`` the hosts), coordinated through
+  ``<exp_dir>/pod/`` (``--host_timeout``, ``--coord_poll``,
+  ``--min_world``): after a host dies its peers restart on the live world
+  (``MLRT_ELASTIC_WORLD``), where the mesh's ``data`` axis narrows
+  (``ParallelPlan.elastic_from_spec``, the "ELASTIC RESUME" warning and
+  the recorder's ``mesh_shrunk`` event), and resume from the last
+  checkpoint. A supervised elastic child with a watchdog writes its step
+  to ``pod/child-<host>.json`` on the watchdog's beat.
+
+``--optimizer_sharding zero1 --zero1_overlap bucketed`` exchanges the
+gradients in ``--zero1_bucket_mb`` buckets, each reduce-scattered as the
+last micro-batch's backward completes it (``train/trainer.py``).
 """
 
 from __future__ import annotations
@@ -109,7 +123,7 @@ from ..data.labels import labels2id
 from ..metrics import trace as trace_mod
 from ..ops import cuda_build
 from ..parallel import dist as pdist
-from ..parallel.mesh import build_mesh
+from ..parallel.plan import ParallelPlan
 from ..resilience import faults
 from ..resilience import watchdog as watchdog_mod
 from ..resilience.supervisor import PREEMPT_EXIT_CODE, SUPERVISED_ENV
@@ -138,13 +152,28 @@ def shared_random_seed() -> int:
     return int(seed)
 
 
+def build_plan(params) -> ParallelPlan:
+    """The parallelism plan of ``--mesh`` over the joined world; under
+    ``--elastic on`` its data axis narrows to the live processes, with the
+    "ELASTIC RESUME" warning when it did."""
+    if params.elastic != "on":
+        return ParallelPlan.from_spec(params.mesh)
+    plan = ParallelPlan.elastic_from_spec(params.mesh)
+    if plan.shrunk:
+        logger.warning("ELASTIC RESUME: mesh re-derived for the live device "
+                       "set: requested %s -> running %s.",
+                       plan.requested_axes, plan.describe())
+    return plan
+
+
 def build_trainer(params, model_params, *, watchdog=None,
                   telemetry=None) -> Trainer:
     """Model, datasets, loss and ``Trainer`` from the parsed flags, resumed
     from ``--last`` when given; in a data-parallel world, on this rank's
     device. ``watchdog`` and ``telemetry`` are the runtime subsystems the
     trainer feeds (:func:`run_worker` builds them); ``--trace`` gives it
-    its profiler window's directory."""
+    its profiler window's directory. A shrunk elastic plan is a
+    ``mesh_shrunk`` event in the telemetry's flight recorder."""
     check_train_flags(params, model_params)
     # the warm-up plane, as the JAX CLI wires it: the tuning cache and the
     # store every kernel library is built into and loaded from
@@ -156,7 +185,14 @@ def build_trainer(params, model_params, *, watchdog=None,
     device = resolve_device(
         pdist.rank_device(params.device, pdist.process_index())
         if pdist.process_count() > 1 else params.device)
-    mesh = build_mesh(params.mesh)
+    plan = build_plan(params)
+    mesh = plan.mesh
+    flightrec = getattr(telemetry, "flightrec", None)
+    if plan.shrunk and flightrec is not None:
+        # this attempt runs narrower than the operator asked: the
+        # crash-loop diagnosis timeline must explain it
+        flightrec.record("mesh_shrunk", old=plan.requested_axes,
+                         new=plan.describe())
     rng_pool = set_seed(params.seed)
     data_rng = rng_pool.host_rng("chunk_sampling") if rng_pool else None
     if data_rng is None and mesh.seq_size > 1:
@@ -201,6 +237,8 @@ def build_trainer(params, model_params, *, watchdog=None,
         pack_min_fragment=params.pack_min_fragment,
         mesh=mesh,
         optimizer_sharding=optimizer_sharding(params),
+        zero1_overlap=params.zero1_overlap,
+        zero1_bucket_mb=params.zero1_bucket_mb,
         watchdog=watchdog,
         telemetry=telemetry,
         trace_dir=(params.dump_dir / f"board/{params.experiment_name}/trace"
@@ -244,6 +282,10 @@ def train(trainer: Trainer, params, *, goodput=None,
     ])
 
     def _sigterm_to_interrupt(signum, frame):
+        if trainer.in_step:
+            # the step ends first: an interrupt.ch never holds half a step
+            trainer.interrupt_pending = True
+            return
         raise KeyboardInterrupt(f"signal {signum}")
 
     def close_ledger():
@@ -344,6 +386,17 @@ def _run_worker(params, model_params, watchdog) -> Trainer:
     exporter = None
     try:
         exp_dir = params.dump_dir / params.experiment_name
+        if (params.elastic == "on" and os.environ.get(SUPERVISED_ENV)
+                and watchdog is not None):
+            # the elastic child's heartbeat on the watchdog's beat: peer
+            # supervisors read this host's last step from it
+            from ..resilience.coordination import (
+                COORD_DIRNAME, write_child_heartbeat)
+
+            coord_dir = os.path.join(str(exp_dir), COORD_DIRNAME)
+            host = faults.current_host()
+            watchdog.add_on_beat(
+                lambda step: write_child_heartbeat(coord_dir, host, step=step))
         goodput = flightrec = telemetry = None
         if params.goodput_ledger:
             from ..metrics.goodput import GOODPUT_FILENAME, GoodputLedger
@@ -449,8 +502,8 @@ def main(argv=None) -> Trainer:
                             handlers=[logging.StreamHandler(sys.stderr)])
         check_train_flags(params, model_params)
         raise SystemExit(supervise_cli(params, argv))
-    # the reference's local_rank in [-1, 0] gate
-    primary = params.dist_world_size <= 1 or params.local_rank in (-1, 0)
+    # the reference's local_rank in [-1, 0] gate, on the live world
+    primary = pdist.live_world(params)[1] == 0
     params.log_file = (
         exp_dir / f'{datetime.now().strftime("%d-%m-%Y_%H-%M-%S")}.log'
         if primary else None)

@@ -1080,12 +1080,10 @@ def check_serve_flags(params, model_params) -> None:
 
 
 # trainer flags with no port counterpart that change no result at any
-# value: accepted and logged once (min_world, host_timeout and coord_poll
-# tune the elastic supervisor, which is not ported: --elastic is refused)
+# value: accepted and logged once
 _IGNORED_TRAIN_FLAGS = (
     "gpu", "sync_bn", "apex_level", "apex_verbosity",
-    "precision", "pipe_schedule", "pipe_param_sharding", "zero1_bucket_mb",
-    "min_world", "host_timeout", "coord_poll",
+    "precision", "pipe_schedule", "pipe_param_sharding",
 )
 # model flags of the same kind: --param_dtype bfloat16 reaches no parameter
 # in the JAX package either (flax keeps them f32), so it trains as float32
@@ -1097,12 +1095,10 @@ _RUNTIME_TRAIN_FLAGS = (
     "goodput_ledger", "flight_recorder", "watchdog_timeout", "supervise",
     "fault_plan", "anomaly_factor", "anomaly_window", "flightrec_events",
     "max_restarts", "backoff_base", "backoff_max", "crash_loop_window",
+    "elastic", "min_world", "host_timeout", "coord_poll",
     "autotune", "autotune_cache", "aot_cache", "aot_cache_bytes",
     "hbm_preflight",
 )
-
-_PARALLEL = "queue 1, 'Parallelism beyond data parallelism'"
-_OBSERVE = "queue 1, 'Runtime subsystems'"
 
 
 def _world_size_from_env() -> int:
@@ -1117,13 +1113,16 @@ def check_train_flags(params, model_params) -> None:
     change results away from their defaults; log the ignored ones once.
 
     The world comes from the flags (``--dist_world_size``, ``--local_rank``,
-    ``--dist_init_method``), as in the JAX CLI; a launcher's ``WORLD_SIZE``
-    > 1 that the flags do not repeat raises (``scripts/worker_torch.sh``
-    maps the environment onto the flags), and so does the elastic
-    supervisor's world override. ``--mesh`` takes ``data`` and ``seq``
-    axes whose sizes multiply to the world (``pipe``/``model`` raise);
-    ``--flash_attention ring`` needs a ``seq`` axis > 1; ZeRO-1 runs at any
-    world and is inert at data size 1.
+    ``--dist_init_method``), as in the JAX CLI, or from the elastic
+    supervisor's world override (``MLRT_ELASTIC_WORLD``, the live world
+    after a host loss); a launcher's ``WORLD_SIZE`` > 1 that the flags do
+    not repeat raises (``scripts/worker_torch.sh`` maps the environment
+    onto the flags). ``--mesh`` takes ``data`` and ``seq`` axes whose sizes
+    multiply to the live world (``pipe``/``model`` raise); under
+    ``--elastic on`` its ``data`` axis narrows to fit it
+    (``parallel.mesh.elastic_axes``). ``--flash_attention ring`` needs a
+    ``seq`` axis > 1; ZeRO-1 runs at any world and is inert at data size
+    1, and so is ``--zero1_overlap bucketed`` (also on a ``seq`` mesh).
 
     The runtime subsystems are live: ``--trace``, ``--trace_spans``,
     ``--metrics_port``, ``--metrics_hosts``, ``--goodput_ledger``,
@@ -1133,9 +1132,8 @@ def check_train_flags(params, model_params) -> None:
     ``--backoff_base``, ``--backoff_max`` and ``--crash_loop_window``
     (``cli/train.py``), and so is the warm-up plane: ``--autotune``,
     ``--autotune_cache``, ``--aot_cache``, ``--aot_cache_bytes`` and
-    ``--hbm_preflight``. ``--elastic`` is refused (ROADMAP.md queue 1,
-    'Runtime subsystems'); its knobs ``--min_world``, ``--host_timeout``
-    and ``--coord_poll`` are accepted and ignored, and logged so."""
+    ``--hbm_preflight``, and elastic supervision: ``--elastic`` with
+    ``--min_world``, ``--host_timeout`` and ``--coord_poll``."""
     _check_ln_impl(model_params)
     world = int(params.dist_world_size)
     if world < 1 or (world > 1 and not 0 <= params.local_rank < world):
@@ -1148,30 +1146,22 @@ def check_train_flags(params, model_params) -> None:
             f"--dist_world_size {world}: launch each rank with "
             f"--dist_world_size/--local_rank/--dist_init_method "
             f"(scripts/worker_torch.sh maps the environment onto them)")
-    from ..parallel.dist import refuse_elastic_world
+    from ..parallel.dist import live_world
+    from ..parallel.mesh import MeshSpec, elastic_axes, refuse_unported_axes
 
-    refuse_elastic_world()
-    from ..parallel.mesh import MeshSpec, refuse_unported_axes
-
-    axes = MeshSpec.from_string(params.mesh, n_devices=world).ordered()
+    live, _ = live_world(params)
+    axes = MeshSpec.from_string(params.mesh, n_devices=live).ordered()
     refuse_unported_axes(axes)
-    if MeshSpec(axes).size != world:
+    if params.elastic == "on":
+        axes = elastic_axes(axes, live)
+    if MeshSpec(axes).size != live:
         raise ValueError(f"--mesh {params.mesh} needs {MeshSpec(axes).size} "
-                         f"processes; --dist_world_size is {world}")
+                         f"processes; the world has {live}")
     if model_params.flash_attention == "ring" and axes.get("seq", 1) < 2:
         raise ValueError("--flash_attention ring needs a 'seq' mesh axis > 1 "
                          "(--mesh 'data:N,seq:M')")
     zero1 = (params.optimizer_sharding == "zero1"
              or (params.optimizer_sharding is None and params.shard_optimizer))
-    checks = [
-        (params.zero1_overlap not in (None, "off"), "zero1_overlap",
-         params.zero1_overlap, _PARALLEL),
-        (params.elastic not in (None, "off"), "elastic", params.elastic,
-         _OBSERVE),
-    ]
-    for bad, flag, value, item in checks:
-        if bad:
-            raise _not_ported(flag, value, item)
     if zero1 and axes.get("data", 1) < 2:
         # the JAX trainer on a mesh without a data axis to shard over: the
         # ZeRO-1 plan is None and checkpoints record opt_sharding 'off'
@@ -1185,3 +1175,6 @@ def check_train_flags(params, model_params) -> None:
                 "%s.", ", ".join(ignored))
     logger.info("Runtime subsystems (live): %s.", ", ".join(
         f"--{f} {getattr(params, f)}" for f in _RUNTIME_TRAIN_FLAGS))
+    logger.info("ZeRO-1 overlap (live): --zero1_overlap %s, "
+                "--zero1_bucket_mb %s.", params.zero1_overlap,
+                params.zero1_bucket_mb)

@@ -1,21 +1,26 @@
 """Parallelism over ``torch.distributed`` (the port of
 ``ml_recipe_tpu/parallel/``): joining the world (``dist.py``), the process
 mesh of ``data`` and ``seq`` axes (``mesh.py``) and its plan
-(``plan.py``), the ZeRO-1 layout and the sequence split (``sharding.py``),
-and the collectives of the step, the ring attention's hop included
-(``collectives.py``). Tensor and pipeline parallelism and the bucketed
-ZeRO-1 overlap are not ported (ROADMAP.md queue 1, 'Parallelism beyond
-data parallelism')."""
+(``plan.py``, narrowed over the live processes under ``--elastic on``),
+the ZeRO-1 layout and its gradient buckets and the sequence split
+(``sharding.py``), and the collectives of the step, the ring attention's
+hop and the bucketed ZeRO-1 exchange included (``collectives.py``). Tensor
+and pipeline parallelism are not ported (ROADMAP.md queue 1, 'Parallelism
+beyond data parallelism')."""
 
 from .collectives import (
+    BucketedExchange,
+    GradBucket,
     all_reduce_gradients,
     all_reduce_sum_,
     broadcast_parameters,
     gather_to_host,
+    plan_grad_buckets,
     regroup_for_world,
 )
 from .dist import (
     barrier,
+    elastic_world_override,
     initialize_distributed,
     initialize_from_params,
     is_primary,
@@ -23,18 +28,30 @@ from .dist import (
     process_index,
     shutdown,
 )
+from .mesh import ElasticMeshError, elastic_axes
+from .plan import ParallelPlan
+from .sharding import leaf_sizes, zero1_bucket_plan
 
 __all__ = [
+    "BucketedExchange",
+    "ElasticMeshError",
+    "GradBucket",
+    "ParallelPlan",
     "all_reduce_gradients",
     "all_reduce_sum_",
     "barrier",
     "broadcast_parameters",
+    "elastic_axes",
+    "elastic_world_override",
     "gather_to_host",
     "initialize_distributed",
     "initialize_from_params",
     "is_primary",
+    "leaf_sizes",
+    "plan_grad_buckets",
     "process_count",
     "process_index",
     "regroup_for_world",
     "shutdown",
+    "zero1_bucket_plan",
 ]

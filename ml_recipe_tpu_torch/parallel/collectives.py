@@ -20,6 +20,22 @@ imply (the port of ``ml_recipe_tpu/parallel/collectives.py`` ``pmean`` /
 - :func:`regroup_for_world`: the one-process batch whose consecutive
   micro-batches are the W-rank step's global micro-batches.
 
+The bucketed ZeRO-1 exchange (``--zero1_overlap bucketed``, the JAX
+package's ``plan_grad_buckets``): :func:`plan_grad_buckets` cuts the
+leaves, in the JAX package's ``tree_leaves`` order, into contiguous
+:class:`GradBucket` runs of about ``bucket_bytes`` of f32 gradient, and
+:class:`BucketedExchange` sums each bucket over the ``data`` ranks with
+one reduce-scatter, issued (``async_op``) as soon as the last
+micro-batch's backward has produced every gradient in it. Each bucket is
+laid out as ``W`` equal chunks, chunk ``r`` holding, leaf after leaf,
+rank ``r``'s ZeRO-1 slice of a sharded leaf and the whole gradient of a
+leaf that stays whole, so the reduce-scatter leaves every rank exactly its
+slices and the sums of the whole leaves. Under NCCL that is
+``reduce_scatter_tensor``; gloo has none, so there it is an all-reduce of
+the bucket and a slice. The buckets are issued in plan order on every
+rank, whatever order autograd completes them in: a rank that issued
+another order would deadlock its peers.
+
 The mesh's collectives (``parallel/mesh.py``), each over one group of it:
 
 - :func:`all_gather_cat`: one tensor from each rank of a group,
@@ -44,9 +60,11 @@ also a group of one; the trainer calls them only at world size > 1.
 
 from __future__ import annotations
 
+import functools
 import logging
+import math
 import time
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -248,6 +266,178 @@ class RingTransport:
         self.stats["bytes"] += sent
         self.stats["seconds"] += time.perf_counter() - t0
         return recv
+
+
+class GradBucket(NamedTuple):
+    """One contiguous run of flattened-tree leaves whose gradients travel
+    together: ``lo``/``hi`` index the leaf list (``leaves[lo:hi]``),
+    ``size`` is the total element count of the bucket's accumulation
+    vector, ``nbytes`` its f32 footprint."""
+
+    lo: int
+    hi: int
+    size: int
+    nbytes: int
+
+
+def plan_grad_buckets(sizes: Sequence[int], *, bucket_bytes: int,
+                      itemsize: int = 4) -> List[GradBucket]:
+    """Partition per-leaf element counts into size-targeted CONTIGUOUS
+    buckets (the JAX package's ``plan_grad_buckets``): leaves are walked in
+    order and a bucket closes once it reaches ``bucket_bytes`` of f32
+    payload, so a single oversized leaf gets a bucket of its own and small
+    leaves coalesce."""
+    bucket_bytes = max(1, int(bucket_bytes))
+    buckets: List[GradBucket] = []
+    lo = 0
+    acc = 0
+
+    def close(hi: int, nbytes: int) -> None:
+        buckets.append(
+            GradBucket(lo, hi, sum(int(s) for s in sizes[lo:hi]), nbytes))
+
+    for i, size in enumerate(sizes):
+        nbytes = int(size) * itemsize
+        if nbytes >= bucket_bytes and acc > 0:
+            # an oversized leaf gets a bucket of its OWN: close the running
+            # bucket first instead of swallowing the small leaves
+            close(i, acc)
+            lo, acc = i, 0
+        acc += nbytes
+        if acc >= bucket_bytes:
+            close(i + 1, acc)
+            lo, acc = i + 1, 0
+    if lo < len(sizes):
+        close(len(sizes), acc)
+    return buckets
+
+
+def reduce_scatter_(flat: torch.Tensor, group=None,
+                    async_op: bool = False):
+    """``flat`` (``W`` equal chunks, one per rank of the world or
+    ``group``) summed over the ranks; rank ``r`` keeps chunk ``r``. Returns
+    ``(chunk, work)`` (``work`` None unless ``async_op``; the chunk is
+    valid after ``work.wait()``). NCCL: ``reduce_scatter_tensor``; gloo: an
+    all-reduce of ``flat`` in place and a view of chunk ``r``."""
+    size = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+    if pdist.backend() == "nccl":
+        out = flat.new_empty(flat.numel() // size)
+        work = dist.reduce_scatter_tensor(out, flat, op=dist.ReduceOp.SUM,
+                                          group=group, async_op=async_op)
+        return out, work
+    work = dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group,
+                           async_op=async_op)
+    return flat.view(size, -1)[rank], work
+
+
+class BucketedExchange:
+    """The per-bucket gradient exchange of one optimizer step (see the
+    module docstring).
+
+    ``leaves``: ``(name, parameter, slice)`` in plan order, ``slice`` a
+    ``parallel.sharding.ParamSlice`` (axis None: the leaf stays whole);
+    ``buckets``: :class:`GradBucket` ranges over ``leaves``; ``index`` and
+    ``size``: this rank's place on the ``data`` axis, ``group`` its group.
+    Each trainable parameter gets a post-accumulate-grad hook once; between
+    :meth:`arm` (before the last micro-batch's backward) and
+    :meth:`finish` a hook marks its leaf done, and every bucket whose
+    leaves are all done is issued, in plan order. :meth:`finish` issues
+    the rest (a leaf without a gradient contributes zeros), waits for
+    every handle and returns this rank's reduced gradients by name: a
+    sharded leaf's padded slice, a whole leaf's whole. Of the last step,
+    ``stats["early"]`` counts the buckets issued while the backward still
+    owed gradients (the exchanges that can overlap it) and
+    ``stats["late"]`` those issued at its last gradient or by
+    :meth:`finish`."""
+
+    def __init__(self, leaves, buckets: Sequence[GradBucket], *, index: int,
+                 size: int, group=None):
+        self.leaves = list(leaves)
+        self.buckets = list(buckets)
+        self.index, self.size, self.group = int(index), int(size), group
+        self._bucket_of = {}
+        for b, bucket in enumerate(self.buckets):
+            for k in range(bucket.lo, bucket.hi):
+                self._bucket_of[self.leaves[k][0]] = b
+        self._armed = False
+        self._reset()
+        for name, p, _ in self.leaves:
+            if p.requires_grad:
+                p.register_post_accumulate_grad_hook(
+                    functools.partial(self._on_grad, name))
+
+    def _reset(self) -> None:
+        self.stats = {"early": 0, "late": 0}
+        self._missing = [sum(1 for k in range(b.lo, b.hi)
+                             if self.leaves[k][1].requires_grad)
+                         for b in self.buckets]
+        self._owed = sum(self._missing)
+        self._next = 0
+        self._pending: List[tuple] = []
+
+    def arm(self) -> None:
+        """The next backward is the step's last: issue buckets as it fills
+        them."""
+        self._reset()
+        self._armed = True
+
+    def _on_grad(self, name: str, _param) -> None:
+        if not self._armed:
+            return
+        b = self._bucket_of[name]
+        self._missing[b] -= 1
+        self._owed -= 1
+        while (self._next < len(self.buckets)
+               and self._missing[self._next] == 0):
+            self._issue(self._next)
+            self.stats["early" if self._owed else "late"] += 1
+
+    @torch.no_grad()
+    def _rows(self, p: torch.Tensor, z) -> torch.Tensor:
+        """``[size, n]``: row r is rank r's part of ``p.grad`` flattened
+        (its padded slice, or the whole gradient of a whole leaf)."""
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        g = g.float()
+        if z.axis is None:
+            return g.reshape(1, -1).expand(self.size, -1)
+        from .sharding import pad_to
+
+        g = pad_to(g, z.axis, z.padded)
+        shape = list(g.shape)
+        shape[z.axis:z.axis + 1] = [self.size, z.padded // self.size]
+        return g.reshape(shape).movedim(z.axis, 0).reshape(self.size, -1)
+
+    def _issue(self, b: int) -> None:
+        bucket = self.buckets[b]
+        leaves = self.leaves[bucket.lo:bucket.hi]
+        flat = torch.cat([self._rows(p, z) for _, p, z in leaves],
+                         dim=1).reshape(-1)
+        chunk, work = reduce_scatter_(flat, self.group, async_op=True)
+        self._pending.append((leaves, chunk, work))
+        self._next = b + 1
+
+    def finish(self) -> Dict[str, torch.Tensor]:
+        """Issue the buckets the hooks did not, wait for every exchange and
+        unpack this rank's reduced gradients by name (f32)."""
+        self._armed = False
+        while self._next < len(self.buckets):
+            self._issue(self._next)
+            self.stats["late"] += 1
+        out: Dict[str, torch.Tensor] = {}
+        for leaves, chunk, work in self._pending:
+            if work is not None:
+                work.wait()
+            offset = 0
+            for name, p, z in leaves:
+                shape = list(p.shape)
+                if z.axis is not None:
+                    shape[z.axis] = z.padded // self.size
+                n = math.prod(shape)
+                out[name] = chunk.narrow(0, offset, n).view(shape)
+                offset += n
+        self._pending = []
+        return out
 
 
 def regroup_for_world(batch: dict, world: int, batch_split: int) -> dict:

@@ -28,9 +28,13 @@ for one process. The launcher's environment is read by
 
 The rendezvous and :func:`barrier` run inside watchdog frames
 (``resilience/watchdog.py``), with the ``dist.rendezvous`` and
-``dist.barrier`` fault sites inside them. The elastic supervisor's world
-override and the coordinator helper are not ported
-(:func:`refuse_elastic_world`).
+``dist.barrier`` fault sites inside them.
+
+The elastic supervisor (``resilience/supervisor.py``) sets
+``MLRT_ELASTIC_WORLD=<size>:<rank>`` in every child: the live world after
+a host loss, which :func:`initialize_from_params` joins instead of the
+declared one (:func:`elastic_world_override`), at the same
+``--dist_init_method``; a shrunk world of 1 joins nothing.
 """
 
 from __future__ import annotations
@@ -38,12 +42,13 @@ from __future__ import annotations
 import datetime
 import logging
 import os
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
 from ..resilience import watchdog as watchdog_mod
+from ..resilience.coordination import ELASTIC_WORLD_ENV
 from ..resilience.faults import fire as _fault
 
 logger = logging.getLogger(__name__)
@@ -51,21 +56,41 @@ logger = logging.getLogger(__name__)
 # seconds any collective may wait for its peers before the run fails
 TIMEOUT_S = 600.0
 BACKENDS = ("xla", "nccl", "gloo")
-# the JAX package's elastic supervisor sets it in every child
-# (ml_recipe_tpu/resilience/coordination.py ELASTIC_WORLD_ENV)
-ELASTIC_WORLD_ENV = "MLRT_ELASTIC_WORLD"
 
 
-def refuse_elastic_world() -> None:
-    """Raise when the elastic supervisor's world override is set: joining
-    the declared world instead of the live one would be wrong, and the
-    supervisor is not ported."""
+def elastic_world_override() -> Optional[Tuple[int, int]]:
+    """``(world_size, process_id)`` from :data:`ELASTIC_WORLD_ENV`
+    (``"<size>:<rank>"``), set per attempt by the elastic supervisor so a
+    restarted child joins the CURRENT live world instead of the declared
+    one. None when unset; a malformed value is a hard error: a child
+    silently joining the wrong world is the one thing an elastic restart
+    must never do."""
     raw = os.environ.get(ELASTIC_WORLD_ENV)
-    if raw:
-        raise NotImplementedError(
-            f"{ELASTIC_WORLD_ENV}={raw!r} (the elastic supervisor's world "
-            f"override) is not ported yet: ROADMAP.md queue 1, 'Runtime "
-            f"subsystems'")
+    if not raw:
+        return None
+    try:
+        size_s, rank_s = raw.split(":")
+        size, rank = int(size_s), int(rank_s)
+    except ValueError:
+        raise ValueError(
+            f"malformed {ELASTIC_WORLD_ENV}={raw!r}; expected "
+            f"'<world_size>:<process_id>' (e.g. '2:0').") from None
+    if size < 1 or not (0 <= rank < size):
+        raise ValueError(
+            f"inconsistent {ELASTIC_WORLD_ENV}={raw!r}: need "
+            f"world_size >= 1 and 0 <= process_id < world_size.")
+    return size, rank
+
+
+def live_world(params) -> Tuple[int, int]:
+    """``(world_size, rank)`` this process runs in: the elastic override
+    when set, else ``--dist_world_size`` and ``--local_rank`` (rank 0 when
+    alone)."""
+    override = elastic_world_override()
+    if override is not None:
+        return override
+    world = int(getattr(params, "dist_world_size", 1) or 1)
+    return world, max(int(getattr(params, "local_rank", -1)), 0)
 
 
 def resolve_backend(backend: Optional[str], device) -> str:
@@ -158,12 +183,22 @@ def initialize_from_params(params, device=None) -> Optional[torch.device]:
     ``--local_rank``, ``--dist_init_method``, ``--dist_backend``) on this
     rank's device (:func:`rank_device` of ``device``, else ``--device``);
     returns that device, or None at world size 1, where nothing is
-    joined."""
-    refuse_elastic_world()
-    world_size = int(getattr(params, "dist_world_size", 1) or 1)
+    joined. The elastic supervisor's world override wins over the flags
+    (:func:`elastic_world_override`): after a host loss the survivors
+    re-form a smaller world, and the flags still describe the original
+    one."""
+    override = elastic_world_override()
+    if override is not None:
+        world_size, local_rank = override
+        logger.warning(
+            "ELASTIC: world override %s -> joining as process %d/%d (params "
+            "declared %s).", ELASTIC_WORLD_ENV, local_rank, world_size,
+            getattr(params, "dist_world_size", 1))
+    else:
+        world_size = int(getattr(params, "dist_world_size", 1) or 1)
+        local_rank = int(getattr(params, "local_rank", -1))
     if world_size <= 1:
         return None
-    local_rank = int(getattr(params, "local_rank", -1))
     if local_rank < 0:
         raise ValueError(f"--dist_world_size {world_size} needs --local_rank "
                          f"(this process's rank, 0..{world_size - 1})")

@@ -19,7 +19,9 @@ S)``: the data coordinate, which picks a rank's rows of every global batch
 and folds into its dropout seeds, is the one the JAX package gives the same
 device. ``pipe`` and ``model`` (pipeline and tensor parallelism) raise.
 Where the JAX package warns about devices a mesh leaves idle, the port
-requires the mesh to cover the world exactly.
+requires the mesh to cover the world exactly. Under ``--elastic on``
+:func:`elastic_axes` shrinks a requested mesh onto the live processes
+(only ``data`` narrows).
 """
 
 from __future__ import annotations
@@ -81,6 +83,53 @@ def refuse_unported_axes(axes: Dict[str, int]) -> None:
         raise NotImplementedError(
             f"mesh axes {bad} are not ported yet (the port runs 'data' and "
             f"'seq'): ROADMAP.md {_PARALLEL}")
+
+
+class ElasticMeshError(ValueError):
+    """A requested mesh cannot be re-derived over the live device set —
+    a STRUCTURAL axis (pipe/seq/model) would have to change size."""
+
+
+def elastic_axes(axes: Dict[str, int], n_devices: int, *,
+                 min_data: int = 1) -> Dict[str, int]:
+    """Shrink a requested axes dict onto ``n_devices`` live devices (the
+    JAX package's ``elastic_axes``; in the port a device is a process).
+
+    Only the DATA axis shrinks: ``seq`` (and the JAX package's ``pipe`` and
+    ``model``) groups hold disjoint shards, so changing their sizes changes
+    what each device OWNS, which the crop/zero-fill checkpoint
+    reconciliation cannot express. The data axis only replicates:
+    narrowing it keeps every parameter whole and reshapes the ZeRO-1
+    optimizer slices, which a restore crops or zero-fills. Refusals are
+    loud and specific."""
+    requested = dict(axes)
+    total = math.prod(requested.values())
+    if total <= n_devices:
+        return requested
+    structural = {k: v for k, v in requested.items() if k != DATA_AXIS}
+    fixed = math.prod(structural.values()) if structural else 1
+    if fixed > n_devices:
+        raise ElasticMeshError(
+            f"cannot shrink mesh {requested} onto {n_devices} device(s): "
+            f"the structural axes {structural} alone need {fixed} devices. "
+            f"Only the data axis shrinks elastically — pipe/seq/model "
+            f"change what each device OWNS (layer/tensor shards), which "
+            f"checkpoint reconciliation cannot re-derive. Relaunch with a "
+            f"smaller --mesh or restore the lost hosts.")
+    new_data = n_devices // fixed
+    if new_data < max(1, int(min_data)):
+        raise ElasticMeshError(
+            f"cannot shrink mesh {requested} onto {n_devices} device(s): "
+            f"the data axis would narrow to {new_data}, below the floor of "
+            f"{min_data} — training that narrow is degenerate (see "
+            f"--min_world).")
+    out = {k: (new_data if k == DATA_AXIS else v)
+           for k, v in requested.items()}
+    logger.warning(
+        "ELASTIC: shrinking mesh %s -> %s over %d live device(s) "
+        "(data axis %d -> %d; structural axes unchanged).",
+        requested, out, n_devices, requested.get(DATA_AXIS, 1), new_data)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

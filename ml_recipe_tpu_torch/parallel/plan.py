@@ -2,24 +2,58 @@
 one object every layout derives from. The trainer reads its axis sizes,
 ZeRO-1 layout and ``describe()``, which checkpoints record as
 ``mesh_axes`` (the JAX package's spelling, so a checkpoint names the
-topology that wrote it in both packages)."""
+topology that wrote it in both packages). Under ``--elastic on``
+:meth:`ParallelPlan.elastic_from_spec` builds the mesh over the live
+processes, narrowing the requested ``data`` axis, and records the request
+(``requested_axes``, ``shrunk``)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, Sequence, Tuple
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
-from .mesh import DATA_AXIS, SEQ_AXIS, Mesh
+from . import dist as pdist
+from .mesh import DATA_AXIS, SEQ_AXIS, Mesh, MeshSpec, build_mesh, elastic_axes
 from .sharding import MIN_SIZE, ParamSlice, zero1_param_plan
 
 
 @dataclasses.dataclass(frozen=True)
 class ParallelPlan:
     mesh: Mesh
+    # the axes the operator asked for (--mesh), recorded by
+    # elastic_from_spec so `shrunk` can report a topology change; None for
+    # plans of the fixed-world constructors
+    requested_axes: Optional[Dict[str, int]] = None
 
     @classmethod
     def from_mesh(cls, mesh: Mesh) -> "ParallelPlan":
         return cls(mesh=mesh)
+
+    @classmethod
+    def from_spec(cls, spec: Optional[str] = None) -> "ParallelPlan":
+        return cls(mesh=build_mesh(spec))
+
+    @classmethod
+    def elastic_from_spec(cls, spec: Optional[str] = None, *,
+                          n_devices: Optional[int] = None,
+                          min_data: int = 1) -> "ParallelPlan":
+        """:meth:`from_spec` that SHRINKS instead of raising when the
+        requested mesh no longer fits the live processes
+        (``n_devices``, by default the joined world's size): only the data
+        axis narrows (``mesh.elastic_axes``). Every process of the world
+        must call it, as :func:`~.mesh.build_mesh`."""
+        n = int(n_devices if n_devices is not None
+                else pdist.process_count())
+        requested = MeshSpec.from_string(spec, n_devices=n).ordered()
+        axes = elastic_axes(requested, n, min_data=min_data)
+        return cls(mesh=build_mesh(axes=axes), requested_axes=dict(requested))
+
+    @property
+    def shrunk(self) -> bool:
+        """True when this plan was elastically narrowed below the requested
+        topology (always False for fixed-world plans)."""
+        return (self.requested_axes is not None
+                and self.requested_axes != self.describe())
 
     def axis_size(self, name: str) -> int:
         """An axis's size; 1 when the mesh lacks it."""

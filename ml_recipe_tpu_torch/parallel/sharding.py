@@ -15,6 +15,10 @@ never leave zero) and never feeds a real element's update.
 The plan reads flax shapes (``Dense.kernel`` is ``[in, out]``); the port's
 ``Linear.weight`` is ``[out, in]``, so :func:`zero1_param_plan` plans each
 parameter on its flax shape and maps the axis onto the tensor.
+
+``--zero1_overlap bucketed`` cuts the gradients into contiguous buckets
+over the JAX package's leaf order (:func:`tree_order`, :func:`leaf_sizes`,
+:func:`zero1_bucket_plan`).
 """
 
 from __future__ import annotations
@@ -186,6 +190,38 @@ def zero1_param_plan(named_shapes: Iterable[Tuple[str, Sequence[int]]], *,
             axis = len(fshape) - 1 - axis
         out[name] = ParamSlice(axis, z.padded, z)
     return out
+
+
+def tree_order(names: Iterable[str]) -> list:
+    """The port's parameter names in the JAX package's ``tree_leaves``
+    order (flax dicts flatten with sorted keys, so the order of the flax
+    paths, ``models/convert.py`` ``jax_path``)."""
+    from ..models.convert import jax_path
+
+    return sorted(names, key=jax_path)
+
+
+def leaf_sizes(named_shapes: Iterable[Tuple[str, Sequence[int]]]) -> list:
+    """Per-leaf element counts in :func:`tree_order` (the JAX package's
+    ``leaf_sizes``: a scalar counts 1): the one flattened-gradient layout
+    the bucket plan and the exchange share."""
+    shapes = dict(named_shapes)
+    return [int(np.prod(shapes[n])) if len(shapes[n]) else 1
+            for n in tree_order(shapes)]
+
+
+def zero1_bucket_plan(named_shapes: Iterable[Tuple[str, Sequence[int]]], *,
+                      bucket_mb: float):
+    """Size-targeted gradient buckets over the parameters' leaves in
+    :func:`tree_order` (``--zero1_overlap bucketed``; the JAX package's
+    ``zero1_bucket_plan``): each leaf contributes its f32 accumulation
+    footprint, and contiguous runs close at ``bucket_mb``. The bucket count
+    and each bucket's leaves equal the JAX package's."""
+    from .collectives import plan_grad_buckets
+
+    return plan_grad_buckets(
+        leaf_sizes(named_shapes),
+        bucket_bytes=max(1, int(float(bucket_mb) * 2**20)), itemsize=4)
 
 
 def pad_to(t: torch.Tensor, axis: int, padded: int) -> torch.Tensor:

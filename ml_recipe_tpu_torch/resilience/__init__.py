@@ -8,17 +8,26 @@
 - :mod:`.faults` — the deterministic ``--fault_plan`` drills, with their
   sites threaded through the checkpoint writer, the loaders, the process
   world, the trainer and the serving engine;
-- :mod:`.checkpoint_async` — the background checkpoint persist.
-
-The elastic supervisor and its coordination plane are not ported
-(ROADMAP.md queue 1, 'Runtime subsystems').
+- :mod:`.checkpoint_async` — the background checkpoint persist;
+- :mod:`.coordination` — the elastic pod's plane: per-host heartbeat
+  files under ``<exp_dir>/pod/``, published and read by one
+  ``ElasticSupervisor`` per host (``--elastic on``).
 """
 
+from .coordination import (
+    COORD_DIRNAME,
+    ELASTIC_WORLD_ENV,
+    CoordinationSchemaError,
+    PodCoordinator,
+    read_coordination_json,
+    write_child_heartbeat,
+)
 from .faults import HOST_ENV, FaultError, FaultPlan, current_host, fire, install_plan
 from .supervisor import (
     PREEMPT_EXIT_CODE,
     STATE_FILENAME,
     Attempt,
+    ElasticSupervisor,
     RetryPolicy,
     Supervisor,
     SupervisorResult,
@@ -30,10 +39,15 @@ from .watchdog import WATCHDOG_EXIT_CODE, Watchdog
 
 __all__ = [
     "Attempt",
+    "COORD_DIRNAME",
+    "CoordinationSchemaError",
+    "ELASTIC_WORLD_ENV",
+    "ElasticSupervisor",
     "FaultError",
     "FaultPlan",
     "HOST_ENV",
     "PREEMPT_EXIT_CODE",
+    "PodCoordinator",
     "RetryPolicy",
     "STATE_FILENAME",
     "Supervisor",
@@ -45,5 +59,7 @@ __all__ = [
     "fire",
     "install_plan",
     "peek_supervisor_state",
+    "read_coordination_json",
+    "write_child_heartbeat",
     "write_supervisor_state",
 ]

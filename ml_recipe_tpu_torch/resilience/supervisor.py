@@ -1,5 +1,5 @@
 """Auto-resume supervisor: the local analogue of an elastic agent (the port
-of ``ml_recipe_tpu/resilience/supervisor.py``'s fixed-world supervision).
+of ``ml_recipe_tpu/resilience/supervisor.py``).
 
 Wraps the training entrypoint in a bounded-retry loop (``--supervise`` on
 the train CLI). Each attempt is a child process; on exit the supervisor
@@ -17,9 +17,10 @@ the train CLI). Each attempt is a child process; on exit the supervisor
 
 The supervisor deliberately knows nothing about torch: it manages a
 process and a checkpoint directory. ``classify_exit`` is also the fleet
-manager's contract for its engine children. The elastic, cross-host
-supervisor (``--elastic``) and its coordination plane are not ported
-(ROADMAP.md queue 1, 'Runtime subsystems'): ``--elastic`` is refused.
+manager's contract for its engine children. With ``--elastic on`` one
+:class:`ElasticSupervisor` runs per host and the hosts coordinate through
+``resilience/coordination.py``: a dead host's peers restart on a smaller
+``data`` axis (:func:`_supervise_elastic`).
 """
 
 from __future__ import annotations
@@ -36,16 +37,26 @@ import time
 from datetime import datetime, timezone
 from typing import Callable, List, Optional, Sequence
 
+from ..metrics.artifacts import wall_now
+from .coordination import (
+    COORD_DIRNAME,
+    COORD_SCHEMA_VERSION,
+    ELASTIC_WORLD_ENV,
+    CoordinationSchemaError,
+    PodCoordinator,
+    read_coordination_json,
+)
+from .faults import HOST_ENV
 from .watchdog import WATCHDOG_EXIT_CODE
 
 logger = logging.getLogger(__name__)
 
 __all__ = [
-    "CLEAN", "CRASH", "HANG", "PREEMPTED", "PREEMPT_EXIT_CODE",
-    "STATE_FILENAME", "SUPERVISED_ENV", "Attempt", "RetryPolicy",
-    "Supervisor", "SupervisorResult", "build_child_argv", "classify_exit",
-    "newest_checkpoint", "peek_supervisor_state", "supervise_cli",
-    "write_supervisor_state",
+    "CLEAN", "CRASH", "HANG", "HOST_LOST", "POD_RESTART", "PREEMPTED",
+    "PREEMPT_EXIT_CODE", "STATE_FILENAME", "SUPERVISED_ENV", "Attempt",
+    "ElasticSupervisor", "RetryPolicy", "Supervisor", "SupervisorResult",
+    "build_child_argv", "classify_exit", "newest_checkpoint",
+    "peek_supervisor_state", "supervise_cli", "write_supervisor_state",
 ]
 
 # JSON sidecar the supervisor keeps current next to the checkpoints, so the
@@ -54,78 +65,33 @@ __all__ = [
 # a reader never sees a torn document.
 STATE_FILENAME = "supervisor_state.json"
 
-# the sidecar's schema, the JAX package's coordination schema version: a
-# sidecar written by an incompatible build is rejected, never acted on
-SCHEMA_VERSION = 1
-
-
-class SidecarSchemaError(RuntimeError):
-    """A sidecar document carries a different (or missing) schema version."""
-
 
 def write_supervisor_state(path, state: dict) -> None:
-    """Atomically persist the supervisor's observable state (stamped with
-    :data:`SCHEMA_VERSION`)."""
+    """Atomically persist the supervisor's observable state (schema-stamped:
+    the elastic coordination plane reads these cross-host, and an old
+    sidecar must be rejectable — see resilience/coordination.py)."""
     path = os.fspath(path)
     directory = os.path.dirname(path)
     if directory:
         os.makedirs(directory, exist_ok=True)
     doc = dict(state)
-    doc.setdefault("schema", SCHEMA_VERSION)
+    doc.setdefault("schema", COORD_SCHEMA_VERSION)
     tmp = f"{path}.tmp.{os.getpid()}"
     with open(tmp, "w") as fh:
         json.dump(doc, fh, indent=2)
     os.replace(tmp, path)
 
 
-def read_sidecar_json(path, *, retries: int = 3, base_delay: float = 0.05,
-                      factor: float = 2.0, sleep=time.sleep) -> Optional[dict]:
-    """The guarded read of a sidecar (the JAX package's
-    ``read_coordination_json``): an absent file is None at once; torn or
-    unparsable content is retried with bounded backoff, then None with a
-    warning; a schema mismatch raises :class:`SidecarSchemaError`."""
-    path = os.fspath(path)
-    delay = base_delay
-    for attempt in range(retries + 1):
-        try:
-            with open(path) as fh:
-                doc = json.load(fh)
-        except FileNotFoundError:
-            return None
-        except (OSError, ValueError) as e:
-            if attempt == retries:
-                logger.warning(
-                    f"SUPERVISOR: sidecar unreadable after {retries + 1} "
-                    f"attempt(s): {path}: {e!r}; treating as absent.")
-                return None
-            logger.warning(
-                f"SUPERVISOR: torn read of {path} (attempt {attempt + 1}/"
-                f"{retries + 1}): {e!r}; retrying in {delay:.2f}s.")
-            sleep(delay)
-            delay *= factor
-            continue
-        if not isinstance(doc, dict):
-            logger.warning(f"SUPERVISOR: non-object document in {path}; "
-                           f"ignoring.")
-            return None
-        schema = doc.get("schema")
-        if schema != SCHEMA_VERSION:
-            raise SidecarSchemaError(
-                f"{path} carries schema {schema!r}, this build requires "
-                f"{SCHEMA_VERSION} — written by an incompatible (older?) "
-                f"build; refusing to interpret it.")
-        return doc
-    return None
-
-
 def peek_supervisor_state(path) -> Optional[dict]:
     """Best-effort read of the sidecar; None when absent or unreadable
     (an exporter scrape must never crash on a mid-replace race or a
-    corrupt file); a sidecar written by an incompatible build is rejected
-    loudly."""
+    corrupt file). Routed through the guarded coordination reader: a
+    TRANSIENT torn read (shared-FS mid-replace window) is retried with
+    bounded backoff instead of being misreported as absent, and a sidecar
+    written by an incompatible build is rejected loudly."""
     try:
-        return read_sidecar_json(path)
-    except SidecarSchemaError as e:
+        return read_coordination_json(path)
+    except CoordinationSchemaError as e:
         logger.error(f"SUPERVISOR: rejecting sidecar: {e}")
         return None
 
@@ -138,6 +104,17 @@ CLEAN = "clean"
 PREEMPTED = "preempted"
 HANG = "hang"
 CRASH = "crash"
+# elastic-only outcomes: the SUPERVISOR killed its (healthy) child because
+# the pod had to re-form — a peer bumped the restart generation
+# (POD_RESTART) or a peer host's heartbeat went stale / it self-reported
+# failed (HOST_LOST). Neither is this host failing, so neither consumes
+# the restart budget (the at-fault host's own supervisor bounds ITS loop).
+POD_RESTART = "pod-restart"
+HOST_LOST = "host-lost"
+
+# coordinated-restart outcomes: retryable, but exempt from the no-progress
+# budget/crash-loop accounting (see above)
+_COORDINATED = (POD_RESTART, HOST_LOST)
 
 
 def classify_exit(returncode: int) -> str:
@@ -213,7 +190,7 @@ class Supervisor:
     """Bounded-retry loop around a launchable child.
 
     ``launch(attempt_index)`` returns either a ``Popen``-like object (with
-    ``wait``/``send_signal``) or a bare int return code (tests). ``progress()``
+    ``wait``/``kill``/``send_signal``) or a bare int return code (tests). ``progress()``
     returns the newest durable ``global_step`` (or None) — called before
     and after every attempt. ``sleep`` is injectable so drills don't
     actually wait out the backoff.
@@ -344,6 +321,31 @@ class Supervisor:
             prev[sig] = signal.signal(sig, self._forward_signal)
         return prev
 
+    # -- one attempt -----------------------------------------------------------
+
+    def _wait(self, child) -> int:
+        # each child's own watchdog bounds a hang inside it
+        return child if isinstance(child, int) else child.wait()
+
+    # -- elastic hook points (no-ops for the fixed-world supervisor) -----------
+
+    def _pre_attempt(self, attempt_i: int):
+        """Return ``(status, diagnosis)`` to abort supervision before
+        launching attempt ``attempt_i``; None to proceed. The elastic
+        subclass enforces the min-world floor here."""
+        return None
+
+    def _classify_outcome(self, rc: int) -> str:
+        """Map a child return code onto an outcome. The elastic subclass
+        overrides the classification when IT killed the child for a
+        coordinated pod restart (the raw rc would read as 'preempted')."""
+        return classify_exit(rc)
+
+    def _post_attempt(self, attempt: "Attempt") -> None:
+        """Called once per finished attempt, before retry/abort decisions.
+        The elastic subclass publishes coordination state (and bumps the
+        pod generation when this host's own child failed)."""
+
     def _backoff(self, no_progress_streak: int) -> float:
         """Backoff grows with CONSECUTIVE no-progress failures (a persistent
         fault deserves widening gaps); a restart after a progressing
@@ -395,6 +397,14 @@ class Supervisor:
         persist("running")
         attempt_i = 0
         while True:
+            abort = self._pre_attempt(attempt_i)
+            if abort is not None:
+                status, diagnosis = abort
+                logger.error(diagnosis)
+                sys.stderr.write(diagnosis + "\n")
+                sys.stderr.flush()
+                persist(status)
+                return SupervisorResult(status, attempts, diagnosis)
             step_before = self.progress()
             if self._terminate_signum is not None:
                 # signal arrived between attempts (e.g. during backoff):
@@ -408,13 +418,12 @@ class Supervisor:
             self._ledger_event(
                 "attempt_start", attempt=attempt_i, resume_step=step_before
             )
-            self._child = child = self.launch(attempt_i)
+            self._child = self.launch(attempt_i)
             try:
-                # each child's own watchdog bounds a hang inside it
-                rc = child if isinstance(child, int) else child.wait()
+                rc = self._wait(self._child)
             finally:
                 self._child = None
-            outcome = classify_exit(rc)
+            outcome = self._classify_outcome(rc)
             step_after = self.progress()
             self._ledger_event(
                 "attempt_end", attempt=attempt_i, returncode=rc,
@@ -423,6 +432,7 @@ class Supervisor:
             attempt = Attempt(attempt_i, rc, outcome, step_before, step_after)
             attempts.append(attempt)
             attempt_i += 1
+            self._post_attempt(attempt)
 
             if outcome == CLEAN:
                 logger.warning(
@@ -440,6 +450,13 @@ class Supervisor:
 
             if attempt.progressed:
                 no_progress_streak = 0
+            elif outcome in _COORDINATED:
+                # a coordinated pod restart is not THIS host failing:
+                # exempt from the budget AND the crash-loop streak — a
+                # crash-looping peer is bounded by its OWN supervisor,
+                # which aborts and publishes 'failed' (then HOST_LOST
+                # shrinks the world here instead of looping forever)
+                pass
             else:
                 no_progress_streak += 1
                 restarts_used += 1
@@ -488,19 +505,375 @@ class Supervisor:
         return SupervisorResult("retries-exhausted", attempts, diagnosis)
 
 
+# -- elastic (cross-host) supervision ------------------------------------------
+
+
+class ElasticSupervisor(Supervisor):
+    """Cross-host elastic supervision (``--elastic on``).
+
+    One ElasticSupervisor runs per host; they coordinate through per-host
+    heartbeat files (:class:`~.coordination.PodCoordinator`) instead of a
+    control channel. The base retry loop is unchanged — this subclass
+    replaces the blocking child wait with a polling wait that, every
+    ``poll_interval`` seconds:
+
+    1. publishes this host's heartbeat (status, generation, attempt, the
+       child's last reported step);
+    2. reads every live peer's document: a peer at a HIGHER generation
+       means the pod is restarting -> kill our (wedged) child now instead
+       of letting it wait out the collective timeout; a peer whose
+       heartbeat is stale past ``host_timeout`` (or that published status
+       'failed' — its own supervisor gave up on a crash-loop) is declared
+       LOST -> drop it from the live set, bump the generation and restart
+       on the shrunk world.
+
+    The launch callback reads :attr:`world` for the CURRENT live world
+    (hosts, size, this host's rank, generation) so each attempt's child is
+    told the topology it is actually joining; a shrunk child re-derives
+    its mesh via ``ParallelPlan.elastic_from_spec``. When this host's own
+    child fails, the generation is bumped BEFORE the backoff so every
+    surviving peer restarts immediately. Host death vs crash-loop is
+    classified explicitly: a self-reported 'failed' status is a peer
+    crash-loop, a silent stale heartbeat is a dead host — both shrink the
+    world, but the diagnosis (and the flight-recorder event) names which.
+
+    One difference from the JAX package: a child's collective does not
+    always wedge when a peer dies. Gloo raises within seconds once the dead
+    peer's sockets close, so this host's child may exit as a crash before
+    the peer's heartbeat is stale. Relaunching then would spend an attempt
+    rendezvousing with a dead host. So after this host's own child fails,
+    :meth:`_await_peers` holds the relaunch until every live peer is either
+    fresh (its supervisor published a poll interval after the failure) or
+    declared lost,
+    and a peer lost during that hold makes the attempt's outcome
+    ``host-lost``, as the JAX supervisor classifies the wedged child it
+    kills: the drill's outcomes are ``["host-lost", "clean"]`` in both
+    packages.
+    """
+
+    def __init__(
+        self,
+        launch: Callable[[int], object],
+        *,
+        coordinator: PodCoordinator,
+        host_timeout: float = 60.0,
+        poll_interval: float = 2.0,
+        min_world: int = 1,
+        kill_grace: float = 5.0,
+        **kwargs,
+    ):
+        super().__init__(launch, **kwargs)
+        self.coordinator = coordinator
+        self.host_timeout = float(host_timeout)
+        self.poll_interval = float(poll_interval)
+        self.min_world = max(1, int(min_world))
+        self.kill_grace = float(kill_grace)
+        self.generation = 0
+        self._attempt_i = 0
+        self._dead_hosts: set = set()
+        self._done_hosts: set = set()
+        self._lost_why: dict = {}          # host -> classification text
+        self._kill_reason = None           # (outcome, peer host) | None
+        self._last_good: dict = {}         # host -> monotonic of last good read
+        self._started = time.monotonic()
+        self._flight = None
+        if self.flight_dir is not None:
+            from ..metrics.flightrec import FlightRecorder
+
+            # the supervisor keeps its OWN bounded event ring: elastic
+            # transitions (host_lost / pod_restart) land in a dump the
+            # crash-loop diagnosis reads back, explaining topology changes
+            self._flight = FlightRecorder.open_in(
+                self.flight_dir, process_index=coordinator.host,
+                capacity=64,
+            )
+
+    # -- live-world bookkeeping ------------------------------------------------
+
+    def live_hosts(self) -> List[int]:
+        return [
+            h for h in range(self.coordinator.n_hosts)
+            if h not in self._dead_hosts
+        ]
+
+    @property
+    def world(self) -> dict:
+        """The CURRENT live world, for the launch callback: surviving
+        hosts in id order, the shrunk world size, this host's rank within
+        it, and the pod generation."""
+        live = self.live_hosts()
+        return {
+            "hosts": live,
+            "size": len(live),
+            "rank": live.index(self.coordinator.host),
+            "generation": self.generation,
+        }
+
+    def _note_elastic(self, kind: str, **fields) -> None:
+        """An elastic transition: goodput-ledger event + flight-recorder
+        event (dumped immediately — transitions are rare and must survive
+        whatever happens next)."""
+        self._ledger_event(kind, host=self.coordinator.host, **fields)
+        if self._flight is not None:
+            self._flight.record(kind, **fields)
+            self._flight.dump("elastic", transition=kind)
+
+    def _heartbeat(self, status: str = "running") -> None:
+        self.coordinator.publish(
+            status,
+            generation=self.generation,
+            attempt=self._attempt_i,
+            step=self.coordinator.child_step(self.coordinator.host),
+            live_hosts=self.live_hosts(),
+        )
+
+    # -- peer policy -----------------------------------------------------------
+
+    def _declare_host_lost(self, host: int, *, why: str):
+        self._dead_hosts.add(host)
+        self._lost_why[host] = why
+        self.generation += 1
+        last_step = self.coordinator.child_step(host)
+        logger.error(
+            f"SUPERVISOR[elastic h{self.coordinator.host}]: host {host} "
+            f"LOST ({why}; last reported step "
+            f"{last_step if last_step is not None else 'none'}); live "
+            f"hosts now {self.live_hosts()}; restarting the pod at "
+            f"generation {self.generation}."
+        )
+        self._note_elastic(
+            "host_lost", lost=host, why=why, generation=self.generation,
+            last_step=last_step, live_hosts=self.live_hosts(),
+        )
+        return (HOST_LOST, host)
+
+    def _check_peers(self):
+        """One coordination sweep. Returns ``(outcome, peer)`` when the
+        live child must be killed for a coordinated restart, else None."""
+        now = time.monotonic()
+        for h in self.live_hosts():
+            if h == self.coordinator.host or h in self._done_hosts:
+                continue
+            doc = self.coordinator.peer_state(h)
+            if doc is not None:
+                self._last_good[h] = now
+                status = doc.get("status")
+                if status == "done":
+                    self._done_hosts.add(h)
+                    continue
+                if status == "failed":
+                    # the peer's OWN supervisor gave up (crash-loop /
+                    # retries-exhausted): a classified failure, not a
+                    # silent death — but the pod shrinks either way
+                    return self._declare_host_lost(
+                        h, why="its supervisor reported 'failed' "
+                               "(peer crash-loop)",
+                    )
+                gen = int(doc.get("generation", 0))
+                if gen > self.generation:
+                    self.generation = gen
+                    logger.warning(
+                        f"SUPERVISOR[elastic h{self.coordinator.host}]: "
+                        f"host {h} published generation {gen}; joining the "
+                        f"pod restart."
+                    )
+                    self._note_elastic(
+                        "pod_restart", origin=h, generation=gen,
+                    )
+                    return (POD_RESTART, h)
+                # heartbeat age from the WALL stamp (hosts are NTP-synced
+                # at coarse, multi-second granularity): catches a dead
+                # supervisor whose file corpse remains readable
+                age = wall_now() - float(doc.get("heartbeat", 0.0))
+            else:
+                # unreadable/absent even after the bounded retry: age from
+                # the last GOOD read (never from one torn read — that is
+                # the misclassification the retry exists to prevent)
+                age = now - self._last_good.get(h, self._started)
+            if age > self.host_timeout:
+                return self._declare_host_lost(
+                    h, why=f"heartbeat stale for {age:.1f}s "
+                           f"(> {self.host_timeout:g}s; host death)",
+                )
+        return None
+
+    # -- overridden loop pieces ------------------------------------------------
+
+    def _pre_attempt(self, attempt_i: int):
+        self._attempt_i = attempt_i
+        live = self.live_hosts()
+        if len(live) < self.min_world:
+            detail = "; ".join(
+                f"host {h}: {why}" for h, why in sorted(self._lost_why.items())
+            )
+            return (
+                "world-floor",
+                f"SUPERVISOR[elastic h{self.coordinator.host}]: only "
+                f"{len(live)} live host(s) remain ({detail}) — below the "
+                f"--min_world floor of {self.min_world}; aborting instead "
+                f"of training degenerately narrow." + self._flight_timeline(),
+            )
+        if 0 in self._dead_hosts and len(live) > 1:
+            detail = self._lost_why.get(0, "lost")
+            return (
+                "coordinator-lost",
+                f"SUPERVISOR[elastic h{self.coordinator.host}]: host 0 was "
+                f"lost ({detail}) and {len(live)} hosts remain — the "
+                f"rendezvous coordinator address lives on host 0, so the "
+                f"shrunk pod cannot re-form; aborting. (A single surviving "
+                f"host would have continued solo.)" + self._flight_timeline(),
+            )
+        self._heartbeat("running")
+        return None
+
+    def _wait(self, child) -> int:
+        if isinstance(child, int):
+            # scripted attempts (unit tests): still run one coordination
+            # sweep so peer-driven outcomes are drivable without a process
+            self._kill_reason = self._check_peers()
+            return child
+        self._kill_reason = None
+        while True:
+            try:
+                return child.wait(timeout=self.poll_interval)
+            except subprocess.TimeoutExpired:
+                pass
+            if self._terminate_signum is not None:
+                # operator shutdown: the signal was already forwarded to
+                # the child; keep waiting for it to unwind (no peer logic)
+                continue
+            self._heartbeat("running")
+            reason = self._check_peers()
+            if reason is not None:
+                self._kill_reason = reason
+                return self._stop_child(child)
+
+    def _stop_child(self, child) -> int:
+        """Coordinated kill: SIGTERM first (the child's interrupt-
+        checkpoint path gets ``kill_grace`` seconds to save), then
+        SIGKILL. The collective the child is wedged in never returns on
+        its own — that is the whole point of killing it."""
+        try:
+            child.terminate()
+        except OSError:
+            pass
+        try:
+            return child.wait(timeout=self.kill_grace)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            return child.wait()
+
+    def _classify_outcome(self, rc: int) -> str:
+        if self._kill_reason is not None:
+            outcome, _peer = self._kill_reason
+            return outcome
+        outcome = classify_exit(rc)
+        if outcome != CLEAN and self._terminate_signum is None:
+            lost = self._await_peers(wall_now())
+            if lost is not None:
+                self._kill_reason = lost
+                return lost[0]
+        return outcome
+
+    def _await_peers(self, since: float):
+        """Hold after this host's own child failed at wall time ``since``
+        until every live peer is fresh or lost, publishing this host's
+        heartbeat each ``poll_interval``. Fresh: its document is stamped a
+        full ``poll_interval`` after ``since``, so its supervisor outlived
+        the failure (a host that died with the collective publishes at most
+        once more). Lost: stale past ``host_timeout``, or it published
+        'failed'. Returns the ``(HOST_LOST, host)`` of the first peer
+        declared lost, else None. The pod generation is not adopted here:
+        every host whose child failed moves one past the generation it ran
+        at (:meth:`_post_attempt`), so hosts that failed together meet at
+        the same generation."""
+        fresh_from = since + self.poll_interval
+        lost = None
+        while self._terminate_signum is None:
+            self._heartbeat("running")
+            pending = False
+            now = time.monotonic()
+            for h in self.live_hosts():
+                if h == self.coordinator.host or h in self._done_hosts:
+                    continue
+                doc = self.coordinator.peer_state(h)
+                if doc is not None:
+                    self._last_good[h] = now
+                    status = doc.get("status")
+                    if status == "done":
+                        self._done_hosts.add(h)
+                        continue
+                    if status == "failed":
+                        reason = self._declare_host_lost(
+                            h, why="its supervisor reported 'failed' "
+                                   "(peer crash-loop)")
+                        lost = lost or reason
+                        continue
+                    stamp = float(doc.get("heartbeat", 0.0))
+                    if stamp >= fresh_from:
+                        continue
+                    age = wall_now() - stamp
+                else:
+                    age = now - self._last_good.get(h, self._started)
+                if age > self.host_timeout:
+                    reason = self._declare_host_lost(
+                        h, why=f"heartbeat stale for {age:.1f}s "
+                               f"(> {self.host_timeout:g}s; host death)")
+                    lost = lost or reason
+                else:
+                    pending = True
+            if not pending:
+                break
+            time.sleep(self.poll_interval)
+        return lost
+
+    def _post_attempt(self, attempt: Attempt) -> None:
+        if attempt.outcome == CLEAN:
+            self._heartbeat("done")
+        elif attempt.outcome in _COORDINATED:
+            # generation already adopted/bumped by the sweep that killed
+            # the child; just make the restart visible to peers
+            self._heartbeat("restarting")
+        else:
+            # this host's OWN child failed (crash/hang/preempt): peers'
+            # children are wedged in collectives waiting for us — bump the
+            # generation so every surviving supervisor restarts NOW
+            # instead of waiting out the rendezvous/collective timeout
+            self.generation += 1
+            self._note_elastic(
+                "pod_restart", origin=self.coordinator.host,
+                generation=self.generation, returncode=attempt.returncode,
+                outcome=attempt.outcome,
+            )
+            self._heartbeat("restarting")
+
+    def _persist_state(self, status, attempts, **kwargs) -> None:
+        super()._persist_state(status, attempts, **kwargs)
+        # terminal supervisor states double as coordination signals: a
+        # peer that reads 'failed' classifies us as a crash-loop (not a
+        # host death) and shrinks the pod without waiting for staleness
+        if status in ("crash-loop", "retries-exhausted", "terminated",
+                      "world-floor", "coordinator-lost"):
+            self._heartbeat("failed")
+        elif status == CLEAN:
+            self._heartbeat("done")
+
+
 # -- checkpoint progress probing ----------------------------------------------
 
 
-def newest_checkpoint(candidates: Sequence) -> tuple:
+def newest_checkpoint(candidates: Sequence, *, retries: int = 0) -> tuple:
     """``(path, step)`` of the candidate with the highest peekable
     ``global_step`` (``(None, None)`` when none is loadable). Imports the
     checkpoint module lazily: the supervisor itself must not pay (or
-    depend on) the torch import."""
+    depend on) the torch import. ``retries`` re-probes an unreadable
+    candidate (elastic supervisors probe checkpoints a PEER may be
+    mid-swap on; a fixed-world supervisor only reads its own)."""
     from ..train.checkpoint import peek_global_step
 
     best, best_step = None, None
     for cand in candidates:
-        step = peek_global_step(cand)
+        step = peek_global_step(cand, retries=retries)
         if step is not None and (best_step is None or step > best_step):
             best, best_step = cand, step
     return best, best_step
@@ -553,16 +926,18 @@ def supervise_cli(params, argv: Sequence[str]) -> int:
 
     Resumes each attempt from the newest of ``interrupt.ch`` / ``last.ch``
     in the experiment directory (emergency checkpoints win when they are
-    ahead, which they are after a mid-epoch preemption). Each child
-    inherits the argv minus ``--supervise`` (``--device`` included) and
-    ``MLRT_SUPERVISED=1``. ``--elastic`` is refused before this runs
-    (``config.parser.check_train_flags``).
+    ahead, which they are after a mid-epoch preemption). With
+    ``--elastic on`` this becomes one host's member of a coordinated pod
+    (see :class:`ElasticSupervisor`); the default path is byte-identical
+    to fixed-world supervision and never touches the coordination dir.
     """
     exp_dir = os.path.join(os.fspath(params.dump_dir), params.experiment_name)
     candidates = [
         os.path.join(exp_dir, "interrupt.ch"),
         os.path.join(exp_dir, "last.ch"),
     ]
+    if getattr(params, "elastic", "off") != "off":
+        return _supervise_elastic(params, argv, exp_dir, candidates)
 
     def progress() -> Optional[int]:
         return newest_checkpoint(candidates)[1]
@@ -578,7 +953,8 @@ def supervise_cli(params, argv: Sequence[str]) -> int:
             + "."
         )
         return subprocess.Popen(
-            [sys.executable, "-m", "ml_recipe_tpu_torch.cli.train", *child_argv],
+            [sys.executable, "-m", "ml_recipe_tpu_torch.cli.train",
+             *child_argv],
             env=env,
         )
 
@@ -599,3 +975,82 @@ def supervise_cli(params, argv: Sequence[str]) -> int:
         ),
     ).run()
     return result.exit_code
+
+
+def _supervise_elastic(
+    params, argv: Sequence[str], exp_dir: str, candidates: Sequence[str]
+) -> int:
+    """One host's member of the coordinated elastic pod (``--elastic on``).
+
+    Differences from fixed-world supervision, and nothing else:
+
+    - a :class:`~.coordination.PodCoordinator` under ``<exp_dir>/pod/``
+      publishes this host's heartbeat and reads the peers';
+    - every child is launched with ``MLRT_HOST`` (host-scoped fault specs)
+      and ``MLRT_ELASTIC_WORLD=<size>:<rank>`` for the CURRENT live world,
+      so after a host loss the survivors re-form a smaller pod and the
+      child re-derives its mesh from the live processes
+      (``ParallelPlan.elastic_from_spec``);
+    - checkpoint probes retry a couple of times: a PEER host may be
+      mid-swap on the shared checkpoint this host is peeking at;
+    - only host 0 appends supervisor events to the goodput ledger (same
+      process-0-only discipline as the training-side ledger writer), and
+      each host keeps its own sidecar (host 0 owns the canonical name).
+    """
+    host = max(int(getattr(params, "local_rank", 0) or 0), 0)
+    n_hosts = max(int(getattr(params, "dist_world_size", 1) or 1), 1)
+    coordinator = PodCoordinator(
+        os.path.join(exp_dir, COORD_DIRNAME), host=host, n_hosts=n_hosts
+    )
+
+    def progress() -> Optional[int]:
+        return newest_checkpoint(candidates, retries=2)[1]
+
+    sup_holder: List[ElasticSupervisor] = []
+
+    def launch(attempt_i: int):
+        world = sup_holder[0].world
+        resume, step = newest_checkpoint(candidates, retries=2)
+        child_argv = build_child_argv(argv, resume=resume)
+        env = dict(os.environ)
+        env[SUPERVISED_ENV] = "1"
+        env[HOST_ENV] = str(host)
+        env[ELASTIC_WORLD_ENV] = f"{world['size']}:{world['rank']}"
+        logger.warning(
+            f"SUPERVISOR[elastic h{host}]: launching attempt {attempt_i + 1} "
+            f"generation {world['generation']} as rank {world['rank']}/"
+            f"{world['size']} (live hosts {world['hosts']})"
+            + (f", resuming {resume} (step {step})" if resume else ", fresh")
+            + "."
+        )
+        return subprocess.Popen(
+            [sys.executable, "-m", "ml_recipe_tpu_torch.cli.train",
+             *child_argv],
+            env=env,
+        )
+
+    from ..metrics.goodput import GOODPUT_FILENAME
+
+    state_name = (
+        STATE_FILENAME if host == 0 else f"supervisor_state_h{host}.json"
+    )
+    sup = ElasticSupervisor(
+        launch,
+        coordinator=coordinator,
+        host_timeout=getattr(params, "host_timeout", 60.0),
+        poll_interval=getattr(params, "coord_poll", 2.0),
+        min_world=getattr(params, "min_world", 1),
+        progress=progress,
+        policy=_policy_from_params(params),
+        state_path=os.path.join(exp_dir, state_name),
+        ledger_path=(
+            os.path.join(exp_dir, GOODPUT_FILENAME)
+            if host == 0 and getattr(params, "goodput_ledger", False)
+            else None
+        ),
+        flight_dir=(
+            exp_dir if getattr(params, "flight_recorder", False) else None
+        ),
+    )
+    sup_holder.append(sup)
+    return sup.run().exit_code

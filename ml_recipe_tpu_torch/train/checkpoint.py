@@ -74,6 +74,7 @@ from __future__ import annotations
 import logging
 import os
 import shutil
+import time
 import zlib
 from typing import NamedTuple, Optional, Tuple
 
@@ -452,12 +453,42 @@ def save_state_dict_sharded(path, *, model: nn.Module, optimizer=None,
         process_count=process_count))
 
 
-def peek_global_step(path) -> Optional[int]:
+def peek_global_step(path, *, retries: int = 0,
+                     retry_delay: float = 0.05) -> Optional[int]:
     """``global_step`` of the checkpoint at ``path`` (either layout) without
     restoring any state, or None when there is no readable checkpoint
     there. The supervisor's progress probe: it rolls an interrupted swap
     forward or back first (as a load would) and treats any unreadable or
-    torn checkpoint as absent rather than raising."""
+    torn checkpoint as absent rather than raising. ``retries`` re-probes
+    after ``retry_delay`` when a read comes back None: an elastic
+    supervisor peeks checkpoints a peer host may be swapping."""
+    step = _peek_global_step_once(path)
+    for _ in range(max(0, int(retries))):
+        if step is not None:
+            break
+        time.sleep(retry_delay)
+        step = _peek_global_step_once(path)
+    return step
+
+
+def peek_mesh_axes(path) -> Optional[dict]:
+    """The ``mesh_axes`` a sharded directory's manifest records (the saver's
+    mesh), or None for a single file, an absent or unreadable checkpoint,
+    or a manifest without them. Reads only the manifest."""
+    manifest_path = os.path.join(os.fspath(path), MANIFEST)
+    if not os.path.isfile(manifest_path):
+        return None
+    try:
+        with open(manifest_path, "rb") as fh:
+            extra = unpackb(fh.read()).get("extra") or {}
+    except Exception as e:  # noqa: BLE001 - a torn manifest names no mesh
+        logger.warning(f"Could not peek mesh_axes from {path}: {e!r}")
+        return None
+    axes = extra.get("mesh_axes")
+    return dict(axes) if axes else None
+
+
+def _peek_global_step_once(path) -> Optional[int]:
     path = os.fspath(path)
     if not os.path.exists(path):
         _recover_interrupted_swap(path, path + ".saving", path + ".old")

@@ -57,6 +57,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.convert import from_jax_params, jax_path, to_jax_params
 from ..parallel.sharding import Zero1
@@ -138,6 +139,30 @@ def clip_by_global_norm_(grads: List[torch.Tensor],
     return norm
 
 
+@torch.no_grad()
+def clip_sliced_(grads: Dict[str, torch.Tensor], zero: Zero1,
+                 max_norm: float) -> torch.Tensor:
+    """:func:`clip_by_global_norm_` of the whole gradient on a ZeRO-1 rank
+    that holds, by name, its padded slices of the sharded leaves and the
+    whole other leaves (the bucketed exchange's result): the slices' sum of
+    squares is summed over the ``data`` group (the pad region is zeros),
+    the whole leaves' added once. Scales ``grads`` in place; returns the
+    f32 global norm."""
+    sliced = [g for n, g in grads.items() if zero.sharded(n)]
+    whole = [g for n, g in grads.items() if not zero.sharded(n)]
+    device = next(iter(grads.values())).device
+    sq = torch.zeros(1, dtype=torch.float32, device=device)
+    if sliced:
+        sq += torch.stack(torch._foreach_norm(sliced)).square().sum()
+    dist.all_reduce(sq, op=dist.ReduceOp.SUM, group=zero.group)
+    if whole:
+        sq += torch.stack(torch._foreach_norm(whole)).square().sum()
+    norm = sq.sqrt()[0]
+    scale = max_norm / torch.clamp(norm, min=max_norm)
+    torch._foreach_mul_(list(grads.values()), scale)
+    return norm
+
+
 def _update_moments(mus: List[torch.Tensor], nus: List[torch.Tensor],
                     gs: List[torch.Tensor], b1: float, b2: float) -> None:
     """Both chains' moments, in place, in their rounding:
@@ -178,12 +203,14 @@ class _Chain:
         """This rank's part of a whole tensor of parameter ``name``."""
         return t if self.zero is None else self.zero.local(name, t)
 
-    def _views(self, grads: Dict[str, torch.Tensor]):
+    def _views(self, grads: Dict[str, torch.Tensor], local: bool = False):
         """``(names, params, grads)`` the chain updates: the parameters
-        themselves, or under ZeRO-1 copies of this rank's slices."""
+        themselves, or under ZeRO-1 copies of this rank's slices (with
+        ``local``, ``grads`` already holds this rank's parts)."""
         names = list(self.params)
         return (names, [self._local(n, self.params[n].detach()) for n in names],
-                [self._local(n, grads[n]) for n in names])
+                [grads[n] if local else self._local(n, grads[n])
+                 for n in names])
 
     def _publish(self, names, ps) -> None:
         """Under ZeRO-1, every rank's updated slices into the whole
@@ -306,11 +333,13 @@ class AdamW(_Chain):
         self.schedule_count = 0  # ScaleByScheduleState.count
 
     @torch.no_grad()
-    def step(self, grads: Dict[str, torch.Tensor]) -> float:
-        """Apply one update from ``grads`` (f32, by name); returns the lr
-        it applied."""
+    def step(self, grads: Dict[str, torch.Tensor],
+             local: bool = False) -> float:
+        """Apply one update from ``grads`` (f32, by name; with ``local``,
+        under ZeRO-1, this rank's parts of them); returns the lr it
+        applied."""
         lr = self.lr()
-        names, ps, gs = self._views(grads)
+        names, ps, gs = self._views(grads, local)
         mus = [self.mu[n] for n in names]
         nus = [self.nu[n] for n in names]
 
@@ -376,9 +405,10 @@ class AdaMod(_Chain):
         return self.count
 
     @torch.no_grad()
-    def step(self, grads: Dict[str, torch.Tensor]) -> float:
-        """Apply one update from ``grads`` (f32, by name); returns the lr
-        it applied."""
+    def step(self, grads: Dict[str, torch.Tensor],
+             local: bool = False) -> float:
+        """Apply one update from ``grads`` (f32, by name; ``local`` as in
+        :meth:`AdamW.step`); returns the lr it applied."""
         lr = self.lr()
         f32 = np.float32
         t = f32(self.count + 1)
@@ -386,7 +416,7 @@ class AdaMod(_Chain):
         bias1 = f32(1) - f32(self.b1) ** t
         bias2 = f32(1) - f32(self.b2) ** t
         step_scale = float(f32(lr) * np.sqrt(bias2) / bias1)
-        names, ps, gs = self._views(grads)
+        names, ps, gs = self._views(grads, local)
         ms = [self.exp_avg[n] for n in names]
         vs = [self.exp_avg_sq[n] for n in names]
         es = [self.exp_avg_lr[n] for n in names]

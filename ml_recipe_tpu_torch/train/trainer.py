@@ -88,7 +88,16 @@ ZeRO-1 (``optimizer_sharding='zero1'``, active when D > 1, as the JAX
 trainer's ``zero_enabled``): the optimizer keeps the moments of this
 rank's padded slice of each planned parameter (``train/optim.py``), after
 the same all-reduce and clip, and all-gathers the updated slices over
-``data``. Checkpoints record ``opt_sharding`` ``'zero1'`` (only then) and
+``data``. With ``zero1_overlap='bucketed'`` the all-reduce becomes
+``zero1_bucket_count`` reduce-scatters of about ``zero1_bucket_mb`` each,
+over the JAX package's leaf order, each issued as soon as the last
+micro-batch's backward has produced every gradient in it
+(``parallel.collectives.BucketedExchange``); every rank then holds the sum
+of its slices and of the whole leaves, the global-norm clip runs over the
+whole gradient from them (one all-reduced scalar), and the optimizer
+updates the slices it got. Bucketing is inert, and logged so, without an
+active ZeRO-1 layout (off, or a data axis of 1) and on a ``seq`` mesh.
+Checkpoints record ``opt_sharding`` ``'zero1'`` (only then) and
 the mesh's axes as ``mesh_axes``, and hold the padded moments the JAX
 trainer writes at the same mesh: the single file gathers them (every
 process takes part, rank 0 writes), the sharded directory has each
@@ -132,9 +141,16 @@ without it. With several processes the ranks all-reduce the largest need
 and so take one decision. ``preflight_probes`` counts the probes (each
 launches the kernels of one training micro-batch).
 
+A restore from a sharded checkpoint saved under another mesh warns
+("ELASTIC RESUME / topology change") and records ``mesh_shrunk`` in the
+flight recorder (``_warn_topology_change``). ``in_step`` is True from the
+start of an optimizer step to its end; a SIGTERM handler that finds it set
+sets ``interrupt_pending``, and the loop raises ``KeyboardInterrupt`` at
+the step's end (``cli/train.py``).
+
 Left out (their flags are refused by ``config.parser.check_train_flags``,
 or accepted and ignored where they change no result): pipeline and tensor
-parallelism, ``--zero1_overlap bucketed`` and the elastic supervisor.
+parallelism.
 """
 
 from __future__ import annotations
@@ -175,14 +191,20 @@ from ..parallel import collectives
 from ..parallel import dist as pdist
 from ..parallel.mesh import build_mesh
 from ..parallel.plan import ParallelPlan
-from ..parallel.sharding import MIN_SIZE, Zero1, opt_state_bytes_per_chip
+from ..parallel.sharding import (
+    MIN_SIZE,
+    Zero1,
+    opt_state_bytes_per_chip,
+    tree_order,
+    zero1_bucket_plan,
+)
 from ..resilience.checkpoint_async import AsyncCheckpointer
 from ..resilience.faults import fire as _fault
 from ..utils import hbm
 from . import checkpoint as ckpt
 from . import loss_scale as ls_lib
 from .callback import TestCallback
-from .optim import build_optimizer, clip_by_global_norm_
+from .optim import build_optimizer, clip_by_global_norm_, clip_sliced_
 from .writer import init_writer
 
 logger = logging.getLogger(__name__)
@@ -278,6 +300,8 @@ class Trainer:
         mesh=None,
         optimizer_sharding: str = "off",
         zero_min_size: int = MIN_SIZE,
+        zero1_overlap: str = "off",
+        zero1_bucket_mb: float = 4.0,
         watchdog=None,
         telemetry=None,
         trace_dir=None,
@@ -332,6 +356,17 @@ class Trainer:
                              f"got {optimizer_sharding!r}")
         self.opt_sharding_mode = optimizer_sharding
         self.zero_min_size = int(zero_min_size)
+        # validated here: a typo must fail, not silently train monolithic
+        mode = str(zero1_overlap or "off").strip().lower()
+        if mode not in ("off", "bucketed"):
+            raise ValueError(f"zero1_overlap must be 'off' or 'bucketed', "
+                             f"got {zero1_overlap!r}")
+        self.zero1_overlap = mode
+        self.zero1_bucket_mb = float(zero1_bucket_mb)
+        self.zero1_bucket_count = 0   # set when the exchange is built
+        self._exchange: Optional[collectives.BucketedExchange] = None
+        self.in_step = False
+        self.interrupt_pending = False
         if train_dataset is not None and (
                 train_batch_size % world
                 or (train_batch_size // world) % batch_split):
@@ -447,10 +482,9 @@ class Trainer:
                 logger.info("Loss scaling enabled: %s.", "dynamic"
                             if self.loss_scale.dynamic else self.loss_scale.scale)
 
+        buckets = self._build_exchange(model)
         if self.telemetry is not None:
-            # no bucketed ZeRO-1 overlap plan: --zero1_overlap bucketed is
-            # refused, so the exchange is monolithic (0 buckets)
-            self.telemetry.observe_zero1_buckets([])
+            self.telemetry.observe_zero1_buckets(buckets)
 
         self.global_step = 0
         self.writer = init_writer(self.is_primary, writer_dir)
@@ -487,6 +521,38 @@ class Trainer:
         return Zero1(plan, index=self.mesh.data_index,
                      size=self.plan.data_size, group=self.mesh.data_group,
                      owner=self.mesh.seq_index == 0)
+
+    def _build_exchange(self, model) -> list:
+        """The bucketed ZeRO-1 exchange of ``zero1_overlap='bucketed'``
+        where it applies (the JAX trainer's three inert cases, logged as it
+        logs them); returns its bucket plan (empty when inert or off)."""
+        if self.zero1_overlap != "bucketed":
+            return []
+        if self.optimizer is None or self.optimizer.zero is None:
+            logger.info("zero1_overlap=bucketed without an active zero1 "
+                        "layout (--optimizer_sharding off or a data axis "
+                        "of 1): nothing to bucket; the monolithic step runs "
+                        "unchanged.")
+            return []
+        if self.seq_size > 1:
+            logger.info("zero1_overlap=bucketed on a seq mesh: each rank's "
+                        "gradient sums over the whole world, seq included, "
+                        "in one exchange; bucketing is inert.")
+            return []
+        named = dict(model.named_parameters())
+        names = tree_order(named)
+        buckets = zero1_bucket_plan(((n, named[n].shape) for n in names),
+                                    bucket_mb=self.zero1_bucket_mb)
+        zero = self.optimizer.zero
+        self._exchange = collectives.BucketedExchange(
+            [(n, named[n], zero.plan[n]) for n in names], buckets,
+            index=zero.index, size=zero.size, group=zero.group)
+        self.zero1_bucket_count = len(buckets)
+        logger.info("ZeRO-1 overlap: %d gradient bucket(s) at ~%.1f MB "
+                    "target (per-bucket reduce-scatter, issued as the last "
+                    "micro-batch's backward fills each).", len(buckets),
+                    self.zero1_bucket_mb)
+        return buckets
 
     def _resolve_packing(self, sequence_packing, pack_splitting,
                          length_buckets) -> bool:
@@ -901,6 +967,7 @@ class Trainer:
                 [self.loss.denominators(t) for t in labels_of]),
                 self.mesh.data_group)
         scale = self.loss_scale
+        exchange = self._exchange
         summed: Dict[str, torch.Tensor] = {}
         for i, gen in enumerate(gens):
             rows_i = slice(i * micro, (i + 1) * micro)
@@ -915,33 +982,52 @@ class Trainer:
                 total = total / S
             if scale is not None:
                 total = ls_lib.scale_loss(total, scale)
+            if exchange is not None and i == len(gens) - 1:
+                exchange.arm()
             total.backward()
             for k, v in values.items():
                 v = v.detach().float() / S
                 summed[k] = summed[k] + v if k in summed else v
 
-        if self.process_count > 1:
+        if exchange is not None:
+            # this rank's slices and the whole leaves, summed over data
+            reduced = exchange.finish()
+            grads = {n: reduced[n] for n in params}
+        elif self.process_count > 1:
             collectives.all_reduce_gradients(params.items())
+        if self.process_count > 1:
             keys = list(summed)
             reduced = collectives.all_reduce_sum_(
                 torch.stack([summed[k] for k in keys]))
             summed = dict(zip(keys, reduced))
         inv = 1.0 / self.batch_split
-        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
-                 for n, p in params.items()}
+        if exchange is None:
+            grads = {n: (p.grad if p.grad is not None
+                         else torch.zeros_like(p)) for n, p in params.items()}
         torch._foreach_mul_(list(grads.values()), inv)
         finite = True
         if scale is not None:
             # after the all-reduce: every process sees the same flag
             ls_lib.unscale_(list(grads.values()), scale)
             finite = ls_lib.all_finite(list(grads.values()))
+            if exchange is not None:
+                # each rank checked its own slices: agree on the flag
+                flag = collectives.all_reduce_sum_(torch.tensor(
+                    [float(not finite)], device=self.device),
+                    exchange.group)
+                finite = not bool(flag.item())
             lr = self.optimizer.lr()
         else:
             lr = self.optimizer.schedule(self.global_step)
         if finite:
             if self.max_grad_norm is not None and self.max_grad_norm > 0:
-                clip_by_global_norm_(list(grads.values()), self.max_grad_norm)
-            self.optimizer.step(grads)
+                if exchange is not None:
+                    clip_sliced_(grads, self.optimizer.zero,
+                                 self.max_grad_norm)
+                else:
+                    clip_by_global_norm_(list(grads.values()),
+                                         self.max_grad_norm)
+            self.optimizer.step(grads, local=exchange is not None)
         out = {k: float(v * inv) for k, v in summed.items()}
         out["lr"] = lr
         if scale is not None:
@@ -1032,6 +1118,7 @@ class Trainer:
                     rows = (placed.meta.segments if packed
                             else int(tensors["inputs"]["input_ids"].shape[0])
                             * self.plan.data_size)   # the global batch's
+                    self.in_step = True
                     values = self.train_step(tensors["inputs"],
                                              tensors["labels"])
                     if instrument:
@@ -1063,11 +1150,18 @@ class Trainer:
                     self.global_step += 1
                     if self.watchdog is not None:
                         self.watchdog.note_progress(self.global_step)
+                    self.in_step = False
+                    if self.interrupt_pending:
+                        self.interrupt_pending = False
+                        raise KeyboardInterrupt(
+                            f"signal deferred to the end of step "
+                            f"{self.global_step - 1}")
                     if self.debug:
                         logger.info("Training was interrupted because of "
                                     "debug mode.")
                         break
             finally:
+                self.in_step = False
                 if prefetcher is not None:
                     prefetcher.close()
                 if window is not None:   # close a window still open
@@ -1291,7 +1385,8 @@ class Trainer:
     def _async_supported(self) -> bool:
         """A sharded save of several processes crosses process barriers,
         which must not run on a background thread beside the step's
-        collectives: it stays synchronous (logged once)."""
+        collectives: it stays synchronous (logged once), the JAX trainer's
+        rule (``ml_recipe_tpu/train/trainer.py`` ``_async_supported``)."""
         if not (self.sharded_checkpoint and self.process_count > 1):
             return True
         if not self._async_fallback_logged:
@@ -1301,9 +1396,8 @@ class Trainer:
                 "multi-process world: the sharded persist crosses process "
                 "barriers, which must not run on a background thread "
                 "concurrently with training collectives — saving "
-                "synchronously instead (async sharded saves across "
-                "processes are not ported yet: ROADMAP.md queue 1, "
-                "'Runtime subsystems').")
+                "synchronously instead, as the JAX trainer does for a "
+                "multi-host sharded checkpoint.")
         return False
 
     def _save_state_dict_async(self, path) -> None:
@@ -1364,6 +1458,28 @@ class Trainer:
             with self._watched("checkpoint persist wait", scale=8.0):
                 self._async_ckpt.wait(raise_errors=raise_errors)
 
+    def _warn_topology_change(self, path) -> None:
+        """Name a topology change at restore time (the JAX trainer's rule):
+        a sharded directory saved under another mesh (its manifest's
+        ``mesh_axes``) is restored onto the live one loudly, and recorded
+        as ``mesh_shrunk`` in the flight recorder. Single files are not
+        peeked (a full read), as in the JAX trainer."""
+        saved = ckpt.peek_mesh_axes(path)
+        live = self.plan.describe()
+        if not saved or saved == live:
+            return
+        logger.warning(
+            f"ELASTIC RESUME / topology change: checkpoint {path} was saved "
+            f"under mesh {saved}, restoring onto {live}. Optimizer state is "
+            f"corner-cropped/zero-filled onto the live ZeRO-1 layout; the LR "
+            f"schedule is keyed to the GLOBAL batch and global_step, so it "
+            f"continues unchanged — at a smaller data axis each step "
+            f"consumes the same global batch over fewer devices (slower "
+            f"wall-clock, identical math).")
+        flightrec = getattr(self.telemetry, "flightrec", None)
+        if flightrec is not None:
+            flightrec.record("mesh_shrunk", old=saved, new=live)
+
     def load_state_dict(self, path) -> None:
         """Restore a checkpoint of either layout and either package: the
         weights, and unless ``drop_optimizer`` the optimizer state and the
@@ -1383,6 +1499,7 @@ class Trainer:
         if restored is None:
             return
         self.global_step = restored.global_step
+        self._warn_topology_change(path)
         live = self.loss_scale
         if live is not None and restored.loss_scale is not None:
             saved = ls_lib.LossScaleState.from_state_dict(restored.loss_scale)

@@ -417,27 +417,37 @@ def _world_args(tmp_path, *extra):
             "--local_rank", "1", *extra]
 
 
-@pytest.mark.parametrize("extra", [
-    # ZeRO-1, the data and seq axes and the ring are ported
-    # (tests/test_torch_zero1.py, tests/test_torch_sp_train.py): each case
-    # holds what is still refused beside them
-    ["--optimizer_sharding", "zero1", "--zero1_overlap", "bucketed"],
-    ["--shard_optimizer", "--zero1_overlap", "bucketed"],
-    ["--mesh", "data:1,pipe:2"], ["--zero1_overlap", "bucketed"],
-    ["--flash_attention", "ring", "--mesh", "seq:1,model:2"], []], ids=[
+@pytest.mark.parametrize("extra,refused", [
+    # ZeRO-1 and its bucketed overlap (tests/test_torch_zero1.py,
+    # tests/test_torch_zero1_overlap.py), the data and seq axes and the
+    # ring (tests/test_torch_sp_train.py) and the elastic world override
+    # (tests/test_torch_elastic.py) are ported and accepted; the pipe and
+    # model axes are still refused
+    (["--optimizer_sharding", "zero1", "--zero1_overlap", "bucketed"], False),
+    (["--shard_optimizer", "--zero1_overlap", "bucketed"], False),
+    (["--mesh", "data:1,pipe:2"], True), (["--zero1_overlap", "bucketed"], False),
+    (["--flash_attention", "ring", "--mesh", "seq:1,model:2"], True),
+    ([], False)], ids=[
     "zero1", "shard_optimizer", "mesh", "zero1_overlap", "ring", "elastic"])
 def test_data_parallel_refusals_name_their_roadmap_item(tmp_path, monkeypatch,
-                                                        extra):
+                                                        extra, refused):
     _, (params, model_params) = get_params(
         (get_trainer_parser, get_model_parser), _world_args(tmp_path, *extra))
-    if not extra:
-        check_train_flags(params, model_params)   # W = 2 itself is accepted
-        monkeypatch.setenv(pdist.ELASTIC_WORLD_ENV, "2:1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_train_flags(params, model_params)
-    if not extra:
+    if refused:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pdist.initialize_from_params(params)
+            check_train_flags(params, model_params)
+        return
+    check_train_flags(params, model_params)   # W = 2 itself is accepted
+    if not extra:
+        # the elastic supervisor's override: the live world after a host
+        # loss is the one checked and joined; a world of 1 joins nothing,
+        # and a malformed override is a hard error
+        monkeypatch.setenv(pdist.ELASTIC_WORLD_ENV, "1:0")
+        check_train_flags(params, model_params)
+        assert pdist.initialize_from_params(params) is None
+        monkeypatch.setenv(pdist.ELASTIC_WORLD_ENV, "2")
+        with pytest.raises(ValueError, match="malformed"):
+            check_train_flags(params, model_params)
 
 
 def test_world_flags_are_checked(tmp_path):

@@ -75,7 +75,8 @@ def test_no_port_module_imports_jax_or_the_jax_package():
                    "models/hf_convert.py", "train/loss_scale.py",
                    "resilience/__init__.py",
                    "resilience/checkpoint_async.py",
-                   "resilience/supervisor.py", "serve/cache.py",
+                   "resilience/supervisor.py", "resilience/coordination.py",
+                   "serve/cache.py",
                    "metrics/artifacts.py", "metrics/trace.py",
                    "metrics/aggregator.py", "fleet/__init__.py",
                    "fleet/ring.py", "fleet/router.py", "fleet/manager.py",

@@ -199,18 +199,24 @@ def _flags(tmp, *extra, world=2):
         "--local_rank", "0", *extra])[1]
 
 
-@pytest.mark.parametrize("extra", [
-    ["--mesh", "data:1,seq:2,model:1"], ["--mesh", "pipe:2"],
-    ["--zero1_overlap", "bucketed"]], ids=["model", "pipe", "zero1_overlap"])
-def test_longdoc_flags_accepted_and_the_rest_refused(tmp_path, extra):
+@pytest.mark.parametrize("extra,refused", [
+    (["--mesh", "data:1,seq:2,model:1"], True), (["--mesh", "pipe:2"], True),
+    # accepted: bucketing is inert on a seq mesh (the trainer logs so)
+    (["--zero1_overlap", "bucketed"], False)],
+    ids=["model", "pipe", "zero1_overlap"])
+def test_longdoc_flags_accepted_and_the_rest_refused(tmp_path, extra,
+                                                     refused):
     params, model_params = _flags(tmp_path)
     assert params.mesh == "data:1,seq:2" and params.shard_optimizer
     check_train_flags(params, model_params)
     params, model_params = _flags(tmp_path, "--flash_attention", "ring")
     check_train_flags(params, model_params)
     params, model_params = _flags(tmp_path, *extra)
-    with pytest.raises(NotImplementedError,
-                       match="Parallelism beyond data parallelism"):
+    if refused:
+        with pytest.raises(NotImplementedError,
+                           match="Parallelism beyond data parallelism"):
+            check_train_flags(params, model_params)
+    else:
         check_train_flags(params, model_params)
     params, model_params = _flags(tmp_path, world=4)
     with pytest.raises(ValueError, match="needs 2 processes"):

@@ -472,25 +472,28 @@ def test_cli_trains_two_debug_steps_on_the_cpu(tmp_path):
     assert not (exp / "last.ch").exists()   # debug skips checkpoint writes
 
 
-@pytest.mark.parametrize("flag", [
+@pytest.mark.parametrize("flag,refused", [
     # the data and seq axes are ported (tests/test_torch_sp_train.py);
-    # tensor parallelism is not
-    ["--mesh", "data:1,model:2"],
-    # ZeRO-1 across processes is ported (tests/test_torch_zero1.py); its
-    # bucketed overlap is not
-    ["--dist_world_size", "2", "--local_rank", "0", "--optimizer_sharding",
-     "zero1", "--zero1_overlap", "bucketed"],
+    # tensor and pipeline parallelism are not
+    (["--mesh", "data:1,model:2"], True),
+    # ZeRO-1 across processes and its bucketed overlap are ported
+    # (tests/test_torch_zero1.py, tests/test_torch_zero1_overlap.py)
+    (["--dist_world_size", "2", "--local_rank", "0", "--optimizer_sharding",
+      "zero1", "--zero1_overlap", "bucketed"], False),
     # async checkpoints, loss scaling, adamod and fine-tune are ported
     # (test_torch_train_options.py), and so are the runtime subsystems
-    # (test_torch_observability.py, test_torch_resilience.py): their places
-    # hold flags still refused, the elastic supervisor among them
-    ["--elastic", "on"],
-    ["--elastic", "on", "--supervise", "--goodput_ledger"],
-    ["--mesh", "pipe:1"], ["--zero1_overlap", "bucketed"],
+    # (test_torch_observability.py, test_torch_resilience.py), the elastic
+    # supervisor among them (test_torch_elastic.py)
+    (["--elastic", "on"], False),
+    (["--elastic", "on", "--supervise", "--goodput_ledger"], False),
+    (["--mesh", "pipe:1"], True), (["--zero1_overlap", "bucketed"], False),
 ])
-def test_unported_train_flags_raise(tmp_path, flag):
+def test_unported_train_flags_raise(tmp_path, flag, refused):
     _, (params, model_params) = get_params(
         (get_trainer_parser, get_model_parser), _cli_args(tmp_path, *flag))
+    if not refused:
+        check_train_flags(params, model_params)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_train_flags(params, model_params)
 

@@ -28,6 +28,8 @@ rows, in rank order).
 """
 
 import concurrent.futures
+import logging
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -81,7 +83,7 @@ def _assert_same_tree(a, b, atol=None):
             np.testing.assert_allclose(x, y, atol=atol, err_msg=str(path))
 
 
-def _jax_zero1_trainer(tmp, steps):
+def _jax_zero1_trainer(tmp, steps, **trainer_kw):
     tok = JaxTokenizer("bert", str(write_vocab(tmp)), lowercase=True)
     ttok = Tokenizer("bert", str(write_vocab(tmp)), lowercase=True)
     init = to_jax_params(worker.tiny_model(len(ttok), dropout=0.0).state_dict())
@@ -100,7 +102,7 @@ def _jax_zero1_trainer(tmp, steps):
         mesh=mesh, train_batch_size=worker.TRAIN_BATCH, batch_split=1,
         n_jobs=1, warmup_coef=0.0, max_grad_norm=worker.MAX_GRAD_NORM,
         train_weights=weights, debug=True, seed=0, hbm_preflight=False,
-        optimizer_sharding="zero1", zero_min_size=0,
+        optimizer_sharding="zero1", zero_min_size=0, **trainer_kw,
         on_train_metrics=lambda meters, step: steps.append(
             {k: float(v) if k == "lr" else float(v())
              for k, v in meters.items()}))
@@ -185,14 +187,26 @@ def test_checkpoints_cross_both_ways_with_jax(runs):
     assert off["opt_sharding"] == "off"
 
 
-def test_sharded_zero1_checkpoint_reloads_in_one_process(runs, tmp_path):
+def test_sharded_zero1_checkpoint_reloads_in_one_process(runs, tmp_path,
+                                                         caplog):
     trainer = worker.tiny_trainer(tmp_path, dropout=0.0, batch_split=1)
-    trainer.load_state_dict(runs["tmp"] / "zero1" / "port_dir")
+    events = []
+    trainer.telemetry = SimpleNamespace(
+        observe_checkpoint_restore=lambda seconds: None,
+        flightrec=SimpleNamespace(
+            record=lambda kind, **f: events.append((kind, f))))
+    with caplog.at_level(logging.WARNING):
+        trainer.load_state_dict(runs["tmp"] / "zero1" / "port_dir")
     state = trainer.optimizer.flax_state()
     want = runs["port"]["zero1_off"][0]["state"]
     # the padded moments cropped to the parameters: the unsharded run's
     _assert_same_tree(state, want)
     assert trainer.global_step == 2
+    # a restore across meshes is loud and recorded (the JAX trainer's
+    # _warn_topology_change): saved under data:2, restored onto data:1
+    assert "ELASTIC RESUME / topology change" in caplog.text
+    assert events == [("mesh_shrunk", {"old": {"data": 2},
+                                       "new": {"data": 1}})]
 
 
 def test_zero1_ranks_hold_half_the_moments(runs):

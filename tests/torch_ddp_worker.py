@@ -41,7 +41,14 @@
   ``zero_min_size`` 0) / off, dropout 0; then (:func:`run_zero1`) its
   checkpoints, single-file and sharded, and its optimizer state after
   loading each of the JAX package's in ``OUT/jax.ch`` and ``OUT/jax_dir``
-  when they are there.
+  when they are there;
+- ``zero1_bucketed``: ``zero1`` with ``zero1_overlap='bucketed'`` at
+  ``zero1_bucket_mb`` :data:`BUCKET_MB` (a bucket of a few leaves);
+  ``zero1_bucketed_options``: ``trainer_options`` (``batch_split`` 2,
+  dropout 0.1, adamod, dynamic loss scaling) under ZeRO-1, every leaf
+  planned, bucketed likewise. Each also records the exchange's bucket
+  count and, per step, the exchange's ``stats`` (buckets issued while the
+  backward still owed gradients, and the rest; :func:`run_bucketed`).
 
 The tests start the pairs (:func:`run_pairs`) and build the one-process
 oracle (:func:`oracle`) with the same :func:`tiny_trainer`; this module
@@ -338,6 +345,8 @@ def run_zero1(out: Path, rank: int, device: str, mode: str) -> None:
                           optimizer_sharding=mode, zero_min_size=0)
     record = {"opt_bytes": sum(t.numel() * t.element_size() for t in
                                trainer.optimizer.state_tensors()),
+              "buckets": trainer.zero1_bucket_count,
+              "exchange": trainer._exchange is not None,
               "state": trainer.optimizer.flax_state(copy=True)}
     trainer.debug = False
     trainer.save_state_dict(out / "port.ch")
@@ -360,6 +369,36 @@ def run_dead_peer(rank: int) -> None:
 
 
 # -- the test side: the pair of processes and the oracle -----------------------
+
+def run_bucketed(out: Path, rank: int, device: str, mode: str) -> None:
+    """``zero1_bucketed`` / ``zero1_bucketed_options`` (see the module
+    docstring)."""
+    kw = dict(optimizer_sharding="zero1", zero_min_size=0,
+              zero1_overlap="bucketed", zero1_bucket_mb=BUCKET_MB)
+    if mode == "zero1_bucketed":
+        kw.update(dropout=0.0, batch_split=1)
+    else:
+        kw.update(options=OPTIONS)
+    exchange_stats = []
+    step = Trainer.train_step
+
+    def counted(self, inputs, labels):
+        values = step(self, inputs, labels)
+        exchange_stats.append(dict(self._exchange.stats))
+        return values
+
+    Trainer.train_step = counted
+    try:
+        trainer = run_trainer(out, rank, device, **kw)
+    finally:
+        Trainer.train_step = step
+    torch.save({"buckets": trainer.zero1_bucket_count,
+                "stats": exchange_stats}, out / f"buckets{rank}.pt")
+
+
+# f32 MB per gradient bucket of the bucketed modes: ~260 f32 elements, so
+# the tiny model's 40 leaves fall into buckets of one to a few leaves
+BUCKET_MB = 0.001
 
 # CPU threads of every process this script starts (see run_pairs)
 CPU_THREADS = 1
@@ -521,6 +560,8 @@ def main(argv) -> None:
         elif mode in ("zero1", "zero1_off"):
             run_zero1(Path(out), rank, device,
                       "zero1" if mode == "zero1" else "off")
+        elif mode in ("zero1_bucketed", "zero1_bucketed_options"):
+            run_bucketed(Path(out), rank, device, mode)
         else:
             raise ValueError(f"unknown mode {mode!r}")
     finally:
