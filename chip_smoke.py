@@ -15,7 +15,10 @@ Phases, each fatal on failure (exit code 1, and no result line):
    memory; the spill bytes of every int8 and LayerNorm kernel (ptxas, fatal
    on any), and the tensor-core and asynchronous-copy instructions of the
    int8 library (``cuobjdump -sass``: fatal without IMMA or IGMMA, or
-   without LDGSTS or UTMALDG);
+   without LDGSTS or UTMALDG); and ``make -C native`` (the C++ tokenizer:
+   ``native/build/`` is git-ignored), fatal unless the tokenizer then
+   loads, so every phase tokenizes in C++ (phases 10, 14 and 19 print the
+   backend);
 2. every kernel against its plain PyTorch version on the card, at the
    shapes the serving and training paths give it (bert-base: 12 heads of
    64), bf16 and f32, with key masks, segments (all-masked pad rows
@@ -192,8 +195,8 @@ Phases, each fatal on failure (exit code 1, and no result line):
     micro-batch and packed eval batch forward, per micro-batch backward),
     ``last.ch`` saved; each step's rows, segments, fragments and pad
     tokens, the packing efficiency beside phase 10's bucketed padding, and
-    the step walls and data waits of both phases (the Python WordPiece on
-    both). The 12 attention calls of the run's first packed micro-batch,
+    the step walls and data waits of both phases (the tokenizer backend
+    printed). The 12 attention calls of the run's first packed micro-batch,
     each on its own q, k, v, segment ids and seeds, kernel against plain
     forward (out, lse) and backward at phase 2's limits, the pad positions
     finite with zero gradients; the segmented pair timed there beside
@@ -248,7 +251,8 @@ Phases, each fatal on failure (exit code 1, and no result line):
     phase (a capture without CUDA activity moves the window to the next
     step; the run fails when every capture came back empty). Then the
     resume drill, on test_bert.cfg copied with ``debug`` and
-    ``drop_optimizer`` off, its dummy datasets cut to RT_DUMMY_LEN items
+    ``drop_optimizer`` off, bert-base cut to RT_DRILL_LAYERS of its layers
+    (``$SMOKE_LAYERS``), its dummy datasets cut to RT_DUMMY_LEN items
     (2 epochs of 2 steps, each ending in ``last.ch``; the observer writes
     no checkpoint copy that nothing reads): a plain
     uninterrupted run; the same resumed by hand from its ``epoch_1.ch``
@@ -303,6 +307,22 @@ Phases, each fatal on failure (exit code 1, and no result line):
     ``mesh_shrunk``; the resumed run's update and last loss within phase
     16's tolerances of the same resume by hand in one process; both
     attempts launching the attention and LayerNorm kernels.
+19. pipeline parallelism (``phase_pipeline``): ``config/test_bert.cfg``'s
+    2 debug steps with ``--ln_impl fused`` and dropout 0 as two gloo ranks
+    of the CLI on ``--mesh pipe:2`` (stage 0 the embeddings and layers
+    0..5, stage 1 layers 6..11 and the heads), on GPipe and then on 1F1B,
+    and in this process at ``data:1``: each rank's launches equal its
+    stage's path (6 attention and 13 or 12 LayerNorm launches per
+    micro-batch and eval batch forward, as many backward per
+    micro-batch), GPipe and 1F1B within PP_SCHEDULE_TOL, pipe:2 against
+    one process within PP_LOSS_REL_TOL and PP_UPDATE_REL_TOL; per rank
+    the step walls, the stage transport's sends, bytes and seconds, the
+    measured (a step's share waiting on the other stage) and the modeled
+    bubble, peak CUDA memory and the parameter and moment bytes. Then
+    ``--mesh data:2,pipe:2 --optimizer_sharding zero1
+    --sharded_checkpoint`` as four ranks for one debug step and its save,
+    which must peek as the stage layout with 4-way pieces and reload in
+    one process bit for bit.
 
 It then prints one ``{"kernels": [...]}`` line (the attention kernels'
 lines carry the tensor-core kernels' resources and every timed shape's
@@ -461,6 +481,50 @@ def fail(msg: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def start_native_build():
+    """``make -C native`` started (the C++ tokenizer and coordination
+    helper; ``native/build/`` is git-ignored, so a checkout has none), to
+    run beside the kernels' build: ``(process, log file)``."""
+    import shutil
+    import tempfile
+
+    log = tempfile.TemporaryFile("w+")
+    if shutil.which("make"):
+        cmd = ["make", "-C", str(REPO / "native")]
+    else:   # the Makefile's rules, for a machine without make
+        cxx = "g++ -O2 -std=c++17 -fPIC -Wall"
+        cmd = ["sh", "-c", f"mkdir -p build && {cxx} -shared -o "
+               f"build/libqatok.so qatok/wordpiece.cc qatok/bpe.cc && {cxx} "
+               f"-shared -o build/libqacoord.so coord/coord.cc && {cxx} "
+               f"-DQACOORD_MAIN -o build/qacoord coord/coord.cc"]
+    return subprocess.Popen(cmd, cwd=str(REPO / "native"), stdout=log,
+                            stderr=subprocess.STDOUT, text=True), log
+
+
+def finish_native_build(started, t0: float) -> None:
+    """Wait for :func:`start_native_build`; fails unless the C++ tokenizer
+    then loads, so every phase tokenizes in C++."""
+    proc, log = started
+    try:
+        rc = proc.wait(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "a timeout"
+    log.seek(0)
+    out = log.read()
+    log.close()
+    if rc != 0:
+        fail(f"the native build ended with {rc}: {out[-2000:]}")
+    from ml_recipe_tpu_torch.tokenizer import native as native_tok
+
+    say(f"native build: {' '.join(proc.args)} done "
+        f"{time.perf_counter() - t0:.1f}s into the smoke (beside the kernel "
+        f"build); the C++ tokenizer loads: {native_tok.available()}")
+    if not native_tok.available():
+        fail("the native tokenizer did not load after its build")
 
 
 def card_peaks(name: str) -> dict:
@@ -1581,10 +1645,12 @@ def _train_flags(cfg_path: Path, extra=()):
     from ml_recipe_tpu_torch.tokenizer import write_synthetic_bert_vocab
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    vocab = write_synthetic_bert_vocab(OUT_DIR / "vocab.txt")
+    vocab = OUT_DIR / "vocab.txt"
+    if not vocab.exists():   # rank processes may be reading it (phase 19)
+        write_synthetic_bert_vocab(vocab)
     _, (params, model_params) = get_params(
         (get_trainer_parser, get_model_parser),
-        ["-c", str(cfg_path), "--vocab_file", vocab,
+        ["-c", str(cfg_path), "--vocab_file", str(vocab),
          "--dump_dir", str(OUT_DIR / "results"), *extra])
     params.n_jobs = max(1, min(params.n_jobs, (os.cpu_count() or 2) // 2))
     return params, model_params
@@ -2318,8 +2384,8 @@ def phase_nq_training(torch, nq):
     pad_share = (loader.epoch_stats or {}).get("padding_waste_pct")
     say(f"nq training: data wait seconds before each step "
         f"{[round(w, 3) for w in trainer.data_waits]}; the last epoch's "
-        f"bucketed batches {pad_share}% padding (Python WordPiece: the "
-        f"native tokenizer is not built on this machine)")
+        f"bucketed batches {pad_share}% padding (tokenizer backend "
+        f"{trainer.collate_fun.keywords['tokenizer'].backend})")
     say(f"nq training: launch counts {launched}, expected {want} ({layers} x "
         f"({micro} micro-batches + {trainer.eval_batches} eval batches) "
         f"forward, {layers} x {micro} backward)")
@@ -2927,7 +2993,8 @@ def phase_packed_training(torch, nq, nq_train=None):
         f"seconds before each step {[round(w, 3) for w in waits]} (phase "
         f"10: walls {None if nq_train is None else [round(x, 3) for x in nq_train.step_walls]}, "
         f"waits {None if nq_train is None else [round(w, 3) for w in nq_train.data_waits]}; "
-        f"Python WordPiece on both); loss "
+        f"tokenizer backend "
+        f"{trainer.collate_fun.keywords['tokenizer'].backend}); loss "
         f"{[round(h['loss'], 4) for h in trainer.history]}; planned "
         f"{trainer.planned_steps_per_epoch} steps/epoch in "
         f"{trainer.plan_seconds:.1f}s ({len(metas or ())} item metas of "
@@ -3431,11 +3498,11 @@ def _capture_pre_clip_grads(torch, store: dict) -> None:
 
     clip = trainer_module.clip_by_global_norm_
 
-    def capture(tensors, max_norm):
+    def capture(tensors, max_norm, **kw):
         if "grads" not in store:
             store["grads"] = torch.cat(
                 [g.detach().float().reshape(-1) for g in tensors]).cpu()
-        return clip(tensors, max_norm)
+        return clip(tensors, max_norm, **kw)
 
     trainer_module.clip_by_global_norm_ = capture
 
@@ -5046,6 +5113,10 @@ RT_UPDATE_REL_TOL = 1e-2
 # and 32 eval batches of 16, so each epoch ends in its checkpoints
 RT_DUMMY_LEN = 512
 RT_RESUME_STEP = 2              # the step of epoch 1's checkpoints
+# the resume drill's depth: bert-base widths, 4 of its 12 layers (what a
+# resume carries and replays does not depend on the depth; phase 16's
+# instrumented run and phase 18 keep all 12)
+RT_DRILL_LAYERS = 4
 # the profiler window's kernels, by the words in their names: one kernel
 # of each per wrapper launch (a backward attention launch runs its row
 # term, dk/dv and dq kernels: dq counts it; a LayerNorm backward launch its
@@ -5065,7 +5136,8 @@ RT_TRACE_KERNELS = {"fused_attention_fwd": ("fused_attention_fwd", None),
 # $SMOKE_SAVES (comma-separated file names) it writes only the checkpoints
 # of those names: the ones a run resumes (last.ch, and plain's
 # epoch_1.ch), not the copies nothing reads (a bert-base save with its
-# moments takes seconds); with $SMOKE_GLOO a world of
+# moments takes seconds); with $SMOKE_LAYERS every QAModel is built with
+# that many encoder layers (the widths kept); with $SMOKE_GLOO a world of
 # several ranks joins over gloo (two ranks share the one card, where NCCL
 # refuses a device twice, as phase 11's workers join). It then imports the next sitecustomize on the path,
 # if there is one.
@@ -5138,6 +5210,20 @@ if _OUT:
     _trainer.Trainer.close = _observed_close
     _trainer.Trainer.save_state_dict = _observed_save
 
+    _layers = int(os.environ.get("SMOKE_LAYERS") or 0)
+    if _layers:
+        import dataclasses
+
+        from ml_recipe_tpu_torch.models import qa_model as _qa
+
+        _qa_init = _qa.QAModel.__init__
+
+        def _shallow_init(self, cfg, *args, **kwargs):
+            _qa_init(self, dataclasses.replace(cfg, num_layers=_layers),
+                     *args, **kwargs)
+
+        _qa.QAModel.__init__ = _shallow_init
+
     _cap = int(os.environ.get("SMOKE_DUMMY_LEN") or 0)
     if _cap:
         _dummy_init = _datasets.DummyDataset.__init__
@@ -5162,18 +5248,22 @@ finally:
 """
 
 
-def _rt_env(run: Path, dummy_len: int = 0, saves: str = None) -> dict:
+def _rt_env(run: Path, dummy_len: int = 0, saves: str = None,
+            layers: int = 0) -> dict:
     """A fresh ``run`` directory (an earlier run's checkpoints or fault
     markers would change what this one does) and the environment of its
     CLI: the observer's site directory and the repo on PYTHONPATH, its
     records going to ``run/observed``, the dummy datasets cut to
-    ``dummy_len`` items and the checkpoints written cut to ``saves`` when
-    they are set."""
+    ``dummy_len`` items, the checkpoints written cut to ``saves`` and the
+    encoder cut to ``layers`` when they are set."""
     import shutil
 
     site = RT_DIR / "site"
     site.mkdir(parents=True, exist_ok=True)
-    (site / "sitecustomize.py").write_text(RT_OBSERVER)
+    observer = site / "sitecustomize.py"
+    # written once: runs that start beside each other import it meanwhile
+    if not observer.exists() or observer.read_text() != RT_OBSERVER:
+        observer.write_text(RT_OBSERVER)
     shutil.rmtree(run, ignore_errors=True)
     out = run / "observed"
     out.mkdir(parents=True)
@@ -5186,6 +5276,8 @@ def _rt_env(run: Path, dummy_len: int = 0, saves: str = None) -> dict:
         env["SMOKE_DUMMY_LEN"] = str(dummy_len)
     if saves:
         env["SMOKE_SAVES"] = saves
+    if layers:
+        env["SMOKE_LAYERS"] = str(layers)
     return env
 
 
@@ -5308,6 +5400,38 @@ def _rel(a, b) -> float:
     return ((a - b).norm() / b.norm()).item()
 
 
+def _rt_plain_and_untraced(cmd, instruments, plain_dir: Path,
+                           untraced_dir: Path):
+    """The resume drill's plain run, then untraced from its ``epoch_1.ch``
+    (:func:`phase_runtime`); fails unless they took 2 epochs of 2 steps."""
+    import shutil
+
+    plain = _rt_run(cmd, ["--dump_dir", plain_dir / "results"],
+                    _rt_env(plain_dir, RT_DUMMY_LEN, "last.ch,epoch_1.ch",
+                            RT_DRILL_LAYERS),
+                    plain_dir / "cli.log", "plain")
+    # only epoch_1.ch is read again: the disk holds one run's checkpoints
+    for ckpt in (plain_dir / "results" / "test").glob("*.ch"):
+        if ckpt.name != "epoch_1.ch":
+            ckpt.unlink()
+    untraced = _rt_run(cmd, [
+        "--dump_dir", untraced_dir / "results", "--last",
+        plain_dir / "results" / "test" / "epoch_1.ch", "--trace_spans",
+        untraced_dir / "spans", "--metrics_port", _free_port(),
+        *instruments], _rt_env(untraced_dir, RT_DUMMY_LEN, "last.ch",
+                               RT_DRILL_LAYERS),
+        untraced_dir / "cli.log", "untraced")
+    shutil.rmtree(plain_dir / "results", ignore_errors=True)
+    shutil.rmtree(untraced_dir / "results", ignore_errors=True)
+    steps = 2 * RT_DUMMY_LEN // 256     # test_bert.cfg's train_batch_size
+    if (len(plain.record["history"]), plain.record["global_step"],
+            untraced.record["global_step"]) != (
+                steps, steps, RT_RESUME_STEP + steps):
+        fail("runtime phase: the resume drill's runs did not take 2 epochs "
+             "of 2 steps")
+    return plain, untraced
+
+
 def _rt_resume_drill(torch, cmd, instruments) -> dict:
     """Phase 16, step 2: the resume drill of ``cmd`` (a train CLI command
     on :func:`_rt_resume_cfg`'s copy), its dummy datasets cut to
@@ -5319,30 +5443,9 @@ def _rt_resume_drill(torch, cmd, instruments) -> dict:
         read_ledger, summarize_events)
 
     plain_dir, untraced_dir = RT_DIR / "plain", RT_DIR / "untraced"
-    plain = _rt_run(cmd, ["--dump_dir", plain_dir / "results"],
-                    _rt_env(plain_dir, RT_DUMMY_LEN, "last.ch,epoch_1.ch"),
-                    plain_dir / "cli.log", "plain")
-    # only epoch_1.ch is read again: the disk holds one run's checkpoints
-    for ckpt in (plain_dir / "results" / "test").glob("*.ch"):
-        if ckpt.name != "epoch_1.ch":
-            ckpt.unlink()
-    untraced = _rt_run(cmd, [
-        "--dump_dir", untraced_dir / "results", "--last",
-        plain_dir / "results" / "test" / "epoch_1.ch", "--trace_spans",
-        untraced_dir / "spans", "--metrics_port", _free_port(),
-        *instruments], _rt_env(untraced_dir, RT_DUMMY_LEN, "last.ch"),
-        untraced_dir / "cli.log", "untraced")
-    shutil.rmtree(plain_dir / "results", ignore_errors=True)
-    shutil.rmtree(untraced_dir / "results", ignore_errors=True)
-    steps = 2 * RT_DUMMY_LEN // 256     # test_bert.cfg's train_batch_size
-    if (len(plain.record["history"]), plain.record["global_step"],
-            untraced.record["global_step"]) != (
-                steps, steps, RT_RESUME_STEP + steps):
-        fail("runtime phase: the resume drill's runs did not take 2 epochs "
-             "of 2 steps")
-
+    # the supervised run needs nothing of the other two: it runs beside them
     sup = RT_DIR / "supervised"
-    env = _rt_env(sup, RT_DUMMY_LEN, "last.ch")
+    env = _rt_env(sup, RT_DUMMY_LEN, "last.ch", RT_DRILL_LAYERS)
     env["MLRT_FAULT_STATE"] = str(sup / "faults")
     log = sup / "cli.log"
     t0 = time.perf_counter()
@@ -5351,7 +5454,14 @@ def _rt_resume_drill(torch, cmd, instruments) -> dict:
         sup / "spans", "--metrics_port", _free_port(), *instruments,
         "--supervise", "--backoff_base", "0.5", "--fault_plan",
         f"trainer.step:kill@{RT_RESUME_STEP + 1}!once"], env, log)
-    rc = _rt_wait(proc, log, "supervised")
+    try:
+        plain, untraced = _rt_plain_and_untraced(cmd, instruments,
+                                                 plain_dir, untraced_dir)
+        rc = _rt_wait(proc, log, "supervised")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     sup_wall = time.perf_counter() - t0
     exp = sup / "results" / "test"
     sidecar = json.loads((exp / "supervisor_state.json").read_text())
@@ -5434,8 +5544,10 @@ def phase_runtime(torch):
          'trainer.step:kill@3!once'``: the kill ends attempt 1 at epoch
          2's first step, after ``last.ch`` of step RT_RESUME_STEP.
 
-       A resume replays every epoch from the checkpoint's step (as in the
-       JAX package), so it takes 2 steps more than plain: the supervised
+       The supervised run runs beside plain and untraced (it reads
+       nothing of theirs), so their walls are taken beside it. A resume
+       replays every epoch from the checkpoint's step (as in the JAX
+       package), so it takes 2 steps more than plain: the supervised
        run is held against untraced, the same resume by hand from the
        uninterrupted run's checkpoint. Gates: rc 0 after two attempts (a
        crash, then clean), the ledger's attempt 2 resuming step
@@ -5537,7 +5649,9 @@ def phase_runtime(torch):
              for k, r in (("instrumented", inst), ("plain", plain),
                           ("untraced", untraced))}
     say(f"runtime: step walls, s (step 0 carries the kernel libraries' "
-        f"loads; step 1 is steady; instrumented is the debug run of 1): "
+        f"loads; step 1 is steady; instrumented is the debug run of 1 at "
+        f"12 layers; plain and untraced at {RT_DRILL_LAYERS}, beside the "
+        f"supervised run): "
         + ", ".join(f"{k} {v}" for k, v in walls.items())
         + "; step 1 minus plain: "
         + ", ".join(f"{k} {1e3 * (v[1] - walls['plain'][1]):.1f} ms"
@@ -6325,6 +6439,422 @@ def phase_elastic(torch):
             "drill": drill}
 
 
+# -- phase 19: pipeline parallelism ------------------------------------------------
+
+PP_DIR = OUT_DIR / "pipe"
+PP_DEADLINE_S = 600
+# test_bert.cfg at full width (bert-base, 2 debug steps of 256x512 in 8
+# micro-batches of 32x512), the fused LayerNorm, dropout 0: the schedules
+# and the one-process run compute the same function. The two dropout
+# values are written with "=": get_params reads a value token that two
+# flags share as an argument no parser takes
+PP_BASE = ["-c", str(REPO / "config" / "test_bert.cfg"), "--seed", "0",
+           "--ln_impl", "fused", "--hidden_dropout_prob=0",
+           "--attention_probs_dropout_prob=0"]
+# phase 19's runs: (ranks, flags). 19a: pipe:2 on GPipe and on 1F1B; 19b:
+# data:2,pipe:2 with ZeRO-1 for one debug step, then a sharded save
+PP_RUNS = {"gpipe": (2, ["--mesh", "pipe:2"]),
+           "1f1b": (2, ["--mesh", "pipe:2", "--pipe_schedule", "1f1b"]),
+           "zero1": (4, ["--mesh", "data:2,pipe:2", "--optimizer_sharding",
+                         "zero1", "--sharded_checkpoint"])}
+# the worlds the runs take, one after another in each: 19a's two schedules
+# share one pair of processes
+PP_WORLDS = {"schedules": ("gpipe", "1f1b"), "zero1": ("zero1",)}
+PP_STAGE_LN = (13, 12)        # LayerNorms a forward runs on stage 0 and 1
+# GPipe against 1F1B: both run the backwards in micro-batch order, so the
+# steps agree bit for bit under deterministic cuBLAS; the gate allows the
+# f32 rounding of a changed summation order and no more
+PP_SCHEDULE_TOL = 1e-6
+# pipe:2 against one process: the same kernels on the same micro-batches;
+# the clip's norm sums the stages' squares (another order than one
+# process's norm of norms), and Adam carries that rounding into the update
+PP_LOSS_REL_TOL = RT_LOSS_REL_TOL
+PP_UPDATE_REL_TOL = RT_UPDATE_REL_TOL
+
+
+def pp_worker(world_kind: str, rank: int, port: int) -> int:
+    """One rank of phase 19's world ``world_kind`` (PP_WORLDS): joins it on
+    card 0 over gloo, with cuBLAS's deterministic workspace, and runs its
+    runs one after another (:func:`_pp_run_one`)."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import gc
+
+    import torch
+
+    from ml_recipe_tpu_torch.parallel import dist as pdist
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr)
+    _register_kernels()
+    world = PP_RUNS[PP_WORLDS[world_kind][0]][0]
+    torch.cuda.set_device(0)
+    pdist.initialize_distributed(
+        init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank,
+        backend="gloo", device=torch.device("cuda", 0))
+    try:
+        for kind in PP_WORLDS[world_kind]:
+            _pp_run_one(torch, kind, rank, port)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        pdist.shutdown()
+    return 0
+
+
+def _pp_run_one(torch, kind: str, rank: int, port: int) -> None:
+    """One rank of phase 19's ``kind`` run (PP_RUNS) through ``cli.train``'s
+    parse, ``build_trainer`` and ``train``, counts set to 0 just before
+    ``train`` and read just after (less the pre-flight's probes). Each
+    step's wall and stage-transport seconds are kept (the stage's wait
+    share is its measured bubble). Writes ``PP_DIR/<kind>/rank<r>.json``
+    and the parameters it stores (``params<r>.pt``, f32, with those it was
+    built with); ``zero1`` runs one step and then writes its sharded
+    checkpoint, and records each parameter's digest."""
+    from ml_recipe_tpu_torch.cli import train as train_cli
+    from ml_recipe_tpu_torch.config.parser import (
+        get_model_parser, get_params, get_trainer_parser)
+    from ml_recipe_tpu_torch.parallel import pipeline
+    from ml_recipe_tpu_torch.parallel.sharding import opt_state_bytes_per_chip
+
+    world, flags = PP_RUNS[kind]
+    out = PP_DIR / kind
+    out.mkdir(parents=True, exist_ok=True)
+    _, (params, model_params) = get_params(
+        (get_trainer_parser, get_model_parser),
+        [*PP_BASE, *flags, "--vocab_file", str(OUT_DIR / "vocab.txt"),
+         "--dump_dir", str(out / "results"), "--dist_world_size",
+         str(world), "--local_rank", str(rank), "--dist_init_method",
+         f"tcp://127.0.0.1:{port}"])
+    params.n_jobs = max(1, min(params.n_jobs, (os.cpu_count() or 2)
+                               // (2 * world)))
+    trainer = train_cli.build_trainer(params, model_params)
+    if kind == "zero1":
+        trainer.n_epochs = 1
+    lay, stage = trainer.pipe, trainer.mesh.stage
+    tokenizer = trainer.collate_fun.keywords["tokenizer"]
+    built = {n: p.detach().cpu().clone()
+             for n, p in trainer.model.named_parameters()
+             if p.device.type != "meta"}
+    per_step = []
+    step = trainer.train_step
+
+    def timed(inputs, labels):
+        torch.cuda.synchronize()
+        t0, s0 = time.perf_counter(), stage.stats["seconds"]
+        values = step(inputs, labels)
+        torch.cuda.synchronize()
+        per_step.append((time.perf_counter() - t0,
+                         stage.stats["seconds"] - s0))
+        return values
+
+    trainer.train_step = timed
+    probe = _count_probes(trainer)
+    stage.reset()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()               # the main path starts here
+    t0 = time.perf_counter()
+    train_cli.train(trainer, params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()         # the main path ends here
+    peak = torch.cuda.max_memory_allocated()
+    launched = {k: n - probe[k] for k, n in launched.items()}
+    stored = {n: p.detach().cpu() for n, p in
+              trainer.model.named_parameters() if p.device.type != "meta"}
+    record = {
+        "launched": launched, "probe_launches": probe,
+        "preflight_probes": trainer.preflight_probes, "wall": wall,
+        "stage": lay.index, "layers": [lay.lo, lay.hi],
+        "layout": lay.layout, "schedule": trainer.pipe_schedule,
+        "mesh": trainer.plan.describe(),
+        "data_index": trainer.mesh.data_index,
+        "batch_split": trainer.batch_split,
+        "steps": [{k: h[k] for k in ("loss", "lr", "seconds", "rows")}
+                  for h in trainer.history],
+        "step_transport_s": [s for _, s in per_step],
+        "step_walls": [w for w, _ in per_step],
+        "transport": dict(stage.stats),
+        "in_flight": trainer.pipe_runner.in_flight,
+        "modeled_bubble": pipeline.modeled_bubble_fraction(
+            lay.K, trainer.batch_split, trainer.pipe_schedule),
+        "peak_bytes": peak,
+        "param_bytes": sum(p.numel() * p.element_size()
+                           for p in stored.values()),
+        "opt_bytes": opt_state_bytes_per_chip(trainer.optimizer),
+        "eval_batches": trainer.eval_batches,
+        "tokenizer": tokenizer.backend,
+        "device": str(trainer.device),
+    }
+    if kind == "zero1":
+        trainer.debug = False
+        t0 = time.perf_counter()
+        trainer.save_state_dict(out / "ckpt")
+        record["save_seconds"] = time.perf_counter() - t0
+        record["digests"] = {n: _tensor_digest(p) for n, p in stored.items()}
+    elif trainer.mesh.data_index == 0:
+        torch.save({"built": built, "final": stored}, out / f"params{rank}.pt")
+    (out / f"rank{rank}.json").write_text(json.dumps(record))
+
+
+def _tensor_digest(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy()
+                          .tobytes()).hexdigest()
+
+
+def _pp_world(world_kind: str) -> dict:
+    """Phase 19's ranks of ``world_kind`` (PP_WORLDS), started."""
+    world = PP_RUNS[PP_WORLDS[world_kind][0]][0]
+    port = _free_port()
+    return {f"{world_kind} rank {r}": (
+        _spawn(["--pp-worker", world_kind, r, port],
+               PP_DIR / f"{world_kind}{r}.log"),
+        PP_DIR / f"{world_kind}{r}.log") for r in range(world)}
+
+
+def _pp_records(kind: str) -> list:
+    world, _ = PP_RUNS[kind]
+    return [json.loads((PP_DIR / kind / f"rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def _pp_join(procs: dict, deadline: float) -> None:
+    try:
+        _join(procs, deadline, "pipeline")
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _pp_want(rec: dict) -> dict:
+    """A stage's launches on test_bert.cfg's path: its layers' attention
+    (and 13 or 12 LayerNorms: the embeddings' on stage 0) per micro-batch
+    forward and eval batch, the same per micro-batch backward."""
+    layers = rec["layers"][1] - rec["layers"][0]
+    ln = PP_STAGE_LN[rec["stage"]]
+    micro = len(rec["steps"]) * rec["batch_split"]
+    fwd = micro + rec["eval_batches"]
+    return {"fused_attention_fwd": layers * fwd,
+            "fused_attention_bwd": layers * micro,
+            "layer_norm_fwd": ln * fwd, "layer_norm_bwd": ln * micro,
+            "q8_matmul": 0, "q8_quantize": 0}
+
+
+def _pp_print(kind: str, recs: list) -> None:
+    for r, rec in enumerate(recs):
+        tr = rec["transport"]
+        bubble = [round(s / w, 4) for s, w in zip(rec["step_transport_s"],
+                                                  rec["step_walls"])]
+        say(f"pipeline {kind} rank {r} (stage {rec['stage']}, layers "
+            f"{rec['layers'][0]}..{rec['layers'][1] - 1}, {rec['mesh']}, "
+            f"data {rec['data_index']}, {rec['layout']} layout, "
+            f"{rec['schedule']}, gloo on the card, tokenizer "
+            f"{rec['tokenizer']}): {len(rec['steps'])} steps of "
+            f"{rec['batch_split']} micro-batches + {rec['eval_batches']} eval "
+            f"batches in {rec['wall']:.1f}s; step walls "
+            f"{[round(w, 3) for w in rec['step_walls']]} s; stage transport "
+            f"{tr['hops']} sends, {tr['bytes'] / 1e9:.3f} GB sent, "
+            f"{tr['staged_bytes'] / 1e9:.3f} GB staged through host memory, "
+            f"{tr['seconds']:.2f} s in sends and receives (a step's: "
+            f"{[round(s, 3) for s in rec['step_transport_s']]}); measured "
+            f"bubble (a step's share waiting on the other stage) {bubble}, "
+            f"modeled {rec['modeled_bubble']:.4f}; at most "
+            f"{rec['in_flight']} micro-batches in flight; peak CUDA memory "
+            f"{rec['peak_bytes'] / 1e9:.3f} GB; parameters "
+            f"{rec['param_bytes'] / 1e6:.1f} MB, moments "
+            f"{rec['opt_bytes'] / 1e6:.1f} MB on this rank; losses "
+            f"{[s['loss'] for s in rec['steps']]}; launches {rec['launched']}"
+            f" (expected {_pp_want(rec)}; {rec['preflight_probes']} pre-flight"
+            f" probes launched {rec['probe_launches']})")
+
+
+def _pp_check(kind: str, recs: list) -> None:
+    world, _ = PP_RUNS[kind]
+    for rec in recs:
+        layers = rec["layers"][1] - rec["layers"][0]
+        if rec["launched"] != _pp_want(rec):
+            fail(f"pipeline {kind}: launch counts do not match the stage's "
+                 f"path")
+        if rec["preflight_probes"] < 1 or rec["probe_launches"][
+                "fused_attention_bwd"] != layers * rec["preflight_probes"]:
+            fail(f"pipeline {kind}: the pre-flight's probes did not run the "
+                 f"stage's kernels")
+        if rec["transport"]["hops"] < 1 or not all(
+                np.isfinite(s["loss"]) for s in rec["steps"]):
+            fail(f"pipeline {kind}: a stage sent nothing, or a loss is not "
+                 f"finite")
+        if [s["loss"] for s in rec["steps"]] != [s["loss"] for s in
+                                                 recs[0]["steps"]]:
+            fail(f"pipeline {kind}: the ranks logged other losses")
+    if sorted((r["stage"], r["data_index"]) for r in recs) != sorted(
+            (k, d) for k in range(2) for d in range(world // 2)):
+        fail(f"pipeline {kind}: the ranks are not the mesh's stages")
+
+
+def _pp_params(kind: str, which: str):
+    """The whole model ``which`` (``built`` or ``final``) from the data
+    index 0 rank of each stage."""
+    import torch
+
+    out = {}
+    for path in sorted((PP_DIR / kind).glob("params*.pt")):
+        out.update(torch.load(path)[which])
+    return out
+
+
+def _pp_reload(torch, recs: list) -> None:
+    """Phase 19b's sharded checkpoint into a one-process trainer of the same
+    flags at ``data:1`` (the optimizer kept): every parameter's digest is
+    the one its stage recorded, every moment the checkpoint's."""
+    from ml_recipe_tpu_torch.cli import train as train_cli
+    from ml_recipe_tpu_torch.models.convert import from_jax_params
+    from ml_recipe_tpu_torch.train.checkpoint import (
+        peek_checkpoint_layout, read_state)
+
+    path = PP_DIR / "zero1" / "ckpt"
+    layout = peek_checkpoint_layout(path)
+    params, model_params = _train_flags(REPO / "config" / "test_bert.cfg",
+                                        PP_BASE[2:])
+    trainer = train_cli.build_trainer(params, model_params)
+    trainer.drop_optimizer = False
+    t0 = time.perf_counter()
+    trainer.load_state_dict(path)
+    seconds = time.perf_counter() - t0
+    want = {}
+    for rec in recs:
+        want.update(rec["digests"])
+    got = {n: _tensor_digest(p) for n, p in trainer.model.named_parameters()}
+    same = got == want
+    state = read_state(path)
+    saved = trainer.optimizer.flax_state()
+    moments_equal = True
+    for key in ("mu", "nu"):
+        ref = from_jax_params(state["optimizer"]["0"]["0"][key])
+        mine = from_jax_params(saved["0"]["0"][key])
+        moments_equal &= all(torch.equal(mine[n], ref[n]) for n in ref)
+    say(f"pipeline zero1: the sharded checkpoint (layout "
+        f"{json.dumps({k: layout[k] for k in ('mesh_axes', 'pipe_schedule', 'pipe_param_layout', 'opt_sharding', 'shards', 'process_count')})}"
+        f", saved in {recs[0]['save_seconds']:.1f}s) reloaded in one process "
+        f"(data:1) in {seconds:.1f}s: every parameter bit for bit the "
+        f"stages': {same} ({len(want)} of {len(got)} recorded); every adam "
+        f"moment the checkpoint's: {moments_equal}; global step "
+        f"{trainer.global_step}")
+    if (layout["pipe_param_layout"] != "stage" or layout["shards"] != 4
+            or layout["opt_sharding"] != "zero1"):
+        fail("pipeline zero1: the checkpoint does not record the stage "
+             "layout's ZeRO-1 pieces")
+    if not same or not moments_equal or trainer.global_step != 1:
+        fail("pipeline zero1: the checkpoint did not restore in one process "
+             "bit for bit")
+    del trainer, saved, state
+    torch.cuda.empty_cache()
+
+
+def phase_pipeline(torch):
+    """Phase 19: pipeline parallelism on the card (``--mesh pipe:2``).
+
+    19a. ``config/test_bert.cfg --seed 0 --ln_impl fused`` with dropout 0
+    (bert-base, 2 debug steps of 256x512 in 8 micro-batches of 32x512, 11
+    eval batches after each) as two ranks of ``cli.train`` (``--pp-worker
+    schedules``, gloo on the card: stage 0 the embeddings and layers 0..5,
+    stage 1 layers 6..11, the pooler, the heads and the loss), on GPipe and
+    then on 1F1B in the same pair, and in this process at ``data:1``
+    (beside 19b's ranks): each rank's launches equal
+    its stage's path, the two schedules' losses and final parameters agree
+    within PP_SCHEDULE_TOL (bit for bit printed), and pipe:2 against the
+    one process within PP_LOSS_REL_TOL (losses) and PP_UPDATE_REL_TOL
+    (the parameter update, relative L2). Printed per rank: step walls, the
+    stage transport's sends, bytes and seconds, the measured bubble (a
+    step's share of waiting on the other stage: both stages share the one
+    card, so it is not a two-card bubble) beside the modeled one, peak CUDA
+    memory, parameter and moment bytes, the tokenizer backend.
+
+    19b. ``--mesh data:2,pipe:2 --optimizer_sharding zero1
+    --sharded_checkpoint`` as four ranks for one debug step, then its
+    sharded save; the checkpoint peeks as the stage layout with 4-way
+    pieces and restores in one process bit for bit (:func:`_pp_reload`).
+
+    Returns the launch counts by path."""
+    import shutil
+
+    from ml_recipe_tpu_torch.tokenizer import write_synthetic_bert_vocab
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(PP_DIR, ignore_errors=True)
+    PP_DIR.mkdir(parents=True)
+    write_synthetic_bert_vocab(OUT_DIR / "vocab.txt")
+    deadline = time.monotonic() + PP_DEADLINE_S
+    _pp_join(_pp_world("schedules"), deadline)
+    runs = {k: _pp_records(k) for k in ("gpipe", "1f1b")}
+    for kind, recs in runs.items():
+        _pp_print(kind, recs)
+        _pp_check(kind, recs)
+    gp, ofob = _pp_params("gpipe", "final"), _pp_params("1f1b", "final")
+    built = _pp_params("gpipe", "built")
+    sched_diff = max(float((gp[n] - ofob[n]).abs().max()) for n in gp)
+    sched_equal = all(torch.equal(gp[n], ofob[n]) for n in gp)
+    losses = {k: [s["loss"] for s in recs[0]["steps"]]
+              for k, recs in runs.items()}
+    loss_diff = max(abs(a - b) / abs(b) for a, b in zip(losses["1f1b"],
+                                                        losses["gpipe"]))
+
+    # 19b's four ranks start beside the one-process run (its walls are
+    # taken beside them; the card holds both)
+    zero_world = _pp_world("zero1")
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        trainer, _, one, one_wall = _run_training(torch, "test_bert.cfg",
+                                                  PP_BASE[2:])
+        one_losses = [h["loss"] for h in trainer.history]
+        final = {n: p.detach().cpu()
+                 for n, p in trainer.model.named_parameters()}
+        flat = lambda d: torch.cat([d[n].float().reshape(-1)
+                                    for n in sorted(d)])
+        update_rel = _rel(flat(gp) - flat(built), flat(final) - flat(built))
+        one_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["gpipe"],
+                                                          one_losses))
+        say(f"pipeline: GPipe against 1F1B: losses {losses['gpipe']} and "
+            f"{losses['1f1b']} (relative {loss_diff:.2e}), final parameters "
+            f"max |diff| {sched_diff:.2e} (tol {PP_SCHEDULE_TOL:g}; bit for "
+            f"bit: {sched_equal}); pipe:2 against one process "
+            f"({one_wall:.1f}s beside 19b's ranks, step walls "
+            f"{[round(h['seconds'], 3) for h in trainer.history]} s, "
+            f"launches {one}): losses {one_losses}, relative "
+            f"{one_rel:.2e} (tol {PP_LOSS_REL_TOL:g}), parameter update "
+            f"relative L2 {update_rel:.2e} (tol {PP_UPDATE_REL_TOL:g})")
+        for kind, recs in runs.items():
+            say(f"pipeline {kind}: peak CUDA memory by rank "
+                f"{[round(r['peak_bytes'] / 1e9, 3) for r in recs]} GB (one "
+                f"process: {torch.cuda.max_memory_allocated() / 1e9:.3f} GB)")
+        if sched_diff > PP_SCHEDULE_TOL or loss_diff > PP_SCHEDULE_TOL:
+            fail("pipeline: GPipe and 1F1B part")
+        if runs["1f1b"][0]["in_flight"] >= runs["gpipe"][0]["in_flight"]:
+            fail("pipeline: 1F1B held as many micro-batches as GPipe")
+        if not (one_rel <= PP_LOSS_REL_TOL
+                and update_rel <= PP_UPDATE_REL_TOL):
+            fail("pipeline: pipe:2 parts from the one-process run")
+        del trainer, final, gp, ofob, built
+        torch.cuda.empty_cache()
+    finally:
+        _pp_join(zero_world, deadline)
+    zero = _pp_records("zero1")
+    _pp_print("zero1", zero)
+    _pp_check("zero1", zero)
+    if any(len(r["steps"]) != 1 or r["layout"] != "stage" for r in zero):
+        fail("pipeline zero1: not one step of the stage layout")
+    _pp_reload(torch, zero)
+    say(f"phase 19 wall {time.perf_counter() - t_phase:.1f}s")
+    total = lambda recs: {k: sum(r["launched"][k] for r in recs)
+                          for k in recs[0]["launched"]}
+    return {"pipe:2 gpipe": total(runs["gpipe"]),
+            "pipe:2 1f1b": total(runs["1f1b"]),
+            "pipe:2 one process": one,
+            "data:2,pipe:2 zero1": total(zero)}
+
+
 def main() -> int:
     try:
         import torch
@@ -6369,9 +6899,11 @@ def main() -> int:
         say(f"{phases} done {time.perf_counter() - t_start:.1f}s into the "
             f"smoke")
 
+    native = start_native_build()
     built = cuda_build.build(*libraries)
     say(f"kernel build: {len(built)} of {len(libraries)} libraries built in "
         f"{time.perf_counter() - t0:.1f}s")
+    finish_native_build(native, t0)
     reports = {}
     for lib in built:
         for kernel, report in ptxas_reports(lib.build_log):
@@ -6433,9 +6965,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     el = phase_elastic(torch)
     lap("phase 18")
+    torch.cuda.empty_cache()
+    pp = phase_pipeline(torch)
+    lap("phase 19")
 
     def elastic_paths(kernel):
         return {path: n[kernel] for path, n in el.items() if path != "drill"}
+
+    def pipe_paths(kernel):
+        return {path: n[kernel] for path, n in pp.items()}
 
     def warm_paths(kernel):
         return {f"warm-up plane, {path}": n[kernel]
@@ -6568,7 +7106,8 @@ def main() -> int:
               + opt_run["layer_norm_fwd"] + opt_tune["layer_norm_fwd"]
               + packed.launched["layer_norm_fwd"]
               + sum(runtime_paths("layer_norm_fwd").values())
-              + sum(elastic_paths("layer_norm_fwd").values()),
+              + sum(elastic_paths("layer_norm_fwd").values())
+              + sum(pipe_paths("layer_norm_fwd").values()),
               ln_fwd_err, ln_fwd, "16384x768 bf16 (32x512, training)",
               source="layer_norm",
               launches_by_path={**int8_paths("layer_norm_fwd"),
@@ -6578,7 +7117,8 @@ def main() -> int:
                                 "packed training":
                                     packed.launched["layer_norm_fwd"],
                                 **runtime_paths("layer_norm_fwd"),
-                                **elastic_paths("layer_norm_fwd")},
+                                **elastic_paths("layer_norm_fwd"),
+                                **pipe_paths("layer_norm_fwd")},
               device_ms=ln_fwd["device_ms"], host_ms=ln_fwd["host_ms"],
               at_32x384={k: ln_serve[k] for k in (
                   "ms", "device_ms", "host_ms", "plain_ms", "library_ms",
@@ -6588,7 +7128,8 @@ def main() -> int:
               + opt_run["layer_norm_bwd"] + opt_tune["layer_norm_bwd"]
               + packed.launched["layer_norm_bwd"]
               + sum(runtime_paths("layer_norm_bwd").values())
-              + sum(elastic_paths("layer_norm_bwd").values()),
+              + sum(elastic_paths("layer_norm_bwd").values())
+              + sum(pipe_paths("layer_norm_bwd").values()),
               ln_bwd_err,
               ln_bwd, "16384x768 bf16 (32x512, training)", source="layer_norm",
               launches_by_path={"training fused": ln_train["layer_norm_bwd"],
@@ -6597,7 +7138,8 @@ def main() -> int:
                                 "packed training":
                                     packed.launched["layer_norm_bwd"],
                                 **runtime_paths("layer_norm_bwd"),
-                                **elastic_paths("layer_norm_bwd")},
+                                **elastic_paths("layer_norm_bwd"),
+                                **pipe_paths("layer_norm_bwd")},
               device_ms=ln_bwd["device_ms"], host_ms=ln_bwd["host_ms"],
               device_ms_by_kernel=ln_bwd["split_ms"],
               by_shape={f"{N}x{C}": {k: t[k] for k in (
@@ -6632,7 +7174,8 @@ def main() -> int:
                      + sum(packed_paths("fused_attention_fwd").values())
                      + sum(runtime_paths("fused_attention_fwd").values())
                      + sum(warm_paths("fused_attention_fwd").values())
-                     + sum(elastic_paths("fused_attention_fwd").values())),
+                     + sum(elastic_paths("fused_attention_fwd").values())
+                     + sum(pipe_paths("fused_attention_fwd").values())),
         "launches_by_path": {"serving": serving_fwd, "training": train_fwd,
                              "serving int8": int8["fused_attention_fwd"],
                              "training fused": ln_train["fused_attention_fwd"],
@@ -6645,7 +7188,8 @@ def main() -> int:
                              **packed_paths("fused_attention_fwd"),
                              **runtime_paths("fused_attention_fwd"),
                              **warm_paths("fused_attention_fwd"),
-                             **elastic_paths("fused_attention_fwd")},
+                             **elastic_paths("fused_attention_fwd"),
+                             **pipe_paths("fused_attention_fwd")},
         "max_abs_err": max(fwd_err, packed.fwd_err,
                            packed_val["packed"].errs[0]),
         "ms": fwd["ms"],
@@ -6667,7 +7211,8 @@ def main() -> int:
                      + packed.launched["fused_attention_bwd"]
                      + sum(runtime_paths("fused_attention_bwd").values())
                      + sum(warm_paths("fused_attention_bwd").values())
-                     + sum(elastic_paths("fused_attention_bwd").values())),
+                     + sum(elastic_paths("fused_attention_bwd").values())
+                     + sum(pipe_paths("fused_attention_bwd").values())),
         "launches_by_path": {"serving": 0, "training": train_bwd,
                              "training fused": ln_train["fused_attention_bwd"],
                              "nq training":
@@ -6678,7 +7223,8 @@ def main() -> int:
                                  packed.launched["fused_attention_bwd"],
                              **runtime_paths("fused_attention_bwd"),
                              **warm_paths("fused_attention_bwd"),
-                             **elastic_paths("fused_attention_bwd")},
+                             **elastic_paths("fused_attention_bwd"),
+                             **pipe_paths("fused_attention_bwd")},
         "max_abs_err": max(bwd_err, packed.bwd_err,
                            packed_val["packed"].errs[1]),
         "ms": bwd["ms"],
@@ -6708,6 +7254,10 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--sp-worker"]:
         kind, rank, port = sys.argv[2:]
         sys.exit(sp_worker(kind, int(rank), int(port)))
+    # phase 19 starts it as the ranks of its pipelines
+    if sys.argv[1:2] == ["--pp-worker"]:
+        kind, rank, port = sys.argv[2:]
+        sys.exit(pp_worker(kind, int(rank), int(port)))
     # phase 18 starts it as the two ranks of its ZeRO-1 pairs
     if sys.argv[1:2] == ["--el-worker"]:
         rank, port = sys.argv[2:]

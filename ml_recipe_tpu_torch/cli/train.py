@@ -195,9 +195,9 @@ def build_trainer(params, model_params, *, watchdog=None,
                          new=plan.describe())
     rng_pool = set_seed(params.seed)
     data_rng = rng_pool.host_rng("chunk_sampling") if rng_pool else None
-    if data_rng is None and mesh.seq_size > 1:
-        # the ranks of a seq group hold blocks of the same rows: without a
-        # seed their datasets still draw from one shared one
+    if data_rng is None and (mesh.seq_size > 1 or mesh.pipe_size > 1):
+        # the ranks of a seq (pipe) group hold blocks (stages) of the same
+        # rows: without a seed their datasets still draw from one shared one
         data_rng = np.random.default_rng(shared_random_seed())
     seed = params.seed if params.seed is not None else 0
 
@@ -244,6 +244,8 @@ def build_trainer(params, model_params, *, watchdog=None,
         trace_dir=(params.dump_dir / f"board/{params.experiment_name}/trace"
                    if params.trace else None),
         hbm_preflight=params.hbm_preflight,
+        pipe_schedule=params.pipe_schedule,
+        pipe_param_sharding=params.pipe_param_sharding,
     )
     if params.last is not None:
         trainer.load_state_dict(params.last)

@@ -61,8 +61,8 @@ def cast_loss_scale(value: str):
 MESH_HELP = (
     "Device mesh axes as 'name:size' pairs, e.g. 'data:8', "
     "'data:4,model:2', 'data:2,seq:4', or 'data:2,pipe:2' (the port's "
-    "trainer runs 'data' and 'seq' axes, one process per device; its "
-    "serving and validation run one device)."
+    "trainer runs 'data', 'seq' and 'pipe' axes, one process per device; "
+    "its serving and validation run one device)."
 )
 
 
@@ -394,21 +394,20 @@ def get_trainer_parser() -> ConfigArgumentParser:
                              "through the forward sweep; '1f1b' interleaves "
                              "one-forward-one-backward so at most "
                              "min(batch_split, 2K-1) stage inputs stay "
-                             "resident. Gradients accumulate exactly as the "
-                             "sequential scan (same trajectory within "
-                             "pipeline tolerance); inert without a pipe "
-                             "axis.")
+                             "resident (the port holds at most K stage "
+                             "inputs). Both schedules accumulate the same "
+                             "gradients in the same order; inert without a "
+                             "pipe axis.")
     parser.add_argument("--pipe_param_sharding", type=cast2(str),
                         default="auto",
                         choices=["auto", "stage", "replicated"],
                         help="Pipeline parameter/optimizer storage: 'stage' "
                              "keeps each pipe rank holding ONLY its own "
-                             "stage's trunk weights and moments (~1/K "
-                             "per-chip bytes; islands all-gather slices "
-                             "per tick), 'replicated' keeps the PR-15 "
-                             "every-rank-holds-everything layout, 'auto' "
-                             "(default) picks 'stage' whenever the pipe "
-                             "axis is > 1 on a multi-device mesh.")
+                             "stage's weights and moments, 'replicated' "
+                             "keeps every weight on every rank (each stage "
+                             "broadcasts its updated weights over the pipe "
+                             "axis after each step), 'auto' (default) picks "
+                             "'stage' whenever the pipe axis is > 1.")
     parser.add_argument("--zero1_overlap", type=cast2(str), default="off",
                         choices=["off", "bucketed"],
                         help="ZeRO-1 collective overlap: 'bucketed' splits "
@@ -1082,8 +1081,7 @@ def check_serve_flags(params, model_params) -> None:
 # trainer flags with no port counterpart that change no result at any
 # value: accepted and logged once
 _IGNORED_TRAIN_FLAGS = (
-    "gpu", "sync_bn", "apex_level", "apex_verbosity",
-    "precision", "pipe_schedule", "pipe_param_sharding",
+    "gpu", "sync_bn", "apex_level", "apex_verbosity", "precision",
 )
 # model flags of the same kind: --param_dtype bfloat16 reaches no parameter
 # in the JAX package either (flax keeps them f32), so it trains as float32
@@ -1117,12 +1115,15 @@ def check_train_flags(params, model_params) -> None:
     supervisor's world override (``MLRT_ELASTIC_WORLD``, the live world
     after a host loss); a launcher's ``WORLD_SIZE`` > 1 that the flags do
     not repeat raises (``scripts/worker_torch.sh`` maps the environment
-    onto the flags). ``--mesh`` takes ``data`` and ``seq`` axes whose sizes
-    multiply to the live world (``pipe``/``model`` raise); under
-    ``--elastic on`` its ``data`` axis narrows to fit it
-    (``parallel.mesh.elastic_axes``). ``--flash_attention ring`` needs a
-    ``seq`` axis > 1; ZeRO-1 runs at any world and is inert at data size
-    1, and so is ``--zero1_overlap bucketed`` (also on a ``seq`` mesh).
+    onto the flags). ``--mesh`` takes ``data``, ``seq`` and ``pipe`` axes
+    whose sizes multiply to the live world (``model`` raises, and so does
+    ``pipe`` beside ``seq``); under ``--elastic on`` its ``data`` axis
+    narrows to fit it (``parallel.mesh.elastic_axes``). ``--flash_attention
+    ring`` needs a ``seq`` axis > 1; ZeRO-1 runs at any world and is inert
+    at data size 1, and so is ``--zero1_overlap bucketed`` (also on a
+    ``seq`` mesh and under ``pipe``). ``--pipe_schedule`` and
+    ``--pipe_param_sharding`` are live with a ``pipe`` axis > 1 and inert
+    without one.
 
     The runtime subsystems are live: ``--trace``, ``--trace_spans``,
     ``--metrics_port``, ``--metrics_hosts``, ``--goodput_ledger``,
@@ -1168,6 +1169,17 @@ def check_train_flags(params, model_params) -> None:
         logger.info("--optimizer_sharding zero1 (--shard_optimizer) is inert "
                     "at data axis size 1: the optimizer state stays whole, "
                     "as the JAX trainer keeps it on such a mesh.")
+    from ..parallel.pipeline import PIPE_SCHEDULES, resolve_param_layout
+
+    if params.pipe_schedule not in PIPE_SCHEDULES:
+        raise ValueError(f"--pipe_schedule must be one of {PIPE_SCHEDULES}, "
+                         f"got {params.pipe_schedule!r}")
+    resolve_param_layout(params.pipe_param_sharding, axes.get("pipe", 1))
+    if axes.get("pipe", 1) > 1:
+        logger.info("Pipeline (live): --pipe_schedule %s, "
+                    "--pipe_param_sharding %s over pipe:%d.",
+                    params.pipe_schedule, params.pipe_param_sharding,
+                    axes["pipe"])
     ignored = [f"--{f} {getattr(params, f)}" for f in _IGNORED_TRAIN_FLAGS]
     ignored += [f"--{f} {getattr(model_params, f)}"
                 for f in _IGNORED_MODEL_TRAIN_FLAGS]

@@ -434,15 +434,33 @@ class TransformerEncoder(nn.Module):
                           segment_ids))
         hidden = self.embeddings(input_ids, token_type_ids, generator,
                                  global_rows, position_ids, seq)
+        hidden = self.run_layers(hidden, mask, 0, self.cfg.num_layers,
+                                 generator, global_rows, segment_ids, seq)
+        if seq is not None:
+            hidden = seq_gather(hidden, self.mesh.seq_group, *seq)
+        return hidden, self.pool(hidden, segment_starts)
+
+    def run_layers(self, hidden: torch.Tensor, mask: torch.Tensor, lo: int,
+                   hi: int, generator=None, global_rows: GlobalRows = None,
+                   segment_ids: Optional[torch.Tensor] = None,
+                   seq: SeqBlock = None) -> torch.Tensor:
+        """Layers ``lo .. hi - 1`` on ``hidden`` (a pipeline stage runs its
+        own range, ``parallel/pipeline.py``). ``generator`` is one
+        ``torch.Generator`` every layer draws from in turn, or a callable
+        giving layer ``i``'s own (the pipeline's per-layer streams)."""
+        mask = mask.to(torch.int32)
         remat = self.remat and torch.is_grad_enabled()
-        for i in range(self.cfg.num_layers):
+        for i in range(lo, hi):
             layer = getattr(self, f"layer_{i}")
+            gen = generator(i) if callable(generator) else generator
             if segment_ids is not None or seq is not None:
                 layer = functools.partial(layer, segment_ids=segment_ids,
                                           seq=seq)
-            hidden = (remat_layer(layer, hidden, mask, generator, global_rows)
-                      if remat else layer(hidden, mask, generator, global_rows))
-        if seq is not None:
-            hidden = seq_gather(hidden, self.mesh.seq_group, *seq)
-        pooled = torch.tanh(self.pooler(first_token(hidden, segment_starts)))
-        return hidden, pooled
+            hidden = (remat_layer(layer, hidden, mask, gen, global_rows)
+                      if remat else layer(hidden, mask, gen, global_rows))
+        return hidden
+
+    def pool(self, hidden: torch.Tensor,
+             segment_starts: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The pooler on each row's first token (each packed segment's)."""
+        return torch.tanh(self.pooler(first_token(hidden, segment_starts)))

@@ -92,6 +92,20 @@ class QAModel(nn.Module):
             global_rows=global_rows, position_ids=position_ids,
             segment_ids=segment_ids, segment_starts=segment_starts)
 
+        return self.heads(sequence_output, pooled_output, attention_mask,
+                          generator, global_rows, segment_ids, segment_starts)
+
+    def heads(self, sequence_output: torch.Tensor,
+              pooled_output: torch.Tensor, attention_mask: torch.Tensor,
+              generator: Optional[torch.Generator] = None,
+              global_rows: GlobalRows = None,
+              segment_ids: Optional[torch.Tensor] = None,
+              segment_starts: Optional[torch.Tensor] = None
+              ) -> Dict[str, torch.Tensor]:
+        """The four heads on the trunk's outputs (the JAX package's
+        ``apply_qa_heads``): what runs after the trunk, here and on a
+        pipeline's last stage."""
+        packed = segment_starts is not None
         position_logits = self.position_outputs(sequence_output)
         pad_penalty = (1 - attention_mask).to(torch.float32) * _MASK_NEG
         start_logits = position_logits[..., 0].float() + pad_penalty
@@ -121,6 +135,39 @@ class QAModel(nn.Module):
             "end_reg": reg_end.float(),
             "cls": classifier_logits.float(),
         }
+
+    def embed(self, input_ids: torch.Tensor,
+              token_type_ids: Optional[torch.Tensor] = None,
+              generator: Optional[torch.Generator] = None,
+              global_rows: GlobalRows = None,
+              position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The embeddings of a pipeline's first stage."""
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids)
+        return self.transformer.embeddings(input_ids, token_type_ids,
+                                           generator, global_rows,
+                                           position_ids)
+
+    def layers(self, hidden: torch.Tensor, attention_mask: torch.Tensor,
+               lo: int, hi: int, generator=None,
+               global_rows: GlobalRows = None,
+               segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Encoder layers ``lo .. hi - 1`` (one pipeline stage's range)."""
+        return self.transformer.run_layers(hidden, attention_mask, lo, hi,
+                                           generator, global_rows,
+                                           segment_ids)
+
+    def tail(self, hidden: torch.Tensor, attention_mask: torch.Tensor,
+             generator: Optional[torch.Generator] = None,
+             global_rows: GlobalRows = None,
+             segment_ids: Optional[torch.Tensor] = None,
+             segment_starts: Optional[torch.Tensor] = None
+             ) -> Dict[str, torch.Tensor]:
+        """The pooler and the heads of a pipeline's last stage."""
+        return self.heads(hidden, self.transformer.pool(hidden,
+                                                        segment_starts),
+                          attention_mask, generator, global_rows,
+                          segment_ids, segment_starts)
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:

@@ -1,12 +1,13 @@
 """Parallelism over ``torch.distributed`` (the port of
 ``ml_recipe_tpu/parallel/``): joining the world (``dist.py``), the process
-mesh of ``data`` and ``seq`` axes (``mesh.py``) and its plan
+mesh of ``data``, ``seq`` and ``pipe`` axes (``mesh.py``) and its plan
 (``plan.py``, narrowed over the live processes under ``--elastic on``),
 the ZeRO-1 layout and its gradient buckets and the sequence split
-(``sharding.py``), and the collectives of the step, the ring attention's
-hop and the bucketed ZeRO-1 exchange included (``collectives.py``). Tensor
-and pipeline parallelism are not ported (ROADMAP.md queue 1, 'Parallelism
-beyond data parallelism')."""
+(``sharding.py``), the pipeline's stages and schedules (``pipeline.py``),
+and the collectives of the step, the ring attention's hop, the pipeline
+stages' hand-offs and the bucketed ZeRO-1 exchange included
+(``collectives.py``). Tensor parallelism is not ported (ROADMAP.md queue 1,
+'Parallelism beyond data parallelism')."""
 
 from .collectives import (
     BucketedExchange,
@@ -29,12 +30,19 @@ from .dist import (
     shutdown,
 )
 from .mesh import ElasticMeshError, elastic_axes
+from .pipeline import (
+    PIPE_SCHEDULES,
+    StageLayout,
+    modeled_bubble_fraction,
+    stage_assignment,
+)
 from .plan import ParallelPlan
 from .sharding import leaf_sizes, zero1_bucket_plan
 
 __all__ = [
     "BucketedExchange",
     "ElasticMeshError",
+    "PIPE_SCHEDULES",
     "GradBucket",
     "ParallelPlan",
     "all_reduce_gradients",
@@ -53,5 +61,8 @@ __all__ = [
     "process_index",
     "regroup_for_world",
     "shutdown",
+    "StageLayout",
+    "modeled_bubble_fraction",
+    "stage_assignment",
     "zero1_bucket_plan",
 ]

@@ -52,7 +52,19 @@ The mesh's collectives (``parallel/mesh.py``), each over one group of it:
   tensors stages them through pinned host buffers (compute stays on the
   card). Each transport logs its kind once and counts its hops, the bytes
   it sent, the bytes it staged through the host and its seconds
-  (``RingTransport.stats``).
+  (``RingTransport.stats``);
+- :class:`StageTransport`: a pipeline stage's hand-offs, activations to
+  the next stage of its ``pipe`` group and their gradients back to the
+  previous one, one tensor at a time (the JAX package's ``ppermute`` over
+  ``pipe``). Sends are issued without waiting (NCCL ``isend`` of the
+  device tensor; over gloo an ``isend`` of a host copy) and drained at the
+  step's end (:meth:`StageTransport.drain`); a receive blocks until its
+  tensor is there, so a stage whose peer is gone fails at the process
+  group's timeout instead of running on alone. It keeps ``stats`` as the
+  ring's transport does;
+- :func:`all_reduce_sum_` over the ``pipe`` group: the squared norms of
+  the stages' gradients, summed into the global-norm clip
+  (``train/optim.py``).
 
 Every function here runs its collective whenever a process group exists,
 also a group of one; the trainer calls them only at world size > 1.
@@ -114,16 +126,18 @@ def _flat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 def all_reduce_gradients(named_params: Iterable[Tuple[str, torch.Tensor]],
-                         bucket_numel: int = BUCKET_NUMEL) -> int:
-    """Sum every parameter's ``.grad`` over the world in place, bucket by
-    bucket (see the module docstring); a missing ``.grad`` is summed as
-    zeros and then holds the sum. Returns the number of buckets."""
+                         bucket_numel: int = BUCKET_NUMEL,
+                         group=None) -> int:
+    """Sum every parameter's ``.grad`` over the world (or ``group``) in
+    place, bucket by bucket (see the module docstring); a missing ``.grad``
+    is summed as zeros and then holds the sum. Returns the number of
+    buckets."""
     buckets = bucket_plan(named_params, bucket_numel)
     for bucket in buckets:
         params = [p for _, p in bucket]
         flat = _flat([p.grad if p.grad is not None else torch.zeros_like(p)
                       for p in params])
-        all_reduce_sum_(flat)
+        all_reduce_sum_(flat, group)
         for p, chunk in zip(params, flat.split([p.numel() for p in params])):
             chunk = chunk.view_as(p).to(p.dtype)
             if p.grad is None:
@@ -136,14 +150,15 @@ def all_reduce_gradients(named_params: Iterable[Tuple[str, torch.Tensor]],
 @torch.no_grad()
 def broadcast_parameters(named_params: Iterable[Tuple[str, torch.Tensor]],
                          src: int = 0,
-                         bucket_numel: int = BUCKET_NUMEL) -> int:
-    """Overwrite every parameter with rank ``src``'s, bucket by bucket;
-    returns the number of buckets."""
+                         bucket_numel: int = BUCKET_NUMEL,
+                         group=None) -> int:
+    """Overwrite every parameter with global rank ``src``'s (over the world
+    or ``group``), bucket by bucket; returns the number of buckets."""
     buckets = bucket_plan(named_params, bucket_numel)
     for bucket in buckets:
         params = [p for _, p in bucket]
         flat = _flat([p.detach() for p in params])
-        dist.broadcast(flat, src=src)
+        dist.broadcast(flat, src=src, group=group)
         for p, chunk in zip(params, flat.split([p.numel() for p in params])):
             p.copy_(chunk.view_as(p))
     return len(buckets)
@@ -266,6 +281,80 @@ class RingTransport:
         self.stats["bytes"] += sent
         self.stats["seconds"] += time.perf_counter() - t0
         return recv
+
+
+class StageTransport:
+    """One pipeline stage's hand-offs over its ``pipe`` group: ``stages``
+    are the group's global ranks in stage order, ``rank`` this process's.
+    :meth:`send_forward` / :meth:`recv_forward` move activations from stage
+    k to k + 1, :meth:`send_backward` / :meth:`recv_backward` their
+    gradients from k + 1 to k. See the module docstring for the two
+    transports; ``stats`` counts hops (sends), bytes sent, bytes staged
+    through host memory and the seconds spent in sends and receives."""
+
+    def __init__(self, stages: Sequence[int], rank: int):
+        self.stages = tuple(int(r) for r in stages)
+        self.index = self.stages.index(int(rank))
+        K = len(self.stages)
+        self.next = self.stages[self.index + 1] if self.index + 1 < K else None
+        self.prev = self.stages[self.index - 1] if self.index > 0 else None
+        self.nccl = pdist.backend() == "nccl"
+        self._pending: List[tuple] = []
+        self.reset()
+        logger.info("Pipeline stage transport: stage %d of %d over ranks %s, "
+                    "%s.", self.index, K, list(self.stages),
+                    "isend/irecv of device tensors (nccl)" if self.nccl
+                    else "gloo isend/recv, CUDA tensors staged through host "
+                         "buffers (the stages compute on their device)")
+
+    def reset(self) -> None:
+        self.stats = {"hops": 0, "bytes": 0, "staged_bytes": 0,
+                      "seconds": 0.0}
+
+    def _send(self, t: torch.Tensor, dst: int) -> None:
+        t0 = time.perf_counter()
+        t = t.detach().contiguous()
+        nbytes = t.numel() * t.element_size()
+        if not self.nccl and t.device.type != "cpu":
+            t = t.to("cpu")
+            self.stats["staged_bytes"] += nbytes
+        self._pending.append((dist.isend(t, dst), t))
+        self.stats["hops"] += 1
+        self.stats["bytes"] += nbytes
+        self.stats["seconds"] += time.perf_counter() - t0
+
+    def _recv(self, shape, dtype, device, src: int) -> torch.Tensor:
+        t0 = time.perf_counter()
+        device = torch.device(device)
+        staged = not self.nccl and device.type != "cpu"
+        buf = torch.empty(tuple(shape), dtype=dtype,
+                          device="cpu" if staged else device)
+        dist.recv(buf, src)
+        if staged:
+            self.stats["staged_bytes"] += buf.numel() * buf.element_size()
+            buf = buf.to(device)
+        self.stats["seconds"] += time.perf_counter() - t0
+        return buf
+
+    def send_forward(self, t: torch.Tensor) -> None:
+        self._send(t, self.next)
+
+    def recv_forward(self, shape, dtype, device) -> torch.Tensor:
+        return self._recv(shape, dtype, device, self.prev)
+
+    def send_backward(self, t: torch.Tensor) -> None:
+        self._send(t, self.prev)
+
+    def recv_backward(self, shape, dtype, device) -> torch.Tensor:
+        return self._recv(shape, dtype, device, self.next)
+
+    def drain(self) -> None:
+        """Wait for every send issued so far (and release their buffers)."""
+        t0 = time.perf_counter()
+        for work, _ in self._pending:
+            work.wait()
+        self._pending.clear()
+        self.stats["seconds"] += time.perf_counter() - t0
 
 
 class GradBucket(NamedTuple):

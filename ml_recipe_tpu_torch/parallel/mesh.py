@@ -9,15 +9,22 @@ for every row of each axis the step reduces or rotates over:
   shards the optimizer state over it);
 - ``seq``: sequence parallelism (each rank of a ``seq`` group holds one
   contiguous block of every row's tokens; ring attention rotates K/V blocks
-  around the group).
+  around the group);
+- ``pipe``: pipeline parallelism (each rank of a ``pipe`` group is one
+  stage, a contiguous range of the encoder's layers; activations go
+  forward and their gradients back between neighbouring stages,
+  ``parallel/pipeline.py``).
 
-Axis sizes come from ``--mesh`` (``data:2,seq:2``), by default one ``data``
-axis over the whole world. Ranks follow the JAX package's axis order
-:data:`AXIS_ORDER` (its device array is reshaped in that order), so with
-``data:D,seq:S`` rank ``r`` sits at ``data_index, seq_index = divmod(r,
-S)``: the data coordinate, which picks a rank's rows of every global batch
-and folds into its dropout seeds, is the one the JAX package gives the same
-device. ``pipe`` and ``model`` (pipeline and tensor parallelism) raise.
+Axis sizes come from ``--mesh`` (``data:2,seq:2``, ``data:2,pipe:2``), by
+default one ``data`` axis over the whole world. Ranks follow the JAX
+package's axis order :data:`AXIS_ORDER` (its device array is reshaped in
+that order, ``pipe`` outermost), so with ``pipe:K,data:D,seq:S`` rank ``r``
+sits at ``pipe_index = r // (D*S)``, ``data_index = r // S % D``,
+``seq_index = r % S``: the data coordinate, which picks a rank's rows of
+every global batch and folds into its dropout seeds, is the one the JAX
+package gives the same device. ``pipe`` with ``seq`` raises, as in the JAX
+package (``parallel/pipeline.validate_pipeline_plan``), and so does
+``model`` (tensor parallelism) at any size.
 Where the JAX package warns about devices a mesh leaves idle, the port
 requires the mesh to cover the world exactly. Under ``--elastic on``
 :func:`elastic_axes` shrinks a requested mesh onto the live processes
@@ -34,14 +41,14 @@ from typing import Dict, List, Optional, Tuple
 import torch.distributed as dist
 
 from . import dist as pdist
-from .collectives import RingTransport
+from .collectives import RingTransport, StageTransport
 
 logger = logging.getLogger(__name__)
 
 # pipe outermost, then data, seq, model innermost (the JAX package's order)
 AXIS_ORDER = ("pipe", "data", "seq", "model")
-DATA_AXIS, SEQ_AXIS = "data", "seq"
-PORTED_AXES = (DATA_AXIS, SEQ_AXIS)
+DATA_AXIS, SEQ_AXIS, PIPE_AXIS = "data", "seq", "pipe"
+PORTED_AXES = (DATA_AXIS, SEQ_AXIS, PIPE_AXIS)
 _PARALLEL = "queue 1, 'Parallelism beyond data parallelism'"
 
 
@@ -76,13 +83,21 @@ def parse_mesh_spec(spec: Optional[str]) -> Dict[str, int]:
 
 
 def refuse_unported_axes(axes: Dict[str, int]) -> None:
-    """Raise on an axis other than ``data`` and ``seq`` (``pipe`` and
-    ``model`` at any size included), naming the ROADMAP item."""
+    """Raise on an axis other than ``data``, ``seq`` and ``pipe`` (``model``
+    at any size included), naming the ROADMAP item, and on ``pipe`` > 1
+    beside ``seq`` > 1, which the JAX package refuses too."""
     bad = [name for name in axes if name not in PORTED_AXES]
     if bad:
         raise NotImplementedError(
-            f"mesh axes {bad} are not ported yet (the port runs 'data' and "
-            f"'seq'): ROADMAP.md {_PARALLEL}")
+            f"mesh axes {bad} are not ported yet (the port runs 'data', "
+            f"'seq' and 'pipe'): ROADMAP.md {_PARALLEL}")
+    if axes.get(PIPE_AXIS, 1) > 1 and axes.get(SEQ_AXIS, 1) > 1:
+        raise NotImplementedError(
+            "--mesh with both seq and pipe axes is not composable yet: the "
+            "ring attention's hops would have to run inside a pipeline "
+            "stage's forward and backward, as in the JAX package "
+            f"(parallel/pipeline.validate_pipeline_plan); ROADMAP.md "
+            f"{_PARALLEL}")
 
 
 class ElasticMeshError(ValueError):
@@ -162,11 +177,15 @@ class Mesh:
 
     ``axes``: ordered ``{name: size}``; ``rank``/``world``: the process's
     rank and the world size. ``data_group`` holds the ranks of this
-    process's ``data`` row (same seq index), ``seq_group`` those of its
-    ``seq`` ring (same data index), in coordinate order; each is None (the
-    whole world, or a group of one) when the other axis has size 1.
+    process's ``data`` row (same pipe and seq index), ``seq_group`` those
+    of its ``seq`` ring (same data index), ``pipe_group`` those of its
+    pipeline (same data index), in coordinate order; a group is None (the
+    whole world, or a group of one) when the other axes have size 1.
     ``seq_ranks`` are the global ranks of the ring, ``ring`` its transport
-    (``parallel.collectives.RingTransport``) when ``seq`` is > 1."""
+    (``parallel.collectives.RingTransport``) when ``seq`` is > 1;
+    ``pipe_ranks`` the global ranks of the pipeline, stage by stage, and
+    ``stage`` the transport to the neighbouring stages
+    (``parallel.collectives.StageTransport``) when ``pipe`` is > 1."""
 
     axes: Dict[str, int]
     rank: int = 0
@@ -175,6 +194,9 @@ class Mesh:
     seq_group: object = None
     seq_ranks: Tuple[int, ...] = (0,)
     ring: object = None
+    pipe_group: object = None
+    pipe_ranks: Tuple[int, ...] = (0,)
+    stage: object = None
 
     def axis_size(self, name: str) -> int:
         return int(self.axes.get(name, 1))
@@ -188,12 +210,20 @@ class Mesh:
         return self.axis_size(SEQ_AXIS)
 
     @property
+    def pipe_size(self) -> int:
+        return self.axis_size(PIPE_AXIS)
+
+    @property
     def data_index(self) -> int:
-        return self.rank // self.seq_size
+        return self.rank // self.seq_size % self.data_size
 
     @property
     def seq_index(self) -> int:
         return self.rank % self.seq_size
+
+    @property
+    def pipe_index(self) -> int:
+        return self.rank // (self.data_size * self.seq_size)
 
     def describe(self) -> Dict[str, int]:
         return {str(n): int(s) for n, s in self.axes.items()}
@@ -226,16 +256,27 @@ def build_mesh(spec: Optional[str] = None, *,
         raise ValueError(
             f"mesh {ordered} needs {mesh_spec.size} processes (one per "
             f"device); the world has {world} (--dist_world_size)")
+    K = ordered.get(PIPE_AXIS, 1)
     D, S = ordered.get(DATA_AXIS, 1), ordered.get(SEQ_AXIS, 1)
     mesh = Mesh(axes=ordered, rank=rank, world=world,
                 seq_ranks=tuple(range(rank - rank % S, rank - rank % S + S)))
-    if D > 1 and S > 1:   # with one axis of size 1, the other's is WORLD
+    row = D * S                 # the ranks of one pipeline stage
+    mesh.pipe_ranks = tuple(range(rank % row, world, row))
+    if D > 1 and (S > 1 or K > 1):   # with other axes of size 1, WORLD
         mesh.data_group = _groups(
-            [list(range(s, world, S)) for s in range(S)], rank)
+            [list(range(k * row + s, (k + 1) * row, S))
+             for k in range(K) for s in range(S)], rank)
+    if D > 1 and S > 1:
         mesh.seq_group = _groups(
             [list(range(d * S, d * S + S)) for d in range(D)], rank)
     if S > 1:
         mesh.ring = RingTransport(mesh.seq_ranks, rank)
-    logger.info("Built process mesh %s: rank %d at data %d, seq %d.",
-                ordered, rank, mesh.data_index, mesh.seq_index)
+    if K > 1:
+        if D > 1:
+            mesh.pipe_group = _groups(
+                [list(range(i, world, row)) for i in range(row)], rank)
+        mesh.stage = StageTransport(mesh.pipe_ranks, rank)
+    logger.info("Built process mesh %s: rank %d at data %d, seq %d%s.",
+                ordered, rank, mesh.data_index, mesh.seq_index,
+                f", pipe {mesh.pipe_index}" if K > 1 else "")
     return mesh

@@ -5,7 +5,9 @@ ZeRO-1 layout and ``describe()``, which checkpoints record as
 topology that wrote it in both packages). Under ``--elastic on``
 :meth:`ParallelPlan.elastic_from_spec` builds the mesh over the live
 processes, narrowing the requested ``data`` axis, and records the request
-(``requested_axes``, ``shrunk``)."""
+(``requested_axes``, ``shrunk``). With a ``pipe`` axis it names each
+stage's layers (:meth:`ParallelPlan.stage_map`) and plans ZeRO-1 within a
+stage's leaves (``zero1(..., stage_pipe=True)``, the JAX plan's)."""
 
 from __future__ import annotations
 
@@ -13,7 +15,15 @@ import dataclasses
 from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 from . import dist as pdist
-from .mesh import DATA_AXIS, SEQ_AXIS, Mesh, MeshSpec, build_mesh, elastic_axes
+from .mesh import (
+    DATA_AXIS,
+    PIPE_AXIS,
+    SEQ_AXIS,
+    Mesh,
+    MeshSpec,
+    build_mesh,
+    elastic_axes,
+)
 from .sharding import MIN_SIZE, ParamSlice, zero1_param_plan
 
 
@@ -68,6 +78,10 @@ class ParallelPlan:
         return self.axis_size(SEQ_AXIS)
 
     @property
+    def pipe_size(self) -> int:
+        return self.axis_size(PIPE_AXIS)
+
+    @property
     def single_device(self) -> bool:
         return self.mesh.world == 1
 
@@ -75,8 +89,19 @@ class ParallelPlan:
         """``{axis: size}`` in mesh order."""
         return self.mesh.describe()
 
+    def stage_map(self, num_layers: int) -> Dict[str, str]:
+        """``{"stage_k": "layer_lo..layer_hi"}``; empty without a pipe
+        axis > 1."""
+        from .pipeline import stage_map
+
+        return stage_map(int(num_layers), self.pipe_size)
+
     def zero1(self, named_shapes: Iterable[Tuple[str, Sequence[int]]], *,
-              min_size: int = MIN_SIZE) -> Dict[str, ParamSlice]:
-        """The per-parameter ZeRO-1 placement over the ``data`` axis."""
-        return zero1_param_plan(named_shapes, data_size=self.data_size,
-                                min_size=min_size)
+              min_size: int = MIN_SIZE,
+              stage_pipe: bool = False) -> Dict[str, ParamSlice]:
+        """The per-parameter ZeRO-1 placement over the ``data`` axis; with
+        ``stage_pipe`` the ``pipe`` axis claims its stage-scope dimension
+        first, so ``data`` is planned within a stage's leaves."""
+        return zero1_param_plan(
+            named_shapes, data_size=self.data_size, min_size=min_size,
+            pipe_size=self.pipe_size if stage_pipe else 1)

@@ -19,18 +19,33 @@ parameter on its flax shape and maps the axis onto the tensor.
 ``--zero1_overlap bucketed`` cuts the gradients into contiguous buckets
 over the JAX package's leaf order (:func:`tree_order`, :func:`leaf_sizes`,
 :func:`zero1_bucket_plan`).
+
+Under a ``pipe`` axis with the stage layout (``--pipe_param_sharding
+stage``) the plan runs within each stage's leaf set, as the JAX package's
+``stage_pipe`` plan does: a stage-scope leaf (:data:`STAGE_SCOPE_RE`, the
+embeddings and the encoder layers) gives its largest dimension that the
+pipe size divides to ``pipe`` first (never padded), and ``data`` lands on
+the remaining ones. The port stores a stage's leaves whole on the stage's
+own ranks, so the ``pipe`` claim shapes the checkpoint's pieces
+(``parallel/pipeline.py``) and keeps ``data`` off that dimension.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Iterable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .mesh import DATA_AXIS
+from .mesh import DATA_AXIS, PIPE_AXIS
 
 MIN_SIZE = 16384
+
+# flax paths of the leaves a pipeline stage owns alone: the embeddings
+# (stage 0) and each encoder layer (its stage); the pooler and the heads
+# are the last stage's, outside the stage scope (the JAX package's regex)
+STAGE_SCOPE_RE = re.compile(r"(^|/)transformer/(embeddings|layer_\d+)(/|$)")
 
 
 class ZeroLeafPlan(NamedTuple):
@@ -44,20 +59,34 @@ class ZeroLeafPlan(NamedTuple):
     padded: Optional[int]
 
 
+def _path_str(path) -> str:
+    if path is None:
+        return ""
+    return path if isinstance(path, str) else "/".join(str(p) for p in path)
+
+
 def _zero_leaf_plan(path, shape, *, data_size: int,
-                    min_size: int = MIN_SIZE) -> ZeroLeafPlan:
+                    min_size: int = MIN_SIZE,
+                    pipe_size: int = 1) -> ZeroLeafPlan:
     """The one dimension chooser (the JAX package's ``_zero_leaf_plan``
-    without tensor or pipeline axes, which the port refuses): the largest
-    dimension ``data_size`` divides, else the largest dimension (of at least
-    2) padded to the next multiple; replicated below ``min_size`` elements
-    or at ``data_size`` 1. ``path`` is accepted for the JAX signature's
-    sake; without tensor-parallel rules no decision reads it."""
-    del path
+    without the tensor-parallel rules, whose axis the port refuses): with
+    ``pipe_size > 1`` a stage-scope leaf (``path``, a flax path as a tuple
+    or an ``a/b/c`` string, matches :data:`STAGE_SCOPE_RE`) gives ``pipe``
+    its largest dimension that ``pipe_size`` divides; then the largest
+    remaining dimension ``data_size`` divides takes ``data``, else the
+    largest remaining dimension (of at least 2) padded to the next
+    multiple; ``data`` stays off below ``min_size`` elements or at
+    ``data_size`` 1."""
     shape = tuple(int(d) for d in shape)
     axes = [None] * len(shape)
+    if pipe_size > 1 and STAGE_SCOPE_RE.search(_path_str(path)):
+        pipe_free = [(dim, i) for i, dim in enumerate(shape)
+                     if dim % pipe_size == 0]
+        if pipe_free:
+            axes[max(pipe_free)[1]] = PIPE_AXIS
     if data_size <= 1 or int(np.prod(shape or (0,))) < min_size:
         return ZeroLeafPlan(tuple(axes), None, None)
-    free = [(dim, i) for i, dim in enumerate(shape)]
+    free = [(dim, i) for i, dim in enumerate(shape) if axes[i] is None]
     divisible = [(dim, i) for dim, i in free if dim % data_size == 0]
     if divisible:
         dim, i = max(divisible)
@@ -87,12 +116,21 @@ def _map(fn, tree: dict, *others):
             for key, value in tree.items()}
 
 
+def _map_with_path(fn, tree: dict, prefix=()):
+    return {key: (_map_with_path(fn, value, prefix + (str(key),))
+                  if isinstance(value, dict)
+                  else fn(prefix + (str(key),), value))
+            for key, value in tree.items()}
+
+
 def zero1_plan(tree: dict, *, data_size: int,
-               min_size: int = MIN_SIZE) -> dict:
+               min_size: int = MIN_SIZE, pipe_size: int = 1) -> dict:
     """One :class:`ZeroLeafPlan` per leaf of a nested dict of arrays (only
-    ``.shape`` is read), in the tree's structure."""
-    return _map(lambda leaf: _zero_leaf_plan(
-        None, np.shape(leaf), data_size=data_size, min_size=min_size), tree)
+    ``.shape`` is read), in the tree's structure; ``pipe_size`` > 1: the
+    stage layout's plan (the JAX package's ``stage_pipe``)."""
+    return _map_with_path(lambda path, leaf: _zero_leaf_plan(
+        path, np.shape(leaf), data_size=data_size, min_size=min_size,
+        pipe_size=pipe_size), tree)
 
 
 def _pad_leaf(x, z: ZeroLeafPlan):
@@ -119,26 +157,32 @@ def zero_unpad_tree(tree: dict, plan: dict, logical: dict) -> dict:
 
 
 def zero1_state_bytes(state_shapes: dict, *, data_size: int,
-                      min_size: int = MIN_SIZE) -> dict:
+                      min_size: int = MIN_SIZE, pipe_size: int = 1) -> dict:
     """Modeled optimizer-state bytes per rank at ``data_size``: every leaf
     whole (``replicated_bytes``), each planned leaf's padded slice and the
-    rest whole (``zero1_bytes``), and the whole bytes of the planned leaves
+    rest whole (``zero1_bytes``; with ``pipe_size`` > 1 each stage-scope
+    leaf also divided over its ``pipe`` dimension, as the JAX package
+    models it), and the whole bytes of the leaves that divide
     (``sharded_bytes``)."""
     data_size = max(1, int(data_size))
+    pipe_size = max(1, int(pipe_size))
     full = zero1 = sharded = 0
-    for _, leaf in _walk(state_shapes):
+    for path, leaf in _walk(state_shapes):
         shape = tuple(np.shape(leaf))
         size = np.dtype(getattr(leaf, "dtype", np.float32)).itemsize
         n = int(np.prod(shape or (1,), dtype=np.int64)) * size
-        z = _zero_leaf_plan(None, shape, data_size=data_size,
-                            min_size=min_size)
+        z = _zero_leaf_plan(path, shape, data_size=data_size,
+                            min_size=min_size, pipe_size=pipe_size)
         full += n
+        piece = [d // pipe_size if ax == PIPE_AXIS else d
+                 for d, ax in zip(shape, z.spec)]
         if z.axis is None:
-            zero1 += n
+            m = int(np.prod(piece or [1], dtype=np.int64)) * size
+            zero1 += m
+            sharded += n if m < n else 0
             continue
-        slice_shape = list(shape)
-        slice_shape[z.axis] = z.padded // data_size
-        zero1 += int(np.prod(slice_shape, dtype=np.int64)) * size
+        piece[z.axis] = z.padded // data_size
+        zero1 += int(np.prod(piece, dtype=np.int64)) * size
         sharded += n
     return {"data_size": data_size, "replicated_bytes": full,
             "zero1_bytes": zero1, "sharded_bytes": sharded}
@@ -175,16 +219,18 @@ def _is_kernel(name: str) -> bool:
 
 
 def zero1_param_plan(named_shapes: Iterable[Tuple[str, Sequence[int]]], *,
-                     data_size: int, min_size: int = MIN_SIZE
-                     ) -> Dict[str, ParamSlice]:
-    """:func:`_zero_leaf_plan` of each parameter on its flax shape, mapped
-    onto the port's tensor (a kernel's flax axis ``i`` is the weight's
-    ``ndim - 1 - i``)."""
+                     data_size: int, min_size: int = MIN_SIZE,
+                     pipe_size: int = 1) -> Dict[str, ParamSlice]:
+    """:func:`_zero_leaf_plan` of each parameter on its flax shape and path,
+    mapped onto the port's tensor (a kernel's flax axis ``i`` is the
+    weight's ``ndim - 1 - i``)."""
+    from ..models.convert import jax_path
+
     out = {}
     for name, shape in named_shapes:
         fshape = flax_shape(name, shape)
-        z = _zero_leaf_plan(None, fshape, data_size=data_size,
-                            min_size=min_size)
+        z = _zero_leaf_plan(jax_path(name), fshape, data_size=data_size,
+                            min_size=min_size, pipe_size=pipe_size)
         axis = z.axis
         if axis is not None and _is_kernel(name):
             axis = len(fshape) - 1 - axis

@@ -8,7 +8,8 @@ byte-level BPE (RoBERTa ``<pad>/</s>/<s>/<unk>``) with a uniform
 Backend selection: the C++ implementation (``native/qatok``) is used when its
 shared library has been built (~10x faster WordPiece, identical output);
 otherwise the pure-Python implementations in this package serve as both the
-behavioural spec and the fallback.
+behavioural spec and the fallback. Either choice is logged once, and
+``Tokenizer.backend`` names it (``'native'`` or ``'python'``).
 """
 
 from __future__ import annotations
@@ -71,6 +72,10 @@ class Tokenizer:
                         unk_token=self._unk_token,
                     )
                     logger.info("Using native C++ WordPiece backend.")
+                else:
+                    logger.info("Using the Python WordPiece backend: the "
+                                "native library is not built (make -C "
+                                "native).")
         elif model_name == "roberta":
             if merges_file is None:
                 raise AttributeError("To use the byte-level BPE tokenizer, specify a merges file.")
@@ -97,6 +102,12 @@ class Tokenizer:
 
     def __len__(self) -> int:
         return len(self.tokenizer)
+
+    @property
+    def backend(self) -> str:
+        """``'native'`` (the C++ library serves every ASCII text) or
+        ``'python'``."""
+        return "python" if self._native is None else "native"
 
     def encode(self, string: str) -> List[int]:
         # ASCII texts (the NQ hot path) take the C++ backend, whose semantics

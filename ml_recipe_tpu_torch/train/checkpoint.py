@@ -239,16 +239,25 @@ class Restored(NamedTuple):
 
 
 def load_training_state(path, *, model: nn.Module, optimizer=None,
-                        drop_optimizer: bool = False) -> Optional[Restored]:
+                        drop_optimizer: bool = False,
+                        only=None) -> Optional[Restored]:
     """Restore weights and, unless ``drop_optimizer``, the optimizer state
     (moments and counts) from a checkpoint of either package and either
     layout; returns its global step and, unless ``drop_optimizer``, its
     ``loss_scale`` group (None when it has none), or None (logged) when
-    there is no checkpoint to load."""
+    there is no checkpoint to load. ``only``: the parameter names to load
+    (a pipeline stage's), the others left as they are."""
     state = _read_resumable(os.fspath(path))
     if state is None:
         return None
-    model.load_state_dict(from_jax_params(state["model"]), strict=True)
+    weights = from_jax_params(state["model"])
+    if only is None:
+        model.load_state_dict(weights, strict=True)
+    else:
+        missing = [n for n in only if n not in weights]
+        if missing:
+            raise ValueError(f"{path}: checkpoint lacks {missing[:3]}")
+        model.load_state_dict({n: weights[n] for n in only}, strict=False)
     logger.info("Model weights were loaded from %s checkpoint.", path)
     if not drop_optimizer and optimizer is not None and \
             state.get("optimizer") is not None:
@@ -331,16 +340,20 @@ def _remove(path: str) -> None:
         os.remove(path)
 
 
-def snapshot_state_sharded(*, model: nn.Module, optimizer=None,
+def snapshot_state_sharded(*, model: nn.Module = None, optimizer=None,
                            loss_scale=None, global_step: int = 0,
                            extra: Optional[dict] = None,
                            process_index: int = 0, process_count: int = 1,
-                           copy: bool = False) -> dict:
+                           copy: bool = False,
+                           groups: Optional[dict] = None) -> dict:
     """This process's part of a sharded save on the host: the manifest
     and the pieces it owns (a replicated leaf is owned by process 0,
     recorded with ``shards`` 1; a ZeRO-1 leaf's pieces by the processes
     holding them, see the module docstring). ``copy`` as in
-    :func:`snapshot_state`."""
+    :func:`snapshot_state`. ``groups``: this process's groups as they
+    are, instead of ``model``'s and ``optimizer``'s (a pipeline stage's,
+    whose leaves are lists of :class:`LocalPiece`; the manifests are then
+    merged, :func:`merge_manifests`)."""
     step = int(global_step)
     manifest = {"format": SHARDED_FORMAT, "global_step": step,
                 "scheduler": {"last_step": step},
@@ -349,13 +362,12 @@ def snapshot_state_sharded(*, model: nn.Module, optimizer=None,
         manifest["extra"] = dict(extra)
     owned: dict = {}
     zero = getattr(optimizer, "zero", None) is not None
-    if process_index == 0:
+    if groups is None and process_index == 0:
         groups = _training_groups(model, optimizer, loss_scale, copy=copy,
                                   local=zero)
-    elif zero:
-        groups = {"optimizer": optimizer.flax_state(copy=copy, local=True)}
-    else:
-        groups = {}
+    elif groups is None:
+        groups = ({"optimizer": optimizer.flax_state(copy=copy, local=True)}
+                  if zero else {})
     for gname, tree in groups.items():
         leaves = manifest["groups"][gname] = {}
         for key, leaf in _flatten(tree).items():
@@ -363,14 +375,22 @@ def snapshot_state_sharded(*, model: nn.Module, optimizer=None,
                 leaves[key] = {"empty": True}
                 continue
             if isinstance(leaf, LocalPiece):
-                leaves[key] = {"shape": list(leaf.shape),
-                               "dtype": str(leaf.data.dtype),
-                               "shards": int(leaf.shards)}
-                if leaf.owner:
-                    data = np.ascontiguousarray(leaf.data)
-                    owned.setdefault(gname, {})[key] = [
-                        {"bounds": [list(b) for b in leaf.bounds],
-                         "data": data, "crc32": _crc32_of(data)}]
+                leaf = [leaf]
+            if isinstance(leaf, list):
+                leaves[key] = {"shape": list(leaf[0].shape),
+                               "dtype": str(leaf[0].data.dtype),
+                               "shards": int(leaf[0].shards)}
+                pieces = []
+                for piece in leaf:
+                    if piece.owner:
+                        data = np.ascontiguousarray(piece.data).reshape(
+                            np.shape(piece.data))
+                        pieces.append({"bounds": [list(b) for b in
+                                                  piece.bounds],
+                                       "data": data,
+                                       "crc32": _crc32_of(data)})
+                if pieces:
+                    owned.setdefault(gname, {})[key] = pieces
                 continue
             if process_index != 0:
                 continue
@@ -382,12 +402,30 @@ def snapshot_state_sharded(*, model: nn.Module, optimizer=None,
             leaves[key] = {"shape": list(arr.shape), "dtype": str(arr.dtype),
                            "shards": 1,
                            "crc32": _fold_piece_crcs([(bounds, crc)])}
-    manifest["shards"] = max([int(m.get("shards", 1)) for m in
-                              manifest["groups"].get("optimizer", {}).values()
-                              if not m.get("empty")] or [1])
+    manifest["shards"] = _widest_shards(manifest["groups"])
     return {"manifest": manifest, "owned": owned, "global_step": step,
             "process_index": int(process_index),
             "process_count": int(process_count)}
+
+
+def _widest_shards(groups: dict) -> int:
+    """The manifest's ``shards``: the widest optimizer leaf's piece count."""
+    return max([int(m.get("shards", 1)) for m in
+                groups.get("optimizer", {}).values()
+                if not m.get("empty")] or [1])
+
+
+def merge_manifests(snap: dict, manifest_groups) -> dict:
+    """``snap`` (process 0's :func:`snapshot_state_sharded`) with its
+    manifest's groups the union of every process's ``manifest_groups``
+    (a pipeline's stages each describe their own leaves)."""
+    merged: dict = {}
+    for groups in manifest_groups:
+        for gname, leaves in (groups or {}).items():
+            merged.setdefault(gname, {}).update(leaves)
+    snap["manifest"]["groups"] = merged
+    snap["manifest"]["shards"] = _widest_shards(merged)
+    return snap
 
 
 def persist_state_sharded(path, snap: dict) -> None:
@@ -486,6 +524,54 @@ def peek_mesh_axes(path) -> Optional[dict]:
         return None
     axes = extra.get("mesh_axes")
     return dict(axes) if axes else None
+
+
+def peek_checkpoint_layout(path) -> Optional[dict]:
+    """The layout of the checkpoint at ``path`` without loading a tensor of
+    a sharded directory (the JAX package's ``peek_checkpoint_layout``):
+    ``format``, ``global_step``, ``process_count``, ``shards`` (the widest
+    optimizer leaf's piece count), ``opt_sharding``, ``mesh_axes``,
+    ``pipe_schedule``, ``pipe_param_layout`` and ``groups`` (leaves per
+    group). A single file is read whole. None when there is no readable
+    checkpoint there."""
+    path = os.fspath(path)
+    if not os.path.exists(path):
+        _recover_interrupted_swap(path, path + ".saving", path + ".old")
+    if not os.path.exists(path):
+        return None
+    try:
+        if os.path.isdir(path):
+            manifest_path = os.path.join(path, MANIFEST)
+            if not os.path.exists(manifest_path):
+                return None
+            with open(manifest_path, "rb") as fh:
+                manifest = unpackb(fh.read())
+            extra = manifest.get("extra") or {}
+            return {"format": "sharded",
+                    "global_step": int(manifest.get("global_step", 0)),
+                    "process_count": int(manifest.get("process_count", 1)),
+                    "shards": int(manifest.get("shards", 1)),
+                    "opt_sharding": extra.get("opt_sharding"),
+                    "mesh_axes": extra.get("mesh_axes"),
+                    "pipe_schedule": extra.get("pipe_schedule"),
+                    "pipe_param_layout": extra.get("pipe_param_layout"),
+                    "groups": {g: len(leaves) for g, leaves in
+                               manifest.get("groups", {}).items()}}
+        with open(path, "rb") as fh:
+            state = unpackb(fh.read())
+        return {"format": "single_file",
+                "global_step": int(state.get("global_step", 0)),
+                "process_count": 1, "shards": 1,
+                "opt_sharding": state.get("opt_sharding"),
+                "mesh_axes": state.get("mesh_axes"),
+                "pipe_schedule": state.get("pipe_schedule"),
+                "pipe_param_layout": state.get("pipe_param_layout"),
+                "groups": {g: len(_flatten(state[g]))
+                           for g in ("model", "optimizer", "loss_scale")
+                           if isinstance(state.get(g), dict)}}
+    except Exception as e:  # noqa: BLE001 - torn/corrupt == not resumable
+        logger.warning(f"Could not peek checkpoint layout from {path}: {e!r}")
+        return None
 
 
 def _peek_global_step_once(path) -> Optional[int]:

@@ -127,13 +127,19 @@ def trainable_mask(names: Iterable[str],
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: List[torch.Tensor],
-                         max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         sum_over: Optional[Callable] = None) -> torch.Tensor:
     """Scale ``grads`` in place by ``max_norm / max(norm, max_norm)``
     (optax ``clip_by_global_norm``); returns the f32 global norm. No host
-    synchronisation."""
+    synchronisation. ``sum_over`` (a pipeline stage: its leaves are a part
+    of the model's) sums a tensor over the parts in place: the squares of
+    every part's leaf norms are summed before the root."""
     norms = torch._foreach_norm(grads)
-    norm = torch.linalg.vector_norm(torch.stack(norms))
+    if sum_over is None:
+        norm = torch.linalg.vector_norm(torch.stack(norms))
+    else:
+        sq = torch.stack(norms).square().sum().reshape(1)
+        norm = sum_over(sq).sqrt()[0]
     scale = max_norm / torch.clamp(norm, min=max_norm)
     torch._foreach_mul_(grads, scale)
     return norm
@@ -141,13 +147,15 @@ def clip_by_global_norm_(grads: List[torch.Tensor],
 
 @torch.no_grad()
 def clip_sliced_(grads: Dict[str, torch.Tensor], zero: Zero1,
-                 max_norm: float) -> torch.Tensor:
+                 max_norm: float,
+                 sum_over: Optional[Callable] = None) -> torch.Tensor:
     """:func:`clip_by_global_norm_` of the whole gradient on a ZeRO-1 rank
     that holds, by name, its padded slices of the sharded leaves and the
     whole other leaves (the bucketed exchange's result): the slices' sum of
     squares is summed over the ``data`` group (the pad region is zeros),
-    the whole leaves' added once. Scales ``grads`` in place; returns the
-    f32 global norm."""
+    the whole leaves' added once, and with ``sum_over`` the total summed
+    over a pipeline's stages. Scales ``grads`` in place; returns the f32
+    global norm."""
     sliced = [g for n, g in grads.items() if zero.sharded(n)]
     whole = [g for n, g in grads.items() if not zero.sharded(n)]
     device = next(iter(grads.values())).device
@@ -157,6 +165,8 @@ def clip_sliced_(grads: Dict[str, torch.Tensor], zero: Zero1,
     dist.all_reduce(sq, op=dist.ReduceOp.SUM, group=zero.group)
     if whole:
         sq += torch.stack(torch._foreach_norm(whole)).square().sum()
+    if sum_over is not None:
+        sq = sum_over(sq)
     norm = sq.sqrt()[0]
     scale = max_norm / torch.clamp(norm, min=max_norm)
     torch._foreach_mul_(list(grads.values()), scale)
@@ -178,7 +188,12 @@ def _update_moments(mus: List[torch.Tensor], nus: List[torch.Tensor],
 class _Chain:
     """What both chains share: the trainable f32 parameters by name, the
     schedule, the decay mask, and the optax layout around the core state
-    (``frozen`` is None without ``--finetune``, else the frozen names)."""
+    (``frozen`` is None without ``--finetune``, else the frozen names).
+    ``stage_local``: the chain holds one pipeline stage's parameters, so
+    :meth:`flax_state` is that part of the model's tree and
+    :meth:`load_flax_state` takes that part of a whole one."""
+
+    stage_local = False
 
     def __init__(self, params: Dict[str, torch.nn.Parameter], *,
                  schedule: Callable[[int], float], weight_decay: float,
@@ -270,6 +285,8 @@ class _Chain:
         ``reconcile_state_shapes``; the pad region holds zeros), then
         sliced for this rank."""
         moments = from_jax_params(tree)   # a {} leaf holds nothing
+        if self.stage_local:
+            moments = {n: m for n, m in moments.items() if n in self.params}
         if set(moments) != set(self.params):
             raise ValueError("checkpoint optimizer moments do not match the "
                              "model's trainable parameters")

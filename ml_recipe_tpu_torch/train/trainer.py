@@ -189,6 +189,7 @@ from ..metrics.trace import ProfilerWindow, time_profiler
 from ..ops import cuda_build
 from ..parallel import collectives
 from ..parallel import dist as pdist
+from ..parallel import pipeline
 from ..parallel.mesh import build_mesh
 from ..parallel.plan import ParallelPlan
 from ..parallel.sharding import (
@@ -210,13 +211,18 @@ from .writer import init_writer
 logger = logging.getLogger(__name__)
 
 
-def checkpoint_extra(mesh_axes=None, zero1: bool = False) -> dict:
+def checkpoint_extra(mesh_axes=None, zero1: bool = False,
+                     pipe_schedule: Optional[str] = None,
+                     pipe_param_layout: Optional[str] = None) -> dict:
     """Every checkpoint's topology record (the JAX trainer's
     ``_checkpoint_extra``): the optimizer layout that is live (``zero1``
-    only when it shards) and the mesh's axes (default ``data:1``)."""
+    only when it shards), the mesh's axes (default ``data:1``), and under a
+    ``pipe`` axis > 1 the schedule and the parameter layout (None
+    otherwise)."""
     return {"opt_sharding": "zero1" if zero1 else "off",
             "mesh_axes": dict(mesh_axes or {"data": 1}),
-            "pipe_schedule": None, "pipe_param_layout": None}
+            "pipe_schedule": pipe_schedule,
+            "pipe_param_layout": pipe_param_layout}
 
 
 def _console_str(meters: dict) -> str:
@@ -306,6 +312,8 @@ class Trainer:
         telemetry=None,
         trace_dir=None,
         hbm_preflight: bool = True,
+        pipe_schedule: str = "gpipe",
+        pipe_param_sharding=None,
     ):
         self.model = model
         self.device = model.device
@@ -367,6 +375,7 @@ class Trainer:
         self._exchange: Optional[collectives.BucketedExchange] = None
         self.in_step = False
         self.interrupt_pending = False
+        self._init_pipeline(model, pipe_schedule, pipe_param_sharding)
         if train_dataset is not None and (
                 train_batch_size % world
                 or (train_batch_size // world) % batch_split):
@@ -469,9 +478,10 @@ class Trainer:
                             f"{num_training_steps}. #Warmup steps: "
                             f"{int(num_training_steps * warmup_coef)}.")
             self.optimizer = build_optimizer(
-                trainer_params, dict(model.named_parameters()),
+                trainer_params, self._own_parameters(),
                 num_training_steps=num_training_steps, warmup_coef=warmup_coef,
                 zero=self._zero_layout(model))
+            self.optimizer.stage_local = self.pipe is not None
             if self.optimizer.zero is not None:
                 logger.info("ZeRO-1: optimizer state sharded over the %d-way "
                             "data axis (%.1f MB on this rank).", world,
@@ -489,8 +499,9 @@ class Trainer:
         self.global_step = 0
         self.writer = init_writer(self.is_primary, writer_dir)
         if self.process_count > 1:
-            # the replicas start equal (the reference's DDP wrapper)
-            collectives.broadcast_parameters(model.named_parameters())
+            if self.pipe is None:
+                # the replicas start equal (the reference's DDP wrapper)
+                collectives.broadcast_parameters(model.named_parameters())
             logger.info("Data parallel: process %d of %d, %d rows of every "
                         "global batch of %d, in %d micro-batches.",
                         self.process_index, self.process_count,
@@ -502,6 +513,68 @@ class Trainer:
                             self.plan.describe(), self.process_index,
                             self.mesh.data_index, self.mesh.seq_index,
                             self.seq_size)
+
+    def _init_pipeline(self, model, schedule, param_sharding) -> None:
+        """The ``pipe`` axis (``parallel/pipeline.py``): the schedule, this
+        rank's stage and its storage, the JAX trainer's start-up line with
+        the modeled bubble. Under ``stage`` the parameters of the other
+        stages are released, after one broadcast from rank 0 has made every
+        replica equal."""
+        self.pipe_stages = self.plan.pipe_size
+        self.pipe_schedule = str(schedule or "gpipe").strip().lower()
+        if self.pipe_schedule not in pipeline.PIPE_SCHEDULES:
+            raise ValueError(f"--pipe_schedule must be 'gpipe' or '1f1b', "
+                             f"got {schedule!r}")
+        layout = pipeline.resolve_param_layout(param_sharding,
+                                               self.pipe_stages)
+        self.pipe: Optional[pipeline.StageLayout] = None
+        self.pipe_runner: Optional[pipeline.PipelineStep] = None
+        if self.pipe_stages <= 1:
+            return
+        pipeline.validate_pipeline_plan(self.plan, model,
+                                        batch_split=self.batch_split,
+                                        schedule=self.pipe_schedule)
+        self.pipe = pipeline.StageLayout(model, stages=self.pipe_stages,
+                                         index=self.mesh.pipe_index,
+                                         layout=layout)
+        self.pipe_runner = pipeline.PipelineStep(
+            self.pipe, self.mesh.stage, schedule=self.pipe_schedule,
+            dtype=model.transformer.embeddings.word_embeddings.compute_dtype,
+            device=self.device)
+        if self.process_count > 1:
+            collectives.broadcast_parameters(model.named_parameters())
+        self.pipe.release(model)
+        logger.info(
+            "Pipeline parallelism: %d stages x %d layers over the pipe axis, "
+            "%s schedule over %d micro-batch(es) (modeled bubble %.1f%%, "
+            "stage-local params %s); this rank is stage %d (layers %d..%d).",
+            self.pipe_stages, self.pipe.hi - self.pipe.lo, self.pipe_schedule,
+            self.batch_split, 100.0 * pipeline.modeled_bubble_fraction(
+                self.pipe_stages, self.batch_split, self.pipe_schedule),
+            "on" if layout == "stage" else "off", self.pipe.index,
+            self.pipe.lo, self.pipe.hi - 1)
+
+    @property
+    def pipe_param_layout(self) -> Optional[str]:
+        """``'stage'`` or ``'replicated'`` under a pipe axis > 1, else
+        None."""
+        return None if self.pipe is None else self.pipe.layout
+
+    def _own_parameters(self) -> Dict[str, torch.nn.Parameter]:
+        """The parameters this rank trains: all of them, or under a pipe
+        axis its stage's."""
+        named = dict(self.model.named_parameters())
+        if self.pipe is None:
+            return named
+        return {n: named[n] for n in self.pipe.owned}
+
+    def _stored_parameters(self) -> List[torch.Tensor]:
+        """The parameters this rank stores (``meta`` ones hold nothing)."""
+        return [p for p in self.model.parameters() if p.device.type != "meta"]
+
+    def _pipe_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over this rank's ``pipe`` group, in place."""
+        return collectives.all_reduce_sum_(t, self.mesh.pipe_group)
 
     def zero_enabled(self) -> bool:
         """``zero1`` requested and a data axis > 1 to shard over (at data
@@ -516,8 +589,9 @@ class Trainer:
         if not self.zero_enabled():
             return None
         plan = self.plan.zero1(
-            ((n, p.shape) for n, p in model.named_parameters()),
-            min_size=self.zero_min_size)
+            ((n, p.shape) for n, p in self._own_parameters().items()),
+            min_size=self.zero_min_size,
+            stage_pipe=self.pipe_param_layout == "stage")
         return Zero1(plan, index=self.mesh.data_index,
                      size=self.plan.data_size, group=self.mesh.data_group,
                      owner=self.mesh.seq_index == 0)
@@ -538,6 +612,13 @@ class Trainer:
             logger.info("zero1_overlap=bucketed on a seq mesh: each rank's "
                         "gradient sums over the whole world, seq included, "
                         "in one exchange; bucketing is inert.")
+            return []
+        if self.pipe is not None:
+            logger.info("zero1_overlap=bucketed under pipeline parallelism: "
+                        "the pipelined backward yields each stage's whole "
+                        "gradient at the schedule's end, with nothing left "
+                        "to overlap; bucketing is inert (0 buckets), as in "
+                        "the JAX trainer.")
             return []
         named = dict(model.named_parameters())
         names = tree_order(named)
@@ -653,11 +734,16 @@ class Trainer:
         return (place(b) for b in loader), None
 
     def _seq_consistent(self, tensors: dict) -> dict:
-        """With a ``seq`` axis, the first rank's batch on every rank of its
-        ``seq`` group (broadcast): the group computes blocks of one set of
-        rows, whatever a rank's own dataset drew (a chunk sampler without a
-        seed draws per process). Raises when the ranks' shapes differ."""
-        if self.seq_size < 2:
+        """With a ``seq`` (or ``pipe``) axis, the first rank's batch on every
+        rank of its ``seq`` (``pipe``) group (broadcast): the group computes
+        blocks (stages) of one set of rows, whatever a rank's own dataset
+        drew (a chunk sampler without a seed draws per process). Raises
+        when the ranks' shapes differ."""
+        if self.pipe is not None:
+            ranks, group = self.mesh.pipe_ranks, self.mesh.pipe_group
+        elif self.seq_size > 1:
+            ranks, group = self.mesh.seq_ranks, self.mesh.seq_group
+        else:
             return tensors
         flat = [(part, key) for part in ("inputs", "labels")
                 for key in sorted(tensors[part])]
@@ -665,15 +751,13 @@ class Trainer:
                                for d in (len(tensors[part][key].shape),
                                          *tensors[part][key].shape)])
         mine = shapes.clone()
-        collectives.broadcast_(shapes, self.mesh.seq_ranks[0],
-                               self.mesh.seq_group)
+        collectives.broadcast_(shapes, ranks[0], group)
         if not torch.equal(shapes, mine):
             raise RuntimeError(
-                f"the ranks of seq group {self.mesh.seq_ranks} drew batches "
-                f"of different shapes; they must hold one set of rows")
+                f"the ranks of group {ranks} drew batches of different "
+                f"shapes; they must hold one set of rows")
         for part, key in flat:
-            collectives.broadcast_(tensors[part][key], self.mesh.seq_ranks[0],
-                                   self.mesh.seq_group)
+            collectives.broadcast_(tensors[part][key], ranks[0], group)
         return tensors
 
     def _model_inputs(self, inputs: Dict[str, torch.Tensor]) -> dict:
@@ -696,9 +780,26 @@ class Trainer:
         return next_batch_split(self.train_batch_size, self.batch_split,
                                 process_count=data, data_size=data)
 
+    def _pipe_fields(self) -> dict:
+        """The pipeline's fields of the pre-flight reports (the JAX
+        trainer's ``_preflight_pipe_fields``): the
+        schedule, the layout, each stage's layers and each stage's bytes in
+        the ownership view (None without a pipe axis > 1)."""
+        if self.pipe is None:
+            return {"pipe_schedule": None, "pipe_param_layout": None,
+                    "pipe_stage_layers": None, "pipe_stage_param_bytes": None}
+        return {
+            "pipe_schedule": self.pipe_schedule,
+            "pipe_param_layout": self.pipe.layout,
+            "pipe_stage_layers": self.plan.stage_map(self.pipe.num_layers),
+            "pipe_stage_param_bytes": pipeline.stage_param_bytes(
+                pipeline.shape_tree(self.pipe.shapes),
+                pipe_size=self.pipe_stages)["per_stage_bytes"],
+        }
+
     def _preflight_fields(self, limit: int) -> dict:
-        """The fields both pre-flight reports share (the JAX trainer's,
-        pipeline fields None: the port has no pipeline axis)."""
+        """The fields both pre-flight reports share (the JAX trainer's):
+        the parameter bytes this rank stores, and the pipeline's."""
         return {
             "limit_bytes": int(limit),
             "batch_split_before": self.batch_split,
@@ -710,11 +811,8 @@ class Trainer:
             "opt_state_bytes_per_chip": (
                 opt_state_bytes_per_chip(self.optimizer)
                 if self.optimizer is not None else None),
-            "param_bytes": hbm.tensor_bytes(self.model.parameters()),
-            "pipe_schedule": None,
-            "pipe_param_layout": None,
-            "pipe_stage_layers": None,
-            "pipe_stage_param_bytes": None,
+            "param_bytes": hbm.tensor_bytes(self._stored_parameters()),
+            **self._pipe_fields(),
         }
 
     def _probe_step(self, inputs: Dict[str, torch.Tensor],
@@ -729,7 +827,7 @@ class Trainer:
         rows = int(inputs["input_ids"].shape[0])
         micro = rows // self.batch_split
         world = self.plan.data_size
-        model, params = self.model, list(self.model.parameters())
+        model, params = self.model, self._stored_parameters()
         cpu_rng = torch.random.get_rng_state()
         cuda_rng = (torch.cuda.get_rng_state(self.device)
                     if self.device.type == "cuda" else None)
@@ -741,6 +839,11 @@ class Trainer:
                                         + list(labels.values())))
 
         def fwd_bwd():
+            if self.pipe is not None:
+                self._pipe_micro_batches(
+                    {k: v[:micro] for k, v in inputs.items()},
+                    {k: v[:micro] for k, v in labels.items()}, 1)
+                return
             gen = step_generators(self.seed, self.global_step, 1,
                                   self.device)[0]
             preds = model(**self._model_inputs(
@@ -950,6 +1053,8 @@ class Trainer:
         if rows % self.batch_split:
             raise ValueError(f"batch of {rows} rows does not split into "
                              f"{self.batch_split} micro-batches")
+        if self.pipe is not None:
+            return self._pipe_train_step(inputs, labels)
         micro = rows // self.batch_split
         world, S = self.plan.data_size, self.seq_size
         model, params = self.model, self.optimizer.params
@@ -1035,6 +1140,160 @@ class Trainer:
             out["loss_scale"] = self.loss_scale.scale
             out["grads_finite"] = float(finite)
         return out
+
+    def _pipe_micro_batches(self, inputs: Dict[str, torch.Tensor],
+                            labels: Dict[str, torch.Tensor],
+                            batch_split: int) -> Dict[str, torch.Tensor]:
+        """This stage's part of ``batch_split`` micro-batches' forward and
+        backward on the schedule (``parallel/pipeline.PipelineStep``): the
+        embeddings on stage 0, the stage's layers, and on the last stage
+        the heads and the loss, each loss over its global denominators
+        (summed over the last stage's ``data`` group). Dropout draws from
+        the per-(micro-batch, layer) generators of
+        ``pipeline.step_generator``. Returns the last stage's summed values
+        (empty on the others)."""
+        lay, model = self.pipe, self.model
+        rows = inputs["input_ids"].shape[0]
+        micro = rows // batch_split
+        D = self.plan.data_size
+        global_rows = (self.mesh.data_index * micro, D * micro) if D > 1 \
+            else None
+        x_all = self._model_inputs(inputs)
+        x_of = [{k: v[i * micro:(i + 1) * micro] for k, v in x_all.items()}
+                for i in range(batch_split)]
+        labels_of = [{k: v[i * micro:(i + 1) * micro]
+                      for k, v in labels.items()} for i in range(batch_split)]
+        denominators = None
+        if lay.last and D > 1:
+            denominators = collectives.all_reduce_sum_(torch.stack(
+                [self.loss.denominators(t) for t in labels_of]),
+                self.mesh.data_group)
+        step, scale = self.global_step, self.loss_scale
+        summed: Dict[str, torch.Tensor] = {}
+
+        def gen(i: int, slot: int) -> torch.Generator:
+            return pipeline.step_generator(self.seed, step, i, slot,
+                                           self.device)
+
+        def forward(i: int, h: Optional[torch.Tensor]):
+            x = x_of[i]
+            mask = x["attention_mask"]
+            if lay.first:
+                h = model.embed(x["input_ids"], x["token_type_ids"],
+                                gen(i, 0), global_rows, x.get("position_ids"))
+            y = model.layers(h, mask, lay.lo, lay.hi,
+                             lambda li: gen(i, 1 + li), global_rows,
+                             x.get("segment_ids"))
+            if not lay.last:
+                return y
+            preds = model.tail(y, mask, gen(i, 1 + lay.num_layers),
+                               global_rows, x.get("segment_ids"),
+                               x.get("segment_starts"))
+            total, values = self.loss(
+                preds, labels_of[i],
+                None if denominators is None else denominators[i])
+            for k, v in values.items():
+                v = v.detach().float()
+                summed[k] = summed[k] + v if k in summed else v
+            return (total if scale is None
+                    else ls_lib.scale_loss(total, scale))
+
+        L = x_all["input_ids"].shape[1]
+        H = model.cfg.hidden_size
+        self.pipe_runner.run(batch_split, forward, lambda i: (micro, L, H))
+        return summed
+
+    def _pipe_train_step(self, inputs: Dict[str, torch.Tensor],
+                         labels: Dict[str, torch.Tensor]) -> dict:
+        """:meth:`train_step` of one pipeline stage: the schedule's
+        micro-batches (:meth:`_pipe_micro_batches`), then the stage's
+        gradients summed over its ``data`` group, scaled by
+        ``1/batch_split``, clipped by the norm of the whole model's
+        gradient (each stage's squares summed over the ``pipe`` group), and
+        the stage's update; under ``replicated`` each stage's updated
+        parameters are then broadcast over the ``pipe`` group. The logged
+        values are the last stage's, summed over the world."""
+        model, params = self.model, self.optimizer.params
+        model.train()
+        for p in params.values():
+            p.grad = None
+        summed = self._pipe_micro_batches(inputs, labels, self.batch_split)
+        keys = list(self.loss.keys) + ["loss"]
+        values = torch.stack([summed.get(k, torch.zeros((), device=self.device))
+                              for k in keys]).float()
+        if self.process_count > 1:
+            # the last stage's values; the other stages add zeros
+            collectives.all_reduce_sum_(values)
+        if self.plan.data_size > 1:
+            collectives.all_reduce_gradients(params.items(),
+                                             group=self.mesh.data_group)
+        inv = 1.0 / self.batch_split
+        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+                 for n, p in params.items()}
+        torch._foreach_mul_(list(grads.values()), inv)
+        scale, finite = self.loss_scale, True
+        if scale is not None:
+            ls_lib.unscale_(list(grads.values()), scale)
+            # every stage checked its own leaves: agree on the flag
+            flag = collectives.all_reduce_sum_(torch.tensor(
+                [float(not ls_lib.all_finite(list(grads.values())))],
+                device=self.device))
+            finite = not bool(flag.item())
+            lr = self.optimizer.lr()
+        else:
+            lr = self.optimizer.schedule(self.global_step)
+        if finite:
+            if self.max_grad_norm is not None and self.max_grad_norm > 0:
+                clip_by_global_norm_(list(grads.values()), self.max_grad_norm,
+                                     sum_over=self._pipe_sum)
+            self.optimizer.step(grads)
+            if self.pipe.layout == "replicated":
+                self._share_stage_parameters()
+        out = {k: float(v * inv) for k, v in zip(keys, values)}
+        out["lr"] = lr
+        if scale is not None:
+            self.loss_scale = ls_lib.update_state(scale, finite)
+            out["loss_scale"] = self.loss_scale.scale
+            out["grads_finite"] = float(finite)
+        return out
+
+    def _share_stage_parameters(self) -> None:
+        """``replicated``: every stage's parameters broadcast from the
+        stage's rank over the ``pipe`` group, so each rank holds the whole
+        updated model."""
+        named = dict(self.model.named_parameters())
+        for k, src in enumerate(self.mesh.pipe_ranks):
+            collectives.broadcast_parameters(
+                ((n, named[n]) for n in named if self.pipe.owner[n] == k),
+                src=src, group=self.mesh.pipe_group)
+
+    def _pipe_eval(self, inputs: Dict[str, torch.Tensor]) -> dict:
+        """The eval forward of a pipeline, the batch as one micro-batch; the
+        last stage's predictions reach every rank of the ``pipe`` group
+        (the JAX pipeline returns its outputs to every rank too)."""
+        lay, model = self.pipe, self.model
+        x = self._model_inputs(inputs)
+        mask = x["attention_mask"]
+
+        def forward(_, h):
+            if lay.first:
+                h = model.embed(x["input_ids"], x["token_type_ids"],
+                                position_ids=x.get("position_ids"))
+            y = model.layers(h, mask, lay.lo, lay.hi,
+                             segment_ids=x.get("segment_ids"))
+            if not lay.last:
+                return y
+            return model.tail(y, mask, segment_ids=x.get("segment_ids"),
+                              segment_starts=x.get("segment_starts"))
+
+        B, L = x["input_ids"].shape
+        out = self.pipe_runner.run(1, forward,
+                                   lambda _: (B, L, model.cfg.hidden_size),
+                                   train=False)
+        box = [{k: v.cpu() for k, v in out[0].items()} if lay.last else None]
+        torch.distributed.broadcast_object_list(
+            box, src=self.mesh.pipe_ranks[-1], group=self.mesh.pipe_group)
+        return {k: v.to(self.device) for k, v in box[0].items()}
 
     # -- train loop ------------------------------------------------------------
 
@@ -1257,7 +1516,8 @@ class Trainer:
                     tick(f"eval step {i} (epoch {epoch_i})")
                     tensors = self._seq_consistent(placed.ready())
                     inputs, labels = tensors["inputs"], tensors["labels"]
-                    preds = self.model(**self._model_inputs(inputs))
+                    preds = (self._pipe_eval(inputs) if self.pipe is not None
+                             else self.model(**self._model_inputs(inputs)))
                     if self.plan.data_size > 1:
                         # every data rank's rows, in order: the global batch
                         preds, labels = (
@@ -1343,8 +1603,100 @@ class Trainer:
     def _save_kwargs(self) -> dict:
         return dict(model=self.model, optimizer=self.optimizer,
                     loss_scale=self.loss_scale, global_step=self.global_step,
-                    extra=checkpoint_extra(self.plan.describe(),
-                                           self.zero_enabled()))
+                    extra=checkpoint_extra(
+                        self.plan.describe(), self.zero_enabled(),
+                        self.pipe_schedule if self.pipe is not None else None,
+                        self.pipe_param_layout))
+
+    def _pipe_groups(self, *, copy: bool, local: bool) -> dict:
+        """This stage's part of the checkpoint's groups. With ``local`` (a
+        sharded save) each leaf is a list of :class:`LocalPiece` in the JAX
+        stage layout's geometry (``StageLayout.pieces``): a stage's
+        parameters and its whole moments are written by its ``data`` index
+        0 rank, a ZeRO-1 moment's slices by every rank of the stage, the
+        counts and the loss-scale state by rank 0. Without it, the stage's
+        whole leaves (every rank of the stage takes part in the ZeRO-1
+        gather) for rank 0 to merge."""
+        from ..models.convert import jax_path, to_jax_params
+        from ..parallel.sharding import LocalPiece
+
+        lay, named = self.pipe, dict(self.model.named_parameters())
+        writer = self.mesh.data_index == 0
+        groups = {}
+        if writer or local:
+            groups["model"] = to_jax_params(
+                {n: named[n] for n in lay.owned}, copy=copy)
+        if self.optimizer is not None:
+            groups["optimizer"] = self.optimizer.flax_state(copy=copy,
+                                                            local=local)
+        if self.loss_scale is not None and self.is_primary:
+            groups["loss_scale"] = self.loss_scale.state_dict()
+        if not local:
+            return groups
+        names = {jax_path(n): n for n in lay.owned}
+
+        def cut(path, leaf):
+            name = next((names[path[j:]] for j in range(len(path))
+                         if path[j:] in names), None)
+            if name is None:   # a count: the same on every stage
+                return [LocalPiece(np.shape(leaf), tuple(
+                    (0, int(d)) for d in np.shape(leaf)), np.asarray(leaf),
+                    1, self.is_primary)]
+            if not isinstance(leaf, LocalPiece):
+                arr = np.asarray(leaf)
+                leaf = LocalPiece(arr.shape, tuple((0, int(d))
+                                                   for d in arr.shape),
+                                  arr, 1, writer)
+            return lay.pieces(name, leaf)
+
+        def walk(tree, prefix=()):
+            return {k: (walk(v, prefix + (k,)) if isinstance(v, dict) and v
+                        else v if isinstance(v, dict)
+                        else cut(prefix + (k,), v)) for k, v in tree.items()}
+
+        return {g: (walk(t) if g != "loss_scale" else t)
+                for g, t in groups.items()}
+
+    def _save_pipe(self, path, *, copy: bool = False):
+        """The pipeline's save: the sharded directory's part of this
+        process (the manifests merged on rank 0), or the single file's
+        state merged on rank 0 (None elsewhere). Every process calls it."""
+        import torch.distributed as dist
+
+        kw = self._save_kwargs()
+        if self.sharded_checkpoint:
+            snap = ckpt.snapshot_state_sharded(
+                groups=self._pipe_groups(copy=copy, local=True),
+                global_step=kw["global_step"], extra=kw["extra"],
+                process_index=self.process_index,
+                process_count=self.process_count)
+            metas = [None] * self.process_count if self.is_primary else None
+            dist.gather_object(snap["manifest"]["groups"], metas, dst=0)
+            return (ckpt.merge_manifests(snap, metas) if self.is_primary
+                    else snap)
+        parts = [None] * self.process_count if self.is_primary else None
+        dist.gather_object(self._pipe_groups(copy=copy, local=False), parts,
+                           dst=0)
+        if not self.is_primary:
+            return None
+        merged: dict = {}
+
+        def merge(dst, src):
+            for k, v in src.items():
+                if isinstance(v, dict) and isinstance(dst.get(k), dict):
+                    merge(dst[k], v)
+                else:
+                    dst.setdefault(k, v)
+
+        for part in parts:
+            merge(merged, part)
+        state = {"model": merged["model"],
+                 "optimizer": merged.get("optimizer"),
+                 "scheduler": {"last_step": int(kw["global_step"])},
+                 "global_step": int(kw["global_step"]), **kw["extra"]}
+        if "loss_scale" in merged:
+            state["loss_scale"] = merged["loss_scale"]
+        return state
 
     def save_state_dict(self, path) -> None:
         """A checkpoint at ``path``: the single file by rank 0, or the
@@ -1366,7 +1718,13 @@ class Trainer:
                 trace_mod.span("checkpoint_save", cat="train",
                                args={"path": str(path),
                                      "step": self.global_step}):
-            if self.sharded_checkpoint:
+            if self.pipe is not None:
+                state = self._save_pipe(path)
+                if self.sharded_checkpoint:
+                    ckpt.persist_state_sharded(path, state)
+                elif self.is_primary:
+                    ckpt.persist_state(path, state)
+            elif self.sharded_checkpoint:
                 ckpt.save_state_dict_sharded(
                     path, process_index=self.process_index,
                     process_count=self.process_count, **self._save_kwargs())
@@ -1387,6 +1745,8 @@ class Trainer:
         which must not run on a background thread beside the step's
         collectives: it stays synchronous (logged once), the JAX trainer's
         rule (``ml_recipe_tpu/train/trainer.py`` ``_async_supported``)."""
+        if self.pipe is not None:
+            return False   # the stages' merge is a collective
         if not (self.sharded_checkpoint and self.process_count > 1):
             return True
         if not self._async_fallback_logged:
@@ -1493,7 +1853,9 @@ class Trainer:
                             args={"path": str(path)}):
             restored = ckpt.load_training_state(
                 path, model=self.model, optimizer=self.optimizer,
-                drop_optimizer=self.drop_optimizer)
+                drop_optimizer=self.drop_optimizer,
+                only=(self.pipe.owned if self.pipe_param_layout == "stage"
+                      else None))
         if self.telemetry is not None:
             self.telemetry.observe_checkpoint_restore(time.perf_counter() - t0)
         if restored is None:
@@ -1510,7 +1872,7 @@ class Trainer:
                                "scaling state.")
             else:
                 self.loss_scale = saved
-        if self.process_count > 1:
+        if self.process_count > 1 and self.pipe is None:
             collectives.broadcast_parameters(self.model.named_parameters())
 
     def close(self) -> None:

@@ -1691,3 +1691,53 @@ def test_preflight_under_a_lowered_process_cap_drops_and_raises_the_split(
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     assert "CAPPED " in proc.stdout, proc.stdout[-3000:]
     print(proc.stdout.strip().splitlines()[-1])    # the needs and decisions
+
+
+# -- pipeline parallelism on the card ------------------------------------------
+
+@pytest.mark.cuda
+def test_pipe_pair_on_the_card_equals_the_one_process_step(cuda, tmp_path):
+    """Two pipeline stages share the card (``pipe:2``, gloo on CUDA tensors,
+    the tiny trainer of ``tests/test_torch_pipeline_worker.py``: kernel attention and
+    LayerNorm on both stages): the step's values, gradients and parameters
+    are the one-process step's on the same batch. At m = 8 the 1F1B step
+    peaks below GPipe's on each stage (it holds at most 2 micro-batches'
+    activations, GPipe all 8)."""
+    import sys
+    from pathlib import Path
+
+    import torch_ddp_worker as worker
+    import test_torch_pipeline_worker as pw
+
+    out = tmp_path / "card"
+    out.mkdir()
+    for rc, err in worker.run_pairs(lambda rank, port: [
+            sys.executable, str(Path(pw.__file__)), "card", str(rank), "2",
+            str(port), str(out), "cuda"])[0]:
+        assert rc == 0, err[-3000:]
+    pipe = [torch.load(out / f"gpipe2_rank{r}.pt") for r in range(2)]
+    oracle = worker.tiny_trainer(tmp_path, "cuda", dropout=0.0,
+                                 batch_split=2)
+    grads = {}
+    clip = pw.capture_clip(oracle, grads)
+    try:
+        inputs, labels = ({k: v.cuda() for k, v in part.items()}
+                          for part in pipe[0]["batches"][0])
+        values = oracle.train_step(inputs, labels)
+    finally:
+        pw.trainer_module.clip_by_global_norm_ = clip
+    for key, ref in values.items():
+        np.testing.assert_allclose(pipe[0]["values"][0][key], ref, rtol=1e-4,
+                                   err_msg=key)
+    got = {**pipe[0]["grads"], **pipe[1]["grads"]}
+    assert set(got) == set(grads)
+    assert worker.rel_l2(got, grads) <= DP_GRAD_REL_L2
+    whole = {**pipe[0]["params"], **pipe[1]["params"]}
+    for name, p in oracle.model.named_parameters():
+        np.testing.assert_allclose(whole[name], p.detach().cpu(), atol=1e-5,
+                                   err_msg=name)
+    for rank in range(2):
+        g8 = torch.load(out / f"gpipe8_rank{rank}.pt")
+        f8 = torch.load(out / f"1f1b8_rank{rank}.pt")
+        assert (g8["in_flight"], f8["in_flight"]) == (8, 2 - rank)
+        assert f8["peak"] < g8["peak"], (rank, f8["peak"], g8["peak"])

@@ -421,11 +421,12 @@ def _world_args(tmp_path, *extra):
     # ZeRO-1 and its bucketed overlap (tests/test_torch_zero1.py,
     # tests/test_torch_zero1_overlap.py), the data and seq axes and the
     # ring (tests/test_torch_sp_train.py) and the elastic world override
-    # (tests/test_torch_elastic.py) are ported and accepted; the pipe and
-    # model axes are still refused
+    # (tests/test_torch_elastic.py) and the pipe axis
+    # (tests/test_torch_pipeline.py) are ported and accepted; the model
+    # axis is still refused
     (["--optimizer_sharding", "zero1", "--zero1_overlap", "bucketed"], False),
     (["--shard_optimizer", "--zero1_overlap", "bucketed"], False),
-    (["--mesh", "data:1,pipe:2"], True), (["--zero1_overlap", "bucketed"], False),
+    (["--mesh", "data:1,pipe:2"], False), (["--zero1_overlap", "bucketed"], False),
     (["--flash_attention", "ring", "--mesh", "seq:1,model:2"], True),
     ([], False)], ids=[
     "zero1", "shard_optimizer", "mesh", "zero1_overlap", "ring", "elastic"])

@@ -72,6 +72,7 @@ def test_no_port_module_imports_jax_or_the_jax_package():
                    "data/synthetic.py", "utils/pipeline.py",
                    "data/packing.py", "parallel/__init__.py",
                    "parallel/dist.py", "parallel/collectives.py",
+                   "parallel/pipeline.py",
                    "models/hf_convert.py", "train/loss_scale.py",
                    "resilience/__init__.py",
                    "resilience/checkpoint_async.py",

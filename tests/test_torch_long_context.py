@@ -83,6 +83,18 @@ from ml_recipe_tpu_torch.train.trainer import Trainer, step_generators
 
 from helpers import write_vocab
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_cpu_thread():
+    """One intra-op thread for this module's tiny models (the processes it
+    starts get ``OMP_NUM_THREADS=1``): the test workers share the host's
+    cores, and more threads a process only oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = Path(__file__).resolve().parents[1]
 
 F32_ATOL = 1e-5

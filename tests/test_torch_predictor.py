@@ -25,9 +25,11 @@ package's, on the CPU.
   the predictor flags the port lacks raise naming ROADMAP.
 """
 
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 from pathlib import Path
 from types import SimpleNamespace
@@ -74,6 +76,17 @@ REPO = Path(__file__).resolve().parents[1]
 MAX_SEQ_LEN, MAX_Q_LEN = 64, 16
 # f32 on both sides, other summation orders: ~1e-6 on O(1) logits
 SCORE_ATOL = 1e-4
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_cpu_thread():
+    """One intra-op thread for this module's tiny models (the processes it
+    starts get ``OMP_NUM_THREADS=1``): the test workers share the host's
+    cores, and more threads a process only oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -344,11 +357,36 @@ def test_nq_trainer_losses_match_jax_trainer(setup):
 
 # -- the CLIs -------------------------------------------------------------------------
 
+_ENV = dict(os.environ, OMP_NUM_THREADS="1")
+
+
+def _start(module, *args):
+    """A CLI run in a process of its own, its stderr into a file (several
+    run side by side)."""
+    err = tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-m", module, *args],
+                            cwd=str(REPO), env=_ENV,
+                            stdout=subprocess.DEVNULL, stderr=err, text=True)
+    return proc, err
+
+
+def _finish(started):
+    proc, err = started
+    try:
+        proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    err.seek(0)
+    log = err.read()
+    err.close()
+    assert proc.returncode == 0, log[-4000:]
+    return log
+
+
 def _run(module, *args):
-    res = subprocess.run([sys.executable, "-m", module, *args], cwd=str(REPO),
-                         capture_output=True, text=True, timeout=300)
-    assert res.returncode == 0, res.stderr[-4000:]
-    return res.stderr
+    return _finish(_start(module, *args))
 
 
 def _metrics(text):
@@ -371,8 +409,25 @@ def cli_run(setup):
         "--train_batch_size", "8", "--test_batch_size", "4", "--batch_split",
         "2", "--lr", "1e-3", "--warmup_coef", "0.1", "--seed", "0",
         "--length_buckets", "auto", "--device_prefetch", "2")
-    return SimpleNamespace(common=common, train_log=train_log,
-                           ckpt=dump / "nq" / "last.ch")
+    ckpt = dump / "nq" / "last.ch"
+    # the three readers of last.ch run side by side
+    procs = {"train_metrics": _start(
+        "ml_recipe_tpu_torch.cli.train_metrics", *common, "--max_seq_len",
+        str(MAX_SEQ_LEN), "--doc_stride", "16", "--split_by_sentence",
+        "--truncate", "--checkpoint", str(ckpt), "--batch_size", "4",
+        "--length_buckets", "auto")}
+    # init_validation_dataset chunks at the dataset's own max_seq_len 384,
+    # as the JAX package's does: the collate takes 384 too
+    for name, extra in _VALIDATE.items():
+        procs[name] = _start("ml_recipe_tpu_torch.cli.validate", *common,
+                             "--max_seq_len", "384", "--checkpoint", str(ckpt),
+                             "--batch_size", "2", *extra)
+    logs = {name: _finish(proc) for name, proc in procs.items()}
+    return SimpleNamespace(common=common, train_log=train_log, ckpt=ckpt,
+                           logs=logs)
+
+
+_VALIDATE = {"bf16": [], "int8": ["--quantize", "int8", "--ln_impl", "fused"]}
 
 
 def test_cli_trains_on_a_corpus_and_train_metrics_reproduces_it(cli_run):
@@ -380,11 +435,7 @@ def test_cli_trains_on_a_corpus_and_train_metrics_reproduces_it(cli_run):
     assert "LR schedule sized from the planned epoch step count" in cli_run.train_log
     train_lines = _metrics(cli_run.train_log)
     assert len(train_lines) == 2 and cli_run.ckpt.exists()
-    log = _run("ml_recipe_tpu_torch.cli.train_metrics", *cli_run.common,
-               "--max_seq_len", str(MAX_SEQ_LEN), "--doc_stride", "16",
-               "--split_by_sentence", "--truncate", "--checkpoint",
-               str(cli_run.ckpt), "--batch_size", "4", "--length_buckets",
-               "auto")
+    log = cli_run.logs["train_metrics"]
     assert log.index("Train dataset validation") < log.index(
         "Test dataset validation")
     lines = _metrics(log)
@@ -393,20 +444,15 @@ def test_cli_trains_on_a_corpus_and_train_metrics_reproduces_it(cli_run):
     assert lines[1] == train_lines[-1]
 
 
-@pytest.mark.parametrize("extra", [[], ["--quantize", "int8", "--ln_impl",
-                                         "fused"]], ids=["bf16", "int8"])
+@pytest.mark.parametrize("extra", list(_VALIDATE), ids=list(_VALIDATE))
 def test_cli_validate_scores_every_document(cli_run, extra):
-    # init_validation_dataset chunks at the dataset's own max_seq_len 384,
-    # as the JAX package's does: the collate takes 384 too
-    log = _run("ml_recipe_tpu_torch.cli.validate", *cli_run.common,
-               "--max_seq_len", "384", "--checkpoint", str(cli_run.ckpt),
-               "--batch_size", "2", *extra)
+    log = cli_run.logs[extra]
     m = re.search(r"Validation: (\d+) of (\d+) documents, (\d+) chunks in "
                   r"(\d+) batches, (\d+) candidates", log)
     assert m, log[-2000:]
     docs, total, chunks, batches, _ = map(int, m.groups())
     assert docs == total > 0 and chunks >= docs and batches >= 1
-    if extra:
+    if _VALIDATE[extra]:
         assert "Post-training quantization (int8)" in log
 
 

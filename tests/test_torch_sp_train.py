@@ -27,8 +27,8 @@ sequence), 2 debug steps of 2 micro-batches. Then:
 - both ranks of the ``seq`` group end with equal parameters;
 - ``config/longdoc.cfg`` runs through ``cli.train`` as two ranks
   (bert-tiny flags), ring attention auto-selected; its flags pass
-  ``check_train_flags``, while ``model``/``pipe`` axes and
-  ``--zero1_overlap bucketed`` are still refused, naming the item.
+  ``check_train_flags`` (``--zero1_overlap bucketed`` inert), while a
+  ``model`` axis and ``pipe`` beside ``seq`` are refused, naming the item.
 """
 
 import concurrent.futures
@@ -200,7 +200,9 @@ def _flags(tmp, *extra, world=2):
 
 
 @pytest.mark.parametrize("extra,refused", [
-    (["--mesh", "data:1,seq:2,model:1"], True), (["--mesh", "pipe:2"], True),
+    (["--mesh", "data:1,seq:2,model:1"], True),
+    # pipe is ported, but not beside seq (as in the JAX package)
+    (["--mesh", "pipe:2,seq:2"], True),
     # accepted: bucketing is inert on a seq mesh (the trainer logs so)
     (["--zero1_overlap", "bucketed"], False)],
     ids=["model", "pipe", "zero1_overlap"])

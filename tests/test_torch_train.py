@@ -26,6 +26,7 @@ Tolerances are f32: both sides compute in float32, in other summation
 orders (matmuls, softmax and norm reductions), ~1e-7 relative per op.
 """
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -81,6 +82,18 @@ from ml_recipe_tpu_torch.train.optim import AdamW, build_optimizer, clip_by_glob
 from ml_recipe_tpu_torch.train.trainer import Trainer
 
 from helpers import write_vocab
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_cpu_thread():
+    """One intra-op thread for this module's tiny models (the processes it
+    starts get ``OMP_NUM_THREADS=1``): the test workers share the host's
+    cores, and more threads a process only oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -463,7 +476,8 @@ def test_cli_trains_two_debug_steps_on_the_cpu(tmp_path):
     res = subprocess.run(
         [sys.executable, "-m", "ml_recipe_tpu_torch.cli.train",
          *_cli_args(tmp_path)],
-        cwd=str(REPO), capture_output=True, text=True, timeout=300)
+        cwd=str(REPO), capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stderr.count("Training was interrupted because of debug mode") == 2
     assert res.stderr.count("Test metrics after epoch") == 2
@@ -473,8 +487,8 @@ def test_cli_trains_two_debug_steps_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag,refused", [
-    # the data and seq axes are ported (tests/test_torch_sp_train.py);
-    # tensor and pipeline parallelism are not
+    # the data, seq and pipe axes are ported (tests/test_torch_sp_train.py,
+    # tests/test_torch_pipeline.py); tensor parallelism is not
     (["--mesh", "data:1,model:2"], True),
     # ZeRO-1 across processes and its bucketed overlap are ported
     # (tests/test_torch_zero1.py, tests/test_torch_zero1_overlap.py)
@@ -486,7 +500,7 @@ def test_cli_trains_two_debug_steps_on_the_cpu(tmp_path):
     # supervisor among them (test_torch_elastic.py)
     (["--elastic", "on"], False),
     (["--elastic", "on", "--supervise", "--goodput_ledger"], False),
-    (["--mesh", "pipe:1"], True), (["--zero1_overlap", "bucketed"], False),
+    (["--mesh", "pipe:1"], False), (["--zero1_overlap", "bucketed"], False),
 ])
 def test_unported_train_flags_raise(tmp_path, flag, refused):
     _, (params, model_params) = get_params(

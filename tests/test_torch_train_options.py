@@ -82,6 +82,17 @@ FLAGS = ("finetune_transformer", "finetune_position", "finetune_position_reg",
          "finetune_class")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_cpu_thread():
+    """One intra-op thread for this module's tiny models (the processes it
+    starts get ``OMP_NUM_THREADS=1``): the test workers share the host's
+    cores, and more threads a process only oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _tp(**kw):
     base = dict(loss="smooth", smooth_alpha=0.01, focal_alpha=1.0,
                 focal_gamma=2.0, w_start=1, w_end=1, w_start_reg=0.5,
