@@ -213,7 +213,8 @@ Phases, each fatal on failure (exit code 1, and no result line):
     corpus, sampler and seed) instead of tokenizing the items again;
 15. sequence parallelism and ZeRO-1: the script starts itself again as
     two ranks of ``cli.train`` (``--sp-worker``, gloo on the card):
-    ``config/longdoc.cfg --dummy_dataset --debug --seed 7`` (bert-base,
+    ``config/longdoc.cfg --dummy_dataset --debug --seed 7`` (bert-base's
+    widths cut to SP_LAYERS layers, as every run of the phase,
     ``mesh=data:1,seq:2``, 8192 tokens, ``--remat``, dropout 0.1: each
     rank holds 2x4096 of every 2x8192 micro-batch, every attention a ring
     over the two ranks whose hops stage through pinned host buffers).
@@ -291,7 +292,8 @@ Phases, each fatal on failure (exit code 1, and no result line):
     bursts' p50.
 18. the elastic pod and bucketed ZeRO-1 (``phase_elastic``):
     ``config/test_bert.cfg``'s 2 debug steps as two gloo ranks of the CLI
-    on ``--mesh data:2``, ZeRO-1 with ``--zero1_overlap off``, with
+    on ``--mesh data:2`` (bert-base's widths at EL_PAIR_LAYERS layers),
+    ZeRO-1 with ``--zero1_overlap off``, with
     ``bucketed`` and without ZeRO-1: off bit-identical to the replicated
     pair, bucketed within the ZeRO-1 pins of off (losses ``rtol`` 2e-5,
     parameters ``atol`` 5e-5), the bucket count and step walls printed.
@@ -309,10 +311,11 @@ Phases, each fatal on failure (exit code 1, and no result line):
     attempts launching the attention and LayerNorm kernels.
 19. pipeline parallelism (``phase_pipeline``): ``config/test_bert.cfg``'s
     2 debug steps with ``--ln_impl fused`` and dropout 0 as two gloo ranks
-    of the CLI on ``--mesh pipe:2`` (stage 0 the embeddings and layers
-    0..5, stage 1 layers 6..11 and the heads), on GPipe and then on 1F1B,
-    and in this process at ``data:1``: each rank's launches equal its
-    stage's path (6 attention and 13 or 12 LayerNorm launches per
+    of the CLI on ``--mesh pipe:2`` (bert-base's widths at PP_LAYERS
+    layers: stage 0 the embeddings and layers 0..1, stage 1 layers 2..3
+    and the heads), on GPipe and then on 1F1B, and in this process at
+    ``data:1``: each rank's launches equal its stage's path (2 attention
+    and 5 or 4 LayerNorm launches per
     micro-batch and eval batch forward, as many backward per
     micro-batch), GPipe and 1F1B within PP_SCHEDULE_TOL, pipe:2 against
     one process within PP_LOSS_REL_TOL and PP_UPDATE_REL_TOL; per rank
@@ -323,6 +326,31 @@ Phases, each fatal on failure (exit code 1, and no result line):
     --sharded_checkpoint`` as four ranks for one debug step and its save,
     which must peek as the stage layout with 4-way pieces and reload in
     one process bit for bit.
+20. tensor parallelism (``phase_tensor_parallel``):
+    ``config/test_bert.cfg --ln_impl fused --train_batch_size 64
+    --batch_split 2 --test_batch_size 4`` (bert-base at full width and
+    depth, dropout 0.1, 2 debug steps of 2 micro-batches of 32x512) as two
+    gloo ranks of the CLI
+    on ``--mesh model:2`` (6 heads and 1536 MLP columns a rank), and at 2
+    layers in f32 on the plain attention and LayerNorm, each against the
+    same in this process at ``data:1``: f32 within TP_F32_LOSS_RTOL and
+    TP_F32_GRAD_REL (loss, whole gradient at the first clip), bf16 within
+    TP_BF16_LOSS_RTOL (loss); each rank's launches its path's (12
+    attention and 25 LayerNorm launches per micro-batch and eval batch,
+    backward per micro-batch) and 2 forward and 2 backward all-reduces a
+    layer through the host. Then ``--mesh data:2,model:2
+    --optimizer_sharding zero1 --sharded_checkpoint`` at 4 layers as four
+    ranks for one debug step and its save, which must peek ``mesh_axes``
+    {data: 2, model: 2} with 4-way pieces and reload in one process bit
+    for bit. Per rank: step walls and their all-reduce seconds, the
+    transport's all-reduces, bytes and seconds, parameter and moment
+    bytes, peak CUDA memory. Phases 19 and 20 run in a process of their own
+    (``--side-phases``) beside phases 10 and 11, whose gates hold numbers,
+    not times; their walls are taken beside those phases. Then, on the
+    card alone, both attention kernels at a model:2 rank's shape
+    (32x512x6x64 bf16, dropout 0.1 at the rank's seed offset, whose
+    dropout uniforms are one process's for its heads bit for bit) against
+    their plain versions, timed beside sdpa.
 
 It then prints one ``{"kernels": [...]}`` line (the attention kernels'
 lines carry the tensor-core kernels' resources and every timed shape's
@@ -1682,10 +1710,11 @@ def _time_data_waits(trainer) -> list:
     return waits
 
 
-def _run_training(torch, cfg: str, extra=(), setup=None):
+def _run_training(torch, cfg: str, extra=(), setup=None, layers: int = 12):
     """``config/<cfg>`` (or the cfg file at the path ``cfg``) with ``extra``
     flags through the trainer and model parsers, ``check_train_flags`` and the build and train sequence of
-    ``ml_recipe_tpu_torch.cli.train``. The launch counts are set to 0 just
+    ``ml_recipe_tpu_torch.cli.train``, bert-base cut to ``layers`` encoder
+    layers (:func:`_shallow`; 12: as built). The launch counts are set to 0 just
     before ``train`` and read just after; ``setup(trainer)`` runs before
     that, and the data waits of the run's training steps are kept in
     ``trainer.data_waits``. Returns the trainer, the trainer flags, every
@@ -1699,7 +1728,8 @@ def _run_training(torch, cfg: str, extra=(), setup=None):
     params, model_params = _train_flags(cfg_path, extra)
     check_train_flags(params, model_params)
     t0 = time.perf_counter()
-    trainer = train_cli.build_trainer(params, model_params)
+    with _shallow(layers if layers != 12 else 0):
+        trainer = train_cli.build_trainer(params, model_params)
     model = trainer.model
     say(f"training {cfg}: {model_params.model} {model.cfg.num_layers} layers "
         f"hidden {model.cfg.hidden_size} compute {model.dtype} params "
@@ -1710,7 +1740,7 @@ def _run_training(torch, cfg: str, extra=(), setup=None):
         f"(of it {trainer.plan_seconds:.2f}s planning "
         f"{trainer.planned_steps_per_epoch} steps/epoch over the training "
         f"items)")
-    if (model.cfg.num_layers != 12 or model.dtype != torch.bfloat16
+    if (model.cfg.num_layers != layers or model.dtype != torch.bfloat16
             or any(p.dtype != torch.float32 for p in model.parameters())):
         fail(f"the {cfg} training configuration is not bert-base with bf16 "
              f"compute and f32 master weights")
@@ -2291,13 +2321,13 @@ def phase_nq_corpus(torch):
     from ml_recipe_tpu_torch.data.datasets import ChunkDataset
     from ml_recipe_tpu_torch.data.preprocessor import RawPreprocessor
     from ml_recipe_tpu_torch.data.synthetic import write_nq_corpus
-    from ml_recipe_tpu_torch.tokenizer import (
-        Tokenizer, write_synthetic_bert_vocab)
+    from ml_recipe_tpu_torch.tokenizer import Tokenizer
 
     nq = OUT_DIR / "nq"
     shutil.rmtree(nq, ignore_errors=True)
     nq.mkdir(parents=True)
-    vocab = write_synthetic_bert_vocab(OUT_DIR / "vocab.txt")
+    # written when missing: phases 19 and 20's ranks run beside this phase
+    vocab = str(_vocab())
     t0 = time.perf_counter()
     corpus = write_nq_corpus(nq / "corpus.jsonl", vocab, n_docs=NQ_DOCS,
                              seed=0, min_words=NQ_WORDS[0],
@@ -4630,6 +4660,9 @@ SP_RUNS = {"longdoc": LONGDOC, "zero1": ZERO1,
 # O(1)
 SP_LOSS_REL_TOL = 5e-3
 SP_GRAD_REL_TOL = TRAIN_GRAD_REL_TOL
+# encoder layers of phase 15's runs (the widths kept): a ring hop and a
+# ZeRO-1 slice do not depend on the depth
+SP_LAYERS = 4
 
 
 def sp_worker(kind: str, rank: int, port: int) -> int:
@@ -4689,7 +4722,8 @@ def sp_worker(kind: str, rank: int, port: int) -> int:
              str(SP_WORLD), "--local_rank", str(rank), "--dist_init_method",
              f"tcp://127.0.0.1:{port}"])
         params.n_jobs = max(1, min(params.n_jobs, (os.cpu_count() or 2) // 4))
-        trainer = train_cli.build_trainer(params, model_params)
+        with _shallow(SP_LAYERS):
+            trainer = train_cli.build_trainer(params, model_params)
         capture.update((0, trainer.model.cfg.num_layers - 1))
         ring_stats = {}
         if trainer.mesh.ring is not None:
@@ -4937,7 +4971,8 @@ def _reload_zero1_at_one_process(torch, digest: str):
     path = SP_DIR / "zero1" / "ckpt"
     params, model_params = _train_flags(REPO / "config" / "long_context.cfg",
                                         ZERO1[2:])
-    trainer = train_cli.build_trainer(params, model_params)
+    with _shallow(SP_LAYERS):
+        trainer = train_cli.build_trainer(params, model_params)
     trainer.drop_optimizer = False
     t0 = time.perf_counter()
     trainer.load_state_dict(path)
@@ -5026,7 +5061,8 @@ def phase_sequence_parallel(torch, fa, bw, flops):
     store = {}
     with _pre_clip_grads(torch, store):
         trainer, _, one, one_wall = _run_training(
-            torch, "longdoc.cfg", [*LONGDOC[2:], "--mesh", "data:1"])
+            torch, "longdoc.cfg", [*LONGDOC[2:], "--mesh", "data:1"],
+            layers=SP_LAYERS)
     one_steps = [(h["loss"], h["seconds"]) for h in trainer.history]
     want1 = {k: v // S for k, v in want.items()}
     del trainer
@@ -5067,6 +5103,7 @@ def phase_sequence_parallel(torch, fa, bw, flops):
     zero, off = _sp_records("zero1"), _sp_records("off")
     whole = off[0]["opt_bytes"]      # off keeps every moment whole
     zmicro = len(zero[0]["steps"]) * zero[0]["batch_split"]
+    layers = zero[0]["layers"]
     zwant = {"fused_attention_fwd": layers * (zmicro + zero[0]["eval_batches"]),
              "fused_attention_bwd": layers * zmicro, "layer_norm_fwd": 0,
              "layer_norm_bwd": 0, "q8_matmul": 0, "q8_quantize": 0}
@@ -6086,6 +6123,8 @@ ZERO1_RTOL, ZERO1_PARAMS_ATOL = 2e-5, 5e-5
 # and without ZeRO-1
 DRILL_KERNELS = ("fused_attention_fwd", "fused_attention_bwd",
                  "layer_norm_fwd", "layer_norm_bwd")
+# encoder layers of 18a's runs (the widths kept)
+EL_PAIR_LAYERS = 4
 EL_PAIRS = {
     "off": ["--optimizer_sharding", "zero1", "--zero1_overlap", "off"],
     "bucketed": ["--optimizer_sharding", "zero1", "--zero1_overlap",
@@ -6141,7 +6180,8 @@ def el_worker(rank: int, port: int) -> int:
             params.n_jobs = max(1, min(params.n_jobs,
                                        (os.cpu_count() or 2) // 4))
             t0 = time.perf_counter()
-            trainer = train_cli.build_trainer(params, model_params)
+            with _shallow(EL_PAIR_LAYERS):
+                trainer = train_cli.build_trainer(params, model_params)
             start = flat(trainer.model)
             probe = _count_probes(trainer)
             zero_counts()               # the main path starts here
@@ -6460,7 +6500,11 @@ PP_RUNS = {"gpipe": (2, ["--mesh", "pipe:2"]),
 # the worlds the runs take, one after another in each: 19a's two schedules
 # share one pair of processes
 PP_WORLDS = {"schedules": ("gpipe", "1f1b"), "zero1": ("zero1",)}
-PP_STAGE_LN = (13, 12)        # LayerNorms a forward runs on stage 0 and 1
+# encoder layers of phase 19's runs (the widths kept): a stage's hand-offs
+# do not depend on the depth
+PP_LAYERS = 4
+# LayerNorms a forward runs on stage 0 (with the embeddings') and 1
+PP_STAGE_LN = (PP_LAYERS + 1, PP_LAYERS)
 # GPipe against 1F1B: both run the backwards in micro-batch order, so the
 # steps agree bit for bit under deterministic cuBLAS; the gate allows the
 # f32 rounding of a changed summation order and no more
@@ -6527,7 +6571,8 @@ def _pp_run_one(torch, kind: str, rank: int, port: int) -> None:
          f"tcp://127.0.0.1:{port}"])
     params.n_jobs = max(1, min(params.n_jobs, (os.cpu_count() or 2)
                                // (2 * world)))
-    trainer = train_cli.build_trainer(params, model_params)
+    with _shallow(PP_LAYERS):
+        trainer = train_cli.build_trainer(params, model_params)
     if kind == "zero1":
         trainer.n_epochs = 1
     lay, stage = trainer.pipe, trainer.mesh.stage
@@ -6631,7 +6676,7 @@ def _pp_join(procs: dict, deadline: float) -> None:
 
 def _pp_want(rec: dict) -> dict:
     """A stage's launches on test_bert.cfg's path: its layers' attention
-    (and 13 or 12 LayerNorms: the embeddings' on stage 0) per micro-batch
+    (and PP_STAGE_LN LayerNorms: the embeddings' on stage 0) per micro-batch
     forward and eval batch, the same per micro-batch backward."""
     layers = rec["layers"][1] - rec["layers"][0]
     ln = PP_STAGE_LN[rec["stage"]]
@@ -6718,7 +6763,8 @@ def _pp_reload(torch, recs: list) -> None:
     layout = peek_checkpoint_layout(path)
     params, model_params = _train_flags(REPO / "config" / "test_bert.cfg",
                                         PP_BASE[2:])
-    trainer = train_cli.build_trainer(params, model_params)
+    with _shallow(PP_LAYERS):
+        trainer = train_cli.build_trainer(params, model_params)
     trainer.drop_optimizer = False
     t0 = time.perf_counter()
     trainer.load_state_dict(path)
@@ -6757,11 +6803,12 @@ def phase_pipeline(torch):
     """Phase 19: pipeline parallelism on the card (``--mesh pipe:2``).
 
     19a. ``config/test_bert.cfg --seed 0 --ln_impl fused`` with dropout 0
-    (bert-base, 2 debug steps of 256x512 in 8 micro-batches of 32x512, 11
-    eval batches after each) as two ranks of ``cli.train`` (``--pp-worker
-    schedules``, gloo on the card: stage 0 the embeddings and layers 0..5,
-    stage 1 layers 6..11, the pooler, the heads and the loss), on GPipe and
-    then on 1F1B in the same pair, and in this process at ``data:1``
+    (2 debug steps of 256x512 in 8 micro-batches of 32x512, 11 eval
+    batches after each) as two ranks of ``cli.train`` (``--pp-worker
+    schedules``, gloo on the card; bert-base's widths at PP_LAYERS layers:
+    stage 0 the embeddings and layers 0..1, stage 1 layers 2..3, the
+    pooler, the heads and the loss), on GPipe and then on 1F1B in the same
+    pair, and in this process at ``data:1``
     (beside 19b's ranks): each rank's launches equal
     its stage's path, the two schedules' losses and final parameters agree
     within PP_SCHEDULE_TOL (bit for bit printed), and pipe:2 against the
@@ -6780,12 +6827,10 @@ def phase_pipeline(torch):
     Returns the launch counts by path."""
     import shutil
 
-    from ml_recipe_tpu_torch.tokenizer import write_synthetic_bert_vocab
-
     t_phase = time.perf_counter()
     shutil.rmtree(PP_DIR, ignore_errors=True)
     PP_DIR.mkdir(parents=True)
-    write_synthetic_bert_vocab(OUT_DIR / "vocab.txt")
+    _vocab()
     deadline = time.monotonic() + PP_DEADLINE_S
     _pp_join(_pp_world("schedules"), deadline)
     runs = {k: _pp_records(k) for k in ("gpipe", "1f1b")}
@@ -6807,7 +6852,8 @@ def phase_pipeline(torch):
     torch.cuda.reset_peak_memory_stats()
     try:
         trainer, _, one, one_wall = _run_training(torch, "test_bert.cfg",
-                                                  PP_BASE[2:])
+                                                  PP_BASE[2:],
+                                                  layers=PP_LAYERS)
         one_losses = [h["loss"] for h in trainer.history]
         final = {n: p.detach().cpu()
                  for n, p in trainer.model.named_parameters()}
@@ -6853,6 +6899,654 @@ def phase_pipeline(torch):
             "pipe:2 1f1b": total(runs["1f1b"]),
             "pipe:2 one process": one,
             "data:2,pipe:2 zero1": total(zero)}
+
+
+# -- phase 20: tensor parallelism ---------------------------------------------
+
+TP_DIR = OUT_DIR / "tp"
+TP_DEADLINE_S = 420
+# test_bert.cfg at full width (bert-base: 12 heads of 64, intermediate
+# 3072, bf16 compute, f32 master weights), the fused LayerNorm, dropout
+# live (the cfg's 0.1), cut to 2 debug steps of 64 rows in 2 micro-batches
+# of 32x512 and eval batches of 4 rows (each eval forward's 24 all-reduces
+# cross the host)
+TP_BASE = ["-c", str(REPO / "config" / "test_bert.cfg"), "--seed", "0",
+           "--ln_impl", "fused", "--train_batch_size", "64",
+           "--batch_split", "2", "--test_batch_size", "4"]
+# phase 20's runs: (ranks, flags, encoder layers). 20a: model:2 in bf16 on
+# the kernels at 12 layers, and in f32 on the plain attention and
+# LayerNorm at 2 (the exact gate); 20b: data:2,model:2 with ZeRO-1 at 4
+# layers for one debug step, then a sharded save
+TP_RUNS = {"bf16": (2, ["--mesh", "model:2"], 12),
+           "f32": (2, ["--mesh", "model:2", "--compute_dtype", "float32",
+                       "--flash_attention", "xla", "--ln_impl", "xla"], 2),
+           "zero1": (4, ["--mesh", "data:2,model:2", "--optimizer_sharding",
+                         "zero1", "--sharded_checkpoint"], 4)}
+TP_WORLDS = {"pair": ("bf16", "f32"), "zero1": ("zero1",)}
+# model:2 against one process on the same rows and dropout draws. f32: the
+# same function in another summation order (a row-split product's two
+# partial sums, the clip's split sum of squares): the JAX package's TP pins
+# are 2e-5 on a CPU; bf16: a rank rounds each partial product to bf16
+# before the all-reduce sums them, one process rounds the whole product
+# once, and 12 post-LN layers carry that into the loss
+TP_F32_LOSS_RTOL = 1e-5
+TP_F32_GRAD_REL = 1e-5
+TP_BF16_LOSS_RTOL = 1e-2
+TP_HEADS = H // 2              # a rank's heads at model:2
+
+
+@contextmanager
+def _shallow(layers: int):
+    """Every ``QAModel`` built inside is cut to ``layers`` encoder layers
+    (the widths kept); 0 or the preset's depth: unchanged."""
+    import dataclasses
+
+    from ml_recipe_tpu_torch.models import qa_model
+
+    init = qa_model.QAModel.__init__
+
+    def shallow(self, cfg, *args, **kwargs):
+        init(self, dataclasses.replace(cfg, num_layers=layers) if layers
+             else cfg, *args, **kwargs)
+
+    qa_model.QAModel.__init__ = shallow
+    try:
+        yield
+    finally:
+        qa_model.QAModel.__init__ = init
+
+
+def _tp_capture(torch, trainer, store: dict) -> None:
+    """The trainer's first clip stores the whole gradient it is handed
+    (each split leaf's slices gathered over the ``model`` group), flattened
+    in sorted name order on the CPU: the same layout one process's
+    :func:`_tp_capture` stores."""
+    from ml_recipe_tpu_torch.train import trainer as trainer_module
+
+    clip = trainer_module.clip_by_global_norm_
+    names = list(trainer.optimizer.params)
+    split = trainer.tp
+
+    def capture(tensors, max_norm, **kw):
+        if "grads" not in store:
+            whole = {n: (split.gather(n, g) if split is not None else g)
+                     for n, g in zip(names, tensors)}
+            store["grads"] = torch.cat([whole[n].detach().float().reshape(-1)
+                                        for n in sorted(whole)]).cpu()
+        return clip(tensors, max_norm, **kw)
+
+    trainer_module.clip_by_global_norm_ = capture
+
+
+def tp_worker(world_kind: str, rank: int, port: int) -> int:
+    """One rank of phase 20's world ``world_kind`` (TP_WORLDS): joins it on
+    card 0 over gloo and runs its runs one after another
+    (:func:`_tp_run_one`)."""
+    import gc
+
+    import torch
+
+    from ml_recipe_tpu_torch.parallel import dist as pdist
+
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr)
+    _register_kernels()
+    world = TP_RUNS[TP_WORLDS[world_kind][0]][0]
+    torch.cuda.set_device(0)
+    pdist.initialize_distributed(
+        init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank,
+        backend="gloo", device=torch.device("cuda", 0))
+    try:
+        for kind in TP_WORLDS[world_kind]:
+            _tp_run_one(torch, kind, rank, port)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        pdist.shutdown()
+    return 0
+
+
+def _tp_flags(kind: str, extra=()):
+    """Phase 20's ``kind`` flags (TP_RUNS) over TP_BASE."""
+    return [*TP_BASE, *TP_RUNS[kind][1], *extra]
+
+
+def _tp_run_one(torch, kind: str, rank: int, port: int) -> None:
+    """One rank of phase 20's ``kind`` run through ``cli.train``'s parse,
+    ``build_trainer`` and ``train`` (its model cut to the run's depth),
+    counts and the model group's transport statistics set to 0 just before
+    ``train`` and read just after (less the pre-flight's probes). Writes
+    ``TP_DIR/<kind>/rank<r>.json``: each step's wall and all-reduce
+    seconds, the transport's totals, launches, peak memory, parameter and
+    moment bytes, the first batch's digest, the first step's loss, and the
+    whole gradient at the first clip (``grads.pt``, rank 0); ``zero1``
+    runs one step, writes its sharded checkpoint and records the digest of
+    every whole parameter."""
+    from ml_recipe_tpu_torch.cli import train as train_cli
+    from ml_recipe_tpu_torch.config.parser import (
+        get_model_parser, get_params, get_trainer_parser)
+    from ml_recipe_tpu_torch.parallel.sharding import opt_state_bytes_per_chip
+
+    world, _, layers = TP_RUNS[kind]
+    out = TP_DIR / kind
+    out.mkdir(parents=True, exist_ok=True)
+    _, (params, model_params) = get_params(
+        (get_trainer_parser, get_model_parser),
+        [*_tp_flags(kind), "--vocab_file", str(OUT_DIR / "vocab.txt"),
+         "--dump_dir", str(out / "results"), "--dist_world_size",
+         str(world), "--local_rank", str(rank), "--dist_init_method",
+         f"tcp://127.0.0.1:{port}"])
+    params.n_jobs = max(1, min(params.n_jobs, (os.cpu_count() or 2)
+                               // (2 * world)))
+    with _shallow(layers):
+        trainer = train_cli.build_trainer(params, model_params)
+    if kind == "zero1":
+        trainer.n_epochs = 1
+    transport = trainer.mesh.model_transport
+    first = {}
+    _tp_capture(torch, trainer, first)
+    per_step = []
+    step = trainer.train_step
+
+    def timed(inputs, labels):
+        if "digest" not in first:
+            first["digest"] = _tensor_digest(inputs["input_ids"])
+        torch.cuda.synchronize()
+        t0, s0 = time.perf_counter(), transport.stats["seconds"]
+        values = step(inputs, labels)
+        torch.cuda.synchronize()
+        per_step.append((time.perf_counter() - t0,
+                         transport.stats["seconds"] - s0))
+        return values
+
+    trainer.train_step = timed
+    probe = _count_probes(trainer)
+    transport.reset()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()               # the main path starts here
+    t0 = time.perf_counter()
+    train_cli.train(trainer, params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()         # the main path ends here
+    peak = torch.cuda.max_memory_allocated()
+    launched = {k: n - probe[k] for k, n in launched.items()}
+    model = trainer.model
+    record = {
+        "launched": launched, "probe_launches": probe,
+        "preflight_probes": trainer.preflight_probes,
+        "preflight": trainer.preflight_report, "wall": wall,
+        "mesh": trainer.plan.describe(), "layers": model.cfg.num_layers,
+        "heads": model.transformer.layer_0.attention.query.weight.shape[0]
+        // model.cfg.head_dim,
+        "data_index": trainer.mesh.data_index,
+        "model_index": trainer.mesh.model_index,
+        "batch_split": trainer.batch_split,
+        "steps": [{k: h[k] for k in ("loss", "lr", "seconds", "rows")}
+                  for h in trainer.history],
+        "step_walls": [w for w, _ in per_step],
+        "step_allreduce_s": [s for _, s in per_step],
+        "transport": dict(transport.stats),
+        "peak_bytes": peak,
+        "param_count": sum(p.numel() for p in model.parameters()),
+        "param_bytes": sum(p.numel() * p.element_size()
+                           for p in model.parameters()),
+        "opt_bytes": opt_state_bytes_per_chip(trainer.optimizer),
+        "opt_sharding": trainer.effective_opt_sharding,
+        "eval_batches": trainer.eval_batches,
+        "batch_digest": first.get("digest"),
+        "device": str(trainer.device),
+        "dtype": str(model.dtype),
+    }
+    if rank == 0 and "grads" in first:
+        torch.save(first["grads"], out / "grads.pt")
+    if kind == "zero1":
+        trainer.debug = False
+        t0 = time.perf_counter()
+        trainer.save_state_dict(out / "ckpt")
+        record["save_seconds"] = time.perf_counter() - t0
+        split = trainer.tp
+        record["digests"] = {n: _tensor_digest(split.gather(n, p.detach()))
+                             for n, p in model.named_parameters()}
+    (out / f"rank{rank}.json").write_text(json.dumps(record))
+
+
+def _tp_world(world_kind: str) -> dict:
+    """Phase 20's ranks of ``world_kind`` (TP_WORLDS), started."""
+    world = TP_RUNS[TP_WORLDS[world_kind][0]][0]
+    port = _free_port()
+    return {f"{world_kind} rank {r}": (
+        _spawn(["--tp-worker", world_kind, r, port],
+               TP_DIR / f"{world_kind}{r}.log"),
+        TP_DIR / f"{world_kind}{r}.log") for r in range(world)}
+
+
+def start_tensor_parallel_worlds() -> dict:
+    """Phase 20's worlds (TP_WORLDS), started at once on a fresh
+    ``TP_DIR``: ``{world_kind: procs}``."""
+    import shutil
+
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    TP_DIR.mkdir(parents=True)
+    _vocab()
+    return {kind: _tp_world(kind) for kind in TP_WORLDS}
+
+
+def _vocab() -> Path:
+    """The synthetic vocab, written when missing: rank processes may be
+    reading it."""
+    from ml_recipe_tpu_torch.tokenizer import write_synthetic_bert_vocab
+
+    path = OUT_DIR / "vocab.txt"
+    if not path.exists():
+        write_synthetic_bert_vocab(path)
+    return path
+
+
+def _tp_records(kind: str) -> list:
+    world = TP_RUNS[kind][0]
+    return [json.loads((TP_DIR / kind / f"rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def _tp_want(rec: dict, ln: bool = True) -> dict:
+    """A rank's launches on the path: every layer's attention (and 25
+    LayerNorms) per micro-batch forward and eval batch, the same per
+    micro-batch backward (none on the plain path)."""
+    micro = len(rec["steps"]) * rec["batch_split"]
+    fwd = micro + rec["eval_batches"]
+    kernels = rec["dtype"] == "torch.bfloat16"
+    layers = rec["layers"] if kernels else 0
+    norms = (2 * rec["layers"] + 1) if kernels and ln else 0
+    return {"fused_attention_fwd": layers * fwd,
+            "fused_attention_bwd": layers * micro,
+            "layer_norm_fwd": norms * fwd, "layer_norm_bwd": norms * micro,
+            "q8_matmul": 0, "q8_quantize": 0}
+
+
+def _tp_print(kind: str, recs: list) -> None:
+    for r, rec in enumerate(recs):
+        tr = rec["transport"]
+        say(f"tensor parallel {kind} rank {r} ({rec['mesh']}, data "
+            f"{rec['data_index']}, model {rec['model_index']}, "
+            f"{rec['layers']} layers of {rec['heads']} heads a rank, "
+            f"{rec['dtype']}, {rec['opt_sharding']}, gloo on the card): "
+            f"{len(rec['steps'])} steps of {rec['batch_split']} "
+            f"micro-batches + {rec['eval_batches']} eval batches in "
+            f"{rec['wall']:.1f}s; step walls "
+            f"{[round(w, 3) for w in rec['step_walls']]} s, of them in the "
+            f"model group's all-reduces "
+            f"{[round(s, 3) for s in rec['step_allreduce_s']]} s; transport "
+            f"{tr['all_reduces']} all-reduces ({tr['forward']} forward, "
+            f"{tr['backward']} backward), {tr['bytes'] / 1e9:.3f} GB reduced,"
+            f" {tr['staged_bytes'] / 1e9:.3f} GB staged through host memory, "
+            f"{tr['seconds']:.2f} s; peak CUDA memory "
+            f"{rec['peak_bytes'] / 1e9:.3f} GB; parameters "
+            f"{rec['param_count'] / 1e6:.2f} M ({rec['param_bytes'] / 1e6:.1f}"
+            f" MB), moments {rec['opt_bytes'] / 1e6:.1f} MB on this rank; "
+            f"losses {[s['loss'] for s in rec['steps']]}; launches "
+            f"{rec['launched']} (expected {_tp_want(rec)}; "
+            f"{rec['preflight_probes']} pre-flight probes launched "
+            f"{rec['probe_launches']}; pre-flight need "
+            f"{(rec['preflight'] or {}).get('bytes') or (rec['preflight'] or {}).get('buckets')}"
+            f" B)")
+
+
+def _tp_check(kind: str, recs: list) -> None:
+    world, _, layers = TP_RUNS[kind]
+    for rec in recs:
+        if rec["launched"] != _tp_want(rec):
+            fail(f"tensor parallel {kind}: launch counts do not match the "
+                 f"path")
+        if rec["layers"] != layers or rec["heads"] != TP_HEADS:
+            fail(f"tensor parallel {kind}: a rank does not hold {TP_HEADS} "
+                 f"heads of {layers} layers")
+        tr = rec["transport"]
+        micro = len(rec["steps"]) * rec["batch_split"]
+        probes = rec["preflight_probes"]
+        # 2 forward all-reduces a layer, 2 backward (the probes' too)
+        if (tr["backward"] != 2 * layers * (micro + probes)
+                or tr["forward"] != 2 * layers * (micro + probes
+                                                  + rec["eval_batches"])
+                or tr["staged_bytes"] <= 0):
+            fail(f"tensor parallel {kind}: the model group did not take "
+                 f"its all-reduces through the host")
+        if not all(np.isfinite(s["loss"]) for s in rec["steps"]):
+            fail(f"tensor parallel {kind}: a loss is not finite")
+        if [s["loss"] for s in rec["steps"]] != [s["loss"] for s in
+                                                 recs[0]["steps"]]:
+            fail(f"tensor parallel {kind}: the ranks logged other losses")
+    if sorted((r["data_index"], r["model_index"]) for r in recs) != sorted(
+            (d, m) for d in range(world // 2) for m in range(2)):
+        fail(f"tensor parallel {kind}: the ranks are not the mesh's places")
+
+
+def _tp_kernels(torch, fa, bw, flops) -> dict:
+    """Both attention kernels against their plain versions at a model:2
+    rank's shape (32x512x6x64 bf16, dropout 0.1 with the rank's seed
+    offset, ``ops.attention.model_row_seeds``); the rank's dropout
+    uniforms (the hash) equal to one process's for those heads of its 12,
+    bit for bit; then each kernel, its plain version and
+    ``scaled_dot_product_attention`` timed beside the bound."""
+    import torch.nn.functional as F
+
+    from ml_recipe_tpu_torch.ops.attention import model_row_seeds
+
+    rng = np.random.default_rng(20)
+    B, L = TRAIN_SHAPE
+    q, k, v, mask, _, _ = _attention_inputs(torch, fa, rng, B, L,
+                                            torch.bfloat16)
+    seed = torch.tensor([int(rng.integers(-2**31, 2**31 - 1))],
+                        dtype=torch.int32, device="cuda")
+    n, r = TP_HEADS, 1
+    heads = slice(r * n, (r + 1) * n)
+    seeds = model_row_seeds(seed, B, H, r, 2)
+    same_masks = torch.equal(
+        fa.uniform_grid(seeds, n, L),
+        fa.uniform_grid(fa.row_seeds(seed, B, H, "cuda"), H, L)[:, heads])
+    if not same_masks:
+        fail("a model:2 rank's dropout at its seed offset is not one "
+             "process's for its heads")
+    q, k, v = (x[:, :, heads].contiguous() for x in (q, k, v))
+    ref, lse = fa.fused_attention_plain(q, k, v, mask, seeds, TRAIN_RATE,
+                                        want_lse=True)
+    got, got_lse = fa.fused_attention_cuda(q, k, v, mask, seeds, TRAIN_RATE,
+                                           want_lse=True)
+    torch.cuda.synchronize()
+    fwd_err = (got.float() - ref.float()).abs().max().item()
+    lse_err = (got_lse - lse).abs().max().item()
+    g = torch.from_numpy(rng.standard_normal(
+        (B, L, n, D), dtype=np.float32)).to("cuda", torch.bfloat16)
+    args = (q, k, v, g, ref, lse, mask, seeds, TRAIN_RATE, False)
+    got_b, ref_b = (fa.fused_attention_bwd_cuda(*args),
+                    fa.fused_attention_bwd_plain(*args))
+    torch.cuda.synchronize()
+    bwd_err, ok = 0.0, fwd_err <= ATOL["bf16"] and lse_err <= LSE_ATOL
+    for a, b in zip(got_b, ref_b):
+        a, b = a.float(), b.float()
+        err = (a - b).abs().max().item()
+        rel = ((a - b).norm() / b.norm()).item()
+        ok &= (err <= BWD_BF16_STEPS * bf16_step(b.abs().max().item())
+               and rel <= BWD_REL_L2)
+        bwd_err = max(bwd_err, err)
+    say(f"kernel-vs-plain at a model:2 rank's shape {B}x{L}x{n}x{D} bf16, "
+        f"dropout {TRAIN_RATE} at rank {r}'s seed offset: forward "
+        f"max_abs_err={fwd_err:.3e} (tol {ATOL['bf16']:g}) lse_err="
+        f"{lse_err:.3e}; backward dq/dk/dv max_abs_err={bwd_err:.3e}; the "
+        f"rank's dropout uniforms one process's for its heads bit for bit: "
+        f"{same_masks} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("an attention kernel disagrees with plain at the model:2 shape")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    bool_mask = (mask > 0)[:, None, None, :]
+    fwd = dict(
+        ms=time_ms(torch, lambda: fa.fused_attention_cuda(
+            q, k, v, mask, seeds, TRAIN_RATE, want_lse=True)),
+        plain_ms=time_ms(torch, lambda: fa.fused_attention_plain(
+            q, k, v, mask, seeds, TRAIN_RATE, want_lse=True)),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=bool_mask, dropout_p=TRAIN_RATE)))
+    fwd["bound_ms"], fwd["bound_by"] = _bound(
+        4 * B * L * n * D * 2 + mask.numel() * 4 + B * 4 + B * n * L * 4,
+        4 * B * n * L * L * D, bw, flops)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    gt = g.transpose(1, 2)
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=bool_mask,
+                                              dropout_p=TRAIN_RATE)
+
+    bwd = dict(
+        ms=time_ms(torch, lambda: fa.fused_attention_bwd_cuda(*args)),
+        plain_ms=time_ms(torch, lambda: fa.fused_attention_bwd_plain(*args),
+                         reps=5),
+        library_ms=time_ms(torch, lambda: torch.autograd.grad(
+            sdpa_fwd(), (qg, kg, vg), gt)) - time_ms(torch, sdpa_fwd))
+    bwd["bound_ms"], bwd["bound_by"] = _bound(
+        8 * B * L * n * D * 2 + B * n * L * 4 + mask.numel() * 4 + B * 4,
+        5 * 2 * B * n * L * L * D, bw, flops)
+    for name, t in (("fwd", fwd), ("bwd", bwd)):
+        say(f"timing fused_attention_{name} {B}x{L}x{n}x{D} bf16 (a "
+            f"model:2 rank, rate 0.1): kernel_ms={t['ms']:.4f} "
+            f"plain_ms={t['plain_ms']:.4f} library_ms(sdpa)="
+            f"{t['library_ms']:.4f} bound_ms={t['bound_ms']:.4f} "
+            f"({t['bound_by']})")
+    return dict(fwd=fwd, bwd=bwd, fwd_err=max(fwd_err, lse_err),
+                bwd_err=bwd_err)
+
+
+def _tp_one_process(torch, kind: str):
+    """Phase 20a's ``kind`` run (TP_RUNS) in this process at ``data:1``
+    through the CLI's build and train sequence: its launches (less the
+    pre-flight's probes), first batch digest, steps and the whole gradient
+    at the first clip."""
+    from ml_recipe_tpu_torch.cli import train as train_cli
+
+    layers = TP_RUNS[kind][2]
+    flags = [f for f in _tp_flags(kind) if f not in ("--mesh", "model:2")]
+    params, model_params = _train_flags(REPO / "config" / "test_bert.cfg",
+                                        flags[2:])
+    with _shallow(layers):
+        trainer = train_cli.build_trainer(params, model_params)
+    first = {}
+    _tp_capture(torch, trainer, first)
+    step = trainer.train_step
+
+    def digested(inputs, labels):
+        first.setdefault("digest", _tensor_digest(inputs["input_ids"]))
+        return step(inputs, labels)
+
+    trainer.train_step = digested
+    probe = _count_probes(trainer)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()               # the main path starts here
+    t0 = time.perf_counter()
+    train_cli.train(trainer, params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()         # the main path ends here
+    launched = {k: n - probe[k] for k, n in launched.items()}
+    out = dict(launched=launched, wall=wall, grads=first["grads"],
+               digest=first["digest"], peak=torch.cuda.max_memory_allocated(),
+               losses=[h["loss"] for h in trainer.history],
+               walls=[h["seconds"] for h in trainer.history],
+               param_count=sum(p.numel() for p in trainer.model.parameters()),
+               eval_batches=trainer.eval_batches,
+               batch_split=trainer.batch_split)
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_gate(torch, kind: str, recs: list, one: dict) -> dict:
+    """Phase 20a's ``kind`` run against the one process: the first step's
+    loss (relative) and the whole gradient at the first clip (relative L2);
+    fails past TP_F32_* (f32) or TP_BF16_LOSS_RTOL (bf16)."""
+    if recs[0]["batch_digest"] != one["digest"]:
+        fail(f"tensor parallel {kind}: model:2 and the one process drew "
+             f"other first batches")
+    grads = torch.load(TP_DIR / kind / "grads.pt")
+    rel = float((grads - one["grads"]).norm() / one["grads"].norm())
+    loss, loss1 = recs[0]["steps"][0]["loss"], one["losses"][0]
+    loss_rel = abs(loss - loss1) / abs(loss1)
+    tol = TP_F32_LOSS_RTOL if kind == "f32" else TP_BF16_LOSS_RTOL
+    say(f"tensor parallel {kind}: model:2 against one process "
+        f"({one['wall']:.1f}s, step walls {[round(w, 3) for w in one['walls']]}"
+        f" s, {one['param_count'] / 1e6:.2f} M parameters, peak CUDA memory "
+        f"{one['peak'] / 1e9:.3f} GB, launches {one['launched']}): step-1 "
+        f"loss {loss!r} against {loss1!r}, relative {loss_rel:.3e} (tol "
+        f"{tol:g}); gradient at the first clip relative L2 {rel:.3e}"
+        + (f" (tol {TP_F32_GRAD_REL:g})" if kind == "f32" else
+           " (recorded)"))
+    if not (np.isfinite(loss_rel) and loss_rel <= tol):
+        fail(f"tensor parallel {kind}: the model:2 loss parts from one "
+             f"process")
+    if kind == "f32" and not rel <= TP_F32_GRAD_REL:
+        fail("tensor parallel f32: the model:2 gradient parts from one "
+             "process")
+    return dict(loss_rel=loss_rel, grad_rel=rel)
+
+
+def _tp_reload(torch, recs: list) -> None:
+    """Phase 20b's sharded checkpoint into a one-process trainer of the same
+    flags and depth at ``data:1`` (the optimizer kept): every parameter's
+    digest is the whole one the ranks recorded, every moment the
+    checkpoint's."""
+    from ml_recipe_tpu_torch.cli import train as train_cli
+    from ml_recipe_tpu_torch.models.convert import from_jax_params
+    from ml_recipe_tpu_torch.train.checkpoint import (
+        peek_checkpoint_layout, read_state)
+
+    path = TP_DIR / "zero1" / "ckpt"
+    layout = peek_checkpoint_layout(path)
+    flags = [f for f in _tp_flags("zero1") if f not in (
+        "--mesh", "data:2,model:2", "--sharded_checkpoint")]
+    params, model_params = _train_flags(REPO / "config" / "test_bert.cfg",
+                                        flags[2:])
+    with _shallow(TP_RUNS["zero1"][2]):
+        trainer = train_cli.build_trainer(params, model_params)
+    trainer.drop_optimizer = False
+    t0 = time.perf_counter()
+    trainer.load_state_dict(path)
+    seconds = time.perf_counter() - t0
+    got = {n: _tensor_digest(p) for n, p in trainer.model.named_parameters()}
+    same = all(got == rec["digests"] for rec in recs)
+    state = read_state(path)
+    saved = trainer.optimizer.flax_state()
+    moments_equal = True
+    for key in ("mu", "nu"):
+        ref = from_jax_params(state["optimizer"]["0"]["0"][key])
+        mine = from_jax_params(saved["0"]["0"][key])
+        moments_equal &= all(torch.equal(
+            mine[n], ref[n][tuple(slice(0, d) for d in mine[n].shape)])
+            for n in ref)
+    say(f"tensor parallel zero1: the sharded checkpoint (layout "
+        f"{json.dumps({k: layout[k] for k in ('mesh_axes', 'opt_sharding', 'shards', 'process_count')})}"
+        f", saved in {recs[0]['save_seconds']:.1f}s) reloaded in one process "
+        f"(data:1) in {seconds:.1f}s: every parameter bit for bit the "
+        f"gathered whole: {same}; every adam moment the checkpoint's: "
+        f"{moments_equal}; global step {trainer.global_step}")
+    if (layout["mesh_axes"] != {"data": 2, "model": 2}
+            or layout["shards"] != 4 or layout["opt_sharding"] != "zero1"):
+        fail("tensor parallel zero1: the checkpoint does not record the "
+             "data:2,model:2 ZeRO-1 pieces")
+    if not same or not moments_equal or trainer.global_step != 1:
+        fail("tensor parallel zero1: the checkpoint did not restore in one "
+             "process bit for bit")
+    del trainer, saved, state
+    torch.cuda.empty_cache()
+
+
+def phase_tensor_parallel(torch):
+    """Phase 20: tensor parallelism on the card (``--mesh model:2``).
+
+    20a. ``config/test_bert.cfg --seed 0 --ln_impl fused
+    --train_batch_size 64 --batch_split 2 --test_batch_size 4`` (bert-base
+    at full width and depth, dropout 0.1, 2 debug steps of 2 micro-batches
+    of 32x512, 11 eval batches of 4 rows after each) as two ranks of ``cli.train`` on ``--mesh model:2`` (``--tp-worker
+    pair``, gloo on the card: a rank holds 6 heads and 1536 MLP columns a
+    layer), and the same at 2 layers in f32 on the plain attention and
+    LayerNorm; each against this process at ``data:1`` on the same rows
+    and dropout draws: f32 within TP_F32_LOSS_RTOL (loss) and
+    TP_F32_GRAD_REL (the whole gradient at the first clip), bf16 within
+    TP_BF16_LOSS_RTOL (loss), its gradient gap recorded. Each rank's launches equal the path's, its transport took 2
+    forward and 2 backward all-reduces a layer through the host.
+
+    20b. ``--mesh data:2,model:2 --optimizer_sharding zero1
+    --sharded_checkpoint`` at 4 layers as four ranks for one debug step,
+    then its sharded save, which must peek ``mesh_axes`` {data: 2, model:
+    2} with 4-way pieces and reload in one process bit for bit
+    (:func:`_tp_reload`).
+
+    Both worlds run at once (:func:`start_tensor_parallel_worlds`).
+    Printed per rank: step walls and their all-reduce seconds, the
+    transport's all-reduces, bytes and seconds, launches, parameter and
+    moment bytes, peak CUDA memory. Returns the launch counts by path and
+    the gates' gaps. (The attention kernels at a rank's shape are phase
+    20c, :func:`_tp_kernels`, run by :func:`main` on the card alone.)"""
+    t_phase = time.perf_counter()
+    deadline = time.monotonic() + TP_DEADLINE_S
+    for procs in start_tensor_parallel_worlds().values():
+        _pp_join(procs, deadline)
+    runs = {k: _tp_records(k) for k in TP_WORLDS["pair"]}
+    for kind, recs in runs.items():
+        _tp_print(kind, recs)
+        _tp_check(kind, recs)
+    ones = {kind: _tp_one_process(torch, kind) for kind in ("bf16", "f32")}
+    gates = {kind: _tp_gate(torch, kind, runs[kind], ones[kind])
+             for kind in ones}
+    one = ones["bf16"]["launched"]
+    if one != _tp_want(dict(runs["bf16"][0], batch_split=ones["bf16"][
+            "batch_split"], eval_batches=ones["bf16"]["eval_batches"])):
+        fail("tensor parallel: the one process's launches do not match the "
+             "path")
+    zero = _tp_records("zero1")
+    _tp_print("zero1", zero)
+    _tp_check("zero1", zero)
+    if any(len(r["steps"]) != 1 or r["opt_sharding"] != "zero1"
+           for r in zero):
+        fail("tensor parallel zero1: not one ZeRO-1 step")
+    _tp_reload(torch, zero)
+    say(f"phase 20 wall {time.perf_counter() - t_phase:.1f}s")
+    total = lambda recs: {k: sum(r["launched"][k] for r in recs)
+                          for k in recs[0]["launched"]}
+    return {"model:2 bf16": total(runs["bf16"]),
+            "model:2 one process": one,
+            "data:2,model:2 zero1": total(zero), "gates": gates}
+
+
+SIDE_DIR = OUT_DIR / "side"
+SIDE_DEADLINE_S = 900
+
+
+def side_phases(out: str) -> int:
+    """Phases 19 and 20 in a process of their own (``--side-phases OUT``),
+    which :func:`main` starts beside phases 10 and 11 (their gates hold
+    numbers, not times; the card and the host cores have room beside
+    them): the kernel libraries loaded from the store phase 1 built, the
+    two phases one after the other, each with its own launch counts
+    (counts are a process's); their launch counts by path and the kernels'
+    timings are written to ``out`` as JSON."""
+    import torch
+
+    from ml_recipe_tpu_torch.ops import cuda_build
+
+    fa, ln, q8 = _register_kernels()
+    cuda_build.build(fa.KERNEL.library, fa.BWD_KERNEL.library, ln.LIBRARY,
+                     q8.KERNEL.library)
+    t0 = time.perf_counter()
+    pp = phase_pipeline(torch)
+    say(f"phase 19 done {time.perf_counter() - t0:.1f}s into the side "
+        f"process")
+    torch.cuda.empty_cache()
+    tp = phase_tensor_parallel(torch)
+    say(f"phase 20 done {time.perf_counter() - t0:.1f}s into the side "
+        f"process")
+    Path(out).write_text(json.dumps({"pp": pp, "tp": tp}))
+    return 0
+
+
+def start_side_phases():
+    """:func:`side_phases` started: ``(process, log, result path)``."""
+    import shutil
+
+    shutil.rmtree(SIDE_DIR, ignore_errors=True)
+    SIDE_DIR.mkdir(parents=True)
+    _vocab()
+    out, log = SIDE_DIR / "result.json", SIDE_DIR / "side.log"
+    return _spawn(["--side-phases", out], log), log, out
+
+
+def join_side_phases(started) -> tuple:
+    """Wait for :func:`start_side_phases`'s process, print its output, and
+    return phase 19's and phase 20's results; fails when it failed."""
+    proc, log, out = started
+    _join({"phases 19 and 20": (proc, log)},
+          time.monotonic() + SIDE_DEADLINE_S, "side phases")
+    for line in log.read_text().splitlines():
+        if not line.startswith(("INFO", "WARNING", "DEBUG")):
+            print(line, flush=True)
+    result = json.loads(out.read_text())
+    return result["pp"], result["tp"]
 
 
 def main() -> int:
@@ -6932,6 +7626,9 @@ def main() -> int:
     long = phase_long_training(torch)
     lap("phases 4, 9 and 6 (training)")
     torch.cuda.empty_cache()
+    # phases 19 and 20 (gloo worlds of a few ranks each) run in a process
+    # of their own beside phases 10 and 11
+    side = start_side_phases()
     nq = phase_nq_corpus(torch)
     nq_train = phase_nq_training(torch, nq)
     nq_val = phase_nq_validate(torch, nq, nq_train.ckpt)
@@ -6942,6 +7639,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     dp = phase_data_parallel(torch)
     lap("phase 11")
+    pp, tp = join_side_phases(side)
+    # 20c: the attention pair at a model:2 rank's shape, on the card alone
+    tp["kernels"] = _tp_kernels(torch, fa, bw, flops)
+    lap("phases 19 and 20 (beside phases 10 and 11)")
     torch.cuda.empty_cache()
     opt_run, opt_tune = phase_train_options(torch)
     lap("phase 12")
@@ -6966,14 +7667,16 @@ def main() -> int:
     el = phase_elastic(torch)
     lap("phase 18")
     torch.cuda.empty_cache()
-    pp = phase_pipeline(torch)
-    lap("phase 19")
 
     def elastic_paths(kernel):
         return {path: n[kernel] for path, n in el.items() if path != "drill"}
 
     def pipe_paths(kernel):
         return {path: n[kernel] for path, n in pp.items()}
+
+    def tp_paths(kernel):
+        return {path: tp[path][kernel] for path in (
+            "model:2 bf16", "model:2 one process", "data:2,model:2 zero1")}
 
     def warm_paths(kernel):
         return {f"warm-up plane, {path}": n[kernel]
@@ -7033,6 +7736,10 @@ def main() -> int:
                   "(config/longdoc.cfg, seq:2)")
     fwd_shapes[f"{sp['hop']['shape']} ring hop"] = by_shape(
         sp["hop"]["fwd"], hop_config)
+    tp_config = ("a model:2 rank: 6 of 12 heads, rate 0.1 at its seed "
+                 "offset, lse (config/test_bert.cfg --mesh model:2)")
+    fwd_shapes["32x512x6x64 model:2 rank"] = by_shape(
+        tp["kernels"]["fwd"], tp_config)
     bwd_shapes = {f"{TRAIN_SHAPE[0]}x{TRAIN_SHAPE[1]}": by_shape(bwd,
                                                                  "rate 0.1"),
                   "32x512 segmented": by_shape(
@@ -7042,6 +7749,8 @@ def main() -> int:
                        for (B, L), t in long_t.items()})
     bwd_shapes[f"{sp['hop']['shape']} ring hop"] = by_shape(
         sp["hop"]["bwd"], hop_config.replace(", lse", ""))
+    bwd_shapes["32x512x6x64 model:2 rank"] = by_shape(
+        tp["kernels"]["bwd"], tp_config.replace(", lse", ""))
     fwd_more = dict(tc_kernels=tc_fwd, by_shape=fwd_shapes)
     bwd_more = dict(tc_kernels=tc_bwd, by_shape=bwd_shapes)
 
@@ -7107,7 +7816,8 @@ def main() -> int:
               + packed.launched["layer_norm_fwd"]
               + sum(runtime_paths("layer_norm_fwd").values())
               + sum(elastic_paths("layer_norm_fwd").values())
-              + sum(pipe_paths("layer_norm_fwd").values()),
+              + sum(pipe_paths("layer_norm_fwd").values())
+              + sum(tp_paths("layer_norm_fwd").values()),
               ln_fwd_err, ln_fwd, "16384x768 bf16 (32x512, training)",
               source="layer_norm",
               launches_by_path={**int8_paths("layer_norm_fwd"),
@@ -7118,7 +7828,8 @@ def main() -> int:
                                     packed.launched["layer_norm_fwd"],
                                 **runtime_paths("layer_norm_fwd"),
                                 **elastic_paths("layer_norm_fwd"),
-                                **pipe_paths("layer_norm_fwd")},
+                                **pipe_paths("layer_norm_fwd"),
+                                **tp_paths("layer_norm_fwd")},
               device_ms=ln_fwd["device_ms"], host_ms=ln_fwd["host_ms"],
               at_32x384={k: ln_serve[k] for k in (
                   "ms", "device_ms", "host_ms", "plain_ms", "library_ms",
@@ -7129,7 +7840,8 @@ def main() -> int:
               + packed.launched["layer_norm_bwd"]
               + sum(runtime_paths("layer_norm_bwd").values())
               + sum(elastic_paths("layer_norm_bwd").values())
-              + sum(pipe_paths("layer_norm_bwd").values()),
+              + sum(pipe_paths("layer_norm_bwd").values())
+              + sum(tp_paths("layer_norm_bwd").values()),
               ln_bwd_err,
               ln_bwd, "16384x768 bf16 (32x512, training)", source="layer_norm",
               launches_by_path={"training fused": ln_train["layer_norm_bwd"],
@@ -7139,7 +7851,8 @@ def main() -> int:
                                     packed.launched["layer_norm_bwd"],
                                 **runtime_paths("layer_norm_bwd"),
                                 **elastic_paths("layer_norm_bwd"),
-                                **pipe_paths("layer_norm_bwd")},
+                                **pipe_paths("layer_norm_bwd"),
+                                **tp_paths("layer_norm_bwd")},
               device_ms=ln_bwd["device_ms"], host_ms=ln_bwd["host_ms"],
               device_ms_by_kernel=ln_bwd["split_ms"],
               by_shape={f"{N}x{C}": {k: t[k] for k in (
@@ -7175,7 +7888,8 @@ def main() -> int:
                      + sum(runtime_paths("fused_attention_fwd").values())
                      + sum(warm_paths("fused_attention_fwd").values())
                      + sum(elastic_paths("fused_attention_fwd").values())
-                     + sum(pipe_paths("fused_attention_fwd").values())),
+                     + sum(pipe_paths("fused_attention_fwd").values())
+                     + sum(tp_paths("fused_attention_fwd").values())),
         "launches_by_path": {"serving": serving_fwd, "training": train_fwd,
                              "serving int8": int8["fused_attention_fwd"],
                              "training fused": ln_train["fused_attention_fwd"],
@@ -7189,9 +7903,11 @@ def main() -> int:
                              **runtime_paths("fused_attention_fwd"),
                              **warm_paths("fused_attention_fwd"),
                              **elastic_paths("fused_attention_fwd"),
-                             **pipe_paths("fused_attention_fwd")},
+                             **pipe_paths("fused_attention_fwd"),
+                             **tp_paths("fused_attention_fwd")},
         "max_abs_err": max(fwd_err, packed.fwd_err,
-                           packed_val["packed"].errs[0]),
+                           packed_val["packed"].errs[0],
+                           tp["kernels"]["fwd_err"]),
         "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"],
@@ -7212,7 +7928,8 @@ def main() -> int:
                      + sum(runtime_paths("fused_attention_bwd").values())
                      + sum(warm_paths("fused_attention_bwd").values())
                      + sum(elastic_paths("fused_attention_bwd").values())
-                     + sum(pipe_paths("fused_attention_bwd").values())),
+                     + sum(pipe_paths("fused_attention_bwd").values())
+                     + sum(tp_paths("fused_attention_bwd").values())),
         "launches_by_path": {"serving": 0, "training": train_bwd,
                              "training fused": ln_train["fused_attention_bwd"],
                              "nq training":
@@ -7224,9 +7941,11 @@ def main() -> int:
                              **runtime_paths("fused_attention_bwd"),
                              **warm_paths("fused_attention_bwd"),
                              **elastic_paths("fused_attention_bwd"),
-                             **pipe_paths("fused_attention_bwd")},
+                             **pipe_paths("fused_attention_bwd"),
+                             **tp_paths("fused_attention_bwd")},
         "max_abs_err": max(bwd_err, packed.bwd_err,
-                           packed_val["packed"].errs[1]),
+                           packed_val["packed"].errs[1],
+                           tp["kernels"]["bwd_err"]),
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"],
@@ -7254,6 +7973,13 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--sp-worker"]:
         kind, rank, port = sys.argv[2:]
         sys.exit(sp_worker(kind, int(rank), int(port)))
+    # phase 20 starts it as the ranks of its model groups
+    if sys.argv[1:2] == ["--tp-worker"]:
+        kind, rank, port = sys.argv[2:]
+        sys.exit(tp_worker(kind, int(rank), int(port)))
+    # phases 19 and 20 run in a process of their own (main starts it)
+    if sys.argv[1:2] == ["--side-phases"]:
+        sys.exit(side_phases(sys.argv[2]))
     # phase 19 starts it as the ranks of its pipelines
     if sys.argv[1:2] == ["--pp-worker"]:
         kind, rank, port = sys.argv[2:]

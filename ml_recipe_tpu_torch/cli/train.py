@@ -51,6 +51,15 @@ auto`` resolves to ``ring``). ``--optimizer_sharding zero1`` (or
     python -m ml_recipe_tpu_torch.cli.train -c config/longdoc.cfg ... \
         --dist_world_size 2 --local_rank r --dist_init_method tcp://HOST:PORT
 
+``--mesh model:T`` (or ``data:D,model:T``, ``D*T`` ranks) runs the
+encoder tensor-parallel: each rank of a ``model`` group holds ``1/T`` of
+every layer's heads and MLP columns and the group shares its rows and its
+data seed (``train/trainer.py``)::
+
+    python -m ml_recipe_tpu_torch.cli.train -c config/test_bert.cfg ... \
+        --mesh model:2 --dist_world_size 2 --local_rank r \
+        --dist_init_method tcp://HOST:PORT
+
 The runtime subsystems, all off by default (the JAX CLI's flags):
 
 - ``--watchdog_timeout S`` arms the step watchdog before the world is
@@ -195,9 +204,11 @@ def build_trainer(params, model_params, *, watchdog=None,
                          new=plan.describe())
     rng_pool = set_seed(params.seed)
     data_rng = rng_pool.host_rng("chunk_sampling") if rng_pool else None
-    if data_rng is None and (mesh.seq_size > 1 or mesh.pipe_size > 1):
-        # the ranks of a seq (pipe) group hold blocks (stages) of the same
-        # rows: without a seed their datasets still draw from one shared one
+    if data_rng is None and (mesh.seq_size > 1 or mesh.pipe_size > 1
+                             or mesh.model_size > 1):
+        # the ranks of a seq (pipe, model) group hold blocks (stages,
+        # slices) of the same rows: without a seed their datasets still
+        # draw from one shared one
         data_rng = np.random.default_rng(shared_random_seed())
     seed = params.seed if params.seed is not None else 0
 

@@ -810,6 +810,11 @@ def get_predictor_parser() -> ConfigArgumentParser:
     return parser
 
 
+# the ROADMAP item inference over a mesh (the model axis included) waits for
+_INFERENCE = ("queue 1, 'Parallelism beyond data parallelism', item "
+              "'Inference over a mesh'")
+
+
 def _mesh_devices(spec) -> int:
     """Device count of a ``name:size,...`` mesh spec (1 for None)."""
     if spec is None:
@@ -831,10 +836,9 @@ def check_predict_flags(params, model_params) -> None:
                     "ml_recipe_tpu_torch): --fetch_every %s.",
                     params.fetch_every)
     checks = [
-        (_mesh_devices(params.mesh) > 1, "mesh", params.mesh,
-         "queue 1, 'Parallelism beyond data parallelism'"),
+        (_mesh_devices(params.mesh) > 1, "mesh", params.mesh, _INFERENCE),
         (model_params.flash_attention == "ring", "flash_attention", "ring",
-         "queue 1, 'Parallelism beyond data parallelism'"),
+         _INFERENCE),
     ]
     for bad, flag, value, item in checks:
         if bad:
@@ -1062,10 +1066,9 @@ def check_serve_flags(params, model_params) -> None:
     results away from their defaults; log the ignored ones once."""
     _check_ln_impl(model_params)
     checks = [
-        (params.mesh is not None, "mesh", params.mesh,
-         "queue 1, 'Parallelism beyond data parallelism'"),
+        (params.mesh is not None, "mesh", params.mesh, _INFERENCE),
         (model_params.flash_attention == "ring", "flash_attention", "ring",
-         "queue 1, 'Parallelism beyond data parallelism'"),
+         _INFERENCE),
     ]
     for bad, flag, value, item in checks:
         if bad:
@@ -1115,13 +1118,15 @@ def check_train_flags(params, model_params) -> None:
     supervisor's world override (``MLRT_ELASTIC_WORLD``, the live world
     after a host loss); a launcher's ``WORLD_SIZE`` > 1 that the flags do
     not repeat raises (``scripts/worker_torch.sh`` maps the environment
-    onto the flags). ``--mesh`` takes ``data``, ``seq`` and ``pipe`` axes
-    whose sizes multiply to the live world (``model`` raises, and so does
-    ``pipe`` beside ``seq``); under ``--elastic on`` its ``data`` axis
-    narrows to fit it (``parallel.mesh.elastic_axes``). ``--flash_attention
-    ring`` needs a ``seq`` axis > 1; ZeRO-1 runs at any world and is inert
-    at data size 1, and so is ``--zero1_overlap bucketed`` (also on a
-    ``seq`` mesh and under ``pipe``). ``--pipe_schedule`` and
+    onto the flags). ``--mesh`` takes ``data``, ``seq``, ``pipe`` and
+    ``model`` axes whose sizes multiply to the live world (``pipe`` beside
+    ``seq`` raises, and so does ``model`` beside either, and a ``model``
+    size that does not divide the heads and the MLP columns); under
+    ``--elastic on`` its ``data`` axis narrows to fit it
+    (``parallel.mesh.elastic_axes``). ``--flash_attention ring`` needs a
+    ``seq`` axis > 1 (beside a ``model`` axis it raises); ZeRO-1 runs at
+    any world and is inert at data size 1, and so is ``--zero1_overlap
+    bucketed`` (also on a ``seq`` or ``model`` mesh and under ``pipe``). ``--pipe_schedule`` and
     ``--pipe_param_sharding`` are live with a ``pipe`` axis > 1 and inert
     without one.
 
@@ -1148,11 +1153,28 @@ def check_train_flags(params, model_params) -> None:
             f"--dist_world_size/--local_rank/--dist_init_method "
             f"(scripts/worker_torch.sh maps the environment onto them)")
     from ..parallel.dist import live_world
-    from ..parallel.mesh import MeshSpec, elastic_axes, refuse_unported_axes
+    from ..parallel.mesh import (
+        _SEQ_MODEL,
+        MeshSpec,
+        check_model_split,
+        elastic_axes,
+        refuse_unported_axes,
+    )
 
     live, _ = live_world(params)
     axes = MeshSpec.from_string(params.mesh, n_devices=live).ordered()
     refuse_unported_axes(axes)
+    if axes.get("model", 1) > 1:
+        if model_params.flash_attention == "ring":
+            raise NotImplementedError(
+                "--flash_attention ring beside a model axis: the ring's hops "
+                "would have to run the tensor-parallel heads; ROADMAP.md "
+                f"{_SEQ_MODEL}")
+        from ..models.config import resolve_model_config
+
+        cfg = resolve_model_config(model_params, num_labels=5)
+        check_model_split(cfg.num_heads, cfg.intermediate_size,
+                          axes["model"])
     if params.elastic == "on":
         axes = elastic_axes(axes, live)
     if MeshSpec(axes).size != live:

@@ -15,6 +15,13 @@ Both directions deal in numpy on the JAX side (``tree_of_numpy`` is the
 ``params`` collection, e.g. ``state["model"]`` of a checkpoint) and CPU
 tensors on the port side, f32 but for the int8 ``kernel_q``;
 ``model.load_state_dict`` then casts to the model's dtype and device.
+
+Tensor parallelism: ``from_jax_params(tree, model_index=r,
+model_size=T)`` keeps rank ``r``'s slice of every leaf the JAX package's
+``TP_RULES`` split (``parallel/sharding.py``), the rest whole; the flax
+tree itself always holds whole leaves, so ``to_jax_params`` takes the
+whole leaves a ``model`` group gathers
+(``parallel.sharding.ModelSplit.gather``).
 """
 
 from __future__ import annotations
@@ -41,8 +48,11 @@ def _to_f32_tensor(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, dtype=np.float32))
 
 
-def from_jax_params(tree_of_numpy: dict) -> Dict[str, torch.Tensor]:
-    """flax ``params`` tree -> the port model's ``state_dict``."""
+def from_jax_params(tree_of_numpy: dict, *, model_index: int = 0,
+                    model_size: int = 1) -> Dict[str, torch.Tensor]:
+    """flax ``params`` tree -> the port model's ``state_dict``; with
+    ``model_size`` > 1, rank ``model_index``'s slices of the leaves a
+    ``model`` axis splits."""
     out: Dict[str, torch.Tensor] = {}
     for path, leaf in _flatten(tree_of_numpy):
         *module, name = path
@@ -60,6 +70,12 @@ def from_jax_params(tree_of_numpy: dict) -> Dict[str, torch.Tensor]:
         elif name not in ("bias", "kernel_scale"):
             raise ValueError(f"{'/'.join(path)}: unknown flax leaf {name!r}")
         out[".".join((*module, name))] = t
+    if model_size > 1:
+        from ..parallel.sharding import ModelSplit, tp_param_dims
+
+        split = ModelSplit(tp_param_dims(out), index=model_index,
+                           size=model_size)
+        out = split.local_state(out)
     return out
 
 

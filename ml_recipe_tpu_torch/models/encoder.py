@@ -59,7 +59,25 @@ Post-layer-norm BERT stack with the JAX module's numerics:
   so the draws do not depend on S; after the last layer the blocks are
   gathered (``parallel.collectives.seq_gather``, whose backward sums the
   group's gradients), and the pooler and everything after it see the whole
-  sequence on every rank of the group.
+  sequence on every rank of the group;
+- tensor parallelism (a ``mesh`` whose ``model`` axis is T > 1, the JAX
+  package's Megatron-style ``TP_RULES``): each rank of a ``model`` group
+  holds ``num_heads / T`` heads (its ``query``, ``key`` and ``value`` are
+  ``H -> H/T``, its ``attention.output`` ``H/T -> H``) and ``I / T`` MLP
+  columns (``intermediate`` ``H -> I/T``, ``mlp.output`` ``I/T -> H``),
+  rank ``r``'s slice starting at ``r/T`` of each split dimension. The
+  block's input passes ``copy_to_model`` (its gradient is summed over the
+  group) and each row-split product's partial sum ``reduce_from_model``
+  (``parallel/collectives.py``), after which the whole bias is added once.
+  Hidden dropout, the residual and the LayerNorm act on the all-reduced
+  ``[B, L, H]``; every rank of the group draws from the same generator,
+  so their masks agree, and local head ``j`` of rank ``r`` draws global
+  head ``r*H/T + j``'s attention-dropout mask
+  (``ops.attention.model_row_seeds``). The embeddings, the pooler and the
+  heads stay whole on every rank. :func:`init_weights
+  <ml_recipe_tpu_torch.models.qa_model.init_weights>` draws each split
+  weight at its whole shape and keeps the slice, so one seed gives every
+  rank the slice of one process's weights.
 """
 
 from __future__ import annotations
@@ -76,9 +94,11 @@ from ..ops.attention import (
     dot_product_attention,
     dropout_seed,
     global_row_seeds,
+    model_row_seeds,
 )
 from ..ops.layer_norm import layer_norm, layer_norm_q8
-from ..parallel.collectives import seq_gather
+from ..parallel.collectives import copy_to_model, seq_gather
+from ..parallel.mesh import check_model_split
 from ..parallel.sharding import seq_split
 from ..quant.layers import QuantLinear, first_token, with_row_codes
 from .config import EncoderConfig
@@ -185,15 +205,51 @@ def _dense(quantize: str, n_in: int, n_out: int, dtype, device) -> nn.Module:
 
 
 class Linear(nn.Linear):
-    """``nn.Dense(dtype=compute_dtype)``: f32 params, cast at each use."""
+    """``nn.Dense(dtype=compute_dtype)``: f32 params, cast at each use.
+
+    Under tensor parallelism ``split`` is ``(dim, index, size)``: the
+    weight is rank ``index``'s slice of ``size`` along ``dim`` of the whole
+    ``[out, in]`` weight (:func:`_split_dense`); a row-split product
+    (``dim`` 1) sums its partial product over the ``model`` group
+    (``reduce``, ``parallel.collectives.reduce_from_model``) before it adds
+    its whole bias."""
 
     def __init__(self, n_in: int, n_out: int, dtype, device):
         super().__init__(n_in, n_out, device=device, dtype=torch.float32)
         self.compute_dtype = dtype
+        self.split = None
+        self.reduce = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
-        return F.linear(x.to(cd), self.weight.to(cd), self.bias.to(cd))
+        if self.reduce is None:
+            return F.linear(x.to(cd), self.weight.to(cd), self.bias.to(cd))
+        from ..parallel.collectives import reduce_from_model
+
+        y = reduce_from_model(F.linear(x.to(cd), self.weight.to(cd)),
+                              self.reduce)
+        return y + self.bias.to(cd)
+
+
+def _split_dense(quantize: str, n_in: int, n_out: int, dtype, device, tp,
+                 dim: int) -> nn.Module:
+    """:func:`_dense` of rank ``tp.model_index``'s slice of an ``n_in ->
+    n_out`` product split over the ``model`` group of ``tp`` (a mesh)
+    along ``dim`` of the weight: 0 (columns of the product, the
+    output's), 1 (rows, the input's; the partial sums are all-reduced).
+    ``tp`` None: the whole product."""
+    if tp is None:
+        return _dense(quantize, n_in, n_out, dtype, device)
+    if quantize not in (None, "off"):
+        raise ValueError("quantize='int8' runs on one device; tensor "
+                         "parallelism is for training")
+    T = tp.model_size
+    shape = [n_out // T, n_in] if dim == 0 else [n_out, n_in // T]
+    dense = Linear(shape[1], shape[0], dtype, device)
+    dense.split = (dim, tp.model_index, T)
+    if dim == 1:
+        dense.reduce = tp.model_transport
+    return dense
 
 
 class Embedding(nn.Embedding):
@@ -256,18 +312,22 @@ class Embeddings(nn.Module):
 
 
 class SelfAttention(nn.Module):
+    """``tp``: a mesh whose ``model`` axis splits the heads (see the module
+    docstring), or None."""
+
     def __init__(self, cfg: EncoderConfig, *, dtype, device,
                  attention_impl: str = "auto", ln_impl: str = "xla",
-                 quantize: str = "off", mesh=None):
+                 quantize: str = "off", mesh=None, tp=None):
         super().__init__()
         self.cfg = cfg
         self.attention_impl = attention_impl
         self.mesh = mesh
+        self.tp = tp
         H = cfg.hidden_size
-        self.query = _dense(quantize, H, H, dtype, device)
-        self.key = _dense(quantize, H, H, dtype, device)
-        self.value = _dense(quantize, H, H, dtype, device)
-        self.output = _dense(quantize, H, H, dtype, device)
+        self.query = _split_dense(quantize, H, H, dtype, device, tp, 0)
+        self.key = _split_dense(quantize, H, H, dtype, device, tp, 0)
+        self.value = _split_dense(quantize, H, H, dtype, device, tp, 0)
+        self.output = _split_dense(quantize, H, H, dtype, device, tp, 1)
         self.layer_norm = _ln(cfg, dtype, ln_impl, device, quantize)
 
     def forward(self, hidden: torch.Tensor, mask: torch.Tensor,
@@ -278,9 +338,13 @@ class SelfAttention(nn.Module):
         cfg = self.cfg
         B, L, H = hidden.shape
         ring = self.attention_impl == "ring"
+        tp = self.tp
+        T = tp.model_size if tp is not None else 1
+        x = (copy_to_model(hidden, tp.model_transport) if tp is not None
+             else hidden)
 
         def heads(proj: nn.Module) -> torch.Tensor:
-            return proj(hidden).view(B, L, cfg.num_heads, cfg.head_dim)
+            return proj(x).view(B, L, cfg.num_heads // T, cfg.head_dim)
 
         rate = cfg.attention_probs_dropout_prob if self.training else 0.0
         seed = None
@@ -293,33 +357,44 @@ class SelfAttention(nn.Module):
             if global_rows is not None and not ring:
                 seed = global_row_seeds(seed, global_rows[0], B,
                                         global_rows[1], cfg.num_heads)
+            if tp is not None:   # this rank's heads are global heads r*H/T+j
+                seed = model_row_seeds(seed, B, cfg.num_heads,
+                                       tp.model_index, T)
         ctx = dot_product_attention(
             heads(self.query), heads(self.key), heads(self.value), mask,
             dropout_rate=rate, seed=seed, impl=self.attention_impl,
             segment_ids=segment_ids, mesh=self.mesh if ring else None,
         )
-        out = dropout(self.output(ctx.reshape(B, L, H)),
+        out = dropout(self.output(ctx.reshape(B, L, H // T)),
                       cfg.hidden_dropout_prob, self.training, generator,
                       global_rows, seq)
         return self.layer_norm(hidden + out)
 
 
 class FeedForward(nn.Module):
+    """``tp``: a mesh whose ``model`` axis splits the intermediate columns
+    (see the module docstring), or None."""
+
     def __init__(self, cfg: EncoderConfig, *, dtype, device,
-                 ln_impl: str = "xla", quantize: str = "off"):
+                 ln_impl: str = "xla", quantize: str = "off", tp=None):
         super().__init__()
         self.cfg = cfg
-        self.intermediate = _dense(quantize, cfg.hidden_size,
-                                   cfg.intermediate_size, dtype, device)
-        self.output = _dense(quantize, cfg.intermediate_size, cfg.hidden_size,
-                             dtype, device)
+        self.tp = tp
+        self.intermediate = _split_dense(quantize, cfg.hidden_size,
+                                         cfg.intermediate_size, dtype, device,
+                                         tp, 0)
+        self.output = _split_dense(quantize, cfg.intermediate_size,
+                                   cfg.hidden_size, dtype, device, tp, 1)
         self.layer_norm = _ln(cfg, dtype, ln_impl, device, quantize)
 
     def forward(self, hidden: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 global_rows: GlobalRows = None,
                 seq: SeqBlock = None) -> torch.Tensor:
-        y = F.gelu(self.intermediate(hidden), approximate="none")
+        tp = self.tp
+        x = (copy_to_model(hidden, tp.model_transport) if tp is not None
+             else hidden)
+        y = F.gelu(self.intermediate(x), approximate="none")
         y = dropout(self.output(y), self.cfg.hidden_dropout_prob,
                     self.training, generator, global_rows, seq)
         return self.layer_norm(hidden + y)
@@ -328,14 +403,14 @@ class FeedForward(nn.Module):
 class EncoderLayer(nn.Module):
     def __init__(self, cfg: EncoderConfig, *, dtype, device,
                  attention_impl: str = "auto", ln_impl: str = "xla",
-                 quantize: str = "off", mesh=None):
+                 quantize: str = "off", mesh=None, tp=None):
         super().__init__()
         self.attention = SelfAttention(cfg, dtype=dtype, device=device,
                                        attention_impl=attention_impl,
                                        ln_impl=ln_impl, quantize=quantize,
-                                       mesh=mesh)
+                                       mesh=mesh, tp=tp)
         self.mlp = FeedForward(cfg, dtype=dtype, device=device,
-                               ln_impl=ln_impl, quantize=quantize)
+                               ln_impl=ln_impl, quantize=quantize, tp=tp)
 
     def forward(self, hidden: torch.Tensor, mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
@@ -386,7 +461,9 @@ class TransformerEncoder(nn.Module):
     """BERT/RoBERTa trunk: returns (sequence_output, pooled_output).
     ``remat``: recompute each layer in the backward (:func:`remat_layer`);
     ``ln_impl``: :func:`_ln`; ``quantize``: :func:`_dense`; ``mesh``: the
-    process mesh whose ``seq`` ring ``attention_impl='ring'`` runs over."""
+    process mesh whose ``seq`` ring ``attention_impl='ring'`` runs over,
+    or whose ``model`` axis (> 1) splits every layer's heads and MLP
+    columns (``tp``, that mesh, else None)."""
 
     def __init__(self, cfg: EncoderConfig, *, dtype=torch.float32,
                  device=None, attention_impl: str = "auto",
@@ -399,12 +476,18 @@ class TransformerEncoder(nn.Module):
         self.cfg = cfg
         self.remat = remat
         self.mesh = mesh if attention_impl == "ring" else None
+        self.tp = (mesh if mesh is not None and mesh.model_size > 1
+                   else None)
+        if self.tp is not None:
+            check_model_split(cfg.num_heads, cfg.intermediate_size,
+                              mesh.model_size)
         self.embeddings = Embeddings(cfg, dtype=dtype, device=device,
                                      ln_impl=ln_impl, quantize=quantize)
         for i in range(cfg.num_layers):  # flax names: layer_0, layer_1, ...
             self.add_module(f"layer_{i}", EncoderLayer(
                 cfg, dtype=dtype, device=device, attention_impl=attention_impl,
-                ln_impl=ln_impl, quantize=quantize, mesh=self.mesh))
+                ln_impl=ln_impl, quantize=quantize, mesh=self.mesh,
+                tp=self.tp))
         self.pooler = _dense(quantize, cfg.hidden_size, cfg.hidden_size, dtype,
                              device)
 

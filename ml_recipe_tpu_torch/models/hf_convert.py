@@ -259,6 +259,10 @@ def load_pretrained_into(model: nn.Module, path: str) -> None:
                 f"Position table truncated: the model keeps the first {n} of "
                 f"the checkpoint's {src.shape[0]} pretrained rows (sequences "
                 f"here never index past {n - 1}).")
+    split = model.model_split() if hasattr(model, "model_split") else None
+    if split is not None:   # this rank's slices under a model axis
+        converted = {k: split.local(f"transformer.{k}", v)
+                     for k, v in converted.items()}
     check_param_shapes(target, converted, f"converted checkpoint {path}")
     encoder.load_state_dict(converted, strict=True)
     logger.info(f"Encoder weights converted from {path}.")

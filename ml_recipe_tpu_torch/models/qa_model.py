@@ -27,6 +27,14 @@ Sequence parallelism (``attention_impl='ring'`` and a ``mesh`` with a
 states (``models/encoder.py``), so the heads, the pad penalty and the
 loss see the whole sequence, identically on every rank of the group (the
 CLS row, token 0, comes from ``seq_index`` 0's block).
+
+Tensor parallelism (a ``mesh`` with a ``model`` axis > 1): the encoder's
+attention and MLP blocks run on this rank's heads and columns
+(``models/encoder.py``); the embeddings, the pooler and the four heads
+stay whole on every rank of the ``model`` group, which all compute the
+same outputs. :meth:`QAModel.model_split` is the rank's
+``parallel.sharding.ModelSplit``: which parameters are slices, of which
+dimension, and the gather of the group's slices back into whole ones.
 """
 
 from __future__ import annotations
@@ -66,6 +74,18 @@ class QAModel(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.position_outputs.bias.device
+
+    def model_split(self):
+        """This rank's ``parallel.sharding.ModelSplit`` under a ``model``
+        axis > 1, else None."""
+        mesh = self.transformer.tp
+        if mesh is None:
+            return None
+        from ..parallel.sharding import ModelSplit, tp_param_dims
+
+        return ModelSplit(tp_param_dims(n for n, _ in self.named_parameters()),
+                          index=mesh.model_index, size=mesh.model_size,
+                          group=mesh.model_group, owner=mesh.data_index == 0)
 
     def forward(
         self,
@@ -175,15 +195,26 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     truncated-normal (2 std) at variance 1/fan_in, embeddings normal at
     variance 1/features, biases 0, LayerNorm 1/0. Draws happen on the CPU
     from ``generator`` in f32 and are copied into the params, so one seed
-    gives the same weights on any device and in any compute dtype."""
+    gives the same weights on any device and in any compute dtype. A
+    tensor-parallel slice (``Linear.split``) is drawn at its whole shape
+    and sliced, so one seed gives every rank of a ``model`` group its
+    slice of the one-process weights."""
     with torch.no_grad():
         for module in model.modules():
             if isinstance(module, nn.Linear):
-                fan_in = module.in_features
+                shape = list(module.weight.shape)
+                split = getattr(module, "split", None)
+                if split is not None:
+                    shape[split[0]] *= split[2]
+                fan_in = shape[1]
                 std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
-                w = torch.empty(module.weight.shape)
+                w = torch.empty(shape)
                 nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
                                       generator=generator)
+                if split is not None:
+                    dim, index, _ = split
+                    n = module.weight.shape[dim]
+                    w = w.narrow(dim, index * n, n)
                 module.weight.copy_(w)
                 module.bias.zero_()
             elif isinstance(module, nn.Embedding):

@@ -41,7 +41,9 @@ from typing import Optional
 import torch
 
 from .flash_attention import (
+    _PRIME,
     SeedLike,
+    _as_int32,
     fused_attention,
     fused_attention_plain,
     row_seeds,
@@ -71,6 +73,22 @@ def global_row_seeds(seed: torch.Tensor, first: int, rows: int, total: int,
     draws the attention dropout the one-process call would
     (``row_seeds(seed, total, heads)[first:first + rows]``)."""
     return row_seeds(seed, total, heads, seed.device)[first:first + rows]
+
+
+def model_row_seeds(seed: torch.Tensor, rows: int, heads: int, index: int,
+                    size: int) -> torch.Tensor:
+    """The ``[rows]`` int32 dropout row seeds that make rank ``index`` of a
+    ``model`` group of ``size`` (tensor parallelism, ``heads / size``
+    heads a rank) draw, for its local head ``j``, the keep mask of global
+    head ``index * heads / size + j``: ``seed`` (a ``(1,)`` seed or the
+    ``[rows]`` seeds of :func:`global_row_seeds`) expanded for the global
+    ``heads`` (``row_seeds``), plus ``index * (heads / size) *
+    -1640531527`` with int32 wraparound, since the hash keys head ``h`` of
+    row ``b`` as ``seed[b] + h * -1640531527``. The kernel and the plain
+    version take these seeds as given (a ``[rows]`` vector at rows > 1;
+    row 0 of one row has no row offset either way)."""
+    seeds = row_seeds(seed, rows, heads, seed.device).to(torch.int64)
+    return _as_int32(seeds + int(index) * (int(heads) // int(size)) * _PRIME)
 
 
 def dot_product_attention(

@@ -1,13 +1,14 @@
 """Parallelism over ``torch.distributed`` (the port of
 ``ml_recipe_tpu/parallel/``): joining the world (``dist.py``), the process
-mesh of ``data``, ``seq`` and ``pipe`` axes (``mesh.py``) and its plan
-(``plan.py``, narrowed over the live processes under ``--elastic on``),
-the ZeRO-1 layout and its gradient buckets and the sequence split
-(``sharding.py``), the pipeline's stages and schedules (``pipeline.py``),
-and the collectives of the step, the ring attention's hop, the pipeline
-stages' hand-offs and the bucketed ZeRO-1 exchange included
-(``collectives.py``). Tensor parallelism is not ported (ROADMAP.md queue 1,
-'Parallelism beyond data parallelism')."""
+mesh of ``data``, ``seq``, ``pipe`` and ``model`` axes (``mesh.py``) and
+its plan (``plan.py``, narrowed over the live processes under ``--elastic
+on``), the tensor-parallel rules, the ZeRO-1 layout and its gradient
+buckets and the sequence split (``sharding.py``), the pipeline's stages
+and schedules (``pipeline.py``), and the collectives of the step, the
+ring attention's hop, the pipeline stages' hand-offs, the ``model``
+group's conjugate all-reduces and the bucketed ZeRO-1 exchange included
+(``collectives.py``). A ``model`` axis beside ``pipe`` or ``seq`` is not
+ported (ROADMAP.md queue 1, 'Parallelism beyond data parallelism')."""
 
 from .collectives import (
     BucketedExchange,

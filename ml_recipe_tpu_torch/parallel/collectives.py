@@ -64,7 +64,18 @@ The mesh's collectives (``parallel/mesh.py``), each over one group of it:
   ring's transport does;
 - :func:`all_reduce_sum_` over the ``pipe`` group: the squared norms of
   the stages' gradients, summed into the global-norm clip
-  (``train/optim.py``).
+  (``train/optim.py``);
+- :class:`ModelTransport`: the all-reduce of a ``model`` group (tensor
+  parallelism), under autograd as the two conjugate operators of the
+  Megatron split: :func:`copy_to_model` (identity forward, all-reduce of
+  the gradient backward) before the column-split products, and
+  :func:`reduce_from_model` (all-reduce forward, identity backward) after
+  the row-split ones. Under NCCL it all-reduces the device tensor; over
+  gloo a CUDA tensor is staged through a pinned host buffer and reduced
+  there in its own dtype (bf16 included). It logs its kind once and
+  counts its all-reduces (forward and backward), the bytes reduced, the
+  bytes staged through the host and its seconds (``stats``). A failed
+  all-reduce raises: nothing falls back to a replicated layer.
 
 Every function here runs its collective whenever a process group exists,
 also a group of one; the trainer calls them only at world size > 1.
@@ -355,6 +366,104 @@ class StageTransport:
             work.wait()
         self._pending.clear()
         self.stats["seconds"] += time.perf_counter() - t0
+
+
+class ModelTransport:
+    """The all-reduce of one ``model`` group (see the module docstring):
+    ``ranks`` are the group's global ranks, ``group`` its process group
+    (None: the world). :meth:`all_reduce` returns the group's sum of a
+    tensor, a new tensor of its shape, dtype and device."""
+
+    def __init__(self, ranks: Sequence[int], rank: int, group=None):
+        self.ranks = tuple(int(r) for r in ranks)
+        self.group = group
+        self.nccl = pdist.backend() == "nccl"
+        self._pinned: Dict[tuple, torch.Tensor] = {}
+        self.reset()
+        logger.info("Tensor-parallel transport: model group of %d ranks %s, "
+                    "%s.", len(self.ranks), list(self.ranks),
+                    "all_reduce of device tensors (nccl)" if self.nccl
+                    else "gloo all_reduce, CUDA tensors staged through pinned "
+                         "host buffers in their own dtype (the layers stay "
+                         "on the card)")
+
+    def reset(self) -> None:
+        self.stats = {"all_reduces": 0, "forward": 0, "backward": 0,
+                      "bytes": 0, "staged_bytes": 0, "seconds": 0.0}
+
+    def all_reduce(self, x: torch.Tensor, kind: str = "forward"
+                   ) -> torch.Tensor:
+        """The sum of ``x`` over the group; ``kind`` (``forward`` or
+        ``backward``) is the counter it adds to."""
+        x = x.contiguous()
+        nbytes = x.numel() * x.element_size()
+        staged = not self.nccl and x.device.type != "cpu"
+        if staged:
+            # the copy to the host waits for the queue anyway: the clock
+            # starts once the card has produced x
+            torch.cuda.synchronize(x.device)
+        t0 = time.perf_counter()
+        if staged:
+            key = (tuple(x.shape), x.dtype)
+            host = self._pinned.get(key)
+            if host is None:
+                host = self._pinned[key] = torch.empty(
+                    x.shape, dtype=x.dtype, pin_memory=True)
+            host.copy_(x)
+            dist.all_reduce(host, op=dist.ReduceOp.SUM, group=self.group)
+            out = host.to(x.device, copy=True)
+            self.stats["staged_bytes"] += 2 * nbytes
+        else:
+            out = x.clone()
+            dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group)
+        self.stats["all_reduces"] += 1
+        self.stats[kind] += 1
+        self.stats["bytes"] += nbytes
+        self.stats["seconds"] += time.perf_counter() - t0
+        return out
+
+
+class CopyToModel(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over the ``model``
+    group (each rank's columns of the next products gave it a part)."""
+
+    @staticmethod
+    def forward(ctx, x, transport):
+        ctx.transport = transport
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.transport.all_reduce(g, "backward"), None
+
+
+class ReduceFromModel(torch.autograd.Function):
+    """The sum over the ``model`` group forward (each rank's rows of the
+    product gave a part of it); identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, transport):
+        return transport.all_reduce(x, "forward")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, transport: Optional[ModelTransport]
+                  ) -> torch.Tensor:
+    """:class:`CopyToModel` (``x`` itself without a transport)."""
+    if transport is None:
+        return x
+    return CopyToModel.apply(x, transport)
+
+
+def reduce_from_model(x: torch.Tensor, transport: Optional[ModelTransport]
+                      ) -> torch.Tensor:
+    """:class:`ReduceFromModel` (``x`` itself without a transport)."""
+    if transport is None:
+        return x
+    return ReduceFromModel.apply(x, transport)
 
 
 class GradBucket(NamedTuple):

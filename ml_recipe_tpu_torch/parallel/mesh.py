@@ -13,18 +13,26 @@ for every row of each axis the step reduces or rotates over:
 - ``pipe``: pipeline parallelism (each rank of a ``pipe`` group is one
   stage, a contiguous range of the encoder's layers; activations go
   forward and their gradients back between neighbouring stages,
-  ``parallel/pipeline.py``).
+  ``parallel/pipeline.py``);
+- ``model``: tensor parallelism (each rank of a ``model`` group holds
+  ``1/T`` of every layer's attention heads and MLP columns, the JAX
+  package's Megatron-style ``TP_RULES``; the group all-reduces each
+  attention and MLP block's output, ``parallel/collectives.py``
+  ``reduce_from_model``, and their inputs' gradients, ``copy_to_model``).
 
-Axis sizes come from ``--mesh`` (``data:2,seq:2``, ``data:2,pipe:2``), by
-default one ``data`` axis over the whole world. Ranks follow the JAX
-package's axis order :data:`AXIS_ORDER` (its device array is reshaped in
-that order, ``pipe`` outermost), so with ``pipe:K,data:D,seq:S`` rank ``r``
-sits at ``pipe_index = r // (D*S)``, ``data_index = r // S % D``,
-``seq_index = r % S``: the data coordinate, which picks a rank's rows of
-every global batch and folds into its dropout seeds, is the one the JAX
-package gives the same device. ``pipe`` with ``seq`` raises, as in the JAX
-package (``parallel/pipeline.validate_pipeline_plan``), and so does
-``model`` (tensor parallelism) at any size.
+Axis sizes come from ``--mesh`` (``data:2,seq:2``, ``data:2,pipe:2``,
+``data:2,model:2``), by default one ``data`` axis over the whole world.
+Ranks follow the JAX package's axis order :data:`AXIS_ORDER` (its device
+array is reshaped in that order, ``pipe`` outermost, ``model`` innermost),
+so with ``pipe:K,data:D,seq:S,model:T`` rank ``r`` sits at ``pipe_index =
+r // (D*S*T)``, ``data_index = r // (S*T) % D``, ``seq_index = r // T %
+S``, ``model_index = r % T``: the data coordinate, which picks a rank's
+rows of every global batch and folds into its dropout seeds, is the one
+the JAX package gives the same device, and a model group's ranks are
+neighbours. ``pipe`` with ``seq`` raises, as in the JAX package
+(``parallel/pipeline.validate_pipeline_plan``), and so does a ``model``
+axis beside ``pipe`` or ``seq`` (the port's tensor-parallel layers do not
+run inside a pipeline stage or a ring hop yet).
 Where the JAX package warns about devices a mesh leaves idle, the port
 requires the mesh to cover the world exactly. Under ``--elastic on``
 :func:`elastic_axes` shrinks a requested mesh onto the live processes
@@ -41,15 +49,18 @@ from typing import Dict, List, Optional, Tuple
 import torch.distributed as dist
 
 from . import dist as pdist
-from .collectives import RingTransport, StageTransport
+from .collectives import ModelTransport, RingTransport, StageTransport
 
 logger = logging.getLogger(__name__)
 
 # pipe outermost, then data, seq, model innermost (the JAX package's order)
 AXIS_ORDER = ("pipe", "data", "seq", "model")
-DATA_AXIS, SEQ_AXIS, PIPE_AXIS = "data", "seq", "pipe"
-PORTED_AXES = (DATA_AXIS, SEQ_AXIS, PIPE_AXIS)
+DATA_AXIS, SEQ_AXIS, PIPE_AXIS, MODEL_AXIS = "data", "seq", "pipe", "model"
+PORTED_AXES = (DATA_AXIS, SEQ_AXIS, PIPE_AXIS, MODEL_AXIS)
 _PARALLEL = "queue 1, 'Parallelism beyond data parallelism'"
+# the items of that queue a refused composition waits for
+_PIPE_MODEL = f"{_PARALLEL}, item 'pipe x model'"
+_SEQ_MODEL = f"{_PARALLEL}, item 'seq x model'"
 
 
 def parse_mesh_spec(spec: Optional[str]) -> Dict[str, int]:
@@ -83,14 +94,25 @@ def parse_mesh_spec(spec: Optional[str]) -> Dict[str, int]:
 
 
 def refuse_unported_axes(axes: Dict[str, int]) -> None:
-    """Raise on an axis other than ``data``, ``seq`` and ``pipe`` (``model``
-    at any size included), naming the ROADMAP item, and on ``pipe`` > 1
-    beside ``seq`` > 1, which the JAX package refuses too."""
+    """Raise on an axis other than ``data``, ``seq``, ``pipe`` and
+    ``model``, naming the ROADMAP item; on ``pipe`` > 1 beside ``seq`` > 1,
+    which the JAX package refuses too; and on a ``model`` axis beside
+    ``pipe`` > 1 or ``seq`` > 1, whose compositions wait for their own
+    ROADMAP items."""
     bad = [name for name in axes if name not in PORTED_AXES]
     if bad:
         raise NotImplementedError(
             f"mesh axes {bad} are not ported yet (the port runs 'data', "
-            f"'seq' and 'pipe'): ROADMAP.md {_PARALLEL}")
+            f"'seq', 'pipe' and 'model'): ROADMAP.md {_PARALLEL}")
+    if MODEL_AXIS in axes:
+        for other, item in ((PIPE_AXIS, _PIPE_MODEL), (SEQ_AXIS, _SEQ_MODEL)):
+            if axes.get(other, 1) > 1:
+                raise NotImplementedError(
+                    f"--mesh with both {other} and model axes is not "
+                    f"composable in the port yet: the tensor-parallel "
+                    f"layers would have to run inside "
+                    f"{'a pipeline stage' if other == PIPE_AXIS else 'a ring hop'}"
+                    f", as in the JAX package; ROADMAP.md {item}")
     if axes.get(PIPE_AXIS, 1) > 1 and axes.get(SEQ_AXIS, 1) > 1:
         raise NotImplementedError(
             "--mesh with both seq and pipe axes is not composable yet: the "
@@ -98,6 +120,19 @@ def refuse_unported_axes(axes: Dict[str, int]) -> None:
             "stage's forward and backward, as in the JAX package "
             f"(parallel/pipeline.validate_pipeline_plan); ROADMAP.md "
             f"{_PARALLEL}")
+
+
+def check_model_split(num_heads: int, intermediate_size: int,
+                      model_size: int) -> None:
+    """Raise unless a ``model`` axis of ``model_size`` divides the heads and
+    the MLP's intermediate columns: every rank of a group holds an equal
+    slice of both (uneven splits are not ported)."""
+    if model_size > 1 and (num_heads % model_size
+                           or intermediate_size % model_size):
+        raise NotImplementedError(
+            f"a model axis of {model_size} does not divide the encoder's "
+            f"{num_heads} heads and {intermediate_size} MLP columns; uneven "
+            f"tensor-parallel splits are not ported: ROADMAP.md {_PARALLEL}")
 
 
 class ElasticMeshError(ValueError):
@@ -177,10 +212,14 @@ class Mesh:
 
     ``axes``: ordered ``{name: size}``; ``rank``/``world``: the process's
     rank and the world size. ``data_group`` holds the ranks of this
-    process's ``data`` row (same pipe and seq index), ``seq_group`` those
-    of its ``seq`` ring (same data index), ``pipe_group`` those of its
-    pipeline (same data index), in coordinate order; a group is None (the
-    whole world, or a group of one) when the other axes have size 1.
+    process's ``data`` row (same pipe, seq and model index), ``seq_group``
+    those of its ``seq`` ring (same data index), ``pipe_group`` those of
+    its pipeline (same data index), ``model_group`` those of its ``model``
+    group (same data index; ``model_ranks`` their global ranks), in
+    coordinate order; a group is None (the whole world, or a group of one)
+    when the other axes have size 1. ``model_transport`` is the model
+    group's all-reduce (``parallel.collectives.ModelTransport``) when
+    ``model`` is > 1.
     ``seq_ranks`` are the global ranks of the ring, ``ring`` its transport
     (``parallel.collectives.RingTransport``) when ``seq`` is > 1;
     ``pipe_ranks`` the global ranks of the pipeline, stage by stage, and
@@ -197,6 +236,9 @@ class Mesh:
     pipe_group: object = None
     pipe_ranks: Tuple[int, ...] = (0,)
     stage: object = None
+    model_group: object = None
+    model_ranks: Tuple[int, ...] = (0,)
+    model_transport: object = None
 
     def axis_size(self, name: str) -> int:
         return int(self.axes.get(name, 1))
@@ -214,16 +256,33 @@ class Mesh:
         return self.axis_size(PIPE_AXIS)
 
     @property
+    def model_size(self) -> int:
+        return self.axis_size(MODEL_AXIS)
+
+    @property
     def data_index(self) -> int:
-        return self.rank // self.seq_size % self.data_size
+        return self.rank // (self.seq_size * self.model_size) % self.data_size
 
     @property
     def seq_index(self) -> int:
-        return self.rank % self.seq_size
+        return self.rank // self.model_size % self.seq_size
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model_size
 
     @property
     def pipe_index(self) -> int:
-        return self.rank // (self.data_size * self.seq_size)
+        return self.rank // (self.data_size * self.seq_size * self.model_size)
+
+    @property
+    def data_ranks(self) -> Tuple[int, ...]:
+        """The global ranks of this process's ``data`` row, in data
+        order."""
+        inner = self.seq_size * self.model_size
+        base = (self.pipe_index * self.data_size * inner
+                + self.rank % inner)
+        return tuple(base + d * inner for d in range(self.data_size))
 
     def describe(self) -> Dict[str, int]:
         return {str(n): int(s) for n, s in self.axes.items()}
@@ -258,25 +317,35 @@ def build_mesh(spec: Optional[str] = None, *,
             f"device); the world has {world} (--dist_world_size)")
     K = ordered.get(PIPE_AXIS, 1)
     D, S = ordered.get(DATA_AXIS, 1), ordered.get(SEQ_AXIS, 1)
+    T = ordered.get(MODEL_AXIS, 1)
     mesh = Mesh(axes=ordered, rank=rank, world=world,
-                seq_ranks=tuple(range(rank - rank % S, rank - rank % S + S)))
-    row = D * S                 # the ranks of one pipeline stage
+                seq_ranks=tuple(range(rank - rank % S, rank - rank % S + S)),
+                model_ranks=tuple(range(rank - rank % T,
+                                        rank - rank % T + T)))
+    row = D * S * T             # the ranks of one pipeline stage
     mesh.pipe_ranks = tuple(range(rank % row, world, row))
-    if D > 1 and (S > 1 or K > 1):   # with other axes of size 1, WORLD
+    if D > 1 and (S > 1 or K > 1 or T > 1):   # other axes of 1: WORLD
         mesh.data_group = _groups(
-            [list(range(k * row + s, (k + 1) * row, S))
-             for k in range(K) for s in range(S)], rank)
+            [list(range(k * row + j, (k + 1) * row, S * T))
+             for k in range(K) for j in range(S * T)], rank)
     if D > 1 and S > 1:
         mesh.seq_group = _groups(
             [list(range(d * S, d * S + S)) for d in range(D)], rank)
+    if D > 1 and T > 1:
+        mesh.model_group = _groups(
+            [list(range(d * T, d * T + T)) for d in range(D)], rank)
     if S > 1:
         mesh.ring = RingTransport(mesh.seq_ranks, rank)
+    if T > 1:
+        mesh.model_transport = ModelTransport(mesh.model_ranks, rank,
+                                              mesh.model_group)
     if K > 1:
         if D > 1:
             mesh.pipe_group = _groups(
                 [list(range(i, world, row)) for i in range(row)], rank)
         mesh.stage = StageTransport(mesh.pipe_ranks, rank)
-    logger.info("Built process mesh %s: rank %d at data %d, seq %d%s.",
+    logger.info("Built process mesh %s: rank %d at data %d, seq %d%s%s.",
                 ordered, rank, mesh.data_index, mesh.seq_index,
-                f", pipe {mesh.pipe_index}" if K > 1 else "")
+                f", pipe {mesh.pipe_index}" if K > 1 else "",
+                f", model {mesh.model_index}" if T > 1 else "")
     return mesh

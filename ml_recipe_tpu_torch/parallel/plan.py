@@ -7,7 +7,9 @@ topology that wrote it in both packages). Under ``--elastic on``
 processes, narrowing the requested ``data`` axis, and records the request
 (``requested_axes``, ``shrunk``). With a ``pipe`` axis it names each
 stage's layers (:meth:`ParallelPlan.stage_map`) and plans ZeRO-1 within a
-stage's leaves (``zero1(..., stage_pipe=True)``, the JAX plan's)."""
+stage's leaves (``zero1(..., stage_pipe=True)``, the JAX plan's); with a
+``model`` axis it plans ZeRO-1 under the tensor-parallel rules, ``model``
+first, as the JAX plan does."""
 
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple
 from . import dist as pdist
 from .mesh import (
     DATA_AXIS,
+    MODEL_AXIS,
     PIPE_AXIS,
     SEQ_AXIS,
     Mesh,
@@ -82,6 +85,10 @@ class ParallelPlan:
         return self.axis_size(PIPE_AXIS)
 
     @property
+    def model_size(self) -> int:
+        return self.axis_size(MODEL_AXIS)
+
+    @property
     def single_device(self) -> bool:
         return self.mesh.world == 1
 
@@ -99,9 +106,12 @@ class ParallelPlan:
     def zero1(self, named_shapes: Iterable[Tuple[str, Sequence[int]]], *,
               min_size: int = MIN_SIZE,
               stage_pipe: bool = False) -> Dict[str, ParamSlice]:
-        """The per-parameter ZeRO-1 placement over the ``data`` axis; with
-        ``stage_pipe`` the ``pipe`` axis claims its stage-scope dimension
-        first, so ``data`` is planned within a stage's leaves."""
+        """The per-parameter ZeRO-1 placement over the ``data`` axis of the
+        parameters' whole shapes; with ``stage_pipe`` the ``pipe`` axis
+        claims its stage-scope dimension first, so ``data`` is planned
+        within a stage's leaves; a ``model`` axis claims the
+        tensor-parallel rules' dimensions first."""
         return zero1_param_plan(
             named_shapes, data_size=self.data_size, min_size=min_size,
-            pipe_size=self.pipe_size if stage_pipe else 1)
+            pipe_size=self.pipe_size if stage_pipe else 1,
+            model_size=self.model_size)

@@ -28,6 +28,20 @@ pipe size divides to ``pipe`` first (never padded), and ``data`` lands on
 the remaining ones. The port stores a stage's leaves whole on the stage's
 own ranks, so the ``pipe`` claim shapes the checkpoint's pieces
 (``parallel/pipeline.py``) and keeps ``data`` off that dimension.
+
+Under a ``model`` axis (tensor parallelism) the JAX package's
+:data:`TP_RULES` split the query, key, value and MLP-intermediate kernels
+and biases on their output dimension and the attention-output and
+MLP-output kernels on their input dimension; every other leaf stays whole
+on each rank. :func:`tp_param_dims` maps each rule onto the port's tensor
+(``Linear.weight`` is ``[out, in]``: ``P(None, model)`` slices its rows,
+``P(model, None)`` its columns, a sliced bias is ``P(model)``), and
+:class:`ModelSplit` holds one rank's place: its slice of a whole leaf and
+the gather of the group's slices back into it. The ZeRO-1 plan gives the
+``model`` dimension its axis first, then ``data`` the largest remaining
+dimension (the JAX package's order), so a rank's optimizer state is the
+``data`` slice of its ``model`` slice, and its sharded-checkpoint pieces
+(:meth:`Zero1.piece`) are bounded on both dimensions of the whole leaf.
 """
 
 from __future__ import annotations
@@ -38,9 +52,20 @@ from typing import Dict, Iterable, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .mesh import DATA_AXIS, PIPE_AXIS
+from .mesh import DATA_AXIS, MODEL_AXIS, PIPE_AXIS
 
 MIN_SIZE = 16384
+
+# tensor-parallel partition rules (the JAX package's TP_RULES): flax path
+# regex -> the axis of each dimension of the flax leaf (kernels [in, out])
+TP_RULES = [
+    (r".*attention/(query|key|value)/kernel$", (None, MODEL_AXIS)),
+    (r".*attention/(query|key|value)/bias$", (MODEL_AXIS,)),
+    (r".*attention/output/kernel$", (MODEL_AXIS, None)),
+    (r".*mlp/intermediate/kernel$", (None, MODEL_AXIS)),
+    (r".*mlp/intermediate/bias$", (MODEL_AXIS,)),
+    (r".*mlp/output/kernel$", (MODEL_AXIS, None)),
+]
 
 # flax paths of the leaves a pipeline stage owns alone: the embeddings
 # (stage 0) and each encoder layer (its stage); the pooler and the heads
@@ -65,23 +90,39 @@ def _path_str(path) -> str:
     return path if isinstance(path, str) else "/".join(str(p) for p in path)
 
 
+def tp_spec(path) -> Optional[Tuple[Optional[str], ...]]:
+    """The :data:`TP_RULES` spec of the flax leaf at ``path`` (a tuple or an
+    ``a/b/c`` string), or None where no rule matches (the leaf stays whole
+    on every rank of a ``model`` group)."""
+    path_s = _path_str(path)
+    for pattern, spec in TP_RULES:
+        if re.match(pattern, path_s):
+            return spec
+    return None
+
+
 def _zero_leaf_plan(path, shape, *, data_size: int,
-                    min_size: int = MIN_SIZE,
-                    pipe_size: int = 1) -> ZeroLeafPlan:
-    """The one dimension chooser (the JAX package's ``_zero_leaf_plan``
-    without the tensor-parallel rules, whose axis the port refuses): with
-    ``pipe_size > 1`` a stage-scope leaf (``path``, a flax path as a tuple
-    or an ``a/b/c`` string, matches :data:`STAGE_SCOPE_RE`) gives ``pipe``
-    its largest dimension that ``pipe_size`` divides; then the largest
-    remaining dimension ``data_size`` divides takes ``data``, else the
-    largest remaining dimension (of at least 2) padded to the next
-    multiple; ``data`` stays off below ``min_size`` elements or at
+                    min_size: int = MIN_SIZE, pipe_size: int = 1,
+                    model_size: int = 1) -> ZeroLeafPlan:
+    """The one dimension chooser (the JAX package's ``_zero_leaf_plan``):
+    with ``model_size > 1`` a leaf that :data:`TP_RULES` match (``path``, a
+    flax path as a tuple or an ``a/b/c`` string) gives ``model`` its
+    rule's dimension first; with ``pipe_size > 1`` a stage-scope leaf
+    (:data:`STAGE_SCOPE_RE`) gives ``pipe`` its largest free dimension that
+    ``pipe_size`` divides; then the largest remaining dimension
+    ``data_size`` divides takes ``data``, else the largest remaining
+    dimension (of at least 2) padded to the next multiple; ``data`` stays
+    off below ``min_size`` elements (of the whole leaf) or at
     ``data_size`` 1."""
     shape = tuple(int(d) for d in shape)
     axes = [None] * len(shape)
+    if model_size > 1:
+        spec = tp_spec(path)
+        if spec is not None:
+            axes = list(spec) + [None] * (len(shape) - len(spec))
     if pipe_size > 1 and STAGE_SCOPE_RE.search(_path_str(path)):
         pipe_free = [(dim, i) for i, dim in enumerate(shape)
-                     if dim % pipe_size == 0]
+                     if axes[i] is None and dim % pipe_size == 0]
         if pipe_free:
             axes[max(pipe_free)[1]] = PIPE_AXIS
     if data_size <= 1 or int(np.prod(shape or (0,))) < min_size:
@@ -124,13 +165,16 @@ def _map_with_path(fn, tree: dict, prefix=()):
 
 
 def zero1_plan(tree: dict, *, data_size: int,
-               min_size: int = MIN_SIZE, pipe_size: int = 1) -> dict:
+               min_size: int = MIN_SIZE, pipe_size: int = 1,
+               model_size: int = 1) -> dict:
     """One :class:`ZeroLeafPlan` per leaf of a nested dict of arrays (only
-    ``.shape`` is read), in the tree's structure; ``pipe_size`` > 1: the
-    stage layout's plan (the JAX package's ``stage_pipe``)."""
+    ``.shape`` is read: whole leaves), in the tree's structure;
+    ``pipe_size`` > 1: the stage layout's plan (the JAX package's
+    ``stage_pipe``); ``model_size`` > 1: under the tensor-parallel
+    rules."""
     return _map_with_path(lambda path, leaf: _zero_leaf_plan(
         path, np.shape(leaf), data_size=data_size, min_size=min_size,
-        pipe_size=pipe_size), tree)
+        pipe_size=pipe_size, model_size=model_size), tree)
 
 
 def _pad_leaf(x, z: ZeroLeafPlan):
@@ -220,17 +264,21 @@ def _is_kernel(name: str) -> bool:
 
 def zero1_param_plan(named_shapes: Iterable[Tuple[str, Sequence[int]]], *,
                      data_size: int, min_size: int = MIN_SIZE,
-                     pipe_size: int = 1) -> Dict[str, ParamSlice]:
+                     pipe_size: int = 1,
+                     model_size: int = 1) -> Dict[str, ParamSlice]:
     """:func:`_zero_leaf_plan` of each parameter on its flax shape and path,
     mapped onto the port's tensor (a kernel's flax axis ``i`` is the
-    weight's ``ndim - 1 - i``)."""
+    weight's ``ndim - 1 - i``). ``named_shapes`` are whole shapes; under
+    ``model_size`` > 1 a ``model``-split parameter's tensor is its slice,
+    whose ``data`` dimension (another one) has the whole extent."""
     from ..models.convert import jax_path
 
     out = {}
     for name, shape in named_shapes:
         fshape = flax_shape(name, shape)
         z = _zero_leaf_plan(jax_path(name), fshape, data_size=data_size,
-                            min_size=min_size, pipe_size=pipe_size)
+                            min_size=min_size, pipe_size=pipe_size,
+                            model_size=model_size)
         axis = z.axis
         if axis is not None and _is_kernel(name):
             axis = len(fshape) - 1 - axis
@@ -306,6 +354,83 @@ def seq_split(x: torch.Tensor, index: int, size: int,
     return x.narrow(dim, index * (L // size), L // size)
 
 
+def tp_param_dims(names: Iterable[str]) -> Dict[str, int]:
+    """The port's parameters that :data:`TP_RULES` split, each with the
+    dimension of its tensor the ``model`` axis takes (a kernel's flax axis
+    ``i`` is the weight's ``1 - i``; a bias keeps its one dimension)."""
+    from ..models.convert import jax_path
+
+    out = {}
+    for name in names:
+        path = jax_path(name)
+        spec = tp_spec(path)
+        if spec is not None:
+            i = spec.index(MODEL_AXIS)
+            out[name] = len(spec) - 1 - i if path[-1] == "kernel" else i
+    return out
+
+
+class ModelSplit:
+    """One rank's place in its ``model`` group (tensor parallelism):
+    ``dims`` maps each split parameter (the port's name) to the dimension
+    of its tensor the group divides (:func:`tp_param_dims`), ``index`` and
+    ``size`` are the rank's place and the group's size, ``group`` its
+    process group (None: the world), and ``owner`` says whether this rank
+    writes its slices into sharded checkpoints (``data`` index 0)."""
+
+    def __init__(self, dims: Dict[str, int], *, index: int, size: int,
+                 group=None, owner: bool = True):
+        self.dims, self.index, self.size = dict(dims), int(index), int(size)
+        self.group, self.owner = group, bool(owner)
+
+    def sharded(self, name: str) -> bool:
+        return name in self.dims
+
+    def local(self, name: str, whole: torch.Tensor,
+              n: Optional[int] = None) -> torch.Tensor:
+        """This rank's slice of the whole tensor of parameter ``name``
+        (``whole`` itself for a leaf the rules keep whole); ``n``: the
+        slice's extent, by default ``1/size`` of the whole's (a saved
+        moment may be longer: a ZeRO-1 save padded it)."""
+        if name not in self.dims:
+            return whole
+        dim = self.dims[name]
+        n = whole.shape[dim] // self.size if n is None else int(n)
+        return whole.narrow(dim, self.index * n, n).contiguous()
+
+    def local_state(self, state: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """This rank's slices of a whole model's state dict."""
+        return {n: self.local(n, t) for n, t in state.items()}
+
+    def gather(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The group's slices of parameter ``name`` (this rank's is ``t``)
+        as the whole, on ``t``'s device; ``t`` itself for a whole leaf.
+        Every rank of the group calls it."""
+        if name not in self.dims:
+            return t
+        from .collectives import all_gather_cat
+
+        return all_gather_cat(t, self.group, dim=self.dims[name])
+
+    def flax_dim(self, name: str, ndim: int) -> int:
+        """The dimension the group divides in the flax orientation."""
+        dim = self.dims[name]
+        return ndim - 1 - dim if _is_kernel(name) else dim
+
+    def piece(self, name: str, data: np.ndarray) -> "LocalPiece":
+        """:class:`LocalPiece` of this rank's slice ``data`` (flax
+        orientation) of the split leaf ``name`` (``shards``: the group's
+        size)."""
+        axis = self.flax_dim(name, data.ndim)
+        n = data.shape[axis]
+        shape = list(data.shape)
+        shape[axis] = n * self.size
+        bounds = tuple((self.index * n, (self.index + 1) * n) if i == axis
+                       else (0, int(d)) for i, d in enumerate(shape))
+        return LocalPiece(tuple(shape), bounds, data, self.size, self.owner)
+
+
 class LocalPiece(NamedTuple):
     """This rank's piece of a ZeRO-1 leaf for a sharded checkpoint, in the
     flax orientation: the padded leaf's ``shape``, the piece's ``bounds``
@@ -325,12 +450,15 @@ class Zero1:
     (:func:`zero1_param_plan`), this rank's ``index`` on the ``data`` axis
     of ``size`` ranks, the ``group`` the slices are gathered over, and
     whether this rank writes its pieces into sharded checkpoints
-    (``owner``)."""
+    (``owner``); ``tp``, under a ``model`` axis, the rank's
+    :class:`ModelSplit` (its tensors are ``model`` slices, and a piece is
+    bounded on both dimensions of the whole leaf)."""
 
     def __init__(self, plan: Dict[str, ParamSlice], *, index: int, size: int,
-                 group=None, owner: bool = True):
+                 group=None, owner: bool = True,
+                 tp: Optional[ModelSplit] = None):
         self.plan, self.index, self.size = dict(plan), int(index), int(size)
-        self.group, self.owner = group, bool(owner)
+        self.group, self.owner, self.tp = group, bool(owner), tp
 
     def local(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """This rank's slice of ``t`` (``t`` itself for a whole leaf)."""
@@ -355,9 +483,19 @@ class Zero1:
         orientation) of the planned leaf ``name``."""
         z = self.plan[name].plan
         chunk = z.padded // self.size
+        shards = self.size
         shape = list(data.shape)
         shape[z.axis] = z.padded
-        bounds = tuple((self.index * chunk, (self.index + 1) * chunk)
-                       if i == z.axis else (0, int(d))
-                       for i, d in enumerate(shape))
-        return LocalPiece(tuple(shape), bounds, data, self.size, self.owner)
+        bounds = [(self.index * chunk, (self.index + 1) * chunk)
+                  if i == z.axis else (0, int(d))
+                  for i, d in enumerate(shape)]
+        owner = self.owner
+        if self.tp is not None and self.tp.sharded(name):
+            tp = self.tp.piece(name, data)
+            axis = self.tp.flax_dim(name, data.ndim)
+            shape[axis], bounds[axis] = tp.shape[axis], tp.bounds[axis]
+            shards *= self.tp.size
+        elif self.tp is not None:
+            # a leaf the model group holds whole: its first rank writes
+            owner = owner and self.tp.index == 0
+        return LocalPiece(tuple(shape), tuple(bounds), data, shards, owner)

@@ -48,6 +48,16 @@ widest optimizer leaf's, and only leaves that process 0 writes whole carry
 a folded crc32 in the manifest, as in the JAX writer). A restore crops or
 zero-fills every moment onto the live layout.
 
+Under a ``model`` axis (tensor parallelism) every leaf in either layout
+is whole, as the JAX package writes it: the single file gathers the
+``model`` group's slices (``parallel.sharding.ModelSplit``; every process
+takes part, rank 0 writes), so it is the file one process writes; in the
+directory each ``data`` index 0 rank writes its slice of every split
+parameter and moment as a piece bounded in the whole leaf (``shards``
+the group's size, and a ZeRO-1 moment's pieces, bounded on both
+dimensions, D*T), the JAX writer's ``shards`` count and crc fold. A
+restore reads whole leaves and keeps this rank's slices.
+
 Leaves are keyed ``a/b/c``; an empty subtree (optax's ``EmptyState``) is an
 ``{"empty": True}`` leaf. The shard file is written first into
 ``path.saving``, the manifest last (its presence means the directory is
@@ -81,7 +91,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 from torch import nn
 
-from ..models.convert import from_jax_params, to_jax_params
+from ..models.convert import from_jax_params, jax_path, to_jax_params
 from ..parallel.dist import barrier
 from ..parallel.sharding import LocalPiece
 from ..resilience.faults import fire as _fault
@@ -150,6 +160,20 @@ def _read_resumable(path: str) -> Optional[dict]:
         return None
 
 
+def _model_split(model: nn.Module):
+    """The model's ``ModelSplit`` under a ``model`` axis, else None."""
+    split = getattr(model, "model_split", None)
+    return split() if split is not None else None
+
+
+def _weights(model: nn.Module, tree: dict) -> dict:
+    """A flax params tree as ``model``'s state dict: this rank's slices of
+    the leaves a ``model`` axis splits."""
+    weights = from_jax_params(tree)
+    split = _model_split(model)
+    return weights if split is None else split.local_state(weights)
+
+
 def load_state_dict(model: nn.Module, path) -> Optional[int]:
     """Load a checkpoint's model weights into ``model`` (cast to its dtype
     and device); returns the checkpoint's global step. A missing or torn
@@ -158,7 +182,7 @@ def load_state_dict(model: nn.Module, path) -> Optional[int]:
     state = _read_resumable(os.fspath(path))
     if state is None:
         return None
-    model.load_state_dict(from_jax_params(state["model"]), strict=True)
+    model.load_state_dict(_weights(model, state["model"]), strict=True)
     logger.info("Model weights were loaded from %s checkpoint.", path)
     return int(state.get("global_step") or 0)
 
@@ -170,9 +194,31 @@ def _atomic_write(path: str, blob: bytes) -> None:
     os.replace(tmp, path)   # no torn checkpoint on interrupt
 
 
+def _model_tree(model: nn.Module, *, copy: bool = False,
+                local: bool = False) -> dict:
+    """The model's flax params tree: under a ``model`` axis the group's
+    slices gathered whole (every rank of the group calls it), or with
+    ``local`` this rank's ``LocalPiece`` of each split leaf."""
+    split = _model_split(model)
+    state = model.state_dict()
+    if split is None:
+        return to_jax_params(state, copy=copy)
+    if not local:
+        return to_jax_params({n: split.gather(n, t) for n, t in
+                              state.items()}, copy=copy)
+    tree = to_jax_params(state, copy=copy)
+    for name in split.dims:
+        *parents, leaf = jax_path(name)
+        node = tree
+        for part in parents:
+            node = node[part]
+        node[leaf] = split.piece(name, node[leaf])
+    return tree
+
+
 def _training_groups(model: nn.Module, optimizer, loss_scale=None, *,
                      copy: bool = False, local: bool = False) -> dict:
-    groups = {"model": to_jax_params(model.state_dict(), copy=copy)}
+    groups = {"model": _model_tree(model, copy=copy, local=local)}
     if optimizer is not None:
         groups["optimizer"] = optimizer.flax_state(copy=copy, local=local)
     if loss_scale is not None:
@@ -250,7 +296,7 @@ def load_training_state(path, *, model: nn.Module, optimizer=None,
     state = _read_resumable(os.fspath(path))
     if state is None:
         return None
-    weights = from_jax_params(state["model"])
+    weights = _weights(model, state["model"])
     if only is None:
         model.load_state_dict(weights, strict=True)
     else:
@@ -362,9 +408,13 @@ def snapshot_state_sharded(*, model: nn.Module = None, optimizer=None,
         manifest["extra"] = dict(extra)
     owned: dict = {}
     zero = getattr(optimizer, "zero", None) is not None
+    split = model is not None and _model_split(model) is not None
     if groups is None and process_index == 0:
         groups = _training_groups(model, optimizer, loss_scale, copy=copy,
-                                  local=zero)
+                                  local=zero or split)
+    elif groups is None and split:
+        # this rank's slices (the whole leaves are process 0's)
+        groups = _training_groups(model, optimizer, copy=copy, local=True)
     elif groups is None:
         groups = ({"optimizer": optimizer.flax_state(copy=copy, local=True)}
                   if zero else {})

@@ -48,6 +48,15 @@ package stores at the same mesh; ``local=True`` gives each rank's pieces
 for a sharded checkpoint instead), and ``load_flax_state`` crops or
 zero-fills any saved layout, padded at any data size or whole, onto this
 one.
+
+Tensor parallelism (``tp``, a ``parallel.sharding.ModelSplit``): the
+parameters a ``model`` axis splits are this rank's slices, and so are
+their moments (and, under ZeRO-1, the ``data`` slices of those). The
+clip sums the squares of those leaves over the ``model`` group and counts
+a leaf every rank holds whole once (the JAX package's global norm over
+the whole arrays); ``flax_state`` gathers the group's slices into whole
+leaves (``local``: this rank's pieces, bounded in the whole leaf), and
+``load_flax_state`` keeps this rank's slice of any saved leaf.
 """
 
 from __future__ import annotations
@@ -60,7 +69,7 @@ import torch
 import torch.distributed as dist
 
 from ..models.convert import from_jax_params, jax_path, to_jax_params
-from ..parallel.sharding import Zero1
+from ..parallel.sharding import ModelSplit, Zero1
 
 logger = logging.getLogger(__name__)
 
@@ -126,20 +135,39 @@ def trainable_mask(names: Iterable[str],
     return param_path_mask(names, lambda path: path[0] in roots)
 
 
+def _split_squares(sq: torch.Tensor, sharded: Sequence[bool],
+                   model_sum: Callable) -> torch.Tensor:
+    """``[1]``: the sum of the per-leaf squares ``sq``, those of the
+    leaves a ``model`` group splits (``sharded``) summed over the group
+    (``model_sum``, in place), the others counted once."""
+    mask = torch.tensor(list(sharded), dtype=torch.bool, device=sq.device)
+    return model_sum(sq[mask].sum().reshape(1)) + sq[~mask].sum()
+
+
 @torch.no_grad()
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
-                         sum_over: Optional[Callable] = None) -> torch.Tensor:
+                         sum_over: Optional[Callable] = None,
+                         sharded: Optional[Sequence[bool]] = None,
+                         model_sum: Optional[Callable] = None
+                         ) -> torch.Tensor:
     """Scale ``grads`` in place by ``max_norm / max(norm, max_norm)``
     (optax ``clip_by_global_norm``); returns the f32 global norm. No host
     synchronisation. ``sum_over`` (a pipeline stage: its leaves are a part
     of the model's) sums a tensor over the parts in place: the squares of
-    every part's leaf norms are summed before the root."""
+    every part's leaf norms are summed before the root. ``model_sum``
+    (tensor parallelism) sums a tensor over the ``model`` group in place:
+    the squares of the leaves ``sharded`` flags are summed over it, the
+    others' counted once."""
     norms = torch._foreach_norm(grads)
-    if sum_over is None:
+    if sum_over is None and model_sum is None:
         norm = torch.linalg.vector_norm(torch.stack(norms))
     else:
-        sq = torch.stack(norms).square().sum().reshape(1)
-        norm = sum_over(sq).sqrt()[0]
+        sq = torch.stack(norms).square()
+        sq = (sq.sum().reshape(1) if model_sum is None
+              else _split_squares(sq, sharded, model_sum))
+        if sum_over is not None:
+            sq = sum_over(sq)
+        norm = sq.sqrt()[0]
     scale = max_norm / torch.clamp(norm, min=max_norm)
     torch._foreach_mul_(grads, scale)
     return norm
@@ -155,7 +183,8 @@ def clip_sliced_(grads: Dict[str, torch.Tensor], zero: Zero1,
     squares is summed over the ``data`` group (the pad region is zeros),
     the whole leaves' added once, and with ``sum_over`` the total summed
     over a pipeline's stages. Scales ``grads`` in place; returns the f32
-    global norm."""
+    global norm. (Bucketing is inert on a ``model`` mesh, so no slice here
+    is a ``model`` slice.)"""
     sliced = [g for n, g in grads.items() if zero.sharded(n)]
     whole = [g for n, g in grads.items() if not zero.sharded(n)]
     device = next(iter(grads.values())).device
@@ -191,16 +220,20 @@ class _Chain:
     (``frozen`` is None without ``--finetune``, else the frozen names).
     ``stage_local``: the chain holds one pipeline stage's parameters, so
     :meth:`flax_state` is that part of the model's tree and
-    :meth:`load_flax_state` takes that part of a whole one."""
+    :meth:`load_flax_state` takes that part of a whole one. ``tp``: the
+    rank's ``ModelSplit`` under a ``model`` axis (its split parameters are
+    slices)."""
 
     stage_local = False
 
     def __init__(self, params: Dict[str, torch.nn.Parameter], *,
                  schedule: Callable[[int], float], weight_decay: float,
                  frozen: Optional[Sequence[str]] = None,
-                 zero: Optional[Zero1] = None):
+                 zero: Optional[Zero1] = None,
+                 tp: Optional[ModelSplit] = None):
         self.params = dict(params)
         self.zero = zero
+        self.tp = tp
         for name, p in self.params.items():
             if p.dtype != torch.float32:
                 raise ValueError(f"{name}: the optimizer updates f32 master "
@@ -257,19 +290,26 @@ class _Chain:
         """A moment dict as the flax tree of the whole model: a frozen
         leaf is ``{}`` (optax ``MaskedNode``). Under ZeRO-1 a planned
         leaf is the gathered padded whole, or with ``local`` this rank's
-        ``LocalPiece``."""
-        if self.zero is not None and not local:
-            moments = {n: self.zero.gather(n, m) if self.zero.sharded(n)
-                       else m for n, m in moments.items()}
+        ``LocalPiece``; under a ``model`` axis a split leaf is the group's
+        slices gathered whole, or with ``local`` this rank's piece."""
+        zero, tp = self.zero, self.tp
+        if not local:
+            if zero is not None:
+                moments = {n: zero.gather(n, m) if zero.sharded(n) else m
+                           for n, m in moments.items()}
+            if tp is not None:
+                moments = {n: tp.gather(n, m) for n, m in moments.items()}
         tree = to_jax_params(moments, copy=copy)
-        if self.zero is not None and local:
+        if local and (zero is not None or tp is not None):
             for name in moments:
-                if self.zero.sharded(name):
-                    *parents, leaf = jax_path(name)
-                    node = tree
-                    for part in parents:
-                        node = node[part]
-                    node[leaf] = self.zero.piece(name, node[leaf])
+                *parents, leaf = jax_path(name)
+                node = tree
+                for part in parents:
+                    node = node[part]
+                if zero is not None and zero.sharded(name):
+                    node[leaf] = zero.piece(name, node[leaf])
+                elif tp is not None and tp.sharded(name):
+                    node[leaf] = tp.piece(name, node[leaf])
         for name in self.frozen or ():
             *parents, leaf = jax_path(name)
             node = tree
@@ -279,11 +319,12 @@ class _Chain:
         return tree
 
     def _read_tree(self, tree: dict) -> Dict[str, torch.Tensor]:
-        """The saved moments on this rank's layout: each leaf, padded by a
-        ZeRO-1 save at any data size or whole, corner-cropped and
-        zero-filled to its parameter's shape (the JAX trainer's
-        ``reconcile_state_shapes``; the pad region holds zeros), then
-        sliced for this rank."""
+        """The saved moments on this rank's layout: each leaf (whole in the
+        tree; under a ``model`` axis this rank's slice of a split one is
+        kept), padded by a ZeRO-1 save at any data size or whole,
+        corner-cropped and zero-filled to its parameter's shape (the JAX
+        trainer's ``reconcile_state_shapes``; the pad region holds zeros),
+        then sliced for this rank."""
         moments = from_jax_params(tree)   # a {} leaf holds nothing
         if self.stage_local:
             moments = {n: m for n, m in moments.items() if n in self.params}
@@ -292,6 +333,8 @@ class _Chain:
                              "model's trainable parameters")
         for name, p in self.params.items():
             m = moments[name]
+            if self.tp is not None and self.tp.sharded(name):
+                m = self.tp.local(name, m, p.shape[self.tp.dims[name]])
             if m.dim() != p.dim():
                 raise ValueError(f"{name}: moment shape {tuple(m.shape)} "
                                  f"does not fit parameter shape "
@@ -310,8 +353,10 @@ class _Chain:
         the core chain in the outer one-element chain, and under
         ``--finetune`` that in ``chain(masked(tx), masked(set_to_zero))``.
         ``copy``: no leaf shares memory with a live moment. Under ZeRO-1
-        every rank of the ``data`` group must call it (it gathers), unless
-        ``local``, which leaves each planned leaf as this rank's piece."""
+        every rank of the ``data`` group must call it (it gathers), and
+        under a ``model`` axis every rank of the ``model`` group, unless
+        ``local``, which leaves each planned or split leaf as this rank's
+        piece."""
         core = {"0": self._core_state(copy, local)}
         if self.frozen is None:
             return core
@@ -340,9 +385,10 @@ class AdamW(_Chain):
                  schedule: Callable[[int], float], weight_decay: float,
                  frozen: Optional[Sequence[str]] = None,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
-                 zero: Optional[Zero1] = None):
+                 zero: Optional[Zero1] = None,
+                 tp: Optional[ModelSplit] = None):
         super().__init__(params, schedule=schedule, weight_decay=weight_decay,
-                         frozen=frozen, zero=zero)
+                         frozen=frozen, zero=zero, tp=tp)
         self.b1, self.b2, self.eps = b1, b2, eps
         self.mu = self._zeros()
         self.nu = self._zeros()
@@ -408,9 +454,10 @@ class AdaMod(_Chain):
                  schedule: Callable[[int], float], weight_decay: float,
                  frozen: Optional[Sequence[str]] = None,
                  b1: float = 0.9, b2: float = 0.999, beta3: float = 0.999,
-                 eps: float = 1e-8, zero: Optional[Zero1] = None):
+                 eps: float = 1e-8, zero: Optional[Zero1] = None,
+                 tp: Optional[ModelSplit] = None):
         super().__init__(params, schedule=schedule, weight_decay=weight_decay,
-                         frozen=frozen, zero=zero)
+                         frozen=frozen, zero=zero, tp=tp)
         self.b1, self.b2, self.beta3, self.eps = b1, b2, beta3, eps
         self.exp_avg = self._zeros()
         self.exp_avg_sq = self._zeros()
@@ -487,12 +534,14 @@ OPTIMIZERS = {"adam": AdamW, "adamod": AdaMod}
 
 def build_optimizer(trainer_params, params: Dict[str, torch.nn.Parameter], *,
                     num_training_steps: int, warmup_coef=None,
-                    zero: Optional[Zero1] = None) -> _Chain:
+                    zero: Optional[Zero1] = None,
+                    tp: Optional[ModelSplit] = None) -> _Chain:
     """Optimizer + schedule (reference init.py:134-145, trainer.py:116-126).
     ``warmup_coef``, when given, overrides ``trainer_params.warmup_coef``.
     Under ``--finetune`` the parameters outside :func:`trainable_mask` get
     ``requires_grad_(False)`` here and stay out of the optimizer. ``zero``:
-    the ZeRO-1 layout (None: every moment whole)."""
+    the ZeRO-1 layout (None: every moment whole); ``tp``: the rank's
+    ``ModelSplit`` under a ``model`` axis."""
     name = getattr(trainer_params, "optimizer", "adam")
     if name not in OPTIMIZERS:
         raise ValueError(f"--optimizer {name!r}: choose from "
@@ -517,4 +566,4 @@ def build_optimizer(trainer_params, params: Dict[str, torch.nn.Parameter], *,
                  if tmask is None or tmask[n]}
     return OPTIMIZERS[name](trainable, schedule=schedule,
                             weight_decay=trainer_params.weight_decay,
-                            frozen=frozen, zero=zero)
+                            frozen=frozen, zero=zero, tp=tp)

@@ -148,9 +148,31 @@ start of an optimizer step to its end; a SIGTERM handler that finds it set
 sets ``interrupt_pending``, and the loop raises ``KeyboardInterrupt`` at
 the step's end (``cli/train.py``).
 
+Tensor parallelism (``--mesh model:T``, ``data:D,model:T``; the JAX
+trainer on a ``model`` mesh): every rank of a ``model`` group steps on one
+set of rows (``_seq_consistent`` broadcasts the batch from the group's
+first rank) through its slices of the attention and MLP blocks
+(``models/encoder.py``); the leaves every rank holds whole get the same
+gradient on each rank of the group, a split leaf's gradient is the slice
+of the whole one. So a split leaf's gradient is summed over the ``data``
+group, never the world (a world sum would add other ranks' slices
+together), and a whole leaf's over the world and divided by T (the
+group's copies stay one); the logged values are counted once a group
+(``1/T``, as ``1/S`` for ``seq``); the clip sums the squares of the split
+leaves over the ``model`` group and counts the whole ones once; the
+loss-scale finiteness flag is agreed over the group. ZeRO-1 slices each rank's ``model`` slice over ``data`` (the
+JAX plan, ``model`` first), and ``--zero1_overlap bucketed`` is inert on a
+``model`` mesh, logged as the JAX trainer logs it. The parameters are
+broadcast over the ``data`` row from its first rank (its ranks hold the
+same slices). The single-file checkpoint gathers the group's slices into
+whole leaves (every process takes part, rank 0 writes); in the sharded
+directory each ``data`` index 0 rank writes its slices as pieces bounded
+in the whole leaf (``shards`` T, or D*T for a ZeRO-1 moment). Eval gathers
+the predictions over the ``data`` group.
+
 Left out (their flags are refused by ``config.parser.check_train_flags``,
-or accepted and ignored where they change no result): pipeline and tensor
-parallelism.
+or accepted and ignored where they change no result): a ``model`` axis
+beside ``pipe`` or ``seq``.
 """
 
 from __future__ import annotations
@@ -356,9 +378,14 @@ class Trainer:
         self.is_primary = self.process_index == 0
         self.mesh = mesh if mesh is not None else build_mesh()
         self.plan = ParallelPlan.from_mesh(self.mesh)
-        # rows follow the data coordinate: a seq group shares its rows
+        # rows follow the data coordinate: a seq (model) group shares its
+        # rows
         world = self.plan.data_size
         self.seq_size = self.plan.seq_size
+        self.model_size = self.plan.model_size
+        # this rank's slices under a model axis (None without one)
+        self.tp = (model.model_split() if hasattr(model, "model_split")
+                   else None)
         if optimizer_sharding not in ("off", "zero1"):
             raise ValueError(f"optimizer_sharding must be 'off' or 'zero1'; "
                              f"got {optimizer_sharding!r}")
@@ -480,7 +507,7 @@ class Trainer:
             self.optimizer = build_optimizer(
                 trainer_params, self._own_parameters(),
                 num_training_steps=num_training_steps, warmup_coef=warmup_coef,
-                zero=self._zero_layout(model))
+                zero=self._zero_layout(model), tp=self.tp)
             self.optimizer.stage_local = self.pipe is not None
             if self.optimizer.zero is not None:
                 logger.info("ZeRO-1: optimizer state sharded over the %d-way "
@@ -501,7 +528,7 @@ class Trainer:
         if self.process_count > 1:
             if self.pipe is None:
                 # the replicas start equal (the reference's DDP wrapper)
-                collectives.broadcast_parameters(model.named_parameters())
+                self._broadcast_parameters()
             logger.info("Data parallel: process %d of %d, %d rows of every "
                         "global batch of %d, in %d micro-batches.",
                         self.process_index, self.process_count,
@@ -513,6 +540,27 @@ class Trainer:
                             self.plan.describe(), self.process_index,
                             self.mesh.data_index, self.mesh.seq_index,
                             self.seq_size)
+            if self.tp is not None:
+                cfg = model.cfg
+                logger.info("Tensor parallelism: process %d at data %d, "
+                            "model %d of %d: %d of %d heads and %d of %d MLP "
+                            "columns a layer, %d split parameters.",
+                            self.process_index, self.mesh.data_index,
+                            self.mesh.model_index, self.model_size,
+                            cfg.num_heads // self.model_size, cfg.num_heads,
+                            cfg.intermediate_size // self.model_size,
+                            cfg.intermediate_size, len(self.tp.dims))
+
+    def _broadcast_parameters(self) -> None:
+        """Every parameter from the first rank of this rank's ``data`` row
+        (rank 0 without a ``model`` axis): the ranks of a row hold the same
+        slices."""
+        if self.tp is None:
+            collectives.broadcast_parameters(self.model.named_parameters())
+        elif self.plan.data_size > 1:
+            collectives.broadcast_parameters(
+                self.model.named_parameters(), src=self.mesh.data_ranks[0],
+                group=self.mesh.data_group)
 
     def _init_pipeline(self, model, schedule, param_sharding) -> None:
         """The ``pipe`` axis (``parallel/pipeline.py``): the schedule, this
@@ -576,6 +624,37 @@ class Trainer:
         """``t`` summed over this rank's ``pipe`` group, in place."""
         return collectives.all_reduce_sum_(t, self.mesh.pipe_group)
 
+    def _model_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over this rank's ``model`` group, in place."""
+        return collectives.all_reduce_sum_(t, self.mesh.model_group)
+
+    def _reduce_model_gradients(self, params: dict) -> None:
+        """The gradients of one tensor-parallel step summed over the data:
+        a rank's slices over its ``data`` row, never the world (other
+        ranks' slices are other tensors); the leaves the ``model`` group
+        holds whole over the world and divided by the group's size. The
+        group's copies of such a leaf got the same gradient, so that is
+        their sum over ``data`` (exactly, at a size that is a power of
+        two) and keeps the copies one where an atomic kernel (the
+        embeddings' backward on the card) rounded them apart."""
+        split = [(n, p) for n, p in params.items() if self.tp.sharded(n)]
+        whole = [(n, p) for n, p in params.items() if not self.tp.sharded(n)]
+        if self.plan.data_size > 1:
+            collectives.all_reduce_gradients(split,
+                                             group=self.mesh.data_group)
+        collectives.all_reduce_gradients(whole)
+        grads = [p.grad for _, p in whole if p.grad is not None]
+        if grads:
+            torch._foreach_mul_(grads, 1.0 / self.model_size)
+
+    def _whole_shape(self, name: str, shape) -> tuple:
+        """The whole shape of parameter ``name`` of local ``shape`` (a
+        ``model`` slice's dimension times the group's size)."""
+        shape = list(shape)
+        if self.tp is not None and self.tp.sharded(name):
+            shape[self.tp.dims[name]] *= self.tp.size
+        return tuple(shape)
+
     def zero_enabled(self) -> bool:
         """``zero1`` requested and a data axis > 1 to shard over (at data
         size 1 it is inert, as in the JAX trainer)."""
@@ -589,12 +668,13 @@ class Trainer:
         if not self.zero_enabled():
             return None
         plan = self.plan.zero1(
-            ((n, p.shape) for n, p in self._own_parameters().items()),
+            ((n, self._whole_shape(n, p.shape))
+             for n, p in self._own_parameters().items()),
             min_size=self.zero_min_size,
             stage_pipe=self.pipe_param_layout == "stage")
         return Zero1(plan, index=self.mesh.data_index,
                      size=self.plan.data_size, group=self.mesh.data_group,
-                     owner=self.mesh.seq_index == 0)
+                     owner=self.mesh.seq_index == 0, tp=self.tp)
 
     def _build_exchange(self, model) -> list:
         """The bucketed ZeRO-1 exchange of ``zero1_overlap='bucketed'``
@@ -619,6 +699,13 @@ class Trainer:
                         "gradient at the schedule's end, with nothing left "
                         "to overlap; bucketing is inert (0 buckets), as in "
                         "the JAX trainer.")
+            return []
+        if self.tp is not None:
+            logger.info("zero1_overlap=bucketed on a tensor-parallel mesh: "
+                        "gradients already accumulate per-tensor (maximal "
+                        "per-leaf independence); bucketing is inert (0 "
+                        "buckets), as in the JAX trainer; the one-piece "
+                        "exchange over the data group runs.")
             return []
         named = dict(model.named_parameters())
         names = tree_order(named)
@@ -734,15 +821,18 @@ class Trainer:
         return (place(b) for b in loader), None
 
     def _seq_consistent(self, tensors: dict) -> dict:
-        """With a ``seq`` (or ``pipe``) axis, the first rank's batch on every
-        rank of its ``seq`` (``pipe``) group (broadcast): the group computes
-        blocks (stages) of one set of rows, whatever a rank's own dataset
-        drew (a chunk sampler without a seed draws per process). Raises
-        when the ranks' shapes differ."""
+        """With a ``seq`` (``pipe``, ``model``) axis, the first rank's batch
+        on every rank of its ``seq`` (``pipe``, ``model``) group
+        (broadcast): the group computes blocks (stages, slices) of one set
+        of rows, whatever a rank's own dataset drew (a chunk sampler
+        without a seed draws per process). Raises when the ranks' shapes
+        differ."""
         if self.pipe is not None:
             ranks, group = self.mesh.pipe_ranks, self.mesh.pipe_group
         elif self.seq_size > 1:
             ranks, group = self.mesh.seq_ranks, self.mesh.seq_group
+        elif self.model_size > 1:
+            ranks, group = self.mesh.model_ranks, self.mesh.model_group
         else:
             return tensors
         flat = [(part, key) for part in ("inputs", "labels")
@@ -1057,6 +1147,8 @@ class Trainer:
             return self._pipe_train_step(inputs, labels)
         micro = rows // self.batch_split
         world, S = self.plan.data_size, self.seq_size
+        # each rank of a model group computed the same values
+        counted = S * self.model_size
         model, params = self.model, self.optimizer.params
         model.train()
         for p in params.values():
@@ -1091,13 +1183,15 @@ class Trainer:
                 exchange.arm()
             total.backward()
             for k, v in values.items():
-                v = v.detach().float() / S
+                v = v.detach().float() / counted
                 summed[k] = summed[k] + v if k in summed else v
 
         if exchange is not None:
             # this rank's slices and the whole leaves, summed over data
             reduced = exchange.finish()
             grads = {n: reduced[n] for n in params}
+        elif self.tp is not None:
+            self._reduce_model_gradients(params)
         elif self.process_count > 1:
             collectives.all_reduce_gradients(params.items())
         if self.process_count > 1:
@@ -1115,11 +1209,12 @@ class Trainer:
             # after the all-reduce: every process sees the same flag
             ls_lib.unscale_(list(grads.values()), scale)
             finite = ls_lib.all_finite(list(grads.values()))
-            if exchange is not None:
+            if exchange is not None or self.tp is not None:
                 # each rank checked its own slices: agree on the flag
                 flag = collectives.all_reduce_sum_(torch.tensor(
                     [float(not finite)], device=self.device),
-                    exchange.group)
+                    exchange.group if exchange is not None
+                    else self.mesh.model_group)
                 finite = not bool(flag.item())
             lr = self.optimizer.lr()
         else:
@@ -1129,6 +1224,11 @@ class Trainer:
                 if exchange is not None:
                     clip_sliced_(grads, self.optimizer.zero,
                                  self.max_grad_norm)
+                elif self.tp is not None:
+                    clip_by_global_norm_(
+                        list(grads.values()), self.max_grad_norm,
+                        sharded=[self.tp.sharded(n) for n in grads],
+                        model_sum=self._model_sum)
                 else:
                     clip_by_global_norm_(list(grads.values()),
                                          self.max_grad_norm)
@@ -1728,8 +1828,9 @@ class Trainer:
                 ckpt.save_state_dict_sharded(
                     path, process_index=self.process_index,
                     process_count=self.process_count, **self._save_kwargs())
-            elif self.zero_enabled():
-                # the padded moments are gathered by every process
+            elif self.zero_enabled() or self.tp is not None:
+                # the padded moments (the model's slices) are gathered by
+                # every process
                 state = ckpt.snapshot_state(**self._save_kwargs())
                 if self.is_primary:
                     ckpt.persist_state(path, state)
@@ -1781,8 +1882,10 @@ class Trainer:
                         **self._save_kwargs())
                     persist = functools.partial(ckpt.persist_state_sharded,
                                                 os.fspath(path), snap)
-                elif self.is_primary or self.zero_enabled():
-                    # under ZeRO-1 every process takes part in the gather
+                elif (self.is_primary or self.zero_enabled()
+                      or self.tp is not None):
+                    # under ZeRO-1 (a model axis) every process takes part
+                    # in the gather
                     state = ckpt.snapshot_state(copy=copy,
                                                 **self._save_kwargs())
                     persist = (functools.partial(ckpt.persist_state,
@@ -1873,7 +1976,7 @@ class Trainer:
             else:
                 self.loss_scale = saved
         if self.process_count > 1 and self.pipe is None:
-            collectives.broadcast_parameters(self.model.named_parameters())
+            self._broadcast_parameters()
 
     def close(self) -> None:
         if self.writer is not None:

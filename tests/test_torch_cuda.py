@@ -1741,3 +1741,48 @@ def test_pipe_pair_on_the_card_equals_the_one_process_step(cuda, tmp_path):
         f8 = torch.load(out / f"1f1b8_rank{rank}.pt")
         assert (g8["in_flight"], f8["in_flight"]) == (8, 2 - rank)
         assert f8["peak"] < g8["peak"], (rank, f8["peak"], g8["peak"])
+
+
+# -- tensor parallelism on the card --------------------------------------------
+
+@pytest.mark.cuda
+def test_model_pair_on_the_card_equals_the_one_process_step(cuda, tmp_path):
+    """Two ranks of a ``model`` group share the card (``model:2``, gloo on
+    CUDA tensors staged through host memory, the tiny trainer of
+    ``tests/test_torch_tensor_parallel_worker.py``: kernel attention on a
+    rank's one head and kernel LayerNorm): the steps' values, the whole
+    gradient at the first clip and the gathered parameters are the
+    one-process steps' on the same batches."""
+    import sys
+    from pathlib import Path
+
+    import torch_ddp_worker as worker
+    import test_torch_tensor_parallel_worker as tw
+
+    out = tmp_path / "card"
+    out.mkdir()
+    for rc, err in worker.run_pairs(lambda rank, port: [
+            sys.executable, str(Path(tw.__file__)), "card", str(rank), "2",
+            str(port), str(out), "cuda"])[0]:
+        assert rc == 0, err[-3000:]
+    pair = [torch.load(out / f"trained_rank{r}.pt") for r in range(2)]
+    one = worker.oracle_whole(tmp_path / "one", pair[0], "cuda", dropout=0.0)
+    for got, ref in zip(pair[0]["values"], one.values):
+        for key in ref:
+            np.testing.assert_allclose(got[key], ref[key], rtol=1e-4,
+                                       err_msg=key)
+    dims = pair[0]["dims"]
+    grads = {n: torch.cat([pair[0]["grads"][n], pair[1]["grads"][n]],
+                          dim=dims[n]) if n in dims else pair[0]["grads"][n]
+             for n in pair[0]["grads"]}
+    assert worker.rel_l2(grads, one.grads) <= DP_GRAD_REL_L2
+    for name, p in one.params.items():
+        np.testing.assert_allclose(pair[0]["whole"][name], p, atol=1e-5,
+                                   err_msg=name)
+    for rank in range(2):
+        # 2 backward all-reduces a layer of 2, for 4 micro-batches and the
+        # memory pre-flight's probes
+        transport = pair[rank]["transport"]
+        micro = 4 + pair[rank]["preflight_probes"]
+        assert transport["backward"] == 2 * 2 * micro
+        assert transport["staged_bytes"] == 2 * transport["bytes"] > 0

@@ -85,12 +85,25 @@ def test_no_port_module_imports_jax_or_the_jax_package():
                    "resilience/faults.py", "resilience/watchdog.py",
                    "metrics/anomaly.py", "metrics/exporter.py",
                    "metrics/flightrec.py", "metrics/goodput.py",
-                   "train/telemetry.py", "utils/profiler.py"):
+                   "train/telemetry.py", "utils/profiler.py",
+                   # the model axis: the mesh, its rules and plan, the
+                   # split layers and the conjugate operators
+                   "parallel/mesh.py", "parallel/sharding.py",
+                   "parallel/plan.py", "models/encoder.py",
+                   "models/qa_model.py", "models/convert.py",
+                   "ops/attention.py"):
         assert f"ml_recipe_tpu_torch/{module}" in names, module
     offenders = [f"{path.relative_to(_REPO)}: {mod}"
                  for path in files for mod in _imports(path)
                  if _forbidden(mod)]
     assert not offenders, offenders
+
+
+def test_card_worker_of_the_model_axis_imports_no_jax():
+    """The tensor-parallel tests' worker also runs the card's
+    ``-k model_pair`` pair, where there is no jax."""
+    path = _REPO / "tests" / "test_torch_tensor_parallel_worker.py"
+    assert not [m for m in _imports(path) if _forbidden(m)]
 
 
 def test_launcher_script_names_no_jax_module():

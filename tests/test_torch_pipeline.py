@@ -220,7 +220,8 @@ def test_pipe_flag_values_are_checked(tmp_path):
       "--pipe_param_sharding", "replicated"], False),
     (["--mesh", "pipe:2,seq:2"], True),
     (["--mesh", "pipe:2,model:1"], True),
-    (["--mesh", "data:1,model:2"], True)],
+    # the model axis is ported, but not beside pipe
+    (["--mesh", "pipe:2,model:2"], True)],
     ids=["pipe", "pipe_seq", "pipe_model", "model"])
 def test_pipe_flags_are_live_and_the_rest_refused(tmp_path, caplog, extra,
                                                   refused):

@@ -487,9 +487,10 @@ def test_cli_trains_two_debug_steps_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag,refused", [
-    # the data, seq and pipe axes are ported (tests/test_torch_sp_train.py,
-    # tests/test_torch_pipeline.py); tensor parallelism is not
-    (["--mesh", "data:1,model:2"], True),
+    # the data, seq, pipe and model axes are ported
+    # (tests/test_torch_sp_train.py, tests/test_torch_pipeline.py,
+    # tests/test_torch_tensor_parallel.py); model beside seq is not
+    (["--mesh", "seq:2,model:2"], True),
     # ZeRO-1 across processes and its bucketed overlap are ported
     # (tests/test_torch_zero1.py, tests/test_torch_zero1_overlap.py)
     (["--dist_world_size", "2", "--local_rank", "0", "--optimizer_sharding",
