@@ -344,13 +344,24 @@ Phases, each fatal on failure (exit code 1, and no result line):
     {data: 2, model: 2} with 4-way pieces and reload in one process bit
     for bit. Per rank: step walls and their all-reduce seconds, the
     transport's all-reduces, bytes and seconds, parameter and moment
-    bytes, peak CUDA memory. Phases 19 and 20 run in a process of their own
-    (``--side-phases``) beside phases 10 and 11, whose gates hold numbers,
-    not times; their walls are taken beside those phases. Then, on the
-    card alone, both attention kernels at a model:2 rank's shape
-    (32x512x6x64 bf16, dropout 0.1 at the rank's seed offset, whose
-    dropout uniforms are one process's for its heads bit for bit) against
-    their plain versions, timed beside sdpa.
+    bytes, peak CUDA memory. Then, on the card alone, both attention
+    kernels at a model:2 rank's shape (32x512x6x64 bf16, dropout 0.1 at
+    the rank's seed offset, whose dropout uniforms are one process's for
+    its heads bit for bit) against their plain versions, timed beside
+    sdpa.
+21. pipe x model (``phase_pipe_model``): ``config/test_bert.cfg`` at
+    ``pipe:2,model:2`` and ``data:2,pipe:2,model:2`` (PM_RUNS), then the
+    LayerNorm pair and the attention pair at a rank's shapes on the card
+    alone.
+
+For the time limit, three side lanes (SIDE_LANES, ``--side-phases``) run
+phases in a process of their own beside the main process's: 19 and 20
+beside 10 and 11, 21 beside 12 and 13, 16 beside 15 and 17. No kernel
+time of the kernels line is taken beside a lane (phase 14 runs alone,
+phase 15's ring hop is timed once lane c joined), nor phase 18's drill,
+which holds a relaunch time. Every line either
+process prints while a lane runs ends in ``[contended: beside ...]``: its
+times were taken on a card and host cores that another process shared.
 
 It then prints one ``{"kernels": [...]}`` line (the attention kernels'
 lines carry the tensor-core kernels' resources and every timed shape's
@@ -362,6 +373,7 @@ of the repository, it exits non-zero before printing either.
 
 from __future__ import annotations
 
+import atexit
 import json
 import logging
 import math
@@ -507,7 +519,16 @@ def fail(msg: str) -> None:
     raise SystemExit(1)
 
 
+# what the printing process's phases run beside (a side lane, or the main
+# process's phases), named on every line printed meanwhile: the times on
+# such a line were taken on a card and host cores that another process
+# shared
+BESIDE: list = []
+
+
 def say(msg: str) -> None:
+    if BESIDE:
+        msg = f"{msg} [contended: beside {BESIDE[-1]}]"
     print(msg, flush=True)
 
 
@@ -2275,7 +2296,11 @@ def phase_long_training(torch):
 
 # -- phase 10: the NQ corpus recipe ------------------------------------------
 
-NQ_DOCS = 2048                     # documents of the synthetic NQ corpus
+# documents of the synthetic NQ corpus (2048 until phase 21 joined the
+# smoke: half the corpus halves phase 10's preprocess and LR plan, which
+# run on the host beside phases 19 and 20, and phase 14's; a cut for the
+# smoke's time limit)
+NQ_DOCS = 1024
 NQ_WORDS = (50, 6000)              # log-uniform document length, in words
 NQ_GRID = (128, 256, 384, 512)     # test_bert.cfg's length_buckets=auto
 NQ_LIMIT = 20                      # validate --limit: batches 0..20
@@ -2463,7 +2488,10 @@ def _nq_best(dump) -> dict:
 def _nq_kernel_vs_plain(torch, predictor):
     """One full 16x512 validation batch. The gate: each layer's attention,
     on the q, k, v and key mask this batch gives it, kernel against the
-    plain version at ATOL (the kernel at the path's own tiles and padding).
+    plain version at ATOL, or one bf16 step of |out| where that is wider
+    (phase 14's allowance: a trained model's deep layers pass |out| = 4,
+    where bf16's spacing exceeds ATOL; the kernel at the path's own tiles
+    and padding).
     Recorded beside it, not a gate: the whole batch scored with the plain
     attention, and with a planted fault (keys 64..127 dropped in every
     layer's kernel call), each against the kernel's scores: 12 post-LN
@@ -2506,13 +2534,19 @@ def _nq_kernel_vs_plain(torch, predictor):
     out_k = run("auto", keep=True)
     layers = list(seen)
     seen.clear()
-    errs, top = [], 0.0
+    errs, steps, top = [], [], 0.0
     with torch.inference_mode():
         for q, k, v, mask in layers:
             got = fa.fused_attention_cuda(q, k, v, mask)
-            ref = fa.fused_attention_plain(q, k, v, mask)
-            errs.append((got.float() - ref.float()).abs().max().item())
-            top = max(top, ref.float().abs().max().item())
+            ref = fa.fused_attention_plain(q, k, v, mask).float()
+            diff = (got.float() - ref).abs()
+            errs.append(diff.max().item())
+            # phase 14's allowance: ATOL, or one bf16 step of |out| where
+            # that is wider (past |out| = 4 on a trained model's layers)
+            step = torch.exp2(torch.floor(torch.log2(
+                ref.abs().clamp(min=1e-30)))) / 128
+            steps.append((diff / step.clamp(min=ATOL["bf16"])).max().item())
+            top = max(top, ref.abs().max().item())
     torch.cuda.synchronize()
     del layers
     out_p = run("xla")
@@ -2532,15 +2566,16 @@ def _nq_kernel_vs_plain(torch, predictor):
     shape = f"{len(items)}x{inputs['input_ids'].shape[1]}"
     say(f"validate: one {shape} batch, each of its {len(errs)} attention "
         f"calls kernel vs plain on the batch's own inputs: max_abs_err "
-        f"{max(errs):.3e} (tol {ATOL['bf16']:g}; max|ref| {top:.3f}), by "
-        f"layer {[float(f'{e:.3e}') for e in errs]}")
+        f"{max(errs):.3e} (tol {ATOL['bf16']:g}, or one bf16 step of |out| "
+        f"where wider: {max(steps):.3f} of the limit; max|ref| {top:.3f}), "
+        f"by layer {[float(f'{e:.3e}') for e in errs]}")
     say(f"validate: the same batch end to end (recorded, not a gate): plain "
         f"attention moves the scores by at most {sound:.4f} and leaves "
         f"{same_p} of {n_ids} span/label ids equal; keys 64..127 dropped in "
         f"the kernel moves them by {fault:.4f}, {same_f} of {n_ids} equal; "
         f"the scoring forward alone {forward_ms:.3f} ms (CUDA events, no "
         f"loader running)")
-    if len(errs) != model.cfg.num_layers or max(errs) > ATOL["bf16"]:
+    if len(errs) != model.cfg.num_layers or max(steps) > 1.0:
         fail("validate: the attention kernel disagrees with plain on the "
              "batch's own inputs")
     if not all(np.isfinite(o).all() for o in (out_k, out_p, out_f)):
@@ -4799,8 +4834,8 @@ def _hold_ring_hops(torch, fa, bw, flops):
     with a seeded random cotangent; the hops merged as the ring merges
     them equal the output the ring returned in training bit for bit, and
     the merged output is held against one whole-sequence kernel call.
-    Then one hop's forward and backward timed at 2x4096 with bases.
-    Returns the largest errors and the timings."""
+    Returns the largest errors and the hop's shape (its timing:
+    :func:`_time_ring_hop`)."""
     from ml_recipe_tpu_torch.ops.ring_attention import (
         _merge_hop, _stream_row_seeds)
 
@@ -4897,11 +4932,28 @@ def _hold_ring_hops(torch, fa, bw, flops):
     if max(merged_errs) > ATOL["bf16"]:
         fail("the merged ring output disagrees with one whole-sequence call")
 
-    # one hop timed at its training shape: rank 1's rows against rank 0's
-    # block (base (4096, 0)), key mask and dropout
+    del caps
+    torch.cuda.empty_cache()
+    return dict(fwd_err=max(fwd_errs), bwd_err=max(bwd_errs),
+                merged_err=max(merged_errs), shape=f"{B}x{L_loc}x{Hh}x64")
+
+
+def _time_ring_hop(torch, fa, bw, flops) -> dict:
+    """Phase 15b's timing, which the main process takes on the card alone
+    once the side lane beside phase 15 joined: one hop of the captured
+    ring's first call at its training shape, rank 1's rows against rank
+    0's block (base (4096, 0)), key mask and dropout, forward and backward,
+    beside its bound, plain and sdpa."""
     import torch.nn.functional as F
 
-    c0, c1 = caps[0][0], caps[1][0]
+    from ml_recipe_tpu_torch.ops.ring_attention import _stream_row_seeds
+
+    c0, c1 = (torch.load(SP_DIR / "longdoc" / f"capture{r}.pt",
+                         map_location="cuda")[0] for r in range(SP_WORLD))
+    B, L_loc, Hh, _ = c0["q"].shape
+    L_hash, rate = SP_WORLD * L_loc, c0["rate"]
+    seeds = _stream_row_seeds(c0["seed"], B=B, H=Hh, data_index=0).cuda()
+    g_gen = torch.Generator(device="cuda").manual_seed(15)
     q, k, v = c1["q"], c0["k"], c0["v"]
     m = c0["mask"].to(torch.int32).contiguous()
     kw = dict(base=(L_loc, 0), L_hash=L_hash)
@@ -4948,11 +5000,9 @@ def _hold_ring_hops(torch, fa, bw, flops):
             f"{' backward, fwd+bwd minus fwd' if name.endswith('bwd') else ''}"
             f", its own dropout stream)={t['library_ms']:.4f} bound_ms="
             f"{t['bound_ms']:.4f} ({t['bound_by']})")
-    del caps, q, k, v, g, out, lse, args, qt, kt, vt
+    del c0, c1, q, k, v, g, out, lse, args, qt, kt, vt
     torch.cuda.empty_cache()
-    return dict(fwd_err=max(fwd_errs), bwd_err=max(bwd_errs),
-                merged_err=max(merged_errs), fwd=fwd, bwd=bwd,
-                shape=f"{B}x{L_loc}x{Hh}x64")
+    return dict(fwd=fwd, bwd=bwd)
 
 
 def _sp_records(kind: str) -> list:
@@ -7494,18 +7544,647 @@ def phase_tensor_parallel(torch):
             "data:2,model:2 zero1": total(zero), "gates": gates}
 
 
+# -- phase 21: pipeline stages of tensor-parallel layers ----------------------
+
+PM_DIR = OUT_DIR / "pm"
+PM_DEADLINE_S = 600
+# phase 21's runs over TP_BASE (test_bert.cfg at full width, the fused
+# LayerNorm, dropout 0.1, 2 debug steps of 64 rows in 2 micro-batches of
+# 32x512, eval batches of 4 rows): (ranks, flags, encoder layers). 21a:
+# pipe:2,model:2 in bf16 on the kernels at 12 layers (a rank: 6 layers of
+# 6 heads and 1536 MLP columns) under GPipe and 1F1B, and in f32 on the
+# plain attention and LayerNorm at 2 layers (the exact gate); 21b:
+# data:2,pipe:2,model:2 with ZeRO-1 at 4 layers for one debug step, then a
+# sharded save. The memory pre-flight's probes (a micro-batch forward
+# and backward a bucket, through the pipeline) run in the GPipe and ZeRO-1
+# runs; the 1F1B and f32 runs of the same world skip them (their gloo
+# all-reduces load the host beside phases 12 and 13)
+PM_RUNS = {"gpipe": (4, ["--mesh", "pipe:2,model:2"], 12),
+           "1f1b": (4, ["--mesh", "pipe:2,model:2", "--pipe_schedule",
+                        "1f1b", "--hbm_preflight", "false"], 12),
+           "f32": (4, ["--mesh", "pipe:2,model:2", "--compute_dtype",
+                       "float32", "--flash_attention", "xla", "--ln_impl",
+                       "xla", "--hbm_preflight", "false"], 2),
+           "zero1": (8, ["--mesh", "data:2,pipe:2,model:2",
+                         "--optimizer_sharding", "zero1",
+                         "--sharded_checkpoint"], 4)}
+PM_WORLDS = {"quad": ("gpipe", "1f1b", "f32"), "octo": ("zero1",)}
+# against one process on the same rows and the pipeline's dropout draws
+# (:func:`_pm_one_process`): f32, the same function in another summation
+# order (a row-split product's partial sums, the clip's split and staged
+# sums of squares), the JAX package's TP pins; bf16: a rank rounds each
+# partial product to bf16 before the all-reduce sums them, and 12 post-LN
+# layers carry that into the loss
+PM_F32_LOSS_RTOL = 1e-5
+PM_F32_GRAD_REL = 1e-5
+PM_BF16_LOSS_RTOL = 1e-3
+
+
+def pm_worker(world_kind: str, rank: int, port: int) -> int:
+    """One rank of phase 21's world ``world_kind`` (PM_WORLDS): joins it on
+    card 0 over gloo, with cuBLAS's deterministic workspace (GPipe and
+    1F1B are held bit for bit), and runs its runs one after another
+    (:func:`_pm_run_one`)."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import gc
+
+    import torch
+
+    from ml_recipe_tpu_torch.parallel import dist as pdist
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr)
+    _register_kernels()
+    world = PM_RUNS[PM_WORLDS[world_kind][0]][0]
+    torch.cuda.set_device(0)
+    pdist.initialize_distributed(
+        init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank,
+        backend="gloo", device=torch.device("cuda", 0))
+    try:
+        for kind in PM_WORLDS[world_kind]:
+            _pm_run_one(torch, kind, rank, port)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        pdist.shutdown()
+    return 0
+
+
+def _pm_flags(kind: str, extra=()):
+    """Phase 21's ``kind`` flags (PM_RUNS) over TP_BASE."""
+    return [*TP_BASE, *PM_RUNS[kind][1], *extra]
+
+
+def _pm_run_one(torch, kind: str, rank: int, port: int) -> None:
+    """One rank of phase 21's ``kind`` run through ``cli.train``'s parse,
+    ``build_trainer`` and ``train`` (its model cut to the run's depth),
+    counts and both transports' statistics set to 0 just before ``train``
+    and read just after (less the pre-flight's probes). Writes
+    ``PM_DIR/<kind>/rank<r>.json``: each step's wall, stage-transport and
+    all-reduce seconds, both transports' totals, launches, peak memory,
+    parameter and moment bytes, the first batch's digest, the losses and
+    the digest of every parameter the rank stores; a stage's whole
+    gradient at the first clip (each split leaf gathered over the
+    ``model`` group; ``grads<stage>.pt``, by its data 0, model 0 rank);
+    ``zero1`` runs one step, writes its sharded checkpoint and records the
+    digest of every whole parameter of the stage."""
+    from ml_recipe_tpu_torch.cli import train as train_cli
+    from ml_recipe_tpu_torch.config.parser import (
+        get_model_parser, get_params, get_trainer_parser)
+    from ml_recipe_tpu_torch.parallel import pipeline
+    from ml_recipe_tpu_torch.parallel.sharding import opt_state_bytes_per_chip
+    from ml_recipe_tpu_torch.train import trainer as trainer_module
+
+    world, _, layers = PM_RUNS[kind]
+    out = PM_DIR / kind
+    out.mkdir(parents=True, exist_ok=True)
+    _, (params, model_params) = get_params(
+        (get_trainer_parser, get_model_parser),
+        [*_pm_flags(kind), "--vocab_file", str(OUT_DIR / "vocab.txt"),
+         "--dump_dir", str(out / "results"), "--dist_world_size",
+         str(world), "--local_rank", str(rank), "--dist_init_method",
+         f"tcp://127.0.0.1:{port}"])
+    params.n_jobs = max(1, min(params.n_jobs, (os.cpu_count() or 2)
+                               // (2 * world)))
+    with _shallow(layers):
+        trainer = train_cli.build_trainer(params, model_params)
+    if kind == "zero1":
+        trainer.n_epochs = 1
+    mesh, lay, split = trainer.mesh, trainer.pipe, trainer.tp
+    stage, transport = mesh.stage, mesh.model_transport
+    writer = mesh.data_index == 0 and mesh.model_index == 0
+    first = {}
+    clip = trainer_module.clip_by_global_norm_
+    names = list(trainer.optimizer.params)
+
+    def capture(tensors, max_norm, **kw):
+        if "grads" not in first:
+            first["grads"] = True
+            whole = {n: split.gather(n, g).detach().float().cpu()
+                     for n, g in zip(names, tensors)}
+            if writer and kind in ("gpipe", "f32"):
+                torch.save(whole, out / f"grads{lay.index}.pt")
+        return clip(tensors, max_norm, **kw)
+
+    trainer_module.clip_by_global_norm_ = capture
+    per_step = []
+    step = trainer.train_step
+
+    def timed(inputs, labels):
+        if "digest" not in first:
+            first["digest"] = _tensor_digest(inputs["input_ids"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s0, a0 = stage.stats["seconds"], transport.stats["seconds"]
+        values = step(inputs, labels)
+        torch.cuda.synchronize()
+        per_step.append((time.perf_counter() - t0,
+                         stage.stats["seconds"] - s0,
+                         transport.stats["seconds"] - a0))
+        return values
+
+    trainer.train_step = timed
+    probe = _count_probes(trainer)
+    stage.reset()
+    transport.reset()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()               # the main path starts here
+    t0 = time.perf_counter()
+    train_cli.train(trainer, params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()         # the main path ends here
+    peak = torch.cuda.max_memory_allocated()
+    trainer_module.clip_by_global_norm_ = clip
+    launched = {k: n - probe[k] for k, n in launched.items()}
+    model = trainer.model
+    stored = {n: p.detach() for n, p in model.named_parameters()
+              if p.device.type != "meta"}
+    record = {
+        "launched": launched, "probe_launches": probe,
+        "preflight_probes": trainer.preflight_probes, "wall": wall,
+        "mesh": trainer.plan.describe(), "stage": lay.index,
+        "layers": [lay.lo, lay.hi], "layout": lay.layout,
+        "schedule": trainer.pipe_schedule,
+        "heads": (model.transformer.layer_0.attention.query.weight.shape[0]
+                  // model.cfg.head_dim),
+        "data_index": mesh.data_index, "model_index": mesh.model_index,
+        "model_ranks": list(mesh.model_ranks),
+        "pipe_ranks": list(mesh.pipe_ranks),
+        "batch_split": trainer.batch_split,
+        "steps": [{k: h[k] for k in ("loss", "lr", "seconds", "rows")}
+                  for h in trainer.history],
+        "step_walls": [w for w, _, _ in per_step],
+        "step_stage_s": [s for _, s, _ in per_step],
+        "step_allreduce_s": [a for _, _, a in per_step],
+        "stage_transport": dict(stage.stats),
+        "transport": dict(transport.stats),
+        "in_flight": trainer.pipe_runner.in_flight,
+        "modeled_bubble": pipeline.modeled_bubble_fraction(
+            lay.K, trainer.batch_split, trainer.pipe_schedule),
+        "peak_bytes": peak,
+        "param_count": sum(p.numel() for p in stored.values()),
+        "param_bytes": sum(p.numel() * p.element_size()
+                           for p in stored.values()),
+        "opt_bytes": opt_state_bytes_per_chip(trainer.optimizer),
+        "opt_sharding": trainer.effective_opt_sharding,
+        "eval_batches": trainer.eval_batches,
+        "batch_digest": first.get("digest"),
+        "digests": {n: _tensor_digest(p) for n, p in stored.items()},
+        "device": str(trainer.device),
+        "dtype": str(model.dtype),
+    }
+    if kind == "zero1":
+        trainer.debug = False
+        t0 = time.perf_counter()
+        trainer.save_state_dict(out / "ckpt")
+        record["save_seconds"] = time.perf_counter() - t0
+        record["whole_digests"] = {
+            n: _tensor_digest(split.gather(n, p)) for n, p in stored.items()}
+    (out / f"rank{rank}.json").write_text(json.dumps(record))
+
+
+def start_pipe_model_worlds() -> dict:
+    """Phase 21's worlds (PM_WORLDS), started at once on a fresh
+    ``PM_DIR``: ``{world_kind: procs}``."""
+    import shutil
+
+    shutil.rmtree(PM_DIR, ignore_errors=True)
+    PM_DIR.mkdir(parents=True)
+    _vocab()
+    worlds = {}
+    for world_kind, kinds in PM_WORLDS.items():
+        world, port = PM_RUNS[kinds[0]][0], _free_port()
+        worlds[world_kind] = {f"{world_kind} rank {r}": (
+            _spawn(["--pm-worker", world_kind, r, port],
+                   PM_DIR / f"{world_kind}{r}.log"),
+            PM_DIR / f"{world_kind}{r}.log") for r in range(world)}
+    return worlds
+
+
+def _pm_records(kind: str) -> list:
+    world = PM_RUNS[kind][0]
+    return [json.loads((PM_DIR / kind / f"rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def _pm_want(rec: dict) -> dict:
+    """A rank's launches on its stage's path: its layers' attention (and
+    2 LayerNorms a layer, with the embeddings' on stage 0) per micro-batch
+    forward and eval batch, the same per micro-batch backward (none on the
+    plain path)."""
+    micro = len(rec["steps"]) * rec["batch_split"]
+    fwd = micro + rec["eval_batches"]
+    kernels = rec["dtype"] == "torch.bfloat16"
+    layers = rec["layers"][1] - rec["layers"][0] if kernels else 0
+    norms = (2 * layers + (rec["stage"] == 0)) if kernels else 0
+    return {"fused_attention_fwd": layers * fwd,
+            "fused_attention_bwd": layers * micro,
+            "layer_norm_fwd": norms * fwd, "layer_norm_bwd": norms * micro,
+            "q8_matmul": 0, "q8_quantize": 0}
+
+
+def _pm_print(kind: str, recs: list) -> None:
+    for r, rec in enumerate(recs):
+        tr, st = rec["transport"], rec["stage_transport"]
+        say(f"pipe x model {kind} rank {r} ({rec['mesh']}, stage "
+            f"{rec['stage']} (layers {rec['layers'][0]}..{rec['layers'][1] - 1}"
+            f"), data {rec['data_index']}, model {rec['model_index']} of "
+            f"group {rec['model_ranks']}, pipeline {rec['pipe_ranks']}, "
+            f"{rec['heads']} heads a layer, {rec['dtype']}, "
+            f"{rec['schedule']}, {rec['layout']} layout, "
+            f"{rec['opt_sharding']}, gloo on the card): {len(rec['steps'])} "
+            f"steps of {rec['batch_split']} micro-batches + "
+            f"{rec['eval_batches']} eval batches in {rec['wall']:.1f}s; step "
+            f"walls {[round(w, 3) for w in rec['step_walls']]} s, of them "
+            f"in stage hand-offs {[round(s, 3) for s in rec['step_stage_s']]}"
+            f" s and in the model group's all-reduces "
+            f"{[round(a, 3) for a in rec['step_allreduce_s']]} s; stage "
+            f"transport {st['hops']} sends, {st['bytes'] / 1e9:.3f} GB sent,"
+            f" {st['staged_bytes'] / 1e9:.3f} GB staged; model transport "
+            f"{tr['all_reduces']} all-reduces ({tr['forward']} forward, "
+            f"{tr['backward']} backward), {tr['bytes'] / 1e9:.3f} GB "
+            f"reduced, {tr['staged_bytes'] / 1e9:.3f} GB staged through host "
+            f"memory, {tr['seconds']:.2f} s; modeled bubble "
+            f"{rec['modeled_bubble']:.4f}, at most {rec['in_flight']} "
+            f"micro-batches in flight; peak CUDA memory "
+            f"{rec['peak_bytes'] / 1e9:.3f} GB; parameters "
+            f"{rec['param_count'] / 1e6:.2f} M ({rec['param_bytes'] / 1e6:.1f}"
+            f" MB), moments {rec['opt_bytes'] / 1e6:.1f} MB on this rank; "
+            f"losses {[s['loss'] for s in rec['steps']]}; launches "
+            f"{rec['launched']} (expected {_pm_want(rec)}; "
+            f"{rec['preflight_probes']} pre-flight probes launched "
+            f"{rec['probe_launches']})")
+
+
+def _pm_check(kind: str, recs: list) -> None:
+    world, _, layers = PM_RUNS[kind]
+    stage_layers = layers // 2
+    for r, rec in enumerate(recs):
+        if rec["launched"] != _pm_want(rec):
+            fail(f"pipe x model {kind}: launch counts do not match the "
+                 f"stage's path")
+        if (rec["layers"][1] - rec["layers"][0] != stage_layers
+                or rec["heads"] != TP_HEADS):
+            fail(f"pipe x model {kind}: a rank does not hold {TP_HEADS} "
+                 f"heads of {stage_layers} layers")
+        tr = rec["transport"]
+        micro = len(rec["steps"]) * rec["batch_split"]
+        probes = rec["preflight_probes"]
+        # 2 forward all-reduces a layer, 2 backward (the probes' too)
+        if (tr["backward"] != 2 * stage_layers * (micro + probes)
+                or tr["forward"] != 2 * stage_layers * (
+                    micro + probes + rec["eval_batches"])
+                or tr["staged_bytes"] <= 0
+                or rec["stage_transport"]["hops"] < 1):
+            fail(f"pipe x model {kind}: the model group did not take its "
+                 f"all-reduces through the host, or the stage sent nothing")
+        if not all(np.isfinite(s["loss"]) for s in rec["steps"]):
+            fail(f"pipe x model {kind}: a loss is not finite")
+        if [s["loss"] for s in rec["steps"]] != [s["loss"] for s in
+                                                 recs[0]["steps"]]:
+            fail(f"pipe x model {kind}: the ranks logged other losses")
+        # a model group and a pipeline are the JAX device order's
+        T, K = 2, 2
+        if (rec["model_ranks"] != [r - r % T + j for j in range(T)]
+                or rec["pipe_ranks"] != [r % (world // K) + k * (world // K)
+                                         for k in range(K)]):
+            fail(f"pipe x model {kind}: rank {r}'s groups are not the JAX "
+                 f"mesh's")
+    if sorted((r["stage"], r["data_index"], r["model_index"]) for r in recs
+              ) != sorted((k, d, m) for k in range(2)
+                          for d in range(world // 4) for m in range(2)):
+        fail(f"pipe x model {kind}: the ranks are not the mesh's places")
+
+
+def _pm_one_process(torch, kind: str):
+    """Phase 21a's ``kind`` run (PM_RUNS) in this process at ``data:1``: its
+    first batch (the loader's, through the CLI's build), one optimizer
+    step's micro-batches forward and backward on the pipeline's dropout
+    draws (``parallel.pipeline.step_generator`` of each micro-batch and
+    layer: a pipeline does not draw what one process's step draws), no
+    update. Returns the batch's digest, the step's loss (the micro-batches'
+    mean, as the pipeline logs it), the gradient over ``batch_split`` by
+    name, walls and memory."""
+    from ml_recipe_tpu_torch.cli import train as train_cli
+    from ml_recipe_tpu_torch.parallel import pipeline
+
+    layers = PM_RUNS[kind][2]
+    flags = [f for f in _pm_flags(kind) if f not in ("--mesh",
+                                                      "pipe:2,model:2")]
+    params, model_params = _train_flags(REPO / "config" / "test_bert.cfg",
+                                        flags[2:])
+    with _shallow(layers):
+        trainer = train_cli.build_trainer(params, model_params)
+    loader = trainer.train_dataloader
+    loader.set_epoch(1)
+    batches, prefetcher = trainer._batches(loader, "phase 21 one process")
+    placed = next(iter(batches)).ready()
+    if prefetcher is not None:
+        prefetcher.close()
+    inputs, labels = placed["inputs"], placed["labels"]
+    model, m = trainer.model, trainer.batch_split
+    model.train()
+    x = trainer._model_inputs(inputs)
+    micro = x["input_ids"].shape[0] // m
+    L = model.cfg.num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    total_loss = None
+    for i in range(m):
+        rows = slice(i * micro, (i + 1) * micro)
+        xi = {k: v[rows] for k, v in x.items()}
+
+        def gen(slot, i=i):
+            return pipeline.step_generator(trainer.seed, 0, i, slot,
+                                           trainer.device)
+
+        h = model.embed(xi["input_ids"], xi["token_type_ids"], gen(0))
+        y = model.layers(h, xi["attention_mask"], 0, L,
+                         lambda li: gen(1 + li))
+        preds = model.tail(y, xi["attention_mask"], gen(1 + L))
+        total, values = trainer.loss(preds, {k: v[rows] for k, v in
+                                             labels.items()})
+        total.backward()
+        v = values["loss"].detach().float()
+        total_loss = v if total_loss is None else total_loss + v
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    grads = {n: (p.grad.float() / m).cpu()
+             for n, p in model.named_parameters()}
+    out = dict(digest=_tensor_digest(inputs["input_ids"]),
+               loss=float(total_loss * (1.0 / m)), grads=grads, wall=wall,
+               peak=torch.cuda.max_memory_allocated(),
+               param_count=sum(p.numel() for p in model.parameters()))
+    del trainer, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pm_gate(torch, kind: str, recs: list, one: dict) -> dict:
+    """Phase 21a's ``kind`` run against the one process: the first step's
+    loss (relative) and the whole gradient at the first clip, the stages'
+    joined (relative L2); fails past PM_F32_* (f32) or PM_BF16_LOSS_RTOL
+    (bf16)."""
+    if recs[0]["batch_digest"] != one["digest"]:
+        fail(f"pipe x model {kind}: the ranks and the one process drew "
+             f"other first batches")
+    grads = {}
+    for path in sorted((PM_DIR / kind).glob("grads*.pt")):
+        grads.update(torch.load(path))
+    if set(grads) != set(one["grads"]):
+        fail(f"pipe x model {kind}: the stages' gradients do not cover the "
+             f"model")
+    flat = lambda d: torch.cat([d[n].reshape(-1) for n in sorted(d)])
+    rel = _rel(flat(grads), flat(one["grads"]))
+    loss, loss1 = recs[0]["steps"][0]["loss"], one["loss"]
+    loss_rel = abs(loss - loss1) / abs(loss1)
+    tol = PM_F32_LOSS_RTOL if kind == "f32" else PM_BF16_LOSS_RTOL
+    say(f"pipe x model {kind}: pipe:2,model:2 against one process on the "
+        f"pipeline's dropout draws ({one['wall']:.2f}s for the step's "
+        f"micro-batches, {one['param_count'] / 1e6:.2f} M parameters, peak "
+        f"CUDA memory {one['peak'] / 1e9:.3f} GB): step-1 loss {loss!r} "
+        f"against {loss1!r}, relative {loss_rel:.3e} (tol {tol:g}); "
+        f"gradient at the first clip relative L2 {rel:.3e}"
+        + (f" (tol {PM_F32_GRAD_REL:g})" if kind == "f32" else
+           " (recorded)"))
+    if not (np.isfinite(loss_rel) and loss_rel <= tol):
+        fail(f"pipe x model {kind}: the pipe:2,model:2 loss parts from one "
+             f"process")
+    if kind == "f32" and not rel <= PM_F32_GRAD_REL:
+        fail("pipe x model f32: the pipe:2,model:2 gradient parts from one "
+             "process")
+    return dict(loss_rel=loss_rel, grad_rel=rel)
+
+
+def _pm_reload(torch, recs: list) -> None:
+    """Phase 21b's sharded checkpoint, peeked, then loaded into a
+    one-process trainer of the same flags and depth at ``data:1`` (the
+    optimizer kept): every parameter's digest is the whole one its stage's
+    ranks recorded, every moment the checkpoint's."""
+    from ml_recipe_tpu_torch.cli import train as train_cli
+    from ml_recipe_tpu_torch.models.convert import from_jax_params
+    from ml_recipe_tpu_torch.train.checkpoint import (
+        peek_checkpoint_layout, read_state)
+
+    path = PM_DIR / "zero1" / "ckpt"
+    layout = peek_checkpoint_layout(path)
+    flags = [f for f in _pm_flags("zero1") if f not in (
+        "--mesh", "data:2,pipe:2,model:2", "--sharded_checkpoint")]
+    params, model_params = _train_flags(REPO / "config" / "test_bert.cfg",
+                                        flags[2:])
+    with _shallow(PM_RUNS["zero1"][2]):
+        trainer = train_cli.build_trainer(params, model_params)
+    trainer.drop_optimizer = False
+    t0 = time.perf_counter()
+    trainer.load_state_dict(path)
+    seconds = time.perf_counter() - t0
+    want = {}
+    for rec in recs:
+        want.update(rec["whole_digests"])
+    got = {n: _tensor_digest(p) for n, p in trainer.model.named_parameters()}
+    same = got == want and all(
+        rec["whole_digests"][n] == want[n] for rec in recs
+        for n in rec["whole_digests"])
+    state = read_state(path)
+    saved = trainer.optimizer.flax_state()
+    moments_equal = True
+    for key in ("mu", "nu"):
+        ref = from_jax_params(state["optimizer"]["0"]["0"][key])
+        mine = from_jax_params(saved["0"]["0"][key])
+        moments_equal &= all(torch.equal(
+            mine[n], ref[n][tuple(slice(0, d) for d in mine[n].shape)])
+            for n in ref)
+    say(f"pipe x model zero1: the sharded checkpoint (layout "
+        f"{json.dumps({k: layout[k] for k in ('mesh_axes', 'pipe_schedule', 'pipe_param_layout', 'opt_sharding', 'shards', 'process_count')})}"
+        f", saved in {recs[0]['save_seconds']:.1f}s) reloaded in one process "
+        f"(data:1) in {seconds:.1f}s: every parameter bit for bit the "
+        f"stages' gathered whole: {same}; every adam moment the "
+        f"checkpoint's: {moments_equal}; global step {trainer.global_step}")
+    if (layout["mesh_axes"] != {"pipe": 2, "data": 2, "model": 2}
+            or layout["pipe_param_layout"] != "stage"
+            or layout["shards"] < 4 or layout["opt_sharding"] != "zero1"
+            or layout["process_count"] != 8):
+        fail("pipe x model zero1: the checkpoint does not record the "
+             "data:2,pipe:2,model:2 stage layout's ZeRO-1 pieces")
+    if not same or not moments_equal or trainer.global_step != 1:
+        fail("pipe x model zero1: the checkpoint did not restore in one "
+             "process bit for bit")
+    del trainer, saved, state
+    torch.cuda.empty_cache()
+
+
+def _pm_worlds(torch, worlds: dict, deadline: float):
+    """Phase 21a and 21b over the started ``worlds``: the one-process
+    references beside them, then each world's records, checks and gates
+    (see :func:`phase_pipe_model`). Returns the GPipe, 1F1B and ZeRO-1
+    records and the gates' gaps."""
+    # the one-process references run beside the worlds (the card and the
+    # host have room; their gates hold numbers, not times)
+    try:
+        ones = {kind: _pm_one_process(torch, kind)
+                for kind in ("gpipe", "f32")}
+    finally:
+        _pp_join(worlds["quad"], deadline)
+    runs = {k: _pm_records(k) for k in PM_WORLDS["quad"]}
+    for kind, recs in runs.items():
+        _pm_print(kind, recs)
+        _pm_check(kind, recs)
+    gp, ofob = runs["gpipe"], runs["1f1b"]
+    same = all(a["digests"] == b["digests"] for a, b in zip(gp, ofob))
+    same_losses = ([s["loss"] for s in gp[0]["steps"]]
+                   == [s["loss"] for s in ofob[0]["steps"]])
+    say(f"pipe x model: GPipe against 1F1B: losses "
+        f"{[s['loss'] for s in gp[0]['steps']]} and "
+        f"{[s['loss'] for s in ofob[0]['steps']]}; every rank's parameters "
+        f"bit for bit: {same}; in flight {[r['in_flight'] for r in gp]} and "
+        f"{[r['in_flight'] for r in ofob]}")
+    if not (same and same_losses):
+        fail("pipe x model: GPipe and 1F1B part")
+    gates = {kind: _pm_gate(torch, kind, runs[kind], one)
+             for kind, one in ones.items()}
+    del ones
+    _pp_join(worlds["octo"], deadline)
+    zero = _pm_records("zero1")
+    _pm_print("zero1", zero)
+    _pm_check("zero1", zero)
+    if any(len(r["steps"]) != 1 or r["opt_sharding"] != "zero1"
+           for r in zero):
+        fail("pipe x model zero1: not one ZeRO-1 step")
+    return gp, ofob, gates, zero
+
+
+def phase_pipe_model(torch):
+    """Phase 21: pipeline stages of tensor-parallel layers on the card
+    (``--mesh pipe:2,model:2``).
+
+    21a. ``config/test_bert.cfg --seed 0 --ln_impl fused
+    --train_batch_size 64 --batch_split 2 --test_batch_size 4`` (bert-base
+    at full width and depth, dropout 0.1, 2 debug steps of 2 micro-batches
+    of 32x512, 11 eval batches of 4 rows after each) as four ranks of
+    ``cli.train`` on ``--mesh pipe:2,model:2`` (``--pm-worker quad``, gloo
+    on the card: a rank holds 6 layers of 6 heads and 1536 MLP columns),
+    under GPipe and then 1F1B in the same world, then in f32 at 2 layers on
+    the plain attention and LayerNorm. GPipe and 1F1B must agree bit for
+    bit (every parameter's digest on every rank, and the losses); GPipe
+    (bf16) and f32 against this process at ``data:1`` on the same rows and
+    the pipeline's dropout draws (:func:`_pm_one_process`): f32 within
+    PM_F32_LOSS_RTOL (loss) and PM_F32_GRAD_REL (the whole gradient at the
+    first clip), bf16 within PM_BF16_LOSS_RTOL (loss), its gradient gap
+    recorded. Each rank's launches equal its stage's path, its model group
+    took 2 forward and 2 backward all-reduces a layer through the host, its
+    stage sent, and its groups are the JAX mesh's.
+
+    21b. ``--mesh data:2,pipe:2,model:2 --optimizer_sharding zero1
+    --sharded_checkpoint`` at 4 layers as eight ranks for one debug step,
+    then its sharded save, which must peek ``mesh_axes`` {pipe: 2, data:
+    2, model: 2}, the stage layout and ZeRO-1, and reload in one process
+    bit for bit (:func:`_pm_reload`).
+
+    Both worlds run at once (:func:`start_pipe_model_worlds`), and the
+    one-process references beside them. Printed per
+    rank: step walls and their stage and all-reduce seconds, both
+    transports' sends, all-reduces, bytes and seconds, launches,
+    parameter and moment bytes, peak CUDA memory. Returns the launch
+    counts by path and the gates' gaps. (The kernels at a rank's shapes
+    are phase 21c, :func:`_pm_kernels`, run by :func:`main` on the card
+    alone.)"""
+    t_phase = time.perf_counter()
+    deadline = time.monotonic() + PM_DEADLINE_S
+    worlds = start_pipe_model_worlds()
+    try:
+        gp, ofob, gates, zero = _pm_worlds(torch, worlds, deadline)
+    finally:
+        for procs in worlds.values():   # a failed gate leaves no rank
+            for proc, _ in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    _pm_reload(torch, zero)
+    say(f"phase 21 wall {time.perf_counter() - t_phase:.1f}s")
+    total = lambda recs: {k: sum(r["launched"][k] for r in recs)
+                          for k in recs[0]["launched"]}
+    return {"pipe:2,model:2 gpipe": total(gp),
+            "pipe:2,model:2 1f1b": total(ofob),
+            "data:2,pipe:2,model:2 zero1": total(zero), "gates": gates}
+
+
+def _pm_kernels(torch, ln, tp_kernels: dict, ln_t: dict) -> dict:
+    """Phase 21c: the kernels at a ``pipe:2,model:2`` rank's shapes, on the
+    card alone. The attention pair runs at a ``model:2`` rank's
+    32x512x6x64 (a stage's layers are those layers): phase 20c's check and
+    timings of this run (``tp_kernels``). The LayerNorm pair runs at the
+    whole width (each LayerNorm of a rank acts on the all-reduced
+    ``[32, 512, 768]``): held here against its plain version at 16384x768
+    bf16, its timings phase 8's of this run (``ln_t``)."""
+    h, gamma, beta, g = ln.seeded_inputs(16384, 768, torch.bfloat16, 21)
+    y = ln.layer_norm_fwd_cuda(h, gamma, beta, LN_EPS, torch.bfloat16)
+    ref = ln.layer_norm_plain(h, gamma, beta, LN_EPS, torch.bfloat16)
+    got = ln.layer_norm_bwd_cuda(h, gamma, g, LN_EPS)
+    want = ln.layer_norm_bwd_plain(h, gamma, g, LN_EPS)
+    torch.cuda.synchronize()
+    fwd_err = (y.float() - ref.float()).abs()
+    ok = bool(((fwd_err / ln.fwd_limit(ref)).max() <= 1.0).item())
+    dh = (got[0].float() - want[0].float()).abs()
+    ok &= bool((dh <= ln.dh_limit(want[0])).all())
+    ok &= all(ln.dparam_close(a, b) for a, b in zip(got[1:], want[1:]))
+    bwd_err = max([dh.max().item()] + [(a - b).abs().max().item()
+                                       for a, b in zip(got[1:], want[1:])])
+    att = tp_kernels
+    lf, lb = ln_t[(16384, 768, "fwd")], ln_t[(16384, 768, "bwd")]
+    say(f"pipe x model 21c: a rank's attention pair at 32x512x6x64 bf16 "
+        f"(phase 20c of this run): forward max_abs_err "
+        f"{att['fwd_err']:.3e}, backward {att['bwd_err']:.3e}; kernel / "
+        f"plain / sdpa ms fwd {att['fwd']['ms']:.4f} / "
+        f"{att['fwd']['plain_ms']:.4f} / {att['fwd']['library_ms']:.4f}, "
+        f"bwd {att['bwd']['ms']:.4f} / {att['bwd']['plain_ms']:.4f} / "
+        f"{att['bwd']['library_ms']:.4f}; its LayerNorm pair at 16384x768 "
+        f"bf16 against plain: forward max_abs_err "
+        f"{fwd_err.max().item():.3e}, backward dh/dgamma/dbeta "
+        f"{bwd_err:.3e} {'ok' if ok else 'FAIL'}; kernel / plain / "
+        f"F.layer_norm ms fwd {lf['ms']:.4f} / {lf['plain_ms']:.4f} / "
+        f"{lf['library_ms']:.4f}, bwd {lb['ms']:.4f} / {lb['plain_ms']:.4f}"
+        f" / {lb['library_ms']:.4f} (phase 8 of this run)")
+    if not ok:
+        fail("pipe x model: a LayerNorm kernel disagrees with plain at a "
+             "rank's shape")
+    return dict(ln_fwd_err=fwd_err.max().item(), ln_bwd_err=bwd_err)
+
+
 SIDE_DIR = OUT_DIR / "side"
 SIDE_DEADLINE_S = 900
+# the phases a side process runs, one after the other, by lane, and the
+# main process's phases it runs beside: 19 and 20 beside 10 and 11, 21
+# beside 12 and 13, 16 beside 15 and 17. No kernel time of the kernels
+# line is taken beside a lane (phase 14 runs alone, phase 15's ring hop is
+# timed after lane c joins), nor phase 18's drill, which holds a relaunch
+# time; every other line printed by either process while a lane runs is
+# marked contended (BESIDE), for the card and the host cores are shared
+# then
+SIDE_LANES = {"a": ((("pp", "phase_pipeline", "19"),
+                     ("tp", "phase_tensor_parallel", "20")), "10 and 11"),
+              "b": ((("pm", "phase_pipe_model", "21"),), "12 and 13"),
+              "c": ((("rt", "phase_runtime", "16"),), "15 and 17")}
 
 
-def side_phases(out: str) -> int:
-    """Phases 19 and 20 in a process of their own (``--side-phases OUT``),
-    which :func:`main` starts beside phases 10 and 11 (their gates hold
-    numbers, not times; the card and the host cores have room beside
-    them): the kernel libraries loaded from the store phase 1 built, the
-    two phases one after the other, each with its own launch counts
-    (counts are a process's); their launch counts by path and the kernels'
-    timings are written to ``out`` as JSON."""
+def _phases(numbers: str) -> str:
+    """``"phase 21"`` or ``"phases 19 and 20"``."""
+    return f"phase{'s' if ' ' in numbers else ''} {numbers}"
+
+
+def _lane_phases(lane: str) -> str:
+    """The phases of side lane ``lane``, as :func:`_phases` names them."""
+    return _phases(" and ".join(n for _, _, n in SIDE_LANES[lane][0]))
+
+
+def side_phases(lane: str, out: str) -> int:
+    """The phases of side lane ``lane`` (SIDE_LANES) in a process of their
+    own (``--side-phases LANE OUT``), which :func:`main` starts beside a
+    stretch of its own phases: the kernel libraries loaded from the store
+    phase 1 built, the lane's phases one after the other, each with its
+    own launch counts (counts are a process's); their launch counts by
+    path and the gates' gaps are written to ``out`` as JSON."""
     import torch
 
     from ml_recipe_tpu_torch.ops import cuda_build
@@ -7514,39 +8193,51 @@ def side_phases(out: str) -> int:
     cuda_build.build(fa.KERNEL.library, fa.BWD_KERNEL.library, ln.LIBRARY,
                      q8.KERNEL.library)
     t0 = time.perf_counter()
-    pp = phase_pipeline(torch)
-    say(f"phase 19 done {time.perf_counter() - t0:.1f}s into the side "
-        f"process")
-    torch.cuda.empty_cache()
-    tp = phase_tensor_parallel(torch)
-    say(f"phase 20 done {time.perf_counter() - t0:.1f}s into the side "
-        f"process")
-    Path(out).write_text(json.dumps({"pp": pp, "tp": tp}))
+    result = {}
+    phases, beside = SIDE_LANES[lane]
+    BESIDE.append(f"the main process's {_phases(beside)}")
+    for key, phase, number in phases:
+        result[key] = globals()[phase](torch)
+        say(f"phase {number} done {time.perf_counter() - t0:.1f}s into the "
+            f"side process")
+        torch.cuda.empty_cache()
+    Path(out).write_text(json.dumps(result))
     return 0
 
 
-def start_side_phases():
-    """:func:`side_phases` started: ``(process, log, result path)``."""
+def start_side_phases(lane: str):
+    """:func:`side_phases` of ``lane`` started: ``(process, log, result
+    path, lane)``."""
     import shutil
 
-    shutil.rmtree(SIDE_DIR, ignore_errors=True)
-    SIDE_DIR.mkdir(parents=True)
+    lane_dir = SIDE_DIR / lane
+    shutil.rmtree(lane_dir, ignore_errors=True)
+    lane_dir.mkdir(parents=True)
     _vocab()
-    out, log = SIDE_DIR / "result.json", SIDE_DIR / "side.log"
-    return _spawn(["--side-phases", out], log), log, out
+    out, log = lane_dir / "result.json", lane_dir / "side.log"
+    proc = _spawn(["--side-phases", lane, out], log)
+    # a failed main phase leaves no side process running
+    atexit.register(lambda: proc.poll() is None and (proc.kill(),
+                                                     proc.wait()))
+    say(f"side lane {lane}: {_lane_phases(lane)} started beside "
+        f"{_phases(SIDE_LANES[lane][1])}; the lines of either until it "
+        f"joins are marked contended")
+    BESIDE.append(_lane_phases(lane))
+    return proc, log, out, lane
 
 
-def join_side_phases(started) -> tuple:
+def join_side_phases(started) -> dict:
     """Wait for :func:`start_side_phases`'s process, print its output, and
-    return phase 19's and phase 20's results; fails when it failed."""
-    proc, log, out = started
-    _join({"phases 19 and 20": (proc, log)},
+    return its phases' results by key (SIDE_LANES); fails when it
+    failed."""
+    proc, log, out, lane = started
+    _join({_lane_phases(lane): (proc, log)},
           time.monotonic() + SIDE_DEADLINE_S, "side phases")
+    BESIDE.clear()
     for line in log.read_text().splitlines():
         if not line.startswith(("INFO", "WARNING", "DEBUG")):
             print(line, flush=True)
-    result = json.loads(out.read_text())
-    return result["pp"], result["tp"]
+    return json.loads(out.read_text())
 
 
 def main() -> int:
@@ -7628,7 +8319,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     # phases 19 and 20 (gloo worlds of a few ranks each) run in a process
     # of their own beside phases 10 and 11
-    side = start_side_phases()
+    side = start_side_phases("a")
     nq = phase_nq_corpus(torch)
     nq_train = phase_nq_training(torch, nq)
     nq_val = phase_nq_validate(torch, nq, nq_train.ckpt)
@@ -7639,11 +8330,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     dp = phase_data_parallel(torch)
     lap("phase 11")
-    pp, tp = join_side_phases(side)
+    side = join_side_phases(side)
+    pp, tp = side["pp"], side["tp"]
     # 20c: the attention pair at a model:2 rank's shape, on the card alone
     tp["kernels"] = _tp_kernels(torch, fa, bw, flops)
     lap("phases 19 and 20 (beside phases 10 and 11)")
     torch.cuda.empty_cache()
+    # phase 21 (gloo worlds of four and eight ranks) runs in a process of
+    # its own beside phases 12 and 13
+    side = start_side_phases("b")
     opt_run, opt_tune = phase_train_options(torch)
     lap("phase 12")
     torch.cuda.empty_cache()
@@ -7651,19 +8346,29 @@ def main() -> int:
     fleet8 = phase_fleet_int8(torch)
     lap("phase 13")
     torch.cuda.empty_cache()
+    pm = join_side_phases(side)["pm"]
+    # 21c: a pipe:2,model:2 rank's kernels, on the card alone
+    pm["kernels"] = _pm_kernels(torch, ln, tp["kernels"], ln_t)
+    lap("phase 21 (beside phases 12 and 13)")
+    torch.cuda.empty_cache()
+    # phase 14 times kernels for the kernels line: on the card alone
     packed = phase_packed_training(torch, nq, nq_train)
     packed_val = phase_packed_validate(torch, nq, packed.ckpt)
     lap("phase 14")
     torch.cuda.empty_cache()
+    # phase 16 (CLI runs and a supervised drill) runs in a process of its
+    # own beside phases 15 and 17
+    side = start_side_phases("c")
     sp = phase_sequence_parallel(torch, fa, bw, flops)
     lap("phase 15")
-    torch.cuda.empty_cache()
-    rt = phase_runtime(torch)
-    lap("phase 16")
     torch.cuda.empty_cache()
     warm = phase_warmup_plane(torch)
     lap("phase 17")
     torch.cuda.empty_cache()
+    rt = join_side_phases(side)["rt"]
+    lap("phase 16 (beside phases 15 and 17)")
+    # 15b's ring hop timed on the card alone
+    sp["hop"].update(_time_ring_hop(torch, fa, bw, flops))
     el = phase_elastic(torch)
     lap("phase 18")
     torch.cuda.empty_cache()
@@ -7677,6 +8382,11 @@ def main() -> int:
     def tp_paths(kernel):
         return {path: tp[path][kernel] for path in (
             "model:2 bf16", "model:2 one process", "data:2,model:2 zero1")}
+
+    def pm_paths(kernel):
+        return {path: pm[path][kernel] for path in (
+            "pipe:2,model:2 gpipe", "pipe:2,model:2 1f1b",
+            "data:2,pipe:2,model:2 zero1")}
 
     def warm_paths(kernel):
         return {f"warm-up plane, {path}": n[kernel]
@@ -7817,8 +8527,10 @@ def main() -> int:
               + sum(runtime_paths("layer_norm_fwd").values())
               + sum(elastic_paths("layer_norm_fwd").values())
               + sum(pipe_paths("layer_norm_fwd").values())
-              + sum(tp_paths("layer_norm_fwd").values()),
-              ln_fwd_err, ln_fwd, "16384x768 bf16 (32x512, training)",
+              + sum(tp_paths("layer_norm_fwd").values())
+              + sum(pm_paths("layer_norm_fwd").values()),
+              max(ln_fwd_err, pm["kernels"]["ln_fwd_err"]), ln_fwd,
+              "16384x768 bf16 (32x512, training)",
               source="layer_norm",
               launches_by_path={**int8_paths("layer_norm_fwd"),
                                 "training fused": ln_train["layer_norm_fwd"],
@@ -7829,7 +8541,8 @@ def main() -> int:
                                 **runtime_paths("layer_norm_fwd"),
                                 **elastic_paths("layer_norm_fwd"),
                                 **pipe_paths("layer_norm_fwd"),
-                                **tp_paths("layer_norm_fwd")},
+                                **tp_paths("layer_norm_fwd"),
+                                **pm_paths("layer_norm_fwd")},
               device_ms=ln_fwd["device_ms"], host_ms=ln_fwd["host_ms"],
               at_32x384={k: ln_serve[k] for k in (
                   "ms", "device_ms", "host_ms", "plain_ms", "library_ms",
@@ -7841,8 +8554,9 @@ def main() -> int:
               + sum(runtime_paths("layer_norm_bwd").values())
               + sum(elastic_paths("layer_norm_bwd").values())
               + sum(pipe_paths("layer_norm_bwd").values())
-              + sum(tp_paths("layer_norm_bwd").values()),
-              ln_bwd_err,
+              + sum(tp_paths("layer_norm_bwd").values())
+              + sum(pm_paths("layer_norm_bwd").values()),
+              max(ln_bwd_err, pm["kernels"]["ln_bwd_err"]),
               ln_bwd, "16384x768 bf16 (32x512, training)", source="layer_norm",
               launches_by_path={"training fused": ln_train["layer_norm_bwd"],
                                 "data parallel": dp["layer_norm_bwd"],
@@ -7852,7 +8566,8 @@ def main() -> int:
                                 **runtime_paths("layer_norm_bwd"),
                                 **elastic_paths("layer_norm_bwd"),
                                 **pipe_paths("layer_norm_bwd"),
-                                **tp_paths("layer_norm_bwd")},
+                                **tp_paths("layer_norm_bwd"),
+                                **pm_paths("layer_norm_bwd")},
               device_ms=ln_bwd["device_ms"], host_ms=ln_bwd["host_ms"],
               device_ms_by_kernel=ln_bwd["split_ms"],
               by_shape={f"{N}x{C}": {k: t[k] for k in (
@@ -7889,7 +8604,8 @@ def main() -> int:
                      + sum(warm_paths("fused_attention_fwd").values())
                      + sum(elastic_paths("fused_attention_fwd").values())
                      + sum(pipe_paths("fused_attention_fwd").values())
-                     + sum(tp_paths("fused_attention_fwd").values())),
+                     + sum(tp_paths("fused_attention_fwd").values())
+                     + sum(pm_paths("fused_attention_fwd").values())),
         "launches_by_path": {"serving": serving_fwd, "training": train_fwd,
                              "serving int8": int8["fused_attention_fwd"],
                              "training fused": ln_train["fused_attention_fwd"],
@@ -7904,7 +8620,8 @@ def main() -> int:
                              **warm_paths("fused_attention_fwd"),
                              **elastic_paths("fused_attention_fwd"),
                              **pipe_paths("fused_attention_fwd"),
-                             **tp_paths("fused_attention_fwd")},
+                             **tp_paths("fused_attention_fwd"),
+                             **pm_paths("fused_attention_fwd")},
         "max_abs_err": max(fwd_err, packed.fwd_err,
                            packed_val["packed"].errs[0],
                            tp["kernels"]["fwd_err"]),
@@ -7929,7 +8646,8 @@ def main() -> int:
                      + sum(warm_paths("fused_attention_bwd").values())
                      + sum(elastic_paths("fused_attention_bwd").values())
                      + sum(pipe_paths("fused_attention_bwd").values())
-                     + sum(tp_paths("fused_attention_bwd").values())),
+                     + sum(tp_paths("fused_attention_bwd").values())
+                     + sum(pm_paths("fused_attention_bwd").values())),
         "launches_by_path": {"serving": 0, "training": train_bwd,
                              "training fused": ln_train["fused_attention_bwd"],
                              "nq training":
@@ -7942,7 +8660,8 @@ def main() -> int:
                              **warm_paths("fused_attention_bwd"),
                              **elastic_paths("fused_attention_bwd"),
                              **pipe_paths("fused_attention_bwd"),
-                             **tp_paths("fused_attention_bwd")},
+                             **tp_paths("fused_attention_bwd"),
+                             **pm_paths("fused_attention_bwd")},
         "max_abs_err": max(bwd_err, packed.bwd_err,
                            packed_val["packed"].errs[1],
                            tp["kernels"]["bwd_err"]),
@@ -7977,9 +8696,14 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-worker"]:
         kind, rank, port = sys.argv[2:]
         sys.exit(tp_worker(kind, int(rank), int(port)))
-    # phases 19 and 20 run in a process of their own (main starts it)
+    # phase 21 starts it as the ranks of its stages' model groups
+    if sys.argv[1:2] == ["--pm-worker"]:
+        kind, rank, port = sys.argv[2:]
+        sys.exit(pm_worker(kind, int(rank), int(port)))
+    # phases 19 and 20, and 21, run in processes of their own (main starts
+    # them)
     if sys.argv[1:2] == ["--side-phases"]:
-        sys.exit(side_phases(sys.argv[2]))
+        sys.exit(side_phases(sys.argv[2], sys.argv[3]))
     # phase 19 starts it as the ranks of its pipelines
     if sys.argv[1:2] == ["--pp-worker"]:
         kind, rank, port = sys.argv[2:]

@@ -60,6 +60,15 @@ data seed (``train/trainer.py``)::
         --mesh model:2 --dist_world_size 2 --local_rank r \
         --dist_init_method tcp://HOST:PORT
 
+``--mesh pipe:K,model:T`` (or ``data:D,pipe:K,model:T``, ``D*K*T``
+ranks) runs K pipeline stages (``--pipe_schedule gpipe|1f1b``,
+``--pipe_param_sharding stage|replicated``), each stage's layers split
+over its own ``model`` group::
+
+    python -m ml_recipe_tpu_torch.cli.train -c config/test_bert.cfg ... \
+        --mesh pipe:2,model:2 --dist_world_size 4 --local_rank r \
+        --dist_init_method tcp://HOST:PORT
+
 The runtime subsystems, all off by default (the JAX CLI's flags):
 
 - ``--watchdog_timeout S`` arms the step watchdog before the world is

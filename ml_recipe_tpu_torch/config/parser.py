@@ -1120,8 +1120,10 @@ def check_train_flags(params, model_params) -> None:
     not repeat raises (``scripts/worker_torch.sh`` maps the environment
     onto the flags). ``--mesh`` takes ``data``, ``seq``, ``pipe`` and
     ``model`` axes whose sizes multiply to the live world (``pipe`` beside
-    ``seq`` raises, and so does ``model`` beside either, and a ``model``
-    size that does not divide the heads and the MLP columns); under
+    ``seq`` raises, and so does ``model`` beside ``seq``, and a ``model``
+    size that does not divide the heads and the MLP columns; ``model``
+    beside ``pipe`` runs, ``pipe:2,model:2`` or ``data:2,pipe:2,model:2``,
+    with every flag that each axis takes alone); under
     ``--elastic on`` its ``data`` axis narrows to fit it
     (``parallel.mesh.elastic_axes``). ``--flash_attention ring`` needs a
     ``seq`` axis > 1 (beside a ``model`` axis it raises); ZeRO-1 runs at

@@ -22,6 +22,13 @@ model_size=T)`` keeps rank ``r``'s slice of every leaf the JAX package's
 tree itself always holds whole leaves, so ``to_jax_params`` takes the
 whole leaves a ``model`` group gathers
 (``parallel.sharding.ModelSplit.gather``).
+
+Pipeline stages: a rank of ``pipe:K,model:T`` keeps, of
+``from_jax_params``' slices, its stage's parameters alone
+(``parallel.pipeline.param_stage``; the trainer's restore filters by the
+stage layout's owners). The way back: each stage's leaves, gathered whole
+over its ``model`` group, through ``to_jax_params``, and the stages' trees
+joined by :func:`merge_jax_params` into the whole tree.
 """
 
 from __future__ import annotations
@@ -77,6 +84,26 @@ def from_jax_params(tree_of_numpy: dict, *, model_index: int = 0,
                            size=model_size)
         out = split.local_state(out)
     return out
+
+
+def merge_jax_params(*trees: dict) -> dict:
+    """The union of nested dicts (the stages' parts of one flax tree, or
+    of a checkpoint's groups) as a new tree of dicts; where two hold the
+    same leaf, the first one's."""
+    merged: dict = {}
+
+    def merge(dst, src):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                node = dst.setdefault(k, {})
+                if isinstance(node, dict):
+                    merge(node, v)
+            else:
+                dst.setdefault(k, v)
+
+    for tree in trees:
+        merge(merged, tree)
+    return merged
 
 
 def jax_path(key: str) -> tuple:

@@ -77,7 +77,10 @@ Post-layer-norm BERT stack with the JAX module's numerics:
   heads stay whole on every rank. :func:`init_weights
   <ml_recipe_tpu_torch.models.qa_model.init_weights>` draws each split
   weight at its whole shape and keeps the slice, so one seed gives every
-  rank the slice of one process's weights.
+  rank the slice of one process's weights. A pipeline stage
+  (``pipe:K,model:T``) runs :meth:`TransformerEncoder.run_layers` of its
+  range on these layers, each layer drawing from the generator of its
+  (step, micro-batch, layer), the same on every rank of the group.
 """
 
 from __future__ import annotations

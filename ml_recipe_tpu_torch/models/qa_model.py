@@ -35,6 +35,9 @@ stay whole on every rank of the ``model`` group, which all compute the
 same outputs. :meth:`QAModel.model_split` is the rank's
 ``parallel.sharding.ModelSplit``: which parameters are slices, of which
 dimension, and the gather of the group's slices back into whole ones.
+Under a ``pipe`` axis too, a stage runs :meth:`QAModel.embed` (stage 0),
+:meth:`QAModel.layers` and :meth:`QAModel.tail` (the last stage) on its
+slices.
 """
 
 from __future__ import annotations

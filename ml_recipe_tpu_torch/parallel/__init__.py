@@ -7,8 +7,10 @@ buckets and the sequence split (``sharding.py``), the pipeline's stages
 and schedules (``pipeline.py``), and the collectives of the step, the
 ring attention's hop, the pipeline stages' hand-offs, the ``model``
 group's conjugate all-reduces and the bucketed ZeRO-1 exchange included
-(``collectives.py``). A ``model`` axis beside ``pipe`` or ``seq`` is not
-ported (ROADMAP.md queue 1, 'Parallelism beyond data parallelism')."""
+(``collectives.py``). A ``model`` axis runs beside ``data`` and ``pipe``
+(a stage's layers split over its ``model`` group); beside ``seq`` it is
+not ported (ROADMAP.md queue 1, 'Parallelism beyond data parallelism',
+item 'seq x model')."""
 
 from .collectives import (
     BucketedExchange,

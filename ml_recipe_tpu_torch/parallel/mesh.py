@@ -21,18 +21,21 @@ for every row of each axis the step reduces or rotates over:
   ``reduce_from_model``, and their inputs' gradients, ``copy_to_model``).
 
 Axis sizes come from ``--mesh`` (``data:2,seq:2``, ``data:2,pipe:2``,
-``data:2,model:2``), by default one ``data`` axis over the whole world.
-Ranks follow the JAX package's axis order :data:`AXIS_ORDER` (its device
-array is reshaped in that order, ``pipe`` outermost, ``model`` innermost),
-so with ``pipe:K,data:D,seq:S,model:T`` rank ``r`` sits at ``pipe_index =
-r // (D*S*T)``, ``data_index = r // (S*T) % D``, ``seq_index = r // T %
-S``, ``model_index = r % T``: the data coordinate, which picks a rank's
-rows of every global batch and folds into its dropout seeds, is the one
-the JAX package gives the same device, and a model group's ranks are
-neighbours. ``pipe`` with ``seq`` raises, as in the JAX package
+``data:2,model:2``, ``pipe:2,model:2``, ``data:2,pipe:2,model:2``), by
+default one ``data`` axis over the whole world. Ranks follow the JAX
+package's axis order :data:`AXIS_ORDER` (its device array is reshaped in
+that order, ``pipe`` outermost, ``model`` innermost), so with
+``pipe:K,data:D,seq:S,model:T`` rank ``r`` sits at ``pipe_index = r //
+(D*S*T)``, ``data_index = r // (S*T) % D``, ``seq_index = r // T % S``,
+``model_index = r % T``: the data coordinate, which picks a rank's rows of
+every global batch and folds into its dropout seeds, is the one the JAX
+package gives the same device, and a model group's ranks are neighbours.
+:func:`mesh_groups` lists every group of every axis in that order; each
+rank creates all of them, and a pipeline stage's ``model`` group is its
+own (a stage runs the tensor-parallel layers over it). ``pipe`` with
+``seq`` raises, as in the JAX package
 (``parallel/pipeline.validate_pipeline_plan``), and so does a ``model``
-axis beside ``pipe`` or ``seq`` (the port's tensor-parallel layers do not
-run inside a pipeline stage or a ring hop yet).
+axis beside ``seq`` (the port's ring hops do not run a rank's heads yet).
 Where the JAX package warns about devices a mesh leaves idle, the port
 requires the mesh to cover the world exactly. Under ``--elastic on``
 :func:`elastic_axes` shrinks a requested mesh onto the live processes
@@ -46,6 +49,7 @@ import logging
 import math
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch.distributed as dist
 
 from . import dist as pdist
@@ -58,9 +62,11 @@ AXIS_ORDER = ("pipe", "data", "seq", "model")
 DATA_AXIS, SEQ_AXIS, PIPE_AXIS, MODEL_AXIS = "data", "seq", "pipe", "model"
 PORTED_AXES = (DATA_AXIS, SEQ_AXIS, PIPE_AXIS, MODEL_AXIS)
 _PARALLEL = "queue 1, 'Parallelism beyond data parallelism'"
-# the items of that queue a refused composition waits for
-_PIPE_MODEL = f"{_PARALLEL}, item 'pipe x model'"
+# the item of that queue a refused composition waits for
 _SEQ_MODEL = f"{_PARALLEL}, item 'seq x model'"
+# the ranks of one pipeline stage (every rank with its pipe index), a
+# group of mesh_groups beside the axes'
+STAGE = "stage"
 
 
 def parse_mesh_spec(spec: Optional[str]) -> Dict[str, int]:
@@ -97,22 +103,17 @@ def refuse_unported_axes(axes: Dict[str, int]) -> None:
     """Raise on an axis other than ``data``, ``seq``, ``pipe`` and
     ``model``, naming the ROADMAP item; on ``pipe`` > 1 beside ``seq`` > 1,
     which the JAX package refuses too; and on a ``model`` axis beside
-    ``pipe`` > 1 or ``seq`` > 1, whose compositions wait for their own
-    ROADMAP items."""
+    ``seq`` > 1, whose composition waits for its own ROADMAP item."""
     bad = [name for name in axes if name not in PORTED_AXES]
     if bad:
         raise NotImplementedError(
             f"mesh axes {bad} are not ported yet (the port runs 'data', "
             f"'seq', 'pipe' and 'model'): ROADMAP.md {_PARALLEL}")
-    if MODEL_AXIS in axes:
-        for other, item in ((PIPE_AXIS, _PIPE_MODEL), (SEQ_AXIS, _SEQ_MODEL)):
-            if axes.get(other, 1) > 1:
-                raise NotImplementedError(
-                    f"--mesh with both {other} and model axes is not "
-                    f"composable in the port yet: the tensor-parallel "
-                    f"layers would have to run inside "
-                    f"{'a pipeline stage' if other == PIPE_AXIS else 'a ring hop'}"
-                    f", as in the JAX package; ROADMAP.md {item}")
+    if MODEL_AXIS in axes and axes.get(SEQ_AXIS, 1) > 1:
+        raise NotImplementedError(
+            "--mesh with both seq and model axes is not composable in the "
+            "port yet: the tensor-parallel heads would have to run inside "
+            f"a ring hop, as in the JAX package; ROADMAP.md {_SEQ_MODEL}")
     if axes.get(PIPE_AXIS, 1) > 1 and axes.get(SEQ_AXIS, 1) > 1:
         raise NotImplementedError(
             "--mesh with both seq and pipe axes is not composable yet: the "
@@ -213,13 +214,19 @@ class Mesh:
     ``axes``: ordered ``{name: size}``; ``rank``/``world``: the process's
     rank and the world size. ``data_group`` holds the ranks of this
     process's ``data`` row (same pipe, seq and model index), ``seq_group``
-    those of its ``seq`` ring (same data index), ``pipe_group`` those of
-    its pipeline (same data index), ``model_group`` those of its ``model``
-    group (same data index; ``model_ranks`` their global ranks), in
-    coordinate order; a group is None (the whole world, or a group of one)
-    when the other axes have size 1. ``model_transport`` is the model
-    group's all-reduce (``parallel.collectives.ModelTransport``) when
-    ``model`` is > 1.
+    those of its ``seq`` ring (same pipe, data and model index),
+    ``pipe_group`` those of its pipeline (same data, seq and model index),
+    ``model_group`` those of its ``model`` group (same pipe, data and seq
+    index), each in coordinate order (:func:`mesh_groups`), and
+    ``stage_group`` every rank of its pipeline stage (same pipe index); a
+    group is None (its collectives run over the world) where it is the
+    whole world or its axis has size 1 (then nothing reduces over it;
+    ``stage_group`` None: no ``pipe`` axis, the stage is the world, or a
+    stage of one rank, over which nothing reduces). The
+    ``model`` group exists whenever ``model`` > 1.
+    ``model_ranks`` are the model group's global ranks and
+    ``model_transport`` its all-reduce
+    (``parallel.collectives.ModelTransport``) when ``model`` is > 1.
     ``seq_ranks`` are the global ranks of the ring, ``ring`` its transport
     (``parallel.collectives.RingTransport``) when ``seq`` is > 1;
     ``pipe_ranks`` the global ranks of the pipeline, stage by stage, and
@@ -239,6 +246,7 @@ class Mesh:
     model_group: object = None
     model_ranks: Tuple[int, ...] = (0,)
     model_transport: object = None
+    stage_group: object = None
 
     def axis_size(self, name: str) -> int:
         return int(self.axes.get(name, 1))
@@ -288,6 +296,26 @@ class Mesh:
         return {str(n): int(s) for n, s in self.axes.items()}
 
 
+def mesh_groups(axes: Dict[str, int]) -> Dict[str, List[List[int]]]:
+    """Every group of the mesh ``axes`` (a dict in :data:`AXIS_ORDER`,
+    missing axes of size 1), as the JAX package's device array lays them
+    out: ``rank = ((pipe*D + data)*S + seq)*T + model``. For each axis of
+    size > 1, its groups (the ranks that differ in that coordinate alone,
+    in its order), one per index of the other axes, in rank order of their
+    first member; with ``pipe`` > 1 and more than one rank a stage also
+    :data:`STAGE`, the ranks of each pipeline stage. A pure function: every rank builds the same lists."""
+    sizes = [int(axes.get(name, 1)) for name in AXIS_ORDER]
+    ranks = np.arange(math.prod(sizes)).reshape(sizes)
+    out: Dict[str, List[List[int]]] = {}
+    for i, name in enumerate(AXIS_ORDER):
+        if sizes[i] > 1:
+            out[name] = np.moveaxis(ranks, i, -1).reshape(
+                -1, sizes[i]).tolist()
+    if sizes[0] > 1 and math.prod(sizes[1:]) > 1:
+        out[STAGE] = ranks.reshape(sizes[0], -1).tolist()
+    return out
+
+
 def _groups(ranks_of: List[List[int]], rank: int):
     """``dist.new_group`` for every list in ``ranks_of`` (every process
     creates every group, in one order); returns this rank's group."""
@@ -305,7 +333,11 @@ def build_mesh(spec: Optional[str] = None, *,
     (one process alone outside one); with neither, ``data:W``. Raises when
     the axes do not multiply to the world size or name an unported axis.
     In a world of several processes every process must call it, in the
-    same order as its peers, since it creates the process groups."""
+    same order as its peers, since it creates the process groups: those of
+    every axis of size > 1 (:func:`mesh_groups`, in :data:`AXIS_ORDER`,
+    then the pipeline stages'), but for an axis whose one group is the
+    world (its collectives run over the world); the ``model`` group always,
+    the transport's own."""
     mesh_spec = (MeshSpec(dict(axes)) if axes is not None
                  else MeshSpec.from_string(spec))
     ordered = mesh_spec.ordered()
@@ -315,37 +347,24 @@ def build_mesh(spec: Optional[str] = None, *,
         raise ValueError(
             f"mesh {ordered} needs {mesh_spec.size} processes (one per "
             f"device); the world has {world} (--dist_world_size)")
-    K = ordered.get(PIPE_AXIS, 1)
-    D, S = ordered.get(DATA_AXIS, 1), ordered.get(SEQ_AXIS, 1)
-    T = ordered.get(MODEL_AXIS, 1)
     mesh = Mesh(axes=ordered, rank=rank, world=world,
-                seq_ranks=tuple(range(rank - rank % S, rank - rank % S + S)),
-                model_ranks=tuple(range(rank - rank % T,
-                                        rank - rank % T + T)))
-    row = D * S * T             # the ranks of one pipeline stage
-    mesh.pipe_ranks = tuple(range(rank % row, world, row))
-    if D > 1 and (S > 1 or K > 1 or T > 1):   # other axes of 1: WORLD
-        mesh.data_group = _groups(
-            [list(range(k * row + j, (k + 1) * row, S * T))
-             for k in range(K) for j in range(S * T)], rank)
-    if D > 1 and S > 1:
-        mesh.seq_group = _groups(
-            [list(range(d * S, d * S + S)) for d in range(D)], rank)
-    if D > 1 and T > 1:
-        mesh.model_group = _groups(
-            [list(range(d * T, d * T + T)) for d in range(D)], rank)
-    if S > 1:
+                seq_ranks=(rank,), pipe_ranks=(rank,), model_ranks=(rank,))
+    for name, ranks_of in mesh_groups(ordered).items():
+        if name in (SEQ_AXIS, PIPE_AXIS, MODEL_AXIS):
+            setattr(mesh, f"{name}_ranks",
+                    next(tuple(g) for g in ranks_of if rank in g))
+        if len(ranks_of) > 1 or name == MODEL_AXIS:
+            setattr(mesh, f"{name}_group", _groups(ranks_of, rank))
+    if mesh.seq_size > 1:
         mesh.ring = RingTransport(mesh.seq_ranks, rank)
-    if T > 1:
+    if mesh.model_size > 1:
         mesh.model_transport = ModelTransport(mesh.model_ranks, rank,
                                               mesh.model_group)
-    if K > 1:
-        if D > 1:
-            mesh.pipe_group = _groups(
-                [list(range(i, world, row)) for i in range(row)], rank)
+    if mesh.pipe_size > 1:
         mesh.stage = StageTransport(mesh.pipe_ranks, rank)
     logger.info("Built process mesh %s: rank %d at data %d, seq %d%s%s.",
                 ordered, rank, mesh.data_index, mesh.seq_index,
-                f", pipe {mesh.pipe_index}" if K > 1 else "",
-                f", model {mesh.model_index}" if T > 1 else "")
+                f", pipe {mesh.pipe_index}" if mesh.pipe_size > 1 else "",
+                f", model {mesh.model_index}" if mesh.model_size > 1
+                else "")
     return mesh

@@ -47,6 +47,20 @@ optimizer updates its own leaves in both. ``auto`` is ``stage`` when pipe
 over the pipe ranks; :meth:`StageLayout.pieces` writes a checkpoint in
 that geometry, so a save reads the same in both packages.
 
+Tensor parallelism inside a stage (``pipe:K,model:T``, the JAX package's
+``pipe x model``): each stage runs its layers on a rank's heads and MLP
+columns (``models/encoder.py``) over its own ``model`` group; stage k's
+model rank j hands its activations to stage k+1's model rank j (the
+``pipe`` group of a rank holds the ranks of its data and model index).
+A model group's ranks run one schedule in one order, so they make the
+same all-reduces in the same order, forward and backward. The dropout
+streams are the ones above on every rank of the group (a rank's heads
+draw their global heads' attention masks, ``ops/attention.model_row_seeds``),
+so ``pipe:K,model:T`` draws ``pipe:K``'s masks. :class:`StageLayout` plans
+on the whole leaves, the ``model`` dimension claimed first (the JAX
+``stage_param_specs``), and cuts a rank's ``model`` slice into the stage
+layout's pieces.
+
 Schedule accounting: :func:`modeled_bubble_fraction` and
 :func:`measured_bubble_fractions` are the JAX package's (``(K-1)/(K-1+m)``
 for GPipe, ``(2K-2)/(2K-2+m)`` for 1F1B over its combined tick program).
@@ -60,7 +74,7 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .mesh import PIPE_AXIS
+from .mesh import MODEL_AXIS, PIPE_AXIS
 from .sharding import (
     STAGE_SCOPE_RE,
     LocalPiece,
@@ -160,14 +174,18 @@ def stage_map(num_layers: int, stages: int) -> Dict[str, str]:
             for k, (lo, hi) in stage_assignment(num_layers, stages).items()}
 
 
-def stage_param_bytes(params: dict, *, pipe_size: int) -> dict:
+def stage_param_bytes(params: dict, *, pipe_size: int,
+                      model_size: int = 1) -> dict:
     """Modeled bytes of a flax-named parameter tree (``to_jax_params`` of
-    the port's weights) under the JAX package's stage layout:
+    the port's weights, whole leaves) under the JAX package's stage layout:
     ``replicated_bytes`` (every leaf whole), ``per_chip_bytes`` (stage-scope
-    leaves over their ``pipe`` dimension, the rest whole) and
-    ``per_stage_bytes`` (``{stage: bytes}``: the embeddings with stage 0,
-    each layer with its owner, the pooler and the heads with stage K-1)."""
+    leaves over their ``pipe`` dimension and, with ``model_size`` > 1, the
+    tensor-parallel leaves over their ``model`` dimension, the rest whole)
+    and ``per_stage_bytes`` (``{stage: bytes}`` in the ownership view: the
+    embeddings with stage 0, each layer with its owner, the pooler and the
+    heads with stage K-1)."""
     pipe_size = max(1, int(pipe_size))
+    model_size = max(1, int(model_size))
     num_layers = len([k for k in params.get("transformer", {})
                       if k.startswith("layer_")])
     owners = {}
@@ -183,8 +201,15 @@ def stage_param_bytes(params: dict, *, pipe_size: int) -> dict:
         full = int(np.prod(shape or (1,), dtype=np.int64)) * dtype.itemsize
         replicated += full
         spec = _zero_leaf_plan(path, shape, data_size=1, min_size=0,
-                               pipe_size=pipe_size).spec
-        per_chip += full // pipe_size if PIPE_AXIS in spec else full
+                               pipe_size=pipe_size,
+                               model_size=model_size).spec
+        shard = full
+        for ax in spec:
+            if ax == PIPE_AXIS:
+                shard //= pipe_size
+            elif ax == MODEL_AXIS:
+                shard //= model_size
+        per_chip += shard
         path_s = _path_str(path)
         m = re.search(r"(^|/)transformer/(layer_\d+)(/|$)", path_s)
         if m and m.group(2) in owners:
@@ -229,26 +254,41 @@ class StageLayout:
     """This rank's stage of a ``K``-stage pipeline over ``model``: ``index``
     (``pipe_index``), its layer range ``lo .. hi - 1``, the parameters it
     owns (``owned``), and ``layout`` (``'stage'`` or ``'replicated'``,
-    :func:`resolve_param_layout`). :meth:`release` turns the parameters of
-    other stages into shape-only ``meta`` tensors under ``stage``."""
+    :func:`resolve_param_layout`). ``split``: the rank's
+    ``parallel.sharding.ModelSplit`` under a ``model`` axis (the stage runs
+    its layers on a rank's heads and MLP columns), else None. ``shapes``
+    are the rank's own tensors' shapes (a ``model`` slice's), ``whole``
+    the whole leaves' (what the JAX stage layout plans).
+    :meth:`release` turns the parameters of other stages into shape-only
+    ``meta`` tensors under ``stage``."""
 
-    def __init__(self, model, *, stages: int, index: int, layout: str):
+    def __init__(self, model, *, stages: int, index: int, layout: str,
+                 split=None):
         self.K, self.index, self.layout = int(stages), int(index), layout
+        self.split = split
         self.num_layers = int(model.cfg.num_layers)
         self.lo, self.hi = stage_assignment(self.num_layers, self.K)[index]
         self.first, self.last = index == 0, index == self.K - 1
         self.shapes = {n: tuple(p.shape)
                        for n, p in model.named_parameters()}
+        self.whole = (dict(self.shapes) if split is None else
+                      {n: split.whole_shape(n, s)
+                       for n, s in self.shapes.items()})
         self.owner = {n: param_stage(n, self.num_layers, self.K)
                       for n in self.shapes}
         self.owned = [n for n in self.shapes if self.owner[n] == index]
+
+    @property
+    def model_size(self) -> int:
+        return 1 if self.split is None else self.split.size
 
     def owns(self, name: str) -> bool:
         return self.owner[name] == self.index
 
     def release(self, model) -> None:
         """Under ``stage``, replace every parameter of another stage by a
-        ``meta`` tensor of its shape: the rank stores only its stage."""
+        ``meta`` tensor of its shape (under a ``model`` axis, of the rank's
+        slice): the rank stores only its stage."""
         if self.layout != "stage":
             return
         for name, module in list(model.named_modules()):
@@ -262,22 +302,27 @@ class StageLayout:
     def pipe_dim(self, name: str) -> Optional[int]:
         """The flax dimension the JAX stage layout splits over ``pipe`` for
         parameter ``name`` (None: not a stage-scope leaf, or no dimension
-        the pipe size divides, or the replicated layout)."""
+        the pipe size divides, or the replicated layout): planned on the
+        whole leaf, its ``model`` dimension claimed first, as the JAX
+        ``stage_param_specs`` plans it."""
         if self.layout != "stage":
             return None
         from ..models.convert import jax_path
         from .sharding import flax_shape
 
         spec = _zero_leaf_plan(jax_path(name),
-                               flax_shape(name, self.shapes[name]),
-                               data_size=1, min_size=0,
-                               pipe_size=self.K).spec
+                               flax_shape(name, self.whole[name]),
+                               data_size=1, min_size=0, pipe_size=self.K,
+                               model_size=self.model_size).spec
         return spec.index(PIPE_AXIS) if PIPE_AXIS in spec else None
 
     def pieces(self, name: str, piece: LocalPiece) -> List[LocalPiece]:
-        """``piece`` (this rank's part of a leaf, flax orientation) cut into
-        the JAX stage layout's pieces: ``K`` equal parts along the leaf's
-        pipe dimension, each counted as ``K`` times as many shards."""
+        """``piece`` (this rank's part of a leaf, flax orientation: the
+        whole leaf, a ``model`` slice or a ZeRO-1 slice, bounded in the
+        whole leaf) cut into the JAX stage layout's pieces: ``K`` equal
+        parts along the leaf's pipe dimension (which neither the ``model``
+        nor the ``data`` axis takes), each counted as ``K`` times as many
+        shards."""
         dim = self.pipe_dim(name)
         if dim is None:
             return [piece]

@@ -9,7 +9,8 @@ processes, narrowing the requested ``data`` axis, and records the request
 stage's layers (:meth:`ParallelPlan.stage_map`) and plans ZeRO-1 within a
 stage's leaves (``zero1(..., stage_pipe=True)``, the JAX plan's); with a
 ``model`` axis it plans ZeRO-1 under the tensor-parallel rules, ``model``
-first, as the JAX plan does."""
+first, as the JAX plan does; with both, ``model``, then ``pipe``, then
+``data`` (``pipe:2,model:2``, ``data:2,pipe:2,model:2``)."""
 
 from __future__ import annotations
 
@@ -107,10 +108,10 @@ class ParallelPlan:
               min_size: int = MIN_SIZE,
               stage_pipe: bool = False) -> Dict[str, ParamSlice]:
         """The per-parameter ZeRO-1 placement over the ``data`` axis of the
-        parameters' whole shapes; with ``stage_pipe`` the ``pipe`` axis
-        claims its stage-scope dimension first, so ``data`` is planned
-        within a stage's leaves; a ``model`` axis claims the
-        tensor-parallel rules' dimensions first."""
+        parameters' whole shapes; a ``model`` axis claims the
+        tensor-parallel rules' dimensions first, then with ``stage_pipe``
+        the ``pipe`` axis its stage-scope dimension, so ``data`` is
+        planned within a stage's leaves on what is left."""
         return zero1_param_plan(
             named_shapes, data_size=self.data_size, min_size=min_size,
             pipe_size=self.pipe_size if stage_pipe else 1,

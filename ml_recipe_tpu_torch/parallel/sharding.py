@@ -42,6 +42,11 @@ the gather of the group's slices back into it. The ZeRO-1 plan gives the
 dimension (the JAX package's order), so a rank's optimizer state is the
 ``data`` slice of its ``model`` slice, and its sharded-checkpoint pieces
 (:meth:`Zero1.piece`) are bounded on both dimensions of the whole leaf.
+With a ``pipe`` axis beside it (``pipe:2,model:2``) the chooser gives
+``model``, then ``pipe``, then ``data`` their dimensions, as the JAX
+``stage_param_specs`` and ``zero1_plan`` do, and a stage's pieces are a
+rank's :class:`ModelSplit` (or :class:`Zero1`) pieces cut again along the
+pipe dimension (``parallel/pipeline.py`` ``StageLayout.pieces``).
 """
 
 from __future__ import annotations
@@ -397,6 +402,14 @@ class ModelSplit:
         dim = self.dims[name]
         n = whole.shape[dim] // self.size if n is None else int(n)
         return whole.narrow(dim, self.index * n, n).contiguous()
+
+    def whole_shape(self, name: str, shape: Sequence[int]) -> tuple:
+        """The whole shape of parameter ``name`` of this rank's ``shape``
+        (a split dimension times the group's size)."""
+        shape = list(shape)
+        if name in self.dims:
+            shape[self.dims[name]] *= self.size
+        return tuple(shape)
 
     def local_state(self, state: Dict[str, torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:

@@ -56,7 +56,11 @@ directory each ``data`` index 0 rank writes its slice of every split
 parameter and moment as a piece bounded in the whole leaf (``shards``
 the group's size, and a ZeRO-1 moment's pieces, bounded on both
 dimensions, D*T), the JAX writer's ``shards`` count and crc fold. A
-restore reads whole leaves and keeps this rank's slices.
+restore reads whole leaves and keeps this rank's slices. Under ``pipe``
+and ``model`` (``pipe:2,model:2``) each stage writes its leaves so
+(``train/trainer.py`` ``_pipe_groups``), each piece cut again along the
+JAX stage layout's pipe dimension (``shards`` K*T, D*K*T for a ZeRO-1
+moment); a restore keeps the rank's stage's slices.
 
 Leaves are keyed ``a/b/c``; an empty subtree (optax's ``EmptyState``) is an
 ``{"empty": True}`` leaf. The shard file is written first into

@@ -170,9 +170,23 @@ directory each ``data`` index 0 rank writes its slices as pieces bounded
 in the whole leaf (``shards`` T, or D*T for a ZeRO-1 moment). Eval gathers
 the predictions over the ``data`` group.
 
+Pipeline stages of tensor-parallel layers (``--mesh pipe:K,model:T``,
+``data:D,pipe:K,model:T``; the JAX trainer's ``pipe x model``): each
+stage runs its layers over its own ``model`` group inside the schedule
+(``_pipe_train_step``); the batch reaches every rank of a data row's
+stages and slices (``_seq_consistent``: the ``pipe`` group's broadcast,
+then the ``model`` group's); a split leaf's gradient is summed over
+``data``, a whole leaf's over the stage's ``data`` x ``model`` ranks
+(``mesh.stage_group``) and divided by T; the logged values are the last
+stage's model rank 0's; the clip sums the split leaves' squares over
+``model``, then the stages' totals over ``pipe``; a checkpoint cuts each
+rank's ``model`` pieces along the stage layout's pipe dimension
+(``_pipe_groups``). The start-up line names the ``model`` axis beside the
+stage, as the pre-flight report's ``mesh_axes`` does.
+
 Left out (their flags are refused by ``config.parser.check_train_flags``,
 or accepted and ignored where they change no result): a ``model`` axis
-beside ``pipe`` or ``seq``.
+beside ``seq``.
 """
 
 from __future__ import annotations
@@ -208,6 +222,7 @@ from ..losses import PackedWeightedLoss
 from ..metrics import trace as trace_mod
 from ..metrics.meters import AverageMeter
 from ..metrics.trace import ProfilerWindow, time_profiler
+from ..models.convert import merge_jax_params
 from ..ops import cuda_build
 from ..parallel import collectives
 from ..parallel import dist as pdist
@@ -554,7 +569,7 @@ class Trainer:
     def _broadcast_parameters(self) -> None:
         """Every parameter from the first rank of this rank's ``data`` row
         (rank 0 without a ``model`` axis): the ranks of a row hold the same
-        slices."""
+        slices (under a ``pipe`` axis too: a row is one stage's)."""
         if self.tp is None:
             collectives.broadcast_parameters(self.model.named_parameters())
         elif self.plan.data_size > 1:
@@ -565,9 +580,11 @@ class Trainer:
     def _init_pipeline(self, model, schedule, param_sharding) -> None:
         """The ``pipe`` axis (``parallel/pipeline.py``): the schedule, this
         rank's stage and its storage, the JAX trainer's start-up line with
-        the modeled bubble. Under ``stage`` the parameters of the other
-        stages are released, after one broadcast from rank 0 has made every
-        replica equal."""
+        the modeled bubble (and, under a ``model`` axis, the stage's
+        tensor-parallel split). Under ``stage`` the parameters of the other
+        stages are released, after one broadcast from rank 0 (under a
+        ``model`` axis, from each ``data`` row's first rank: the rows hold
+        other slices) has made every replica equal."""
         self.pipe_stages = self.plan.pipe_size
         self.pipe_schedule = str(schedule or "gpipe").strip().lower()
         if self.pipe_schedule not in pipeline.PIPE_SCHEDULES:
@@ -584,23 +601,33 @@ class Trainer:
                                         schedule=self.pipe_schedule)
         self.pipe = pipeline.StageLayout(model, stages=self.pipe_stages,
                                          index=self.mesh.pipe_index,
-                                         layout=layout)
+                                         layout=layout, split=self.tp)
         self.pipe_runner = pipeline.PipelineStep(
             self.pipe, self.mesh.stage, schedule=self.pipe_schedule,
             dtype=model.transformer.embeddings.word_embeddings.compute_dtype,
             device=self.device)
         if self.process_count > 1:
-            collectives.broadcast_parameters(model.named_parameters())
+            if self.tp is None:
+                collectives.broadcast_parameters(model.named_parameters())
+            else:
+                self._broadcast_parameters()
         self.pipe.release(model)
+        cfg = model.cfg
         logger.info(
             "Pipeline parallelism: %d stages x %d layers over the pipe axis, "
             "%s schedule over %d micro-batch(es) (modeled bubble %.1f%%, "
-            "stage-local params %s); this rank is stage %d (layers %d..%d).",
+            "stage-local params %s); this rank is stage %d (layers %d..%d)"
+            "%s.",
             self.pipe_stages, self.pipe.hi - self.pipe.lo, self.pipe_schedule,
             self.batch_split, 100.0 * pipeline.modeled_bubble_fraction(
                 self.pipe_stages, self.batch_split, self.pipe_schedule),
             "on" if layout == "stage" else "off", self.pipe.index,
-            self.pipe.lo, self.pipe.hi - 1)
+            self.pipe.lo, self.pipe.hi - 1,
+            "" if self.tp is None else
+            f", model {self.mesh.model_index} of {self.model_size} within "
+            f"it ({cfg.num_heads // self.model_size} of {cfg.num_heads} "
+            f"heads, {cfg.intermediate_size // self.model_size} of "
+            f"{cfg.intermediate_size} MLP columns a layer)")
 
     @property
     def pipe_param_layout(self) -> Optional[str]:
@@ -632,28 +659,22 @@ class Trainer:
         """The gradients of one tensor-parallel step summed over the data:
         a rank's slices over its ``data`` row, never the world (other
         ranks' slices are other tensors); the leaves the ``model`` group
-        holds whole over the world and divided by the group's size. The
-        group's copies of such a leaf got the same gradient, so that is
-        their sum over ``data`` (exactly, at a size that is a power of
-        two) and keeps the copies one where an atomic kernel (the
-        embeddings' backward on the card) rounded them apart."""
+        holds whole over the ranks of its pipeline stage (``data`` x
+        ``model``: the world without a ``pipe`` axis; another stage holds
+        other leaves) and divided by the group's size. The group's copies
+        of such a leaf got the same gradient, so that is their sum over
+        ``data`` (exactly, at a size that is a power of two) and keeps the
+        copies one where an atomic kernel (the embeddings' backward on the
+        card) rounded them apart."""
         split = [(n, p) for n, p in params.items() if self.tp.sharded(n)]
         whole = [(n, p) for n, p in params.items() if not self.tp.sharded(n)]
         if self.plan.data_size > 1:
             collectives.all_reduce_gradients(split,
                                              group=self.mesh.data_group)
-        collectives.all_reduce_gradients(whole)
+        collectives.all_reduce_gradients(whole, group=self.mesh.stage_group)
         grads = [p.grad for _, p in whole if p.grad is not None]
         if grads:
             torch._foreach_mul_(grads, 1.0 / self.model_size)
-
-    def _whole_shape(self, name: str, shape) -> tuple:
-        """The whole shape of parameter ``name`` of local ``shape`` (a
-        ``model`` slice's dimension times the group's size)."""
-        shape = list(shape)
-        if self.tp is not None and self.tp.sharded(name):
-            shape[self.tp.dims[name]] *= self.tp.size
-        return tuple(shape)
 
     def zero_enabled(self) -> bool:
         """``zero1`` requested and a data axis > 1 to shard over (at data
@@ -668,7 +689,8 @@ class Trainer:
         if not self.zero_enabled():
             return None
         plan = self.plan.zero1(
-            ((n, self._whole_shape(n, p.shape))
+            ((n, p.shape if self.tp is None
+              else self.tp.whole_shape(n, p.shape))
              for n, p in self._own_parameters().items()),
             min_size=self.zero_min_size,
             stage_pipe=self.pipe_param_layout == "stage")
@@ -825,29 +847,33 @@ class Trainer:
         on every rank of its ``seq`` (``pipe``, ``model``) group
         (broadcast): the group computes blocks (stages, slices) of one set
         of rows, whatever a rank's own dataset drew (a chunk sampler
-        without a seed draws per process). Raises when the ranks' shapes
-        differ."""
+        without a seed draws per process). Under ``pipe`` and ``model``
+        the pipeline's first, then each stage's ``model`` group's: every
+        rank of a data row's stages and slices holds stage 0's model rank
+        0's rows. Raises when the ranks' shapes differ."""
+        mesh, groups = self.mesh, []
         if self.pipe is not None:
-            ranks, group = self.mesh.pipe_ranks, self.mesh.pipe_group
+            groups.append((mesh.pipe_ranks, mesh.pipe_group))
         elif self.seq_size > 1:
-            ranks, group = self.mesh.seq_ranks, self.mesh.seq_group
-        elif self.model_size > 1:
-            ranks, group = self.mesh.model_ranks, self.mesh.model_group
-        else:
+            groups.append((mesh.seq_ranks, mesh.seq_group))
+        if self.model_size > 1:
+            groups.append((mesh.model_ranks, mesh.model_group))
+        if not groups:
             return tensors
         flat = [(part, key) for part in ("inputs", "labels")
                 for key in sorted(tensors[part])]
-        shapes = torch.tensor([d for part, key in flat
-                               for d in (len(tensors[part][key].shape),
-                                         *tensors[part][key].shape)])
-        mine = shapes.clone()
-        collectives.broadcast_(shapes, ranks[0], group)
-        if not torch.equal(shapes, mine):
-            raise RuntimeError(
-                f"the ranks of group {ranks} drew batches of different "
-                f"shapes; they must hold one set of rows")
-        for part, key in flat:
-            collectives.broadcast_(tensors[part][key], ranks[0], group)
+        for ranks, group in groups:
+            shapes = torch.tensor([d for part, key in flat
+                                   for d in (len(tensors[part][key].shape),
+                                             *tensors[part][key].shape)])
+            mine = shapes.clone()
+            collectives.broadcast_(shapes, ranks[0], group)
+            if not torch.equal(shapes, mine):
+                raise RuntimeError(
+                    f"the ranks of group {ranks} drew batches of different "
+                    f"shapes; they must hold one set of rows")
+            for part, key in flat:
+                collectives.broadcast_(tensors[part][key], ranks[0], group)
         return tensors
 
     def _model_inputs(self, inputs: Dict[str, torch.Tensor]) -> dict:
@@ -872,9 +898,11 @@ class Trainer:
 
     def _pipe_fields(self) -> dict:
         """The pipeline's fields of the pre-flight reports (the JAX
-        trainer's ``_preflight_pipe_fields``): the
-        schedule, the layout, each stage's layers and each stage's bytes in
-        the ownership view (None without a pipe axis > 1)."""
+        trainer's ``_preflight_pipe_fields``): the schedule, the layout,
+        each stage's layers and each stage's bytes in the ownership view
+        (the whole leaves, as the JAX trainer counts them under a ``model``
+        axis too; the report's ``mesh_axes`` names that axis), None without
+        a pipe axis > 1."""
         if self.pipe is None:
             return {"pipe_schedule": None, "pipe_param_layout": None,
                     "pipe_stage_layers": None, "pipe_stage_param_bytes": None}
@@ -883,8 +911,9 @@ class Trainer:
             "pipe_param_layout": self.pipe.layout,
             "pipe_stage_layers": self.plan.stage_map(self.pipe.num_layers),
             "pipe_stage_param_bytes": pipeline.stage_param_bytes(
-                pipeline.shape_tree(self.pipe.shapes),
-                pipe_size=self.pipe_stages)["per_stage_bytes"],
+                pipeline.shape_tree(self.pipe.whole),
+                pipe_size=self.pipe_stages,
+                model_size=self.model_size)["per_stage_bytes"],
         }
 
     def _preflight_fields(self, limit: int) -> dict:
@@ -1307,12 +1336,17 @@ class Trainer:
                          labels: Dict[str, torch.Tensor]) -> dict:
         """:meth:`train_step` of one pipeline stage: the schedule's
         micro-batches (:meth:`_pipe_micro_batches`), then the stage's
-        gradients summed over its ``data`` group, scaled by
-        ``1/batch_split``, clipped by the norm of the whole model's
-        gradient (each stage's squares summed over the ``pipe`` group), and
-        the stage's update; under ``replicated`` each stage's updated
-        parameters are then broadcast over the ``pipe`` group. The logged
-        values are the last stage's, summed over the world."""
+        gradients summed over its ``data`` group (under a ``model`` axis,
+        :meth:`_reduce_model_gradients`: a rank's slices over ``data``, the
+        leaves it holds whole over the stage's ``data`` x ``model`` ranks
+        and divided by the group's size), scaled by ``1/batch_split``,
+        clipped by the norm of the whole model's gradient (each stage's
+        squares, those of the split leaves summed over ``model``, summed
+        over the ``pipe`` group), and the stage's update; under
+        ``replicated`` each stage's updated parameters are then broadcast
+        over the ``pipe`` group. The logged values are the last stage's,
+        one ``model`` rank's (its group computed the same), summed over
+        the world."""
         model, params = self.model, self.optimizer.params
         model.train()
         for p in params.values():
@@ -1321,10 +1355,15 @@ class Trainer:
         keys = list(self.loss.keys) + ["loss"]
         values = torch.stack([summed.get(k, torch.zeros((), device=self.device))
                               for k in keys]).float()
+        if self.mesh.model_index:
+            values.zero_()
         if self.process_count > 1:
-            # the last stage's values; the other stages add zeros
+            # the last stage's values; the other stages (and the other
+            # ranks of a model group) add zeros
             collectives.all_reduce_sum_(values)
-        if self.plan.data_size > 1:
+        if self.tp is not None:
+            self._reduce_model_gradients(params)
+        elif self.plan.data_size > 1:
             collectives.all_reduce_gradients(params.items(),
                                              group=self.mesh.data_group)
         inv = 1.0 / self.batch_split
@@ -1344,8 +1383,11 @@ class Trainer:
             lr = self.optimizer.schedule(self.global_step)
         if finite:
             if self.max_grad_norm is not None and self.max_grad_norm > 0:
+                split = (None if self.tp is None else
+                         dict(sharded=[self.tp.sharded(n) for n in grads],
+                              model_sum=self._model_sum))
                 clip_by_global_norm_(list(grads.values()), self.max_grad_norm,
-                                     sum_over=self._pipe_sum)
+                                     sum_over=self._pipe_sum, **(split or {}))
             self.optimizer.step(grads)
             if self.pipe.layout == "replicated":
                 self._share_stage_parameters()
@@ -1713,22 +1755,30 @@ class Trainer:
         sharded save) each leaf is a list of :class:`LocalPiece` in the JAX
         stage layout's geometry (``StageLayout.pieces``): a stage's
         parameters and its whole moments are written by its ``data`` index
-        0 rank, a ZeRO-1 moment's slices by every rank of the stage, the
-        counts and the loss-scale state by rank 0. Without it, the stage's
-        whole leaves (every rank of the stage takes part in the ZeRO-1
-        gather) for rank 0 to merge."""
+        0 rank (under a ``model`` axis, each slice of a split leaf by that
+        rank of its ``model`` group, a leaf the group holds whole by its
+        ``model`` index 0 rank), a ZeRO-1 moment's slices by every rank of
+        the stage, the counts and the loss-scale state by rank 0. Without
+        it, the stage's whole leaves (every rank of the stage takes part in
+        the ZeRO-1 and ``model`` gathers) for rank 0 to merge."""
         from ..models.convert import jax_path, to_jax_params
         from ..parallel.sharding import LocalPiece
 
-        lay, named = self.pipe, dict(self.model.named_parameters())
-        writer = self.mesh.data_index == 0
+        lay, tp = self.pipe, self.tp
+        named = {n: p for n, p in self.model.named_parameters()
+                 if n in set(lay.owned)}
+        # the rank that writes a leaf its model group holds whole
+        writer = self.mesh.data_index == 0 and self.mesh.model_index == 0
         groups = {}
+        if tp is not None and not local:
+            # every rank of the model group gathers the split leaves
+            named = {n: tp.gather(n, p.detach()) for n, p in named.items()}
         if writer or local:
-            groups["model"] = to_jax_params(
-                {n: named[n] for n in lay.owned}, copy=copy)
+            groups["model"] = to_jax_params(named, copy=copy)
         if self.optimizer is not None:
-            groups["optimizer"] = self.optimizer.flax_state(copy=copy,
-                                                            local=local)
+            optimizer = self.optimizer.flax_state(copy=copy, local=local)
+            if writer or local:
+                groups["optimizer"] = optimizer
         if self.loss_scale is not None and self.is_primary:
             groups["loss_scale"] = self.loss_scale.state_dict()
         if not local:
@@ -1744,9 +1794,12 @@ class Trainer:
                     1, self.is_primary)]
             if not isinstance(leaf, LocalPiece):
                 arr = np.asarray(leaf)
-                leaf = LocalPiece(arr.shape, tuple((0, int(d))
-                                                   for d in arr.shape),
-                                  arr, 1, writer)
+                if tp is not None and tp.sharded(name):   # a weight
+                    leaf = tp.piece(name, arr)
+                else:
+                    leaf = LocalPiece(arr.shape, tuple((0, int(d))
+                                                       for d in arr.shape),
+                                      arr, 1, writer)
             return lay.pieces(name, leaf)
 
         def walk(tree, prefix=()):
@@ -1779,17 +1832,7 @@ class Trainer:
                            dst=0)
         if not self.is_primary:
             return None
-        merged: dict = {}
-
-        def merge(dst, src):
-            for k, v in src.items():
-                if isinstance(v, dict) and isinstance(dst.get(k), dict):
-                    merge(dst[k], v)
-                else:
-                    dst.setdefault(k, v)
-
-        for part in parts:
-            merge(merged, part)
+        merged = merge_jax_params(*parts)
         state = {"model": merged["model"],
                  "optimizer": merged.get("optimizer"),
                  "scheduler": {"last_step": int(kw["global_step"])},

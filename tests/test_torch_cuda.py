@@ -1743,6 +1743,61 @@ def test_pipe_pair_on_the_card_equals_the_one_process_step(cuda, tmp_path):
         assert f8["peak"] < g8["peak"], (rank, f8["peak"], g8["peak"])
 
 
+# -- pipeline stages of tensor-parallel layers on the card ---------------------
+
+@pytest.mark.cuda
+def test_pipe_model_pair_on_the_card_equals_the_one_process_step(cuda,
+                                                                  tmp_path):
+    """Four ranks of ``pipe:2,model:2`` share the card (gloo on CUDA
+    tensors, the model groups' all-reduces staged through host memory, the
+    tiny trainer of ``tests/test_torch_pipe_model_worker.py``: kernel
+    attention on a rank's one head and kernel LayerNorm, one layer a
+    stage): under GPipe and 1F1B, the steps' values, the whole gradient at
+    the first clip and the gathered parameters are the one-process steps'
+    on the same batch, and each rank's model group took 2 all-reduces a
+    layer forward and backward through the host."""
+    import sys
+    from pathlib import Path
+
+    import torch_ddp_worker as worker
+    import test_torch_pipe_model_worker as pmw
+
+    out = tmp_path / "card"
+    out.mkdir()
+    for rc, err in worker.run_pairs(lambda rank, port: [
+            sys.executable, str(Path(pmw.__file__)), "card", str(rank), "4",
+            str(port), str(out), "cuda"], ranks=4)[0]:
+        assert rc == 0, err[-3000:]
+    for schedule in ("gpipe", "1f1b"):
+        quad = [torch.load(out / f"{schedule}_rank{r}.pt") for r in range(4)]
+        one = worker.oracle_whole(tmp_path / schedule, quad[0], "cuda",
+                                  dropout=0.0)
+        for got, ref in zip(quad[0]["values"], one.values):
+            for key in ref:
+                np.testing.assert_allclose(got[key], ref[key], rtol=1e-4,
+                                           err_msg=key)
+        grads, whole = {}, {}
+        for rec in quad:
+            for name, g in rec["grads"].items():
+                dim = rec["dims"].get(name)
+                grads.setdefault(name, (dim, {}))[1][
+                    rec["coords"]["model"]] = g
+            whole.update(rec["whole"])
+        grads = {n: torch.cat([p[0], p[1]], dim=dim) if dim is not None
+                 else p[0] for n, (dim, p) in grads.items()}
+        assert set(grads) == set(one.grads)
+        assert worker.rel_l2(grads, one.grads) <= DP_GRAD_REL_L2
+        for name, p in one.params.items():
+            np.testing.assert_allclose(whole[name], p, atol=1e-5,
+                                       err_msg=name)
+        for rec in quad:
+            # one layer a stage: 2 all-reduces forward and 2 backward a
+            # micro-batch (2 steps of 2) and a pre-flight probe
+            transport, micro = rec["transport"], 4 + rec["preflight_probes"]
+            assert transport["backward"] == transport["forward"] == 2 * micro
+            assert transport["staged_bytes"] == 2 * transport["bytes"] > 0
+
+
 # -- tensor parallelism on the card --------------------------------------------
 
 @pytest.mark.cuda

@@ -106,6 +106,13 @@ def test_card_worker_of_the_model_axis_imports_no_jax():
     assert not [m for m in _imports(path) if _forbidden(m)]
 
 
+def test_card_worker_of_pipe_model_imports_no_jax():
+    """The pipe x model tests' worker also runs the card's
+    ``-k pipe_model_pair`` quad, where there is no jax."""
+    path = _REPO / "tests" / "test_torch_pipe_model_worker.py"
+    assert not [m for m in _imports(path) if _forbidden(m)]
+
+
 def test_launcher_script_names_no_jax_module():
     text = (_REPO / "scripts" / "worker_torch.sh").read_text()
     named = set(re.findall(r"python[0-9.]* -m ([\w.]+)", text))

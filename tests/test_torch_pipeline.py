@@ -7,8 +7,8 @@ In process: the schedule accounting (``stage_layer_count``,
 ``measured_bubble_fractions``) for K in {1, 2, 4} and m in {1, 2, 4, 8};
 ``validate_pipeline_plan``'s refusals; ``stage_param_bytes`` and the
 ZeRO-1 plan within a stage's leaves on the same weights; the schedules'
-units and in-flight counts; the two pipe flags live, ``pipe:2,seq:2`` and
-any ``model`` axis refused, naming ROADMAP.
+units and in-flight counts; the two pipe flags live beside a ``model``
+axis too, ``pipe:2,seq:2`` refused, naming ROADMAP.
 
 One module fixture runs, at once, the port's 4-rank gloo world of
 ``tests/test_torch_pipeline_worker.py train`` (``data:2,pipe:2``, the tiny trainer
@@ -215,24 +215,26 @@ def test_pipe_flag_values_are_checked(tmp_path):
     check_train_flags(params, model_params)
 
 
-@pytest.mark.parametrize("extra,refused", [
+@pytest.mark.parametrize("extra,refused,world", [
     (["--mesh", "pipe:2", "--pipe_schedule", "1f1b",
-      "--pipe_param_sharding", "replicated"], False),
-    (["--mesh", "pipe:2,seq:2"], True),
-    (["--mesh", "pipe:2,model:1"], True),
-    # the model axis is ported, but not beside pipe
-    (["--mesh", "pipe:2,model:2"], True)],
+      "--pipe_param_sharding", "replicated"], False, 2),
+    (["--mesh", "pipe:2,seq:2"], True, 4),
+    # a model axis beside pipe is ported (tests/test_torch_pipe_model.py)
+    (["--mesh", "pipe:2,model:1"], False, 2),
+    (["--mesh", "pipe:2,model:2", "--pipe_schedule", "1f1b"], False, 4)],
     ids=["pipe", "pipe_seq", "pipe_model", "model"])
 def test_pipe_flags_are_live_and_the_rest_refused(tmp_path, caplog, extra,
-                                                  refused):
-    params, model_params = _flags(tmp_path, *extra)
+                                                  refused, world):
+    params, model_params = _flags(tmp_path, *extra, world=world)
     if refused:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             check_train_flags(params, model_params)
         return
     with caplog.at_level("INFO"):
         check_train_flags(params, model_params)
-    assert "--pipe_schedule 1f1b" in caplog.text
+    assert "Pipeline (live): --pipe_schedule" in caplog.text
+    if "1f1b" in extra:
+        assert "--pipe_schedule 1f1b" in caplog.text
     ignored = [r.getMessage() for r in caplog.records
                if "Accepted but not ported" in r.getMessage()]
     assert ignored and "pipe" not in ignored[0]

@@ -7,9 +7,10 @@ them equal the JAX package's ``param_pspecs`` and ``zero1_plan`` leaf for
 leaf (axes, padded extents) and ``zero1_state_bytes``; a rank's dropout
 seeds draw one process's masks for its heads (``model_row_seeds``); a JAX
 tree converted at ``model:2`` and gathered back is the tree; the mesh's
-coordinates and groups; the refusals (``model`` beside ``pipe`` or
-``seq``, ring attention beside it, a model size that does not divide the
-heads, predict and serve on a mesh), each naming ROADMAP.
+coordinates and groups; the refusals (``model`` beside ``seq``, ring
+attention beside it, a model size that does not divide the heads, predict
+and serve on a mesh), each naming ROADMAP; ``model`` beside ``pipe`` is
+accepted (``tests/test_torch_pipe_model.py``).
 
 One module fixture runs, at once, the port's 2-rank gloo world of
 ``tests/test_torch_tensor_parallel_worker.py pair`` (``model:2``), its
@@ -291,7 +292,9 @@ def _train_flags(tmp, *extra, world=2):
 
 
 @pytest.mark.parametrize("mesh,world", [("model:2", 2),
-                                        ("data:2,model:2", 4)])
+                                        ("data:2,model:2", 4),
+                                        ("pipe:2,model:2", 4),
+                                        ("data:2,pipe:2,model:1", 4)])
 def test_model_meshes_are_accepted(tmp_path, mesh, world):
     params, model_params = _train_flags(tmp_path, "--mesh", mesh,
                                         "--optimizer_sharding", "zero1",
@@ -301,11 +304,10 @@ def test_model_meshes_are_accepted(tmp_path, mesh, world):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--mesh", "pipe:2,model:2"], ["--mesh", "seq:2,model:2"],
-    ["--mesh", "data:2,pipe:2,model:1"],
+    ["--mesh", "seq:2,model:2"],
     ["--mesh", "model:2", "--flash_attention", "ring"],
     ["--mesh", "model:4"]],
-    ids=["pipe", "seq", "pipe_model1", "ring", "heads"])
+    ids=["seq", "ring", "heads"])
 def test_model_compositions_are_refused_naming_roadmap(tmp_path, extra):
     params, model_params = _train_flags(tmp_path, *extra, world=4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
